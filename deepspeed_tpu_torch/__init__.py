@@ -1,0 +1,45 @@
+"""deepspeed_tpu_torch: the PyTorch / CUDA port of ``deepspeed_tpu``.
+
+A second package beside the JAX one, which stays the reference.  It
+imports torch and never jax, and nothing of ``deepspeed_tpu``.  Entry
+points run on the CUDA card unless the caller passes ``device="cpu"``; with
+no card and no device given they raise.
+
+This slice serves the Llama family through the paged continuous-batching
+engine on the unfused decode path, with RMSNorm (CUDA C++) and RoPE
+(Triton) as hand-written Hopper kernels.  ROADMAP.md lists what comes next.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+from deepspeed_tpu_torch.accelerator.real_accelerator import DeviceLike
+from deepspeed_tpu_torch.models import causal_lm
+
+__all__ = ["init_serving", "causal_lm"]
+
+
+def init_serving(model=None, config=None, *, params: Any = None,
+                 device: DeviceLike = None, num_slots: int = 0,
+                 prefill_chunk: int = 0, decode_block_tokens: int = 0,
+                 do_sample: bool = False, temperature: float = 1.0,
+                 top_k: int = 0, top_p: float = 1.0, **config_kwargs):
+    """Create a continuous-batching :class:`~deepspeed_tpu_torch.serving.
+    engine.ServingEngine` over a paged KV cache (counterpart of
+    ``deepspeed_tpu.init_serving``).  ``config`` is a dict or a
+    :class:`~deepspeed_tpu_torch.inference.config.DeepSpeedInferenceConfig`;
+    extra keyword arguments are config keys laid over it.  ``params`` is
+    the nested parameter dict (default: the model's own weights);
+    ``device=None`` is the CUDA card."""
+    from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
+    from deepspeed_tpu_torch.serving.engine import ServingEngine
+
+    if isinstance(config, DeepSpeedInferenceConfig):
+        config = config.model_dump()
+    config = DeepSpeedInferenceConfig(**{**(config or {}), **config_kwargs})
+    return ServingEngine(model, config, params=params, device=device,
+                         num_slots=num_slots, prefill_chunk=prefill_chunk,
+                         decode_block_tokens=decode_block_tokens,
+                         do_sample=do_sample, temperature=temperature,
+                         top_k=top_k, top_p=top_p)

@@ -1,0 +1,74 @@
+"""Model building blocks wired to the port's kernels.
+
+Counterpart of ``deepspeed_tpu/models/layers.py``: the norm and RoPE
+helpers dispatch to ``deepspeed_tpu_torch/ops/kernels`` (a kernel for a
+CUDA tensor, the plain version for a CPU tensor); everything else is plain
+PyTorch, as the JAX package left it to XLA.  Meshes, sharding constraints
+and the training attention core are not in this slice.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from deepspeed_tpu_torch.ops.kernels import apply_rotary_pos_emb, rms_norm
+
+
+def norm(x: torch.Tensor, params, kind: str, eps: float) -> torch.Tensor:
+    """RMSNorm through the port's kernel.  LayerNorm (the gpt2 family) is
+    not ported yet: ROADMAP.md queue 1, "LayerNorm fwd/bwd" slice."""
+    if kind == "rmsnorm":
+        return rms_norm(x, params["scale"], eps=eps)
+    raise NotImplementedError(
+        f"norm {kind!r} is not ported yet (ROADMAP.md queue 1: LayerNorm "
+        f"fwd/bwd, the gpt2 family)")
+
+
+def activation_fn(name: str):
+    return {"silu": F.silu,
+            "gelu": lambda x: F.gelu(x, approximate="tanh"),
+            "gelu_exact": lambda x: F.gelu(x, approximate="none"),
+            "relu": F.relu}[name]
+
+
+def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """GQA: expand [B, Hkv, S, D] -> [B, Hkv*n_rep, S, D]; head h reads kv
+    head h // n_rep."""
+    if n_rep == 1:
+        return k
+    return torch.repeat_interleave(k, n_rep, dim=1)
+
+
+def alibi_slopes(num_heads: int, device=None) -> torch.Tensor:
+    """Per-head ALiBi slopes (Press et al.): geometric 2^(-8i/H) for
+    power-of-two H, with the standard interpolation for other head counts."""
+    def pow2_slopes(n):
+        start = 2.0 ** (-(2.0 ** -(math.log2(n) - 3)))
+        return [start * (start ** i) for i in range(n)]
+
+    n = 2 ** math.floor(math.log2(num_heads))
+    slopes = pow2_slopes(n)
+    if n < num_heads:
+        extra = pow2_slopes(2 * n)
+        slopes += extra[0::2][: num_heads - n]
+    return torch.tensor(slopes, dtype=torch.float32, device=device)
+
+
+def apply_partial_rope(x: torch.Tensor, cos: torch.Tensor,
+                       sin: torch.Tensor) -> torch.Tensor:
+    """Rotate the first ``2*cos.shape[-1]`` head dims, pass the rest through
+    (gpt-neox ``rotary_pct``)."""
+    rot = 2 * cos.shape[-1]
+    if rot == x.shape[-1]:
+        return apply_rotary_pos_emb(x, cos, sin)
+    rotated = apply_rotary_pos_emb(x[..., :rot].contiguous(), cos, sin)
+    return torch.cat([rotated, x[..., rot:]], dim=-1)
+
+
+def rope_dim(cfg) -> int:
+    """Rotated head dims (even; head_dim * rotary_pct, neox convention)."""
+    d = int(cfg.head_dim * cfg.rotary_pct)
+    return max(2, d - (d % 2))

@@ -1,0 +1,46 @@
+"""Shared helpers for the port's hand-written kernels.
+
+Counterpart of ``deepspeed_tpu/ops/pallas/common.py``.  The JAX package
+picks the Pallas kernel or its jnp reference from the jax backend (with an
+environment override); the port decides by the device the tensor lies on,
+and by nothing else:
+
+- a CUDA tensor goes to the kernel, which launches or raises — no wrapper
+  falls back to the plain version when a kernel fails;
+- a CPU tensor goes to the plain PyTorch version (the CPU tests, and the
+  reference the kernels are held against on the card);
+- any other device is refused.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# dtypes the kernels take, with the code the CUDA C interface uses for each
+KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def use_kernel(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
+    (run the plain version); raises for any other device."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+def check_kernel_input(name: str, t: torch.Tensor, device: torch.device,
+                       dtype: torch.dtype = None) -> None:
+    """Raise unless ``t`` is a contiguous tensor of a kernel dtype on
+    ``device`` (and of ``dtype`` when given)."""
+    if t.device != device:
+        raise ValueError(f"{name}: expected a tensor on {device}, got "
+                         f"{t.device}")
+    if t.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{name}: dtype {t.dtype} not supported (kernels "
+                        f"take {sorted(str(d) for d in KERNEL_DTYPES)})")
+    if dtype is not None and t.dtype != dtype:
+        raise TypeError(f"{name}: expected dtype {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
