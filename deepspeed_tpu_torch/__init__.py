@@ -5,9 +5,13 @@ imports torch and never jax, and nothing of ``deepspeed_tpu``.  Entry
 points run on the CUDA card unless the caller passes ``device="cpu"``; with
 no card and no device given they raise.
 
-This slice serves the Llama family through the paged continuous-batching
-engine on the unfused decode path, with RMSNorm (CUDA C++) and RoPE
-(Triton) as hand-written Hopper kernels.  ROADMAP.md lists what comes next.
+It serves the Llama family through the paged continuous-batching engine.
+Decode runs the kernel-injected (fused) path by default: four CUDA C++
+kernels per layer (fused norm+QKV, paged flash-decode attention,
+out-projection+residual+norm, fused MLP); ``use_fused_decode: False``
+keeps the unfused path.  Prefill runs RMSNorm (CUDA C++) and RoPE
+(Triton).  All six are hand-written Hopper kernels.  ROADMAP.md lists what
+comes next.
 """
 
 from __future__ import annotations

@@ -1,0 +1,841 @@
+// Fused per-layer decode kernels for Hopper (sm_90a), with a plain C interface.
+//
+// Replaces the Pallas kernels of deepspeed_tpu/ops/pallas/decode.py that the
+// serving engine's default (kernel-injected) decode step launches per layer:
+//
+//   fused_norm_qkv      (decode.py:123, pallas_call :147) -> norm_qkv_kernel
+//   _flash_decode_paged (decode.py:252, pallas_call :311) -> flash_decode_paged_kernel
+//   fused_proj_norm     (decode.py:433, pallas_call :460) -> proj_norm_kernel
+//   fused_mlp           (decode.py:546, pallas_call :591) -> mlp_act_kernel
+//                                                            + mlp_down_kernel
+//
+// What bounds them on the H100: memory bytes.  A decode step multiplies
+// num_slots (8) activation rows by each weight matrix: about 8 flops per
+// weight byte against the ~295 at which the bf16 tensor cores would become
+// the limit.  At llama3-8b the three GEMV kernels stream 50.3 MB (QKV),
+// 33.6 MB (out-projection) and 352.3 MB (MLP) of weights per layer, bounds
+// of 15.0, 10.0 and 105.2 us at 3.35 TB/s; the attention kernel reads the
+// K/V rows up to each slot's depth (9.8 MB for 8 slots at depth 300).
+//
+// Design of the three GEMV kernels (one shared core, gemv_partial +
+// reduce_tile): the grid splits the output columns into tiles of kCV
+// 16-byte vectors; each block streams its [K, tile] slice of the weight once
+// with 16-byte loads, its threads splitting the contraction K into
+// interleaved row groups, each thread loading kUnroll weight rows before it
+// multiplies any and keeping kBT x 8 fp32 accumulators (FFMA: no tensor
+// cores, so an fp32 model computes in full fp32, never TF32).  The kernels
+// are memory-latency bound, so warps in flight count most: at most 128
+// registers a thread and 16 warps per SM: two 256-thread blocks per SM
+// where the grid has more blocks than SMs, else one 512-thread block (a
+// register double buffer measured slower on the H100: it took 156-161
+// registers and halved the warps per SM).  The row
+// groups' partials are summed in a fixed order (warp shuffles, then shared
+// memory): no float atomics, the same bits on every run.  Blocks run in any
+// order, so nothing carries from block to block as the Pallas grid carries
+// its scratch:
+//   - norm_qkv stages x (L2-resident) into shared memory in every block,
+//     16 bytes at a time, and normalises it there in place (one warp per
+//     row), rounded to the activation dtype as the jnp reference rounds it;
+//   - proj_norm needs whole rows of the fp32 sum resid + ctx @ wo, which span
+//     every block: each block writes its columns to an fp32 scratch, takes a
+//     ticket after a __threadfence, and the last block normalises all rows
+//     (16-byte reads) and resets the ticket;
+//   - the MLP is two launches: mlp_act writes a = act(h @ Wg) * (h @ Wu),
+//     rounded to the activation dtype as the reference rounds it, as [F, B]
+//     (so the down projection reads a row's B values as 16-byte vectors),
+//     and mlp_down computes r + a @ Wd over output-column tiles.
+//
+// Design of flash_decode_paged_kernel: one block per (slot, KV head); the
+// rep query heads of a GQA group share each K/V row.  The block reads its
+// slot's depth and page-table row itself (the Pallas kernel's scalar
+// prefetch) and visits only the pages up to pos // page: pages past a slot's
+// depth are neither read nor computed.  Each warp takes kFdTokens keys at a
+// time (lanes split the head dim), keeps an fp32 online softmax per query
+// head, and the warps' (m, l, acc) are merged in a fixed order at the end.
+// The layer's pool is addressed in place (the wrapper offsets the stacked
+// [L, P, Hkv, page, Dh] pointer): no copy, no gather.
+//
+// Nothing is allocated here: the wrappers pass outputs, scratch, the
+// proj_norm ticket and the stream.  Every entry point returns the
+// cudaError_t of its launches (0 on success).
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+// GEMV blocks are NT threads, a template parameter chosen per launch from the
+// grid (narrow_blocks below): at most 128 registers a thread either way, so
+// 16 warps stay resident per SM.  NT / kCV row groups split the contraction.
+constexpr int kThreadsWide = 512;
+constexpr int kThreadsNarrow = 256;
+constexpr int kBT = 8;                  // batch rows per pass
+constexpr int kCV = 4;                  // 16-byte column vectors per block tile
+constexpr int kUnroll = 4;              // weight rows in flight per thread
+constexpr int kSmemDefault = 48 * 1024;
+constexpr float kNegInf = -1e30f;       // decode.py NEG_INF
+static_assert(kThreadsNarrow / 32 >= kBT, "one warp per batch row for the row statistics");
+static_assert(kBT % 8 == 0, "a pass's activations fill whole 16-byte vectors");
+
+constexpr int kFdWarps = 8;             // flash decode: warps per block
+constexpr int kFdTokens = 4;            // keys a warp holds in flight
+
+enum NormKind { kRms = 0, kLayer = 1 };
+enum Act { kSilu = 0, kGelu = 1, kGeluExact = 2, kRelu = 3 };
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
+
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);  // round to nearest even, as torch casts
+}
+template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
+  return __float2half(v);
+}
+
+// 16 bytes of T, loaded as one vector.
+template <typename T>
+struct alignas(16) Pack {
+  static constexpr int N = 16 / sizeof(T);
+  T v[N];
+};
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__device__ __forceinline__ float act_fn(int act, float x) {
+  switch (act) {
+    case kSilu:
+      return x / (1.f + expf(-x));
+    case kGelu:  // tanh approximation (jax.nn.gelu(approximate=True))
+      return 0.5f * x * (1.f + tanhf(0.7978845608028654f * (x + 0.044715f * x * x * x)));
+    case kGeluExact:
+      return 0.5f * x * (1.f + erff(x * 0.7071067811865476f));
+    default:
+      return fmaxf(x, 0.f);
+  }
+}
+
+// Statistics of one row, computed by one warp; every lane gets them.
+// rmsnorm: mean 0, rstd = rsqrt(mean(x^2) + eps).  layernorm: the mean
+// first, then the centred variance, as decode.py `_normalize` computes them.
+template <class Src>
+__device__ __forceinline__ void warp_row_stats(Src src, int n, int kind, float eps,
+                                               float& mean, float& rstd) {
+  const int lane = threadIdx.x & 31;
+  mean = 0.f;
+  if (kind == kLayer) {
+    float s = 0.f;
+    for (int i = lane; i < n; i += 32) s += src(i);
+    mean = warp_sum(s) / static_cast<float>(n);
+  }
+  float ss = 0.f;
+  for (int i = lane; i < n; i += 32) {
+    const float c = src(i) - mean;
+    ss += c * c;
+  }
+  rstd = rsqrtf(warp_sum(ss) / static_cast<float>(n) + eps);
+}
+
+__device__ __forceinline__ float normalize(float v, float mean, float rstd, float scale,
+                                           float bias, int kind) {
+  const float y = (v - mean) * rstd * scale;
+  return kind == kLayer ? y + bias : y;
+}
+
+// Copy n elements of global rows into shared memory with all threads,
+// 16 bytes at a time when the source allows it.
+template <typename T, int NT>
+__device__ __forceinline__ void stage_rows(T* dst, const T* __restrict__ src, int n) {
+  using P = Pack<T>;
+  if (n % P::N == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0) {
+    const P* s = reinterpret_cast<const P*>(src);
+    P* d = reinterpret_cast<P*>(dst);
+    for (int i = threadIdx.x; i < n / P::N; i += NT) d[i] = s[i];
+  } else {
+    for (int i = threadIdx.x; i < n; i += NT) dst[i] = src[i];
+  }
+}
+
+// One thread's share of its block's column tile: rows d = rs, rs + kRS, ...
+// of W [K, N] at the 16-byte column vector starting at `col`, times the
+// pass's activations of each row (act_row(d, a) fills a[0..kBT), zero past
+// the pass's rows), summed in fp32.  The main loop loads kUnroll weight
+// rows, unconditionally, before it multiplies any.
+template <typename T, int NT, class ActRow>
+__device__ __forceinline__ void gemv_partial(const T* __restrict__ W, int K, int N, int col,
+                                             bool col_ok, int rs, ActRow act_row,
+                                             float (&acc)[kBT][Pack<T>::N]) {
+  using P = Pack<T>;
+  constexpr int V = P::N;
+#pragma unroll
+  for (int b = 0; b < kBT; ++b)
+#pragma unroll
+    for (int j = 0; j < V; ++j) acc[b][j] = 0.f;
+  if (!col_ok) return;
+  constexpr int kRS = NT / kCV;
+  const T* wp = W + col;
+  auto fma_row = [&](const P& w, int d) {
+    float a[kBT];
+    act_row(d, a);
+    float wf[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) wf[j] = to_f32(w.v[j]);
+#pragma unroll
+    for (int b = 0; b < kBT; ++b)
+#pragma unroll
+      for (int j = 0; j < V; ++j) acc[b][j] = fmaf(a[b], wf[j], acc[b][j]);
+  };
+  int d = rs;
+  for (; d + (kUnroll - 1) * kRS < K; d += kUnroll * kRS) {
+    P w[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      w[u] = *reinterpret_cast<const P*>(wp + static_cast<size_t>(d + u * kRS) * N);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) fma_row(w[u], d + u * kRS);
+  }
+  for (; d < K; d += kRS)
+    fma_row(*reinterpret_cast<const P*>(wp + static_cast<size_t>(d) * N), d);
+}
+
+// act_row over activations staged row-major in shared memory, [kBT, K].
+template <typename T>
+struct StagedRows {
+  const T* s;
+  int K, bc;
+  __device__ __forceinline__ void operator()(int d, float (&a)[kBT]) const {
+#pragma unroll
+    for (int b = 0; b < kBT; ++b) a[b] = b < bc ? to_f32(s[b * K + d]) : 0.f;
+  }
+};
+
+// Sum the row groups' partials of the block tile in a fixed order and hand
+// each output (b, c) of the tile (kBT rows x kCV * V columns) to epi(b, c, y).
+// `red` holds NT / 32 * kCV * kBT * V floats.  Ends with a barrier, so the
+// caller may reuse its shared buffers afterwards.
+template <typename T, int NT, class Epi>
+__device__ __forceinline__ void reduce_tile(float (&acc)[kBT][Pack<T>::N], float* red, int bc,
+                                            Epi epi) {
+  constexpr int V = Pack<T>::N;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // lanes kCV apart hold the same columns for different rows: fold them
+#pragma unroll
+  for (int b = 0; b < kBT; ++b)
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      float v = acc[b][j];
+#pragma unroll
+      for (int off = kCV; off < 32; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+      acc[b][j] = v;
+    }
+  if (lane < kCV) {
+#pragma unroll
+    for (int b = 0; b < kBT; ++b)
+#pragma unroll
+      for (int j = 0; j < V; ++j) red[((warp * kCV + lane) * kBT + b) * V + j] = acc[b][j];
+  }
+  __syncthreads();
+  for (int o = threadIdx.x; o < kBT * kCV * V; o += NT) {
+    const int b = o / (kCV * V);
+    const int c = o % (kCV * V);
+    const int cv = c / V, j = c % V;
+    if (b < bc) {
+      float y = 0.f;
+#pragma unroll
+      for (int w = 0; w < NT / 32; ++w) y += red[((w * kCV + cv) * kBT + b) * V + j];
+      epi(b, c, y);
+    }
+  }
+  __syncthreads();
+}
+
+// ---------------------------------------------------------------------------
+// fused_norm_qkv: out[B, N] = (norm(x)[B, D] rounded to T) @ W[D, N] (+ bqkv)
+// ---------------------------------------------------------------------------
+
+template <typename T, int NT>
+__global__ void __launch_bounds__(NT, 512 / NT)
+norm_qkv_kernel(const T* __restrict__ x, const T* __restrict__ scale,
+                const T* __restrict__ bias, const T* __restrict__ w,
+                const T* __restrict__ bqkv, T* __restrict__ out, int B, int D, int N,
+                int kind, float eps) {
+  constexpr int V = Pack<T>::N;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* h = reinterpret_cast<T*>(smem_raw);  // [kBT, D]
+  __shared__ float red[NT / 32 * kCV * kBT * V];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tile0 = blockIdx.x * kCV * V;
+  const int col = tile0 + (threadIdx.x % kCV) * V;
+  const int rs = threadIdx.x / kCV;
+  for (int b0 = 0; b0 < B; b0 += kBT) {
+    const int bc = min(kBT, B - b0);
+    stage_rows<T, NT>(h, x + static_cast<size_t>(b0) * D, bc * D);
+    __syncthreads();
+    if (warp < bc) {  // normalise row `warp` in place
+      T* row = h + warp * D;
+      float mean, rstd;
+      warp_row_stats([&](int i) { return to_f32(row[i]); }, D, kind, eps, mean, rstd);
+      for (int i = lane; i < D; i += 32)
+        row[i] = from_f32<T>(normalize(to_f32(row[i]), mean, rstd, to_f32(scale[i]),
+                                       bias ? to_f32(bias[i]) : 0.f, kind));
+    }
+    __syncthreads();
+    float acc[kBT][V];
+    gemv_partial<T, NT>(w, D, N, col, col < N, rs, StagedRows<T>{h, D, bc}, acc);
+    reduce_tile<T, NT>(acc, red, bc, [&](int b, int c, float y) {
+      const int n = tile0 + c;
+      if (n < N) {
+        if (bqkv) y += to_f32(bqkv[n]);
+        out[static_cast<size_t>(b0 + b) * N + n] = from_f32<T>(y);
+      }
+    });
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fused_proj_norm: r = resid + ctx @ wo (+ bo); h = norm(r in fp32 | resid)
+// ---------------------------------------------------------------------------
+
+template <typename T, int NT>
+__global__ void __launch_bounds__(NT, 512 / NT)
+proj_norm_kernel(const T* __restrict__ ctx, const T* __restrict__ resid,
+                 const T* __restrict__ wo, const T* __restrict__ bo,
+                 const T* __restrict__ scale, const T* __restrict__ bias,
+                 T* __restrict__ r_out, T* __restrict__ h_out, float* __restrict__ r32,
+                 unsigned int* __restrict__ ticket, int B, int M, int D, int kind, float eps,
+                 int parallel) {
+  constexpr int V = Pack<T>::N;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* c_s = reinterpret_cast<T*>(smem_raw);  // [kBT, M]
+  __shared__ float red[NT / 32 * kCV * kBT * V];
+  __shared__ bool last;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tile0 = blockIdx.x * kCV * V;
+  const int col = tile0 + (threadIdx.x % kCV) * V;
+  const int rs = threadIdx.x / kCV;
+  for (int b0 = 0; b0 < B; b0 += kBT) {
+    const int bc = min(kBT, B - b0);
+    stage_rows<T, NT>(c_s, ctx + static_cast<size_t>(b0) * M, bc * M);
+    __syncthreads();
+    float acc[kBT][V];
+    gemv_partial<T, NT>(wo, M, D, col, col < D, rs, StagedRows<T>{c_s, M, bc}, acc);
+    reduce_tile<T, NT>(acc, red, bc, [&](int b, int c, float y) {
+      const int n = tile0 + c;
+      if (n < D) {
+        if (bo) y += to_f32(bo[n]);
+        const size_t i = static_cast<size_t>(b0 + b) * D + n;
+        const float r = to_f32(resid[i]) + y;
+        r_out[i] = from_f32<T>(r);
+        r32[i] = r;
+      }
+    });
+  }
+  // The norm reads whole rows of r32, and every block wrote a slice of each:
+  // the last block to take a ticket normalises all rows.
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // One warp per row; each lane takes 4 consecutive columns at a time (D is
+  // a multiple of 4: the wrapper checks it), r32 read 16 bytes at a time
+  // with __ldcg, through L2, never from a stale L1 line.
+  for (int b = warp; b < B; b += NT / 32) {
+    const size_t row = static_cast<size_t>(b) * D;
+    auto load4 = [&](int i, float (&v)[4]) {
+      if (parallel) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) v[k] = to_f32(resid[row + i + k]);
+      } else {
+        const float4 f = __ldcg(reinterpret_cast<const float4*>(r32 + row + i));
+        v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
+      }
+    };
+    float mean = 0.f, v[4];
+    if (kind == kLayer) {
+      float sum = 0.f;
+      for (int i = lane * 4; i < D; i += 128) {
+        load4(i, v);
+        sum += (v[0] + v[1]) + (v[2] + v[3]);
+      }
+      mean = warp_sum(sum) / static_cast<float>(D);
+    }
+    float ss = 0.f;
+    for (int i = lane * 4; i < D; i += 128) {
+      load4(i, v);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) ss += (v[k] - mean) * (v[k] - mean);
+    }
+    const float rstd = rsqrtf(warp_sum(ss) / static_cast<float>(D) + eps);
+    for (int i = lane * 4; i < D; i += 128) {
+      load4(i, v);
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        h_out[row + i + k] = from_f32<T>(normalize(v[k], mean, rstd, to_f32(scale[i + k]),
+                                                   bias ? to_f32(bias[i + k]) : 0.f, kind));
+    }
+  }
+  if (threadIdx.x == 0) *ticket = 0u;  // ready for the next launch on this stream
+}
+
+// ---------------------------------------------------------------------------
+// fused_mlp, launch (a): a_t[F, B] = act(h @ Wg (+bg)) * (h @ Wu (+bu)), or
+// act(h @ Wu (+bu)) without a gate, rounded to T
+// ---------------------------------------------------------------------------
+
+template <typename T, int NT>
+__global__ void __launch_bounds__(NT, 512 / NT)
+mlp_act_kernel(const T* __restrict__ h, const T* __restrict__ wu, const T* __restrict__ wg,
+               const T* __restrict__ bu, const T* __restrict__ bg, T* __restrict__ a_t,
+               int B, int D, int F, int act) {
+  constexpr int V = Pack<T>::N;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* h_s = reinterpret_cast<T*>(smem_raw);  // [kBT, D]
+  __shared__ float red[NT / 32 * kCV * kBT * V];
+  __shared__ float up_s[kBT * kCV * V];
+  const int tile0 = blockIdx.x * kCV * V;
+  const int col = tile0 + (threadIdx.x % kCV) * V;
+  const int rs = threadIdx.x / kCV;
+  for (int b0 = 0; b0 < B; b0 += kBT) {
+    const int bc = min(kBT, B - b0);
+    stage_rows<T, NT>(h_s, h + static_cast<size_t>(b0) * D, bc * D);
+    __syncthreads();
+    const StagedRows<T> hval{h_s, D, bc};
+    float acc[kBT][V];
+    gemv_partial<T, NT>(wu, D, F, col, col < F, rs, hval, acc);
+    reduce_tile<T, NT>(acc, red, bc, [&](int b, int c, float y) {
+      const int n = tile0 + c;
+      if (n < F) {
+        if (bu) y += to_f32(bu[n]);
+        if (wg)
+          up_s[b * kCV * V + c] = y;
+        else
+          a_t[static_cast<size_t>(n) * B + b0 + b] = from_f32<T>(act_fn(act, y));
+      }
+    });
+    if (wg) {
+      gemv_partial<T, NT>(wg, D, F, col, col < F, rs, hval, acc);
+      reduce_tile<T, NT>(acc, red, bc, [&](int b, int c, float g) {
+        const int n = tile0 + c;
+        if (n < F) {
+          if (bg) g += to_f32(bg[n]);
+          a_t[static_cast<size_t>(n) * B + b0 + b] =
+              from_f32<T>(act_fn(act, g) * up_s[b * kCV * V + c]);
+        }
+      });
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fused_mlp, launch (b): out[B, D] = r + (a @ Wd (+ bd)), a read as a_t[F, B]
+// ---------------------------------------------------------------------------
+
+template <typename T, int NT>
+__global__ void __launch_bounds__(NT, 512 / NT)
+mlp_down_kernel(const T* __restrict__ a_t, const T* __restrict__ wd, const T* __restrict__ bd,
+                const T* __restrict__ r, T* __restrict__ out, int B, int F, int D) {
+  constexpr int V = Pack<T>::N;
+  __shared__ float red[NT / 32 * kCV * kBT * V];
+  const int tile0 = blockIdx.x * kCV * V;
+  const int col = tile0 + (threadIdx.x % kCV) * V;
+  const int rs = threadIdx.x / kCV;
+  for (int b0 = 0; b0 < B; b0 += kBT) {
+    const int bc = min(kBT, B - b0);
+    // a_t row d holds the B activations of contraction row d: with B ==
+    // kBT they are kBT * sizeof(T) / 16 aligned 16-byte vectors
+    auto act_row = [&](int d, float (&a)[kBT]) {
+      const T* p = a_t + static_cast<size_t>(d) * B + b0;
+      if (B == kBT) {
+#pragma unroll
+        for (int q = 0; q < kBT / V; ++q) {
+          const Pack<T> pk = *reinterpret_cast<const Pack<T>*>(p + q * V);
+#pragma unroll
+          for (int j = 0; j < V; ++j) a[q * V + j] = to_f32(pk.v[j]);
+        }
+      } else {
+#pragma unroll
+        for (int b = 0; b < kBT; ++b) a[b] = b < bc ? to_f32(p[b]) : 0.f;
+      }
+    };
+    float acc[kBT][V];
+    gemv_partial<T, NT>(wd, F, D, col, col < D, rs, act_row, acc);
+    reduce_tile<T, NT>(acc, red, bc, [&](int b, int c, float y) {
+      const int n = tile0 + c;
+      if (n < D) {
+        if (bd) y += to_f32(bd[n]);
+        const size_t i = static_cast<size_t>(b0 + b) * D + n;
+        out[i] = from_f32<T>(to_f32(r[i]) + y);
+      }
+    });
+  }
+}
+
+// ---------------------------------------------------------------------------
+// paged flash decode: out[B, H, Dh] = softmax(q . K^T * scale (+ alibi)) V
+// over keys 0..pos[b] of each slot, K/V in the paged pool
+// ---------------------------------------------------------------------------
+
+struct FdArgs {
+  const void* q;            // [B, H, Dh]
+  const void* kpool;        // [P, Hkv, page, Dh]: the layer's slice of the pool
+  const void* vpool;
+  const long long* pos;     // [B]
+  const long long* table;   // [B, maxp]
+  const float* slopes;      // [H] ALiBi slopes, or null
+  void* out;                // [B, H, Dh]
+  int H, Hkv, Dh, page, maxp;
+  float scale;
+};
+
+__host__ __device__ inline size_t fd_smem_bytes(int rep, int Dh, int maxp) {
+  return static_cast<size_t>(maxp) * sizeof(long long) +
+         static_cast<size_t>(rep) * Dh * sizeof(float) * (1 + kFdWarps) +
+         static_cast<size_t>(kFdWarps) * rep * 2 * sizeof(float);
+}
+
+// DI = head-dim elements per lane (Dh <= 32 * DI); R >= rep query heads per
+// KV head.  Both are compile-time so the per-lane state lives in registers.
+template <typename T, int DI, int R>
+__global__ void __launch_bounds__(kFdWarps * 32) flash_decode_paged_kernel(FdArgs a) {
+  const T* __restrict__ q = static_cast<const T*>(a.q);
+  const T* __restrict__ kpool = static_cast<const T*>(a.kpool);
+  const T* __restrict__ vpool = static_cast<const T*>(a.vpool);
+  T* __restrict__ out = static_cast<T*>(a.out);
+  const int Hkv = a.Hkv, Dh = a.Dh, page = a.page;
+  const int b = blockIdx.x / Hkv, g = blockIdx.x % Hkv;
+  const int rep = a.H / Hkv;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  long long* pt_s = reinterpret_cast<long long*>(smem_raw);    // [maxp]
+  float* q_s = reinterpret_cast<float*>(pt_s + a.maxp);         // [rep, Dh]
+  float* acc_s = q_s + rep * Dh;                                // [kFdWarps, rep, Dh]
+  float* ml_s = acc_s + kFdWarps * rep * Dh;                    // [kFdWarps, rep, 2]
+
+  const long long p = a.pos[b];
+  const int n_pages = static_cast<int>(min(p / page + 1, static_cast<long long>(a.maxp)));
+  const int n_tok = static_cast<int>(min(p + 1, static_cast<long long>(n_pages) * page));
+  for (int i = threadIdx.x; i < n_pages; i += blockDim.x)
+    pt_s[i] = a.table[static_cast<size_t>(b) * a.maxp + i];
+  const T* qg = q + (static_cast<size_t>(b) * a.H + static_cast<size_t>(g) * rep) * Dh;
+  for (int i = threadIdx.x; i < rep * Dh; i += blockDim.x) q_s[i] = to_f32(qg[i]);
+  __syncthreads();
+
+  float slope[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    slope[r] = (a.slopes != nullptr && r < rep) ? a.slopes[g * rep + r] : 0.f;
+  float m[R], l[R], acc[R][DI];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
+#pragma unroll
+    for (int i = 0; i < DI; ++i) acc[r][i] = 0.f;
+  }
+
+  const size_t head_stride = static_cast<size_t>(page) * Dh;  // one head of one page
+  for (int t0 = warp * kFdTokens; t0 < n_tok; t0 += kFdWarps * kFdTokens) {
+    float kf[kFdTokens][DI], vf[kFdTokens][DI];
+#pragma unroll
+    for (int u = 0; u < kFdTokens; ++u) {
+      const int t = t0 + u;
+      if (t < n_tok) {
+        const size_t base = (static_cast<size_t>(pt_s[t / page]) * Hkv + g) * head_stride +
+                            static_cast<size_t>(t % page) * Dh;
+#pragma unroll
+        for (int i = 0; i < DI; ++i) {
+          const int d = lane + 32 * i;
+          kf[u][i] = d < Dh ? to_f32(kpool[base + d]) : 0.f;
+          vf[u][i] = d < Dh ? to_f32(vpool[base + d]) : 0.f;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < DI; ++i) kf[u][i] = vf[u][i] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (r >= rep) break;
+      float s[kFdTokens];
+#pragma unroll
+      for (int u = 0; u < kFdTokens; ++u) {
+        float part = 0.f;
+#pragma unroll
+        for (int i = 0; i < DI; ++i) {
+          const int d = lane + 32 * i;
+          if (d < Dh) part = fmaf(q_s[r * Dh + d], kf[u][i], part);
+        }
+        const int t = t0 + u;
+        s[u] = warp_sum(part) * a.scale;
+        if (a.slopes != nullptr) s[u] += slope[r] * static_cast<float>(t - p);
+        if (t >= n_tok) s[u] = kNegInf;  // past this slot's depth: weight exactly 0
+      }
+      float mx = m[r];
+#pragma unroll
+      for (int u = 0; u < kFdTokens; ++u) mx = fmaxf(mx, s[u]);
+      const float alpha = expf(m[r] - mx);
+      float pu[kFdTokens];
+      float psum = 0.f;
+#pragma unroll
+      for (int u = 0; u < kFdTokens; ++u) {
+        pu[u] = expf(s[u] - mx);
+        psum += pu[u];
+      }
+      l[r] = alpha * l[r] + psum;
+#pragma unroll
+      for (int i = 0; i < DI; ++i) {
+        float v = acc[r][i] * alpha;
+#pragma unroll
+        for (int u = 0; u < kFdTokens; ++u) v = fmaf(pu[u], vf[u][i], v);
+        acc[r][i] = v;
+      }
+      m[r] = mx;
+    }
+  }
+
+  // merge the warps' partial softmaxes in a fixed order
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (r >= rep) break;
+#pragma unroll
+    for (int i = 0; i < DI; ++i) {
+      const int d = lane + 32 * i;
+      if (d < Dh) acc_s[(warp * rep + r) * Dh + d] = acc[r][i];
+    }
+    if (lane == 0) {
+      ml_s[(warp * rep + r) * 2] = m[r];
+      ml_s[(warp * rep + r) * 2 + 1] = l[r];
+    }
+  }
+  __syncthreads();
+  T* og = out + (static_cast<size_t>(b) * a.H + static_cast<size_t>(g) * rep) * Dh;
+  for (int o = threadIdx.x; o < rep * Dh; o += blockDim.x) {
+    const int r = o / Dh, d = o % Dh;
+    float mx = kNegInf;
+    for (int w = 0; w < kFdWarps; ++w) mx = fmaxf(mx, ml_s[(w * rep + r) * 2]);
+    float lsum = 0.f, osum = 0.f;
+    for (int w = 0; w < kFdWarps; ++w) {
+      const float c = expf(ml_s[(w * rep + r) * 2] - mx);
+      lsum += c * ml_s[(w * rep + r) * 2 + 1];
+      osum += c * acc_s[(w * rep + r) * Dh + d];
+    }
+    og[o] = from_f32<T>(osum / (lsum == 0.f ? 1.f : lsum));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= static_cast<size_t>(kSmemDefault)) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+int grid_for(int n, int vec) { return (n + kCV * vec - 1) / (kCV * vec); }
+
+// Two 256-thread blocks per SM where the grid has more blocks than the card
+// has SMs (all of them resident in one wave), one 512-thread block per SM
+// otherwise: 16 warps per SM either way.
+bool narrow_blocks(int grid) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return grid > sms;
+}
+
+template <typename T>
+cudaError_t launch_norm_qkv(const void* x, const void* scale, const void* bias, const void* w,
+                            const void* bqkv, void* out, int B, int D, int N, int kind,
+                            float eps, cudaStream_t s) {
+  const int grid = grid_for(N, Pack<T>::N);
+  const bool narrow = narrow_blocks(grid);
+  auto kernel = narrow ? norm_qkv_kernel<T, kThreadsNarrow> : norm_qkv_kernel<T, kThreadsWide>;
+  const size_t smem = static_cast<size_t>(min(B, kBT)) * D * sizeof(T);
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, narrow ? kThreadsNarrow : kThreadsWide, smem, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(scale), static_cast<const T*>(bias),
+      static_cast<const T*>(w), static_cast<const T*>(bqkv), static_cast<T*>(out), B, D, N,
+      kind, eps);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_proj_norm(const void* ctx, const void* resid, const void* wo, const void* bo,
+                             const void* scale, const void* bias, void* r, void* h, void* r32,
+                             void* ticket, int B, int M, int D, int kind, float eps,
+                             int parallel, cudaStream_t s) {
+  const int grid = grid_for(D, Pack<T>::N);
+  const bool narrow = narrow_blocks(grid);
+  auto kernel = narrow ? proj_norm_kernel<T, kThreadsNarrow> : proj_norm_kernel<T, kThreadsWide>;
+  const size_t smem = static_cast<size_t>(min(B, kBT)) * M * sizeof(T);
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, narrow ? kThreadsNarrow : kThreadsWide, smem, s>>>(
+      static_cast<const T*>(ctx), static_cast<const T*>(resid), static_cast<const T*>(wo),
+      static_cast<const T*>(bo), static_cast<const T*>(scale), static_cast<const T*>(bias),
+      static_cast<T*>(r), static_cast<T*>(h), static_cast<float*>(r32),
+      static_cast<unsigned int*>(ticket), B, M, D, kind, eps, parallel);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_mlp(const void* h, const void* r, const void* wu, const void* wg,
+                       const void* wd, const void* bu, const void* bg, const void* bd,
+                       void* a_t, void* out, int B, int D, int F, int act, cudaStream_t s) {
+  int grid = grid_for(F, Pack<T>::N);
+  bool narrow = narrow_blocks(grid);
+  auto act_kernel = narrow ? mlp_act_kernel<T, kThreadsNarrow> : mlp_act_kernel<T, kThreadsWide>;
+  const size_t smem = static_cast<size_t>(min(B, kBT)) * D * sizeof(T);
+  cudaError_t e = allow_smem(act_kernel, smem);
+  if (e != cudaSuccess) return e;
+  act_kernel<<<grid, narrow ? kThreadsNarrow : kThreadsWide, smem, s>>>(
+      static_cast<const T*>(h), static_cast<const T*>(wu), static_cast<const T*>(wg),
+      static_cast<const T*>(bu), static_cast<const T*>(bg), static_cast<T*>(a_t), B, D, F,
+      act);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  grid = grid_for(D, Pack<T>::N);
+  narrow = narrow_blocks(grid);
+  auto down_kernel = narrow ? mlp_down_kernel<T, kThreadsNarrow> : mlp_down_kernel<T, kThreadsWide>;
+  down_kernel<<<grid, narrow ? kThreadsNarrow : kThreadsWide, 0, s>>>(
+      static_cast<const T*>(a_t), static_cast<const T*>(wd), static_cast<const T*>(bd),
+      static_cast<const T*>(r), static_cast<T*>(out), B, F, D);
+  return cudaGetLastError();
+}
+
+template <typename T, int DI, int R>
+cudaError_t launch_fd(const FdArgs& a, int B, cudaStream_t s) {
+  const size_t smem = fd_smem_bytes(a.H / a.Hkv, a.Dh, a.maxp);
+  cudaError_t e = allow_smem(flash_decode_paged_kernel<T, DI, R>, smem);
+  if (e != cudaSuccess) return e;
+  flash_decode_paged_kernel<T, DI, R><<<B * a.Hkv, kFdWarps * 32, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T, int DI>
+cudaError_t launch_fd_r(const FdArgs& a, int B, int R, cudaStream_t s) {
+  switch (R) {
+    case 1: return launch_fd<T, DI, 1>(a, B, s);
+    case 2: return launch_fd<T, DI, 2>(a, B, s);
+    case 4: return launch_fd<T, DI, 4>(a, B, s);
+    case 8: return launch_fd<T, DI, 8>(a, B, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t launch_fd_di(const FdArgs& a, int B, int DI, int R, cudaStream_t s) {
+  switch (DI) {
+    case 1: return launch_fd_r<T, 1>(a, B, R, s);
+    case 2: return launch_fd_r<T, 2>(a, B, R, s);
+    case 4: return launch_fd_r<T, 4>(a, B, R, s);
+    case 8: return launch_fd_r<T, 8>(a, B, R, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+int pow2_at_least(int n) {
+  int p = 1;
+  while (p < n) p *= 2;
+  return p;
+}
+
+}  // namespace
+
+extern "C" {
+
+// x [B, D], scale/bias [D] (bias may be null), w [D, N], bqkv [N] or null,
+// out [B, N]; one dtype (0 = float32, 1 = bfloat16, 2 = float16); kind
+// 0 = rmsnorm, 1 = layernorm.  N must be a multiple of 16 / itemsize and w,
+// out 16-byte aligned (the wrapper checks).
+int ds_fused_norm_qkv(const void* x, const void* scale, const void* bias, const void* w,
+                      const void* bqkv, void* out, int B, int D, int N, int kind, float eps,
+                      int dtype, void* stream) {
+  if (B <= 0 || N <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return launch_norm_qkv<float>(x, scale, bias, w, bqkv, out, B, D, N, kind, eps, s);
+    case 1: return launch_norm_qkv<__nv_bfloat16>(x, scale, bias, w, bqkv, out, B, D, N, kind, eps, s);
+    case 2: return launch_norm_qkv<__half>(x, scale, bias, w, bqkv, out, B, D, N, kind, eps, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// q [B, H, Dh]; kpool/vpool the layer's [P, Hkv, page, Dh] slice; pos [B]
+// and table [B, maxp] int64; slopes [H] fp32 or null; out [B, H, Dh].
+// Dh <= 256 and H / Hkv <= 8 (the wrapper checks).
+int ds_flash_decode_paged(const void* q, const void* kpool, const void* vpool, const void* pos,
+                          const void* table, const void* slopes, void* out, int B, int H,
+                          int Hkv, int Dh, int page, int maxp, float scale, int dtype,
+                          void* stream) {
+  if (B <= 0) return 0;
+  const int rep = H / Hkv;
+  const int DI = pow2_at_least((Dh + 31) / 32);
+  const int R = pow2_at_least(rep);
+  if (DI > 8 || R > 8 || page <= 0 || maxp <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  FdArgs a{q, kpool, vpool, static_cast<const long long*>(pos),
+           static_cast<const long long*>(table), static_cast<const float*>(slopes), out,
+           H, Hkv, Dh, page, maxp, scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return launch_fd_di<float>(a, B, DI, R, s);
+    case 1: return launch_fd_di<__nv_bfloat16>(a, B, DI, R, s);
+    case 2: return launch_fd_di<__half>(a, B, DI, R, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// ctx [B, M], resid [B, D], wo [M, D], bo [D] or null, scale [D], bias [D]
+// or null; outputs r, h [B, D]; r32 [B, D] fp32 scratch; ticket one
+// zeroed uint32 that the kernel leaves at 0.
+int ds_fused_proj_norm(const void* ctx, const void* resid, const void* wo, const void* bo,
+                       const void* scale, const void* bias, void* r, void* h, void* r32,
+                       void* ticket, int B, int M, int D, int kind, float eps, int parallel,
+                       int dtype, void* stream) {
+  if (B <= 0 || D <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return launch_proj_norm<float>(ctx, resid, wo, bo, scale, bias, r, h, r32, ticket, B, M, D, kind, eps, parallel, s);
+    case 1: return launch_proj_norm<__nv_bfloat16>(ctx, resid, wo, bo, scale, bias, r, h, r32, ticket, B, M, D, kind, eps, parallel, s);
+    case 2: return launch_proj_norm<__half>(ctx, resid, wo, bo, scale, bias, r, h, r32, ticket, B, M, D, kind, eps, parallel, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// h, r [B, D]; wu, wg [D, F] (wg null: no gate); wd [F, D]; biases or null;
+// a_t [F, B] scratch; out [B, D]; act 0 silu, 1 gelu (tanh), 2 gelu_exact,
+// 3 relu.  Two launches on the stream.
+int ds_fused_mlp(const void* h, const void* r, const void* wu, const void* wg, const void* wd,
+                 const void* bu, const void* bg, const void* bd, void* a_t, void* out, int B,
+                 int D, int F, int act, int dtype, void* stream) {
+  if (B <= 0 || D <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return launch_mlp<float>(h, r, wu, wg, wd, bu, bg, bd, a_t, out, B, D, F, act, s);
+    case 1: return launch_mlp<__nv_bfloat16>(h, r, wu, wg, wd, bu, bg, bd, a_t, out, B, D, F, act, s);
+    case 2: return launch_mlp<__half>(h, r, wu, wg, wd, bu, bg, bd, a_t, out, B, D, F, act, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+const char* ds_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -4,9 +4,8 @@ A copy of ``deepspeed_tpu/inference/config.py``: the same field names and
 defaults, so one config dict means the same thing to both engines.  Fields
 whose feature is not ported yet are accepted here and refused by the engine
 that would act on them (ROADMAP.md), never silently ignored:
-``use_fused_decode`` other than ``False``, ``quantize_kv_cache``, int8
-weights, ``paged_kv_cache=False``, ``kv_host_tier_pages > 0`` and
-``tensor_parallel.tp_size > 1``.
+``quantize_kv_cache``, int8 weights, ``paged_kv_cache=False``,
+``kv_host_tier_pages > 0`` and ``tensor_parallel.tp_size > 1``.
 """
 
 from __future__ import annotations
@@ -29,8 +28,7 @@ class DeepSpeedInferenceConfig(DeepSpeedConfigModel):
     min_out_tokens: int = 1
     max_batch_size: int = 0
     replace_with_kernel_inject: bool = False
-    # None = auto in the JAX package (fused decode when supported); the
-    # port's first slice serves the unfused path only and needs False
+    # None = auto (fused decode when supported); False opts out
     use_fused_decode: Optional[bool] = None
     decode_unroll: int = 4
     checkpoint: Optional[Any] = None

@@ -2,11 +2,12 @@
 
 Counterpart of ``deepspeed_tpu/inference/engine.py``.  This slice carries
 :func:`pow2_bucket` and the weight handling of :class:`InferenceEngine`:
-resolve the device, pick the serving dtype, and cast the parameter tree to
-it.  ``generate()``, tensor-parallel meshes, int8 weights and the fused
-(kernel-injected) decode path are not ported yet (ROADMAP.md queue 1), and
-a config asking for them is refused here instead of being served another
-way than the JAX engine would.
+resolve the device, pick the serving dtype, cast the parameter tree to it,
+and build the kernel-injected view of the weights that the fused decode
+path reads (``_dparams``), on by default as in the JAX engine.
+``generate()``, tensor-parallel meshes and int8 weights are not ported yet
+(ROADMAP.md queue 1), and a config asking for them is refused here instead
+of being served another way than the JAX engine would.
 """
 
 from __future__ import annotations
@@ -63,16 +64,12 @@ class InferenceEngine:
             raise NotImplementedError(
                 "the int8 KV cache is not ported yet (ROADMAP.md queue 1: "
                 "serving features deferred from the first slice)")
-        if config.use_fused_decode is not False:
-            raise NotImplementedError(
-                "fused decode is not ported yet (ROADMAP.md queue 1, next "
-                "slice: the four decode.py kernels); set use_fused_decode="
-                "False to serve the unfused path")
         if getattr(model, "config", None) is None:
             raise TypeError("model must carry a ModelConfig as .config "
                             "(use deepspeed_tpu_torch.models.causal_lm)")
         self.dtype = _DTYPES.get(config.dtype, torch.float32)
         self._params = None
+        self._dparams = None
         if params is None and hasattr(model, "params"):
             params = model.params()
         if params is not None:
@@ -82,7 +79,8 @@ class InferenceEngine:
 
     def set_params(self, params: Any) -> None:
         """Move the parameter tree to the engine's device and cast floating
-        leaves to the serving dtype (a leaf already there is used as is)."""
+        leaves to the serving dtype (a leaf already there is used as is),
+        then rebuild the kernel-injected view."""
         def cast(t):
             t = torch.as_tensor(t)
             if t.is_floating_point():
@@ -91,9 +89,36 @@ class InferenceEngine:
 
         with torch.no_grad():
             self._params = _tree_map(cast, params)
+            self._build_injected_view()
         n = sum(t.numel() for t in _leaves(self._params))
-        logger.info("inference engine ready: %.2fM params, dtype %s, on %s",
-                    n / 1e6, self.dtype, self.device)
+        logger.info("inference engine ready: %.2fM params, dtype %s, on %s%s",
+                    n / 1e6, self.dtype, self.device,
+                    ", kernel-injected decode" if self._dparams is not None
+                    else "")
+
+    def _build_injected_view(self) -> None:
+        """Kernel injection (reference ``replace_with_kernel_inject``): lay
+        the weights out for the fused decode kernels.  The JAX policy: on
+        when supported; ``use_fused_decode=False`` opts out, even over
+        ``replace_with_kernel_inject``."""
+        from deepspeed_tpu_torch.models.fused_decode import (
+            inject_decode_params, supports_fused_decode)
+
+        self._dparams = None
+        if self._config.use_fused_decode is False:
+            return
+        cfg = self.module.config
+        tp = (self._config.tensor_parallel.tp_size
+              if self._config.tensor_parallel else 1)
+        if not supports_fused_decode(
+                cfg, quantized_kv=self._config.quantize_kv_cache, tp=tp):
+            if (self._config.replace_with_kernel_inject
+                    or self._config.use_fused_decode):
+                logger.info("kernel injection requested but unsupported for "
+                            "this model/config (MoE, int8 KV cache, or "
+                            "tp>1): using the unfused decode path")
+            return
+        self._dparams = inject_decode_params(self._params, cfg)
 
     @property
     def config(self) -> DeepSpeedInferenceConfig:

@@ -1,11 +1,16 @@
 """Hand-written Hopper kernels of the port, each beside its plain version.
 
-Counterpart of ``deepspeed_tpu/ops/pallas``.  This slice carries the two
-kernels the serving path runs: RMSNorm forward (CUDA C++) and RoPE forward
-(Triton).
+Counterpart of ``deepspeed_tpu/ops/pallas``.  The serving path runs six:
+RMSNorm forward (CUDA C++) and RoPE forward (Triton) in prefill, and the
+four fused decode kernels of :mod:`.decode` (CUDA C++) in every decode
+step.
 """
 
+from deepspeed_tpu_torch.ops.kernels.decode import (flash_decode, fused_mlp,
+                                                    fused_norm_qkv,
+                                                    fused_proj_norm)
 from deepspeed_tpu_torch.ops.kernels.layer_norm import rms_norm
 from deepspeed_tpu_torch.ops.kernels.rope import apply_rotary_pos_emb, rope_angles
 
-__all__ = ["rms_norm", "apply_rotary_pos_emb", "rope_angles"]
+__all__ = ["rms_norm", "apply_rotary_pos_emb", "rope_angles",
+           "fused_norm_qkv", "flash_decode", "fused_proj_norm", "fused_mlp"]

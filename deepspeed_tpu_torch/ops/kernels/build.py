@@ -37,7 +37,7 @@ class BuiltLibrary:
     name: str
     path: Path
     lib: ctypes.CDLL
-    ptxas_info: List[str]     # `-Xptxas -v` lines (registers, smem, spills)
+    ptxas_info: List[str]     # `-Xptxas -v` lines (entry, registers, smem, spills)
 
 
 _LIBS: Dict[str, BuiltLibrary] = {}
@@ -76,8 +76,8 @@ def load_library(name: str) -> BuiltLibrary:
         os.replace(tmp, out)      # atomic: a concurrent loader sees all or nothing
     info = [ln.strip() for ln in
             (log.read_text().splitlines() if log.exists() else [])
-            if "ptxas info" in ln and ("Used" in ln or "spill" in ln
-                                       or "Compiling" in ln)]
+            if ("ptxas info" in ln and ("Used" in ln or "Compiling" in ln))
+            or "spill" in ln]
     built = BuiltLibrary(name, out, ctypes.CDLL(str(out)), info)
     built.lib.ds_cuda_error_string.argtypes = [ctypes.c_int]
     built.lib.ds_cuda_error_string.restype = ctypes.c_char_p

@@ -1,0 +1,488 @@
+"""Fused per-layer decode kernels: CUDA C++ for Hopper and their plain versions.
+
+Counterpart of ``deepspeed_tpu/ops/pallas/decode.py``.  The kernel-injected
+decode step runs each layer as four calls:
+
+- :func:`fused_norm_qkv`  — norm → one concatenated QKV projection;
+- :func:`flash_decode`    — single-token attention over the paged KV pool,
+  visiting only the pages up to each slot's depth;
+- :func:`fused_proj_norm` — attention out-projection → residual add → the
+  MLP's norm;
+- :func:`fused_mlp`       — (gated) MLP → residual add.
+
+A CUDA tensor launches the kernel of ``deepspeed_tpu_torch/csrc/decode.cu``
+(built by nvcc at first use, called through ctypes) or raises; a CPU tensor
+runs the plain version, which copies the jnp reference of the JAX module op
+for op (``_norm_qkv_ref``, ``_flash_decode_ref`` over the gathered logical
+view, ``_proj_norm_ref``, ``_mlp_ref``).  ``fused_mlp`` honours its three
+biases independently, as ``_mlp_ref`` does (the Pallas kernel gates them all
+on ``b_up``).  The wrappers check device, dtype, shape, contiguity and
+alignment and raise: they never copy or cast an input.
+
+Not in this slice (ROADMAP.md): int8 weights (``wscale``/``wscales``) and
+the contiguous-cache ``flash_decode`` (no ``page_table``) raise
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from deepspeed_tpu_torch.ops.kernels.build import check_launch, load_library
+from deepspeed_tpu_torch.ops.kernels.common import (KERNEL_DTYPES,
+                                                    check_kernel_input,
+                                                    use_kernel)
+
+NEG_INF = -1e30
+NORM_KINDS = {"rmsnorm": 0, "layernorm": 1}
+ACTIVATIONS = {"silu": 0, "gelu": 1, "gelu_exact": 2, "relu": 3}
+# kernel limits (csrc/decode.cu): batch rows staged per pass, shared memory
+# a block may use, head dim and GQA group of the attention kernel
+_BATCH_PASS = 8
+_SMEM_LIMIT = 200 * 1024
+_FD_WARPS = 8
+_MAX_HEAD_DIM = 256
+_MAX_REP = 8
+
+
+def _refuse_int8(op: str, scales) -> None:
+    if scales is not None:
+        raise NotImplementedError(
+            f"{op}: int8 weights (in-kernel dequant) are not ported yet "
+            f"(ROADMAP.md queue 2: the int8-weight variants of the decode "
+            f"kernels)")
+
+
+# ---------------------------------------------------------------------------
+# plain versions: the jnp references, op for op
+# ---------------------------------------------------------------------------
+
+def _normalize(x32, scale, bias, kind: str, eps: float):
+    """fp32 norm over the last dim; ``bias`` ignored for rmsnorm."""
+    if kind == "rmsnorm":
+        var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+        y = x32 * torch.rsqrt(var + eps)
+        return y * scale
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    xc = x32 - mu
+    var = torch.mean(xc * xc, dim=-1, keepdim=True)
+    y = xc * torch.rsqrt(var + eps)
+    return y * scale + bias
+
+
+def _act(name: str, x):
+    if name == "silu":
+        return torch.nn.functional.silu(x)
+    if name == "gelu":
+        return torch.nn.functional.gelu(x, approximate="tanh")
+    if name == "gelu_exact":
+        return torch.nn.functional.gelu(x, approximate="none")
+    if name == "relu":
+        return torch.relu(x)
+    raise ValueError(f"unsupported activation {name}")
+
+
+def _dot32(a, w):
+    """``dot_general(a, w, preferred_element_type=f32)``: the operands'
+    products and sums in fp32."""
+    return a.float() @ w.float()
+
+
+def _norm_qkv_ref(x, scale, bias, wqkv, bqkv, *, kind, eps):
+    h = _normalize(x.float(), scale.float(), bias.float(), kind,
+                   eps).to(x.dtype)
+    y = _dot32(h, wqkv)
+    if bqkv is not None:
+        y = y + bqkv.float()
+    return y.to(x.dtype)
+
+
+def _flash_decode_ref(q, kcache, vcache, pos, *, scale, alibi=False):
+    """Masked dense attention over the whole cache: q [B, H, Dh], caches
+    [B, Hkv, Smax, Dh], ``pos`` a scalar or [B] depths."""
+    B, H, Dh = q.shape
+    Hkv, Smax = kcache.shape[1], kcache.shape[2]
+    rep = H // Hkv
+    pos = torch.as_tensor(pos, device=q.device).reshape(-1).expand(B)
+    qf = q.float().reshape(B, Hkv, rep, Dh)
+    kf = kcache.float()
+    vf = vcache.float()
+    s = torch.einsum("bgrd,bgkd->bgrk", qf, kf) * scale
+    key_pos = torch.arange(Smax, device=q.device)
+    if alibi:
+        from deepspeed_tpu_torch.models.layers import alibi_slopes
+
+        rel = (key_pos[None, :] - pos[:, None]).float()
+        s = s + (alibi_slopes(H, device=q.device).reshape(1, Hkv, rep, 1)
+                 * rel[:, None, None, :])
+    mask = key_pos[None, :] <= pos[:, None]
+    s = torch.where(mask[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bgrk,bgkd->bgrd", p, vf)
+    return o.reshape(B, H, Dh).to(q.dtype)
+
+
+def _flash_decode_paged_ref(q, kcache, vcache, pos, page_table, *, scale,
+                            layer, alibi):
+    """The JAX XLA path of ``_flash_decode_paged``: gather each slot's
+    logical view out of the pool, then the dense reference."""
+    from deepspeed_tpu_torch.models.decoding import paged_logical_view
+
+    kc = kcache if layer is None else kcache[layer]
+    vc = vcache if layer is None else vcache[layer]
+    return _flash_decode_ref(q, paged_logical_view(kc, page_table),
+                             paged_logical_view(vc, page_table), pos,
+                             scale=scale, alibi=alibi)
+
+
+def _proj_norm_ref(ctx, resid, wo, bo, scale, bias, *, kind, eps, parallel):
+    o = _dot32(ctx, wo)
+    if bo is not None:
+        o = o + bo.float()
+    r32 = resid.float() + o
+    nsrc = resid.float() if parallel else r32
+    h = _normalize(nsrc, scale.float(), bias.float(), kind, eps)
+    return r32.to(ctx.dtype), h.to(ctx.dtype)
+
+
+def _mlp_ref(h, r, w_up, w_gate, w_down, b_up, b_gate, b_down, *, act):
+    up = _dot32(h, w_up)
+    if b_up is not None:
+        up = up + b_up.float()
+    if w_gate is not None:
+        g = _dot32(h, w_gate)
+        if b_gate is not None:
+            g = g + b_gate.float()
+        a = _act(act, g) * up
+    else:
+        a = _act(act, up)
+    y = _dot32(a.to(h.dtype), w_down)
+    if b_down is not None:
+        y = y + b_down.float()
+    return (r.float() + y).to(h.dtype)
+
+
+# ---------------------------------------------------------------------------
+# CUDA launches
+# ---------------------------------------------------------------------------
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "ds_fused_norm_qkv": [_P] * 6 + [_I] * 4 + [_F, _I, _P],
+    "ds_flash_decode_paged": [_P] * 7 + [_I] * 6 + [_F, _I, _P],
+    "ds_fused_proj_norm": [_P] * 10 + [_I] * 4 + [_F, _I, _I, _P],
+    "ds_fused_mlp": [_P] * 10 + [_I] * 5 + [_P],
+}
+_TICKETS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+_SLOPES: Dict[Tuple[int, torch.device], torch.Tensor] = {}
+
+
+def _library():
+    built = load_library("decode")
+    for name, args in _SIGNATURES.items():
+        fn = getattr(built.lib, name)
+        if fn.argtypes is None:
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+    return built
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _check(name: str, t: Optional[torch.Tensor], like: torch.Tensor,
+           shape: Tuple[int, ...], *, vector: bool = False) -> None:
+    """``t`` (when given) is a contiguous tensor of ``like``'s device and
+    dtype with ``shape``; ``vector`` adds the 16-byte alignment the kernels'
+    vector loads need."""
+    if t is None:
+        return
+    check_kernel_input(name, t, like.device, dtype=like.dtype)
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if vector and t.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel's 16-byte loads need a 16-byte "
+                         f"aligned tensor")
+
+
+def _check_columns(op: str, n: int, x: torch.Tensor) -> None:
+    vec = 16 // x.element_size()
+    if n % vec:
+        raise ValueError(f"{op}: {n} output columns are not a multiple of "
+                         f"{vec} (16-byte vectors of {x.dtype})")
+
+
+def _check_staged(op: str, rows: int, width: int, x: torch.Tensor) -> None:
+    need = min(rows, _BATCH_PASS) * width * x.element_size()
+    if need > _SMEM_LIMIT:
+        raise ValueError(f"{op}: {need} bytes of staged activations exceed "
+                         f"the kernel's {_SMEM_LIMIT}-byte shared memory "
+                         f"budget")
+
+
+def _kind_code(kind: str) -> int:
+    if kind not in NORM_KINDS:
+        raise ValueError(f"unsupported norm kind {kind!r}")
+    return NORM_KINDS[kind]
+
+
+def _ticket(dev: torch.device) -> torch.Tensor:
+    """The zeroed counter fused_proj_norm's last block takes; one per
+    device and stream, so launches on one stream reuse it in order."""
+    key = (dev, _stream(dev))
+    t = _TICKETS.get(key)
+    if t is None:
+        t = _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return t
+
+
+def _alibi_slopes_on(H: int, dev: torch.device) -> torch.Tensor:
+    key = (H, dev)
+    t = _SLOPES.get(key)
+    if t is None:
+        from deepspeed_tpu_torch.models.layers import alibi_slopes
+
+        t = _SLOPES[key] = alibi_slopes(H, device=dev).contiguous()
+    return t
+
+
+def fused_norm_qkv_cuda(x, scale, bias, wqkv, bqkv=None, *, kind, eps):
+    """Launch ``norm_qkv_kernel``: x [B, D] → [B, N] in x's dtype."""
+    check_kernel_input("fused_norm_qkv x", x, x.device)
+    if x.dim() != 2 or wqkv.dim() != 2:
+        raise ValueError(f"fused_norm_qkv: x [B, D] and wqkv [D, N], got "
+                         f"{tuple(x.shape)} and {tuple(wqkv.shape)}")
+    B, D = x.shape
+    N = wqkv.shape[1]
+    _check("fused_norm_qkv scale", scale, x, (D,))
+    _check("fused_norm_qkv bias", bias, x, (D,))
+    _check("fused_norm_qkv wqkv", wqkv, x, (D, N), vector=True)
+    _check("fused_norm_qkv bqkv", bqkv, x, (N,))
+    _check_columns("fused_norm_qkv", N, x)
+    _check_staged("fused_norm_qkv", B, D, x)
+    code_kind = _kind_code(kind)
+    out = torch.empty((B, N), device=x.device, dtype=x.dtype)
+    built = _library()
+    with torch.cuda.device(x.device):
+        code = built.lib.ds_fused_norm_qkv(
+            x.data_ptr(), scale.data_ptr(), _ptr(bias), wqkv.data_ptr(),
+            _ptr(bqkv), out.data_ptr(), B, D, N, code_kind, float(eps),
+            KERNEL_DTYPES[x.dtype], _stream(x.device))
+    check_launch(built, "fused_norm_qkv", code)
+    fused_norm_qkv.launches += 1
+    return out
+
+
+def flash_decode_paged_cuda(q, kcache, vcache, pos, page_table, *, scale,
+                            layer=None, alibi=False):
+    """Launch ``flash_decode_paged_kernel``: q [B, H, Dh] over the pool
+    [P, Hkv, page, Dh] (or the stacked [L, P, Hkv, page, Dh] at ``layer``,
+    read in place); ``pos`` [B] and ``page_table`` [B, maxp] int64."""
+    check_kernel_input("flash_decode q", q, q.device)
+    if q.dim() != 3:
+        raise ValueError(f"flash_decode: q must be [B, H, Dh], got "
+                         f"{tuple(q.shape)}")
+    B, H, Dh = q.shape
+    want = 4 if layer is None else 5
+    if kcache.dim() != want:
+        raise ValueError(f"flash_decode: pool must be {want}-d "
+                         f"({'[P, Hkv, page, Dh]' if layer is None else '[L, P, Hkv, page, Dh]'}), "
+                         f"got {tuple(kcache.shape)}")
+    _check("flash_decode kcache", kcache, q, tuple(kcache.shape))
+    _check("flash_decode vcache", vcache, q, tuple(kcache.shape))
+    Hkv, page = kcache.shape[-3], kcache.shape[-2]
+    if kcache.shape[-1] != Dh:
+        raise ValueError(f"flash_decode: pool head dim {kcache.shape[-1]} "
+                         f"!= q head dim {Dh}")
+    if Dh % 8 or Dh > _MAX_HEAD_DIM:
+        raise ValueError(f"flash_decode: head dim {Dh} must be a multiple "
+                         f"of 8 up to {_MAX_HEAD_DIM}")
+    if H % Hkv or H // Hkv > _MAX_REP:
+        raise ValueError(f"flash_decode: {H} query heads over {Hkv} KV heads "
+                         f"(the kernel takes GQA groups of up to {_MAX_REP})")
+    if layer is not None and not 0 <= layer < kcache.shape[0]:
+        raise ValueError(f"flash_decode: layer {layer} out of range "
+                         f"[0, {kcache.shape[0]})")
+    for name, t, shape in (("pos", pos, (B,)),
+                           ("page_table", page_table,
+                            (B, page_table.shape[-1]))):
+        if t.device != q.device or t.dtype != torch.int64:
+            raise TypeError(f"flash_decode {name}: expected int64 on "
+                            f"{q.device}, got {t.dtype} on {t.device}")
+        if tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"flash_decode {name}: expected a contiguous "
+                             f"{shape} tensor, got {tuple(t.shape)}")
+    maxp = page_table.shape[1]
+    rep = H // Hkv
+    smem = maxp * 8 + rep * Dh * 4 * (1 + _FD_WARPS) + _FD_WARPS * rep * 8
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"flash_decode: {smem} bytes of shared memory "
+                         f"(page table of {maxp} pages, {rep} x {Dh} heads) "
+                         f"exceed {_SMEM_LIMIT}")
+    off = 0 if layer is None else layer * kcache.stride(0) * q.element_size()
+    slopes = _alibi_slopes_on(H, q.device) if alibi else None
+    out = torch.empty_like(q)
+    built = _library()
+    with torch.cuda.device(q.device):
+        code = built.lib.ds_flash_decode_paged(
+            q.data_ptr(), kcache.data_ptr() + off, vcache.data_ptr() + off,
+            pos.data_ptr(), page_table.data_ptr(), _ptr(slopes),
+            out.data_ptr(), B, H, Hkv, Dh, page, maxp, float(scale),
+            KERNEL_DTYPES[q.dtype], _stream(q.device))
+    check_launch(built, "flash_decode", code)
+    flash_decode.launches += 1
+    return out
+
+
+def fused_proj_norm_cuda(ctx, resid, wo, bo, scale, bias, *, kind, eps,
+                         parallel):
+    """Launch ``proj_norm_kernel``: returns (r, h), both [B, D]."""
+    check_kernel_input("fused_proj_norm ctx", ctx, ctx.device)
+    if ctx.dim() != 2 or wo.dim() != 2:
+        raise ValueError(f"fused_proj_norm: ctx [B, M] and wo [M, D], got "
+                         f"{tuple(ctx.shape)} and {tuple(wo.shape)}")
+    B, M = ctx.shape
+    D = wo.shape[1]
+    _check("fused_proj_norm resid", resid, ctx, (B, D))
+    _check("fused_proj_norm wo", wo, ctx, (M, D), vector=True)
+    _check("fused_proj_norm bo", bo, ctx, (D,))
+    _check("fused_proj_norm scale", scale, ctx, (D,))
+    _check("fused_proj_norm bias", bias, ctx, (D,))
+    _check_columns("fused_proj_norm", D, ctx)
+    _check_staged("fused_proj_norm", B, M, ctx)
+    code_kind = _kind_code(kind)
+    r = torch.empty((B, D), device=ctx.device, dtype=ctx.dtype)
+    h = torch.empty_like(r)
+    r32 = torch.empty((B, D), device=ctx.device, dtype=torch.float32)
+    built = _library()
+    with torch.cuda.device(ctx.device):
+        code = built.lib.ds_fused_proj_norm(
+            ctx.data_ptr(), resid.data_ptr(), wo.data_ptr(), _ptr(bo),
+            scale.data_ptr(), _ptr(bias), r.data_ptr(), h.data_ptr(),
+            r32.data_ptr(), _ticket(ctx.device).data_ptr(), B, M, D,
+            code_kind, float(eps), int(bool(parallel)),
+            KERNEL_DTYPES[ctx.dtype], _stream(ctx.device))
+    check_launch(built, "fused_proj_norm", code)
+    fused_proj_norm.launches += 1
+    return r, h
+
+
+def fused_mlp_cuda(h, r, w_up, w_down, w_gate=None, b_up=None, b_gate=None,
+                   b_down=None, *, act):
+    """Launch ``mlp_act_kernel`` then ``mlp_down_kernel``: r + mlp(h)."""
+    check_kernel_input("fused_mlp h", h, h.device)
+    if h.dim() != 2 or w_up.dim() != 2:
+        raise ValueError(f"fused_mlp: h [B, D] and w_up [D, F], got "
+                         f"{tuple(h.shape)} and {tuple(w_up.shape)}")
+    B, D = h.shape
+    F = w_up.shape[1]
+    _check("fused_mlp r", r, h, (B, D))
+    _check("fused_mlp w_up", w_up, h, (D, F), vector=True)
+    _check("fused_mlp w_gate", w_gate, h, (D, F), vector=True)
+    _check("fused_mlp w_down", w_down, h, (F, D), vector=True)
+    _check("fused_mlp b_up", b_up, h, (F,))
+    _check("fused_mlp b_gate", b_gate, h, (F,))
+    _check("fused_mlp b_down", b_down, h, (D,))
+    _check_columns("fused_mlp", F, h)
+    _check_columns("fused_mlp", D, h)
+    _check_staged("fused_mlp", B, D, h)
+    if act not in ACTIVATIONS:
+        raise ValueError(f"unsupported activation {act}")
+    a_t = torch.empty((F, B), device=h.device, dtype=h.dtype)
+    out = torch.empty_like(h)
+    built = _library()
+    with torch.cuda.device(h.device):
+        code = built.lib.ds_fused_mlp(
+            h.data_ptr(), r.data_ptr(), w_up.data_ptr(), _ptr(w_gate),
+            w_down.data_ptr(), _ptr(b_up), _ptr(b_gate), _ptr(b_down),
+            a_t.data_ptr(), out.data_ptr(), B, D, F, ACTIVATIONS[act],
+            KERNEL_DTYPES[h.dtype], _stream(h.device))
+    check_launch(built, "fused_mlp", code)
+    fused_mlp.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# public wrappers (the JAX signatures, without ``impl``)
+# ---------------------------------------------------------------------------
+
+def fused_norm_qkv(x, scale, bias, wqkv, bqkv=None, *,
+                   kind: str = "layernorm", eps: float = 1e-5, wscale=None):
+    """x [B, D]; wqkv [D, N]; returns norm(x) @ wqkv (+ bqkv) as [B, N] in
+    x's dtype, the normalised rows rounded to x's dtype before the product
+    and the product summed in fp32."""
+    _refuse_int8("fused_norm_qkv", wscale)
+    if use_kernel(x):
+        return fused_norm_qkv_cuda(x, scale, bias, wqkv, bqkv, kind=kind,
+                                   eps=eps)
+    if bias is None:
+        bias = torch.zeros_like(scale)
+    return _norm_qkv_ref(x, scale, bias, wqkv, bqkv, kind=kind, eps=eps)
+
+
+def flash_decode(q, kcache, vcache, pos, *, sm_scale: Optional[float] = None,
+                 block: int = 256, layer: Optional[int] = None,
+                 alibi: bool = False, page_table=None):
+    """Single-token attention.  q [B, H, Dh]; with ``page_table`` [B, maxp]
+    the caches are the paged pool [P, Hkv, page, Dh] (or stacked
+    [L, P, Hkv, page, Dh] read at ``layer``) and ``pos`` [B] holds each
+    slot's depth: keys 0..pos[b] are attended, pages past pos[b] // page are
+    neither read nor computed.  ``block`` is the contiguous layout's cache
+    block, which this slice does not carry."""
+    if page_table is None:
+        raise NotImplementedError(
+            "flash_decode over a contiguous [B, Hkv, Smax, Dh] cache is not "
+            "ported yet (ROADMAP.md queue 1 item 6: generate() and the "
+            "fixed-slot layout); pass the paged pool and its page_table")
+    scale = sm_scale if sm_scale is not None else 1.0 / (q.shape[-1] ** 0.5)
+    if use_kernel(q):
+        return flash_decode_paged_cuda(q, kcache, vcache, pos, page_table,
+                                       scale=scale, layer=layer, alibi=alibi)
+    return _flash_decode_paged_ref(q, kcache, vcache, pos, page_table,
+                                   scale=scale, layer=layer, alibi=alibi)
+
+
+def fused_proj_norm(ctx, resid, wo, bo=None, scale=None, bias=None, *,
+                    kind: str = "layernorm", eps: float = 1e-5,
+                    parallel: bool = False, wscale=None):
+    """ctx [B, M]; wo [M, D]; resid [B, D].  Returns (r, h): r = resid +
+    ctx @ wo (+ bo), and h the norm of r's fp32 sum (of ``resid`` with
+    ``parallel=True``, the gpt-neox parallel residual)."""
+    _refuse_int8("fused_proj_norm", wscale)
+    if use_kernel(ctx):
+        return fused_proj_norm_cuda(ctx, resid, wo, bo, scale, bias,
+                                    kind=kind, eps=eps, parallel=parallel)
+    if bias is None:
+        bias = torch.zeros_like(scale)
+    return _proj_norm_ref(ctx, resid, wo, bo, scale, bias, kind=kind,
+                          eps=eps, parallel=parallel)
+
+
+def fused_mlp(h, r, w_up, w_down, w_gate=None, b_up=None, b_gate=None,
+              b_down=None, *, act: str = "gelu", wscales=None):
+    """h [B, D] (normed); r [B, D] (residual).  Returns r + mlp(h): the
+    activation is rounded to h's dtype before the down projection, as the
+    jnp reference rounds it."""
+    _refuse_int8("fused_mlp", wscales)
+    if use_kernel(h):
+        return fused_mlp_cuda(h, r, w_up, w_down, w_gate, b_up, b_gate,
+                              b_down, act=act)
+    return _mlp_ref(h, r, w_up, w_gate, w_down, b_up, b_gate, b_down,
+                    act=act)
+
+
+# kernel launches (CUDA tensors only); fused_mlp counts one per call of
+# its two launches
+fused_norm_qkv.launches = 0
+flash_decode.launches = 0
+fused_proj_norm.launches = 0
+fused_mlp.launches = 0

@@ -1,7 +1,6 @@
 """Continuous-batching serving engine over the paged KV cache, PyTorch port.
 
-Counterpart of ``deepspeed_tpu/serving/engine.py`` ``ServingEngine`` on its
-unfused decode path (``use_fused_decode=False``):
+Counterpart of ``deepspeed_tpu/serving/engine.py`` ``ServingEngine``:
 
 - a paged KV pool shared by ``num_slots`` slots (``serving/paged_kv.py``),
   alloc-on-append, free-on-finish, LIFO preempt-and-requeue under pool
@@ -10,6 +9,12 @@ unfused decode path (``use_fused_decode=False``):
 - iteration-level scheduling: each :meth:`step` admits queued requests into
   freed slots, advances at most ``max_prefill_chunks`` prompt chunks, then
   decodes ``decode_block_tokens`` tokens for every slot;
+- decode on the kernel-injected (fused) path by default: every decode
+  micro-step runs :func:`~deepspeed_tpu_torch.models.fused_decode.
+  decode_step` over the engine's ``_dparams`` (four fused kernel calls per
+  layer); ``use_fused_decode=False``, or a model the fused path does not
+  support, decodes with ``forward_with_cache`` on the plain tree.  Prefill
+  always runs ``forward_with_cache`` on the plain tree;
 - sync-free decode: the per-slot last token, position and active mask live
   on the device and are carried from block to block, with EOS folded into
   the step (a row stops the step its EOS is sampled).  The host keeps an
@@ -21,13 +26,14 @@ The JAX engine runs a compiled program per prefill bucket and one per
 decode block; the port runs the same steps eagerly, on PyTorch's current
 stream, and mutates the cache in place where the JAX programs donate it.
 
-Not ported yet (ROADMAP.md queue 1): the fused decode path, the fixed-slot
-layout, the int8 KV cache, the KV host tier, HTTP, metrics, drain, the
-background serve loop, disaggregated handoff, profiling and goodput.
+Not ported yet (ROADMAP.md queue 1): the fixed-slot layout, the int8 KV
+cache, the KV host tier, HTTP, metrics, drain, the background serve loop,
+disaggregated handoff, profiling and goodput.
 """
 
 from __future__ import annotations
 
+import logging
 import time
 from collections import deque
 from typing import Any, Dict, List, Optional
@@ -39,10 +45,13 @@ from deepspeed_tpu_torch.accelerator.real_accelerator import DeviceLike
 from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
 from deepspeed_tpu_torch.inference.engine import InferenceEngine, pow2_bucket
 from deepspeed_tpu_torch.models.decoding import forward_with_cache, sample_token
+from deepspeed_tpu_torch.models.fused_decode import decode_step
 from deepspeed_tpu_torch.serving.paged_kv import PagedKVPool, init_paged_kv_cache
 from deepspeed_tpu_torch.serving.prefix_cache import PrefixCache
 from deepspeed_tpu_torch.serving.scheduler import (PREFILLING, RUNNING,
                                                    IterationScheduler, Request)
+
+logger = logging.getLogger(__name__)
 
 
 class ServingEngine:
@@ -131,6 +140,11 @@ class ServingEngine:
                       "decode_blocks": 0, "decode_tokens": 0,
                       "prefix_hit_tokens": 0, "prefix_miss_tokens": 0,
                       "preempted": 0, "cow_copies": 0}
+        logger.info("serving engine: paged pool: %d x %d-token pages, %d slots "
+                    "x %d window, prefill_chunk=%d, decode_block=%d, %s decode",
+                    self.pool.num_pages - 1, self.pool.page, self.num_slots,
+                    self.cache_len, self.prefill_chunk, self._K,
+                    "fused" if engine._dparams is not None else "unfused")
 
     # ------------------------------------------------------------------
     def set_params(self, params: Any) -> None:
@@ -443,13 +457,26 @@ class ServingEngine:
                 self._materialize(req)
                 self._release(req, req.limit_reason)
 
+    def _step(self, last, pos, page_table, max_pos):
+        """One decode micro-step at per-row positions -> logits [B, V]: the
+        fused ``decode_step`` over the injected view when the engine built
+        one, else ``forward_with_cache`` on the plain tree."""
+        dparams = self.engine._dparams
+        if dparams is not None:
+            logits, _ = decode_step(self.module.config, dparams, last[:, None],
+                                    self._cache, pos, page_table=page_table)
+            return logits
+        logits, _ = forward_with_cache(self.module, self.engine._params,
+                                       last[:, None], self._cache, pos,
+                                       page_table, max_pos=max_pos)
+        return logits[:, -1]
+
     def _block(self):
         """K decode micro-steps for all slots at their own positions, with
         the active mask and positions as device carries: a row goes inactive
         the step its EOS is sampled; parked rows still run (their writes
         land at their frozen position).  Returns device (toks, valid)
         [K, num_slots]."""
-        params = self.engine._params
         limit = self._to_device(self._limit)
         eos = self._to_device(self._eos)
         page_table = self._to_device(self.pool.page_table)
@@ -460,10 +487,8 @@ class ServingEngine:
         toks, valids = [], []
         for _ in range(self._K):
             valid = act & (pos < limit)
-            logits, _ = forward_with_cache(self.module, params, last[:, None],
-                                           self._cache, pos, page_table,
-                                           max_pos=max_pos)
-            nxt = sample_token(logits[:, -1], self._gen, **self._sample)
+            logits = self._step(last, pos, page_table, max_pos)
+            nxt = sample_token(logits, self._gen, **self._sample)
             nxt = torch.where(valid, nxt, last)
             hit = valid & (eos >= 0) & (nxt == eos)
             act = act & ~hit

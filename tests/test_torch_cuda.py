@@ -5,18 +5,27 @@ inside the ``cuda_device`` fixture, so every worker collects the same
 tests).  Run them on the card with
 ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 
-Tolerances: fp32 rtol/atol 1e-5 (same formula, a different reduction
-order); bf16 rtol/atol 2e-2 (one bf16 rounding of each output).
+Tolerances: fp32 rtol/atol 1e-5 for the elementwise kernels (same
+formula, a different reduction order); 1e-4 for the decode GEMVs (fp32
+sums of up to 14336 products in another order: the error grows as
+sqrt(K) * 2^-24 of the partial sums, about 1e-5 at K = 14336) and 2e-4 for
+attention (an online softmax against a dense one, as
+tests/unit/test_fused_decode.py holds the Pallas kernel); bf16 rtol/atol
+2e-2 (one bf16 rounding of each output, and of the normalised rows or the
+activation before a product).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from deepspeed_tpu_torch.ops.kernels import decode as tdec
 from deepspeed_tpu_torch.ops.kernels import layer_norm as tln
 from deepspeed_tpu_torch.ops.kernels import rope as trope
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+GEMV_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+ATTN_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 
 pytestmark = pytest.mark.cuda
 
@@ -25,6 +34,8 @@ pytestmark = pytest.mark.cuda
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    # the plain versions' fp32 products in full fp32, as the kernels' FFMA
+    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -89,6 +100,181 @@ def test_rope_kernel_refuses_bad_inputs(cuda_device):
         trope.apply_rotary_pos_emb(x, cos[:3], cos[:3])
 
 
+def _close(got, want, tol):
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _counted(fn, *args, **kw):
+    """Call a kernel wrapper; check it counted exactly one launch."""
+    before = fn.launches
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,D,N,kind,bias", [
+    (8, 4096, 6144, "rmsnorm", False),      # llama3-8b decode
+    (3, 256, 768, "layernorm", True),
+    (11, 128, 64, "rmsnorm", True),         # two batch passes, one tile
+    (1, 96, 40, "layernorm", False)])       # a ragged last tile
+def test_fused_norm_qkv_kernel_matches_plain(cuda_device, dtype, B, D, N,
+                                             kind, bias):
+    x = _randn((B, D), 0, dtype, cuda_device, 2.0)
+    scale = _randn((D,), 1, dtype, cuda_device) * 0.1 + 1
+    nb = _randn((D,), 2, dtype, cuda_device)
+    w = _randn((D, N), 3, dtype, cuda_device, D ** -0.5)
+    bq = _randn((N,), 4, dtype, cuda_device) if bias else None
+    got = _counted(tdec.fused_norm_qkv, x, scale, nb, w, bq, kind=kind,
+                   eps=1e-5)
+    want = tdec._norm_qkv_ref(x, scale, nb, w, bq, kind=kind, eps=1e-5)
+    assert got.dtype == dtype and got.shape == (B, N)
+    _close(got, want, GEMV_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,M,D,kind,parallel,bias", [
+    (8, 4096, 4096, "rmsnorm", False, False),   # llama3-8b decode
+    (3, 192, 256, "layernorm", False, True),
+    (10, 128, 96, "layernorm", True, True),
+    (2, 64, 32, "rmsnorm", True, False)])
+def test_fused_proj_norm_kernel_matches_plain(cuda_device, dtype, B, M, D,
+                                              kind, parallel, bias):
+    ctx = _randn((B, M), 0, dtype, cuda_device)
+    resid = _randn((B, D), 1, dtype, cuda_device, 2.0)
+    wo = _randn((M, D), 2, dtype, cuda_device, M ** -0.5)
+    bo = _randn((D,), 3, dtype, cuda_device) if bias else None
+    scale = _randn((D,), 4, dtype, cuda_device) * 0.1 + 1
+    nb = _randn((D,), 5, dtype, cuda_device)
+    r, h = _counted(tdec.fused_proj_norm, ctx, resid, wo, bo, scale, nb,
+                    kind=kind, eps=1e-5, parallel=parallel)
+    wr, wh = tdec._proj_norm_ref(ctx, resid, wo, bo, scale, nb, kind=kind,
+                                 eps=1e-5, parallel=parallel)
+    _close(r, wr, GEMV_TOL[dtype])
+    _close(h, wh, GEMV_TOL[dtype])
+    # the last-block norm is ordered: the same inputs give the same bits
+    r2, h2 = tdec.fused_proj_norm(ctx, resid, wo, bo, scale, nb, kind=kind,
+                                  eps=1e-5, parallel=parallel)
+    assert torch.equal(r, r2) and torch.equal(h, h2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,D,F,glu,bias,act", [
+    (8, 4096, 14336, True, False, "silu"),      # llama3-8b decode
+    (3, 256, 1024, False, True, "gelu"),
+    (9, 128, 512, True, True, "gelu_exact"),
+    (2, 64, 160, False, False, "relu")])
+def test_fused_mlp_kernel_matches_plain(cuda_device, dtype, B, D, F, glu,
+                                        bias, act):
+    h = _randn((B, D), 0, dtype, cuda_device)
+    r = _randn((B, D), 1, dtype, cuda_device)
+    wu = _randn((D, F), 2, dtype, cuda_device, D ** -0.5)
+    wd = _randn((F, D), 3, dtype, cuda_device, F ** -0.5)
+    wg = _randn((D, F), 4, dtype, cuda_device, D ** -0.5) if glu else None
+    bu = _randn((F,), 5, dtype, cuda_device) if bias else None
+    bg = _randn((F,), 6, dtype, cuda_device) if (glu and bias) else None
+    bd = _randn((D,), 7, dtype, cuda_device) if bias else None
+    got = _counted(tdec.fused_mlp, h, r, wu, wd, wg, bu, bg, bd, act=act)
+    want = tdec._mlp_ref(h, r, wu, wg, wd, bu, bg, bd, act=act)
+    _close(got, want, GEMV_TOL[dtype])
+    assert torch.equal(got, tdec.fused_mlp(h, r, wu, wd, wg, bu, bg, bd,
+                                           act=act))
+
+
+def _paged(B, Hkv, page, maxp, Dh, L, dtype, dev, seed):
+    P = B * maxp + 1
+    k = _randn((L, P, Hkv, page, Dh), seed, dtype, dev)
+    v = _randn((L, P, Hkv, page, Dh), seed + 1, dtype, dev)
+    perm = np.random.default_rng(seed).permutation(B * maxp) + 1
+    table = torch.from_numpy(perm.reshape(B, maxp)).to(dev)
+    return k, v, table
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("page,pos", [
+    (256, [0, 254, 255, 256, 299, 300, 511, 1023]),   # llama3-8b pool
+    (16, [0, 15, 16, 17, 255, 256, 300, 1023])])
+@pytest.mark.parametrize("alibi", [False, True])
+def test_flash_decode_kernel_matches_plain(cuda_device, dtype, page, pos,
+                                           alibi):
+    """The path shape (8 slots, 32/8 heads, Dh 128) over a stacked two-layer
+    pool with a shuffled page table, depths at page boundaries."""
+    B, H, Hkv, Dh, L = 8, 32, 8, 128, 2
+    maxp = 1024 // page
+    k, v, table = _paged(B, Hkv, page, maxp, Dh, L, dtype, cuda_device, 0)
+    q = _randn((B, H, Dh), 9, dtype, cuda_device)
+    posv = torch.tensor(pos, device=cuda_device)
+    for layer in range(L):
+        got = _counted(tdec.flash_decode, q, k, v, posv, layer=layer,
+                       alibi=alibi, page_table=table)
+        want = tdec._flash_decode_paged_ref(q, k, v, posv, table,
+                                            scale=Dh ** -0.5, layer=layer,
+                                            alibi=alibi)
+        _close(got, want, ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("Dh,H,Hkv,page", [(32, 4, 4, 16), (64, 12, 2, 64),
+                                           (40, 6, 3, 8), (256, 16, 2, 32)])
+def test_flash_decode_kernel_odd_shapes(cuda_device, Dh, H, Hkv, page):
+    """Head dims below one warp's width and above, MHA and GQA groups of 2
+    to 8, small pages, an unstacked pool (layer=None)."""
+    B, maxp = 3, 6
+    k, v, table = _paged(B, Hkv, page, maxp, Dh, 1, torch.float32,
+                         cuda_device, 3)
+    q = _randn((B, H, Dh), 4, torch.float32, cuda_device)
+    posv = torch.tensor([0, page, page * maxp - 1], device=cuda_device)
+    got = _counted(tdec.flash_decode, q, k[0], v[0], posv, page_table=table)
+    want = tdec._flash_decode_paged_ref(q, k[0], v[0], posv, table,
+                                        scale=Dh ** -0.5, layer=None,
+                                        alibi=False)
+    _close(got, want, ATTN_TOL[torch.float32])
+
+
+def test_decode_kernels_refuse_bad_inputs(cuda_device):
+    dev = cuda_device
+    x = torch.ones(2, 64, device=dev)
+    s = torch.ones(64, device=dev)
+    w = torch.ones(64, 64, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        tdec.fused_norm_qkv(x, s, None, w.t(), kind="rmsnorm")
+    with pytest.raises(TypeError):
+        tdec.fused_norm_qkv(x, s.bfloat16(), None, w, kind="rmsnorm")
+    with pytest.raises(ValueError, match="multiple"):
+        tdec.fused_norm_qkv(x, s, None, torch.ones(64, 62, device=dev),
+                            kind="rmsnorm")
+    with pytest.raises(ValueError, match="aligned"):
+        tdec.fused_norm_qkv(x, s, None,
+                            torch.ones(64 * 64 + 1, device=dev)[1:].view(64, 64),
+                            kind="rmsnorm")
+    with pytest.raises(ValueError, match="shape"):
+        tdec.fused_proj_norm(x, torch.ones(2, 32, device=dev), w, None, s,
+                             kind="rmsnorm")
+    with pytest.raises(ValueError, match="activation"):
+        tdec.fused_mlp(x, x, w, w, act="swish")
+    with pytest.raises(ValueError):
+        tdec.fused_norm_qkv(x, s, None, w, kind="batchnorm")
+    q =torch.ones(2, 4, 64, device=dev)
+    pool = torch.ones(3, 2, 16, 64, device=dev)
+    pos = torch.tensor([1, 2], device=dev)
+    table = torch.ones(2, 1, dtype=torch.long, device=dev)
+    with pytest.raises(TypeError, match="int64"):
+        tdec.flash_decode(q, pool, pool, pos.int(), page_table=table)
+    with pytest.raises(TypeError, match="int64"):
+        tdec.flash_decode(q, pool, pool, pos, page_table=table.int())
+    with pytest.raises(ValueError, match="head dim"):
+        tdec.flash_decode(torch.ones(2, 4, 60, device=dev),
+                          torch.ones(3, 2, 16, 60, device=dev),
+                          torch.ones(3, 2, 16, 60, device=dev), pos,
+                          page_table=table)
+    with pytest.raises(ValueError, match="GQA"):
+        tdec.flash_decode(torch.ones(2, 32, 64, device=dev), pool[:, :2],
+                          pool[:, :2].contiguous(), pos, page_table=table)
+    with pytest.raises(ValueError, match="layer"):
+        tdec.flash_decode(q, pool[None], pool[None], pos, layer=1,
+                          page_table=table)
+
+
 def test_serving_on_card_matches_cpu(cuda_device):
     """A small fp32 model served on the card (kernels) and on the CPU
     (plain versions): token-identical greedy outputs."""
@@ -112,4 +298,35 @@ def test_serving_on_card_matches_cpu(cuda_device):
         serve.run()
         serve.pool.check_no_leak()
         outs.append([r.output_tokens for r in reqs])
+    assert outs[0] == outs[1]
+
+
+def test_fused_serving_on_card_matches_cpu(cuda_device):
+    """The default (fused) decode path: the small fp32 model on the card
+    (the four decode kernels) and on the CPU (their plain versions) give
+    the same greedy tokens, at 16-token pages."""
+    import deepspeed_tpu_torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    over = dict(num_layers=2, hidden_size=128, intermediate_size=256,
+                num_heads=4, num_kv_heads=2, vocab_size=512)
+    model = deepspeed_tpu_torch.causal_lm("llama-tiny", device="cpu", **over)
+    with torch.no_grad():
+        model.embed.tok.mul_(40.0)
+    cfg = {"dtype": "float32", "max_out_tokens": 64, "kv_page_tokens": 16}
+    prompts = [np.random.default_rng(i).integers(0, 512, n)
+               for i, n in enumerate((23, 9, 40))]
+    outs = []
+    for dev in ("cpu", cuda_device):
+        serve = deepspeed_tpu_torch.init_serving(model, cfg, device=dev,
+                                                 num_slots=2,
+                                                 prefill_chunk=16)
+        assert serve.engine._dparams is not None
+        before = tdec.fused_mlp.launches
+        reqs = [serve.submit(p, max_new_tokens=12) for p in prompts]
+        serve.run()
+        serve.pool.check_no_leak()
+        outs.append([r.output_tokens for r in reqs])
+        if dev != "cpu":
+            assert tdec.fused_mlp.launches > before
     assert outs[0] == outs[1]

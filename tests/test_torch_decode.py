@@ -1,0 +1,319 @@
+"""The port's fused decode kernels and decode step against the JAX package.
+
+On the CPU each wrapper of ``deepspeed_tpu_torch/ops/kernels/decode.py``
+runs its plain version; the JAX side runs its jnp reference
+(``impl="xla"``) and its Pallas kernel in interpret mode
+(``impl="interpret"``).  Inputs come from numpy with a seed.
+
+Tolerances: fp32 2e-5 for the projections (fp32 sums of up to 512
+products in another order, the bound tests/unit/test_fused_decode.py holds
+the Pallas kernels to) and 2e-4 for attention (an online softmax against a
+dense one, as there); bf16 2e-2 (one bf16 rounding of each output, and of
+the normalised rows or the activation before a product).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deepspeed_tpu.models import causal_lm as j_causal_lm
+from deepspeed_tpu.models import fused_decode as jfd
+from deepspeed_tpu.ops.pallas import decode as jdec
+from deepspeed_tpu_torch.models import causal_lm as t_causal_lm
+from deepspeed_tpu_torch.models import fused_decode as tfd
+from deepspeed_tpu_torch.models import jax_params_to_torch
+from deepspeed_tpu_torch.ops.kernels import decode as tdec
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+ATTN_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _pair(a, dtype):
+    """The same numpy array on both sides (None stays None)."""
+    if a is None:
+        return None, None
+    return (jnp.asarray(a).astype(JDT[dtype]),
+            torch.from_numpy(np.ascontiguousarray(a)).to(TDT[dtype]))
+
+
+def _rand(rng, *shape, scale=0.5):
+    return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+def _close(j, t, tol):
+    np.testing.assert_allclose(np.asarray(jnp.asarray(j).astype(jnp.float32)),
+                               t.float().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("impl", ["xla", "interpret"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["rmsnorm", "layernorm"])
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_fused_norm_qkv_matches_jax(impl, dtype, kind, with_bias):
+    rng = np.random.default_rng(0)
+    B, D, N = 3, 256, 384
+    x = _rand(rng, B, D, scale=2.0)
+    scale = 1.0 + _rand(rng, D, scale=0.1)
+    bias = _rand(rng, D)
+    w = _rand(rng, D, N, scale=0.1)
+    bq = _rand(rng, N) if with_bias else None
+    (jx, tx), (js, ts), (jb, tb) = (_pair(x, dtype), _pair(scale, dtype),
+                                    _pair(bias, dtype))
+    (jw, tw), (jq, tq) = _pair(w, dtype), _pair(bq, dtype)
+    want = jdec.fused_norm_qkv(jx, js, jb, jw, jq, kind=kind, eps=1e-5,
+                               impl=impl)
+    got = tdec.fused_norm_qkv(tx, ts, tb, tw, tq, kind=kind, eps=1e-5)
+    assert got.dtype == TDT[dtype] and got.shape == (B, N)
+    _close(want, got, TOL[dtype])
+
+
+@pytest.mark.parametrize("impl", ["xla", "interpret"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind,parallel", [("rmsnorm", False),
+                                           ("layernorm", False),
+                                           ("rmsnorm", True),
+                                           ("layernorm", True)])
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_fused_proj_norm_matches_jax(impl, dtype, kind, parallel, with_bias):
+    rng = np.random.default_rng(1)
+    B, M, D = 3, 192, 256
+    ctx = _rand(rng, B, M)
+    resid = _rand(rng, B, D, scale=2.0)
+    wo = _rand(rng, M, D, scale=0.1)
+    bo = _rand(rng, D) if with_bias else None
+    scale = 1.0 + _rand(rng, D, scale=0.1)
+    bias = _rand(rng, D)
+    args = [_pair(a, dtype) for a in (ctx, resid, wo, bo, scale, bias)]
+    jr, jh = jdec.fused_proj_norm(*[a[0] for a in args], kind=kind, eps=1e-5,
+                                  parallel=parallel, impl=impl)
+    tr, th = tdec.fused_proj_norm(*[a[1] for a in args], kind=kind, eps=1e-5,
+                                  parallel=parallel)
+    assert tr.dtype == th.dtype == TDT[dtype]
+    _close(jr, tr, TOL[dtype])
+    _close(jh, th, TOL[dtype])
+
+
+def _mlp_inputs(rng, B, D, F, glu, with_bias):
+    h = _rand(rng, B, D)
+    r = _rand(rng, B, D)
+    w_up = _rand(rng, D, F, scale=0.2)
+    w_down = _rand(rng, F, D, scale=0.1)
+    w_gate = _rand(rng, D, F, scale=0.2) if glu else None
+    b_up = _rand(rng, F) if with_bias else None
+    b_gate = _rand(rng, F) if (glu and with_bias) else None
+    b_down = _rand(rng, D) if with_bias else None
+    return h, r, w_up, w_down, w_gate, b_up, b_gate, b_down
+
+
+@pytest.mark.parametrize("impl", ["xla", "interpret"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("glu", [True, False])
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_fused_mlp_matches_jax(impl, dtype, glu, with_bias):
+    rng = np.random.default_rng(2)
+    act = "silu" if glu else "gelu"
+    args = [_pair(a, dtype)
+            for a in _mlp_inputs(rng, 3, 128, 512, glu, with_bias)]
+    want = jdec.fused_mlp(*[a[0] for a in args], act=act, impl=impl)
+    got = tdec.fused_mlp(*[a[1] for a in args], act=act)
+    assert got.dtype == TDT[dtype] and got.shape == (3, 128)
+    _close(want, got, TOL[dtype])
+
+
+@pytest.mark.parametrize("impl", ["xla", "interpret"])
+@pytest.mark.parametrize("act", ["silu", "gelu", "gelu_exact", "relu"])
+def test_fused_mlp_activations_match_jax(impl, act):
+    rng = np.random.default_rng(3)
+    args = [_pair(a, "float32")
+            for a in _mlp_inputs(rng, 2, 128, 256, True, False)]
+    want = jdec.fused_mlp(*[a[0] for a in args], act=act, impl=impl)
+    got = tdec.fused_mlp(*[a[1] for a in args], act=act)
+    _close(want, got, TOL["float32"])
+
+
+def test_fused_mlp_biases_are_independent():
+    """The port holds each bias on its own, as the jnp reference does: with
+    no ``b_up`` the gate and down biases still apply (the Pallas kernel
+    gates all three on ``b_up``; ROADMAP.md queue 3)."""
+    rng = np.random.default_rng(4)
+    h, r, w_up, w_down, w_gate, _, b_gate, b_down = _mlp_inputs(
+        rng, 2, 128, 256, True, True)
+    args = [_pair(a, "float32")
+            for a in (h, r, w_up, w_down, w_gate, None, b_gate, b_down)]
+    want = jdec._mlp_ref(*[args[i][0] for i in (0, 1, 2, 4, 3, 5, 6, 7)],
+                         act="silu")
+    got = tdec.fused_mlp(*[a[1] for a in args], act="silu")
+    _close(want, got, TOL["float32"])
+    no_bias = tdec.fused_mlp(*[a[1] for a in args[:5]], act="silu")
+    assert (got - no_bias).abs().max() > 1e-2
+
+
+def _paged_pool(rng, L, B, Hkv, page, maxp, Dh):
+    """A stacked [L, P, Hkv, page, Dh] pool behind a shuffled page table
+    (page 0 is the junk page and is never assigned)."""
+    P = B * maxp + 1
+    k = _rand(rng, L, P, Hkv, page, Dh)
+    v = _rand(rng, L, P, Hkv, page, Dh)
+    table = (rng.permutation(B * maxp) + 1).reshape(B, maxp)
+    return k, v, table
+
+
+@pytest.mark.parametrize("impl", ["xla", "interpret"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pos", [[127, 128], [5, 300], [383, 0]])
+@pytest.mark.parametrize("alibi", [False, True])
+def test_flash_decode_paged_matches_jax(impl, dtype, pos, alibi):
+    """GQA (2 query heads per KV head) over a stacked two-layer pool with a
+    shuffled page table and per-row depths at page boundaries; 128-token
+    pages, the smallest the Pallas kernel takes in interpret mode."""
+    rng = np.random.default_rng(5)
+    L, B, Hkv, rep, Dh, page, maxp = 2, 2, 2, 2, 32, 128, 3
+    q = _rand(rng, B, Hkv * rep, Dh)
+    k, v, table = _paged_pool(rng, L, B, Hkv, page, maxp, Dh)
+    (jq, tq), (jk, tk), (jv, tv) = _pair(q, dtype), _pair(k, dtype), \
+        _pair(v, dtype)
+    jpos, tpos = jnp.asarray(pos, jnp.int32), torch.tensor(pos)
+    jt, tt = jnp.asarray(table, jnp.int32), torch.from_numpy(table)
+    for layer in range(L):
+        want = jdec.flash_decode(jq, jk, jv, jpos, layer=layer, alibi=alibi,
+                                 page_table=jt, impl=impl)
+        got = tdec.flash_decode(tq, tk, tv, tpos, layer=layer, alibi=alibi,
+                                page_table=tt)
+        assert got.dtype == TDT[dtype] and got.shape == tq.shape
+        _close(want, got, ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("page,pos", [(16, [15, 16, 47]), (64, [0, 63, 191])])
+def test_flash_decode_small_pages_match_jax(page, pos):
+    """Pages below 128 tokens (the port's pools use 8-256): the JAX package
+    takes its gathered dense reference for them; unpaged layer=None pool."""
+    rng = np.random.default_rng(6)
+    B, Hkv, rep, Dh, maxp = 3, 2, 4, 16, 3
+    q = _rand(rng, B, Hkv * rep, Dh)
+    k, v, table = _paged_pool(rng, 1, B, Hkv, page, maxp, Dh)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(q, "float32"),
+                                    _pair(k[0], "float32"),
+                                    _pair(v[0], "float32"))
+    want = jdec.flash_decode(jq, jk, jv, jnp.asarray(pos, jnp.int32),
+                             page_table=jnp.asarray(table, jnp.int32),
+                             impl="xla")
+    got = tdec.flash_decode(tq, tk, tv, torch.tensor(pos),
+                            page_table=torch.from_numpy(table))
+    _close(want, got, ATTN_TOL["float32"])
+
+
+def test_cpu_calls_count_no_launch():
+    before = [f.launches for f in (tdec.fused_norm_qkv, tdec.flash_decode,
+                                   tdec.fused_proj_norm, tdec.fused_mlp)]
+    x = torch.ones(2, 16)
+    w = torch.ones(16, 16)
+    tdec.fused_norm_qkv(x, torch.ones(16), None, w, kind="rmsnorm")
+    tdec.fused_proj_norm(x, x, w, None, torch.ones(16), kind="rmsnorm")
+    tdec.fused_mlp(x, x, w, w, act="relu")
+    after = [f.launches for f in (tdec.fused_norm_qkv, tdec.flash_decode,
+                                  tdec.fused_proj_norm, tdec.fused_mlp)]
+    assert after == before
+
+
+# ---------------------------------------------------------------------------
+# decode_step on one tiny model
+# ---------------------------------------------------------------------------
+
+DTINY = dict(num_layers=2, hidden_size=128, intermediate_size=256,
+             num_heads=4, num_kv_heads=2, vocab_size=256, max_seq_len=1024)
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    jm = j_causal_lm("llama-tiny", remat=False, **DTINY)
+    params = jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))
+    tm = t_causal_lm("llama-tiny", device="cpu", **DTINY)
+    tp = jax_params_to_torch(jax.tree.map(np.asarray, params), tm.config,
+                             device="cpu")
+    return jm, params, tm, tp
+
+
+def test_inject_decode_params_matches_jax_and_views_the_tree(tiny):
+    jm, params, tm, tp = tiny
+    jd = jfd.inject_decode_params(params, jm.config)
+    td = tfd.inject_decode_params(tp, tm.config)
+    assert len(td["layers"]) == len(jd["layers"]) == DTINY["num_layers"]
+    for jl, tl in zip(jd["layers"], td["layers"]):
+        assert sorted(jl) == sorted(tl)
+        for name in jl:
+            np.testing.assert_array_equal(np.asarray(jl[name]),
+                                          tl[name].numpy(), err_msg=name)
+    # every per-layer leaf but the concatenated QKV is a view of the tree
+    for l, lp in enumerate(td["layers"]):
+        assert lp["wo"].data_ptr() == tp["layers"]["attn"]["wo"][l].data_ptr()
+        assert lp["w_up"].data_ptr() == tp["layers"]["mlp"]["w_up"][l].data_ptr()
+        assert lp["wqkv"].is_contiguous()
+    assert td["embed"] is tp["embed"]
+    assert tfd.supports_fused_decode(tm.config)
+    assert not tfd.supports_fused_decode(tm.config, quantized_kv=True)
+    assert not tfd.supports_fused_decode(tm.config, tp=2)
+
+
+def test_decode_step_matches_jax_interpret(tiny):
+    """Three paged decode steps (page 128, shuffled table, a parked row on
+    the junk page) through the JAX decode_step with the Pallas kernels in
+    interpret mode and through the port's: logits within 2e-4 (fp32,
+    attention tolerance); the pools equal within 2e-5 on every live page
+    (each new K/V row is a projection and a rotation computed in another
+    order) and bit for bit on every row neither side wrote."""
+    jm, params, tm, tp = tiny
+    cfg = jm.config
+    jd = jfd.inject_decode_params(params, cfg)
+    td = tfd.inject_decode_params(tp, tm.config)
+    rng = np.random.default_rng(7)
+    L, Hkv, Dh, page, maxp = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim, \
+        128, 3
+    table = np.zeros((3, maxp), np.int64)
+    table[0] = [3, 1, 5]
+    table[1, :2] = [6, 2]                  # row 2 parked on the junk page
+    k = _rand(rng, L, 7, Hkv, page, Dh)
+    v = _rand(rng, L, 7, Hkv, page, Dh)
+    jc = {"k": jnp.asarray(k), "v": jnp.asarray(v)}
+    tc = {"k": torch.from_numpy(k.copy()), "v": torch.from_numpy(v.copy())}
+    pos = np.array([254, 127, 0])
+    tok = np.array([[3], [99], [0]])
+    for _ in range(3):
+        jl, jc = jfd.decode_step(cfg, jd, jnp.asarray(tok), jc,
+                                 jnp.asarray(pos, jnp.int32),
+                                 page_table=jnp.asarray(table, jnp.int32),
+                                 impl="interpret")
+        tl, tc = tfd.decode_step(tm.config, td, torch.from_numpy(tok), tc,
+                                 torch.from_numpy(pos),
+                                 page_table=torch.from_numpy(table))
+        assert tl.dtype == torch.float32 and tl.shape == (3, 256)
+        np.testing.assert_allclose(np.asarray(jl)[:2], tl[:2].numpy(),
+                                   rtol=2e-4, atol=2e-4)
+        tok = np.array(jnp.argmax(jl, -1))[:, None]
+        tok[2] = 0
+        pos[:2] += 1
+    written = np.zeros(k.shape[1:4], bool)          # [P, Hkv, page]
+    for b, p0 in ((0, 254), (1, 127)):
+        for p in range(p0, p0 + 3):
+            written[table[b, p // page], :, p % page] = True
+    for name in ("k", "v"):
+        j, t = np.asarray(jc[name]), tc[name].numpy()
+        np.testing.assert_allclose(j[:, 1:], t[:, 1:], rtol=2e-5, atol=2e-5)
+        keep = ~written
+        keep[0] = False                              # the junk page
+        np.testing.assert_array_equal(j[:, keep], t[:, keep])
+
+
+def test_decode_step_refuses_unported_branches(tiny):
+    _, _, tm, tp = tiny
+    td = tfd.inject_decode_params(tp, tm.config)
+    cache = {"k": torch.zeros(2, 3, 2, 16, 32), "v": torch.zeros(2, 3, 2, 16, 32)}
+    tok = torch.zeros(2, 1, dtype=torch.long)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tfd.decode_step(tm.config, td, tok, cache, 5,
+                        page_table=torch.zeros(2, 3, dtype=torch.long))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tfd.decode_step(tm.config, td, tok, cache, torch.tensor([1, 2]))

@@ -71,7 +71,6 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("over", [
-    {"use_fused_decode": None}, {"use_fused_decode": True},
     {"paged_kv_cache": False}, {"quantize_kv_cache": True},
     {"kv_host_tier_pages": 4}, {"dtype": "int8"},
     {"tensor_parallel": {"tp_size": 2}}])
@@ -83,6 +82,48 @@ def test_unported_options_are_refused(over):
     cfg = {"dtype": "float32", "use_fused_decode": False, **over}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         deepspeed_tpu_torch.init_serving(model, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("over,fused", [
+    ({}, True), ({"use_fused_decode": None}, True),
+    ({"use_fused_decode": True}, True), ({"use_fused_decode": False}, False),
+    ({"use_fused_decode": False, "replace_with_kernel_inject": True}, False)])
+def test_fused_decode_is_the_default(over, fused):
+    """The JAX policy: the kernel-injected view is built unless the config
+    opts out with use_fused_decode=False (which wins over
+    replace_with_kernel_inject), and set_params rebuilds it."""
+    import deepspeed_tpu_torch
+
+    model = deepspeed_tpu_torch.causal_lm("llama-tiny", num_layers=1,
+                                          device="cpu")
+    serve = deepspeed_tpu_torch.init_serving(model, {"dtype": "float32",
+                                                     **over}, device="cpu")
+    assert (serve.engine._dparams is not None) is fused
+    if fused:
+        old = serve.engine._dparams
+        serve.set_params(model.params())
+        assert serve.engine._dparams is not None
+        assert serve.engine._dparams is not old
+
+
+def test_unported_decode_variants_are_refused():
+    """What the fused path does not carry yet raises naming the ROADMAP:
+    int8 weights in each GEMV kernel, and flash_decode over a contiguous
+    cache (no page table)."""
+    from deepspeed_tpu_torch.ops.kernels import decode as tdec
+
+    x = torch.zeros(2, 16)
+    w = torch.zeros(16, 16)
+    s = torch.ones(16)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tdec.fused_norm_qkv(x, s, None, w, wscale=s)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tdec.fused_proj_norm(x, x, w, None, s, wscale=s)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tdec.fused_mlp(x, x, w, w, wscales=(s, s, s))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tdec.flash_decode(torch.zeros(2, 4, 8), torch.zeros(2, 2, 64, 8),
+                          torch.zeros(2, 2, 64, 8), torch.tensor([1, 2]))
 
 
 def test_kernel_input_checks_raise():

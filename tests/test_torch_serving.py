@@ -3,11 +3,12 @@
 - the scheduler, ``PagedKVPool`` and ``PrefixCache`` copies driven on the
   same operation trace as the JAX copies: same slot assignments, page
   tables, refcounts, free lists, pins, matches and evictions;
-- the slice as a whole: the JAX ``ServingEngine`` (fp32, unfused decode)
-  and the port's engine on converted weights serve the same mixed waves —
-  chunked prefill, a preemption and resume, a copy-on-write prefix-cache
-  hit across a partial page, an EOS stop — token for token, with the same
-  finish reasons and no leaked pages.
+- the slice as a whole: the JAX ``ServingEngine`` (fp32) and the port's
+  engine on converted weights serve the same mixed waves — chunked
+  prefill, a preemption and resume, a copy-on-write prefix-cache hit
+  across a partial page, an EOS stop — token for token, with the same
+  finish reasons and no leaked pages, on the unfused decode path and on the
+  default kernel-injected (fused) one.
 """
 
 import jax
@@ -227,6 +228,52 @@ def test_serving_engine_token_identical_to_jax(weights):
     assert got[3][1] == "eos" and len(got[3][0]) < 12
     assert port.stats["prefill_chunks"] > len(got), "prefill must be chunked"
     assert [r[1] for r in got[:3]] == ["length"] * 3
+    assert len(set(got[0][0])) > 3, "outputs should not be degenerate"
+
+
+# the default config: no use_fused_decode key, so both engines decode fused
+FUSED_CFG = {k: v for k, v in SERVE_CFG.items() if k != "use_fused_decode"}
+
+
+def test_serving_engine_fused_token_identical_to_jax(weights, monkeypatch):
+    """The default (kernel-injected) decode path of both engines on the
+    same waves: both must really take it (``_dparams`` built, the port's
+    ``decode_step`` called every micro-step) and agree token for token."""
+    import deepspeed_tpu_torch.serving.engine as tse
+
+    mesh, jm, params, tm, tp = weights
+
+    def port_engine():
+        return deepspeed_tpu_torch.init_serving(tm, FUSED_CFG, params=tp,
+                                                device="cpu", num_slots=2,
+                                                prefill_chunk=16)
+
+    probe = _serve(port_engine(), _waves(None))
+    eos = probe[3][0][3]
+    port = port_engine()
+    assert port.engine._dparams is not None
+    calls = []
+    real = tse.decode_step
+    monkeypatch.setattr(tse, "decode_step",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    got = _serve(port, _waves(eos))
+    monkeypatch.undo()
+    assert len(calls) == port.stats["decode_blocks"] * port._K > 0
+    set_global_mesh(mesh)
+    ref = deepspeed_tpu.init_serving(jm, config=FUSED_CFG, num_slots=2,
+                                     prefill_chunk=16)
+    ref.set_params(params)
+    try:
+        assert ref.engine._dparams is not None
+        want = _serve(ref, _waves(eos))
+    finally:
+        ref.close()
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g == w, f"request {i}: port {g} != jax {w}"
+    assert got[1][2] >= 1, "wave 1 must preempt"
+    assert got[2][3] == 31 and port.stats["cow_copies"] >= 1
+    assert got[3][1] == "eos" and len(got[3][0]) < 12
+    assert port.stats["prefill_chunks"] > len(got), "prefill must be chunked"
     assert len(set(got[0][0])) > 3, "outputs should not be degenerate"
 
 
