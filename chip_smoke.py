@@ -6,10 +6,11 @@
 Needs one CUDA card, nvcc and triton; imports nothing of JAX.  Phases
 (each one raises, and the script exits non-zero, on any failure):
 
-1. build   — compile the two CUDA libraries (RMSNorm; the four fused decode
-             kernels), one nvcc each, started together, while Triton
-             compiles the RoPE kernel; print build seconds and the ptxas
-             register / shared-memory / spill lines;
+1. build   — compile the four CUDA libraries (RMSNorm fwd/bwd; the four
+             fused decode kernels; flash attention fwd/bwd; fused Adam),
+             one nvcc each, started together, while Triton compiles the
+             RoPE kernel; print build seconds and the ptxas register /
+             shared-memory / spill lines;
 2. kernels — each kernel against its plain PyTorch version at the serving
              path's shapes, fp32 and bf16, with the tolerances of TOL below
              (the flash-decode kernel at depths 1..1024 across page
@@ -19,10 +20,20 @@ Needs one CUDA card, nvcc and triton; imports nothing of JAX.  Phases
              the 50 MB L2, as 32 layers do) beside the plain version, the
              PyTorch library call where one exists, ``torch.matmul`` of
              the same activations and weights as a yardstick for the three
-             GEMV kernels, and the bound;
+             GEMV kernels, and the bound; then the four training kernels
+             at llama-1b4's training shapes (flash attention fwd and bwd
+             on [4, 16, 2048, 128], RMSNorm bwd on [8192, 2048], Adam over
+             a [24, 2048, 5632] leaf, three steps), fp32 and bf16, plus a
+             ragged S, with bit-equal repeats of each backward, and the
+             serving kernels at the training shapes (RMSNorm fwd on
+             [8192, 2048], RoPE on [4, 16, 2048, 128] with sin and with
+             the backward's -sin); then the four training kernels'
+             timings beside SDPA and torch's fused AdamW as yardsticks;
 3. reference — a small fp32 model served on the card (kernels) and on the
              CPU (plain versions) must give the same greedy tokens, on the
              default fused decode path and on ``use_fused_decode: False``;
+             and the same small model trained 3 steps on the card (TF32
+             off) and on the CPU: losses and final weights agree;
 4. serve   — the main path: ``init_serving(causal_lm("llama3-8b"),
              {"dtype": "bfloat16", ...})`` with the default decode (fused)
              at full width and depth with random bf16 weights from seed 0,
@@ -33,7 +44,16 @@ Needs one CUDA card, nvcc and triton; imports nothing of JAX.  Phases
              top kernels, each kernel's device time per launch); then the
              unfused decode path on the same weights, a shorter wave with
              its own launch plan;
-5. report  — the card's name and power limit, the kernels JSON line, and
+5. train   — the training path, after the serve phase has released its
+             memory: ``deepspeed_tpu_torch.initialize(causal_lm(
+             "llama-1b4"), config)`` at full width and depth, random fp32
+             weights from seed 0, bf16 compute, FusedAdam, WarmupLR,
+             clipping, micro 4 x gas 2 x S 2048, 5 ``train_step``s on one
+             repeated batch of seeded random tokens; losses finite and
+             falling, launch counters (zeroed just before, read just
+             after) equal to the path's plan; then one step under
+             torch.profiler;
+6. report  — the card's name and power limit, the kernels JSON line, and
              last the result line ``{"ok": true, "device": {...}}``.
 """
 
@@ -126,8 +146,8 @@ def phase_build(torch, dev):
             results[name] = e
         results[name + "_s"] = time.perf_counter() - t0
 
-    threads = [threading.Thread(target=cuda_build, args=(n,))
-               for n in ("layer_norm", "decode")]
+    libs = ("layer_norm", "decode", "flash_attention", "fused_adam")
+    threads = [threading.Thread(target=cuda_build, args=(n,)) for n in libs]
     for th in threads:
         th.start()
     t0 = time.perf_counter()
@@ -138,7 +158,7 @@ def phase_build(torch, dev):
     triton_s = time.perf_counter() - t0
     for th in threads:
         th.join()
-    for name in ("layer_norm", "decode"):
+    for name in libs:
         if isinstance(results[name], Exception):
             raise results[name]
         lib = results[name]
@@ -155,13 +175,14 @@ def phase_build(torch, dev):
                 m = re.search(r"(\d+) bytes spill stores", ln)
                 if m and int(m.group(1)):
                     spilled.append(f"{entry[:60]}: {ln}")
-            elif "Used" in ln and (name == "layer_norm" or "bfloat16" in entry):
+            elif "Used" in ln and (name != "decode" or "bfloat16" in entry):
                 print(f"  ptxas: {entry[:70]}: {ln.split(':', 1)[1].strip()}")
         print(f"  ptxas: {n_entries} entry functions, {len(spilled)} spill"
               + "".join(f"\n  ptxas spill: {s}" for s in spilled))
     print(f"build: triton rope compile+first launch {triton_s:.2f}s")
-    return {"rms_norm": results["layer_norm_s"], "decode": results["decode_s"],
-            "rope": triton_s}
+    out = {name: results[name + "_s"] for name in libs}
+    out["rope"] = triton_s
+    return out
 
 
 def _randn(torch, shape, gen, dev, scale=1.0):
@@ -426,6 +447,238 @@ def time_decode_kernels(torch, dev, gen, errs):
         "max_abs_err": errs["flash_decode"]}
     return out
 
+# llama-1b4 training shapes: micro 4 x S 2048, D 2048, 16 heads of 128,
+# the [24, 2048, 5632] MLP leaf for Adam
+TB, TS, TD, TH, TDH, TL, TF = 4, 2048, 2048, 16, 128, 24, 5632
+# flash gradients: relative Frobenius error, fp32 1e-4 (sums of up to S
+# recomputed products in another order), bf16 2e-2 (p and ds rounded to
+# bf16 before each product, as the reference kernel does); RMSNorm dγ (a
+# sum over 8192 rows) relative 1e-4 fp32 / 2e-2 bf16; Adam 1e-6 (the same
+# fp32 formula, three steps)
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# flash output o, relative Frobenius on top of the elementwise ATTN_TOL:
+# late causal rows average many keys, so |o| there is ~0.04 and a fixed
+# 2e-2 atol alone would hide an error of a quarter of them; fp32 1e-5, bf16
+# 1e-2 (p rounded to bf16 before P.V, then o to bf16; measured ~3e-3)
+O_REL_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+ADAM_TOL = 1e-6
+
+
+def _rel_err(got, want):
+    return float((got.float() - want.float()).norm()
+                 / max(float(want.float().norm()), 1.0))
+
+
+def _lse_plain(torch, q, k, scale):
+    S = q.shape[-2]
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    return torch.logsumexp(logits.masked_fill(~mask, -1e30), -1)
+
+
+def check_flash(torch, dev, gen, dtype_name, shape):
+    """Flash fwd (o, lse) and bwd (dq, dk, dv) against mha_reference and
+    its autograd on the same inputs; two backward calls must give the same
+    bits.  Returns (o max abs err, grads max abs err, grads max rel err)."""
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+
+    dt = getattr(torch, dtype_name)
+    q, k, v, do = (_randn(torch, shape, gen, dev).to(dt) for _ in range(4))
+    scale = shape[-1] ** -0.5
+    o, lse = fa.flash_fwd_cuda(q, k, v, True, scale)
+    torch.cuda.synchronize()
+    want_o = fa.mha_reference(q, k, v)
+    e_o = _assert_close(torch, o, want_o, ATTN_TOL[dtype_name],
+                        f"flash fwd o {dtype_name} {shape}")
+    rel_o = _rel_err(o, want_o)
+    check(rel_o < O_REL_TOL[dtype_name], f"flash fwd o {dtype_name} {shape}: "
+          f"relative error {rel_o}")
+    _assert_close(torch, lse, _lse_plain(torch, q, k, scale), 1e-4,
+                  f"flash fwd lse {dtype_name} {shape}")
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do, True, scale)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, True, scale)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+          f"flash bwd {dtype_name} {shape}: two calls differ")
+    ref = [t.float().requires_grad_() for t in (q, k, v)]
+    fa.mha_reference(*ref).backward(do.float())
+    rel = [_rel_err(g, r.grad) for g, r in zip(grads, ref)]
+    check(max(rel) < GRAD_TOL[dtype_name], f"flash bwd {dtype_name} {shape}: "
+          f"relative errors dq/dk/dv {rel}")
+    e_g = max(float((g.float() - r.grad).abs().max()) for g, r in zip(grads, ref))
+    return e_o, rel_o, e_g, max(rel)
+
+
+def check_train_kernels(torch, dev, gen):
+    """The training path's kernels against their plain versions at the
+    training shapes (and a ragged S), fp32 and bf16: the four new ones, and
+    RMSNorm fwd and RoPE (fwd, and bwd through -sin) that serving also
+    runs; bf16 max abs errors."""
+    from deepspeed_tpu_torch.models.layers import rope_cache
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.ops.kernels import fused_adam as adam
+    from deepspeed_tpu_torch.ops.kernels import layer_norm as ln
+    from deepspeed_tpu_torch.ops.kernels import rope
+
+    errs = {}
+    for dtype_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype_name)
+        for shape in ((TB, TH, TS, TDH), (2, 3, 200, TDH)):
+            e_o, rel_o, e_g, rel = check_flash(torch, dev, gen, dtype_name, shape)
+            print(f"train kernels: flash {dtype_name} {list(shape)}: o max abs "
+                  f"err {e_o:.3g}, relative (Frobenius) {rel_o:.3g}; dq/dk/dv "
+                  f"max abs err {e_g:.3g}, max relative (Frobenius) {rel:.3g}")
+            if dtype_name == "bfloat16" and shape[2] == TS:
+                errs["flash_attention_fwd"], errs["flash_attention_bwd"] = e_o, e_g
+        # RoPE on q [4, 16, 2048, 128] with the path's cos/sin (rope_cache,
+        # cast to the compute dtype): the forward, and the backward's -sin
+        x = _randn(torch, (TB, TH, TS, TDH), gen, dev).to(dt)
+        cos, sin = rope_cache(TS, TDH, 10000.0, device=dev)
+        cos, sin = cos.to(dt), sin.to(dt)
+        for sign, s in (("sin", sin), ("-sin", -sin)):
+            e = _assert_close(torch, rope.rope_triton(x, cos, s),
+                              rope.rope_plain(x, cos, s), TOL[dtype_name],
+                              f"rope ({sign}) {dtype_name} train shape")
+            print(f"train kernels: rope {dtype_name} {list(x.shape)} ({sign}): "
+                  f"max abs err {e:.3g}")
+            if dtype_name == "bfloat16":
+                errs["rope_train"] = max(errs.get("rope_train", 0.0), e)
+        x = _randn(torch, (TB * TS, TD), gen, dev, 3).to(dt)
+        g = (1 + 0.1 * torch.randn(TD, device=dev, generator=gen)).to(dt)
+        e = _assert_close(torch, ln.rms_norm_cuda(x, g, 1e-5),
+                          ln.rms_norm_plain(x, g, 1e-5), TOL[dtype_name],
+                          f"rms_norm {dtype_name} train shape")
+        print(f"train kernels: rms_norm {dtype_name} [8192, 2048]: max abs err "
+              f"{e:.3g}")
+        if dtype_name == "bfloat16":
+            errs["rms_norm_train"] = e
+        dy = _randn(torch, (TB * TS, TD), gen, dev).to(dt)
+        dx, dg = ln.rms_norm_bwd_cuda(x, g, dy, 1e-5)
+        dx2, dg2 = ln.rms_norm_bwd_cuda(x, g, dy, 1e-5)
+        torch.cuda.synchronize()
+        check(torch.equal(dx, dx2) and torch.equal(dg, dg2),
+              f"rms_norm_bwd {dtype_name}: two calls differ")
+        want_dx, want_dg = ln.rms_norm_bwd_plain(x, g, dy, 1e-5)
+        e = _assert_close(torch, dx, want_dx, TOL[dtype_name],
+                          f"rms_norm_bwd dx {dtype_name}")
+        rel = _rel_err(dg, want_dg)
+        check(rel < GRAD_TOL[dtype_name], f"rms_norm_bwd dγ {dtype_name}: "
+              f"relative error {rel}")
+        print(f"train kernels: rms_norm_bwd {dtype_name} [8192, 2048]: dx max "
+              f"abs err {e:.3g}, dγ relative {rel:.3g}")
+        if dtype_name == "bfloat16":
+            errs["rms_norm_bwd"] = e
+        del x, dy, dx, dx2, want_dx
+    # Adam: the path's case (fp32 masters and accumulator) and bf16 grads
+    n = TL * TD * TF
+    for g_name in ("float32", "bfloat16"):
+        p = _randn(torch, (n,), gen, dev)
+        m, v = torch.zeros(n, device=dev), torch.zeros(n, device=dev)
+        ref = [p.clone(), m.clone(), v.clone()]
+        for step in (1, 2, 3):
+            gr = _randn(torch, (n,), gen, dev, 1e-3).to(getattr(torch, g_name))
+            kw = dict(lr=3e-4 * step, beta1=0.9, beta2=0.95, eps=1e-8,
+                      weight_decay=0.1, adam_w_mode=True)
+            adam.fused_adam_update_cuda(p, gr, m, v, step, **kw)
+            adam.fused_adam_update_plain(ref[0], gr, ref[1], ref[2], step, **kw)
+        torch.cuda.synchronize()
+        e = max(_assert_close(torch, got, want, ADAM_TOL, f"fused_adam {what} "
+                              f"(grads {g_name})")
+                for got, want, what in zip((p, m, v), ref, ("p", "m", "v")))
+        print(f"train kernels: fused_adam fp32 params, {g_name} grads, "
+              f"[{n}] x 3 steps: p/m/v max abs err {e:.3g}")
+        if g_name == "float32":
+            errs["fused_adam"] = e
+        del p, m, v, ref, gr
+    torch.cuda.empty_cache()
+    return errs
+
+
+def time_train_kernels(torch, dev, gen, errs):
+    """bf16 at the llama-1b4 training shapes (Adam: fp32 masters and grads
+    over the [24, 2048, 5632] MLP leaf)."""
+    import torch.nn.functional as F_
+
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.ops.kernels import fused_adam as adam
+    from deepspeed_tpu_torch.ops.kernels import layer_norm as ln
+
+    bf = torch.bfloat16
+    out = {}
+    x = _randn(torch, (TB * TS, TD), gen, dev).to(bf)
+    dy = _randn(torch, (TB * TS, TD), gen, dev).to(bf)
+    g = torch.ones(TD, device=dev, dtype=bf)
+    b_ms, b_by = bound_ms((3 * x.numel() + 2 * TD) * 2, 10 * x.numel())
+    out["rms_norm_bwd"] = {
+        "shape": "x, dy [8192,2048] bf16",
+        "ms": time_ms(torch, lambda: ln.rms_norm_bwd_cuda(x, g, dy, 1e-5)),
+        "plain_ms": time_ms(torch, lambda: ln.rms_norm_bwd_plain(x, g, dy, 1e-5),
+                            samples=10),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+        "max_abs_err": errs["rms_norm_bwd"]}
+    del x, dy
+
+    shape = (TB, TH, TS, TDH)
+    q, k, v, do = (_randn(torch, shape, gen, dev).to(bf) for _ in range(4))
+    scale = TDH ** -0.5
+    causal_pairs = TB * TH * TS * (TS + 1) // 2        # (row, key) pairs visible
+    fwd_flops = 4 * causal_pairs * TDH                 # q k^T and p v
+    b_ms, b_by = bound_ms(4 * q.numel() * 2 + TB * TH * TS * 4, fwd_flops,
+                          BF16_FLOPS_PER_S)
+    out["flash_attention_fwd"] = {
+        "shape": "q, k, v [4,16,2048,128] bf16, causal",
+        "ms": time_ms(torch, lambda: fa.flash_fwd_cuda(q, k, v, True, scale),
+                      samples=20, inner=10),
+        "plain_ms": time_ms(torch, lambda: fa.mha_reference(q, k, v), samples=5,
+                            inner=3, warmup=2),
+        "library_ms": time_ms(torch, lambda: F_.scaled_dot_product_attention(
+            q, k, v, is_causal=True), samples=20, inner=10),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "max_abs_err": errs["flash_attention_fwd"]}
+    o, lse = fa.flash_fwd_cuda(q, k, v, True, scale)
+    # the backward's least work: the five products s, dp, dv, dq, dk
+    b_ms, b_by = bound_ms(8 * q.numel() * 2 + TB * TH * TS * 4,
+                          2.5 * fwd_flops, BF16_FLOPS_PER_S)
+    ref = [t.float().requires_grad_() for t in (q, k, v)]
+    ref_out = fa.mha_reference(*ref)
+    lib = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    lib_out = F_.scaled_dot_product_attention(*lib, is_causal=True)
+    out["flash_attention_bwd"] = {
+        "shape": "q, k, v, o, do [4,16,2048,128] bf16, causal (two launches)",
+        "ms": time_ms(torch, lambda: fa.flash_attention_bwd(
+            q, k, v, o, lse, do, True, scale), samples=20, inner=5),
+        "plain_ms": time_ms(torch, lambda: torch.autograd.grad(
+            ref_out, ref, do.float(), retain_graph=True), samples=5, inner=3,
+            warmup=2),
+        "library_ms": time_ms(torch, lambda: torch.autograd.grad(
+            lib_out, lib, do, retain_graph=True), samples=20, inner=5),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "max_abs_err": errs["flash_attention_bwd"]}
+    del q, k, v, do, o, lse, ref, ref_out, lib, lib_out
+    torch.cuda.empty_cache()
+
+    n = TL * TD * TF
+    p, gr = _randn(torch, (n,), gen, dev), _randn(torch, (n,), gen, dev, 1e-3)
+    m, v = torch.zeros(n, device=dev), torch.zeros(n, device=dev)
+    kw = dict(lr=3e-4, beta1=0.9, beta2=0.95, eps=1e-8, weight_decay=0.1,
+              adam_w_mode=True)
+    b_ms, b_by = bound_ms(28 * n, 16 * n)
+    lp = p.clone().requires_grad_()
+    lp.grad = gr.clone()
+    lib_opt = torch.optim.AdamW([lp], lr=3e-4, betas=(0.9, 0.95), eps=1e-8,
+                                weight_decay=0.1, fused=True)
+    out["fused_adam"] = {
+        "shape": f"fp32 params, grads, m, v [{n}] (the [24,2048,5632] MLP leaf)",
+        "ms": time_ms(torch, lambda: adam.fused_adam_update_cuda(
+            p, gr, m, v, 5, **kw), samples=20, inner=5),
+        "plain_ms": time_ms(torch, lambda: adam.fused_adam_update_plain(
+            p, gr, m, v, 5, **kw), samples=5, inner=3, warmup=2),
+        "library_ms": time_ms(torch, lib_opt.step, samples=20, inner=5),
+        "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": errs["fused_adam"]}
+    del p, gr, m, v, lp, lib_opt
+    torch.cuda.empty_cache()
+    return out
+
 
 def phase_kernels(torch, dev):
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -433,8 +686,12 @@ def phase_kernels(torch, dev):
     print(f"kernels vs plain: fp32 within 1e-5, bf16 within 2e-2; bf16 max "
           f"abs err rms_norm {errs['rms_norm']:.3g}, rope {errs['rope']:.3g}")
     errs.update(check_decode_kernels(torch, dev, gen))
+    errs.update(check_train_kernels(torch, dev, gen))
     out = time_old_kernels(torch, dev, gen, errs)
     out.update(time_decode_kernels(torch, dev, gen, errs))
+    out.update(time_train_kernels(torch, dev, gen, errs))
+    out["rms_norm"]["max_abs_err_train_shape"] = errs["rms_norm_train"]
+    out["rope"]["max_abs_err_train_shape"] = errs["rope_train"]
     for name, r in out.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.5f}"
         mm = (f", torch.matmul yardstick {r['matmul_ms']:.5f} ms"
@@ -482,18 +739,25 @@ def phase_reference(torch, dev):
 
 
 KERNELS = ("rms_norm", "rope", "fused_norm_qkv", "flash_decode",
-           "fused_proj_norm", "fused_mlp")
+           "fused_proj_norm", "fused_mlp", "rms_norm_bwd",
+           "flash_attention_fwd", "flash_attention_bwd", "fused_adam")
 
 
 def launch_counters():
     from deepspeed_tpu_torch.ops.kernels import (apply_rotary_pos_emb,
-                                                 rms_norm)
+                                                 fused_adam_update, rms_norm,
+                                                 rms_norm_bwd)
     from deepspeed_tpu_torch.ops.kernels import decode as dk
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
 
     return {"rms_norm": rms_norm, "rope": apply_rotary_pos_emb,
             "fused_norm_qkv": dk.fused_norm_qkv,
             "flash_decode": dk.flash_decode,
-            "fused_proj_norm": dk.fused_proj_norm, "fused_mlp": dk.fused_mlp}
+            "fused_proj_norm": dk.fused_proj_norm, "fused_mlp": dk.fused_mlp,
+            "rms_norm_bwd": rms_norm_bwd,
+            "flash_attention_fwd": fa.flash_attention,
+            "flash_attention_bwd": fa.flash_attention_bwd,
+            "fused_adam": fused_adam_update}
 
 
 def zero_counts():
@@ -509,15 +773,14 @@ def launch_plan(L, chunks, steps, fused):
     """Launches a run must make: per prefill chunk 2L+1 RMSNorms and 2L
     RoPEs; per decode step either 4 fused calls per layer and the final
     RMSNorm (fused) or 2L+1 RMSNorms (unfused)."""
-    plan = {"rope": 2 * L * chunks}
+    plan = {k: 0 for k in KERNELS}
+    plan["rope"] = 2 * L * chunks
     if fused:
         plan["rms_norm"] = (2 * L + 1) * chunks + steps
-        for k in KERNELS[2:]:
+        for k in KERNELS[2:6]:
             plan[k] = L * steps
     else:
         plan["rms_norm"] = (2 * L + 1) * (chunks + steps)
-        for k in KERNELS[2:]:
-            plan[k] = 0
     return plan
 
 
@@ -599,8 +862,8 @@ def phase_serve(torch, dev):
     steps = st["decode_blocks"] * serve._K
     plan = launch_plan(L, st["prefill_chunks"], steps, fused=True)
     check(launches == plan, f"launches {launches} != path plan {plan}")
-    check(all(v > 0 for v in launches.values()), f"a kernel never ran: "
-          f"{launches}")
+    check(all(launches[k] > 0 for k in KERNELS[:6]), f"a serving kernel "
+          f"never ran: {launches}")
     print(f"serve: 10 requests in {wall:.2f}s; prefill {st['prefill_tokens']} "
           f"tokens in {st['prefill_chunks']} chunks, "
           f"{st['prefill_tokens'] / spent['prefill']:.1f} tok/s; decode "
@@ -674,6 +937,177 @@ def phase_profile(torch, serve, prompts):
     return out
 
 
+TRAIN_KERNELS = ("rms_norm", "rope", "rms_norm_bwd", "flash_attention_fwd",
+                 "flash_attention_bwd", "fused_adam")
+TRAIN_CONFIG = {
+    "train_micro_batch_size_per_gpu": 4, "gradient_accumulation_steps": 2,
+    "bf16": {"enabled": True},
+    "optimizer": {"type": "FusedAdam", "params": {
+        "lr": 3e-4, "betas": [0.9, 0.95], "weight_decay": 0.1}},
+    "scheduler": {"type": "WarmupLR", "params": {
+        "warmup_max_lr": 3e-4, "warmup_num_steps": 2}},
+    "gradient_clipping": 1.0}
+
+
+def train_plan(L, micros, steps, leaves, mlp_remat):
+    """Launches a training run must make: per micro-batch L flash forward
+    and L flash backward calls, 2L+1 RMSNorm forwards (+ L when the MLP
+    sub-block is recomputed in the backward) and 2L+1 backwards, 2L RoPE
+    forwards and 2L backwards (the same kernel); one Adam launch per leaf
+    per step; no decode kernel."""
+    plan = {k: 0 for k in KERNELS}
+    plan.update(rms_norm=(2 * L + 1 + (L if mlp_remat else 0)) * micros,
+                rope=4 * L * micros, rms_norm_bwd=(2 * L + 1) * micros,
+                flash_attention_fwd=L * micros, flash_attention_bwd=L * micros,
+                fused_adam=leaves * steps)
+    return plan
+
+
+def phase_train_reference(torch, dev):
+    """A small fp32 model trained 3 steps on the card (kernels, TF32 off)
+    and on the CPU (plain versions) from the same weights and tokens:
+    per-step losses within rtol 1e-4 and final weights within atol 1e-4
+    (fp32 sums in another order; Adam's normalised step keeps the weight
+    difference near lr * 1e-4)."""
+    import numpy as np
+
+    import deepspeed_tpu_torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    over = dict(num_layers=2, hidden_size=256, intermediate_size=512,
+                num_heads=4, num_kv_heads=2, vocab_size=1024,
+                remat=True, remat_policy="mlp_dots")
+    cfg = dict(TRAIN_CONFIG, bf16={"enabled": False},
+               train_micro_batch_size_per_gpu=2)
+    tok = np.random.default_rng(0).integers(0, 1024, (4, 200))   # ragged S
+    runs = {}
+    for d in ("cpu", dev):
+        model = deepspeed_tpu_torch.causal_lm("llama-tiny", device="cpu", seed=0,
+                                              **over)
+        engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=cfg,
+                                                    device=d)
+        losses = [float(engine.train_step((tok, tok))) for _ in range(3)]
+        runs[str(d)] = (losses, [p.cpu() for p in engine.master])
+    (lc, pc), (lg, pg) = runs["cpu"], runs[str(dev)]
+    check(all(math.isfinite(x) for x in lg), f"card losses {lg}")
+    for a, b in zip(lc, lg):
+        check(abs(a - b) <= 1e-4 * abs(a), f"card vs CPU losses {lg} vs {lc}")
+    diff = max(float((a - b).abs().max()) for a, b in zip(pc, pg))
+    check(diff <= 1e-4, f"card vs CPU weights differ by {diff}")
+    print(f"reference: small fp32 model (L 2, D 256, Dh 64, S 200) trained 3 "
+          f"steps, card == CPU: losses {lg} vs {lc}, weights max abs diff "
+          f"{diff:.3g}")
+
+
+def phase_train(torch, dev):
+    """The training path at llama-1b4 full width and depth."""
+    import gc
+
+    import deepspeed_tpu_torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = deepspeed_tpu_torch.causal_lm("llama-1b4", seed=0)
+    cfg = model.config
+    L, gas, micro = cfg.num_layers, 2, 4
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model,
+                                                     config=TRAIN_CONFIG)
+    n_params = sum(p.numel() for p in engine.master)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (gas * micro, TS), device=dev,
+                           generator=gen)
+    torch.cuda.synchronize()
+    print(f"train: llama-1b4 D={cfg.hidden_size} L={L} H={cfg.num_heads} "
+          f"F={cfg.intermediate_size} V={cfg.vocab_size} tied, remat "
+          f"{cfg.remat_policy}; {n_params / 1e9:.4f}B fp32 params in "
+          f"{len(engine.master)} leaves, bf16 compute, micro {micro} x gas "
+          f"{gas} x S {TS}; built in {time.perf_counter() - t0:.1f}s")
+    zero_counts()
+    steps = []
+    for i in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = float(engine.train_step((tokens, tokens)))
+        torch.cuda.synchronize()
+        steps.append((loss, engine.get_global_grad_norm(), engine.get_lr()[0],
+                      time.perf_counter() - t))
+        print(f"train: step {i + 1} loss {steps[-1][0]:.5f} grad norm "
+              f"{steps[-1][1]:.4f} next lr {steps[-1][2]:.3e} wall "
+              f"{steps[-1][3]:.3f}s")
+    launches = read_counts()
+    check(all(math.isfinite(x[0]) and math.isfinite(x[1]) for x in steps),
+          f"non-finite loss or grad norm: {steps}")
+    check(steps[-1][0] < steps[0][0], f"loss did not fall: {steps}")
+    plan = train_plan(L, gas * 5, 5, len(engine.master),
+                      cfg.remat and cfg.remat_policy in ("mlp_only", "mlp_dots"))
+    check(launches == plan, f"train launches {launches} != path plan {plan}")
+    tokens_per_step = gas * micro * TS
+    steady = statistics.mean(x[3] for x in steps[1:])
+    attn_flops = 6 * L * gas * micro * cfg.num_heads * TS * TS * cfg.head_dim
+    flops = 6 * n_params * tokens_per_step + attn_flops
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"train: steady step (steps 2-5) {steady:.4f}s, "
+          f"{tokens_per_step / steady:.1f} tokens/s, MFU "
+          f"{100 * flops / steady / BF16_FLOPS_PER_S:.2f}% (6N + attention "
+          f"{flops / 1e12:.1f} TFLOP per step over 989 TFLOP/s), peak device "
+          f"memory {peak:.2f} GiB; launches {launches}")
+    device_ms = phase_train_profile(torch, engine, tokens)
+    del engine, model, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, device_ms
+
+
+def phase_train_profile(torch, engine, tokens):
+    """One more train step under torch.profiler: device busy share, the top
+    kernels, and each training kernel's device time per launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.train_step((tokens, tokens))
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # the optimizer's record_function range also shows device time: it is a
+    # span over the Adam kernels, not a kernel, so it is left out
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) is not None
+               and str(e.device_type).endswith("CUDA")
+               and e.self_device_time_total > 0
+               and not e.key.startswith("Optimizer.")]
+    busy = sum(e.self_device_time_total for e in kernels)
+    print(f"profile: one train step (gas 2 x micro 4 x 2048), wall "
+          f"{wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms "
+          f"({100 * busy / wall_us:.1f}%, idle {100 - 100 * busy / wall_us:.1f}%)")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d}x "
+              f"{e.key[:90]}")
+    tags = {"rms_norm": ("rms_norm_fwd_kernel",), "rope": ("_rope_fwd_kernel",),
+            "rms_norm_bwd": ("rms_norm_bwd_kernel", "rms_dg_reduce_kernel"),
+            "flash_attention_fwd": ("flash_fwd_kernel",),
+            "flash_attention_bwd": ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"),
+            "fused_adam": ("adam_kernel",)}
+    out = {}
+    for name, keys in tags.items():
+        parts = [[e for e in kernels if tag in e.key] for tag in keys]
+        n = sum(e.count for e in parts[0])
+        total = sum(e.self_device_time_total for p in parts for e in p)
+        out[name] = total / n / 1e3 if n else None
+        split = ""
+        if len(parts) > 1 and n:
+            split = " (" + " + ".join(
+                f"{tag} {sum(e.self_device_time_total for e in p) / n / 1e3:.5f}"
+                for tag, p in zip(keys, parts)) + ")"
+        print(f"profile: {name} device time per call on the train path "
+              f"{'not measured' if out[name] is None else f'{out[name]:.5f} ms'}"
+              f" over {n} calls{split}")
+    return out
+
+
 def phase_unfused(torch, model, prompts, first):
     """The unfused decode path on the same weights (no copy: the model's
     own tensors), a shorter wave with its own launch plan; each request's
@@ -730,18 +1164,22 @@ def main() -> int:
     phase_build(torch, dev)
     timings = phase_kernels(torch, dev)
     phase_reference(torch, dev)
-    launches, device_ms = phase_serve(torch, dev)
+    phase_train_reference(torch, dev)
+    serve_launches, serve_ms = phase_serve(torch, dev)
+    train_launches, train_ms = phase_train(torch, dev)
     ident = gpu_identity()
     src = "deepspeed_tpu_torch/csrc/decode.cu"
+    fa_src = "deepspeed_tpu_torch/csrc/flash_attention.cu"
+    ln_src = "deepspeed_tpu_torch/csrc/layer_norm.cu"
     kernels = [
-        {"name": "rms_norm", "route": "cuda",
-         "source": "deepspeed_tpu_torch/csrc/layer_norm.cu",
+        {"name": "rms_norm", "route": "cuda", "source": ln_src,
          "replaces": "deepspeed_tpu/ops/pallas/layer_norm.py:200",
          "tpu_kernel": "deepspeed_tpu/ops/pallas/layer_norm.py:rms_norm"},
         {"name": "rope", "route": "triton",
          "source": "deepspeed_tpu_torch/ops/kernels/rope.py",
          "replaces": "deepspeed_tpu/ops/pallas/rope.py:62",
-         "tpu_kernel": "deepspeed_tpu/ops/pallas/rope.py:_rope_fwd"},
+         "tpu_kernel": "deepspeed_tpu/ops/pallas/rope.py:_rope_fwd (and "
+                       "_rope_bwd_vjp, rope.py:89, through the same kernel)"},
         {"name": "fused_norm_qkv", "route": "cuda", "source": src,
          "replaces": "deepspeed_tpu/ops/pallas/decode.py:123",
          "tpu_kernel": "deepspeed_tpu/ops/pallas/decode.py:fused_norm_qkv"},
@@ -754,19 +1192,41 @@ def main() -> int:
         {"name": "fused_mlp", "route": "cuda", "source": src,
          "replaces": "deepspeed_tpu/ops/pallas/decode.py:546",
          "tpu_kernel": "deepspeed_tpu/ops/pallas/decode.py:fused_mlp"},
+        {"name": "rms_norm_bwd", "route": "cuda", "source": ln_src,
+         "replaces": "deepspeed_tpu/ops/pallas/layer_norm.py:228",
+         "tpu_kernel": "deepspeed_tpu/ops/pallas/layer_norm.py:_rms_norm_bwd_vjp"},
+        {"name": "flash_attention_fwd", "route": "cuda", "source": fa_src,
+         "replaces": "deepspeed_tpu/ops/pallas/flash_attention.py:149",
+         "tpu_kernel": "deepspeed_tpu/ops/pallas/flash_attention.py:_flash_fwd"},
+        {"name": "flash_attention_bwd", "route": "cuda", "source": fa_src,
+         "replaces": "deepspeed_tpu/ops/pallas/flash_attention.py:283",
+         "tpu_kernel": "deepspeed_tpu/ops/pallas/flash_attention.py:_flash_bwd"},
+        {"name": "fused_adam", "route": "cuda",
+         "source": "deepspeed_tpu_torch/csrc/fused_adam.cu",
+         "replaces": "deepspeed_tpu/ops/pallas/fused_adam.py:53",
+         "tpu_kernel": "deepspeed_tpu/ops/pallas/fused_adam.py:fused_adam_update"},
     ]
     for k in kernels:
-        t = timings[k["name"]]
-        k.update(launches=launches[k["name"]], max_abs_err=t["max_abs_err"],
-                 ms=t["ms"], kernel_ms=t["ms"], plain_ms=t["plain_ms"],
-                 bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-                 library_ms=t["library_ms"], shape=t["shape"],
-                 device_ms_on_path=device_ms[k["name"]])
+        name = k["name"]
+        t = timings[name]
+        on_train = name in TRAIN_KERNELS and name not in KERNELS[:2]
+        k.update(launches=(train_launches if on_train else serve_launches)[name],
+                 launches_by_path={"serve": serve_launches[name],
+                                   "train": train_launches[name]},
+                 max_abs_err=t["max_abs_err"], ms=t["ms"], kernel_ms=t["ms"],
+                 plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                 bound_by=t["bound_by"], library_ms=t["library_ms"],
+                 shape=t["shape"],
+                 device_ms_on_path=(train_ms if on_train else serve_ms)[name])
+        if name in KERNELS[:2]:
+            k["device_ms_on_train_path"] = train_ms[name]
+            k["max_abs_err_train_shape"] = t["max_abs_err_train_shape"]
         if "matmul_ms" in t:
             k["matmul_yardstick_ms"] = t["matmul_ms"]
         check(all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms",
                                                 "max_abs_err")),
-              f"{k['name']}: a non-finite number")
+              f"{name}: a non-finite number")
+        check(k["launches"] > 0, f"{name}: no launch on its path")
     print(f"chip_smoke: {time.perf_counter() - t0:.1f}s")
     print(ident)
     print(json.dumps({"kernels": kernels}))

@@ -10,8 +10,11 @@ Decode runs the kernel-injected (fused) path by default: four CUDA C++
 kernels per layer (fused norm+QKV, paged flash-decode attention,
 out-projection+residual+norm, fused MLP); ``use_fused_decode: False``
 keeps the unfused path.  Prefill runs RMSNorm (CUDA C++) and RoPE
-(Triton).  All six are hand-written Hopper kernels.  ROADMAP.md lists what
-comes next.
+(Triton).  It trains the Llama family on one card through
+:func:`initialize` (the standard path: bf16 compute, fp32 masters,
+gradient accumulation, clipping, FusedAdam), with RMSNorm and RoPE forward
+and backward, flash attention forward and backward and the fused Adam
+update as hand-written kernels.  ROADMAP.md lists what comes next.
 """
 
 from __future__ import annotations
@@ -21,7 +24,38 @@ from typing import Any
 from deepspeed_tpu_torch.accelerator.real_accelerator import DeviceLike
 from deepspeed_tpu_torch.models import causal_lm
 
-__all__ = ["init_serving", "causal_lm"]
+__all__ = ["initialize", "init_serving", "causal_lm"]
+
+
+def initialize(args=None, model=None, optimizer=None, model_parameters=None,
+               config=None, config_params=None, *, device: DeviceLike = None,
+               seed: Any = None):
+    """Create a training engine (counterpart of ``deepspeed_tpu.initialize``).
+
+    Returns ``(engine, optimizer, None, lr_scheduler)``.  ``model`` is a
+    :class:`~deepspeed_tpu_torch.models.transformer.CausalLM` whose
+    parameters become the fp32 masters; ``model_parameters`` (a nested
+    dict of tensors or numpy arrays in the JAX layout) replaces their
+    values.  ``device=None`` is the CUDA card.  ``seed`` seeds torch's
+    generators (default: the config's ``seed``).  A client ``optimizer``
+    is not ported (ROADMAP.md queue 1)."""
+    import torch
+
+    from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+    from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
+
+    if optimizer is not None:
+        raise NotImplementedError("a client optimizer is not ported yet "
+                                  "(ROADMAP.md queue 1: other optimizers and "
+                                  "schedules); configure the optimizer section")
+    cfg = config if config is not None else config_params
+    if cfg is None and args is not None and hasattr(args, "deepspeed_config"):
+        cfg = args.deepspeed_config
+    cfg = cfg if isinstance(cfg, DeepSpeedConfig) else DeepSpeedConfig(cfg)
+    torch.manual_seed(int(cfg.seed if seed is None else seed))
+    engine = DeepSpeedEngine(model, cfg, model_parameters=model_parameters,
+                             device=device)
+    return engine, engine.optimizer, None, engine.lr_scheduler
 
 
 def init_serving(model=None, config=None, *, params: Any = None,

@@ -40,3 +40,11 @@ def jax_params_to_torch(params_np: Dict[str, Any], cfg: ModelConfig, *,
         return torch.from_numpy(np.array(arr)).to(device=dev, dtype=dtype)
 
     return conv(params_np, param_shapes(cfg), "")
+
+
+def torch_params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's nested tensor dict -> the same tree of fp32 numpy arrays
+    (the JAX tree's layout), e.g. to compare trained weights."""
+    if isinstance(params, dict):
+        return {k: torch_params_to_numpy(v) for k, v in params.items()}
+    return params.detach().to("cpu", torch.float32).numpy()

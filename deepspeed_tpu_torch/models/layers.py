@@ -3,8 +3,10 @@
 Counterpart of ``deepspeed_tpu/models/layers.py``: the norm and RoPE
 helpers dispatch to ``deepspeed_tpu_torch/ops/kernels`` (a kernel for a
 CUDA tensor, the plain version for a CPU tensor); everything else is plain
-PyTorch, as the JAX package left it to XLA.  Meshes, sharding constraints
-and the training attention core are not in this slice.
+PyTorch, as the JAX package left it to XLA.  :func:`attention_core` is the
+training attention: the flash kernels for a CUDA tensor, the jnp reference
+(``mha_reference``) for a CPU tensor.  Meshes, sharding constraints and
+sequence parallelism are not in the port yet (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -14,11 +16,14 @@ import math
 import torch
 import torch.nn.functional as F
 
-from deepspeed_tpu_torch.ops.kernels import apply_rotary_pos_emb, rms_norm
+from deepspeed_tpu_torch.ops.kernels import (apply_rotary_pos_emb, rms_norm,
+                                             rope_angles)
+from deepspeed_tpu_torch.ops.kernels.flash_attention import flash_attention
 
 
 def norm(x: torch.Tensor, params, kind: str, eps: float) -> torch.Tensor:
-    """RMSNorm through the port's kernel.  LayerNorm (the gpt2 family) is
+    """RMSNorm through the port's kernel, differentiable (its backward is
+    the RMSNorm backward kernel).  LayerNorm (the gpt2 family) is
     not ported yet: ROADMAP.md queue 1, "LayerNorm fwd/bwd" slice."""
     if kind == "rmsnorm":
         return rms_norm(x, params["scale"], eps=eps)
@@ -72,3 +77,17 @@ def rope_dim(cfg) -> int:
     """Rotated head dims (even; head_dim * rotary_pct, neox convention)."""
     d = int(cfg.head_dim * cfg.rotary_pct)
     return max(2, d - (d % 2))
+
+
+def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   causal: bool = True, alibi: bool = False) -> torch.Tensor:
+    """Multi-head attention on [B, H, S, Dh]: the JAX ``attention_core``
+    with no mesh.  A CUDA tensor runs the flash attention kernels
+    (differentiable), a CPU tensor ``mha_reference`` with autograd's
+    backward.  ALiBi raises (no training preset of the port uses it)."""
+    return flash_attention(q, k, v, causal=causal, alibi=alibi)
+
+
+def rope_cache(seq_len: int, head_dim: int, theta: float, device=None):
+    """(cos, sin) [seq_len, head_dim/2] fp32 for positions 0..seq_len-1."""
+    return rope_angles(torch.arange(seq_len, device=device), head_dim, theta=theta)

@@ -14,21 +14,97 @@ full-width model is built on the card directly.  The numbers differ from
 the JAX init (different generators); tests carry JAX weights across with
 :func:`~deepspeed_tpu_torch.models.convert.jax_params_to_torch`.
 
-The training forward (``apply``), the loss and the MoE layers are not in
-this slice (ROADMAP.md queue 1); serving runs the model through
-:func:`~deepspeed_tpu_torch.models.decoding.forward_with_cache`.
+Training runs :meth:`CausalLM.apply` — the JAX ``CausalLM.apply`` for the
+dense Llama family: embedding, the layer loop over ``[L]`` slices (the JAX
+``scan_layers`` branch written as a Python loop), the final norm and the
+next-token cross-entropy (:func:`cross_entropy`, or
+:func:`blockwise_cross_entropy` once ``B*S*V > 2^28``).  It is functional
+over the nested JAX-layout param dict, so the engine can hand it a
+grad-carrying compute copy of the weights.  The parameters registered on
+the module keep ``requires_grad=False`` for serving, which runs the model
+through :func:`~deepspeed_tpu_torch.models.decoding.forward_with_cache`.
+MoE, dropout, parallel residual, learned or ALiBi positions and LayerNorm
+raise naming ROADMAP.md.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import functools
+from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from deepspeed_tpu_torch.accelerator.real_accelerator import (DeviceLike,
                                                               resolve_device)
 from deepspeed_tpu_torch.models.config import ModelConfig, get_model_config
+from deepspeed_tpu_torch.models.layers import (_repeat_kv, activation_fn,
+                                               apply_partial_rope, attention_core,
+                                               norm, rope_cache, rope_dim)
+
+
+class _Replay(torch.autograd.Function):
+    """``a @ w`` whose output ``out`` was kept from the forward: returns it
+    and back-propagates as the matmul does (the backward of ``aten.mm`` on
+    the row-major operands, with ``a`` folded to ``[rows, K]``)."""
+
+    @staticmethod
+    def forward(ctx, a, w, out):
+        ctx.save_for_backward(a, w)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        a, w = ctx.saved_tensors
+        da = g @ w.t() if ctx.needs_input_grad[0] else None
+        dw = (a.reshape(-1, a.shape[-1]).t() @ g.reshape(-1, g.shape[-1])
+              if ctx.needs_input_grad[1] else None)
+        return da, dw, None
+
+
+class _MLPDots(torch.autograd.Function):
+    """A block under the JAX ``mlp_dots`` remat (``jax.checkpoint`` with
+    ``dots_with_no_batch_dims_saveable``): the forward keeps the input and
+    the matmul outputs; the backward runs ``block`` again under autograd
+    with each matmul replayed from what was kept (:class:`_Replay`), so
+    only the norm and the activation are recomputed.  ``block(lp, x,
+    dot)`` computes with ``dot`` for its matmuls; ``keys`` names the
+    ``(group, name)`` of each tensor in ``leaves``."""
+
+    @staticmethod
+    def forward(ctx, block, keys, x, *leaves):
+        kept = []
+
+        def dot(a, w):
+            kept.append(a @ w)
+            return kept[-1]
+        y = block(_nest(keys, leaves), x, dot)
+        ctx.block, ctx.keys = block, keys
+        ctx.save_for_backward(x, *leaves, *kept)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        saved = ctx.saved_tensors
+        n = 1 + len(ctx.keys)
+        kept = iter(saved[n:])
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(need)
+                   for t, need in zip(saved[:n], ctx.needs_input_grad[2:])]
+            y = ctx.block(_nest(ctx.keys, ins[1:]), ins[0],
+                          lambda a, w: _Replay.apply(a, w, next(kept)))
+            grads = iter(torch.autograd.grad(
+                y, [t for t in ins if t.requires_grad], dy, allow_unused=True))
+        return (None, None) + tuple(next(grads) if t.requires_grad else None
+                                    for t in ins)
+
+
+def _nest(keys, leaves):
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+    for (group, name), t in zip(keys, leaves):
+        out.setdefault(group, {})[name] = t
+    return out
 
 
 def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
@@ -129,6 +205,154 @@ class CausalLM(_ParamTree):
         read; the tensors are the module's own parameters, not copies."""
         return self.tree()
 
+    # ------------------------------------------------------------------
+    # training forward (JAX ``CausalLM.apply``)
+    # ------------------------------------------------------------------
+    def check_trainable(self) -> None:
+        """Raise for what the training forward does not carry yet."""
+        cfg = self.config
+        refused = {"dropout > 0": cfg.dropout > 0, "MoE": cfg.is_moe,
+                   "parallel_residual": cfg.parallel_residual,
+                   f"position {cfg.position!r}": cfg.position != "rope",
+                   f"norm {cfg.norm!r}": cfg.norm != "rmsnorm",
+                   "remat_policy 'offload_dots'": (bool(cfg.remat) and
+                                                   cfg.remat_policy == "offload_dots")}
+        bad = [k for k, v in refused.items() if v]
+        if bad:
+            raise NotImplementedError(
+                f"training {', '.join(bad)} is not ported yet (ROADMAP.md queue "
+                f"1: the remaining training options and model families)")
+
+    def _attn_out(self, lp, x, cos, sin):
+        """Attention sub-block output (residual not added)."""
+        cfg = self.config
+        B, S, _ = x.shape
+        H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        h = norm(x, lp["attn_norm"], cfg.norm, cfg.norm_eps)
+        a = lp["attn"]
+        q, k, v = h @ a["wq"], h @ a["wk"], h @ a["wv"]
+        if cfg.use_bias or cfg.qkv_bias:
+            q, k, v = q + a["bq"], k + a["bk"], v + a["bv"]
+        # [B, H, S, Dh] is the kernels' layout; they take contiguous tensors
+        q = q.reshape(B, S, H, Dh).transpose(1, 2).contiguous()
+        k = k.reshape(B, S, Hkv, Dh).transpose(1, 2).contiguous()
+        v = v.reshape(B, S, Hkv, Dh).transpose(1, 2).contiguous()
+        q = apply_partial_rope(q, cos, sin)
+        k = apply_partial_rope(k, cos, sin)
+        k = _repeat_kv(k, H // Hkv)
+        v = _repeat_kv(v, H // Hkv)
+        o = attention_core(q, k, v, causal=True)
+        o = o.transpose(1, 2).reshape(B, S, H * Dh) @ a["wo"]
+        if cfg.use_bias:
+            o = o + a["bo"]
+        return o.to(x.dtype)
+
+    def _mlp_block(self, lp, x, dot=torch.matmul):
+        """``x + mlp(norm(x))``, its matmuls through ``dot``."""
+        cfg = self.config
+        h = norm(x, lp["mlp_norm"], cfg.norm, cfg.norm_eps)
+        act = activation_fn(cfg.activation)
+        m = lp["mlp"]
+        up = dot(h, m["w_up"])
+        if cfg.has_mlp_bias:
+            up = up + m["b_up"]
+        if cfg.glu:
+            gate = dot(h, m["w_gate"])
+            if cfg.has_mlp_bias:
+                gate = gate + m["b_gate"]
+            gated = act(gate) * up
+        else:
+            gated = act(up)
+        out = dot(gated, m["w_down"])
+        if cfg.has_mlp_bias:
+            out = out + m["b_down"]
+        return x + out.to(x.dtype)
+
+    def _layer(self, lp, x, cos, sin):
+        x = x + self._attn_out(lp, x, cos, sin)
+        return self._mlp_block(lp, x)
+
+    def _layer_fn(self):
+        """The per-layer body under the model's remat policy.  ``mlp_only``
+        and ``mlp_dots`` remat the MLP sub-block only (the attention
+        residuals persist and the flash kernel never re-runs): ``mlp_only``
+        under ``torch.utils.checkpoint`` (non-reentrant), which recomputes
+        what the backward needs (the norm, the up and gate matmuls, the
+        activation); ``mlp_dots`` through :class:`_MLPDots`, which keeps the
+        matmul outputs and recomputes the norm and the activation.  ``full``
+        and ``dots`` checkpoint the whole layer.  Recomputation repeats the
+        same operations on the same inputs, so the numbers are identical to
+        no remat; only memory and time differ.  (The JAX ``dots`` policy also
+        saves the matmul outputs; here it recomputes them.)"""
+        cfg = self.config
+        if not cfg.remat:
+            return self._layer
+        if cfg.remat_policy == "mlp_only":
+            def body(lp, x, cos, sin):
+                x = x + self._attn_out(lp, x, cos, sin)
+                return checkpoint(self._mlp_block, lp, x, use_reentrant=False)
+            return body
+        if cfg.remat_policy == "mlp_dots":
+            def body(lp, x, cos, sin):
+                x = x + self._attn_out(lp, x, cos, sin)
+                keys = tuple((g, n) for g in ("mlp_norm", "mlp") for n in lp[g])
+                return _MLPDots.apply(self._mlp_block, keys, x,
+                                      *(lp[g][n] for g, n in keys))
+            return body
+        return functools.partial(checkpoint, self._layer, use_reentrant=False)
+
+    def apply(self, params: Dict[str, Any], tokens: torch.Tensor,
+              labels: Optional[torch.Tensor] = None,
+              loss_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Logits [B, S, V] (no labels) or the mean next-token loss.
+        ``params`` is the nested JAX-layout dict; a layer leaf may be the
+        stacked ``[L, ...]`` tensor or a sequence of L per-layer tensors
+        (the engine's compute copy)."""
+        self.check_trainable()
+        cfg = self.config
+        x = params["embed"]["tok"][tokens]
+        S = tokens.shape[1]
+        cos, sin = rope_cache(S, rope_dim(cfg), cfg.rope_theta, device=x.device)
+        cos, sin = cos.to(x.dtype), sin.to(x.dtype)
+        body = self._layer_fn()
+        layers = params["layers"]
+        for i in range(cfg.num_layers):
+            lp = {name: {k: v[i] for k, v in sub.items()}
+                  for name, sub in layers.items()}
+            x = body(lp, x, cos, sin)
+        head = (params["embed"]["tok"].t() if cfg.tie_embeddings
+                else params["lm_head"])
+        if labels is None:
+            x = norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
+            logits = x @ head.to(x.dtype)
+            if cfg.lm_head_bias:
+                logits = logits + params["lm_head_bias"].to(logits.dtype)
+            return logits
+        return self._loss_tail(params["final_norm"], head, x, labels, loss_mask,
+                               head_bias=params.get("lm_head_bias"))
+
+    def _loss_tail(self, fnorm, head, x, labels, loss_mask, head_bias=None):
+        """Final norm + next-token cross-entropy: logits[t] predicts
+        labels[t+1].  ``head`` is [D, V]."""
+        cfg = self.config
+        h = norm(x, fnorm, cfg.norm, cfg.norm_eps)
+        head = head.to(h.dtype)
+        shifted_labels = labels[:, 1:]
+        shifted_mask = loss_mask[:, 1:] if loss_mask is not None else None
+        B, S, _ = h.shape
+        chunk = cfg.ce_chunk
+        if chunk is None:  # auto: chunk when the fp32 logits would be > 2^28
+            chunk = 2048 if B * S * cfg.vocab_size > (1 << 28) else 0
+        if chunk:
+            return blockwise_cross_entropy(h[:, :-1], head, shifted_labels,
+                                           chunk=chunk, z_loss=cfg.z_loss,
+                                           mask=shifted_mask, head_bias=head_bias)
+        logits = h[:, :-1] @ head
+        if head_bias is not None:
+            logits = logits + head_bias.to(logits.dtype)
+        return cross_entropy(logits, shifted_labels, z_loss=cfg.z_loss,
+                             mask=shifted_mask)
+
 
 def causal_lm(preset: str, *, device: DeviceLike = None,
               dtype: torch.dtype = torch.float32, seed: int = 0,
@@ -137,3 +361,66 @@ def causal_lm(preset: str, *, device: DeviceLike = None,
     weights from ``seed`` on ``device`` (default: the CUDA card)."""
     return CausalLM(get_model_config(preset, **overrides), device=device,
                     dtype=dtype, seed=seed)
+
+
+def _nll(logits: torch.Tensor, labels: torch.Tensor, z_loss: float):
+    """Per-token nll of fp32 logits (ignore_index handled by the caller)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None]).squeeze(-1)
+    nll = lse - gold
+    if z_loss:
+        nll = nll + z_loss * lse ** 2
+    return nll
+
+
+def _valid(labels, mask):
+    valid = labels >= 0
+    if mask is not None:
+        valid = valid & (mask > 0)
+    return valid
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  z_loss: float = 0.0, mask=None) -> torch.Tensor:
+    """Token-level CE in fp32; labels < 0 are ignored (HF -100)."""
+    nll = _nll(logits.float(), labels, z_loss)
+    valid = _valid(labels, mask)
+    nll = torch.where(valid, nll, torch.zeros((), device=nll.device))
+    return nll.sum() / valid.sum().clamp(min=1)
+
+
+def blockwise_cross_entropy(x: torch.Tensor, head: torch.Tensor,
+                            labels: torch.Tensor, chunk: int,
+                            z_loss: float = 0.0, mask=None,
+                            head_bias=None) -> torch.Tensor:
+    """LM loss without the full [B, S, V] logits: token chunks of
+    ``chunk`` rows, each a [chunk, V] logits block reduced to an nll sum in
+    fp32 under ``torch.utils.checkpoint``, so the backward recomputes the
+    block instead of saving it (the JAX ``jax.checkpoint`` scan body)."""
+    B, S, D = x.shape
+    N = B * S
+    xf, lf = x.reshape(N, D), labels.reshape(N)
+    mf = None if mask is None else mask.reshape(N)
+    pad = (-N) % chunk
+    if pad:
+        xf = torch.cat([xf, xf.new_zeros(pad, D)])
+        lf = torch.cat([lf, lf.new_full((pad,), -100)])
+        if mf is not None:
+            mf = torch.cat([mf, mf.new_zeros(pad)])
+
+    def block(xc, lc, mc):
+        logits = (xc @ head).float()
+        if head_bias is not None:
+            logits = logits + head_bias.float()
+        nll = _nll(logits, lc, z_loss)
+        valid = _valid(lc, mc)
+        return torch.where(valid, nll, torch.zeros((), device=nll.device)).sum()
+
+    tot = torch.zeros((), device=x.device)
+    cnt = torch.zeros((), dtype=torch.int64, device=x.device)
+    for i in range(0, xf.shape[0], chunk):
+        lc = lf[i:i + chunk]
+        mc = None if mf is None else mf[i:i + chunk]
+        tot = tot + checkpoint(block, xf[i:i + chunk], lc, mc, use_reentrant=False)
+        cnt = cnt + _valid(lc, mc).sum()
+    return tot / cnt.clamp(min=1)

@@ -1,0 +1,83 @@
+"""FusedAdam as a :class:`torch.optim.Optimizer` over fp32 master weights.
+
+Counterpart of ``deepspeed_tpu/ops/adam/fused_adam.py`` (an optax
+transformation there).  State: fp32 first and second moments per
+parameter and one int step count for the whole optimizer, as the JAX
+``FusedAdamState``.  Each :meth:`FusedAdam.step` evaluates a callable
+``lr`` at the 0-based count before incrementing it (``optax.
+scale_by_schedule`` semantics), then updates every parameter leaf in
+place with the 1-based count: one launch of the fused Adam kernel per leaf
+on the card, as the JAX package issues one ``pallas_call`` per leaf.
+``fused=False`` runs the plain fp32 version of the same update instead —
+what the JAX package's ``optax.adamw`` computes for ``Adam``/``AdamW`` and
+``"torch_adam": true``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Iterable, Optional, Sequence, Union
+
+import torch
+
+from deepspeed_tpu_torch.ops.kernels.fused_adam import (fused_adam_update,
+                                                        fused_adam_update_plain)
+
+
+class FusedAdam(torch.optim.Optimizer):
+    """Adam / AdamW (``adam_w_mode``) with fp32 moments, updating the
+    parameters in place.  ``lr`` is a float or a schedule ``count -> lr``."""
+
+    def __init__(self, params: Iterable[torch.Tensor],
+                 lr: Union[float, Callable] = 1e-3, bias_correction: bool = True,
+                 betas=(0.9, 0.999), eps: float = 1e-8, adam_w_mode: bool = True,
+                 weight_decay: float = 0.0, amsgrad: bool = False,
+                 set_grad_none: bool = True, *, fused: bool = True):
+        if amsgrad:
+            raise ValueError("FusedAdam does not support amsgrad (reference parity)")
+        if not bias_correction:
+            raise NotImplementedError(
+                "FusedAdam(bias_correction=False) is not ported: the JAX "
+                "kernel always corrects (ROADMAP.md queue 1: other optimizers)")
+        self.schedule = lr if callable(lr) else None
+        defaults = dict(lr=0.0 if callable(lr) else float(lr), betas=tuple(betas),
+                        eps=eps, weight_decay=weight_decay, adam_w_mode=adam_w_mode)
+        super().__init__(params, defaults)
+        self.fused = fused
+        self.count = 0
+
+    def current_lr(self, group) -> float:
+        """The learning rate the next :meth:`step` applies."""
+        return float(self.schedule(self.count)) if self.schedule else group["lr"]
+
+    @torch.no_grad()
+    def step(self, closure=None, grads: Optional[Sequence[torch.Tensor]] = None):
+        """One update of every parameter.  ``grads`` (one tensor per
+        parameter, in group order; any float dtype) replaces ``p.grad`` —
+        the engine passes its accumulators, whose dtype may differ from the
+        parameters'."""
+        loss = closure() if closure is not None else None
+        params = [p for g in self.param_groups for p in g["params"]]
+        if grads is None:
+            grads = [p.grad for p in params]
+        if len(grads) != len(params):
+            raise ValueError(f"FusedAdam.step: {len(grads)} grads for "
+                             f"{len(params)} parameters")
+        lrs = [self.current_lr(g) for g in self.param_groups]
+        self.count += 1
+        update = fused_adam_update if self.fused else fused_adam_update_plain
+        it = iter(grads)
+        for group, lr in zip(self.param_groups, lrs):
+            b1, b2 = group["betas"]
+            for p in group["params"]:
+                g = next(it)
+                if g is None:
+                    continue
+                st = self.state[p]
+                if not st:
+                    st["exp_avg"] = torch.zeros_like(p, dtype=torch.float32)
+                    st["exp_avg_sq"] = torch.zeros_like(p, dtype=torch.float32)
+                update(p, g, st["exp_avg"], st["exp_avg_sq"], self.count, lr=lr,
+                       beta1=b1, beta2=b2, eps=group["eps"],
+                       weight_decay=group["weight_decay"],
+                       adam_w_mode=group["adam_w_mode"])
+        return loss

@@ -1,0 +1,162 @@
+"""Causal flash attention, forward and backward: CUDA C++ kernels and the
+plain version.
+
+Counterpart of ``deepspeed_tpu/ops/pallas/flash_attention.py``.  q, k, v
+are [B, H, S, Dh].  A CUDA tensor runs the kernels of
+``deepspeed_tpu_torch/csrc/flash_attention.cu`` through a
+:class:`torch.autograd.Function`: the forward saves the fp32 logsumexp
+[B, H, S] and the backward launches the dQ kernel (which also writes
+``delta = rowsum(do * o)``) and the dK/dV kernel.  A CPU tensor runs
+:func:`mha_reference`, the jnp reference op for op, and autograd takes its
+backward — what the JAX ``impl="xla"`` path does.
+
+The kernels take ``S == Sk`` only (all the training path produces; see the
+``S != Sk`` hazard in ROADMAP.md queue 3), head dims 64 and 128, bf16 (the
+tensor-core path) or fp32 (a scalar path for the fp32 reference runs).  A
+ragged S is masked inside the kernels.  ALiBi raises: no training preset of
+this slice uses it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from deepspeed_tpu_torch.ops.kernels.build import check_launch, load_library
+from deepspeed_tpu_torch.ops.kernels.common import check_kernel_input, use_kernel
+
+NEG_INF = -1e30
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (64, 128)
+
+
+def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True,
+                  sm_scale: Optional[float] = None) -> torch.Tensor:
+    """The jnp reference op for op: fp32 logits times scale, the causal mask
+    offset by ``Sk - S`` (query i sees keys <= i + Sk - S) with NEG_INF,
+    softmax, fp32 probs . fp32 v, cast to q's dtype."""
+    S, D = q.shape[-2], q.shape[-1]
+    scale = sm_scale if sm_scale is not None else 1.0 / (D ** 0.5)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        Sk = k.shape[-2]
+        mask = torch.ones(S, Sk, dtype=torch.bool, device=q.device).tril(Sk - S)
+        logits = torch.where(mask, logits, torch.full((), NEG_INF,
+                                                      device=q.device))
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", probs, v.float()).to(q.dtype)
+
+
+def _library():
+    built = load_library("flash_attention")
+    lib = built.lib
+    if lib.ds_flash_fwd.argtypes is None:
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.ds_flash_fwd.argtypes = [vp] * 5 + [ci, ci, ci, cf, ci, ci, vp]
+        lib.ds_flash_fwd.restype = ci
+        lib.ds_flash_bwd.argtypes = [vp] * 10 + [ci, ci, ci, cf, ci, ci, vp]
+        lib.ds_flash_bwd.restype = ci
+    return built
+
+
+def _check(q, k, v):
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        check_kernel_input(f"flash_attention {name}", t, q.device,
+                           dtype=q.dtype)
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"flash_attention kernel takes bf16 or fp32, got "
+                        f"{q.dtype}")
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"flash_attention kernel takes q, k, v of one shape "
+                         f"[B, H, S, Dh] (S == Sk), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if q.shape[-1] not in _HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel takes head dims "
+                         f"{_HEAD_DIMS}, got {q.shape[-1]}")
+
+
+def flash_fwd_cuda(q, k, v, causal: bool, scale: float):
+    """Forward kernel: (o [B, H, S, Dh] in q's dtype, lse [B, H, S] fp32)."""
+    _check(q, k, v)
+    B, H, S, D = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty(B, H, S, device=q.device, dtype=torch.float32)
+    built = _library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = built.lib.ds_flash_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), B * H, S, D, float(scale), int(causal),
+            _DTYPES[q.dtype], stream)
+    check_launch(built, "flash_attention fwd", code)
+    flash_attention.launches += 1
+    return o, lse
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal: bool, scale: float):
+    """Backward kernels (two launches: delta and dQ, then dK/dV), counted as
+    one call: (dq, dk, dv) in q's dtype."""
+    _check(q, k, v)
+    for name, t in (("o", o), ("do", do)):
+        check_kernel_input(f"flash_attention {name}", t, q.device,
+                           dtype=q.dtype)
+    check_kernel_input("flash_attention lse", lse, q.device,
+                       dtype=torch.float32)
+    if o.shape != q.shape or do.shape != q.shape or lse.shape != q.shape[:3]:
+        raise ValueError("flash_attention bwd: o, do must match q and lse "
+                         "must be [B, H, S]")
+    B, H, S, D = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty(B, H, S, device=q.device, dtype=torch.float32)
+    built = _library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = built.lib.ds_flash_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B * H, S, D, float(scale),
+            int(causal), _DTYPES[q.dtype], stream)
+    check_launch(built, "flash_attention bwd", code)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0   # backward calls (two kernel launches each)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        o, lse = flash_fwd_cuda(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                         ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, sm_scale: Optional[float] = None,
+                    alibi: bool = False) -> torch.Tensor:
+    """Memory-efficient attention, [B, H, S, Dh] -> [B, H, S, Dh]: the CUDA
+    kernels (differentiable) for a CUDA tensor, :func:`mha_reference` for a
+    CPU tensor."""
+    if alibi:
+        raise NotImplementedError(
+            "flash_attention with alibi is not ported yet (ROADMAP.md queue "
+            "1: the ALiBi position family)")
+    scale = sm_scale if sm_scale is not None else 1.0 / (q.shape[-1] ** 0.5)
+    if use_kernel(q):
+        return _FlashAttention.apply(q, k, v, causal, scale)
+    return mha_reference(q, k, v, causal=causal, sm_scale=scale)
+
+
+flash_attention.launches = 0   # forward kernel launches (CUDA tensors only)

@@ -1,14 +1,19 @@
-"""RMSNorm forward: a CUDA C++ kernel for Hopper and its plain version.
+"""RMSNorm forward and backward: CUDA C++ kernels for Hopper and their
+plain versions.
 
-Counterpart of ``deepspeed_tpu/ops/pallas/layer_norm.py`` ``rms_norm``.
-The kernel is ``deepspeed_tpu_torch/csrc/layer_norm.cu`` (one block per
-row, 16-byte vector loads, fp32 warp-shuffle reduction), built by nvcc at
-first use and called through ctypes.  :func:`rms_norm_plain` keeps the JAX
-``impl="xla"`` semantics — fp32 upcast, ``x * rsqrt(mean(x^2) + eps) * g``,
-cast back to x's dtype — and is what a CPU tensor runs.
+Counterpart of ``deepspeed_tpu/ops/pallas/layer_norm.py`` ``rms_norm``
+and its custom VJP.  The kernels are in
+``deepspeed_tpu_torch/csrc/layer_norm.cu`` (forward: one block per row,
+16-byte vector loads, fp32 warp-shuffle reduction; backward: per-block fp32
+dγ partials summed by a second launch in a fixed order), built by nvcc at
+first use and called through ctypes.  :func:`rms_norm_plain` and
+:func:`rms_norm_bwd_plain` keep the JAX ``impl="xla"`` semantics — fp32
+statistics (recomputed from x in the backward), outputs in x's dtype, dγ an
+fp32 sum cast to γ's dtype — and are what a CPU tensor runs.
+:func:`rms_norm` is differentiable (a :class:`torch.autograd.Function`)
+when autograd needs it, and a plain call otherwise (serving).
 
-LayerNorm and the backward passes are not in this slice (ROADMAP.md
-queue 2).
+LayerNorm is not ported yet (ROADMAP.md queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -31,14 +36,33 @@ def rms_norm_plain(x: torch.Tensor, gamma: torch.Tensor,
     return (xf * torch.rsqrt(ms + eps) * gamma.float()).to(x.dtype)
 
 
+def rms_norm_bwd_plain(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
+                       eps: float = 1e-6):
+    """``_rms_norm_bwd_vjp`` at ``impl="xla"``, op for op: (dx in x's dtype,
+    dγ as an fp32 sum over rows cast to γ's dtype)."""
+    n = x.shape[-1]
+    xf = x.reshape(-1, n).float()
+    dyf = dy.reshape(-1, n).float()
+    rstd = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    xhat = xf * rstd
+    wdy = dyf * gamma.float()
+    c2 = torch.mean(wdy * xhat, dim=-1, keepdim=True)
+    dx = ((wdy - xhat * c2) * rstd).to(x.dtype)
+    dg = torch.sum(dyf * xhat, dim=0)
+    return dx.reshape(x.shape), dg.to(gamma.dtype)
+
+
 def _library():
     built = load_library("layer_norm")
-    fn = built.lib.ds_rms_norm_fwd
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
-                       ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    lib = built.lib
+    if lib.ds_rms_norm_fwd.argtypes is None:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.ds_rms_norm_fwd.argtypes = [vp, vp, vp, ctypes.c_longlong, ci,
+                                        ctypes.c_float, ci, vp]
+        lib.ds_rms_norm_fwd.restype = ci
+        lib.ds_rms_norm_bwd.argtypes = [vp] * 6 + [ctypes.c_longlong, ci, ci,
+                                                   ctypes.c_float, ci, vp]
+        lib.ds_rms_norm_bwd.restype = ci
     return built
 
 
@@ -65,13 +89,81 @@ def rms_norm_cuda(x: torch.Tensor, gamma: torch.Tensor,
     return y
 
 
-def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
-             eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm over the last dim: the CUDA kernel for a CUDA tensor, the
-    plain version for a CPU tensor."""
+# dγ partials: one per block of rows, at most this many blocks
+_BWD_BLOCKS = 512
+
+
+def rms_norm_bwd_cuda(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
+                      eps: float = 1e-6):
+    """Launch the backward kernels (per-block dγ partials, then their sum);
+    raises on what they do not take and on a launch error."""
+    n = x.shape[-1]
+    check_kernel_input("rms_norm_bwd x", x, x.device)
+    check_kernel_input("rms_norm_bwd gamma", gamma, x.device, dtype=x.dtype)
+    check_kernel_input("rms_norm_bwd dy", dy, x.device, dtype=x.dtype)
+    if gamma.shape != (n,) or dy.shape != x.shape:
+        raise ValueError(f"rms_norm_bwd: x {tuple(x.shape)}, dy "
+                         f"{tuple(dy.shape)}, gamma {tuple(gamma.shape)}")
+    if n > 12288:
+        raise ValueError(f"rms_norm_bwd kernel keeps a row of dγ partials in "
+                         f"shared memory: n <= 12288, got {n}")
+    rows = x.numel() // n if n else 0
+    dx = torch.empty_like(x)
+    dg = torch.empty_like(gamma)
+    nblk = max(1, min(rows, _BWD_BLOCKS))
+    part = torch.empty(nblk, n, device=x.device, dtype=torch.float32)
+    built = _library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = built.lib.ds_rms_norm_bwd(
+            x.data_ptr(), gamma.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+            dg.data_ptr(), part.data_ptr(), rows, n, nblk, float(eps),
+            KERNEL_DTYPES[x.dtype], stream)
+    check_launch(built, "rms_norm_bwd", code)
+    rms_norm_bwd.launches += 1
+    return dx, dg
+
+
+def rms_norm_bwd(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
+                 eps: float = 1e-6):
+    """(dx, dγ) of RMSNorm: the CUDA kernels for a CUDA tensor, the plain
+    version for a CPU tensor."""
+    if use_kernel(x):
+        return rms_norm_bwd_cuda(x, gamma, dy, eps)
+    return rms_norm_bwd_plain(x, gamma, dy, eps)
+
+
+rms_norm_bwd.launches = 0   # backward calls (two kernel launches each)
+
+
+def _rms_norm_fwd(x, gamma, eps):
     if use_kernel(x):
         return rms_norm_cuda(x, gamma, eps)
     return rms_norm_plain(x, gamma, eps)
 
 
-rms_norm.launches = 0   # kernel launches (CUDA tensors only)
+class _RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, eps):
+        ctx.save_for_backward(x, gamma)
+        ctx.eps = eps
+        return _rms_norm_fwd(x, gamma, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma = ctx.saved_tensors
+        dx, dg = rms_norm_bwd(x, gamma, dy.contiguous(), ctx.eps)
+        return dx, dg, None
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last dim: the CUDA kernel for a CUDA tensor, the
+    plain version for a CPU tensor; differentiable through
+    :func:`rms_norm_bwd` when autograd records."""
+    if torch.is_grad_enabled() and (x.requires_grad or gamma.requires_grad):
+        return _RMSNorm.apply(x, gamma, eps)
+    return _rms_norm_fwd(x, gamma, eps)
+
+
+rms_norm.launches = 0   # forward kernel launches (CUDA tensors only)

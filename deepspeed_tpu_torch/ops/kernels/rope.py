@@ -16,8 +16,10 @@ block loads; the cos/sin row of each x row is re-read from L2 rather than
 staged.  ``triton`` is imported when the kernel is first launched, never
 at module import.
 
-The backward (rotation by -angle) is not in this slice (ROADMAP.md
-queue 2).
+The backward is ``_rope_bwd_vjp``: the rotation is orthogonal, so its VJP
+is the same kernel launched with ``-sin``; cos and sin get no gradient.
+:func:`apply_rotary_pos_emb` is a :class:`torch.autograd.Function` when
+autograd records, and a plain call otherwise (serving).
 """
 
 from __future__ import annotations
@@ -120,13 +122,34 @@ def rope_triton(x: torch.Tensor, cos: torch.Tensor,
     return y
 
 
-def apply_rotary_pos_emb(x: torch.Tensor, cos: torch.Tensor,
-                         sin: torch.Tensor) -> torch.Tensor:
-    """Apply RoPE: the Triton kernel for a CUDA tensor, the plain version for
-    a CPU tensor.  ``x``: [..., S, D]; ``cos``/``sin``: [S, D/2]."""
+def _rope(x, cos, sin):
     if use_kernel(x):
         return rope_triton(x, cos, sin)
     return rope_plain(x, cos, sin)
 
 
-apply_rotary_pos_emb.launches = 0   # kernel launches (CUDA tensors only)
+class _Rope(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, cos, sin):
+        ctx.save_for_backward(cos, sin)
+        return _rope(x, cos, sin)
+
+    @staticmethod
+    def backward(ctx, dy):
+        cos, sin = ctx.saved_tensors
+        return _rope(dy.contiguous(), cos, -sin), None, None
+
+
+def apply_rotary_pos_emb(x: torch.Tensor, cos: torch.Tensor,
+                         sin: torch.Tensor) -> torch.Tensor:
+    """Apply RoPE: the Triton kernel for a CUDA tensor, the plain version for
+    a CPU tensor; differentiable in ``x`` (the backward rotates by the
+    negated angle through the same kernel).  ``x``: [..., S, D];
+    ``cos``/``sin``: [S, D/2]."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Rope.apply(x, cos, sin)
+    return _rope(x, cos, sin)
+
+
+apply_rotary_pos_emb.launches = 0   # kernel launches, forward and backward
+                                    # (CUDA tensors only)

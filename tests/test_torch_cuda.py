@@ -12,7 +12,16 @@ sqrt(K) * 2^-24 of the partial sums, about 1e-5 at K = 14336) and 2e-4 for
 attention (an online softmax against a dense one, as
 tests/unit/test_fused_decode.py holds the Pallas kernel); bf16 rtol/atol
 2e-2 (one bf16 rounding of each output, and of the normalised rows or the
-activation before a product).
+activation before a product).  The training kernels: flash attention
+forward 2e-4 fp32 / 2e-2 bf16 (the decode attention bounds) and, since late
+causal rows are small (|o| ~ 0.04 at S 2048) beside that atol, a relative
+Frobenius error of 1e-5 fp32 / 1e-2 bf16 (p and o rounded to bf16), its gradients
+as a relative Frobenius error, 1e-4 fp32 (sums of up to S products of
+recomputed probabilities in another order) and 2e-2 bf16 (p and ds rounded
+to bf16 before each product, as the reference kernel does); RMSNorm dx
+1e-5 fp32 / 2e-2 bf16 and dγ, a sum over all rows, 1e-4 relative fp32 /
+2e-2 bf16; Adam 1e-6 (the same fp32 formula, sqrt and division rounded
+alike, three steps).
 """
 
 import numpy as np
@@ -20,6 +29,8 @@ import pytest
 import torch
 
 from deepspeed_tpu_torch.ops.kernels import decode as tdec
+from deepspeed_tpu_torch.ops.kernels import flash_attention as tfa
+from deepspeed_tpu_torch.ops.kernels import fused_adam as tadam
 from deepspeed_tpu_torch.ops.kernels import layer_norm as tln
 from deepspeed_tpu_torch.ops.kernels import rope as trope
 
@@ -45,11 +56,12 @@ def _randn(shape, seed, dtype, dev, scale=1.0):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(8, 4096), (64, 4096), (3, 5, 4096),
-                                   (7, 100)])
+@pytest.mark.parametrize("shape", [(8, 4096), (64, 4096), (8192, 2048),
+                                   (3, 5, 4096), (7, 100)])
 def test_rms_norm_kernel_matches_plain(cuda_device, dtype, shape):
-    """Path shapes (decode rows = num_slots, prefill rows = chunk) plus an
-    odd row length that takes the element-by-element path."""
+    """Path shapes (decode rows = num_slots, prefill rows = chunk, llama-1b4
+    training rows = micro * S) plus an odd row length that takes the
+    element-by-element path."""
     x = _randn(shape, 0, dtype, cuda_device, 3.0)
     g = _randn(shape[-1:], 1, dtype, cuda_device) * 0.1 + 1
     before = tln.rms_norm.launches
@@ -75,7 +87,8 @@ def test_rms_norm_kernel_refuses_bad_inputs(cuda_device):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(1, 32, 64, 128), (1, 8, 64, 128),
-                                   (1, 32, 17, 128), (2, 3, 5, 48)])
+                                   (4, 16, 2048, 128), (1, 32, 17, 128),
+                                   (2, 3, 5, 48)])
 def test_rope_kernel_matches_plain(cuda_device, dtype, shape):
     S, D = shape[-2], shape[-1]
     x = _randn(shape, 2, dtype, cuda_device)
@@ -89,6 +102,21 @@ def test_rope_kernel_matches_plain(cuda_device, dtype, shape):
     want = trope.rope_plain(x, cos, sin)
     torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
                                atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rope_backward_is_the_kernel_with_negated_sin(cuda_device, dtype):
+    """llama-1b4's training q: the backward launches the same kernel with
+    -sin, against the plain version with -sin."""
+    x = _randn((4, 16, 2048, 128), 3, dtype, cuda_device).requires_grad_()
+    dy = _randn((4, 16, 2048, 128), 4, dtype, cuda_device)
+    cos, sin = trope.rope_angles(torch.arange(2048, device=cuda_device), 128)
+    cos, sin = cos.to(dtype), sin.to(dtype)
+    before = trope.apply_rotary_pos_emb.launches
+    trope.apply_rotary_pos_emb(x, cos, sin).backward(dy)
+    torch.cuda.synchronize()
+    assert trope.apply_rotary_pos_emb.launches == before + 2
+    _close(x.grad, trope.rope_plain(dy, cos, -sin), TOL[dtype])
 
 
 def test_rope_kernel_refuses_bad_inputs(cuda_device):
@@ -330,3 +358,173 @@ def test_fused_serving_on_card_matches_cpu(cuda_device):
         if dev != "cpu":
             assert tdec.fused_mlp.launches > before
     assert outs[0] == outs[1]
+
+
+# ---------------------------------------------------------------------------
+# training kernels
+# ---------------------------------------------------------------------------
+
+def _rel_err(got, want):
+    """Relative Frobenius error; absolute below a norm of 1 (a one-token
+    causal row has p = 1 and zero dq, dk)."""
+    return float((got.float() - want.float()).norm()
+                 / max(float(want.float().norm()), 1.0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8192, 2048), (3, 5, 2048), (7, 100),
+                                   (1, 64)])
+def test_rms_norm_bwd_kernel_matches_plain(cuda_device, dtype, shape):
+    """llama-1b4's [micro * S, D] rows, a 3-D input, an odd row length (the
+    element-by-element path) and a single row."""
+    x = _randn(shape, 0, dtype, cuda_device, 3.0)
+    g = _randn(shape[-1:], 1, dtype, cuda_device) * 0.1 + 1
+    dy = _randn(shape, 2, dtype, cuda_device)
+    dx, dg = _counted(tln.rms_norm_bwd, x, g, dy, eps=1e-5)
+    want_dx, want_dg = tln.rms_norm_bwd_plain(x, g, dy, eps=1e-5)
+    assert dx.dtype == dtype and dg.dtype == dtype and dx.shape == x.shape
+    _close(dx, want_dx, TOL[dtype])
+    dg_tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert _rel_err(dg, want_dg) < dg_tol
+    dx2, dg2 = tln.rms_norm_bwd(x, g, dy, eps=1e-5)
+    assert torch.equal(dx, dx2) and torch.equal(dg, dg2)   # no atomics
+
+
+def test_rms_norm_autograd_launches_both_kernels(cuda_device):
+    x = _randn((64, 256), 0, torch.bfloat16, cuda_device).requires_grad_()
+    g = torch.ones(256, device=cuda_device, dtype=torch.bfloat16,
+                   requires_grad=True)
+    fwd, bwd = tln.rms_norm.launches, tln.rms_norm_bwd.launches
+    tln.rms_norm(x, g, eps=1e-5).float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert (tln.rms_norm.launches, tln.rms_norm_bwd.launches) == (fwd + 1,
+                                                                  bwd + 1)
+    want_dx, want_dg = tln.rms_norm_bwd_plain(
+        x.detach(), g.detach(),
+        2 * tln.rms_norm_plain(x.detach(), g.detach(), 1e-5).float()
+        .to(torch.bfloat16), eps=1e-5)
+    _close(x.grad, want_dx, 2e-2)
+    assert _rel_err(g.grad, want_dg) < 2e-2
+
+
+def _attn_inputs(B, H, S, D, dtype, dev, seed=0):
+    return [_randn((B, H, S, D), seed + i, dtype, dev) for i in range(4)]
+
+
+def _lse_plain(q, k, scale):
+    S = q.shape[-2]
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    return torch.logsumexp(logits.masked_fill(~mask, tfa.NEG_INF), -1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,S,D", [(4, 16, 2048, 128),   # llama-1b4
+                                     (2, 3, 200, 128),     # ragged S
+                                     (1, 2, 64, 64), (1, 1, 1, 128)])
+def test_flash_attention_kernels_match_plain(cuda_device, dtype, B, H, S, D):
+    """Forward (o and lse) against mha_reference, backward (dq, dk, dv)
+    against autograd of mha_reference on the same inputs in fp32, and two
+    backward calls give the same bits."""
+    q, k, v, do = _attn_inputs(B, H, S, D, dtype, cuda_device)
+    scale = D ** -0.5
+    before = tfa.flash_attention.launches
+    o, lse = tfa.flash_fwd_cuda(q, k, v, True, scale)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == before + 1
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    want_o = tfa.mha_reference(q, k, v)
+    _close(o, want_o, 2e-4 if dtype == torch.float32 else 2e-2)
+    assert _rel_err(o, want_o) < (1e-5 if dtype == torch.float32 else 1e-2)
+    _close(lse, _lse_plain(q, k, scale), 1e-4)
+    grads = _counted(tfa.flash_attention_bwd, q, k, v, o, lse, do, True,
+                     scale)
+    ref = [t.float().requires_grad_() for t in (q, k, v)]
+    tfa.mha_reference(*ref).backward(do.float())
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for got, r, name in zip(grads, ref, "qkv"):
+        assert got.dtype == dtype
+        assert _rel_err(got, r.grad) < tol, name
+    again = tfa.flash_attention_bwd(q, k, v, o, lse, do, True, scale)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+def test_flash_attention_autograd_and_refusals(cuda_device):
+    q, k, v, do = _attn_inputs(1, 2, 128, 64, torch.bfloat16, cuda_device)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fwd, bwd = tfa.flash_attention.launches, tfa.flash_attention_bwd.launches
+    tfa.flash_attention(*leaves).backward(do)
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention.launches,
+            tfa.flash_attention_bwd.launches) == (fwd + 1, bwd + 1)
+    assert all(t.grad is not None for t in leaves)
+    with pytest.raises(ValueError, match="S == Sk"):
+        tfa.flash_attention(q, k[:, :, :64].contiguous(), v[:, :, :64]
+                            .contiguous())
+    with pytest.raises(ValueError, match="head dims"):
+        tfa.flash_attention(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                            v[..., :32].contiguous())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tfa.flash_attention(q, k, v, alibi=True)
+
+
+@pytest.mark.parametrize("p_dtype,g_dtype", [
+    (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("n,adam_w_mode", [(2048 * 5632, True),
+                                           (1000003, False), (3, True)])
+def test_fused_adam_kernel_matches_plain(cuda_device, p_dtype, g_dtype, n,
+                                         adam_w_mode):
+    """Three steps in place from the same inputs: a llama-1b4 MLP leaf, an
+    odd length (the scalar tail), and fewer elements than one vector."""
+    p = _randn((n,), 0, p_dtype, cuda_device)
+    m = torch.zeros(n, device=cuda_device)
+    v = torch.zeros(n, device=cuda_device)
+    state = [p.clone(), m.clone(), v.clone()]
+    for step in (1, 2, 3):
+        g = _randn((n,), step, g_dtype, cuda_device)
+        kw = dict(lr=1e-3 * step, beta1=0.9, beta2=0.95, eps=1e-8,
+                  weight_decay=0.1, adam_w_mode=adam_w_mode)
+        _counted(tadam.fused_adam_update, p, g, m, v, step, **kw)
+        tadam.fused_adam_update_plain(*state[:1], g, *state[1:], step, **kw)
+    for got, want in zip((p, m, v), state):
+        _close(got, want, 1e-6 if p_dtype == torch.float32 else 2e-2)
+
+
+def test_training_on_card_matches_cpu(cuda_device):
+    """A small fp32 model trained 3 steps on the card (kernels) and on the
+    CPU (plain versions) from the same weights: losses within rtol 1e-4 and
+    weights within atol 1e-4 (fp32 sums in another order; at lr 3e-4 Adam's
+    normalised step keeps a weight difference near lr * 1e-2 even where a
+    grad element sits near eps); every training kernel launched on the
+    card."""
+    import deepspeed_tpu_torch
+
+    cfg = {"train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 2,
+           "optimizer": {"type": "FusedAdam", "params": {
+               "lr": 3e-4, "betas": [0.9, 0.95], "weight_decay": 0.1}},
+           "scheduler": {"type": "WarmupLR", "params": {
+               "warmup_max_lr": 3e-4, "warmup_num_steps": 2}},
+           "gradient_clipping": 1.0}
+    over = dict(num_layers=2, hidden_size=128, intermediate_size=256,
+                num_heads=2, num_kv_heads=1, vocab_size=512, remat=True,
+                remat_policy="mlp_dots")
+    tok = np.random.default_rng(0).integers(0, 512, (4, 96))
+    runs = []
+    counters = (tln.rms_norm, tln.rms_norm_bwd, trope.apply_rotary_pos_emb,
+                tfa.flash_attention, tfa.flash_attention_bwd,
+                tadam.fused_adam_update)
+    for dev in ("cpu", cuda_device):
+        model = deepspeed_tpu_torch.causal_lm("llama-tiny", device="cpu", **over)
+        engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=cfg,
+                                                    device=dev)
+        before = [c.launches for c in counters]
+        losses = [float(engine.train_step((tok, tok))) for _ in range(3)]
+        after = [c.launches for c in counters]
+        assert all(b < a for b, a in zip(before, after)) == (dev != "cpu")
+        runs.append((losses, [p.cpu() for p in engine.master]))
+    (lc, pc), (lg, pg) = runs
+    np.testing.assert_allclose(lg, lc, rtol=1e-4)
+    assert lg[-1] < lg[0]
+    for a, b in zip(pc, pg):
+        torch.testing.assert_close(b, a, rtol=0, atol=1e-4)

@@ -40,6 +40,7 @@ def test_import_leaves_jax_unloaded():
             "before = jaxish()\n"
             "import deepspeed_tpu_torch, deepspeed_tpu_torch.serving\n"
             "import deepspeed_tpu_torch.models.convert\n"
+            "import deepspeed_tpu_torch.runtime.engine\n"
             "print(sorted(jaxish() - before))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env={**os.environ, "PYTHONPATH": str(ROOT)},
@@ -141,3 +142,55 @@ def test_kernel_input_checks_raise():
         check_kernel_input("g", x, x.device, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         check_kernel_input("x", x, torch.device("meta"))
+
+
+def test_initialize_without_a_card_raises(monkeypatch):
+    import deepspeed_tpu_torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = deepspeed_tpu_torch.causal_lm("llama-tiny", num_layers=1,
+                                          device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        deepspeed_tpu_torch.initialize(model=model, config={})
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config={},
+                                                device="cpu")
+    assert engine.device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("section", [
+    {"zero_optimization": {"stage": 1}}, {"zero_optimization": {"stage": 3}},
+    {"zero_optimization": {"offload_optimizer": {"device": "cpu"}}},
+    {"fp16": {"enabled": True}}, {"comm_quantization": {"all_gather": True}},
+    {"pipeline": {"stages": 2}}, {"mesh": {"tp": 2}},
+    {"tensor_parallel": {"tp_size": 2}}, {"tensorboard": {"enabled": True}},
+    {"flops_profiler": {"enabled": True}}, {"watchdog": {"enabled": True}},
+    {"activation_checkpointing": {"cpu_checkpointing": True}},
+    {"bf16": {"enabled": True, "master_weights": False}},
+    {"optimizer": {"type": "Lamb", "params": {}}},
+    {"optimizer": {"type": "OneBitAdam", "params": {}}}])
+def test_unported_training_config_sections_are_refused(section):
+    import deepspeed_tpu_torch
+
+    model = deepspeed_tpu_torch.causal_lm("llama-tiny", num_layers=1,
+                                          device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        deepspeed_tpu_torch.initialize(model=model, config=section,
+                                       device="cpu")
+
+
+@pytest.mark.parametrize("over", [
+    {"dropout": 0.1}, {"num_experts": 4}, {"parallel_residual": True},
+    {"position": "learned"}, {"position": "alibi"},
+    {"norm": "layernorm", "use_bias": True},
+    {"remat": True, "remat_policy": "offload_dots"}])
+def test_unported_training_model_options_are_refused(over):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.config import get_model_config
+    from deepspeed_tpu_torch.models.transformer import CausalLM
+
+    cfg = get_model_config("llama-tiny", num_layers=1)
+    model = CausalLM(cfg, device="cpu")      # a dense llama's parameters
+    for k, v in over.items():
+        setattr(model.config, k, v)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        deepspeed_tpu_torch.initialize(model=model, config={}, device="cpu")
