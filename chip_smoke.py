@@ -6,11 +6,12 @@
 Needs one CUDA card, nvcc and triton; imports nothing of JAX.  Phases
 (each one raises, and the script exits non-zero, on any failure):
 
-1. build   — compile the four CUDA libraries (RMSNorm fwd/bwd; the four
-             fused decode kernels; flash attention fwd/bwd; fused Adam),
-             one nvcc each, started together, while Triton compiles the
-             RoPE kernel; print build seconds and the ptxas register /
-             shared-memory / spill lines;
+1. build   — compile the four CUDA libraries (LayerNorm and RMSNorm
+             fwd/bwd; the four fused decode kernels; flash attention
+             fwd/bwd; fused Adam), one nvcc each, started together, while
+             Triton compiles the RoPE, softmax and bias_act kernels; print
+             build seconds and the ptxas register / shared-memory / spill
+             lines;
 2. kernels — each kernel against its plain PyTorch version at the serving
              path's shapes, fp32 and bf16, with the tolerances of TOL below
              (the flash-decode kernel at depths 1..1024 across page
@@ -29,11 +30,29 @@ Needs one CUDA card, nvcc and triton; imports nothing of JAX.  Phases
              [8192, 2048], RoPE on [4, 16, 2048, 128] with sin and with
              the backward's -sin); then the four training kernels'
              timings beside SDPA and torch's fused AdamW as yardsticks;
+             then the four decode kernels again at gpt2-xl's shapes and
+             branches ([8, 1600], LayerNorm with a bias, tanh-GeLU without
+             a gate, 25 heads of 64 with one query head per KV head) and
+             Adam on its [1600] and [48, 1600] leaves;
+             then the gpt2-xl kernels: LayerNorm fwd and bwd at
+             [8192, 1600], [8, 1600] and ragged shapes (bwd bit-equal on a
+             second call), scaled masked softmax with and without a causal
+             mask at [4, 25, 1024, 1024] and at a row length that is no
+             power of two, bias_act for each activation at [8192, 6400],
+             flash attention fwd and bwd at [8, 25, 1024, 64], fp32 and
+             bf16, and their timings beside ``F.layer_norm`` (and its
+             autograd backward), ``torch.softmax`` and ``F.gelu(x + b)``;
 3. reference — a small fp32 model served on the card (kernels) and on the
              CPU (plain versions) must give the same greedy tokens, on the
              default fused decode path and on ``use_fused_decode: False``;
              and the same small model trained 3 steps on the card (TF32
-             off) and on the CPU: losses and final weights agree;
+             off) and on the CPU: losses and final weights agree; each for a
+             llama-shaped and a gpt2-shaped model (learned positions,
+             LayerNorm, GeLU, a plain MLP);
+   ops     — the two ops of the public kernel library that no model path
+             calls, driven through the library's wrappers at gpt2-xl's
+             shapes: ``scaled_masked_softmax`` with a causal mask and
+             ``bias_act``; their launches are counted over this phase;
 4. serve   — the main path: ``init_serving(causal_lm("llama3-8b"),
              {"dtype": "bfloat16", ...})`` with the default decode (fused)
              at full width and depth with random bf16 weights from seed 0,
@@ -43,7 +62,8 @@ Needs one CUDA card, nvcc and triton; imports nothing of JAX.  Phases
              then one more wave under torch.profiler (device busy share,
              top kernels, each kernel's device time per launch); then the
              unfused decode path on the same weights, a shorter wave with
-             its own launch plan;
+             its own launch plan; then the same for ``gpt2-xl`` at full
+             width and depth (LayerNorm in place of RMSNorm, no RoPE);
 5. train   — the training path, after the serve phase has released its
              memory: ``deepspeed_tpu_torch.initialize(causal_lm(
              "llama-1b4"), config)`` at full width and depth, random fp32
@@ -52,7 +72,9 @@ Needs one CUDA card, nvcc and triton; imports nothing of JAX.  Phases
              repeated batch of seeded random tokens; losses finite and
              falling, launch counters (zeroed just before, read just
              after) equal to the path's plan; then one step under
-             torch.profiler;
+             torch.profiler; then the same for ``gpt2-xl`` at full width and
+             depth (micro 8 x gas 2 x S 1024, the preset's full-layer
+             remat);
 6. report  — the card's name and power limit, the kernels JSON line, and
              last the result line ``{"ok": true, "device": {...}}``.
 """
@@ -134,7 +156,7 @@ def cycler(items):
 
 def phase_build(torch, dev):
     from deepspeed_tpu_torch.ops.kernels import build
-    from deepspeed_tpu_torch.ops.kernels import rope
+    from deepspeed_tpu_torch.ops.kernels import rope, softmax
 
     results = {}
 
@@ -156,6 +178,12 @@ def phase_build(torch, dev):
     rope.rope_triton(x, c, c)
     torch.cuda.synchronize()
     triton_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    softmax.scaled_masked_softmax_triton(c, c, 1.0)
+    softmax.scaled_masked_softmax_triton(c)
+    softmax.bias_act_triton(c, c[0], "gelu")
+    torch.cuda.synchronize()
+    ops_s = time.perf_counter() - t1
     for th in threads:
         th.join()
     for name in libs:
@@ -179,9 +207,11 @@ def phase_build(torch, dev):
                 print(f"  ptxas: {entry[:70]}: {ln.split(':', 1)[1].strip()}")
         print(f"  ptxas: {n_entries} entry functions, {len(spilled)} spill"
               + "".join(f"\n  ptxas spill: {s}" for s in spilled))
-    print(f"build: triton rope compile+first launch {triton_s:.2f}s")
+    print(f"build: triton rope compile+first launch {triton_s:.2f}s; softmax "
+          f"(with and without a mask) and bias_act {ops_s:.2f}s")
     out = {name: results[name + "_s"] for name in libs}
     out["rope"] = triton_s
+    out["softmax"] = ops_s
     return out
 
 
@@ -229,77 +259,100 @@ def check_old_kernels(torch, dev, gen):
     return errs
 
 
-def decode_inputs(torch, dev, gen, dt, copies=1):
-    """Activations and ``copies`` sets of one layer's weights at the
-    llama3-8b decode shapes (weights scaled as the model's init)."""
+# the decode shapes of the two served models (8 slots each): widths, heads,
+# the norm kind and the MLP (gated silu, or a plain tanh-GeLU MLP)
+DECODE_MODELS = {
+    "llama3-8b": dict(D=D, H=H, HKV=HKV, DH=DH, F=F, kind="rmsnorm",
+                      act="silu", glu=True),
+    "gpt2-xl": dict(D=1600, H=25, HKV=25, DH=64, F=6400, kind="layernorm",
+                    act="gelu", glu=False)}
+
+
+def decode_inputs(torch, dev, gen, dt, copies=1, model="llama3-8b"):
+    """Activations and ``copies`` sets of one layer's weights at ``model``'s
+    decode shapes (weights scaled as the model's init; ``nbias`` is the
+    norm's bias, which only LayerNorm has; ``wg`` only a gated MLP)."""
+    m = DECODE_MODELS[model]
+    d, f, hd = m["D"], m["F"], m["H"] * m["DH"]
+    nqkv = (m["H"] + 2 * m["HKV"]) * m["DH"]
+
     def w(shape, fan_in):
         return [(_randn(torch, shape, gen, dev, fan_in ** -0.5)).to(dt)
                 for _ in range(copies)]
     return {
-        "x": _randn(torch, (B, D), gen, dev, 2).to(dt),
-        "scale": (1 + 0.1 * torch.randn(D, device=dev, generator=gen)).to(dt),
-        "wqkv": w((D, NQKV), D), "wo": w((H * DH, D), H * DH),
-        "ctx": _randn(torch, (B, H * DH), gen, dev).to(dt),
-        "resid": _randn(torch, (B, D), gen, dev, 2).to(dt),
-        "h": _randn(torch, (B, D), gen, dev).to(dt),
-        "wu": w((D, F), D), "wg": w((D, F), D), "wd": w((F, D), F),
+        "x": _randn(torch, (B, d), gen, dev, 2).to(dt),
+        "scale": (1 + 0.1 * torch.randn(d, device=dev, generator=gen)).to(dt),
+        "nbias": ((0.1 * torch.randn(d, device=dev, generator=gen)).to(dt)
+                  if m["kind"] == "layernorm" else None),
+        "wqkv": w((d, nqkv), d), "wo": w((hd, d), hd),
+        "ctx": _randn(torch, (B, hd), gen, dev).to(dt),
+        "resid": _randn(torch, (B, d), gen, dev, 2).to(dt),
+        "h": _randn(torch, (B, d), gen, dev).to(dt),
+        "wu": w((d, f), d), "wg": w((d, f), d) if m["glu"] else [None],
+        "wd": w((f, d), f),
     }
 
 
-def paged_inputs(torch, dev, gen, dt, page, pos, layers=2):
+def paged_inputs(torch, dev, gen, dt, page, pos, layers=2, model="llama3-8b"):
     """A stacked [layers, P, Hkv, page, Dh] pool behind a shuffled page table
     with a 1024-token window per slot, q [B, H, Dh], and pos [B]."""
     import numpy as np
 
+    m = DECODE_MODELS[model]
     maxp = 1024 // page
     P = B * maxp + 1
-    k = _randn(torch, (layers, P, HKV, page, DH), gen, dev).to(dt)
-    v = _randn(torch, (layers, P, HKV, page, DH), gen, dev).to(dt)
+    k = _randn(torch, (layers, P, m["HKV"], page, m["DH"]), gen, dev).to(dt)
+    v = _randn(torch, (layers, P, m["HKV"], page, m["DH"]), gen, dev).to(dt)
     perm = np.random.default_rng(page).permutation(B * maxp) + 1
     table = torch.from_numpy(perm.reshape(B, maxp)).to(dev)
-    q = _randn(torch, (B, H, DH), gen, dev).to(dt)
+    q = _randn(torch, (B, m["H"], m["DH"]), gen, dev).to(dt)
     return q, k, v, torch.tensor(pos, device=dev), table
 
 
-def check_decode_kernels(torch, dev, gen):
-    """The four fused decode kernels against their plain versions at the
-    path shapes, fp32 and bf16; returns the bf16 max abs errors."""
+def check_decode_kernels(torch, dev, gen, model):
+    """The four fused decode kernels against their plain versions at
+    ``model``'s path shapes and branches (norm kind, activation, gate or
+    none, heads per KV head), fp32 and bf16; returns the bf16 max abs
+    errors."""
     from deepspeed_tpu_torch.ops.kernels import decode as dk
 
+    m = DECODE_MODELS[model]
+    kind, act, dh = m["kind"], m["act"], m["DH"]
     errs = {}
     for dtype_name in ("float32", "bfloat16"):
         dt = getattr(torch, dtype_name)
         bf = dtype_name == "bfloat16"
-        t = decode_inputs(torch, dev, gen, dt)
+        t = decode_inputs(torch, dev, gen, dt, model=model)
         wqkv, wo = t["wqkv"][0], t["wo"][0]
         wu, wg, wd = t["wu"][0], t["wg"][0], t["wd"][0]
+        nbias = t["nbias"]
+        ref_bias = torch.zeros_like(t["scale"]) if nbias is None else nbias
         out = {}
-        y = dk.fused_norm_qkv_cuda(t["x"], t["scale"], None, wqkv,
-                                   kind="rmsnorm", eps=1e-5)
+        y = dk.fused_norm_qkv_cuda(t["x"], t["scale"], nbias, wqkv,
+                                   kind=kind, eps=1e-5)
         torch.cuda.synchronize()
         out["fused_norm_qkv"] = _assert_close(
-            torch, y, dk._norm_qkv_ref(t["x"], t["scale"],
-                                       torch.zeros_like(t["scale"]), wqkv,
-                                       None, kind="rmsnorm", eps=1e-5),
-            GEMV_TOL[dtype_name], f"fused_norm_qkv {dtype_name}")
+            torch, y, dk._norm_qkv_ref(t["x"], t["scale"], ref_bias, wqkv,
+                                       None, kind=kind, eps=1e-5),
+            GEMV_TOL[dtype_name], f"fused_norm_qkv {model} {dtype_name}")
         r, h = dk.fused_proj_norm_cuda(t["ctx"], t["resid"], wo, None,
-                                       t["scale"], None, kind="rmsnorm",
+                                       t["scale"], nbias, kind=kind,
                                        eps=1e-5, parallel=False)
         torch.cuda.synchronize()
         wr, wh = dk._proj_norm_ref(t["ctx"], t["resid"], wo, None, t["scale"],
-                                   torch.zeros_like(t["scale"]),
-                                   kind="rmsnorm", eps=1e-5, parallel=False)
+                                   ref_bias, kind=kind, eps=1e-5,
+                                   parallel=False)
         out["fused_proj_norm"] = max(
             _assert_close(torch, r, wr, GEMV_TOL[dtype_name],
-                          f"fused_proj_norm r {dtype_name}"),
+                          f"fused_proj_norm r {model} {dtype_name}"),
             _assert_close(torch, h, wh, GEMV_TOL[dtype_name],
-                          f"fused_proj_norm h {dtype_name}"))
-        y = dk.fused_mlp_cuda(t["h"], t["resid"], wu, wd, wg, act="silu")
+                          f"fused_proj_norm h {model} {dtype_name}"))
+        y = dk.fused_mlp_cuda(t["h"], t["resid"], wu, wd, wg, act=act)
         torch.cuda.synchronize()
         out["fused_mlp"] = _assert_close(
             torch, y, dk._mlp_ref(t["h"], t["resid"], wu, wg, wd, None, None,
-                                  None, act="silu"),
-            GEMV_TOL[dtype_name], f"fused_mlp {dtype_name}")
+                                  None, act=act),
+            GEMV_TOL[dtype_name], f"fused_mlp {model} {dtype_name}")
         del t, wqkv, wo, wu, wg, wd
         # depths 1..1024 (pos 0..1023) across page boundaries
         fd = 0.0
@@ -307,24 +360,26 @@ def check_decode_kernels(torch, dev, gen):
             for alibi in (False, True):
                 q, k, v, pos, table = paged_inputs(
                     torch, dev, gen, dt, page,
-                    [0, 254, 255, 256, 299, 300, 1022, 1023])
+                    [0, 254, 255, 256, 299, 300, 1022, 1023], model=model)
                 for layer in (0, 1):
                     y = dk.flash_decode_paged_cuda(
-                        q, k, v, pos, table, scale=DH ** -0.5, layer=layer,
+                        q, k, v, pos, table, scale=dh ** -0.5, layer=layer,
                         alibi=alibi)
                     torch.cuda.synchronize()
                     fd = max(fd, _assert_close(
                         torch, y, dk._flash_decode_paged_ref(
-                            q, k, v, pos, table, scale=DH ** -0.5,
+                            q, k, v, pos, table, scale=dh ** -0.5,
                             layer=layer, alibi=alibi),
                         ATTN_TOL[dtype_name],
-                        f"flash_decode {dtype_name} page {page} "
+                        f"flash_decode {model} {dtype_name} page {page} "
                         f"alibi {alibi} layer {layer}"))
         out["flash_decode"] = fd
         if bf:
             errs = out
-    print("decode kernels vs plain: fp32 GEMV within 1e-4, attention 2e-4, "
-          "bf16 within 2e-2; bf16 max abs err " + ", ".join(
+    print(f"decode kernels vs plain at {model}'s shapes (D {m['D']}, "
+          f"{m['H']}/{m['HKV']} heads of {dh}, F {m['F']}, {kind}, {act}"
+          f"{' gated' if m['glu'] else ', no gate'}): fp32 GEMV within 1e-4, "
+          "attention 2e-4, bf16 within 2e-2; bf16 max abs err " + ", ".join(
               f"{k} {v:.3g}" for k, v in errs.items()))
     return errs
 
@@ -680,18 +735,293 @@ def time_train_kernels(torch, dev, gen, errs):
     return out
 
 
+# gpt2-xl shapes: micro 8 x S 1024, D 1600, 25 heads of 64, F 6400; decode
+# rows = 8 slots; softmax over the scores of 4 sequences
+GB, GS, GD, GH, GDH, GF, GSB = 8, 1024, 1600, 25, 64, 6400, 4
+# softmax, beside the elementwise TOL: each output within one rounding of
+# its own size (fp32 1e-5 relative; bf16 2^-8 relative, taken as 8e-3), with
+# a 1e-6 floor: a 1024-wide row's probabilities are ~1e-3, and an absolute
+# 2e-2 alone would pass them wholly wrong
+SOFTMAX_RTOL = {"float32": 1e-5, "bfloat16": 8e-3}
+
+
+def _ln_inputs(torch, dev, gen, dt, shape):
+    n = shape[-1]
+    x = (_randn(torch, shape, gen, dev, 3) + 1.5).to(dt)
+    g = (1 + 0.1 * torch.randn(n, device=dev, generator=gen)).to(dt)
+    b = (0.1 * torch.randn(n, device=dev, generator=gen)).to(dt)
+    dy = _randn(torch, shape, gen, dev).to(dt)
+    return x, g, b, dy
+
+
+def check_gpt2_kernels(torch, dev, gen):
+    """The gpt2 family's kernels against their plain versions, fp32 and
+    bf16: LayerNorm fwd and bwd, scaled masked softmax, bias_act, and flash
+    attention at gpt2-xl's shape; bf16 max abs errors at the path shapes."""
+    from deepspeed_tpu_torch.ops.kernels import layer_norm as ln
+    from deepspeed_tpu_torch.ops.kernels import softmax as sm
+
+    errs = {}
+    for dtype_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype_name)
+        bf = dtype_name == "bfloat16"
+        # one warp per row at D 1600 (training rows, decode rows, a ragged
+        # row count), then the block-per-row path (n no multiple of the
+        # 16-byte vector; n past a warp's registers)
+        for shape in ((GB * GS, GD), (GB, GD), (37, GD), (5, 100), (3, 4096)):
+            x, g, b, dy = _ln_inputs(torch, dev, gen, dt, shape)
+            y = ln.layer_norm_cuda(x, g, b, 1e-5)
+            torch.cuda.synchronize()
+            e = _assert_close(torch, y, ln.layer_norm_plain(x, g, b, 1e-5),
+                              TOL[dtype_name], f"layer_norm {dtype_name} {shape}")
+            got = ln.layer_norm_bwd_cuda(x, g, dy, 1e-5)
+            again = ln.layer_norm_bwd_cuda(x, g, dy, 1e-5)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, c) for a, c in zip(got, again)),
+                  f"layer_norm_bwd {dtype_name} {shape}: two calls differ")
+            want = ln.layer_norm_bwd_plain(x, g, dy, 1e-5)
+            e_dx = _assert_close(torch, got[0], want[0], TOL[dtype_name],
+                                 f"layer_norm_bwd dx {dtype_name} {shape}")
+            rel = max(_rel_err(got[1], want[1]), _rel_err(got[2], want[2]))
+            check(rel < GRAD_TOL[dtype_name], f"layer_norm_bwd dγ/dβ "
+                  f"{dtype_name} {shape}: relative error {rel}")
+            print(f"gpt2 kernels: layer_norm {dtype_name} {list(shape)}: y max "
+                  f"abs err {e:.3g}; bwd dx {e_dx:.3g}, dγ/dβ relative "
+                  f"{rel:.3g}, second call bit-equal")
+            if bf and shape == (GB * GS, GD):
+                errs["layer_norm"], errs["layer_norm_bwd"] = e, e_dx
+            del x, dy, y, got, again, want
+        # a causal [S, S] bool mask and a per-sequence [B, 1, n] int padding
+        # mask, each read through its strides; n = 1000 is no power of two
+        causal = torch.ones(GS, GS, dtype=torch.bool, device=dev).tril()
+        padding = torch.ones(3, 1, 1000, dtype=torch.int32, device=dev)
+        padding[1, :, 640:] = 0
+        for shape, mask in (((GSB, GH, GS, GS), None),
+                            ((GSB, GH, GS, GS), causal),
+                            ((3, 7, 1000), None), ((3, 7, 1000), padding)):
+            x = _randn(torch, shape, gen, dev, 4).to(dt)
+            y = sm.scaled_masked_softmax_triton(x, mask, GDH ** -0.5)
+            torch.cuda.synchronize()
+            want = sm.scaled_masked_softmax_plain(x, mask, GDH ** -0.5)
+            what = (f"softmax {dtype_name} {list(shape)} "
+                    f"{'masked' if mask is not None else 'no mask'}")
+            e = _assert_close(torch, y, want, TOL[dtype_name], what)
+            try:
+                torch.testing.assert_close(y.float(), want.float(), atol=1e-6,
+                                           rtol=SOFTMAX_RTOL[dtype_name])
+            except AssertionError as err:
+                raise RuntimeError(f"chip_smoke: {what}: relative check: "
+                                   f"{err}") from None
+            print(f"gpt2 kernels: {what}: max abs err {e:.3g}, each output "
+                  f"within {SOFTMAX_RTOL[dtype_name]:g} relative")
+            if bf and shape[-1] == GS:
+                errs["scaled_masked_softmax"] = max(
+                    errs.get("scaled_masked_softmax", 0.0), e)
+            del x, y, want
+        x = _randn(torch, (GB * GS, GF), gen, dev, 3).to(dt)
+        b = _randn(torch, (GF,), gen, dev).to(dt)
+        for act in ("gelu", "relu", "silu", "identity"):
+            y = sm.bias_act_triton(x, b, act)
+            torch.cuda.synchronize()
+            e = _assert_close(torch, y, sm.bias_act_plain(x, b, act),
+                              TOL[dtype_name], f"bias_act {act} {dtype_name}")
+            print(f"gpt2 kernels: bias_act {act} {dtype_name} "
+                  f"[{GB * GS}, {GF}]: max abs err {e:.3g}")
+            if bf:
+                errs["bias_act"] = max(errs.get("bias_act", 0.0), e)
+        del x, y
+        e_o, rel_o, e_g, rel = check_flash(torch, dev, gen, dtype_name,
+                                           (GB, GH, GS, GDH))
+        print(f"gpt2 kernels: flash {dtype_name} {[GB, GH, GS, GDH]}: o max abs "
+              f"err {e_o:.3g}, relative (Frobenius) {rel_o:.3g}; dq/dk/dv max "
+              f"abs err {e_g:.3g}, max relative (Frobenius) {rel:.3g}")
+        torch.cuda.empty_cache()
+    # Adam on gpt2-xl's small leaves: the final norm's [1600] vector and a
+    # stacked [48, 1600] norm leaf (fp32 masters and accumulator), three
+    # steps against the plain update
+    from deepspeed_tpu_torch.ops.kernels import fused_adam as adam
+
+    for shape in ((GD,), (48, GD)):
+        p = _randn(torch, shape, gen, dev)
+        m, v = torch.zeros_like(p), torch.zeros_like(p)
+        ref = [p.clone(), m.clone(), v.clone()]
+        for step in (1, 2, 3):
+            gr = _randn(torch, shape, gen, dev, 1e-3)
+            kw = dict(lr=3e-4 * step, beta1=0.9, beta2=0.95, eps=1e-8,
+                      weight_decay=0.1, adam_w_mode=True)
+            adam.fused_adam_update_cuda(p, gr, m, v, step, **kw)
+            adam.fused_adam_update_plain(ref[0], gr, ref[1], ref[2], step, **kw)
+        torch.cuda.synchronize()
+        e = max(_assert_close(torch, got, want, ADAM_TOL,
+                              f"fused_adam {what} {list(shape)}")
+                for got, want, what in zip((p, m, v), ref, ("p", "m", "v")))
+        print(f"gpt2 kernels: fused_adam fp32 {list(shape)} x 3 steps: p/m/v "
+              f"max abs err {e:.3g}")
+        errs["fused_adam_gpt2"] = max(errs.get("fused_adam_gpt2", 0.0), e)
+    return errs
+
+
+def time_gpt2_kernels(torch, dev, gen, errs):
+    """bf16 at gpt2-xl's shapes, beside the plain version, the PyTorch
+    library call of the same function, and the bound from bytes."""
+    import torch.nn.functional as F_
+
+    from deepspeed_tpu_torch.ops.kernels import layer_norm as ln
+    from deepspeed_tpu_torch.ops.kernels import softmax as sm
+
+    bf = torch.bfloat16
+    out = {}
+    x, g, b, dy = _ln_inputs(torch, dev, gen, bf, (GB * GS, GD))
+    b_ms, b_by = bound_ms((2 * x.numel() + 2 * GD) * 2, 8 * x.numel())
+    out["layer_norm"] = {
+        "shape": "x [8192,1600] bf16",
+        "ms": time_ms(torch, lambda: ln.layer_norm_cuda(x, g, b, 1e-5)),
+        "plain_ms": time_ms(torch, lambda: ln.layer_norm_plain(x, g, b, 1e-5),
+                            samples=10),
+        "library_ms": time_ms(torch, lambda: F_.layer_norm(x, (GD,), g, b, 1e-5)),
+        "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": errs["layer_norm"]}
+    xs = x[:GB].contiguous()
+    out["layer_norm"]["decode_rows_ms"] = time_ms(
+        torch, lambda: ln.layer_norm_cuda(xs, g, b, 1e-5))
+    lib = [t.detach().clone().requires_grad_() for t in (x, g, b)]
+    lib_y = F_.layer_norm(lib[0], (GD,), lib[1], lib[2], 1e-5)
+    b_ms, b_by = bound_ms((3 * x.numel() + 3 * GD) * 2, 14 * x.numel())
+    out["layer_norm_bwd"] = {
+        "shape": "x, dy [8192,1600] bf16 (two launches)",
+        "ms": time_ms(torch, lambda: ln.layer_norm_bwd_cuda(x, g, dy, 1e-5)),
+        "plain_ms": time_ms(torch, lambda: ln.layer_norm_bwd_plain(x, g, dy, 1e-5),
+                            samples=10),
+        "library_ms": time_ms(torch, lambda: torch.autograd.grad(
+            lib_y, lib, dy, retain_graph=True)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "max_abs_err": errs["layer_norm_bwd"]}
+    del x, dy, xs, lib, lib_y
+
+    # softmax: scale 1 so that torch.softmax computes the same function
+    x = _randn(torch, (GSB, GH, GS, GS), gen, dev, 0.5).to(bf)
+    causal = torch.ones(GS, GS, dtype=torch.bool, device=dev).tril()
+    b_ms, b_by = bound_ms(2 * x.numel() * 2, 5 * x.numel())
+    bm_ms, _ = bound_ms(2 * x.numel() * 2 + causal.numel(), 5 * x.numel())
+    out["scaled_masked_softmax"] = {
+        "shape": "x [4,25,1024,1024] bf16, no mask (masked: a causal "
+                 "[1024,1024] bool mask)",
+        "ms": time_ms(torch, lambda: sm.scaled_masked_softmax_triton(x),
+                      samples=20, inner=10),
+        "plain_ms": time_ms(torch, lambda: sm.scaled_masked_softmax_plain(x),
+                            samples=5, inner=3, warmup=2),
+        "library_ms": time_ms(torch, lambda: torch.softmax(x, -1), samples=20,
+                              inner=10),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "masked_ms": time_ms(torch, lambda: sm.scaled_masked_softmax_triton(
+            x, causal), samples=20, inner=10),
+        "masked_plain_ms": time_ms(
+            torch, lambda: sm.scaled_masked_softmax_plain(x, causal),
+            samples=5, inner=3, warmup=2),
+        "masked_bound_ms": bm_ms,
+        "max_abs_err": errs["scaled_masked_softmax"]}
+    del x
+
+    x = _randn(torch, (GB * GS, GF), gen, dev, 3).to(bf)
+    b = _randn(torch, (GF,), gen, dev).to(bf)
+    b_ms, b_by = bound_ms((2 * x.numel() + GF) * 2, 12 * x.numel())
+    out["bias_act"] = {
+        "shape": "x [8192,6400] bf16, gelu",
+        "ms": time_ms(torch, lambda: sm.bias_act_triton(x, b, "gelu"),
+                      samples=20, inner=10),
+        "plain_ms": time_ms(torch, lambda: sm.bias_act_plain(x, b, "gelu"),
+                            samples=5, inner=3, warmup=2),
+        "library_ms": time_ms(torch, lambda: F_.gelu(x + b, approximate="tanh"),
+                              samples=20, inner=10),
+        "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": errs["bias_act"]}
+    del x
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_flash_gpt2_shape(torch, dev, gen):
+    """Flash attention fwd and bwd at gpt2-xl's shape, bf16, beside SDPA and
+    the bound (the kernels' own table rows are timed at llama-1b4's)."""
+    import torch.nn.functional as F_
+
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+
+    bf = torch.bfloat16
+    q, k, v, do = (_randn(torch, (GB, GH, GS, GDH), gen, dev).to(bf)
+                   for _ in range(4))
+    scale = GDH ** -0.5
+    fwd_flops = 4 * (GB * GH * GS * (GS + 1) // 2) * GDH
+    o, lse = fa.flash_fwd_cuda(q, k, v, True, scale)
+    lib = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    lib_out = F_.scaled_dot_product_attention(*lib, is_causal=True)
+    out = {
+        "shape": "q, k, v [8,25,1024,64] bf16, causal",
+        "fwd_ms": time_ms(torch, lambda: fa.flash_fwd_cuda(q, k, v, True, scale),
+                          samples=20, inner=10),
+        "fwd_library_ms": time_ms(
+            torch, lambda: F_.scaled_dot_product_attention(q, k, v,
+                                                           is_causal=True),
+            samples=20, inner=10),
+        "fwd_bound_ms": bound_ms(4 * q.numel() * 2 + GB * GH * GS * 4,
+                                 fwd_flops, BF16_FLOPS_PER_S)[0],
+        "bwd_ms": time_ms(torch, lambda: fa.flash_attention_bwd(
+            q, k, v, o, lse, do, True, scale), samples=20, inner=5),
+        "bwd_library_ms": time_ms(torch, lambda: torch.autograd.grad(
+            lib_out, lib, do, retain_graph=True), samples=20, inner=5),
+        "bwd_bound_ms": bound_ms(8 * q.numel() * 2 + GB * GH * GS * 4,
+                                 2.5 * fwd_flops, BF16_FLOPS_PER_S)[0]}
+    del q, k, v, do, o, lse, lib, lib_out
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_head_gemms(torch, dev, gen):
+    """What gpt2's odd vocabulary costs: the three GEMMs of one 2048-row
+    chunk of the tied head and blockwise CE (logits = x @ tok^T, dx =
+    dlogits @ tok, dtok = dlogits^T @ x) in bf16 at V = 50257, whose
+    [rows, V] operands have an unaligned leading dimension, beside the same
+    at V = 50304 (a multiple of 64, llama-1b4's).  The port does not pad:
+    the width is the model's."""
+    bf = torch.bfloat16
+    x = _randn(torch, (2048, GD), gen, dev).to(bf)
+    out = {}
+    for V in (50257, 50304):
+        tok = _randn(torch, (V, GD), gen, dev, 0.02).to(bf)
+        dl = _randn(torch, (2048, V), gen, dev).to(bf)
+        out[V] = (time_ms(torch, lambda: x @ tok.t(), samples=10, inner=5),
+                  time_ms(torch, lambda: dl @ tok, samples=10, inner=5),
+                  time_ms(torch, lambda: dl.t() @ x, samples=10, inner=5))
+        del tok, dl
+    # a step: gas 2 x 4 chunks, the logits computed in the forward and again
+    # in the backward (the chunk is checkpointed)
+    per_step = {V: 8 * (2 * f + d + w) for V, (f, d, w) in out.items()}
+    print("head GEMMs, one [2048, 1600] chunk against the tied [V, 1600] "
+          "embedding, bf16: " + "; ".join(
+              f"V={V}: logits {f:.3f} ms, dx {d:.3f} ms, dtok {w:.3f} ms "
+              f"({per_step[V]:.1f} ms a 16384-token step)"
+              for V, (f, d, w) in out.items())
+          + f"; the odd width costs {per_step[50257] - per_step[50304]:.1f} ms "
+            f"a step")
+    torch.cuda.empty_cache()
+
+
 def phase_kernels(torch, dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     errs = check_old_kernels(torch, dev, gen)
     print(f"kernels vs plain: fp32 within 1e-5, bf16 within 2e-2; bf16 max "
           f"abs err rms_norm {errs['rms_norm']:.3g}, rope {errs['rope']:.3g}")
-    errs.update(check_decode_kernels(torch, dev, gen))
+    errs.update(check_decode_kernels(torch, dev, gen, "llama3-8b"))
+    gpt2_decode = check_decode_kernels(torch, dev, gen, "gpt2-xl")
     errs.update(check_train_kernels(torch, dev, gen))
+    errs.update(check_gpt2_kernels(torch, dev, gen))
     out = time_old_kernels(torch, dev, gen, errs)
     out.update(time_decode_kernels(torch, dev, gen, errs))
     out.update(time_train_kernels(torch, dev, gen, errs))
+    out.update(time_gpt2_kernels(torch, dev, gen, errs))
     out["rms_norm"]["max_abs_err_train_shape"] = errs["rms_norm_train"]
     out["rope"]["max_abs_err_train_shape"] = errs["rope_train"]
+    for name, e in gpt2_decode.items():
+        out[name]["max_abs_err_gpt2_shape"] = e
+    out["fused_adam"]["max_abs_err_gpt2_shape"] = errs["fused_adam_gpt2"]
     for name, r in out.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.5f}"
         mm = (f", torch.matmul yardstick {r['matmul_ms']:.5f} ms"
@@ -699,10 +1029,27 @@ def phase_kernels(torch, dev):
         print(f"time {name} {r['shape']}: kernel {r['ms']:.5f} ms, plain "
               f"{r['plain_ms']:.5f} ms, library {lib} ms{mm}, bound "
               f"{r['bound_ms']:.6f} ms ({r['bound_by']})")
+    gpt2_flash = time_flash_gpt2_shape(torch, dev, gen)
+    out["flash_attention_fwd"]["gpt2_shape"] = gpt2_flash
+    out["flash_attention_bwd"]["gpt2_shape"] = gpt2_flash
+    print("time flash attention {shape}: fwd kernel {fwd_ms:.5f} ms, SDPA "
+          "{fwd_library_ms:.5f} ms, bound {fwd_bound_ms:.6f} ms; bwd kernel "
+          "{bwd_ms:.5f} ms, SDPA bwd {bwd_library_ms:.5f} ms, bound "
+          "{bwd_bound_ms:.6f} ms".format(**gpt2_flash))
+    time_head_gemms(torch, dev, gen)
     return out
 
 
-def phase_reference(torch, dev):
+# small fp32 models of the two families for the card-against-CPU phases
+SMALL = {
+    "llama-tiny": dict(num_layers=2, hidden_size=256, intermediate_size=512,
+                       num_heads=8, num_kv_heads=2, vocab_size=1024),
+    # learned positions, LayerNorm, GeLU, a plain MLP, heads of 64
+    "gpt2-small": dict(num_layers=2, hidden_size=256, intermediate_size=1024,
+                       num_heads=4, vocab_size=1024, max_seq_len=512)}
+
+
+def phase_reference(torch, dev, preset):
     """The port on the card against the port on the CPU, small fp32 model,
     on the default fused decode path and on the unfused one."""
     import numpy as np
@@ -710,11 +1057,16 @@ def phase_reference(torch, dev):
     import deepspeed_tpu_torch
 
     torch.backends.cuda.matmul.allow_tf32 = False   # full fp32 matmuls
-    over = dict(num_layers=2, hidden_size=256, intermediate_size=512,
-                num_heads=8, num_kv_heads=2, vocab_size=1024)
-    model = deepspeed_tpu_torch.causal_lm("llama-tiny", device="cpu", **over)
+    model = deepspeed_tpu_torch.causal_lm(preset, device="cpu", **SMALL[preset])
     with torch.no_grad():
-        model.embed.tok.mul_(40.0)       # spread logits away from ties
+        # spread logits away from ties; through gpt2's tied head a wide token
+        # embedding alone makes each step repeat its input, so the position
+        # table is widened further
+        if model.config.position == "learned":
+            model.embed.tok.mul_(16.0)
+            model.embed.pos.mul_(80.0)
+        else:
+            model.embed.tok.mul_(40.0)
     prompts = [np.random.default_rng(i).integers(0, 1024, n)
                for i, n in enumerate((70, 9, 130))]
     for fused in (True, False):
@@ -734,21 +1086,27 @@ def phase_reference(torch, dev):
             outs.append([r.output_tokens for r in reqs])
         check(outs[0] == outs[1], f"fused={fused}: card vs CPU tokens "
               f"differ: {outs}")
-        print(f"reference: small fp32 model, {'fused' if fused else 'unfused'}"
-              f" decode, card == CPU on {len(prompts)} requests x 16 tokens")
+        print(f"reference: small fp32 {preset} model, "
+              f"{'fused' if fused else 'unfused'} decode, card == CPU on "
+              f"{len(prompts)} requests x 16 tokens "
+              f"({len({t for o in outs[0] for t in o})} distinct)")
 
 
 KERNELS = ("rms_norm", "rope", "fused_norm_qkv", "flash_decode",
            "fused_proj_norm", "fused_mlp", "rms_norm_bwd",
-           "flash_attention_fwd", "flash_attention_bwd", "fused_adam")
+           "flash_attention_fwd", "flash_attention_bwd", "fused_adam",
+           "layer_norm", "layer_norm_bwd", "scaled_masked_softmax", "bias_act")
 
 
 def launch_counters():
-    from deepspeed_tpu_torch.ops.kernels import (apply_rotary_pos_emb,
-                                                 fused_adam_update, rms_norm,
-                                                 rms_norm_bwd)
+    from deepspeed_tpu_torch.ops.kernels import (apply_rotary_pos_emb, bias_act,
+                                                 fused_adam_update,
+                                                 layer_norm_bwd, rms_norm,
+                                                 rms_norm_bwd,
+                                                 scaled_masked_softmax)
     from deepspeed_tpu_torch.ops.kernels import decode as dk
     from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.ops.kernels.layer_norm import layer_norm
 
     return {"rms_norm": rms_norm, "rope": apply_rotary_pos_emb,
             "fused_norm_qkv": dk.fused_norm_qkv,
@@ -757,7 +1115,10 @@ def launch_counters():
             "rms_norm_bwd": rms_norm_bwd,
             "flash_attention_fwd": fa.flash_attention,
             "flash_attention_bwd": fa.flash_attention_bwd,
-            "fused_adam": fused_adam_update}
+            "fused_adam": fused_adam_update, "layer_norm": layer_norm,
+            "layer_norm_bwd": layer_norm_bwd,
+            "scaled_masked_softmax": scaled_masked_softmax,
+            "bias_act": bias_act}
 
 
 def zero_counts():
@@ -769,19 +1130,65 @@ def read_counts():
     return {k: fn.launches for k, fn in launch_counters().items()}
 
 
-def launch_plan(L, chunks, steps, fused):
-    """Launches a run must make: per prefill chunk 2L+1 RMSNorms and 2L
-    RoPEs; per decode step either 4 fused calls per layer and the final
-    RMSNorm (fused) or 2L+1 RMSNorms (unfused)."""
+def norm_kernel(cfg):
+    return "layer_norm" if cfg.norm == "layernorm" else "rms_norm"
+
+
+def launch_plan(cfg, chunks, steps, fused):
+    """Launches a run must make: per prefill chunk 2L+1 norms (RMSNorm or
+    LayerNorm, as the model has it) and, for a RoPE model, 2L RoPEs; per
+    decode step either 4 fused calls per layer and the final norm (fused)
+    or 2L+1 norms (unfused)."""
+    L = cfg.num_layers
     plan = {k: 0 for k in KERNELS}
-    plan["rope"] = 2 * L * chunks
+    if cfg.position == "rope":
+        plan["rope"] = 2 * L * chunks
     if fused:
-        plan["rms_norm"] = (2 * L + 1) * chunks + steps
+        plan[norm_kernel(cfg)] = (2 * L + 1) * chunks + steps
         for k in KERNELS[2:6]:
             plan[k] = L * steps
     else:
-        plan["rms_norm"] = (2 * L + 1) * (chunks + steps)
+        plan[norm_kernel(cfg)] = (2 * L + 1) * (chunks + steps)
     return plan
+
+
+def phase_ops(torch, dev):
+    """The two ops of the public kernel library that no model path calls,
+    driven through the library's wrappers at gpt2-xl's shapes (bf16): the
+    scores of one layer over 4 sequences through ``scaled_masked_softmax``
+    with a causal mask, the MLP's pre-activation through ``bias_act``; the
+    launch counts are read over these two calls, and each result is held
+    to the op's plain version (TOL, and SOFTMAX_RTOL on each probability)."""
+    from deepspeed_tpu_torch.ops import kernels as K
+    from deepspeed_tpu_torch.ops.kernels import softmax as sm
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(1)
+    scores = _randn(torch, (GSB, GH, GS, GS), gen, dev, 4).to(bf)
+    causal = torch.ones(GS, GS, dtype=torch.bool, device=dev).tril()
+    up = _randn(torch, (GB * GS, GF), gen, dev, 3).to(bf)
+    b_up = _randn(torch, (GF,), gen, dev).to(bf)
+    zero_counts()
+    probs = K.scaled_masked_softmax(scores, causal, scale=GDH ** -0.5)
+    a = K.bias_act(up, b_up, "gelu")
+    torch.cuda.synchronize()
+    launches = read_counts()
+    want = dict({name: 0 for name in KERNELS}, scaled_masked_softmax=1,
+                bias_act=1)
+    check(launches == want, f"ops launches {launches} != {want}")
+    plain = sm.scaled_masked_softmax_plain(scores, causal, GDH ** -0.5)
+    e_s = _assert_close(torch, probs, plain, TOL["bfloat16"], "ops: softmax")
+    check(bool(torch.isclose(probs.float(), plain.float(), atol=1e-6,
+                             rtol=SOFTMAX_RTOL["bfloat16"]).all()),
+          "ops: softmax: a probability is off by more than one rounding")
+    e_a = _assert_close(torch, a, sm.bias_act_plain(up, b_up, "gelu"),
+                        TOL["bfloat16"], "ops: bias_act gelu")
+    print(f"ops: scaled_masked_softmax [4, 25, 1024, 1024] (causal bool mask "
+          f"read by strides) and bias_act gelu [8192, 6400] through the "
+          f"library's wrappers: max abs err vs plain {e_s:.3g} / {e_a:.3g}; "
+          f"launches softmax {launches['scaled_masked_softmax']}, bias_act "
+          f"{launches['bias_act']}")
+    return launches
 
 
 def timed(torch, spent, name, fn):
@@ -797,14 +1204,18 @@ def timed(torch, spent, name, fn):
     return wrapper
 
 
-def phase_serve(torch, dev):
+def phase_serve(torch, dev, preset):
+    import gc
+
     import numpy as np
 
     import deepspeed_tpu_torch
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    model = deepspeed_tpu_torch.causal_lm("llama3-8b", dtype=torch.bfloat16,
-                                          seed=0)
+    model = deepspeed_tpu_torch.causal_lm(preset, dtype=torch.bfloat16, seed=0)
     cfg = model.config
     L = cfg.num_layers
     # the default config: no use_fused_decode key, so the fused decode path
@@ -815,9 +1226,9 @@ def phase_serve(torch, dev):
     torch.cuda.synchronize()
     check(serve.engine._dparams is not None, "the default config did not "
           "build the kernel-injected view")
-    print(f"serve: llama3-8b D={cfg.hidden_size} L={L} "
+    print(f"serve: {preset} D={cfg.hidden_size} L={L} "
           f"H={cfg.num_heads}/{cfg.num_kv_heads} V={cfg.vocab_size} "
-          f"theta={cfg.rope_theta:g}, bf16 random weights (seed 0), "
+          f"{cfg.norm}, {cfg.position} positions, bf16 random weights (seed 0), "
           f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f}B params, "
           f"page {serve.pool.page} x {serve.pool.num_pages - 1}, fused "
           f"decode, built in {time.perf_counter() - t0:.1f}s")
@@ -860,10 +1271,10 @@ def phase_serve(torch, dev):
     serve.prefix_cache.check_no_leak()
     st = serve.stats
     steps = st["decode_blocks"] * serve._K
-    plan = launch_plan(L, st["prefill_chunks"], steps, fused=True)
+    plan = launch_plan(cfg, st["prefill_chunks"], steps, fused=True)
     check(launches == plan, f"launches {launches} != path plan {plan}")
-    check(all(launches[k] > 0 for k in KERNELS[:6]), f"a serving kernel "
-          f"never ran: {launches}")
+    check(all(launches[k] > 0 for k in (norm_kernel(cfg),) + KERNELS[2:6]),
+          f"a serving kernel never ran: {launches}")
     print(f"serve: 10 requests in {wall:.2f}s; prefill {st['prefill_tokens']} "
           f"tokens in {st['prefill_chunks']} chunks, "
           f"{st['prefill_tokens'] / spent['prefill']:.1f} tok/s; decode "
@@ -878,6 +1289,9 @@ def phase_serve(torch, dev):
     serve.close()
     del serve
     phase_unfused(torch, model, prompts, first)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches, device_ms
 
 
@@ -917,6 +1331,7 @@ def phase_profile(torch, serve, prompts):
         print(f"  {e.self_cpu_time_total / 1e3:9.2f} ms {e.count:7d}x {e.key[:60]}")
     out = {}
     tags = {"rms_norm": ("rms_norm_fwd_kernel",), "rope": ("_rope_fwd_kernel",),
+            "layer_norm": ("layer_norm_fwd_",),
             "fused_norm_qkv": ("norm_qkv_kernel",),
             "flash_decode": ("flash_decode_paged_kernel",),
             "fused_proj_norm": ("proj_norm_kernel",),
@@ -924,21 +1339,24 @@ def phase_profile(torch, serve, prompts):
     for name, keys in tags.items():
         parts = [[e for e in kernels if tag in e.key] for tag in keys]
         n = sum(e.count for e in parts[0])
+        out[name] = None
+        if not n:                       # not a kernel of this model's path
+            continue
         total = sum(e.self_device_time_total for p in parts for e in p)
-        out[name] = total / n / 1e3 if n else None
+        out[name] = total / n / 1e3
         split = ""
         if len(parts) > 1 and n:
             split = " (" + " + ".join(
                 f"{tag} {sum(e.self_device_time_total for e in p) / n / 1e3:.5f}"
                 for tag, p in zip(keys, parts)) + ")"
-        print(f"profile: {name} device time per launch "
-              f"{'not measured' if out[name] is None else f'{out[name]:.5f} ms'}"
-              f" over {n} launches{split}")
+        print(f"profile: {name} device time per launch {out[name]:.5f} ms over "
+              f"{n} launches{split}")
     return out
 
 
-TRAIN_KERNELS = ("rms_norm", "rope", "rms_norm_bwd", "flash_attention_fwd",
-                 "flash_attention_bwd", "fused_adam")
+# the train cells: preset -> (micro batch, sequence length); 16384 tokens a
+# step each with gas 2
+TRAIN_CELLS = {"llama-1b4": (4, 2048), "gpt2-xl": (8, 1024)}
 TRAIN_CONFIG = {
     "train_micro_batch_size_per_gpu": 4, "gradient_accumulation_steps": 2,
     "bf16": {"enabled": True},
@@ -949,21 +1367,29 @@ TRAIN_CONFIG = {
     "gradient_clipping": 1.0}
 
 
-def train_plan(L, micros, steps, leaves, mlp_remat):
-    """Launches a training run must make: per micro-batch L flash forward
-    and L flash backward calls, 2L+1 RMSNorm forwards (+ L when the MLP
-    sub-block is recomputed in the backward) and 2L+1 backwards, 2L RoPE
-    forwards and 2L backwards (the same kernel); one Adam launch per leaf
-    per step; no decode kernel."""
+def train_plan(cfg, micros, steps, leaves):
+    """Launches a training run must make.  Per micro-batch: 2L+1 norm
+    forwards (RMSNorm or LayerNorm) and as many backwards, L flash forward
+    and L flash backward calls and, for a RoPE model, 2L RoPE forwards and
+    2L backwards (the same kernel).  Remat adds forwards in the backward:
+    the MLP policies recompute the MLP's norm (+L norm forwards), the
+    whole-layer policies run the layer's forward again up to its last
+    saved tensor (+2L norm forwards, +L flash forwards, +2L RoPEs).  One
+    Adam launch per leaf per step; no decode kernel."""
+    L = cfg.num_layers
+    mlp = bool(cfg.remat) and cfg.remat_policy in ("mlp_only", "mlp_dots")
+    full = bool(cfg.remat) and not mlp
+    rope = cfg.position == "rope"
     plan = {k: 0 for k in KERNELS}
-    plan.update(rms_norm=(2 * L + 1 + (L if mlp_remat else 0)) * micros,
-                rope=4 * L * micros, rms_norm_bwd=(2 * L + 1) * micros,
-                flash_attention_fwd=L * micros, flash_attention_bwd=L * micros,
-                fused_adam=leaves * steps)
+    plan[norm_kernel(cfg)] = (2 * L + 1 + L * mlp + 2 * L * full) * micros
+    plan[norm_kernel(cfg) + "_bwd"] = (2 * L + 1) * micros
+    plan.update(rope=(4 * L + 2 * L * full) * micros * rope,
+                flash_attention_fwd=(L + L * full) * micros,
+                flash_attention_bwd=L * micros, fused_adam=leaves * steps)
     return plan
 
 
-def phase_train_reference(torch, dev):
+def phase_train_reference(torch, dev, preset, remat_policy):
     """A small fp32 model trained 3 steps on the card (kernels, TF32 off)
     and on the CPU (plain versions) from the same weights and tokens:
     per-step losses within rtol 1e-4 and final weights within atol 1e-4
@@ -974,15 +1400,14 @@ def phase_train_reference(torch, dev):
     import deepspeed_tpu_torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    over = dict(num_layers=2, hidden_size=256, intermediate_size=512,
-                num_heads=4, num_kv_heads=2, vocab_size=1024,
-                remat=True, remat_policy="mlp_dots")
+    over = dict(SMALL[preset], num_heads=4, remat=True,
+                remat_policy=remat_policy)
     cfg = dict(TRAIN_CONFIG, bf16={"enabled": False},
                train_micro_batch_size_per_gpu=2)
     tok = np.random.default_rng(0).integers(0, 1024, (4, 200))   # ragged S
     runs = {}
     for d in ("cpu", dev):
-        model = deepspeed_tpu_torch.causal_lm("llama-tiny", device="cpu", seed=0,
+        model = deepspeed_tpu_torch.causal_lm(preset, device="cpu", seed=0,
                                               **over)
         engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=cfg,
                                                     device=d)
@@ -994,13 +1419,13 @@ def phase_train_reference(torch, dev):
         check(abs(a - b) <= 1e-4 * abs(a), f"card vs CPU losses {lg} vs {lc}")
     diff = max(float((a - b).abs().max()) for a, b in zip(pc, pg))
     check(diff <= 1e-4, f"card vs CPU weights differ by {diff}")
-    print(f"reference: small fp32 model (L 2, D 256, Dh 64, S 200) trained 3 "
-          f"steps, card == CPU: losses {lg} vs {lc}, weights max abs diff "
-          f"{diff:.3g}")
+    print(f"reference: small fp32 {preset} model (L 2, D 256, Dh 64, S 200, "
+          f"remat {remat_policy}) trained 3 steps, card == CPU: losses {lg} vs "
+          f"{lc}, weights max abs diff {diff:.3g}")
 
 
-def phase_train(torch, dev):
-    """The training path at llama-1b4 full width and depth."""
+def phase_train(torch, dev, preset):
+    """The training path at the preset's full width and depth."""
     import gc
 
     import deepspeed_tpu_torch
@@ -1009,21 +1434,24 @@ def phase_train(torch, dev):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    model = deepspeed_tpu_torch.causal_lm("llama-1b4", seed=0)
+    model = deepspeed_tpu_torch.causal_lm(preset, seed=0)
     cfg = model.config
-    L, gas, micro = cfg.num_layers, 2, 4
-    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model,
-                                                     config=TRAIN_CONFIG)
+    micro, S = TRAIN_CELLS[preset]
+    L, gas = cfg.num_layers, 2
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=model, config=dict(TRAIN_CONFIG,
+                                 train_micro_batch_size_per_gpu=micro))
     n_params = sum(p.numel() for p in engine.master)
     gen = torch.Generator(device=dev).manual_seed(0)
-    tokens = torch.randint(0, cfg.vocab_size, (gas * micro, TS), device=dev,
+    tokens = torch.randint(0, cfg.vocab_size, (gas * micro, S), device=dev,
                            generator=gen)
     torch.cuda.synchronize()
-    print(f"train: llama-1b4 D={cfg.hidden_size} L={L} H={cfg.num_heads} "
-          f"F={cfg.intermediate_size} V={cfg.vocab_size} tied, remat "
-          f"{cfg.remat_policy}; {n_params / 1e9:.4f}B fp32 params in "
+    print(f"train: {preset} D={cfg.hidden_size} L={L} H={cfg.num_heads} "
+          f"F={cfg.intermediate_size} V={cfg.vocab_size} tied, {cfg.norm}, "
+          f"{cfg.position} positions, remat {cfg.remat_policy}; "
+          f"{n_params / 1e9:.4f}B fp32 params in "
           f"{len(engine.master)} leaves, bf16 compute, micro {micro} x gas "
-          f"{gas} x S {TS}; built in {time.perf_counter() - t0:.1f}s")
+          f"{gas} x S {S}; built in {time.perf_counter() - t0:.1f}s")
     zero_counts()
     steps = []
     for i in range(5):
@@ -1040,18 +1468,18 @@ def phase_train(torch, dev):
     check(all(math.isfinite(x[0]) and math.isfinite(x[1]) for x in steps),
           f"non-finite loss or grad norm: {steps}")
     check(steps[-1][0] < steps[0][0], f"loss did not fall: {steps}")
-    plan = train_plan(L, gas * 5, 5, len(engine.master),
-                      cfg.remat and cfg.remat_policy in ("mlp_only", "mlp_dots"))
+    plan = train_plan(cfg, gas * 5, 5, len(engine.master))
     check(launches == plan, f"train launches {launches} != path plan {plan}")
-    tokens_per_step = gas * micro * TS
+    tokens_per_step = gas * micro * S
     steady = statistics.mean(x[3] for x in steps[1:])
-    attn_flops = 6 * L * gas * micro * cfg.num_heads * TS * TS * cfg.head_dim
+    attn_flops = 6 * L * gas * micro * cfg.num_heads * S * S * cfg.head_dim
     flops = 6 * n_params * tokens_per_step + attn_flops
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     print(f"train: steady step (steps 2-5) {steady:.4f}s, "
           f"{tokens_per_step / steady:.1f} tokens/s, MFU "
           f"{100 * flops / steady / BF16_FLOPS_PER_S:.2f}% (6N + attention "
-          f"{flops / 1e12:.1f} TFLOP per step over 989 TFLOP/s), peak device "
+          f"{flops / 1e12:.1f} TFLOP per step over 989 TFLOP/s; recomputed "
+          f"forwards not counted), peak device "
           f"memory {peak:.2f} GiB; launches {launches}")
     device_ms = phase_train_profile(torch, engine, tokens)
     del engine, model, tokens
@@ -1080,14 +1508,45 @@ def phase_train_profile(torch, engine, tokens):
                and e.self_device_time_total > 0
                and not e.key.startswith("Optimizer.")]
     busy = sum(e.self_device_time_total for e in kernels)
-    print(f"profile: one train step (gas 2 x micro 4 x 2048), wall "
+    micro, S = tokens.shape[0] // 2, tokens.shape[1]
+    print(f"profile: one train step (gas 2 x micro {micro} x {S}), wall "
           f"{wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms "
           f"({100 * busy / wall_us:.1f}%, idle {100 - 100 * busy / wall_us:.1f}%)")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d}x "
               f"{e.key[:90]}")
+    # device time by kind of kernel: the library's GEMMs (the unaligned
+    # head GEMM of an odd vocabulary apart), the port's kernels, PyTorch's
+    # elementwise, reduction and copy kernels, whatever is left
+    groups = {"GEMM (cuBLAS)": 0.0, "GEMM, unaligned (cutlass align1)": 0.0,
+              "flash attention": 0.0, "norm fwd+bwd": 0.0, "rope": 0.0,
+              "adam": 0.0, "PyTorch elementwise/reduce/copy": 0.0, "other": 0.0}
+    for e in kernels:
+        key = e.key
+        if "align1" in key:
+            g = "GEMM, unaligned (cutlass align1)"
+        elif any(t in key for t in ("nvjet", "gemm", "cutlass", "cublas")):
+            g = "GEMM (cuBLAS)"
+        elif "flash_" in key:
+            g = "flash attention"
+        elif "norm_" in key or "rms_dg_reduce" in key:
+            g = "norm fwd+bwd"
+        elif "_rope_fwd_kernel" in key:
+            g = "rope"
+        elif "adam_kernel" in key:
+            g = "adam"
+        elif "at::native" in key or "Memcpy" in key or "Memset" in key:
+            g = "PyTorch elementwise/reduce/copy"
+        else:
+            g = "other"
+        groups[g] += e.self_device_time_total
+    print("profile: device time by kind: " + ", ".join(
+        f"{g} {t / 1e3:.1f} ms ({100 * t / busy:.1f}%)"
+        for g, t in groups.items() if t))
     tags = {"rms_norm": ("rms_norm_fwd_kernel",), "rope": ("_rope_fwd_kernel",),
             "rms_norm_bwd": ("rms_norm_bwd_kernel", "rms_dg_reduce_kernel"),
+            "layer_norm": ("layer_norm_fwd_",),
+            "layer_norm_bwd": ("layer_norm_bwd_kernel", "rms_dg_reduce_kernel"),
             "flash_attention_fwd": ("flash_fwd_kernel",),
             "flash_attention_bwd": ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"),
             "fused_adam": ("adam_kernel",)}
@@ -1095,16 +1554,18 @@ def phase_train_profile(torch, engine, tokens):
     for name, keys in tags.items():
         parts = [[e for e in kernels if tag in e.key] for tag in keys]
         n = sum(e.count for e in parts[0])
+        out[name] = None
+        if not n:                       # not a kernel of this model's path
+            continue
         total = sum(e.self_device_time_total for p in parts for e in p)
-        out[name] = total / n / 1e3 if n else None
+        out[name] = total / n / 1e3
         split = ""
         if len(parts) > 1 and n:
             split = " (" + " + ".join(
                 f"{tag} {sum(e.self_device_time_total for e in p) / n / 1e3:.5f}"
                 for tag, p in zip(keys, parts)) + ")"
         print(f"profile: {name} device time per call on the train path "
-              f"{'not measured' if out[name] is None else f'{out[name]:.5f} ms'}"
-              f" over {n} calls{split}")
+              f"{out[name]:.5f} ms over {n} calls{split}")
     return out
 
 
@@ -1138,8 +1599,7 @@ def phase_unfused(torch, model, prompts, first):
     serve.pool.check_no_leak()
     st = serve.stats
     steps = st["decode_blocks"] * serve._K
-    plan = launch_plan(model.config.num_layers, st["prefill_chunks"], steps,
-                       fused=False)
+    plan = launch_plan(model.config, st["prefill_chunks"], steps, fused=False)
     check(launches == plan, f"unfused launches {launches} != plan {plan}")
     print(f"unfused: {len(reqs)} requests, decode {st['decode_tokens']} "
           f"tokens in {steps} steps, "
@@ -1163,70 +1623,78 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build(torch, dev)
     timings = phase_kernels(torch, dev)
-    phase_reference(torch, dev)
-    phase_train_reference(torch, dev)
-    serve_launches, serve_ms = phase_serve(torch, dev)
-    train_launches, train_ms = phase_train(torch, dev)
+    for preset, policy in (("llama-tiny", "mlp_dots"), ("gpt2-small", "full")):
+        phase_reference(torch, dev, preset)
+        phase_train_reference(torch, dev, preset, policy)
+    # each path: (launch counts of its run, device ms per call in its profile)
+    runs = {"ops": (phase_ops(torch, dev), {}),
+            "serve": phase_serve(torch, dev, "llama3-8b"),
+            "gpt2_serve": phase_serve(torch, dev, "gpt2-xl"),
+            "train": phase_train(torch, dev, "llama-1b4"),
+            "gpt2_train": phase_train(torch, dev, "gpt2-xl")}
     ident = gpu_identity()
     src = "deepspeed_tpu_torch/csrc/decode.cu"
     fa_src = "deepspeed_tpu_torch/csrc/flash_attention.cu"
     ln_src = "deepspeed_tpu_torch/csrc/layer_norm.cu"
-    kernels = [
-        {"name": "rms_norm", "route": "cuda", "source": ln_src,
-         "replaces": "deepspeed_tpu/ops/pallas/layer_norm.py:200",
-         "tpu_kernel": "deepspeed_tpu/ops/pallas/layer_norm.py:rms_norm"},
-        {"name": "rope", "route": "triton",
-         "source": "deepspeed_tpu_torch/ops/kernels/rope.py",
-         "replaces": "deepspeed_tpu/ops/pallas/rope.py:62",
-         "tpu_kernel": "deepspeed_tpu/ops/pallas/rope.py:_rope_fwd (and "
-                       "_rope_bwd_vjp, rope.py:89, through the same kernel)"},
-        {"name": "fused_norm_qkv", "route": "cuda", "source": src,
-         "replaces": "deepspeed_tpu/ops/pallas/decode.py:123",
-         "tpu_kernel": "deepspeed_tpu/ops/pallas/decode.py:fused_norm_qkv"},
-        {"name": "flash_decode", "route": "cuda", "source": src,
-         "replaces": "deepspeed_tpu/ops/pallas/decode.py:252",
-         "tpu_kernel": "deepspeed_tpu/ops/pallas/decode.py:_flash_decode_paged"},
-        {"name": "fused_proj_norm", "route": "cuda", "source": src,
-         "replaces": "deepspeed_tpu/ops/pallas/decode.py:433",
-         "tpu_kernel": "deepspeed_tpu/ops/pallas/decode.py:fused_proj_norm"},
-        {"name": "fused_mlp", "route": "cuda", "source": src,
-         "replaces": "deepspeed_tpu/ops/pallas/decode.py:546",
-         "tpu_kernel": "deepspeed_tpu/ops/pallas/decode.py:fused_mlp"},
-        {"name": "rms_norm_bwd", "route": "cuda", "source": ln_src,
-         "replaces": "deepspeed_tpu/ops/pallas/layer_norm.py:228",
-         "tpu_kernel": "deepspeed_tpu/ops/pallas/layer_norm.py:_rms_norm_bwd_vjp"},
-        {"name": "flash_attention_fwd", "route": "cuda", "source": fa_src,
-         "replaces": "deepspeed_tpu/ops/pallas/flash_attention.py:149",
-         "tpu_kernel": "deepspeed_tpu/ops/pallas/flash_attention.py:_flash_fwd"},
-        {"name": "flash_attention_bwd", "route": "cuda", "source": fa_src,
-         "replaces": "deepspeed_tpu/ops/pallas/flash_attention.py:283",
-         "tpu_kernel": "deepspeed_tpu/ops/pallas/flash_attention.py:_flash_bwd"},
-        {"name": "fused_adam", "route": "cuda",
-         "source": "deepspeed_tpu_torch/csrc/fused_adam.cu",
-         "replaces": "deepspeed_tpu/ops/pallas/fused_adam.py:53",
-         "tpu_kernel": "deepspeed_tpu/ops/pallas/fused_adam.py:fused_adam_update"},
+    sm_src = "deepspeed_tpu_torch/ops/kernels/softmax.py"
+    pallas = "deepspeed_tpu/ops/pallas/"
+    # name, route, source, the TPU kernel's file:line and function, and the
+    # path whose run gives ``launches``
+    table = [
+        ("rms_norm", "cuda", ln_src, "layer_norm.py:200", "rms_norm", "serve"),
+        ("rope", "triton", "deepspeed_tpu_torch/ops/kernels/rope.py",
+         "rope.py:62", "_rope_fwd (and _rope_bwd_vjp, rope.py:89, through the "
+         "same kernel)", "serve"),
+        ("fused_norm_qkv", "cuda", src, "decode.py:123", "fused_norm_qkv", "serve"),
+        ("flash_decode", "cuda", src, "decode.py:252", "_flash_decode_paged",
+         "serve"),
+        ("fused_proj_norm", "cuda", src, "decode.py:433", "fused_proj_norm",
+         "serve"),
+        ("fused_mlp", "cuda", src, "decode.py:546", "fused_mlp", "serve"),
+        ("rms_norm_bwd", "cuda", ln_src, "layer_norm.py:228", "_rms_norm_bwd_vjp",
+         "train"),
+        ("flash_attention_fwd", "cuda", fa_src, "flash_attention.py:149",
+         "_flash_fwd", "train"),
+        ("flash_attention_bwd", "cuda", fa_src, "flash_attention.py:283",
+         "_flash_bwd", "train"),
+        ("fused_adam", "cuda", "deepspeed_tpu_torch/csrc/fused_adam.cu",
+         "fused_adam.py:53", "fused_adam_update", "train"),
+        ("layer_norm", "cuda", ln_src, "layer_norm.py:115", "layer_norm",
+         "gpt2_serve"),
+        ("layer_norm_bwd", "cuda", ln_src, "layer_norm.py:151",
+         "_layer_norm_bwd_vjp", "gpt2_train"),
+        ("scaled_masked_softmax", "triton", sm_src, "softmax.py:39",
+         "scaled_masked_softmax (both pallas_call sites, :57 and :67)", "ops"),
+        ("bias_act", "triton", sm_src, "softmax.py:92", "bias_act", "ops"),
     ]
-    for k in kernels:
-        name = k["name"]
+    check([row[0] for row in table] == list(KERNELS), "kernel table out of step")
+    kernels = []
+    for name, route, source, where, fn_name, path in table:
         t = timings[name]
-        on_train = name in TRAIN_KERNELS and name not in KERNELS[:2]
-        k.update(launches=(train_launches if on_train else serve_launches)[name],
-                 launches_by_path={"serve": serve_launches[name],
-                                   "train": train_launches[name]},
-                 max_abs_err=t["max_abs_err"], ms=t["ms"], kernel_ms=t["ms"],
-                 plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-                 bound_by=t["bound_by"], library_ms=t["library_ms"],
-                 shape=t["shape"],
-                 device_ms_on_path=(train_ms if on_train else serve_ms)[name])
-        if name in KERNELS[:2]:
-            k["device_ms_on_train_path"] = train_ms[name]
-            k["max_abs_err_train_shape"] = t["max_abs_err_train_shape"]
-        if "matmul_ms" in t:
-            k["matmul_yardstick_ms"] = t["matmul_ms"]
+        launches, device_ms = runs[path]
+        k = {"name": name, "route": route, "source": source,
+             "replaces": pallas + where,
+             "tpu_kernel": f"{pallas}{where.split(':')[0]}:{fn_name}",
+             "launches": launches[name], "launches_on": path,
+             "launches_by_path": {p: r[0][name] for p, r in runs.items()},
+             "max_abs_err": t["max_abs_err"], "ms": t["ms"], "kernel_ms": t["ms"],
+             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+             "shape": t["shape"],
+             "device_ms_by_path": {p: r[1][name] for p, r in runs.items()
+                                   if r[1].get(name) is not None}}
+        k["device_ms_on_path"] = k["device_ms_by_path"].get(path)
+        for extra in ("matmul_ms", "max_abs_err_train_shape",
+                      "max_abs_err_gpt2_shape", "decode_rows_ms",
+                      "masked_ms", "masked_plain_ms", "masked_bound_ms",
+                      "gpt2_shape"):
+            if extra in t:
+                k[extra] = t[extra]
         check(all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms",
                                                 "max_abs_err")),
               f"{name}: a non-finite number")
         check(k["launches"] > 0, f"{name}: no launch on its path")
+        kernels.append(k)
     print(f"chip_smoke: {time.perf_counter() - t0:.1f}s")
     print(ident)
     print(json.dumps({"kernels": kernels}))

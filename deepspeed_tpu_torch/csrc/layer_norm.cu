@@ -1,27 +1,30 @@
-// RMSNorm forward and backward for Hopper (sm_90a), with a plain C
-// interface.
+// LayerNorm and RMSNorm, forward and backward, for Hopper (sm_90a), with a
+// plain C interface.
 //
-// Replaces: deepspeed_tpu/ops/pallas/layer_norm.py `rms_norm` (the forward
-// pallas_call, kernel body `_rms_fwd_kernel`) and `_rms_norm_bwd_vjp`
-// (kernel body `_rms_bwd_kernel`; see rms_norm_bwd_kernel below).
+// Replaces: deepspeed_tpu/ops/pallas/layer_norm.py `layer_norm` (kernel body
+// `_ln_fwd_kernel`), `_layer_norm_bwd_vjp` (`_ln_bwd_kernel`), `rms_norm`
+// (`_rms_fwd_kernel`) and `_rms_norm_bwd_vjp` (`_rms_bwd_kernel`).
 //
-//   y = x * rsqrt(mean(x^2, -1) + eps) * g      (statistics in fp32,
-//                                                 y in x's dtype)
+//   RMSNorm:   y = x * rsqrt(mean(x^2, -1) + eps) * g
+//   LayerNorm: y = (x - mean) * rsqrt(mean((x - mean)^2, -1) + eps) * g + b
+//   (statistics in fp32, y in x's dtype)
 //
-// What bounds it on the H100: memory bytes.  Each row is read once for the
-// sum of squares and once more for the scale (the second read hits L1/L2),
-// the output is written once; about 3 fp32 operations per byte moved, far
-// below the ~20 operations per byte at which the fp32 vector units would
-// become the limit.  On the serving path a call is one [rows, 4096] bf16
-// tensor with rows <= 64 (prefill chunk) or num_slots (decode): under 1 MB,
-// so a launch costs more than the bytes do.
+// What bounds them on the H100: memory bytes.  Each row is read once for the
+// statistics and once more for the scale (the second read hits L1/L2, or the
+// row stays in registers), the output is written once; a few fp32
+// operations per byte moved, far below the ~20 operations per byte at which
+// the fp32 vector units would become the limit.  On the serving path a call
+// is one [rows, D] tensor with rows <= 64 (prefill chunk) or num_slots
+// (decode): under 1 MB, so a launch costs more than the bytes do.
 //
 // Design: one thread block per row (the Pallas kernel's row block becomes
 // the CUDA block; the TPU's lane-axis reduction becomes a warp-shuffle
-// reduction followed by one pass over per-warp partials in shared memory).
-// Rows are read with 16-byte vector loads when the row length and the
-// pointers allow it, else element by element.  Nothing is allocated here:
-// the wrapper passes the output buffer and the stream.
+// reduction followed by one pass over per-warp partials in shared memory);
+// the LayerNorm forward gives a row of up to 2048 elements to one warp,
+// which keeps it in registers.  Rows are read with 16-byte vector loads when
+// the row length and the pointers allow it, else element by element.
+// Nothing is allocated here: the wrapper passes the output buffer and the
+// stream.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -239,15 +242,284 @@ rms_dg_reduce_kernel(const float* __restrict__ part, T* __restrict__ dg, int nbl
   }
 }
 
+// ---------------------------------------------------------------------------
+// LayerNorm
+// ---------------------------------------------------------------------------
+
+constexpr int kRowWarps = 4;          // rows (one per warp) per block
+constexpr int kWarpRowMax = 2048;     // longest row one warp keeps in registers
+
+// LayerNorm forward, one warp per row of n <= 2048 elements (n a multiple of
+// the 16-byte vector, pointers 16-byte aligned).  The row is loaded once
+// into registers as fp32 (64 values per lane; lanes past the row's end hold
+// nothing: n = 1600 is 200 vectors of 8 bf16, 6.25 per lane) and the two
+// statistics are two passes over those registers, the mean first and then
+// the variance of the centred values, as `_ln_fwd_kernel` computes them
+// (not E[x^2] - mean^2, which cancels in fp32 for rows with a large mean).
+template <typename T>
+__global__ void __launch_bounds__(kRowWarps * 32)
+layer_norm_fwd_warp_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                           const T* __restrict__ b, T* __restrict__ y, long long rows, int n,
+                           float eps) {
+  using P = Pack<T>;
+  constexpr int kV = kWarpRowMax / 32 / P::N;   // vectors per lane
+  const int lane = threadIdx.x & 31;
+  const long long row = static_cast<long long>(blockIdx.x) * kRowWarps + (threadIdx.x >> 5);
+  if (row >= rows) return;                      // the whole warp leaves together
+  const int nv = n / P::N;
+  const P* xv = reinterpret_cast<const P*>(x + row * n);
+  float v[kV][P::N];
+  float sum = 0.f;
+#pragma unroll
+  for (int i = 0; i < kV; ++i) {
+    const int c = lane + 32 * i;
+    if (c < nv) {
+      const P p = xv[c];
+#pragma unroll
+      for (int j = 0; j < P::N; ++j) {
+        v[i][j] = to_f32(p.v[j]);
+        sum += v[i][j];
+      }
+    }
+  }
+  const float mean = warp_sum(sum) / static_cast<float>(n);
+  float sq = 0.f;
+#pragma unroll
+  for (int i = 0; i < kV; ++i) {
+    if (lane + 32 * i < nv) {
+#pragma unroll
+      for (int j = 0; j < P::N; ++j) {
+        v[i][j] -= mean;
+        sq += v[i][j] * v[i][j];
+      }
+    }
+  }
+  const float rstd = rsqrtf(warp_sum(sq) / static_cast<float>(n) + eps);
+  const P* gv = reinterpret_cast<const P*>(g);
+  const P* bv = reinterpret_cast<const P*>(b);
+  P* yv = reinterpret_cast<P*>(y + row * n);
+#pragma unroll
+  for (int i = 0; i < kV; ++i) {
+    const int c = lane + 32 * i;
+    if (c < nv) {
+      const P pg = gv[c], pb = bv[c];
+      P out;
+#pragma unroll
+      for (int j = 0; j < P::N; ++j)
+        out.v[j] = from_f32<T>(v[i][j] * rstd * to_f32(pg.v[j]) + to_f32(pb.v[j]));
+      yv[c] = out;
+    }
+  }
+}
+
+// LayerNorm forward, one block per row: any row length, any alignment.  Three
+// passes over the row (mean, centred variance, output); the second and third
+// read it from L1/L2.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+layer_norm_fwd_block_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                            const T* __restrict__ b, T* __restrict__ y, int n, float eps) {
+  const T* xr = x + static_cast<size_t>(blockIdx.x) * n;
+  T* yr = y + static_cast<size_t>(blockIdx.x) * n;
+  float sum = 0.f;
+  for (int i = threadIdx.x; i < n; i += kThreads) sum += to_f32(xr[i]);
+  const float mean = block_sum2(sum, 0.f).x / static_cast<float>(n);
+  float sq = 0.f;
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const float d = to_f32(xr[i]) - mean;
+    sq += d * d;
+  }
+  const float rstd = rsqrtf(block_sum2(sq, 0.f).x / static_cast<float>(n) + eps);
+  for (int i = threadIdx.x; i < n; i += kThreads)
+    yr[i] = from_f32<T>((to_f32(xr[i]) - mean) * rstd * to_f32(g[i]) + to_f32(b[i]));
+}
+
+// LayerNorm backward (replaces `_layer_norm_bwd_vjp` / `_ln_bwd_kernel`),
+// statistics recomputed from x:
+//   xc = x - mean, rstd = rsqrt(mean(xc^2) + eps), xhat = xc * rstd,
+//   wdy = dy * g, c1 = mean(wdy), c2 = mean(wdy * xhat),
+//   dx = (wdy - c1 - xhat * c2) * rstd,
+//   dg = sum over rows of dy * xhat, db = sum over rows of dy.
+// The Pallas kernel adds dg and db into one (1, n) block along its
+// sequential grid.  Here, as in rms_norm_bwd_kernel, each block takes
+// `rows_per_block` consecutive rows and keeps fp32 partials of dg and db for
+// every column in shared memory (2n floats; a thread always owns the same
+// columns), writes them to `part[blockIdx.x]` as [dg | db], and
+// rms_dg_reduce_kernel sums the partials of all 2n columns in a fixed order.
+// No float atomics: the same bits on every call.  Bound by bytes: x and dy
+// are read (three times: the mean and sum(wdy), the centred sums, the
+// outputs; the repeats mostly from L1/L2), dx written.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+layer_norm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                      const T* __restrict__ dy, T* __restrict__ dx, float* __restrict__ part,
+                      long long rows, int n, int rows_per_block, float eps) {
+  extern __shared__ float sdg[];          // [dg partials | db partials]
+  float* sdb = sdg + n;
+  for (int i = threadIdx.x; i < 2 * n; i += kThreads) sdg[i] = 0.f;
+  __syncthreads();
+  const float inv_n = 1.f / static_cast<float>(n);
+  const long long r0 = static_cast<long long>(blockIdx.x) * rows_per_block;
+  const long long r1 = r0 + rows_per_block < rows ? r0 + rows_per_block : rows;
+  for (long long r = r0; r < r1; ++r) {
+    const T* xr = x + r * n;
+    const T* dyr = dy + r * n;
+    T* dxr = dx + r * n;
+    float sx = 0.f, sw = 0.f;             // sum x, sum wdy
+    if constexpr (kVec) {
+      using P = Pack<T>;
+      const P* xv = reinterpret_cast<const P*>(xr);
+      const P* dv = reinterpret_cast<const P*>(dyr);
+      const P* gv = reinterpret_cast<const P*>(g);
+      for (int i = threadIdx.x; i < n / P::N; i += kThreads) {
+        const P px = xv[i], pd = dv[i], pg = gv[i];
+#pragma unroll
+        for (int j = 0; j < P::N; ++j) {
+          sx += to_f32(px.v[j]);
+          sw += to_f32(pd.v[j]) * to_f32(pg.v[j]);
+        }
+      }
+    } else {
+      for (int i = threadIdx.x; i < n; i += kThreads) {
+        sx += to_f32(xr[i]);
+        sw += to_f32(dyr[i]) * to_f32(g[i]);
+      }
+    }
+    const float2 t1 = block_sum2(sx, sw);
+    const float mean = t1.x * inv_n;
+    const float c1 = t1.y * inv_n;
+    float sq = 0.f, swx = 0.f;            // sum xc^2, sum wdy * xc
+    if constexpr (kVec) {
+      using P = Pack<T>;
+      const P* xv = reinterpret_cast<const P*>(xr);
+      const P* dv = reinterpret_cast<const P*>(dyr);
+      const P* gv = reinterpret_cast<const P*>(g);
+      for (int i = threadIdx.x; i < n / P::N; i += kThreads) {
+        const P px = xv[i], pd = dv[i], pg = gv[i];
+#pragma unroll
+        for (int j = 0; j < P::N; ++j) {
+          const float xc = to_f32(px.v[j]) - mean;
+          sq += xc * xc;
+          swx += to_f32(pd.v[j]) * to_f32(pg.v[j]) * xc;
+        }
+      }
+    } else {
+      for (int i = threadIdx.x; i < n; i += kThreads) {
+        const float xc = to_f32(xr[i]) - mean;
+        sq += xc * xc;
+        swx += to_f32(dyr[i]) * to_f32(g[i]) * xc;
+      }
+    }
+    const float2 t2 = block_sum2(sq, swx);
+    const float rstd = rsqrtf(t2.x * inv_n + eps);
+    const float c2 = t2.y * rstd * inv_n;
+    if constexpr (kVec) {
+      using P = Pack<T>;
+      const P* xv = reinterpret_cast<const P*>(xr);
+      const P* dv = reinterpret_cast<const P*>(dyr);
+      const P* gv = reinterpret_cast<const P*>(g);
+      P* ov = reinterpret_cast<P*>(dxr);
+      for (int i = threadIdx.x; i < n / P::N; i += kThreads) {
+        const P px = xv[i], pd = dv[i], pg = gv[i];
+        P out;
+#pragma unroll
+        for (int j = 0; j < P::N; ++j) {
+          const float xhat = (to_f32(px.v[j]) - mean) * rstd;
+          const float d = to_f32(pd.v[j]);
+          out.v[j] = from_f32<T>((d * to_f32(pg.v[j]) - c1 - xhat * c2) * rstd);
+          sdg[i * P::N + j] += d * xhat;
+          sdb[i * P::N + j] += d;
+        }
+        ov[i] = out;
+      }
+    } else {
+      for (int i = threadIdx.x; i < n; i += kThreads) {
+        const float xhat = (to_f32(xr[i]) - mean) * rstd;
+        const float d = to_f32(dyr[i]);
+        dxr[i] = from_f32<T>((d * to_f32(g[i]) - c1 - xhat * c2) * rstd);
+        sdg[i] += d * xhat;
+        sdb[i] += d;
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < 2 * n; i += kThreads)
+    part[static_cast<size_t>(blockIdx.x) * 2 * n + i] = sdg[i];
+}
+
+// A block's default limit is 48 KB of static plus dynamic shared memory; a
+// kernel that asks for more dynamic shared memory opts in first (the static
+// reduction scratch comes on top of the dynamic partials).
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  if (smem + 1024 <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+// True when rows of n elements at these pointers can be read and written as
+// 16-byte vectors.
+template <typename T>
+bool aligned16(const void* a, const void* b, const void* c, const void* d, int n) {
+  return n % Pack<T>::N == 0 &&
+         ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+           reinterpret_cast<uintptr_t>(c) | reinterpret_cast<uintptr_t>(d)) % 16) == 0;
+}
+
+template <typename T>
+cudaError_t launch_ln_fwd(const void* x, const void* g, const void* b, void* y, long long rows,
+                          int n, float eps, cudaStream_t stream) {
+  if (n <= kWarpRowMax && aligned16<T>(x, g, b, y, n)) {
+    const unsigned grid = static_cast<unsigned>((rows + kRowWarps - 1) / kRowWarps);
+    layer_norm_fwd_warp_kernel<T><<<grid, kRowWarps * 32, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(g), static_cast<const T*>(b),
+        static_cast<T*>(y), rows, n, eps);
+  } else {
+    layer_norm_fwd_block_kernel<T><<<static_cast<unsigned>(rows), kThreads, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(g), static_cast<const T*>(b),
+        static_cast<T*>(y), n, eps);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_ln_bwd(const void* x, const void* g, const void* dy, void* dx, void* dgb,
+                          float* part, long long rows, int n, int nblk, float eps,
+                          cudaStream_t stream) {
+  const int rpb = static_cast<int>((rows + nblk - 1) / nblk);
+  const size_t smem = static_cast<size_t>(2 * n) * sizeof(float);
+  cudaError_t e;
+  if (aligned16<T>(x, g, dy, dx, n)) {
+    e = allow_smem(layer_norm_bwd_kernel<T, true>, smem);
+    if (e != cudaSuccess) return e;
+    layer_norm_bwd_kernel<T, true><<<nblk, kThreads, smem, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(g), static_cast<const T*>(dy),
+        static_cast<T*>(dx), part, rows, n, rpb, eps);
+  } else {
+    e = allow_smem(layer_norm_bwd_kernel<T, false>, smem);
+    if (e != cudaSuccess) return e;
+    layer_norm_bwd_kernel<T, false><<<nblk, kThreads, smem, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(g), static_cast<const T*>(dy),
+        static_cast<T*>(dx), part, rows, n, rpb, eps);
+  }
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  // dg and db are the two halves of one [2, n] buffer: one ordered sum
+  rms_dg_reduce_kernel<T><<<(2 * n + 31) / 32, kThreads, 0, stream>>>(
+      part, static_cast<T*>(dgb), nblk, 2 * n);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_bwd(const void* x, const void* g, const void* dy, void* dx, void* dg,
                        float* part, long long rows, int n, int nblk, float eps,
                        cudaStream_t stream) {
   const int rpb = static_cast<int>((rows + nblk - 1) / nblk);
-  const bool vec = n % Pack<T>::N == 0 &&
-                   ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(g) |
-                     reinterpret_cast<uintptr_t>(dy) | reinterpret_cast<uintptr_t>(dx)) % 16) == 0;
+  const bool vec = aligned16<T>(x, g, dy, dx, n);
   const size_t smem = static_cast<size_t>(n) * sizeof(float);
+  cudaError_t ok = vec ? allow_smem(rms_norm_bwd_kernel<T, true>, smem)
+                       : allow_smem(rms_norm_bwd_kernel<T, false>, smem);
+  if (ok != cudaSuccess) return ok;
   if (vec)
     rms_norm_bwd_kernel<T, true><<<nblk, kThreads, smem, stream>>>(
         static_cast<const T*>(x), static_cast<const T*>(g), static_cast<const T*>(dy),
@@ -265,9 +537,7 @@ cudaError_t launch_bwd(const void* x, const void* g, const void* dy, void* dx, v
 template <typename T>
 void launch(const void* x, const void* g, void* y, long long rows, int n,
             float eps, cudaStream_t stream) {
-  const bool vec = n % Pack<T>::N == 0 &&
-                   ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(g) |
-                     reinterpret_cast<uintptr_t>(y)) % 16) == 0;
+  const bool vec = aligned16<T>(x, g, y, y, n);
   const dim3 grid(static_cast<unsigned>(rows));
   if (vec)
     rms_norm_fwd_kernel<T, true><<<grid, kThreads, 0, stream>>>(
@@ -313,6 +583,41 @@ int ds_rms_norm_bwd(const void* x, const void* g, const void* dy, void* dx, void
     case 1:
       return static_cast<int>(launch_bwd<__nv_bfloat16>(x, g, dy, dx, dg, p, rows, n, nblk, eps, s));
     case 2: return static_cast<int>(launch_bwd<__half>(x, g, dy, dx, dg, p, rows, n, nblk, eps, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// LayerNorm forward: x, y [rows, n] contiguous; g, b [n]; one dtype.
+int ds_layer_norm_fwd(const void* x, const void* g, const void* b, void* y, long long rows,
+                      int n, float eps, int dtype, void* stream) {
+  if (rows <= 0 || n <= 0) return 0;
+  if (rows > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return static_cast<int>(launch_ln_fwd<float>(x, g, b, y, rows, n, eps, s));
+    case 1: return static_cast<int>(launch_ln_fwd<__nv_bfloat16>(x, g, b, y, rows, n, eps, s));
+    case 2: return static_cast<int>(launch_ln_fwd<__half>(x, g, b, y, rows, n, eps, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// LayerNorm backward: x, dy, dx [rows, n]; g [n]; dgb [2, n] receives dg then
+// db; one dtype; part is float32 scratch [nblk, 2n] for the per-block
+// partials (nblk <= rows; 8n bytes of shared memory per block, so
+// n <= 6144).  Two launches (partials, then their fixed-order sum).
+int ds_layer_norm_bwd(const void* x, const void* g, const void* dy, void* dx, void* dgb,
+                      void* part, long long rows, int n, int nblk, float eps, int dtype,
+                      void* stream) {
+  if (rows <= 0 || n <= 0) return 0;
+  if (nblk <= 0 || nblk > rows || n > 6144) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* p = static_cast<float*>(part);
+  switch (dtype) {
+    case 0: return static_cast<int>(launch_ln_bwd<float>(x, g, dy, dx, dgb, p, rows, n, nblk, eps, s));
+    case 1:
+      return static_cast<int>(
+          launch_ln_bwd<__nv_bfloat16>(x, g, dy, dx, dgb, p, rows, n, nblk, eps, s));
+    case 2: return static_cast<int>(launch_ln_bwd<__half>(x, g, dy, dx, dgb, p, rows, n, nblk, eps, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -224,7 +224,11 @@ def forward_with_cache(model, params, tokens, cache, start_pos,
     else:
         q_pos = start_pos + torch.arange(s, device=dev)             # [s]
     if cfg.position == "learned":
-        pos_emb = params["embed"]["pos"][q_pos]
+        # a padded prefill chunk may reach past the table: those rows are
+        # junk that no query attends (the JAX gather fills them; an index
+        # past the table faults on a CUDA tensor), so the index is clamped
+        table = params["embed"]["pos"]
+        pos_emb = table[q_pos.clamp(max=table.shape[0] - 1)]
         x = x + (pos_emb if per_row else pos_emb[None])
     if cfg.embed_norm:
         x = norm(x, params["embed"]["norm"], "layernorm", cfg.norm_eps)

@@ -109,7 +109,9 @@ def decode_step(cfg, dparams, tokens, cache, pos, *, page_table=None):
     kind, eps = cfg.norm, cfg.norm_eps
     x = dparams["embed"]["tok"][tokens[:, 0]]
     if cfg.position == "learned":
-        x = x + dparams["embed"]["pos"][pos]
+        # parked rows may sit past the table; their output is discarded
+        table = dparams["embed"]["pos"]
+        x = x + table[pos.clamp(max=table.shape[0] - 1)]
     if cfg.embed_norm:  # bloom word_embeddings_layernorm
         x = norm(x, dparams["embed"]["norm"], "layernorm", cfg.norm_eps)
     kc_all, vc_all = cache["k"], cache["v"]

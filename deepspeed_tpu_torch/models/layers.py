@@ -19,17 +19,15 @@ import torch.nn.functional as F
 from deepspeed_tpu_torch.ops.kernels import (apply_rotary_pos_emb, rms_norm,
                                              rope_angles)
 from deepspeed_tpu_torch.ops.kernels.flash_attention import flash_attention
+from deepspeed_tpu_torch.ops.kernels.layer_norm import layer_norm
 
 
 def norm(x: torch.Tensor, params, kind: str, eps: float) -> torch.Tensor:
-    """RMSNorm through the port's kernel, differentiable (its backward is
-    the RMSNorm backward kernel).  LayerNorm (the gpt2 family) is
-    not ported yet: ROADMAP.md queue 1, "LayerNorm fwd/bwd" slice."""
+    """RMSNorm or LayerNorm through the port's kernels, differentiable
+    (each backward is the norm's backward kernel)."""
     if kind == "rmsnorm":
         return rms_norm(x, params["scale"], eps=eps)
-    raise NotImplementedError(
-        f"norm {kind!r} is not ported yet (ROADMAP.md queue 1: LayerNorm "
-        f"fwd/bwd, the gpt2 family)")
+    return layer_norm(x, params["scale"], params["bias"], eps=eps)
 
 
 def activation_fn(name: str):

@@ -1,4 +1,4 @@
-"""Decoder-only transformer (Llama family), PyTorch port.
+"""Decoder-only transformer (Llama and GPT-2 families), PyTorch port.
 
 Counterpart of ``deepspeed_tpu/models/transformer.py``.  :class:`CausalLM`
 keeps the JAX parameter tree: the same names and the same stacked
@@ -15,7 +15,8 @@ the JAX init (different generators); tests carry JAX weights across with
 :func:`~deepspeed_tpu_torch.models.convert.jax_params_to_torch`.
 
 Training runs :meth:`CausalLM.apply` — the JAX ``CausalLM.apply`` for the
-dense Llama family: embedding, the layer loop over ``[L]`` slices (the JAX
+dense Llama (RoPE, RMSNorm) and GPT-2 (learned positions, LayerNorm)
+families: embedding, the layer loop over ``[L]`` slices (the JAX
 ``scan_layers`` branch written as a Python loop), the final norm and the
 next-token cross-entropy (:func:`cross_entropy`, or
 :func:`blockwise_cross_entropy` once ``B*S*V > 2^28``).  It is functional
@@ -23,8 +24,8 @@ over the nested JAX-layout param dict, so the engine can hand it a
 grad-carrying compute copy of the weights.  The parameters registered on
 the module keep ``requires_grad=False`` for serving, which runs the model
 through :func:`~deepspeed_tpu_torch.models.decoding.forward_with_cache`.
-MoE, dropout, parallel residual, learned or ALiBi positions and LayerNorm
-raise naming ROADMAP.md.
+MoE, dropout, parallel residual and ALiBi positions raise naming
+ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -213,8 +214,7 @@ class CausalLM(_ParamTree):
         cfg = self.config
         refused = {"dropout > 0": cfg.dropout > 0, "MoE": cfg.is_moe,
                    "parallel_residual": cfg.parallel_residual,
-                   f"position {cfg.position!r}": cfg.position != "rope",
-                   f"norm {cfg.norm!r}": cfg.norm != "rmsnorm",
+                   "position 'alibi'": cfg.position == "alibi",
                    "remat_policy 'offload_dots'": (bool(cfg.remat) and
                                                    cfg.remat_policy == "offload_dots")}
         bad = [k for k, v in refused.items() if v]
@@ -237,8 +237,9 @@ class CausalLM(_ParamTree):
         q = q.reshape(B, S, H, Dh).transpose(1, 2).contiguous()
         k = k.reshape(B, S, Hkv, Dh).transpose(1, 2).contiguous()
         v = v.reshape(B, S, Hkv, Dh).transpose(1, 2).contiguous()
-        q = apply_partial_rope(q, cos, sin)
-        k = apply_partial_rope(k, cos, sin)
+        if cfg.position == "rope":
+            q = apply_partial_rope(q, cos, sin)
+            k = apply_partial_rope(k, cos, sin)
         k = _repeat_kv(k, H // Hkv)
         v = _repeat_kv(v, H // Hkv)
         o = attention_core(q, k, v, causal=True)
@@ -312,8 +313,15 @@ class CausalLM(_ParamTree):
         cfg = self.config
         x = params["embed"]["tok"][tokens]
         S = tokens.shape[1]
-        cos, sin = rope_cache(S, rope_dim(cfg), cfg.rope_theta, device=x.device)
-        cos, sin = cos.to(x.dtype), sin.to(x.dtype)
+        if cfg.position == "learned":
+            x = x + params["embed"]["pos"][:S][None]
+        if cfg.embed_norm:  # bloom word_embeddings_layernorm
+            x = norm(x, params["embed"]["norm"], "layernorm", cfg.norm_eps)
+        cos = sin = None
+        if cfg.position == "rope":
+            cos, sin = rope_cache(S, rope_dim(cfg), cfg.rope_theta,
+                                  device=x.device)
+            cos, sin = cos.to(x.dtype), sin.to(x.dtype)
         body = self._layer_fn()
         layers = params["layers"]
         for i in range(cfg.num_layers):

@@ -1,19 +1,19 @@
-"""RMSNorm forward and backward: CUDA C++ kernels for Hopper and their
-plain versions.
+"""LayerNorm and RMSNorm, forward and backward: CUDA C++ kernels for Hopper
+and their plain versions.
 
-Counterpart of ``deepspeed_tpu/ops/pallas/layer_norm.py`` ``rms_norm``
-and its custom VJP.  The kernels are in
-``deepspeed_tpu_torch/csrc/layer_norm.cu`` (forward: one block per row,
-16-byte vector loads, fp32 warp-shuffle reduction; backward: per-block fp32
-dγ partials summed by a second launch in a fixed order), built by nvcc at
-first use and called through ctypes.  :func:`rms_norm_plain` and
-:func:`rms_norm_bwd_plain` keep the JAX ``impl="xla"`` semantics — fp32
-statistics (recomputed from x in the backward), outputs in x's dtype, dγ an
-fp32 sum cast to γ's dtype — and are what a CPU tensor runs.
-:func:`rms_norm` is differentiable (a :class:`torch.autograd.Function`)
-when autograd needs it, and a plain call otherwise (serving).
-
-LayerNorm is not ported yet (ROADMAP.md queue 1 item 3).
+Counterpart of ``deepspeed_tpu/ops/pallas/layer_norm.py``: ``layer_norm``,
+``rms_norm`` and their custom VJPs.  The kernels are in
+``deepspeed_tpu_torch/csrc/layer_norm.cu`` (forward: one block per row, or
+for LayerNorm one warp per row of up to 2048 elements held in registers;
+16-byte vector loads, fp32 warp-shuffle reductions, the LayerNorm variance
+taken of the centred values; backward: per-block fp32 partials of dγ (and
+dβ) summed by a second launch in a fixed order), built by nvcc at first use
+and called through ctypes.  The ``*_plain`` functions keep the JAX
+``impl="xla"`` semantics — fp32 statistics (recomputed from x in the
+backward), outputs in x's dtype, dγ and dβ fp32 sums cast to γ's dtype —
+and are what a CPU tensor runs.  :func:`layer_norm` and :func:`rms_norm`
+are differentiable (a :class:`torch.autograd.Function`) when autograd needs
+it, and a plain call otherwise (serving).
 """
 
 from __future__ import annotations
@@ -63,6 +63,11 @@ def _library():
         lib.ds_rms_norm_bwd.argtypes = [vp] * 6 + [ctypes.c_longlong, ci, ci,
                                                    ctypes.c_float, ci, vp]
         lib.ds_rms_norm_bwd.restype = ci
+        lib.ds_layer_norm_fwd.argtypes = [vp] * 4 + [ctypes.c_longlong, ci,
+                                                     ctypes.c_float, ci, vp]
+        lib.ds_layer_norm_fwd.restype = ci
+        lib.ds_layer_norm_bwd.argtypes = lib.ds_rms_norm_bwd.argtypes
+        lib.ds_layer_norm_bwd.restype = ci
     return built
 
 
@@ -167,3 +172,143 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
 
 
 rms_norm.launches = 0   # forward kernel launches (CUDA tensors only)
+
+
+# ---------------------------------------------------------------------------
+# LayerNorm
+# ---------------------------------------------------------------------------
+
+# the backward keeps a row of dγ and a row of dβ partials in shared memory
+LAYER_NORM_BWD_MAX_N = 6144
+
+
+def layer_norm_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                     eps: float = 1e-5) -> torch.Tensor:
+    """The jnp reference (``_ln_xla``), op for op: fp32 mean, then the
+    variance of the centred values; output in x's dtype."""
+    xf = x.float()
+    mean = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mean), dim=-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return (y * gamma.float() + beta.float()).to(x.dtype)
+
+
+def layer_norm_bwd_plain(x: torch.Tensor, gamma: torch.Tensor,
+                         dy: torch.Tensor, eps: float = 1e-5):
+    """``_layer_norm_bwd_vjp`` at ``impl="xla"``, op for op: (dx in x's
+    dtype, dγ and dβ as fp32 sums over rows cast to γ's dtype)."""
+    n = x.shape[-1]
+    xf = x.reshape(-1, n).float()
+    dyf = dy.reshape(-1, n).float()
+    xc = xf - torch.mean(xf, dim=-1, keepdim=True)
+    rstd = torch.rsqrt(torch.mean(xc * xc, dim=-1, keepdim=True) + eps)
+    xhat = xc * rstd
+    wdy = dyf * gamma.float()
+    c1 = torch.mean(wdy, dim=-1, keepdim=True)
+    c2 = torch.mean(wdy * xhat, dim=-1, keepdim=True)
+    dx = ((wdy - c1 - xhat * c2) * rstd).to(x.dtype)
+    dg = torch.sum(dyf * xhat, dim=0)
+    db = torch.sum(dyf, dim=0)
+    return dx.reshape(x.shape), dg.to(gamma.dtype), db.to(gamma.dtype)
+
+
+def layer_norm_cuda(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                    eps: float = 1e-5) -> torch.Tensor:
+    """Launch the CUDA kernel on the current stream; raises on what it does
+    not take (device, dtype, shape, contiguity) and on a launch error."""
+    n = x.shape[-1]
+    check_kernel_input("layer_norm x", x, x.device)
+    check_kernel_input("layer_norm gamma", gamma, x.device, dtype=x.dtype)
+    check_kernel_input("layer_norm beta", beta, x.device, dtype=x.dtype)
+    if gamma.shape != (n,) or beta.shape != (n,):
+        raise ValueError(f"layer_norm: gamma {tuple(gamma.shape)} and beta "
+                         f"{tuple(beta.shape)} must be ({n},)")
+    built = _library()
+    y = torch.empty_like(x)
+    rows = x.numel() // n if n else 0
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = built.lib.ds_layer_norm_fwd(
+            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
+            rows, n, float(eps), KERNEL_DTYPES[x.dtype], stream)
+    check_launch(built, "layer_norm", code)
+    layer_norm.launches += 1
+    return y
+
+
+def layer_norm_bwd_cuda(x: torch.Tensor, gamma: torch.Tensor,
+                        dy: torch.Tensor, eps: float = 1e-5):
+    """Launch the backward kernels (per-block dγ and dβ partials, then their
+    sum); raises on what they do not take and on a launch error."""
+    n = x.shape[-1]
+    check_kernel_input("layer_norm_bwd x", x, x.device)
+    check_kernel_input("layer_norm_bwd gamma", gamma, x.device, dtype=x.dtype)
+    check_kernel_input("layer_norm_bwd dy", dy, x.device, dtype=x.dtype)
+    if gamma.shape != (n,) or dy.shape != x.shape:
+        raise ValueError(f"layer_norm_bwd: x {tuple(x.shape)}, dy "
+                         f"{tuple(dy.shape)}, gamma {tuple(gamma.shape)}")
+    if n > LAYER_NORM_BWD_MAX_N:
+        raise ValueError(f"layer_norm_bwd kernel keeps a row of dγ and a row "
+                         f"of dβ partials in shared memory: n <= "
+                         f"{LAYER_NORM_BWD_MAX_N}, got {n}")
+    rows = x.numel() // n if n else 0
+    dx = torch.empty_like(x)
+    dgb = torch.empty(2, n, device=x.device, dtype=gamma.dtype)
+    nblk = max(1, min(rows, _BWD_BLOCKS))
+    part = torch.empty(nblk, 2 * n, device=x.device, dtype=torch.float32)
+    built = _library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = built.lib.ds_layer_norm_bwd(
+            x.data_ptr(), gamma.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+            dgb.data_ptr(), part.data_ptr(), rows, n, nblk, float(eps),
+            KERNEL_DTYPES[x.dtype], stream)
+    check_launch(built, "layer_norm_bwd", code)
+    layer_norm_bwd.launches += 1
+    return dx, dgb[0], dgb[1]
+
+
+def layer_norm_bwd(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
+                   eps: float = 1e-5):
+    """(dx, dγ, dβ) of LayerNorm: the CUDA kernels for a CUDA tensor, the
+    plain version for a CPU tensor."""
+    if use_kernel(x):
+        return layer_norm_bwd_cuda(x, gamma, dy, eps)
+    return layer_norm_bwd_plain(x, gamma, dy, eps)
+
+
+layer_norm_bwd.launches = 0   # backward calls (two kernel launches each)
+
+
+def _layer_norm_fwd(x, gamma, beta, eps):
+    if use_kernel(x):
+        return layer_norm_cuda(x, gamma, beta, eps)
+    return layer_norm_plain(x, gamma, beta, eps)
+
+
+class _LayerNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps):
+        ctx.save_for_backward(x, gamma)
+        ctx.eps = eps
+        return _layer_norm_fwd(x, gamma, beta, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma = ctx.saved_tensors
+        dx, dg, db = layer_norm_bwd(x, gamma, dy.contiguous(), ctx.eps)
+        return dx, dg, db, None
+
+
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last dim: the CUDA kernel for a CUDA tensor, the
+    plain version for a CPU tensor; differentiable through
+    :func:`layer_norm_bwd` when autograd records."""
+    if torch.is_grad_enabled() and (x.requires_grad or gamma.requires_grad
+                                    or beta.requires_grad):
+        return _LayerNorm.apply(x, gamma, beta, eps)
+    return _layer_norm_fwd(x, gamma, beta, eps)
+
+
+layer_norm.launches = 0   # forward kernel launches (CUDA tensors only)

@@ -109,6 +109,14 @@ class ServingEngine:
                              if self._config.prefix_caching else None)
         # generation bounds use the LOGICAL budget, not the page-rounded one
         self.max_out = int(self._config.max_out_tokens)
+        mcfg = self.module.config
+        if mcfg.position == "learned":
+            # learned positions bound the context: no token is generated at a
+            # position the table does not hold (a KV window larger than the
+            # table is served, as the JAX engine serves it; the rows a padded
+            # chunk or a parked slot reads past the table are clamped in
+            # forward_with_cache / decode_step and attended by no query)
+            self.max_out = min(self.max_out, int(mcfg.max_seq_len))
         # host SCHEDULE view of per-slot state; for EOS rows an upper bound
         # of the device carries (the device may stop a row early)
         self._pos = np.zeros(self.num_slots, np.int64)

@@ -21,7 +21,12 @@ recomputed probabilities in another order) and 2e-2 bf16 (p and ds rounded
 to bf16 before each product, as the reference kernel does); RMSNorm dx
 1e-5 fp32 / 2e-2 bf16 and dγ, a sum over all rows, 1e-4 relative fp32 /
 2e-2 bf16; Adam 1e-6 (the same fp32 formula, sqrt and division rounded
-alike, three steps).
+alike, three steps).  LayerNorm as RMSNorm: y and dx 1e-5 fp32 / 2e-2
+bf16, dγ and dβ 1e-4 relative fp32 / 2e-2 bf16.  Softmax: 1e-6 fp32 (outputs
+in [0, 1]; another summation order) and bf16 one rounding of each output,
+2^-8 relative (rtol 8e-3 with a 1e-6 floor): an absolute 2e-2 would let the
+small probabilities of a 1024-wide row be wholly wrong.  bias_act 1e-5 fp32
+(exp-based GeLU and SiLU against tanh and sigmoid) / 2e-2 bf16.
 """
 
 import numpy as np
@@ -33,6 +38,7 @@ from deepspeed_tpu_torch.ops.kernels import flash_attention as tfa
 from deepspeed_tpu_torch.ops.kernels import fused_adam as tadam
 from deepspeed_tpu_torch.ops.kernels import layer_norm as tln
 from deepspeed_tpu_torch.ops.kernels import rope as trope
+from deepspeed_tpu_torch.ops.kernels import softmax as tsm
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 GEMV_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -472,7 +478,8 @@ def test_flash_attention_autograd_and_refusals(cuda_device):
     (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
     (torch.bfloat16, torch.bfloat16)])
 @pytest.mark.parametrize("n,adam_w_mode", [(2048 * 5632, True),
-                                           (1000003, False), (3, True)])
+                                           (1000003, False), (3, True),
+                                           (1600, True)])   # a gpt2-xl norm leaf
 def test_fused_adam_kernel_matches_plain(cuda_device, p_dtype, g_dtype, n,
                                          adam_w_mode):
     """Three steps in place from the same inputs: a llama-1b4 MLP leaf, an
@@ -528,3 +535,312 @@ def test_training_on_card_matches_cpu(cuda_device):
     assert lg[-1] < lg[0]
     for a, b in zip(pc, pg):
         torch.testing.assert_close(b, a, rtol=0, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# LayerNorm, softmax, bias_act (the gpt2 family)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8192, 1600), (8, 1600), (64, 768),
+                                   (7, 40), (13, 2048), (5, 100),
+                                   (3, 5, 4096)])
+def test_layer_norm_kernel_matches_plain(cuda_device, dtype, shape):
+    """gpt2-xl's training rows and decode rows, gpt2-small's width, a row
+    shorter than a warp's vectors and a ragged row count (one warp per
+    row), then the block-per-row path: a row length that is no multiple of
+    the vector, and one longer than a warp holds."""
+    x = _randn(shape, 0, dtype, cuda_device, 3.0) + 1.5
+    g = _randn(shape[-1:], 1, dtype, cuda_device) * 0.1 + 1
+    b = _randn(shape[-1:], 2, dtype, cuda_device) * 0.1
+    got = _counted(tln.layer_norm, x, g, b, eps=1e-5)
+    want = tln.layer_norm_plain(x, g, b, eps=1e-5)
+    assert got.dtype == dtype and got.shape == x.shape
+    _close(got, want, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8192, 1600), (3, 5, 768), (7, 100),
+                                   (1, 64), (600, 6144)])
+def test_layer_norm_bwd_kernel_matches_plain(cuda_device, dtype, shape):
+    """gpt2-xl's [micro * S, D] rows, a 3-D input, an odd row length (the
+    element-by-element path), a single row, and the longest row the kernel
+    takes (48 KB of partials: more than a block's default shared memory)."""
+    x = _randn(shape, 0, dtype, cuda_device, 3.0) + 1.5
+    g = _randn(shape[-1:], 1, dtype, cuda_device) * 0.1 + 1
+    dy = _randn(shape, 2, dtype, cuda_device)
+    dx, dg, db = _counted(tln.layer_norm_bwd, x, g, dy, eps=1e-5)
+    want_dx, want_dg, want_db = tln.layer_norm_bwd_plain(x, g, dy, eps=1e-5)
+    assert dx.dtype == dg.dtype == db.dtype == dtype and dx.shape == x.shape
+    assert dg.shape == db.shape == g.shape
+    _close(dx, want_dx, TOL[dtype])
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert _rel_err(dg, want_dg) < tol and _rel_err(db, want_db) < tol
+    again = tln.layer_norm_bwd(x, g, dy, eps=1e-5)
+    assert all(torch.equal(a, b) for a, b in zip((dx, dg, db), again))
+
+
+def test_layer_norm_autograd_and_refusals(cuda_device):
+    dev = cuda_device
+    x = _randn((64, 256), 0, torch.bfloat16, dev).requires_grad_()
+    g = torch.ones(256, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    b = torch.zeros(256, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    fwd, bwd = tln.layer_norm.launches, tln.layer_norm_bwd.launches
+    tln.layer_norm(x, g, b, eps=1e-5).float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert (tln.layer_norm.launches, tln.layer_norm_bwd.launches) == (fwd + 1,
+                                                                      bwd + 1)
+    y = tln.layer_norm_plain(x.detach(), g.detach(), b.detach(), 1e-5)
+    want = tln.layer_norm_bwd_plain(x.detach(), g.detach(),
+                                    (2 * y.float()).to(torch.bfloat16), 1e-5)
+    _close(x.grad, want[0], 2e-2)
+    assert _rel_err(g.grad, want[1]) < 2e-2 and _rel_err(b.grad, want[2]) < 2e-2
+    x32 = torch.ones(4, 64, device=dev)
+    with pytest.raises(ValueError):
+        tln.layer_norm(x32.t(), torch.ones(4, device=dev),
+                       torch.ones(4, device=dev))
+    with pytest.raises(TypeError):
+        tln.layer_norm(x32, torch.ones(64, device=dev, dtype=torch.bfloat16),
+                       torch.ones(64, device=dev))
+    with pytest.raises(ValueError):
+        tln.layer_norm(x32, torch.ones(64, device=dev),
+                       torch.ones(32, device=dev))
+    wide = torch.ones(2, 6152, device=dev)
+    with pytest.raises(ValueError, match="6144"):
+        tln.layer_norm_bwd(wide, torch.ones(6152, device=dev), wide)
+
+
+def test_rms_norm_bwd_kernel_takes_its_longest_row(cuda_device):
+    """n = 12288 is 48 KB of dγ partials beside the reduction scratch: more
+    than a block's default shared memory, which the launch opts in to."""
+    x = _randn((300, 12288), 0, torch.bfloat16, cuda_device, 3.0)
+    g = _randn((12288,), 1, torch.bfloat16, cuda_device) * 0.1 + 1
+    dy = _randn((300, 12288), 2, torch.bfloat16, cuda_device)
+    dx, dg = tln.rms_norm_bwd(x, g, dy, eps=1e-5)
+    torch.cuda.synchronize()
+    want_dx, want_dg = tln.rms_norm_bwd_plain(x, g, dy, eps=1e-5)
+    _close(dx, want_dx, 2e-2)
+    assert _rel_err(dg, want_dg) < 2e-2
+
+
+def _softmax_close(got, want, dtype):
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=8e-3,
+                                   atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,mask", [
+    ((4, 25, 1024, 1024), None), ((4, 25, 1024, 1024), "causal"),
+    ((2, 3, 50, 1000), "padding"), ((37, 100), "full"), ((5,), None),
+    ((2, 2, 3, 4, 100), "deep"), ((3, 8192), None)])
+def test_softmax_kernel_matches_plain(cuda_device, dtype, shape, mask):
+    """gpt2-xl's attention scores with and without a causal [S, S] bool
+    mask read through its strides; a row length that is no power of two
+    under a [B, 1, 1, n] padding mask; a mask of x's shape with a fully
+    masked row; a 1-D input; a 5-D input (the mask is broadcast and
+    copied); a row of two 4096-wide tiles."""
+    dev = cuda_device
+    x = _randn(shape, 0, dtype, dev, 4.0)
+    n = shape[-1]
+    rng = np.random.default_rng(1)
+    m = None
+    if mask == "causal":
+        m = torch.ones(n, n, dtype=torch.bool, device=dev).tril()
+    elif mask == "padding":
+        m = torch.ones(shape[0], 1, 1, n, dtype=torch.int32, device=dev)
+        m[1, ..., 700:] = 0
+    elif mask == "full":
+        m = torch.from_numpy(rng.integers(0, 2, shape).astype(np.float32)).to(dev)
+        m[3] = 0
+    elif mask == "deep":
+        m = torch.from_numpy(rng.integers(0, 2, (3, 1, n)).astype(np.int64)).to(dev)
+    got = _counted(tsm.scaled_masked_softmax, x, m, scale=0.125)
+    want = tsm.scaled_masked_softmax_plain(x, m, scale=0.125)
+    assert got.dtype == dtype and got.shape == x.shape
+    _softmax_close(got, want, dtype)
+    if mask == "full":
+        torch.testing.assert_close(got[3].float(),
+                                   torch.full((n,), 1 / n, device=dev),
+                                   rtol=8e-3, atol=0)
+    if mask == "causal":
+        assert float(got[..., ~m].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["gelu", "relu", "silu", "identity"])
+@pytest.mark.parametrize("shape", [(8192, 6400), (3, 7, 100)])
+def test_bias_act_kernel_matches_plain(cuda_device, dtype, act, shape):
+    """gpt2-xl's [micro * S, F] MLP activations, and an odd shape whose
+    last block is ragged."""
+    x = _randn(shape, 0, dtype, cuda_device, 3.0)
+    b = _randn(shape[-1:], 1, dtype, cuda_device)
+    got = _counted(tsm.bias_act, x, b, act)
+    want = tsm.bias_act_plain(x, b, act)
+    assert got.dtype == dtype and got.shape == x.shape
+    _close(got, want, TOL[dtype])
+
+
+def test_softmax_and_bias_act_refuse_bad_inputs(cuda_device):
+    dev = cuda_device
+    x = torch.ones(4, 64, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        tsm.scaled_masked_softmax(x.t())
+    with pytest.raises(ValueError, match="16384"):
+        tsm.scaled_masked_softmax(torch.ones(2, 16385, device=dev))
+    with pytest.raises(RuntimeError):
+        tsm.scaled_masked_softmax(x, torch.ones(3, 64, device=dev))
+    with pytest.raises(ValueError, match="expected a tensor on"):
+        tsm.scaled_masked_softmax(x, torch.ones(4, 64))
+    with pytest.raises(TypeError):
+        tsm.scaled_masked_softmax(x.long())
+    with pytest.raises(ValueError, match="bias shape"):
+        tsm.bias_act(x, torch.ones(32, device=dev))
+    with pytest.raises(ValueError, match="contiguous"):
+        tsm.bias_act(x.t(), torch.ones(4, device=dev))
+
+
+GPT2_SMALL = dict(num_layers=2, hidden_size=128, intermediate_size=512,
+                  num_heads=2, vocab_size=512, max_seq_len=128)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_gpt2_serving_on_card_matches_cpu(cuda_device, fused):
+    """A small fp32 gpt2-shaped model (learned positions, LayerNorm with
+    biases, GeLU, no gate, heads of 64) served on the card and on the CPU:
+    the same greedy tokens on both decode paths; the card run launches the
+    LayerNorm kernel and no RoPE."""
+    import deepspeed_tpu_torch
+
+    model = deepspeed_tpu_torch.causal_lm("gpt2-small", device="cpu",
+                                          **GPT2_SMALL)
+    with torch.no_grad():
+        model.embed.tok.mul_(16.0)       # spread the logits away from ties,
+        model.embed.pos.mul_(80.0)       # and keep the outputs varied
+    cfg = {"dtype": "float32", "max_out_tokens": 64, "kv_page_tokens": 16}
+    if not fused:
+        cfg["use_fused_decode"] = False
+    prompts = [np.random.default_rng(i).integers(0, 512, n)
+               for i, n in enumerate((23, 9, 40))]
+    outs = []
+    for dev in ("cpu", cuda_device):
+        serve = deepspeed_tpu_torch.init_serving(model, cfg, device=dev,
+                                                 num_slots=2, prefill_chunk=16)
+        assert (serve.engine._dparams is not None) is fused
+        ln, rope = tln.layer_norm.launches, trope.apply_rotary_pos_emb.launches
+        reqs = [serve.submit(p, max_new_tokens=12) for p in prompts]
+        serve.run()
+        serve.pool.check_no_leak()
+        outs.append([r.output_tokens for r in reqs])
+        assert (tln.layer_norm.launches > ln) == (dev != "cpu")
+        assert trope.apply_rotary_pos_emb.launches == rope
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_gpt2_window_past_the_position_table_on_card(cuda_device, fused):
+    """A KV window (64) larger than the learned position table (40 rows):
+    the padded chunk of a 35-token prompt and the parked slot read clamped
+    rows instead of faulting, the tokens equal the CPU run's, and a request
+    that reaches the table's end stops with ``cache_budget``."""
+    import deepspeed_tpu_torch
+
+    model = deepspeed_tpu_torch.causal_lm(
+        "gpt2-small", device="cpu", **dict(GPT2_SMALL, max_seq_len=40))
+    with torch.no_grad():
+        model.embed.tok.mul_(16.0)
+        model.embed.pos.mul_(80.0)
+    cfg = {"dtype": "float32", "max_out_tokens": 64, "kv_page_tokens": 16}
+    if not fused:
+        cfg["use_fused_decode"] = False
+    rng = np.random.default_rng(1)
+    asks = [(rng.integers(0, 512, 35), 3), (rng.integers(0, 512, 20), 30)]
+    outs = []
+    for dev in ("cpu", cuda_device):
+        serve = deepspeed_tpu_torch.init_serving(model, cfg, device=dev,
+                                                 num_slots=2, prefill_chunk=16)
+        reqs = [serve.submit(p, max_new_tokens=n) for p, n in asks]
+        serve.run()
+        torch.cuda.synchronize()
+        outs.append([(r.output_tokens, r.finish_reason) for r in reqs])
+    assert outs[0] == outs[1]
+    assert outs[1][0][1] == "length" and len(outs[1][0][0]) == 3
+    assert outs[1][1][1] == "cache_budget" and len(outs[1][1][0]) == 20
+
+
+def test_gpt2_training_on_card_matches_cpu(cuda_device):
+    """The small fp32 gpt2-shaped model under the gpt2-xl preset's full
+    remat, trained 3 steps on the card and on the CPU from the same
+    weights: losses within rtol 1e-4, weights within atol 1e-4; LayerNorm
+    forward and backward, flash attention and Adam launch on the card, RoPE
+    and RMSNorm do not."""
+    import deepspeed_tpu_torch
+
+    cfg = {"train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 2,
+           "optimizer": {"type": "FusedAdam", "params": {
+               "lr": 3e-4, "betas": [0.9, 0.95], "weight_decay": 0.1}},
+           "scheduler": {"type": "WarmupLR", "params": {
+               "warmup_max_lr": 3e-4, "warmup_num_steps": 2}},
+           "gradient_clipping": 1.0}
+    tok = np.random.default_rng(0).integers(0, 512, (4, 96))
+    runs = []
+    used = (tln.layer_norm, tln.layer_norm_bwd, tfa.flash_attention,
+            tfa.flash_attention_bwd, tadam.fused_adam_update)
+    unused = (tln.rms_norm, tln.rms_norm_bwd, trope.apply_rotary_pos_emb)
+    for dev in ("cpu", cuda_device):
+        model = deepspeed_tpu_torch.causal_lm("gpt2-small", device="cpu",
+                                              remat=True, **GPT2_SMALL)
+        engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=cfg,
+                                                    device=dev)
+        before = [c.launches for c in used + unused]
+        losses = [float(engine.train_step((tok, tok))) for _ in range(3)]
+        moved = [c.launches > b for c, b in zip(used + unused, before)]
+        assert moved == [dev != "cpu"] * len(used) + [False] * len(unused)
+        runs.append((losses, [p.cpu() for p in engine.master]))
+    (lc, pc), (lg, pg) = runs
+    np.testing.assert_allclose(lg, lc, rtol=1e-4)
+    assert lg[-1] < lg[0]
+    for a, b in zip(pc, pg):
+        torch.testing.assert_close(b, a, rtol=0, atol=1e-4)
+
+
+def test_gpt2_xl_training_kernels_follow_plain_versions(cuda_device, monkeypatch):
+    """gpt2-xl at full width and depth, bf16, 5 steps on one repeated batch
+    (micro 8 x gas 2 x S 1024): the run on the kernels and a run with every
+    training wrapper forced onto its plain version on the card give the
+    same loss at every step within 1e-3 relative (bf16 compute; measured
+    2e-5).  The loss is not monotonic here (it overshoots at the first
+    full-lr step): this shows that the optimizer's path, not a kernel,
+    takes it there.  Needs ~30 GB of device memory and about a minute."""
+    import gc
+
+    import deepspeed_tpu_torch
+
+    cfg = {"train_micro_batch_size_per_gpu": 8, "gradient_accumulation_steps": 2,
+           "bf16": {"enabled": True},
+           "optimizer": {"type": "FusedAdam", "params": {
+               "lr": 3e-4, "betas": [0.9, 0.95], "weight_decay": 0.1}},
+           "scheduler": {"type": "WarmupLR", "params": {
+               "warmup_max_lr": 3e-4, "warmup_num_steps": 2}},
+           "gradient_clipping": 1.0}
+    runs = []
+    for plain in (False, True):
+        if plain:
+            for mod in (tln, trope, tfa, tadam):
+                monkeypatch.setattr(mod, "use_kernel", lambda t: False)
+        model = deepspeed_tpu_torch.causal_lm("gpt2-xl", seed=0)
+        engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=cfg)
+        gen = torch.Generator(device=cuda_device).manual_seed(0)
+        tok = torch.randint(0, 50257, (16, 1024), device=cuda_device,
+                            generator=gen)
+        before = tln.layer_norm.launches
+        runs.append([float(engine.train_step((tok, tok))) for _ in range(5)])
+        assert (tln.layer_norm.launches > before) == (not plain)
+        del model, engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"gpt2-xl losses, kernels {runs[0]} vs plain versions {runs[1]}")
+    np.testing.assert_allclose(runs[0], runs[1], rtol=1e-3)
+    assert runs[0][-1] < runs[0][0]

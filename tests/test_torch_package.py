@@ -180,8 +180,7 @@ def test_unported_training_config_sections_are_refused(section):
 
 @pytest.mark.parametrize("over", [
     {"dropout": 0.1}, {"num_experts": 4}, {"parallel_residual": True},
-    {"position": "learned"}, {"position": "alibi"},
-    {"norm": "layernorm", "use_bias": True},
+    {"position": "alibi"},
     {"remat": True, "remat_policy": "offload_dots"}])
 def test_unported_training_model_options_are_refused(over):
     import deepspeed_tpu_torch

@@ -156,10 +156,19 @@ SERVE_CFG = {"dtype": "float32", "use_fused_decode": False,
 
 @pytest.fixture(scope="module")
 def weights(devices):
+    # a module-scoped fixture runs before the per-test guard that restores
+    # the global mesh: put the previous one back here, so that this 8-way
+    # fsdp mesh does not reach later files of the same worker
+    from deepspeed_tpu.comm import mesh as mesh_mod
+
+    prev_mesh = mesh_mod._GLOBAL_MESH
     mesh = build_mesh(fsdp=8, devices=devices)
-    set_global_mesh(mesh)
-    jm = j_causal_lm("llama-tiny", mesh=mesh, remat=False, **TINY)
-    params = jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))
+    try:
+        set_global_mesh(mesh)
+        jm = j_causal_lm("llama-tiny", mesh=mesh, remat=False, **TINY)
+        params = jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))
+    finally:
+        mesh_mod._GLOBAL_MESH = prev_mesh
     # a wider embedding spreads the logits: greedy picks sit far from ties,
     # so token identity tests the algorithm rather than fp32 rounding
     params["embed"]["tok"] = params["embed"]["tok"] * 40.0

@@ -350,29 +350,39 @@ def engines_trained():
     """Both engines from the same params: three train_steps (stacked
     [gas, micro, S] batches), then one step through the forward /
     backward / step trio."""
-    jm, params, tm, np_params = _models()
-    mesh = build_mesh(devices=jax.devices()[:1])
-    jeng, *_ = deepspeed_tpu.initialize(model=jm, model_parameters=params,
-                                        config=DS_CONFIG, mesh=mesh)
-    teng, topt, _, tsched = deepspeed_tpu_torch.initialize(
-        model=tm, model_parameters=np_params, config=DS_CONFIG, device="cpu")
-    assert topt is teng.optimizer and tsched is teng.lr_scheduler
-    rec = {"j": [], "t": []}
-    tok = _tokens(B=4, S=32, seed=10).reshape(2, 2, 32)      # one repeated batch
-    for step in range(3):
+    # the JAX engine makes its one-device mesh the process-global one; a
+    # module-scoped fixture runs before the per-test guard that restores the
+    # global mesh, so this fixture puts the previous one back itself (or
+    # later files in the same worker build their engines on one device)
+    from deepspeed_tpu.comm import mesh as mesh_mod
+
+    prev_mesh = mesh_mod._GLOBAL_MESH
+    try:
+        jm, params, tm, np_params = _models()
+        mesh = build_mesh(devices=jax.devices()[:1])
+        jeng, *_ = deepspeed_tpu.initialize(model=jm, model_parameters=params,
+                                            config=DS_CONFIG, mesh=mesh)
+        teng, topt, _, tsched = deepspeed_tpu_torch.initialize(
+            model=tm, model_parameters=np_params, config=DS_CONFIG, device="cpu")
+        assert topt is teng.optimizer and tsched is teng.lr_scheduler
+        rec = {"j": [], "t": []}
+        tok = _tokens(B=4, S=32, seed=10).reshape(2, 2, 32)      # one repeated batch
+        for step in range(3):
+            for key, eng in (("j", jeng), ("t", teng)):
+                loss = eng.train_step((tok, tok))
+                rec[key].append((float(loss), eng.get_global_grad_norm(),
+                                 eng.get_lr()[0]))
+        tok = _tokens(B=4, S=32, seed=20)
         for key, eng in (("j", jeng), ("t", teng)):
-            loss = eng.train_step((tok, tok))
-            rec[key].append((float(loss), eng.get_global_grad_norm(),
-                             eng.get_lr()[0]))
-    tok = _tokens(B=4, S=32, seed=20)
-    for key, eng in (("j", jeng), ("t", teng)):
-        for i in range(2):
-            micro = tok[2 * i:2 * i + 2]
-            loss = eng(( micro, micro))
-            assert eng.backward(loss) is loss
-            assert eng.is_gradient_accumulation_boundary() == (i == 1)
-            eng.step()
-        rec[key].append((float(loss), eng.get_global_grad_norm(), eng.get_lr()[0]))
+            for i in range(2):
+                micro = tok[2 * i:2 * i + 2]
+                loss = eng(( micro, micro))
+                assert eng.backward(loss) is loss
+                assert eng.is_gradient_accumulation_boundary() == (i == 1)
+                eng.step()
+            rec[key].append((float(loss), eng.get_global_grad_norm(), eng.get_lr()[0]))
+    finally:
+        mesh_mod._GLOBAL_MESH = prev_mesh
     return jeng, teng, rec
 
 
