@@ -6,9 +6,10 @@
 Needs one CUDA card, nvcc and triton; imports nothing of JAX.  Phases
 (each one raises, and the script exits non-zero, on any failure):
 
-1. build   — compile the four CUDA libraries (LayerNorm and RMSNorm
+1. build   — compile the seven CUDA libraries (LayerNorm and RMSNorm
              fwd/bwd; the four fused decode kernels; flash attention
-             fwd/bwd; fused Adam), one nvcc each, started together, while
+             fwd/bwd; fused Adam; the block quantizer; fused Adam8bit; the
+             LAMB phases), one nvcc each, started together, while
              Triton compiles the RoPE, softmax and bias_act kernels; print
              build seconds and the ptxas register / shared-memory / spill
              lines;
@@ -42,17 +43,29 @@ Needs one CUDA card, nvcc and triton; imports nothing of JAX.  Phases
              flash attention fwd and bwd at [8, 25, 1024, 64], fp32 and
              bf16, and their timings beside ``F.layer_norm`` (and its
              autograd backward), ``torch.softmax`` and ``F.gelu(x + b)``;
+             then the optimizers' kernels at the [24, 2048, 5632] leaf and
+             a ragged one, three steps: fused Adam8bit (bf16 params with
+             stochastic rounding, fp32 params; fp32 and bf16 grads; blocks
+             512 and 4096), the two LAMB phases (norms bit-equal on a
+             repeat) and quantize (bits 8 and 4, blocks 128 / 512 / 2048),
+             and their timings beside the plain versions and the bound
+             (PyTorch has no call for these functions);
 3. reference — a small fp32 model served on the card (kernels) and on the
              CPU (plain versions) must give the same greedy tokens, on the
              default fused decode path and on ``use_fused_decode: False``;
              and the same small model trained 3 steps on the card (TF32
              off) and on the CPU: losses and final weights agree; each for a
              llama-shaped and a gpt2-shaped model (learned positions,
-             LayerNorm, GeLU, a plain MLP);
-   ops     — the two ops of the public kernel library that no model path
-             calls, driven through the library's wrappers at gpt2-xl's
-             shapes: ``scaled_masked_softmax`` with a causal mask and
-             ``bias_act``; their launches are counted over this phase;
+             LayerNorm, GeLU, a plain MLP); then the llama-shaped model on
+             the new optimizer paths: FusedLamb and Adam8bit over fp32
+             masters, Adam8bit master-free bf16;
+   ops     — the ops of the public kernel library that no model path
+             calls, driven through the library's wrappers:
+             ``scaled_masked_softmax`` with a causal mask and ``bias_act``
+             at gpt2-xl's shapes, ``quantize`` -> ``dequantize`` (8 and 4
+             bits) and ``pack_int4`` -> ``unpack_int4`` on the
+             [24, 2048, 5632] fp32 leaf; their launches are counted over
+             this phase;
 4. serve   — the main path: ``init_serving(causal_lm("llama3-8b"),
              {"dtype": "bfloat16", ...})`` with the default decode (fused)
              at full width and depth with random bf16 weights from seed 0,
@@ -74,7 +87,12 @@ Needs one CUDA card, nvcc and triton; imports nothing of JAX.  Phases
              after) equal to the path's plan; then one step under
              torch.profiler; then the same for ``gpt2-xl`` at full width and
              depth (micro 8 x gas 2 x S 1024, the preset's full-layer
-             remat);
+             remat); then llama-1b4 twice more, the same way: config A
+             (``adam8bit_train``: ``bf16.master_weights: false``, a bf16
+             accumulator, Adam8bit; the optimizer state's bytes must equal
+             the count from the leaf shapes and every master be bf16) and
+             config B (``lamb_train``: FusedLamb over fp32 masters), each
+             with its peak memory beside the FusedAdam phase's;
 6. report  — the card's name and power limit, the kernels JSON line, and
              last the result line ``{"ok": true, "device": {...}}``.
 """
@@ -168,7 +186,8 @@ def phase_build(torch, dev):
             results[name] = e
         results[name + "_s"] = time.perf_counter() - t0
 
-    libs = ("layer_norm", "decode", "flash_attention", "fused_adam")
+    libs = ("layer_norm", "decode", "flash_attention", "fused_adam",
+            "quantizer", "fused_adam8bit", "fused_lamb")
     threads = [threading.Thread(target=cuda_build, args=(n,)) for n in libs]
     for th in threads:
         th.start()
@@ -735,6 +754,201 @@ def time_train_kernels(torch, dev, gen, errs):
     return out
 
 
+# the optimizers' kernels: every operation of fused_adam8bit, fused_lamb
+# and quantize is an IEEE-rounded intrinsic (no FMA contraction), so the
+# codes, scales, moments and stochastically rounded params EQUAL their plain
+# versions'; LAMB's p is held within 1e-5 relative (its norms are summed in
+# another order than torch.linalg.vector_norm's), the norms within 1e-5
+# relative and bit-equal on a repeat
+LAMB_TOL = 1e-5
+# the leaf sizes: the [24, 2048, 5632] MLP leaf, and a ragged one (at block
+# 512 neither a multiple of the block nor giving 32-row multiples)
+BIG_LEAF, RAGGED = TL * TD * TF, 1000003
+
+
+def _adam8bit_state(torch, dev, n, block):
+    from deepspeed_tpu_torch.ops.kernels import fused_adam8bit as k8
+
+    rows = k8.state_rows(n, block)
+    codes = torch.zeros(rows, block, dtype=torch.int8, device=dev)
+    return [codes, torch.ones(rows, 1, device=dev), codes.clone(),
+            torch.ones(rows, 1, device=dev)]
+
+
+def check_optimizer_kernels(torch, dev, gen):
+    """fused_adam8bit, the two LAMB phases and quantize against their plain
+    versions at the path's largest leaf and a ragged one, three steps;
+    returns the max abs errors (all 0 when equal)."""
+    from deepspeed_tpu_torch.ops.kernels import fused_adam8bit as k8
+    from deepspeed_tpu_torch.ops.kernels import fused_lamb as kl
+    from deepspeed_tpu_torch.ops.kernels import quantizer as kq
+
+    errs = {"fused_adam8bit": 0.0, "fused_lamb_phase1": 0.0,
+            "fused_lamb_scale": 0.0, "quantize": 0.0}
+    # Adam8bit: config A (bf16 params and grads, stochastic rounding), bf16
+    # params with fp32 grads, and fp32 params (no rounding) with fp32 and
+    # bf16 grads; block 512 (the default) and the largest, 4096
+    cases = [(BIG_LEAF, 512, "bfloat16", "bfloat16", True),
+             (BIG_LEAF, 512, "float32", "float32", False),
+             (RAGGED, 512, "bfloat16", "float32", True),
+             (RAGGED, 4096, "float32", "bfloat16", False)]
+    for n, block, p_name, g_name, sr in cases:
+        p = _randn(torch, (n,), gen, dev).to(getattr(torch, p_name))
+        st = _adam8bit_state(torch, dev, n, block)
+        rp, rst = p.clone(), [t.clone() for t in st]
+        for step in (1, 2, 3):
+            g = _randn(torch, (n,), gen, dev, 1e-3).to(getattr(torch, g_name))
+            kw = dict(lr=3e-4 * step, beta1=0.9, beta2=0.95, eps=1e-8,
+                      weight_decay=0.1, seed=k8.sr_seed(step, 3), sr=sr)
+            k8.fused_adam8bit_update_cuda(p, g, *st, step, **kw)
+            k8.fused_adam8bit_update_plain(rp, g, *rst, step, **kw)
+        torch.cuda.synchronize()
+        e = float((p.float() - rp.float()).abs().max())
+        codes = [int((a.int() - b.int()).abs().max()) for a, b in
+                 ((st[0], rst[0]), (st[2], rst[2]))]
+        check(torch.equal(p, rp) and all(torch.equal(a, b) for a, b in
+                                         zip(st, rst)),
+              f"fused_adam8bit {p_name} params / {g_name} grads, n {n}, block "
+              f"{block}, sr {sr}: p max abs err {e}, codes max diff {codes}")
+        print(f"optimizer kernels: fused_adam8bit {p_name} params, {g_name} "
+              f"grads, sr {sr}, [{n}] at block {block} x 3 steps: p, codes and "
+              f"scales equal to the plain version")
+        del p, st, rp, rst, g
+    # LAMB: fp32 (config B), the big leaf and the ragged one
+    for n in (BIG_LEAF, RAGGED):
+        p = _randn(torch, (n,), gen, dev)
+        m, v = torch.zeros(n, device=dev), torch.zeros(n, device=dev)
+        rp, rm, rv = p.clone(), m.clone(), v.clone()
+        for step in (1, 2, 3):
+            g = _randn(torch, (n,), gen, dev, 1e-3)
+            kw = dict(beta1=0.9, beta2=0.95, eps=1e-6, weight_decay=0.1)
+            m0, v0 = m.clone(), v.clone()
+            stats = kl.lamb_phase1_cuda(p, g, m, v, step, lr=3e-4 * step, **kw)
+            again = kl.lamb_phase1_cuda(p, g, m0, v0, step, lr=3e-4 * step, **kw)
+            kl.lamb_scale_cuda(p, m, v, stats, step, **kw)
+            want = kl.lamb_phase1_plain(rp, g, rm, rv, step, lr=3e-4 * step, **kw)
+            kl.lamb_scale_plain(rp, rm, rv, want, step, **kw)
+            torch.cuda.synchronize()
+            check(torch.equal(stats, again), f"lamb phase 1 [{n}]: two calls "
+                  f"give other norms: {stats.tolist()} vs {again.tolist()}")
+            _assert_close(torch, stats, want, LAMB_TOL, f"lamb stats [{n}]")
+            del m0, v0
+        check(torch.equal(m, rm) and torch.equal(v, rv),
+              f"lamb phase 1 [{n}]: moments differ from the plain version")
+        rel = _rel_err(p, rp)
+        e = _assert_close(torch, p, rp, LAMB_TOL, f"lamb scale [{n}]")
+        check(rel < LAMB_TOL, f"lamb [{n}]: relative error {rel}")
+        print(f"optimizer kernels: fused_lamb fp32 [{n}] x 3 steps: moments "
+              f"equal, norms bit-equal on a repeat, stats {stats.tolist()} vs "
+              f"plain {want.tolist()}; p max abs err {e:.3g}, relative "
+              f"(Frobenius) {rel:.3g}")
+        if n == BIG_LEAF:
+            errs["fused_lamb_scale"] = e
+            errs["fused_lamb_phase1"] = float((stats - want).abs().max())
+        del p, m, v, rp, rm, rv, g
+    # quantize: bits 8 and 4 at blocks 128 / 512 / 2048, the big fp32 leaf
+    # at the library's default block (2048) and a ragged bf16 size
+    x = _randn(torch, (BIG_LEAF,), gen, dev, 3)
+    xr = _randn(torch, (RAGGED,), gen, dev, 3).to(torch.bfloat16)
+    for bits in (8, 4):
+        for t, block in ((x, 2048), (xr, 128), (xr, 512), (xr, 2048)):
+            q, sc, pad = kq.quantize_cuda(t, bits, block)
+            wq, ws, wpad = kq.quantize_plain(t, bits, block)
+            torch.cuda.synchronize()
+            check(pad == wpad and torch.equal(q, wq) and torch.equal(sc, ws),
+                  f"quantize bits {bits} block {block} [{t.numel()}] "
+                  f"{t.dtype}: codes or scales differ from the plain version")
+        print(f"optimizer kernels: quantize bits {bits}, fp32 [{BIG_LEAF}] at "
+              f"block 2048 and bf16 [{RAGGED}] at 128 / 512 / 2048: codes and "
+              f"scales equal")
+    del x, xr, q, sc, wq, ws
+    torch.cuda.empty_cache()
+    return errs
+
+
+def time_optimizer_kernels(torch, dev, gen, errs):
+    """The three optimizer kernels at the [24, 2048, 5632] leaf: Adam8bit as
+    config A runs it (bf16 params and grads, stochastic rounding) and over
+    fp32 masters, LAMB's two phases in fp32, quantize on fp32 at block
+    2048.  PyTorch has no call computing the same functions."""
+    from deepspeed_tpu_torch.ops.kernels import fused_adam8bit as k8
+    from deepspeed_tpu_torch.ops.kernels import fused_lamb as kl
+    from deepspeed_tpu_torch.ops.kernels import quantizer as kq
+
+    n = BIG_LEAF
+    out = {}
+    kw = dict(lr=3e-4, beta1=0.9, beta2=0.95, eps=1e-8, weight_decay=0.1)
+    for p_name, bpp in (("bfloat16", 10), ("float32", 16)):
+        dt = getattr(torch, p_name)
+        p = _randn(torch, (n,), gen, dev).to(dt)
+        g = _randn(torch, (n,), gen, dev, 1e-3).to(dt)
+        st = _adam8bit_state(torch, dev, n, 512)
+        sr = p_name == "bfloat16"
+        rows = st[0].shape[0]
+        # each input read once, each output written once: p, g, the two
+        # codes and the two scales; ~40 fp32 operations an element
+        b_ms, b_by = bound_ms(bpp * n + 16 * rows, 40 * n)
+        r = {"shape": f"{p_name} params and grads [{n}], block 512"
+                      + (", stochastic rounding" if sr else ""),
+             "ms": time_ms(torch, lambda: k8.fused_adam8bit_update_cuda(
+                 p, g, *st, 5, seed=7, sr=sr, **kw), samples=20, inner=5),
+             "plain_ms": time_ms(torch, lambda: k8.fused_adam8bit_update_plain(
+                 p, g, *st, 5, seed=7, sr=sr, **kw), samples=3, inner=2,
+                 warmup=1),
+             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+             "max_abs_err": errs["fused_adam8bit"]}
+        if sr:
+            out["fused_adam8bit"] = r
+        else:
+            out["fused_adam8bit"]["fp32_masters"] = {
+                k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms")}
+        del p, g, st
+        torch.cuda.empty_cache()
+
+    p, g = _randn(torch, (n,), gen, dev), _randn(torch, (n,), gen, dev, 1e-3)
+    m, v = torch.zeros(n, device=dev), torch.zeros(n, device=dev)
+    lkw = dict(beta1=0.9, beta2=0.95, eps=1e-6, weight_decay=0.1)
+    stats = kl.lamb_phase1_cuda(p, g, m, v, 5, lr=3e-4, **lkw)
+    b_ms, b_by = bound_ms(24 * n, 20 * n)            # reads p g m v, writes m v
+    out["fused_lamb_phase1"] = {
+        "shape": f"fp32 params, grads, m, v [{n}] (phase 1 and the reduce)",
+        "ms": time_ms(torch, lambda: kl.lamb_phase1_cuda(p, g, m, v, 5, lr=3e-4,
+                                                         **lkw),
+                      samples=20, inner=5),
+        "plain_ms": time_ms(torch, lambda: kl.lamb_phase1_plain(
+            p, g, m, v, 5, lr=3e-4, **lkw), samples=3, inner=2, warmup=1),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+        "max_abs_err": errs["fused_lamb_phase1"]}
+    b_ms, b_by = bound_ms(16 * n, 12 * n)            # reads p m v, writes p
+    out["fused_lamb_scale"] = {
+        "shape": f"fp32 params, m, v [{n}]",
+        "ms": time_ms(torch, lambda: kl.lamb_scale_cuda(p, m, v, stats, 5, **lkw),
+                      samples=20, inner=5),
+        "plain_ms": time_ms(torch, lambda: kl.lamb_scale_plain(
+            p, m, v, stats, 5, **lkw), samples=3, inner=2, warmup=1),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+        "max_abs_err": errs["fused_lamb_scale"],
+        # the whole LAMB update must read p, g, m, v and write p, m, v
+        "whole_update_bound_ms": bound_ms(28 * n, 32 * n)[0]}
+    del p, g, m, v
+    torch.cuda.empty_cache()
+
+    x = _randn(torch, (n,), gen, dev, 3)
+    nb = -(-n // 2048)
+    b_ms, b_by = bound_ms(5 * n + 4 * nb, 4 * n)
+    out["quantize"] = {
+        "shape": f"fp32 x [{n}], 8 bits, block 2048",
+        "ms": time_ms(torch, lambda: kq.quantize_cuda(x, 8, 2048), samples=20,
+                      inner=5),
+        "plain_ms": time_ms(torch, lambda: kq.quantize_plain(x, 8, 2048),
+                            samples=3, inner=2, warmup=1),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+        "max_abs_err": errs["quantize"]}
+    del x
+    torch.cuda.empty_cache()
+    return out
+
+
 # gpt2-xl shapes: micro 8 x S 1024, D 1600, 25 heads of 64, F 6400; decode
 # rows = 8 slots; softmax over the scores of 4 sequences
 GB, GS, GD, GH, GDH, GF, GSB = 8, 1024, 1600, 25, 64, 6400, 4
@@ -1013,10 +1227,12 @@ def phase_kernels(torch, dev):
     gpt2_decode = check_decode_kernels(torch, dev, gen, "gpt2-xl")
     errs.update(check_train_kernels(torch, dev, gen))
     errs.update(check_gpt2_kernels(torch, dev, gen))
+    errs.update(check_optimizer_kernels(torch, dev, gen))
     out = time_old_kernels(torch, dev, gen, errs)
     out.update(time_decode_kernels(torch, dev, gen, errs))
     out.update(time_train_kernels(torch, dev, gen, errs))
     out.update(time_gpt2_kernels(torch, dev, gen, errs))
+    out.update(time_optimizer_kernels(torch, dev, gen, errs))
     out["rms_norm"]["max_abs_err_train_shape"] = errs["rms_norm_train"]
     out["rope"]["max_abs_err_train_shape"] = errs["rope_train"]
     for name, e in gpt2_decode.items():
@@ -1095,13 +1311,16 @@ def phase_reference(torch, dev, preset):
 KERNELS = ("rms_norm", "rope", "fused_norm_qkv", "flash_decode",
            "fused_proj_norm", "fused_mlp", "rms_norm_bwd",
            "flash_attention_fwd", "flash_attention_bwd", "fused_adam",
-           "layer_norm", "layer_norm_bwd", "scaled_masked_softmax", "bias_act")
+           "layer_norm", "layer_norm_bwd", "scaled_masked_softmax", "bias_act",
+           "quantize", "fused_adam8bit", "fused_lamb_phase1", "fused_lamb_scale")
 
 
 def launch_counters():
     from deepspeed_tpu_torch.ops.kernels import (apply_rotary_pos_emb, bias_act,
-                                                 fused_adam_update,
-                                                 layer_norm_bwd, rms_norm,
+                                                 fused_adam8bit_update,
+                                                 fused_adam_update, lamb_phase1,
+                                                 lamb_scale, layer_norm_bwd,
+                                                 quantize, rms_norm,
                                                  rms_norm_bwd,
                                                  scaled_masked_softmax)
     from deepspeed_tpu_torch.ops.kernels import decode as dk
@@ -1118,7 +1337,9 @@ def launch_counters():
             "fused_adam": fused_adam_update, "layer_norm": layer_norm,
             "layer_norm_bwd": layer_norm_bwd,
             "scaled_masked_softmax": scaled_masked_softmax,
-            "bias_act": bias_act}
+            "bias_act": bias_act, "quantize": quantize,
+            "fused_adam8bit": fused_adam8bit_update,
+            "fused_lamb_phase1": lamb_phase1, "fused_lamb_scale": lamb_scale}
 
 
 def zero_counts():
@@ -1153,13 +1374,18 @@ def launch_plan(cfg, chunks, steps, fused):
 
 
 def phase_ops(torch, dev):
-    """The two ops of the public kernel library that no model path calls,
-    driven through the library's wrappers at gpt2-xl's shapes (bf16): the
+    """The ops of the public kernel library that no model path calls,
+    driven through the library's wrappers: at gpt2-xl's shapes (bf16) the
     scores of one layer over 4 sequences through ``scaled_masked_softmax``
-    with a causal mask, the MLP's pre-activation through ``bias_act``; the
-    launch counts are read over these two calls, and each result is held
-    to the op's plain version (TOL, and SOFTMAX_RTOL on each probability)."""
+    with a causal mask and the MLP's pre-activation through ``bias_act``;
+    the [24, 2048, 5632] fp32 MLP leaf of llama-1b4 through ``quantize`` ->
+    ``dequantize`` at 8 and 4 bits, the 4-bit codes through ``pack_int4``
+    -> ``unpack_int4``.  The launch counts are read over these calls, and
+    each result is held to the op's plain version (TOL, and SOFTMAX_RTOL on
+    each probability; the quantizer's codes and scales equal), the round
+    trip to half a code step."""
     from deepspeed_tpu_torch.ops import kernels as K
+    from deepspeed_tpu_torch.ops.kernels import quantizer as kq
     from deepspeed_tpu_torch.ops.kernels import softmax as sm
 
     bf = torch.bfloat16
@@ -1168,14 +1394,41 @@ def phase_ops(torch, dev):
     causal = torch.ones(GS, GS, dtype=torch.bool, device=dev).tril()
     up = _randn(torch, (GB * GS, GF), gen, dev, 3).to(bf)
     b_up = _randn(torch, (GF,), gen, dev).to(bf)
+    w = _randn(torch, (TL, TD, TF), gen, dev, 0.02)
     zero_counts()
     probs = K.scaled_masked_softmax(scores, causal, scale=GDH ** -0.5)
     a = K.bias_act(up, b_up, "gelu")
+    quant = {}
+    for bits in (8, 4):
+        q, sc, pad = K.quantize(w, bits=bits)
+        back = K.dequantize(q, sc, pad, w.shape)
+        if bits == 4:
+            packed = K.pack_int4(q)
+            unpacked = K.unpack_int4(packed, q.numel()).view(q.shape)
+        quant[bits] = (q, sc, pad, back)
     torch.cuda.synchronize()
     launches = read_counts()
     want = dict({name: 0 for name in KERNELS}, scaled_masked_softmax=1,
-                bias_act=1)
+                bias_act=1, quantize=2)
     check(launches == want, f"ops launches {launches} != {want}")
+    for bits, (q, sc, pad, back) in quant.items():
+        wq, ws, wpad = kq.quantize_plain(w, bits, 2048)
+        check(pad == wpad and torch.equal(q, wq) and torch.equal(sc, ws),
+              f"ops: quantize {bits} bits differs from its plain version")
+        step = torch.repeat_interleave(sc, 2048)[: w.numel()].view(w.shape)
+        # half a code, plus the fp32 rounding of q * scale (up to 127
+        # codes x 2^-24 of a code step)
+        err = float(((back - w).abs() / step).max())
+        check(back.shape == w.shape and err <= 0.5 + 1e-4,
+              f"ops: dequantize({bits} bits) is {err} code steps off")
+        print(f"ops: quantize -> dequantize {bits} bits, fp32 "
+              f"{list(w.shape)} at block 2048: codes and scales equal to the "
+              f"plain version's, round trip within {err:.4f} of a code step")
+    check(torch.equal(unpacked, quant[4][0]) and packed.numel() * 2 == w.numel(),
+          "ops: unpack_int4(pack_int4(q)) != q")
+    print(f"ops: pack_int4 -> unpack_int4 of the {w.numel()} 4-bit codes: "
+          f"{packed.numel()} bytes, unpacked equal")
+    del w, quant, back, packed, unpacked
     plain = sm.scaled_masked_softmax_plain(scores, causal, GDH ** -0.5)
     e_s = _assert_close(torch, probs, plain, TOL["bfloat16"], "ops: softmax")
     check(bool(torch.isclose(probs.float(), plain.float(), atol=1e-6,
@@ -1187,7 +1440,8 @@ def phase_ops(torch, dev):
           f"read by strides) and bias_act gelu [8192, 6400] through the "
           f"library's wrappers: max abs err vs plain {e_s:.3g} / {e_a:.3g}; "
           f"launches softmax {launches['scaled_masked_softmax']}, bias_act "
-          f"{launches['bias_act']}")
+          f"{launches['bias_act']}, quantize {launches['quantize']}")
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1365,17 +1619,60 @@ TRAIN_CONFIG = {
     "scheduler": {"type": "WarmupLR", "params": {
         "warmup_max_lr": 3e-4, "warmup_num_steps": 2}},
     "gradient_clipping": 1.0}
+# config A, the memory rung: master-free bf16 (bf16 params and accumulator,
+# Adam8bit's int8 moments and stochastic rounding); config B: FusedLamb over
+# fp32 masters; each merged over TRAIN_CONFIG
+ADAM8BIT_CONFIG = {"bf16": {"enabled": True, "master_weights": False},
+                   "data_types": {"grad_accum_dtype": "bf16"},
+                   "optimizer": dict(TRAIN_CONFIG["optimizer"], type="Adam8bit")}
+LAMB_CONFIG = {"optimizer": dict(TRAIN_CONFIG["optimizer"], type="FusedLamb")}
 
 
-def train_plan(cfg, micros, steps, leaves):
+def optimizer_plan(optimizer, steps):
+    """Launches of the optimizer's kernels over ``steps`` steps: FusedAdam
+    one a leaf, Adam8bit one a leaf of at least ``min_quant_size`` (the
+    smaller keep fp32 moments and plain torch), FusedLamb one phase-1 call
+    (phase 1 and the reduce) and one scale launch a leaf."""
+    from deepspeed_tpu_torch.ops.adam import Adam8bit
+    from deepspeed_tpu_torch.ops.lamb import FusedLamb
+
+    leaves = [p for g in optimizer.param_groups for p in g["params"]]
+    if isinstance(optimizer, Adam8bit):
+        return {"fused_adam8bit": steps * sum(map(optimizer.quantized, leaves))}
+    if isinstance(optimizer, FusedLamb):
+        return {"fused_lamb_phase1": steps * len(leaves),
+                "fused_lamb_scale": steps * len(leaves)}
+    return {"fused_adam": steps * len(leaves)}
+
+
+def adam8bit_state_bytes(optimizer):
+    """The state's bytes reckoned from the leaf shapes alone: two int8
+    ``[nb_pad, block]`` code arrays and two fp32 ``[nb_pad, 1]`` scales a
+    quantized leaf, two fp32 ``[n]`` moments a small one."""
+    from deepspeed_tpu_torch.ops.kernels.fused_adam8bit import state_rows
+
+    total = 0
+    for g in optimizer.param_groups:
+        for p in g["params"]:
+            n = p.numel()
+            if n >= optimizer.min_quant_size:
+                rows = state_rows(n, optimizer.block)
+                total += 2 * rows * optimizer.block + 2 * 4 * rows
+            else:
+                total += 2 * 4 * n
+    return total
+
+
+def train_plan(cfg, micros, steps, optimizer):
     """Launches a training run must make.  Per micro-batch: 2L+1 norm
     forwards (RMSNorm or LayerNorm) and as many backwards, L flash forward
     and L flash backward calls and, for a RoPE model, 2L RoPE forwards and
     2L backwards (the same kernel).  Remat adds forwards in the backward:
     the MLP policies recompute the MLP's norm (+L norm forwards), the
     whole-layer policies run the layer's forward again up to its last
-    saved tensor (+2L norm forwards, +L flash forwards, +2L RoPEs).  One
-    Adam launch per leaf per step; no decode kernel."""
+    saved tensor (+2L norm forwards, +L flash forwards, +2L RoPEs).  The
+    optimizer's launches as ``optimizer_plan`` counts them; no decode
+    kernel."""
     L = cfg.num_layers
     mlp = bool(cfg.remat) and cfg.remat_policy in ("mlp_only", "mlp_dots")
     full = bool(cfg.remat) and not mlp
@@ -1385,7 +1682,8 @@ def train_plan(cfg, micros, steps, leaves):
     plan[norm_kernel(cfg) + "_bwd"] = (2 * L + 1) * micros
     plan.update(rope=(4 * L + 2 * L * full) * micros * rope,
                 flash_attention_fwd=(L + L * full) * micros,
-                flash_attention_bwd=L * micros, fused_adam=leaves * steps)
+                flash_attention_bwd=L * micros)
+    plan.update(optimizer_plan(optimizer, steps))
     return plan
 
 
@@ -1424,11 +1722,80 @@ def phase_train_reference(torch, dev, preset, remat_policy):
           f"{lc}, weights max abs diff {diff:.3g}")
 
 
-def phase_train(torch, dev, preset):
-    """The training path at the preset's full width and depth."""
+def phase_optimizer_reference(torch, dev):
+    """The small llama-shaped model trained 3 steps on the card (kernels,
+    TF32 off) and on the CPU (plain versions) from the same weights and
+    tokens, once per new optimizer path:
+
+    - FusedLamb over fp32 masters: losses within rtol 1e-4 and weights
+      within atol 1e-4, as the FusedAdam reference;
+    - Adam8bit over fp32 masters: losses within 1e-4; 99 % of the weights
+      within 1e-4 and all within 1e-4 + lr / 16: where a gradient 1e-6
+      apart moves a value across a .5 code boundary, that element's step
+      moves by one code of m (1/127 of its row's absmax) over sqrt(v);
+    - Adam8bit master-free bf16 (bf16 accumulator, stochastic rounding with
+      the same noise on both): losses within 2e-2 relative and every
+      floating leaf bf16 on both."""
+    import numpy as np
+
+    import deepspeed_tpu_torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    over = dict(SMALL["llama-tiny"], num_heads=4, remat=True,
+                remat_policy="mlp_dots")
+    lr = TRAIN_CONFIG["optimizer"]["params"]["lr"]
+    cases = {
+        "FusedLamb fp32": dict(optimizer=dict(TRAIN_CONFIG["optimizer"],
+                                              type="FusedLamb"),
+                               bf16={"enabled": False}),
+        "Adam8bit fp32": dict(optimizer=dict(TRAIN_CONFIG["optimizer"],
+                                             type="Adam8bit"),
+                              bf16={"enabled": False}),
+        "Adam8bit master-free bf16": ADAM8BIT_CONFIG}
+    tok = np.random.default_rng(0).integers(0, 1024, (4, 200))
+    for name, section in cases.items():
+        cfg = dict(TRAIN_CONFIG, train_micro_batch_size_per_gpu=2, **section)
+        runs = {}
+        for d in ("cpu", dev):
+            model = deepspeed_tpu_torch.causal_lm("llama-tiny", device="cpu",
+                                                  seed=0, **over)
+            engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=cfg,
+                                                        device=d)
+            losses = [float(engine.train_step((tok, tok))) for _ in range(3)]
+            runs[str(d)] = (losses, [p.cpu() for p in engine.master])
+        (lc, pc), (lg, pg) = runs["cpu"], runs[str(dev)]
+        check(all(math.isfinite(x) for x in lg), f"{name}: card losses {lg}")
+        check(lg[-1] < lg[0] and lc[-1] < lc[0], f"{name}: losses did not fall "
+              f"{lg} / {lc}")
+        diffs = torch.cat([(a.float() - b.float()).abs().reshape(-1)
+                           for a, b in zip(pc, pg)])
+        if name.endswith("bf16"):
+            for a, b in zip(lc, lg):
+                check(abs(a - b) <= 2e-2 * abs(a), f"{name}: losses {lg} vs {lc}")
+            check(all(p.dtype == torch.bfloat16 for p in pc + pg),
+                  f"{name}: a master is not bf16")
+        else:
+            for a, b in zip(lc, lg):
+                check(abs(a - b) <= 1e-4 * abs(a), f"{name}: losses {lg} vs {lc}")
+            close = float((diffs <= 1e-4).float().mean())
+            limit = 1e-4 if name.startswith("FusedLamb") else 1e-4 + lr / 16
+            check(float(diffs.max()) <= limit and (
+                name.startswith("FusedLamb") or close >= 0.99),
+                f"{name}: weights differ by up to {float(diffs.max())} "
+                f"({100 * close:.2f} % within 1e-4)")
+        print(f"reference: small {name} (llama-tiny L 2, D 256, S 200) trained "
+              f"3 steps, card vs CPU: losses {lg} vs {lc}, weights max abs "
+              f"diff {float(diffs.max()):.3g}")
+
+
+def phase_train(torch, dev, preset, name="train", section=None, peaks=None):
+    """The training path at the preset's full width and depth, with
+    TRAIN_CONFIG (FusedAdam over fp32 masters) or the optimizer ``section``
+    merged over it; records its peak device memory in ``peaks[name]``."""
     import gc
 
     import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.ops.adam import Adam8bit
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -1439,19 +1806,26 @@ def phase_train(torch, dev, preset):
     micro, S = TRAIN_CELLS[preset]
     L, gas = cfg.num_layers, 2
     engine, _, _, _ = deepspeed_tpu_torch.initialize(
-        model=model, config=dict(TRAIN_CONFIG,
+        model=model, config=dict(TRAIN_CONFIG, **(section or {}),
                                  train_micro_batch_size_per_gpu=micro))
+    opt = engine.optimizer
     n_params = sum(p.numel() for p in engine.master)
     gen = torch.Generator(device=dev).manual_seed(0)
     tokens = torch.randint(0, cfg.vocab_size, (gas * micro, S), device=dev,
                            generator=gen)
     torch.cuda.synchronize()
-    print(f"train: {preset} D={cfg.hidden_size} L={L} H={cfg.num_heads} "
+    master = str(engine.master_dtype).replace("torch.", "")
+    print(f"{name}: {preset} D={cfg.hidden_size} L={L} H={cfg.num_heads} "
           f"F={cfg.intermediate_size} V={cfg.vocab_size} tied, {cfg.norm}, "
           f"{cfg.position} positions, remat {cfg.remat_policy}; "
-          f"{n_params / 1e9:.4f}B fp32 params in "
-          f"{len(engine.master)} leaves, bf16 compute, micro {micro} x gas "
-          f"{gas} x S {S}; built in {time.perf_counter() - t0:.1f}s")
+          f"{n_params / 1e9:.4f}B {master} params in "
+          f"{len(engine.master)} leaves, {type(opt).__name__}, bf16 compute, "
+          f"{str(engine.grad_accum_dtype).replace('torch.', '')} accumulator, "
+          f"micro {micro} x gas {gas} x S {S}; built in "
+          f"{time.perf_counter() - t0:.1f}s")
+    if isinstance(opt, Adam8bit):
+        check(all(p.dtype == engine.master_dtype for p in engine.master),
+              f"{name}: a master is not {master}")
     zero_counts()
     steps = []
     for i in range(5):
@@ -1461,26 +1835,38 @@ def phase_train(torch, dev, preset):
         torch.cuda.synchronize()
         steps.append((loss, engine.get_global_grad_norm(), engine.get_lr()[0],
                       time.perf_counter() - t))
-        print(f"train: step {i + 1} loss {steps[-1][0]:.5f} grad norm "
+        print(f"{name}: step {i + 1} loss {steps[-1][0]:.5f} grad norm "
               f"{steps[-1][1]:.4f} next lr {steps[-1][2]:.3e} wall "
               f"{steps[-1][3]:.3f}s")
     launches = read_counts()
     check(all(math.isfinite(x[0]) and math.isfinite(x[1]) for x in steps),
           f"non-finite loss or grad norm: {steps}")
     check(steps[-1][0] < steps[0][0], f"loss did not fall: {steps}")
-    plan = train_plan(cfg, gas * 5, 5, len(engine.master))
-    check(launches == plan, f"train launches {launches} != path plan {plan}")
+    plan = train_plan(cfg, gas * 5, 5, opt)
+    check(launches == plan, f"{name} launches {launches} != path plan {plan}")
+    if isinstance(opt, Adam8bit):
+        held, want = opt.state_bytes(), adam8bit_state_bytes(opt)
+        check(held == want, f"{name}: optimizer state {held} bytes, the leaf "
+              f"shapes give {want}")
+        print(f"{name}: optimizer state {held} bytes ({held / n_params:.4f} a "
+              f"parameter: int8 codes, fp32 scales, the small leaves' fp32 "
+              f"moments) = the count from the leaf shapes; every master "
+              f"{master}")
     tokens_per_step = gas * micro * S
     steady = statistics.mean(x[3] for x in steps[1:])
     attn_flops = 6 * L * gas * micro * cfg.num_heads * S * S * cfg.head_dim
     flops = 6 * n_params * tokens_per_step + attn_flops
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
-    print(f"train: steady step (steps 2-5) {steady:.4f}s, "
+    if peaks is not None:
+        peaks[name] = peak
+    beside = (f" (FusedAdam phase: {peaks['train']:.2f} GiB)"
+              if peaks and name != "train" and "train" in peaks else "")
+    print(f"{name}: steady step (steps 2-5) {steady:.4f}s, "
           f"{tokens_per_step / steady:.1f} tokens/s, MFU "
           f"{100 * flops / steady / BF16_FLOPS_PER_S:.2f}% (6N + attention "
           f"{flops / 1e12:.1f} TFLOP per step over 989 TFLOP/s; recomputed "
           f"forwards not counted), peak device "
-          f"memory {peak:.2f} GiB; launches {launches}")
+          f"memory {peak:.2f} GiB{beside}; launches {launches}")
     device_ms = phase_train_profile(torch, engine, tokens)
     del engine, model, tokens
     gc.collect()
@@ -1520,7 +1906,8 @@ def phase_train_profile(torch, engine, tokens):
     # elementwise, reduction and copy kernels, whatever is left
     groups = {"GEMM (cuBLAS)": 0.0, "GEMM, unaligned (cutlass align1)": 0.0,
               "flash attention": 0.0, "norm fwd+bwd": 0.0, "rope": 0.0,
-              "adam": 0.0, "PyTorch elementwise/reduce/copy": 0.0, "other": 0.0}
+              "adam": 0.0, "adam8bit": 0.0, "lamb": 0.0,
+              "PyTorch elementwise/reduce/copy": 0.0, "other": 0.0}
     for e in kernels:
         key = e.key
         if "align1" in key:
@@ -1535,6 +1922,10 @@ def phase_train_profile(torch, engine, tokens):
             g = "rope"
         elif "adam_kernel" in key:
             g = "adam"
+        elif "adam8bit_kernel" in key:
+            g = "adam8bit"
+        elif "lamb_" in key:
+            g = "lamb"
         elif "at::native" in key or "Memcpy" in key or "Memset" in key:
             g = "PyTorch elementwise/reduce/copy"
         else:
@@ -1549,7 +1940,10 @@ def phase_train_profile(torch, engine, tokens):
             "layer_norm_bwd": ("layer_norm_bwd_kernel", "rms_dg_reduce_kernel"),
             "flash_attention_fwd": ("flash_fwd_kernel",),
             "flash_attention_bwd": ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"),
-            "fused_adam": ("adam_kernel",)}
+            "fused_adam": ("adam_kernel",),
+            "fused_adam8bit": ("adam8bit_kernel",),
+            "fused_lamb_phase1": ("lamb_phase1_kernel", "lamb_reduce_kernel"),
+            "fused_lamb_scale": ("lamb_scale_kernel",)}
     out = {}
     for name, keys in tags.items():
         parts = [[e for e in kernels if tag in e.key] for tag in keys]
@@ -1626,17 +2020,26 @@ def main() -> int:
     for preset, policy in (("llama-tiny", "mlp_dots"), ("gpt2-small", "full")):
         phase_reference(torch, dev, preset)
         phase_train_reference(torch, dev, preset, policy)
+    phase_optimizer_reference(torch, dev)
     # each path: (launch counts of its run, device ms per call in its profile)
+    peaks = {}
     runs = {"ops": (phase_ops(torch, dev), {}),
             "serve": phase_serve(torch, dev, "llama3-8b"),
             "gpt2_serve": phase_serve(torch, dev, "gpt2-xl"),
-            "train": phase_train(torch, dev, "llama-1b4"),
-            "gpt2_train": phase_train(torch, dev, "gpt2-xl")}
+            "train": phase_train(torch, dev, "llama-1b4", "train", peaks=peaks),
+            "gpt2_train": phase_train(torch, dev, "gpt2-xl", "gpt2_train",
+                                      peaks=peaks),
+            "adam8bit_train": phase_train(torch, dev, "llama-1b4",
+                                          "adam8bit_train", ADAM8BIT_CONFIG,
+                                          peaks),
+            "lamb_train": phase_train(torch, dev, "llama-1b4", "lamb_train",
+                                      LAMB_CONFIG, peaks)}
     ident = gpu_identity()
     src = "deepspeed_tpu_torch/csrc/decode.cu"
     fa_src = "deepspeed_tpu_torch/csrc/flash_attention.cu"
     ln_src = "deepspeed_tpu_torch/csrc/layer_norm.cu"
     sm_src = "deepspeed_tpu_torch/ops/kernels/softmax.py"
+    lamb_src = "deepspeed_tpu_torch/csrc/fused_lamb.cu"
     pallas = "deepspeed_tpu/ops/pallas/"
     # name, route, source, the TPU kernel's file:line and function, and the
     # path whose run gives ``launches``
@@ -1666,6 +2069,15 @@ def main() -> int:
         ("scaled_masked_softmax", "triton", sm_src, "softmax.py:39",
          "scaled_masked_softmax (both pallas_call sites, :57 and :67)", "ops"),
         ("bias_act", "triton", sm_src, "softmax.py:92", "bias_act", "ops"),
+        ("quantize", "cuda", "deepspeed_tpu_torch/csrc/quantizer.cu",
+         "quantizer.py:36", "quantize", "ops"),
+        ("fused_adam8bit", "cuda", "deepspeed_tpu_torch/csrc/fused_adam8bit.cu",
+         "fused_adam8bit.py:64", "fused_adam8bit_update", "adam8bit_train"),
+        ("fused_lamb_phase1", "cuda", lamb_src, "fused_lamb.py:68",
+         "fused_lamb_update (_lamb_phase1_kernel, pallas_call :110, and the "
+         "trust-ratio combine after it)", "lamb_train"),
+        ("fused_lamb_scale", "cuda", lamb_src, "fused_lamb.py:68",
+         "fused_lamb_update (_scale_kernel, pallas_call :128)", "lamb_train"),
     ]
     check([row[0] for row in table] == list(KERNELS), "kernel table out of step")
     kernels = []
@@ -1687,7 +2099,7 @@ def main() -> int:
         for extra in ("matmul_ms", "max_abs_err_train_shape",
                       "max_abs_err_gpt2_shape", "decode_rows_ms",
                       "masked_ms", "masked_plain_ms", "masked_bound_ms",
-                      "gpt2_shape"):
+                      "gpt2_shape", "fp32_masters", "whole_update_bound_ms"):
             if extra in t:
                 k[extra] = t[extra]
         check(all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms",

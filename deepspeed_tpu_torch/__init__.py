@@ -12,9 +12,12 @@ out-projection+residual+norm, fused MLP); ``use_fused_decode: False``
 keeps the unfused path.  Prefill runs RMSNorm (CUDA C++) and RoPE
 (Triton).  It trains the Llama family on one card through
 :func:`initialize` (the standard path: bf16 compute, fp32 masters,
-gradient accumulation, clipping, FusedAdam), with RMSNorm and RoPE forward
-and backward, flash attention forward and backward and the fused Adam
-update as hand-written kernels.  ROADMAP.md lists what comes next.
+gradient accumulation, clipping, FusedAdam, Adam8bit or FusedLamb; or
+master-free bf16 with Adam8bit's stochastic rounding), with RMSNorm and
+RoPE forward and backward, flash attention forward and backward and the
+fused Adam, Adam8bit and LAMB updates as hand-written kernels; the op
+library adds softmax, bias_act and the block quantizer.  ROADMAP.md lists
+what comes next.
 """
 
 from __future__ import annotations
@@ -34,7 +37,8 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
 
     Returns ``(engine, optimizer, None, lr_scheduler)``.  ``model`` is a
     :class:`~deepspeed_tpu_torch.models.transformer.CausalLM` whose
-    parameters become the fp32 masters; ``model_parameters`` (a nested
+    parameters become the masters (fp32, or bf16 under
+    ``bf16.master_weights: false``); ``model_parameters`` (a nested
     dict of tensors or numpy arrays in the JAX layout) replaces their
     values.  ``device=None`` is the CUDA card.  ``seed`` seeds torch's
     generators (default: the config's ``seed``).  A client ``optimizer``

@@ -2,8 +2,8 @@
 
 A trimmed copy of ``deepspeed_tpu/runtime/config.py`` ``DeepSpeedConfig``
 over the port's :mod:`.config_utils`.  It covers what the standard
-training path reads: the batch triad and its checks, ``bf16``,
-``optimizer``, ``scheduler``, ``gradient_clipping``,
+training path reads: the batch triad and its checks, ``bf16`` (with
+``master_weights: false``, master-free bf16 training), ``optimizer``, ``scheduler``, ``gradient_clipping``,
 ``data_types.grad_accum_dtype``, ``activation_checkpointing``, ``seed``
 and ``steps_per_print``.  The sections the port does not carry yet raise
 ``NotImplementedError`` naming ROADMAP.md when they ask for something:
@@ -209,6 +209,11 @@ class DeepSpeedConfig:
     def dtype(self) -> torch.dtype:
         return torch.bfloat16 if self.bf16.enabled else torch.float32
 
+    def master_dtype(self) -> torch.dtype:
+        """fp32 masters, or bf16 ones under ``bf16.master_weights: false``."""
+        master_free = self.bf16.enabled and not self.bf16.master_weights
+        return torch.bfloat16 if master_free else torch.float32
+
     def grad_accum_dtype(self) -> torch.dtype:
         name = self.data_types.grad_accum_dtype
         return torch.float32 if name is None else _DTYPES[name.lower()]
@@ -217,6 +222,3 @@ class DeepSpeedConfig:
         ga = self.data_types.grad_accum_dtype
         if ga is not None and ga.lower() not in _DTYPES:
             raise ValueError(f"data_types.grad_accum_dtype: unknown dtype {ga!r}")
-        if not self.bf16.master_weights:
-            raise _not_ported("bf16.master_weights=false (master-free bf16 "
-                              "training)", "other optimizers and schedules")

@@ -10,17 +10,21 @@ ports the semantics of the compiled step functions there
   accumulator dtype (``data_types.grad_accum_dtype``, default fp32) and
   added to the accumulator;
 - ``apply``: clip to ``gradient_clipping`` (or just take the global norm),
-  one optimizer update of the fp32 masters, zero the accumulator,
+  one optimizer update of the masters, zero the accumulator,
   ``global_steps += 1``;
 - ``fused`` (:meth:`train_step`): gas micro-batches, then apply; returns
   the mean loss.
 
-The fp32 masters are the model's own parameters (moved to the engine's
-device).  The compute copy is a separate set of leaf tensors that carry
+The masters are the model's own parameters (moved to the engine's device):
+fp32, or bf16 under ``bf16.master_weights: false`` (master-free: the
+persistent state is bf16, and an optimizer that rounds stochastically,
+Adam8bit, keeps the sub-ulp updates; any other logs the JAX package's
+warning).  The compute copy is a set of leaf tensors that carry
 gradients: per-layer slices of one buffer per stacked ``[L, ...]`` leaf, so
 autograd writes each layer's gradient into a tensor of that layer's size.
-It is refreshed from the masters after every update.  In fp32 it aliases
-the masters (no copy).
+When the master dtype is the compute dtype (fp32 training, or master-free
+bf16) it aliases the masters; otherwise it is a copy refreshed from them
+after every update.
 
 Not ported yet (ROADMAP.md queue 1): checkpoints, fp16 loss scaling, ZeRO,
 offload, telemetry, goodput, watchdog, anomaly handling, overlap and the
@@ -29,6 +33,7 @@ offload, telemetry, goodput, watchdog, anomaly handling, overlap and the
 
 from __future__ import annotations
 
+import logging
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -39,6 +44,8 @@ from deepspeed_tpu_torch.runtime import optimizer as opt_builder
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.lr_schedules import LRSchedulerShim, get_lr_schedule
 from deepspeed_tpu_torch.runtime.utils import clip_grad_norm_, global_norm
+
+logger = logging.getLogger(__name__)
 
 
 def _flatten(tree: Dict[str, Any], prefix: str = "") -> List[Tuple[str, Any]]:
@@ -73,8 +80,9 @@ class DeepSpeedEngine:
             model.check_trainable()
         self.compute_dtype = self.config.dtype()
         self.grad_accum_dtype = self.config.grad_accum_dtype()
+        self.master_dtype = self.config.master_dtype()
 
-        # fp32 masters: the model's own parameters, on the engine's device
+        # masters: the model's own parameters, on the engine's device
         self._paths: List[str] = []
         self.master: List[torch.Tensor] = []
         given = dict(_flatten(model_parameters)) if model_parameters is not None else {}
@@ -87,9 +95,9 @@ class DeepSpeedEngine:
                 if tuple(src.shape) != tuple(p.shape):
                     raise ValueError(f"model_parameters {path}: shape "
                                      f"{tuple(src.shape)} != {tuple(p.shape)}")
-                p.data = src.to(self.device, torch.float32).clone()
-            elif p.device != self.device or p.dtype != torch.float32:
-                p.data = p.data.to(self.device, torch.float32)
+                p.data = src.to(self.device, self.master_dtype).clone()
+            elif p.device != self.device or p.dtype != self.master_dtype:
+                p.data = p.data.to(self.device, self.master_dtype)
             self._paths.append(path)
             self.master.append(p.data)
         if given:
@@ -107,6 +115,13 @@ class DeepSpeedEngine:
                                                 self.config.scheduler.params)
         self.optimizer = opt_builder.build_from_config(self.config, self.master,
                                                        self._lr_schedule)
+        if (self.master_dtype != torch.float32
+                and not getattr(self.optimizer, "updates_are_new_params", False)):
+            logger.warning(
+                "bf16.master_weights=false with optimizer %s: plain "
+                "round-to-nearest bf16 updates lose sub-ulp steps; use "
+                "Adam8bit (stochastic rounding) for master-free training",
+                self.config.optimizer.type if self.config.optimizer else "AdamW")
         self.lr_scheduler = (LRSchedulerShim(self._lr_schedule)
                              if self._lr_schedule is not None else None)
         self.global_steps = 0
@@ -136,8 +151,8 @@ class DeepSpeedEngine:
         """The grad-carrying compute copy as the model's nested dict; a
         stacked layer leaf is a list of per-layer leaf tensors."""
         if self._compute is None:
-            fp32 = self.compute_dtype == torch.float32
-            self._compute_bufs = [p if fp32 else p.to(self.compute_dtype)
+            alias = self.compute_dtype == self.master_dtype
+            self._compute_bufs = [p if alias else p.to(self.compute_dtype)
                                   for p in self.master]
             self._compute = [
                 ([b[i].detach().requires_grad_() for i in range(b.shape[0])]
@@ -150,7 +165,8 @@ class DeepSpeedEngine:
 
     @torch.no_grad()
     def _refresh_compute(self) -> None:
-        if self._compute_bufs is not None and self.compute_dtype != torch.float32:
+        if (self._compute_bufs is not None
+                and self.compute_dtype != self.master_dtype):
             for buf, p in zip(self._compute_bufs, self.master):
                 buf.copy_(p)
 
@@ -308,6 +324,6 @@ class DeepSpeedEngine:
         return [0.0]
 
     def params(self) -> Dict[str, Any]:
-        """The fp32 masters as the model's nested dict (the tensors
-        themselves)."""
+        """The masters (fp32, or bf16 when master-free) as the model's
+        nested dict (the tensors themselves)."""
         return self.module.params()

@@ -844,3 +844,134 @@ def test_gpt2_xl_training_kernels_follow_plain_versions(cuda_device, monkeypatch
     print(f"gpt2-xl losses, kernels {runs[0]} vs plain versions {runs[1]}")
     np.testing.assert_allclose(runs[0], runs[1], rtol=1e-3)
     assert runs[0][-1] < runs[0][0]
+
+
+# ---------------------------------------------------------------------------
+# the block quantizer, Adam8bit and LAMB: every operation of the three
+# kernels is written with its IEEE-rounded intrinsic (no FMA contraction),
+# so codes, scales, moments and the stochastically rounded params must
+# EQUAL the plain versions'; LAMB's p is within 1e-5 relative (its norms
+# are summed in another order than torch.linalg.vector_norm's)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("shape,block", [((24 * 2048 * 5632 // 64,), 2048),
+                                         ((1000003,), 128), ((3, 7, 131), 512),
+                                         ((70000,), 1 << 16), ((5000,), 384)])
+def test_quantize_kernel_matches_plain(cuda_device, dtype, bits, shape, block):
+    from deepspeed_tpu_torch.ops.kernels import quantizer as tq
+
+    x = _randn(shape, 0, dtype, cuda_device, 3.0)
+    x.view(-1)[:block] = 0                            # an all-zero block
+    before = tq.quantize.launches
+    q, s, pad = tq.quantize(x, bits=bits, block=block)
+    torch.cuda.synchronize()
+    assert tq.quantize.launches == before + 1
+    wq, ws, wpad = tq.quantize_plain(x, bits=bits, block=block)
+    assert pad == wpad and q.shape == wq.shape
+    assert torch.equal(q, wq) and torch.equal(s, ws)
+    # a view one element in: the kernel's element-by-element path
+    q2, s2, _ = tq.quantize(x.view(-1)[1:], bits=bits, block=block)
+    w2, ws2, _ = tq.quantize_plain(x.view(-1)[1:], bits=bits, block=block)
+    assert torch.equal(q2, w2) and torch.equal(s2, ws2)
+
+
+def _adam8bit_case(dev, n, block, p_dtype, seed):
+    from deepspeed_tpu_torch.ops.kernels import fused_adam8bit as t8
+
+    rows = t8.state_rows(n, block)
+    p = _randn((n,), seed, torch.float32, dev).to(p_dtype)
+    mq = torch.zeros(rows, block, dtype=torch.int8, device=dev)
+    state = [mq, torch.ones(rows, 1, device=dev), mq.clone(),
+             torch.ones(rows, 1, device=dev)]
+    return p, state
+
+
+@pytest.mark.parametrize("p_dtype,g_dtype,sr", [
+    (torch.bfloat16, torch.bfloat16, True), (torch.bfloat16, torch.float32, True),
+    (torch.bfloat16, torch.bfloat16, False), (torch.float32, torch.float32, False),
+    (torch.float32, torch.bfloat16, False)])
+@pytest.mark.parametrize("n,block", [(24 * 2048 * 5632 // 16, 512),
+                                     (1000003, 128), (77777, 4096), (4096, 1024)])
+def test_fused_adam8bit_kernel_matches_plain(cuda_device, p_dtype, g_dtype, sr,
+                                             n, block):
+    """Three steps from zero state; n ragged (neither a multiple of the
+    block nor filling 32 rows) or not; the largest block; bf16 params with
+    and without stochastic rounding, fp32 params (never rounded)."""
+    from deepspeed_tpu_torch.ops.kernels import fused_adam8bit as t8
+
+    p, st = _adam8bit_case(cuda_device, n, block, p_dtype, 0)
+    rp, rst = p.clone(), [t.clone() for t in st]
+    before = t8.fused_adam8bit_update.launches
+    for step in (1, 2, 3):
+        g = _randn((n,), step, g_dtype, cuda_device, 1e-2)
+        kw = dict(lr=1e-3 * step, beta1=0.9, beta2=0.95, eps=1e-8,
+                  weight_decay=0.1, seed=t8.sr_seed(step, 4), sr=sr)
+        t8.fused_adam8bit_update(p, g, *st, step, **kw)
+        t8.fused_adam8bit_update_plain(rp, g, *rst, step, **kw)
+    torch.cuda.synchronize()
+    assert t8.fused_adam8bit_update.launches == before + 3
+    assert torch.equal(p, rp)
+    for a, b in zip(st, rst):
+        assert torch.equal(a, b)
+
+
+def test_fused_adam8bit_in_place_contract_and_sr_repeats(cuda_device):
+    """No write past n; rows wholly past n keep codes 0 and scales 1; the
+    same seed gives the same bits twice, another seed other bits; the
+    kernel's hash is the plain version's."""
+    from deepspeed_tpu_torch.ops.kernels import fused_adam8bit as t8
+
+    n, block = 1000, 128
+    buf = torch.full((n + 64,), 7.0, device=cuda_device, dtype=torch.bfloat16)
+    outs = []
+    for seed in (5, 5, 6):
+        buf[:n] = _randn((n,), 0, torch.bfloat16, cuda_device)
+        _, st = _adam8bit_case(cuda_device, n, block, torch.bfloat16, 0)
+        t8.fused_adam8bit_update(buf[:n], _randn((n,), 1, torch.float32, cuda_device),
+                                 *st, 1, lr=1e-3, seed=seed, sr=True)
+        torch.cuda.synchronize()
+        assert bool((buf[n:] == 7.0).all())
+        assert bool((st[1][8:] == 1).all() and (st[3][8:] == 1).all())
+        assert int(st[0][8:].abs().max()) == 0 and int(st[0][7, n - 7 * block:].abs().max()) == 0
+        outs.append(buf[:n].clone())
+    assert torch.equal(outs[0], outs[1]) and not torch.equal(outs[0], outs[2])
+    lib = t8._library().lib
+    xs = [0, 1, 0x7FFFFFFF, 0x80000000, 0xDEADBEEF, 0xFFFFFFFF, 12345]
+    assert [lib.ds_mix32(x) for x in xs] == [t8.mix32_int(x) for x in xs]
+    with pytest.raises(ValueError, match="power of two"):
+        t8.check_block(8192)
+
+
+@pytest.mark.parametrize("p_dtype,g_dtype", [(torch.float32, torch.float32),
+                                             (torch.float32, torch.bfloat16),
+                                             (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("n,wd", [(24 * 2048 * 5632 // 16, 0.1), (1000003, 0.0),
+                                  (4099, 0.01)])
+def test_fused_lamb_kernels_match_plain(cuda_device, p_dtype, g_dtype, n, wd):
+    """Three steps; the moments equal, p within 1e-5 relative, the norms'
+    stats within 1e-5 relative and bit-equal on a repeat."""
+    from deepspeed_tpu_torch.ops.kernels import fused_lamb as tl
+
+    p = _randn((n,), 0, torch.float32, cuda_device).to(p_dtype)
+    m, v = (torch.zeros(n, device=cuda_device) for _ in range(2))
+    rp, rm, rv = p.clone(), m.clone(), v.clone()
+    before = (tl.lamb_phase1.launches, tl.lamb_scale.launches)
+    for step in (1, 2, 3):
+        g = _randn((n,), step, g_dtype, cuda_device, 1e-2)
+        kw = dict(beta1=0.9, beta2=0.999, eps=1e-6, weight_decay=wd)
+        m0, v0 = m.clone(), v.clone()
+        stats = tl.lamb_phase1(p, g, m, v, step, lr=1e-3 * step, **kw)
+        again = tl.lamb_phase1(p, g, m0, v0, step, lr=1e-3 * step, **kw)
+        tl.lamb_scale(p, m, v, stats, step, **kw)
+        want = tl.lamb_phase1_plain(rp, g, rm, rv, step, lr=1e-3 * step, **kw)
+        tl.lamb_scale_plain(rp, rm, rv, want, step, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(stats, again)
+        torch.testing.assert_close(stats, want, rtol=1e-5, atol=0)
+    assert (tl.lamb_phase1.launches, tl.lamb_scale.launches) == (before[0] + 6,
+                                                                 before[1] + 3)
+    assert torch.equal(m, rm) and torch.equal(v, rv)
+    tol = 1e-5 if p_dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(p.float(), rp.float(), rtol=tol, atol=tol)

@@ -165,8 +165,8 @@ def test_initialize_without_a_card_raises(monkeypatch):
     {"tensor_parallel": {"tp_size": 2}}, {"tensorboard": {"enabled": True}},
     {"flops_profiler": {"enabled": True}}, {"watchdog": {"enabled": True}},
     {"activation_checkpointing": {"cpu_checkpointing": True}},
-    {"bf16": {"enabled": True, "master_weights": False}},
-    {"optimizer": {"type": "Lamb", "params": {}}},
+    {"optimizer": {"type": "Lion", "params": {}}},
+    {"optimizer": {"type": "Muon", "params": {}}},
     {"optimizer": {"type": "OneBitAdam", "params": {}}}])
 def test_unported_training_config_sections_are_refused(section):
     import deepspeed_tpu_torch
