@@ -7,7 +7,8 @@ Needs one CUDA card, nvcc and triton; imports nothing of JAX.  Phases
 (each one raises, and the script exits non-zero, on any failure):
 
 1. build   — compile the seven CUDA libraries (LayerNorm and RMSNorm
-             fwd/bwd; the four fused decode kernels; flash attention
+             fwd/bwd; the fused decode kernels with their contiguous-cache
+             and int8-weight variants, the largest build; flash attention
              fwd/bwd; fused Adam; the block quantizer; fused Adam8bit; the
              LAMB phases), one nvcc each, started together, while
              Triton compiles the RoPE, softmax and bias_act kernels; print
@@ -49,14 +50,26 @@ Needs one CUDA card, nvcc and triton; imports nothing of JAX.  Phases
              512 and 4096), the two LAMB phases (norms bit-equal on a
              repeat) and quantize (bits 8 and 4, blocks 128 / 512 / 2048),
              and their timings beside the plain versions and the bound
-             (PyTorch has no call for these functions);
+             (PyTorch has no call for these functions); then generate()'s
+             kernels: flash_decode over the contiguous [2, 8, Hkv, Smax,
+             Dh] cache at layer 1 (Smax 512, 1025 and 64, depths 1..Smax-1
+             as one scalar and one a row, fp32 and bf16, ALiBi, gpt2-xl's
+             25 heads of 64) and the int8 bodies of the three GEMVs (bf16,
+             at llama3-8b's shapes, gpt2-xl's branches and a ragged N),
+             timed beside the plain version, SDPA (contiguous flash_decode,
+             264 deep in a 512 cache) or ``torch.matmul`` of a bf16 weight
+             (the int8 GEMVs' yardstick) and the bound;
 3. reference — a small fp32 model served on the card (kernels) and on the
              CPU (plain versions) must give the same greedy tokens, on the
              default fused decode path and on ``use_fused_decode: False``;
              and the same small model trained 3 steps on the card (TF32
              off) and on the CPU: losses and final weights agree; each for a
              llama-shaped and a gpt2-shaped model (learned positions,
-             LayerNorm, GeLU, a plain MLP); then the llama-shaped model on
+             LayerNorm, GeLU, a plain MLP), and the same models through
+             ``init_inference(...).generate()`` (fp32 fused and unfused,
+             int8 weights fused): the same tokens on both; the llama-tiny
+             preset as it is (8 heads of 32: flash at head dim 32) trained
+             3 steps, card against CPU; then the llama-shaped model on
              the new optimizer paths: FusedLamb and Adam8bit over fp32
              masters, Adam8bit master-free bf16;
    ops     — the ops of the public kernel library that no model path
@@ -77,6 +90,17 @@ Needs one CUDA card, nvcc and triton; imports nothing of JAX.  Phases
              unfused decode path on the same weights, a shorter wave with
              its own launch plan; then the same for ``gpt2-xl`` at full
              width and depth (LayerNorm in place of RMSNorm, no RoPE);
+   generate — the main path of the sixth slice:
+             ``init_inference(causal_lm("llama3-8b"), {"dtype":
+             "bfloat16", "max_out_tokens": 1024}).generate()`` at full
+             width and depth (random bf16 weights from seed 0): 8 greedy
+             prompts of 200 tokens x 64 new, 3 of them with an EOS id (the
+             cache reused), top-k 50 sampling twice from one seed; each
+             call's launches equal to its plan; a profiled call; then the
+             same with ``{"dtype": "int8"}`` (resident weight bytes equal
+             to the count from the leaf shapes; the share of greedy tokens
+             equal to the bf16 run's) and a short int8 wave through
+             ``init_serving``;
 5. train   — the training path, after the serve phase has released its
              memory: ``deepspeed_tpu_torch.initialize(causal_lm(
              "llama-1b4"), config)`` at full width and depth, random fp32
@@ -211,8 +235,8 @@ def phase_build(torch, dev):
         lib = results[name]
         print(f"build: nvcc {lib.path.name} {results[name + '_s']:.2f}s "
               f"(0.00 = reused)")
-        # one line per entry function; of decode's 60 instantiations only
-        # the bf16 ones (the serving path's) are printed
+        # one line per entry function; of decode's 68 instantiations only
+        # the bf16 ones (the serving and generate paths') are printed
         entry, n_entries, spilled = "", 0, []
         for ln in lib.ptxas_info:
             if "Compiling entry" in ln:
@@ -520,6 +544,240 @@ def time_decode_kernels(torch, dev, gen, errs):
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
         "max_abs_err": errs["flash_decode"]}
     return out
+
+def check_contig_decode(torch, dev, gen):
+    """flash_decode over generate()'s contiguous cache against
+    ``_flash_decode_ref``: llama3-8b's decode shape (8 rows, 32/8 heads of
+    128) over a stacked [2, 8, 8, Smax, 128] cache read at layer 1, Smax
+    512, 1025 (generate()'s default bucket) and 64, depths 1..Smax - 1 as one
+    scalar and one a row, fp32 and bf16, once with ALiBi; then gpt2-xl's 25
+    heads of 64 (one query head a KV head).  Returns the bf16 max abs err."""
+    from deepspeed_tpu_torch.ops.kernels import decode as dk
+
+    err = 0.0
+    cases = [("llama3-8b", 512, False), ("llama3-8b", 1025, False),
+             ("llama3-8b", 64, False), ("llama3-8b", 1025, True),
+             ("gpt2-xl", 512, False)]
+    for dtype_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype_name)
+        for model, Smax, alibi in cases:
+            m = DECODE_MODELS[model]
+            k = _randn(torch, (2, B, m["HKV"], Smax, m["DH"]), gen, dev).to(dt)
+            v = _randn(torch, (2, B, m["HKV"], Smax, m["DH"]), gen, dev).to(dt)
+            q = _randn(torch, (B, m["H"], m["DH"]), gen, dev).to(dt)
+            rows = torch.linspace(0, Smax - 2, B, device=dev).long()
+            for pos in (Smax - 2, Smax // 2, 0, rows):
+                y = dk.flash_decode_contig_cuda(q, k, v, pos,
+                                                scale=m["DH"] ** -0.5,
+                                                layer=1, alibi=alibi)
+                torch.cuda.synchronize()
+                e = _assert_close(
+                    torch, y, dk._flash_decode_ref(q, k[1], v[1], pos,
+                                                   scale=m["DH"] ** -0.5,
+                                                   alibi=alibi),
+                    ATTN_TOL[dtype_name],
+                    f"flash_decode contiguous {model} {dtype_name} Smax "
+                    f"{Smax} alibi {alibi} pos "
+                    f"{pos if isinstance(pos, int) else 'per row'}")
+                if dtype_name == "bfloat16":
+                    err = max(err, e)
+            del k, v
+    print(f"flash_decode contiguous vs plain: [2, 8, Hkv, Smax, Dh] at layer "
+          f"1, Smax 512 / 1025 / 64, depths 1..Smax-1 scalar and per row, "
+          f"ALiBi, llama3-8b and gpt2-xl heads: fp32 within 2e-4, bf16 within "
+          f"2e-2; bf16 max abs err {err:.3g}")
+    return err
+
+
+def _int8_weight(torch, shape, gen, dev):
+    """int8 codes and [N] fp32 scales of a random bf16 weight, quantized
+    as the int8 engine quantizes (models/quant.py)."""
+    from deepspeed_tpu_torch.models.quant import quantize_weight
+
+    w = _randn(torch, shape, gen, dev, shape[0] ** -0.5).to(torch.bfloat16)
+    qt = quantize_weight(w)
+    return qt.q, qt.scale.reshape(-1)
+
+
+def check_int8_gemvs(torch, dev, gen):
+    """The int8 bodies of the three GEMV kernels against their plain
+    versions (``_deq`` then the bf16 product): llama3-8b's decode shapes,
+    gpt2-xl's branches (LayerNorm with a bias, tanh-GeLU, no gate) and a
+    ragged N (a last column tile part full), bf16 within GEMV_TOL.  Returns
+    the max abs errs at llama3-8b's shapes."""
+    from deepspeed_tpu_torch.ops.kernels import decode as dk
+
+    bf = torch.bfloat16
+    errs = {}
+    shapes = [("llama3-8b", D, H * DH, F, NQKV, "rmsnorm", "silu", True),
+              ("gpt2-xl", 1600, 1600, 6400, 4800, "layernorm", "gelu", False),
+              ("ragged", 256, 192, 200, 200, "rmsnorm", "gelu_exact", True)]
+    for name, d, m, f, n, kind, act, glu in shapes:
+        x = _randn(torch, (B, d), gen, dev, 2).to(bf)
+        sc = (1 + 0.1 * torch.randn(d, device=dev, generator=gen)).to(bf)
+        nb = (0.1 * torch.randn(d, device=dev, generator=gen)).to(bf) \
+            if kind == "layernorm" else None
+        ref_b = torch.zeros_like(sc) if nb is None else nb
+        bias = (lambda k: (0.1 * torch.randn(k, device=dev, generator=gen)).to(bf)
+                ) if kind == "layernorm" else (lambda k: None)
+        w, ws = _int8_weight(torch, (d, n), gen, dev)
+        bq = bias(n)
+        y = dk.fused_norm_qkv_int8_cuda(x, sc, nb, w, ws, bq, kind=kind,
+                                        eps=1e-5)
+        torch.cuda.synchronize()
+        e1 = _assert_close(torch, y, dk._norm_qkv_ref(
+            x, sc, ref_b, w, bq, kind=kind, eps=1e-5, wscale=ws),
+            GEMV_TOL["bfloat16"], f"fused_norm_qkv int8 {name}")
+        ctx = _randn(torch, (B, m), gen, dev).to(bf)
+        resid = _randn(torch, (B, d), gen, dev, 2).to(bf)
+        wo, wos = _int8_weight(torch, (m, d), gen, dev)
+        bo = bias(d)
+        r, h = dk.fused_proj_norm_int8_cuda(ctx, resid, wo, wos, bo, sc, nb,
+                                            kind=kind, eps=1e-5,
+                                            parallel=False)
+        torch.cuda.synchronize()
+        wr, wh = dk._proj_norm_ref(ctx, resid, wo, bo, sc, ref_b, kind=kind,
+                                   eps=1e-5, parallel=False, wscale=wos)
+        e2 = max(_assert_close(torch, r, wr, GEMV_TOL["bfloat16"],
+                               f"fused_proj_norm int8 r {name}"),
+                 _assert_close(torch, h, wh, GEMV_TOL["bfloat16"],
+                               f"fused_proj_norm int8 h {name}"))
+        hh = _randn(torch, (B, d), gen, dev).to(bf)
+        wu, su = _int8_weight(torch, (d, f), gen, dev)
+        wd, sd = _int8_weight(torch, (f, d), gen, dev)
+        wg, sg = _int8_weight(torch, (d, f), gen, dev) if glu else (None, None)
+        bu, bd = bias(f), bias(d)
+        y = dk.fused_mlp_int8_cuda(hh, resid, wu, wd, wg, (su, sg, sd), bu,
+                                   None, bd, act=act)
+        torch.cuda.synchronize()
+        e3 = _assert_close(torch, y, dk._mlp_ref(
+            hh, resid, wu, wg, wd, bu, None, bd, act=act,
+            wscales=(su, sg, sd)), GEMV_TOL["bfloat16"],
+            f"fused_mlp int8 {name}")
+        if name == "llama3-8b":
+            errs = {"fused_norm_qkv_int8": e1, "fused_proj_norm_int8": e2,
+                    "fused_mlp_int8": e3}
+        print(f"int8 GEMVs vs plain at {name} (D {d}, N {n}, F {f}, {kind}, "
+              f"{act}{' gated' if glu else ', no gate'}): bf16 within 2e-2; "
+              f"max abs err norm_qkv {e1:.3g}, proj_norm {e2:.3g}, mlp "
+              f"{e3:.3g}")
+        del w, wo, wu, wd, wg
+    return errs
+
+
+def time_generate_kernels(torch, dev, gen, errs):
+    """The contiguous flash_decode at 8 rows 264 deep in a 512-token cache
+    (generate()'s llama3-8b cell: 200-token prompts, 64 new), beside the
+    plain version and SDPA on the same work (GQA, a boolean mask by
+    position); the int8 GEMVs at llama3-8b's decode shapes, cycling through
+    weight copies past the 50 MB L2, beside the plain version and
+    ``torch.matmul`` of the bf16 weight as a yardstick (no PyTorch call
+    reads int8 weights)."""
+    import torch.nn.functional as F_
+
+    from deepspeed_tpu_torch.ops.kernels import decode as dk
+
+    bf = torch.bfloat16
+    out = {}
+    depth, Smax = 264, 512
+    k = _randn(torch, (2, B, HKV, Smax, DH), gen, dev).to(bf)
+    v = _randn(torch, (2, B, HKV, Smax, DH), gen, dev).to(bf)
+    q = _randn(torch, (B, H, DH), gen, dev).to(bf)
+    pos = depth - 1
+    keys = B * depth
+    nbytes = (2 * q.numel() + 2 * keys * HKV * DH) * 2
+    b_ms, b_by = bound_ms(nbytes, 4 * keys * H * DH, BF16_FLOPS_PER_S)
+    mask = (torch.arange(Smax, device=dev) <= pos)[None, None, None, :] \
+        .expand(B, 1, 1, Smax)
+    k1, v1, q4 = k[1], v[1], q[:, :, None, :]
+    out["flash_decode_contig"] = {
+        "shape": "q[8,32,128], cache [2,8,8,512,128] at layer 1, 264 deep, bf16",
+        "ms": time_ms(torch, lambda: dk.flash_decode_contig_cuda(
+            q, k, v, pos, scale=DH ** -0.5, layer=1)),
+        "plain_ms": time_ms(torch, lambda: dk._flash_decode_ref(
+            q, k1, v1, pos, scale=DH ** -0.5)),
+        "library_ms": time_ms(torch, lambda: F_.scaled_dot_product_attention(
+            q4, k1, v1, attn_mask=mask, enable_gqa=True)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "max_abs_err": errs["flash_decode_contig"]}
+    del k, v
+
+    zeros = torch.zeros(D, device=dev, dtype=bf)
+    x = _randn(torch, (B, D), gen, dev, 2).to(bf)
+    s = (1 + 0.1 * torch.randn(D, device=dev, generator=gen)).to(bf)
+    wq = [_int8_weight(torch, (D, NQKV), gen, dev) for _ in range(4)]
+    nw = cycler(wq)
+    dense = (_randn(torch, (D, NQKV), gen, dev) * D ** -0.5).to(bf)
+    nbytes = (x.numel() + s.numel() + B * NQKV) * 2 + D * NQKV + 4 * NQKV
+    b_ms, b_by = bound_ms(nbytes, 2 * B * D * NQKV, BF16_FLOPS_PER_S)
+
+    def qkv_plain():
+        w, ws = nw()
+        return dk._norm_qkv_ref(x, s, zeros, w, None, kind="rmsnorm",
+                                eps=1e-5, wscale=ws)
+    out["fused_norm_qkv_int8"] = {
+        "shape": "x[8,4096] . wqkv[4096,6144] int8 + fp32 scales, bf16",
+        "ms": time_ms(torch, lambda: dk.fused_norm_qkv_int8_cuda(
+            x, s, None, *nw(), kind="rmsnorm", eps=1e-5)),
+        "plain_ms": time_ms(torch, qkv_plain, samples=10),
+        "matmul_ms": time_ms(torch, lambda: torch.matmul(x, dense)),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+        "max_abs_err": errs["fused_norm_qkv_int8"]}
+    del wq, nw, dense
+
+    ctx = _randn(torch, (B, H * DH), gen, dev).to(bf)
+    resid = _randn(torch, (B, D), gen, dev, 2).to(bf)
+    wo = [_int8_weight(torch, (H * DH, D), gen, dev) for _ in range(6)]
+    nw = cycler(wo)
+    dense = (_randn(torch, (H * DH, D), gen, dev) * D ** -0.5).to(bf)
+    nbytes = (ctx.numel() + resid.numel() + D + 2 * B * D) * 2 \
+        + H * DH * D + 4 * D
+    b_ms, b_by = bound_ms(nbytes, 2 * B * H * DH * D, BF16_FLOPS_PER_S)
+
+    def proj():
+        w, ws = nw()
+        return dk.fused_proj_norm_int8_cuda(ctx, resid, w, ws, None, s, None,
+                                            kind="rmsnorm", eps=1e-5,
+                                            parallel=False)
+
+    def proj_plain():
+        w, ws = nw()
+        return dk._proj_norm_ref(ctx, resid, w, None, s, zeros,
+                                 kind="rmsnorm", eps=1e-5, parallel=False,
+                                 wscale=ws)
+    out["fused_proj_norm_int8"] = {
+        "shape": "ctx[8,4096] . wo[4096,4096] int8 + fp32 scales, bf16",
+        "ms": time_ms(torch, proj),
+        "plain_ms": time_ms(torch, proj_plain, samples=10),
+        "matmul_ms": time_ms(torch, lambda: torch.matmul(ctx, dense)),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+        "max_abs_err": errs["fused_proj_norm_int8"]}
+    del wo, nw, dense
+
+    h = _randn(torch, (B, D), gen, dev).to(bf)
+    wu, su = _int8_weight(torch, (D, F), gen, dev)
+    wg, sg = _int8_weight(torch, (D, F), gen, dev)
+    wd, sd = _int8_weight(torch, (F, D), gen, dev)
+    a = torch.randn(B, F, device=dev, generator=gen).to(bf)
+    dwu = (_randn(torch, (D, F), gen, dev) * D ** -0.5).to(bf)
+    dwd = (_randn(torch, (F, D), gen, dev) * F ** -0.5).to(bf)
+    nbytes = (2 * h.numel() + B * D) * 2 + 3 * D * F + 4 * (2 * F + D)
+    b_ms, b_by = bound_ms(nbytes, 6 * B * D * F, BF16_FLOPS_PER_S)
+    out["fused_mlp_int8"] = {
+        "shape": "h[8,4096] . wg,wu[4096,14336], a . wd[14336,4096] int8 + "
+                 "fp32 scales, bf16",
+        "ms": time_ms(torch, lambda: dk.fused_mlp_int8_cuda(
+            h, resid, wu, wd, wg, (su, sg, sd), act="silu")),
+        "plain_ms": time_ms(torch, lambda: dk._mlp_ref(
+            h, resid, wu, wg, wd, None, None, None, act="silu",
+            wscales=(su, sg, sd)), samples=10),
+        "matmul_ms": time_ms(torch, lambda: (torch.matmul(h, dwu),
+                                             torch.matmul(h, dwu),
+                                             torch.matmul(a, dwd))),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+        "max_abs_err": errs["fused_mlp_int8"]}
+    return out
+
 
 # llama-1b4 training shapes: micro 4 x S 2048, D 2048, 16 heads of 128,
 # the [24, 2048, 5632] MLP leaf for Adam
@@ -1228,11 +1486,14 @@ def phase_kernels(torch, dev):
     errs.update(check_train_kernels(torch, dev, gen))
     errs.update(check_gpt2_kernels(torch, dev, gen))
     errs.update(check_optimizer_kernels(torch, dev, gen))
+    errs["flash_decode_contig"] = check_contig_decode(torch, dev, gen)
+    errs.update(check_int8_gemvs(torch, dev, gen))
     out = time_old_kernels(torch, dev, gen, errs)
     out.update(time_decode_kernels(torch, dev, gen, errs))
     out.update(time_train_kernels(torch, dev, gen, errs))
     out.update(time_gpt2_kernels(torch, dev, gen, errs))
     out.update(time_optimizer_kernels(torch, dev, gen, errs))
+    out.update(time_generate_kernels(torch, dev, gen, errs))
     out["rms_norm"]["max_abs_err_train_shape"] = errs["rms_norm_train"]
     out["rope"]["max_abs_err_train_shape"] = errs["rope_train"]
     for name, e in gpt2_decode.items():
@@ -1306,13 +1567,38 @@ def phase_reference(torch, dev, preset):
               f"{'fused' if fused else 'unfused'} decode, card == CPU on "
               f"{len(prompts)} requests x 16 tokens "
               f"({len({t for o in outs[0] for t in o})} distinct)")
+    # generate(): the contiguous cache; fp32 fused and unfused, and int8
+    # weights (bf16 activations) on the fused path
+    batch = np.stack([np.random.default_rng(10 + i).integers(0, 1024, 70)
+                      for i in range(3)])
+    for dtype, fused in (("float32", True), ("float32", False),
+                         ("int8", True)):
+        cfg = {"dtype": dtype, "max_out_tokens": 512}
+        if not fused:
+            cfg["use_fused_decode"] = False
+        outs = []
+        for d in ("cpu", dev):
+            eng = deepspeed_tpu_torch.init_inference(model, cfg, device=d)
+            check((eng._dparams is not None) is fused,
+                  f"generate {dtype} fused={fused}: wrong decode path")
+            outs.append(eng.generate(batch, max_new_tokens=16).cpu())
+            del eng
+        check(torch.equal(outs[0], outs[1]), f"generate {dtype} fused={fused}:"
+              f" card vs CPU tokens differ: {outs}")
+        print(f"reference: small {preset} model, generate() {dtype}"
+              f"{' weights' if dtype == 'int8' else ''}, "
+              f"{'fused' if fused else 'unfused'} decode, card == CPU on "
+              f"{len(batch)} rows x 16 tokens "
+              f"({len(set(outs[0][:, 70:].reshape(-1).tolist()))} distinct)")
 
 
 KERNELS = ("rms_norm", "rope", "fused_norm_qkv", "flash_decode",
            "fused_proj_norm", "fused_mlp", "rms_norm_bwd",
            "flash_attention_fwd", "flash_attention_bwd", "fused_adam",
            "layer_norm", "layer_norm_bwd", "scaled_masked_softmax", "bias_act",
-           "quantize", "fused_adam8bit", "fused_lamb_phase1", "fused_lamb_scale")
+           "quantize", "fused_adam8bit", "fused_lamb_phase1", "fused_lamb_scale",
+           "flash_decode_contig", "fused_norm_qkv_int8", "fused_proj_norm_int8",
+           "fused_mlp_int8")
 
 
 def launch_counters():
@@ -1339,7 +1625,11 @@ def launch_counters():
             "scaled_masked_softmax": scaled_masked_softmax,
             "bias_act": bias_act, "quantize": quantize,
             "fused_adam8bit": fused_adam8bit_update,
-            "fused_lamb_phase1": lamb_phase1, "fused_lamb_scale": lamb_scale}
+            "fused_lamb_phase1": lamb_phase1, "fused_lamb_scale": lamb_scale,
+            "flash_decode_contig": dk.flash_decode_contig_cuda,
+            "fused_norm_qkv_int8": dk.fused_norm_qkv_int8_cuda,
+            "fused_proj_norm_int8": dk.fused_proj_norm_int8_cuda,
+            "fused_mlp_int8": dk.fused_mlp_int8_cuda}
 
 
 def zero_counts():
@@ -1608,6 +1898,311 @@ def phase_profile(torch, serve, prompts):
     return out
 
 
+# generate()'s llama3-8b cell: 8 prompts of 200 tokens, 64 new
+GEN_ROWS, GEN_PROMPT, GEN_NEW = 8, 200, 64
+
+
+def generate_plan(cfg, forwards, int8=False):
+    """Launches one generate() call must make: its prefill (one forward over
+    the padded prompt bucket: 2L+1 norms and, for a RoPE model, 2L RoPEs)
+    and ``forwards`` decode steps, each L calls of the four fused kernels
+    (the contiguous flash_decode; the int8 bodies of the three GEMVs with
+    int8 weights) and the final norm."""
+    L = cfg.num_layers
+    plan = {k: 0 for k in KERNELS}
+    plan[norm_kernel(cfg)] = 2 * L + 1 + forwards
+    if cfg.position == "rope":
+        plan["rope"] = 2 * L
+    sfx = "_int8" if int8 else ""
+    for k in ("fused_norm_qkv", "fused_proj_norm", "fused_mlp"):
+        plan[k + sfx] = L * forwards
+    plan["flash_decode_contig"] = L * forwards
+    return plan
+
+
+def decode_forwards(n_new, n_max, eos, unroll):
+    """Decode forwards of one generate() call that returned ``n_new`` new
+    tokens a row: the loop forwards after every step but the last (n_max
+    steps: n_max - 1).  With an EOS id it reads the device every ``unroll``
+    steps, so it stops at the first multiple of ``unroll`` at or past the
+    step that finished the last row: up to unroll - 1 masked tail steps,
+    whose tokens are cut off."""
+    if not eos:
+        return n_max - 1
+    return min(-(-n_new // unroll) * unroll, n_max) - 1
+
+
+def resident_weight_bytes(*trees):
+    """Device bytes of weight trees (an inference engine's plain tree
+    ``_params`` and kernel-injected view ``_dparams``), each storage counted
+    once (the view's per-layer leaves are views of the tree)."""
+    from deepspeed_tpu_torch.models.quant import is_qtensor
+
+    seen = {}
+
+    def visit(t):
+        if isinstance(t, dict):
+            for v in t.values():
+                visit(v)
+        elif isinstance(t, (tuple, list)):
+            for v in t:
+                visit(v)
+        else:
+            for x in ((t.q, t.scale) if is_qtensor(t) else (t,)):
+                st = x.untyped_storage()
+                seen[st.data_ptr()] = st.nbytes()
+    for tree in trees:
+        visit(tree)
+    return sum(seen.values())
+
+
+def weight_bytes_from_shapes(cfg, int8):
+    """The same count from the leaf shapes alone: 2 bytes an element (bf16);
+    with int8 weights the stacked layer matmuls and the head 1 byte an
+    element plus a 4-byte scale a column of each layer; the injected view
+    adds the concatenated QKV (codes and scales with int8)."""
+    from deepspeed_tpu_torch.models.transformer import param_shapes
+
+    total = 0
+
+    def walk(spec, path):
+        nonlocal total
+        if isinstance(spec, dict):
+            for k, v in spec.items():
+                walk(v, path + (k,))
+            return
+        shape = spec[0]
+        n = math.prod(shape)
+        quant = int8 and ((path[0] == "layers" and len(shape) >= 3)
+                          or path == ("lm_head",))
+        total += n + 4 * (n // shape[-2]) if quant else 2 * n
+    walk(param_shapes(cfg), ())
+    L, D = cfg.num_layers, cfg.hidden_size
+    nqkv = (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim
+    total += L * D * nqkv + 4 * L * nqkv if int8 else 2 * L * D * nqkv
+    if cfg.use_bias or cfg.qkv_bias:
+        total += 2 * L * nqkv
+    return total
+
+
+def phase_generate_profile(torch, eng, prompts, int8):
+    """One more greedy generate() (8 rows, 24 new tokens) under
+    torch.profiler: device busy share of the wall clock, the top kernels and
+    each kernel's device time per launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.generate(prompts, max_new_tokens=24)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) is not None
+               and str(e.device_type).endswith("CUDA")
+               and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in kernels)
+    print(f"profile: generate(), {len(prompts)} x ({prompts.shape[1]} prompt + "
+          f"24 new) tokens, wall {wall_us / 1e3:.1f} ms, device busy "
+          f"{busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f}%, idle "
+          f"{100 - 100 * busy / wall_us:.1f}%)")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d}x "
+              f"{e.key[:90]}")
+    host = [e for e in prof.key_averages() if e.self_cpu_time_total > 0]
+    print(f"profile: host self time "
+          f"{sum(e.self_cpu_time_total for e in host) / 1e3:.1f} ms in "
+          f"profiled ops; top:")
+    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:6]:
+        print(f"  {e.self_cpu_time_total / 1e3:9.2f} ms {e.count:7d}x "
+              f"{e.key[:60]}")
+    sfx = "_int8" if int8 else ""
+    tags = {"rms_norm": ("rms_norm_fwd_kernel",), "rope": ("_rope_fwd_kernel",),
+            "fused_norm_qkv" + sfx: ("norm_qkv_kernel",),
+            "flash_decode_contig": ("flash_decode_paged_kernel",),
+            "fused_proj_norm" + sfx: ("proj_norm_kernel",),
+            "fused_mlp" + sfx: ("mlp_act_kernel", "mlp_down_kernel")}
+    out = {}
+    for name, keys in tags.items():
+        parts = [[e for e in kernels if tag in e.key] for tag in keys]
+        n = sum(e.count for e in parts[0])
+        if not n:
+            continue
+        out[name] = sum(e.self_device_time_total for p in parts
+                        for e in p) / n / 1e3
+        print(f"profile: {name} device time per launch {out[name]:.5f} ms "
+              f"over {n} launches")
+    return out
+
+
+def phase_generate(torch, dev):
+    """The main path of this slice: ``init_inference(causal_lm("llama3-8b"),
+    {"dtype": ..., "max_out_tokens": 1024}).generate()`` at full width and
+    depth, random bf16 weights from seed 0, in bf16 (``generate``) and with
+    int8 weights (``generate_int8``) on one model.  Each: 8 greedy prompts
+    of 200 tokens x 64 new; 3 of them with an EOS id from the first call's
+    output (the cache is reused: no rebind); top-k 50 sampling twice from
+    one seed (equal outputs); each call's launches, zeroed just before and
+    read just after, equal to its plan; then a profiled call.  int8: the
+    resident weight bytes equal the count from the leaf shapes, the share of
+    greedy tokens equal to the bf16 run's, and a short int8 wave through
+    ``init_serving``.  Returns {path: (launches of the first call, device
+    ms a launch)}."""
+    import gc
+
+    import numpy as np
+
+    import deepspeed_tpu_torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = deepspeed_tpu_torch.causal_lm("llama3-8b", dtype=torch.bfloat16,
+                                          seed=0)
+    cfg = model.config
+    print(f"generate: llama3-8b D={cfg.hidden_size} L={cfg.num_layers} "
+          f"H={cfg.num_heads}/{cfg.num_kv_heads} V={cfg.vocab_size}, bf16 "
+          f"random weights (seed 0), built in {time.perf_counter() - t0:.1f}s")
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                (GEN_ROWS, GEN_PROMPT))
+    runs, greedy = {}, {}
+    for name, dtype in (("generate", "bfloat16"), ("generate_int8", "int8")):
+        int8 = dtype == "int8"
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        eng = deepspeed_tpu_torch.init_inference(
+            model, {"dtype": dtype, "max_out_tokens": 1024})
+        torch.cuda.synchronize()
+        check(eng._dparams is not None, f"{name}: no kernel-injected view")
+        held = resident_weight_bytes(eng._params, eng._dparams)
+        want = weight_bytes_from_shapes(cfg, int8)
+        check(held == want, f"{name}: {held} resident weight bytes, the leaf "
+              f"shapes give {want}")
+        plain = resident_weight_bytes(eng._params)
+        print(f"{name}: engine built in {time.perf_counter() - t0:.1f}s; "
+              f"resident weights {held} B = the count from the leaf shapes "
+              f"({plain / 1e9:.3f} GB plain tree + {(held - plain) / 1e9:.3f} "
+              f"GB injected QKV)")
+        spent = {"prefill": 0.0}
+        eng._prefill = timed(torch, spent, "prefill", eng._prefill)
+        unroll = int(eng.config.decode_unroll)
+
+        def call(rows, what, eos=None, **kw):
+            zero_counts()
+            spent["prefill"] = 0.0
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = eng.generate(rows, eos_token_id=eos, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            launches = read_counts()
+            n_max = kw["max_new_tokens"]
+            n_new = out.shape[1] - rows.shape[1]
+            fw = decode_forwards(n_new, n_max, eos is not None, unroll)
+            plan = generate_plan(cfg, fw, int8)
+            check(launches == plan, f"{name} {what}: launches {launches} != "
+                  f"plan {plan}")
+            check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+                  f"{name} {what}: token id out of range")
+            dec = wall - spent["prefill"]
+            print(f"{name} {what}: {tuple(out.shape)} in {wall:.3f}s; prefill "
+                  f"{rows.size} tokens {rows.size / spent['prefill']:.1f} "
+                  f"tok/s; decode {fw} steps x {rows.shape[0]} rows "
+                  f"{fw * rows.shape[0] / dec:.1f} tok/s; launches = plan "
+                  f"({fw} forwards)")
+            return out.cpu(), launches
+
+        out, launches = call(prompts, "greedy", max_new_tokens=GEN_NEW)
+        check(out.shape == (GEN_ROWS, GEN_PROMPT + GEN_NEW),
+              f"{name}: greedy shape {tuple(out.shape)}")
+        check(torch.equal(out[:, :GEN_PROMPT], torch.from_numpy(prompts)),
+              f"{name}: the prompt is not the output's prefix")
+        greedy[name] = out
+        rebinds = eng.cache_rebinds
+        eos = int(out[0, GEN_PROMPT + 1])
+        out3, _ = call(prompts[:3], "eos", eos=eos, max_new_tokens=GEN_NEW)
+        check(eng.cache_rebinds == rebinds, f"{name}: batch 3 rebound the cache")
+        stopped = []
+        for r in range(3):
+            new = out3[r, GEN_PROMPT:]
+            hit = (new == eos).nonzero()
+            if len(hit):
+                check(bool((new[int(hit[0]):] == eos).all()),
+                      f"{name}: row {r} not EOS-padded after its EOS")
+                stopped.append((r, int(hit[0]) + 1))
+        check(stopped, f"{name}: no row reached EOS {eos}")
+        print(f"{name} eos: EOS {eos}; rows stopped at their n-th new token "
+              f"{stopped}; cache rebinds {eng.cache_rebinds}")
+        samples = [call(prompts, "top-k 50 sample", max_new_tokens=32,
+                        do_sample=True, top_k=50,
+                        rng=torch.Generator(device=dev).manual_seed(1234))[0]
+                   for _ in range(2)]
+        check(torch.equal(*samples), f"{name}: sampling from one seed differs")
+        print(f"{name} sample: two top-k 50 draws from one seed are equal "
+              f"({len(set(samples[0][:, GEN_PROMPT:].reshape(-1).tolist()))} "
+              f"distinct tokens)")
+        del eng._prefill
+        device_ms = phase_generate_profile(torch, eng, prompts, int8)
+        print(f"{name}: peak device memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+        runs[name] = (launches, device_ms)
+        del eng
+    share = float((greedy["generate_int8"][:, GEN_PROMPT:]
+                   == greedy["generate"][:, GEN_PROMPT:]).float().mean())
+    print(f"generate_int8: {100 * share:.1f}% of the greedy tokens equal the "
+          f"bf16 run's (position for position; the JAX test asks >= 75% on "
+          f"its tiny model)")
+    phase_int8_serve(torch, model, prompts)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
+
+
+def phase_int8_serve(torch, model, prompts):
+    """A short int8 wave through ``init_serving``: 4 requests x 32 tokens
+    on the paged fused path, the paged flash_decode beside the int8 GEMVs;
+    launches equal to the serving plan with the GEMVs on their int8
+    bodies."""
+    import gc
+
+    import deepspeed_tpu_torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve = deepspeed_tpu_torch.init_serving(
+        model, config={"dtype": "int8", "max_out_tokens": 1024},
+        num_slots=8, prefill_chunk=64)
+    check(serve.engine._dparams is not None, "int8 serving: no injected view")
+    zero_counts()
+    t0 = time.perf_counter()
+    reqs = [serve.submit(p, max_new_tokens=32) for p in prompts[:4]]
+    serve.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    for r in reqs:
+        check(r.finish_reason == "length" and len(r.output_tokens) == 32,
+              f"int8 serving: {r.finish_reason} / {len(r.output_tokens)}")
+    st = serve.stats
+    plan = launch_plan(model.config, st["prefill_chunks"],
+                       st["decode_blocks"] * serve._K, fused=True)
+    for k in ("fused_norm_qkv", "fused_proj_norm", "fused_mlp"):
+        plan[k + "_int8"], plan[k] = plan[k], 0
+    check(launches == plan, f"int8 serving launches {launches} != {plan}")
+    serve.pool.check_no_leak()
+    print(f"int8 serve: 4 requests x 32 tokens in {wall:.2f}s, "
+          f"{st['prefill_chunks']} prefill chunks, "
+          f"{st['decode_blocks'] * serve._K} decode steps; launches = plan "
+          f"(paged flash_decode {launches['flash_decode']}, int8 GEMVs "
+          f"{launches['fused_norm_qkv_int8']} / "
+          f"{launches['fused_proj_norm_int8']} / {launches['fused_mlp_int8']})")
+    serve.close()
+
+
 # the train cells: preset -> (micro batch, sequence length); 16384 tokens a
 # step each with gas 2
 TRAIN_CELLS = {"llama-1b4": (4, 2048), "gpt2-xl": (8, 1024)}
@@ -1698,8 +2293,7 @@ def phase_train_reference(torch, dev, preset, remat_policy):
     import deepspeed_tpu_torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    over = dict(SMALL[preset], num_heads=4, remat=True,
-                remat_policy=remat_policy)
+    over = dict(SMALL[preset], remat=True, remat_policy=remat_policy)
     cfg = dict(TRAIN_CONFIG, bf16={"enabled": False},
                train_micro_batch_size_per_gpu=2)
     tok = np.random.default_rng(0).integers(0, 1024, (4, 200))   # ragged S
@@ -1717,9 +2311,50 @@ def phase_train_reference(torch, dev, preset, remat_policy):
         check(abs(a - b) <= 1e-4 * abs(a), f"card vs CPU losses {lg} vs {lc}")
     diff = max(float((a - b).abs().max()) for a, b in zip(pc, pg))
     check(diff <= 1e-4, f"card vs CPU weights differ by {diff}")
-    print(f"reference: small fp32 {preset} model (L 2, D 256, Dh 64, S 200, "
-          f"remat {remat_policy}) trained 3 steps, card == CPU: losses {lg} vs "
-          f"{lc}, weights max abs diff {diff:.3g}")
+    print(f"reference: small fp32 {preset} model (L 2, D 256, Dh "
+          f"{256 // SMALL[preset]['num_heads']}, S 200, remat {remat_policy}) "
+          f"trained 3 steps, card == CPU: losses {lg} vs {lc}, weights max abs "
+          f"diff {diff:.3g}")
+
+
+def phase_preset_train_reference(torch, dev):
+    """The llama-tiny preset as it is (D 256, 8 heads of 32, 4 layers,
+    vocab 32000: flash attention at head dim 32) trained 3 fp32 steps on the
+    card and on the CPU: the bounds of phase_train_reference."""
+    import numpy as np
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dict(TRAIN_CONFIG, bf16={"enabled": False},
+               train_micro_batch_size_per_gpu=2)
+    tok = np.random.default_rng(0).integers(0, 32000, (4, 200))
+    runs = {}
+    for d in ("cpu", dev):
+        model = deepspeed_tpu_torch.causal_lm("llama-tiny", device="cpu",
+                                              seed=0)
+        engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=cfg,
+                                                    device=d)
+        before = fa.flash_attention.launches
+        losses = [float(engine.train_step((tok, tok))) for _ in range(3)]
+        check((fa.flash_attention.launches > before) == (d != "cpu"),
+              "the card run did not launch flash attention")
+        runs[str(d)] = (losses, [p.cpu() for p in engine.master])
+    (lc, pc), (lg, pg) = runs["cpu"], runs[str(dev)]
+    cfg_m = model.config
+    check(all(math.isfinite(x) for x in lg) and lg[-1] < lg[0],
+          f"llama-tiny card losses {lg}")
+    for a, b in zip(lc, lg):
+        check(abs(a - b) <= 1e-4 * abs(a), f"llama-tiny card vs CPU losses "
+              f"{lg} vs {lc}")
+    diff = max(float((a - b).abs().max()) for a, b in zip(pc, pg))
+    check(diff <= 1e-4, f"llama-tiny card vs CPU weights differ by {diff}")
+    print(f"reference: the llama-tiny preset unmodified (L {cfg_m.num_layers}, "
+          f"D {cfg_m.hidden_size}, {cfg_m.num_heads} heads of "
+          f"{cfg_m.head_dim}, V {cfg_m.vocab_size}, S 200) trained 3 fp32 "
+          f"steps, card == CPU: losses {lg} vs {lc}, weights max abs diff "
+          f"{diff:.3g}")
 
 
 def phase_optimizer_reference(torch, dev):
@@ -1741,8 +2376,7 @@ def phase_optimizer_reference(torch, dev):
     import deepspeed_tpu_torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    over = dict(SMALL["llama-tiny"], num_heads=4, remat=True,
-                remat_policy="mlp_dots")
+    over = dict(SMALL["llama-tiny"], remat=True, remat_policy="mlp_dots")
     lr = TRAIN_CONFIG["optimizer"]["params"]["lr"]
     cases = {
         "FusedLamb fp32": dict(optimizer=dict(TRAIN_CONFIG["optimizer"],
@@ -2020,12 +2654,14 @@ def main() -> int:
     for preset, policy in (("llama-tiny", "mlp_dots"), ("gpt2-small", "full")):
         phase_reference(torch, dev, preset)
         phase_train_reference(torch, dev, preset, policy)
+    phase_preset_train_reference(torch, dev)
     phase_optimizer_reference(torch, dev)
     # each path: (launch counts of its run, device ms per call in its profile)
     peaks = {}
     runs = {"ops": (phase_ops(torch, dev), {}),
             "serve": phase_serve(torch, dev, "llama3-8b"),
             "gpt2_serve": phase_serve(torch, dev, "gpt2-xl"),
+            **phase_generate(torch, dev),
             "train": phase_train(torch, dev, "llama-1b4", "train", peaks=peaks),
             "gpt2_train": phase_train(torch, dev, "gpt2-xl", "gpt2_train",
                                       peaks=peaks),
@@ -2078,6 +2714,15 @@ def main() -> int:
          "trust-ratio combine after it)", "lamb_train"),
         ("fused_lamb_scale", "cuda", lamb_src, "fused_lamb.py:68",
          "fused_lamb_update (_scale_kernel, pallas_call :128)", "lamb_train"),
+        ("flash_decode_contig", "cuda", src, "decode.py:319",
+         "flash_decode (contiguous cache: _flash_decode_kernel, pallas_call "
+         ":390)", "generate"),
+        ("fused_norm_qkv_int8", "cuda", src, "decode.py:123",
+         "fused_norm_qkv (quant=True: _deq, decode.py:88)", "generate_int8"),
+        ("fused_proj_norm_int8", "cuda", src, "decode.py:433",
+         "fused_proj_norm (quant=True)", "generate_int8"),
+        ("fused_mlp_int8", "cuda", src, "decode.py:546",
+         "fused_mlp (quant=True)", "generate_int8"),
     ]
     check([row[0] for row in table] == list(KERNELS), "kernel table out of step")
     kernels = []

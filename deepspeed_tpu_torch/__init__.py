@@ -5,10 +5,14 @@ imports torch and never jax, and nothing of ``deepspeed_tpu``.  Entry
 points run on the CUDA card unless the caller passes ``device="cpu"``; with
 no card and no device given they raise.
 
-It serves the Llama family through the paged continuous-batching engine.
+It serves the Llama and GPT-2 families through the paged
+continuous-batching engine (:func:`init_serving`) and generates through
+:func:`init_inference` (``InferenceEngine.generate()`` over a contiguous KV
+cache), in bf16, fp32 or with int8 weights.
 Decode runs the kernel-injected (fused) path by default: four CUDA C++
-kernels per layer (fused norm+QKV, paged flash-decode attention,
-out-projection+residual+norm, fused MLP); ``use_fused_decode: False``
+kernels per layer (fused norm+QKV, flash-decode attention over the paged
+pool or the contiguous cache, out-projection+residual+norm, fused MLP; int8
+weights dequantized inside the three GEMV kernels); ``use_fused_decode: False``
 keeps the unfused path.  Prefill runs RMSNorm (CUDA C++) and RoPE
 (Triton).  It trains the Llama family on one card through
 :func:`initialize` (the standard path: bf16 compute, fp32 masters,
@@ -27,7 +31,7 @@ from typing import Any
 from deepspeed_tpu_torch.accelerator.real_accelerator import DeviceLike
 from deepspeed_tpu_torch.models import causal_lm
 
-__all__ = ["initialize", "init_serving", "causal_lm"]
+__all__ = ["initialize", "init_inference", "init_serving", "causal_lm"]
 
 
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,
@@ -62,6 +66,33 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     return engine, engine.optimizer, None, engine.lr_scheduler
 
 
+def _merge_inference_config(config, kwargs):
+    """Overlay config-key kwargs on ``config`` (a dict, a config instance or
+    None) without dropping the instance's settings."""
+    from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
+
+    if isinstance(config, DeepSpeedInferenceConfig):
+        config = config.model_dump()
+    return DeepSpeedInferenceConfig(**{**(config or {}), **kwargs})
+
+
+def init_inference(model=None, config=None, *, params: Any = None,
+                   device: DeviceLike = None, **config_kwargs):
+    """Create an :class:`~deepspeed_tpu_torch.inference.engine.
+    InferenceEngine` (counterpart of ``deepspeed_tpu.init_inference``):
+    ``engine.generate(input_ids, max_new_tokens=...)`` and ``engine(tokens)``
+    for plain logits.  ``config`` is a dict or a
+    :class:`~deepspeed_tpu_torch.inference.config.DeepSpeedInferenceConfig`;
+    extra keyword arguments are config keys laid over it.  ``params`` is the
+    nested parameter dict (default: the model's own weights); ``device=None``
+    is the CUDA card."""
+    from deepspeed_tpu_torch.inference.engine import InferenceEngine
+
+    return InferenceEngine(model, _merge_inference_config(config,
+                                                          config_kwargs),
+                           params=params, device=device)
+
+
 def init_serving(model=None, config=None, *, params: Any = None,
                  device: DeviceLike = None, num_slots: int = 0,
                  prefill_chunk: int = 0, decode_block_tokens: int = 0,
@@ -74,12 +105,9 @@ def init_serving(model=None, config=None, *, params: Any = None,
     extra keyword arguments are config keys laid over it.  ``params`` is
     the nested parameter dict (default: the model's own weights);
     ``device=None`` is the CUDA card."""
-    from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
     from deepspeed_tpu_torch.serving.engine import ServingEngine
 
-    if isinstance(config, DeepSpeedInferenceConfig):
-        config = config.model_dump()
-    config = DeepSpeedInferenceConfig(**{**(config or {}), **config_kwargs})
+    config = _merge_inference_config(config, config_kwargs)
     return ServingEngine(model, config, params=params, device=device,
                          num_slots=num_slots, prefill_chunk=prefill_chunk,
                          decode_block_tokens=decode_block_tokens,

@@ -8,6 +8,13 @@
 //   fused_proj_norm     (decode.py:433, pallas_call :460) -> proj_norm_kernel
 //   fused_mlp           (decode.py:546, pallas_call :591) -> mlp_act_kernel
 //                                                            + mlp_down_kernel
+//   flash_decode        (decode.py:319, pallas_call :390) -> flash_decode_paged_kernel
+//     over a contiguous [L, B, Hkv, Smax, Dh] cache (generate()), through
+//     its own entry, ds_flash_decode_contig
+//
+// and the int8-weight bodies of the three GEMV kernels (their `quant=True`
+// branch, `_deq` decode.py:88), each through its own entry (the `_int8`
+// functions below).
 //
 // What bounds them on the H100: memory bytes.  A decode step multiplies
 // num_slots (8) activation rows by each weight matrix: about 8 flops per
@@ -15,7 +22,9 @@
 // the limit.  At llama3-8b the three GEMV kernels stream 50.3 MB (QKV),
 // 33.6 MB (out-projection) and 352.3 MB (MLP) of weights per layer, bounds
 // of 15.0, 10.0 and 105.2 us at 3.35 TB/s; the attention kernel reads the
-// K/V rows up to each slot's depth (9.8 MB for 8 slots at depth 300).
+// K/V rows up to each slot's depth (9.8 MB for 8 slots at depth 300).  With
+// int8 weights the GEMVs read half the bytes: 25.2, 16.8 and 176.2 MB, bounds
+// of 7.5, 5.0 and 52.6 us.
 //
 // Design of the three GEMV kernels (one shared core, gemv_partial +
 // reduce_tile): the grid splits the output columns into tiles of kCV
@@ -45,6 +54,17 @@
 //     (so the down projection reads a row's B values as 16-byte vectors),
 //     and mlp_down computes r + a @ Wd over output-column tiles.
 //
+// int8 weights (bf16 activations only, as the JAX int8 engine serves): the
+// same kernels over a weight type W = int8_t.  A thread still owns V = 8
+// columns, now one 8-byte vector of codes a row, and keeps twice the rows in
+// flight (the same 16 registers of loads, the same kBT x 8 accumulators);
+// its 8 columns' fp32 scales are loaded once into registers.  Each element is
+// dequantized as the reference's `_deq` does it: code x scale in fp32,
+// rounded to bf16, then the product with the bf16 activation summed in fp32.
+// Measured on the H100 (PERF.md §6): the int8 bodies run no faster than the
+// bf16 ones, so the GEMV core is bound by issue and latency, not by bytes
+// (bf16 fused_mlp at 1.5x its bound); halving the bytes needs a faster core.
+//
 // Design of flash_decode_paged_kernel: one block per (slot, KV head); the
 // rep query heads of a GQA group share each K/V row.  The block reads its
 // slot's depth and page-table row itself (the Pallas kernel's scalar
@@ -54,6 +74,15 @@
 // head, and the warps' (m, l, acc) are merged in a fixed order at the end.
 // The layer's pool is addressed in place (the wrapper offsets the stacked
 // [L, P, Hkv, page, Dh] pointer): no copy, no gather.
+//
+// The contiguous cache of generate() ([L, B, Hkv, Smax, Dh], the Pallas
+// `_flash_decode_kernel` over its BlockSpec grid) runs the same kernel: the
+// layer's [B, Hkv, Smax, Dh] slice is a pool whose page is Smax and whose
+// page of row b is b (no table: the block computes its row's base address
+// itself).  Any Smax >= 1 (the Pallas path sends Smax % 256 != 0 to the
+// dense reference), and the shared memory does not grow with Smax.  The
+// position is a per-row [B] vector, or one scalar for the whole batch
+// (generate()'s loop: no position tensor is built per token).
 //
 // Nothing is allocated here: the wrappers pass outputs, scratch, the
 // proj_norm ticket and the stream.  Every entry point returns the
@@ -103,6 +132,35 @@ template <typename T>
 struct alignas(16) Pack {
   static constexpr int N = 16 / sizeof(T);
   T v[N];
+};
+
+// V columns of one weight row, loaded as one vector: 16 bytes of a dense
+// weight of the activation dtype, or V int8 codes (8 bytes at bf16).
+template <typename W, int V>
+struct alignas(sizeof(W) * V) WVec {
+  W v[V];
+};
+
+// How a weight element becomes the fp32 factor of a product, for a thread
+// whose V columns are fixed for the whole launch.  Dense: the element.
+template <typename T, typename W>
+struct Deq {
+  __device__ __forceinline__ void load(const float*, int, bool) {}
+  __device__ __forceinline__ float operator()(W w, int) const { return to_f32(w); }
+};
+
+// int8 (decode.py `_deq`): code x its column's fp32 scale, rounded to the
+// activation dtype T, widened again; the V scales held in registers.
+template <typename T>
+struct Deq<T, int8_t> {
+  float s[Pack<T>::N];
+  __device__ __forceinline__ void load(const float* __restrict__ scale, int col, bool ok) {
+#pragma unroll
+    for (int j = 0; j < Pack<T>::N; ++j) s[j] = ok ? scale[col + j] : 0.f;
+  }
+  __device__ __forceinline__ float operator()(int8_t w, int j) const {
+    return to_f32(from_f32<T>(static_cast<float>(w) * s[j]));
+  }
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -166,42 +224,45 @@ __device__ __forceinline__ void stage_rows(T* dst, const T* __restrict__ src, in
 }
 
 // One thread's share of its block's column tile: rows d = rs, rs + kRS, ...
-// of W [K, N] at the 16-byte column vector starting at `col`, times the
-// pass's activations of each row (act_row(d, a) fills a[0..kBT), zero past
-// the pass's rows), summed in fp32.  The main loop loads kUnroll weight
-// rows, unconditionally, before it multiplies any.
-template <typename T, int NT, class ActRow>
-__device__ __forceinline__ void gemv_partial(const T* __restrict__ W, int K, int N, int col,
+// of Wm [K, N] at the V-column vector starting at `col`, each element made a
+// factor by `deq`, times the pass's activations of each row (act_row(d, a)
+// fills a[0..kBT), zero past the pass's rows), summed in fp32.  The main
+// loop loads kU weight rows, unconditionally, before it multiplies any: as
+// many bytes in flight as kUnroll rows of 16-byte vectors.
+template <typename T, typename W, int NT, class ActRow>
+__device__ __forceinline__ void gemv_partial(const W* __restrict__ Wm, int K, int N, int col,
                                              bool col_ok, int rs, ActRow act_row,
+                                             const Deq<T, W>& deq,
                                              float (&acc)[kBT][Pack<T>::N]) {
-  using P = Pack<T>;
-  constexpr int V = P::N;
+  constexpr int V = Pack<T>::N;
+  using P = WVec<W, V>;
+  constexpr int kU = kUnroll * 16 / static_cast<int>(sizeof(P));
 #pragma unroll
   for (int b = 0; b < kBT; ++b)
 #pragma unroll
     for (int j = 0; j < V; ++j) acc[b][j] = 0.f;
   if (!col_ok) return;
   constexpr int kRS = NT / kCV;
-  const T* wp = W + col;
+  const W* wp = Wm + col;
   auto fma_row = [&](const P& w, int d) {
     float a[kBT];
     act_row(d, a);
     float wf[V];
 #pragma unroll
-    for (int j = 0; j < V; ++j) wf[j] = to_f32(w.v[j]);
+    for (int j = 0; j < V; ++j) wf[j] = deq(w.v[j], j);
 #pragma unroll
     for (int b = 0; b < kBT; ++b)
 #pragma unroll
       for (int j = 0; j < V; ++j) acc[b][j] = fmaf(a[b], wf[j], acc[b][j]);
   };
   int d = rs;
-  for (; d + (kUnroll - 1) * kRS < K; d += kUnroll * kRS) {
-    P w[kUnroll];
+  for (; d + (kU - 1) * kRS < K; d += kU * kRS) {
+    P w[kU];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u)
+    for (int u = 0; u < kU; ++u)
       w[u] = *reinterpret_cast<const P*>(wp + static_cast<size_t>(d + u * kRS) * N);
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) fma_row(w[u], d + u * kRS);
+    for (int u = 0; u < kU; ++u) fma_row(w[u], d + u * kRS);
   }
   for (; d < K; d += kRS)
     fma_row(*reinterpret_cast<const P*>(wp + static_cast<size_t>(d) * N), d);
@@ -262,12 +323,12 @@ __device__ __forceinline__ void reduce_tile(float (&acc)[kBT][Pack<T>::N], float
 // fused_norm_qkv: out[B, N] = (norm(x)[B, D] rounded to T) @ W[D, N] (+ bqkv)
 // ---------------------------------------------------------------------------
 
-template <typename T, int NT>
+template <typename T, typename W, int NT>
 __global__ void __launch_bounds__(NT, 512 / NT)
 norm_qkv_kernel(const T* __restrict__ x, const T* __restrict__ scale,
-                const T* __restrict__ bias, const T* __restrict__ w,
-                const T* __restrict__ bqkv, T* __restrict__ out, int B, int D, int N,
-                int kind, float eps) {
+                const T* __restrict__ bias, const W* __restrict__ w,
+                const float* __restrict__ wscale, const T* __restrict__ bqkv,
+                T* __restrict__ out, int B, int D, int N, int kind, float eps) {
   constexpr int V = Pack<T>::N;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* h = reinterpret_cast<T*>(smem_raw);  // [kBT, D]
@@ -276,6 +337,8 @@ norm_qkv_kernel(const T* __restrict__ x, const T* __restrict__ scale,
   const int tile0 = blockIdx.x * kCV * V;
   const int col = tile0 + (threadIdx.x % kCV) * V;
   const int rs = threadIdx.x / kCV;
+  Deq<T, W> deq;
+  deq.load(wscale, col, col < N);
   for (int b0 = 0; b0 < B; b0 += kBT) {
     const int bc = min(kBT, B - b0);
     stage_rows<T, NT>(h, x + static_cast<size_t>(b0) * D, bc * D);
@@ -290,7 +353,7 @@ norm_qkv_kernel(const T* __restrict__ x, const T* __restrict__ scale,
     }
     __syncthreads();
     float acc[kBT][V];
-    gemv_partial<T, NT>(w, D, N, col, col < N, rs, StagedRows<T>{h, D, bc}, acc);
+    gemv_partial<T, W, NT>(w, D, N, col, col < N, rs, StagedRows<T>{h, D, bc}, deq, acc);
     reduce_tile<T, NT>(acc, red, bc, [&](int b, int c, float y) {
       const int n = tile0 + c;
       if (n < N) {
@@ -305,10 +368,11 @@ norm_qkv_kernel(const T* __restrict__ x, const T* __restrict__ scale,
 // fused_proj_norm: r = resid + ctx @ wo (+ bo); h = norm(r in fp32 | resid)
 // ---------------------------------------------------------------------------
 
-template <typename T, int NT>
+template <typename T, typename W, int NT>
 __global__ void __launch_bounds__(NT, 512 / NT)
 proj_norm_kernel(const T* __restrict__ ctx, const T* __restrict__ resid,
-                 const T* __restrict__ wo, const T* __restrict__ bo,
+                 const W* __restrict__ wo, const float* __restrict__ wscale,
+                 const T* __restrict__ bo,
                  const T* __restrict__ scale, const T* __restrict__ bias,
                  T* __restrict__ r_out, T* __restrict__ h_out, float* __restrict__ r32,
                  unsigned int* __restrict__ ticket, int B, int M, int D, int kind, float eps,
@@ -322,12 +386,14 @@ proj_norm_kernel(const T* __restrict__ ctx, const T* __restrict__ resid,
   const int tile0 = blockIdx.x * kCV * V;
   const int col = tile0 + (threadIdx.x % kCV) * V;
   const int rs = threadIdx.x / kCV;
+  Deq<T, W> deq;
+  deq.load(wscale, col, col < D);
   for (int b0 = 0; b0 < B; b0 += kBT) {
     const int bc = min(kBT, B - b0);
     stage_rows<T, NT>(c_s, ctx + static_cast<size_t>(b0) * M, bc * M);
     __syncthreads();
     float acc[kBT][V];
-    gemv_partial<T, NT>(wo, M, D, col, col < D, rs, StagedRows<T>{c_s, M, bc}, acc);
+    gemv_partial<T, W, NT>(wo, M, D, col, col < D, rs, StagedRows<T>{c_s, M, bc}, deq, acc);
     reduce_tile<T, NT>(acc, red, bc, [&](int b, int c, float y) {
       const int n = tile0 + c;
       if (n < D) {
@@ -393,9 +459,10 @@ proj_norm_kernel(const T* __restrict__ ctx, const T* __restrict__ resid,
 // act(h @ Wu (+bu)) without a gate, rounded to T
 // ---------------------------------------------------------------------------
 
-template <typename T, int NT>
+template <typename T, typename W, int NT>
 __global__ void __launch_bounds__(NT, 512 / NT)
-mlp_act_kernel(const T* __restrict__ h, const T* __restrict__ wu, const T* __restrict__ wg,
+mlp_act_kernel(const T* __restrict__ h, const W* __restrict__ wu, const W* __restrict__ wg,
+               const float* __restrict__ su, const float* __restrict__ sg,
                const T* __restrict__ bu, const T* __restrict__ bg, T* __restrict__ a_t,
                int B, int D, int F, int act) {
   constexpr int V = Pack<T>::N;
@@ -412,7 +479,11 @@ mlp_act_kernel(const T* __restrict__ h, const T* __restrict__ wu, const T* __res
     __syncthreads();
     const StagedRows<T> hval{h_s, D, bc};
     float acc[kBT][V];
-    gemv_partial<T, NT>(wu, D, F, col, col < F, rs, hval, acc);
+    {
+      Deq<T, W> deq;
+      deq.load(su, col, col < F);
+      gemv_partial<T, W, NT>(wu, D, F, col, col < F, rs, hval, deq, acc);
+    }
     reduce_tile<T, NT>(acc, red, bc, [&](int b, int c, float y) {
       const int n = tile0 + c;
       if (n < F) {
@@ -424,7 +495,9 @@ mlp_act_kernel(const T* __restrict__ h, const T* __restrict__ wu, const T* __res
       }
     });
     if (wg) {
-      gemv_partial<T, NT>(wg, D, F, col, col < F, rs, hval, acc);
+      Deq<T, W> deq;
+      deq.load(sg, col, col < F);
+      gemv_partial<T, W, NT>(wg, D, F, col, col < F, rs, hval, deq, acc);
       reduce_tile<T, NT>(acc, red, bc, [&](int b, int c, float g) {
         const int n = tile0 + c;
         if (n < F) {
@@ -441,15 +514,18 @@ mlp_act_kernel(const T* __restrict__ h, const T* __restrict__ wu, const T* __res
 // fused_mlp, launch (b): out[B, D] = r + (a @ Wd (+ bd)), a read as a_t[F, B]
 // ---------------------------------------------------------------------------
 
-template <typename T, int NT>
+template <typename T, typename W, int NT>
 __global__ void __launch_bounds__(NT, 512 / NT)
-mlp_down_kernel(const T* __restrict__ a_t, const T* __restrict__ wd, const T* __restrict__ bd,
+mlp_down_kernel(const T* __restrict__ a_t, const W* __restrict__ wd,
+                const float* __restrict__ sd, const T* __restrict__ bd,
                 const T* __restrict__ r, T* __restrict__ out, int B, int F, int D) {
   constexpr int V = Pack<T>::N;
   __shared__ float red[NT / 32 * kCV * kBT * V];
   const int tile0 = blockIdx.x * kCV * V;
   const int col = tile0 + (threadIdx.x % kCV) * V;
   const int rs = threadIdx.x / kCV;
+  Deq<T, W> deq;
+  deq.load(sd, col, col < D);
   for (int b0 = 0; b0 < B; b0 += kBT) {
     const int bc = min(kBT, B - b0);
     // a_t row d holds the B activations of contraction row d: with B ==
@@ -469,7 +545,7 @@ mlp_down_kernel(const T* __restrict__ a_t, const T* __restrict__ wd, const T* __
       }
     };
     float acc[kBT][V];
-    gemv_partial<T, NT>(wd, F, D, col, col < D, rs, act_row, acc);
+    gemv_partial<T, W, NT>(wd, F, D, col, col < D, rs, act_row, deq, acc);
     reduce_tile<T, NT>(acc, red, bc, [&](int b, int c, float y) {
       const int n = tile0 + c;
       if (n < D) {
@@ -490,12 +566,14 @@ struct FdArgs {
   const void* q;            // [B, H, Dh]
   const void* kpool;        // [P, Hkv, page, Dh]: the layer's slice of the pool
   const void* vpool;
-  const long long* pos;     // [B]
-  const long long* table;   // [B, maxp]
+  const long long* pos;     // row b's depth at pos[b * pos_stride], or null: pos0
+  const long long* table;   // [B, maxp], or null: page b of a contiguous cache
   const float* slopes;      // [H] ALiBi slopes, or null
   void* out;                // [B, H, Dh]
   int H, Hkv, Dh, page, maxp;
   float scale;
+  long long pos0;
+  int pos_stride;
 };
 
 __host__ __device__ inline size_t fd_smem_bytes(int rep, int Dh, int maxp) {
@@ -523,11 +601,11 @@ __global__ void __launch_bounds__(kFdWarps * 32) flash_decode_paged_kernel(FdArg
   float* acc_s = q_s + rep * Dh;                                // [kFdWarps, rep, Dh]
   float* ml_s = acc_s + kFdWarps * rep * Dh;                    // [kFdWarps, rep, 2]
 
-  const long long p = a.pos[b];
+  const long long p = a.pos != nullptr ? a.pos[static_cast<size_t>(b) * a.pos_stride] : a.pos0;
   const int n_pages = static_cast<int>(min(p / page + 1, static_cast<long long>(a.maxp)));
   const int n_tok = static_cast<int>(min(p + 1, static_cast<long long>(n_pages) * page));
   for (int i = threadIdx.x; i < n_pages; i += blockDim.x)
-    pt_s[i] = a.table[static_cast<size_t>(b) * a.maxp + i];
+    pt_s[i] = a.table != nullptr ? a.table[static_cast<size_t>(b) * a.maxp + i] : b;
   const T* qg = q + (static_cast<size_t>(b) * a.H + static_cast<size_t>(g) * rep) * Dh;
   for (int i = threadIdx.x; i < rep * Dh; i += blockDim.x) q_s[i] = to_f32(qg[i]);
   __syncthreads();
@@ -658,64 +736,71 @@ bool narrow_blocks(int grid) {
   return grid > sms;
 }
 
-template <typename T>
+template <typename T, typename W>
 cudaError_t launch_norm_qkv(const void* x, const void* scale, const void* bias, const void* w,
-                            const void* bqkv, void* out, int B, int D, int N, int kind,
-                            float eps, cudaStream_t s) {
+                            const void* wscale, const void* bqkv, void* out, int B, int D,
+                            int N, int kind, float eps, cudaStream_t s) {
   const int grid = grid_for(N, Pack<T>::N);
   const bool narrow = narrow_blocks(grid);
-  auto kernel = narrow ? norm_qkv_kernel<T, kThreadsNarrow> : norm_qkv_kernel<T, kThreadsWide>;
+  auto kernel = narrow ? norm_qkv_kernel<T, W, kThreadsNarrow>
+                       : norm_qkv_kernel<T, W, kThreadsWide>;
   const size_t smem = static_cast<size_t>(min(B, kBT)) * D * sizeof(T);
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   kernel<<<grid, narrow ? kThreadsNarrow : kThreadsWide, smem, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(scale), static_cast<const T*>(bias),
-      static_cast<const T*>(w), static_cast<const T*>(bqkv), static_cast<T*>(out), B, D, N,
-      kind, eps);
+      static_cast<const W*>(w), static_cast<const float*>(wscale),
+      static_cast<const T*>(bqkv), static_cast<T*>(out), B, D, N, kind, eps);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_proj_norm(const void* ctx, const void* resid, const void* wo, const void* bo,
-                             const void* scale, const void* bias, void* r, void* h, void* r32,
-                             void* ticket, int B, int M, int D, int kind, float eps,
-                             int parallel, cudaStream_t s) {
+template <typename T, typename W>
+cudaError_t launch_proj_norm(const void* ctx, const void* resid, const void* wo,
+                             const void* wscale, const void* bo, const void* scale,
+                             const void* bias, void* r, void* h, void* r32, void* ticket, int B,
+                             int M, int D, int kind, float eps, int parallel, cudaStream_t s) {
   const int grid = grid_for(D, Pack<T>::N);
   const bool narrow = narrow_blocks(grid);
-  auto kernel = narrow ? proj_norm_kernel<T, kThreadsNarrow> : proj_norm_kernel<T, kThreadsWide>;
+  auto kernel = narrow ? proj_norm_kernel<T, W, kThreadsNarrow>
+                       : proj_norm_kernel<T, W, kThreadsWide>;
   const size_t smem = static_cast<size_t>(min(B, kBT)) * M * sizeof(T);
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   kernel<<<grid, narrow ? kThreadsNarrow : kThreadsWide, smem, s>>>(
-      static_cast<const T*>(ctx), static_cast<const T*>(resid), static_cast<const T*>(wo),
-      static_cast<const T*>(bo), static_cast<const T*>(scale), static_cast<const T*>(bias),
-      static_cast<T*>(r), static_cast<T*>(h), static_cast<float*>(r32),
-      static_cast<unsigned int*>(ticket), B, M, D, kind, eps, parallel);
+      static_cast<const T*>(ctx), static_cast<const T*>(resid), static_cast<const W*>(wo),
+      static_cast<const float*>(wscale), static_cast<const T*>(bo),
+      static_cast<const T*>(scale), static_cast<const T*>(bias), static_cast<T*>(r),
+      static_cast<T*>(h), static_cast<float*>(r32), static_cast<unsigned int*>(ticket), B, M,
+      D, kind, eps, parallel);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename W>
 cudaError_t launch_mlp(const void* h, const void* r, const void* wu, const void* wg,
-                       const void* wd, const void* bu, const void* bg, const void* bd,
-                       void* a_t, void* out, int B, int D, int F, int act, cudaStream_t s) {
+                       const void* wd, const void* su, const void* sg, const void* sd,
+                       const void* bu, const void* bg, const void* bd, void* a_t, void* out,
+                       int B, int D, int F, int act, cudaStream_t s) {
   int grid = grid_for(F, Pack<T>::N);
   bool narrow = narrow_blocks(grid);
-  auto act_kernel = narrow ? mlp_act_kernel<T, kThreadsNarrow> : mlp_act_kernel<T, kThreadsWide>;
+  auto act_kernel = narrow ? mlp_act_kernel<T, W, kThreadsNarrow>
+                           : mlp_act_kernel<T, W, kThreadsWide>;
   const size_t smem = static_cast<size_t>(min(B, kBT)) * D * sizeof(T);
   cudaError_t e = allow_smem(act_kernel, smem);
   if (e != cudaSuccess) return e;
   act_kernel<<<grid, narrow ? kThreadsNarrow : kThreadsWide, smem, s>>>(
-      static_cast<const T*>(h), static_cast<const T*>(wu), static_cast<const T*>(wg),
+      static_cast<const T*>(h), static_cast<const W*>(wu), static_cast<const W*>(wg),
+      static_cast<const float*>(su), static_cast<const float*>(sg),
       static_cast<const T*>(bu), static_cast<const T*>(bg), static_cast<T*>(a_t), B, D, F,
       act);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   grid = grid_for(D, Pack<T>::N);
   narrow = narrow_blocks(grid);
-  auto down_kernel = narrow ? mlp_down_kernel<T, kThreadsNarrow> : mlp_down_kernel<T, kThreadsWide>;
+  auto down_kernel = narrow ? mlp_down_kernel<T, W, kThreadsNarrow>
+                            : mlp_down_kernel<T, W, kThreadsWide>;
   down_kernel<<<grid, narrow ? kThreadsNarrow : kThreadsWide, 0, s>>>(
-      static_cast<const T*>(a_t), static_cast<const T*>(wd), static_cast<const T*>(bd),
-      static_cast<const T*>(r), static_cast<T*>(out), B, F, D);
+      static_cast<const T*>(a_t), static_cast<const W*>(wd), static_cast<const float*>(sd),
+      static_cast<const T*>(bd), static_cast<const T*>(r), static_cast<T*>(out), B, F, D);
   return cudaGetLastError();
 }
 
@@ -756,6 +841,20 @@ int pow2_at_least(int n) {
   return p;
 }
 
+int launch_flash_decode(const FdArgs& a, int B, int dtype, cudaStream_t s) {
+  const int rep = a.H / a.Hkv;
+  const int DI = pow2_at_least((a.Dh + 31) / 32);
+  const int R = pow2_at_least(rep);
+  if (DI > 8 || R > 8 || a.page <= 0 || a.maxp <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (dtype) {
+    case 0: return launch_fd_di<float>(a, B, DI, R, s);
+    case 1: return launch_fd_di<__nv_bfloat16>(a, B, DI, R, s);
+    case 2: return launch_fd_di<__half>(a, B, DI, R, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -770,11 +869,21 @@ int ds_fused_norm_qkv(const void* x, const void* scale, const void* bias, const 
   if (B <= 0 || N <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch_norm_qkv<float>(x, scale, bias, w, bqkv, out, B, D, N, kind, eps, s);
-    case 1: return launch_norm_qkv<__nv_bfloat16>(x, scale, bias, w, bqkv, out, B, D, N, kind, eps, s);
-    case 2: return launch_norm_qkv<__half>(x, scale, bias, w, bqkv, out, B, D, N, kind, eps, s);
+    case 0: return launch_norm_qkv<float, float>(x, scale, bias, w, nullptr, bqkv, out, B, D, N, kind, eps, s);
+    case 1: return launch_norm_qkv<__nv_bfloat16, __nv_bfloat16>(x, scale, bias, w, nullptr, bqkv, out, B, D, N, kind, eps, s);
+    case 2: return launch_norm_qkv<__half, __half>(x, scale, bias, w, nullptr, bqkv, out, B, D, N, kind, eps, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The int8-weight body: bf16 x, scale, bias, bqkv and out; w [D, N] int8
+// codes (8-byte aligned, N a multiple of 8), wscale [N] fp32.
+int ds_fused_norm_qkv_int8(const void* x, const void* scale, const void* bias, const void* w,
+                           const void* wscale, const void* bqkv, void* out, int B, int D, int N,
+                           int kind, float eps, void* stream) {
+  if (B <= 0 || N <= 0) return 0;
+  return launch_norm_qkv<__nv_bfloat16, int8_t>(x, scale, bias, w, wscale, bqkv, out, B, D, N,
+                                                kind, eps, static_cast<cudaStream_t>(stream));
 }
 
 // q [B, H, Dh]; kpool/vpool the layer's [P, Hkv, page, Dh] slice; pos [B]
@@ -785,20 +894,24 @@ int ds_flash_decode_paged(const void* q, const void* kpool, const void* vpool, c
                           int Hkv, int Dh, int page, int maxp, float scale, int dtype,
                           void* stream) {
   if (B <= 0) return 0;
-  const int rep = H / Hkv;
-  const int DI = pow2_at_least((Dh + 31) / 32);
-  const int R = pow2_at_least(rep);
-  if (DI > 8 || R > 8 || page <= 0 || maxp <= 0) return static_cast<int>(cudaErrorInvalidValue);
   FdArgs a{q, kpool, vpool, static_cast<const long long*>(pos),
            static_cast<const long long*>(table), static_cast<const float*>(slopes), out,
-           H, Hkv, Dh, page, maxp, scale};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return launch_fd_di<float>(a, B, DI, R, s);
-    case 1: return launch_fd_di<__nv_bfloat16>(a, B, DI, R, s);
-    case 2: return launch_fd_di<__half>(a, B, DI, R, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+           H, Hkv, Dh, page, maxp, scale, 0, 1};
+  return launch_flash_decode(a, B, dtype, static_cast<cudaStream_t>(stream));
+}
+
+// The contiguous cache: kcache/vcache the layer's [B, Hkv, Smax, Dh] slice;
+// row b's depth is pos[b * pos_stride] (pos int64; stride 0 broadcasts one
+// depth) or, with pos null, pos0.  Other arguments as ds_flash_decode_paged.
+int ds_flash_decode_contig(const void* q, const void* kcache, const void* vcache,
+                           const void* pos, long long pos0, int pos_stride, const void* slopes,
+                           void* out, int B, int H, int Hkv, int Dh, int Smax, float scale,
+                           int dtype, void* stream) {
+  if (B <= 0) return 0;
+  FdArgs a{q, kcache, vcache, static_cast<const long long*>(pos), nullptr,
+           static_cast<const float*>(slopes), out, H, Hkv, Dh, Smax, 1, scale, pos0,
+           pos_stride};
+  return launch_flash_decode(a, B, dtype, static_cast<cudaStream_t>(stream));
 }
 
 // ctx [B, M], resid [B, D], wo [M, D], bo [D] or null, scale [D], bias [D]
@@ -811,11 +924,23 @@ int ds_fused_proj_norm(const void* ctx, const void* resid, const void* wo, const
   if (B <= 0 || D <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch_proj_norm<float>(ctx, resid, wo, bo, scale, bias, r, h, r32, ticket, B, M, D, kind, eps, parallel, s);
-    case 1: return launch_proj_norm<__nv_bfloat16>(ctx, resid, wo, bo, scale, bias, r, h, r32, ticket, B, M, D, kind, eps, parallel, s);
-    case 2: return launch_proj_norm<__half>(ctx, resid, wo, bo, scale, bias, r, h, r32, ticket, B, M, D, kind, eps, parallel, s);
+    case 0: return launch_proj_norm<float, float>(ctx, resid, wo, nullptr, bo, scale, bias, r, h, r32, ticket, B, M, D, kind, eps, parallel, s);
+    case 1: return launch_proj_norm<__nv_bfloat16, __nv_bfloat16>(ctx, resid, wo, nullptr, bo, scale, bias, r, h, r32, ticket, B, M, D, kind, eps, parallel, s);
+    case 2: return launch_proj_norm<__half, __half>(ctx, resid, wo, nullptr, bo, scale, bias, r, h, r32, ticket, B, M, D, kind, eps, parallel, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The int8-weight body: bf16 activations, wo [M, D] int8 codes, wscale [D]
+// fp32.
+int ds_fused_proj_norm_int8(const void* ctx, const void* resid, const void* wo,
+                            const void* wscale, const void* bo, const void* scale,
+                            const void* bias, void* r, void* h, void* r32, void* ticket, int B,
+                            int M, int D, int kind, float eps, int parallel, void* stream) {
+  if (B <= 0 || D <= 0) return 0;
+  return launch_proj_norm<__nv_bfloat16, int8_t>(ctx, resid, wo, wscale, bo, scale, bias, r, h,
+                                                 r32, ticket, B, M, D, kind, eps, parallel,
+                                                 static_cast<cudaStream_t>(stream));
 }
 
 // h, r [B, D]; wu, wg [D, F] (wg null: no gate); wd [F, D]; biases or null;
@@ -827,11 +952,22 @@ int ds_fused_mlp(const void* h, const void* r, const void* wu, const void* wg, c
   if (B <= 0 || D <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch_mlp<float>(h, r, wu, wg, wd, bu, bg, bd, a_t, out, B, D, F, act, s);
-    case 1: return launch_mlp<__nv_bfloat16>(h, r, wu, wg, wd, bu, bg, bd, a_t, out, B, D, F, act, s);
-    case 2: return launch_mlp<__half>(h, r, wu, wg, wd, bu, bg, bd, a_t, out, B, D, F, act, s);
+    case 0: return launch_mlp<float, float>(h, r, wu, wg, wd, nullptr, nullptr, nullptr, bu, bg, bd, a_t, out, B, D, F, act, s);
+    case 1: return launch_mlp<__nv_bfloat16, __nv_bfloat16>(h, r, wu, wg, wd, nullptr, nullptr, nullptr, bu, bg, bd, a_t, out, B, D, F, act, s);
+    case 2: return launch_mlp<__half, __half>(h, r, wu, wg, wd, nullptr, nullptr, nullptr, bu, bg, bd, a_t, out, B, D, F, act, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The int8-weight body: bf16 activations; wu, wg [D, F] and wd [F, D] int8
+// codes with their fp32 scales su, sg [F] (sg null without a gate), sd [D].
+int ds_fused_mlp_int8(const void* h, const void* r, const void* wu, const void* wg,
+                      const void* wd, const void* su, const void* sg, const void* sd,
+                      const void* bu, const void* bg, const void* bd, void* a_t, void* out,
+                      int B, int D, int F, int act, void* stream) {
+  if (B <= 0 || D <= 0) return 0;
+  return launch_mlp<__nv_bfloat16, int8_t>(h, r, wu, wg, wd, su, sg, sd, bu, bg, bd, a_t, out, B,
+                                           D, F, act, static_cast<cudaStream_t>(stream));
 }
 
 const char* ds_cuda_error_string(int code) {

@@ -36,6 +36,15 @@
 // take a scalar path (one warp per row, lanes over the head dim, one key at a
 // time) with the same semantics; it serves the fp32 reference runs, not the
 // bf16 training path.  No TMA and no wgmma yet.
+//
+// Head dims 32, 64 and 128 (the presets' 32 of llama-tiny and mixtral-tiny,
+// 64 of the GPT-2 family, 128 of the Llama family).  Nothing in the tile
+// code assumes D >= 64: at D = 32 a warp holds D / 16 = 2 A fragments, the
+// P.V product walks D / 8 = 4 n-tiles two at a time (D / 8 must be even),
+// the fp32 path gives each lane D / 32 = 1 element, rows of D + 8 = 40
+// bf16 (80 bytes) keep the ldmatrix rows on distinct banks and 16-byte
+// aligned for cp.async, and the tiles need 25.6 KB (forward) of shared
+// memory against 69.6 KB at D = 128.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -147,6 +156,7 @@ __device__ __forceinline__ void load_a_frags(uint32_t (&f)[D / 16][4], const bf1
 template <int D, int NT>
 __device__ __forceinline__ void mma_abt(float (&acc)[NT][4], const uint32_t (&a)[D / 16][4],
                                         const bf16* b_rows, int lane) {
+  static_assert(NT % 2 == 0 && D % 16 == 0, "two n-tiles per ldmatrix.x4, k-steps of 16");
   const bf16* p = b_rows + ((lane & 7) + ((lane >> 4) << 3)) * (D + 8) + ((lane >> 3) & 1) * 8;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
@@ -166,6 +176,7 @@ __device__ __forceinline__ void mma_abt(float (&acc)[NT][4], const uint32_t (&a)
 template <int D, int KT>
 __device__ __forceinline__ void mma_pb(float (&acc)[D / 8][4], const float (&p)[2 * KT][4],
                                        const bf16* b_rows, int lane) {
+  static_assert((D / 8) % 2 == 0, "one ldmatrix.x4.trans feeds two n-tiles of the head dim");
   const bf16* base = b_rows + (lane & 15) * (D + 8) + (lane >> 4) * 8;
 #pragma unroll
   for (int kk = 0; kk < KT; ++kk) {
@@ -708,7 +719,8 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
 }
 
 bool bad_args(int BH, int S, int D, int dtype) {
-  return BH <= 0 || BH > 65535 || S <= 0 || (D != 64 && D != 128) || (dtype != 0 && dtype != 1);
+  return BH <= 0 || BH > 65535 || S <= 0 || (D != 32 && D != 64 && D != 128) ||
+         (dtype != 0 && dtype != 1);
 }
 
 }  // namespace
@@ -716,14 +728,17 @@ bool bad_args(int BH, int S, int D, int dtype) {
 extern "C" {
 
 // q, k, v, o: [BH, S, D] contiguous, one dtype (0 = float32, 1 = bfloat16);
-// lse: [BH, S] float32; D in {64, 128}.  Returns the cudaError_t (0 = ok).
+// lse: [BH, S] float32; D in {32, 64, 128}.  Returns the cudaError_t (0 = ok).
 int ds_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int BH, int S,
                  int D, float scale, int causal, int dtype, void* stream) {
   if (bad_args(BH, S, D, dtype)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  return static_cast<int>(D == 64 ? launch_fwd<64>(q, k, v, o, l, BH, S, scale, causal, dtype, st)
-                                  : launch_fwd<128>(q, k, v, o, l, BH, S, scale, causal, dtype, st));
+  switch (D) {
+    case 32: return static_cast<int>(launch_fwd<32>(q, k, v, o, l, BH, S, scale, causal, dtype, st));
+    case 64: return static_cast<int>(launch_fwd<64>(q, k, v, o, l, BH, S, scale, causal, dtype, st));
+    default: return static_cast<int>(launch_fwd<128>(q, k, v, o, l, BH, S, scale, causal, dtype, st));
+  }
 }
 
 // The backward's two launches: delta [BH, S] (float32, written) and dq, then
@@ -735,10 +750,17 @@ int ds_flash_bwd(const void* q, const void* k, const void* v, const void* o, con
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
-  return static_cast<int>(
-      D == 64 ? launch_bwd<64>(q, k, v, o, dout, l, dl, dq, dk, dv, BH, S, scale, causal, dtype, st)
-              : launch_bwd<128>(q, k, v, o, dout, l, dl, dq, dk, dv, BH, S, scale, causal, dtype,
-                                st));
+  switch (D) {
+    case 32:
+      return static_cast<int>(
+          launch_bwd<32>(q, k, v, o, dout, l, dl, dq, dk, dv, BH, S, scale, causal, dtype, st));
+    case 64:
+      return static_cast<int>(
+          launch_bwd<64>(q, k, v, o, dout, l, dl, dq, dk, dv, BH, S, scale, causal, dtype, st));
+    default:
+      return static_cast<int>(
+          launch_bwd<128>(q, k, v, o, dout, l, dl, dq, dk, dv, BH, S, scale, causal, dtype, st));
+  }
 }
 
 const char* ds_cuda_error_string(int code) {

@@ -14,7 +14,10 @@ to the deepest query — a Python loop here where the JAX package has a
 ``lax.while_loop``.  The branch choice is the JAX package's, so the two
 packages take the same numerical path for the same call.
 
-The int8 KV cache and the MoE MLP are not in this slice (ROADMAP.md).
+Matmul weights may be int8 :class:`~deepspeed_tpu_torch.models.quant.
+QTensor` leaves: each product dequantizes its weight to the activation
+dtype (``QTensor.__rmatmul__``), as the JAX ``QTensor`` does.  The int8 KV
+cache and the MoE MLP are not in this slice (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -190,7 +193,8 @@ def _scatter_rows(buf, rows, start_pos):
 
 @torch.no_grad()
 def forward_with_cache(model, params, tokens, cache, start_pos,
-                       page_table=None, *, max_pos: Optional[int] = None):
+                       page_table=None, *, max_pos: Optional[int] = None,
+                       logits_at: Optional[int] = None):
     """Run the model over ``tokens`` [B, s] starting at ``start_pos``,
     writing the new K/V into ``cache`` in place.
 
@@ -201,8 +205,11 @@ def forward_with_cache(model, params, tokens, cache, start_pos,
     pages around this function instead).  ``max_pos`` is an optional host-
     side upper bound on every query position: it sizes the flash-decode
     loop without reading the positions back from the device.
+    ``logits_at`` (a prefill's last true position in its padded bucket)
+    runs the final norm and the head on that one query position only.
 
-    Returns (logits [B, s, V] fp32, cache).
+    Returns (logits [B, s, V] fp32 — [B, 1, V] with ``logits_at`` —,
+    cache).
     """
     cfg = model.config
     B, s = tokens.shape
@@ -317,6 +324,8 @@ def forward_with_cache(model, params, tokens, cache, start_pos,
         if cfg.has_mlp_bias:
             mlp_out = mlp_out + mp["b_down"]
         x = (x0 + o + mlp_out) if cfg.parallel_residual else (x + mlp_out)
+    if logits_at is not None:
+        x = x[:, logits_at:logits_at + 1].contiguous()
     x = norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
     head = params["embed"]["tok"].T if cfg.tie_embeddings else params["lm_head"]
     logits = (x @ head).float()

@@ -4,16 +4,18 @@ Counterpart of ``deepspeed_tpu/models/fused_decode.py``, the serving
 engine's default decode.  :func:`inject_decode_params` lays the weights out
 for the fused kernels (Q, K and V concatenated into one [D, N] matrix per
 layer) and :func:`decode_step` runs one token per slot through
-``ops/kernels/decode.py``: norm+QKV, paged flash-decode attention,
+``ops/kernels/decode.py``: norm+QKV, flash-decode attention,
 out-projection+residual+norm, MLP+residual — four calls per layer instead
 of the unfused path's chain of small ops.  Prefill keeps
 :func:`~deepspeed_tpu_torch.models.decoding.forward_with_cache` on the plain
-tree; both read and write the same paged KV pool.
+tree; both read and write the same KV cache.
 
-This slice carries the paged, per-row-position branch of ``decode_step``
-(what the continuous-batching engine runs).  A scalar position or a
-contiguous cache (``generate()``, the fixed-slot layout) raises, as do int8
-weights (ROADMAP.md).
+``decode_step`` has the JAX function's three branches: the paged pool at
+per-row positions (the continuous-batching engine), a contiguous cache at
+one scalar position (``InferenceEngine.generate()``), and a contiguous
+cache at per-row positions (the fixed-slot layout).  int8 weights
+(:class:`~deepspeed_tpu_torch.models.quant.QTensor` leaves) run the int8
+bodies of the three GEMV kernels on their codes and scales.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import Any, Dict
 import torch
 
 from deepspeed_tpu_torch.models.layers import norm, rope_dim
+from deepspeed_tpu_torch.models.quant import QTensor, is_qtensor
 from deepspeed_tpu_torch.ops.kernels import rope_angles
 from deepspeed_tpu_torch.ops.kernels.decode import (flash_decode, fused_mlp,
                                                     fused_norm_qkv,
@@ -47,12 +50,19 @@ def inject_decode_params(params: Any, cfg) -> Dict[str, Any]:
     be re-materialised per token), here every leaf except the QKV weight is
     ``stacked[l]``: a contiguous view of the engine's own tensors, which
     costs nothing.  The one new buffer is ``wqkv`` (and ``bqkv``), the
-    concatenation of wq | wk | wv: 1.61 GB at llama3-8b in bf16.  Int8
-    weights are refused before this point (the engine's dtype check)."""
+    concatenation of wq | wk | wv: 1.61 GB at llama3-8b in bf16.  With int8
+    weights the codes and the scales are concatenated alike (0.81 GB), and
+    each layer's QTensor is a view of the stacked codes and scales."""
     ly = params["layers"]
     attn, mlp = ly["attn"], ly["mlp"]
+    qkv = [attn["wq"], attn["wk"], attn["wv"]]
+    if is_qtensor(attn["wq"]):   # int8: concatenate payloads AND scales
+        wqkv = QTensor(torch.cat([w.q for w in qkv], dim=-1),
+                       torch.cat([w.scale for w in qkv], dim=-1))
+    else:
+        wqkv = torch.cat(qkv, dim=-1)
     stacked: Dict[str, Any] = {
-        "wqkv": torch.cat([attn["wq"], attn["wk"], attn["wv"]], dim=-1),
+        "wqkv": wqkv,
         "wo": attn["wo"],
         "n1_scale": ly["attn_norm"]["scale"],
         "n2_scale": ly["mlp_norm"]["scale"],
@@ -74,6 +84,7 @@ def inject_decode_params(params: Any, cfg) -> Dict[str, Any]:
             stacked["b_gate"] = mlp["b_gate"]
     if cfg.glu:
         stacked["w_gate"] = mlp["w_gate"]
+    # a QTensor's [l] is QTensor(q[l], scale[l]): views, like a dense leaf's
     layers = tuple({k: v[l] for k, v in stacked.items()}
                    for l in range(cfg.num_layers))
     out = {"embed": params["embed"], "final_norm": params["final_norm"],
@@ -85,33 +96,51 @@ def inject_decode_params(params: Any, cfg) -> Dict[str, Any]:
     return out
 
 
+def _wq_pair(w):
+    """(payload, per-output-column scale or None) of a dense or int8 weight."""
+    if is_qtensor(w):
+        return w.q, w.scale
+    return w, None
+
+
 @torch.no_grad()
 def decode_step(cfg, dparams, tokens, cache, pos, *, page_table=None):
-    """One generation step: ``tokens`` [B, 1] at per-row positions ``pos``
-    [B] (int64) over the paged pool ``cache`` ([L, P, Hkv, page, Dh] K and V
-    behind ``page_table`` [B, maxp] int64) -> (logits [B, V] fp32, cache).
+    """One generation step: ``tokens`` [B, 1] at position ``pos`` ->
+    (logits [B, V] fp32, cache).
+
+    ``pos`` is an int (every row at one depth: ``generate()``) or an int64
+    [B] tensor of per-row positions.  ``cache`` holds K and V as contiguous
+    [L, B, Hkv, Smax, Dh] tensors or, with ``page_table`` [B, maxp] int64
+    (per-row positions required), as the paged pool [L, P, Hkv, page, Dh].
 
     The new K/V rows are written into ``cache`` in place (where the JAX
-    function returns an updated cache) through the page table: row b lands
-    at row pos[b] % page of physical page page_table[b, pos[b] // page];
-    parked rows' tables point at the junk page 0, where no live slot reads.
-    RoPE stays plain torch, as the JAX package leaves it plain jnp, with
-    fp32 angles at each row's own position."""
+    function returns an updated cache): at row ``pos`` of every row's cache
+    (scalar), at row pos[b] of row b (per-row), or through the page table
+    at row pos[b] % page of physical page page_table[b, pos[b] // page]
+    (paged; parked rows' tables point at the junk page 0, where no live slot
+    reads).  RoPE stays plain torch, as the JAX package leaves it plain jnp,
+    with fp32 angles at each row's own position."""
     per_row = isinstance(pos, torch.Tensor) and pos.dim() == 1
-    if not per_row or page_table is None:
+    if page_table is not None and not per_row:
+        raise ValueError("paged KV decode requires per-row positions")
+    if "k_scale" in cache:
         raise NotImplementedError(
-            "decode_step: only the paged per-row-position branch is ported "
-            "(ROADMAP.md queue 1 item 6: a scalar position or a contiguous "
-            "cache is generate() / the fixed-slot layout)")
+            "decode_step over the int8 KV cache is not ported yet (ROADMAP.md "
+            "queue 1: the int8 KV cache)")
+    if not per_row:
+        pos = int(pos)
     B = tokens.shape[0]
     H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     M, Mkv = H * Dh, Hkv * Dh
     kind, eps = cfg.norm, cfg.norm_eps
     x = dparams["embed"]["tok"][tokens[:, 0]]
+    dev = x.device
     if cfg.position == "learned":
         # parked rows may sit past the table; their output is discarded
         table = dparams["embed"]["pos"]
-        x = x + table[pos.clamp(max=table.shape[0] - 1)]
+        last = table.shape[0] - 1
+        x = x + (table[pos.clamp(max=last)] if per_row
+                 else table[min(pos, last)])
     if cfg.embed_norm:  # bloom word_embeddings_layernorm
         x = norm(x, dparams["embed"]["norm"], "layernorm", cfg.norm_eps)
     kc_all, vc_all = cache["k"], cache["v"]
@@ -121,7 +150,10 @@ def decode_step(cfg, dparams, tokens, cache, pos, *, page_table=None):
     if cfg.position == "rope":
         rd = rope_dim(cfg)
         half = rd // 2
-        cos, sin = rope_angles(pos, rd, theta=cfg.rope_theta)   # [B, rd/2]
+        # per-row [B, rd/2], or a scalar position's [1, rd/2] (its index
+        # made on the device: no host-to-device copy, no sync)
+        ang_pos = pos if per_row else torch.arange(pos, pos + 1, device=dev)
+        cos, sin = rope_angles(ang_pos, rd, theta=cfg.rope_theta)
         cos, sin = cos[:, None], sin[:, None]                   # fp32
 
     def rope_rows(t):
@@ -136,33 +168,46 @@ def decode_step(cfg, dparams, tokens, cache, pos, *, page_table=None):
         return rot.to(t.dtype)
 
     scale = 1.0 / (Dh ** 0.5)
-    page = kc_all.shape[3]
-    # the append's page and row, once per step (the same for every layer)
-    rows = torch.arange(B, device=pos.device)
-    pp = page_table[rows, pos // page]
-    po = pos % page
+    # where each row's new K/V lands, once per step (the same every layer)
+    if page_table is not None:
+        page = kc_all.shape[3]
+        rows = torch.arange(B, device=dev)
+        at = (page_table[rows, pos // page], slice(None), pos % page)
+    elif per_row:
+        at = (torch.arange(B, device=dev), slice(None), pos)
+    else:
+        at = (slice(None), slice(None), pos)
     alibi = cfg.position == "alibi"
     for l, lp in enumerate(dparams["layers"]):
-        qkv = fused_norm_qkv(x, lp["n1_scale"], lp.get("n1_bias"),
-                             lp["wqkv"], lp.get("bqkv"), kind=kind, eps=eps)
+        wqkv, s_qkv = _wq_pair(lp["wqkv"])
+        qkv = fused_norm_qkv(x, lp["n1_scale"], lp.get("n1_bias"), wqkv,
+                             lp.get("bqkv"), kind=kind, eps=eps,
+                             wscale=s_qkv)
         # q and k heads side by side: one rotation for both
         qk = rope_rows(qkv[:, :M + Mkv].reshape(B, H + Hkv, Dh))
         q, k = qk[:, :H], qk[:, H:]
         v = qkv[:, M + Mkv:].reshape(B, Hkv, Dh)
-        kc_all[l, pp, :, po, :] = k.to(dtype)
-        vc_all[l, pp, :, po, :] = v.to(dtype)
+        kc_all[l][at] = k.to(dtype)
+        vc_all[l][at] = v.to(dtype)
         ctx = flash_decode(q.contiguous(), kc_all, vc_all, pos,
                            sm_scale=scale, layer=l, alibi=alibi,
                            page_table=page_table)
-        r, h = fused_proj_norm(ctx.reshape(B, M), x, lp["wo"], lp.get("bo"),
+        wo, s_wo = _wq_pair(lp["wo"])
+        r, h = fused_proj_norm(ctx.reshape(B, M), x, wo, lp.get("bo"),
                                lp["n2_scale"], lp.get("n2_bias"), kind=kind,
-                               eps=eps, parallel=cfg.parallel_residual)
-        x = fused_mlp(h, r, lp["w_up"], lp["w_down"], lp.get("w_gate"),
-                      lp.get("b_up"), lp.get("b_gate"), lp.get("b_down"),
-                      act=cfg.activation)
+                               eps=eps, parallel=cfg.parallel_residual,
+                               wscale=s_wo)
+        wu, su = _wq_pair(lp["w_up"])
+        wd, sd = _wq_pair(lp["w_down"])
+        wg, sg = _wq_pair(lp["w_gate"]) if "w_gate" in lp else (None, None)
+        x = fused_mlp(h, r, wu, wd, wg, lp.get("b_up"), lp.get("b_gate"),
+                      lp.get("b_down"), act=cfg.activation,
+                      wscales=None if su is None else (su, sg, sd))
     x = norm(x, dparams["final_norm"], kind, eps)
     if cfg.tie_embeddings:
         head = dparams["embed"]["tok"].T.to(x.dtype)
+    elif is_qtensor(dparams["lm_head"]):
+        head = dparams["lm_head"].astype(x.dtype)
     else:
         head = dparams["lm_head"].to(x.dtype)
     logits = (x @ head).float()

@@ -4,8 +4,9 @@ Counterpart of ``deepspeed_tpu/ops/pallas/decode.py``.  The kernel-injected
 decode step runs each layer as four calls:
 
 - :func:`fused_norm_qkv`  — norm → one concatenated QKV projection;
-- :func:`flash_decode`    — single-token attention over the paged KV pool,
-  visiting only the pages up to each slot's depth;
+- :func:`flash_decode`    — single-token attention over the paged KV pool
+  (serving) or over a contiguous [B, Hkv, Smax, Dh] cache (``generate()``),
+  visiting only the keys up to each row's depth;
 - :func:`fused_proj_norm` — attention out-projection → residual add → the
   MLP's norm;
 - :func:`fused_mlp`       — (gated) MLP → residual add.
@@ -13,15 +14,18 @@ decode step runs each layer as four calls:
 A CUDA tensor launches the kernel of ``deepspeed_tpu_torch/csrc/decode.cu``
 (built by nvcc at first use, called through ctypes) or raises; a CPU tensor
 runs the plain version, which copies the jnp reference of the JAX module op
-for op (``_norm_qkv_ref``, ``_flash_decode_ref`` over the gathered logical
-view, ``_proj_norm_ref``, ``_mlp_ref``).  ``fused_mlp`` honours its three
-biases independently, as ``_mlp_ref`` does (the Pallas kernel gates them all
-on ``b_up``).  The wrappers check device, dtype, shape, contiguity and
-alignment and raise: they never copy or cast an input.
+for op (``_norm_qkv_ref``, ``_flash_decode_ref`` — over the gathered logical
+view for the paged pool —, ``_proj_norm_ref``, ``_mlp_ref``).  ``fused_mlp``
+honours its three biases independently, as ``_mlp_ref`` does (the Pallas
+kernel gates them all on ``b_up``).  The wrappers check device, dtype, shape,
+contiguity and alignment and raise: they never copy or cast an input.
 
-Not in this slice (ROADMAP.md): int8 weights (``wscale``/``wscales``) and
-the contiguous-cache ``flash_decode`` (no ``page_table``) raise
-``NotImplementedError``.
+int8 weights (``wscale`` / ``wscales``: an int8 payload with per-output-
+column fp32 scales, the layout of ``models/quant.py``) run the int8 bodies
+of the three GEMV kernels, which dequantize in the kernel as ``_deq`` does;
+they take bf16 activations only (the int8 engine serves in bf16).  Each
+variant has a launch function and a launch counter of its own:
+``flash_decode_contig_cuda`` and the three ``*_int8_cuda``.
 """
 
 from __future__ import annotations
@@ -46,14 +50,6 @@ _SMEM_LIMIT = 200 * 1024
 _FD_WARPS = 8
 _MAX_HEAD_DIM = 256
 _MAX_REP = 8
-
-
-def _refuse_int8(op: str, scales) -> None:
-    if scales is not None:
-        raise NotImplementedError(
-            f"{op}: int8 weights (in-kernel dequant) are not ported yet "
-            f"(ROADMAP.md queue 2: the int8-weight variants of the decode "
-            f"kernels)")
 
 
 # ---------------------------------------------------------------------------
@@ -91,9 +87,17 @@ def _dot32(a, w):
     return a.float() @ w.float()
 
 
-def _norm_qkv_ref(x, scale, bias, wqkv, bqkv, *, kind, eps):
+def _deq(w, ws, dtype):
+    """int8 payload x per-output-column scale -> the compute dtype (the
+    in-kernel form of ``QTensor.astype``)."""
+    return (w.float() * ws.reshape(1, -1)).to(dtype)
+
+
+def _norm_qkv_ref(x, scale, bias, wqkv, bqkv, *, kind, eps, wscale=None):
     h = _normalize(x.float(), scale.float(), bias.float(), kind,
                    eps).to(x.dtype)
+    if wscale is not None:
+        wqkv = _deq(wqkv, wscale, x.dtype)
     y = _dot32(h, wqkv)
     if bqkv is not None:
         y = y + bqkv.float()
@@ -138,7 +142,10 @@ def _flash_decode_paged_ref(q, kcache, vcache, pos, page_table, *, scale,
                              scale=scale, alibi=alibi)
 
 
-def _proj_norm_ref(ctx, resid, wo, bo, scale, bias, *, kind, eps, parallel):
+def _proj_norm_ref(ctx, resid, wo, bo, scale, bias, *, kind, eps, parallel,
+                   wscale=None):
+    if wscale is not None:
+        wo = _deq(wo, wscale, ctx.dtype)
     o = _dot32(ctx, wo)
     if bo is not None:
         o = o + bo.float()
@@ -148,7 +155,14 @@ def _proj_norm_ref(ctx, resid, wo, bo, scale, bias, *, kind, eps, parallel):
     return r32.to(ctx.dtype), h.to(ctx.dtype)
 
 
-def _mlp_ref(h, r, w_up, w_gate, w_down, b_up, b_gate, b_down, *, act):
+def _mlp_ref(h, r, w_up, w_gate, w_down, b_up, b_gate, b_down, *, act,
+             wscales=None):
+    if wscales is not None:
+        su, sg, sd = wscales
+        w_up = _deq(w_up, su, h.dtype)
+        w_down = _deq(w_down, sd, h.dtype)
+        if w_gate is not None:
+            w_gate = _deq(w_gate, sg, h.dtype)
     up = _dot32(h, w_up)
     if b_up is not None:
         up = up + b_up.float()
@@ -169,12 +183,17 @@ def _mlp_ref(h, r, w_up, w_gate, w_down, b_up, b_gate, b_down, *, act):
 # CUDA launches
 # ---------------------------------------------------------------------------
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
     "ds_fused_norm_qkv": [_P] * 6 + [_I] * 4 + [_F, _I, _P],
+    "ds_fused_norm_qkv_int8": [_P] * 7 + [_I] * 4 + [_F, _P],
     "ds_flash_decode_paged": [_P] * 7 + [_I] * 6 + [_F, _I, _P],
+    "ds_flash_decode_contig": [_P] * 4 + [_L, _I] + [_P] * 2 + [_I] * 5
+                              + [_F, _I, _P],
     "ds_fused_proj_norm": [_P] * 10 + [_I] * 4 + [_F, _I, _I, _P],
+    "ds_fused_proj_norm_int8": [_P] * 11 + [_I] * 4 + [_F, _I, _P],
     "ds_fused_mlp": [_P] * 10 + [_I] * 5 + [_P],
+    "ds_fused_mlp_int8": [_P] * 13 + [_I] * 4 + [_P],
 }
 _TICKETS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 _SLOPES: Dict[Tuple[int, torch.device], torch.Tensor] = {}
@@ -227,6 +246,29 @@ def _check_staged(op: str, rows: int, width: int, x: torch.Tensor) -> None:
         raise ValueError(f"{op}: {need} bytes of staged activations exceed "
                          f"the kernel's {_SMEM_LIMIT}-byte shared memory "
                          f"budget")
+
+
+def _check_int8(op: str, x: torch.Tensor, w: torch.Tensor,
+                shape: Tuple[int, int], ws, name: str) -> None:
+    """An int8 weight ``w`` of ``shape`` on x's device (8-byte vectors of 8
+    codes: the kernel's loads), its fp32 scale ``ws`` of one value a
+    column, beside bf16 activations ``x``."""
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"{op}: int8 weights take bfloat16 activations (the "
+                        f"int8 engine serves in bf16), got {x.dtype}")
+    if w.device != x.device or w.dtype != torch.int8 or tuple(w.shape) != shape \
+            or not w.is_contiguous():
+        raise ValueError(f"{op} {name}: expected a contiguous int8 {shape} "
+                         f"tensor on {x.device}, got {w.dtype} "
+                         f"{tuple(w.shape)} on {w.device}")
+    if w.data_ptr() % 8 or shape[1] % 8:
+        raise ValueError(f"{op} {name}: the kernel's 8-byte loads need an "
+                         f"8-byte aligned weight and a multiple of 8 columns")
+    if ws.device != x.device or ws.dtype != torch.float32 \
+            or ws.numel() != shape[1] or not ws.is_contiguous():
+        raise ValueError(f"{op} {name} scale: expected {shape[1]} contiguous "
+                         f"float32 values on {x.device}, got {ws.dtype} "
+                         f"{tuple(ws.shape)} on {ws.device}")
 
 
 def _kind_code(kind: str) -> int:
@@ -343,6 +385,63 @@ def flash_decode_paged_cuda(q, kcache, vcache, pos, page_table, *, scale,
     return out
 
 
+def flash_decode_contig_cuda(q, kcache, vcache, pos, *, scale, layer=None,
+                             alibi=False):
+    """Launch ``flash_decode_paged_kernel`` over a contiguous cache: q
+    [B, H, Dh] against [B, Hkv, Smax, Dh] (or the stacked [L, B, Hkv, Smax,
+    Dh] at ``layer``, read in place), the layer's slice addressed as a pool
+    whose page is Smax and whose page of row b is b.  ``pos`` is an int (one
+    depth for the batch, passed by value) or an int64 tensor of 1 or B
+    depths."""
+    check_kernel_input("flash_decode q", q, q.device)
+    if q.dim() != 3:
+        raise ValueError(f"flash_decode: q must be [B, H, Dh], got "
+                         f"{tuple(q.shape)}")
+    B, H, Dh = q.shape
+    want = 4 if layer is None else 5
+    if kcache.dim() != want or kcache.shape[-4] != B:
+        raise ValueError(f"flash_decode: cache must be "
+                         f"{'[B, Hkv, Smax, Dh]' if layer is None else '[L, B, Hkv, Smax, Dh]'}"
+                         f" with B = {B}, got {tuple(kcache.shape)}")
+    _check("flash_decode kcache", kcache, q, tuple(kcache.shape))
+    _check("flash_decode vcache", vcache, q, tuple(kcache.shape))
+    Hkv, Smax = kcache.shape[-3], kcache.shape[-2]
+    if kcache.shape[-1] != Dh:
+        raise ValueError(f"flash_decode: cache head dim {kcache.shape[-1]} "
+                         f"!= q head dim {Dh}")
+    if Dh % 8 or Dh > _MAX_HEAD_DIM:
+        raise ValueError(f"flash_decode: head dim {Dh} must be a multiple "
+                         f"of 8 up to {_MAX_HEAD_DIM}")
+    if H % Hkv or H // Hkv > _MAX_REP:
+        raise ValueError(f"flash_decode: {H} query heads over {Hkv} KV heads "
+                         f"(the kernel takes GQA groups of up to {_MAX_REP})")
+    if layer is not None and not 0 <= layer < kcache.shape[0]:
+        raise ValueError(f"flash_decode: layer {layer} out of range "
+                         f"[0, {kcache.shape[0]})")
+    if isinstance(pos, torch.Tensor):
+        if pos.device != q.device or pos.dtype != torch.int64:
+            raise TypeError(f"flash_decode pos: expected int64 on {q.device}, "
+                            f"got {pos.dtype} on {pos.device}")
+        if pos.numel() not in (1, B) or not pos.is_contiguous():
+            raise ValueError(f"flash_decode pos: expected a contiguous tensor "
+                             f"of 1 or {B} depths, got {tuple(pos.shape)}")
+        pos_ptr, pos0, stride = pos.data_ptr(), 0, int(pos.numel() == B)
+    else:
+        pos_ptr, pos0, stride = None, int(pos), 0
+    off = 0 if layer is None else layer * kcache.stride(0) * q.element_size()
+    slopes = _alibi_slopes_on(H, q.device) if alibi else None
+    out = torch.empty_like(q)
+    built = _library()
+    with torch.cuda.device(q.device):
+        code = built.lib.ds_flash_decode_contig(
+            q.data_ptr(), kcache.data_ptr() + off, vcache.data_ptr() + off,
+            pos_ptr, pos0, stride, _ptr(slopes), out.data_ptr(), B, H, Hkv,
+            Dh, Smax, float(scale), KERNEL_DTYPES[q.dtype], _stream(q.device))
+    check_launch(built, "flash_decode (contiguous)", code)
+    flash_decode_contig_cuda.launches += 1
+    return out
+
+
 def fused_proj_norm_cuda(ctx, resid, wo, bo, scale, bias, *, kind, eps,
                          parallel):
     """Launch ``proj_norm_kernel``: returns (r, h), both [B, D]."""
@@ -411,6 +510,103 @@ def fused_mlp_cuda(h, r, w_up, w_down, w_gate=None, b_up=None, b_gate=None,
     return out
 
 
+def fused_norm_qkv_int8_cuda(x, scale, bias, wqkv, wscale, bqkv=None, *,
+                             kind, eps):
+    """Launch the int8 body of ``norm_qkv_kernel``: bf16 x [B, D], int8
+    wqkv [D, N] with its fp32 scale (N values) -> [B, N] bf16."""
+    check_kernel_input("fused_norm_qkv x", x, x.device)
+    if x.dim() != 2 or wqkv.dim() != 2:
+        raise ValueError(f"fused_norm_qkv: x [B, D] and wqkv [D, N], got "
+                         f"{tuple(x.shape)} and {tuple(wqkv.shape)}")
+    B, D = x.shape
+    N = wqkv.shape[1]
+    _check_int8("fused_norm_qkv", x, wqkv, (D, N), wscale, "wqkv")
+    _check("fused_norm_qkv scale", scale, x, (D,))
+    _check("fused_norm_qkv bias", bias, x, (D,))
+    _check("fused_norm_qkv bqkv", bqkv, x, (N,))
+    _check_staged("fused_norm_qkv", B, D, x)
+    code_kind = _kind_code(kind)
+    out = torch.empty((B, N), device=x.device, dtype=x.dtype)
+    built = _library()
+    with torch.cuda.device(x.device):
+        code = built.lib.ds_fused_norm_qkv_int8(
+            x.data_ptr(), scale.data_ptr(), _ptr(bias), wqkv.data_ptr(),
+            wscale.data_ptr(), _ptr(bqkv), out.data_ptr(), B, D, N,
+            code_kind, float(eps), _stream(x.device))
+    check_launch(built, "fused_norm_qkv (int8)", code)
+    fused_norm_qkv_int8_cuda.launches += 1
+    return out
+
+
+def fused_proj_norm_int8_cuda(ctx, resid, wo, wscale, bo, scale, bias, *,
+                              kind, eps, parallel):
+    """Launch the int8 body of ``proj_norm_kernel``: returns (r, h)."""
+    check_kernel_input("fused_proj_norm ctx", ctx, ctx.device)
+    if ctx.dim() != 2 or wo.dim() != 2:
+        raise ValueError(f"fused_proj_norm: ctx [B, M] and wo [M, D], got "
+                         f"{tuple(ctx.shape)} and {tuple(wo.shape)}")
+    B, M = ctx.shape
+    D = wo.shape[1]
+    _check_int8("fused_proj_norm", ctx, wo, (M, D), wscale, "wo")
+    _check("fused_proj_norm resid", resid, ctx, (B, D))
+    _check("fused_proj_norm bo", bo, ctx, (D,))
+    _check("fused_proj_norm scale", scale, ctx, (D,))
+    _check("fused_proj_norm bias", bias, ctx, (D,))
+    _check_staged("fused_proj_norm", B, M, ctx)
+    code_kind = _kind_code(kind)
+    r = torch.empty((B, D), device=ctx.device, dtype=ctx.dtype)
+    h = torch.empty_like(r)
+    r32 = torch.empty((B, D), device=ctx.device, dtype=torch.float32)
+    built = _library()
+    with torch.cuda.device(ctx.device):
+        code = built.lib.ds_fused_proj_norm_int8(
+            ctx.data_ptr(), resid.data_ptr(), wo.data_ptr(), wscale.data_ptr(),
+            _ptr(bo), scale.data_ptr(), _ptr(bias), r.data_ptr(), h.data_ptr(),
+            r32.data_ptr(), _ticket(ctx.device).data_ptr(), B, M, D,
+            code_kind, float(eps), int(bool(parallel)), _stream(ctx.device))
+    check_launch(built, "fused_proj_norm (int8)", code)
+    fused_proj_norm_int8_cuda.launches += 1
+    return r, h
+
+
+def fused_mlp_int8_cuda(h, r, w_up, w_down, w_gate, wscales, b_up=None,
+                        b_gate=None, b_down=None, *, act):
+    """Launch the int8 bodies of ``mlp_act_kernel`` and ``mlp_down_kernel``:
+    r + mlp(h) over int8 weights with ``wscales`` = (su, sg, sd)."""
+    check_kernel_input("fused_mlp h", h, h.device)
+    if h.dim() != 2 or w_up.dim() != 2:
+        raise ValueError(f"fused_mlp: h [B, D] and w_up [D, F], got "
+                         f"{tuple(h.shape)} and {tuple(w_up.shape)}")
+    B, D = h.shape
+    F = w_up.shape[1]
+    su, sg, sd = wscales
+    _check_int8("fused_mlp", h, w_up, (D, F), su, "w_up")
+    if w_gate is not None:
+        _check_int8("fused_mlp", h, w_gate, (D, F), sg, "w_gate")
+    _check_int8("fused_mlp", h, w_down, (F, D), sd, "w_down")
+    _check("fused_mlp r", r, h, (B, D))
+    _check("fused_mlp b_up", b_up, h, (F,))
+    _check("fused_mlp b_gate", b_gate, h, (F,))
+    _check("fused_mlp b_down", b_down, h, (D,))
+    _check_columns("fused_mlp", D, h)
+    _check_staged("fused_mlp", B, D, h)
+    if act not in ACTIVATIONS:
+        raise ValueError(f"unsupported activation {act}")
+    a_t = torch.empty((F, B), device=h.device, dtype=h.dtype)
+    out = torch.empty_like(h)
+    built = _library()
+    with torch.cuda.device(h.device):
+        code = built.lib.ds_fused_mlp_int8(
+            h.data_ptr(), r.data_ptr(), w_up.data_ptr(), _ptr(w_gate),
+            w_down.data_ptr(), su.data_ptr(),
+            None if w_gate is None else sg.data_ptr(), sd.data_ptr(),
+            _ptr(b_up), _ptr(b_gate), _ptr(b_down), a_t.data_ptr(),
+            out.data_ptr(), B, D, F, ACTIVATIONS[act], _stream(h.device))
+    check_launch(built, "fused_mlp (int8)", code)
+    fused_mlp_int8_cuda.launches += 1
+    return out
+
+
 # ---------------------------------------------------------------------------
 # public wrappers (the JAX signatures, without ``impl``)
 # ---------------------------------------------------------------------------
@@ -419,14 +615,21 @@ def fused_norm_qkv(x, scale, bias, wqkv, bqkv=None, *,
                    kind: str = "layernorm", eps: float = 1e-5, wscale=None):
     """x [B, D]; wqkv [D, N]; returns norm(x) @ wqkv (+ bqkv) as [B, N] in
     x's dtype, the normalised rows rounded to x's dtype before the product
-    and the product summed in fp32."""
-    _refuse_int8("fused_norm_qkv", wscale)
+    and the product summed in fp32.  ``wscale`` (one fp32 scale a column)
+    marks ``wqkv`` as int8 codes, dequantized in the kernel."""
+    if wscale is not None and x.dtype != torch.bfloat16:
+        raise TypeError(f"fused_norm_qkv: int8 weights take bfloat16 "
+                        f"activations, got {x.dtype}")
     if use_kernel(x):
+        if wscale is not None:
+            return fused_norm_qkv_int8_cuda(x, scale, bias, wqkv, wscale, bqkv,
+                                            kind=kind, eps=eps)
         return fused_norm_qkv_cuda(x, scale, bias, wqkv, bqkv, kind=kind,
                                    eps=eps)
     if bias is None:
         bias = torch.zeros_like(scale)
-    return _norm_qkv_ref(x, scale, bias, wqkv, bqkv, kind=kind, eps=eps)
+    return _norm_qkv_ref(x, scale, bias, wqkv, bqkv, kind=kind, eps=eps,
+                         wscale=wscale)
 
 
 def flash_decode(q, kcache, vcache, pos, *, sm_scale: Optional[float] = None,
@@ -436,14 +639,21 @@ def flash_decode(q, kcache, vcache, pos, *, sm_scale: Optional[float] = None,
     the caches are the paged pool [P, Hkv, page, Dh] (or stacked
     [L, P, Hkv, page, Dh] read at ``layer``) and ``pos`` [B] holds each
     slot's depth: keys 0..pos[b] are attended, pages past pos[b] // page are
-    neither read nor computed.  ``block`` is the contiguous layout's cache
-    block, which this slice does not carry."""
-    if page_table is None:
-        raise NotImplementedError(
-            "flash_decode over a contiguous [B, Hkv, Smax, Dh] cache is not "
-            "ported yet (ROADMAP.md queue 1 item 6: generate() and the "
-            "fixed-slot layout); pass the paged pool and its page_table")
+    neither read nor computed.  Without a page table the caches are
+    contiguous, [B, Hkv, Smax, Dh] (or stacked [L, B, Hkv, Smax, Dh] read at
+    ``layer``), and ``pos`` is an int shared by the batch or an int64 [B]
+    (or [1]) tensor of per-row depths; keys past each row's depth are
+    neither read nor computed, at any Smax.  ``block`` is the Pallas
+    kernel's cache block; the CUDA kernel has no use for it."""
     scale = sm_scale if sm_scale is not None else 1.0 / (q.shape[-1] ** 0.5)
+    if page_table is None:
+        if use_kernel(q):
+            return flash_decode_contig_cuda(q, kcache, vcache, pos,
+                                            scale=scale, layer=layer,
+                                            alibi=alibi)
+        kc = kcache if layer is None else kcache[layer]
+        vc = vcache if layer is None else vcache[layer]
+        return _flash_decode_ref(q, kc, vc, pos, scale=scale, alibi=alibi)
     if use_kernel(q):
         return flash_decode_paged_cuda(q, kcache, vcache, pos, page_table,
                                        scale=scale, layer=layer, alibi=alibi)
@@ -456,33 +666,52 @@ def fused_proj_norm(ctx, resid, wo, bo=None, scale=None, bias=None, *,
                     parallel: bool = False, wscale=None):
     """ctx [B, M]; wo [M, D]; resid [B, D].  Returns (r, h): r = resid +
     ctx @ wo (+ bo), and h the norm of r's fp32 sum (of ``resid`` with
-    ``parallel=True``, the gpt-neox parallel residual)."""
-    _refuse_int8("fused_proj_norm", wscale)
+    ``parallel=True``, the gpt-neox parallel residual).  ``wscale`` marks
+    ``wo`` as int8 codes, dequantized in the kernel."""
+    if wscale is not None and ctx.dtype != torch.bfloat16:
+        raise TypeError(f"fused_proj_norm: int8 weights take bfloat16 "
+                        f"activations, got {ctx.dtype}")
     if use_kernel(ctx):
+        if wscale is not None:
+            return fused_proj_norm_int8_cuda(ctx, resid, wo, wscale, bo,
+                                             scale, bias, kind=kind, eps=eps,
+                                             parallel=parallel)
         return fused_proj_norm_cuda(ctx, resid, wo, bo, scale, bias,
                                     kind=kind, eps=eps, parallel=parallel)
     if bias is None:
         bias = torch.zeros_like(scale)
     return _proj_norm_ref(ctx, resid, wo, bo, scale, bias, kind=kind,
-                          eps=eps, parallel=parallel)
+                          eps=eps, parallel=parallel, wscale=wscale)
 
 
 def fused_mlp(h, r, w_up, w_down, w_gate=None, b_up=None, b_gate=None,
               b_down=None, *, act: str = "gelu", wscales=None):
     """h [B, D] (normed); r [B, D] (residual).  Returns r + mlp(h): the
     activation is rounded to h's dtype before the down projection, as the
-    jnp reference rounds it."""
-    _refuse_int8("fused_mlp", wscales)
+    jnp reference rounds it.  ``wscales`` = (up, gate, down) per-column fp32
+    scales mark the weights as int8 codes (the gate's is None without a
+    gate), dequantized in the kernel."""
+    if wscales is not None and h.dtype != torch.bfloat16:
+        raise TypeError(f"fused_mlp: int8 weights take bfloat16 "
+                        f"activations, got {h.dtype}")
     if use_kernel(h):
+        if wscales is not None:
+            return fused_mlp_int8_cuda(h, r, w_up, w_down, w_gate, wscales,
+                                       b_up, b_gate, b_down, act=act)
         return fused_mlp_cuda(h, r, w_up, w_down, w_gate, b_up, b_gate,
                               b_down, act=act)
     return _mlp_ref(h, r, w_up, w_gate, w_down, b_up, b_gate, b_down,
-                    act=act)
+                    act=act, wscales=wscales)
 
 
 # kernel launches (CUDA tensors only); fused_mlp counts one per call of
-# its two launches
+# its two launches.  flash_decode counts the paged pool's launches, the
+# variants count their own: the contiguous cache and the int8 weights.
 fused_norm_qkv.launches = 0
 flash_decode.launches = 0
 fused_proj_norm.launches = 0
 fused_mlp.launches = 0
+flash_decode_contig_cuda.launches = 0
+fused_norm_qkv_int8_cuda.launches = 0
+fused_proj_norm_int8_cuda.launches = 0
+fused_mlp_int8_cuda.launches = 0

@@ -11,7 +11,8 @@ are [B, H, S, Dh].  A CUDA tensor runs the kernels of
 backward — what the JAX ``impl="xla"`` path does.
 
 The kernels take ``S == Sk`` only (all the training path produces; see the
-``S != Sk`` hazard in ROADMAP.md queue 3), head dims 64 and 128, bf16 (the
+``S != Sk`` hazard in ROADMAP.md queue 3), head dims 32, 64 and 128 (every
+preset's: llama-tiny and mixtral-tiny 32, GPT-2 64, Llama 128), bf16 (the
 tensor-core path) or fp32 (a scalar path for the fp32 reference runs).  A
 ragged S is masked inside the kernels.  ALiBi raises: no training preset of
 this slice uses it.
@@ -29,7 +30,7 @@ from deepspeed_tpu_torch.ops.kernels.common import check_kernel_input, use_kerne
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (32, 64, 128)
 
 
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -75,7 +76,8 @@ def _check(q, k, v):
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     if q.shape[-1] not in _HEAD_DIMS:
         raise ValueError(f"flash_attention kernel takes head dims "
-                         f"{_HEAD_DIMS}, got {q.shape[-1]}")
+                         f"{_HEAD_DIMS}, got {q.shape[-1]} (other head dims: "
+                         f"ROADMAP.md queue 2)")
 
 
 def flash_fwd_cuda(q, k, v, causal: bool, scale: float):

@@ -427,7 +427,9 @@ def _lse_plain(q, k, scale):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,S,D", [(4, 16, 2048, 128),   # llama-1b4
                                      (2, 3, 200, 128),     # ragged S
-                                     (1, 2, 64, 64), (1, 1, 1, 128)])
+                                     (1, 2, 64, 64), (1, 1, 1, 128),
+                                     (4, 8, 512, 32),      # llama-tiny's heads
+                                     (2, 3, 200, 32)])
 def test_flash_attention_kernels_match_plain(cuda_device, dtype, B, H, S, D):
     """Forward (o and lse) against mha_reference, backward (dq, dk, dv)
     against autograd of mha_reference on the same inputs in fp32, and two
@@ -468,8 +470,8 @@ def test_flash_attention_autograd_and_refusals(cuda_device):
         tfa.flash_attention(q, k[:, :, :64].contiguous(), v[:, :, :64]
                             .contiguous())
     with pytest.raises(ValueError, match="head dims"):
-        tfa.flash_attention(q[..., :32].contiguous(), k[..., :32].contiguous(),
-                            v[..., :32].contiguous())
+        tfa.flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                            v[..., :48].contiguous())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tfa.flash_attention(q, k, v, alibi=True)
 
@@ -975,3 +977,239 @@ def test_fused_lamb_kernels_match_plain(cuda_device, p_dtype, g_dtype, n, wd):
     assert torch.equal(m, rm) and torch.equal(v, rv)
     tol = 1e-5 if p_dtype == torch.float32 else 2e-2
     torch.testing.assert_close(p.float(), rp.float(), rtol=tol, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# generate(): the contiguous flash_decode, the int8 GEMVs, flash at Dh 32
+# ---------------------------------------------------------------------------
+
+def test_every_preset_head_dim_has_a_flash_kernel():
+    """The training path's flash kernels take every preset's head dim (no
+    card needed: the set the wrapper checks against)."""
+    from deepspeed_tpu_torch.models.config import _PRESETS, get_model_config
+
+    dims = {name: get_model_config(name).head_dim for name in _PRESETS}
+    assert all(d in tfa._HEAD_DIMS for d in dims.values()), dims
+
+
+def _contig(B, Hkv, Smax, Dh, L, dtype, dev, seed):
+    k = _randn((L, B, Hkv, Smax, Dh), seed, dtype, dev)
+    v = _randn((L, B, Hkv, Smax, Dh), seed + 1, dtype, dev)
+    return k, v
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Smax", [512, 1025, 64, 8193])
+@pytest.mark.parametrize("per_row", [False, True])
+@pytest.mark.parametrize("alibi", [False, True])
+def test_flash_decode_contig_kernel_matches_plain(cuda_device, dtype, Smax,
+                                                  per_row, alibi):
+    """generate()'s cache at llama3-8b's decode shape (8 rows, 32/8 heads of
+    128) stacked [2, 8, 8, Smax, 128] and read at layer 1: Smax a power of
+    two, generate()'s default 1025 and 8193 (no 256-multiple), depths 1 to
+    Smax (a scalar for the batch, or one a row)."""
+    B, H, Hkv, Dh, L = 8, 32, 8, 128, 2
+    k, v = _contig(B, Hkv, Smax, Dh, L, dtype, cuda_device, 0)
+    q = _randn((B, H, Dh), 9, dtype, cuda_device)
+    if per_row:
+        pos = torch.tensor(np.linspace(0, Smax - 1, B).astype(np.int64),
+                           device=cuda_device)
+        cases = [pos]
+    else:
+        cases = [0, Smax // 2, Smax - 1]
+    for pos in cases:
+        before = tdec.flash_decode.launches
+        got = _counted(tdec.flash_decode_contig_cuda, q, k, v, pos,
+                       scale=Dh ** -0.5, layer=1, alibi=alibi)
+        assert tdec.flash_decode.launches == before       # not the paged one
+        want = tdec._flash_decode_ref(q, k[1], v[1], pos, scale=Dh ** -0.5,
+                                      alibi=alibi)
+        _close(got, want, ATTN_TOL[dtype])
+        assert torch.equal(got, tdec.flash_decode(q, k, v, pos, layer=1,
+                                                  alibi=alibi))
+
+
+@pytest.mark.parametrize("Dh,H,Hkv,Smax", [(64, 25, 25, 512),    # gpt2-xl
+                                           (32, 8, 2, 100), (256, 16, 2, 33),
+                                           (40, 6, 3, 7)])
+def test_flash_decode_contig_kernel_odd_shapes(cuda_device, Dh, H, Hkv, Smax):
+    """One query head a KV head (gpt2-xl), GQA groups up to 8, head dims
+    below and above a warp's width, an unstacked cache (layer=None), and a
+    one-element position tensor broadcast to every row."""
+    B = 3
+    k, v = _contig(B, Hkv, Smax, Dh, 1, torch.float32, cuda_device, 3)
+    q = _randn((B, H, Dh), 4, torch.float32, cuda_device)
+    for pos in (torch.tensor([Smax - 2], device=cuda_device),
+                torch.tensor([0, Smax // 3, Smax - 1], device=cuda_device)):
+        got = _counted(tdec.flash_decode_contig_cuda, q, k[0], v[0], pos,
+                       scale=Dh ** -0.5)
+        want = tdec._flash_decode_ref(q, k[0], v[0], pos, scale=Dh ** -0.5)
+        _close(got, want, ATTN_TOL[torch.float32])
+
+
+def _int8_weight(shape, seed, dev):
+    from deepspeed_tpu_torch.models.quant import quantize_weight
+
+    w = _randn(shape, seed, torch.bfloat16, dev, shape[0] ** -0.5)
+    qt = quantize_weight(w)
+    return qt.q, qt.scale.reshape(-1)
+
+
+@pytest.mark.parametrize("B,D,N,kind,bias", [
+    (8, 4096, 6144, "rmsnorm", False),      # llama3-8b decode
+    (8, 1600, 4800, "layernorm", True),     # gpt2-xl decode
+    (3, 256, 200, "rmsnorm", True)])        # a ragged last tile
+def test_fused_norm_qkv_int8_kernel_matches_plain(cuda_device, B, D, N, kind,
+                                                  bias):
+    dt = torch.bfloat16
+    x = _randn((B, D), 0, dt, cuda_device, 2.0)
+    scale = _randn((D,), 1, dt, cuda_device) * 0.1 + 1
+    nb = _randn((D,), 2, dt, cuda_device)
+    w, ws = _int8_weight((D, N), 3, cuda_device)
+    bq = _randn((N,), 4, dt, cuda_device) if bias else None
+    dense = tdec.fused_norm_qkv.launches
+    got = _counted(tdec.fused_norm_qkv_int8_cuda, x, scale, nb, w, ws, bq,
+                   kind=kind, eps=1e-5)
+    assert tdec.fused_norm_qkv.launches == dense
+    want = tdec._norm_qkv_ref(x, scale, nb, w, bq, kind=kind, eps=1e-5,
+                              wscale=ws)
+    assert got.dtype == dt and got.shape == (B, N)
+    _close(got, want, GEMV_TOL[dt])
+    assert torch.equal(got, tdec.fused_norm_qkv(x, scale, nb, w, bq, kind=kind,
+                                                eps=1e-5, wscale=ws))
+
+
+@pytest.mark.parametrize("B,M,D,kind,parallel,bias", [
+    (8, 4096, 4096, "rmsnorm", False, False),   # llama3-8b decode
+    (8, 1600, 1600, "layernorm", False, True),  # gpt2-xl decode
+    (3, 192, 200, "layernorm", True, True)])    # a ragged last tile
+def test_fused_proj_norm_int8_kernel_matches_plain(cuda_device, B, M, D, kind,
+                                                   parallel, bias):
+    dt = torch.bfloat16
+    ctx = _randn((B, M), 0, dt, cuda_device)
+    resid = _randn((B, D), 1, dt, cuda_device, 2.0)
+    wo, ws = _int8_weight((M, D), 2, cuda_device)
+    bo = _randn((D,), 3, dt, cuda_device) if bias else None
+    scale = _randn((D,), 4, dt, cuda_device) * 0.1 + 1
+    nb = _randn((D,), 5, dt, cuda_device)
+    r, h = _counted(tdec.fused_proj_norm_int8_cuda, ctx, resid, wo, ws, bo,
+                    scale, nb, kind=kind, eps=1e-5, parallel=parallel)
+    wr, wh = tdec._proj_norm_ref(ctx, resid, wo, bo, scale, nb, kind=kind,
+                                 eps=1e-5, parallel=parallel, wscale=ws)
+    _close(r, wr, GEMV_TOL[dt])
+    _close(h, wh, GEMV_TOL[dt])
+
+
+@pytest.mark.parametrize("B,D,F,glu,bias,act", [
+    (8, 4096, 14336, True, False, "silu"),      # llama3-8b decode
+    (8, 1600, 6400, False, True, "gelu"),       # gpt2-xl decode
+    (3, 256, 200, True, True, "gelu_exact")])   # a ragged last tile
+def test_fused_mlp_int8_kernel_matches_plain(cuda_device, B, D, F, glu, bias,
+                                             act):
+    dt = torch.bfloat16
+    h = _randn((B, D), 0, dt, cuda_device)
+    r = _randn((B, D), 1, dt, cuda_device)
+    wu, su = _int8_weight((D, F), 2, cuda_device)
+    wd, sd = _int8_weight((F, D), 3, cuda_device)
+    wg, sg = _int8_weight((D, F), 4, cuda_device) if glu else (None, None)
+    bu = _randn((F,), 5, dt, cuda_device) if bias else None
+    bg = _randn((F,), 6, dt, cuda_device) if (glu and bias) else None
+    bd = _randn((D,), 7, dt, cuda_device) if bias else None
+    got = _counted(tdec.fused_mlp_int8_cuda, h, r, wu, wd, wg, (su, sg, sd),
+                   bu, bg, bd, act=act)
+    want = tdec._mlp_ref(h, r, wu, wg, wd, bu, bg, bd, act=act,
+                         wscales=(su, sg, sd))
+    _close(got, want, GEMV_TOL[dt])
+    assert torch.equal(got, tdec.fused_mlp(h, r, wu, wd, wg, bu, bg, bd,
+                                           act=act, wscales=(su, sg, sd)))
+
+
+def test_int8_decode_kernels_refuse_bad_inputs(cuda_device):
+    dev = cuda_device
+    x = torch.ones(2, 64, device=dev, dtype=torch.bfloat16)
+    s = torch.ones(64, device=dev, dtype=torch.bfloat16)
+    w = torch.ones(64, 64, device=dev, dtype=torch.int8)
+    ws = torch.ones(64, device=dev)
+    with pytest.raises(TypeError, match="bfloat16"):
+        tdec.fused_norm_qkv(x.float(), s.float(), None, w, wscale=ws)
+    with pytest.raises(ValueError, match="int8"):
+        tdec.fused_norm_qkv(x, s, None, w.float(), wscale=ws)
+    with pytest.raises(ValueError, match="scale"):
+        tdec.fused_proj_norm(x, x, w, None, s, wscale=ws[:32])
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tdec.fused_mlp(x, x, torch.ones(64, 60, device=dev, dtype=torch.int8),
+                       torch.ones(60, 64, device=dev, dtype=torch.int8),
+                       act="relu", wscales=(ws[:60], None, ws))
+
+
+def _generate_both(model, cfg, prompts, dev, n=12, **kw):
+    import deepspeed_tpu_torch
+
+    outs = []
+    for d in ("cpu", dev):
+        eng = deepspeed_tpu_torch.init_inference(model, cfg, device=d)
+        outs.append(eng.generate(prompts, max_new_tokens=n, **kw).cpu())
+    return outs
+
+
+@pytest.mark.parametrize("preset", ["llama-tiny", "gpt2-small"])
+@pytest.mark.parametrize("dtype,fused", [("float32", True), ("float32", False),
+                                         ("int8", True)])
+def test_generate_on_card_matches_cpu(cuda_device, preset, dtype, fused):
+    """init_inference(...).generate() of a small model on the card (the
+    contiguous flash_decode and the GEMV kernels, int8 bodies included) and
+    on the CPU (their plain versions): the same greedy tokens."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    over = (dict(num_layers=2, hidden_size=256, intermediate_size=512,
+                 num_kv_heads=2, vocab_size=1024) if preset == "llama-tiny"
+            else dict(num_layers=2, hidden_size=256, intermediate_size=1024,
+                      num_heads=4, vocab_size=1024, max_seq_len=512))
+    import deepspeed_tpu_torch
+
+    model = deepspeed_tpu_torch.causal_lm(preset, device="cpu", **over)
+    with torch.no_grad():
+        if model.config.position == "learned":
+            model.embed.tok.mul_(16.0)
+            model.embed.pos.mul_(80.0)
+        else:
+            model.embed.tok.mul_(40.0)
+    cfg = {"dtype": dtype, "max_out_tokens": 300}
+    if not fused:
+        cfg["use_fused_decode"] = False
+    prompts = np.random.default_rng(0).integers(0, 1024, (3, 70))
+    contig = tdec.flash_decode_contig_cuda.launches
+    got_cpu, got_card = _generate_both(model, cfg, prompts, cuda_device)
+    assert (tdec.flash_decode_contig_cuda.launches > contig) == fused
+    assert torch.equal(got_cpu, got_card)
+
+
+def test_unmodified_llama_tiny_trains_on_card(cuda_device):
+    """The llama-tiny preset as it is (D 256, 8 heads of 32, 4 layers,
+    vocab 32000) trained 3 steps on the card (flash at Dh 32) and on the
+    CPU: losses within rtol 1e-4 and weights within atol 1e-4, the bounds
+    of test_training_on_card_matches_cpu."""
+    import deepspeed_tpu_torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = {"train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 2,
+           "optimizer": {"type": "FusedAdam", "params": {
+               "lr": 3e-4, "betas": [0.9, 0.95], "weight_decay": 0.1}},
+           "scheduler": {"type": "WarmupLR", "params": {
+               "warmup_max_lr": 3e-4, "warmup_num_steps": 2}},
+           "gradient_clipping": 1.0}
+    tok = np.random.default_rng(0).integers(0, 32000, (4, 96))
+    runs = []
+    for dev in ("cpu", cuda_device):
+        model = deepspeed_tpu_torch.causal_lm("llama-tiny", device="cpu")
+        assert model.config.head_dim == 32
+        engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=cfg,
+                                                    device=dev)
+        before = tfa.flash_attention.launches
+        losses = [float(engine.train_step((tok, tok))) for _ in range(3)]
+        assert (tfa.flash_attention.launches > before) == (dev != "cpu")
+        runs.append((losses, [p.cpu() for p in engine.master]))
+    (lc, pc), (lg, pg) = runs
+    np.testing.assert_allclose(lg, lc, rtol=1e-4)
+    assert lg[-1] < lg[0]
+    for a, b in zip(pc, pg):
+        torch.testing.assert_close(b, a, rtol=0, atol=1e-4)

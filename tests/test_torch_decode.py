@@ -206,16 +206,163 @@ def test_flash_decode_small_pages_match_jax(page, pos):
     _close(want, got, ATTN_TOL["float32"])
 
 
+@pytest.mark.parametrize("impl", ["xla", "interpret"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pos", [0, 77, [127, 3], [64, 100]])
+@pytest.mark.parametrize("alibi", [False, True])
+def test_flash_decode_contig_matches_jax(impl, dtype, pos, alibi):
+    """The contiguous cache of generate(): GQA (4 query heads per KV head)
+    over a stacked two-layer [L, B, Hkv, Smax, Dh] cache read at each layer,
+    one depth for the batch (an int) or one a row.  Smax 128 is a multiple
+    of the 64-token block passed, so interpret mode runs the Pallas kernel;
+    the port takes any block (the CUDA kernel has none)."""
+    rng = np.random.default_rng(8)
+    L, B, Hkv, rep, Dh, Smax = 2, 2, 2, 4, 32, 128
+    q = _rand(rng, B, Hkv * rep, Dh)
+    k = _rand(rng, L, B, Hkv, Smax, Dh)
+    v = _rand(rng, L, B, Hkv, Smax, Dh)
+    (jq, tq), (jk, tk), (jv, tv) = _pair(q, dtype), _pair(k, dtype), \
+        _pair(v, dtype)
+    if isinstance(pos, list):
+        jpos, tpos = jnp.asarray(pos, jnp.int32), torch.tensor(pos)
+    else:
+        jpos, tpos = jnp.asarray(pos, jnp.int32), pos
+    for layer in range(L):
+        want = jdec.flash_decode(jq, jk, jv, jpos, layer=layer, alibi=alibi,
+                                 block=64, impl=impl)
+        got = tdec.flash_decode(tq, tk, tv, tpos, layer=layer, alibi=alibi,
+                                block=64)
+        assert got.dtype == TDT[dtype] and got.shape == tq.shape
+        _close(want, got, ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("Smax,pos", [(100, [99, 0, 41]), (1025, 1024)])
+def test_flash_decode_contig_any_length_matches_jax(Smax, pos):
+    """Cache lengths the Pallas kernel does not tile (the JAX package takes
+    its dense reference for them), an unstacked cache (layer=None), MHA."""
+    rng = np.random.default_rng(9)
+    B, H, Dh = 3, 4, 16
+    q = _rand(rng, B, H, Dh)
+    k = _rand(rng, B, H, Smax, Dh)
+    v = _rand(rng, B, H, Smax, Dh)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(q, "float32"), _pair(k, "float32"),
+                                    _pair(v, "float32"))
+    tpos = torch.tensor(pos) if isinstance(pos, list) else pos
+    want = jdec.flash_decode(jq, jk, jv, jnp.asarray(pos, jnp.int32))
+    _close(want, tdec.flash_decode(tq, tk, tv, tpos), ATTN_TOL["float32"])
+
+
+def _int8(rng, d_in, d_out):
+    """int8 codes and per-column fp32 scales, as quantize_weight makes
+    them (the same arrays go to both packages)."""
+    q = rng.integers(-127, 128, (d_in, d_out)).astype(np.int8)
+    s = (np.abs(rng.standard_normal(d_out)) * 0.02 / 127 + 1e-4)
+    return q, s.astype(np.float32)
+
+
+def _q8_pair(q, s):
+    return ((jnp.asarray(q), jnp.asarray(s)),
+            (torch.from_numpy(q.copy()), torch.from_numpy(s.copy())))
+
+
+@pytest.mark.parametrize("impl", ["xla", "interpret"])
+@pytest.mark.parametrize("kind", ["rmsnorm", "layernorm"])
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_fused_norm_qkv_int8_matches_jax(impl, kind, with_bias):
+    """int8 codes with per-column scales, dequantized to bf16 in the
+    kernel (``_deq``): bf16 tolerance."""
+    rng = np.random.default_rng(10)
+    B, D, N = 3, 256, 384
+    x = _rand(rng, B, D, scale=2.0)
+    scale = 1.0 + _rand(rng, D, scale=0.1)
+    bias = _rand(rng, D)
+    bq = _rand(rng, N) if with_bias else None
+    (jw, jws), (tw, tws) = _q8_pair(*_int8(rng, D, N))
+    (jx, tx), (js, ts), (jb, tb) = (_pair(x, "bfloat16"),
+                                    _pair(scale, "bfloat16"),
+                                    _pair(bias, "bfloat16"))
+    jq, tq = _pair(bq, "bfloat16")
+    want = jdec.fused_norm_qkv(jx, js, jb, jw, jq, kind=kind, eps=1e-5,
+                               wscale=jws, impl=impl)
+    got = tdec.fused_norm_qkv(tx, ts, tb, tw, tq, kind=kind, eps=1e-5,
+                              wscale=tws)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, N)
+    _close(want, got, TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("impl", ["xla", "interpret"])
+@pytest.mark.parametrize("kind,parallel", [("rmsnorm", False),
+                                           ("layernorm", True)])
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_fused_proj_norm_int8_matches_jax(impl, kind, parallel, with_bias):
+    rng = np.random.default_rng(11)
+    B, M, D = 3, 256, 128
+    ctx = _rand(rng, B, M)
+    resid = _rand(rng, B, D, scale=2.0)
+    bo = _rand(rng, D) if with_bias else None
+    scale = 1.0 + _rand(rng, D, scale=0.1)
+    bias = _rand(rng, D)
+    (jw, jws), (tw, tws) = _q8_pair(*_int8(rng, M, D))
+    (jc, tc), (jr, tr), (jo, to) = (_pair(ctx, "bfloat16"),
+                                    _pair(resid, "bfloat16"),
+                                    _pair(bo, "bfloat16"))
+    (js, ts), (jb, tb) = _pair(scale, "bfloat16"), _pair(bias, "bfloat16")
+    wr, wh = jdec.fused_proj_norm(jc, jr, jw, jo, js, jb, kind=kind, eps=1e-5,
+                                  parallel=parallel, wscale=jws, impl=impl)
+    r, h = tdec.fused_proj_norm(tc, tr, tw, to, ts, tb, kind=kind, eps=1e-5,
+                                parallel=parallel, wscale=tws)
+    _close(wr, r, TOL["bfloat16"])
+    _close(wh, h, TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("impl", ["xla", "interpret"])
+@pytest.mark.parametrize("glu,act", [(True, "silu"), (False, "gelu")])
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_fused_mlp_int8_matches_jax(impl, glu, act, with_bias):
+    """(up, gate, down) codes and scales; the gate's scale is None without
+    a gate, as the JAX engine passes it."""
+    rng = np.random.default_rng(12)
+    B, D, F = 3, 128, 256
+    h = _rand(rng, B, D)
+    r = _rand(rng, B, D)
+    (jwu, jsu), (twu, tsu) = _q8_pair(*_int8(rng, D, F))
+    (jwd, jsd), (twd, tsd) = _q8_pair(*_int8(rng, F, D))
+    if glu:
+        (jwg, jsg), (twg, tsg) = _q8_pair(*_int8(rng, D, F))
+    else:
+        jwg = jsg = twg = tsg = None
+    bu = _rand(rng, F) if with_bias else None
+    bg = _rand(rng, F) if (with_bias and glu) else None
+    bd = _rand(rng, D) if with_bias else None
+    (jh, th), (jr, tr) = _pair(h, "bfloat16"), _pair(r, "bfloat16")
+    (jbu, tbu), (jbg, tbg), (jbd, tbd) = (_pair(bu, "bfloat16"),
+                                          _pair(bg, "bfloat16"),
+                                          _pair(bd, "bfloat16"))
+    want = jdec.fused_mlp(jh, jr, jwu, jwd, jwg, jbu, jbg, jbd, act=act,
+                          wscales=(jsu, jsg, jsd), impl=impl)
+    got = tdec.fused_mlp(th, tr, twu, twd, twg, tbu, tbg, tbd, act=act,
+                         wscales=(tsu, tsg, tsd))
+    assert got.dtype == torch.bfloat16
+    _close(want, got, TOL["bfloat16"])
+
+
 def test_cpu_calls_count_no_launch():
-    before = [f.launches for f in (tdec.fused_norm_qkv, tdec.flash_decode,
-                                   tdec.fused_proj_norm, tdec.fused_mlp)]
+    counters = (tdec.fused_norm_qkv, tdec.flash_decode, tdec.fused_proj_norm,
+                tdec.fused_mlp, tdec.flash_decode_contig_cuda,
+                tdec.fused_norm_qkv_int8_cuda, tdec.fused_proj_norm_int8_cuda,
+                tdec.fused_mlp_int8_cuda)
+    before = [f.launches for f in counters]
     x = torch.ones(2, 16)
     w = torch.ones(16, 16)
     tdec.fused_norm_qkv(x, torch.ones(16), None, w, kind="rmsnorm")
     tdec.fused_proj_norm(x, x, w, None, torch.ones(16), kind="rmsnorm")
     tdec.fused_mlp(x, x, w, w, act="relu")
-    after = [f.launches for f in (tdec.fused_norm_qkv, tdec.flash_decode,
-                                  tdec.fused_proj_norm, tdec.fused_mlp)]
+    xb, wq, ws = x.bfloat16(), w.to(torch.int8), torch.ones(16)
+    tdec.fused_norm_qkv(xb, xb[0], None, wq, kind="rmsnorm", wscale=ws)
+    tdec.fused_mlp(xb, xb, wq, wq, act="relu", wscales=(ws, None, ws))
+    tdec.flash_decode(torch.ones(2, 4, 8), torch.ones(2, 2, 9, 8),
+                      torch.ones(2, 2, 9, 8), 5)
+    after = [f.launches for f in counters]
     assert after == before
 
 
@@ -308,12 +455,16 @@ def test_decode_step_matches_jax_interpret(tiny):
 
 
 def test_decode_step_refuses_unported_branches(tiny):
+    """Every cache layout of the JAX function is ported; what JAX refuses
+    the port refuses too (a paged pool at one scalar position), and the
+    int8 KV cache raises naming the ROADMAP."""
     _, _, tm, tp = tiny
     td = tfd.inject_decode_params(tp, tm.config)
     cache = {"k": torch.zeros(2, 3, 2, 16, 32), "v": torch.zeros(2, 3, 2, 16, 32)}
     tok = torch.zeros(2, 1, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="per-row positions"):
         tfd.decode_step(tm.config, td, tok, cache, 5,
                         page_table=torch.zeros(2, 3, dtype=torch.long))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfd.decode_step(tm.config, td, tok, cache, torch.tensor([1, 2]))
+        tfd.decode_step(tm.config, td, tok,
+                        dict(cache, k_scale=torch.zeros(2, 3, 2, 16, 1)), 5)

@@ -73,7 +73,7 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
 
 @pytest.mark.parametrize("over", [
     {"paged_kv_cache": False}, {"quantize_kv_cache": True},
-    {"kv_host_tier_pages": 4}, {"dtype": "int8"},
+    {"kv_host_tier_pages": 4}, {"checkpoint": "ckpt_dir"},
     {"tensor_parallel": {"tp_size": 2}}])
 def test_unported_options_are_refused(over):
     import deepspeed_tpu_torch
@@ -108,23 +108,33 @@ def test_fused_decode_is_the_default(over, fused):
 
 
 def test_unported_decode_variants_are_refused():
-    """What the fused path does not carry yet raises naming the ROADMAP:
-    int8 weights in each GEMV kernel, and flash_decode over a contiguous
-    cache (no page table)."""
+    """What the fused path does not carry: int8 weights beside activations
+    other than bf16 (the int8 engine serves in bf16) raise in each GEMV
+    kernel, on the CPU as on the card, and the int8 KV cache raises naming
+    the ROADMAP in ``decode_step``."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import fused_decode as tfd
     from deepspeed_tpu_torch.ops.kernels import decode as tdec
 
     x = torch.zeros(2, 16)
-    w = torch.zeros(16, 16)
+    w = torch.zeros(16, 16, dtype=torch.int8)
     s = torch.ones(16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="bfloat16"):
         tdec.fused_norm_qkv(x, s, None, w, wscale=s)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="bfloat16"):
         tdec.fused_proj_norm(x, x, w, None, s, wscale=s)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="bfloat16"):
         tdec.fused_mlp(x, x, w, w, wscales=(s, s, s))
+    model = deepspeed_tpu_torch.causal_lm("llama-tiny", num_layers=1,
+                                          device="cpu")
+    dparams = tfd.inject_decode_params(model.params(), model.config)
+    cache = {"k": torch.zeros(1, 2, 4, 16, 32, dtype=torch.int8),
+             "v": torch.zeros(1, 2, 4, 16, 32, dtype=torch.int8),
+             "k_scale": torch.zeros(1, 2, 4, 16, 1),
+             "v_scale": torch.zeros(1, 2, 4, 16, 1)}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdec.flash_decode(torch.zeros(2, 4, 8), torch.zeros(2, 2, 64, 8),
-                          torch.zeros(2, 2, 64, 8), torch.tensor([1, 2]))
+        tfd.decode_step(model.config, dparams,
+                        torch.zeros(2, 1, dtype=torch.long), cache, 3)
 
 
 def test_kernel_input_checks_raise():
