@@ -13,7 +13,8 @@ Needs one CUDA card, nvcc and triton; imports nothing of JAX.  Phases
              LAMB phases), one nvcc each, started together, while
              Triton compiles the RoPE, softmax and bias_act kernels; print
              build seconds and the ptxas register / shared-memory / spill
-             lines;
+             lines (and any wgmma serialization warning), and the dynamic
+             shared memory a block of the wgmma flash backward takes;
 2. kernels — each kernel against its plain PyTorch version at the serving
              path's shapes, fp32 and bf16, with the tolerances of TOL below
              (the flash-decode kernel at depths 1..1024 across page
@@ -31,7 +32,10 @@ Needs one CUDA card, nvcc and triton; imports nothing of JAX.  Phases
              serving kernels at the training shapes (RMSNorm fwd on
              [8192, 2048], RoPE on [4, 16, 2048, 128] with sin and with
              the backward's -sin); then the four training kernels'
-             timings beside SDPA and torch's fused AdamW as yardsticks;
+             timings beside SDPA, ``F.rms_norm``'s autograd backward and
+             torch's fused AdamW as yardsticks, with the device time of
+             each of the flash backward's three kernels (delta, dQ,
+             dK/dV; also at gpt2-xl's shape);
              then the four decode kernels again at gpt2-xl's shapes and
              branches ([8, 1600], LayerNorm with a bias, tanh-GeLU without
              a gate, 25 heads of 64 with one query head per KV head) and
@@ -250,6 +254,13 @@ def phase_build(torch, dev):
                 print(f"  ptxas: {entry[:70]}: {ln.split(':', 1)[1].strip()}")
         print(f"  ptxas: {n_entries} entry functions, {len(spilled)} spill"
               + "".join(f"\n  ptxas spill: {s}" for s in spilled))
+        for ln in lib.ptxas_info:
+            if "Performance" in ln:
+                print(f"  ptxas: {ln}")
+        if name == "flash_attention":
+            fn = lib.lib.ds_flash_bwd_smem_bytes
+            print("  dynamic shared memory a block of the wgmma backward: " + "; ".join(
+                f"D {d}: dQ {fn(d, 0)} B, dK/dV {fn(d, 1)} B" for d in (32, 64, 128)))
     print(f"build: triton rope compile+first launch {triton_s:.2f}s; softmax "
           f"(with and without a mask) and bias_act {ops_s:.2f}s")
     out = {name: results[name + "_s"] for name in libs}
@@ -926,6 +937,31 @@ def check_train_kernels(torch, dev, gen):
     return errs
 
 
+def flash_bwd_split(torch, call, shape):
+    """Device time of each kernel of one flash backward call (the delta
+    pre-pass, dQ, dK/dV) under torch.profiler, in us."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            call()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        for name in ("flash_bwd_delta_kernel", "flash_bwd_dq_wgmma_kernel",
+                     "flash_bwd_dkv_wgmma_kernel"):
+            if name in e.key:
+                split[name] = e.self_device_time_total / e.count
+    check(len(split) == 3, f"flash bwd {shape}: profile kernels {split}")
+    print(f"flash bwd {shape} device us a call: " + ", ".join(
+        f"{n} {t:.2f}" for n, t in split.items())
+        + f"; total {sum(split.values()):.2f}")
+    return split
+
+
 def time_train_kernels(torch, dev, gen, errs):
     """bf16 at the llama-1b4 training shapes (Adam: fp32 masters and grads
     over the [24, 2048, 5632] MLP leaf)."""
@@ -941,14 +977,19 @@ def time_train_kernels(torch, dev, gen, errs):
     dy = _randn(torch, (TB * TS, TD), gen, dev).to(bf)
     g = torch.ones(TD, device=dev, dtype=bf)
     b_ms, b_by = bound_ms((3 * x.numel() + 2 * TD) * 2, 10 * x.numel())
+    # the library call: F.rms_norm's autograd backward on the same inputs
+    lx, lg = x.clone().requires_grad_(), g.clone().requires_grad_()
+    ly = F_.rms_norm(lx, (TD,), lg, eps=1e-5)
     out["rms_norm_bwd"] = {
         "shape": "x, dy [8192,2048] bf16",
         "ms": time_ms(torch, lambda: ln.rms_norm_bwd_cuda(x, g, dy, 1e-5)),
         "plain_ms": time_ms(torch, lambda: ln.rms_norm_bwd_plain(x, g, dy, 1e-5),
                             samples=10),
-        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": time_ms(torch, lambda: torch.autograd.grad(
+            ly, (lx, lg), dy, retain_graph=True)),
+        "bound_ms": b_ms, "bound_by": b_by,
         "max_abs_err": errs["rms_norm_bwd"]}
-    del x, dy
+    del x, dy, lx, lg, ly
 
     shape = (TB, TH, TS, TDH)
     q, k, v, do = (_randn(torch, shape, gen, dev).to(bf) for _ in range(4))
@@ -976,7 +1017,8 @@ def time_train_kernels(torch, dev, gen, errs):
     lib = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     lib_out = F_.scaled_dot_product_attention(*lib, is_causal=True)
     out["flash_attention_bwd"] = {
-        "shape": "q, k, v, o, do [4,16,2048,128] bf16, causal (two launches)",
+        "shape": "q, k, v, o, do [4,16,2048,128] bf16, causal (three launches:"
+                 " delta, dQ, dK/dV)",
         "ms": time_ms(torch, lambda: fa.flash_attention_bwd(
             q, k, v, o, lse, do, True, scale), samples=20, inner=5),
         "plain_ms": time_ms(torch, lambda: torch.autograd.grad(
@@ -985,7 +1027,9 @@ def time_train_kernels(torch, dev, gen, errs):
         "library_ms": time_ms(torch, lambda: torch.autograd.grad(
             lib_out, lib, do, retain_graph=True), samples=20, inner=5),
         "bound_ms": b_ms, "bound_by": b_by,
-        "max_abs_err": errs["flash_attention_bwd"]}
+        "max_abs_err": errs["flash_attention_bwd"],
+        "device_us_split": flash_bwd_split(torch, lambda: fa.flash_attention_bwd(
+            q, k, v, o, lse, do, True, scale), "[4,16,2048,128]")}
     del q, k, v, do, o, lse, ref, ref_out, lib, lib_out
     torch.cuda.empty_cache()
 
@@ -1440,7 +1484,10 @@ def time_flash_gpt2_shape(torch, dev, gen):
         "bwd_library_ms": time_ms(torch, lambda: torch.autograd.grad(
             lib_out, lib, do, retain_graph=True), samples=20, inner=5),
         "bwd_bound_ms": bound_ms(8 * q.numel() * 2 + GB * GH * GS * 4,
-                                 2.5 * fwd_flops, BF16_FLOPS_PER_S)[0]}
+                                 2.5 * fwd_flops, BF16_FLOPS_PER_S)[0],
+        "bwd_device_us_split": flash_bwd_split(
+            torch, lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, True,
+                                                  scale), "[8,25,1024,64]")}
     del q, k, v, do, o, lse, lib, lib_out
     torch.cuda.empty_cache()
     return out
@@ -2573,7 +2620,9 @@ def phase_train_profile(torch, engine, tokens):
             "layer_norm": ("layer_norm_fwd_",),
             "layer_norm_bwd": ("layer_norm_bwd_kernel", "rms_dg_reduce_kernel"),
             "flash_attention_fwd": ("flash_fwd_kernel",),
-            "flash_attention_bwd": ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"),
+            "flash_attention_bwd": ("flash_bwd_delta_kernel",
+                                    "flash_bwd_dq_wgmma_kernel",
+                                    "flash_bwd_dkv_wgmma_kernel"),
             "fused_adam": ("adam_kernel",),
             "fused_adam8bit": ("adam8bit_kernel",),
             "fused_lamb_phase1": ("lamb_phase1_kernel", "lamb_reduce_kernel"),

@@ -2,11 +2,11 @@
 // plain C interface.
 //
 // Replaces: deepspeed_tpu/ops/pallas/flash_attention.py `_flash_fwd` (kernel
-// `_fwd_kernel`) and `_flash_bwd` (kernels `_bwd_dq_kernel` and
-// `_bwd_dkv_kernel`).
+// `_fwd_kernel`) and `_flash_bwd` (delta outside the kernels, then the
+// kernels `_bwd_dq_kernel` and `_bwd_dkv_kernel`).
 //
 //   forward:  o = softmax(q k^T * scale, causal) v, lse = m + log(l)   [B*H, S]
-//   backward: delta = rowsum(do * o) (in the dQ launch, written for dK/dV)
+//   backward: delta = rowsum(do * o) (a pre-pass, read by both launches)
 //             p = exp(s - lse); ds = p * (do v^T - delta) * scale
 //             dq = ds k;  dk = ds^T q;  dv = p^T do
 //
@@ -15,36 +15,72 @@
 // alpha = exp(m_prev - m_new), p rounded to the input dtype before the P.V
 // product, `safe_l` (l == 0 -> 1) for empty rows, ds rounded to the input
 // dtype before the dQ / dK products and p before dV.  KV tiles entirely
-// above the diagonal are skipped.
+// above the diagonal are skipped.  No atomics anywhere: two calls give the
+// same bits.
 //
 // What bounds it on the H100: tensor-core operations.  At the llama-1b4
 // training shape (B 4, H 16, S 2048, Dh 128, bf16) the forward does
 // 4 B H S^2 Dh / 2 = 68.7 GFLOP (0.069 ms at 989 TFLOP/s) on 67 MB of
-// q, k, v and o; the backward about 2.5x the forward's products.
+// q, k, v and o; the backward's least work is five products (s, dp, dv, dk,
+// dq: 0.174 ms), and the two-launch split executes seven (s and dp in both
+// launches: 0.243 ms at the peak).
 //
-// Design.  The TPU kernels carry m, l and the accumulator in VMEM scratch
+// Forward.  The TPU kernel carries m, l and the accumulator in VMEM scratch
 // across the sequential KV grid axis.  Here a block owns one (b*h, q-tile)
 // and loops over the KV tiles itself, with m, l and the accumulator in
 // registers.  Four warps each take 16 query rows; products are
 // mma.sync m16n8k16 (bf16 in, fp32 accumulate) on tiles staged in shared
 // memory with a 16-byte row pad (conflict-free ldmatrix fragment loads);
 // the streamed tiles are double buffered with cp.async, so the next tile's
-// copy runs under the current tile's products.  The
-// backward is two launches, as in the reference: dQ (one block per q-tile,
-// looping over KV tiles) and dK/dV (one block per KV tile, looping over
-// q-tiles).  No atomics anywhere: two calls give the same bits.  fp32 inputs
-// take a scalar path (one warp per row, lanes over the head dim, one key at a
-// time) with the same semantics; it serves the fp32 reference runs, not the
-// bf16 training path.  No TMA and no wgmma yet.
+// copy runs under the current tile's products.  No TMA and no wgmma yet in
+// the forward.
+//
+// Backward (bf16).  Three launches: the delta pre-pass (the reference's own
+// split, 16-byte loads), then dQ and dK/dV as the reference splits them, so
+// no block sums into another's rows.  A block is two warpgroups (256
+// threads); each owns 64 of the block's 128 rows (queries in dQ, keys in
+// dK/dV), which stay in shared memory for the block's life, and streams
+// 64-row tiles of the other side through a ring.  Every product is
+// wgmma.mma_async m64nNk16: s and dp (s^T and dp^T) with both operands in
+// shared memory, dv, dk and dq with p or ds as bf16 A fragments in
+// registers, rounded where the reference rounds them.  Tiles are stored in
+// the 128B swizzle (64B at D = 32) that wgmma reads, and one physical tile
+// serves as a K-major operand (k q^T) and an MN-major one (ds^T q) through
+// its descriptor alone.
+//
+// The ring has four stages, fed by cp.async (zero fill past S) and
+// tracked by mbarriers: full[s] completes when every thread's copies of
+// the tile in stage s have landed (cp.async.mbarrier.arrive), empty[s]
+// when both warpgroups have waited for their products on it.  dQ's ds k
+// product is waited for under the next tile's s and dp, so the stage
+// refilled with tile j + 2 is tile j - 2's (dK/dV waits for its dv and dk
+// products at the tile's end: carrying their fragments into the next tile
+// takes all 255 registers at D = 128 and was slower).  There is no barrier
+// across the block inside the loop: two named barriers make the warpgroups
+// take turns to issue their s and dp products, so one warpgroup's
+// exponentials run under the other's products (in lock step, with a
+// __syncthreads a tile, the same products were slower).  cp.async,
+// not TMA: it needs no tensor maps or driver entry point, and the ragged
+// edge and the 4-byte lse and delta rows go through the same copies.  The
+// mask is evaluated only on tiles that hold an invisible pair (the
+// diagonal and the ragged last tiles); tiles wholly above the diagonal are
+// skipped (a warpgroup's one fully masked tile in a causal block is
+// computed with p = 0, so that no wgmma sits on a divergent path) and the
+// heavy blocks launch first.
+//
+// fp32 inputs take a scalar path (one warp per row, lanes over the head
+// dim, one key at a time) with the same semantics; it serves the fp32
+// reference runs, not the bf16 training path.
 //
 // Head dims 32, 64 and 128 (the presets' 32 of llama-tiny and mixtral-tiny,
-// 64 of the GPT-2 family, 128 of the Llama family).  Nothing in the tile
-// code assumes D >= 64: at D = 32 a warp holds D / 16 = 2 A fragments, the
-// P.V product walks D / 8 = 4 n-tiles two at a time (D / 8 must be even),
-// the fp32 path gives each lane D / 32 = 1 element, rows of D + 8 = 40
-// bf16 (80 bytes) keep the ldmatrix rows on distinct banks and 16-byte
-// aligned for cp.async, and the tiles need 25.6 KB (forward) of shared
-// memory against 69.6 KB at D = 128.
+// 64 of the GPT-2 family, 128 of the Llama family).  The forward's tile
+// code assumes nothing of D >= 64: at D = 32 a warp holds D / 16 = 2 A
+// fragments, the P.V product walks D / 8 = 4 n-tiles two at a time (D / 8
+// must be even), and rows of D + 8 = 40 bf16 (80 bytes) keep the ldmatrix
+// rows on distinct banks and 16-byte aligned for cp.async; the backward
+// swizzles 64-byte rows at D = 32 and splits D = 128 into two 64-wide
+// atoms; the fp32 path gives each lane D / 32 = 1 element.  Shared memory:
+// 25.6 KB (forward) to 69.6 KB at D = 128; the backward 49 KB to 195 KB.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,14 +91,10 @@ namespace {
 typedef __nv_bfloat16 bf16;
 
 constexpr float kNegInf = -1e30f;
-constexpr int kWarps = 4;
+constexpr int kWarps = 4;    // the forward's block
 constexpr int kThreads = kWarps * 32;
 constexpr int kFwdBQ = 64;   // forward: query rows per block (16 per warp)
 constexpr int kFwdBK = 64;   // forward: keys per tile
-constexpr int kDqBQ = 64;    // dQ: query rows per block
-constexpr int kDqBK = 32;    // dQ: keys per tile
-constexpr int kKvBK = 64;    // dK/dV: keys per block (16 per warp)
-constexpr int kKvBQ = 32;    // dK/dV: query rows per tile
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -93,10 +125,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
-}
-
-__device__ __forceinline__ bool visible(int row, int col, int S, int causal) {
-  return row < S && col < S && (!causal || row >= col);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -313,204 +341,551 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 backward, launch 1: delta and dQ; grid (q-tiles, B*H).  K/V tiles
-// double buffered.
+// bf16 backward on wgmma.  Three launches: the delta pre-pass, dQ (a block
+// owns 128 query rows and streams 64-key tiles of K and V) and dK/dV (a
+// block owns 128 keys and streams 64-row tiles of Q, dO, lse and delta).
+// A block is two warpgroups (256 threads); each owns 64 of the block's rows
+// and runs its products as wgmma.mma_async m64nNk16 (bf16 in, fp32 out).
 // ---------------------------------------------------------------------------
+constexpr int kBwdThreads = 256;   // two consumer warpgroups
+constexpr int kBwdRows = 128;      // rows a block owns (64 a warpgroup)
+constexpr int kBwdTile = 64;       // rows of a streamed tile
+constexpr int kBwdStages = 4;      // depth of the streamed tiles' ring
+
+// The swizzled tile layout that wgmma reads.  A tile of R rows x D bf16 is
+// D / AW column atoms of R rows x AW elements, kBytes = 2 AW bytes a row:
+// 128 (AW 64) for D = 64 and 128, 64 (AW 32) for D = 32.  The 16-byte chunk
+// c of row r lies at chunk c ^ ((r * kBytes >> 7) & (kBytes / 16 - 1)), the
+// 128B (64B) swizzle, applied by the hardware to the address bits, so every
+// tile starts on a 1024-byte boundary.  The same tile is a K-major operand
+// (rows are M or N, the head dim is K: q k^T, do v^T) and an MN-major one
+// (rows are K: p^T do, ds^T q, ds k); only the descriptor differs.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ o,
-                    const bf16* __restrict__ dout, const float* __restrict__ lse,
-                    float* __restrict__ delta, bf16* __restrict__ dq, int S, float scale,
-                    int causal) {
-  constexpr int LD = D + 8;
-  constexpr int NT = kDqBK / 8;
-  constexpr int kTile = kDqBK * LD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sDO = sQ + kDqBQ * LD;
-  bf16* sK = sDO + kDqBQ * LD;        // [2][kDqBK][LD]
-  bf16* sV = sK + 2 * kTile;          // [2][kDqBK][LD]
-  float* sDelta = reinterpret_cast<float*>(sV + 2 * kTile);
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kDqBQ;
-  const size_t base = static_cast<size_t>(blockIdx.y) * S * D;
-  const size_t srow = static_cast<size_t>(blockIdx.y) * S;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int ra = q0 + warp * 16 + (lane >> 2), rb = ra + 8;
+struct Sw {
+  static constexpr int kBytes = D >= 64 ? 128 : 64;
+  static constexpr int kAW = kBytes / 2;
+  static constexpr int kAtoms = D / kAW;
+  static constexpr int kChunks = kBytes / 16;
+  static constexpr uint64_t kMode = kBytes == 128 ? 1 : 2;   // descriptor layout type
+  // byte offset of 16-byte chunk `chunk` (0 .. D / 8) of row r in an R-row tile
+  static __device__ __forceinline__ uint32_t offset(int R, int r, int chunk) {
+    const int atom = chunk / kChunks, c = chunk % kChunks;
+    return atom * R * kBytes + r * kBytes + ((c ^ ((r * kBytes >> 7) & (kChunks - 1))) << 4);
+  }
+};
 
-  int n_tiles = (S + kDqBK - 1) / kDqBK;
-  if (causal) n_tiles = min(n_tiles, (q0 + kDqBQ - 1) / kDqBK + 1);
-  load_tile_async<D, kDqBQ>(sQ, q + base, q0, S);
-  load_tile_async<D, kDqBQ>(sDO, dout + base, q0, S);
-  load_tile_async<D, kDqBK>(sK, k + base, 0, S);
-  load_tile_async<D, kDqBK>(sV, v + base, 0, S);
-  cp_async_commit();
-  // delta = rowsum(do * o) in fp32: each warp its 16 rows, lanes over D
-  for (int r = warp * 16; r < warp * 16 + 16; ++r) {
-    const int row = q0 + r;
-    float acc = 0.f;
-    if (row < S) {
-      const bf16* orow = o + base + static_cast<size_t>(row) * D;
-      const bf16* drow = dout + base + static_cast<size_t>(row) * D;
-      for (int c = lane; c < D; c += 32) acc += __bfloat162float(drow[c]) * __bfloat162float(orow[c]);
-    }
-    acc = warp_sum(acc);
-    if (lane == 0) {
-      sDelta[r] = acc;
-      if (row < S) delta[srow + row] = acc;
+// wgmma shared-memory descriptors (start address, leading and stride byte
+// offsets in 16-byte units, layout type in bits 62-63).  K-major: the
+// stride between 8-row groups is SBO; LBO is unused under a swizzle.
+// MN-major: 8-row groups along K stride SBO and atoms along N stride LBO;
+// each instruction here reads one atom along N (N = AW), so LBO is unused
+// too, and both are set to the 8-row stride.
+template <int D>
+__device__ __forceinline__ uint64_t desc_k_major(uint32_t addr) {
+  constexpr uint64_t kSbo = (8 * Sw<D>::kBytes) >> 4;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) | (kSbo << 32) |
+         (Sw<D>::kMode << 62);
+}
+
+template <int D>
+__device__ __forceinline__ uint64_t desc_mn_major(uint32_t addr) {
+  constexpr uint64_t kSbo = (8 * Sw<D>::kBytes) >> 4;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (kSbo << 16) | (kSbo << 32) |
+         (Sw<D>::kMode << 62);
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Pin registers that an in-flight wgmma writes: reads after a wait stay
+// after it, writes before an issue stay before it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int A, int N>
+__device__ __forceinline__ void fence_regs(float (&r)[A][N]) {
+#pragma unroll
+  for (int a = 0; a < A; ++a) fence_regs(r[a]);
+}
+// The value of x, which the compiler may no longer assume it knows: keeps
+// addresses derived from it (wgmma descriptors, global rows) from being
+// hoisted out of a loop into registers that stay live across it.
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
+// cp.async writes shared memory through the generic proxy; wgmma reads it
+// through the async proxy.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The ring's mbarriers: full[s] completes when every thread's copies of the
+// tile in stage s have landed, empty[s] when both warpgroups are done with it.
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// arrive on `bar` once this thread's cp.async copies issued so far have landed
+__device__ __forceinline__ void mbar_arrive_on_copies(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// Named barriers 1 and 2 order the two warpgroups' products: a warpgroup
+// issues its s and dp products only after the other issued its own, so one
+// warpgroup's exponentials run under the other's products.
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// Start copying rows [row0, row0 + R) of a [S, D] bf16 matrix into a
+// swizzled tile at shared address `dst` (16-byte cp.async, rows past S
+// zero filled); every thread of the block takes part.
+template <int D, int R>
+__device__ __forceinline__ void load_tile_sw(uint32_t dst, const bf16* src, int row0, int S) {
+  constexpr int kPerRow = D / 8;
+  static_assert(R * kPerRow % kBwdThreads == 0, "whole chunks a thread");
+#pragma unroll
+  for (int i = 0; i < R * kPerRow / kBwdThreads; ++i) {
+    const int c = threadIdx.x + i * kBwdThreads;
+    const int r = c / kPerRow, k = c % kPerRow;
+    const bool in = row0 + r < S;
+    const bf16* g = src + static_cast<size_t>(in ? row0 + r : 0) * D + k * 8;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst + Sw<D>::offset(R, r, k)),
+                 "l"(g), "r"(in ? 16 : 0));
+  }
+}
+
+// Start copying 64 floats of a [S] row (from row0; past S zero filled) into
+// shared memory, 4 bytes a thread (rows of lse and delta need not be
+// 16-byte aligned); threads [t0, t0 + 64) take part.
+__device__ __forceinline__ void load_stats(uint32_t dst, const float* src, int row0, int S, int t0) {
+  const int r = static_cast<int>(threadIdx.x) - t0;
+  if (r < 0 || r >= kBwdTile) return;
+  const bool in = row0 + r < S;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst + r * 4),
+               "l"(src + (in ? row0 + r : 0)), "r"(in ? 4 : 0));
+}
+
+// acc[64 x 64] = A[64 x D] . B[64 x D]^T, both K-major in swizzled tiles:
+// A the 64 rows at shared address a of an RA-row tile, B the 64 rows at b
+// of an RB-row tile (q k^T, do v^T, k q^T, v do^T).
+template <int D, int RA, int RB>
+__device__ __forceinline__ void ss_product(float (&acc)[32], uint32_t a, uint32_t b) {
+  using L = Sw<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t atom = kk * 16 / L::kAW, off = (kk * 16 % L::kAW) * 2;
+    wgmma_ss(acc, desc_k_major<D>(a + atom * RA * L::kBytes + off),
+             desc_k_major<D>(b + atom * RB * L::kBytes + off), kk > 0);
+  }
+}
+
+// acc[64 x D] += A[64 x 64] . B[64 x D]: A in registers as four k16
+// fragments, B a 64-row swizzled tile at shared address b read MN-major
+// (p^T do, ds^T q, ds k); one instruction for each k16 step and atom.
+template <int D>
+__device__ __forceinline__ void rs_product(float (&acc)[Sw<D>::kAtoms][Sw<D>::kAW / 2],
+                                           const uint32_t (&a)[4][4], uint32_t b) {
+  using L = Sw<D>;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int na = 0; na < L::kAtoms; ++na)
+      wgmma_rs(acc[na], a[kk], desc_mn_major<D>(b + na * kBwdTile * L::kBytes + kk * 16 * L::kBytes));
+  }
+}
+
+// A 64 x 64 fp32 accumulator, rounded to bf16, as the A fragments of a
+// product over its 64 columns (the layouts agree: n8 blocks 2kk and 2kk + 1
+// of the accumulator are k16 step kk of the operand).
+__device__ __forceinline__ void acc_to_frags(uint32_t (&f)[4][4], const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    f[kk][0] = pack_bf16(x[8 * kk + 0], x[8 * kk + 1]);
+    f[kk][1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
+    f[kk][2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
+    f[kk][3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void zero_acc(float (&acc)[Sw<D>::kAtoms][Sw<D>::kAW / 2]) {
+#pragma unroll
+  for (int na = 0; na < Sw<D>::kAtoms; ++na)
+#pragma unroll
+    for (int i = 0; i < Sw<D>::kAW / 2; ++i) acc[na][i] = 0.f;
+}
+
+// Store a warpgroup's [64 x D] fp32 accumulator as bf16 rows row0 + ...;
+// rows past S are dropped.  Thread (warp w, lane l) holds rows 16 w + l / 4
+// and + 8, columns 8 j + 2 (l % 4) + {0, 1} of each n8 block j.
+template <int D>
+__device__ __forceinline__ void store_acc(bf16* out, const float (&acc)[Sw<D>::kAtoms][Sw<D>::kAW / 2],
+                                          int row0, int S) {
+  using L = Sw<D>;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int ra = row0 + warp * 16 + (lane >> 2);
+#pragma unroll
+  for (int na = 0; na < L::kAtoms; ++na) {
+#pragma unroll
+    for (int j = 0; j < L::kAW / 8; ++j) {
+      const int c = na * L::kAW + j * 8 + (lane & 3) * 2;
+      if (ra < S)
+        *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(ra) * D + c) =
+            pack_bf16(acc[na][4 * j], acc[na][4 * j + 1]);
+      if (ra + 8 < S)
+        *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(ra + 8) * D + c) =
+            pack_bf16(acc[na][4 * j + 2], acc[na][4 * j + 3]);
     }
   }
-  const float lse0 = ra < S ? lse[srow + ra] : 0.f, lse1 = rb < S ? lse[srow + rb] : 0.f;
-  uint32_t qf[D / 16][4], df[D / 16][4];
-  float dl0 = 0.f, dl1 = 0.f;
+}
 
-  float acc[D / 8][4];
+// delta = rowsum(do * o) in fp32, [BH * S] rows: D / 8 threads a row, one
+// 16-byte load of each operand a thread, a shuffle sum across them.
+template <int D>
+__global__ void __launch_bounds__(256)
+flash_bwd_delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                       float* __restrict__ delta, int rows) {
+  constexpr int kT = D / 8;
+  const int row = blockIdx.x * (256 / kT) + threadIdx.x / kT;
+  const int c = threadIdx.x % kT;
+  float acc = 0.f;
+  if (row < rows) {
+    const uint4 a = *reinterpret_cast<const uint4*>(o + static_cast<size_t>(row) * D + c * 8);
+    const uint4 b = *reinterpret_cast<const uint4*>(dout + static_cast<size_t>(row) * D + c * 8);
+    const __nv_bfloat162* pa = reinterpret_cast<const __nv_bfloat162*>(&a);
+    const __nv_bfloat162* pb = reinterpret_cast<const __nv_bfloat162*>(&b);
 #pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * kDqBK;
-    if (j + 1 < n_tiles) {
-      const int nb = (j + 1) & 1;
-      load_tile_async<D, kDqBK>(sK + nb * kTile, k + base, k0 + kDqBK, S);
-      load_tile_async<D, kDqBK>(sV + nb * kTile, v + base, k0 + kDqBK, S);
+    for (int i = 0; i < 4; ++i) {
+      const float2 fa = __bfloat1622float2(pa[i]), fb = __bfloat1622float2(pb[i]);
+      acc += fa.x * fb.x + fa.y * fb.y;
     }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    if (j == 0) {
-      load_a_frags<D>(qf, sQ + warp * 16 * LD, lane);
-      load_a_frags<D>(df, sDO + warp * 16 * LD, lane);
-      dl0 = sDelta[warp * 16 + (lane >> 2)];
-      dl1 = sDelta[warp * 16 + (lane >> 2) + 8];
-    }
-    const bf16* tK = sK + (j & 1) * kTile;
-    const bf16* tV = sV + (j & 1) * kTile;
-    float s[NT][4], dp[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
-    }
-    mma_abt<D, NT>(s, qf, tK, lane);
-    mma_abt<D, NT>(dp, df, tV, lane);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + nt * 8 + (lane & 3) * 2 + (e & 1);
-        const int row = e < 2 ? ra : rb;
-        const float p = visible(row, col, S, causal) ? expf(s[nt][e] * scale - (e < 2 ? lse0 : lse1)) : 0.f;
-        s[nt][e] = p * (dp[nt][e] - (e < 2 ? dl0 : dl1)) * scale;   // ds
-      }
-    }
-    mma_pb<D, kDqBK / 16>(acc, s, tK, lane);
-    __syncthreads();
   }
-  store_rows<D>(dq + base, acc, q0 + warp * 16, S, lane, 1.f, 1.f);
+#pragma unroll
+  for (int off = kT / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (row < rows && c == 0) delta[row] = acc;
+}
+
+// The block's shared memory, rounded up to a 1024-byte boundary (the
+// swizzle's period) from the dynamic base.
+__device__ __forceinline__ uint32_t aligned_smem(unsigned char* raw) {
+  const uint32_t base = smem_u32(raw);
+  return (base + 1023u) & ~1023u;
 }
 
 // ---------------------------------------------------------------------------
-// bf16 backward, launch 2: dK and dV; grid (kv-tiles, B*H).  Warps own 16
-// keys each; products are taken transposed (keys are the rows).  Q / dO
-// tiles (with their lse and delta) double buffered.
+// dQ: grid (q-blocks of 128 rows, B*H), heavy (late) blocks first.  Q and
+// dO of the block stay resident; K and V stream through the ring.  Per
+// 64-key tile, each warpgroup: s = q k^T and dp = do v^T (SS), p and ds in
+// registers, dq += ds k (RS, k read MN-major).
 // ---------------------------------------------------------------------------
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     bf16* __restrict__ dk, bf16* __restrict__ dv, int S, float scale,
-                     int causal) {
-  constexpr int LD = D + 8;
-  constexpr int NT = kKvBQ / 8;
-  constexpr int kTile = kKvBQ * LD;
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          bf16* __restrict__ dq, int S, float scale, int causal) {
+  using L = Sw<D>;
+  constexpr uint32_t kRes = kBwdRows * D * 2, kStr = kBwdTile * D * 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sV = sK + kKvBK * LD;
-  bf16* sQ = sV + kKvBK * LD;         // [2][kKvBQ][LD]
-  bf16* sDO = sQ + 2 * kTile;         // [2][kKvBQ][LD]
-  float* sLse = reinterpret_cast<float*>(sDO + 2 * kTile);   // [2][kKvBQ]
-  float* sDelta = sLse + 2 * kKvBQ;                          // [2][kKvBQ]
-  const int k0 = blockIdx.x * kKvBK;
+  const uint32_t sQ = aligned_smem(smem_raw), sDO = sQ + kRes;
+  const uint32_t sK = sDO + kRes, sV = sK + kBwdStages * kStr;
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int qb = (gridDim.x - 1 - blockIdx.x) * kBwdRows;
+  const int qw = qb + wg * 64;                    // this warpgroup's first row
   const size_t base = static_cast<size_t>(blockIdx.y) * S * D;
   const size_t srow = static_cast<size_t>(blockIdx.y) * S;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int ka = k0 + warp * 16 + (lane >> 2), kb = ka + 8;
 
-  const int n_q = (S + kKvBQ - 1) / kKvBQ;
-  const int first = causal ? k0 / kKvBQ : 0;
-  auto stage_rows = [&](int t, int buf) {
-    const int q0 = t * kKvBQ;
-    load_tile_async<D, kKvBQ>(sQ + buf * kTile, q + base, q0, S);
-    load_tile_async<D, kKvBQ>(sDO + buf * kTile, dout + base, q0, S);
-    for (int r = threadIdx.x; r < kKvBQ; r += kThreads) {
-      const bool in = q0 + r < S;
-      sLse[buf * kKvBQ + r] = in ? lse[srow + q0 + r] : 0.f;
-      sDelta[buf * kKvBQ + r] = in ? delta[srow + q0 + r] : 0.f;
+  const uint32_t full = sV + kBwdStages * kStr, empty = full + kBwdStages * 8;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kBwdStages; ++i) {
+      mbar_init(full + 8 * i, kBwdThreads);
+      mbar_init(empty + 8 * i, kBwdThreads);
     }
+  }
+  __syncthreads();
+
+  int n_k = (S + kBwdTile - 1) / kBwdTile;
+  if (causal) n_k = min(n_k, (qb + kBwdRows - 1) / kBwdTile + 1);
+  load_tile_sw<D, kBwdRows>(sQ, q + base, qb, S);
+  load_tile_sw<D, kBwdRows>(sDO, dout + base, qb, S);
+  auto stage = [&](int j) {   // this thread's copies of tile j
+    const uint32_t st = (j % kBwdStages) * kStr;
+    load_tile_sw<D, kBwdTile>(sK + st, k + base, j * kBwdTile, S);
+    load_tile_sw<D, kBwdTile>(sV + st, v + base, j * kBwdTile, S);
+    mbar_arrive_on_copies(full + 8 * (j % kBwdStages));
   };
-  load_tile_async<D, kKvBK>(sK, k + base, k0, S);
-  load_tile_async<D, kKvBK>(sV, v + base, k0, S);
-  if (first < n_q) stage_rows(first, 0);
+  stage(0);
+  if (n_k > 1) stage(1);
   cp_async_commit();
+  cp_async_wait<0>();
+  fence_proxy_async();
+  __syncthreads();   // Q and dO are in
 
-  float dkacc[D / 8][4], dvacc[D / 8][4];
+  const int ra = qw + warp * 16 + (lane >> 2), rb = ra + 8;
+  const float lse0 = ra < S ? lse[srow + ra] : 0.f, lse1 = rb < S ? lse[srow + rb] : 0.f;
+  const float dl0 = ra < S ? delta[srow + ra] : 0.f, dl1 = rb < S ? delta[srow + rb] : 0.f;
+  float acc[L::kAtoms][L::kAW / 2];
+  zero_acc<D>(acc);
+
+  // refill the stage of tile j - 2 with tile j + 2 once both warpgroups are done with it
+  auto refill = [&](int j) {
+    if (j + 2 >= n_k) return;
+    if (j >= 2) mbar_wait(empty + 8 * ((j + 2) % kBwdStages), ((j - 2) / kBwdStages) & 1);
+    stage(j + 2);
+  };
+  if (wg == 1) named_arrive(1);   // warpgroup 0 issues first
+  for (int j = 0; j < n_k; ++j) {
+    const int k0 = j * kBwdTile;
+    mbar_wait(full + 8 * (j % kBwdStages), (j / kBwdStages) & 1);
+    fence_proxy_async();
+    const uint32_t tK = sK + (j % kBwdStages) * kStr, tV = sV + (j % kBwdStages) * kStr;
+    float s[32], dp[32];
+    named_sync(1 + wg);
+    wg_fence();
+    ss_product<D, kBwdRows, kBwdTile>(s, opaque(sQ + wg * 64 * L::kBytes), tK);
+    wg_commit();
+    ss_product<D, kBwdRows, kBwdTile>(dp, opaque(sDO + wg * 64 * L::kBytes), tV);
+    wg_commit();
+    named_arrive(2 - wg);
+    wg_wait<1>();    // s, and tile j - 1's dq product, are done
+    if (j >= 1) mbar_arrive(empty + 8 * ((j - 1) % kBwdStages));
+    fence_regs(s);
+    // the mask only where a tile holds an invisible pair: the diagonal tile
+    // and the ragged last tiles (ALiBi's slope_h (k - q) would join here)
+    if ((causal && k0 + 63 > qw) || k0 + kBwdTile > S || qw + 64 > S) {
 #pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) {
-    dkacc[nt][0] = dkacc[nt][1] = dkacc[nt][2] = dkacc[nt][3] = 0.f;
-    dvacc[nt][0] = dvacc[nt][1] = dvacc[nt][2] = dvacc[nt][3] = 0.f;
+      for (int i = 0; i < 32; ++i) {
+        const int row = i & 2 ? rb : ra;
+        const int col = k0 + (i >> 2) * 8 + (lane & 3) * 2 + (i & 1);
+        const bool ok = row < S && col < S && (!causal || row >= col);
+        s[i] = ok ? expf(s[i] * scale - (i & 2 ? lse1 : lse0)) : 0.f;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = expf(s[i] * scale - (i & 2 ? lse1 : lse0));
+    }
+    wg_wait<0>();
+    fence_regs(dp);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = s[i] * (dp[i] - (i & 2 ? dl1 : dl0)) * scale;   // ds
+    uint32_t f[4][4];
+    acc_to_frags(f, s);
+    fence_regs(acc);
+    wg_fence();
+    rs_product<D>(acc, f, tK);   // dq += ds k, waited for under the next tile's s
+    wg_commit();
+    refill(j);
   }
-  for (int t = first; t < n_q; ++t) {
-    const int q0 = t * kKvBQ;
-    const int buf = (t - first) & 1;
-    if (t + 1 < n_q) stage_rows(t + 1, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* tQ = sQ + buf * kTile;
-    const bf16* tDO = sDO + buf * kTile;
-    const float* tLse = sLse + buf * kKvBQ;
-    const float* tDelta = sDelta + buf * kKvBQ;
-    float st[NT][4], dpt[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      st[nt][0] = st[nt][1] = st[nt][2] = st[nt][3] = 0.f;
-      dpt[nt][0] = dpt[nt][1] = dpt[nt][2] = dpt[nt][3] = 0.f;
+  if (wg == 0) named_sync(1);   // the other warpgroup's last arrive
+  wg_wait<0>();
+  fence_regs(acc);
+  store_acc<D>(dq + base, acc, qw, S);
+}
+
+// ---------------------------------------------------------------------------
+// dK/dV: grid (key blocks of 128, B*H), heavy (early) blocks first.  K and
+// V of the block stay resident; Q, dO, lse and delta stream through the
+// ring.  Per 64-row query tile, each warpgroup (64 keys): s^T = k q^T and
+// dp^T = v do^T (SS), p^T and ds^T in registers, dv += p^T do and
+// dk += ds^T q (RS, q and do read MN-major).
+// ---------------------------------------------------------------------------
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv, int S, float scale,
+                           int causal) {
+  using L = Sw<D>;
+  constexpr uint32_t kRes = kBwdRows * D * 2, kStr = kBwdTile * D * 2;
+  constexpr uint32_t kStats = kBwdTile * 4;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t sK = aligned_smem(smem_raw), sV = sK + kRes;
+  const uint32_t sQ = sV + kRes, sDO = sQ + kBwdStages * kStr;
+  const uint32_t sLse = sDO + kBwdStages * kStr, sDelta = sLse + kBwdStages * kStats;
+  const uint32_t full = sDelta + kBwdStages * kStats, empty = full + kBwdStages * 8;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kBwdStages; ++i) {
+      mbar_init(full + 8 * i, kBwdThreads);
+      mbar_init(empty + 8 * i, kBwdThreads);
     }
-    {
-      uint32_t kf[D / 16][4];
-      load_a_frags<D>(kf, sK + warp * 16 * LD, lane);
-      mma_abt<D, NT>(st, kf, tQ, lane);
-    }
+  }
+  __syncthreads();
+  const float* lse_tiles = reinterpret_cast<const float*>(
+      smem_raw + (sLse - smem_u32(smem_raw)));
+  const float* delta_tiles = reinterpret_cast<const float*>(
+      smem_raw + (sDelta - smem_u32(smem_raw)));
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int kb = blockIdx.x * kBwdRows;
+  const int kw = kb + wg * 64;                    // this warpgroup's first key
+  const size_t base = static_cast<size_t>(blockIdx.y) * S * D;
+
+  const int n_q = (S + kBwdTile - 1) / kBwdTile;
+  const int first = causal ? kb / kBwdTile : 0;
+  const int n_t = n_q - first;
+  load_tile_sw<D, kBwdRows>(sK, k + base, kb, S);
+  load_tile_sw<D, kBwdRows>(sV, v + base, kb, S);
+  auto stage = [&](int i) {   // this thread's copies of tile i
+    const int st = i % kBwdStages, q0 = (first + i) * kBwdTile;
+    const size_t bs = static_cast<size_t>(opaque(blockIdx.y)) * S;
+    load_tile_sw<D, kBwdTile>(sQ + st * kStr, q + bs * D, q0, S);
+    load_tile_sw<D, kBwdTile>(sDO + st * kStr, dout + bs * D, q0, S);
+    load_stats(sLse + st * kStats, lse + bs, q0, S, 0);
+    load_stats(sDelta + st * kStats, delta + bs, q0, S, kBwdTile);
+    mbar_arrive_on_copies(full + 8 * st);
+  };
+  stage(0);
+  if (n_t > 1) stage(1);
+  cp_async_commit();
+  cp_async_wait<0>();
+  fence_proxy_async();
+  __syncthreads();   // K and V are in
+
+  const int ka = kw + warp * 16 + (lane >> 2), kc = ka + 8;   // this thread's keys
+  float dkacc[L::kAtoms][L::kAW / 2], dvacc[L::kAtoms][L::kAW / 2];
+  zero_acc<D>(dkacc);
+  zero_acc<D>(dvacc);
+
+  // refill the stage of tile i - 2 with tile i + 2 once both warpgroups are done with it
+  auto refill = [&](int i) {
+    if (i + 2 >= n_t) return;
+    if (i >= 2) mbar_wait(empty + 8 * ((i + 2) % kBwdStages), ((i - 2) / kBwdStages) & 1);
+    stage(i + 2);
+  };
+  if (wg == 1) named_arrive(1);   // warpgroup 0 issues first
+  for (int i = 0; i < n_t; ++i) {
+    const int q0 = (first + i) * kBwdTile;
+    const int st = i % kBwdStages;
+    mbar_wait(full + 8 * st, (i / kBwdStages) & 1);
+    fence_proxy_async();
+    const uint32_t tQ = sQ + st * kStr, tDO = sDO + st * kStr;
+    const float* tl = lse_tiles + st * kBwdTile;
+    const float* td = delta_tiles + st * kBwdTile;
+    float s[32], dp[32];
+    named_sync(1 + wg);
+    wg_fence();
+    ss_product<D, kBwdRows, kBwdTile>(s, opaque(sK + wg * 64 * L::kBytes), tQ);    // s^T = k q^T
+    wg_commit();
+    ss_product<D, kBwdRows, kBwdTile>(dp, opaque(sV + wg * 64 * L::kBytes), tDO);  // dp^T = v do^T
+    wg_commit();
+    named_arrive(2 - wg);
+    wg_wait<1>();    // s^T is done
+    if (i >= 1) mbar_arrive(empty + 8 * ((i - 1) % kBwdStages));
+    fence_regs(s);
+    // p^T = exp(s^T scale - lse[col]); the mask only on the diagonal tile
+    // and the ragged last tiles (ALiBi's slope_h (k - q) would join here)
+    if ((causal && q0 < kw + 63) || q0 + kBwdTile > S || kw + 64 > S) {
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
+      for (int x = 0; x < 32; ++x) {
+        const int c = (x >> 2) * 8 + (lane & 3) * 2 + (x & 1);
+        const int row = q0 + c, key = x & 2 ? kc : ka;
+        const bool ok = row < S && key < S && (!causal || row >= key);
+        s[x] = ok ? expf(s[x] * scale - tl[c]) : 0.f;
+      }
+    } else {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = nt * 8 + (lane & 3) * 2 + (e & 1);
-        const int key = e < 2 ? ka : kb;
-        st[nt][e] = visible(q0 + c, key, S, causal) ? expf(st[nt][e] * scale - tLse[c]) : 0.f;
+      for (int j = 0; j < 8; ++j) {
+        const float2 l = *reinterpret_cast<const float2*>(tl + j * 8 + (lane & 3) * 2);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[4 * j + e] = expf(s[4 * j + e] * scale - (e & 1 ? l.y : l.x));
       }
     }
-    mma_pb<D, kKvBQ / 16>(dvacc, st, tDO, lane);   // dv += p^T do
-    {
-      uint32_t vf[D / 16][4];
-      load_a_frags<D>(vf, sV + warp * 16 * LD, lane);
-      mma_abt<D, NT>(dpt, vf, tDO, lane);
-    }
+    uint32_t f[4][4];
+    acc_to_frags(f, s);
+    wg_wait<0>();
+    fence_regs(dp);
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
+    for (int j = 0; j < 8; ++j) {
+      const float2 d = *reinterpret_cast<const float2*>(td + j * 8 + (lane & 3) * 2);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = nt * 8 + (lane & 3) * 2 + (e & 1);
-        st[nt][e] = st[nt][e] * (dpt[nt][e] - tDelta[c]) * scale;   // ds^T
-      }
+      for (int e = 0; e < 4; ++e)
+        s[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - (e & 1 ? d.y : d.x)) * scale;   // ds^T
     }
-    mma_pb<D, kKvBQ / 16>(dkacc, st, tQ, lane);    // dk += ds^T q
-    __syncthreads();
+    uint32_t g[4][4];
+    acc_to_frags(g, s);
+    fence_regs(dvacc);
+    fence_regs(dkacc);
+    wg_fence();
+    rs_product<D>(dvacc, f, tDO);   // dv += p^T do
+    rs_product<D>(dkacc, g, tQ);    // dk += ds^T q
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(dvacc);
+    fence_regs(dkacc);
+    refill(i);
   }
-  store_rows<D>(dk + base, dkacc, k0 + warp * 16, S, lane, 1.f, 1.f);
-  store_rows<D>(dv + base, dvacc, k0 + warp * 16, S, lane, 1.f, 1.f);
+  if (wg == 0) named_sync(1);   // the other warpgroup's last arrive
+  store_acc<D>(dk + base, dkacc, kw, S);
+  store_acc<D>(dv + base, dvacc, kw, S);
 }
 
 // ---------------------------------------------------------------------------
@@ -650,10 +1025,13 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
 // launchers
 // ---------------------------------------------------------------------------
 template <int D> constexpr int fwd_smem() { return (kFwdBQ + 4 * kFwdBK) * (D + 8) * 2; }
-template <int D> constexpr int dq_smem() { return (2 * kDqBQ + 4 * kDqBK) * (D + 8) * 2 + kDqBQ * 4; }
-template <int D> constexpr int dkv_smem() {
-  return (2 * kKvBK + 4 * kKvBQ) * (D + 8) * 2 + 4 * kKvBQ * 4;
+// the wgmma backward: the resident pair of 128-row tiles, four stages of a
+// 64-row pair (and, for dK/dV, of 64 lse and delta values), the ring's
+// eight mbarriers, and 1 KB to align the base to the swizzle's period
+template <int D> constexpr int dq_smem() {
+  return 1024 + 2 * kBwdRows * D * 2 + 2 * kBwdStages * kBwdTile * D * 2 + 2 * kBwdStages * 8;
 }
+template <int D> constexpr int dkv_smem() { return dq_smem<D>() + 2 * kBwdStages * kBwdTile * 4; }
 
 template <typename K>
 cudaError_t allow_smem(K kernel, int bytes) {
@@ -685,19 +1063,22 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
                        void* dv, int BH, int S, float scale, int causal, int dtype,
                        cudaStream_t st) {
   if (dtype == 1) {
-    cudaError_t e = allow_smem(flash_bwd_dq_kernel<D>, dq_smem<D>());
+    cudaError_t e = allow_smem(flash_bwd_dq_wgmma_kernel<D>, dq_smem<D>());
     if (e != cudaSuccess) return e;
-    e = allow_smem(flash_bwd_dkv_kernel<D>, dkv_smem<D>());
+    e = allow_smem(flash_bwd_dkv_wgmma_kernel<D>, dkv_smem<D>());
     if (e != cudaSuccess) return e;
-    const dim3 gq((S + kDqBQ - 1) / kDqBQ, BH);
-    flash_bwd_dq_kernel<D><<<gq, kThreads, dq_smem<D>(), st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse, delta,
-        static_cast<bf16*>(dq), S, scale, causal);
+    const int rows = BH * S, per_block = 256 / (D / 8);
+    flash_bwd_delta_kernel<D><<<(rows + per_block - 1) / per_block, 256, 0, st>>>(
+        static_cast<const bf16*>(o), static_cast<const bf16*>(dout), delta, rows);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
-    const dim3 gk((S + kKvBK - 1) / kKvBK, BH);
-    flash_bwd_dkv_kernel<D><<<gk, kThreads, dkv_smem<D>(), st>>>(
+    const dim3 grid((S + kBwdRows - 1) / kBwdRows, BH);
+    flash_bwd_dq_wgmma_kernel<D><<<grid, kBwdThreads, dq_smem<D>(), st>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq), S, scale, causal);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    flash_bwd_dkv_wgmma_kernel<D><<<grid, kBwdThreads, dkv_smem<D>(), st>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk),
         static_cast<bf16*>(dv), S, scale, causal);
@@ -760,6 +1141,17 @@ int ds_flash_bwd(const void* q, const void* k, const void* v, const void* o, con
     default:
       return static_cast<int>(
           launch_bwd<128>(q, k, v, o, dout, l, dl, dq, dk, dv, BH, S, scale, causal, dtype, st));
+  }
+}
+
+// Dynamic shared memory a block of the bf16 backward takes at head dim D:
+// kernel 0 = dQ, 1 = dK/dV (0 for a head dim without a kernel).
+int ds_flash_bwd_smem_bytes(int D, int kernel) {
+  switch (D) {
+    case 32: return kernel ? dkv_smem<32>() : dq_smem<32>();
+    case 64: return kernel ? dkv_smem<64>() : dq_smem<64>();
+    case 128: return kernel ? dkv_smem<128>() : dq_smem<128>();
+    default: return 0;
   }
 }
 

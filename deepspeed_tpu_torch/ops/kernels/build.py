@@ -37,7 +37,8 @@ class BuiltLibrary:
     name: str
     path: Path
     lib: ctypes.CDLL
-    ptxas_info: List[str]     # `-Xptxas -v` lines (entry, registers, smem, spills)
+    ptxas_info: List[str]     # `-Xptxas -v` lines (entry, registers, smem,
+                              # spills, wgmma serialization warnings)
 
 
 _LIBS: Dict[str, BuiltLibrary] = {}
@@ -77,7 +78,7 @@ def load_library(name: str) -> BuiltLibrary:
     info = [ln.strip() for ln in
             (log.read_text().splitlines() if log.exists() else [])
             if ("ptxas info" in ln and ("Used" in ln or "Compiling" in ln))
-            or "spill" in ln]
+            or "spill" in ln or "Performance" in ln]
     built = BuiltLibrary(name, out, ctypes.CDLL(str(out)), info)
     built.lib.ds_cuda_error_string.argtypes = [ctypes.c_int]
     built.lib.ds_cuda_error_string.restype = ctypes.c_char_p

@@ -5,10 +5,13 @@ Counterpart of ``deepspeed_tpu/ops/pallas/flash_attention.py``.  q, k, v
 are [B, H, S, Dh].  A CUDA tensor runs the kernels of
 ``deepspeed_tpu_torch/csrc/flash_attention.cu`` through a
 :class:`torch.autograd.Function`: the forward saves the fp32 logsumexp
-[B, H, S] and the backward launches the dQ kernel (which also writes
-``delta = rowsum(do * o)``) and the dK/dV kernel.  A CPU tensor runs
-:func:`mha_reference`, the jnp reference op for op, and autograd takes its
-backward — what the JAX ``impl="xla"`` path does.
+[B, H, S] and the backward launches, for bf16, a pre-pass that writes
+``delta = rowsum(do * o)``, the dQ kernel and the dK/dV kernel (Hopper
+``wgmma`` on swizzled shared-memory tiles, 128 rows a block, a three-stage
+ring; no atomics, so two calls give the same bits), and for fp32 the
+scalar dQ kernel (which writes delta itself) and dK/dV kernel.  A CPU
+tensor runs :func:`mha_reference`, the jnp reference op for op, and
+autograd takes its backward — what the JAX ``impl="xla"`` path does.
 
 The kernels take ``S == Sk`` only (all the training path produces; see the
 ``S != Sk`` hazard in ROADMAP.md queue 3), head dims 32, 64 and 128 (every
@@ -99,8 +102,9 @@ def flash_fwd_cuda(q, k, v, causal: bool, scale: float):
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, causal: bool, scale: float):
-    """Backward kernels (two launches: delta and dQ, then dK/dV), counted as
-    one call: (dq, dk, dv) in q's dtype."""
+    """Backward kernels (bf16: the delta pre-pass, dQ, then dK/dV; fp32: dQ
+    with delta, then dK/dV), counted as one call: (dq, dk, dv) in q's
+    dtype."""
     _check(q, k, v)
     for name, t in (("o", o), ("do", do)):
         check_kernel_input(f"flash_attention {name}", t, q.device,
@@ -126,7 +130,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool, scale: float):
     return dq, dk, dv
 
 
-flash_attention_bwd.launches = 0   # backward calls (two kernel launches each)
+flash_attention_bwd.launches = 0   # backward calls (2 or 3 kernel launches each)
 
 
 class _FlashAttention(torch.autograd.Function):

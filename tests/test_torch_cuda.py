@@ -417,11 +417,40 @@ def _attn_inputs(B, H, S, D, dtype, dev, seed=0):
     return [_randn((B, H, S, D), seed + i, dtype, dev) for i in range(4)]
 
 
-def _lse_plain(q, k, scale):
+def _lse_plain(q, k, scale, causal=True):
     S = q.shape[-2]
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
-    mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
-    return torch.logsumexp(logits.masked_fill(~mask, tfa.NEG_INF), -1)
+    if causal:
+        mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+        logits = logits.masked_fill(~mask, tfa.NEG_INF)
+    return torch.logsumexp(logits, -1)
+
+
+def _flash_roundtrip(q, k, v, do, causal):
+    """Forward (o and lse) against mha_reference, backward (dq, dk, dv)
+    against autograd of mha_reference on the same inputs in fp32 (the
+    tolerances above), one launch counted each, and two backward calls
+    give the same bits."""
+    dtype, scale = q.dtype, q.shape[-1] ** -0.5
+    before = tfa.flash_attention.launches
+    o, lse = tfa.flash_fwd_cuda(q, k, v, causal, scale)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == before + 1
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    want_o = tfa.mha_reference(q, k, v, causal=causal)
+    _close(o, want_o, 2e-4 if dtype == torch.float32 else 2e-2)
+    assert _rel_err(o, want_o) < (1e-5 if dtype == torch.float32 else 1e-2)
+    _close(lse, _lse_plain(q, k, scale, causal), 1e-4)
+    grads = _counted(tfa.flash_attention_bwd, q, k, v, o, lse, do, causal,
+                     scale)
+    ref = [t.float().requires_grad_() for t in (q, k, v)]
+    tfa.mha_reference(*ref, causal=causal).backward(do.float())
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for got, r, name in zip(grads, ref, "qkv"):
+        assert got.dtype == dtype and got.shape == q.shape
+        assert _rel_err(got, r.grad) < tol, name
+    again = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal, scale)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -431,30 +460,33 @@ def _lse_plain(q, k, scale):
                                      (4, 8, 512, 32),      # llama-tiny's heads
                                      (2, 3, 200, 32)])
 def test_flash_attention_kernels_match_plain(cuda_device, dtype, B, H, S, D):
-    """Forward (o and lse) against mha_reference, backward (dq, dk, dv)
-    against autograd of mha_reference on the same inputs in fp32, and two
-    backward calls give the same bits."""
-    q, k, v, do = _attn_inputs(B, H, S, D, dtype, cuda_device)
-    scale = D ** -0.5
-    before = tfa.flash_attention.launches
-    o, lse = tfa.flash_fwd_cuda(q, k, v, True, scale)
-    torch.cuda.synchronize()
-    assert tfa.flash_attention.launches == before + 1
-    assert o.dtype == dtype and lse.dtype == torch.float32
-    want_o = tfa.mha_reference(q, k, v)
-    _close(o, want_o, 2e-4 if dtype == torch.float32 else 2e-2)
-    assert _rel_err(o, want_o) < (1e-5 if dtype == torch.float32 else 1e-2)
-    _close(lse, _lse_plain(q, k, scale), 1e-4)
-    grads = _counted(tfa.flash_attention_bwd, q, k, v, o, lse, do, True,
-                     scale)
-    ref = [t.float().requires_grad_() for t in (q, k, v)]
-    tfa.mha_reference(*ref).backward(do.float())
-    tol = 1e-4 if dtype == torch.float32 else 2e-2
-    for got, r, name in zip(grads, ref, "qkv"):
-        assert got.dtype == dtype
-        assert _rel_err(got, r.grad) < tol, name
-    again = tfa.flash_attention_bwd(q, k, v, o, lse, do, True, scale)
-    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    """The path's shapes, causal, fp32 and bf16."""
+    _flash_roundtrip(*_attn_inputs(B, H, S, D, dtype, cuda_device), causal=True)
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 128, 129, 192, 257, 1000])
+def test_flash_attention_bwd_tile_edges(cuda_device, S, D):
+    """The bf16 backward's 128-row blocks and 64-row streamed tiles: S on,
+    just under and just over each edge, at every head dim."""
+    q, k, v, do = _attn_inputs(1, 2, S, D, torch.bfloat16, cuda_device, seed=S)
+    _flash_roundtrip(q, k, v, do, causal=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,S,D", [(2, 3, 200, 64), (1, 2, 257, 128)])
+def test_flash_attention_kernels_non_causal(cuda_device, dtype, B, H, S, D):
+    """causal=False: every key tile, the mask only on the ragged one."""
+    q, k, v, do = _attn_inputs(B, H, S, D, dtype, cuda_device, seed=7)
+    _flash_roundtrip(q, k, v, do, causal=False)
+
+
+@pytest.mark.parametrize("B,H,S,D", [(1, 1, 1000, 128),    # B*H = 1
+                                     (2, 40, 512, 64)])    # 320 blocks
+def test_flash_attention_bwd_grid_extremes(cuda_device, B, H, S, D):
+    """One head (a grid of 8 blocks on 132 SMs) and more blocks than SMs."""
+    q, k, v, do = _attn_inputs(B, H, S, D, torch.bfloat16, cuda_device, seed=3)
+    _flash_roundtrip(q, k, v, do, causal=True)
 
 
 def test_flash_attention_autograd_and_refusals(cuda_device):

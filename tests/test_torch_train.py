@@ -97,11 +97,13 @@ def test_rope_vjp_matches_jax(impl):
 
 
 @pytest.mark.parametrize("impl", ["xla", "interpret"])
-@pytest.mark.parametrize("B,H,S,D", [(2, 2, 128, 64), (1, 3, 64, 32)])
+@pytest.mark.parametrize("B,H,S,D", [(2, 2, 128, 64), (1, 3, 64, 32),
+                                     (1, 2, 256, 128)])
 def test_flash_attention_and_grads_match_jax(impl, B, H, S, D):
     q, k, v, do = (_np((B, H, S, D), i) for i in range(4))
-    out, vjp = jax.vjp(lambda a, b, c: j_flash(a, b, c, causal=True, block_q=64,
-                                               block_k=64, impl=impl), q, k, v)
+    block = 128 if S >= 256 else 64     # 128-row blocks where S holds two
+    out, vjp = jax.vjp(lambda a, b, c: j_flash(a, b, c, causal=True, block_q=block,
+                                               block_k=block, impl=impl), q, k, v)
     jgrads = vjp(jnp.asarray(do))
     leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
     before = tfa.flash_attention.launches
