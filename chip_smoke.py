@@ -14,14 +14,16 @@ Needs one CUDA card, nvcc and triton; imports nothing of JAX.  Phases
              Triton compiles the RoPE, softmax and bias_act kernels; print
              build seconds and the ptxas register / shared-memory / spill
              lines (and any wgmma serialization warning), and the dynamic
-             shared memory a block of the wgmma flash backward takes;
+             shared memory a block of each wgmma flash kernel takes
+             (forward, dQ, dK/dV);
 2. kernels — each kernel against its plain PyTorch version at the serving
              path's shapes, fp32 and bf16, with the tolerances of TOL below
              (the flash-decode kernel at depths 1..1024 across page
              boundaries, a shuffled page table, 256- and 16-token pages),
              then CUDA-event timings (median of 50 samples of 20 calls;
              the GEMV kernels cycle through enough weight copies to miss
-             the 50 MB L2, as 32 layers do) beside the plain version, the
+             the 50 MB L2, as 32 layers do; RoPE also at the training
+             shape [4, 16, 2048, 128]) beside the plain version, the
              PyTorch library call where one exists, ``torch.matmul`` of
              the same activations and weights as a yardstick for the three
              GEMV kernels, and the bound; then the four training kernels
@@ -34,8 +36,8 @@ Needs one CUDA card, nvcc and triton; imports nothing of JAX.  Phases
              the backward's -sin); then the four training kernels'
              timings beside SDPA, ``F.rms_norm``'s autograd backward and
              torch's fused AdamW as yardsticks, with the device time of
-             each of the flash backward's three kernels (delta, dQ,
-             dK/dV; also at gpt2-xl's shape);
+             the flash forward and of each of the backward's three
+             kernels (delta, dQ, dK/dV; also at gpt2-xl's shape);
              then the four decode kernels again at gpt2-xl's shapes and
              branches ([8, 1600], LayerNorm with a bias, tanh-GeLU without
              a gate, 25 heads of 64 with one query head per KV head) and
@@ -258,9 +260,10 @@ def phase_build(torch, dev):
             if "Performance" in ln:
                 print(f"  ptxas: {ln}")
         if name == "flash_attention":
-            fn = lib.lib.ds_flash_bwd_smem_bytes
-            print("  dynamic shared memory a block of the wgmma backward: " + "; ".join(
-                f"D {d}: dQ {fn(d, 0)} B, dK/dV {fn(d, 1)} B" for d in (32, 64, 128)))
+            fwd, bwd = lib.lib.ds_flash_fwd_smem_bytes, lib.lib.ds_flash_bwd_smem_bytes
+            print("  dynamic shared memory a block of the wgmma kernels: " + "; ".join(
+                f"D {d}: forward {fwd(d)} B, dQ {bwd(d, 0)} B, dK/dV {bwd(d, 1)} B"
+                for d in (32, 64, 128)))
     print(f"build: triton rope compile+first launch {triton_s:.2f}s; softmax "
           f"(with and without a mask) and bias_act {ops_s:.2f}s")
     out = {name: results[name + "_s"] for name in libs}
@@ -469,6 +472,18 @@ def time_old_kernels(torch, dev, gen, errs):
         "plain_ms": time_ms(torch, lambda: rope.rope_plain(q, cos, sin)),
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
         "max_abs_err": errs["rope"]}
+    # the same kernel at llama-1b4's training shape (q or k [4, 16, 2048,
+    # 128] with the path's cos and sin [2048, 64]): its time and bound
+    from deepspeed_tpu_torch.models.layers import rope_cache
+
+    x = _randn(torch, (TB, TH, TS, TDH),
+               torch.Generator(device=dev).manual_seed(1), dev).to(bf)
+    cos, sin = (c.to(bf) for c in rope_cache(TS, TDH, 10000.0, device=dev))
+    out["rope"]["train_ms"] = time_ms(torch, lambda: rope.rope_triton(x, cos, sin))
+    b_ms, b_by = bound_ms(2 * x.numel() * 2 + 2 * cos.numel() * 2, 3 * x.numel())
+    out["rope"]["train_bound_ms"] = b_ms
+    print(f"time rope q[4,16,2048,128] bf16 (training shape): kernel "
+          f"{out['rope']['train_ms']:.5f} ms, bound {b_ms:.6f} ms ({b_by})")
     return out
 
 
@@ -937,9 +952,16 @@ def check_train_kernels(torch, dev, gen):
     return errs
 
 
-def flash_bwd_split(torch, call, shape):
-    """Device time of each kernel of one flash backward call (the delta
-    pre-pass, dQ, dK/dV) under torch.profiler, in us."""
+# the flash kernels by the names the profiler shows: the forward; the
+# backward's delta pre-pass, dQ and dK/dV
+FLASH_KERNELS = {"fwd": ("flash_fwd_wgmma_kernel",),
+                 "bwd": ("flash_bwd_delta_kernel", "flash_bwd_dq_wgmma_kernel",
+                         "flash_bwd_dkv_wgmma_kernel")}
+
+
+def flash_split(torch, call, what, shape):
+    """Device time of each kernel of one flash forward or backward call
+    (``what``: a key of FLASH_KERNELS) under torch.profiler, in us."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -951,12 +973,12 @@ def flash_bwd_split(torch, call, shape):
         torch.cuda.synchronize()
     split = {}
     for e in prof.key_averages():
-        for name in ("flash_bwd_delta_kernel", "flash_bwd_dq_wgmma_kernel",
-                     "flash_bwd_dkv_wgmma_kernel"):
+        for name in FLASH_KERNELS[what]:
             if name in e.key:
                 split[name] = e.self_device_time_total / e.count
-    check(len(split) == 3, f"flash bwd {shape}: profile kernels {split}")
-    print(f"flash bwd {shape} device us a call: " + ", ".join(
+    check(len(split) == len(FLASH_KERNELS[what]),
+          f"flash {what} {shape}: profile kernels {split}")
+    print(f"flash {what} {shape} device us a call: " + ", ".join(
         f"{n} {t:.2f}" for n, t in split.items())
         + f"; total {sum(split.values()):.2f}")
     return split
@@ -1007,7 +1029,9 @@ def time_train_kernels(torch, dev, gen, errs):
         "library_ms": time_ms(torch, lambda: F_.scaled_dot_product_attention(
             q, k, v, is_causal=True), samples=20, inner=10),
         "bound_ms": b_ms, "bound_by": b_by,
-        "max_abs_err": errs["flash_attention_fwd"]}
+        "max_abs_err": errs["flash_attention_fwd"],
+        "device_us_split": flash_split(torch, lambda: fa.flash_fwd_cuda(
+            q, k, v, True, scale), "fwd", "[4,16,2048,128]")}
     o, lse = fa.flash_fwd_cuda(q, k, v, True, scale)
     # the backward's least work: the five products s, dp, dv, dq, dk
     b_ms, b_by = bound_ms(8 * q.numel() * 2 + TB * TH * TS * 4,
@@ -1028,8 +1052,8 @@ def time_train_kernels(torch, dev, gen, errs):
             lib_out, lib, do, retain_graph=True), samples=20, inner=5),
         "bound_ms": b_ms, "bound_by": b_by,
         "max_abs_err": errs["flash_attention_bwd"],
-        "device_us_split": flash_bwd_split(torch, lambda: fa.flash_attention_bwd(
-            q, k, v, o, lse, do, True, scale), "[4,16,2048,128]")}
+        "device_us_split": flash_split(torch, lambda: fa.flash_attention_bwd(
+            q, k, v, o, lse, do, True, scale), "bwd", "[4,16,2048,128]")}
     del q, k, v, do, o, lse, ref, ref_out, lib, lib_out
     torch.cuda.empty_cache()
 
@@ -1479,15 +1503,18 @@ def time_flash_gpt2_shape(torch, dev, gen):
             samples=20, inner=10),
         "fwd_bound_ms": bound_ms(4 * q.numel() * 2 + GB * GH * GS * 4,
                                  fwd_flops, BF16_FLOPS_PER_S)[0],
+        "fwd_device_us_split": flash_split(
+            torch, lambda: fa.flash_fwd_cuda(q, k, v, True, scale), "fwd",
+            "[8,25,1024,64]"),
         "bwd_ms": time_ms(torch, lambda: fa.flash_attention_bwd(
             q, k, v, o, lse, do, True, scale), samples=20, inner=5),
         "bwd_library_ms": time_ms(torch, lambda: torch.autograd.grad(
             lib_out, lib, do, retain_graph=True), samples=20, inner=5),
         "bwd_bound_ms": bound_ms(8 * q.numel() * 2 + GB * GH * GS * 4,
                                  2.5 * fwd_flops, BF16_FLOPS_PER_S)[0],
-        "bwd_device_us_split": flash_bwd_split(
+        "bwd_device_us_split": flash_split(
             torch, lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, True,
-                                                  scale), "[8,25,1024,64]")}
+                                                  scale), "bwd", "[8,25,1024,64]")}
     del q, k, v, do, o, lse, lib, lib_out
     torch.cuda.empty_cache()
     return out
@@ -2619,10 +2646,8 @@ def phase_train_profile(torch, engine, tokens):
             "rms_norm_bwd": ("rms_norm_bwd_kernel", "rms_dg_reduce_kernel"),
             "layer_norm": ("layer_norm_fwd_",),
             "layer_norm_bwd": ("layer_norm_bwd_kernel", "rms_dg_reduce_kernel"),
-            "flash_attention_fwd": ("flash_fwd_kernel",),
-            "flash_attention_bwd": ("flash_bwd_delta_kernel",
-                                    "flash_bwd_dq_wgmma_kernel",
-                                    "flash_bwd_dkv_wgmma_kernel"),
+            "flash_attention_fwd": FLASH_KERNELS["fwd"],
+            "flash_attention_bwd": FLASH_KERNELS["bwd"],
             "fused_adam": ("adam_kernel",),
             "fused_adam8bit": ("adam8bit_kernel",),
             "fused_lamb_phase1": ("lamb_phase1_kernel", "lamb_reduce_kernel"),
@@ -2793,7 +2818,8 @@ def main() -> int:
         for extra in ("matmul_ms", "max_abs_err_train_shape",
                       "max_abs_err_gpt2_shape", "decode_rows_ms",
                       "masked_ms", "masked_plain_ms", "masked_bound_ms",
-                      "gpt2_shape", "fp32_masters", "whole_update_bound_ms"):
+                      "gpt2_shape", "fp32_masters", "whole_update_bound_ms",
+                      "train_ms", "train_bound_ms", "device_us_split"):
             if extra in t:
                 k[extra] = t[extra]
         check(all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms",

@@ -25,62 +25,64 @@
 // dq: 0.174 ms), and the two-launch split executes seven (s and dp in both
 // launches: 0.243 ms at the peak).
 //
-// Forward.  The TPU kernel carries m, l and the accumulator in VMEM scratch
-// across the sequential KV grid axis.  Here a block owns one (b*h, q-tile)
-// and loops over the KV tiles itself, with m, l and the accumulator in
-// registers.  Four warps each take 16 query rows; products are
-// mma.sync m16n8k16 (bf16 in, fp32 accumulate) on tiles staged in shared
-// memory with a 16-byte row pad (conflict-free ldmatrix fragment loads);
-// the streamed tiles are double buffered with cp.async, so the next tile's
-// copy runs under the current tile's products.  No TMA and no wgmma yet in
-// the forward.
+// The TPU kernel carries m, l and the accumulator in VMEM scratch across
+// the sequential KV grid axis.  Here a block owns 128 rows of one b*h and
+// loops over the tiles of the other side itself, with m, l and the
+// accumulators in registers.  A block is two warpgroups (256 threads);
+// each owns 64 of the block's 128 rows, which stay in shared memory for
+// the block's life, and streams 64-row tiles of the other side through a
+// ring.  Every product is wgmma.mma_async m64nNk16, B always a tile in
+// shared memory, A in shared memory (the backward's s, dp, s^T and dp^T)
+// or in registers as bf16 fragments: the forward's q, and p or ds rounded
+// where the reference rounds them (o += p v; dq, dk, dv).  Tiles are
+// stored in the 128B swizzle (64B at D = 32) that wgmma reads, and one
+// physical tile serves as a K-major operand (q k^T) and an MN-major one
+// (p v, ds^T q) through its descriptor alone.
 //
-// Backward (bf16).  Three launches: the delta pre-pass (the reference's own
-// split, 16-byte loads), then dQ and dK/dV as the reference splits them, so
-// no block sums into another's rows.  A block is two warpgroups (256
-// threads); each owns 64 of the block's 128 rows (queries in dQ, keys in
-// dK/dV), which stay in shared memory for the block's life, and streams
-// 64-row tiles of the other side through a ring.  Every product is
-// wgmma.mma_async m64nNk16: s and dp (s^T and dp^T) with both operands in
-// shared memory, dv, dk and dq with p or ds as bf16 A fragments in
-// registers, rounded where the reference rounds them.  Tiles are stored in
-// the 128B swizzle (64B at D = 32) that wgmma reads, and one physical tile
-// serves as a K-major operand (k q^T) and an MN-major one (ds^T q) through
-// its descriptor alone.
+// Forward (bf16).  Q is loaded once and each warpgroup holds its 64 rows
+// in registers as A fragments (at n64 an SS product reads 4 KB of shared
+// memory every 32 tensor-core clocks, the SM's whole 128 bytes a clock; in
+// registers, q halves that); K and V stream.  In its turn a warpgroup
+// issues s = q k^T of tile j, then o += p v of tile j - 1 (its accumulator
+// rescaled first), and runs tile j's online softmax under that p v: the
+// accumulator's own register layout, row max and sum across the four lanes
+// that share a row, scores in log2 units (s scale log2(e) in one FMA
+// before the MUFU ex2; lse written in natural log).  Backward (bf16).  Three
+// launches: the delta pre-pass (the reference's own split, 16-byte loads),
+// then dQ (Q and dO resident) and dK/dV (K and V resident) as the
+// reference splits them, so no block sums into another's rows.
 //
 // The ring has four stages, fed by cp.async (zero fill past S) and
 // tracked by mbarriers: full[s] completes when every thread's copies of
 // the tile in stage s have landed (cp.async.mbarrier.arrive), empty[s]
-// when both warpgroups have waited for their products on it.  dQ's ds k
-// product is waited for under the next tile's s and dp, so the stage
-// refilled with tile j + 2 is tile j - 2's (dK/dV waits for its dv and dk
-// products at the tile's end: carrying their fragments into the next tile
-// takes all 255 registers at D = 128 and was slower).  There is no barrier
-// across the block inside the loop: two named barriers make the warpgroups
-// take turns to issue their s and dp products, so one warpgroup's
-// exponentials run under the other's products (in lock step, with a
-// __syncthreads a tile, the same products were slower).  cp.async,
-// not TMA: it needs no tensor maps or driver entry point, and the ragged
-// edge and the 4-byte lse and delta rows go through the same copies.  The
-// mask is evaluated only on tiles that hold an invisible pair (the
-// diagonal and the ragged last tiles); tiles wholly above the diagonal are
-// skipped (a warpgroup's one fully masked tile in a causal block is
-// computed with p = 0, so that no wgmma sits on a divergent path) and the
-// heavy blocks launch first.
+// when both warpgroups have waited for their products on it.  The
+// forward's p v and dQ's ds k product run under the next tile's products,
+// so the stage refilled with tile j + 2 is tile j - 2's (dK/dV waits for
+// its dv and dk products at the tile's end: carrying their fragments into
+// the next tile takes all 255 registers at D = 128 and was slower).  There
+// is no barrier across the block inside the loop: two named barriers make
+// the warpgroups take turns to issue their products (s and p v; s and
+// dp), so one warpgroup's exponentials run under the other's products (in
+// lock step, with a __syncthreads a tile, the same products were slower).
+// cp.async, not TMA: it needs no tensor maps or driver entry point, and
+// the ragged edge and the 4-byte lse and delta rows go through the same
+// copies.  The mask is evaluated only on tiles that hold an invisible pair
+// (the diagonal and the ragged last tiles); tiles wholly above the
+// diagonal are skipped (a warpgroup's one fully masked tile in a causal
+// block is computed with p = 0, so that no wgmma sits on a divergent path)
+// and the heavy blocks launch first.
 //
 // fp32 inputs take a scalar path (one warp per row, lanes over the head
 // dim, one key at a time) with the same semantics; it serves the fp32
 // reference runs, not the bf16 training path.
 //
 // Head dims 32, 64 and 128 (the presets' 32 of llama-tiny and mixtral-tiny,
-// 64 of the GPT-2 family, 128 of the Llama family).  The forward's tile
-// code assumes nothing of D >= 64: at D = 32 a warp holds D / 16 = 2 A
-// fragments, the P.V product walks D / 8 = 4 n-tiles two at a time (D / 8
-// must be even), and rows of D + 8 = 40 bf16 (80 bytes) keep the ldmatrix
-// rows on distinct banks and 16-byte aligned for cp.async; the backward
-// swizzles 64-byte rows at D = 32 and splits D = 128 into two 64-wide
-// atoms; the fp32 path gives each lane D / 32 = 1 element.  Shared memory:
-// 25.6 KB (forward) to 69.6 KB at D = 128; the backward 49 KB to 195 KB.
+// 64 of the GPT-2 family, 128 of the Llama family): 64-byte swizzled rows
+// at D = 32 (m64n32 for the register-A products), 128-byte rows at 64, and
+// two 64-wide atoms at 128; the fp32 path gives each lane D / 32 elements.
+// Dynamic shared memory a block (with the 1 KB alignment pad): the forward
+// 42,048 B at D = 32, 83,008 at 64, 164,928 at 128; the backward 50 KB to
+// 195 KB (ds_flash_fwd_smem_bytes, ds_flash_bwd_smem_bytes).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -91,19 +93,8 @@ namespace {
 typedef __nv_bfloat16 bf16;
 
 constexpr float kNegInf = -1e30f;
-constexpr int kWarps = 4;    // the forward's block
-constexpr int kThreads = kWarps * 32;
-constexpr int kFwdBQ = 64;   // forward: query rows per block (16 per warp)
-constexpr int kFwdBK = 64;   // forward: keys per tile
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Round two floats to bf16 (nearest even, as astype) and pack them.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -121,6 +112,13 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
+// 2^x, the MUFU instruction alone (results below 2^-126 flush to 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
@@ -131,21 +129,6 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Four 8x8 b16 matrices from shared memory; lane l gives the address of
-// row (l & 7) of matrix (l >> 3).  `.trans` hands each thread a column pair
-// instead of a row pair.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
 
 template <int N>
@@ -153,204 +136,18 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Start copying rows [row0, row0 + R) of a [S, D] bf16 matrix into shared
-// memory with row stride D + 8 (16-byte cp.async; rows past S are zero
-// filled: the copy reads 0 source bytes).
-template <int D, int R>
-__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src, int row0, int S) {
-  constexpr int kPerRow = D / 8;
-  for (int c = threadIdx.x; c < R * kPerRow; c += kThreads) {
-    const int r = c / kPerRow;
-    const int k = (c % kPerRow) * 8;
-    const bool in = row0 + r < S;
-    const bf16* g = src + static_cast<size_t>(in ? row0 + r : 0) * D + k;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst + r * (D + 8) + k)),
-                 "l"(g), "r"(in ? 16 : 0));
-  }
-}
-
-// A-operand fragments of a warp's 16 rows (starting at `rows`) across the
-// whole head dim, from a shared tile with row stride D + 8.
-template <int D>
-__device__ __forceinline__ void load_a_frags(uint32_t (&f)[D / 16][4], const bf16* rows, int lane) {
-  const bf16* p = rows + (lane & 15) * (D + 8) + (lane >> 4) * 8;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) ldsm_x4(f[kk], p + kk * 16);
-}
-
-// acc[16 x 8*NT] += A[16 x D] . B^T where B is NT*8 rows of a shared tile
-// (row stride D + 8): the "rows of B are the columns of the product" case
-// (q k^T, do v^T, k q^T, v do^T).  One ldmatrix.x4 feeds two n-tiles.
-template <int D, int NT>
-__device__ __forceinline__ void mma_abt(float (&acc)[NT][4], const uint32_t (&a)[D / 16][4],
-                                        const bf16* b_rows, int lane) {
-  static_assert(NT % 2 == 0 && D % 16 == 0, "two n-tiles per ldmatrix.x4, k-steps of 16");
-  const bf16* p = b_rows + ((lane & 7) + ((lane >> 4) << 3)) * (D + 8) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-    for (int nt = 0; nt < NT; nt += 2) {
-      uint32_t b[4];
-      ldsm_x4(b, p + nt * 8 * (D + 8) + kk * 16);
-      mma_bf16(acc[nt], a[kk], b[0], b[1]);
-      mma_bf16(acc[nt + 1], a[kk], b[2], b[3]);
-    }
-  }
-}
-
-// acc[16 x D] += P[16 x 16*KT] . B where P is held as a C-fragment array
-// (rounded to bf16 here) and B is 16*KT rows of a shared tile (row stride
-// D + 8): p v, ds k, p^T do, ds^T q.  ldmatrix.trans feeds two n-tiles.
-template <int D, int KT>
-__device__ __forceinline__ void mma_pb(float (&acc)[D / 8][4], const float (&p)[2 * KT][4],
-                                       const bf16* b_rows, int lane) {
-  static_assert((D / 8) % 2 == 0, "one ldmatrix.x4.trans feeds two n-tiles of the head dim");
-  const bf16* base = b_rows + (lane & 15) * (D + 8) + (lane >> 4) * 8;
-#pragma unroll
-  for (int kk = 0; kk < KT; ++kk) {
-    uint32_t a[4];
-    a[0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
-    a[1] = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
-    a[2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-    a[3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
-    const bf16* q = base + kk * 16 * (D + 8);
-#pragma unroll
-    for (int nt = 0; nt < D / 8; nt += 2) {
-      uint32_t b[4];
-      ldsm_x4_trans(b, q + nt * 8);
-      mma_bf16(acc[nt], a, b[0], b[1]);
-      mma_bf16(acc[nt + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// Store a warp's [16 x D] fp32 accumulator rows (row0, row0 + 8 per thread
-// group) as bf16, divided by div0 / div1; rows past S are dropped.
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[D / 8][4], int row0,
-                                           int S, int lane, float div0, float div1) {
-  const int ra = row0 + (lane >> 2);
-  const int c = (lane & 3) * 2;
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) {
-    if (ra < S)
-      *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(ra) * D + nt * 8 + c) =
-          pack_bf16(acc[nt][0] / div0, acc[nt][1] / div0);
-    if (ra + 8 < S)
-      *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(ra + 8) * D + nt * 8 + c) =
-          pack_bf16(acc[nt][2] / div1, acc[nt][3] / div1);
-  }
-}
-
 // ---------------------------------------------------------------------------
-// bf16 forward: grid (q-tiles, B*H); heavy (late) q-tiles launch first.
-// K/V tiles are double buffered: tile j + 1 is in flight while j is used.
+// bf16 on wgmma.  The forward (a block owns 128 query rows and streams
+// 64-key tiles of K and V) and the backward's three launches: the delta
+// pre-pass, dQ (as the forward, with dO) and dK/dV (a block owns 128 keys
+// and streams 64-row tiles of Q, dO, lse and delta).  A block is two
+// warpgroups (256 threads); each owns 64 of the block's rows and runs its
+// products as wgmma.mma_async m64nNk16 (bf16 in, fp32 out).
 // ---------------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
-                 int S, float scale, int causal) {
-  constexpr int LD = D + 8;
-  constexpr int NT = kFwdBK / 8;
-  constexpr int kTile = kFwdBK * LD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sK = sQ + kFwdBQ * LD;        // [2][kFwdBK][LD]
-  bf16* sV = sK + 2 * kTile;          // [2][kFwdBK][LD]
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kFwdBQ;
-  const size_t base = static_cast<size_t>(blockIdx.y) * S * D;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int ra = q0 + warp * 16 + (lane >> 2), rb = ra + 8;
-
-  int n_tiles = (S + kFwdBK - 1) / kFwdBK;
-  if (causal) n_tiles = min(n_tiles, (q0 + kFwdBQ - 1) / kFwdBK + 1);
-  load_tile_async<D, kFwdBQ>(sQ, q + base, q0, S);
-  load_tile_async<D, kFwdBK>(sK, k + base, 0, S);
-  load_tile_async<D, kFwdBK>(sV, v + base, 0, S);
-  cp_async_commit();
-
-  uint32_t qf[D / 16][4];
-  float acc[D / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * kFwdBK;
-    if (j + 1 < n_tiles) {
-      const int nb = (j + 1) & 1;
-      load_tile_async<D, kFwdBK>(sK + nb * kTile, k + base, k0 + kFwdBK, S);
-      load_tile_async<D, kFwdBK>(sV + nb * kTile, v + base, k0 + kFwdBK, S);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    if (j == 0) load_a_frags<D>(qf, sQ + warp * 16 * LD, lane);
-    const bf16* tK = sK + (j & 1) * kTile;
-    const bf16* tV = sV + (j & 1) * kTile;
-    float s[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-    mma_abt<D, NT>(s, qf, tK, lane);
-    float mx0 = kNegInf, mx1 = kNegInf;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + nt * 8 + (lane & 3) * 2 + (e & 1);
-        const int row = e < 2 ? ra : rb;
-        // masking is decided on the key alone for rows past S (never stored)
-        const bool ok = col < S && (!causal || row >= col);
-        const float val = ok ? s[nt][e] * scale : kNegInf;
-        s[nt][e] = val;
-        if (e < 2) mx0 = fmaxf(mx0, val); else mx1 = fmaxf(mx1, val);
-      }
-    }
-    const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
-    const float al0 = expf(m0 - mn0), al1 = expf(m1 - mn1);
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      s[nt][0] = expf(s[nt][0] - mn0);
-      s[nt][1] = expf(s[nt][1] - mn0);
-      s[nt][2] = expf(s[nt][2] - mn1);
-      s[nt][3] = expf(s[nt][3] - mn1);
-      sum0 += s[nt][0] + s[nt][1];
-      sum1 += s[nt][2] + s[nt][3];
-    }
-    l0 = al0 * l0 + quad_sum(sum0);
-    l1 = al1 * l1 + quad_sum(sum1);
-    m0 = mn0;
-    m1 = mn1;
-#pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt) {
-      acc[nt][0] *= al0; acc[nt][1] *= al0;
-      acc[nt][2] *= al1; acc[nt][3] *= al1;
-    }
-    mma_pb<D, kFwdBK / 16>(acc, s, tV, lane);
-    __syncthreads();  // every warp is done with this stage before it is refilled
-  }
-  const float sl0 = l0 == 0.f ? 1.f : l0, sl1 = l1 == 0.f ? 1.f : l1;
-  store_rows<D>(o + base, acc, q0 + warp * 16, S, lane, sl0, sl1);
-  if ((lane & 3) == 0) {
-    float* lrow = lse + static_cast<size_t>(blockIdx.y) * S;
-    if (ra < S) lrow[ra] = m0 + logf(sl0);
-    if (rb < S) lrow[rb] = m1 + logf(sl1);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// bf16 backward on wgmma.  Three launches: the delta pre-pass, dQ (a block
-// owns 128 query rows and streams 64-key tiles of K and V) and dK/dV (a
-// block owns 128 keys and streams 64-row tiles of Q, dO, lse and delta).
-// A block is two warpgroups (256 threads); each owns 64 of the block's rows
-// and runs its products as wgmma.mma_async m64nNk16 (bf16 in, fp32 out).
-// ---------------------------------------------------------------------------
-constexpr int kBwdThreads = 256;   // two consumer warpgroups
-constexpr int kBwdRows = 128;      // rows a block owns (64 a warpgroup)
-constexpr int kBwdTile = 64;       // rows of a streamed tile
-constexpr int kBwdStages = 4;      // depth of the streamed tiles' ring
+constexpr int kThreads = 256;   // two consumer warpgroups
+constexpr int kRows = 128;      // rows a block owns (64 a warpgroup)
+constexpr int kTile = 64;       // rows of a streamed tile
+constexpr int kStages = 4;      // depth of the streamed tiles' ring
 
 // The swizzled tile layout that wgmma reads.  A tile of R rows x D bf16 is
 // D / AW column atoms of R rows x AW elements, kBytes = 2 AW bytes a row:
@@ -477,7 +274,12 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t d
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+// d (+)= A . B with A in registers as one k16 fragment and B in shared
+// memory, MN-major (kTransB = 1: p v, ds k, p^T do, ds^T q) or K-major
+// (0: q k^T); accumulate = 0 overwrites d.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -485,24 +287,26 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(kTransB));
 }
 
-__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, "
       "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(kTransB));
 }
 
 // Start copying rows [row0, row0 + R) of a [S, D] bf16 matrix into a
@@ -511,10 +315,10 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4],
 template <int D, int R>
 __device__ __forceinline__ void load_tile_sw(uint32_t dst, const bf16* src, int row0, int S) {
   constexpr int kPerRow = D / 8;
-  static_assert(R * kPerRow % kBwdThreads == 0, "whole chunks a thread");
+  static_assert(R * kPerRow % kThreads == 0, "whole chunks a thread");
 #pragma unroll
-  for (int i = 0; i < R * kPerRow / kBwdThreads; ++i) {
-    const int c = threadIdx.x + i * kBwdThreads;
+  for (int i = 0; i < R * kPerRow / kThreads; ++i) {
+    const int c = threadIdx.x + i * kThreads;
     const int r = c / kPerRow, k = c % kPerRow;
     const bool in = row0 + r < S;
     const bf16* g = src + static_cast<size_t>(in ? row0 + r : 0) * D + k * 8;
@@ -528,7 +332,7 @@ __device__ __forceinline__ void load_tile_sw(uint32_t dst, const bf16* src, int 
 // 16-byte aligned); threads [t0, t0 + 64) take part.
 __device__ __forceinline__ void load_stats(uint32_t dst, const float* src, int row0, int S, int t0) {
   const int r = static_cast<int>(threadIdx.x) - t0;
-  if (r < 0 || r >= kBwdTile) return;
+  if (r < 0 || r >= kTile) return;
   const bool in = row0 + r < S;
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst + r * 4),
                "l"(src + (in ? row0 + r : 0)), "r"(in ? 4 : 0));
@@ -548,6 +352,36 @@ __device__ __forceinline__ void ss_product(float (&acc)[32], uint32_t a, uint32_
   }
 }
 
+// The A fragments of a warpgroup's 64 rows (from row r0 of an R-row
+// swizzled tile at shared address t) across the head dim: thread (warp w,
+// lane l) takes rows 16 w + l / 4 and + 8, columns 16 kk + 2 (l % 4) and + 8.
+template <int D>
+__device__ __forceinline__ void load_frags_sw(uint32_t (&f)[D / 16][4], uint32_t t, int R, int r0) {
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int r = r0 + warp * 16 + (lane >> 2), b = (lane & 3) * 4;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      asm volatile("ld.shared.b32 %0, [%1];\n"
+                   : "=r"(f[kk][e])
+                   : "r"(t + Sw<D>::offset(R, r + (e & 1) * 8, 2 * kk + (e >> 1)) + b));
+}
+
+// acc[64 x 64] = A[64 x D] . B[64 x D]^T: A in registers (load_frags_sw),
+// B a 64-row swizzled tile at shared address b, K-major (q k^T).  Half the
+// shared-memory reads of ss_product: at n64 an SS product reads A and B,
+// 4 KB every 32 tensor-core clocks, the whole of the SM's 128 bytes a clock.
+template <int D>
+__device__ __forceinline__ void rs_product_k(float (&acc)[32], const uint32_t (&a)[D / 16][4], uint32_t b) {
+  using L = Sw<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t atom = kk * 16 / L::kAW, off = (kk * 16 % L::kAW) * 2;
+    wgmma_rs<0>(acc, a[kk], desc_k_major<D>(b + atom * kTile * L::kBytes + off), kk > 0);
+  }
+}
+
 // acc[64 x D] += A[64 x 64] . B[64 x D]: A in registers as four k16
 // fragments, B a 64-row swizzled tile at shared address b read MN-major
 // (p^T do, ds^T q, ds k); one instruction for each k16 step and atom.
@@ -559,7 +393,8 @@ __device__ __forceinline__ void rs_product(float (&acc)[Sw<D>::kAtoms][Sw<D>::kA
   for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
     for (int na = 0; na < L::kAtoms; ++na)
-      wgmma_rs(acc[na], a[kk], desc_mn_major<D>(b + na * kBwdTile * L::kBytes + kk * 16 * L::kBytes));
+      wgmma_rs<1>(acc[na], a[kk], desc_mn_major<D>(b + na * kTile * L::kBytes + kk * 16 * L::kBytes),
+                  1);
   }
 }
 
@@ -642,46 +477,206 @@ __device__ __forceinline__ uint32_t aligned_smem(unsigned char* raw) {
 }
 
 // ---------------------------------------------------------------------------
+// Forward: grid (q-blocks of 128 rows, B*H), heavy (late) blocks first.
+// Q of the block is loaded once, each warpgroup's 64 rows into registers as
+// A fragments; K and V stream through the ring.  In its turn a warpgroup
+// issues s = q k^T of tile j (RS, k K-major) and then o += p v of tile
+// j - 1 (RS, v read MN-major), so tile j's softmax runs under tile j - 1's
+// p v and under the other warpgroup's products.  Scores are carried in
+// log2 units (s scale log2(e), one FMA before exp2); lse is written in
+// natural log.
+// ---------------------------------------------------------------------------
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, bf16* __restrict__ o,
+                       float* __restrict__ lse, int S, float scale, int causal) {
+  using L = Sw<D>;
+  constexpr uint32_t kRes = kRows * D * 2, kStr = kTile * D * 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t sQ = aligned_smem(smem_raw), sK = sQ + kRes, sV = sK + kStages * kStr;
+  const uint32_t full = sV + kStages * kStr, empty = full + kStages * 8;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(full + 8 * i, kThreads);
+      mbar_init(empty + 8 * i, kThreads);
+    }
+  }
+  __syncthreads();
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int qb = (gridDim.x - 1 - blockIdx.x) * kRows;
+  const int qw = qb + wg * 64;                    // this warpgroup's first row
+  const size_t base = static_cast<size_t>(blockIdx.y) * S * D;
+
+  int n_k = (S + kTile - 1) / kTile;
+  if (causal) n_k = min(n_k, (qb + kRows - 1) / kTile + 1);
+  load_tile_sw<D, kRows>(sQ, q + base, qb, S);
+  auto stage = [&](int j) {   // this thread's copies of tile j
+    const uint32_t st = (j % kStages) * kStr;
+    load_tile_sw<D, kTile>(sK + st, k + base, j * kTile, S);
+    load_tile_sw<D, kTile>(sV + st, v + base, j * kTile, S);
+    mbar_arrive_on_copies(full + 8 * (j % kStages));
+  };
+  stage(0);
+  if (n_k > 1) stage(1);
+  cp_async_commit();
+  cp_async_wait<0>();
+  fence_proxy_async();
+  __syncthreads();   // Q is in
+  uint32_t qf[D / 16][4];
+  load_frags_sw<D>(qf, sQ, kRows, wg * 64);
+
+  const int ra = qw + warp * 16 + (lane >> 2), rb = ra + 8;
+  const float sl2 = scale * kLog2e;
+  float acc[L::kAtoms][L::kAW / 2];
+  zero_acc<D>(acc);
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;   // m in log2 units
+  float al0 = 1.f, al1 = 1.f;   // what acc takes before the next p v product
+
+  // refill the stage of tile j - 2 with tile j + 2 once both warpgroups are done with it
+  auto refill = [&](int j) {
+    if (j + 2 >= n_k) return;
+    if (j >= 2) mbar_wait(empty + 8 * ((j + 2) % kStages), ((j - 2) / kStages) & 1);
+    stage(j + 2);
+  };
+  // in this warpgroup's turn: s = q k^T of tile j
+  auto issue_s = [&](float (&s)[32], int j) {
+    mbar_wait(full + 8 * (j % kStages), (j / kStages) & 1);
+    fence_proxy_async();
+    named_sync(1 + wg);
+    wg_fence();
+    rs_product_k<D>(s, qf, sK + (j % kStages) * kStr);
+    wg_commit();
+  };
+  // the online softmax of tile j: s becomes p; m, l and alpha move
+  auto softmax = [&](float (&s)[32], int j) {
+    const int k0 = j * kTile;
+    // the mask only where a tile holds an invisible pair: the diagonal tile
+    // and the ragged last tile (a warpgroup's one fully masked tile in a
+    // causal block comes out as p = 0); rows past S are never stored, so
+    // the key alone decides for them
+    if ((causal && k0 + 63 > qw) || k0 + kTile > S) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int row = i & 2 ? rb : ra;
+        const int col = k0 + (i >> 2) * 8 + (lane & 3) * 2 + (i & 1);
+        if (col >= S || (causal && row < col)) s[i] = kNegInf;
+      }
+    }
+    float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      if (i & 2) mx1 = fmaxf(mx1, s[i]);
+      else mx0 = fmaxf(mx0, s[i]);
+    }
+    const float mn0 = fmaxf(m0, quad_max(mx0) * sl2), mn1 = fmaxf(m1, quad_max(mx1) * sl2);
+    al0 = ex2(m0 - mn0);
+    al1 = ex2(m1 - mn1);
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      s[i] = ex2(fmaf(s[i], sl2, -(i & 2 ? mn1 : mn0)));   // p
+      if (i & 2) sum1 += s[i];
+      else sum0 += s[i];
+    }
+    l0 = al0 * l0 + quad_sum(sum0);
+    l1 = al1 * l1 + quad_sum(sum1);
+    m0 = mn0;
+    m1 = mn1;
+  };
+  // acc *= alpha, then o += p v of tile j (p as bf16 fragments f)
+  auto issue_pv = [&](const uint32_t (&f)[4][4], int j) {
+#pragma unroll
+    for (int na = 0; na < L::kAtoms; ++na)
+#pragma unroll
+      for (int i = 0; i < L::kAW / 2; ++i) acc[na][i] *= i & 2 ? al1 : al0;
+    fence_regs(acc);
+    wg_fence();
+    rs_product<D>(acc, f, sV + (j % kStages) * kStr);
+    wg_commit();
+  };
+
+  uint32_t f[4][4];   // p of the last tile, rounded to bf16 as the reference
+  float s[32];
+  if (wg == 1) named_arrive(1);   // warpgroup 0 issues first
+  issue_s(s, 0);
+  named_arrive(2 - wg);
+  wg_wait<0>();
+  fence_regs(s);
+  softmax(s, 0);
+  acc_to_frags(f, s);
+  refill(0);
+  for (int j = 1; j < n_k; ++j) {
+    issue_s(s, j);
+    issue_pv(f, j - 1);
+    named_arrive(2 - wg);
+    wg_wait<1>();   // s is done; tile j - 1's p v runs under the softmax
+    fence_regs(s);
+    softmax(s, j);
+    wg_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(empty + 8 * ((j - 1) % kStages));
+    acc_to_frags(f, s);
+    refill(j);
+  }
+  issue_pv(f, n_k - 1);
+  if (wg == 0) named_sync(1);   // the other warpgroup's last arrive
+  wg_wait<0>();
+  fence_regs(acc);
+  const float sl0 = l0 == 0.f ? 1.f : l0, sl1 = l1 == 0.f ? 1.f : l1;
+#pragma unroll
+  for (int na = 0; na < L::kAtoms; ++na)
+#pragma unroll
+    for (int i = 0; i < L::kAW / 2; ++i) acc[na][i] /= i & 2 ? sl1 : sl0;
+  store_acc<D>(o + base, acc, qw, S);
+  if ((lane & 3) == 0) {
+    float* lrow = lse + static_cast<size_t>(blockIdx.y) * S;
+    if (ra < S) lrow[ra] = m0 * kLn2 + logf(sl0);
+    if (rb < S) lrow[rb] = m1 * kLn2 + logf(sl1);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // dQ: grid (q-blocks of 128 rows, B*H), heavy (late) blocks first.  Q and
 // dO of the block stay resident; K and V stream through the ring.  Per
 // 64-key tile, each warpgroup: s = q k^T and dp = do v^T (SS), p and ds in
 // registers, dq += ds k (RS, k read MN-major).
 // ---------------------------------------------------------------------------
 template <int D>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           const bf16* __restrict__ v, const bf16* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ delta,
                           bf16* __restrict__ dq, int S, float scale, int causal) {
   using L = Sw<D>;
-  constexpr uint32_t kRes = kBwdRows * D * 2, kStr = kBwdTile * D * 2;
+  constexpr uint32_t kRes = kRows * D * 2, kStr = kTile * D * 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t sQ = aligned_smem(smem_raw), sDO = sQ + kRes;
-  const uint32_t sK = sDO + kRes, sV = sK + kBwdStages * kStr;
+  const uint32_t sK = sDO + kRes, sV = sK + kStages * kStr;
   const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
-  const int qb = (gridDim.x - 1 - blockIdx.x) * kBwdRows;
+  const int qb = (gridDim.x - 1 - blockIdx.x) * kRows;
   const int qw = qb + wg * 64;                    // this warpgroup's first row
   const size_t base = static_cast<size_t>(blockIdx.y) * S * D;
   const size_t srow = static_cast<size_t>(blockIdx.y) * S;
 
-  const uint32_t full = sV + kBwdStages * kStr, empty = full + kBwdStages * 8;
+  const uint32_t full = sV + kStages * kStr, empty = full + kStages * 8;
   if (threadIdx.x == 0) {
-    for (int i = 0; i < kBwdStages; ++i) {
-      mbar_init(full + 8 * i, kBwdThreads);
-      mbar_init(empty + 8 * i, kBwdThreads);
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(full + 8 * i, kThreads);
+      mbar_init(empty + 8 * i, kThreads);
     }
   }
   __syncthreads();
 
-  int n_k = (S + kBwdTile - 1) / kBwdTile;
-  if (causal) n_k = min(n_k, (qb + kBwdRows - 1) / kBwdTile + 1);
-  load_tile_sw<D, kBwdRows>(sQ, q + base, qb, S);
-  load_tile_sw<D, kBwdRows>(sDO, dout + base, qb, S);
+  int n_k = (S + kTile - 1) / kTile;
+  if (causal) n_k = min(n_k, (qb + kRows - 1) / kTile + 1);
+  load_tile_sw<D, kRows>(sQ, q + base, qb, S);
+  load_tile_sw<D, kRows>(sDO, dout + base, qb, S);
   auto stage = [&](int j) {   // this thread's copies of tile j
-    const uint32_t st = (j % kBwdStages) * kStr;
-    load_tile_sw<D, kBwdTile>(sK + st, k + base, j * kBwdTile, S);
-    load_tile_sw<D, kBwdTile>(sV + st, v + base, j * kBwdTile, S);
-    mbar_arrive_on_copies(full + 8 * (j % kBwdStages));
+    const uint32_t st = (j % kStages) * kStr;
+    load_tile_sw<D, kTile>(sK + st, k + base, j * kTile, S);
+    load_tile_sw<D, kTile>(sV + st, v + base, j * kTile, S);
+    mbar_arrive_on_copies(full + 8 * (j % kStages));
   };
   stage(0);
   if (n_k > 1) stage(1);
@@ -699,29 +694,29 @@ flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   // refill the stage of tile j - 2 with tile j + 2 once both warpgroups are done with it
   auto refill = [&](int j) {
     if (j + 2 >= n_k) return;
-    if (j >= 2) mbar_wait(empty + 8 * ((j + 2) % kBwdStages), ((j - 2) / kBwdStages) & 1);
+    if (j >= 2) mbar_wait(empty + 8 * ((j + 2) % kStages), ((j - 2) / kStages) & 1);
     stage(j + 2);
   };
   if (wg == 1) named_arrive(1);   // warpgroup 0 issues first
   for (int j = 0; j < n_k; ++j) {
-    const int k0 = j * kBwdTile;
-    mbar_wait(full + 8 * (j % kBwdStages), (j / kBwdStages) & 1);
+    const int k0 = j * kTile;
+    mbar_wait(full + 8 * (j % kStages), (j / kStages) & 1);
     fence_proxy_async();
-    const uint32_t tK = sK + (j % kBwdStages) * kStr, tV = sV + (j % kBwdStages) * kStr;
+    const uint32_t tK = sK + (j % kStages) * kStr, tV = sV + (j % kStages) * kStr;
     float s[32], dp[32];
     named_sync(1 + wg);
     wg_fence();
-    ss_product<D, kBwdRows, kBwdTile>(s, opaque(sQ + wg * 64 * L::kBytes), tK);
+    ss_product<D, kRows, kTile>(s, opaque(sQ + wg * 64 * L::kBytes), tK);
     wg_commit();
-    ss_product<D, kBwdRows, kBwdTile>(dp, opaque(sDO + wg * 64 * L::kBytes), tV);
+    ss_product<D, kRows, kTile>(dp, opaque(sDO + wg * 64 * L::kBytes), tV);
     wg_commit();
     named_arrive(2 - wg);
     wg_wait<1>();    // s, and tile j - 1's dq product, are done
-    if (j >= 1) mbar_arrive(empty + 8 * ((j - 1) % kBwdStages));
+    if (j >= 1) mbar_arrive(empty + 8 * ((j - 1) % kStages));
     fence_regs(s);
     // the mask only where a tile holds an invisible pair: the diagonal tile
     // and the ragged last tiles (ALiBi's slope_h (k - q) would join here)
-    if ((causal && k0 + 63 > qw) || k0 + kBwdTile > S || qw + 64 > S) {
+    if ((causal && k0 + 63 > qw) || k0 + kTile > S || qw + 64 > S) {
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
         const int row = i & 2 ? rb : ra;
@@ -759,24 +754,24 @@ flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 // dk += ds^T q (RS, q and do read MN-major).
 // ---------------------------------------------------------------------------
 template <int D>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                            const bf16* __restrict__ v, const bf16* __restrict__ dout,
                            const float* __restrict__ lse, const float* __restrict__ delta,
                            bf16* __restrict__ dk, bf16* __restrict__ dv, int S, float scale,
                            int causal) {
   using L = Sw<D>;
-  constexpr uint32_t kRes = kBwdRows * D * 2, kStr = kBwdTile * D * 2;
-  constexpr uint32_t kStats = kBwdTile * 4;
+  constexpr uint32_t kRes = kRows * D * 2, kStr = kTile * D * 2;
+  constexpr uint32_t kStats = kTile * 4;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t sK = aligned_smem(smem_raw), sV = sK + kRes;
-  const uint32_t sQ = sV + kRes, sDO = sQ + kBwdStages * kStr;
-  const uint32_t sLse = sDO + kBwdStages * kStr, sDelta = sLse + kBwdStages * kStats;
-  const uint32_t full = sDelta + kBwdStages * kStats, empty = full + kBwdStages * 8;
+  const uint32_t sQ = sV + kRes, sDO = sQ + kStages * kStr;
+  const uint32_t sLse = sDO + kStages * kStr, sDelta = sLse + kStages * kStats;
+  const uint32_t full = sDelta + kStages * kStats, empty = full + kStages * 8;
   if (threadIdx.x == 0) {
-    for (int i = 0; i < kBwdStages; ++i) {
-      mbar_init(full + 8 * i, kBwdThreads);
-      mbar_init(empty + 8 * i, kBwdThreads);
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(full + 8 * i, kThreads);
+      mbar_init(empty + 8 * i, kThreads);
     }
   }
   __syncthreads();
@@ -785,22 +780,22 @@ flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   const float* delta_tiles = reinterpret_cast<const float*>(
       smem_raw + (sDelta - smem_u32(smem_raw)));
   const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
-  const int kb = blockIdx.x * kBwdRows;
+  const int kb = blockIdx.x * kRows;
   const int kw = kb + wg * 64;                    // this warpgroup's first key
   const size_t base = static_cast<size_t>(blockIdx.y) * S * D;
 
-  const int n_q = (S + kBwdTile - 1) / kBwdTile;
-  const int first = causal ? kb / kBwdTile : 0;
+  const int n_q = (S + kTile - 1) / kTile;
+  const int first = causal ? kb / kTile : 0;
   const int n_t = n_q - first;
-  load_tile_sw<D, kBwdRows>(sK, k + base, kb, S);
-  load_tile_sw<D, kBwdRows>(sV, v + base, kb, S);
+  load_tile_sw<D, kRows>(sK, k + base, kb, S);
+  load_tile_sw<D, kRows>(sV, v + base, kb, S);
   auto stage = [&](int i) {   // this thread's copies of tile i
-    const int st = i % kBwdStages, q0 = (first + i) * kBwdTile;
+    const int st = i % kStages, q0 = (first + i) * kTile;
     const size_t bs = static_cast<size_t>(opaque(blockIdx.y)) * S;
-    load_tile_sw<D, kBwdTile>(sQ + st * kStr, q + bs * D, q0, S);
-    load_tile_sw<D, kBwdTile>(sDO + st * kStr, dout + bs * D, q0, S);
+    load_tile_sw<D, kTile>(sQ + st * kStr, q + bs * D, q0, S);
+    load_tile_sw<D, kTile>(sDO + st * kStr, dout + bs * D, q0, S);
     load_stats(sLse + st * kStats, lse + bs, q0, S, 0);
-    load_stats(sDelta + st * kStats, delta + bs, q0, S, kBwdTile);
+    load_stats(sDelta + st * kStats, delta + bs, q0, S, kTile);
     mbar_arrive_on_copies(full + 8 * st);
   };
   stage(0);
@@ -818,32 +813,32 @@ flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   // refill the stage of tile i - 2 with tile i + 2 once both warpgroups are done with it
   auto refill = [&](int i) {
     if (i + 2 >= n_t) return;
-    if (i >= 2) mbar_wait(empty + 8 * ((i + 2) % kBwdStages), ((i - 2) / kBwdStages) & 1);
+    if (i >= 2) mbar_wait(empty + 8 * ((i + 2) % kStages), ((i - 2) / kStages) & 1);
     stage(i + 2);
   };
   if (wg == 1) named_arrive(1);   // warpgroup 0 issues first
   for (int i = 0; i < n_t; ++i) {
-    const int q0 = (first + i) * kBwdTile;
-    const int st = i % kBwdStages;
-    mbar_wait(full + 8 * st, (i / kBwdStages) & 1);
+    const int q0 = (first + i) * kTile;
+    const int st = i % kStages;
+    mbar_wait(full + 8 * st, (i / kStages) & 1);
     fence_proxy_async();
     const uint32_t tQ = sQ + st * kStr, tDO = sDO + st * kStr;
-    const float* tl = lse_tiles + st * kBwdTile;
-    const float* td = delta_tiles + st * kBwdTile;
+    const float* tl = lse_tiles + st * kTile;
+    const float* td = delta_tiles + st * kTile;
     float s[32], dp[32];
     named_sync(1 + wg);
     wg_fence();
-    ss_product<D, kBwdRows, kBwdTile>(s, opaque(sK + wg * 64 * L::kBytes), tQ);    // s^T = k q^T
+    ss_product<D, kRows, kTile>(s, opaque(sK + wg * 64 * L::kBytes), tQ);    // s^T = k q^T
     wg_commit();
-    ss_product<D, kBwdRows, kBwdTile>(dp, opaque(sV + wg * 64 * L::kBytes), tDO);  // dp^T = v do^T
+    ss_product<D, kRows, kTile>(dp, opaque(sV + wg * 64 * L::kBytes), tDO);  // dp^T = v do^T
     wg_commit();
     named_arrive(2 - wg);
     wg_wait<1>();    // s^T is done
-    if (i >= 1) mbar_arrive(empty + 8 * ((i - 1) % kBwdStages));
+    if (i >= 1) mbar_arrive(empty + 8 * ((i - 1) % kStages));
     fence_regs(s);
     // p^T = exp(s^T scale - lse[col]); the mask only on the diagonal tile
     // and the ragged last tiles (ALiBi's slope_h (k - q) would join here)
-    if ((causal && q0 < kw + 63) || q0 + kBwdTile > S || kw + 64 > S) {
+    if ((causal && q0 < kw + 63) || q0 + kTile > S || kw + 64 > S) {
 #pragma unroll
       for (int x = 0; x < 32; ++x) {
         const int c = (x >> 2) * 8 + (lane & 3) * 2 + (x & 1);
@@ -1024,14 +1019,15 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
 // ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
-template <int D> constexpr int fwd_smem() { return (kFwdBQ + 4 * kFwdBK) * (D + 8) * 2; }
-// the wgmma backward: the resident pair of 128-row tiles, four stages of a
-// 64-row pair (and, for dK/dV, of 64 lse and delta values), the ring's
-// eight mbarriers, and 1 KB to align the base to the swizzle's period
-template <int D> constexpr int dq_smem() {
-  return 1024 + 2 * kBwdRows * D * 2 + 2 * kBwdStages * kBwdTile * D * 2 + 2 * kBwdStages * 8;
+// the wgmma kernels: the resident 128-row tiles (Q for the forward, Q and dO
+// or K and V for the backward), four stages of the streamed 64-row pair
+// (and, for dK/dV, of 64 lse and delta values), the ring's eight
+// mbarriers, and 1 KB to align the base to the swizzle's period
+template <int D> constexpr int fwd_smem() {
+  return 1024 + kRows * D * 2 + 2 * kStages * kTile * D * 2 + 2 * kStages * 8;
 }
-template <int D> constexpr int dkv_smem() { return dq_smem<D>() + 2 * kBwdStages * kBwdTile * 4; }
+template <int D> constexpr int dq_smem() { return fwd_smem<D>() + kRows * D * 2; }
+template <int D> constexpr int dkv_smem() { return dq_smem<D>() + 2 * kStages * kTile * 4; }
 
 template <typename K>
 cudaError_t allow_smem(K kernel, int bytes) {
@@ -1042,10 +1038,10 @@ template <int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int BH,
                        int S, float scale, int causal, int dtype, cudaStream_t st) {
   if (dtype == 1) {
-    cudaError_t e = allow_smem(flash_fwd_kernel<D>, fwd_smem<D>());
+    cudaError_t e = allow_smem(flash_fwd_wgmma_kernel<D>, fwd_smem<D>());
     if (e != cudaSuccess) return e;
-    const dim3 grid((S + kFwdBQ - 1) / kFwdBQ, BH);
-    flash_fwd_kernel<D><<<grid, kThreads, fwd_smem<D>(), st>>>(
+    const dim3 grid((S + kRows - 1) / kRows, BH);
+    flash_fwd_wgmma_kernel<D><<<grid, kThreads, fwd_smem<D>(), st>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         static_cast<bf16*>(o), lse, S, scale, causal);
   } else {
@@ -1072,13 +1068,13 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
         static_cast<const bf16*>(o), static_cast<const bf16*>(dout), delta, rows);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
-    const dim3 grid((S + kBwdRows - 1) / kBwdRows, BH);
-    flash_bwd_dq_wgmma_kernel<D><<<grid, kBwdThreads, dq_smem<D>(), st>>>(
+    const dim3 grid((S + kRows - 1) / kRows, BH);
+    flash_bwd_dq_wgmma_kernel<D><<<grid, kThreads, dq_smem<D>(), st>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq), S, scale, causal);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
-    flash_bwd_dkv_wgmma_kernel<D><<<grid, kBwdThreads, dkv_smem<D>(), st>>>(
+    flash_bwd_dkv_wgmma_kernel<D><<<grid, kThreads, dkv_smem<D>(), st>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk),
         static_cast<bf16*>(dv), S, scale, causal);
@@ -1141,6 +1137,17 @@ int ds_flash_bwd(const void* q, const void* k, const void* v, const void* o, con
     default:
       return static_cast<int>(
           launch_bwd<128>(q, k, v, o, dout, l, dl, dq, dk, dv, BH, S, scale, causal, dtype, st));
+  }
+}
+
+// Dynamic shared memory a block of the bf16 forward takes at head dim D (0
+// for a head dim without a kernel).
+int ds_flash_fwd_smem_bytes(int D) {
+  switch (D) {
+    case 32: return fwd_smem<32>();
+    case 64: return fwd_smem<64>();
+    case 128: return fwd_smem<128>();
+    default: return 0;
   }
 }
 

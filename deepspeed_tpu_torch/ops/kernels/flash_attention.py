@@ -4,14 +4,16 @@ plain version.
 Counterpart of ``deepspeed_tpu/ops/pallas/flash_attention.py``.  q, k, v
 are [B, H, S, Dh].  A CUDA tensor runs the kernels of
 ``deepspeed_tpu_torch/csrc/flash_attention.cu`` through a
-:class:`torch.autograd.Function`: the forward saves the fp32 logsumexp
-[B, H, S] and the backward launches, for bf16, a pre-pass that writes
-``delta = rowsum(do * o)``, the dQ kernel and the dK/dV kernel (Hopper
-``wgmma`` on swizzled shared-memory tiles, 128 rows a block, a three-stage
-ring; no atomics, so two calls give the same bits), and for fp32 the
-scalar dQ kernel (which writes delta itself) and dK/dV kernel.  A CPU
-tensor runs :func:`mha_reference`, the jnp reference op for op, and
-autograd takes its backward — what the JAX ``impl="xla"`` path does.
+:class:`torch.autograd.Function`, whose forward saves the fp32 logsumexp
+[B, H, S] for the backward.  For bf16 every kernel runs its products on
+Hopper's ``wgmma`` over swizzled shared-memory tiles, 128 rows a block, the
+other side streamed through a four-stage ring: the forward, then for the
+backward a pre-pass that writes ``delta = rowsum(do * o)``, the dQ kernel
+and the dK/dV kernel (no atomics, so two calls give the same bits).  For
+fp32 a scalar forward, dQ kernel (which writes delta itself) and dK/dV
+kernel.  A CPU tensor runs :func:`mha_reference`, the jnp reference op for
+op, and autograd takes its backward — what the JAX ``impl="xla"`` path
+does.
 
 The kernels take ``S == Sk`` only (all the training path produces; see the
 ``S != Sk`` hazard in ROADMAP.md queue 3), head dims 32, 64 and 128 (every

@@ -426,11 +426,9 @@ def _lse_plain(q, k, scale, causal=True):
     return torch.logsumexp(logits, -1)
 
 
-def _flash_roundtrip(q, k, v, do, causal):
-    """Forward (o and lse) against mha_reference, backward (dq, dk, dv)
-    against autograd of mha_reference on the same inputs in fp32 (the
-    tolerances above), one launch counted each, and two backward calls
-    give the same bits."""
+def _flash_fwd_check(q, k, v, causal):
+    """Forward (o and lse) against mha_reference (the tolerances above),
+    one launch counted: (o, lse)."""
     dtype, scale = q.dtype, q.shape[-1] ** -0.5
     before = tfa.flash_attention.launches
     o, lse = tfa.flash_fwd_cuda(q, k, v, causal, scale)
@@ -441,6 +439,15 @@ def _flash_roundtrip(q, k, v, do, causal):
     _close(o, want_o, 2e-4 if dtype == torch.float32 else 2e-2)
     assert _rel_err(o, want_o) < (1e-5 if dtype == torch.float32 else 1e-2)
     _close(lse, _lse_plain(q, k, scale, causal), 1e-4)
+    return o, lse
+
+
+def _flash_roundtrip(q, k, v, do, causal):
+    """Forward as _flash_fwd_check, backward (dq, dk, dv) against autograd
+    of mha_reference on the same inputs in fp32 (the tolerances above), one
+    launch counted, and two backward calls give the same bits."""
+    dtype, scale = q.dtype, q.shape[-1] ** -0.5
+    o, lse = _flash_fwd_check(q, k, v, causal)
     grads = _counted(tfa.flash_attention_bwd, q, k, v, o, lse, do, causal,
                      scale)
     ref = [t.float().requires_grad_() for t in (q, k, v)]
@@ -487,6 +494,51 @@ def test_flash_attention_bwd_grid_extremes(cuda_device, B, H, S, D):
     """One head (a grid of 8 blocks on 132 SMs) and more blocks than SMs."""
     q, k, v, do = _attn_inputs(B, H, S, D, torch.bfloat16, cuda_device, seed=3)
     _flash_roundtrip(q, k, v, do, causal=True)
+
+
+@pytest.mark.parametrize("B,H,S,D", [(4, 16, 2048, 128), (2, 3, 257, 64),
+                                     (1, 2, 200, 32)])
+def test_flash_attention_fwd_repeats_bit_equal(cuda_device, B, H, S, D):
+    """The bf16 forward: two calls give the same bits, o and lse."""
+    q, k, v, _ = _attn_inputs(B, H, S, D, torch.bfloat16, cuda_device, seed=5)
+    o, lse = tfa.flash_fwd_cuda(q, k, v, True, D ** -0.5)
+    o2, lse2 = tfa.flash_fwd_cuda(q, k, v, True, D ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.parametrize("B,H,S,D", [(1, 2, 1000, 128), (1, 2, 257, 64)])
+def test_flash_attention_fwd_large_logits(cuda_device, B, H, S, D):
+    """q x 16: logits of tens, so the running max jumps across tiles and
+    alpha falls far below 1; the forward still matches mha_reference under
+    the same tolerances."""
+    q, k, v, _ = _attn_inputs(B, H, S, D, torch.bfloat16, cuda_device, seed=11)
+    _flash_fwd_check((q.float() * 16).to(torch.bfloat16), k, v, causal=True)
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("S", [192, 320])
+def test_flash_attention_fwd_last_block_half_empty(cuda_device, S, D):
+    """S an odd multiple of 64: the last 128-row block's second warpgroup
+    holds no row below S, and warpgroup 0 of each earlier block computes
+    one fully masked tile."""
+    q, k, v, do = _attn_inputs(1, 2, S, D, torch.bfloat16, cuda_device, seed=S)
+    _flash_roundtrip(q, k, v, do, causal=True)
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_attention_fwd_shared_memory(cuda_device, D):
+    """The bf16 forward's dynamic shared memory (the resident 128-row Q
+    tile, four stages of a 64-row K and V pair, eight mbarriers, the 1 KB
+    alignment pad) is what the launch takes and fits the card's opt-in
+    limit of 232,448 B."""
+    smem = tfa._library().lib.ds_flash_fwd_smem_bytes(D)
+    assert smem == 1024 + 128 * D * 2 + 2 * 4 * 64 * D * 2 + 2 * 4 * 8
+    limit = getattr(torch.cuda.get_device_properties(cuda_device),
+                    "shared_memory_per_block_optin", 232448)
+    assert smem <= min(limit, 232448)
+    _flash_fwd_check(*_attn_inputs(1, 1, 129, D, torch.bfloat16,
+                                   cuda_device)[:3], causal=True)
 
 
 def test_flash_attention_autograd_and_refusals(cuda_device):

@@ -2,6 +2,7 @@
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -203,3 +204,50 @@ def test_unported_training_model_options_are_refused(over):
         setattr(model.config, k, v)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         deepspeed_tpu_torch.initialize(model=model, config={}, device="cpu")
+
+
+def _kernel_names():
+    """The kernels the port defines: every ``__global__`` function in
+    ``csrc/*.cu`` and every Triton kernel under ``ops/kernels``."""
+    names = set()
+    for cu in (ROOT / "deepspeed_tpu_torch" / "csrc").glob("*.cu"):
+        names.update(re.findall(
+            r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(",
+            cu.read_text()))
+    for py in (ROOT / "deepspeed_tpu_torch" / "ops" / "kernels").glob("*.py"):
+        names.update(re.findall(r"@triton\.jit\s+def\s+(\w+)", py.read_text()))
+    return names
+
+
+def _profile_tags():
+    """Every kernel name chip_smoke.py matches in a profile: the strings in
+    the values of each ``tags`` dict and of ``FLASH_KERNELS``."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    found = set()
+    for node in ast.walk(tree):
+        if not (isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict)):
+            continue
+        if not any(isinstance(t, ast.Name) and t.id in ("tags", "FLASH_KERNELS")
+                   for t in node.targets):
+            continue
+        for value in node.value.values:
+            items = value.elts if isinstance(value, (ast.Tuple, ast.List)) else [value]
+            found.update(c.value for c in items
+                         if isinstance(c, ast.Constant) and isinstance(c.value, str))
+    return sorted(found)
+
+
+PROFILE_TAGS = _profile_tags()
+
+
+def test_chip_smoke_has_profile_tags():
+    assert {"flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
+            "rms_norm_fwd_kernel"} <= set(PROFILE_TAGS)
+
+
+@pytest.mark.parametrize("tag", PROFILE_TAGS)
+def test_profile_tags_name_kernels_that_exist(tag):
+    """chip_smoke.py reads a kernel's device time by a substring of its
+    name; a tag that names no kernel would read as None, silently."""
+    assert any(tag in n for n in _kernel_names()), (
+        f"chip_smoke.py profiles {tag!r}, which is in no kernel name of the port")
