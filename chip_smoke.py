@@ -61,10 +61,17 @@ Needs one CUDA card, nvcc and triton; imports nothing of JAX.  Phases
              Dh] cache at layer 1 (Smax 512, 1025 and 64, depths 1..Smax-1
              as one scalar and one a row, fp32 and bf16, ALiBi, gpt2-xl's
              25 heads of 64) and the int8 bodies of the three GEMVs (bf16,
-             at llama3-8b's shapes, gpt2-xl's branches and a ragged N),
-             timed beside the plain version, SDPA (contiguous flash_decode,
-             264 deep in a 512 cache) or ``torch.matmul`` of a bf16 weight
-             (the int8 GEMVs' yardstick) and the bound;
+             at llama3-8b's shapes, gpt2-xl's branches and a ragged N; the
+             tensor-core int8 MLP also at 1 and 12 rows and bit-equal on a
+             repeat), timed beside the plain version, SDPA (contiguous
+             flash_decode, 264 deep in a 512 cache) or ``torch.matmul`` of a
+             bf16 weight (the int8 GEMVs' yardstick) and the bound; the int8
+             MLP's device time split between its two launches, at llama3-8b's
+             and gpt2-xl's shapes, with ptxas's registers for its kernels;
+             RMSNorm's call at the serving and the training shape beside
+             ``F.rms_norm``, its public ``rms_norm()`` call, and the host
+             microseconds of each stage of its call path (perf_counter_ns
+             over 20000 calls a stage);
 3. reference — a small fp32 model served on the card (kernels) and on the
              CPU (plain versions) must give the same greedy tokens, on the
              default fused decode path and on ``use_fused_decode: False``;
@@ -441,6 +448,107 @@ def check_decode_kernels(torch, dev, gen, model):
     return errs
 
 
+def rms_norm_host_path(torch, x, g, calls=20000):
+    """Host microseconds a call of each stage of the RMSNorm forward's call
+    path at x [8, 4096] bf16, each stage timed alone with perf_counter_ns
+    over ``calls`` calls (the device drained every 1000): the stages of the
+    shared-check path the other wrappers take (dispatch, the two
+    check_kernel_input calls and the shape test, empty_like, entering
+    torch.cuda.device, current_stream().cuda_stream, the ctypes call that
+    launches, check_launch), the lean path's replacements, and whole calls:
+    rms_norm_cuda, the public rms_norm(), the shared-check path rebuilt
+    from its stages, and F.rms_norm."""
+    import torch.nn.functional as F_
+
+    from deepspeed_tpu_torch.ops.kernels import layer_norm as ln
+    from deepspeed_tpu_torch.ops.kernels.build import bind, check_launch, load_library
+    from deepspeed_tpu_torch.ops.kernels.common import (KERNEL_DTYPES,
+                                                        check_kernel_input,
+                                                        raw_stream, use_kernel)
+
+    n = x.shape[-1]
+    idx = x.get_device()
+    code = KERNEL_DTYPES[x.dtype]
+    built = load_library("layer_norm")
+    fwd = bind("layer_norm", "ds_rms_norm_fwd", ln._RMS_FWD_ARGS)
+    y = torch.empty_like(x)
+
+    def shared_check_path():
+        if not (torch.is_grad_enabled() and (x.requires_grad or g.requires_grad)):
+            use_kernel(x)
+        check_kernel_input("rms_norm x", x, x.device)
+        check_kernel_input("rms_norm gamma", g, x.device, dtype=x.dtype)
+        if g.shape != (n,):
+            raise ValueError("shape")
+        out = torch.empty_like(x)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = fwd(x.data_ptr(), g.data_ptr(), out.data_ptr(), x.numel() // n,
+                      n, 1e-5, code, stream, idx)
+        check_launch(built, "rms_norm", err)
+        return out
+
+    def dispatch():
+        if not (torch.is_grad_enabled() and (x.requires_grad or g.requires_grad)):
+            use_kernel(x)
+
+    def checks():
+        check_kernel_input("rms_norm x", x, x.device)
+        check_kernel_input("rms_norm gamma", g, x.device, dtype=x.dtype)
+        return g.shape != (n,)
+
+    def device_context():
+        with torch.cuda.device(x.device):
+            pass
+
+    def lean_dispatch():
+        return torch.is_grad_enabled() and (x.requires_grad or g.requires_grad) \
+            or x.is_cuda
+
+    def lean_checks():
+        return (KERNEL_DTYPES.get(x.dtype) is None or g.dtype is not x.dtype
+                or g.get_device() != idx or g.shape != (n,)
+                or not x.is_contiguous() or not g.is_contiguous())
+
+    stream = raw_stream(idx)
+    stages = {
+        "dispatch (rms_norm, use_kernel)": dispatch,
+        "checks (2 check_kernel_input + shape)": checks,
+        "empty_like": lambda: torch.empty_like(x),
+        "device context (torch.cuda.device)": device_context,
+        "stream lookup (current_stream().cuda_stream)":
+            lambda: torch.cuda.current_stream(x.device).cuda_stream,
+        "ctypes call + launch": lambda: fwd(x.data_ptr(), g.data_ptr(), y.data_ptr(),
+                                            x.numel() // n, n, 1e-5, code, stream, idx),
+        "check_launch": lambda: check_launch(built, "rms_norm", 0),
+        "lean dispatch (is_cuda)": lean_dispatch,
+        "lean checks (one attribute pass)": lean_checks,
+        "lean stream (raw_stream)": lambda: raw_stream(idx),
+        "whole: shared-check path": shared_check_path,
+        "whole: rms_norm_cuda": lambda: ln.rms_norm_cuda(x, g, 1e-5),
+        "whole: rms_norm()": lambda: ln.rms_norm(x, g, 1e-5),
+    }
+    if hasattr(F_, "rms_norm"):
+        stages["whole: F.rms_norm"] = lambda: F_.rms_norm(x, (n,), g, 1e-5)
+    out = {}
+    for name, fn in stages.items():
+        for _ in range(200):
+            fn()
+        torch.cuda.synchronize()
+        total = 0
+        for _ in range(calls // 1000):
+            t = time.perf_counter_ns()
+            for _ in range(1000):
+                fn()
+            total += time.perf_counter_ns() - t
+            torch.cuda.synchronize()
+        out[name] = total / calls / 1e3
+    print(f"rms_norm host path at x[8,4096] bf16, us a call ({calls} calls "
+          f"each, perf_counter_ns): " + "; ".join(f"{k} {v:.3f}"
+                                                  for k, v in out.items()))
+    return out
+
+
 def time_old_kernels(torch, dev, gen, errs):
     import torch.nn.functional as F_
 
@@ -457,9 +565,26 @@ def time_old_kernels(torch, dev, gen, errs):
     out["rms_norm"] = {
         "shape": "x[8,4096] bf16",
         "ms": time_ms(torch, lambda: layer_norm.rms_norm_cuda(x, g, 1e-5)),
+        "public_ms": time_ms(torch, lambda: layer_norm.rms_norm(x, g, 1e-5)),
         "plain_ms": time_ms(torch, lambda: layer_norm.rms_norm_plain(x, g, 1e-5)),
         "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "max_abs_err": errs["rms_norm"]}
+        "max_abs_err": errs["rms_norm"],
+        "host_us": rms_norm_host_path(torch, x, g)}
+    r = out["rms_norm"]
+    print(f"time rms_norm x[8,4096] bf16: rms_norm_cuda {r['ms']:.5f} ms, the "
+          f"public rms_norm() {r['public_ms']:.5f} ms, F.rms_norm "
+          f"{'n/a' if lib_ms is None else f'{lib_ms:.5f}'} ms")
+    # the same kernel at llama-1b4's training rows, beside F.rms_norm there
+    xt = _randn(torch, (TB * TS, TD), gen, dev).to(bf)
+    gt = torch.ones(TD, device=dev, dtype=bf)
+    r["train_ms"] = time_ms(torch, lambda: layer_norm.rms_norm_cuda(xt, gt, 1e-5))
+    r["train_library_ms"] = (time_ms(torch, lambda: F_.rms_norm(xt, (TD,), gt, 1e-5))
+                             if hasattr(F_, "rms_norm") else None)
+    r["train_bound_ms"] = bound_ms(2 * xt.numel() * 2 + TD * 2, 4 * xt.numel())[0]
+    print(f"time rms_norm x[8192,2048] bf16 (training shape): kernel "
+          f"{r['train_ms']:.5f} ms, F.rms_norm {r['train_library_ms']} ms, bound "
+          f"{r['train_bound_ms']:.6f} ms")
+    del xt
     q = _randn(torch, (1, H, 64, DH), gen, dev).to(bf)
     cos, sin = rope.rope_angles(torch.arange(64, device=dev), DH,
                                 theta=500000.0)
@@ -569,6 +694,30 @@ def time_decode_kernels(torch, dev, gen, errs):
             q, k, v, pos, table, scale=DH ** -0.5, layer=1, alibi=False)),
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
         "max_abs_err": errs["flash_decode"]}
+    for name, b2 in gpt2_decode_bounds().items():
+        out[name]["gpt2_bound_ms"] = b2
+    return out
+
+
+def gpt2_decode_bounds(keys=64):
+    """The bounds of the four decode kernels at gpt2-xl's decode shapes, bf16,
+    8 slots (LayerNorm with a bias, biases on every projection, a plain
+    tanh-GeLU MLP, 25 heads of 64 attending ``keys`` keys each: the served
+    wave's depth), counted as the llama3-8b rows count them: each input read
+    once, each output written once."""
+    m = DECODE_MODELS["gpt2-xl"]
+    d, f, n = m["D"], m["F"], (m["H"] + 2 * m["HKV"]) * m["DH"]
+    bf = 2
+    rows = {
+        "fused_norm_qkv": ((B * d + 2 * d + d * n + n + B * n) * bf, 2 * B * d * n),
+        "fused_proj_norm": ((2 * B * d + d * d + 3 * d + 2 * B * d) * bf, 2 * B * d * d),
+        "fused_mlp": ((2 * B * d + 2 * d * f + f + d + B * d) * bf, 4 * B * d * f),
+        "flash_decode": ((2 * B * m["H"] * m["DH"] + 2 * B * keys * m["HKV"] * m["DH"]) * bf,
+                         4 * B * keys * m["H"] * m["DH"]),
+    }
+    out = {name: bound_ms(nb, fl, BF16_FLOPS_PER_S)[0] for name, (nb, fl) in rows.items()}
+    print("gpt2-xl decode bounds (bf16, 8 slots, attention over "
+          f"{keys} keys): " + ", ".join(f"{k} {v:.6f} ms" for k, v in out.items()))
     return out
 
 def check_contig_decode(torch, dev, gen):
@@ -680,13 +829,24 @@ def check_int8_gemvs(torch, dev, gen):
             hh, resid, wu, wg, wd, bu, None, bd, act=act,
             wscales=(su, sg, sd)), GEMV_TOL["bfloat16"],
             f"fused_mlp int8 {name}")
+        check(torch.equal(y, dk.fused_mlp_int8_cuda(
+            hh, resid, wu, wd, wg, (su, sg, sd), bu, None, bd, act=act)),
+            f"fused_mlp int8 {name}: two calls differ")
+        for rows in (1, 12):        # one row; two passes of 8
+            h1 = _randn(torch, (rows, d), gen, dev).to(bf)
+            r1 = _randn(torch, (rows, d), gen, dev).to(bf)
+            _assert_close(torch, dk.fused_mlp_int8_cuda(
+                h1, r1, wu, wd, wg, (su, sg, sd), bu, None, bd, act=act),
+                dk._mlp_ref(h1, r1, wu, wg, wd, bu, None, bd, act=act,
+                            wscales=(su, sg, sd)), GEMV_TOL["bfloat16"],
+                f"fused_mlp int8 {name} at {rows} rows")
         if name == "llama3-8b":
             errs = {"fused_norm_qkv_int8": e1, "fused_proj_norm_int8": e2,
                     "fused_mlp_int8": e3}
         print(f"int8 GEMVs vs plain at {name} (D {d}, N {n}, F {f}, {kind}, "
               f"{act}{' gated' if glu else ', no gate'}): bf16 within 2e-2; "
               f"max abs err norm_qkv {e1:.3g}, proj_norm {e2:.3g}, mlp "
-              f"{e3:.3g}")
+              f"{e3:.3g} (also at 1 and 12 rows; bit-equal on a repeat)")
         del w, wo, wu, wd, wg
     return errs
 
@@ -789,6 +949,7 @@ def time_generate_kernels(torch, dev, gen, errs):
     dwd = (_randn(torch, (F, D), gen, dev) * F ** -0.5).to(bf)
     nbytes = (2 * h.numel() + B * D) * 2 + 3 * D * F + 4 * (2 * F + D)
     b_ms, b_by = bound_ms(nbytes, 6 * B * D * F, BF16_FLOPS_PER_S)
+    tags = {"fused_mlp_int8": ("mlp_act_int8_mma_kernel", "mlp_down_int8_mma_kernel")}
     out["fused_mlp_int8"] = {
         "shape": "h[8,4096] . wg,wu[4096,14336], a . wd[14336,4096] int8 + "
                  "fp32 scales, bf16",
@@ -801,8 +962,56 @@ def time_generate_kernels(torch, dev, gen, errs):
                                              torch.matmul(h, dwu),
                                              torch.matmul(a, dwd))),
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-        "max_abs_err": errs["fused_mlp_int8"]}
+        "max_abs_err": errs["fused_mlp_int8"],
+        "device_us_split": kernel_split(torch, lambda: dk.fused_mlp_int8_cuda(
+            h, resid, wu, wd, wg, (su, sg, sd), act="silu"),
+            tags["fused_mlp_int8"], "fused_mlp int8 h[8,4096]")}
+    del wu, wg, wd, dwu, dwd, a
+    # gpt2-xl's decode MLP (no gate, tanh-GeLU): 4 weight copies, 82 MB, past L2
+    d2, f2 = 1600, 6400
+    h2 = _randn(torch, (B, d2), gen, dev).to(bf)
+    r2 = _randn(torch, (B, d2), gen, dev).to(bf)
+    ws = [(_int8_weight(torch, (d2, f2), gen, dev), _int8_weight(torch, (f2, d2), gen, dev))
+          for _ in range(4)]
+    nw = cycler(ws)
+
+    def gpt2_mlp(fn):
+        (wu2, su2), (wd2, sd2) = nw()
+        return fn(wu2, su2, wd2, sd2)
+    kern = lambda wu2, su2, wd2, sd2: dk.fused_mlp_int8_cuda(  # noqa: E731
+        h2, r2, wu2, wd2, None, (su2, None, sd2), act="gelu")
+    row = out["fused_mlp_int8"]
+    row["gpt2_ms"] = time_ms(torch, lambda: gpt2_mlp(kern))
+    row["gpt2_plain_ms"] = time_ms(torch, lambda: gpt2_mlp(
+        lambda wu2, su2, wd2, sd2: dk._mlp_ref(h2, r2, wu2, None, wd2, None, None, None,
+                                               act="gelu", wscales=(su2, None, sd2))),
+        samples=10)
+    row["gpt2_bound_ms"] = bound_ms((2 * h2.numel() + B * d2) * 2 + 2 * d2 * f2
+                                    + 4 * (f2 + d2), 4 * B * d2 * f2, BF16_FLOPS_PER_S)[0]
+    row["gpt2_device_us_split"] = kernel_split(
+        torch, lambda: gpt2_mlp(kern), tags["fused_mlp_int8"], "fused_mlp int8 h[8,1600]")
+    row["ptxas"] = mlp_int8_ptxas()
+    print(f"time fused_mlp_int8 h[8,1600] . wu[1600,6400], a . wd[6400,1600] "
+          f"int8 (gpt2-xl): kernel {row['gpt2_ms']:.5f} ms, plain "
+          f"{row['gpt2_plain_ms']:.5f} ms, bound {row['gpt2_bound_ms']:.6f} ms")
     return out
+
+
+def mlp_int8_ptxas():
+    """ptxas's registers, shared memory and spills of the int8 MLP's
+    kernels, one line an instantiation."""
+    from deepspeed_tpu_torch.ops.kernels import build
+
+    lines, entry = [], ""
+    for ln in build.load_library("decode").ptxas_info:
+        if "Compiling entry" in ln:
+            entry = ln
+        elif "int8_mma_kernel" in entry and ("Used" in ln or "spill" in ln):
+            m = re.search(r"(mlp_\w+?_int8_mma_kernel)I(\w+?)EEEv", entry)
+            args = ", ".join(v if t == "i" else ("true", "false")[v == "0"]
+                             for t, v in re.findall(r"L([ib])(\d+)", m.group(2))) if m else ""
+            lines.append(f"{m.group(1)}<{args}>: {ln.split(':')[-1].strip()}" if m else ln)
+    return lines
 
 
 # llama-1b4 training shapes: micro 4 x S 2048, D 2048, 16 heads of 128,
@@ -959,9 +1168,9 @@ FLASH_KERNELS = {"fwd": ("flash_fwd_wgmma_kernel",),
                          "flash_bwd_dkv_wgmma_kernel")}
 
 
-def flash_split(torch, call, what, shape):
-    """Device time of each kernel of one flash forward or backward call
-    (``what``: a key of FLASH_KERNELS) under torch.profiler, in us."""
+def kernel_split(torch, call, names, what):
+    """Device time of each kernel (``names``) of one call under
+    torch.profiler, in us."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -973,15 +1182,20 @@ def flash_split(torch, call, what, shape):
         torch.cuda.synchronize()
     split = {}
     for e in prof.key_averages():
-        for name in FLASH_KERNELS[what]:
+        for name in names:
             if name in e.key:
                 split[name] = e.self_device_time_total / e.count
-    check(len(split) == len(FLASH_KERNELS[what]),
-          f"flash {what} {shape}: profile kernels {split}")
-    print(f"flash {what} {shape} device us a call: " + ", ".join(
+    check(len(split) == len(names), f"{what}: profile kernels {split}")
+    print(f"{what} device us a call: " + ", ".join(
         f"{n} {t:.2f}" for n, t in split.items())
         + f"; total {sum(split.values()):.2f}")
     return split
+
+
+def flash_split(torch, call, what, shape):
+    """Device time of each kernel of one flash forward or backward call
+    (``what``: a key of FLASH_KERNELS), in us."""
+    return kernel_split(torch, call, FLASH_KERNELS[what], f"flash {what} {shape}")
 
 
 def time_train_kernels(torch, dev, gen, errs):
@@ -2091,12 +2305,15 @@ def phase_generate_profile(torch, eng, prompts, int8):
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:6]:
         print(f"  {e.self_cpu_time_total / 1e3:9.2f} ms {e.count:7d}x "
               f"{e.key[:60]}")
+    # the GEMVs' int8 bodies of norm_qkv and proj_norm are the bf16 kernels
+    # over int8 codes; the int8 MLP has kernels of its own
     sfx = "_int8" if int8 else ""
     tags = {"rms_norm": ("rms_norm_fwd_kernel",), "rope": ("_rope_fwd_kernel",),
             "fused_norm_qkv" + sfx: ("norm_qkv_kernel",),
             "flash_decode_contig": ("flash_decode_paged_kernel",),
             "fused_proj_norm" + sfx: ("proj_norm_kernel",),
-            "fused_mlp" + sfx: ("mlp_act_kernel", "mlp_down_kernel")}
+            "fused_mlp": ("mlp_act_kernel", "mlp_down_kernel"),
+            "fused_mlp_int8": ("mlp_act_int8_mma_kernel", "mlp_down_int8_mma_kernel")}
     out = {}
     for name, keys in tags.items():
         parts = [[e for e in kernels if tag in e.key] for tag in keys]
@@ -2105,8 +2322,14 @@ def phase_generate_profile(torch, eng, prompts, int8):
             continue
         out[name] = sum(e.self_device_time_total for p in parts
                         for e in p) / n / 1e3
+        split = ""
+        if len(parts) > 1:        # the launches of one call, in ms a call
+            out[name + "_split"] = {tag: sum(e.self_device_time_total for e in p) / n / 1e3
+                                    for tag, p in zip(keys, parts)}
+            split = " (" + " + ".join(f"{tag} {v:.5f}" for tag, v
+                                      in out[name + "_split"].items()) + ")"
         print(f"profile: {name} device time per launch {out[name]:.5f} ms "
-              f"over {n} launches")
+              f"over {n} launches{split}")
     return out
 
 
@@ -2815,11 +3038,16 @@ def main() -> int:
              "device_ms_by_path": {p: r[1][name] for p, r in runs.items()
                                    if r[1].get(name) is not None}}
         k["device_ms_on_path"] = k["device_ms_by_path"].get(path)
+        if runs[path][1].get(name + "_split"):
+            k["device_ms_split_on_path"] = runs[path][1][name + "_split"]
         for extra in ("matmul_ms", "max_abs_err_train_shape",
                       "max_abs_err_gpt2_shape", "decode_rows_ms",
                       "masked_ms", "masked_plain_ms", "masked_bound_ms",
                       "gpt2_shape", "fp32_masters", "whole_update_bound_ms",
-                      "train_ms", "train_bound_ms", "device_us_split"):
+                      "train_ms", "train_bound_ms", "device_us_split",
+                      "public_ms", "host_us", "train_library_ms", "gpt2_ms",
+                      "gpt2_plain_ms", "gpt2_bound_ms", "gpt2_device_us_split",
+                      "ptxas"):
             if extra in t:
                 k[extra] = t[extra]
         check(all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms",

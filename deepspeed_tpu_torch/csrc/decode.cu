@@ -14,7 +14,9 @@
 //
 // and the int8-weight bodies of the three GEMV kernels (their `quant=True`
 // branch, `_deq` decode.py:88), each through its own entry (the `_int8`
-// functions below).
+// functions below): norm_qkv_kernel and proj_norm_kernel over int8 codes,
+// and for fused_mlp two kernels of their own on the tensor cores,
+// mlp_act_int8_mma_kernel + mlp_down_int8_mma_kernel.
 //
 // What bounds them on the H100: memory bytes.  A decode step multiplies
 // num_slots (8) activation rows by each weight matrix: about 8 flops per
@@ -54,16 +56,23 @@
 //     (so the down projection reads a row's B values as 16-byte vectors),
 //     and mlp_down computes r + a @ Wd over output-column tiles.
 //
-// int8 weights (bf16 activations only, as the JAX int8 engine serves): the
-// same kernels over a weight type W = int8_t.  A thread still owns V = 8
-// columns, now one 8-byte vector of codes a row, and keeps twice the rows in
-// flight (the same 16 registers of loads, the same kBT x 8 accumulators);
-// its 8 columns' fp32 scales are loaded once into registers.  Each element is
-// dequantized as the reference's `_deq` does it: code x scale in fp32,
-// rounded to bf16, then the product with the bf16 activation summed in fp32.
-// Measured on the H100 (PERF.md §6): the int8 bodies run no faster than the
-// bf16 ones, so the GEMV core is bound by issue and latency, not by bytes
-// (bf16 fused_mlp at 1.5x its bound); halving the bytes needs a faster core.
+// int8 weights (bf16 activations only, as the JAX int8 engine serves).
+// Each element is dequantized as the reference's `_deq` does it: code x
+// scale in fp32, rounded to bf16, then the product with the bf16 activation
+// summed in fp32.
+//   - norm_qkv and proj_norm run the same kernels over a weight type
+//     W = int8_t: a thread still owns V = 8 columns, now one 8-byte vector of
+//     codes a row, and keeps twice the rows in flight; its 8 columns' fp32
+//     scales are loaded once into registers.  On the FFMA core the int8
+//     bodies run no faster than the bf16 ones (PERF.md §6): each element
+//     costs an I2F, the scale, a round to bf16 and back, and kBT FFMAs, so
+//     the core is bound by issue, not by the halved bytes.
+//   - fused_mlp (176 MB of codes a call at llama3-8b, a 52.6 us bound) takes
+//     the products to the tensor cores instead (mma.sync m16n8k16 over the
+//     dequantized bf16 codes and the pass's 8 rows), and dequantizes with a
+//     byte permute and two fp32 operations an element: about a third of the
+//     FFMA body's instructions, so the 16-byte cp.async ring that streams
+//     the codes sets its time.  Its design note is above mlp_act_int8_mma_kernel.
 //
 // Design of flash_decode_paged_kernel: one block per (slot, KV head); the
 // rep query heads of a GQA group share each K/V row.  The block reads its
@@ -459,10 +468,9 @@ proj_norm_kernel(const T* __restrict__ ctx, const T* __restrict__ resid,
 // act(h @ Wu (+bu)) without a gate, rounded to T
 // ---------------------------------------------------------------------------
 
-template <typename T, typename W, int NT>
+template <typename T, int NT>
 __global__ void __launch_bounds__(NT, 512 / NT)
-mlp_act_kernel(const T* __restrict__ h, const W* __restrict__ wu, const W* __restrict__ wg,
-               const float* __restrict__ su, const float* __restrict__ sg,
+mlp_act_kernel(const T* __restrict__ h, const T* __restrict__ wu, const T* __restrict__ wg,
                const T* __restrict__ bu, const T* __restrict__ bg, T* __restrict__ a_t,
                int B, int D, int F, int act) {
   constexpr int V = Pack<T>::N;
@@ -478,12 +486,9 @@ mlp_act_kernel(const T* __restrict__ h, const W* __restrict__ wu, const W* __res
     stage_rows<T, NT>(h_s, h + static_cast<size_t>(b0) * D, bc * D);
     __syncthreads();
     const StagedRows<T> hval{h_s, D, bc};
+    const Deq<T, T> deq{};
     float acc[kBT][V];
-    {
-      Deq<T, W> deq;
-      deq.load(su, col, col < F);
-      gemv_partial<T, W, NT>(wu, D, F, col, col < F, rs, hval, deq, acc);
-    }
+    gemv_partial<T, T, NT>(wu, D, F, col, col < F, rs, hval, deq, acc);
     reduce_tile<T, NT>(acc, red, bc, [&](int b, int c, float y) {
       const int n = tile0 + c;
       if (n < F) {
@@ -495,9 +500,7 @@ mlp_act_kernel(const T* __restrict__ h, const W* __restrict__ wu, const W* __res
       }
     });
     if (wg) {
-      Deq<T, W> deq;
-      deq.load(sg, col, col < F);
-      gemv_partial<T, W, NT>(wg, D, F, col, col < F, rs, hval, deq, acc);
+      gemv_partial<T, T, NT>(wg, D, F, col, col < F, rs, hval, deq, acc);
       reduce_tile<T, NT>(acc, red, bc, [&](int b, int c, float g) {
         const int n = tile0 + c;
         if (n < F) {
@@ -514,18 +517,16 @@ mlp_act_kernel(const T* __restrict__ h, const W* __restrict__ wu, const W* __res
 // fused_mlp, launch (b): out[B, D] = r + (a @ Wd (+ bd)), a read as a_t[F, B]
 // ---------------------------------------------------------------------------
 
-template <typename T, typename W, int NT>
+template <typename T, int NT>
 __global__ void __launch_bounds__(NT, 512 / NT)
-mlp_down_kernel(const T* __restrict__ a_t, const W* __restrict__ wd,
-                const float* __restrict__ sd, const T* __restrict__ bd,
+mlp_down_kernel(const T* __restrict__ a_t, const T* __restrict__ wd, const T* __restrict__ bd,
                 const T* __restrict__ r, T* __restrict__ out, int B, int F, int D) {
   constexpr int V = Pack<T>::N;
   __shared__ float red[NT / 32 * kCV * kBT * V];
   const int tile0 = blockIdx.x * kCV * V;
   const int col = tile0 + (threadIdx.x % kCV) * V;
   const int rs = threadIdx.x / kCV;
-  Deq<T, W> deq;
-  deq.load(sd, col, col < D);
+  const Deq<T, T> deq{};
   for (int b0 = 0; b0 < B; b0 += kBT) {
     const int bc = min(kBT, B - b0);
     // a_t row d holds the B activations of contraction row d: with B ==
@@ -545,7 +546,7 @@ mlp_down_kernel(const T* __restrict__ a_t, const W* __restrict__ wd,
       }
     };
     float acc[kBT][V];
-    gemv_partial<T, W, NT>(wd, F, D, col, col < D, rs, act_row, deq, acc);
+    gemv_partial<T, T, NT>(wd, F, D, col, col < D, rs, act_row, deq, acc);
     reduce_tile<T, NT>(acc, red, bc, [&](int b, int c, float y) {
       const int n = tile0 + c;
       if (n < D) {
@@ -554,6 +555,362 @@ mlp_down_kernel(const T* __restrict__ a_t, const W* __restrict__ wd,
         out[i] = from_f32<T>(to_f32(r[i]) + y);
       }
     });
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fused_mlp with int8 weights, on the tensor cores (mma.sync m16n8k16, bf16)
+// ---------------------------------------------------------------------------
+//
+// Two launches a pass of kBT rows, as the FFMA bodies: mlp_act_int8_mma_kernel
+// writes a = act(h @ deq(Wg) (+bg)) * (h @ deq(Wu) (+bu)), or act(h @ deq(Wu)
+// (+bu)) without a gate, rounded to bf16 as [kBT, F] rows; then
+// mlp_down_int8_mma_kernel writes r + (a @ deq(Wd) (+bd)).  A block owns a
+// tile of kQ8TN output columns over one split of the contraction.
+//
+//   - The product: A = 16 dequantized output columns x 16 contraction rows,
+//     B = the pass's 8 activation rows (n = 8 exactly), fp32 sums.  A's
+//     k-pairs run down the row-major [K, N] codes: ldmatrix.trans of the
+//     staged tile, read as 16-bit column pairs, gives a thread the codes of
+//     rows 2t, 2t+1 in two adjacent columns (four bytes); the even column
+//     feeds one m16 tile and the odd column the next, so one x4 load feeds
+//     two mma over a 32-column strip.
+//   - The dequant is `_deq`'s, bit for bit: byte ^ 0x80 permuted into the
+//     low byte of 2^23 and 2^23 + 128 subtracted (the exact int8 -> fp32,
+//     no I2F), times the column's fp32 scale (__fmul_rn), rounded to bf16
+//     two at a time (__floats2bfloat162_rn, round to nearest even).
+//   - The bytes: 16-byte cp.async (8-byte where N is not a multiple of 16)
+//     into a ring of kQ8Stages stages of kQ8TK rows, with the pass's
+//     activations for those rows beside them (zero filled past the pass's
+//     rows and past K), the 16-byte chunks of a code row swizzled so that
+//     ldmatrix reads without bank conflicts.
+//   - The grid: one block an SM, 16 warps (4 a strip, each taking 2 of a
+//     stage's 8 k16 steps; their sums meet in shared memory in warp order).
+//     Block b takes column tile b % tiles, so the blocks that run together
+//     read the same rows of the codes: the order the H100's memory streams
+//     best (a stream-K split, which fills every SM but spreads the blocks
+//     over the rows, ran slower).  Where the column tiles are fewer than
+//     the SMs (the down projection: 32 at llama3-8b), the contraction is
+//     split into runs of chunks: each split writes fp32 partials, and the
+//     last block of a tile to take its ticket sums them in split order,
+//     finishes the tile and resets the ticket.  No float atomics: every
+//     call gives the same bits.
+//   - Measured on the H100 (PERF.md §6): compute is not the limit (taking
+//     out the dequant and the mma saved about a tenth); the act launch runs
+//     a few us behind a bare cp.async read of the same tiles in the same
+//     order.
+
+constexpr int kQ8Threads = 512;                          // 16 warps
+constexpr int kQ8Warps = kQ8Threads / 32;
+constexpr int kQ8TN = 128;                               // output columns of a tile
+constexpr int kQ8TK = 128;                               // contraction rows of a stage
+constexpr int kQ8Stages = 4;
+constexpr int kQ8Strips = kQ8TN / 32;                    // 32-column strips of a tile
+constexpr int kQ8WarpsAStrip = kQ8Warps / kQ8Strips;
+constexpr int kQ8Steps = kQ8TK / 16 / kQ8WarpsAStrip;    // k16 steps a warp a stage
+constexpr int kQ8XStride = kQ8TK + 8;                    // bf16 a staged activation row
+constexpr int kQ8CodeBytes = kQ8TK * kQ8TN;              // one matrix's codes a stage
+constexpr int kQ8XBytes = kBT * kQ8XStride * 2;
+constexpr int kQ8MaxTiles = 4096;                        // tickets the wrapper provides
+static_assert(kQ8Warps % kQ8Strips == 0 && kQ8Steps * kQ8WarpsAStrip * 16 == kQ8TK &&
+                  kQ8TN == 128,
+              "every (strip, k16 step) of a stage has one warp; a code row is a 128-byte line");
+
+__host__ __device__ constexpr int q8_stage_bytes(int nm) { return nm * kQ8CodeBytes + kQ8XBytes; }
+
+// Chunk c of code row r lands at chunk c ^ (r & 7) of its shared row: the 8
+// rows an ldmatrix reads at one chunk fall on 8 distinct 16-byte bank groups.
+__device__ __forceinline__ int q8_swizzle(int r, int c) { return c ^ (r & 7); }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Rows [k0, k0 + kQ8TK) x columns [n0, n0 + kQ8TN) of the [K, N] codes into the
+// stage at `dst`, swizzled; rows past K and columns past N zero filled (N is
+// a multiple of the chunk).
+template <bool kWide>
+__device__ __forceinline__ void q8_load_codes(uint32_t dst, const int8_t* __restrict__ w, int K,
+                                              int N, int k0, int n0) {
+  constexpr int kChunk = kWide ? 16 : 8;
+  constexpr int kPerRow = kQ8TN / kChunk;
+  static_assert(kQ8TK * kPerRow % kQ8Threads == 0, "whole chunks a thread");
+#pragma unroll
+  for (int it = 0; it < kQ8TK * kPerRow / kQ8Threads; ++it) {
+    const int i = threadIdx.x + it * kQ8Threads;
+    const int r = i / kPerRow, byte = (i % kPerRow) * kChunk;
+    const bool in = k0 + r < K && n0 + byte < N;
+    const int8_t* src = in ? w + static_cast<size_t>(k0 + r) * N + n0 + byte : w;
+    const uint32_t d = dst + r * kQ8TN + (q8_swizzle(r, byte >> 4) << 4) + (byte & 15);
+    if (kWide)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+                   "r"(in ? 16 : 0));
+    else
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src),
+                   "r"(in ? 8 : 0));
+  }
+}
+
+// The pass's activations for rows [k0, k0 + kQ8TK): x [bc, K], ldx apart
+// (16-byte aligned rows, K a multiple of 8), as kBT rows of kQ8XStride.
+__device__ __forceinline__ void q8_load_x(uint32_t dst, const __nv_bfloat16* __restrict__ x,
+                                          int ldx, int bc, int K, int k0) {
+  constexpr int kPerRow = kQ8TK / 8;
+  for (int i = threadIdx.x; i < kBT * kPerRow; i += kQ8Threads) {
+    const int n = i / kPerRow, k = k0 + (i % kPerRow) * 8;
+    const bool in = n < bc && k < K;
+    const __nv_bfloat16* src = in ? x + static_cast<size_t>(n) * ldx + k : x;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     dst + (n * kQ8XStride + (i % kPerRow) * 8) * 2),
+                 "l"(src), "r"(in ? 16 : 0));
+  }
+}
+
+// Four codes (rows 2t, 2t+1 x an even and an odd column) -> the bf16 pairs
+// of the even and the odd column, each code x its column's scale as `_deq`.
+__device__ __forceinline__ void q8_deq(uint32_t r, float se, float so, uint32_t& e, uint32_t& o) {
+  const uint32_t u = r ^ 0x80808080u;
+  auto f = [&](uint32_t sel) {
+    return __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, sel)), 8388736.f);
+  };
+  const __nv_bfloat162 pe = __floats2bfloat162_rn(__fmul_rn(f(0x7440), se), __fmul_rn(f(0x7442), se));
+  const __nv_bfloat162 po = __floats2bfloat162_rn(__fmul_rn(f(0x7441), so), __fmul_rn(f(0x7443), so));
+  e = *reinterpret_cast<const uint32_t*>(&pe);
+  o = *reinterpret_cast<const uint32_t*>(&po);
+}
+
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One block's tile: columns [n0, n0 + kQ8TN) of NM weight matrices w[m] ([K, N]
+// codes, scales s[m]) against one pass of activations x over contraction
+// chunks [c0, c1).  Returns the fp32 sums, [NM][kBT][kQ8TN], in shared memory
+// (in the ring, past the warps' partials); ends with a barrier.
+template <int NM, bool kWide>
+__device__ __forceinline__ float* q8_tile(const int8_t* const* w, const float* const* s,
+                                          const __nv_bfloat16* __restrict__ x, int ldx, int bc,
+                                          int K, int N, int n0, int c0, int c1,
+                                          unsigned char* ring) {
+  constexpr int kStage = q8_stage_bytes(NM);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int strip = warp % kQ8Strips;
+  // the thread's four columns: even and odd of the strip's first and second half
+  float sc[NM][4];
+#pragma unroll
+  for (int m = 0; m < NM; ++m)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int col = n0 + strip * 32 + (q >> 1) * 16 + 2 * g + (q & 1);
+      sc[m][q] = col < N ? s[m][col] : 0.f;
+    }
+  const uint32_t base = smem_u32(ring);
+  auto load = [&](int c, int slot) {
+    const uint32_t st = base + slot * kStage;
+#pragma unroll
+    for (int m = 0; m < NM; ++m)
+      q8_load_codes<kWide>(st + m * kQ8CodeBytes, w[m], K, N, c * kQ8TK, n0);
+    q8_load_x(st + NM * kQ8CodeBytes, x, ldx, bc, K, c * kQ8TK);
+  };
+  const int n = c1 - c0;
+#pragma unroll
+  for (int p = 0; p < kQ8Stages - 1; ++p) {
+    if (p < n) load(c0 + p, p);
+    cp_async_commit();
+  }
+  float acc[NM][2][4];
+#pragma unroll
+  for (int m = 0; m < NM; ++m)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[m][e][q] = 0.f;
+  // ldmatrix: lane gives row (lane & 7) of matrix lane >> 3: rows +0 / +8 of
+  // the k16 step (bit 1), the strip's first / second 16 bytes (bit 0)
+  const int lrow = ((lane >> 4) & 1) * 8 + (lane & 7);
+  const int lc16 = 2 * strip + ((lane >> 3) & 1);
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait<kQ8Stages - 2>();
+    __syncthreads();
+    if (i + kQ8Stages - 1 < n) load(c0 + i + kQ8Stages - 1, (i + kQ8Stages - 1) % kQ8Stages);
+    cp_async_commit();
+    const uint32_t st = base + (i % kQ8Stages) * kStage;
+#pragma unroll
+    for (int jj = 0; jj < kQ8Steps; ++jj) {
+      const int k16 = warp / kQ8Strips + kQ8WarpsAStrip * jj;
+      uint32_t b0, b1;
+      const uint32_t xa = st + NM * kQ8CodeBytes + (g * kQ8XStride + k16 * 16 + 2 * t) * 2;
+      asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(b0) : "r"(xa));
+      asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(b1) : "r"(xa + 16));
+      const int row = k16 * 16 + lrow;
+      const uint32_t off = row * kQ8TN + (q8_swizzle(row, lc16) << 4);
+#pragma unroll
+      for (int m = 0; m < NM; ++m) {
+        uint32_t r[4];
+        asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                     : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                     : "r"(st + m * kQ8CodeBytes + off));
+        // r[0], r[1]: rows 2t, 2t+1 of the strip's halves; r[2], r[3]: rows +8
+        uint32_t ae[4], ao[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          q8_deq(r[q], sc[m][(q & 1) * 2], sc[m][(q & 1) * 2 + 1], ae[q], ao[q]);
+        mma_16816(acc[m][0], ae, b0, b1);
+        mma_16816(acc[m][1], ao, b0, b1);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  // C fragment q of the even (e = 0) or odd tile: row 2t + (q & 1), column
+  // (q >> 1) * 16 + 2g + e of the strip
+  float* red = reinterpret_cast<float*>(ring);  // [NM][warps][kBT][32]
+  float* sums = red + NM * kQ8Warps * kBT * 32;
+  static_assert(NM * (kQ8Warps * 32 + kQ8TN) * kBT <= kQ8Stages * q8_stage_bytes(NM) / 4,
+                "the partials and the sums fit in the ring");
+#pragma unroll
+  for (int m = 0; m < NM; ++m)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int nn = 2 * t + (q & 1), cc = (q >> 1) * 16 + 2 * g + e;
+        red[((m * kQ8Warps + warp) * kBT + nn) * 32 + cc] = acc[m][e][q];
+      }
+  __syncthreads();
+  // the warps of a strip summed in warp order
+  for (int o = threadIdx.x; o < NM * kBT * kQ8TN; o += kQ8Threads) {
+    const int m = o / (kBT * kQ8TN), nn = (o / kQ8TN) % kBT, c = o % kQ8TN;
+    float v = 0.f;
+#pragma unroll
+    for (int w = c / 32; w < kQ8Warps; w += kQ8Strips)
+      v += red[((m * kQ8Warps + w) * kBT + nn) * 32 + c % 32];
+    sums[o] = v;
+  }
+  __syncthreads();
+  return sums;
+}
+
+// The grid: block b takes column tile b % tiles over contraction chunks
+// [b / tiles * cps, ...): the blocks that run together read the same rows
+// (the lockstep the H100's memory streams best), and the contraction is
+// split only as far as it takes to give every SM a block.
+struct Q8Grid {
+  int tiles, chunks, cps, splits;
+};
+
+// A split tile: write this block's sums as the fp32 partial of its split;
+// the last block of the tile to take its ticket reads every split's partial
+// back into `sums`, summed in split order, resets the ticket and returns
+// true.  Other blocks return false.
+template <int NM>
+__device__ __forceinline__ bool q8_merge(const Q8Grid& gr, int tile, int split, float* sums,
+                                         float* __restrict__ part,
+                                         unsigned int* __restrict__ ticket) {
+  constexpr int kTile = NM * kBT * kQ8TN;
+  __shared__ bool last;
+  float* tp = part + static_cast<size_t>(tile) * gr.splits * kTile;
+  for (int o = threadIdx.x; o < kTile; o += kQ8Threads) tp[split * kTile + o] = sums[o];
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last = atomicAdd(ticket + tile, 1u) == static_cast<unsigned>(gr.splits - 1);
+  __syncthreads();
+  if (!last) return false;
+  __threadfence();
+  for (int o = threadIdx.x; o < kTile; o += kQ8Threads) {
+    float v = 0.f;
+    for (int j = 0; j < gr.splits; ++j) v += __ldcg(tp + j * kTile + o);
+    sums[o] = v;
+  }
+  if (threadIdx.x == 0) ticket[tile] = 0u;  // ready for the next launch on this stream
+  __syncthreads();
+  return true;
+}
+
+// This block's tile and split; the tile's sums if the block is to finish
+// it, else null.
+template <int NM, bool kWide>
+__device__ __forceinline__ float* q8_block(const Q8Grid& gr, const int8_t* const* w,
+                                           const float* const* s,
+                                           const __nv_bfloat16* __restrict__ x, int ldx, int bc,
+                                           int K, int N, float* __restrict__ part,
+                                           unsigned int* __restrict__ ticket, unsigned char* ring) {
+  const int tile = blockIdx.x % gr.tiles, split = blockIdx.x / gr.tiles;
+  const int c0 = split * gr.cps, c1 = min(gr.chunks, c0 + gr.cps);
+  float* sums = q8_tile<NM, kWide>(w, s, x, ldx, bc, K, N, tile * kQ8TN, c0, c1, ring);
+  if (gr.splits > 1 && !q8_merge<NM>(gr, tile, split, sums, part, ticket)) return nullptr;
+  return sums;
+}
+
+// launch (a): the [D, F] products; NM = 2 with a gate.
+template <int NM, bool kWide>
+__global__ void __launch_bounds__(kQ8Threads, 1)
+mlp_act_int8_mma_kernel(Q8Grid gr, const __nv_bfloat16* __restrict__ h,
+                        const int8_t* __restrict__ wu, const int8_t* __restrict__ wg,
+                        const float* __restrict__ su, const float* __restrict__ sg,
+                        const __nv_bfloat16* __restrict__ bu, const __nv_bfloat16* __restrict__ bg,
+                        __nv_bfloat16* __restrict__ a, float* __restrict__ part,
+                        unsigned int* __restrict__ ticket, int bc, int D, int F, int act) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int8_t* const w[2] = {wu, wg};
+  const float* const s[2] = {su, sg};
+  const float* sums = q8_block<NM, kWide>(gr, w, s, h, D, bc, D, F, part, ticket, smem_raw);
+  if (sums == nullptr) return;
+  const int n0 = blockIdx.x % gr.tiles * kQ8TN;
+  for (int o = threadIdx.x; o < kBT * kQ8TN; o += kQ8Threads) {
+    const int nn = o / kQ8TN, col = n0 + o % kQ8TN;
+    if (nn < bc && col < F) {
+      float y = sums[o];
+      if (bu) y += __bfloat162float(bu[col]);
+      float v;
+      if constexpr (NM == 2) {
+        float gv = sums[kBT * kQ8TN + o];
+        if (bg) gv += __bfloat162float(bg[col]);
+        v = act_fn(act, gv) * y;
+      } else {
+        v = act_fn(act, y);
+      }
+      a[static_cast<size_t>(nn) * F + col] = __float2bfloat16(v);
+    }
+  }
+}
+
+// launch (b): the [F, D] product, plus the bias and the residual.
+template <bool kWide>
+__global__ void __launch_bounds__(kQ8Threads, 1)
+mlp_down_int8_mma_kernel(Q8Grid gr, const __nv_bfloat16* __restrict__ a,
+                         const int8_t* __restrict__ wd, const float* __restrict__ sd,
+                         const __nv_bfloat16* __restrict__ bd, const __nv_bfloat16* __restrict__ r,
+                         __nv_bfloat16* __restrict__ out, float* __restrict__ part,
+                         unsigned int* __restrict__ ticket, int bc, int F, int D) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int8_t* const w[1] = {wd};
+  const float* const s[1] = {sd};
+  const float* sums = q8_block<1, kWide>(gr, w, s, a, F, bc, F, D, part, ticket, smem_raw);
+  if (sums == nullptr) return;
+  const int n0 = blockIdx.x % gr.tiles * kQ8TN;
+  for (int o = threadIdx.x; o < kBT * kQ8TN; o += kQ8Threads) {
+    const int nn = o / kQ8TN, col = n0 + o % kQ8TN;
+    if (nn < bc && col < D) {
+      float y = sums[o];
+      if (bd) y += __bfloat162float(bd[col]);
+      const size_t i = static_cast<size_t>(nn) * D + col;
+      out[i] = __float2bfloat16(__bfloat162float(r[i]) + y);
+    }
   }
 }
 
@@ -775,33 +1132,167 @@ cudaError_t launch_proj_norm(const void* ctx, const void* resid, const void* wo,
   return cudaGetLastError();
 }
 
-template <typename T, typename W>
+template <typename T>
 cudaError_t launch_mlp(const void* h, const void* r, const void* wu, const void* wg,
-                       const void* wd, const void* su, const void* sg, const void* sd,
-                       const void* bu, const void* bg, const void* bd, void* a_t, void* out,
-                       int B, int D, int F, int act, cudaStream_t s) {
+                       const void* wd, const void* bu, const void* bg, const void* bd, void* a_t,
+                       void* out, int B, int D, int F, int act, cudaStream_t s) {
   int grid = grid_for(F, Pack<T>::N);
   bool narrow = narrow_blocks(grid);
-  auto act_kernel = narrow ? mlp_act_kernel<T, W, kThreadsNarrow>
-                           : mlp_act_kernel<T, W, kThreadsWide>;
+  auto act_kernel = narrow ? mlp_act_kernel<T, kThreadsNarrow>
+                           : mlp_act_kernel<T, kThreadsWide>;
   const size_t smem = static_cast<size_t>(min(B, kBT)) * D * sizeof(T);
   cudaError_t e = allow_smem(act_kernel, smem);
   if (e != cudaSuccess) return e;
   act_kernel<<<grid, narrow ? kThreadsNarrow : kThreadsWide, smem, s>>>(
-      static_cast<const T*>(h), static_cast<const W*>(wu), static_cast<const W*>(wg),
-      static_cast<const float*>(su), static_cast<const float*>(sg),
+      static_cast<const T*>(h), static_cast<const T*>(wu), static_cast<const T*>(wg),
       static_cast<const T*>(bu), static_cast<const T*>(bg), static_cast<T*>(a_t), B, D, F,
       act);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   grid = grid_for(D, Pack<T>::N);
   narrow = narrow_blocks(grid);
-  auto down_kernel = narrow ? mlp_down_kernel<T, W, kThreadsNarrow>
-                            : mlp_down_kernel<T, W, kThreadsWide>;
+  auto down_kernel = narrow ? mlp_down_kernel<T, kThreadsNarrow>
+                            : mlp_down_kernel<T, kThreadsWide>;
   down_kernel<<<grid, narrow ? kThreadsNarrow : kThreadsWide, 0, s>>>(
-      static_cast<const T*>(a_t), static_cast<const W*>(wd), static_cast<const float*>(sd),
-      static_cast<const T*>(bd), static_cast<const T*>(r), static_cast<T*>(out), B, F, D);
+      static_cast<const T*>(a_t), static_cast<const T*>(wd), static_cast<const T*>(bd),
+      static_cast<const T*>(r), static_cast<T*>(out), B, F, D);
   return cudaGetLastError();
+}
+
+// Multiprocessors of CUDA device `dev`, read once a device.
+int sm_count(int dev) {
+  static int cache[64];
+  int n = dev >= 0 && dev < 64 ? cache[dev] : 0;
+  if (n == 0) {
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (dev >= 0 && dev < 64) cache[dev] = n;
+  }
+  return n;
+}
+
+// Make `dev` the current device for the scope, only if it is not already.
+struct DeviceGuard {
+  int prev = -1;
+  cudaError_t err = cudaSuccess;
+  explicit DeviceGuard(int dev) {
+    int cur = 0;
+    err = cudaGetDevice(&cur);
+    if (err == cudaSuccess && cur != dev) {
+      err = cudaSetDevice(dev);
+      if (err == cudaSuccess) prev = cur;
+    }
+  }
+  ~DeviceGuard() {
+    if (prev >= 0) cudaSetDevice(prev);
+  }
+};
+
+// The grid of a [K, N] product: one block an SM where the column tiles are
+// fewer than the SMs (the contraction split into that many runs of chunks),
+// else one block a tile.
+Q8Grid q8_grid(int K, int N, int sms) {
+  Q8Grid g;
+  g.tiles = (N + kQ8TN - 1) / kQ8TN;
+  g.chunks = (K + kQ8TK - 1) / kQ8TK;
+  const int want = max(1, min(g.chunks, sms / g.tiles));
+  g.cps = (g.chunks + want - 1) / want;
+  g.splits = (g.chunks + g.cps - 1) / g.cps;
+  return g;
+}
+
+// The workspace: a [kBT, F] bf16, then the fp32 partials of whichever
+// launch has more (the two run one after the other).
+size_t q8_a_bytes(int F) { return (static_cast<size_t>(kBT) * F * 2 + 255) / 256 * 256; }
+
+size_t q8_workspace_bytes(int D, int F, int nm, int sms) {
+  const Q8Grid ga = q8_grid(D, F, sms), gd = q8_grid(F, D, sms);
+  const size_t part_a =
+      ga.splits > 1 ? static_cast<size_t>(ga.tiles) * ga.splits * nm * kBT * kQ8TN : 0;
+  const size_t part_d =
+      gd.splits > 1 ? static_cast<size_t>(gd.tiles) * gd.splits * kBT * kQ8TN : 0;
+  return q8_a_bytes(F) + 4 * max(part_a, part_d);
+}
+
+// The ring exceeds the default 48 KB: opt in once a kernel and device.
+template <typename K>
+cudaError_t q8_allow_smem(K kernel, int bytes, int dev, unsigned long long& done) {
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (done & bit) return cudaSuccess;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess) done |= bit;
+  return e;
+}
+
+template <int NM, bool kWide>
+cudaError_t launch_q8_act(const Q8Grid& g, const void* h, const void* wu, const void* wg,
+                          const void* su, const void* sg, const void* bu, const void* bg, void* a,
+                          void* part, void* ticket, int bc, int D, int F, int act, int dev,
+                          cudaStream_t s) {
+  static unsigned long long ready = 0;
+  constexpr int smem = kQ8Stages * q8_stage_bytes(NM);
+  const cudaError_t e = q8_allow_smem(mlp_act_int8_mma_kernel<NM, kWide>, smem, dev, ready);
+  if (e != cudaSuccess) return e;
+  mlp_act_int8_mma_kernel<NM, kWide><<<g.tiles * g.splits, kQ8Threads, smem, s>>>(
+      g, static_cast<const __nv_bfloat16*>(h), static_cast<const int8_t*>(wu),
+      static_cast<const int8_t*>(wg), static_cast<const float*>(su),
+      static_cast<const float*>(sg), static_cast<const __nv_bfloat16*>(bu),
+      static_cast<const __nv_bfloat16*>(bg), static_cast<__nv_bfloat16*>(a),
+      static_cast<float*>(part), static_cast<unsigned int*>(ticket), bc, D, F, act);
+  return cudaGetLastError();
+}
+
+template <bool kWide>
+cudaError_t launch_q8_down(const Q8Grid& g, const void* a, const void* wd, const void* sd,
+                           const void* bd, const void* r, void* out, void* part, void* ticket,
+                           int bc, int F, int D, int dev, cudaStream_t s) {
+  static unsigned long long ready = 0;
+  constexpr int smem = kQ8Stages * q8_stage_bytes(1);
+  const cudaError_t e = q8_allow_smem(mlp_down_int8_mma_kernel<kWide>, smem, dev, ready);
+  if (e != cudaSuccess) return e;
+  mlp_down_int8_mma_kernel<kWide><<<g.tiles * g.splits, kQ8Threads, smem, s>>>(
+      g, static_cast<const __nv_bfloat16*>(a), static_cast<const int8_t*>(wd),
+      static_cast<const float*>(sd), static_cast<const __nv_bfloat16*>(bd),
+      static_cast<const __nv_bfloat16*>(r), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(part), static_cast<unsigned int*>(ticket), bc, F, D);
+  return cudaGetLastError();
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+cudaError_t launch_mlp_int8(const void* h, const void* r, const void* wu, const void* wg,
+                            const void* wd, const void* su, const void* sg, const void* sd,
+                            const void* bu, const void* bg, const void* bd, void* work,
+                            void* ticket, void* out, int B, int D, int F, int act, int dev,
+                            cudaStream_t s) {
+  if (F <= 0) return cudaErrorInvalidValue;
+  const int sms = sm_count(dev);
+  const Q8Grid pa = q8_grid(D, F, sms), pd = q8_grid(F, D, sms);
+  if (pa.tiles > kQ8MaxTiles || pd.tiles > kQ8MaxTiles) return cudaErrorInvalidValue;
+  void* a = work;
+  void* part = static_cast<char*>(work) + q8_a_bytes(F);
+  const bool wide_a = F % 16 == 0 && aligned16(wu) && (wg == nullptr || aligned16(wg));
+  const bool wide_d = D % 16 == 0 && aligned16(wd);
+  const auto* hb = static_cast<const __nv_bfloat16*>(h);
+  const auto* rb = static_cast<const __nv_bfloat16*>(r);
+  auto* ob = static_cast<__nv_bfloat16*>(out);
+  for (int b0 = 0; b0 < B; b0 += kBT) {
+    const int bc = min(kBT, B - b0);
+    const __nv_bfloat16* hp = hb + static_cast<size_t>(b0) * D;
+    cudaError_t e;
+    if (wg != nullptr)
+      e = wide_a ? launch_q8_act<2, true>(pa, hp, wu, wg, su, sg, bu, bg, a, part, ticket, bc, D, F, act, dev, s)
+                 : launch_q8_act<2, false>(pa, hp, wu, wg, su, sg, bu, bg, a, part, ticket, bc, D, F, act, dev, s);
+    else
+      e = wide_a ? launch_q8_act<1, true>(pa, hp, wu, wg, su, sg, bu, bg, a, part, ticket, bc, D, F, act, dev, s)
+                 : launch_q8_act<1, false>(pa, hp, wu, wg, su, sg, bu, bg, a, part, ticket, bc, D, F, act, dev, s);
+    if (e != cudaSuccess) return e;
+    const size_t off = static_cast<size_t>(b0) * D;
+    e = wide_d ? launch_q8_down<true>(pd, a, wd, sd, bd, rb + off, ob + off, part, ticket, bc, F, D, dev, s)
+               : launch_q8_down<false>(pd, a, wd, sd, bd, rb + off, ob + off, part, ticket, bc, F, D, dev, s);
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 
 template <typename T, int DI, int R>
@@ -952,22 +1443,36 @@ int ds_fused_mlp(const void* h, const void* r, const void* wu, const void* wg, c
   if (B <= 0 || D <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch_mlp<float, float>(h, r, wu, wg, wd, nullptr, nullptr, nullptr, bu, bg, bd, a_t, out, B, D, F, act, s);
-    case 1: return launch_mlp<__nv_bfloat16, __nv_bfloat16>(h, r, wu, wg, wd, nullptr, nullptr, nullptr, bu, bg, bd, a_t, out, B, D, F, act, s);
-    case 2: return launch_mlp<__half, __half>(h, r, wu, wg, wd, nullptr, nullptr, nullptr, bu, bg, bd, a_t, out, B, D, F, act, s);
+    case 0: return launch_mlp<float>(h, r, wu, wg, wd, bu, bg, bd, a_t, out, B, D, F, act, s);
+    case 1: return launch_mlp<__nv_bfloat16>(h, r, wu, wg, wd, bu, bg, bd, a_t, out, B, D, F, act, s);
+    case 2: return launch_mlp<__half>(h, r, wu, wg, wd, bu, bg, bd, a_t, out, B, D, F, act, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// The int8-weight body: bf16 activations; wu, wg [D, F] and wd [F, D] int8
-// codes with their fp32 scales su, sg [F] (sg null without a gate), sd [D].
+// The int8-weight MLP on the tensor cores: bf16 h, r, biases and out
+// [B, D]; wu, wg [D, F] and wd [F, D] int8 codes (8-byte aligned; D, F
+// multiples of 8; h 16-byte aligned) with their fp32 scales su, sg [F] (wg
+// and sg null without a gate), sd [D]; `work` ds_fused_mlp_int8_workspace
+// bytes (256-byte aligned); `ticket` kQ8MaxTiles zeroed uint32 that the
+// kernels leave at 0.  Two launches a pass of 8 rows, on `stream` of CUDA
+// device `device` (made current for the call if it is not).
 int ds_fused_mlp_int8(const void* h, const void* r, const void* wu, const void* wg,
                       const void* wd, const void* su, const void* sg, const void* sd,
-                      const void* bu, const void* bg, const void* bd, void* a_t, void* out,
-                      int B, int D, int F, int act, void* stream) {
+                      const void* bu, const void* bg, const void* bd, void* work, void* ticket,
+                      void* out, int B, int D, int F, int act, void* stream, int device) {
   if (B <= 0 || D <= 0) return 0;
-  return launch_mlp<__nv_bfloat16, int8_t>(h, r, wu, wg, wd, su, sg, sd, bu, bg, bd, a_t, out, B,
-                                           D, F, act, static_cast<cudaStream_t>(stream));
+  const DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
+  return static_cast<int>(launch_mlp_int8(h, r, wu, wg, wd, su, sg, sd, bu, bg, bd, work, ticket,
+                                          out, B, D, F, act, device,
+                                          static_cast<cudaStream_t>(stream)));
+}
+
+// Bytes of the workspace ds_fused_mlp_int8 needs for [B, D] rows and an
+// F-wide MLP (a gate when glu) on CUDA device `device`.
+long long ds_fused_mlp_int8_workspace(int D, int F, int glu, int device) {
+  return static_cast<long long>(q8_workspace_bytes(D, F, glu ? 2 : 1, sm_count(device)));
 }
 
 const char* ds_cuda_error_string(int code) {

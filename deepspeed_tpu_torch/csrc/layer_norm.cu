@@ -552,20 +552,28 @@ void launch(const void* x, const void* g, void* y, long long rows, int n,
 extern "C" {
 
 // x, y: [rows, n] contiguous; g: [n]; all of one dtype
-// (0 = float32, 1 = bfloat16, 2 = float16).  Returns the cudaError_t of the
-// launch (0 on success).
+// (0 = float32, 1 = bfloat16, 2 = float16), on CUDA device `device`, which
+// is made current for the launch only if it is not already (the wrapper
+// passes the index instead of entering a device context).  Returns the
+// cudaError_t of the launch (0 on success).
 int ds_rms_norm_fwd(const void* x, const void* g, void* y, long long rows, int n,
-                    float eps, int dtype, void* stream) {
+                    float eps, int dtype, void* stream, int device) {
   if (rows <= 0 || n <= 0) return 0;
   if (rows > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  int cur = 0;
+  cudaError_t e = cudaGetDevice(&cur);
+  if (e == cudaSuccess && cur != device) e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: launch<float>(x, g, y, rows, n, eps, s); break;
     case 1: launch<__nv_bfloat16>(x, g, y, rows, n, eps, s); break;
     case 2: launch<__half>(x, g, y, rows, n, eps, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default: e = cudaErrorInvalidValue;
   }
-  return static_cast<int>(cudaGetLastError());
+  if (e == cudaSuccess) e = cudaGetLastError();
+  if (cur != device) cudaSetDevice(cur);
+  return static_cast<int>(e);
 }
 
 // RMSNorm backward: x, dy, dx [rows, n], g and dg [n], one dtype; part is

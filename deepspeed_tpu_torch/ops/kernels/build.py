@@ -22,7 +22,7 @@ import shutil
 import subprocess
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, List
+from typing import Callable, Dict, List, Tuple
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
@@ -84,6 +84,22 @@ def load_library(name: str) -> BuiltLibrary:
     built.lib.ds_cuda_error_string.restype = ctypes.c_char_p
     _LIBS[name] = built
     return built
+
+
+_BOUND: Dict[Tuple[str, str], Callable[..., int]] = {}
+
+
+def bind(name: str, fn: str, argtypes: list,
+         restype=ctypes.c_int) -> Callable[..., int]:
+    """``csrc/<name>.cu``'s C function ``fn``, built and loaded at first use,
+    with its prototype set once and kept: later calls cost one dict lookup,
+    and the caller passes plain ints and floats."""
+    f = _BOUND.get((name, fn))
+    if f is None:
+        f = getattr(load_library(name).lib, fn)
+        f.argtypes, f.restype = argtypes, restype
+        _BOUND[(name, fn)] = f
+    return f
 
 
 def check_launch(built: BuiltLibrary, kernel: str, code: int) -> None:

@@ -10,6 +10,11 @@ and by nothing else:
 - a CPU tensor goes to the plain PyTorch version (the CPU tests, and the
   reference the kernels are held against on the card);
 - any other device is refused.
+
+:func:`raw_stream` is the launch helper's half in Python (the C entry
+takes the device index and makes it current only where it is not): the
+wrappers moved to it read the current stream's handle without building a
+``torch.cuda.Stream`` and enter no ``torch.cuda.device`` context.
 """
 
 from __future__ import annotations
@@ -44,3 +49,11 @@ def check_kernel_input(name: str, t: torch.Tensor, device: torch.device,
         raise TypeError(f"{name}: expected dtype {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def raw_stream(index: int) -> int:
+    """The raw ``cudaStream_t`` of the current stream of CUDA device
+    ``index``, read afresh on every call (so it follows
+    ``torch.cuda.stream(...)``) without building a ``torch.cuda.Stream``:
+    the call Triton and Inductor make."""
+    return torch._C._cuda_getCurrentRawStream(index)

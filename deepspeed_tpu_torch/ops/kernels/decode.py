@@ -23,8 +23,13 @@ contiguity and alignment and raise: they never copy or cast an input.
 int8 weights (``wscale`` / ``wscales``: an int8 payload with per-output-
 column fp32 scales, the layout of ``models/quant.py``) run the int8 bodies
 of the three GEMV kernels, which dequantize in the kernel as ``_deq`` does;
-they take bf16 activations only (the int8 engine serves in bf16).  Each
-variant has a launch function and a launch counter of its own:
+they take bf16 activations only (the int8 engine serves in bf16).  The
+int8 MLP has kernels of its own on the tensor cores
+(``mlp_act_int8_mma_kernel`` + ``mlp_down_int8_mma_kernel``: ``mma.sync``
+over the dequantized codes, streamed by a ``cp.async`` ring), and its
+wrapper takes the lean host path of :mod:`.common` (the raw stream handle,
+the device index to the C entry, prototypes bound once).  Each variant has
+a launch function and a launch counter of its own:
 ``flash_decode_contig_cuda`` and the three ``*_int8_cuda``.
 """
 
@@ -35,10 +40,11 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from deepspeed_tpu_torch.ops.kernels.build import check_launch, load_library
+from deepspeed_tpu_torch.ops.kernels.build import (bind, check_launch,
+                                                   load_library)
 from deepspeed_tpu_torch.ops.kernels.common import (KERNEL_DTYPES,
                                                     check_kernel_input,
-                                                    use_kernel)
+                                                    raw_stream, use_kernel)
 
 NEG_INF = -1e30
 NORM_KINDS = {"rmsnorm": 0, "layernorm": 1}
@@ -193,9 +199,15 @@ _SIGNATURES = {
     "ds_fused_proj_norm": [_P] * 10 + [_I] * 4 + [_F, _I, _I, _P],
     "ds_fused_proj_norm_int8": [_P] * 11 + [_I] * 4 + [_F, _I, _P],
     "ds_fused_mlp": [_P] * 10 + [_I] * 5 + [_P],
-    "ds_fused_mlp_int8": [_P] * 13 + [_I] * 4 + [_P],
 }
 _TICKETS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+# the int8 MLP (tensor cores): the workspace bytes a (D, F, gate, device)
+# needs; its tickets, one a column tile (kQ8MaxTiles in csrc/decode.cu),
+# zeroed once a device and stream
+_Q8_ARGS = [_P] * 14 + [_I] * 4 + [_P, _I]
+_Q8_WORKSPACE: Dict[Tuple[int, int, bool, int], int] = {}
+_Q8_TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
+_Q8_MAX_TILES = 4096
 _SLOPES: Dict[Tuple[int, torch.device], torch.Tensor] = {}
 
 
@@ -571,8 +583,10 @@ def fused_proj_norm_int8_cuda(ctx, resid, wo, wscale, bo, scale, bias, *,
 
 def fused_mlp_int8_cuda(h, r, w_up, w_down, w_gate, wscales, b_up=None,
                         b_gate=None, b_down=None, *, act):
-    """Launch the int8 bodies of ``mlp_act_kernel`` and ``mlp_down_kernel``:
-    r + mlp(h) over int8 weights with ``wscales`` = (su, sg, sd)."""
+    """Launch ``mlp_act_int8_mma_kernel`` then ``mlp_down_int8_mma_kernel``
+    (a pair a pass of 8 rows): r + mlp(h) over int8 weights with
+    ``wscales`` = (su, sg, sd), on the lean host path of
+    :func:`.layer_norm.rms_norm_cuda`."""
     check_kernel_input("fused_mlp h", h, h.device)
     if h.dim() != 2 or w_up.dim() != 2:
         raise ValueError(f"fused_mlp: h [B, D] and w_up [D, F], got "
@@ -589,20 +603,33 @@ def fused_mlp_int8_cuda(h, r, w_up, w_down, w_gate, wscales, b_up=None,
     _check("fused_mlp b_gate", b_gate, h, (F,))
     _check("fused_mlp b_down", b_down, h, (D,))
     _check_columns("fused_mlp", D, h)
-    _check_staged("fused_mlp", B, D, h)
+    if h.data_ptr() % 16:
+        raise ValueError("fused_mlp h: the kernel's 16-byte copies need a "
+                         "16-byte aligned tensor")
     if act not in ACTIVATIONS:
         raise ValueError(f"unsupported activation {act}")
-    a_t = torch.empty((F, B), device=h.device, dtype=h.dtype)
+    dev = h.get_device()
+    glu = w_gate is not None
+    nbytes = _Q8_WORKSPACE.get((D, F, glu, dev))
+    if nbytes is None:
+        nbytes = _Q8_WORKSPACE[(D, F, glu, dev)] = bind(
+            "decode", "ds_fused_mlp_int8_workspace", [_I] * 4, _L)(D, F, glu,
+                                                                  dev)
+    stream = raw_stream(dev)
+    ticket = _Q8_TICKETS.get((dev, stream))
+    if ticket is None:
+        ticket = _Q8_TICKETS[(dev, stream)] = torch.zeros(
+            _Q8_MAX_TILES, dtype=torch.int32, device=h.device)
+    work = torch.empty(nbytes, dtype=torch.uint8, device=h.device)
     out = torch.empty_like(h)
-    built = _library()
-    with torch.cuda.device(h.device):
-        code = built.lib.ds_fused_mlp_int8(
-            h.data_ptr(), r.data_ptr(), w_up.data_ptr(), _ptr(w_gate),
-            w_down.data_ptr(), su.data_ptr(),
-            None if w_gate is None else sg.data_ptr(), sd.data_ptr(),
-            _ptr(b_up), _ptr(b_gate), _ptr(b_down), a_t.data_ptr(),
-            out.data_ptr(), B, D, F, ACTIVATIONS[act], _stream(h.device))
-    check_launch(built, "fused_mlp (int8)", code)
+    code = bind("decode", "ds_fused_mlp_int8", _Q8_ARGS)(
+        h.data_ptr(), r.data_ptr(), w_up.data_ptr(), _ptr(w_gate),
+        w_down.data_ptr(), su.data_ptr(), sg.data_ptr() if glu else None,
+        sd.data_ptr(), _ptr(b_up), _ptr(b_gate), _ptr(b_down),
+        work.data_ptr(), ticket.data_ptr(), out.data_ptr(), B, D, F,
+        ACTIVATIONS[act], stream, dev)
+    if code:
+        check_launch(load_library("decode"), "fused_mlp (int8)", code)
     fused_mlp_int8_cuda.launches += 1
     return out
 

@@ -14,6 +14,12 @@ backward), outputs in x's dtype, dγ and dβ fp32 sums cast to γ's dtype —
 and are what a CPU tensor runs.  :func:`layer_norm` and :func:`rms_norm`
 are differentiable (a :class:`torch.autograd.Function`) when autograd needs
 it, and a plain call otherwise (serving).
+
+The RMSNorm forward lies on every decode step, and its call, not its
+kernel, is what a step pays (a few µs of device time at [8, 4096]): its
+host path is the lean one of :mod:`.common` — one pass over the tensors'
+attributes, the raw stream handle, the device index to the C entry, a
+ctypes prototype bound once.  The other wrappers keep the plain path.
 """
 
 from __future__ import annotations
@@ -22,10 +28,11 @@ import ctypes
 
 import torch
 
-from deepspeed_tpu_torch.ops.kernels.build import check_launch, load_library
+from deepspeed_tpu_torch.ops.kernels.build import (bind, check_launch,
+                                                   load_library)
 from deepspeed_tpu_torch.ops.kernels.common import (KERNEL_DTYPES,
                                                     check_kernel_input,
-                                                    use_kernel)
+                                                    raw_stream, use_kernel)
 
 
 def rms_norm_plain(x: torch.Tensor, gamma: torch.Tensor,
@@ -55,11 +62,8 @@ def rms_norm_bwd_plain(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
 def _library():
     built = load_library("layer_norm")
     lib = built.lib
-    if lib.ds_rms_norm_fwd.argtypes is None:
+    if lib.ds_rms_norm_bwd.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.ds_rms_norm_fwd.argtypes = [vp, vp, vp, ctypes.c_longlong, ci,
-                                        ctypes.c_float, ci, vp]
-        lib.ds_rms_norm_fwd.restype = ci
         lib.ds_rms_norm_bwd.argtypes = [vp] * 6 + [ctypes.c_longlong, ci, ci,
                                                    ctypes.c_float, ci, vp]
         lib.ds_rms_norm_bwd.restype = ci
@@ -71,25 +75,40 @@ def _library():
     return built
 
 
+_RMS_FWD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
+                                          ctypes.c_float, ctypes.c_int,
+                                          ctypes.c_void_p, ctypes.c_int]
+
+
+def _refuse_rms_norm(x: torch.Tensor, gamma: torch.Tensor) -> None:
+    """Raise what the kernel refuses in ``x`` and ``gamma``: the checks of
+    every wrapper, run only once the lean test has failed."""
+    n = x.shape[-1]
+    if not x.is_cuda:
+        raise ValueError(f"rms_norm kernel: expected a CUDA tensor, got "
+                         f"{x.device}")
+    check_kernel_input("rms_norm x", x, x.device)
+    check_kernel_input("rms_norm gamma", gamma, x.device, dtype=x.dtype)
+    raise ValueError(f"rms_norm: gamma shape {tuple(gamma.shape)} != ({n},)")
+
+
 def rms_norm_cuda(x: torch.Tensor, gamma: torch.Tensor,
                   eps: float = 1e-6) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream; raises on what it does
     not take (device, dtype, shape, contiguity) and on a launch error."""
     n = x.shape[-1]
-    check_kernel_input("rms_norm x", x, x.device)
-    check_kernel_input("rms_norm gamma", gamma, x.device, dtype=x.dtype)
-    if gamma.shape != (n,):
-        raise ValueError(f"rms_norm: gamma shape {tuple(gamma.shape)} != "
-                         f"({n},)")
-    built = _library()
+    dev = x.get_device()
+    code = KERNEL_DTYPES.get(x.dtype)
+    if (code is None or gamma.dtype is not x.dtype or gamma.get_device() != dev
+            or gamma.shape != (n,) or not x.is_contiguous()
+            or not gamma.is_contiguous() or dev < 0):
+        _refuse_rms_norm(x, gamma)
     y = torch.empty_like(x)
-    rows = x.numel() // n if n else 0
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = built.lib.ds_rms_norm_fwd(x.data_ptr(), gamma.data_ptr(),
-                                         y.data_ptr(), rows, n, float(eps),
-                                         KERNEL_DTYPES[x.dtype], stream)
-    check_launch(built, "rms_norm", code)
+    err = bind("layer_norm", "ds_rms_norm_fwd", _RMS_FWD_ARGS)(
+        x.data_ptr(), gamma.data_ptr(), y.data_ptr(),
+        x.numel() // n if n else 0, n, eps, code, raw_stream(dev), dev)
+    if err:
+        check_launch(load_library("layer_norm"), "rms_norm", err)
     rms_norm.launches += 1
     return y
 
@@ -142,7 +161,7 @@ rms_norm_bwd.launches = 0   # backward calls (two kernel launches each)
 
 
 def _rms_norm_fwd(x, gamma, eps):
-    if use_kernel(x):
+    if x.is_cuda or use_kernel(x):
         return rms_norm_cuda(x, gamma, eps)
     return rms_norm_plain(x, gamma, eps)
 

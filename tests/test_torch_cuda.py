@@ -91,6 +91,51 @@ def test_rms_norm_kernel_refuses_bad_inputs(cuda_device):
         tln.rms_norm(x, torch.ones(32, device=cuda_device))
 
 
+def test_rms_norm_lean_path_keeps_every_refusal(cuda_device):
+    """The one-pass attribute test of the lean host path falls back on the
+    shared checks, so each refusal raises what it raised before: a
+    non-contiguous x or gamma, a gamma of another dtype or shape, a gamma
+    on the CPU beside a CUDA x, an x of no kernel dtype."""
+    x = torch.ones(4, 64, device=cuda_device, dtype=torch.bfloat16)
+    g = torch.ones(64, device=cuda_device, dtype=torch.bfloat16)
+    before = tln.rms_norm.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        tln.rms_norm(torch.ones(64, 4, device=cuda_device,
+                                dtype=torch.bfloat16).t(), g)
+    with pytest.raises(ValueError, match="contiguous"):
+        tln.rms_norm(x, torch.ones(64, 2, device=cuda_device,
+                                   dtype=torch.bfloat16)[:, 0])
+    with pytest.raises(TypeError, match="expected dtype"):
+        tln.rms_norm(x, g.float())
+    with pytest.raises(ValueError, match="gamma shape"):
+        tln.rms_norm(x, torch.ones(65, device=cuda_device, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="expected a tensor on"):
+        tln.rms_norm(x, g.cpu())
+    with pytest.raises(TypeError, match="not supported"):
+        tln.rms_norm(x.to(torch.int32), g.to(torch.int32))
+    assert tln.rms_norm.launches == before
+
+
+def test_rms_norm_launches_on_the_current_stream(cuda_device):
+    """Under torch.cuda.stream(s) the kernel goes to s: behind a long sleep
+    on s, x is written on s and normalised on s, so the output recorded on
+    s holds x's norm (on another stream the kernel would have read the
+    zeros that x held before)."""
+    src = _randn((8, 4096), 0, torch.bfloat16, cuda_device, 3.0)
+    g = _randn((4096,), 1, torch.bfloat16, cuda_device) * 0.1 + 1
+    x = torch.zeros_like(src)
+    torch.cuda.synchronize()
+    s = torch.cuda.Stream()
+    with torch.cuda.stream(s):
+        torch.cuda._sleep(50_000_000)
+        x.copy_(src)
+        y = _counted(tln.rms_norm, x, g, eps=1e-5)
+        done = s.record_event()
+    done.synchronize()
+    torch.testing.assert_close(y.float(), tln.rms_norm_plain(src, g, 1e-5).float(),
+                               rtol=TOL[torch.bfloat16], atol=TOL[torch.bfloat16])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(1, 32, 64, 128), (1, 8, 64, 128),
                                    (4, 16, 2048, 128), (1, 32, 17, 128),
@@ -1184,12 +1229,17 @@ def test_fused_proj_norm_int8_kernel_matches_plain(cuda_device, B, M, D, kind,
     _close(h, wh, GEMV_TOL[dt])
 
 
-@pytest.mark.parametrize("B,D,F,glu,bias,act", [
-    (8, 4096, 14336, True, False, "silu"),      # llama3-8b decode
-    (8, 1600, 6400, False, True, "gelu"),       # gpt2-xl decode
-    (3, 256, 200, True, True, "gelu_exact")])   # a ragged last tile
+@pytest.mark.parametrize("B", [1, 3, 8, 12])           # 12: two passes of 8
+@pytest.mark.parametrize("D,F,glu,bias,act", [
+    (4096, 14336, True, False, "silu"),         # llama3-8b decode
+    (1600, 6400, False, True, "gelu"),          # gpt2-xl decode
+    (256, 200, True, True, "gelu_exact"),       # ragged: F a multiple of 8 only
+    (200, 136, False, True, "relu")])           # and D too (8-byte copies)
 def test_fused_mlp_int8_kernel_matches_plain(cuda_device, B, D, F, glu, bias,
                                              act):
+    """The tensor-core kernels against the plain version (``_deq``, then
+    the bf16 products), bit-equal on a second call (split tiles are summed
+    in a fixed order)."""
     dt = torch.bfloat16
     h = _randn((B, D), 0, dt, cuda_device)
     r = _randn((B, D), 1, dt, cuda_device)
@@ -1206,6 +1256,38 @@ def test_fused_mlp_int8_kernel_matches_plain(cuda_device, B, D, F, glu, bias,
     _close(got, want, GEMV_TOL[dt])
     assert torch.equal(got, tdec.fused_mlp(h, r, wu, wd, wg, bu, bg, bd,
                                            act=act, wscales=(su, sg, sd)))
+
+
+def _profiled_kernels(fn):
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages() if e.self_device_time_total > 0]
+
+
+def test_fused_mlp_bodies_launch_their_own_kernels(cuda_device):
+    """bf16 weights run the FFMA kernels and count on fused_mlp; int8
+    weights run the tensor-core kernels and count on fused_mlp_int8_cuda;
+    neither launches the other's kernels."""
+    dev, dt = cuda_device, torch.bfloat16
+    h = _randn((8, 256), 0, dt, dev)
+    r = _randn((8, 256), 1, dt, dev)
+    wu, su = _int8_weight((256, 512), 2, dev)
+    wd, sd = _int8_weight((512, 256), 3, dev)
+    dense = [_randn(t.shape, 4, dt, dev, 0.05) for t in (wu, wd)]
+    n16, n8 = tdec.fused_mlp.launches, tdec.fused_mlp_int8_cuda.launches
+    names = _profiled_kernels(lambda: tdec.fused_mlp(h, r, *dense, act="relu"))
+    assert (tdec.fused_mlp.launches, tdec.fused_mlp_int8_cuda.launches) == (n16 + 1, n8)
+    assert any("mlp_act_kernel" in k for k in names)
+    assert not any("int8_mma" in k for k in names), names
+    names = _profiled_kernels(lambda: tdec.fused_mlp(
+        h, r, wu, wd, act="relu", wscales=(su, None, sd)))
+    assert (tdec.fused_mlp.launches, tdec.fused_mlp_int8_cuda.launches) == (n16 + 1, n8 + 1)
+    assert any("mlp_act_int8_mma_kernel" in k for k in names)
+    assert any("mlp_down_int8_mma_kernel" in k for k in names)
+    assert not any("mlp_act_kernel" in k or "mlp_down_kernel" in k for k in names), names
 
 
 def test_int8_decode_kernels_refuse_bad_inputs(cuda_device):

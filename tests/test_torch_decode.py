@@ -318,11 +318,16 @@ def test_fused_proj_norm_int8_matches_jax(impl, kind, parallel, with_bias):
 @pytest.mark.parametrize("impl", ["xla", "interpret"])
 @pytest.mark.parametrize("glu,act", [(True, "silu"), (False, "gelu")])
 @pytest.mark.parametrize("with_bias", [True, False])
-def test_fused_mlp_int8_matches_jax(impl, glu, act, with_bias):
+@pytest.mark.parametrize("B,F", [(3, 256), (1, 256), (8, 256), (12, 256),
+                                 (3, 200)])
+def test_fused_mlp_int8_matches_jax(impl, glu, act, with_bias, B, F):
     """(up, gate, down) codes and scales; the gate's scale is None without
-    a gate, as the JAX engine passes it."""
+    a gate, as the JAX engine passes it.  The rows the card tests give the
+    tensor-core kernels (1, a pass of 8, 12 = two passes) and a ragged F (a
+    multiple of 8 only), so the plain version those tests hold the kernels
+    to is itself held to the JAX ``fused_mlp``."""
     rng = np.random.default_rng(12)
-    B, D, F = 3, 128, 256
+    D = 128
     h = _rand(rng, B, D)
     r = _rand(rng, B, D)
     (jwu, jsu), (twu, tsu) = _q8_pair(*_int8(rng, D, F))
