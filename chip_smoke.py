@@ -13,9 +13,11 @@ Needs one CUDA card, nvcc and triton; imports nothing of JAX.  Phases
              LAMB phases), one nvcc each, started together, while
              Triton compiles the RoPE, softmax and bias_act kernels; print
              build seconds and the ptxas register / shared-memory / spill
-             lines (and any wgmma serialization warning), and the dynamic
-             shared memory a block of each wgmma flash kernel takes
-             (forward, dQ, dK/dV);
+             lines (and any wgmma serialization warning; each kernel by
+             its name and template arguments, the flash kernels' ALiBi
+             instances as ``*_alibi_kernel``), and the dynamic shared
+             memory a block of each wgmma flash kernel takes (forward, dQ,
+             dK/dV);
 2. kernels — each kernel against its plain PyTorch version at the serving
              path's shapes, fp32 and bf16, with the tolerances of TOL below
              (the flash-decode kernel at depths 1..1024 across page
@@ -33,11 +35,19 @@ Needs one CUDA card, nvcc and triton; imports nothing of JAX.  Phases
              ragged S, with bit-equal repeats of each backward, and the
              serving kernels at the training shapes (RMSNorm fwd on
              [8192, 2048], RoPE on [4, 16, 2048, 128] with sin and with
-             the backward's -sin); then the four training kernels'
-             timings beside SDPA, ``F.rms_norm``'s autograd backward and
-             torch's fused AdamW as yardsticks, with the device time of
-             the flash forward and of each of the backward's three
-             kernels (delta, dQ, dK/dV; also at gpt2-xl's shape);
+             the backward's -sin); then the flash kernels' ALiBi
+             instances against the plain version with the JAX ALiBi bias:
+             bloom-1b7's training shape [4, 16, 2048, 128] bf16, and 12
+             heads (interpolated slopes) at head dims 64 and 32 and a
+             ragged S, fp32 and bf16; timed at the training shape beside
+             the plain version and SDPA given the ALiBi + causal bias as a
+             float [1, H, S, S] mask (its forward; its backward; both),
+             with each kernel's device time; then the four training
+             kernels' timings beside SDPA, ``F.rms_norm``'s autograd
+             backward and torch's fused AdamW as yardsticks, with the
+             device time of the flash forward and of each of the
+             backward's three kernels (delta, dQ, dK/dV; also at
+             gpt2-xl's shape);
              then the four decode kernels again at gpt2-xl's shapes and
              branches ([8, 1600], LayerNorm with a bias, tanh-GeLU without
              a gate, 25 heads of 64 with one query head per KV head) and
@@ -82,9 +92,12 @@ Needs one CUDA card, nvcc and triton; imports nothing of JAX.  Phases
              ``init_inference(...).generate()`` (fp32 fused and unfused,
              int8 weights fused): the same tokens on both; the llama-tiny
              preset as it is (8 heads of 32: flash at head dim 32) trained
-             3 steps, card against CPU; then the llama-shaped model on
-             the new optimizer paths: FusedLamb and Adam8bit over fp32
-             masters, Adam8bit master-free bf16;
+             3 steps, card against CPU; a small BLOOM (ALiBi, 12 heads)
+             and a small GPT-NeoX (the parallel residual, rotary_pct 0.25),
+             each through ``config_from_hf``, trained 3 fp32 steps, card
+             against CPU; then the llama-shaped model on the new optimizer
+             paths: FusedLamb and Adam8bit over fp32 masters, Adam8bit
+             master-free bf16;
    ops     — the ops of the public kernel library that no model path
              calls, driven through the library's wrappers:
              ``scaled_masked_softmax`` with a causal mask and ``bias_act``
@@ -129,7 +142,15 @@ Needs one CUDA card, nvcc and triton; imports nothing of JAX.  Phases
              accumulator, Adam8bit; the optimizer state's bytes must equal
              the count from the leaf shapes and every master be bf16) and
              config B (``lamb_train``: FusedLamb over fp32 masters), each
-             with its peak memory beside the FusedAdam phase's;
+             with its peak memory beside the FusedAdam phase's; then
+             ``bloom_train``: bloom-1b7 (D 2048, 24 layers, 16 heads of
+             128, vocab 250880; 1.722B) built from its published
+             config.json through ``config_from_hf`` and
+             ``CausalLM(cfg, seed=0)``, at full width and depth, remat
+             ``mlp_dots``, with TRAIN_CONFIG at micro 4 x gas 2 x S 2048,
+             5 steps: every attention call through the ALiBi flash
+             kernels, launches equal to the plan; each train phase reports
+             the mean of steps 2-5 and the median of steps 3-5;
 6. report  — the card's name and power limit, the kernels JSON line, and
              last the result line ``{"ok": true, "device": {...}}``.
 """
@@ -209,6 +230,26 @@ def cycler(items):
     return nxt
 
 
+def kernel_label(entry):
+    """A mangled entry name as ``name<args>`` (the template's ints and
+    bools), for the ptxas lines; the first 70 characters if it does not
+    parse."""
+    m = re.match(r"_ZN(\d+)", entry)
+    if m is None:
+        return entry[:70]
+    rest = entry[m.end() + int(m.group(1)):]      # past the namespace
+    m = re.match(r"(\d+)", rest)
+    if m is None:
+        return entry[:70]
+    n = int(m.group(1))
+    name, args = rest[m.end():m.end() + n], rest[m.end() + n:]
+    targs = []
+    if args.startswith("I"):
+        for kind, val in re.findall(r"L([ib])(\d+)E", args.split("EE")[0] + "E"):
+            targs.append(val if kind == "i" else ("true" if val == "1" else "false"))
+    return f"{name}<{', '.join(targs)}>" if targs else name
+
+
 def phase_build(torch, dev):
     from deepspeed_tpu_torch.ops.kernels import build
     from deepspeed_tpu_torch.ops.kernels import rope, softmax
@@ -242,6 +283,7 @@ def phase_build(torch, dev):
     ops_s = time.perf_counter() - t1
     for th in threads:
         th.join()
+    flash_ptxas = {}   # the wgmma flash kernels' ptxas lines, by name<D>
     for name in libs:
         if isinstance(results[name], Exception):
             raise results[name]
@@ -258,9 +300,12 @@ def phase_build(torch, dev):
             elif "spill stores" in ln:
                 m = re.search(r"(\d+) bytes spill stores", ln)
                 if m and int(m.group(1)):
-                    spilled.append(f"{entry[:60]}: {ln}")
+                    spilled.append(f"{kernel_label(entry)}: {ln}")
             elif "Used" in ln and (name != "decode" or "bfloat16" in entry):
-                print(f"  ptxas: {entry[:70]}: {ln.split(':', 1)[1].strip()}")
+                used = ln.split(":", 1)[1].strip()
+                print(f"  ptxas: {kernel_label(entry)}: {used}")
+                if name == "flash_attention" and "wgmma" in entry:
+                    flash_ptxas[kernel_label(entry)] = used
         print(f"  ptxas: {n_entries} entry functions, {len(spilled)} spill"
               + "".join(f"\n  ptxas spill: {s}" for s in spilled))
         for ln in lib.ptxas_info:
@@ -276,6 +321,7 @@ def phase_build(torch, dev):
     out = {name: results[name + "_s"] for name in libs}
     out["rope"] = triton_s
     out["softmax"] = ops_s
+    out["flash_ptxas"] = flash_ptxas
     return out
 
 
@@ -1036,41 +1082,49 @@ def _rel_err(got, want):
                  / max(float(want.float().norm()), 1.0))
 
 
-def _lse_plain(torch, q, k, scale):
+def _lse_plain(torch, q, k, scale, bias=None):
     S = q.shape[-2]
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if bias is not None:
+        logits = logits + bias
     mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
     return torch.logsumexp(logits.masked_fill(~mask, -1e30), -1)
 
 
-def check_flash(torch, dev, gen, dtype_name, shape):
+def check_flash(torch, dev, gen, dtype_name, shape, alibi=False):
     """Flash fwd (o, lse) and bwd (dq, dk, dv) against mha_reference and
-    its autograd on the same inputs; two backward calls must give the same
-    bits.  Returns (o max abs err, grads max abs err, grads max rel err)."""
+    its autograd on the same inputs (under ``alibi`` the ALiBi instances
+    against the reference with the JAX ALiBi bias); two backward calls must
+    give the same bits.  Returns (o max abs err, o relative err, grads max
+    abs err, grads max rel err)."""
     from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
 
+    fwd = fa.flash_fwd_alibi_cuda if alibi else fa.flash_fwd_cuda
+    bwd = fa.flash_attention_bwd_alibi if alibi else fa.flash_attention_bwd
+    what = f"flash{' alibi' if alibi else ''}"
     dt = getattr(torch, dtype_name)
     q, k, v, do = (_randn(torch, shape, gen, dev).to(dt) for _ in range(4))
     scale = shape[-1] ** -0.5
-    o, lse = fa.flash_fwd_cuda(q, k, v, True, scale)
+    bias = fa._alibi_ref_bias(q, k, alibi)
+    o, lse = fwd(q, k, v, True, scale)
     torch.cuda.synchronize()
-    want_o = fa.mha_reference(q, k, v)
+    want_o = fa.mha_reference(q, k, v, bias=bias)
     e_o = _assert_close(torch, o, want_o, ATTN_TOL[dtype_name],
-                        f"flash fwd o {dtype_name} {shape}")
+                        f"{what} fwd o {dtype_name} {shape}")
     rel_o = _rel_err(o, want_o)
-    check(rel_o < O_REL_TOL[dtype_name], f"flash fwd o {dtype_name} {shape}: "
+    check(rel_o < O_REL_TOL[dtype_name], f"{what} fwd o {dtype_name} {shape}: "
           f"relative error {rel_o}")
-    _assert_close(torch, lse, _lse_plain(torch, q, k, scale), 1e-4,
-                  f"flash fwd lse {dtype_name} {shape}")
-    grads = fa.flash_attention_bwd(q, k, v, o, lse, do, True, scale)
-    again = fa.flash_attention_bwd(q, k, v, o, lse, do, True, scale)
+    _assert_close(torch, lse, _lse_plain(torch, q, k, scale, bias), 1e-4,
+                  f"{what} fwd lse {dtype_name} {shape}")
+    grads = bwd(q, k, v, o, lse, do, True, scale)
+    again = bwd(q, k, v, o, lse, do, True, scale)
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(grads, again)),
-          f"flash bwd {dtype_name} {shape}: two calls differ")
-    ref = [t.float().requires_grad_() for t in (q, k, v)]
-    fa.mha_reference(*ref).backward(do.float())
+          f"{what} bwd {dtype_name} {shape}: two calls differ")
+    ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    fa.mha_reference(*ref, bias=bias).backward(do.float())
     rel = [_rel_err(g, r.grad) for g, r in zip(grads, ref)]
-    check(max(rel) < GRAD_TOL[dtype_name], f"flash bwd {dtype_name} {shape}: "
+    check(max(rel) < GRAD_TOL[dtype_name], f"{what} bwd {dtype_name} {shape}: "
           f"relative errors dq/dk/dv {rel}")
     e_g = max(float((g.float() - r.grad).abs().max()) for g, r in zip(grads, ref))
     return e_o, rel_o, e_g, max(rel)
@@ -1161,11 +1215,42 @@ def check_train_kernels(torch, dev, gen):
     return errs
 
 
+def check_alibi_flash(torch, dev, gen):
+    """The ALiBi instances of the flash kernels against their plain version:
+    bloom-1b7's training shape [4, 16, 2048, 128] in bf16, and 12 heads
+    (slopes that interpolate) at head dims 64 and 32 and a ragged S, fp32
+    and bf16; bf16 max abs errors at the training shape."""
+    errs = {}
+    for dtype_name, shape in (("bfloat16", (TB, TH, TS, TDH)),
+                              ("float32", (2, 12, 200, 64)),
+                              ("bfloat16", (2, 12, 200, 64)),
+                              ("float32", (2, 12, 333, 32)),
+                              ("bfloat16", (2, 12, 333, 32))):
+        e_o, rel_o, e_g, rel = check_flash(torch, dev, gen, dtype_name, shape,
+                                           alibi=True)
+        print(f"alibi kernels: flash {dtype_name} {list(shape)}: o max abs err "
+              f"{e_o:.3g}, relative (Frobenius) {rel_o:.3g}; dq/dk/dv max abs "
+              f"err {e_g:.3g}, max relative (Frobenius) {rel:.3g}")
+        if shape == (TB, TH, TS, TDH):
+            errs["flash_attention_fwd_alibi"] = e_o
+            errs["flash_attention_bwd_alibi"] = e_g
+        else:   # (o, grads) max abs errors
+            key = f"d{shape[-1]}_s{shape[2]}_{dtype_name}"
+            errs.setdefault("alibi_h12", {})[key] = [e_o, e_g]
+    torch.cuda.empty_cache()
+    return errs
+
+
 # the flash kernels by the names the profiler shows: the forward; the
-# backward's delta pre-pass, dQ and dK/dV
+# backward's dQ, delta pre-pass and dK/dV (dQ first: the call count is read
+# from the first, and the pre-pass is shared with the ALiBi instances)
 FLASH_KERNELS = {"fwd": ("flash_fwd_wgmma_kernel",),
-                 "bwd": ("flash_bwd_delta_kernel", "flash_bwd_dq_wgmma_kernel",
-                         "flash_bwd_dkv_wgmma_kernel")}
+                 "bwd": ("flash_bwd_dq_wgmma_kernel", "flash_bwd_delta_kernel",
+                         "flash_bwd_dkv_wgmma_kernel"),
+                 "fwd_alibi": ("flash_fwd_wgmma_alibi_kernel",),
+                 "bwd_alibi": ("flash_bwd_dq_wgmma_alibi_kernel",
+                               "flash_bwd_delta_kernel",
+                               "flash_bwd_dkv_wgmma_alibi_kernel")}
 
 
 def kernel_split(torch, call, names, what):
@@ -1290,6 +1375,89 @@ def time_train_kernels(torch, dev, gen, errs):
         "library_ms": time_ms(torch, lib_opt.step, samples=20, inner=5),
         "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": errs["fused_adam"]}
     del p, gr, m, v, lp, lib_opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def alibi_causal_mask(torch, H, S, dev, dtype):
+    """ALiBi's bias with the causal mask as one float [1, H, S, S] tensor
+    (-inf above the diagonal): what SDPA takes as ``attn_mask``."""
+    from deepspeed_tpu_torch.models.layers import alibi_bias
+
+    pos = torch.arange(S, device=dev)
+    bias = alibi_bias(H, pos, pos)[None]
+    keep = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
+    return bias.masked_fill(~keep, float("-inf")).to(dtype)
+
+
+def time_alibi_flash(torch, dev, gen, errs):
+    """The ALiBi flash kernels at bloom-1b7's training shape [4, 16, 2048,
+    128] bf16, causal: the call beside the plain version and SDPA given the
+    ALiBi + causal bias as a float mask (the library's nearest call; timed
+    only), forward and forward + backward, with each kernel's device time.
+    The bound is the non-ALiBi rows' (the same products; the bias is
+    elementwise work under them)."""
+    import torch.nn.functional as F_
+
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+
+    bf = torch.bfloat16
+    shape = (TB, TH, TS, TDH)
+    q, k, v, do = (_randn(torch, shape, gen, dev).to(bf) for _ in range(4))
+    scale = TDH ** -0.5
+    bias = fa._alibi_ref_bias(q, k, True)
+    mask = alibi_causal_mask(torch, TH, TS, dev, bf)
+    causal_pairs = TB * TH * TS * (TS + 1) // 2
+    fwd_flops = 4 * causal_pairs * TDH
+    out = {}
+    b_ms, b_by = bound_ms(4 * q.numel() * 2 + TB * TH * TS * 4, fwd_flops,
+                          BF16_FLOPS_PER_S)
+    out["flash_attention_fwd_alibi"] = {
+        "shape": "q, k, v [4,16,2048,128] bf16, causal, ALiBi",
+        "ms": time_ms(torch, lambda: fa.flash_fwd_alibi_cuda(q, k, v, True, scale),
+                      samples=20, inner=10),
+        "plain_ms": time_ms(torch, lambda: fa.mha_reference(q, k, v, bias=bias),
+                            samples=5, inner=3, warmup=2),
+        "library_ms": time_ms(torch, lambda: F_.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask), samples=20, inner=10),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "max_abs_err": errs["flash_attention_fwd_alibi"],
+        "device_us_split": flash_split(torch, lambda: fa.flash_fwd_alibi_cuda(
+            q, k, v, True, scale), "fwd_alibi", "[4,16,2048,128]")}
+    o, lse = fa.flash_fwd_alibi_cuda(q, k, v, True, scale)
+    b_ms, b_by = bound_ms(8 * q.numel() * 2 + TB * TH * TS * 4,
+                          2.5 * fwd_flops, BF16_FLOPS_PER_S)
+    ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    ref_out = fa.mha_reference(*ref, bias=bias)
+    lib = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    lib_out = F_.scaled_dot_product_attention(*lib, attn_mask=mask)
+
+    def library_fwd_bwd():
+        y = F_.scaled_dot_product_attention(*lib, attn_mask=mask)
+        return torch.autograd.grad(y, lib, do)
+    out["flash_attention_bwd_alibi"] = {
+        "shape": "q, k, v, o, do [4,16,2048,128] bf16, causal, ALiBi (three "
+                 "launches: delta, dQ, dK/dV)",
+        "ms": time_ms(torch, lambda: fa.flash_attention_bwd_alibi(
+            q, k, v, o, lse, do, True, scale), samples=20, inner=5),
+        "plain_ms": time_ms(torch, lambda: torch.autograd.grad(
+            ref_out, ref, do.float(), retain_graph=True), samples=5, inner=3,
+            warmup=2),
+        "library_ms": time_ms(torch, lambda: torch.autograd.grad(
+            lib_out, lib, do, retain_graph=True), samples=20, inner=5),
+        # forward and backward together, the kernels' and SDPA's
+        "library_fwd_bwd_ms": time_ms(torch, library_fwd_bwd, samples=20,
+                                      inner=5),
+        "fwd_bwd_ms": time_ms(torch, lambda: (fa.flash_fwd_alibi_cuda(
+            q, k, v, True, scale), fa.flash_attention_bwd_alibi(
+            q, k, v, o, lse, do, True, scale)), samples=20, inner=5),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "max_abs_err": errs["flash_attention_bwd_alibi"],
+        "device_us_split": flash_split(torch, lambda: fa.flash_attention_bwd_alibi(
+            q, k, v, o, lse, do, True, scale), "bwd_alibi", "[4,16,2048,128]")}
+    for name in out:
+        out[name]["max_abs_err_h12"] = errs["alibi_h12"]
+    del q, k, v, do, o, lse, ref, ref_out, lib, lib_out, bias, mask
     torch.cuda.empty_cache()
     return out
 
@@ -1772,6 +1940,7 @@ def phase_kernels(torch, dev):
     errs.update(check_decode_kernels(torch, dev, gen, "llama3-8b"))
     gpt2_decode = check_decode_kernels(torch, dev, gen, "gpt2-xl")
     errs.update(check_train_kernels(torch, dev, gen))
+    errs.update(check_alibi_flash(torch, dev, gen))
     errs.update(check_gpt2_kernels(torch, dev, gen))
     errs.update(check_optimizer_kernels(torch, dev, gen))
     errs["flash_decode_contig"] = check_contig_decode(torch, dev, gen)
@@ -1779,6 +1948,7 @@ def phase_kernels(torch, dev):
     out = time_old_kernels(torch, dev, gen, errs)
     out.update(time_decode_kernels(torch, dev, gen, errs))
     out.update(time_train_kernels(torch, dev, gen, errs))
+    out.update(time_alibi_flash(torch, dev, gen, errs))
     out.update(time_gpt2_kernels(torch, dev, gen, errs))
     out.update(time_optimizer_kernels(torch, dev, gen, errs))
     out.update(time_generate_kernels(torch, dev, gen, errs))
@@ -1886,7 +2056,8 @@ KERNELS = ("rms_norm", "rope", "fused_norm_qkv", "flash_decode",
            "layer_norm", "layer_norm_bwd", "scaled_masked_softmax", "bias_act",
            "quantize", "fused_adam8bit", "fused_lamb_phase1", "fused_lamb_scale",
            "flash_decode_contig", "fused_norm_qkv_int8", "fused_proj_norm_int8",
-           "fused_mlp_int8")
+           "fused_mlp_int8", "flash_attention_fwd_alibi",
+           "flash_attention_bwd_alibi")
 
 
 def launch_counters():
@@ -1917,7 +2088,9 @@ def launch_counters():
             "flash_decode_contig": dk.flash_decode_contig_cuda,
             "fused_norm_qkv_int8": dk.fused_norm_qkv_int8_cuda,
             "fused_proj_norm_int8": dk.fused_proj_norm_int8_cuda,
-            "fused_mlp_int8": dk.fused_mlp_int8_cuda}
+            "fused_mlp_int8": dk.fused_mlp_int8_cuda,
+            "flash_attention_fwd_alibi": fa.flash_fwd_alibi_cuda,
+            "flash_attention_bwd_alibi": fa.flash_attention_bwd_alibi}
 
 
 def zero_counts():
@@ -2502,7 +2675,43 @@ def phase_int8_serve(torch, model, prompts):
 
 # the train cells: preset -> (micro batch, sequence length); 16384 tokens a
 # step each with gas 2
-TRAIN_CELLS = {"llama-1b4": (4, 2048), "gpt2-xl": (8, 1024)}
+TRAIN_CELLS = {"llama-1b4": (4, 2048), "gpt2-xl": (8, 1024),
+               "bloom-1b7": (4, 2048)}
+# bloom-1b7's published config.json (bigscience/bloom-1b7 on the HF hub;
+# BigScience BLOOM, arXiv 2211.05100 Table 3): D 2048, 24 layers, 16 heads
+# of 128, the padded vocabulary; config_from_hf maps it to ALiBi, the
+# embedding LayerNorm, biases, LayerNorm, tanh GeLU, F = 4 D, a tied head
+BLOOM_1B7 = {"model_type": "bloom", "n_embed": 2048, "n_layer": 24,
+             "n_head": 16, "vocab_size": 250880, "layer_norm_epsilon": 1e-5,
+             "hidden_dropout": 0.0, "attention_dropout": 0.0}
+
+
+def config_through_hf(hf):
+    """The port's ModelConfig of a HF config.json written with ``hf``: the
+    path a user takes with a checkpoint, without weights."""
+    import os
+    import tempfile
+
+    from deepspeed_tpu_torch.module_inject import config_from_hf
+
+    with tempfile.TemporaryDirectory() as d:
+        with open(os.path.join(d, "config.json"), "w") as fh:
+            json.dump(hf, fh)
+        return config_from_hf(d)
+
+
+def train_model(preset, seed=0):
+    """A train cell's model on the card, random weights from ``seed``:
+    bloom-1b7 through config_from_hf (remat ``mlp_dots``, as llama-1b4),
+    the others from their preset."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.transformer import CausalLM
+
+    if preset != "bloom-1b7":
+        return deepspeed_tpu_torch.causal_lm(preset, seed=seed)
+    cfg = config_through_hf(BLOOM_1B7)
+    cfg.remat, cfg.remat_policy = True, "mlp_dots"
+    return CausalLM(cfg, seed=seed)
 TRAIN_CONFIG = {
     "train_micro_batch_size_per_gpu": 4, "gradient_accumulation_steps": 2,
     "bf16": {"enabled": True},
@@ -2557,24 +2766,29 @@ def adam8bit_state_bytes(optimizer):
 
 def train_plan(cfg, micros, steps, optimizer):
     """Launches a training run must make.  Per micro-batch: 2L+1 norm
-    forwards (RMSNorm or LayerNorm) and as many backwards, L flash forward
-    and L flash backward calls and, for a RoPE model, 2L RoPE forwards and
-    2L backwards (the same kernel).  Remat adds forwards in the backward:
-    the MLP policies recompute the MLP's norm (+L norm forwards), the
-    whole-layer policies run the layer's forward again up to its last
-    saved tensor (+2L norm forwards, +L flash forwards, +2L RoPEs).  The
-    optimizer's launches as ``optimizer_plan`` counts them; no decode
-    kernel."""
+    forwards (RMSNorm or LayerNorm) and as many backwards, one more of each
+    (a LayerNorm) for BLOOM's embedding norm, L flash forward and L flash
+    backward calls (the ALiBi instances for an ALiBi model) and, for a RoPE
+    model, 2L RoPE forwards and 2L backwards (the same kernel).  Remat adds
+    forwards in the backward: the MLP policies recompute the MLP's norm (+L
+    norm forwards), the whole-layer policies run the layer's forward again
+    up to its last saved tensor (+2L norm forwards, +L flash forwards, +2L
+    RoPEs).  The optimizer's launches as ``optimizer_plan`` counts them; no
+    decode kernel."""
     L = cfg.num_layers
     mlp = bool(cfg.remat) and cfg.remat_policy in ("mlp_only", "mlp_dots")
     full = bool(cfg.remat) and not mlp
     rope = cfg.position == "rope"
+    flash = "flash_attention_{}_alibi" if cfg.position == "alibi" else "flash_attention_{}"
     plan = {k: 0 for k in KERNELS}
     plan[norm_kernel(cfg)] = (2 * L + 1 + L * mlp + 2 * L * full) * micros
     plan[norm_kernel(cfg) + "_bwd"] = (2 * L + 1) * micros
-    plan.update(rope=(4 * L + 2 * L * full) * micros * rope,
-                flash_attention_fwd=(L + L * full) * micros,
-                flash_attention_bwd=L * micros)
+    if cfg.embed_norm:
+        plan["layer_norm"] += micros
+        plan["layer_norm_bwd"] += micros
+    plan.update({"rope": (4 * L + 2 * L * full) * micros * rope,
+                 flash.format("fwd"): (L + L * full) * micros,
+                 flash.format("bwd"): L * micros})
     plan.update(optimizer_plan(optimizer, steps))
     return plan
 
@@ -2652,6 +2866,62 @@ def phase_preset_train_reference(torch, dev):
           f"{cfg_m.head_dim}, V {cfg_m.vocab_size}, S 200) trained 3 fp32 "
           f"steps, card == CPU: losses {lg} vs {lc}, weights max abs diff "
           f"{diff:.3g}")
+
+
+# small fp32 models of the families the HF import brings to training: a
+# BLOOM (ALiBi with 12 heads, whose slopes interpolate; the embedding
+# LayerNorm; biases) and a GPT-NeoX (the parallel residual, rotary_pct 0.25)
+SMALL_HF = {
+    "bloom": {"model_type": "bloom", "n_embed": 384, "n_layer": 2,
+              "n_head": 12, "vocab_size": 1024},
+    "gpt_neox": {"model_type": "gpt_neox", "hidden_size": 256,
+                 "intermediate_size": 512, "num_hidden_layers": 2,
+                 "num_attention_heads": 4, "vocab_size": 1024,
+                 "max_position_embeddings": 512, "rotary_pct": 0.25,
+                 "use_parallel_residual": True, "hidden_act": "gelu"}}
+
+
+def phase_hf_train_reference(torch, dev):
+    """A small BLOOM and a small GPT-NeoX (each through config_from_hf,
+    remat ``mlp_dots``) trained 3 fp32 steps on the card (kernels, TF32 off;
+    BLOOM's attention through the ALiBi instances) and on the CPU from the
+    same weights and tokens: the bounds of phase_train_reference."""
+    import numpy as np
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.transformer import CausalLM
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dict(TRAIN_CONFIG, bf16={"enabled": False},
+               train_micro_batch_size_per_gpu=2)
+    tok = np.random.default_rng(0).integers(0, 1024, (4, 200))   # ragged S
+    for arch, hf in SMALL_HF.items():
+        mcfg = config_through_hf(hf)
+        mcfg.remat, mcfg.remat_policy = True, "mlp_dots"
+        counter = fa.flash_fwd_alibi_cuda if arch == "bloom" else fa.flash_attention
+        runs = {}
+        for d in ("cpu", dev):
+            engine, *_ = deepspeed_tpu_torch.initialize(
+                model=CausalLM(mcfg, device="cpu", seed=0), config=cfg, device=d)
+            before = counter.launches
+            losses = [float(engine.train_step((tok, tok))) for _ in range(3)]
+            check((counter.launches > before) == (d != "cpu"),
+                  f"{arch}: the card run did not launch its flash kernel")
+            runs[str(d)] = (losses, [p.cpu() for p in engine.master])
+        (lc, pc), (lg, pg) = runs["cpu"], runs[str(dev)]
+        check(all(math.isfinite(x) for x in lg) and lg[-1] < lg[0],
+              f"{arch}: card losses {lg}")
+        for a, b in zip(lc, lg):
+            check(abs(a - b) <= 1e-4 * abs(a), f"{arch}: card vs CPU losses "
+                  f"{lg} vs {lc}")
+        diff = max(float((a - b).abs().max()) for a, b in zip(pc, pg))
+        check(diff <= 1e-4, f"{arch}: card vs CPU weights differ by {diff}")
+        print(f"reference: small fp32 {arch} through config_from_hf (L "
+              f"{mcfg.num_layers}, D {mcfg.hidden_size}, {mcfg.num_heads} heads "
+              f"of {mcfg.head_dim}, {mcfg.position} positions, parallel "
+              f"residual {mcfg.parallel_residual}, S 200) trained 3 steps, card "
+              f"== CPU: losses {lg} vs {lc}, weights max abs diff {diff:.3g}")
 
 
 def phase_optimizer_reference(torch, dev):
@@ -2732,7 +3002,7 @@ def phase_train(torch, dev, preset, name="train", section=None, peaks=None):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    model = deepspeed_tpu_torch.causal_lm(preset, seed=0)
+    model = train_model(preset)
     cfg = model.config
     micro, S = TRAIN_CELLS[preset]
     L, gas = cfg.num_layers, 2
@@ -2748,7 +3018,8 @@ def phase_train(torch, dev, preset, name="train", section=None, peaks=None):
     master = str(engine.master_dtype).replace("torch.", "")
     print(f"{name}: {preset} D={cfg.hidden_size} L={L} H={cfg.num_heads} "
           f"F={cfg.intermediate_size} V={cfg.vocab_size} tied, {cfg.norm}, "
-          f"{cfg.position} positions, remat {cfg.remat_policy}; "
+          f"{cfg.position} positions, embed_norm {cfg.embed_norm}, bias "
+          f"{cfg.use_bias}, {cfg.activation}, remat {cfg.remat_policy}; "
           f"{n_params / 1e9:.4f}B {master} params in "
           f"{len(engine.master)} leaves, {type(opt).__name__}, bf16 compute, "
           f"{str(engine.grad_accum_dtype).replace('torch.', '')} accumulator, "
@@ -2785,6 +3056,7 @@ def phase_train(torch, dev, preset, name="train", section=None, peaks=None):
               f"{master}")
     tokens_per_step = gas * micro * S
     steady = statistics.mean(x[3] for x in steps[1:])
+    median = statistics.median(x[3] for x in steps[2:])
     attn_flops = 6 * L * gas * micro * cfg.num_heads * S * S * cfg.head_dim
     flops = 6 * n_params * tokens_per_step + attn_flops
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
@@ -2792,9 +3064,11 @@ def phase_train(torch, dev, preset, name="train", section=None, peaks=None):
         peaks[name] = peak
     beside = (f" (FusedAdam phase: {peaks['train']:.2f} GiB)"
               if peaks and name != "train" and "train" in peaks else "")
-    print(f"{name}: steady step (steps 2-5) {steady:.4f}s, "
+    print(f"{name}: steady step (mean of steps 2-5) {steady:.4f}s, "
           f"{tokens_per_step / steady:.1f} tokens/s, MFU "
-          f"{100 * flops / steady / BF16_FLOPS_PER_S:.2f}% (6N + attention "
+          f"{100 * flops / steady / BF16_FLOPS_PER_S:.2f}%; median of steps "
+          f"3-5 {median:.4f}s, {tokens_per_step / median:.1f} tokens/s, MFU "
+          f"{100 * flops / median / BF16_FLOPS_PER_S:.2f}% (6N + attention "
           f"{flops / 1e12:.1f} TFLOP per step over 989 TFLOP/s; recomputed "
           f"forwards not counted), peak device "
           f"memory {peak:.2f} GiB{beside}; launches {launches}")
@@ -2871,6 +3145,8 @@ def phase_train_profile(torch, engine, tokens):
             "layer_norm_bwd": ("layer_norm_bwd_kernel", "rms_dg_reduce_kernel"),
             "flash_attention_fwd": FLASH_KERNELS["fwd"],
             "flash_attention_bwd": FLASH_KERNELS["bwd"],
+            "flash_attention_fwd_alibi": FLASH_KERNELS["fwd_alibi"],
+            "flash_attention_bwd_alibi": FLASH_KERNELS["bwd_alibi"],
             "fused_adam": ("adam_kernel",),
             "fused_adam8bit": ("adam8bit_kernel",),
             "fused_lamb_phase1": ("lamb_phase1_kernel", "lamb_reduce_kernel"),
@@ -2946,12 +3222,21 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    phase_build(torch, dev)
+    flash_ptxas = phase_build(torch, dev)["flash_ptxas"]
     timings = phase_kernels(torch, dev)
+    for name, tag in (("flash_attention_fwd", "flash_fwd_wgmma_kernel"),
+                      ("flash_attention_bwd", "flash_bwd_d"),
+                      ("flash_attention_fwd_alibi", "flash_fwd_wgmma_alibi_kernel"),
+                      ("flash_attention_bwd_alibi", "wgmma_alibi_kernel")):
+        timings[name]["ptxas"] = {
+            k: v for k, v in flash_ptxas.items() if tag in k
+            and ("alibi" in k) == name.endswith("alibi") and
+            ("bwd" in k) == ("bwd" in name)}
     for preset, policy in (("llama-tiny", "mlp_dots"), ("gpt2-small", "full")):
         phase_reference(torch, dev, preset)
         phase_train_reference(torch, dev, preset, policy)
     phase_preset_train_reference(torch, dev)
+    phase_hf_train_reference(torch, dev)
     phase_optimizer_reference(torch, dev)
     # each path: (launch counts of its run, device ms per call in its profile)
     peaks = {}
@@ -2966,7 +3251,9 @@ def main() -> int:
                                           "adam8bit_train", ADAM8BIT_CONFIG,
                                           peaks),
             "lamb_train": phase_train(torch, dev, "llama-1b4", "lamb_train",
-                                      LAMB_CONFIG, peaks)}
+                                      LAMB_CONFIG, peaks),
+            "bloom_train": phase_train(torch, dev, "bloom-1b7", "bloom_train",
+                                       peaks=peaks)}
     ident = gpu_identity()
     src = "deepspeed_tpu_torch/csrc/decode.cu"
     fa_src = "deepspeed_tpu_torch/csrc/flash_attention.cu"
@@ -3020,6 +3307,12 @@ def main() -> int:
          "fused_proj_norm (quant=True)", "generate_int8"),
         ("fused_mlp_int8", "cuda", src, "decode.py:546",
          "fused_mlp (quant=True)", "generate_int8"),
+        ("flash_attention_fwd_alibi", "cuda", fa_src, "flash_attention.py:149",
+         "_flash_fwd (alibi=True: the bias at :111-112, pallas_call :161)",
+         "bloom_train"),
+        ("flash_attention_bwd_alibi", "cuda", fa_src, "flash_attention.py:283",
+         "_flash_bwd (alibi=True: dQ :217-218, pallas_call :301; dK/dV "
+         ":263-264, pallas_call :319)", "bloom_train"),
     ]
     check([row[0] for row in table] == list(KERNELS), "kernel table out of step")
     kernels = []
@@ -3047,7 +3340,8 @@ def main() -> int:
                       "train_ms", "train_bound_ms", "device_us_split",
                       "public_ms", "host_us", "train_library_ms", "gpt2_ms",
                       "gpt2_plain_ms", "gpt2_bound_ms", "gpt2_device_us_split",
-                      "ptxas"):
+                      "ptxas", "library_fwd_bwd_ms", "fwd_bwd_ms",
+                      "max_abs_err_h12"):
             if extra in t:
                 k[extra] = t[extra]
         check(all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms",

@@ -14,11 +14,14 @@ kernels per layer (fused norm+QKV, flash-decode attention over the paged
 pool or the contiguous cache, out-projection+residual+norm, fused MLP; int8
 weights dequantized inside the three GEMV kernels); ``use_fused_decode: False``
 keeps the unfused path.  Prefill runs RMSNorm (CUDA C++) and RoPE
-(Triton).  It trains the Llama family on one card through
-:func:`initialize` (the standard path: bf16 compute, fp32 masters,
+(Triton).  It trains on one card through :func:`initialize` (the Llama
+and GPT-2 presets, and BLOOM, GPT-NeoX or GPT-J imported from a
+HuggingFace checkpoint by :mod:`deepspeed_tpu_torch.module_inject`; the
+standard path: bf16 compute, fp32 masters,
 gradient accumulation, clipping, FusedAdam, Adam8bit or FusedLamb; or
 master-free bf16 with Adam8bit's stochastic rounding), with RMSNorm and
-RoPE forward and backward, flash attention forward and backward and the
+RoPE forward and backward, flash attention forward and backward (with
+ALiBi for BLOOM) and the
 fused Adam, Adam8bit and LAMB updates as hand-written kernels; the op
 library adds softmax, bias_act and the block quantizer.  ROADMAP.md lists
 what comes next.

@@ -5,10 +5,24 @@
 // `_fwd_kernel`) and `_flash_bwd` (delta outside the kernels, then the
 // kernels `_bwd_dq_kernel` and `_bwd_dkv_kernel`).
 //
-//   forward:  o = softmax(q k^T * scale, causal) v, lse = m + log(l)   [B*H, S]
+//   forward:  o = softmax(q k^T * scale [+ bias], causal) v,
+//             lse = m + log(l)   [B*H, S]
 //   backward: delta = rowsum(do * o) (a pre-pass, read by both launches)
 //             p = exp(s - lse); ds = p * (do v^T - delta) * scale
 //             dq = ds k;  dk = ds^T q;  dv = p^T do
+//
+// ALiBi (the Pallas kernels' `alibi` branch, and BLOOM's positions): the
+// bias slope_h * (col - row) is added to the scaled logits before the causal
+// mask, causal or not, in all three kernels (s above is then the biased
+// logit).  The slopes are an fp32 [H] table; grid row b * H + h reads slope
+// h (JAX tiles them over B).  Each kernel takes it as a template flag, so
+// the instances without it compile to the same code as before, and the
+// bf16 instances with it have names of their own (`*_alibi_kernel`) for the
+// profiler.  The bias varies along a row, so the forward forms the biased
+// logit in log2 units first, t = s scale log2(e) + slope log2(e) (col - row),
+// and takes the running max over t; the backward forms s scale + slope
+// (col - row) and recomputes p against the natural-log lse.  Either needs
+// col - row on every tile, not only on the tiles that are masked.
 //
 // Numerics follow the Pallas kernels: scores in fp32 times `scale`, masked
 // entries set to NEG_INF = -1e30 (not -inf), an online softmax with
@@ -484,13 +498,14 @@ __device__ __forceinline__ uint32_t aligned_smem(unsigned char* raw) {
 // j - 1 (RS, v read MN-major), so tile j's softmax runs under tile j - 1's
 // p v and under the other warpgroup's products.  Scores are carried in
 // log2 units (s scale log2(e), one FMA before exp2); lse is written in
-// natural log.
+// natural log.  Under ALiBi (kAlibi) the scores are biased and scaled
+// before the max: t = s scale log2(e) + slope log2(e) (col - row).
 // ---------------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, bf16* __restrict__ o,
-                       float* __restrict__ lse, int S, float scale, int causal) {
+template <int D, bool kAlibi>
+__device__ __forceinline__ void flash_fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                                const bf16* __restrict__ v, bf16* __restrict__ o,
+                                                float* __restrict__ lse, int S, float scale, int causal,
+                                                const float* __restrict__ slopes, int H) {
   using L = Sw<D>;
   constexpr uint32_t kRes = kRows * D * 2, kStr = kTile * D * 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -528,6 +543,11 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int ra = qw + warp * 16 + (lane >> 2), rb = ra + 8;
   const float sl2 = scale * kLog2e;
+  // what the max and the exponent take s times: sl2 on raw scores, 1 on
+  // ALiBi's t, which is scaled already
+  const float mul = kAlibi ? 1.f : sl2;
+  float al2 = 0.f;   // ALiBi's slope in log2 units
+  if constexpr (kAlibi) al2 = slopes[blockIdx.y % H] * kLog2e;
   float acc[L::kAtoms][L::kAW / 2];
   zero_acc<D>(acc);
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;   // m in log2 units
@@ -551,6 +571,13 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // the online softmax of tile j: s becomes p; m, l and alpha move
   auto softmax = [&](float (&s)[32], int j) {
     const int k0 = j * kTile;
+    if constexpr (kAlibi) {   // t on every tile
+      const float d0 = static_cast<float>(k0 + (lane & 3) * 2 - ra);
+      const float d1 = static_cast<float>(k0 + (lane & 3) * 2 - rb);
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        s[i] = fmaf(s[i], sl2, al2 * ((i & 2 ? d1 : d0) + static_cast<float>((i >> 2) * 8 + (i & 1))));
+    }
     // the mask only where a tile holds an invisible pair: the diagonal tile
     // and the ragged last tile (a warpgroup's one fully masked tile in a
     // causal block comes out as p = 0); rows past S are never stored, so
@@ -569,13 +596,13 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       if (i & 2) mx1 = fmaxf(mx1, s[i]);
       else mx0 = fmaxf(mx0, s[i]);
     }
-    const float mn0 = fmaxf(m0, quad_max(mx0) * sl2), mn1 = fmaxf(m1, quad_max(mx1) * sl2);
+    const float mn0 = fmaxf(m0, quad_max(mx0) * mul), mn1 = fmaxf(m1, quad_max(mx1) * mul);
     al0 = ex2(m0 - mn0);
     al1 = ex2(m1 - mn1);
     float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
-      s[i] = ex2(fmaf(s[i], sl2, -(i & 2 ? mn1 : mn0)));   // p
+      s[i] = ex2(fmaf(s[i], mul, -(i & 2 ? mn1 : mn0)));   // p
       if (i & 2) sum1 += s[i];
       else sum0 += s[i];
     }
@@ -636,18 +663,37 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, bf16* __restrict__ o,
+                       float* __restrict__ lse, int S, float scale, int causal,
+                       const float* __restrict__ slopes, int H) {
+  flash_fwd_wgmma<D, false>(q, k, v, o, lse, S, scale, causal, slopes, H);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_wgmma_alibi_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                             const bf16* __restrict__ v, bf16* __restrict__ o,
+                             float* __restrict__ lse, int S, float scale, int causal,
+                             const float* __restrict__ slopes, int H) {
+  flash_fwd_wgmma<D, true>(q, k, v, o, lse, S, scale, causal, slopes, H);
+}
+
 // ---------------------------------------------------------------------------
 // dQ: grid (q-blocks of 128 rows, B*H), heavy (late) blocks first.  Q and
 // dO of the block stay resident; K and V stream through the ring.  Per
 // 64-key tile, each warpgroup: s = q k^T and dp = do v^T (SS), p and ds in
 // registers, dq += ds k (RS, k read MN-major).
 // ---------------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                          const float* __restrict__ lse, const float* __restrict__ delta,
-                          bf16* __restrict__ dq, int S, float scale, int causal) {
+template <int D, bool kAlibi>
+__device__ __forceinline__ void flash_bwd_dq_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                                                   const float* __restrict__ lse,
+                                                   const float* __restrict__ delta, bf16* __restrict__ dq,
+                                                   int S, float scale, int causal,
+                                                   const float* __restrict__ slopes, int H) {
   using L = Sw<D>;
   constexpr uint32_t kRes = kRows * D * 2, kStr = kTile * D * 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -688,6 +734,8 @@ flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   const int ra = qw + warp * 16 + (lane >> 2), rb = ra + 8;
   const float lse0 = ra < S ? lse[srow + ra] : 0.f, lse1 = rb < S ? lse[srow + rb] : 0.f;
   const float dl0 = ra < S ? delta[srow + ra] : 0.f, dl1 = rb < S ? delta[srow + rb] : 0.f;
+  float slope = 0.f;
+  if constexpr (kAlibi) slope = slopes[blockIdx.y % H];
   float acc[L::kAtoms][L::kAW / 2];
   zero_acc<D>(acc);
 
@@ -714,19 +762,28 @@ flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     wg_wait<1>();    // s, and tile j - 1's dq product, are done
     if (j >= 1) mbar_arrive(empty + 8 * ((j - 1) % kStages));
     fence_regs(s);
+    // element i's logit: s scale, plus slope (col - row) under ALiBi
+    const float d0 = static_cast<float>(k0 + (lane & 3) * 2 - ra);
+    const float d1 = static_cast<float>(k0 + (lane & 3) * 2 - rb);
+    auto logit = [&](int i) {
+      if constexpr (kAlibi)
+        return fmaf(s[i], scale, slope * ((i & 2 ? d1 : d0) + static_cast<float>((i >> 2) * 8 + (i & 1))));
+      else
+        return s[i] * scale;
+    };
     // the mask only where a tile holds an invisible pair: the diagonal tile
-    // and the ragged last tiles (ALiBi's slope_h (k - q) would join here)
+    // and the ragged last tiles
     if ((causal && k0 + 63 > qw) || k0 + kTile > S || qw + 64 > S) {
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
         const int row = i & 2 ? rb : ra;
         const int col = k0 + (i >> 2) * 8 + (lane & 3) * 2 + (i & 1);
         const bool ok = row < S && col < S && (!causal || row >= col);
-        s[i] = ok ? expf(s[i] * scale - (i & 2 ? lse1 : lse0)) : 0.f;
+        s[i] = ok ? expf(logit(i) - (i & 2 ? lse1 : lse0)) : 0.f;
       }
     } else {
 #pragma unroll
-      for (int i = 0; i < 32; ++i) s[i] = expf(s[i] * scale - (i & 2 ? lse1 : lse0));
+      for (int i = 0; i < 32; ++i) s[i] = expf(logit(i) - (i & 2 ? lse1 : lse0));
     }
     wg_wait<0>();
     fence_regs(dp);
@@ -746,6 +803,26 @@ flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   store_acc<D>(dq + base, acc, qw, S);
 }
 
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          bf16* __restrict__ dq, int S, float scale, int causal,
+                          const float* __restrict__ slopes, int H) {
+  flash_bwd_dq_wgmma<D, false>(q, k, v, dout, lse, delta, dq, S, scale, causal, slopes, H);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_wgmma_alibi_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                                const float* __restrict__ lse, const float* __restrict__ delta,
+                                bf16* __restrict__ dq, int S, float scale, int causal,
+                                const float* __restrict__ slopes, int H) {
+  flash_bwd_dq_wgmma<D, true>(q, k, v, dout, lse, delta, dq, S, scale, causal, slopes, H);
+}
+
 // ---------------------------------------------------------------------------
 // dK/dV: grid (key blocks of 128, B*H), heavy (early) blocks first.  K and
 // V of the block stay resident; Q, dO, lse and delta stream through the
@@ -753,13 +830,13 @@ flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 // dp^T = v do^T (SS), p^T and ds^T in registers, dv += p^T do and
 // dk += ds^T q (RS, q and do read MN-major).
 // ---------------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                           const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                           const float* __restrict__ lse, const float* __restrict__ delta,
-                           bf16* __restrict__ dk, bf16* __restrict__ dv, int S, float scale,
-                           int causal) {
+template <int D, bool kAlibi>
+__device__ __forceinline__ void flash_bwd_dkv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                                                    const float* __restrict__ lse,
+                                                    const float* __restrict__ delta, bf16* __restrict__ dk,
+                                                    bf16* __restrict__ dv, int S, float scale, int causal,
+                                                    const float* __restrict__ slopes, int H) {
   using L = Sw<D>;
   constexpr uint32_t kRes = kRows * D * 2, kStr = kTile * D * 2;
   constexpr uint32_t kStats = kTile * 4;
@@ -806,6 +883,8 @@ flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   __syncthreads();   // K and V are in
 
   const int ka = kw + warp * 16 + (lane >> 2), kc = ka + 8;   // this thread's keys
+  float slope = 0.f;
+  if constexpr (kAlibi) slope = slopes[blockIdx.y % H];
   float dkacc[L::kAtoms][L::kAW / 2], dvacc[L::kAtoms][L::kAW / 2];
   zero_acc<D>(dkacc);
   zero_acc<D>(dvacc);
@@ -836,22 +915,31 @@ flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
     wg_wait<1>();    // s^T is done
     if (i >= 1) mbar_arrive(empty + 8 * ((i - 1) % kStages));
     fence_regs(s);
-    // p^T = exp(s^T scale - lse[col]); the mask only on the diagonal tile
-    // and the ragged last tiles (ALiBi's slope_h (k - q) would join here)
+    // element x's logit: s^T scale, plus slope (key - row) under ALiBi
+    const float e0 = static_cast<float>(ka - q0 - (lane & 3) * 2);
+    const float e1 = static_cast<float>(kc - q0 - (lane & 3) * 2);
+    auto logit = [&](int x) {
+      if constexpr (kAlibi)
+        return fmaf(s[x], scale, slope * ((x & 2 ? e1 : e0) - static_cast<float>((x >> 2) * 8 + (x & 1))));
+      else
+        return s[x] * scale;
+    };
+    // p^T = exp(logit - lse[col]); the mask only on the diagonal tile and
+    // the ragged last tiles
     if ((causal && q0 < kw + 63) || q0 + kTile > S || kw + 64 > S) {
 #pragma unroll
       for (int x = 0; x < 32; ++x) {
         const int c = (x >> 2) * 8 + (lane & 3) * 2 + (x & 1);
         const int row = q0 + c, key = x & 2 ? kc : ka;
         const bool ok = row < S && key < S && (!causal || row >= key);
-        s[x] = ok ? expf(s[x] * scale - tl[c]) : 0.f;
+        s[x] = ok ? expf(logit(x) - tl[c]) : 0.f;
       }
     } else {
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const float2 l = *reinterpret_cast<const float2*>(tl + j * 8 + (lane & 3) * 2);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[4 * j + e] = expf(s[4 * j + e] * scale - (e & 1 ? l.y : l.x));
+        for (int e = 0; e < 4; ++e) s[4 * j + e] = expf(logit(4 * j + e) - (e & 1 ? l.y : l.x));
       }
     }
     uint32_t f[4][4];
@@ -883,21 +971,44 @@ flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   store_acc<D>(dv + base, dvacc, kw, S);
 }
 
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv, int S, float scale,
+                           int causal, const float* __restrict__ slopes, int H) {
+  flash_bwd_dkv_wgmma<D, false>(q, k, v, dout, lse, delta, dk, dv, S, scale, causal, slopes, H);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_wgmma_alibi_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                                 const float* __restrict__ lse, const float* __restrict__ delta,
+                                 bf16* __restrict__ dk, bf16* __restrict__ dv, int S, float scale,
+                                 int causal, const float* __restrict__ slopes, int H) {
+  flash_bwd_dkv_wgmma<D, true>(q, k, v, dout, lse, delta, dk, dv, S, scale, causal, slopes, H);
+}
+
 // ---------------------------------------------------------------------------
 // fp32 scalar path: one warp per row, lane c owns head dims c, c + 32, ...
 // ---------------------------------------------------------------------------
 constexpr int kRowsPerBlock = 8;   // warps per block
 
-template <int D>
+template <int D, bool kAlibi>
 __global__ void __launch_bounds__(kRowsPerBlock * 32)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
-                     float* __restrict__ lse, int S, float scale, int causal) {
+                     float* __restrict__ lse, int S, float scale, int causal,
+                     const float* __restrict__ slopes, int H) {
   constexpr int E = D / 32;
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
   if (row >= S) return;
   const size_t base = static_cast<size_t>(blockIdx.y) * S * D;
+  float slope = 0.f;
+  if constexpr (kAlibi) slope = slopes[blockIdx.y % H];
   float qr[E], acc[E];
 #pragma unroll
   for (int e = 0; e < E; ++e) {
@@ -912,7 +1023,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float dot = 0.f;
 #pragma unroll
     for (int e = 0; e < E; ++e) dot += qr[e] * kr[lane + 32 * e];
-    const float s = warp_sum(dot) * scale;
+    float s = warp_sum(dot) * scale;
+    if constexpr (kAlibi) s += slope * static_cast<float>(key - row);
     const float mn = fmaxf(m, s);
     const float p = expf(s - mn), alpha = expf(m - mn);
     l = alpha * l + p;
@@ -926,13 +1038,13 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (lane == 0) lse[static_cast<size_t>(blockIdx.y) * S + row] = m + logf(sl);
 }
 
-template <int D>
+template <int D, bool kAlibi>
 __global__ void __launch_bounds__(kRowsPerBlock * 32)
 flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const float* __restrict__ o,
                         const float* __restrict__ dout, const float* __restrict__ lse,
                         float* __restrict__ delta, float* __restrict__ dq, int S,
-                        float scale, int causal) {
+                        float scale, int causal, const float* __restrict__ slopes, int H) {
   constexpr int E = D / 32;
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
@@ -951,6 +1063,8 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
   const size_t srow = static_cast<size_t>(blockIdx.y) * S + row;
   if (lane == 0) delta[srow] = dl;
   const float lr = lse[srow];
+  float slope = 0.f;
+  if constexpr (kAlibi) slope = slopes[blockIdx.y % H];
   const int kend = causal ? row + 1 : S;
   for (int key = 0; key < kend; ++key) {
     const float* kr = k + base + static_cast<size_t>(key) * D;
@@ -961,7 +1075,9 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
       dot += qr[e] * kr[lane + 32 * e];
       dpp += dr[e] * vr[lane + 32 * e];
     }
-    const float p = expf(warp_sum(dot) * scale - lr);
+    float logit = warp_sum(dot) * scale;
+    if constexpr (kAlibi) logit += slope * static_cast<float>(key - row);
+    const float p = expf(logit - lr);
     const float ds = p * (warp_sum(dpp) - dl) * scale;
 #pragma unroll
     for (int e = 0; e < E; ++e) acc[e] += ds * kr[lane + 32 * e];
@@ -970,13 +1086,13 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
   for (int e = 0; e < E; ++e) dq[off + lane + 32 * e] = acc[e];
 }
 
-template <int D>
+template <int D, bool kAlibi>
 __global__ void __launch_bounds__(kRowsPerBlock * 32)
 flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const float* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ delta,
                          float* __restrict__ dk, float* __restrict__ dv, int S, float scale,
-                         int causal) {
+                         int causal, const float* __restrict__ slopes, int H) {
   constexpr int E = D / 32;
   const int lane = threadIdx.x & 31;
   const int key = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
@@ -985,6 +1101,8 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
   const size_t off = base + static_cast<size_t>(key) * D;
   const float* lrow = lse + static_cast<size_t>(blockIdx.y) * S;
   const float* drow = delta + static_cast<size_t>(blockIdx.y) * S;
+  float slope = 0.f;
+  if constexpr (kAlibi) slope = slopes[blockIdx.y % H];
   float kr[E], vr[E], dka[E], dva[E];
 #pragma unroll
   for (int e = 0; e < E; ++e) {
@@ -1001,7 +1119,9 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
       dot += kr[e] * qr[lane + 32 * e];
       dpp += vr[e] * dr[lane + 32 * e];
     }
-    const float p = expf(warp_sum(dot) * scale - lrow[row]);
+    float logit = warp_sum(dot) * scale;
+    if constexpr (kAlibi) logit += slope * static_cast<float>(key - row);
+    const float p = expf(logit - lrow[row]);
     const float ds = p * (warp_sum(dpp) - drow[row]) * scale;
 #pragma unroll
     for (int e = 0; e < E; ++e) {
@@ -1034,34 +1154,38 @@ cudaError_t allow_smem(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <int D>
+template <int D, bool kAlibi>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int BH,
-                       int S, float scale, int causal, int dtype, cudaStream_t st) {
+                       int S, float scale, int causal, const float* slopes, int H, int dtype,
+                       cudaStream_t st) {
   if (dtype == 1) {
-    cudaError_t e = allow_smem(flash_fwd_wgmma_kernel<D>, fwd_smem<D>());
+    const auto kernel = kAlibi ? flash_fwd_wgmma_alibi_kernel<D> : flash_fwd_wgmma_kernel<D>;
+    cudaError_t e = allow_smem(kernel, fwd_smem<D>());
     if (e != cudaSuccess) return e;
     const dim3 grid((S + kRows - 1) / kRows, BH);
-    flash_fwd_wgmma_kernel<D><<<grid, kThreads, fwd_smem<D>(), st>>>(
+    kernel<<<grid, kThreads, fwd_smem<D>(), st>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<bf16*>(o), lse, S, scale, causal);
+        static_cast<bf16*>(o), lse, S, scale, causal, slopes, H);
   } else {
     const dim3 grid((S + kRowsPerBlock - 1) / kRowsPerBlock, BH);
-    flash_fwd_f32_kernel<D><<<grid, kRowsPerBlock * 32, 0, st>>>(
+    flash_fwd_f32_kernel<D, kAlibi><<<grid, kRowsPerBlock * 32, 0, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), lse, S, scale, causal);
+        static_cast<const float*>(v), static_cast<float*>(o), lse, S, scale, causal, slopes, H);
   }
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool kAlibi>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* o,
                        const void* dout, const float* lse, float* delta, void* dq, void* dk,
-                       void* dv, int BH, int S, float scale, int causal, int dtype,
-                       cudaStream_t st) {
+                       void* dv, int BH, int S, float scale, int causal, const float* slopes,
+                       int H, int dtype, cudaStream_t st) {
   if (dtype == 1) {
-    cudaError_t e = allow_smem(flash_bwd_dq_wgmma_kernel<D>, dq_smem<D>());
+    const auto dq_kernel = kAlibi ? flash_bwd_dq_wgmma_alibi_kernel<D> : flash_bwd_dq_wgmma_kernel<D>;
+    const auto dkv_kernel = kAlibi ? flash_bwd_dkv_wgmma_alibi_kernel<D> : flash_bwd_dkv_wgmma_kernel<D>;
+    cudaError_t e = allow_smem(dq_kernel, dq_smem<D>());
     if (e != cudaSuccess) return e;
-    e = allow_smem(flash_bwd_dkv_wgmma_kernel<D>, dkv_smem<D>());
+    e = allow_smem(dkv_kernel, dkv_smem<D>());
     if (e != cudaSuccess) return e;
     const int rows = BH * S, per_block = 256 / (D / 8);
     flash_bwd_delta_kernel<D><<<(rows + per_block - 1) / per_block, 256, 0, st>>>(
@@ -1069,35 +1193,67 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
     const dim3 grid((S + kRows - 1) / kRows, BH);
-    flash_bwd_dq_wgmma_kernel<D><<<grid, kThreads, dq_smem<D>(), st>>>(
+    dq_kernel<<<grid, kThreads, dq_smem<D>(), st>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq), S, scale, causal);
+        static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq), S, scale, causal,
+        slopes, H);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
-    flash_bwd_dkv_wgmma_kernel<D><<<grid, kThreads, dkv_smem<D>(), st>>>(
+    dkv_kernel<<<grid, kThreads, dkv_smem<D>(), st>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk),
-        static_cast<bf16*>(dv), S, scale, causal);
+        static_cast<bf16*>(dv), S, scale, causal, slopes, H);
   } else {
     const dim3 grid((S + kRowsPerBlock - 1) / kRowsPerBlock, BH);
-    flash_bwd_dq_f32_kernel<D><<<grid, kRowsPerBlock * 32, 0, st>>>(
+    flash_bwd_dq_f32_kernel<D, kAlibi><<<grid, kRowsPerBlock * 32, 0, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(o),
         static_cast<const float*>(dout), lse, delta, static_cast<float*>(dq), S, scale,
-        causal);
+        causal, slopes, H);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
-    flash_bwd_dkv_f32_kernel<D><<<grid, kRowsPerBlock * 32, 0, st>>>(
+    flash_bwd_dkv_f32_kernel<D, kAlibi><<<grid, kRowsPerBlock * 32, 0, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dout), lse, delta,
-        static_cast<float*>(dk), static_cast<float*>(dv), S, scale, causal);
+        static_cast<float*>(dk), static_cast<float*>(dv), S, scale, causal, slopes, H);
   }
   return cudaGetLastError();
 }
 
-bool bad_args(int BH, int S, int D, int dtype) {
+// the head dim as a template argument
+template <bool kAlibi>
+cudaError_t fwd_for(int D, const void* q, const void* k, const void* v, void* o, float* lse,
+                    int BH, int S, float scale, int causal, const float* slopes, int H, int dtype,
+                    cudaStream_t st) {
+  switch (D) {
+    case 32: return launch_fwd<32, kAlibi>(q, k, v, o, lse, BH, S, scale, causal, slopes, H, dtype, st);
+    case 64: return launch_fwd<64, kAlibi>(q, k, v, o, lse, BH, S, scale, causal, slopes, H, dtype, st);
+    default: return launch_fwd<128, kAlibi>(q, k, v, o, lse, BH, S, scale, causal, slopes, H, dtype, st);
+  }
+}
+
+template <bool kAlibi>
+cudaError_t bwd_for(int D, const void* q, const void* k, const void* v, const void* o,
+                    const void* dout, const float* lse, float* delta, void* dq, void* dk, void* dv,
+                    int BH, int S, float scale, int causal, const float* slopes, int H, int dtype,
+                    cudaStream_t st) {
+  switch (D) {
+    case 32:
+      return launch_bwd<32, kAlibi>(q, k, v, o, dout, lse, delta, dq, dk, dv, BH, S, scale, causal,
+                                    slopes, H, dtype, st);
+    case 64:
+      return launch_bwd<64, kAlibi>(q, k, v, o, dout, lse, delta, dq, dk, dv, BH, S, scale, causal,
+                                    slopes, H, dtype, st);
+    default:
+      return launch_bwd<128, kAlibi>(q, k, v, o, dout, lse, delta, dq, dk, dv, BH, S, scale, causal,
+                                     slopes, H, dtype, st);
+  }
+}
+
+// slopes (ALiBi's [H] table) may be null; given, H must divide BH
+bool bad_args(int BH, int S, int D, int dtype, const void* slopes, int H) {
   return BH <= 0 || BH > 65535 || S <= 0 || (D != 32 && D != 64 && D != 128) ||
-         (dtype != 0 && dtype != 1);
+         (dtype != 0 && dtype != 1) || (slopes && (H <= 0 || BH % H != 0));
 }
 
 }  // namespace
@@ -1105,39 +1261,35 @@ bool bad_args(int BH, int S, int D, int dtype) {
 extern "C" {
 
 // q, k, v, o: [BH, S, D] contiguous, one dtype (0 = float32, 1 = bfloat16);
-// lse: [BH, S] float32; D in {32, 64, 128}.  Returns the cudaError_t (0 = ok).
+// lse: [BH, S] float32; D in {32, 64, 128}; slopes: ALiBi's float32 [H]
+// (null: no bias).  Returns the cudaError_t (0 = ok).
 int ds_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int BH, int S,
-                 int D, float scale, int causal, int dtype, void* stream) {
-  if (bad_args(BH, S, D, dtype)) return static_cast<int>(cudaErrorInvalidValue);
+                 int D, float scale, int causal, const void* slopes, int H, int dtype,
+                 void* stream) {
+  if (bad_args(BH, S, D, dtype, slopes, H)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  switch (D) {
-    case 32: return static_cast<int>(launch_fwd<32>(q, k, v, o, l, BH, S, scale, causal, dtype, st));
-    case 64: return static_cast<int>(launch_fwd<64>(q, k, v, o, l, BH, S, scale, causal, dtype, st));
-    default: return static_cast<int>(launch_fwd<128>(q, k, v, o, l, BH, S, scale, causal, dtype, st));
-  }
+  const float* sl = static_cast<const float*>(slopes);
+  return static_cast<int>(sl ? fwd_for<true>(D, q, k, v, o, l, BH, S, scale, causal, sl, H, dtype, st)
+                             : fwd_for<false>(D, q, k, v, o, l, BH, S, scale, causal, sl, H, dtype, st));
 }
 
-// The backward's two launches: delta [BH, S] (float32, written) and dq, then
-// dk and dv.  Shapes and dtypes as ds_flash_fwd; do is the output gradient.
+// The backward's launches: delta [BH, S] (float32, written) and dq, then
+// dk and dv.  Shapes, dtypes and slopes as ds_flash_fwd; do is the output
+// gradient.
 int ds_flash_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
                  const void* lse, void* delta, void* dq, void* dk, void* dv, int BH, int S,
-                 int D, float scale, int causal, int dtype, void* stream) {
-  if (bad_args(BH, S, D, dtype)) return static_cast<int>(cudaErrorInvalidValue);
+                 int D, float scale, int causal, const void* slopes, int H, int dtype,
+                 void* stream) {
+  if (bad_args(BH, S, D, dtype, slopes, H)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
-  switch (D) {
-    case 32:
-      return static_cast<int>(
-          launch_bwd<32>(q, k, v, o, dout, l, dl, dq, dk, dv, BH, S, scale, causal, dtype, st));
-    case 64:
-      return static_cast<int>(
-          launch_bwd<64>(q, k, v, o, dout, l, dl, dq, dk, dv, BH, S, scale, causal, dtype, st));
-    default:
-      return static_cast<int>(
-          launch_bwd<128>(q, k, v, o, dout, l, dl, dq, dk, dv, BH, S, scale, causal, dtype, st));
-  }
+  const float* sl = static_cast<const float*>(slopes);
+  return static_cast<int>(
+      sl ? bwd_for<true>(D, q, k, v, o, dout, l, dl, dq, dk, dv, BH, S, scale, causal, sl, H, dtype, st)
+         : bwd_for<false>(D, q, k, v, o, dout, l, dl, dq, dk, dv, BH, S, scale, causal, sl, H, dtype,
+                          st));
 }
 
 // Dynamic shared memory a block of the bf16 forward takes at head dim D (0

@@ -60,6 +60,15 @@ def alibi_slopes(num_heads: int, device=None) -> torch.Tensor:
     return torch.tensor(slopes, dtype=torch.float32, device=device)
 
 
+def alibi_bias(num_heads: int, q_pos: torch.Tensor,
+               k_pos: torch.Tensor) -> torch.Tensor:
+    """[H, |q|, |k|] additive attention bias: slope_h * (k - q)
+    (non-positive under the causal mask), fp32 on the positions' device."""
+    slopes = alibi_slopes(num_heads, device=q_pos.device)
+    rel = k_pos[None, :].float() - q_pos[:, None].float()
+    return slopes[:, None, None] * rel[None]
+
+
 def apply_partial_rope(x: torch.Tensor, cos: torch.Tensor,
                        sin: torch.Tensor) -> torch.Tensor:
     """Rotate the first ``2*cos.shape[-1]`` head dims, pass the rest through
@@ -81,8 +90,8 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    causal: bool = True, alibi: bool = False) -> torch.Tensor:
     """Multi-head attention on [B, H, S, Dh]: the JAX ``attention_core``
     with no mesh.  A CUDA tensor runs the flash attention kernels
-    (differentiable), a CPU tensor ``mha_reference`` with autograd's
-    backward.  ALiBi raises (no training preset of the port uses it)."""
+    (differentiable; their ALiBi instances under ``alibi``), a CPU tensor
+    ``mha_reference`` with autograd's backward."""
     return flash_attention(q, k, v, causal=causal, alibi=alibi)
 
 

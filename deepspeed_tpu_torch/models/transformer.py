@@ -1,4 +1,5 @@
-"""Decoder-only transformer (Llama and GPT-2 families), PyTorch port.
+"""Decoder-only transformer (Llama, GPT-2, BLOOM and GPT-NeoX families),
+PyTorch port.
 
 Counterpart of ``deepspeed_tpu/models/transformer.py``.  :class:`CausalLM`
 keeps the JAX parameter tree: the same names and the same stacked
@@ -15,8 +16,10 @@ the JAX init (different generators); tests carry JAX weights across with
 :func:`~deepspeed_tpu_torch.models.convert.jax_params_to_torch`.
 
 Training runs :meth:`CausalLM.apply` — the JAX ``CausalLM.apply`` for the
-dense Llama (RoPE, RMSNorm) and GPT-2 (learned positions, LayerNorm)
-families: embedding, the layer loop over ``[L]`` slices (the JAX
+dense families: Llama (RoPE, RMSNorm), GPT-2 (learned positions,
+LayerNorm), BLOOM (ALiBi positions, the embedding LayerNorm) and the
+parallel-residual GPT-NeoX and GPT-J: embedding, the layer loop over ``[L]``
+slices (the JAX
 ``scan_layers`` branch written as a Python loop), the final norm and the
 next-token cross-entropy (:func:`cross_entropy`, or
 :func:`blockwise_cross_entropy` once ``B*S*V > 2^28``).  It is functional
@@ -24,8 +27,7 @@ over the nested JAX-layout param dict, so the engine can hand it a
 grad-carrying compute copy of the weights.  The parameters registered on
 the module keep ``requires_grad=False`` for serving, which runs the model
 through :func:`~deepspeed_tpu_torch.models.decoding.forward_with_cache`.
-MoE, dropout, parallel residual and ALiBi positions raise naming
-ROADMAP.md.
+MoE, dropout and the ``offload_dots`` remat policy raise naming ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -195,10 +197,17 @@ class CausalLM(_ParamTree):
     """Causal language model holding the JAX-layout parameter tree."""
 
     def __init__(self, config: ModelConfig, *, device: DeviceLike = None,
-                 dtype: torch.dtype = torch.float32, seed: int = 0):
-        dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(int(seed))
-        super().__init__(_init_tree(param_shapes(config), dev, dtype, gen))
+                 dtype: torch.dtype = torch.float32, seed: int = 0,
+                 params: Optional[Dict[str, Any]] = None):
+        """Random weights from ``seed`` on ``device`` in ``dtype``, or
+        ``params``, a nested tensor tree in the JAX layout (as
+        :func:`~deepspeed_tpu_torch.models.convert.jax_params_to_torch`
+        gives it), held as it is."""
+        if params is None:
+            dev = resolve_device(device)
+            gen = torch.Generator(device=dev).manual_seed(int(seed))
+            params = _init_tree(param_shapes(config), dev, dtype, gen)
+        super().__init__(params)
         self.config = config
 
     def params(self) -> Dict[str, Any]:
@@ -213,8 +222,6 @@ class CausalLM(_ParamTree):
         """Raise for what the training forward does not carry yet."""
         cfg = self.config
         refused = {"dropout > 0": cfg.dropout > 0, "MoE": cfg.is_moe,
-                   "parallel_residual": cfg.parallel_residual,
-                   "position 'alibi'": cfg.position == "alibi",
                    "remat_policy 'offload_dots'": (bool(cfg.remat) and
                                                    cfg.remat_policy == "offload_dots")}
         bad = [k for k, v in refused.items() if v]
@@ -242,7 +249,7 @@ class CausalLM(_ParamTree):
             k = apply_partial_rope(k, cos, sin)
         k = _repeat_kv(k, H // Hkv)
         v = _repeat_kv(v, H // Hkv)
-        o = attention_core(q, k, v, causal=True)
+        o = attention_core(q, k, v, causal=True, alibi=cfg.position == "alibi")
         o = o.transpose(1, 2).reshape(B, S, H * Dh) @ a["wo"]
         if cfg.use_bias:
             o = o + a["bo"]
@@ -269,9 +276,21 @@ class CausalLM(_ParamTree):
             out = out + m["b_down"]
         return x + out.to(x.dtype)
 
-    def _layer(self, lp, x, cos, sin):
-        x = x + self._attn_out(lp, x, cos, sin)
-        return self._mlp_block(lp, x)
+    def _layer(self, lp, x, cos, sin, mlp=None):
+        """One layer; ``mlp(lp, y)`` is ``y + mlp(norm(y))`` (default
+        :meth:`_mlp_block`).  Sequential: the MLP reads ``x + attn``;
+        parallel residual (gpt-neox, gpt-j): both sub-blocks read the layer
+        input and the attention output is added to ``x + mlp``."""
+        mlp = mlp or self._mlp_block
+        attn = self._attn_out(lp, x, cos, sin)
+        if self.config.parallel_residual:
+            return mlp(lp, x) + attn
+        return mlp(lp, x + attn)
+
+    def _mlp_dots(self, lp, x):
+        keys = tuple((g, n) for g in ("mlp_norm", "mlp") for n in lp[g])
+        return _MLPDots.apply(self._mlp_block, keys, x,
+                              *(lp[g][n] for g, n in keys))
 
     def _layer_fn(self):
         """The per-layer body under the model's remat policy.  ``mlp_only``
@@ -289,17 +308,10 @@ class CausalLM(_ParamTree):
         if not cfg.remat:
             return self._layer
         if cfg.remat_policy == "mlp_only":
-            def body(lp, x, cos, sin):
-                x = x + self._attn_out(lp, x, cos, sin)
-                return checkpoint(self._mlp_block, lp, x, use_reentrant=False)
-            return body
+            return functools.partial(self._layer, mlp=functools.partial(
+                checkpoint, self._mlp_block, use_reentrant=False))
         if cfg.remat_policy == "mlp_dots":
-            def body(lp, x, cos, sin):
-                x = x + self._attn_out(lp, x, cos, sin)
-                keys = tuple((g, n) for g in ("mlp_norm", "mlp") for n in lp[g])
-                return _MLPDots.apply(self._mlp_block, keys, x,
-                                      *(lp[g][n] for g, n in keys))
-            return body
+            return functools.partial(self._layer, mlp=self._mlp_dots)
         return functools.partial(checkpoint, self._layer, use_reentrant=False)
 
     def apply(self, params: Dict[str, Any], tokens: torch.Tensor,

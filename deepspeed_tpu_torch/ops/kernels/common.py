@@ -19,10 +19,13 @@ wrappers moved to it read the current stream's handle without building a
 
 from __future__ import annotations
 
+from typing import Dict, Tuple
+
 import torch
 
 # dtypes the kernels take, with the code the CUDA C interface uses for each
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_SLOPES: Dict[Tuple[int, torch.device], torch.Tensor] = {}
 
 
 def use_kernel(t: torch.Tensor) -> bool:
@@ -57,3 +60,15 @@ def raw_stream(index: int) -> int:
     ``torch.cuda.stream(...)``) without building a ``torch.cuda.Stream``:
     the call Triton and Inductor make."""
     return torch._C._cuda_getCurrentRawStream(index)
+
+
+def alibi_slopes_on(H: int, dev: torch.device) -> torch.Tensor:
+    """ALiBi's fp32 [H] slope table on ``dev``, the one the decode and
+    flash attention kernels read: built once per ``(H, device)``."""
+    key = (H, dev)
+    t = _SLOPES.get(key)
+    if t is None:
+        from deepspeed_tpu_torch.models.layers import alibi_slopes
+
+        t = _SLOPES[key] = alibi_slopes(H, device=dev).contiguous()
+    return t

@@ -43,6 +43,7 @@ import torch
 from deepspeed_tpu_torch.ops.kernels.build import (bind, check_launch,
                                                    load_library)
 from deepspeed_tpu_torch.ops.kernels.common import (KERNEL_DTYPES,
+                                                    alibi_slopes_on,
                                                     check_kernel_input,
                                                     raw_stream, use_kernel)
 
@@ -208,7 +209,6 @@ _Q8_ARGS = [_P] * 14 + [_I] * 4 + [_P, _I]
 _Q8_WORKSPACE: Dict[Tuple[int, int, bool, int], int] = {}
 _Q8_TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
 _Q8_MAX_TILES = 4096
-_SLOPES: Dict[Tuple[int, torch.device], torch.Tensor] = {}
 
 
 def _library():
@@ -299,16 +299,6 @@ def _ticket(dev: torch.device) -> torch.Tensor:
     return t
 
 
-def _alibi_slopes_on(H: int, dev: torch.device) -> torch.Tensor:
-    key = (H, dev)
-    t = _SLOPES.get(key)
-    if t is None:
-        from deepspeed_tpu_torch.models.layers import alibi_slopes
-
-        t = _SLOPES[key] = alibi_slopes(H, device=dev).contiguous()
-    return t
-
-
 def fused_norm_qkv_cuda(x, scale, bias, wqkv, bqkv=None, *, kind, eps):
     """Launch ``norm_qkv_kernel``: x [B, D] → [B, N] in x's dtype."""
     check_kernel_input("fused_norm_qkv x", x, x.device)
@@ -383,7 +373,7 @@ def flash_decode_paged_cuda(q, kcache, vcache, pos, page_table, *, scale,
                          f"(page table of {maxp} pages, {rep} x {Dh} heads) "
                          f"exceed {_SMEM_LIMIT}")
     off = 0 if layer is None else layer * kcache.stride(0) * q.element_size()
-    slopes = _alibi_slopes_on(H, q.device) if alibi else None
+    slopes = alibi_slopes_on(H, q.device) if alibi else None
     out = torch.empty_like(q)
     built = _library()
     with torch.cuda.device(q.device):
@@ -441,7 +431,7 @@ def flash_decode_contig_cuda(q, kcache, vcache, pos, *, scale, layer=None,
     else:
         pos_ptr, pos0, stride = None, int(pos), 0
     off = 0 if layer is None else layer * kcache.stride(0) * q.element_size()
-    slopes = _alibi_slopes_on(H, q.device) if alibi else None
+    slopes = alibi_slopes_on(H, q.device) if alibi else None
     out = torch.empty_like(q)
     built = _library()
     with torch.cuda.device(q.device):

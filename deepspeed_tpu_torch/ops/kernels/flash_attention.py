@@ -19,8 +19,14 @@ The kernels take ``S == Sk`` only (all the training path produces; see the
 ``S != Sk`` hazard in ROADMAP.md queue 3), head dims 32, 64 and 128 (every
 preset's: llama-tiny and mixtral-tiny 32, GPT-2 64, Llama 128), bf16 (the
 tensor-core path) or fp32 (a scalar path for the fp32 reference runs).  A
-ragged S is masked inside the kernels.  ALiBi raises: no training preset of
-this slice uses it.
+ragged S is masked inside the kernels.
+
+``alibi=True`` (BLOOM) adds the per-head bias ``slope_h * (col - row)`` to
+the scaled logits before the causal mask, as the Pallas kernels do: on a
+CUDA tensor the kernels' ALiBi instances (:func:`flash_fwd_alibi_cuda`,
+:func:`flash_attention_bwd_alibi`, each with its own launch count), reading
+the slope table of ``alibi_slopes(H)`` kept on the card; on a CPU tensor
+:func:`mha_reference` with the JAX ``_alibi_ref_bias``.
 """
 
 from __future__ import annotations
@@ -31,7 +37,9 @@ from typing import Optional
 import torch
 
 from deepspeed_tpu_torch.ops.kernels.build import check_launch, load_library
-from deepspeed_tpu_torch.ops.kernels.common import check_kernel_input, use_kernel
+from deepspeed_tpu_torch.ops.kernels.common import (alibi_slopes_on,
+                                                    check_kernel_input,
+                                                    use_kernel)
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -39,14 +47,17 @@ _HEAD_DIMS = (32, 64, 128)
 
 
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  causal: bool = True,
-                  sm_scale: Optional[float] = None) -> torch.Tensor:
-    """The jnp reference op for op: fp32 logits times scale, the causal mask
-    offset by ``Sk - S`` (query i sees keys <= i + Sk - S) with NEG_INF,
-    softmax, fp32 probs . fp32 v, cast to q's dtype."""
+                  causal: bool = True, sm_scale: Optional[float] = None,
+                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The jnp reference op for op: fp32 logits times scale, plus ``bias``
+    (broadcast to [B, H, S, Sk]) where given, the causal mask offset by
+    ``Sk - S`` (query i sees keys <= i + Sk - S) with NEG_INF, softmax, fp32
+    probs . fp32 v, cast to q's dtype."""
     S, D = q.shape[-2], q.shape[-1]
     scale = sm_scale if sm_scale is not None else 1.0 / (D ** 0.5)
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if bias is not None:
+        logits = logits + bias
     if causal:
         Sk = k.shape[-2]
         mask = torch.ones(S, Sk, dtype=torch.bool, device=q.device).tril(Sk - S)
@@ -61,9 +72,11 @@ def _library():
     lib = built.lib
     if lib.ds_flash_fwd.argtypes is None:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.ds_flash_fwd.argtypes = [vp] * 5 + [ci, ci, ci, cf, ci, ci, vp]
+        # ..., BH, S, D, scale, causal, slopes (None: no ALiBi), H, dtype, stream
+        tail = [ci, ci, ci, cf, ci, vp, ci, ci, vp]
+        lib.ds_flash_fwd.argtypes = [vp] * 5 + tail
         lib.ds_flash_fwd.restype = ci
-        lib.ds_flash_bwd.argtypes = [vp] * 10 + [ci, ci, ci, cf, ci, ci, vp]
+        lib.ds_flash_bwd.argtypes = [vp] * 10 + tail
         lib.ds_flash_bwd.restype = ci
     return built
 
@@ -85,8 +98,7 @@ def _check(q, k, v):
                          f"ROADMAP.md queue 2)")
 
 
-def flash_fwd_cuda(q, k, v, causal: bool, scale: float):
-    """Forward kernel: (o [B, H, S, Dh] in q's dtype, lse [B, H, S] fp32)."""
+def _fwd(q, k, v, causal, scale, slopes):
     _check(q, k, v)
     B, H, S, D = q.shape
     o = torch.empty_like(q)
@@ -97,16 +109,28 @@ def flash_fwd_cuda(q, k, v, causal: bool, scale: float):
         code = built.lib.ds_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), B * H, S, D, float(scale), int(causal),
+            None if slopes is None else slopes.data_ptr(), H,
             _DTYPES[q.dtype], stream)
     check_launch(built, "flash_attention fwd", code)
-    flash_attention.launches += 1
     return o, lse
 
 
-def flash_attention_bwd(q, k, v, o, lse, do, causal: bool, scale: float):
-    """Backward kernels (bf16: the delta pre-pass, dQ, then dK/dV; fp32: dQ
-    with delta, then dK/dV), counted as one call: (dq, dk, dv) in q's
-    dtype."""
+def flash_fwd_cuda(q, k, v, causal: bool, scale: float):
+    """Forward kernel: (o [B, H, S, Dh] in q's dtype, lse [B, H, S] fp32)."""
+    out = _fwd(q, k, v, causal, scale, None)
+    flash_attention.launches += 1
+    return out
+
+
+def flash_fwd_alibi_cuda(q, k, v, causal: bool, scale: float):
+    """The forward kernel's ALiBi instance (the bias ``slope_h * (col -
+    row)`` added to the scaled logits): as :func:`flash_fwd_cuda`."""
+    out = _fwd(q, k, v, causal, scale, alibi_slopes_on(q.shape[1], q.device))
+    flash_fwd_alibi_cuda.launches += 1
+    return out
+
+
+def _bwd(q, k, v, o, lse, do, causal, scale, slopes):
     _check(q, k, v)
     for name, t in (("o", o), ("do", do)):
         check_kernel_input(f"flash_attention {name}", t, q.device,
@@ -126,29 +150,63 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool, scale: float):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), B * H, S, D, float(scale),
-            int(causal), _DTYPES[q.dtype], stream)
+            int(causal), None if slopes is None else slopes.data_ptr(), H,
+            _DTYPES[q.dtype], stream)
     check_launch(built, "flash_attention bwd", code)
-    flash_attention_bwd.launches += 1
     return dq, dk, dv
 
 
+def flash_attention_bwd(q, k, v, o, lse, do, causal: bool, scale: float):
+    """Backward kernels (bf16: the delta pre-pass, dQ, then dK/dV; fp32: dQ
+    with delta, then dK/dV), counted as one call: (dq, dk, dv) in q's
+    dtype."""
+    out = _bwd(q, k, v, o, lse, do, causal, scale, None)
+    flash_attention_bwd.launches += 1
+    return out
+
+
+def flash_attention_bwd_alibi(q, k, v, o, lse, do, causal: bool, scale: float):
+    """The backward kernels' ALiBi instances (the delta pre-pass is
+    shared), counted as one call: as :func:`flash_attention_bwd`."""
+    out = _bwd(q, k, v, o, lse, do, causal, scale,
+               alibi_slopes_on(q.shape[1], q.device))
+    flash_attention_bwd_alibi.launches += 1
+    return out
+
+
 flash_attention_bwd.launches = 0   # backward calls (2 or 3 kernel launches each)
+flash_fwd_alibi_cuda.launches = 0        # the ALiBi forward's launches
+flash_attention_bwd_alibi.launches = 0   # the ALiBi backward's calls
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
-        o, lse = flash_fwd_cuda(q, k, v, causal, scale)
+    def forward(ctx, q, k, v, causal, scale, alibi):
+        fwd = flash_fwd_alibi_cuda if alibi else flash_fwd_cuda
+        o, lse = fwd(q, k, v, causal, scale)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.causal, ctx.scale, ctx.alibi = causal, scale, alibi
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
-                                         ctx.causal, ctx.scale)
-        return dq, dk, dv, None, None
+        bwd = flash_attention_bwd_alibi if ctx.alibi else flash_attention_bwd
+        dq, dk, dv = bwd(q, k, v, o, lse, do.contiguous(), ctx.causal,
+                         ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
+def _alibi_ref_bias(q, k, alibi):
+    """The JAX ``_alibi_ref_bias``: [1, H, S, Sk] fp32 on q's device, query
+    i at position i + (Sk - S) (mha_reference's offset mask convention)."""
+    if not alibi:
+        return None
+    from deepspeed_tpu_torch.models.layers import alibi_bias
+
+    H, S, Sk = q.shape[1], q.shape[2], k.shape[2]
+    return alibi_bias(H, torch.arange(S, device=q.device) + (Sk - S),
+                      torch.arange(Sk, device=q.device))[None]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -156,15 +214,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     alibi: bool = False) -> torch.Tensor:
     """Memory-efficient attention, [B, H, S, Dh] -> [B, H, S, Dh]: the CUDA
     kernels (differentiable) for a CUDA tensor, :func:`mha_reference` for a
-    CPU tensor."""
-    if alibi:
-        raise NotImplementedError(
-            "flash_attention with alibi is not ported yet (ROADMAP.md queue "
-            "1: the ALiBi position family)")
+    CPU tensor; ``alibi`` adds the per-head linear position bias."""
     scale = sm_scale if sm_scale is not None else 1.0 / (q.shape[-1] ** 0.5)
     if use_kernel(q):
-        return _FlashAttention.apply(q, k, v, causal, scale)
-    return mha_reference(q, k, v, causal=causal, sm_scale=scale)
+        return _FlashAttention.apply(q, k, v, causal, scale, alibi)
+    return mha_reference(q, k, v, causal=causal, sm_scale=scale,
+                         bias=_alibi_ref_bias(q, k, alibi))
 
 
 flash_attention.launches = 0   # forward kernel launches (CUDA tensors only)

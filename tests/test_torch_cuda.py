@@ -462,46 +462,55 @@ def _attn_inputs(B, H, S, D, dtype, dev, seed=0):
     return [_randn((B, H, S, D), seed + i, dtype, dev) for i in range(4)]
 
 
-def _lse_plain(q, k, scale, causal=True):
+def _lse_plain(q, k, scale, causal=True, bias=None):
     S = q.shape[-2]
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if bias is not None:
+        logits = logits + bias
     if causal:
         mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
         logits = logits.masked_fill(~mask, tfa.NEG_INF)
     return torch.logsumexp(logits, -1)
 
 
-def _flash_fwd_check(q, k, v, causal):
-    """Forward (o and lse) against mha_reference (the tolerances above),
-    one launch counted: (o, lse)."""
+def _flash_fwd_check(q, k, v, causal, alibi=False):
+    """Forward (o and lse) against mha_reference (the tolerances above;
+    under ``alibi`` the kernels' ALiBi instances against the reference with
+    the JAX ALiBi bias), one launch counted: (o, lse)."""
     dtype, scale = q.dtype, q.shape[-1] ** -0.5
-    before = tfa.flash_attention.launches
-    o, lse = tfa.flash_fwd_cuda(q, k, v, causal, scale)
+    fwd = tfa.flash_fwd_alibi_cuda if alibi else tfa.flash_fwd_cuda
+    counter = fwd if alibi else tfa.flash_attention
+    before = counter.launches
+    o, lse = fwd(q, k, v, causal, scale)
     torch.cuda.synchronize()
-    assert tfa.flash_attention.launches == before + 1
+    assert counter.launches == before + 1
     assert o.dtype == dtype and lse.dtype == torch.float32
-    want_o = tfa.mha_reference(q, k, v, causal=causal)
+    bias = tfa._alibi_ref_bias(q, k, alibi)
+    want_o = tfa.mha_reference(q, k, v, causal=causal, bias=bias)
     _close(o, want_o, 2e-4 if dtype == torch.float32 else 2e-2)
     assert _rel_err(o, want_o) < (1e-5 if dtype == torch.float32 else 1e-2)
-    _close(lse, _lse_plain(q, k, scale, causal), 1e-4)
+    _close(lse, _lse_plain(q, k, scale, causal, bias), 1e-4)
     return o, lse
 
 
-def _flash_roundtrip(q, k, v, do, causal):
+def _flash_roundtrip(q, k, v, do, causal, alibi=False):
     """Forward as _flash_fwd_check, backward (dq, dk, dv) against autograd
     of mha_reference on the same inputs in fp32 (the tolerances above), one
     launch counted, and two backward calls give the same bits."""
     dtype, scale = q.dtype, q.shape[-1] ** -0.5
-    o, lse = _flash_fwd_check(q, k, v, causal)
-    grads = _counted(tfa.flash_attention_bwd, q, k, v, o, lse, do, causal,
-                     scale)
-    ref = [t.float().requires_grad_() for t in (q, k, v)]
-    tfa.mha_reference(*ref, causal=causal).backward(do.float())
+    o, lse = _flash_fwd_check(q, k, v, causal, alibi)
+    bwd = tfa.flash_attention_bwd_alibi if alibi else tfa.flash_attention_bwd
+    grads = _counted(bwd, q, k, v, o, lse, do, causal, scale)
+    # detached: fp32's .float() is q itself, whose grad would accumulate
+    # over two roundtrips on the same inputs
+    ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    tfa.mha_reference(*ref, causal=causal,
+                      bias=tfa._alibi_ref_bias(q, k, alibi)).backward(do.float())
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     for got, r, name in zip(grads, ref, "qkv"):
         assert got.dtype == dtype and got.shape == q.shape
         assert _rel_err(got, r.grad) < tol, name
-    again = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal, scale)
+    again = bwd(q, k, v, o, lse, do, causal, scale)
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
 
 
@@ -514,6 +523,35 @@ def _flash_roundtrip(q, k, v, do, causal):
 def test_flash_attention_kernels_match_plain(cuda_device, dtype, B, H, S, D):
     """The path's shapes, causal, fp32 and bf16."""
     _flash_roundtrip(*_attn_inputs(B, H, S, D, dtype, cuda_device), causal=True)
+
+
+@pytest.mark.parametrize("alibi", [False, True])
+@pytest.mark.parametrize("S", [128, 200, 2048])
+@pytest.mark.parametrize("H", [16, 12])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_alibi_kernels_match_plain(cuda_device, dtype, D, H, S,
+                                                   alibi):
+    """The ALiBi instances against mha_reference with the JAX ALiBi bias,
+    and the instances without it on the same inputs: every head dim, 16
+    heads and 12 (whose slopes interpolate), S on a block edge, ragged and
+    at BLOOM's training length."""
+    q, k, v, do = _attn_inputs(1, H, S, D, dtype, cuda_device, seed=D + S)
+    _flash_roundtrip(q, k, v, do, causal=True, alibi=alibi)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,S,D", [(2, 3, 200, 64), (1, 12, 257, 128),
+                                     (4, 16, 2048, 128)])   # bloom-1b7
+def test_flash_attention_alibi_batches_and_non_causal(cuda_device, dtype, B, H,
+                                                      S, D):
+    """ALiBi over B > 1 (grid row b * H + h reads slope h) and without the
+    causal mask (the bias on every key tile, the mask only on the ragged
+    one)."""
+    q, k, v, do = _attn_inputs(B, H, S, D, dtype, cuda_device, seed=9)
+    _flash_roundtrip(q, k, v, do, causal=True, alibi=True)
+    if S < 2048:
+        _flash_roundtrip(q, k, v, do, causal=False, alibi=True)
 
 
 @pytest.mark.parametrize("D", [32, 64, 128])
@@ -601,8 +639,20 @@ def test_flash_attention_autograd_and_refusals(cuda_device):
     with pytest.raises(ValueError, match="head dims"):
         tfa.flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
                             v[..., :48].contiguous())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfa.flash_attention(q, k, v, alibi=True)
+    # alibi=True takes the ALiBi instances, forward and backward, and not
+    # the others
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    counts = (tfa.flash_attention, tfa.flash_attention_bwd,
+              tfa.flash_fwd_alibi_cuda, tfa.flash_attention_bwd_alibi)
+    before = [c.launches for c in counts]
+    tfa.flash_attention(*leaves, alibi=True).backward(do)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counts, before)] == [0, 0, 1, 1]
+    ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    tfa.mha_reference(*ref, bias=tfa._alibi_ref_bias(q, k, True)).backward(
+        do.float())
+    for got, r in zip(leaves, ref):
+        assert _rel_err(got.grad, r.grad) < 2e-2
 
 
 @pytest.mark.parametrize("p_dtype,g_dtype", [
@@ -1373,6 +1423,66 @@ def test_unmodified_llama_tiny_trains_on_card(cuda_device):
         before = tfa.flash_attention.launches
         losses = [float(engine.train_step((tok, tok))) for _ in range(3)]
         assert (tfa.flash_attention.launches > before) == (dev != "cpu")
+        runs.append((losses, [p.cpu() for p in engine.master]))
+    (lc, pc), (lg, pg) = runs
+    np.testing.assert_allclose(lg, lc, rtol=1e-4)
+    assert lg[-1] < lg[0]
+    for a, b in zip(pc, pg):
+        torch.testing.assert_close(b, a, rtol=0, atol=1e-4)
+
+
+def _hf_config(tmp_path, name, hf):
+    """A HF config.json alone (the card has no transformers; the weights
+    are random from a seed)."""
+    import json
+
+    from deepspeed_tpu_torch.module_inject import config_from_hf
+
+    path = tmp_path / name
+    path.mkdir()
+    (path / "config.json").write_text(json.dumps(hf))
+    return config_from_hf(str(path))
+
+
+# a tiny BLOOM (ALiBi, 12 heads of 32: slopes that interpolate, the
+# embedding LayerNorm, biases) and a tiny GPT-NeoX (parallel residual,
+# rotary_pct 0.25, 4 heads of 64), each through config_from_hf
+TINY_HF = {
+    "bloom": {"model_type": "bloom", "hidden_size": 384, "n_layer": 2,
+              "n_head": 12, "vocab_size": 512, "seq_length": 256},
+    "gpt_neox": {"model_type": "gpt_neox", "hidden_size": 256,
+                 "intermediate_size": 512, "num_hidden_layers": 2,
+                 "num_attention_heads": 4, "vocab_size": 512,
+                 "max_position_embeddings": 256, "rotary_pct": 0.25,
+                 "use_parallel_residual": True, "hidden_act": "gelu"}}
+
+
+@pytest.mark.parametrize("arch", sorted(TINY_HF))
+def test_hf_families_train_on_card_like_cpu(cuda_device, tmp_path, arch):
+    """A tiny BLOOM and a tiny GPT-NeoX, trained 3 fp32 steps on the card
+    (the flash kernels, ALiBi's for BLOOM) and on the CPU from the same
+    weights: the bounds of test_training_on_card_matches_cpu."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.transformer import CausalLM
+
+    cfg = {"train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 2,
+           "optimizer": {"type": "FusedAdam", "params": {
+               "lr": 3e-4, "betas": [0.9, 0.95], "weight_decay": 0.1}},
+           "scheduler": {"type": "WarmupLR", "params": {
+               "warmup_max_lr": 3e-4, "warmup_num_steps": 2}},
+           "gradient_clipping": 1.0}
+    mcfg = _hf_config(tmp_path, arch, TINY_HF[arch])
+    alibi = arch == "bloom"
+    counter = tfa.flash_fwd_alibi_cuda if alibi else tfa.flash_attention
+    tok = np.random.default_rng(0).integers(0, 512, (4, 200))
+    runs = []
+    for dev in ("cpu", cuda_device):
+        model = CausalLM(mcfg, device="cpu", seed=0)
+        engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=cfg,
+                                                    device=dev)
+        before = counter.launches
+        losses = [float(engine.train_step((tok, tok))) for _ in range(3)]
+        assert (counter.launches > before) == (dev != "cpu")
         runs.append((losses, [p.cpu() for p in engine.master]))
     (lc, pc), (lg, pg) = runs
     np.testing.assert_allclose(lg, lc, rtol=1e-4)

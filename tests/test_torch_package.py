@@ -42,6 +42,7 @@ def test_import_leaves_jax_unloaded():
             "import deepspeed_tpu_torch, deepspeed_tpu_torch.serving\n"
             "import deepspeed_tpu_torch.models.convert\n"
             "import deepspeed_tpu_torch.runtime.engine\n"
+            "import deepspeed_tpu_torch.module_inject\n"
             "print(sorted(jaxish() - before))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env={**os.environ, "PYTHONPATH": str(ROOT)},
@@ -190,8 +191,7 @@ def test_unported_training_config_sections_are_refused(section):
 
 
 @pytest.mark.parametrize("over", [
-    {"dropout": 0.1}, {"num_experts": 4}, {"parallel_residual": True},
-    {"position": "alibi"},
+    {"dropout": 0.1}, {"num_experts": 4},
     {"remat": True, "remat_policy": "offload_dots"}])
 def test_unported_training_model_options_are_refused(over):
     import deepspeed_tpu_torch
