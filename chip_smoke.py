@@ -19,7 +19,8 @@ Needs one CUDA card, nvcc and triton; imports nothing of JAX.  Phases
              memory a block of each wgmma flash kernel takes (forward, dQ,
              dK/dV);
 2. kernels — each kernel against its plain PyTorch version at the serving
-             path's shapes, fp32 and bf16, with the tolerances of TOL below
+             path's shapes, fp32 and bf16 (and fp16 for the kernels of the
+             fp16 training path), with the tolerances of TOL below
              (the flash-decode kernel at depths 1..1024 across page
              boundaries, a shuffled page table, 256- and 16-token pages),
              then CUDA-event timings (median of 50 samples of 20 calls;
@@ -48,6 +49,13 @@ Needs one CUDA card, nvcc and triton; imports nothing of JAX.  Phases
              device time of the flash forward and of each of the
              backward's three kernels (delta, dQ, dK/dV; also at
              gpt2-xl's shape);
+             the same checks and timings for the fp16 instances of the
+             flash kernels (every head dim, with and without ALiBi, beside
+             SDPA in fp16) and of fused Adam (fp16 params, beside
+             ``AdamW(fused=True)`` over fp16 params), RMSNorm, LayerNorm
+             and RoPE in fp16, and the overflow check: do past fp16's
+             range gives non-finite grads, and grads past it come out inf
+             where the plain fp32 value is past 65520, never clamped;
              then the four decode kernels again at gpt2-xl's shapes and
              branches ([8, 1600], LayerNorm with a bias, tanh-GeLU without
              a gate, 25 heads of 64 with one query head per KV head) and
@@ -103,8 +111,11 @@ Needs one CUDA card, nvcc and triton; imports nothing of JAX.  Phases
              ``scaled_masked_softmax`` with a causal mask and ``bias_act``
              at gpt2-xl's shapes, ``quantize`` -> ``dequantize`` (8 and 4
              bits) and ``pack_int4`` -> ``unpack_int4`` on the
-             [24, 2048, 5632] fp32 leaf; their launches are counted over
-             this phase;
+             [24, 2048, 5632] fp32 leaf; the fp16 instances on no train
+             path: bloom-1b7's attention in fp16 through
+             ``flash_attention(..., alibi=True)`` forward and backward and
+             an fp16 leaf through ``fused_adam_update``; their launches
+             are counted over this phase;
 4. serve   — the main path: ``init_serving(causal_lm("llama3-8b"),
              {"dtype": "bfloat16", ...})`` with the default decode (fused)
              at full width and depth with random bf16 weights from seed 0,
@@ -135,7 +146,13 @@ Needs one CUDA card, nvcc and triton; imports nothing of JAX.  Phases
              repeated batch of seeded random tokens; losses finite and
              falling, launch counters (zeroed just before, read just
              after) equal to the path's plan; then one step under
-             torch.profiler; then the same for ``gpt2-xl`` at full width and
+             torch.profiler; then ``fp16_train``: the same cell with
+             ``"fp16": {"enabled": true}`` in place of bf16 (fp16 compute
+             over fp32 masters, dynamic loss scale from 2^16), five
+             applied steps after any skipped for an overflow, each step's
+             loss scale and skip flag printed, the fp16 flash kernels'
+             launches equal to the plan, its median step beside the bf16
+             phase's; then the same for ``gpt2-xl`` at full width and
              depth (micro 8 x gas 2 x S 1024, the preset's full-layer
              remat); then llama-1b4 twice more, the same way: config A
              (``adam8bit_train``: ``bf16.master_weights: false``, a bf16
@@ -174,10 +191,11 @@ BF16_FLOPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 # order: ~sqrt(K) * 2^-24 of the partial sums); fp32 attention 2e-4 (online
 # vs dense softmax, the bound tests/unit/test_fused_decode.py holds); bf16
 # 2e-2 (one bf16 rounding of each output, and of the rows rounded before a
-# product)
-TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# product); fp16 (the norms, RoPE, flash attention and Adam of the fp16
+# training path) the bf16 bound over 8: fp16 keeps three more mantissa bits
+TOL = {"float32": 1e-5, "bfloat16": 2e-2, "float16": 2.5e-3}
 GEMV_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
-ATTN_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+ATTN_TOL = {"float32": 2e-4, "bfloat16": 2e-2, "float16": 2.5e-3}
 # llama3-8b decode shapes: 8 slots
 B, D, H, HKV, DH, F = 8, 4096, 32, 8, 128, 14336
 NQKV = (H + 2 * HKV) * DH
@@ -339,12 +357,52 @@ def _assert_close(torch, got, want, tol, what):
     return float((got.float() - want.float()).abs().max())
 
 
+def _assert_f16_ulp(torch, got, want, what):
+    """fp16 got within one fp16 ulp of want in every element (the same fp32
+    value on each side, rounded to fp16: a hair between the two fp32
+    values can straddle a rounding boundary, no more); max abs err."""
+    w = want.float()
+    ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w).exponent - 11)
+    ulp = torch.where(w == 0, 2.0 ** -24, ulp.clamp_min(2.0 ** -24))
+    d = (got.float() - w).abs()
+    worst = float((d / ulp).max())
+    check(worst <= 1, f"{what} disagrees with its plain version: {worst:g} "
+          f"fp16 ulps apart")
+    return float(d.max())
+
+
+def _check_adam_f16_step(torch, adam, before, after, g, step, kw, what):
+    """One fp16-param Adam step, from the state ``before`` (p, m, v) to
+    ``after``, held to the plain version's step from the same state: p
+    within one fp16 ulp (the same fp32 update, each side rounded to fp16;
+    held step by step, since an ulp carried from a larger |p| is many ulps
+    of a p that lands near zero), m and v within ADAM_TOL (near 0.1 under
+    unit grads, far above it).  Returns (p max abs err, m/v max abs err,
+    the count of p's elements that differ)."""
+    ref = [t.clone() for t in before]
+    adam.fused_adam_update_plain(ref[0], g, ref[1], ref[2], step, **kw)
+    e_p = _assert_f16_ulp(torch, after[0], ref[0], f"{what} p, step {step}")
+    e_mv = max(_assert_close(torch, got, want, ADAM_TOL,
+                             f"{what} {name}, step {step}")
+               for got, want, name in zip(after[1:], ref[1:], ("m", "v")))
+    return e_p, e_mv, int((after[0] != ref[0]).sum())
+
+
+def _check_moved(torch, p, p0, what):
+    """More than 98 % of p moved from p0 (lr 1e-2 x step moves it by many
+    fp16 ulps): a kernel that never writes p back fails."""
+    moved = float((p != p0).float().mean())
+    check(moved > 0.98, f"{what}: only {moved:.4f} of p moved in 3 steps")
+    return moved
+
+
 def check_old_kernels(torch, dev, gen):
-    """RMSNorm and RoPE against their plain versions; bf16 max abs errors."""
+    """RMSNorm and RoPE against their plain versions, fp32, bf16 and fp16;
+    bf16 and fp16 max abs errors."""
     from deepspeed_tpu_torch.ops.kernels import layer_norm, rope
 
-    errs = {"rms_norm": 0.0, "rope": 0.0}
-    for dtype_name in ("float32", "bfloat16"):
+    errs = {"rms_norm": 0.0, "rope": 0.0, "rms_norm_f16": 0.0, "rope_f16": 0.0}
+    for dtype_name in ("float32", "bfloat16", "float16"):
         dt = getattr(torch, dtype_name)
         for rows in (8, 64):
             x = _randn(torch, (rows, D), gen, dev, 3).to(dt)
@@ -352,9 +410,10 @@ def check_old_kernels(torch, dev, gen):
             y = layer_norm.rms_norm_cuda(x, g, 1e-5)
             torch.cuda.synchronize()
             e = _assert_close(torch, y, layer_norm.rms_norm_plain(x, g, 1e-5),
-                              TOL[dtype_name], "rms_norm")
-            if dtype_name == "bfloat16":
-                errs["rms_norm"] = max(errs["rms_norm"], e)
+                              TOL[dtype_name], f"rms_norm {dtype_name}")
+            if dtype_name != "float32":
+                key = "rms_norm" + ("_f16" if dtype_name == "float16" else "")
+                errs[key] = max(errs[key], e)
         for heads in (H, HKV):
             x = _randn(torch, (1, heads, 64, DH), gen, dev).to(dt)
             cos, sin = rope.rope_angles(torch.arange(64, device=dev), DH,
@@ -363,9 +422,10 @@ def check_old_kernels(torch, dev, gen):
             y = rope.rope_triton(x, cos, sin)
             torch.cuda.synchronize()
             e = _assert_close(torch, y, rope.rope_plain(x, cos, sin),
-                              TOL[dtype_name], "rope")
-            if dtype_name == "bfloat16":
-                errs["rope"] = max(errs["rope"], e)
+                              TOL[dtype_name], f"rope {dtype_name}")
+            if dtype_name != "float32":
+                key = "rope" + ("_f16" if dtype_name == "float16" else "")
+                errs[key] = max(errs[key], e)
     return errs
 
 
@@ -1067,13 +1127,15 @@ TB, TS, TD, TH, TDH, TL, TF = 4, 2048, 2048, 16, 128, 24, 5632
 # recomputed products in another order), bf16 2e-2 (p and ds rounded to
 # bf16 before each product, as the reference kernel does); RMSNorm dγ (a
 # sum over 8192 rows) relative 1e-4 fp32 / 2e-2 bf16; Adam 1e-6 (the same
-# fp32 formula, three steps)
-GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# fp32 formula, three steps); fp16 the bf16 bounds over 8 (three more
+# mantissa bits), and an fp16 Adam param TOL (one rounding of the update)
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 2.5e-3}
 # flash output o, relative Frobenius on top of the elementwise ATTN_TOL:
 # late causal rows average many keys, so |o| there is ~0.04 and a fixed
 # 2e-2 atol alone would hide an error of a quarter of them; fp32 1e-5, bf16
-# 1e-2 (p rounded to bf16 before P.V, then o to bf16; measured ~3e-3)
-O_REL_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# 1e-2 (p rounded to bf16 before P.V, then o to bf16; measured ~3e-3), fp16
+# 1.25e-3 (the same roundings in fp16)
+O_REL_TOL = {"float32": 1e-5, "bfloat16": 1e-2, "float16": 1.25e-3}
 ADAM_TOL = 1e-6
 
 
@@ -1099,10 +1161,9 @@ def check_flash(torch, dev, gen, dtype_name, shape, alibi=False):
     abs err, grads max rel err)."""
     from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
 
-    fwd = fa.flash_fwd_alibi_cuda if alibi else fa.flash_fwd_cuda
-    bwd = fa.flash_attention_bwd_alibi if alibi else fa.flash_attention_bwd
-    what = f"flash{' alibi' if alibi else ''}"
     dt = getattr(torch, dtype_name)
+    fwd, bwd = fa.wrappers(dt, alibi)     # the instances of dt and ALiBi
+    what = f"flash{' alibi' if alibi else ''}"
     q, k, v, do = (_randn(torch, shape, gen, dev).to(dt) for _ in range(4))
     scale = shape[-1] ** -0.5
     bias = fa._alibi_ref_bias(q, k, alibi)
@@ -1132,9 +1193,10 @@ def check_flash(torch, dev, gen, dtype_name, shape, alibi=False):
 
 def check_train_kernels(torch, dev, gen):
     """The training path's kernels against their plain versions at the
-    training shapes (and a ragged S), fp32 and bf16: the four new ones, and
-    RMSNorm fwd and RoPE (fwd, and bwd through -sin) that serving also
-    runs; bf16 max abs errors."""
+    training shapes (and a ragged S, and llama-tiny's head dim 32), fp32,
+    bf16 and fp16: the four new ones, and RMSNorm fwd and RoPE (fwd, and
+    bwd through -sin) that serving also runs; bf16 and fp16 max abs errors
+    (fp16's keys end in ``_f16``)."""
     from deepspeed_tpu_torch.models.layers import rope_cache
     from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
     from deepspeed_tpu_torch.ops.kernels import fused_adam as adam
@@ -1142,15 +1204,17 @@ def check_train_kernels(torch, dev, gen):
     from deepspeed_tpu_torch.ops.kernels import rope
 
     errs = {}
-    for dtype_name in ("float32", "bfloat16"):
+    for dtype_name in ("float32", "bfloat16", "float16"):
         dt = getattr(torch, dtype_name)
-        for shape in ((TB, TH, TS, TDH), (2, 3, 200, TDH)):
+        f16 = "_f16" if dtype_name == "float16" else ""
+        for shape in ((TB, TH, TS, TDH), (2, 3, 200, TDH), (2, 8, 333, 32)):
             e_o, rel_o, e_g, rel = check_flash(torch, dev, gen, dtype_name, shape)
             print(f"train kernels: flash {dtype_name} {list(shape)}: o max abs "
                   f"err {e_o:.3g}, relative (Frobenius) {rel_o:.3g}; dq/dk/dv "
                   f"max abs err {e_g:.3g}, max relative (Frobenius) {rel:.3g}")
-            if dtype_name == "bfloat16" and shape[2] == TS:
-                errs["flash_attention_fwd"], errs["flash_attention_bwd"] = e_o, e_g
+            if dtype_name != "float32" and shape[2] == TS:
+                errs["flash_attention_fwd" + f16] = e_o
+                errs["flash_attention_bwd" + f16] = e_g
         # RoPE on q [4, 16, 2048, 128] with the path's cos/sin (rope_cache,
         # cast to the compute dtype): the forward, and the backward's -sin
         x = _randn(torch, (TB, TH, TS, TDH), gen, dev).to(dt)
@@ -1162,8 +1226,8 @@ def check_train_kernels(torch, dev, gen):
                               f"rope ({sign}) {dtype_name} train shape")
             print(f"train kernels: rope {dtype_name} {list(x.shape)} ({sign}): "
                   f"max abs err {e:.3g}")
-            if dtype_name == "bfloat16":
-                errs["rope_train"] = max(errs.get("rope_train", 0.0), e)
+            if dtype_name != "float32":
+                errs["rope_train" + f16] = max(errs.get("rope_train" + f16, 0.0), e)
         x = _randn(torch, (TB * TS, TD), gen, dev, 3).to(dt)
         g = (1 + 0.1 * torch.randn(TD, device=dev, generator=gen)).to(dt)
         e = _assert_close(torch, ln.rms_norm_cuda(x, g, 1e-5),
@@ -1171,8 +1235,8 @@ def check_train_kernels(torch, dev, gen):
                           f"rms_norm {dtype_name} train shape")
         print(f"train kernels: rms_norm {dtype_name} [8192, 2048]: max abs err "
               f"{e:.3g}")
-        if dtype_name == "bfloat16":
-            errs["rms_norm_train"] = e
+        if dtype_name != "float32":
+            errs["rms_norm_train" + f16] = e
         dy = _randn(torch, (TB * TS, TD), gen, dev).to(dt)
         dx, dg = ln.rms_norm_bwd_cuda(x, g, dy, 1e-5)
         dx2, dg2 = ln.rms_norm_bwd_cuda(x, g, dy, 1e-5)
@@ -1187,8 +1251,8 @@ def check_train_kernels(torch, dev, gen):
               f"relative error {rel}")
         print(f"train kernels: rms_norm_bwd {dtype_name} [8192, 2048]: dx max "
               f"abs err {e:.3g}, dγ relative {rel:.3g}")
-        if dtype_name == "bfloat16":
-            errs["rms_norm_bwd"] = e
+        if dtype_name != "float32":
+            errs["rms_norm_bwd" + f16] = e
         del x, dy, dx, dx2, want_dx
     # Adam: the path's case (fp32 masters and accumulator) and bf16 grads
     n = TL * TD * TF
@@ -1211,29 +1275,102 @@ def check_train_kernels(torch, dev, gen):
         if g_name == "float32":
             errs["fused_adam"] = e
         del p, m, v, ref, gr
+    # the fp16-param instance (the op library's path for an fp16 leaf):
+    # fp16 params and unit-scale fp16 grads, three steps at lr 1e-2 x step,
+    # so each step moves p by ~1e-2, many fp16 ulps (_check_adam_f16_step)
+    p = _randn(torch, (n,), gen, dev).half()
+    m, v = torch.zeros(n, device=dev), torch.zeros(n, device=dev)
+    p0, e, e_mv, n_diff = p.clone(), 0.0, 0.0, 0
+    for step in (1, 2, 3):
+        gr = _randn(torch, (n,), gen, dev).half()
+        kw = dict(lr=1e-2 * step, beta1=0.9, beta2=0.95, eps=1e-8,
+                  weight_decay=0.1, adam_w_mode=True)
+        before = (p.clone(), m.clone(), v.clone())
+        adam.fused_adam_update_f16_cuda(p, gr, m, v, step, **kw)
+        e_s, e_mv_s, d = _check_adam_f16_step(torch, adam, before, (p, m, v),
+                                              gr, step, kw, "fused_adam f16")
+        e, e_mv, n_diff = max(e, e_s), max(e_mv, e_mv_s), n_diff + d
+        del before
+    moved = _check_moved(torch, p, p0, "fused_adam f16")
+    print(f"train kernels: fused_adam fp16 params and grads, [{n}] x 3 steps, "
+          f"each from the same state as its plain version: p max abs err "
+          f"{e:.3g} ({n_diff} of 3 x {n} differ, by one ulp at most; {moved:.5f}"
+          f" of p moved), m/v {e_mv:.3g}")
+    errs["fused_adam_f16"] = e
+    del p, p0, m, v, gr
     torch.cuda.empty_cache()
     return errs
 
 
+def check_flash_overflow(torch, dev):
+    """What the fp16 loss scaler needs of the fp16 flash kernels, with and
+    without ALiBi, at [1, 4, 2048, 128]: do scaled past fp16's range (2^16
+    times standard normal values: inf wherever |do| > ~1) gives non-finite
+    dq, dk and dv; and a finite do of 30000 in every element makes dv_j =
+    30000 times column j's sum of p, past fp16's range for the early keys:
+    the kernel's dv is inf wherever the plain version's fp32 value is past
+    65520 * 1.01, and finite wherever it is below 65504 * 0.99 (no clamp to
+    the largest finite value).  Head 3's slope 2^-8 keeps ~256 keys in view
+    under ALiBi.  Returns the count of inf elements of dv in that head."""
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    q, k, v, do = (_randn(torch, (1, 4, TS, TDH), gen, dev).half() for _ in range(4))
+    scale = TDH ** -0.5
+    out = {}
+    for alibi in (False, True):
+        fwd, bwd = fa.wrappers(torch.float16, alibi)
+        o, lse = fwd(q, k, v, True, scale)
+        past = (do.float() * 65536).half()
+        grads = bwd(q, k, v, o, lse, past, True, scale)
+        torch.cuda.synchronize()
+        check(bool(torch.isinf(past).any()) and all(
+            not bool(torch.isfinite(g).all()) for g in grads),
+            f"flash f16 (alibi {alibi}): do past fp16's range left a grad finite")
+        big = torch.full_like(do, 30000.0)
+        dv = bwd(q, k, v, o, lse, big, True, scale)[2][0, 3].float()
+        ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
+        fa.mha_reference(*ref, bias=fa._alibi_ref_bias(q, k, alibi)).backward(
+            big.float())
+        want = ref[2].grad[0, 3].abs()
+        over = want > 65520 * 1.01
+        check(bool(over.any()) and bool(torch.isinf(dv[over]).all())
+              and bool(torch.isfinite(dv[want < 65504 * 0.99]).all()),
+              f"flash f16 (alibi {alibi}): dv past fp16's range is not inf")
+        out[alibi] = int(torch.isinf(dv).sum())
+        print(f"train kernels: flash fp16 overflow (alibi {alibi}): do x 2^16 "
+              f"gives non-finite dq, dk, dv; do = 30000 gives {out[alibi]} inf "
+              f"of dv's {dv.numel()} in head 3, where the plain fp32 value is "
+              f"past 65520 ({int(over.sum())} past 1.01 x)")
+        del grads, dv, ref, want
+    torch.cuda.empty_cache()
+    return out
+
+
 def check_alibi_flash(torch, dev, gen):
     """The ALiBi instances of the flash kernels against their plain version:
-    bloom-1b7's training shape [4, 16, 2048, 128] in bf16, and 12 heads
-    (slopes that interpolate) at head dims 64 and 32 and a ragged S, fp32
-    and bf16; bf16 max abs errors at the training shape."""
+    bloom-1b7's training shape [4, 16, 2048, 128] in bf16 and fp16, and 12
+    heads (slopes that interpolate) at head dims 64 and 32 and a ragged S,
+    fp32, bf16 and fp16; bf16 and fp16 max abs errors at the training
+    shape."""
     errs = {}
     for dtype_name, shape in (("bfloat16", (TB, TH, TS, TDH)),
+                              ("float16", (TB, TH, TS, TDH)),
                               ("float32", (2, 12, 200, 64)),
                               ("bfloat16", (2, 12, 200, 64)),
+                              ("float16", (2, 12, 200, 64)),
                               ("float32", (2, 12, 333, 32)),
-                              ("bfloat16", (2, 12, 333, 32))):
+                              ("bfloat16", (2, 12, 333, 32)),
+                              ("float16", (2, 12, 333, 32))):
         e_o, rel_o, e_g, rel = check_flash(torch, dev, gen, dtype_name, shape,
                                            alibi=True)
         print(f"alibi kernels: flash {dtype_name} {list(shape)}: o max abs err "
               f"{e_o:.3g}, relative (Frobenius) {rel_o:.3g}; dq/dk/dv max abs "
               f"err {e_g:.3g}, max relative (Frobenius) {rel:.3g}")
         if shape == (TB, TH, TS, TDH):
-            errs["flash_attention_fwd_alibi"] = e_o
-            errs["flash_attention_bwd_alibi"] = e_g
+            f16 = "_f16" if dtype_name == "float16" else ""
+            errs[f"flash_attention_fwd{f16}_alibi"] = e_o
+            errs[f"flash_attention_bwd{f16}_alibi"] = e_g
         else:   # (o, grads) max abs errors
             key = f"d{shape[-1]}_s{shape[2]}_{dtype_name}"
             errs.setdefault("alibi_h12", {})[key] = [e_o, e_g]
@@ -1250,7 +1387,15 @@ FLASH_KERNELS = {"fwd": ("flash_fwd_wgmma_kernel",),
                  "fwd_alibi": ("flash_fwd_wgmma_alibi_kernel",),
                  "bwd_alibi": ("flash_bwd_dq_wgmma_alibi_kernel",
                                "flash_bwd_delta_kernel",
-                               "flash_bwd_dkv_wgmma_alibi_kernel")}
+                               "flash_bwd_dkv_wgmma_alibi_kernel"),
+                 "fwd_f16": ("flash_fwd_wgmma_f16_kernel",),
+                 "bwd_f16": ("flash_bwd_dq_wgmma_f16_kernel",
+                             "flash_bwd_delta_f16_kernel",
+                             "flash_bwd_dkv_wgmma_f16_kernel"),
+                 "fwd_f16_alibi": ("flash_fwd_wgmma_f16_alibi_kernel",),
+                 "bwd_f16_alibi": ("flash_bwd_dq_wgmma_f16_alibi_kernel",
+                                   "flash_bwd_delta_f16_kernel",
+                                   "flash_bwd_dkv_wgmma_f16_alibi_kernel")}
 
 
 def kernel_split(torch, call, names, what):
@@ -1283,12 +1428,72 @@ def flash_split(torch, call, what, shape):
     return kernel_split(torch, call, FLASH_KERNELS[what], f"flash {what} {shape}")
 
 
-def time_train_kernels(torch, dev, gen, errs):
-    """bf16 at the llama-1b4 training shapes (Adam: fp32 masters and grads
-    over the [24, 2048, 5632] MLP leaf)."""
+def _time_flash(torch, dev, gen, errs, dt):
+    """The flash forward and backward instances of ``dt`` (bf16 or fp16) at
+    llama-1b4's training shape, beside the plain version, SDPA on the same
+    inputs and the bound (the same for both types: Hopper runs dense fp16
+    and bf16 at one tensor-core rate)."""
     import torch.nn.functional as F_
 
     from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+
+    f16 = "_f16" if dt == torch.float16 else ""
+    name = "fp16" if f16 else "bf16"
+    fwd, bwd = fa.wrappers(dt, False)
+    out = {}
+    shape = (TB, TH, TS, TDH)
+    q, k, v, do = (_randn(torch, shape, gen, dev).to(dt) for _ in range(4))
+    scale = TDH ** -0.5
+    causal_pairs = TB * TH * TS * (TS + 1) // 2        # (row, key) pairs visible
+    fwd_flops = 4 * causal_pairs * TDH                 # q k^T and p v
+    b_ms, b_by = bound_ms(4 * q.numel() * 2 + TB * TH * TS * 4, fwd_flops,
+                          BF16_FLOPS_PER_S)
+    out["flash_attention_fwd" + f16] = {
+        "shape": f"q, k, v [4,16,2048,128] {name}, causal",
+        "ms": time_ms(torch, lambda: fwd(q, k, v, True, scale),
+                      samples=20, inner=10),
+        "plain_ms": time_ms(torch, lambda: fa.mha_reference(q, k, v), samples=5,
+                            inner=3, warmup=2),
+        "library_ms": time_ms(torch, lambda: F_.scaled_dot_product_attention(
+            q, k, v, is_causal=True), samples=20, inner=10),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "max_abs_err": errs["flash_attention_fwd" + f16],
+        "device_us_split": flash_split(torch, lambda: fwd(
+            q, k, v, True, scale), "fwd" + f16, "[4,16,2048,128]")}
+    o, lse = fwd(q, k, v, True, scale)
+    # the backward's least work: the five products s, dp, dv, dq, dk
+    b_ms, b_by = bound_ms(8 * q.numel() * 2 + TB * TH * TS * 4,
+                          2.5 * fwd_flops, BF16_FLOPS_PER_S)
+    ref = [t.float().requires_grad_() for t in (q, k, v)]
+    ref_out = fa.mha_reference(*ref)
+    lib = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    lib_out = F_.scaled_dot_product_attention(*lib, is_causal=True)
+    out["flash_attention_bwd" + f16] = {
+        "shape": f"q, k, v, o, do [4,16,2048,128] {name}, causal (three "
+                 f"launches: delta, dQ, dK/dV)",
+        "ms": time_ms(torch, lambda: bwd(
+            q, k, v, o, lse, do, True, scale), samples=20, inner=5),
+        "plain_ms": time_ms(torch, lambda: torch.autograd.grad(
+            ref_out, ref, do.float(), retain_graph=True), samples=5, inner=3,
+            warmup=2),
+        "library_ms": time_ms(torch, lambda: torch.autograd.grad(
+            lib_out, lib, do, retain_graph=True), samples=20, inner=5),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "max_abs_err": errs["flash_attention_bwd" + f16],
+        "device_us_split": flash_split(torch, lambda: bwd(
+            q, k, v, o, lse, do, True, scale), "bwd" + f16, "[4,16,2048,128]")}
+    del q, k, v, do, o, lse, ref, ref_out, lib, lib_out
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_train_kernels(torch, dev, gen, errs):
+    """bf16 at the llama-1b4 training shapes (Adam: fp32 masters and grads
+    over the [24, 2048, 5632] MLP leaf); the flash kernels' fp16 instances
+    at the same shape beside SDPA in fp16, and Adam's fp16-param instance
+    on the leaf beside ``AdamW(fused=True)`` over fp16 params."""
+    import torch.nn.functional as F_
+
     from deepspeed_tpu_torch.ops.kernels import fused_adam as adam
     from deepspeed_tpu_torch.ops.kernels import layer_norm as ln
 
@@ -1312,50 +1517,8 @@ def time_train_kernels(torch, dev, gen, errs):
         "max_abs_err": errs["rms_norm_bwd"]}
     del x, dy, lx, lg, ly
 
-    shape = (TB, TH, TS, TDH)
-    q, k, v, do = (_randn(torch, shape, gen, dev).to(bf) for _ in range(4))
-    scale = TDH ** -0.5
-    causal_pairs = TB * TH * TS * (TS + 1) // 2        # (row, key) pairs visible
-    fwd_flops = 4 * causal_pairs * TDH                 # q k^T and p v
-    b_ms, b_by = bound_ms(4 * q.numel() * 2 + TB * TH * TS * 4, fwd_flops,
-                          BF16_FLOPS_PER_S)
-    out["flash_attention_fwd"] = {
-        "shape": "q, k, v [4,16,2048,128] bf16, causal",
-        "ms": time_ms(torch, lambda: fa.flash_fwd_cuda(q, k, v, True, scale),
-                      samples=20, inner=10),
-        "plain_ms": time_ms(torch, lambda: fa.mha_reference(q, k, v), samples=5,
-                            inner=3, warmup=2),
-        "library_ms": time_ms(torch, lambda: F_.scaled_dot_product_attention(
-            q, k, v, is_causal=True), samples=20, inner=10),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "max_abs_err": errs["flash_attention_fwd"],
-        "device_us_split": flash_split(torch, lambda: fa.flash_fwd_cuda(
-            q, k, v, True, scale), "fwd", "[4,16,2048,128]")}
-    o, lse = fa.flash_fwd_cuda(q, k, v, True, scale)
-    # the backward's least work: the five products s, dp, dv, dq, dk
-    b_ms, b_by = bound_ms(8 * q.numel() * 2 + TB * TH * TS * 4,
-                          2.5 * fwd_flops, BF16_FLOPS_PER_S)
-    ref = [t.float().requires_grad_() for t in (q, k, v)]
-    ref_out = fa.mha_reference(*ref)
-    lib = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-    lib_out = F_.scaled_dot_product_attention(*lib, is_causal=True)
-    out["flash_attention_bwd"] = {
-        "shape": "q, k, v, o, do [4,16,2048,128] bf16, causal (three launches:"
-                 " delta, dQ, dK/dV)",
-        "ms": time_ms(torch, lambda: fa.flash_attention_bwd(
-            q, k, v, o, lse, do, True, scale), samples=20, inner=5),
-        "plain_ms": time_ms(torch, lambda: torch.autograd.grad(
-            ref_out, ref, do.float(), retain_graph=True), samples=5, inner=3,
-            warmup=2),
-        "library_ms": time_ms(torch, lambda: torch.autograd.grad(
-            lib_out, lib, do, retain_graph=True), samples=20, inner=5),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "max_abs_err": errs["flash_attention_bwd"],
-        "device_us_split": flash_split(torch, lambda: fa.flash_attention_bwd(
-            q, k, v, o, lse, do, True, scale), "bwd", "[4,16,2048,128]")}
-    del q, k, v, do, o, lse, ref, ref_out, lib, lib_out
-    torch.cuda.empty_cache()
-
+    for dt in (bf, torch.float16):
+        out.update(_time_flash(torch, dev, gen, errs, dt))
     n = TL * TD * TF
     p, gr = _randn(torch, (n,), gen, dev), _randn(torch, (n,), gen, dev, 1e-3)
     m, v = torch.zeros(n, device=dev), torch.zeros(n, device=dev)
@@ -1375,6 +1538,25 @@ def time_train_kernels(torch, dev, gen, errs):
         "library_ms": time_ms(torch, lib_opt.step, samples=20, inner=5),
         "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": errs["fused_adam"]}
     del p, gr, m, v, lp, lib_opt
+    # the fp16-param instance: fp16 p and g, fp32 m and v (22 bytes a
+    # parameter); PyTorch's fused AdamW over fp16 params keeps fp16 moments
+    p, gr = _randn(torch, (n,), gen, dev).half(), _randn(torch, (n,), gen, dev, 1e-3).half()
+    m, v = torch.zeros(n, device=dev), torch.zeros(n, device=dev)
+    b_ms, b_by = bound_ms(22 * n, 16 * n)
+    lp = p.clone().requires_grad_()
+    lp.grad = gr.clone()
+    lib_opt = torch.optim.AdamW([lp], lr=3e-4, betas=(0.9, 0.95), eps=1e-8,
+                                weight_decay=0.1, fused=True)
+    out["fused_adam_f16"] = {
+        "shape": f"fp16 params and grads, fp32 m, v [{n}] (the [24,2048,5632] "
+                 f"MLP leaf)",
+        "ms": time_ms(torch, lambda: adam.fused_adam_update_f16_cuda(
+            p, gr, m, v, 5, **kw), samples=20, inner=5),
+        "plain_ms": time_ms(torch, lambda: adam.fused_adam_update_plain(
+            p, gr, m, v, 5, **kw), samples=5, inner=3, warmup=2),
+        "library_ms": time_ms(torch, lib_opt.step, samples=20, inner=5),
+        "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": errs["fused_adam_f16"]}
+    del p, gr, m, v, lp, lib_opt
     torch.cuda.empty_cache()
     return out
 
@@ -1392,39 +1574,50 @@ def alibi_causal_mask(torch, H, S, dev, dtype):
 
 def time_alibi_flash(torch, dev, gen, errs):
     """The ALiBi flash kernels at bloom-1b7's training shape [4, 16, 2048,
-    128] bf16, causal: the call beside the plain version and SDPA given the
-    ALiBi + causal bias as a float mask (the library's nearest call; timed
-    only), forward and forward + backward, with each kernel's device time.
-    The bound is the non-ALiBi rows' (the same products; the bias is
-    elementwise work under them)."""
+    128], bf16 and fp16, causal: the call beside the plain version and SDPA
+    given the ALiBi + causal bias as a float mask (the library's nearest
+    call; timed only), forward and forward + backward, with each kernel's
+    device time.  The bound is the non-ALiBi rows' (the same products; the
+    bias is elementwise work under them)."""
+    out = {}
+    for dt in (torch.bfloat16, torch.float16):
+        out.update(_time_alibi_flash(torch, dev, gen, errs, dt))
+    for name in out:
+        out[name]["max_abs_err_h12"] = errs["alibi_h12"]
+    return out
+
+
+def _time_alibi_flash(torch, dev, gen, errs, dt):
     import torch.nn.functional as F_
 
     from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
 
-    bf = torch.bfloat16
+    f16 = "_f16" if dt == torch.float16 else ""
+    name = "fp16" if f16 else "bf16"
+    fwd, bwd = fa.wrappers(dt, True)
     shape = (TB, TH, TS, TDH)
-    q, k, v, do = (_randn(torch, shape, gen, dev).to(bf) for _ in range(4))
+    q, k, v, do = (_randn(torch, shape, gen, dev).to(dt) for _ in range(4))
     scale = TDH ** -0.5
     bias = fa._alibi_ref_bias(q, k, True)
-    mask = alibi_causal_mask(torch, TH, TS, dev, bf)
+    mask = alibi_causal_mask(torch, TH, TS, dev, dt)
     causal_pairs = TB * TH * TS * (TS + 1) // 2
     fwd_flops = 4 * causal_pairs * TDH
     out = {}
     b_ms, b_by = bound_ms(4 * q.numel() * 2 + TB * TH * TS * 4, fwd_flops,
                           BF16_FLOPS_PER_S)
-    out["flash_attention_fwd_alibi"] = {
-        "shape": "q, k, v [4,16,2048,128] bf16, causal, ALiBi",
-        "ms": time_ms(torch, lambda: fa.flash_fwd_alibi_cuda(q, k, v, True, scale),
+    out[f"flash_attention_fwd{f16}_alibi"] = {
+        "shape": f"q, k, v [4,16,2048,128] {name}, causal, ALiBi",
+        "ms": time_ms(torch, lambda: fwd(q, k, v, True, scale),
                       samples=20, inner=10),
         "plain_ms": time_ms(torch, lambda: fa.mha_reference(q, k, v, bias=bias),
                             samples=5, inner=3, warmup=2),
         "library_ms": time_ms(torch, lambda: F_.scaled_dot_product_attention(
             q, k, v, attn_mask=mask), samples=20, inner=10),
         "bound_ms": b_ms, "bound_by": b_by,
-        "max_abs_err": errs["flash_attention_fwd_alibi"],
-        "device_us_split": flash_split(torch, lambda: fa.flash_fwd_alibi_cuda(
-            q, k, v, True, scale), "fwd_alibi", "[4,16,2048,128]")}
-    o, lse = fa.flash_fwd_alibi_cuda(q, k, v, True, scale)
+        "max_abs_err": errs[f"flash_attention_fwd{f16}_alibi"],
+        "device_us_split": flash_split(torch, lambda: fwd(
+            q, k, v, True, scale), f"fwd{f16}_alibi", "[4,16,2048,128]")}
+    o, lse = fwd(q, k, v, True, scale)
     b_ms, b_by = bound_ms(8 * q.numel() * 2 + TB * TH * TS * 4,
                           2.5 * fwd_flops, BF16_FLOPS_PER_S)
     ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
@@ -1435,10 +1628,10 @@ def time_alibi_flash(torch, dev, gen, errs):
     def library_fwd_bwd():
         y = F_.scaled_dot_product_attention(*lib, attn_mask=mask)
         return torch.autograd.grad(y, lib, do)
-    out["flash_attention_bwd_alibi"] = {
-        "shape": "q, k, v, o, do [4,16,2048,128] bf16, causal, ALiBi (three "
-                 "launches: delta, dQ, dK/dV)",
-        "ms": time_ms(torch, lambda: fa.flash_attention_bwd_alibi(
+    out[f"flash_attention_bwd{f16}_alibi"] = {
+        "shape": f"q, k, v, o, do [4,16,2048,128] {name}, causal, ALiBi "
+                 f"(three launches: delta, dQ, dK/dV)",
+        "ms": time_ms(torch, lambda: bwd(
             q, k, v, o, lse, do, True, scale), samples=20, inner=5),
         "plain_ms": time_ms(torch, lambda: torch.autograd.grad(
             ref_out, ref, do.float(), retain_graph=True), samples=5, inner=3,
@@ -1448,15 +1641,12 @@ def time_alibi_flash(torch, dev, gen, errs):
         # forward and backward together, the kernels' and SDPA's
         "library_fwd_bwd_ms": time_ms(torch, library_fwd_bwd, samples=20,
                                       inner=5),
-        "fwd_bwd_ms": time_ms(torch, lambda: (fa.flash_fwd_alibi_cuda(
-            q, k, v, True, scale), fa.flash_attention_bwd_alibi(
+        "fwd_bwd_ms": time_ms(torch, lambda: (fwd(q, k, v, True, scale), bwd(
             q, k, v, o, lse, do, True, scale)), samples=20, inner=5),
         "bound_ms": b_ms, "bound_by": b_by,
-        "max_abs_err": errs["flash_attention_bwd_alibi"],
-        "device_us_split": flash_split(torch, lambda: fa.flash_attention_bwd_alibi(
-            q, k, v, o, lse, do, True, scale), "bwd_alibi", "[4,16,2048,128]")}
-    for name in out:
-        out[name]["max_abs_err_h12"] = errs["alibi_h12"]
+        "max_abs_err": errs[f"flash_attention_bwd{f16}_alibi"],
+        "device_us_split": flash_split(torch, lambda: bwd(
+            q, k, v, o, lse, do, True, scale), f"bwd{f16}_alibi", "[4,16,2048,128]")}
     del q, k, v, do, o, lse, ref, ref_out, lib, lib_out, bias, mask
     torch.cuda.empty_cache()
     return out
@@ -1676,17 +1866,28 @@ def _ln_inputs(torch, dev, gen, dt, shape):
     return x, g, b, dy
 
 
+def _gpt2_flash_check(torch, dev, gen, dtype_name):
+    e_o, rel_o, e_g, rel = check_flash(torch, dev, gen, dtype_name,
+                                       (GB, GH, GS, GDH))
+    print(f"gpt2 kernels: flash {dtype_name} {[GB, GH, GS, GDH]}: o max abs "
+          f"err {e_o:.3g}, relative (Frobenius) {rel_o:.3g}; dq/dk/dv max "
+          f"abs err {e_g:.3g}, max relative (Frobenius) {rel:.3g}")
+    torch.cuda.empty_cache()
+
+
 def check_gpt2_kernels(torch, dev, gen):
     """The gpt2 family's kernels against their plain versions, fp32 and
     bf16: LayerNorm fwd and bwd, scaled masked softmax, bias_act, and flash
-    attention at gpt2-xl's shape; bf16 max abs errors at the path shapes."""
+    attention at gpt2-xl's shape, and in fp16 LayerNorm and flash; bf16 and
+    fp16 max abs errors at the path shapes."""
     from deepspeed_tpu_torch.ops.kernels import layer_norm as ln
     from deepspeed_tpu_torch.ops.kernels import softmax as sm
 
     errs = {}
-    for dtype_name in ("float32", "bfloat16"):
+    for dtype_name in ("float32", "bfloat16", "float16"):
         dt = getattr(torch, dtype_name)
         bf = dtype_name == "bfloat16"
+        f16 = dtype_name == "float16"
         # one warp per row at D 1600 (training rows, decode rows, a ragged
         # row count), then the block-per-row path (n no multiple of the
         # 16-byte vector; n past a warp's registers)
@@ -1712,7 +1913,12 @@ def check_gpt2_kernels(torch, dev, gen):
                   f"{rel:.3g}, second call bit-equal")
             if bf and shape == (GB * GS, GD):
                 errs["layer_norm"], errs["layer_norm_bwd"] = e, e_dx
+            if f16 and shape == (GB * GS, GD):
+                errs["layer_norm_f16"], errs["layer_norm_bwd_f16"] = e, e_dx
             del x, dy, y, got, again, want
+        if f16:     # softmax and bias_act are on no fp16 path
+            _gpt2_flash_check(torch, dev, gen, dtype_name)
+            continue
         # a causal [S, S] bool mask and a per-sequence [B, 1, n] int padding
         # mask, each read through its strides; n = 1000 is no power of two
         causal = torch.ones(GS, GS, dtype=torch.bool, device=dev).tril()
@@ -1752,12 +1958,7 @@ def check_gpt2_kernels(torch, dev, gen):
             if bf:
                 errs["bias_act"] = max(errs.get("bias_act", 0.0), e)
         del x, y
-        e_o, rel_o, e_g, rel = check_flash(torch, dev, gen, dtype_name,
-                                           (GB, GH, GS, GDH))
-        print(f"gpt2 kernels: flash {dtype_name} {[GB, GH, GS, GDH]}: o max abs "
-              f"err {e_o:.3g}, relative (Frobenius) {rel_o:.3g}; dq/dk/dv max "
-              f"abs err {e_g:.3g}, max relative (Frobenius) {rel:.3g}")
-        torch.cuda.empty_cache()
+        _gpt2_flash_check(torch, dev, gen, dtype_name)
     # Adam on gpt2-xl's small leaves: the final norm's [1600] vector and a
     # stacked [48, 1600] norm leaf (fp32 masters and accumulator), three
     # steps against the plain update
@@ -1935,12 +2136,15 @@ def time_head_gemms(torch, dev, gen):
 def phase_kernels(torch, dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     errs = check_old_kernels(torch, dev, gen)
-    print(f"kernels vs plain: fp32 within 1e-5, bf16 within 2e-2; bf16 max "
-          f"abs err rms_norm {errs['rms_norm']:.3g}, rope {errs['rope']:.3g}")
+    print(f"kernels vs plain: fp32 within 1e-5, bf16 within 2e-2, fp16 within "
+          f"2.5e-3; max abs err rms_norm bf16 {errs['rms_norm']:.3g} / fp16 "
+          f"{errs['rms_norm_f16']:.3g}, rope {errs['rope']:.3g} / "
+          f"{errs['rope_f16']:.3g}")
     errs.update(check_decode_kernels(torch, dev, gen, "llama3-8b"))
     gpt2_decode = check_decode_kernels(torch, dev, gen, "gpt2-xl")
     errs.update(check_train_kernels(torch, dev, gen))
     errs.update(check_alibi_flash(torch, dev, gen))
+    overflow_inf = check_flash_overflow(torch, dev)
     errs.update(check_gpt2_kernels(torch, dev, gen))
     errs.update(check_optimizer_kernels(torch, dev, gen))
     errs["flash_decode_contig"] = check_contig_decode(torch, dev, gen)
@@ -1954,6 +2158,14 @@ def phase_kernels(torch, dev):
     out.update(time_generate_kernels(torch, dev, gen, errs))
     out["rms_norm"]["max_abs_err_train_shape"] = errs["rms_norm_train"]
     out["rope"]["max_abs_err_train_shape"] = errs["rope_train"]
+    # fp16 max abs errors of the kernels the fp16 path shares with bf16
+    for name in ("rms_norm", "rope"):
+        out[name]["max_abs_err_f16"] = errs[name + "_f16"]
+        out[name]["max_abs_err_train_shape_f16"] = errs[name + "_train_f16"]
+    for name in ("rms_norm_bwd", "layer_norm", "layer_norm_bwd"):
+        out[name]["max_abs_err_f16"] = errs[name + "_f16"]
+    out["flash_attention_bwd_f16"]["overflow_inf_dv"] = overflow_inf[False]
+    out["flash_attention_bwd_f16_alibi"]["overflow_inf_dv"] = overflow_inf[True]
     for name, e in gpt2_decode.items():
         out[name]["max_abs_err_gpt2_shape"] = e
     out["fused_adam"]["max_abs_err_gpt2_shape"] = errs["fused_adam_gpt2"]
@@ -2057,7 +2269,9 @@ KERNELS = ("rms_norm", "rope", "fused_norm_qkv", "flash_decode",
            "quantize", "fused_adam8bit", "fused_lamb_phase1", "fused_lamb_scale",
            "flash_decode_contig", "fused_norm_qkv_int8", "fused_proj_norm_int8",
            "fused_mlp_int8", "flash_attention_fwd_alibi",
-           "flash_attention_bwd_alibi")
+           "flash_attention_bwd_alibi", "flash_attention_fwd_f16",
+           "flash_attention_bwd_f16", "flash_attention_fwd_f16_alibi",
+           "flash_attention_bwd_f16_alibi", "fused_adam_f16")
 
 
 def launch_counters():
@@ -2070,6 +2284,7 @@ def launch_counters():
                                                  scaled_masked_softmax)
     from deepspeed_tpu_torch.ops.kernels import decode as dk
     from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.ops.kernels import fused_adam as adam
     from deepspeed_tpu_torch.ops.kernels.layer_norm import layer_norm
 
     return {"rms_norm": rms_norm, "rope": apply_rotary_pos_emb,
@@ -2090,7 +2305,12 @@ def launch_counters():
             "fused_proj_norm_int8": dk.fused_proj_norm_int8_cuda,
             "fused_mlp_int8": dk.fused_mlp_int8_cuda,
             "flash_attention_fwd_alibi": fa.flash_fwd_alibi_cuda,
-            "flash_attention_bwd_alibi": fa.flash_attention_bwd_alibi}
+            "flash_attention_bwd_alibi": fa.flash_attention_bwd_alibi,
+            "flash_attention_fwd_f16": fa.flash_fwd_f16_cuda,
+            "flash_attention_bwd_f16": fa.flash_attention_bwd_f16,
+            "flash_attention_fwd_f16_alibi": fa.flash_fwd_f16_alibi_cuda,
+            "flash_attention_bwd_f16_alibi": fa.flash_attention_bwd_f16_alibi,
+            "fused_adam_f16": adam.fused_adam_update_f16_cuda}
 
 
 def zero_counts():
@@ -2131,11 +2351,18 @@ def phase_ops(torch, dev):
     with a causal mask and the MLP's pre-activation through ``bias_act``;
     the [24, 2048, 5632] fp32 MLP leaf of llama-1b4 through ``quantize`` ->
     ``dequantize`` at 8 and 4 bits, the 4-bit codes through ``pack_int4``
-    -> ``unpack_int4``.  The launch counts are read over these calls, and
-    each result is held to the op's plain version (TOL, and SOFTMAX_RTOL on
-    each probability; the quantizer's codes and scales equal), the round
+    -> ``unpack_int4``; and the fp16 instances that no train path runs:
+    bloom-1b7's attention [4, 16, 2048, 128] in fp16 through
+    ``flash_attention(..., alibi=True)`` forward and backward (autograd),
+    and an fp16 [2048, 5632] leaf through ``fused_adam_update`` three steps.
+    The launch counts are read over these calls, and each result is held to
+    the op's plain version (TOL, and SOFTMAX_RTOL on each probability; the
+    quantizer's codes and scales equal; ATTN_TOL, O_REL_TOL and GRAD_TOL;
+    the fp16 Adam leaf as :func:`_check_adam_f16_step` holds it), the round
     trip to half a code step."""
     from deepspeed_tpu_torch.ops import kernels as K
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.ops.kernels import fused_adam as adam
     from deepspeed_tpu_torch.ops.kernels import quantizer as kq
     from deepspeed_tpu_torch.ops.kernels import softmax as sm
 
@@ -2146,9 +2373,23 @@ def phase_ops(torch, dev):
     up = _randn(torch, (GB * GS, GF), gen, dev, 3).to(bf)
     b_up = _randn(torch, (GF,), gen, dev).to(bf)
     w = _randn(torch, (TL, TD, TF), gen, dev, 0.02)
+    qkv = [_randn(torch, (TB, TH, TS, TDH), gen, dev).half().requires_grad_()
+           for _ in range(3)]
+    do = _randn(torch, (TB, TH, TS, TDH), gen, dev).half()
+    leaf = _randn(torch, (TD, TF), gen, dev).half()
+    m, v = torch.zeros(leaf.shape, device=dev), torch.zeros(leaf.shape, device=dev)
+    states = []     # the leaf's (p, m, v) before each step and after the last
+    grads = [_randn(torch, (TD, TF), gen, dev).half() for _ in range(3)]
+    adam_kw = dict(beta1=0.9, beta2=0.95, eps=1e-8, weight_decay=0.1)
     zero_counts()
     probs = K.scaled_masked_softmax(scores, causal, scale=GDH ** -0.5)
     a = K.bias_act(up, b_up, "gelu")
+    o = fa.flash_attention(*qkv, alibi=True)
+    o.backward(do)
+    for step, g in enumerate(grads, 1):
+        states.append((leaf.clone(), m.clone(), v.clone()))
+        K.fused_adam_update(leaf, g, m, v, step, lr=1e-2 * step, **adam_kw)
+    states.append((leaf, m, v))
     quant = {}
     for bits in (8, 4):
         q, sc, pad = K.quantize(w, bits=bits)
@@ -2160,8 +2401,35 @@ def phase_ops(torch, dev):
     torch.cuda.synchronize()
     launches = read_counts()
     want = dict({name: 0 for name in KERNELS}, scaled_masked_softmax=1,
-                bias_act=1, quantize=2)
+                bias_act=1, quantize=2, flash_attention_fwd_f16_alibi=1,
+                flash_attention_bwd_f16_alibi=1, fused_adam_f16=3)
     check(launches == want, f"ops launches {launches} != {want}")
+    ref_in = [t.detach().float().requires_grad_() for t in qkv]
+    want_o = fa.mha_reference(*ref_in, bias=fa._alibi_ref_bias(qkv[0], qkv[1], True))
+    want_o.backward(do.float())
+    o, want_o = o.detach(), want_o.detach()
+    e_o = _assert_close(torch, o, want_o.half(), ATTN_TOL["float16"],
+                        "ops: flash_attention fp16 alibi o")
+    rel = [_rel_err(t.grad, r.grad) for t, r in zip(qkv, ref_in)]
+    check(_rel_err(o, want_o) < O_REL_TOL["float16"] and max(rel) < GRAD_TOL["float16"],
+          f"ops: flash_attention fp16 alibi: o relative {_rel_err(o, want_o)}, "
+          f"grads {rel}")
+    e_p = e_mv = 0.0
+    for step, g in enumerate(grads, 1):
+        e_s, e_mv_s, _ = _check_adam_f16_step(
+            torch, adam, states[step - 1], states[step], g, step,
+            dict(adam_kw, lr=1e-2 * step), "ops: fused_adam fp16")
+        e_p, e_mv = max(e_p, e_s), max(e_mv, e_mv_s)
+    moved = _check_moved(torch, leaf, states[0][0], "ops: fused_adam fp16")
+    print(f"ops: flash_attention fp16 alibi [4, 16, 2048, 128] forward and "
+          f"backward through the library's wrapper: o max abs err {e_o:.3g}, "
+          f"grads max relative (Frobenius) {max(rel):.3g}; fused_adam_update "
+          f"on an fp16 [2048, 5632] leaf x 3 steps: p max abs err {e_p:.3g} "
+          f"({moved:.5f} of p moved), m/v {e_mv:.3g}; launches "
+          f"{launches['flash_attention_fwd_f16_alibi']}"
+          f" / {launches['flash_attention_bwd_f16_alibi']} / "
+          f"{launches['fused_adam_f16']}")
+    del qkv, do, o, ref_in, want_o, leaf, m, v, states, grads
     for bits, (q, sc, pad, back) in quant.items():
         wq, ws, wpad = kq.quantize_plain(w, bits, 2048)
         check(pad == wpad and torch.equal(q, wq) and torch.equal(sc, ws),
@@ -2727,6 +2995,9 @@ ADAM8BIT_CONFIG = {"bf16": {"enabled": True, "master_weights": False},
                    "data_types": {"grad_accum_dtype": "bf16"},
                    "optimizer": dict(TRAIN_CONFIG["optimizer"], type="Adam8bit")}
 LAMB_CONFIG = {"optimizer": dict(TRAIN_CONFIG["optimizer"], type="FusedLamb")}
+# the fp16 cell: TRAIN_CONFIG with fp16 in place of bf16, the default
+# dynamic scale (2^16, window 1000, hysteresis 2) over fp32 masters
+FP16_CONFIG = {"bf16": {"enabled": False}, "fp16": {"enabled": True}}
 
 
 def optimizer_plan(optimizer, steps):
@@ -2764,22 +3035,24 @@ def adam8bit_state_bytes(optimizer):
     return total
 
 
-def train_plan(cfg, micros, steps, optimizer):
+def train_plan(cfg, micros, steps, optimizer, f16=False):
     """Launches a training run must make.  Per micro-batch: 2L+1 norm
     forwards (RMSNorm or LayerNorm) and as many backwards, one more of each
     (a LayerNorm) for BLOOM's embedding norm, L flash forward and L flash
-    backward calls (the ALiBi instances for an ALiBi model) and, for a RoPE
-    model, 2L RoPE forwards and 2L backwards (the same kernel).  Remat adds
-    forwards in the backward: the MLP policies recompute the MLP's norm (+L
-    norm forwards), the whole-layer policies run the layer's forward again
-    up to its last saved tensor (+2L norm forwards, +L flash forwards, +2L
-    RoPEs).  The optimizer's launches as ``optimizer_plan`` counts them; no
-    decode kernel."""
+    backward calls (the ALiBi instances for an ALiBi model, the fp16 ones
+    under ``f16``) and, for a RoPE model, 2L RoPE forwards and 2L backwards
+    (the same kernel).  Remat adds forwards in the backward: the MLP
+    policies recompute the MLP's norm (+L norm forwards), the whole-layer
+    policies run the layer's forward again up to its last saved tensor (+2L
+    norm forwards, +L flash forwards, +2L RoPEs).  The optimizer's launches
+    as ``optimizer_plan`` counts them over the ``steps`` applied steps (an
+    fp16 step skipped for an overflow launches none); no decode kernel."""
     L = cfg.num_layers
     mlp = bool(cfg.remat) and cfg.remat_policy in ("mlp_only", "mlp_dots")
     full = bool(cfg.remat) and not mlp
     rope = cfg.position == "rope"
-    flash = "flash_attention_{}_alibi" if cfg.position == "alibi" else "flash_attention_{}"
+    flash = ("flash_attention_{}" + ("_f16" if f16 else "")
+             + ("_alibi" if cfg.position == "alibi" else ""))
     plan = {k: 0 for k in KERNELS}
     plan[norm_kernel(cfg)] = (2 * L + 1 + L * mlp + 2 * L * full) * micros
     plan[norm_kernel(cfg) + "_bwd"] = (2 * L + 1) * micros
@@ -2989,10 +3262,14 @@ def phase_optimizer_reference(torch, dev):
               f"diff {float(diffs.max()):.3g}")
 
 
-def phase_train(torch, dev, preset, name="train", section=None, peaks=None):
+def phase_train(torch, dev, preset, name="train", section=None, peaks=None,
+                medians=None):
     """The training path at the preset's full width and depth, with
-    TRAIN_CONFIG (FusedAdam over fp32 masters) or the optimizer ``section``
-    merged over it; records its peak device memory in ``peaks[name]``."""
+    TRAIN_CONFIG (FusedAdam over fp32 masters) or ``section`` merged over
+    it; records its peak device memory in ``peaks[name]`` and its median
+    step in ``medians[name]``.  Five applied steps: under fp16 as many more
+    as overflows skip, each step printed with its loss scale and skip
+    flag."""
     import gc
 
     import deepspeed_tpu_torch
@@ -3016,12 +3293,15 @@ def phase_train(torch, dev, preset, name="train", section=None, peaks=None):
                            generator=gen)
     torch.cuda.synchronize()
     master = str(engine.master_dtype).replace("torch.", "")
+    compute = str(engine.compute_dtype).replace("torch.", "")
+    fp16 = engine.fp16_enabled
     print(f"{name}: {preset} D={cfg.hidden_size} L={L} H={cfg.num_heads} "
           f"F={cfg.intermediate_size} V={cfg.vocab_size} tied, {cfg.norm}, "
           f"{cfg.position} positions, embed_norm {cfg.embed_norm}, bias "
           f"{cfg.use_bias}, {cfg.activation}, remat {cfg.remat_policy}; "
           f"{n_params / 1e9:.4f}B {master} params in "
-          f"{len(engine.master)} leaves, {type(opt).__name__}, bf16 compute, "
+          f"{len(engine.master)} leaves, {type(opt).__name__}, {compute} compute"
+          f"{f' (loss scale {engine.loss_scale:g}, dynamic)' if fp16 else ''}, "
           f"{str(engine.grad_accum_dtype).replace('torch.', '')} accumulator, "
           f"micro {micro} x gas {gas} x S {S}; built in "
           f"{time.perf_counter() - t0:.1f}s")
@@ -3029,22 +3309,29 @@ def phase_train(torch, dev, preset, name="train", section=None, peaks=None):
         check(all(p.dtype == engine.master_dtype for p in engine.master),
               f"{name}: a master is not {master}")
     zero_counts()
-    steps = []
-    for i in range(5):
+    steps = []      # (loss, grad norm, next lr, wall s, skipped)
+    while sum(not x[4] for x in steps) < 5:
+        check(len(steps) < 12, f"{name}: {len(steps)} steps, most skipped: {steps}")
         torch.cuda.synchronize()
         t = time.perf_counter()
+        scale = engine.loss_scale
         loss = float(engine.train_step((tokens, tokens)))
         torch.cuda.synchronize()
         steps.append((loss, engine.get_global_grad_norm(), engine.get_lr()[0],
-                      time.perf_counter() - t))
-        print(f"{name}: step {i + 1} loss {steps[-1][0]:.5f} grad norm "
+                      time.perf_counter() - t, engine._last_overflow))
+        print(f"{name}: step {len(steps)} loss {steps[-1][0]:.5f} grad norm "
               f"{steps[-1][1]:.4f} next lr {steps[-1][2]:.3e} wall "
-              f"{steps[-1][3]:.3f}s")
+              f"{steps[-1][3]:.3f}s" + (f" loss scale {scale:g} skipped "
+                                        f"{steps[-1][4]}" if fp16 else ""))
     launches = read_counts()
-    check(all(math.isfinite(x[0]) and math.isfinite(x[1]) for x in steps),
+    applied = [x for x in steps if not x[4]]
+    check(all(math.isfinite(x[0]) for x in steps)
+          and all(math.isfinite(x[1]) for x in applied),
           f"non-finite loss or grad norm: {steps}")
-    check(steps[-1][0] < steps[0][0], f"loss did not fall: {steps}")
-    plan = train_plan(cfg, gas * 5, 5, opt)
+    check(applied[-1][0] < applied[0][0], f"loss did not fall: {steps}")
+    check(engine.skipped_steps == len(steps) - len(applied)
+          and engine.global_steps == len(applied), f"{name}: skips {steps}")
+    plan = train_plan(cfg, gas * len(steps), len(applied), opt, f16=fp16)
     check(launches == plan, f"{name} launches {launches} != path plan {plan}")
     if isinstance(opt, Adam8bit):
         held, want = opt.state_bytes(), adam8bit_state_bytes(opt)
@@ -3055,8 +3342,10 @@ def phase_train(torch, dev, preset, name="train", section=None, peaks=None):
               f"moments) = the count from the leaf shapes; every master "
               f"{master}")
     tokens_per_step = gas * micro * S
-    steady = statistics.mean(x[3] for x in steps[1:])
-    median = statistics.median(x[3] for x in steps[2:])
+    steady = statistics.mean(x[3] for x in applied[1:])
+    median = statistics.median(x[3] for x in applied[2:])
+    if medians is not None:
+        medians[name] = median
     attn_flops = 6 * L * gas * micro * cfg.num_heads * S * S * cfg.head_dim
     flops = 6 * n_params * tokens_per_step + attn_flops
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
@@ -3064,10 +3353,12 @@ def phase_train(torch, dev, preset, name="train", section=None, peaks=None):
         peaks[name] = peak
     beside = (f" (FusedAdam phase: {peaks['train']:.2f} GiB)"
               if peaks and name != "train" and "train" in peaks else "")
-    print(f"{name}: steady step (mean of steps 2-5) {steady:.4f}s, "
+    if medians and name != "train" and "train" in medians:
+        beside += f"; the bf16 FusedAdam phase's median step {medians['train']:.4f}s"
+    print(f"{name}: steady step (mean of applied steps 2-5) {steady:.4f}s, "
           f"{tokens_per_step / steady:.1f} tokens/s, MFU "
-          f"{100 * flops / steady / BF16_FLOPS_PER_S:.2f}%; median of steps "
-          f"3-5 {median:.4f}s, {tokens_per_step / median:.1f} tokens/s, MFU "
+          f"{100 * flops / steady / BF16_FLOPS_PER_S:.2f}%; median of applied "
+          f"steps 3-5 {median:.4f}s, {tokens_per_step / median:.1f} tokens/s, MFU "
           f"{100 * flops / median / BF16_FLOPS_PER_S:.2f}% (6N + attention "
           f"{flops / 1e12:.1f} TFLOP per step over 989 TFLOP/s; recomputed "
           f"forwards not counted), peak device "
@@ -3147,6 +3438,8 @@ def phase_train_profile(torch, engine, tokens):
             "flash_attention_bwd": FLASH_KERNELS["bwd"],
             "flash_attention_fwd_alibi": FLASH_KERNELS["fwd_alibi"],
             "flash_attention_bwd_alibi": FLASH_KERNELS["bwd_alibi"],
+            "flash_attention_fwd_f16": FLASH_KERNELS["fwd_f16"],
+            "flash_attention_bwd_f16": FLASH_KERNELS["bwd_f16"],
             "fused_adam": ("adam_kernel",),
             "fused_adam8bit": ("adam8bit_kernel",),
             "fused_lamb_phase1": ("lamb_phase1_kernel", "lamb_reduce_kernel"),
@@ -3224,14 +3517,12 @@ def main() -> int:
     t0 = time.perf_counter()
     flash_ptxas = phase_build(torch, dev)["flash_ptxas"]
     timings = phase_kernels(torch, dev)
-    for name, tag in (("flash_attention_fwd", "flash_fwd_wgmma_kernel"),
-                      ("flash_attention_bwd", "flash_bwd_d"),
-                      ("flash_attention_fwd_alibi", "flash_fwd_wgmma_alibi_kernel"),
-                      ("flash_attention_bwd_alibi", "wgmma_alibi_kernel")):
-        timings[name]["ptxas"] = {
-            k: v for k, v in flash_ptxas.items() if tag in k
-            and ("alibi" in k) == name.endswith("alibi") and
-            ("bwd" in k) == ("bwd" in name)}
+    for name in KERNELS:
+        if name.startswith("flash_attention_"):   # its wgmma kernels' ptxas
+            timings[name]["ptxas"] = {
+                k: v for k, v in flash_ptxas.items()
+                if ("alibi" in k) == ("alibi" in name) and ("f16" in k) == (
+                    "f16" in name) and ("bwd" in k) == ("bwd" in name)}
     for preset, policy in (("llama-tiny", "mlp_dots"), ("gpt2-small", "full")):
         phase_reference(torch, dev, preset)
         phase_train_reference(torch, dev, preset, policy)
@@ -3239,12 +3530,15 @@ def main() -> int:
     phase_hf_train_reference(torch, dev)
     phase_optimizer_reference(torch, dev)
     # each path: (launch counts of its run, device ms per call in its profile)
-    peaks = {}
+    peaks, medians = {}, {}
     runs = {"ops": (phase_ops(torch, dev), {}),
             "serve": phase_serve(torch, dev, "llama3-8b"),
             "gpt2_serve": phase_serve(torch, dev, "gpt2-xl"),
             **phase_generate(torch, dev),
-            "train": phase_train(torch, dev, "llama-1b4", "train", peaks=peaks),
+            "train": phase_train(torch, dev, "llama-1b4", "train", peaks=peaks,
+                                 medians=medians),
+            "fp16_train": phase_train(torch, dev, "llama-1b4", "fp16_train",
+                                      FP16_CONFIG, peaks, medians),
             "gpt2_train": phase_train(torch, dev, "gpt2-xl", "gpt2_train",
                                       peaks=peaks),
             "adam8bit_train": phase_train(torch, dev, "llama-1b4",
@@ -3313,6 +3607,17 @@ def main() -> int:
         ("flash_attention_bwd_alibi", "cuda", fa_src, "flash_attention.py:283",
          "_flash_bwd (alibi=True: dQ :217-218, pallas_call :301; dK/dV "
          ":263-264, pallas_call :319)", "bloom_train"),
+        ("flash_attention_fwd_f16", "cuda", fa_src, "flash_attention.py:149",
+         "_flash_fwd (float16, pallas_call :161)", "fp16_train"),
+        ("flash_attention_bwd_f16", "cuda", fa_src, "flash_attention.py:283",
+         "_flash_bwd (float16, pallas_call :301 and :319)", "fp16_train"),
+        ("flash_attention_fwd_f16_alibi", "cuda", fa_src, "flash_attention.py:149",
+         "_flash_fwd (float16, alibi=True)", "ops"),
+        ("flash_attention_bwd_f16_alibi", "cuda", fa_src, "flash_attention.py:283",
+         "_flash_bwd (float16, alibi=True)", "ops"),
+        ("fused_adam_f16", "cuda", "deepspeed_tpu_torch/csrc/fused_adam.cu",
+         "fused_adam.py:53", "fused_adam_update (float16 params, pallas_call "
+         ":103)", "ops"),
     ]
     check([row[0] for row in table] == list(KERNELS), "kernel table out of step")
     kernels = []
@@ -3341,7 +3646,8 @@ def main() -> int:
                       "public_ms", "host_us", "train_library_ms", "gpt2_ms",
                       "gpt2_plain_ms", "gpt2_bound_ms", "gpt2_device_us_split",
                       "ptxas", "library_fwd_bwd_ms", "fwd_bwd_ms",
-                      "max_abs_err_h12"):
+                      "max_abs_err_h12", "max_abs_err_f16",
+                      "max_abs_err_train_shape_f16", "overflow_inf_dv"):
             if extra in t:
                 k[extra] = t[extra]
         check(all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms",

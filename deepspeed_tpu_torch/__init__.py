@@ -17,7 +17,8 @@ keeps the unfused path.  Prefill runs RMSNorm (CUDA C++) and RoPE
 (Triton).  It trains on one card through :func:`initialize` (the Llama
 and GPT-2 presets, and BLOOM, GPT-NeoX or GPT-J imported from a
 HuggingFace checkpoint by :mod:`deepspeed_tpu_torch.module_inject`; the
-standard path: bf16 compute, fp32 masters,
+standard path: bf16 compute, or fp16 compute with a static or dynamic
+loss scale that skips a step whose gradients overflow, over fp32 masters,
 gradient accumulation, clipping, FusedAdam, Adam8bit or FusedLamb; or
 master-free bf16 with Adam8bit's stochastic rounding), with RMSNorm and
 RoPE forward and backward, flash attention forward and backward (with

@@ -17,12 +17,22 @@
 // logit).  The slopes are an fp32 [H] table; grid row b * H + h reads slope
 // h (JAX tiles them over B).  Each kernel takes it as a template flag, so
 // the instances without it compile to the same code as before, and the
-// bf16 instances with it have names of their own (`*_alibi_kernel`) for the
-// profiler.  The bias varies along a row, so the forward forms the biased
+// 16-bit instances with it have names of their own (`*_alibi_kernel`) for
+// the profiler.  The bias varies along a row, so the forward forms the biased
 // logit in log2 units first, t = s scale log2(e) + slope log2(e) (col - row),
 // and takes the running max over t; the backward forms s scale + slope
 // (col - row) and recomputes p against the natural-log lse.  Either needs
 // col - row on every tile, not only on the tiles that are masked.
+//
+// bf16 and fp16 (the Pallas kernels' float16 branch, which `fp16.enabled`
+// training runs) share one design: every wgmma body is templated on its
+// 16-bit element type, and only the products' type (`.bf16` or `.f16`), the
+// packing of p, ds and the outputs (cvt.rn to the type: an fp32 value past
+// fp16's range becomes inf, which the loss scaler must see, never the
+// largest finite value) and the delta pre-pass's loads differ.  The fp16
+// instances are separate `__global__` wrappers (`*_f16_kernel`,
+// `*_f16_alibi_kernel`), so every profile tag names a real kernel.  In fp16
+// p and ds below 2^-24 flush to zero, as the Pallas kernels' astype does.
 //
 // Numerics follow the Pallas kernels: scores in fp32 times `scale`, masked
 // entries set to NEG_INF = -1e30 (not -inf), an online softmax with
@@ -47,24 +57,24 @@
 // the block's life, and streams 64-row tiles of the other side through a
 // ring.  Every product is wgmma.mma_async m64nNk16, B always a tile in
 // shared memory, A in shared memory (the backward's s, dp, s^T and dp^T)
-// or in registers as bf16 fragments: the forward's q, and p or ds rounded
+// or in registers as 16-bit fragments: the forward's q, and p or ds rounded
 // where the reference rounds them (o += p v; dq, dk, dv).  Tiles are
 // stored in the 128B swizzle (64B at D = 32) that wgmma reads, and one
 // physical tile serves as a K-major operand (q k^T) and an MN-major one
 // (p v, ds^T q) through its descriptor alone.
 //
-// Forward (bf16).  Q is loaded once and each warpgroup holds its 64 rows
-// in registers as A fragments (at n64 an SS product reads 4 KB of shared
+// Forward (bf16, fp16).  Q is loaded once and each warpgroup holds its 64
+// rows in registers as A fragments (at n64 an SS product reads 4 KB of shared
 // memory every 32 tensor-core clocks, the SM's whole 128 bytes a clock; in
 // registers, q halves that); K and V stream.  In its turn a warpgroup
 // issues s = q k^T of tile j, then o += p v of tile j - 1 (its accumulator
 // rescaled first), and runs tile j's online softmax under that p v: the
 // accumulator's own register layout, row max and sum across the four lanes
 // that share a row, scores in log2 units (s scale log2(e) in one FMA
-// before the MUFU ex2; lse written in natural log).  Backward (bf16).  Three
-// launches: the delta pre-pass (the reference's own split, 16-byte loads),
-// then dQ (Q and dO resident) and dK/dV (K and V resident) as the
-// reference splits them, so no block sums into another's rows.
+// before the MUFU ex2; lse written in natural log).  Backward (bf16,
+// fp16).  Three launches: the delta pre-pass (the reference's own split,
+// 16-byte loads), then dQ (Q and dO resident) and dK/dV (K and V resident)
+// as the reference splits them, so no block sums into another's rows.
 //
 // The ring has four stages, fed by cp.async (zero fill past S) and
 // tracked by mbarriers: full[s] completes when every thread's copies of
@@ -88,7 +98,7 @@
 //
 // fp32 inputs take a scalar path (one warp per row, lanes over the head
 // dim, one key at a time) with the same semantics; it serves the fp32
-// reference runs, not the bf16 training path.
+// reference runs, not the 16-bit training paths.
 //
 // Head dims 32, 64 and 128 (the presets' 32 of llama-tiny and mixtral-tiny,
 // 64 of the GPT-2 family, 128 of the Llama family): 64-byte swizzled rows
@@ -99,21 +109,42 @@
 // 195 KB (ds_flash_fwd_smem_bytes, ds_flash_bwd_smem_bytes).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
+typedef __half f16;
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// Round two floats to bf16 (nearest even, as astype) and pack them.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// Round two floats to the 16-bit type T (nearest even, as astype: cvt.rn,
+// so a value past fp16's range becomes inf, never the largest finite value)
+// and pack them.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same_v<T, f16>) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+}
+
+// Two packed 16-bit values of type T as floats.
+template <typename T>
+__device__ __forceinline__ float2 unpack2(uint32_t x) {
+  if constexpr (std::is_same_v<T, f16>)
+    return __half22float2(*reinterpret_cast<const __half2*>(&x));
+  else
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
 }
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -151,19 +182,19 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on wgmma.  The forward (a block owns 128 query rows and streams
+// bf16 and fp16 on wgmma.  The forward (a block owns 128 query rows and streams
 // 64-key tiles of K and V) and the backward's three launches: the delta
 // pre-pass, dQ (as the forward, with dO) and dK/dV (a block owns 128 keys
 // and streams 64-row tiles of Q, dO, lse and delta).  A block is two
 // warpgroups (256 threads); each owns 64 of the block's rows and runs its
-// products as wgmma.mma_async m64nNk16 (bf16 in, fp32 out).
+// products as wgmma.mma_async m64nNk16 (bf16 or fp16 in, fp32 out).
 // ---------------------------------------------------------------------------
 constexpr int kThreads = 256;   // two consumer warpgroups
 constexpr int kRows = 128;      // rows a block owns (64 a warpgroup)
 constexpr int kTile = 64;       // rows of a streamed tile
 constexpr int kStages = 4;      // depth of the streamed tiles' ring
 
-// The swizzled tile layout that wgmma reads.  A tile of R rows x D bf16 is
+// The swizzled tile layout that wgmma reads.  A tile of R rows x D 16-bit is
 // D / AW column atoms of R rows x AW elements, kBytes = 2 AW bytes a row:
 // 128 (AW 64) for D = 64 and 128, 64 (AW 32) for D = 32.  The 16-byte chunk
 // c of row r lies at chunk c ^ ((r * kBytes >> 7) & (kBytes / 16 - 1)), the
@@ -272,62 +303,93 @@ __device__ __forceinline__ void named_arrive(int id) {
   asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
 }
 
+// The products' asm, one statement for each input type TY ("bf16" or
+// "f16"; Hopper runs both at the same dense tensor-core rate): m64n64k16
+// with A and B in shared memory, m64n64k16 and m64n32k16 with A in registers.
+#define DS_WGMMA_SS(TY)                                                                          \
+  asm volatile(                                                                                  \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                              \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"                               \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                                         \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                                                   \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                                                 \
+      "%24, %25, %26, %27, %28, %29, %30, %31"                                                   \
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"                                                         \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),       \
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),   \
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),             \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),             \
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])              \
+      : "l"(da), "l"(db), "r"(accumulate))
+
+#define DS_WGMMA_RS64(TY)                                                                        \
+  asm volatile(                                                                                  \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                                              \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"                               \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                                         \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                                                   \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                                                 \
+      "%24, %25, %26, %27, %28, %29, %30, %31"                                                   \
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"                                         \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),       \
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),   \
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),             \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),             \
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])              \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(kTransB))
+
+#define DS_WGMMA_RS32(TY)                                                                        \
+  asm volatile(                                                                                  \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"                                              \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " {"                               \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                                         \
+      "%8, %9, %10, %11, %12, %13, %14, %15"                                                     \
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"                                         \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),       \
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),   \
+        "+f"(d[14]), "+f"(d[15])                                                                 \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(kTransB))
+
+// d (+)= A . B, A and B in shared memory (K-major); accumulate = 0
+// overwrites d.
+template <typename T>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
+  if constexpr (std::is_same_v<T, f16>)
+    DS_WGMMA_SS("f16");
+  else
+    DS_WGMMA_SS("bf16");
 }
 
 // d (+)= A . B with A in registers as one k16 fragment and B in shared
 // memory, MN-major (kTransB = 1: p v, ds k, p^T do, ds^T q) or K-major
 // (0: q k^T); accumulate = 0 overwrites d.
-template <int kTransB>
+template <typename T, int kTransB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
                                          int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(kTransB));
+  if constexpr (std::is_same_v<T, f16>)
+    DS_WGMMA_RS64("f16");
+  else
+    DS_WGMMA_RS64("bf16");
 }
 
-template <int kTransB>
+template <typename T, int kTransB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db,
                                          int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(kTransB));
+  if constexpr (std::is_same_v<T, f16>)
+    DS_WGMMA_RS32("f16");
+  else
+    DS_WGMMA_RS32("bf16");
 }
 
-// Start copying rows [row0, row0 + R) of a [S, D] bf16 matrix into a
+#undef DS_WGMMA_SS
+#undef DS_WGMMA_RS64
+#undef DS_WGMMA_RS32
+
+// Start copying rows [row0, row0 + R) of a [S, D] 16-bit matrix into a
 // swizzled tile at shared address `dst` (16-byte cp.async, rows past S
 // zero filled); every thread of the block takes part.
-template <int D, int R>
-__device__ __forceinline__ void load_tile_sw(uint32_t dst, const bf16* src, int row0, int S) {
+template <int D, int R, typename T>
+__device__ __forceinline__ void load_tile_sw(uint32_t dst, const T* src, int row0, int S) {
   constexpr int kPerRow = D / 8;
   static_assert(R * kPerRow % kThreads == 0, "whole chunks a thread");
 #pragma unroll
@@ -335,7 +397,7 @@ __device__ __forceinline__ void load_tile_sw(uint32_t dst, const bf16* src, int 
     const int c = threadIdx.x + i * kThreads;
     const int r = c / kPerRow, k = c % kPerRow;
     const bool in = row0 + r < S;
-    const bf16* g = src + static_cast<size_t>(in ? row0 + r : 0) * D + k * 8;
+    const T* g = src + static_cast<size_t>(in ? row0 + r : 0) * D + k * 8;
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst + Sw<D>::offset(R, r, k)),
                  "l"(g), "r"(in ? 16 : 0));
   }
@@ -355,13 +417,13 @@ __device__ __forceinline__ void load_stats(uint32_t dst, const float* src, int r
 // acc[64 x 64] = A[64 x D] . B[64 x D]^T, both K-major in swizzled tiles:
 // A the 64 rows at shared address a of an RA-row tile, B the 64 rows at b
 // of an RB-row tile (q k^T, do v^T, k q^T, v do^T).
-template <int D, int RA, int RB>
+template <typename T, int D, int RA, int RB>
 __device__ __forceinline__ void ss_product(float (&acc)[32], uint32_t a, uint32_t b) {
   using L = Sw<D>;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t atom = kk * 16 / L::kAW, off = (kk * 16 % L::kAW) * 2;
-    wgmma_ss(acc, desc_k_major<D>(a + atom * RA * L::kBytes + off),
+    wgmma_ss<T>(acc, desc_k_major<D>(a + atom * RA * L::kBytes + off),
              desc_k_major<D>(b + atom * RB * L::kBytes + off), kk > 0);
   }
 }
@@ -386,20 +448,20 @@ __device__ __forceinline__ void load_frags_sw(uint32_t (&f)[D / 16][4], uint32_t
 // B a 64-row swizzled tile at shared address b, K-major (q k^T).  Half the
 // shared-memory reads of ss_product: at n64 an SS product reads A and B,
 // 4 KB every 32 tensor-core clocks, the whole of the SM's 128 bytes a clock.
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void rs_product_k(float (&acc)[32], const uint32_t (&a)[D / 16][4], uint32_t b) {
   using L = Sw<D>;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t atom = kk * 16 / L::kAW, off = (kk * 16 % L::kAW) * 2;
-    wgmma_rs<0>(acc, a[kk], desc_k_major<D>(b + atom * kTile * L::kBytes + off), kk > 0);
+    wgmma_rs<T, 0>(acc, a[kk], desc_k_major<D>(b + atom * kTile * L::kBytes + off), kk > 0);
   }
 }
 
 // acc[64 x D] += A[64 x 64] . B[64 x D]: A in registers as four k16
 // fragments, B a 64-row swizzled tile at shared address b read MN-major
 // (p^T do, ds^T q, ds k); one instruction for each k16 step and atom.
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void rs_product(float (&acc)[Sw<D>::kAtoms][Sw<D>::kAW / 2],
                                            const uint32_t (&a)[4][4], uint32_t b) {
   using L = Sw<D>;
@@ -407,21 +469,22 @@ __device__ __forceinline__ void rs_product(float (&acc)[Sw<D>::kAtoms][Sw<D>::kA
   for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
     for (int na = 0; na < L::kAtoms; ++na)
-      wgmma_rs<1>(acc[na], a[kk], desc_mn_major<D>(b + na * kTile * L::kBytes + kk * 16 * L::kBytes),
+      wgmma_rs<T, 1>(acc[na], a[kk], desc_mn_major<D>(b + na * kTile * L::kBytes + kk * 16 * L::kBytes),
                   1);
   }
 }
 
-// A 64 x 64 fp32 accumulator, rounded to bf16, as the A fragments of a
+// A 64 x 64 fp32 accumulator, rounded to T, as the A fragments of a
 // product over its 64 columns (the layouts agree: n8 blocks 2kk and 2kk + 1
 // of the accumulator are k16 step kk of the operand).
+template <typename T>
 __device__ __forceinline__ void acc_to_frags(uint32_t (&f)[4][4], const float (&x)[32]) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
-    f[kk][0] = pack_bf16(x[8 * kk + 0], x[8 * kk + 1]);
-    f[kk][1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
-    f[kk][2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
-    f[kk][3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
+    f[kk][0] = pack2<T>(x[8 * kk + 0], x[8 * kk + 1]);
+    f[kk][1] = pack2<T>(x[8 * kk + 2], x[8 * kk + 3]);
+    f[kk][2] = pack2<T>(x[8 * kk + 4], x[8 * kk + 5]);
+    f[kk][3] = pack2<T>(x[8 * kk + 6], x[8 * kk + 7]);
   }
 }
 
@@ -433,11 +496,11 @@ __device__ __forceinline__ void zero_acc(float (&acc)[Sw<D>::kAtoms][Sw<D>::kAW 
     for (int i = 0; i < Sw<D>::kAW / 2; ++i) acc[na][i] = 0.f;
 }
 
-// Store a warpgroup's [64 x D] fp32 accumulator as bf16 rows row0 + ...;
+// Store a warpgroup's [64 x D] fp32 accumulator as T rows row0 + ...;
 // rows past S are dropped.  Thread (warp w, lane l) holds rows 16 w + l / 4
 // and + 8, columns 8 j + 2 (l % 4) + {0, 1} of each n8 block j.
-template <int D>
-__device__ __forceinline__ void store_acc(bf16* out, const float (&acc)[Sw<D>::kAtoms][Sw<D>::kAW / 2],
+template <typename T, int D>
+__device__ __forceinline__ void store_acc(T* out, const float (&acc)[Sw<D>::kAtoms][Sw<D>::kAW / 2],
                                           int row0, int S) {
   using L = Sw<D>;
   const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
@@ -449,20 +512,19 @@ __device__ __forceinline__ void store_acc(bf16* out, const float (&acc)[Sw<D>::k
       const int c = na * L::kAW + j * 8 + (lane & 3) * 2;
       if (ra < S)
         *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(ra) * D + c) =
-            pack_bf16(acc[na][4 * j], acc[na][4 * j + 1]);
+            pack2<T>(acc[na][4 * j], acc[na][4 * j + 1]);
       if (ra + 8 < S)
         *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(ra + 8) * D + c) =
-            pack_bf16(acc[na][4 * j + 2], acc[na][4 * j + 3]);
+            pack2<T>(acc[na][4 * j + 2], acc[na][4 * j + 3]);
     }
   }
 }
 
 // delta = rowsum(do * o) in fp32, [BH * S] rows: D / 8 threads a row, one
 // 16-byte load of each operand a thread, a shuffle sum across them.
-template <int D>
-__global__ void __launch_bounds__(256)
-flash_bwd_delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
-                       float* __restrict__ delta, int rows) {
+template <int D, typename T>
+__device__ __forceinline__ void flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
+                                                float* __restrict__ delta, int rows) {
   constexpr int kT = D / 8;
   const int row = blockIdx.x * (256 / kT) + threadIdx.x / kT;
   const int c = threadIdx.x % kT;
@@ -470,17 +532,30 @@ flash_bwd_delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout
   if (row < rows) {
     const uint4 a = *reinterpret_cast<const uint4*>(o + static_cast<size_t>(row) * D + c * 8);
     const uint4 b = *reinterpret_cast<const uint4*>(dout + static_cast<size_t>(row) * D + c * 8);
-    const __nv_bfloat162* pa = reinterpret_cast<const __nv_bfloat162*>(&a);
-    const __nv_bfloat162* pb = reinterpret_cast<const __nv_bfloat162*>(&b);
+    const uint32_t wa[4] = {a.x, a.y, a.z, a.w}, wb[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const float2 fa = __bfloat1622float2(pa[i]), fb = __bfloat1622float2(pb[i]);
+      const float2 fa = unpack2<T>(wa[i]), fb = unpack2<T>(wb[i]);
       acc += fa.x * fb.x + fa.y * fb.y;
     }
   }
 #pragma unroll
   for (int off = kT / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (row < rows && c == 0) delta[row] = acc;
+}
+
+template <int D>
+__global__ void __launch_bounds__(256)
+flash_bwd_delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                       float* __restrict__ delta, int rows) {
+  flash_bwd_delta<D>(o, dout, delta, rows);
+}
+
+template <int D>
+__global__ void __launch_bounds__(256)
+flash_bwd_delta_f16_kernel(const f16* __restrict__ o, const f16* __restrict__ dout,
+                           float* __restrict__ delta, int rows) {
+  flash_bwd_delta<D>(o, dout, delta, rows);
 }
 
 // The block's shared memory, rounded up to a 1024-byte boundary (the
@@ -501,9 +576,9 @@ __device__ __forceinline__ uint32_t aligned_smem(unsigned char* raw) {
 // natural log.  Under ALiBi (kAlibi) the scores are biased and scaled
 // before the max: t = s scale log2(e) + slope log2(e) (col - row).
 // ---------------------------------------------------------------------------
-template <int D, bool kAlibi>
-__device__ __forceinline__ void flash_fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                                                const bf16* __restrict__ v, bf16* __restrict__ o,
+template <int D, bool kAlibi, typename T>
+__device__ __forceinline__ void flash_fwd_wgmma(const T* __restrict__ q, const T* __restrict__ k,
+                                                const T* __restrict__ v, T* __restrict__ o,
                                                 float* __restrict__ lse, int S, float scale, int causal,
                                                 const float* __restrict__ slopes, int H) {
   using L = Sw<D>;
@@ -565,7 +640,7 @@ __device__ __forceinline__ void flash_fwd_wgmma(const bf16* __restrict__ q, cons
     fence_proxy_async();
     named_sync(1 + wg);
     wg_fence();
-    rs_product_k<D>(s, qf, sK + (j % kStages) * kStr);
+    rs_product_k<T, D>(s, qf, sK + (j % kStages) * kStr);
     wg_commit();
   };
   // the online softmax of tile j: s becomes p; m, l and alpha move
@@ -611,7 +686,7 @@ __device__ __forceinline__ void flash_fwd_wgmma(const bf16* __restrict__ q, cons
     m0 = mn0;
     m1 = mn1;
   };
-  // acc *= alpha, then o += p v of tile j (p as bf16 fragments f)
+  // acc *= alpha, then o += p v of tile j (p as 16-bit fragments f)
   auto issue_pv = [&](const uint32_t (&f)[4][4], int j) {
 #pragma unroll
     for (int na = 0; na < L::kAtoms; ++na)
@@ -619,11 +694,11 @@ __device__ __forceinline__ void flash_fwd_wgmma(const bf16* __restrict__ q, cons
       for (int i = 0; i < L::kAW / 2; ++i) acc[na][i] *= i & 2 ? al1 : al0;
     fence_regs(acc);
     wg_fence();
-    rs_product<D>(acc, f, sV + (j % kStages) * kStr);
+    rs_product<T, D>(acc, f, sV + (j % kStages) * kStr);
     wg_commit();
   };
 
-  uint32_t f[4][4];   // p of the last tile, rounded to bf16 as the reference
+  uint32_t f[4][4];   // p of the last tile, rounded to T as the reference
   float s[32];
   if (wg == 1) named_arrive(1);   // warpgroup 0 issues first
   issue_s(s, 0);
@@ -631,7 +706,7 @@ __device__ __forceinline__ void flash_fwd_wgmma(const bf16* __restrict__ q, cons
   wg_wait<0>();
   fence_regs(s);
   softmax(s, 0);
-  acc_to_frags(f, s);
+  acc_to_frags<T>(f, s);
   refill(0);
   for (int j = 1; j < n_k; ++j) {
     issue_s(s, j);
@@ -643,7 +718,7 @@ __device__ __forceinline__ void flash_fwd_wgmma(const bf16* __restrict__ q, cons
     wg_wait<0>();
     fence_regs(acc);
     mbar_arrive(empty + 8 * ((j - 1) % kStages));
-    acc_to_frags(f, s);
+    acc_to_frags<T>(f, s);
     refill(j);
   }
   issue_pv(f, n_k - 1);
@@ -655,7 +730,7 @@ __device__ __forceinline__ void flash_fwd_wgmma(const bf16* __restrict__ q, cons
   for (int na = 0; na < L::kAtoms; ++na)
 #pragma unroll
     for (int i = 0; i < L::kAW / 2; ++i) acc[na][i] /= i & 2 ? sl1 : sl0;
-  store_acc<D>(o + base, acc, qw, S);
+  store_acc<T, D>(o + base, acc, qw, S);
   if ((lane & 3) == 0) {
     float* lrow = lse + static_cast<size_t>(blockIdx.y) * S;
     if (ra < S) lrow[ra] = m0 * kLn2 + logf(sl0);
@@ -663,13 +738,17 @@ __device__ __forceinline__ void flash_fwd_wgmma(const bf16* __restrict__ q, cons
   }
 }
 
+
+
+// The forward's __global__ instances: bf16 and fp16, each with and without
+// ALiBi, each a name of its own for the profiler.
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, bf16* __restrict__ o,
                        float* __restrict__ lse, int S, float scale, int causal,
                        const float* __restrict__ slopes, int H) {
-  flash_fwd_wgmma<D, false>(q, k, v, o, lse, S, scale, causal, slopes, H);
+  flash_fwd_wgmma<D, false, bf16>(q, k, v, o, lse, S, scale, causal, slopes, H);
 }
 
 template <int D>
@@ -678,7 +757,25 @@ flash_fwd_wgmma_alibi_kernel(const bf16* __restrict__ q, const bf16* __restrict_
                              const bf16* __restrict__ v, bf16* __restrict__ o,
                              float* __restrict__ lse, int S, float scale, int causal,
                              const float* __restrict__ slopes, int H) {
-  flash_fwd_wgmma<D, true>(q, k, v, o, lse, S, scale, causal, slopes, H);
+  flash_fwd_wgmma<D, true, bf16>(q, k, v, o, lse, S, scale, causal, slopes, H);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_wgmma_f16_kernel(const f16* __restrict__ q, const f16* __restrict__ k,
+                           const f16* __restrict__ v, f16* __restrict__ o,
+                           float* __restrict__ lse, int S, float scale, int causal,
+                           const float* __restrict__ slopes, int H) {
+  flash_fwd_wgmma<D, false, f16>(q, k, v, o, lse, S, scale, causal, slopes, H);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_wgmma_f16_alibi_kernel(const f16* __restrict__ q, const f16* __restrict__ k,
+                                 const f16* __restrict__ v, f16* __restrict__ o,
+                                 float* __restrict__ lse, int S, float scale, int causal,
+                                 const float* __restrict__ slopes, int H) {
+  flash_fwd_wgmma<D, true, f16>(q, k, v, o, lse, S, scale, causal, slopes, H);
 }
 
 // ---------------------------------------------------------------------------
@@ -687,11 +784,11 @@ flash_fwd_wgmma_alibi_kernel(const bf16* __restrict__ q, const bf16* __restrict_
 // 64-key tile, each warpgroup: s = q k^T and dp = do v^T (SS), p and ds in
 // registers, dq += ds k (RS, k read MN-major).
 // ---------------------------------------------------------------------------
-template <int D, bool kAlibi>
-__device__ __forceinline__ void flash_bwd_dq_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                                                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
+template <int D, bool kAlibi, typename T>
+__device__ __forceinline__ void flash_bwd_dq_wgmma(const T* __restrict__ q, const T* __restrict__ k,
+                                                   const T* __restrict__ v, const T* __restrict__ dout,
                                                    const float* __restrict__ lse,
-                                                   const float* __restrict__ delta, bf16* __restrict__ dq,
+                                                   const float* __restrict__ delta, T* __restrict__ dq,
                                                    int S, float scale, int causal,
                                                    const float* __restrict__ slopes, int H) {
   using L = Sw<D>;
@@ -754,9 +851,9 @@ __device__ __forceinline__ void flash_bwd_dq_wgmma(const bf16* __restrict__ q, c
     float s[32], dp[32];
     named_sync(1 + wg);
     wg_fence();
-    ss_product<D, kRows, kTile>(s, opaque(sQ + wg * 64 * L::kBytes), tK);
+    ss_product<T, D, kRows, kTile>(s, opaque(sQ + wg * 64 * L::kBytes), tK);
     wg_commit();
-    ss_product<D, kRows, kTile>(dp, opaque(sDO + wg * 64 * L::kBytes), tV);
+    ss_product<T, D, kRows, kTile>(dp, opaque(sDO + wg * 64 * L::kBytes), tV);
     wg_commit();
     named_arrive(2 - wg);
     wg_wait<1>();    // s, and tile j - 1's dq product, are done
@@ -790,19 +887,22 @@ __device__ __forceinline__ void flash_bwd_dq_wgmma(const bf16* __restrict__ q, c
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[i] = s[i] * (dp[i] - (i & 2 ? dl1 : dl0)) * scale;   // ds
     uint32_t f[4][4];
-    acc_to_frags(f, s);
+    acc_to_frags<T>(f, s);
     fence_regs(acc);
     wg_fence();
-    rs_product<D>(acc, f, tK);   // dq += ds k, waited for under the next tile's s
+    rs_product<T, D>(acc, f, tK);   // dq += ds k, waited for under the next tile's s
     wg_commit();
     refill(j);
   }
   if (wg == 0) named_sync(1);   // the other warpgroup's last arrive
   wg_wait<0>();
   fence_regs(acc);
-  store_acc<D>(dq + base, acc, qw, S);
+  store_acc<T, D>(dq + base, acc, qw, S);
 }
 
+
+
+// dQ's __global__ instances, named as the forward's.
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -810,7 +910,7 @@ flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
                           const float* __restrict__ lse, const float* __restrict__ delta,
                           bf16* __restrict__ dq, int S, float scale, int causal,
                           const float* __restrict__ slopes, int H) {
-  flash_bwd_dq_wgmma<D, false>(q, k, v, dout, lse, delta, dq, S, scale, causal, slopes, H);
+  flash_bwd_dq_wgmma<D, false, bf16>(q, k, v, dout, lse, delta, dq, S, scale, causal, slopes, H);
 }
 
 template <int D>
@@ -820,7 +920,27 @@ flash_bwd_dq_wgmma_alibi_kernel(const bf16* __restrict__ q, const bf16* __restri
                                 const float* __restrict__ lse, const float* __restrict__ delta,
                                 bf16* __restrict__ dq, int S, float scale, int causal,
                                 const float* __restrict__ slopes, int H) {
-  flash_bwd_dq_wgmma<D, true>(q, k, v, dout, lse, delta, dq, S, scale, causal, slopes, H);
+  flash_bwd_dq_wgmma<D, true, bf16>(q, k, v, dout, lse, delta, dq, S, scale, causal, slopes, H);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_wgmma_f16_kernel(const f16* __restrict__ q, const f16* __restrict__ k,
+                              const f16* __restrict__ v, const f16* __restrict__ dout,
+                              const float* __restrict__ lse, const float* __restrict__ delta,
+                              f16* __restrict__ dq, int S, float scale, int causal,
+                              const float* __restrict__ slopes, int H) {
+  flash_bwd_dq_wgmma<D, false, f16>(q, k, v, dout, lse, delta, dq, S, scale, causal, slopes, H);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_wgmma_f16_alibi_kernel(const f16* __restrict__ q, const f16* __restrict__ k,
+                                    const f16* __restrict__ v, const f16* __restrict__ dout,
+                                    const float* __restrict__ lse, const float* __restrict__ delta,
+                                    f16* __restrict__ dq, int S, float scale, int causal,
+                                    const float* __restrict__ slopes, int H) {
+  flash_bwd_dq_wgmma<D, true, f16>(q, k, v, dout, lse, delta, dq, S, scale, causal, slopes, H);
 }
 
 // ---------------------------------------------------------------------------
@@ -830,12 +950,12 @@ flash_bwd_dq_wgmma_alibi_kernel(const bf16* __restrict__ q, const bf16* __restri
 // dp^T = v do^T (SS), p^T and ds^T in registers, dv += p^T do and
 // dk += ds^T q (RS, q and do read MN-major).
 // ---------------------------------------------------------------------------
-template <int D, bool kAlibi>
-__device__ __forceinline__ void flash_bwd_dkv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                                                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+template <int D, bool kAlibi, typename T>
+__device__ __forceinline__ void flash_bwd_dkv_wgmma(const T* __restrict__ q, const T* __restrict__ k,
+                                                    const T* __restrict__ v, const T* __restrict__ dout,
                                                     const float* __restrict__ lse,
-                                                    const float* __restrict__ delta, bf16* __restrict__ dk,
-                                                    bf16* __restrict__ dv, int S, float scale, int causal,
+                                                    const float* __restrict__ delta, T* __restrict__ dk,
+                                                    T* __restrict__ dv, int S, float scale, int causal,
                                                     const float* __restrict__ slopes, int H) {
   using L = Sw<D>;
   constexpr uint32_t kRes = kRows * D * 2, kStr = kTile * D * 2;
@@ -907,9 +1027,9 @@ __device__ __forceinline__ void flash_bwd_dkv_wgmma(const bf16* __restrict__ q, 
     float s[32], dp[32];
     named_sync(1 + wg);
     wg_fence();
-    ss_product<D, kRows, kTile>(s, opaque(sK + wg * 64 * L::kBytes), tQ);    // s^T = k q^T
+    ss_product<T, D, kRows, kTile>(s, opaque(sK + wg * 64 * L::kBytes), tQ);    // s^T = k q^T
     wg_commit();
-    ss_product<D, kRows, kTile>(dp, opaque(sV + wg * 64 * L::kBytes), tDO);  // dp^T = v do^T
+    ss_product<T, D, kRows, kTile>(dp, opaque(sV + wg * 64 * L::kBytes), tDO);  // dp^T = v do^T
     wg_commit();
     named_arrive(2 - wg);
     wg_wait<1>();    // s^T is done
@@ -943,7 +1063,7 @@ __device__ __forceinline__ void flash_bwd_dkv_wgmma(const bf16* __restrict__ q, 
       }
     }
     uint32_t f[4][4];
-    acc_to_frags(f, s);
+    acc_to_frags<T>(f, s);
     wg_wait<0>();
     fence_regs(dp);
 #pragma unroll
@@ -954,12 +1074,12 @@ __device__ __forceinline__ void flash_bwd_dkv_wgmma(const bf16* __restrict__ q, 
         s[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - (e & 1 ? d.y : d.x)) * scale;   // ds^T
     }
     uint32_t g[4][4];
-    acc_to_frags(g, s);
+    acc_to_frags<T>(g, s);
     fence_regs(dvacc);
     fence_regs(dkacc);
     wg_fence();
-    rs_product<D>(dvacc, f, tDO);   // dv += p^T do
-    rs_product<D>(dkacc, g, tQ);    // dk += ds^T q
+    rs_product<T, D>(dvacc, f, tDO);   // dv += p^T do
+    rs_product<T, D>(dkacc, g, tQ);    // dk += ds^T q
     wg_commit();
     wg_wait<0>();
     fence_regs(dvacc);
@@ -967,10 +1087,13 @@ __device__ __forceinline__ void flash_bwd_dkv_wgmma(const bf16* __restrict__ q, 
     refill(i);
   }
   if (wg == 0) named_sync(1);   // the other warpgroup's last arrive
-  store_acc<D>(dk + base, dkacc, kw, S);
-  store_acc<D>(dv + base, dvacc, kw, S);
+  store_acc<T, D>(dk + base, dkacc, kw, S);
+  store_acc<T, D>(dv + base, dvacc, kw, S);
 }
 
+
+
+// dK/dV's __global__ instances, named as the forward's.
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -978,7 +1101,8 @@ flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
                            const float* __restrict__ lse, const float* __restrict__ delta,
                            bf16* __restrict__ dk, bf16* __restrict__ dv, int S, float scale,
                            int causal, const float* __restrict__ slopes, int H) {
-  flash_bwd_dkv_wgmma<D, false>(q, k, v, dout, lse, delta, dk, dv, S, scale, causal, slopes, H);
+  flash_bwd_dkv_wgmma<D, false, bf16>(q, k, v, dout, lse, delta, dk, dv, S, scale, causal, slopes,
+                                   H);
 }
 
 template <int D>
@@ -988,7 +1112,30 @@ flash_bwd_dkv_wgmma_alibi_kernel(const bf16* __restrict__ q, const bf16* __restr
                                  const float* __restrict__ lse, const float* __restrict__ delta,
                                  bf16* __restrict__ dk, bf16* __restrict__ dv, int S, float scale,
                                  int causal, const float* __restrict__ slopes, int H) {
-  flash_bwd_dkv_wgmma<D, true>(q, k, v, dout, lse, delta, dk, dv, S, scale, causal, slopes, H);
+  flash_bwd_dkv_wgmma<D, true, bf16>(q, k, v, dout, lse, delta, dk, dv, S, scale, causal, slopes,
+                                   H);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_wgmma_f16_kernel(const f16* __restrict__ q, const f16* __restrict__ k,
+                               const f16* __restrict__ v, const f16* __restrict__ dout,
+                               const float* __restrict__ lse, const float* __restrict__ delta,
+                               f16* __restrict__ dk, f16* __restrict__ dv, int S, float scale,
+                               int causal, const float* __restrict__ slopes, int H) {
+  flash_bwd_dkv_wgmma<D, false, f16>(q, k, v, dout, lse, delta, dk, dv, S, scale, causal, slopes,
+                                   H);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_wgmma_f16_alibi_kernel(const f16* __restrict__ q, const f16* __restrict__ k,
+                                     const f16* __restrict__ v, const f16* __restrict__ dout,
+                                     const float* __restrict__ lse, const float* __restrict__ delta,
+                                     f16* __restrict__ dk, f16* __restrict__ dv, int S, float scale,
+                                     int causal, const float* __restrict__ slopes, int H) {
+  flash_bwd_dkv_wgmma<D, true, f16>(q, k, v, dout, lse, delta, dk, dv, S, scale, causal, slopes,
+                                   H);
 }
 
 // ---------------------------------------------------------------------------
@@ -1154,24 +1301,90 @@ cudaError_t allow_smem(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
+// The wgmma kernels of one 16-bit element type T and ALiBi flag.
+template <int D, bool kAlibi, typename T>
+struct Wgmma;
+
+template <int D, bool kAlibi>
+struct Wgmma<D, kAlibi, bf16> {
+  static auto fwd() { return kAlibi ? flash_fwd_wgmma_alibi_kernel<D> : flash_fwd_wgmma_kernel<D>; }
+  static auto delta() { return flash_bwd_delta_kernel<D>; }
+  static auto dq() { return kAlibi ? flash_bwd_dq_wgmma_alibi_kernel<D> : flash_bwd_dq_wgmma_kernel<D>; }
+  static auto dkv() {
+    return kAlibi ? flash_bwd_dkv_wgmma_alibi_kernel<D> : flash_bwd_dkv_wgmma_kernel<D>;
+  }
+};
+
+template <int D, bool kAlibi>
+struct Wgmma<D, kAlibi, f16> {
+  static auto fwd() {
+    return kAlibi ? flash_fwd_wgmma_f16_alibi_kernel<D> : flash_fwd_wgmma_f16_kernel<D>;
+  }
+  static auto delta() { return flash_bwd_delta_f16_kernel<D>; }
+  static auto dq() {
+    return kAlibi ? flash_bwd_dq_wgmma_f16_alibi_kernel<D> : flash_bwd_dq_wgmma_f16_kernel<D>;
+  }
+  static auto dkv() {
+    return kAlibi ? flash_bwd_dkv_wgmma_f16_alibi_kernel<D> : flash_bwd_dkv_wgmma_f16_kernel<D>;
+  }
+};
+
+template <int D, bool kAlibi, typename T>
+cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v, void* o, float* lse,
+                             int BH, int S, float scale, int causal, const float* slopes, int H,
+                             cudaStream_t st) {
+  const auto kernel = Wgmma<D, kAlibi, T>::fwd();
+  cudaError_t e = allow_smem(kernel, fwd_smem<D>());
+  if (e != cudaSuccess) return e;
+  const dim3 grid((S + kRows - 1) / kRows, BH);
+  kernel<<<grid, kThreads, fwd_smem<D>(), st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), lse, S, scale, causal, slopes, H);
+  return cudaGetLastError();
+}
+
 template <int D, bool kAlibi>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int BH,
                        int S, float scale, int causal, const float* slopes, int H, int dtype,
                        cudaStream_t st) {
-  if (dtype == 1) {
-    const auto kernel = kAlibi ? flash_fwd_wgmma_alibi_kernel<D> : flash_fwd_wgmma_kernel<D>;
-    cudaError_t e = allow_smem(kernel, fwd_smem<D>());
-    if (e != cudaSuccess) return e;
-    const dim3 grid((S + kRows - 1) / kRows, BH);
-    kernel<<<grid, kThreads, fwd_smem<D>(), st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<bf16*>(o), lse, S, scale, causal, slopes, H);
-  } else {
-    const dim3 grid((S + kRowsPerBlock - 1) / kRowsPerBlock, BH);
-    flash_fwd_f32_kernel<D, kAlibi><<<grid, kRowsPerBlock * 32, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), lse, S, scale, causal, slopes, H);
-  }
+  if (dtype == 1)
+    return launch_fwd_wgmma<D, kAlibi, bf16>(q, k, v, o, lse, BH, S, scale, causal, slopes, H, st);
+  if (dtype == 2)
+    return launch_fwd_wgmma<D, kAlibi, f16>(q, k, v, o, lse, BH, S, scale, causal, slopes, H, st);
+  const dim3 grid((S + kRowsPerBlock - 1) / kRowsPerBlock, BH);
+  flash_fwd_f32_kernel<D, kAlibi><<<grid, kRowsPerBlock * 32, 0, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, S, scale, causal, slopes, H);
+  return cudaGetLastError();
+}
+
+template <int D, bool kAlibi, typename T>
+cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* o,
+                             const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                             void* dv, int BH, int S, float scale, int causal,
+                             const float* slopes, int H, cudaStream_t st) {
+  using K = Wgmma<D, kAlibi, T>;
+  const auto dq_kernel = K::dq();
+  const auto dkv_kernel = K::dkv();
+  cudaError_t e = allow_smem(dq_kernel, dq_smem<D>());
+  if (e != cudaSuccess) return e;
+  e = allow_smem(dkv_kernel, dkv_smem<D>());
+  if (e != cudaSuccess) return e;
+  const int rows = BH * S, per_block = 256 / (D / 8);
+  K::delta()<<<(rows + per_block - 1) / per_block, 256, 0, st>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout), delta, rows);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const dim3 grid((S + kRows - 1) / kRows, BH);
+  dq_kernel<<<grid, kThreads, dq_smem<D>(), st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), S, scale, causal, slopes, H);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  dkv_kernel<<<grid, kThreads, dkv_smem<D>(), st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), S,
+      scale, causal, slopes, H);
   return cudaGetLastError();
 }
 
@@ -1180,43 +1393,24 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
                        const void* dout, const float* lse, float* delta, void* dq, void* dk,
                        void* dv, int BH, int S, float scale, int causal, const float* slopes,
                        int H, int dtype, cudaStream_t st) {
-  if (dtype == 1) {
-    const auto dq_kernel = kAlibi ? flash_bwd_dq_wgmma_alibi_kernel<D> : flash_bwd_dq_wgmma_kernel<D>;
-    const auto dkv_kernel = kAlibi ? flash_bwd_dkv_wgmma_alibi_kernel<D> : flash_bwd_dkv_wgmma_kernel<D>;
-    cudaError_t e = allow_smem(dq_kernel, dq_smem<D>());
-    if (e != cudaSuccess) return e;
-    e = allow_smem(dkv_kernel, dkv_smem<D>());
-    if (e != cudaSuccess) return e;
-    const int rows = BH * S, per_block = 256 / (D / 8);
-    flash_bwd_delta_kernel<D><<<(rows + per_block - 1) / per_block, 256, 0, st>>>(
-        static_cast<const bf16*>(o), static_cast<const bf16*>(dout), delta, rows);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-    const dim3 grid((S + kRows - 1) / kRows, BH);
-    dq_kernel<<<grid, kThreads, dq_smem<D>(), st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq), S, scale, causal,
-        slopes, H);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-    dkv_kernel<<<grid, kThreads, dkv_smem<D>(), st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk),
-        static_cast<bf16*>(dv), S, scale, causal, slopes, H);
-  } else {
-    const dim3 grid((S + kRowsPerBlock - 1) / kRowsPerBlock, BH);
-    flash_bwd_dq_f32_kernel<D, kAlibi><<<grid, kRowsPerBlock * 32, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(o),
-        static_cast<const float*>(dout), lse, delta, static_cast<float*>(dq), S, scale,
-        causal, slopes, H);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-    flash_bwd_dkv_f32_kernel<D, kAlibi><<<grid, kRowsPerBlock * 32, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), lse, delta,
-        static_cast<float*>(dk), static_cast<float*>(dv), S, scale, causal, slopes, H);
-  }
+  if (dtype == 1)
+    return launch_bwd_wgmma<D, kAlibi, bf16>(q, k, v, o, dout, lse, delta, dq, dk, dv, BH, S,
+                                             scale, causal, slopes, H, st);
+  if (dtype == 2)
+    return launch_bwd_wgmma<D, kAlibi, f16>(q, k, v, o, dout, lse, delta, dq, dk, dv, BH, S,
+                                            scale, causal, slopes, H, st);
+  const dim3 grid((S + kRowsPerBlock - 1) / kRowsPerBlock, BH);
+  flash_bwd_dq_f32_kernel<D, kAlibi><<<grid, kRowsPerBlock * 32, 0, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(o),
+      static_cast<const float*>(dout), lse, delta, static_cast<float*>(dq), S, scale,
+      causal, slopes, H);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  flash_bwd_dkv_f32_kernel<D, kAlibi><<<grid, kRowsPerBlock * 32, 0, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse, delta,
+      static_cast<float*>(dk), static_cast<float*>(dv), S, scale, causal, slopes, H);
   return cudaGetLastError();
 }
 
@@ -1253,14 +1447,15 @@ cudaError_t bwd_for(int D, const void* q, const void* k, const void* v, const vo
 // slopes (ALiBi's [H] table) may be null; given, H must divide BH
 bool bad_args(int BH, int S, int D, int dtype, const void* slopes, int H) {
   return BH <= 0 || BH > 65535 || S <= 0 || (D != 32 && D != 64 && D != 128) ||
-         (dtype != 0 && dtype != 1) || (slopes && (H <= 0 || BH % H != 0));
+         dtype < 0 || dtype > 2 || (slopes && (H <= 0 || BH % H != 0));
 }
 
 }  // namespace
 
 extern "C" {
 
-// q, k, v, o: [BH, S, D] contiguous, one dtype (0 = float32, 1 = bfloat16);
+// q, k, v, o: [BH, S, D] contiguous, one dtype (0 = float32, 1 = bfloat16,
+// 2 = float16);
 // lse: [BH, S] float32; D in {32, 64, 128}; slopes: ALiBi's float32 [H]
 // (null: no bias).  Returns the cudaError_t (0 = ok).
 int ds_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int BH, int S,
@@ -1292,8 +1487,9 @@ int ds_flash_bwd(const void* q, const void* k, const void* v, const void* o, con
                           st));
 }
 
-// Dynamic shared memory a block of the bf16 forward takes at head dim D (0
-// for a head dim without a kernel).
+// Dynamic shared memory a block of the wgmma forward takes at head dim D,
+// the bf16 and the fp16 instances alike (0 for a head dim without a
+// kernel).
 int ds_flash_fwd_smem_bytes(int D) {
   switch (D) {
     case 32: return fwd_smem<32>();
@@ -1303,8 +1499,9 @@ int ds_flash_fwd_smem_bytes(int D) {
   }
 }
 
-// Dynamic shared memory a block of the bf16 backward takes at head dim D:
-// kernel 0 = dQ, 1 = dK/dV (0 for a head dim without a kernel).
+// Dynamic shared memory a block of the wgmma backward takes at head dim D,
+// the bf16 and the fp16 instances alike: kernel 0 = dQ, 1 = dK/dV (0 for a
+// head dim without a kernel).
 int ds_flash_bwd_smem_bytes(int D, int kernel) {
   switch (D) {
     case 32: return kernel ? dkv_smem<32>() : dq_smem<32>();

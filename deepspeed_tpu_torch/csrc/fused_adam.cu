@@ -9,7 +9,9 @@
 //   u  = (m * c1) / (sqrt(v * c2) + eps) (+ wd * p in AdamW mode)
 //   p  = p - lr * u
 //
-// in fp32 whatever the dtypes of p and g; m and v are fp32.  lr, c1 =
+// in fp32 whatever the dtypes of p and g (each fp32, bf16 or fp16; a 16-bit
+// p is rounded back to nearest even, as the JAX function's astype); m and v
+// are fp32.  lr, c1 =
 // 1/(1 - beta1^t) and c2 = 1/(1 - beta2^t) are per-step arguments, never
 // compiled in.  p, m and v are updated IN PLACE (the Pallas kernel returns
 // new arrays; the port owns its buffers and saves a second copy of the
@@ -24,6 +26,7 @@
 // one pallas_call per leaf.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -33,25 +36,31 @@ constexpr int kThreads = 256;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
+template <> __device__ __forceinline__ __half from_f32<__half>(float v) { return __float2half_rn(v); }
 
 struct AdamArgs {
   float lr, c1, c2, beta1, beta2, omb1, omb2, eps, wd;
   int adam_w_mode;
 };
 
+// Each operation rounded on its own, in the plain version's order (no FMA
+// contraction), so the kernel lands on the plain version's fp32 values.  It
+// matters where g' = g + wd * p cancels to ~1e-10: there the eps term makes
+// u follow the last bit of g', and a contracted g' moves an fp16 p by ulps.
 __device__ __forceinline__ float adam_one(float p, float g, float& m, float& v, const AdamArgs& a) {
-  if (!a.adam_w_mode && a.wd != 0.f) g = g + a.wd * p;
-  m = a.beta1 * m + a.omb1 * g;
-  v = a.beta2 * v + a.omb2 * g * g;
-  float u = (m * a.c1) / (sqrtf(v * a.c2) + a.eps);
-  if (a.adam_w_mode && a.wd != 0.f) u = u + a.wd * p;
-  return p - a.lr * u;
+  if (!a.adam_w_mode && a.wd != 0.f) g = __fadd_rn(g, __fmul_rn(a.wd, p));
+  m = __fadd_rn(__fmul_rn(a.beta1, m), __fmul_rn(a.omb1, g));
+  v = __fadd_rn(__fmul_rn(a.beta2, v), __fmul_rn(__fmul_rn(a.omb2, g), g));
+  float u = __fdiv_rn(__fmul_rn(m, a.c1), __fadd_rn(__fsqrt_rn(__fmul_rn(v, a.c2)), a.eps));
+  if (a.adam_w_mode && a.wd != 0.f) u = __fadd_rn(u, __fmul_rn(a.wd, p));
+  return __fsub_rn(p, __fmul_rn(a.lr, u));
 }
 
 template <typename P, typename G>
@@ -118,8 +127,9 @@ void launch(void* p, const void* g, void* m, void* v, long long n, const AdamArg
 
 extern "C" {
 
-// p [n] (p_dtype 0 = float32, 1 = bfloat16) and m, v [n] float32 updated in
-// place from g [n] (g_dtype likewise); every pointer 16-byte aligned.
+// p [n] (p_dtype 0 = float32, 1 = bfloat16, 2 = float16) and m, v [n]
+// float32 updated in place from g [n] (g_dtype likewise); every pointer
+// 16-byte aligned.
 // Returns the cudaError_t of the launch (0 on success).
 int ds_fused_adam(void* p, const void* g, void* m, void* v, long long n, int p_dtype,
                   int g_dtype, float lr, float c1, float c2, float beta1, float beta2,
@@ -132,13 +142,18 @@ int ds_fused_adam(void* p, const void* g, void* m, void* v, long long n, int p_d
   const AdamArgs a{lr, c1, c2, beta1, beta2, one_minus_beta1, one_minus_beta2, eps,
                    weight_decay, adam_w_mode};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int code = p_dtype * 2 + g_dtype;
-  switch (code) {
+  if (p_dtype < 0 || p_dtype > 2 || g_dtype < 0 || g_dtype > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (p_dtype * 3 + g_dtype) {
     case 0: launch<float, float>(p, g, m, v, n, a, s); break;
     case 1: launch<float, __nv_bfloat16>(p, g, m, v, n, a, s); break;
-    case 2: launch<__nv_bfloat16, float>(p, g, m, v, n, a, s); break;
-    case 3: launch<__nv_bfloat16, __nv_bfloat16>(p, g, m, v, n, a, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 2: launch<float, __half>(p, g, m, v, n, a, s); break;
+    case 3: launch<__nv_bfloat16, float>(p, g, m, v, n, a, s); break;
+    case 4: launch<__nv_bfloat16, __nv_bfloat16>(p, g, m, v, n, a, s); break;
+    case 5: launch<__nv_bfloat16, __half>(p, g, m, v, n, a, s); break;
+    case 6: launch<__half, float>(p, g, m, v, n, a, s); break;
+    case 7: launch<__half, __nv_bfloat16>(p, g, m, v, n, a, s); break;
+    default: launch<__half, __half>(p, g, m, v, n, a, s); break;
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,17 +9,20 @@ are [B, H, S, Dh].  A CUDA tensor runs the kernels of
 Hopper's ``wgmma`` over swizzled shared-memory tiles, 128 rows a block, the
 other side streamed through a four-stage ring: the forward, then for the
 backward a pre-pass that writes ``delta = rowsum(do * o)``, the dQ kernel
-and the dK/dV kernel (no atomics, so two calls give the same bits).  For
-fp32 a scalar forward, dQ kernel (which writes delta itself) and dK/dV
-kernel.  A CPU tensor runs :func:`mha_reference`, the jnp reference op for
-op, and autograd takes its backward — what the JAX ``impl="xla"`` path
-does.
+and the dK/dV kernel (no atomics, so two calls give the same bits).  fp16
+runs the same kernels instantiated for float16 (``*_f16_kernel``: what
+``fp16.enabled`` training runs), through wrappers with launch counts of
+their own (:func:`flash_fwd_f16_cuda`, :func:`flash_attention_bwd_f16` and
+their ALiBi twins, all made by ``_instances``).  For fp32 a scalar
+forward, dQ kernel (which writes delta itself) and dK/dV kernel.  A CPU
+tensor runs :func:`mha_reference`, the jnp reference op for op, and
+autograd takes its backward — what the JAX ``impl="xla"`` path does.
 
 The kernels take ``S == Sk`` only (all the training path produces; see the
 ``S != Sk`` hazard in ROADMAP.md queue 3), head dims 32, 64 and 128 (every
-preset's: llama-tiny and mixtral-tiny 32, GPT-2 64, Llama 128), bf16 (the
-tensor-core path) or fp32 (a scalar path for the fp32 reference runs).  A
-ragged S is masked inside the kernels.
+preset's: llama-tiny and mixtral-tiny 32, GPT-2 64, Llama 128), bf16 and
+fp16 (the tensor-core path) or fp32 (a scalar path for the fp32 reference
+runs).  A ragged S is masked inside the kernels.
 
 ``alibi=True`` (BLOOM) adds the per-head bias ``slope_h * (col - row)`` to
 the scaled logits before the causal mask, as the Pallas kernels do: on a
@@ -37,12 +40,12 @@ from typing import Optional
 import torch
 
 from deepspeed_tpu_torch.ops.kernels.build import check_launch, load_library
-from deepspeed_tpu_torch.ops.kernels.common import (alibi_slopes_on,
+from deepspeed_tpu_torch.ops.kernels.common import (KERNEL_DTYPES,
+                                                    alibi_slopes_on,
                                                     check_kernel_input,
                                                     use_kernel)
 
 NEG_INF = -1e30
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
 
 
@@ -81,13 +84,13 @@ def _library():
     return built
 
 
-def _check(q, k, v):
+def _check(q, k, v, f16: bool):
     for name, t in (("q", q), ("k", k), ("v", v)):
         check_kernel_input(f"flash_attention {name}", t, q.device,
                            dtype=q.dtype)
-    if q.dtype not in _DTYPES:
-        raise TypeError(f"flash_attention kernel takes bf16 or fp32, got "
-                        f"{q.dtype}")
+    if (q.dtype == torch.float16) != f16:
+        raise TypeError(f"flash_attention: the {'fp16' if f16 else 'fp32 and bf16'}"
+                        f" wrappers got {q.dtype} (fp16 goes to the *_f16 ones)")
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"flash_attention kernel takes q, k, v of one shape "
                          f"[B, H, S, Dh] (S == Sk), got {tuple(q.shape)}, "
@@ -98,8 +101,8 @@ def _check(q, k, v):
                          f"ROADMAP.md queue 2)")
 
 
-def _fwd(q, k, v, causal, scale, slopes):
-    _check(q, k, v)
+def _fwd(q, k, v, causal, scale, slopes, f16=False):
+    _check(q, k, v, f16)
     B, H, S, D = q.shape
     o = torch.empty_like(q)
     lse = torch.empty(B, H, S, device=q.device, dtype=torch.float32)
@@ -110,28 +113,21 @@ def _fwd(q, k, v, causal, scale, slopes):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), B * H, S, D, float(scale), int(causal),
             None if slopes is None else slopes.data_ptr(), H,
-            _DTYPES[q.dtype], stream)
+            KERNEL_DTYPES[q.dtype], stream)
     check_launch(built, "flash_attention fwd", code)
     return o, lse
 
 
 def flash_fwd_cuda(q, k, v, causal: bool, scale: float):
-    """Forward kernel: (o [B, H, S, Dh] in q's dtype, lse [B, H, S] fp32)."""
+    """Forward kernel, fp32 or bf16: (o [B, H, S, Dh] in q's dtype, lse
+    [B, H, S] fp32)."""
     out = _fwd(q, k, v, causal, scale, None)
     flash_attention.launches += 1
     return out
 
 
-def flash_fwd_alibi_cuda(q, k, v, causal: bool, scale: float):
-    """The forward kernel's ALiBi instance (the bias ``slope_h * (col -
-    row)`` added to the scaled logits): as :func:`flash_fwd_cuda`."""
-    out = _fwd(q, k, v, causal, scale, alibi_slopes_on(q.shape[1], q.device))
-    flash_fwd_alibi_cuda.launches += 1
-    return out
-
-
-def _bwd(q, k, v, o, lse, do, causal, scale, slopes):
-    _check(q, k, v)
+def _bwd(q, k, v, o, lse, do, causal, scale, slopes, f16=False):
+    _check(q, k, v, f16)
     for name, t in (("o", o), ("do", do)):
         check_kernel_input(f"flash_attention {name}", t, q.device,
                            dtype=q.dtype)
@@ -151,39 +147,67 @@ def _bwd(q, k, v, o, lse, do, causal, scale, slopes):
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), B * H, S, D, float(scale),
             int(causal), None if slopes is None else slopes.data_ptr(), H,
-            _DTYPES[q.dtype], stream)
+            KERNEL_DTYPES[q.dtype], stream)
     check_launch(built, "flash_attention bwd", code)
     return dq, dk, dv
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, causal: bool, scale: float):
-    """Backward kernels (bf16: the delta pre-pass, dQ, then dK/dV; fp32: dQ
-    with delta, then dK/dV), counted as one call: (dq, dk, dv) in q's
-    dtype."""
+    """Backward kernels, fp32 or bf16 (bf16: the delta pre-pass, dQ, then
+    dK/dV; fp32: dQ with delta, then dK/dV), counted as one call: (dq, dk,
+    dv) in q's dtype."""
     out = _bwd(q, k, v, o, lse, do, causal, scale, None)
     flash_attention_bwd.launches += 1
     return out
 
 
-def flash_attention_bwd_alibi(q, k, v, o, lse, do, causal: bool, scale: float):
-    """The backward kernels' ALiBi instances (the delta pre-pass is
-    shared), counted as one call: as :func:`flash_attention_bwd`."""
-    out = _bwd(q, k, v, o, lse, do, causal, scale,
-               alibi_slopes_on(q.shape[1], q.device))
-    flash_attention_bwd_alibi.launches += 1
-    return out
-
-
 flash_attention_bwd.launches = 0   # backward calls (2 or 3 kernel launches each)
-flash_fwd_alibi_cuda.launches = 0        # the ALiBi forward's launches
-flash_attention_bwd_alibi.launches = 0   # the ALiBi backward's calls
+
+
+def _instances(f16: bool, alibi: bool):
+    """The forward and backward wrappers of the kernels' fp16 and ALiBi
+    instances (ALiBi: the bias ``slope_h * (col - row)`` added to the
+    scaled logits; the delta pre-pass is shared), as :func:`flash_fwd_cuda`
+    and :func:`flash_attention_bwd`, each with a launch count of its own."""
+    tag = "_f16" * f16 + "_alibi" * alibi
+
+    def slopes(q):
+        return alibi_slopes_on(q.shape[1], q.device) if alibi else None
+
+    def fwd(q, k, v, causal: bool, scale: float):
+        out = _fwd(q, k, v, causal, scale, slopes(q), f16)
+        fwd.launches += 1
+        return out
+
+    def bwd(q, k, v, o, lse, do, causal: bool, scale: float):
+        out = _bwd(q, k, v, o, lse, do, causal, scale, slopes(q), f16)
+        bwd.launches += 1
+        return out
+
+    fwd.__name__ = fwd.__qualname__ = f"flash_fwd{tag}_cuda"
+    bwd.__name__ = bwd.__qualname__ = f"flash_attention_bwd{tag}"
+    fwd.launches = bwd.launches = 0
+    return fwd, bwd
+
+
+# (fp16, alibi) -> the forward and backward wrappers of those instances
+_WRAPPERS = {(False, False): (flash_fwd_cuda, flash_attention_bwd),
+             **{key: _instances(*key)
+                for key in ((False, True), (True, False), (True, True))}}
+flash_fwd_alibi_cuda, flash_attention_bwd_alibi = _WRAPPERS[False, True]
+flash_fwd_f16_cuda, flash_attention_bwd_f16 = _WRAPPERS[True, False]
+flash_fwd_f16_alibi_cuda, flash_attention_bwd_f16_alibi = _WRAPPERS[True, True]
+
+
+def wrappers(dtype: torch.dtype, alibi: bool):
+    """The (forward, backward) kernel wrappers for q's dtype and ALiBi."""
+    return _WRAPPERS[(dtype == torch.float16, bool(alibi))]
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, alibi):
-        fwd = flash_fwd_alibi_cuda if alibi else flash_fwd_cuda
-        o, lse = fwd(q, k, v, causal, scale)
+        o, lse = wrappers(q.dtype, alibi)[0](q, k, v, causal, scale)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.scale, ctx.alibi = causal, scale, alibi
         return o
@@ -191,7 +215,7 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        bwd = flash_attention_bwd_alibi if ctx.alibi else flash_attention_bwd
+        bwd = wrappers(q.dtype, ctx.alibi)[1]
         dq, dk, dv = bwd(q, k, v, o, lse, do.contiguous(), ctx.causal,
                          ctx.scale)
         return dq, dk, dv, None, None, None
@@ -222,4 +246,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          bias=_alibi_ref_bias(q, k, alibi))
 
 
-flash_attention.launches = 0   # forward kernel launches (CUDA tensors only)
+flash_attention.launches = 0   # fp32 and bf16 forward launches (CUDA tensors only)

@@ -3,11 +3,13 @@
 A trimmed copy of ``deepspeed_tpu/runtime/config.py`` ``DeepSpeedConfig``
 over the port's :mod:`.config_utils`.  It covers what the standard
 training path reads: the batch triad and its checks, ``bf16`` (with
-``master_weights: false``, master-free bf16 training), ``optimizer``, ``scheduler``, ``gradient_clipping``,
+``master_weights: false``, master-free bf16 training), ``fp16`` (float16
+compute over fp32 masters with a static or dynamic loss scale),
+``optimizer``, ``scheduler``, ``gradient_clipping``,
 ``data_types.grad_accum_dtype``, ``activation_checkpointing``, ``seed``
 and ``steps_per_print``.  The sections the port does not carry yet raise
 ``NotImplementedError`` naming ROADMAP.md when they ask for something:
-ZeRO stages 1-3 and offload, fp16 loss scaling, quantized communication,
+ZeRO stages 1-3 and offload, quantized communication,
 pipeline, tensor, sequence and expert parallelism.  Observability sections
 (profilers, monitors, flight recorder, goodput, watchdog, anomaly
 detection) are accepted only while disabled.  ``world_size`` is 1: the
@@ -25,6 +27,21 @@ import torch
 from pydantic import Field
 
 from deepspeed_tpu_torch.runtime.config_utils import AUTO, DeepSpeedConfigModel
+
+
+class FP16Config(DeepSpeedConfigModel):
+    enabled: bool = False
+    loss_scale: float = 0.0  # 0 => dynamic
+    initial_scale_power: int = 16
+    loss_scale_window: int = 1000
+    hysteresis: int = 2
+    consecutive_hysteresis: bool = False
+    min_loss_scale: float = 1.0
+    auto_cast: bool = False
+
+    @property
+    def dynamic_loss_scale(self) -> bool:
+        return self.loss_scale == 0.0
 
 
 class BF16Config(DeepSpeedConfigModel):
@@ -160,6 +177,7 @@ class DeepSpeedConfig:
         self.gradient_clipping = _scalar(d, "gradient_clipping", 0.0)
         self.seed = _scalar(d, "seed", 42)
 
+        self.fp16 = FP16Config(**d.get("fp16", {}))
         self.bf16 = BF16Config(**d.get("bf16", d.get("bfloat16", {})))
         self.data_types = DataTypesConfig(**d.get("data_types", {}))
         self.optimizer = OptimizerConfig(**d["optimizer"]) if "optimizer" in d else None
@@ -179,8 +197,6 @@ class DeepSpeedConfig:
             if dev not in (None, "none"):
                 raise _not_ported(f"zero_optimization.{key}", "ZeRO 1-3 over "
                                   "torch.distributed, then offload")
-        if (d.get("fp16") or {}).get("enabled"):
-            raise _not_ported("fp16.enabled (loss scaling)", "fp16 loss scaling")
         cq = d.get("comm_quantization") or {}
         if any(v is True for v in cq.values()):
             raise _not_ported("comm_quantization", "ZeRO 1-3 over torch.distributed")
@@ -206,8 +222,25 @@ class DeepSpeedConfig:
                               "(remat_policy 'offload_dots')", "ZeRO 1-3 over "
                               "torch.distributed, then offload")
 
+    @property
+    def fp16_enabled(self) -> bool:
+        return bool(self.fp16.enabled)
+
+    @property
+    def loss_scale(self) -> float:
+        return self.fp16.loss_scale
+
+    @property
+    def dynamic_loss_scale(self) -> bool:
+        return self.fp16.dynamic_loss_scale
+
     def dtype(self) -> torch.dtype:
-        return torch.bfloat16 if self.bf16.enabled else torch.float32
+        """The compute dtype: bf16, fp16 (over fp32 masters) or fp32."""
+        if self.bf16.enabled:
+            return torch.bfloat16
+        if self.fp16.enabled:
+            return torch.float16
+        return torch.float32
 
     def master_dtype(self) -> torch.dtype:
         """fp32 masters, or bf16 ones under ``bf16.master_weights: false``."""
@@ -219,6 +252,11 @@ class DeepSpeedConfig:
         return torch.float32 if name is None else _DTYPES[name.lower()]
 
     def _validate(self) -> None:
+        if self.fp16.enabled and self.bf16.enabled:
+            raise ValueError("fp16 and bf16 cannot both be enabled")
         ga = self.data_types.grad_accum_dtype
         if ga is not None and ga.lower() not in _DTYPES:
             raise ValueError(f"data_types.grad_accum_dtype: unknown dtype {ga!r}")
+        if self.fp16.enabled and ga is not None and _DTYPES[ga.lower()] != torch.float32:
+            raise ValueError("fp16 loss scaling requires fp32 gradient "
+                             "accumulation (data_types.grad_accum_dtype)")

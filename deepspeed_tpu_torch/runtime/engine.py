@@ -5,13 +5,21 @@ ports the semantics of the compiled step functions there
 (``_compile_steps_inner``):
 
 - ``accum``: the loss of one micro-batch on the compute copy of the
-  weights (bf16 when ``bf16.enabled``), divided by
+  weights (bf16 when ``bf16.enabled``, fp16 when ``fp16.enabled``), in
+  fp32 times the loss scale (fp16 only) and divided by
   ``gradient_accumulation_steps``; its gradients are cast to the
   accumulator dtype (``data_types.grad_accum_dtype``, default fp32) and
   added to the accumulator;
-- ``apply``: clip to ``gradient_clipping`` (or just take the global norm),
-  one optimizer update of the masters, zero the accumulator,
-  ``global_steps += 1``;
+- ``apply``: under fp16, the overflow test over the accumulators and their
+  division by the loss scale; clip to ``gradient_clipping`` (or just take
+  the global norm), one optimizer update of the masters, zero the
+  accumulator, ``global_steps += 1``.  Under fp16 a step whose
+  accumulators hold an inf or a NaN is skipped: the optimizer does not
+  step (params, moments and its count stay as they were, so its next step
+  applies the learning rate the skipped one would have), ``global_steps``
+  stays, the accumulators are zeroed and the loss scaler moves
+  (``runtime/fp16/loss_scaler.py``).  That needs the overflow flag on the
+  host: one read a step, under fp16 only;
 - ``fused`` (:meth:`train_step`): gas micro-batches, then apply; returns
   the mean loss.
 
@@ -26,9 +34,9 @@ When the master dtype is the compute dtype (fp32 training, or master-free
 bf16) it aliases the masters; otherwise it is a copy refreshed from them
 after every update.
 
-Not ported yet (ROADMAP.md queue 1): checkpoints, fp16 loss scaling, ZeRO,
-offload, telemetry, goodput, watchdog, anomaly handling, overlap and the
-1-bit optimizers.
+Not ported yet (ROADMAP.md queue 1): checkpoints, ZeRO, offload,
+telemetry, goodput, watchdog, anomaly handling, overlap and the 1-bit
+optimizers.
 """
 
 from __future__ import annotations
@@ -42,8 +50,10 @@ import torch
 from deepspeed_tpu_torch.accelerator.real_accelerator import DeviceLike, resolve_device
 from deepspeed_tpu_torch.runtime import optimizer as opt_builder
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+from deepspeed_tpu_torch.runtime.fp16 import loss_scaler as scaler_lib
 from deepspeed_tpu_torch.runtime.lr_schedules import LRSchedulerShim, get_lr_schedule
-from deepspeed_tpu_torch.runtime.utils import clip_grad_norm_, global_norm
+from deepspeed_tpu_torch.runtime.utils import (clip_grad_norm_, global_norm,
+                                               has_overflow)
 
 logger = logging.getLogger(__name__)
 
@@ -81,6 +91,11 @@ class DeepSpeedEngine:
         self.compute_dtype = self.config.dtype()
         self.grad_accum_dtype = self.config.grad_accum_dtype()
         self.master_dtype = self.config.master_dtype()
+        self.fp16_enabled = self.config.fp16_enabled
+        self._scaler = scaler_lib.make_state(self.config.fp16)
+        self._last_overflow = False
+        self._scale_dev: Optional[torch.Tensor] = None   # the scale on device
+        self._scale_host = 0.0                            # and its value
 
         # masters: the model's own parameters, on the engine's device
         self._paths: List[str] = []
@@ -196,7 +211,10 @@ class DeepSpeedEngine:
         gas = self.config.gradient_accumulation_steps
         params = self._compute_params()
         loss = self._loss(params, batch)
-        (loss.float() / gas).backward()
+        if self.fp16_enabled:
+            (loss.float() * float(self._scaler.scale) / gas).backward()
+        else:
+            (loss.float() / gas).backward()
         with torch.no_grad():
             for acc, leaf in zip(self.grad_acc, self._compute):
                 if isinstance(leaf, list):
@@ -209,17 +227,42 @@ class DeepSpeedEngine:
                     leaf.grad = None
         return loss.detach()
 
+    def _device_scale(self) -> torch.Tensor:
+        """The loss scale as a device tensor, refilled only when it moves:
+        CUDA divides by a Python scalar as a product with its reciprocal,
+        not the quotient for a scale such as 1000."""
+        scale = float(self._scaler.scale)
+        if self._scale_dev is None:
+            self._scale_dev = torch.full((), scale, device=self.device)
+        elif scale != self._scale_host:
+            self._scale_dev.fill_(scale)
+        self._scale_host = scale
+        return self._scale_dev
+
     def _apply(self) -> torch.Tensor:
         clip = self.config.gradient_clipping
+        if self.fp16_enabled:
+            overflow = has_overflow(self.grad_acc)
+            torch._foreach_div_(self.grad_acc, self._device_scale())
         if clip > 0:
             gnorm = clip_grad_norm_(self.grad_acc, clip)
         else:
             gnorm = global_norm(self.grad_acc)
-        self.optimizer.step(grads=self.grad_acc)
+        skip = False
+        if self.fp16_enabled:
+            skip = self._last_overflow = bool(overflow)   # the one host read
+            fp16 = self.config.fp16
+            # the JAX engine's call, which leaves consecutive_hysteresis out
+            self._scaler = scaler_lib.update(
+                self._scaler, skip, dynamic=fp16.dynamic_loss_scale,
+                loss_scale_window=fp16.loss_scale_window,
+                min_loss_scale=fp16.min_loss_scale, hysteresis=fp16.hysteresis)
+        if not skip:
+            self.optimizer.step(grads=self.grad_acc)
+            self._refresh_compute()
+            self.global_steps += 1
         for acc in self.grad_acc:
             acc.zero_()
-        self._refresh_compute()
-        self.global_steps += 1
         return gnorm
 
     # ------------------------------------------------------------------
@@ -312,6 +355,16 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------------
     # introspection
     # ------------------------------------------------------------------
+    @property
+    def loss_scale(self) -> float:
+        """The current loss scale (1.0 unless fp16 is enabled)."""
+        return float(self._scaler.scale)
+
+    @property
+    def skipped_steps(self) -> int:
+        """Optimizer steps skipped for an overflow under fp16."""
+        return self._scaler.skipped_steps
+
     def get_global_grad_norm(self) -> Optional[float]:
         return (float(self._last_grad_norm) if self._last_grad_norm is not None
                 else None)

@@ -26,7 +26,11 @@ bf16, dγ and dβ 1e-4 relative fp32 / 2e-2 bf16.  Softmax: 1e-6 fp32 (outputs
 in [0, 1]; another summation order) and bf16 one rounding of each output,
 2^-8 relative (rtol 8e-3 with a 1e-6 floor): an absolute 2e-2 would let the
 small probabilities of a 1024-wide row be wholly wrong.  bias_act 1e-5 fp32
-(exp-based GeLU and SiLU against tanh and sigmoid) / 2e-2 bf16.
+(exp-based GeLU and SiLU against tanh and sigmoid) / 2e-2 bf16.  fp16 (the
+norms, RoPE, flash attention and fused Adam, for ``fp16.enabled``
+training): each bf16 bound over 8, as fp16 keeps three more mantissa bits
+(2^-11 against 2^-8 relative): 2.5e-3 elementwise and for the flash
+gradients, 1.25e-3 for the flash output's relative error.
 """
 
 import numpy as np
@@ -40,9 +44,13 @@ from deepspeed_tpu_torch.ops.kernels import layer_norm as tln
 from deepspeed_tpu_torch.ops.kernels import rope as trope
 from deepspeed_tpu_torch.ops.kernels import softmax as tsm
 
-TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 2.5e-3}
 GEMV_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-ATTN_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+ATTN_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2, torch.float16: 2.5e-3}
+# the flash output's relative Frobenius error, and the gradients'
+O_REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 1.25e-3}
+GRAD_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2.5e-3}
+DTYPES = [torch.float32, torch.bfloat16, torch.float16]
 
 pytestmark = pytest.mark.cuda
 
@@ -61,7 +69,7 @@ def _randn(shape, seed, dtype, dev, scale=1.0):
     return (torch.from_numpy(a) * scale).to(device=dev, dtype=dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(8, 4096), (64, 4096), (8192, 2048),
                                    (3, 5, 4096), (7, 100)])
 def test_rms_norm_kernel_matches_plain(cuda_device, dtype, shape):
@@ -136,7 +144,7 @@ def test_rms_norm_launches_on_the_current_stream(cuda_device):
                                rtol=TOL[torch.bfloat16], atol=TOL[torch.bfloat16])
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(1, 32, 64, 128), (1, 8, 64, 128),
                                    (4, 16, 2048, 128), (1, 32, 17, 128),
                                    (2, 3, 5, 48)])
@@ -155,7 +163,7 @@ def test_rope_kernel_matches_plain(cuda_device, dtype, shape):
                                atol=TOL[dtype])
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_rope_backward_is_the_kernel_with_negated_sin(cuda_device, dtype):
     """llama-1b4's training q: the backward launches the same kernel with
     -sin, against the plain version with -sin."""
@@ -181,6 +189,14 @@ def test_rope_kernel_refuses_bad_inputs(cuda_device):
 
 def _close(got, want, tol):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _within_f16_ulp(got, want):
+    """fp16 got within one fp16 ulp of want in every element."""
+    w = want.float()
+    ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w).exponent - 11)
+    ulp = torch.where(w == 0, 2.0 ** -24, ulp.clamp_min(2.0 ** -24))
+    assert float(((got.float() - w).abs() / ulp).max()) <= 1
 
 
 def _counted(fn, *args, **kw):
@@ -422,7 +438,7 @@ def _rel_err(got, want):
                  / max(float(want.float().norm()), 1.0))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(8192, 2048), (3, 5, 2048), (7, 100),
                                    (1, 64)])
 def test_rms_norm_bwd_kernel_matches_plain(cuda_device, dtype, shape):
@@ -435,7 +451,7 @@ def test_rms_norm_bwd_kernel_matches_plain(cuda_device, dtype, shape):
     want_dx, want_dg = tln.rms_norm_bwd_plain(x, g, dy, eps=1e-5)
     assert dx.dtype == dtype and dg.dtype == dtype and dx.shape == x.shape
     _close(dx, want_dx, TOL[dtype])
-    dg_tol = 1e-4 if dtype == torch.float32 else 2e-2
+    dg_tol = 1e-4 if dtype == torch.float32 else GRAD_REL_TOL[dtype]
     assert _rel_err(dg, want_dg) < dg_tol
     dx2, dg2 = tln.rms_norm_bwd(x, g, dy, eps=1e-5)
     assert torch.equal(dx, dx2) and torch.equal(dg, dg2)   # no atomics
@@ -478,8 +494,8 @@ def _flash_fwd_check(q, k, v, causal, alibi=False):
     under ``alibi`` the kernels' ALiBi instances against the reference with
     the JAX ALiBi bias), one launch counted: (o, lse)."""
     dtype, scale = q.dtype, q.shape[-1] ** -0.5
-    fwd = tfa.flash_fwd_alibi_cuda if alibi else tfa.flash_fwd_cuda
-    counter = fwd if alibi else tfa.flash_attention
+    fwd = tfa.wrappers(dtype, alibi)[0]
+    counter = tfa.flash_attention if fwd is tfa.flash_fwd_cuda else fwd
     before = counter.launches
     o, lse = fwd(q, k, v, causal, scale)
     torch.cuda.synchronize()
@@ -487,8 +503,8 @@ def _flash_fwd_check(q, k, v, causal, alibi=False):
     assert o.dtype == dtype and lse.dtype == torch.float32
     bias = tfa._alibi_ref_bias(q, k, alibi)
     want_o = tfa.mha_reference(q, k, v, causal=causal, bias=bias)
-    _close(o, want_o, 2e-4 if dtype == torch.float32 else 2e-2)
-    assert _rel_err(o, want_o) < (1e-5 if dtype == torch.float32 else 1e-2)
+    _close(o, want_o, ATTN_TOL[dtype])
+    assert _rel_err(o, want_o) < O_REL_TOL[dtype]
     _close(lse, _lse_plain(q, k, scale, causal, bias), 1e-4)
     return o, lse
 
@@ -499,29 +515,28 @@ def _flash_roundtrip(q, k, v, do, causal, alibi=False):
     launch counted, and two backward calls give the same bits."""
     dtype, scale = q.dtype, q.shape[-1] ** -0.5
     o, lse = _flash_fwd_check(q, k, v, causal, alibi)
-    bwd = tfa.flash_attention_bwd_alibi if alibi else tfa.flash_attention_bwd
+    bwd = tfa.wrappers(dtype, alibi)[1]
     grads = _counted(bwd, q, k, v, o, lse, do, causal, scale)
     # detached: fp32's .float() is q itself, whose grad would accumulate
     # over two roundtrips on the same inputs
     ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
     tfa.mha_reference(*ref, causal=causal,
                       bias=tfa._alibi_ref_bias(q, k, alibi)).backward(do.float())
-    tol = 1e-4 if dtype == torch.float32 else 2e-2
     for got, r, name in zip(grads, ref, "qkv"):
         assert got.dtype == dtype and got.shape == q.shape
-        assert _rel_err(got, r.grad) < tol, name
+        assert _rel_err(got, r.grad) < GRAD_REL_TOL[dtype], name
     again = bwd(q, k, v, o, lse, do, causal, scale)
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("B,H,S,D", [(4, 16, 2048, 128),   # llama-1b4
                                      (2, 3, 200, 128),     # ragged S
                                      (1, 2, 64, 64), (1, 1, 1, 128),
                                      (4, 8, 512, 32),      # llama-tiny's heads
                                      (2, 3, 200, 32)])
 def test_flash_attention_kernels_match_plain(cuda_device, dtype, B, H, S, D):
-    """The path's shapes, causal, fp32 and bf16."""
+    """The path's shapes, causal, fp32, bf16 and fp16."""
     _flash_roundtrip(*_attn_inputs(B, H, S, D, dtype, cuda_device), causal=True)
 
 
@@ -529,7 +544,7 @@ def test_flash_attention_kernels_match_plain(cuda_device, dtype, B, H, S, D):
 @pytest.mark.parametrize("S", [128, 200, 2048])
 @pytest.mark.parametrize("H", [16, 12])
 @pytest.mark.parametrize("D", [32, 64, 128])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_attention_alibi_kernels_match_plain(cuda_device, dtype, D, H, S,
                                                    alibi):
     """The ALiBi instances against mha_reference with the JAX ALiBi bias,
@@ -540,7 +555,7 @@ def test_flash_attention_alibi_kernels_match_plain(cuda_device, dtype, D, H, S,
     _flash_roundtrip(q, k, v, do, causal=True, alibi=alibi)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("B,H,S,D", [(2, 3, 200, 64), (1, 12, 257, 128),
                                      (4, 16, 2048, 128)])   # bloom-1b7
 def test_flash_attention_alibi_batches_and_non_causal(cuda_device, dtype, B, H,
@@ -554,16 +569,17 @@ def test_flash_attention_alibi_batches_and_non_causal(cuda_device, dtype, B, H,
         _flash_roundtrip(q, k, v, do, causal=False, alibi=True)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 128, 129, 192, 257, 1000])
-def test_flash_attention_bwd_tile_edges(cuda_device, S, D):
-    """The bf16 backward's 128-row blocks and 64-row streamed tiles: S on,
+def test_flash_attention_bwd_tile_edges(cuda_device, S, D, dtype):
+    """The 16-bit backward's 128-row blocks and 64-row streamed tiles: S on,
     just under and just over each edge, at every head dim."""
-    q, k, v, do = _attn_inputs(1, 2, S, D, torch.bfloat16, cuda_device, seed=S)
+    q, k, v, do = _attn_inputs(1, 2, S, D, dtype, cuda_device, seed=S)
     _flash_roundtrip(q, k, v, do, causal=True)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("B,H,S,D", [(2, 3, 200, 64), (1, 2, 257, 128)])
 def test_flash_attention_kernels_non_causal(cuda_device, dtype, B, H, S, D):
     """causal=False: every key tile, the mask only on the ragged one."""
@@ -571,47 +587,53 @@ def test_flash_attention_kernels_non_causal(cuda_device, dtype, B, H, S, D):
     _flash_roundtrip(q, k, v, do, causal=False)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("B,H,S,D", [(1, 1, 1000, 128),    # B*H = 1
                                      (2, 40, 512, 64)])    # 320 blocks
-def test_flash_attention_bwd_grid_extremes(cuda_device, B, H, S, D):
+def test_flash_attention_bwd_grid_extremes(cuda_device, B, H, S, D, dtype):
     """One head (a grid of 8 blocks on 132 SMs) and more blocks than SMs."""
-    q, k, v, do = _attn_inputs(B, H, S, D, torch.bfloat16, cuda_device, seed=3)
+    q, k, v, do = _attn_inputs(B, H, S, D, dtype, cuda_device, seed=3)
     _flash_roundtrip(q, k, v, do, causal=True)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("B,H,S,D", [(4, 16, 2048, 128), (2, 3, 257, 64),
                                      (1, 2, 200, 32)])
-def test_flash_attention_fwd_repeats_bit_equal(cuda_device, B, H, S, D):
-    """The bf16 forward: two calls give the same bits, o and lse."""
-    q, k, v, _ = _attn_inputs(B, H, S, D, torch.bfloat16, cuda_device, seed=5)
-    o, lse = tfa.flash_fwd_cuda(q, k, v, True, D ** -0.5)
-    o2, lse2 = tfa.flash_fwd_cuda(q, k, v, True, D ** -0.5)
+def test_flash_attention_fwd_repeats_bit_equal(cuda_device, B, H, S, D, dtype):
+    """The 16-bit forward: two calls give the same bits, o and lse."""
+    q, k, v, _ = _attn_inputs(B, H, S, D, dtype, cuda_device, seed=5)
+    fwd = tfa.wrappers(dtype, False)[0]
+    o, lse = fwd(q, k, v, True, D ** -0.5)
+    o2, lse2 = fwd(q, k, v, True, D ** -0.5)
     torch.cuda.synchronize()
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("B,H,S,D", [(1, 2, 1000, 128), (1, 2, 257, 64)])
-def test_flash_attention_fwd_large_logits(cuda_device, B, H, S, D):
+def test_flash_attention_fwd_large_logits(cuda_device, B, H, S, D, dtype):
     """q x 16: logits of tens, so the running max jumps across tiles and
     alpha falls far below 1; the forward still matches mha_reference under
     the same tolerances."""
-    q, k, v, _ = _attn_inputs(B, H, S, D, torch.bfloat16, cuda_device, seed=11)
-    _flash_fwd_check((q.float() * 16).to(torch.bfloat16), k, v, causal=True)
+    q, k, v, _ = _attn_inputs(B, H, S, D, dtype, cuda_device, seed=11)
+    _flash_fwd_check((q.float() * 16).to(dtype), k, v, causal=True)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("S", [192, 320])
-def test_flash_attention_fwd_last_block_half_empty(cuda_device, S, D):
+def test_flash_attention_fwd_last_block_half_empty(cuda_device, S, D, dtype):
     """S an odd multiple of 64: the last 128-row block's second warpgroup
     holds no row below S, and warpgroup 0 of each earlier block computes
     one fully masked tile."""
-    q, k, v, do = _attn_inputs(1, 2, S, D, torch.bfloat16, cuda_device, seed=S)
+    q, k, v, do = _attn_inputs(1, 2, S, D, dtype, cuda_device, seed=S)
     _flash_roundtrip(q, k, v, do, causal=True)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("D", [32, 64, 128])
-def test_flash_attention_fwd_shared_memory(cuda_device, D):
-    """The bf16 forward's dynamic shared memory (the resident 128-row Q
+def test_flash_attention_fwd_shared_memory(cuda_device, D, dtype):
+    """The 16-bit forward's dynamic shared memory (the resident 128-row Q
     tile, four stages of a 64-row K and V pair, eight mbarriers, the 1 KB
     alignment pad) is what the launch takes and fits the card's opt-in
     limit of 232,448 B."""
@@ -620,8 +642,8 @@ def test_flash_attention_fwd_shared_memory(cuda_device, D):
     limit = getattr(torch.cuda.get_device_properties(cuda_device),
                     "shared_memory_per_block_optin", 232448)
     assert smem <= min(limit, 232448)
-    _flash_fwd_check(*_attn_inputs(1, 1, 129, D, torch.bfloat16,
-                                   cuda_device)[:3], causal=True)
+    _flash_fwd_check(*_attn_inputs(1, 1, 129, D, dtype, cuda_device)[:3],
+                     causal=True)
 
 
 def test_flash_attention_autograd_and_refusals(cuda_device):
@@ -653,30 +675,99 @@ def test_flash_attention_autograd_and_refusals(cuda_device):
         do.float())
     for got, r in zip(leaves, ref):
         assert _rel_err(got.grad, r.grad) < 2e-2
+    # fp16 takes the fp16 instances, with and without ALiBi, and no other
+    counts += (tfa.flash_fwd_f16_cuda, tfa.flash_attention_bwd_f16,
+               tfa.flash_fwd_f16_alibi_cuda, tfa.flash_attention_bwd_f16_alibi)
+    for alibi, want in ((False, [0, 0, 0, 0, 1, 1, 0, 0]),
+                        (True, [0, 0, 0, 0, 0, 0, 1, 1])):
+        leaves = [t.half().requires_grad_() for t in (q, k, v)]
+        before = [c.launches for c in counts]
+        tfa.flash_attention(*leaves, alibi=alibi).backward(do.half())
+        torch.cuda.synchronize()
+        assert [c.launches - b for c, b in zip(counts, before)] == want
+        assert all(t.grad.dtype == torch.float16 for t in leaves)
+    # each wrapper takes only its own dtypes
+    with pytest.raises(TypeError, match="f16"):
+        tfa.flash_fwd_cuda(q.half(), k.half(), v.half(), True, 0.125)
+    with pytest.raises(TypeError, match="f16"):
+        tfa.flash_fwd_f16_cuda(q, k, v, True, 0.125)
+
+
+@pytest.mark.parametrize("alibi", [False, True])
+def test_flash_attention_f16_overflow_stays_visible(cuda_device, alibi):
+    """What the loss scaler needs of the fp16 kernels: an inf in do gives
+    non-finite dq, dk and dv, and a finite do whose gradients pass fp16's
+    range gives inf where the plain version's fp32 value is past 65520
+    (where fp16's round to nearest goes to inf), never a clamped finite
+    value; where that value is well inside the range the kernel's is
+    finite.  do = 30000 in every element makes dv_j = 30000 times column
+    j's sum of p, which reaches ~8 at S 2048 (the harmonic sum of the
+    early keys; under ALiBi in the last head, whose slope 2^-8 keeps ~256
+    keys in view, ~5)."""
+    q, k, v, _ = _attn_inputs(1, 4, 2048, 128, torch.float16, cuda_device,
+                              seed=13)
+    fwd, bwd = tfa.wrappers(torch.float16, alibi)
+    o, lse = fwd(q, k, v, True, 128 ** -0.5)
+    do = torch.full_like(q, 30000.0)
+    do[0, 0, 77, 5] = float("inf")          # head 0 sees an inf
+    dq, dk, dv = bwd(q, k, v, o, lse, do, True, 128 ** -0.5)
+    torch.cuda.synchronize()
+    for g in (dq, dk, dv):
+        assert not torch.isfinite(g[0, 0]).all()
+    ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    tfa.mha_reference(*ref, bias=tfa._alibi_ref_bias(q, k, alibi)).backward(
+        do.float())
+    want = ref[2].grad[0, 3].abs()          # head 3: do finite
+    got = dv[0, 3].float()
+    assert (want > 65520 * 1.01).any()
+    assert torch.isinf(got[want > 65520 * 1.01]).all()
+    assert torch.isfinite(got[want < 65504 * 0.99]).all()
 
 
 @pytest.mark.parametrize("p_dtype,g_dtype", [
     (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
-    (torch.bfloat16, torch.bfloat16)])
+    (torch.bfloat16, torch.bfloat16), (torch.float16, torch.float16),
+    (torch.float16, torch.float32), (torch.float32, torch.float16)])
 @pytest.mark.parametrize("n,adam_w_mode", [(2048 * 5632, True),
                                            (1000003, False), (3, True),
                                            (1600, True)])   # a gpt2-xl norm leaf
 def test_fused_adam_kernel_matches_plain(cuda_device, p_dtype, g_dtype, n,
                                          adam_w_mode):
     """Three steps in place from the same inputs: a llama-1b4 MLP leaf, an
-    odd length (the scalar tail), and fewer elements than one vector."""
+    odd length (the scalar tail), and fewer elements than one vector; an
+    fp16 param through its own instance's wrapper, at lr 1e-2 x step so
+    each step moves p by many fp16 ulps, each step from the kernel's own
+    state: p within one ulp of the plain version's (the same fp32 update,
+    each side rounded to fp16; an ulp carried over steps from a larger |p|
+    would be many ulps of a p that lands near zero), more than 98 % of it
+    moved, m and v (fp32, near 0.1) at 1e-6."""
+    f16 = p_dtype == torch.float16
     p = _randn((n,), 0, p_dtype, cuda_device)
     m = torch.zeros(n, device=cuda_device)
     v = torch.zeros(n, device=cuda_device)
-    state = [p.clone(), m.clone(), v.clone()]
+    p0, state = p.clone(), [p.clone(), m.clone(), v.clone()]
     for step in (1, 2, 3):
         g = _randn((n,), step, g_dtype, cuda_device)
-        kw = dict(lr=1e-3 * step, beta1=0.9, beta2=0.95, eps=1e-8,
-                  weight_decay=0.1, adam_w_mode=adam_w_mode)
-        _counted(tadam.fused_adam_update, p, g, m, v, step, **kw)
+        kw = dict(lr=(1e-2 if f16 else 1e-3) * step, beta1=0.9, beta2=0.95,
+                  eps=1e-8, weight_decay=0.1, adam_w_mode=adam_w_mode)
+        counter = (tadam.fused_adam_update_f16_cuda if f16
+                   else tadam.fused_adam_update)
+        if f16:
+            state = [p.clone(), m.clone(), v.clone()]
+        before = counter.launches
+        tadam.fused_adam_update(p, g, m, v, step, **kw)
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1
         tadam.fused_adam_update_plain(*state[:1], g, *state[1:], step, **kw)
-    for got, want in zip((p, m, v), state):
-        _close(got, want, 1e-6 if p_dtype == torch.float32 else 2e-2)
+        if f16:
+            _within_f16_ulp(p, state[0])
+    tol = 1e-6 if p_dtype != torch.bfloat16 else TOL[p_dtype]
+    if f16:
+        assert n < 1600 or (p != p0).float().mean() > 0.98
+    else:
+        _close(p, state[0], tol)
+    for got, want in zip((m, v), state[1:]):
+        _close(got, want, tol)
 
 
 def test_training_on_card_matches_cpu(cuda_device):
@@ -718,11 +809,100 @@ def test_training_on_card_matches_cpu(cuda_device):
         torch.testing.assert_close(b, a, rtol=0, atol=1e-4)
 
 
+def _fp16_skip_rows(dev, max_rows=32):
+    """A small llama (4 heads of 32) trained under fp16 from a dynamic
+    scale of 2^24, hysteresis 1, window 3, on one repeated batch of 2 x 32
+    tokens a micro-batch: the first steps overflow (the logits' gradient
+    alone is ~2^24 / (64 x 2) = 131072 past fp16's 65504) and halve the
+    scale until it fits.  Per step: (scale before, skipped, scale after,
+    the state bit-equal to before, fused_adam, fp16 flash forward and
+    other flash forward launches during the step, loss)."""
+    import deepspeed_tpu_torch
+
+    cfg = {"train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 2,
+           "fp16": {"enabled": True, "initial_scale_power": 24,
+                    "hysteresis": 1, "loss_scale_window": 3},
+           "optimizer": {"type": "FusedAdam", "params": {
+               "lr": 3e-3, "betas": [0.9, 0.95], "weight_decay": 0.1}},
+           "scheduler": {"type": "WarmupLR", "params": {
+               "warmup_max_lr": 3e-3, "warmup_num_steps": 2}},
+           "gradient_clipping": 1.0}
+    model = deepspeed_tpu_torch.causal_lm(
+        "llama-tiny", device="cpu", num_layers=2, hidden_size=128,
+        intermediate_size=256, num_heads=4, num_kv_heads=4, vocab_size=256)
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=cfg,
+                                                device=dev)
+    tok = np.random.default_rng(10).integers(0, 256, (4, 32))
+    counts = (tadam.fused_adam_update, tfa.flash_fwd_f16_cuda, tfa.flash_attention)
+    rows = []
+    while len(rows) < 12 or rows[-1][1]:      # end on an applied step
+        assert len(rows) < max_rows
+        before = ([p.clone() for p in engine.master],
+                  [t.clone() for st in engine.optimizer.state.values()
+                   for t in st.values()],
+                  engine.optimizer.count, engine.global_steps)
+        scale, launched = engine.loss_scale, [c.launches for c in counts]
+        loss = float(engine.train_step((tok, tok)))
+        after = ([p for p in engine.master],
+                 [t for st in engine.optimizer.state.values() for t in st.values()],
+                 engine.optimizer.count, engine.global_steps)
+        same = (all(torch.equal(a, b) for a, b in zip(before[0], after[0]))
+                and len(before[1]) == len(after[1])
+                and all(torch.equal(a, b) for a, b in zip(before[1], after[1]))
+                and before[2:] == after[2:])
+        rows.append((scale, engine._last_overflow, engine.loss_scale, same,
+                     *[c.launches - n for c, n in zip(counts, launched)], loss))
+    return engine, rows
+
+
+def test_fp16_overflow_skip_on_card(cuda_device):
+    """The skip-on-overflow step on the card: has_overflow over CUDA
+    accumulators, its one host read, and a skipped step that leaves the
+    fp32 masters, Adam's moments, the optimizer's count and global_steps
+    bit-equal and launches no fused_adam.  The scale halves on each skip
+    (hysteresis 1), doubles after every 3 clean steps and follows the
+    port's scaler for the flags seen (the scaler is held to JAX on the
+    CPU); every step runs the fp16 flash instances and no other."""
+    from deepspeed_tpu_torch.runtime.fp16 import loss_scaler as scaler_lib
+
+    engine, rows = _fp16_skip_rows(cuda_device)
+    skips = [r[1] for r in rows]
+    assert skips[0] and not all(skips)
+    fp16 = engine.config.fp16
+    state = scaler_lib.make_state(fp16)
+    for scale, skipped, new_scale, same, adam, f16_fwd, fwd, loss in rows:
+        # one forward a layer and a micro-batch: 2 x 2
+        assert np.isfinite(loss) and f16_fwd == 2 * 2 and fwd == 0
+        state = scaler_lib.update(
+            state, skipped, dynamic=fp16.dynamic_loss_scale,
+            loss_scale_window=fp16.loss_scale_window,
+            min_loss_scale=fp16.min_loss_scale, hysteresis=fp16.hysteresis)
+        assert new_scale == float(state.scale)
+        if skipped:
+            assert same and adam == 0 and new_scale == scale / 2
+        else:
+            assert not same and adam > 0
+    assert engine.skipped_steps == sum(skips)
+    assert engine.global_steps == len(rows) - sum(skips)
+    # the overflow test over CUDA accumulators, and the unscale's quotient
+    from deepspeed_tpu_torch.runtime.utils import has_overflow
+
+    acc = [torch.ones(1000, device=cuda_device) for _ in range(3)]
+    assert not bool(has_overflow(acc))
+    for bad in (float("inf"), float("-inf"), float("nan")):
+        acc[1][517] = bad
+        assert bool(has_overflow(acc))
+    x = _randn((1 << 20,), 3, torch.float32, cuda_device, 1e4)
+    got = [x.clone()]
+    torch._foreach_div_(got, torch.full((), 1000.0, device=cuda_device))
+    assert torch.equal(got[0], (x.double() / 1000).float())
+
+
 # ---------------------------------------------------------------------------
 # LayerNorm, softmax, bias_act (the gpt2 family)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(8192, 1600), (8, 1600), (64, 768),
                                    (7, 40), (13, 2048), (5, 100),
                                    (3, 5, 4096)])
@@ -740,7 +920,7 @@ def test_layer_norm_kernel_matches_plain(cuda_device, dtype, shape):
     _close(got, want, TOL[dtype])
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(8192, 1600), (3, 5, 768), (7, 100),
                                    (1, 64), (600, 6144)])
 def test_layer_norm_bwd_kernel_matches_plain(cuda_device, dtype, shape):
@@ -755,7 +935,7 @@ def test_layer_norm_bwd_kernel_matches_plain(cuda_device, dtype, shape):
     assert dx.dtype == dg.dtype == db.dtype == dtype and dx.shape == x.shape
     assert dg.shape == db.shape == g.shape
     _close(dx, want_dx, TOL[dtype])
-    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    tol = 1e-4 if dtype == torch.float32 else GRAD_REL_TOL[dtype]
     assert _rel_err(dg, want_dg) < tol and _rel_err(db, want_db) < tol
     again = tln.layer_norm_bwd(x, g, dy, eps=1e-5)
     assert all(torch.equal(a, b) for a, b in zip((dx, dg, db), again))

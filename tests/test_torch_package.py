@@ -172,7 +172,7 @@ def test_initialize_without_a_card_raises(monkeypatch):
 @pytest.mark.parametrize("section", [
     {"zero_optimization": {"stage": 1}}, {"zero_optimization": {"stage": 3}},
     {"zero_optimization": {"offload_optimizer": {"device": "cpu"}}},
-    {"fp16": {"enabled": True}}, {"comm_quantization": {"all_gather": True}},
+    {"comm_quantization": {"all_gather": True}},
     {"pipeline": {"stages": 2}}, {"mesh": {"tp": 2}},
     {"tensor_parallel": {"tp_size": 2}}, {"tensorboard": {"enabled": True}},
     {"flops_profiler": {"enabled": True}}, {"watchdog": {"enabled": True}},
