@@ -20,7 +20,8 @@ Needs one CUDA card, nvcc and triton; imports nothing of JAX.  Phases
              dK/dV);
 2. kernels — each kernel against its plain PyTorch version at the serving
              path's shapes, fp32 and bf16 (and fp16 for the kernels of the
-             fp16 training path), with the tolerances of TOL below
+             fp16 training path and for the tensor-core norm_qkv and
+             proj_norm, bit-equal on a repeat), with the tolerances of TOL below
              (the flash-decode kernel at depths 1..1024 across page
              boundaries, a shuffled page table, 256- and 16-token pages),
              then CUDA-event timings (median of 50 samples of 20 calls;
@@ -29,7 +30,10 @@ Needs one CUDA card, nvcc and triton; imports nothing of JAX.  Phases
              shape [4, 16, 2048, 128]) beside the plain version, the
              PyTorch library call where one exists, ``torch.matmul`` of
              the same activations and weights as a yardstick for the three
-             GEMV kernels, and the bound; then the four training kernels
+             GEMV kernels, and the bound (norm_qkv and proj_norm also at
+             gpt2-xl's shapes, each with its share of the bound, its host
+             time a call, and ptxas's registers, shared memory and spills
+             of their tensor-core kernels); then the four training kernels
              at llama-1b4's training shapes (flash attention fwd and bwd
              on [4, 16, 2048, 128], RMSNorm bwd on [8192, 2048], Adam over
              a [24, 2048, 5632] leaf, three steps), fp32 and bf16, plus a
@@ -194,7 +198,7 @@ BF16_FLOPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 # product); fp16 (the norms, RoPE, flash attention and Adam of the fp16
 # training path) the bf16 bound over 8: fp16 keeps three more mantissa bits
 TOL = {"float32": 1e-5, "bfloat16": 2e-2, "float16": 2.5e-3}
-GEMV_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+GEMV_TOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 2.5e-3}
 ATTN_TOL = {"float32": 2e-4, "bfloat16": 2e-2, "float16": 2.5e-3}
 # llama3-8b decode shapes: 8 slots
 B, D, H, HKV, DH, F = 8, 4096, 32, 8, 128, 14336
@@ -229,6 +233,23 @@ def time_ms(torch, fn, samples=50, inner=20, warmup=10):
         b.synchronize()
         times.append(a.elapsed_time(b) / inner)
     return statistics.median(times)
+
+
+def host_us(torch, fn, calls=2000, batch=100, warmup=50):
+    """Host microseconds a call of ``fn`` (perf_counter_ns over ``calls``
+    calls, the device drained every ``batch`` so that its queue never
+    fills)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    total = 0
+    for _ in range(calls // batch):
+        t = time.perf_counter_ns()
+        for _ in range(batch):
+            fn()
+        total += time.perf_counter_ns() - t
+        torch.cuda.synchronize()
+    return total / calls / 1e3
 
 
 def bound_ms(nbytes, flops, peak=FP32_FLOPS_PER_S):
@@ -482,14 +503,15 @@ def paged_inputs(torch, dev, gen, dt, page, pos, layers=2, model="llama3-8b"):
 def check_decode_kernels(torch, dev, gen, model):
     """The four fused decode kernels against their plain versions at
     ``model``'s path shapes and branches (norm kind, activation, gate or
-    none, heads per KV head), fp32 and bf16; returns the bf16 max abs
-    errors."""
+    none, heads per KV head), fp32 and bf16, and fp16 for the two GEMVs on
+    the tensor cores (norm_qkv and proj_norm, two calls bit-equal in bf16
+    and fp16); returns the bf16 max abs errors."""
     from deepspeed_tpu_torch.ops.kernels import decode as dk
 
     m = DECODE_MODELS[model]
     kind, act, dh = m["kind"], m["act"], m["DH"]
     errs = {}
-    for dtype_name in ("float32", "bfloat16"):
+    for dtype_name in ("float32", "bfloat16", "float16"):
         dt = getattr(torch, dtype_name)
         bf = dtype_name == "bfloat16"
         t = decode_inputs(torch, dev, gen, dt, model=model)
@@ -517,6 +539,23 @@ def check_decode_kernels(torch, dev, gen, model):
                           f"fused_proj_norm r {model} {dtype_name}"),
             _assert_close(torch, h, wh, GEMV_TOL[dtype_name],
                           f"fused_proj_norm h {model} {dtype_name}"))
+        if dtype_name != "float32":
+            # the tensor cores' split merge and norm are ordered: same bits
+            y2 = dk.fused_norm_qkv_cuda(t["x"], t["scale"], nbias, wqkv,
+                                        kind=kind, eps=1e-5)
+            r2, h2 = dk.fused_proj_norm_cuda(t["ctx"], t["resid"], wo, None,
+                                             t["scale"], nbias, kind=kind,
+                                             eps=1e-5, parallel=False)
+            if not (torch.equal(y, y2) and torch.equal(r, r2) and torch.equal(h, h2)):
+                raise AssertionError(f"norm_qkv / proj_norm {model} {dtype_name}: "
+                                     "two calls differ")
+        if dtype_name == "float16":
+            print(f"decode GEMVs vs plain at {model}'s shapes, float16 (tensor "
+                  f"cores) within 2.5e-3, bit-equal on a repeat: max abs err "
+                  f"norm_qkv {out['fused_norm_qkv']:.3g}, proj_norm "
+                  f"{out['fused_proj_norm']:.3g}")
+            del t, wqkv, wo, wu, wg, wd
+            continue
         y = dk.fused_mlp_cuda(t["h"], t["resid"], wu, wd, wg, act=act)
         torch.cuda.synchronize()
         out["fused_mlp"] = _assert_close(
@@ -549,7 +588,8 @@ def check_decode_kernels(torch, dev, gen, model):
     print(f"decode kernels vs plain at {model}'s shapes (D {m['D']}, "
           f"{m['H']}/{m['HKV']} heads of {dh}, F {m['F']}, {kind}, {act}"
           f"{' gated' if m['glu'] else ', no gate'}): fp32 GEMV within 1e-4, "
-          "attention 2e-4, bf16 within 2e-2; bf16 max abs err " + ", ".join(
+          "attention 2e-4, bf16 within 2e-2 (norm_qkv and proj_norm bit-equal "
+          "on a repeat); bf16 max abs err " + ", ".join(
               f"{k} {v:.3g}" for k, v in errs.items()))
     return errs
 
@@ -636,19 +676,8 @@ def rms_norm_host_path(torch, x, g, calls=20000):
     }
     if hasattr(F_, "rms_norm"):
         stages["whole: F.rms_norm"] = lambda: F_.rms_norm(x, (n,), g, 1e-5)
-    out = {}
-    for name, fn in stages.items():
-        for _ in range(200):
-            fn()
-        torch.cuda.synchronize()
-        total = 0
-        for _ in range(calls // 1000):
-            t = time.perf_counter_ns()
-            for _ in range(1000):
-                fn()
-            total += time.perf_counter_ns() - t
-            torch.cuda.synchronize()
-        out[name] = total / calls / 1e3
+    out = {name: host_us(torch, fn, calls, batch=1000, warmup=200)
+           for name, fn in stages.items()}
     print(f"rms_norm host path at x[8,4096] bf16, us a call ({calls} calls "
           f"each, perf_counter_ns): " + "; ".join(f"{k} {v:.3f}"
                                                   for k, v in out.items()))
@@ -719,14 +748,16 @@ def time_old_kernels(torch, dev, gen, errs):
 
 
 def time_decode_kernels(torch, dev, gen, errs):
-    """bf16 at the llama3-8b decode shapes.  The GEMV kernels cycle through
-    weight copies totalling > 100 MB, so each call streams its weights from
-    HBM as the 32-layer path does."""
+    """bf16 at the llama3-8b decode shapes (norm_qkv and proj_norm also at
+    gpt2-xl's, with their host time a call: gemv16_times).  The GEMV
+    kernels cycle through weight copies totalling > 100 MB, so each call
+    streams its weights from HBM as the 32-layer path does."""
     from deepspeed_tpu_torch.ops.kernels import decode as dk
 
     bf = torch.bfloat16
     out = {}
     zeros = torch.zeros(D, device=dev, dtype=bf)
+    g16 = gemv16_times(torch, dev, gen)
 
     # fused_norm_qkv: x [8,4096] . wqkv [4096,6144]
     t = decode_inputs(torch, dev, gen, bf, copies=3)
@@ -736,8 +767,6 @@ def time_decode_kernels(torch, dev, gen, errs):
     b_ms, b_by = bound_ms(nbytes, 2 * B * D * NQKV, BF16_FLOPS_PER_S)
     out["fused_norm_qkv"] = {
         "shape": "x[8,4096] . wqkv[4096,6144] bf16",
-        "ms": time_ms(torch, lambda: dk.fused_norm_qkv_cuda(
-            x, s, None, nw(), kind="rmsnorm", eps=1e-5)),
         "plain_ms": time_ms(torch, lambda: dk._norm_qkv_ref(
             x, s, zeros, nw(), None, kind="rmsnorm", eps=1e-5), samples=10),
         "matmul_ms": time_ms(torch, lambda: torch.matmul(x, nw())),
@@ -753,9 +782,6 @@ def time_decode_kernels(torch, dev, gen, errs):
     b_ms, b_by = bound_ms(nbytes, 2 * B * H * DH * D, BF16_FLOPS_PER_S)
     out["fused_proj_norm"] = {
         "shape": "ctx[8,4096] . wo[4096,4096] bf16",
-        "ms": time_ms(torch, lambda: dk.fused_proj_norm_cuda(
-            ctx, resid, nw(), None, s, None, kind="rmsnorm", eps=1e-5,
-            parallel=False)),
         "plain_ms": time_ms(torch, lambda: dk._proj_norm_ref(
             ctx, resid, nw(), None, s, zeros, kind="rmsnorm", eps=1e-5,
             parallel=False), samples=10),
@@ -763,6 +789,16 @@ def time_decode_kernels(torch, dev, gen, errs):
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
         "max_abs_err": errs["fused_proj_norm"]}
     del t, nw
+
+    # the two tensor-core GEMVs at both models' shapes, and ptxas's lines
+    ptx = gemv16_ptxas()
+    for k in ("fused_norm_qkv", "fused_proj_norm"):
+        for model, pre in (("llama3-8b", ""), ("gpt2-xl", "gpt2_")):
+            for f, v in g16[f"{model} {k[len('fused_'):]}"].items():
+                out[k][pre + f] = v
+        out[k]["ptxas"] = [ln for ln in ptx if k[len("fused_"):] in ln]
+        for ln in out[k]["ptxas"]:
+            print(f"  ptxas {ln}")
 
     # fused_mlp: h [8,4096] . (wg, wu [4096,14336]) -> a . wd [14336,4096]
     t = decode_inputs(torch, dev, gen, bf)
@@ -802,7 +838,81 @@ def time_decode_kernels(torch, dev, gen, errs):
         "max_abs_err": errs["flash_decode"]}
     for name, b2 in gpt2_decode_bounds().items():
         out[name]["gpt2_bound_ms"] = b2
+    for k in ("fused_norm_qkv", "fused_proj_norm"):
+        r = out[k]
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+        r["gpt2_bound_share"] = r["gpt2_bound_ms"] / r["gpt2_ms"]
+        print(f"time {k} bf16 (tensor cores): llama3-8b {r['ms']:.5f} ms, bound "
+              f"{r['bound_ms']:.6f} ms ({100 * r['bound_share']:.1f} % of it), "
+              f"host {r['host_us']:.3f} us a call; gpt2-xl {r['gpt2_ms']:.5f} ms, "
+              f"bound {r['gpt2_bound_ms']:.6f} ms ({100 * r['gpt2_bound_share']:.1f} "
+              f"% of it), host {r['gpt2_host_us']:.3f} us")
     return out
+
+
+def gemv16_times(torch, dev, gen, profile=False):
+    """The bf16 fused_norm_qkv and fused_proj_norm at llama3-8b's and
+    gpt2-xl's decode shapes (8 rows; gpt2-xl with LayerNorm's bias and the
+    projections' biases), each call on the next of weight copies totalling
+    > 100 MB, so that it streams its weights from HBM as the 32-layer path
+    does.  Returns {"<model> <kernel>": {"ms": a call under CUDA events,
+    "host_us": the host's time a call, and with ``profile`` "device_us": a
+    launch under the profiler (mean of 200)}}.  This script reads the
+    kernels' device time on the paths instead: one profiler session fewer
+    for each shape ahead of the flash kernels' profiles."""
+    from deepspeed_tpu_torch.ops.kernels import decode as dk
+
+    bf = torch.bfloat16
+    out = {}
+    for model in ("llama3-8b", "gpt2-xl"):
+        m = DECODE_MODELS[model]
+        d, hd, kind = m["D"], m["H"] * m["DH"], m["kind"]
+        nqkv = (m["H"] + 2 * m["HKV"]) * m["DH"]
+        x = _randn(torch, (B, d), gen, dev, 2).to(bf)
+        ctx = _randn(torch, (B, hd), gen, dev).to(bf)
+        resid = _randn(torch, (B, d), gen, dev, 2).to(bf)
+        s = (1 + 0.1 * torch.randn(d, device=dev, generator=gen)).to(bf)
+        nb, bq, bo = ((0.1 * torch.randn(n, device=dev, generator=gen)).to(bf)
+                      if kind == "layernorm" else None for n in (d, nqkv, d))
+        for name, k, n in (("norm_qkv", d, nqkv), ("proj_norm", hd, d)):
+            nw = cycler([_randn(torch, (k, n), gen, dev, k ** -0.5).to(bf)
+                         for _ in range(-(-(100 << 20) // (2 * k * n)))])
+            if name == "norm_qkv":
+                def call():
+                    return dk.fused_norm_qkv_cuda(x, s, nb, nw(), bq, kind=kind,
+                                                  eps=1e-5)
+            else:
+                def call():
+                    return dk.fused_proj_norm_cuda(ctx, resid, nw(), bo, s, nb,
+                                                   kind=kind, eps=1e-5,
+                                                   parallel=False)
+            what = f"{model} {name}"
+            out[what] = {"ms": time_ms(torch, call), "host_us": host_us(torch, call)}
+            if profile:
+                out[what]["device_us"] = kernel_split(torch, call, (name,), what,
+                                                      calls=200)[name]
+            del nw
+    return out
+
+
+def gemv16_ptxas():
+    """ptxas's registers, shared memory and spills of the tensor-core
+    norm_qkv and proj_norm kernels (bf16 and fp16), one line an
+    instantiation."""
+    from deepspeed_tpu_torch.ops.kernels import build
+
+    lines, entry = [], ""
+    for ln in build.load_library("decode").ptxas_info:
+        if "Compiling entry" in ln:
+            entry = ln
+        elif "_mma_kernel" in entry and ("norm_qkv" in entry or "proj_norm" in entry) \
+                and ("Used" in ln or "spill" in ln):
+            m = re.search(r"((?:norm_qkv|proj_norm)_mma_kernel)I(\w+?)EEvNS_", entry)
+            ty = {"13__nv_bfloat16": "bf16", "6__half": "fp16"}.get(m.group(2), m.group(2)) \
+                if m else ""
+            name = f"{m.group(1)}<{ty}>" if m else entry.split("'")[-2][:90]
+            lines.append(f"{name}: {ln.split(':')[-1].strip()}")
+    return lines
 
 
 def gpt2_decode_bounds(keys=64):
@@ -1398,23 +1508,33 @@ FLASH_KERNELS = {"fwd": ("flash_fwd_wgmma_kernel",),
                                    "flash_bwd_dkv_wgmma_f16_alibi_kernel")}
 
 
-def kernel_split(torch, call, names, what):
+def kernel_split(torch, call, names, what, calls=10, sessions=3):
     """Device time of each kernel (``names``) of one call under
-    torch.profiler, in us."""
+    torch.profiler (the mean of ``calls`` calls), in us.  A session that
+    holds none of the kernels is taken again, up to ``sessions`` in all:
+    on the H100 a session now and then comes back without them, in no
+    fixed place.  One that holds some of them fails at once."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         call()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
-            call()
-        torch.cuda.synchronize()
-    split = {}
-    for e in prof.key_averages():
-        for name in names:
-            if name in e.key:
-                split[name] = e.self_device_time_total / e.count
+    for session in range(1, sessions + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                call()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        split = {}
+        for e in events:
+            for name in names:
+                if name in e.key:
+                    split[name] = e.self_device_time_total / e.count
+        if split or session == sessions:
+            break
+        print(f"{what}: profile session {session} holds none of {names} "
+              f"({len(events)} kinds of event: "
+              f"{sorted(e.key[:50] for e in events)[:4]}); profiling again")
     check(len(split) == len(names), f"{what}: profile kernels {split}")
     print(f"{what} device us a call: " + ", ".join(
         f"{n} {t:.2f}" for n, t in split.items())
@@ -2605,9 +2725,9 @@ def phase_profile(torch, serve, prompts):
     out = {}
     tags = {"rms_norm": ("rms_norm_fwd_kernel",), "rope": ("_rope_fwd_kernel",),
             "layer_norm": ("layer_norm_fwd_",),
-            "fused_norm_qkv": ("norm_qkv_kernel",),
+            "fused_norm_qkv": ("norm_qkv_mma_kernel",),
             "flash_decode": ("flash_decode_paged_kernel",),
-            "fused_proj_norm": ("proj_norm_kernel",),
+            "fused_proj_norm": ("proj_norm_mma_kernel",),
             "fused_mlp": ("mlp_act_kernel", "mlp_down_kernel")}
     for name, keys in tags.items():
         parts = [[e for e in kernels if tag in e.key] for tag in keys]
@@ -2746,13 +2866,17 @@ def phase_generate_profile(torch, eng, prompts, int8):
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:6]:
         print(f"  {e.self_cpu_time_total / 1e3:9.2f} ms {e.count:7d}x "
               f"{e.key[:60]}")
-    # the GEMVs' int8 bodies of norm_qkv and proj_norm are the bf16 kernels
-    # over int8 codes; the int8 MLP has kernels of its own
+    # the GEMVs' int8 bodies of norm_qkv and proj_norm are the FFMA kernels
+    # over int8 codes (norm_qkv_kernel, proj_norm_kernel), bf16 runs the
+    # tensor-core ones (*_mma_kernel: the names do not hold each other, so
+    # the two kinds are never counted together); the int8 MLP has kernels
+    # of its own
     sfx = "_int8" if int8 else ""
+    mma = "" if int8 else "_mma"
     tags = {"rms_norm": ("rms_norm_fwd_kernel",), "rope": ("_rope_fwd_kernel",),
-            "fused_norm_qkv" + sfx: ("norm_qkv_kernel",),
+            "fused_norm_qkv" + sfx: (f"norm_qkv{mma}_kernel",),
             "flash_decode_contig": ("flash_decode_paged_kernel",),
-            "fused_proj_norm" + sfx: ("proj_norm_kernel",),
+            "fused_proj_norm" + sfx: (f"proj_norm{mma}_kernel",),
             "fused_mlp": ("mlp_act_kernel", "mlp_down_kernel"),
             "fused_mlp_int8": ("mlp_act_int8_mma_kernel", "mlp_down_int8_mma_kernel")}
     out = {}
@@ -3647,7 +3771,8 @@ def main() -> int:
                       "gpt2_plain_ms", "gpt2_bound_ms", "gpt2_device_us_split",
                       "ptxas", "library_fwd_bwd_ms", "fwd_bwd_ms",
                       "max_abs_err_h12", "max_abs_err_f16",
-                      "max_abs_err_train_shape_f16", "overflow_inf_dv"):
+                      "max_abs_err_train_shape_f16", "overflow_inf_dv",
+                      "bound_share", "gpt2_bound_share", "gpt2_host_us"):
             if extra in t:
                 k[extra] = t[extra]
         check(all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms",

@@ -3,9 +3,11 @@
 // Replaces the Pallas kernels of deepspeed_tpu/ops/pallas/decode.py that the
 // serving engine's default (kernel-injected) decode step launches per layer:
 //
-//   fused_norm_qkv      (decode.py:123, pallas_call :147) -> norm_qkv_kernel
+//   fused_norm_qkv      (decode.py:123, pallas_call :147) -> norm_qkv_mma_kernel
+//                          (bf16, fp16), norm_qkv_kernel (fp32)
 //   _flash_decode_paged (decode.py:252, pallas_call :311) -> flash_decode_paged_kernel
-//   fused_proj_norm     (decode.py:433, pallas_call :460) -> proj_norm_kernel
+//   fused_proj_norm     (decode.py:433, pallas_call :460) -> proj_norm_mma_kernel
+//                          (bf16, fp16), proj_norm_kernel (fp32)
 //   fused_mlp           (decode.py:546, pallas_call :591) -> mlp_act_kernel
 //                                                            + mlp_down_kernel
 //   flash_decode        (decode.py:319, pallas_call :390) -> flash_decode_paged_kernel
@@ -28,7 +30,8 @@
 // int8 weights the GEMVs read half the bytes: 25.2, 16.8 and 176.2 MB, bounds
 // of 7.5, 5.0 and 52.6 us.
 //
-// Design of the three GEMV kernels (one shared core, gemv_partial +
+// Design of the FFMA GEMV kernels (fp32 norm_qkv and proj_norm, the int8
+// bodies of both, the fp32 / bf16 / fp16 MLP; one shared core, gemv_partial +
 // reduce_tile): the grid splits the output columns into tiles of kCV
 // 16-byte vectors; each block streams its [K, tile] slice of the weight once
 // with 16-byte loads, its threads splitting the contraction K into
@@ -56,6 +59,10 @@
 //     (so the down projection reads a row's B values as 16-byte vectors),
 //     and mlp_down computes r + a @ Wd over output-column tiles.
 //
+// bf16 and fp16 norm_qkv and proj_norm take the products to the tensor
+// cores (mma.sync over 64-column weight tiles streamed by a cp.async ring):
+// their design note is above norm_qkv_mma_kernel.
+//
 // int8 weights (bf16 activations only, as the JAX int8 engine serves).
 // Each element is dequantized as the reference's `_deq` does it: code x
 // scale in fp32, rounded to bf16, then the product with the bf16 activation
@@ -64,7 +71,7 @@
 //     W = int8_t: a thread still owns V = 8 columns, now one 8-byte vector of
 //     codes a row, and keeps twice the rows in flight; its 8 columns' fp32
 //     scales are loaded once into registers.  On the FFMA core the int8
-//     bodies run no faster than the bf16 ones (PERF.md §6): each element
+//     bodies ran no faster than the bf16 ones did there (PERF.md §6): each element
 //     costs an I2F, the scale, a round to bf16 and back, and kBT FFMAs, so
 //     the core is bound by issue, not by the halved bytes.
 //   - fused_mlp (176 MB of codes a call at llama3-8b, a 52.6 us bound) takes
@@ -94,13 +101,17 @@
 // (generate()'s loop: no position tensor is built per token).
 //
 // Nothing is allocated here: the wrappers pass outputs, scratch, the
-// proj_norm ticket and the stream.  Every entry point returns the
-// cudaError_t of its launches (0 on success).
+// tickets and the stream.  Every entry point returns the cudaError_t of its
+// launches (0 on success).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include <cuda.h>  // CUtensorMap (the encoder is reached through the runtime)
 
 namespace {
 
@@ -915,6 +926,604 @@ mlp_down_int8_mma_kernel(Q8Grid gr, const __nv_bfloat16* __restrict__ a,
 }
 
 // ---------------------------------------------------------------------------
+// fused_norm_qkv and fused_proj_norm in bf16 and fp16, on the tensor cores
+// (mma.sync m16n8k16, fp32 sums)
+// ---------------------------------------------------------------------------
+//
+// One launch a pass of kBT rows, as the Pallas kernels are one pallas_call:
+// norm_qkv_mma_kernel writes (norm(x) rounded to T) @ W (+ bqkv);
+// proj_norm_mma_kernel writes r = resid + ctx @ wo (+ bo) and h = norm(r in
+// fp32 | resid).  Both are the same body over a [K, N] weight of T, bound by
+// its bytes: 8 rows make about 8 flops a weight byte.
+//
+//   - The bytes: a block owns tiles of 64 output columns (128 bytes of each
+//     weight row, where the FFMA core read 64) and streams them through a
+//     ring of stages of kGTK rows.  The TMA copies a stage's [kGTK, 64]
+//     weight tile (cp.async.bulk.tensor, one thread asks, the stage's
+//     mbarrier completes on its bytes) with the 128-byte swizzle: chunk c of
+//     row r lands at c ^ (r & 7), q8_swizzle's layout, so ldmatrix.trans
+//     reads without bank conflicts.  Rows past K and columns past N land as
+//     zeros; rows past the block's share meet zero activations.  The pass's
+//     activations for the same rows (and norm_qkv's scale and bias) ride in
+//     the stage beside them through 16-byte cp.async, zero filled past the
+//     share.  A draft that also copied the weights by 16-byte cp.async ran
+//     slower at both QKV shapes and alike at the out-projections.
+//   - The products: A = the weight tile (16 output columns x 16 contraction
+//     rows, one ldmatrix.x4.trans: no dequant, no conversion), B = the pass's
+//     8 rows (n = 8 exactly), fp32 accumulators.  A warp owns one 16-column
+//     group and every kGWarpsAGroup-th k16 step of a stage; the warps' sums
+//     meet in shared memory in warp order.  No float atomics: two calls give
+//     the same bits.
+//   - norm_qkv's norm, overlapped: the block asks for all but one stage of
+//     its ring before anything else, then computes each row's
+//     statistics from x (L2-resident, 16-byte loads, one warp a row, the
+//     centred variance for LayerNorm as decode.py `_normalize`) while they
+//     fly; each stage's rows of x are normalised in place once they land,
+//     from the staged scale and bias, rounded to T as `_norm_qkv_ref`
+//     rounds them (a draft that built each B fragment from raw x, so that
+//     four warps normalised each element, ran slower).
+//   - The grid (g16_grid): the units are (column tile, k16 step), tile-major.
+//     Split mode, q8_grid's rule over the kernel's resident blocks: block b
+//     takes tile b % tiles over one split of the contraction, split only as
+//     far as it takes to fill them, so the blocks that run together read the
+//     same weight rows.  norm_qkv keeps 3 blocks an SM (3-stage rings),
+//     proj_norm 1 (a 6-stage ring: its grid barrier needs the grid resident,
+//     and more blocks meant more merges).  Even mode (each block an equal
+//     run of units, which may end a tile and start the next) serves only a
+//     weight with more column tiles than resident blocks.  A tile shared by
+//     blocks is summed from its fp32 partials by the last of them to take
+//     the tile's ticket, in the order of the blocks' shares (q8_merge's
+//     scheme).  The path's grids (their times, and those of q8_grid's 1
+//     block an SM and of the even grid, are in PERF.md §6):
+//       llama3-8b QKV [4096, 6144]  96 tiles x 4 splits of 1024 rows = 384 blocks
+//       llama3-8b O   [4096, 4096]  64 tiles x 2 splits of 2048 rows = 128 blocks
+//       gpt2-xl QKV   [1600, 4800]  75 tiles x 5 splits of 320 rows = 375 blocks
+//       gpt2-xl O     [1600, 1600]  25 tiles x 5 splits of 320 rows = 125 blocks
+//     With 16-byte copies, deeper rings (8, 10 stages) and 128-column tiles
+//     ran no faster in the drafts.
+//   - proj_norm's norm: r's rows span every tile, so the block that
+//     finishes a tile writes its columns of r32 and publishes its rows'
+//     statistics over the tile's columns (sum of r^2 for RMSNorm; the count,
+//     the mean and the centred sum of squares for LayerNorm).  Then the
+//     blocks meet at a grid barrier (a cooperative launch, so the grid is
+//     resident), and every block merges the statistics in the same fixed
+//     order (Chan's parallel variance for LayerNorm: the centred form stays
+//     centred) and normalises its own slice of r32 into h.  A draft in
+//     which one last block did all of that alone left every other SM idle
+//     for the length of the norm.
+
+constexpr int kGThreads = 256;                           // 8 warps
+constexpr int kGWarps = kGThreads / 32;
+constexpr int kGTN = 64;                                 // output columns of a tile: one
+                                                         // 128-byte swizzle line a row
+constexpr int kGTK = 128;                                // contraction rows of a stage
+constexpr int kGGroups = kGTN / 16;                      // 16-column groups of a tile
+constexpr int kGWarpsAGroup = kGWarps / kGGroups;
+constexpr int kGSteps = kGTK / 16;                       // k16 steps a stage
+constexpr int kGStepsAWarp = kGSteps / kGWarpsAGroup;
+constexpr int kGRowBytes = kGTN * 2;                     // one weight row of a tile
+constexpr int kGWBytes = kGTK * kGRowBytes;              // the weights of a stage
+constexpr int kGXStride = kGTK + 8;                      // elements a staged activation row
+constexpr int kGXRows = kBT + 2;                         // the pass's rows, scale, bias
+constexpr int kGAlign = 1024;                            // the 128-byte swizzle's period
+constexpr int kGStageBytes = (kGWBytes + kGXRows * kGXStride * 2 + kGAlign - 1) / kGAlign * kGAlign;
+constexpr int kGRedFloats = kGWarps * kBT * 16;          // the warps' sums
+constexpr int kGMaxTiles = kQ8MaxTiles;                  // tile tickets; the barrier's after them
+static_assert(kGWarps == kBT, "one warp a row for the row statistics");
+static_assert(kGWarps % kGGroups == 0 && kGSteps % kGWarpsAGroup == 0 && kGTK <= 256,
+              "every (group, k16 step) of a stage has one warp; a TMA box of kGTK rows");
+
+// A kernel's ring depth and the blocks it keeps resident on an SM (its
+// __launch_bounds__ and its grid's capacity).
+template <int kStages_, int kBps_>
+struct G16Cfg {
+  static constexpr int kStages = kStages_;
+  static constexpr int kBps = kBps_;
+  static constexpr int kSmem =
+      kStages * kGStageBytes + (kGRedFloats + kBT * kGTN) * 4 + kGAlign;
+  static_assert(kStages >= 2 && kSmem * kBps <= 227 * 1024,
+                "the rings fit in an SM's shared memory");
+};
+using QkvCfg = G16Cfg<3, 3>;
+using ProjCfg = G16Cfg<6, 1>;
+
+// The units of a [K, N] product are (column tile, k16 step), tile-major.
+// Block b takes units [lo, hi) (g16_range); `slots` bounds the blocks that
+// share a tile, which is how many partials the workspace keeps a tile.
+struct G16Grid {
+  int tiles, k16, blocks, sps, even, slots;   // sps: k16 steps a split (split mode)
+};
+
+__device__ __forceinline__ void g16_range(const G16Grid& g, int b, int& lo, int& hi) {
+  if (g.even) {
+    const long long u = static_cast<long long>(g.tiles) * g.k16;
+    lo = static_cast<int>(u * b / g.blocks);
+    hi = static_cast<int>(u * (b + 1) / g.blocks);
+  } else {
+    const int tile = b % g.tiles, split = b / g.tiles;
+    lo = tile * g.k16 + split * g.sps;
+    hi = tile * g.k16 + min(g.k16, (split + 1) * g.sps);
+  }
+}
+
+// Even mode: the block whose run holds unit u.
+__device__ __forceinline__ int g16_owner(const G16Grid& g, int u) {
+  const long long n = static_cast<long long>(g.tiles) * g.k16;
+  return static_cast<int>((static_cast<long long>(u + 1) * g.blocks + n - 1) / n) - 1;
+}
+
+struct G16Args {
+  CUtensorMap wmap;     // w as [K rows, N columns] tiles of kGTK x 64, 128-byte swizzle
+  G16Grid g;
+  const void* x;        // the pass's rows [bc, K]: x (norm_qkv) or ctx (proj_norm)
+  const void* w;        // [K, N]
+  const void* wb;       // bqkv or bo [N], or null
+  const void* scale;    // the norm's scale: [K] (norm_qkv) or [N] (proj_norm)
+  const void* bias;     // the norm's bias, or null (RMSNorm)
+  const void* resid;    // proj_norm: [bc, N]
+  void* out;            // norm_qkv: [bc, N]; proj_norm: r [bc, N]
+  void* h;              // proj_norm: [bc, N]
+  float* part;          // [tiles][slots][kBT][kGTN]: partials of shared tiles
+  float* r32;           // proj_norm: [kBT, N], r in fp32
+  float2* stats;        // proj_norm: [tiles][kBT], each tile's row statistics
+  unsigned int* ticket; // [kGMaxTiles + 1] zeroed: the tiles', then proj_norm's
+                        // grid barrier (generation, count); counts left at 0
+  int bc, K, N, kind, parallel;
+  float eps;
+};
+
+template <typename T> struct Two;  // two T packed in 32 bits
+template <> struct Two<__nv_bfloat16> {
+  static __device__ __forceinline__ float2 unpack(uint32_t v) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+  }
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&p);
+  }
+};
+template <> struct Two<__half> {
+  static __device__ __forceinline__ float2 unpack(uint32_t v) {
+    return __half22float2(*reinterpret_cast<const __half2*>(&v));
+  }
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    const __half2 p = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&p);
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ void mma16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                      uint32_t b1) {
+  if constexpr (std::is_same<T, __half>::value)
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    mma_16816(c, a, b0, b1);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(in ? 16 : 0));
+}
+
+// Rows [k0, k1) of the tile's weight columns [n0, n0 + kGTN) into the stage
+// at `st`, swizzled, and the same rows of the pass's activations (with
+// kNorm, of the norm's scale and bias too) beside them; rows past k1 and
+// columns past N zero filled.
+template <typename T, bool kNorm>
+__device__ __forceinline__ void g16_load(uint32_t st, const G16Args& a, int n0, int k0, int k1,
+                                         uint32_t full) {
+  // one thread asks the TMA for the whole [kGTK, 64] tile; rows past K and
+  // columns past N land as zeros, rows past k1 meet zero activations
+  if (threadIdx.x == 0) {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 ::"r"(full), "r"(kGWBytes) : "memory");
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%2, %3}], [%4];\n"
+        ::"r"(st), "l"(reinterpret_cast<uint64_t>(&a.wmap)), "r"(n0), "r"(k0), "r"(full)
+        : "memory");
+  }
+  constexpr int kXPerRow = kGTK / 8;
+  constexpr int kRows = kNorm ? kGXRows : kBT;
+  const T* x = static_cast<const T*>(a.x);
+  for (int i = threadIdx.x; i < kRows * kXPerRow; i += kGThreads) {
+    const int row = i / kXPerRow, k = k0 + (i % kXPerRow) * 8;
+    const T* src = row < kBT ? (row < a.bc ? x + static_cast<size_t>(row) * a.K : nullptr)
+                             : static_cast<const T*>(row == kBT ? a.scale : a.bias);
+    const bool in = src != nullptr && k < k1;
+    cp_async16(st + kGWBytes + (row * kGXStride + (i % kXPerRow) * 8) * 2, in ? src + k : x, in);
+  }
+}
+
+// The warps' accumulators of a finished share summed in warp order into
+// sums [kBT][kGTN] (shared); ends with a barrier.
+__device__ __forceinline__ void g16_reduce(const float (&acc)[4], float* red, float* sums) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  // C fragment: columns g, g + 8 of the warp's group x rows 2t, 2t + 1
+  float* rw = red + warp * kBT * 16;
+  rw[(2 * t) * 16 + g] = acc[0];
+  rw[(2 * t + 1) * 16 + g] = acc[1];
+  rw[(2 * t) * 16 + g + 8] = acc[2];
+  rw[(2 * t + 1) * 16 + g + 8] = acc[3];
+  __syncthreads();
+  for (int o = threadIdx.x; o < kBT * kGTN; o += kGThreads) {
+    const int b = o / kGTN, c = o % kGTN;
+    float v = 0.f;
+#pragma unroll
+    for (int s = 0; s < kGWarpsAGroup; ++s)
+      v += red[((c / 16 + s * kGGroups) * kBT + b) * 16 + c % 16];
+    sums[o] = v;
+  }
+  __syncthreads();
+}
+
+// A tile shared by blocks: write this block's sums as the partial of its
+// slot; the last of the tile's n blocks to take its ticket reads every
+// slot's partial back into `sums`, summed in slot order, resets the ticket
+// and returns true.  Other blocks return false.
+__device__ __forceinline__ bool g16_merge(const G16Args& a, int tile, int slot, int n,
+                                          float* sums) {
+  __shared__ bool last;
+  constexpr int kTile = kBT * kGTN;
+  const int rows = a.bc * kGTN;
+  float* tp = a.part + static_cast<size_t>(tile) * a.g.slots * kTile;
+  for (int o = threadIdx.x; o < rows; o += kGThreads) tp[slot * kTile + o] = sums[o];
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(a.ticket + tile, 1u) == static_cast<unsigned>(n - 1);
+  __syncthreads();
+  if (!last) return false;
+  __threadfence();
+  for (int o = threadIdx.x; o < rows; o += kGThreads) {
+    float v = 0.f;
+    for (int j = 0; j < n; ++j) v += __ldcg(tp + j * kTile + o);
+    sums[o] = v;
+  }
+  if (threadIdx.x == 0) a.ticket[tile] = 0u;  // ready for the next launch on this stream
+  __syncthreads();
+  return true;
+}
+
+// Chan's merge of (count, mean, centred sum of squares) b into a.
+__device__ __forceinline__ void chan_merge(float& na, float& ma, float& qa, float nb, float mb,
+                                           float qb) {
+  if (nb == 0.f) return;
+  const float n = na + nb, d = mb - ma;
+  ma += d * (nb / n);
+  qa += qb + d * d * (na * nb / n);
+  na = n;
+}
+
+// Every block of the grid meets here (a cooperative launch: all of them
+// resident).  Each block's writes before it are visible to every block
+// after it.  *bar packs the generation (high 16 bits) over the arrivals
+// (low 16 bits, left at 0): the last to arrive zeroes the count and bumps
+// the generation in one atomic, the others watch the generation.
+__device__ __forceinline__ void grid_barrier(unsigned int* bar) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    unsigned int old;
+    asm volatile("atom.add.acq_rel.gpu.global.u32 %0, [%1], 1;\n"
+                 : "=r"(old) : "l"(bar) : "memory");
+    if ((old & 0xffffu) == gridDim.x - 1) {
+      asm volatile("red.add.release.gpu.global.u32 [%0], %1;\n"
+                   :: "l"(bar), "r"(0x10000u - gridDim.x) : "memory");
+    } else {
+      unsigned int now;
+      do {
+        __nanosleep(32);
+        asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(now) : "l"(bar) : "memory");
+      } while ((now ^ old) >> 16 == 0);
+    }
+  }
+  __syncthreads();
+}
+
+// proj_norm's norm, in every block once all tiles are finished: merge the
+// tiles' row statistics in a fixed order (each lane its tiles in tile
+// order, then the lanes pairwise), then normalise this block's slice of
+// r32 (or resid, parallel) into h: r32 read once over the grid.  The
+// slice's scale and bias are read before the barrier.
+template <typename T>
+__device__ __forceinline__ void g16_norm(const G16Args& a) {
+  __shared__ float2 row[kBT];   // (mean, rstd)
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int N = a.N;
+  const T* resid = static_cast<const T*>(a.resid);
+  const T* scale = static_cast<const T*>(a.scale);
+  const T* bias = static_cast<const T*>(a.bias);
+  T* h = static_cast<T*>(a.h);
+  const int q4 = N / 4, total = a.bc * q4;
+  const int per = (total + gridDim.x - 1) / gridDim.x;
+  const int i0 = blockIdx.x * per + threadIdx.x;
+  const int i1 = min(total, (static_cast<int>(blockIdx.x) + 1) * per);
+  float sc[4], bi[4], rs[4];
+  auto params = [&](int i) {
+    const int b = i / q4, c = (i % q4) * 4;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      sc[k] = to_f32(scale[c + k]);
+      bi[k] = bias ? to_f32(bias[c + k]) : 0.f;
+      rs[k] = a.parallel ? to_f32(resid[static_cast<size_t>(b) * N + c + k]) : 0.f;
+    }
+  };
+  if (i0 < i1) params(i0);
+  grid_barrier(a.ticket + kGMaxTiles);
+  if (warp < a.bc) {
+    float n = 0.f, m = 0.f, q = 0.f;
+    for (int t0 = 0; t0 < a.g.tiles; t0 += 128) {
+      float2 sv[4];   // the loads first, then the merges in tile order
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int tt = t0 + lane + 32 * u;
+        sv[u] = tt < a.g.tiles ? __ldcg(a.stats + tt * kBT + warp) : make_float2(0.f, 0.f);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int tt = t0 + lane + 32 * u;
+        if (tt < a.g.tiles)
+          chan_merge(n, m, q, static_cast<float>(min(kGTN, N - tt * kGTN)), sv[u].x, sv[u].y);
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {   // lane l takes lane l + off
+      const float nb = __shfl_down_sync(0xffffffffu, n, off);
+      const float mb = __shfl_down_sync(0xffffffffu, m, off);
+      const float qb = __shfl_down_sync(0xffffffffu, q, off);
+      if (lane + off < 32 && (lane & (2 * off - 1)) == 0) chan_merge(n, m, q, nb, mb, qb);
+    }
+    if (lane == 0)
+      row[warp] = make_float2(a.kind == kLayer ? m : 0.f,
+                              rsqrtf(q / static_cast<float>(N) + a.eps));
+  }
+  __syncthreads();
+  for (int i = i0; i < i1; i += kGThreads) {
+    if (i != i0) params(i);
+    const int b = i / q4, c = (i % q4) * 4;
+    const size_t o = static_cast<size_t>(b) * N + c;
+    float v[4];
+    if (a.parallel) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v[k] = rs[k];
+    } else {
+      const float4 f = __ldcg(reinterpret_cast<const float4*>(a.r32 + o));
+      v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
+    }
+    float y[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      y[k] = normalize(v[k], row[b].x, row[b].y, sc[k], bi[k], a.kind);
+    *reinterpret_cast<uint2*>(h + o) = make_uint2(Two<T>::pack(y[0], y[1]), Two<T>::pack(y[2], y[3]));
+  }
+}
+
+// The epilogue of a finished tile, its whole sums in `sums`.
+template <typename T, bool kProj>
+__device__ __forceinline__ void g16_epilogue(const G16Args& a, int tile, float* sums) {
+  const int n0 = tile * kGTN;
+  const T* wb = static_cast<const T*>(a.wb);
+  T* out = static_cast<T*>(a.out);
+  if constexpr (!kProj) {
+    for (int o = threadIdx.x; o < a.bc * kGTN; o += kGThreads) {
+      const int b = o / kGTN, n = n0 + o % kGTN;
+      if (n < a.N) {
+        float y = sums[o];
+        if (wb) y += to_f32(wb[n]);
+        out[static_cast<size_t>(b) * a.N + n] = from_f32<T>(y);
+      }
+    }
+  } else {
+    const T* resid = static_cast<const T*>(a.resid);
+    for (int o = threadIdx.x; o < kBT * kGTN; o += kGThreads) {
+      const int b = o / kGTN, n = n0 + o % kGTN;
+      float src = 0.f;
+      if (b < a.bc && n < a.N) {
+        float y = sums[o];
+        if (wb) y += to_f32(wb[n]);
+        const size_t i = static_cast<size_t>(b) * a.N + n;
+        const float rv = to_f32(resid[i]) + y;
+        out[i] = from_f32<T>(rv);
+        a.r32[i] = rv;
+        src = a.parallel ? to_f32(resid[i]) : rv;
+      }
+      sums[o] = src;
+    }
+    __syncthreads();
+    // this tile's statistics of each row, one warp a row
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    if (warp < a.bc) {
+      const float nv = static_cast<float>(min(kGTN, a.N - n0));
+      const float* s = sums + warp * kGTN;
+      float m = 0.f;
+      if (a.kind == kLayer) {
+        float t = 0.f;
+        for (int c = lane; c < kGTN; c += 32) t += s[c];
+        m = warp_sum(t) / nv;
+      }
+      float q = 0.f;
+      for (int c = lane; c < kGTN && n0 + c < a.N; c += 32) q += (s[c] - m) * (s[c] - m);
+      q = warp_sum(q);
+      if (lane == 0) a.stats[tile * kBT + warp] = make_float2(m, q);
+    }
+  }
+  __syncthreads();  // sums is reused by the next share
+}
+
+template <typename T, bool kProj, class Cfg>
+__device__ __forceinline__ void g16_body(const G16Args& a) {
+  constexpr int kGStages = Cfg::kStages;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ float2 xstat[kBT];  // norm_qkv: each row's (mean, rstd)
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int grp = warp % kGGroups, ksub = warp / kGGroups;
+  const G16Grid& gr = a.g;
+  unsigned char* smem = smem_raw + ((kGAlign - smem_u32(smem_raw) % kGAlign) % kGAlign);
+  __shared__ alignas(8) uint64_t full_bar[kGStages];
+  if (threadIdx.x == 0) {
+    for (int q = 0; q < kGStages; ++q)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(full_bar + q))
+                   : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const uint32_t fb = smem_u32(full_bar);
+  float* red = reinterpret_cast<float*>(smem + kGStages * kGStageBytes);
+  float* sums = red + kGRedFloats;
+  const uint32_t ring = smem_u32(smem);
+  int lo, hi;
+  g16_range(gr, blockIdx.x, lo, hi);
+
+  // the producer: the next unit to load; a stage never crosses a tile
+  int pu = lo;
+  auto issue = [&](int slot) {
+    if (pu < hi) {
+      const int tile = pu / gr.k16, base = tile * gr.k16;
+      const int e = min(min(hi, base + gr.k16), pu + kGSteps);
+      g16_load<T, !kProj>(ring + slot * kGStageBytes, a, tile * kGTN, (pu - base) * 16,
+                          min(a.K, (e - base) * 16), fb + slot * 8);
+      pu = e;
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int p = 0; p < kGStages - 1; ++p) issue(p);
+
+  if constexpr (!kProj) {
+    // each row's statistics while the first stages fly
+    if (warp < a.bc) {
+      using P = Pack<T>;
+      const P* xr = reinterpret_cast<const P*>(static_cast<const T*>(a.x) +
+                                               static_cast<size_t>(warp) * a.K);
+      const int nv = a.K / P::N;
+      float m = 0.f;
+      if (a.kind == kLayer) {
+        float s = 0.f;
+#pragma unroll 8
+        for (int i = lane; i < nv; i += 32) {
+          const P p = xr[i];
+#pragma unroll
+          for (int j = 0; j < P::N; ++j) s += to_f32(p.v[j]);
+        }
+        m = warp_sum(s) / static_cast<float>(a.K);
+      }
+      float ss = 0.f;
+#pragma unroll 8
+      for (int i = lane; i < nv; i += 32) {
+        const P p = xr[i];
+#pragma unroll
+        for (int j = 0; j < P::N; ++j) ss += (to_f32(p.v[j]) - m) * (to_f32(p.v[j]) - m);
+      }
+      ss = warp_sum(ss);   // every lane: the shuffles take the whole warp
+      if (lane == 0) xstat[warp] = make_float2(m, rsqrtf(ss / static_cast<float>(a.K) + a.eps));
+    } else if (lane == 0) {
+      xstat[warp] = make_float2(0.f, 0.f);
+    }
+    __syncthreads();
+  }
+
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  int cu = lo, seg = lo;  // the consumer: the next unit, the start of its share
+  for (int i = 0; cu < hi; ++i) {
+    cp_async_wait<kGStages - 2>();
+    {  // the stage's weights: its mbarrier's phase i / kGStages
+      const uint32_t bar = fb + (i % kGStages) * 8;
+      const uint32_t parity = (i / kGStages) & 1;
+      uint32_t done;
+      do {
+        asm volatile(
+            "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+      } while (!done);
+    }
+    __syncthreads();
+    issue((i + kGStages - 1) % kGStages);
+    const int slot = i % kGStages;
+    const uint32_t st = ring + slot * kGStageBytes;
+    unsigned char* xs = smem + slot * kGStageBytes + kGWBytes;
+    if constexpr (!kProj) {
+      // normalise the stage's rows of x in place, once, rounded to T (rows
+      // past the share come zero filled with their scale and bias: 0)
+      for (int e = threadIdx.x; e < kBT * kGTK / 2; e += kGThreads) {
+        const int b = e / (kGTK / 2), o = (e % (kGTK / 2)) * 4;
+        uint32_t* px = reinterpret_cast<uint32_t*>(xs + b * kGXStride * 2 + o);
+        const float2 xf = Two<T>::unpack(*px);
+        const float2 sf = Two<T>::unpack(
+            *reinterpret_cast<const uint32_t*>(xs + kBT * kGXStride * 2 + o));
+        const float2 bf = Two<T>::unpack(
+            *reinterpret_cast<const uint32_t*>(xs + (kBT + 1) * kGXStride * 2 + o));
+        const float2 st2 = xstat[b];
+        *px = Two<T>::pack(normalize(xf.x, st2.x, st2.y, sf.x, bf.x, a.kind),
+                           normalize(xf.y, st2.x, st2.y, sf.y, bf.y, a.kind));
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int j = 0; j < kGStepsAWarp; ++j) {
+      const int ks = ksub + kGWarpsAGroup * j;
+      // B: rows g of the pass at k = 2t, 2t + 1 and 2t + 8, 2t + 9 of the step
+      const int xo = (ks * 16 + 2 * t) * 2;
+      const uint32_t b0 = *reinterpret_cast<const uint32_t*>(xs + g * kGXStride * 2 + xo);
+      const uint32_t b1 = *reinterpret_cast<const uint32_t*>(xs + g * kGXStride * 2 + xo + 16);
+      // A: the weight tile's 16 columns of this group x the step's 16 rows
+      const int krow = ks * 16 + ((lane >> 4) & 1) * 8 + (lane & 7);
+      const int chunk = grp * 2 + ((lane >> 3) & 1);
+      uint32_t af[4];
+      asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                   : "=r"(af[0]), "=r"(af[1]), "=r"(af[2]), "=r"(af[3])
+                   : "r"(st + krow * kGRowBytes + (q8_swizzle(krow, chunk) << 4)));
+      mma16<T>(acc, af, b0, b1);
+    }
+    const int tile = cu / gr.k16, base = tile * gr.k16;
+    const int end = min(hi, base + gr.k16);
+    cu = min(end, cu + kGSteps);
+    if (cu < end) continue;
+    // this block's share of the tile is done
+    g16_reduce(acc, red, sums);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[q] = 0.f;
+    bool finish = true;
+    if (seg != base || end != base + gr.k16) {
+      int slotn, n;
+      if (gr.even) {
+        const int first = g16_owner(gr, base);
+        slotn = blockIdx.x - first;
+        n = g16_owner(gr, base + gr.k16 - 1) - first + 1;
+      } else {
+        slotn = (seg - base) / gr.sps;
+        n = (gr.k16 + gr.sps - 1) / gr.sps;
+      }
+      finish = g16_merge(a, tile, slotn, n, sums);
+    }
+    if (finish) g16_epilogue<T, kProj>(a, tile, sums);
+    seg = cu;
+  }
+  cp_async_wait<0>();
+  if constexpr (kProj) g16_norm<T>(a);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kGThreads, QkvCfg::kBps)
+    norm_qkv_mma_kernel(const __grid_constant__ G16Args a) {
+  g16_body<T, false, QkvCfg>(a);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kGThreads, ProjCfg::kBps)
+    proj_norm_mma_kernel(const __grid_constant__ G16Args a) {
+  g16_body<T, true, ProjCfg>(a);
+}
+
+// ---------------------------------------------------------------------------
 // paged flash decode: out[B, H, Dh] = softmax(q . K^T * scale (+ alibi)) V
 // over keys 0..pos[b] of each slot, K/V in the paged pool
 // ---------------------------------------------------------------------------
@@ -1295,6 +1904,145 @@ cudaError_t launch_mlp_int8(const void* h, const void* r, const void* wu, const 
   return cudaSuccess;
 }
 
+// The 16-bit GEMVs' grid (the kernels' note above g16_range) over `cap`
+// resident blocks (SMs x the kernel's blocks an SM): split mode as
+// q8_grid; even mode (more column tiles than resident blocks, so that
+// proj_norm's cooperative grid stays resident) one block a slot, each an
+// equal run of units.
+G16Grid g16_grid(int K, int N, int cap) {
+  G16Grid g;
+  g.tiles = (N + kGTN - 1) / kGTN;
+  g.k16 = (K + 15) / 16;
+  g.even = g.tiles > cap;
+  if (g.even) {
+    const long long units = static_cast<long long>(g.tiles) * g.k16;
+    g.sps = 0;
+    g.blocks = static_cast<int>(min(static_cast<long long>(cap), units));
+    const int fewest = static_cast<int>(units / g.blocks);  // units of the shortest run
+    g.slots = (g.k16 + fewest - 1) / fewest + 1;
+  } else {
+    const int want = max(1, min(g.k16, cap / g.tiles));
+    g.sps = (g.k16 + want - 1) / want;
+    g.slots = (g.k16 + g.sps - 1) / g.sps;
+    g.blocks = g.tiles * g.slots;
+  }
+  return g;
+}
+
+size_t align256(size_t n) { return (n + 255) / 256 * 256; }
+
+int g16_cap(bool proj, int dev) {
+  return sm_count(dev) * (proj ? ProjCfg::kBps : QkvCfg::kBps);
+}
+
+// The workspace of a pass: r32 [kBT, N], the tiles' row statistics, then
+// the partials of shared tiles.
+size_t g16_workspace_bytes(int K, int N, int cap) {
+  const G16Grid g = g16_grid(K, N, cap);
+  const size_t part = g.slots > 1 ? static_cast<size_t>(g.tiles) * g.slots * kBT * kGTN * 4 : 0;
+  return align256(static_cast<size_t>(kBT) * N * 4) +
+         align256(static_cast<size_t>(g.tiles) * kBT * sizeof(float2)) + part;
+}
+
+// proj_norm's blocks meet at a grid barrier, so it launches cooperatively:
+// the launch fails, and never hangs, unless the whole grid is resident.
+template <typename T, bool kProj>
+cudaError_t launch_g16(const G16Args& a, int dev, cudaStream_t s) {
+  static unsigned long long ready = 0;
+  auto kernel = kProj ? proj_norm_mma_kernel<T> : norm_qkv_mma_kernel<T>;
+  constexpr int smem = kProj ? ProjCfg::kSmem : QkvCfg::kSmem;
+  const cudaError_t e = q8_allow_smem(kernel, smem, dev, ready);
+  if (e != cudaSuccess) return e;
+  if (kProj) {
+    void* args[] = {const_cast<G16Args*>(&a)};
+    return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                       dim3(a.g.blocks), dim3(kGThreads), args, smem, s);
+  }
+  kernel<<<a.g.blocks, kGThreads, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
+// One launch a pass of kBT rows: the pass's rows of x / ctx, resid, out / r
+// and h; the workspace split as g16_workspace_bytes lays it out.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// w [K, N] of 2-byte elements as TMA tiles of kGTK rows x 64 columns.
+cudaError_t g16_wmap(CUtensorMap* map, const void* w, int K, int N, bool half) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode),
+                                cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      return cudaErrorNotSupported;
+  }
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(K)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(N) * 2};
+  const cuuint32_t box[2] = {64, kGTK};
+  const cuuint32_t estr[2] = {1, 1};
+  const CUresult r = encode(map, half ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                            2, const_cast<void*>(w), dims, strides, box, estr,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <typename T, bool kProj>
+cudaError_t launch_g16_passes(G16Args a, int B, void* work, int dev, cudaStream_t s) {
+  a.g = g16_grid(a.K, a.N, g16_cap(kProj, dev));
+  if (a.g.tiles > kGMaxTiles) return cudaErrorInvalidValue;
+  const cudaError_t me = g16_wmap(&a.wmap, a.w, a.K, a.N, std::is_same<T, __half>::value);
+  if (me != cudaSuccess) return me;
+  char* wp = static_cast<char*>(work);
+  a.r32 = reinterpret_cast<float*>(wp);
+  a.stats = reinterpret_cast<float2*>(wp + align256(static_cast<size_t>(kBT) * a.N * 4));
+  a.part = reinterpret_cast<float*>(wp + align256(static_cast<size_t>(kBT) * a.N * 4) +
+                                    align256(static_cast<size_t>(a.g.tiles) * kBT * sizeof(float2)));
+  const T* x = static_cast<const T*>(a.x);
+  const T* resid = static_cast<const T*>(a.resid);
+  T* out = static_cast<T*>(a.out);
+  T* h = static_cast<T*>(a.h);
+  for (int b0 = 0; b0 < B; b0 += kBT) {
+    a.bc = min(kBT, B - b0);
+    a.x = x + static_cast<size_t>(b0) * a.K;
+    a.out = out + static_cast<size_t>(b0) * a.N;
+    if (kProj) {
+      a.resid = resid + static_cast<size_t>(b0) * a.N;
+      a.h = h + static_cast<size_t>(b0) * a.N;
+    }
+    const cudaError_t e = launch_g16<T, kProj>(a, dev, s);
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
+template <typename T>
+cudaError_t g16_norm_qkv(const void* x, const void* scale, const void* bias, const void* w,
+                         const void* bqkv, void* out, void* work, void* ticket, int B, int D,
+                         int N, int kind, float eps, int dev, cudaStream_t s) {
+  G16Args a{};
+  a.x = x; a.w = w; a.wb = bqkv; a.scale = scale; a.bias = bias; a.out = out;
+  a.ticket = static_cast<unsigned int*>(ticket);
+  a.K = D; a.N = N; a.kind = kind; a.eps = eps;
+  return launch_g16_passes<T, false>(a, B, work, dev, s);
+}
+
+template <typename T>
+cudaError_t g16_proj_norm(const void* ctx, const void* resid, const void* wo, const void* bo,
+                          const void* scale, const void* bias, void* r, void* h, void* work,
+                          void* ticket, int B, int M, int D, int kind, float eps, int parallel,
+                          int dev, cudaStream_t s) {
+  G16Args a{};
+  a.x = ctx; a.w = wo; a.wb = bo; a.scale = scale; a.bias = bias; a.resid = resid;
+  a.out = r; a.h = h;
+  a.ticket = static_cast<unsigned int*>(ticket);
+  a.K = M; a.N = D; a.kind = kind; a.eps = eps; a.parallel = parallel;
+  return launch_g16_passes<T, true>(a, B, work, dev, s);
+}
+
 template <typename T, int DI, int R>
 cudaError_t launch_fd(const FdArgs& a, int B, cudaStream_t s) {
   const size_t smem = fd_smem_bytes(a.H / a.Hkv, a.Dh, a.maxp);
@@ -1353,16 +2101,23 @@ extern "C" {
 // x [B, D], scale/bias [D] (bias may be null), w [D, N], bqkv [N] or null,
 // out [B, N]; one dtype (0 = float32, 1 = bfloat16, 2 = float16); kind
 // 0 = rmsnorm, 1 = layernorm.  N must be a multiple of 16 / itemsize and w,
-// out 16-byte aligned (the wrapper checks).
+// out 16-byte aligned; bf16 and fp16 (the tensor cores) also need D a
+// multiple of 8 and x, scale, bias 16-byte aligned (the wrapper checks).
+// `work` ds_gemv16_workspace(D, N, 0, device) bytes (256-byte aligned) and
+// `ticket` ds_ticket_count() zeroed uint32 whose counts the kernels leave at 0,
+// both used by bf16 and fp16 only; on `stream` of CUDA device `device` (made
+// current for the call if it is not).
 int ds_fused_norm_qkv(const void* x, const void* scale, const void* bias, const void* w,
-                      const void* bqkv, void* out, int B, int D, int N, int kind, float eps,
-                      int dtype, void* stream) {
+                      const void* bqkv, void* out, void* work, void* ticket, int B, int D,
+                      int N, int kind, float eps, int dtype, void* stream, int device) {
   if (B <= 0 || N <= 0) return 0;
+  const DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return launch_norm_qkv<float, float>(x, scale, bias, w, nullptr, bqkv, out, B, D, N, kind, eps, s);
-    case 1: return launch_norm_qkv<__nv_bfloat16, __nv_bfloat16>(x, scale, bias, w, nullptr, bqkv, out, B, D, N, kind, eps, s);
-    case 2: return launch_norm_qkv<__half, __half>(x, scale, bias, w, nullptr, bqkv, out, B, D, N, kind, eps, s);
+    case 1: return g16_norm_qkv<__nv_bfloat16>(x, scale, bias, w, bqkv, out, work, ticket, B, D, N, kind, eps, device, s);
+    case 2: return g16_norm_qkv<__half>(x, scale, bias, w, bqkv, out, work, ticket, B, D, N, kind, eps, device, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1371,11 +2126,23 @@ int ds_fused_norm_qkv(const void* x, const void* scale, const void* bias, const 
 // codes (8-byte aligned, N a multiple of 8), wscale [N] fp32.
 int ds_fused_norm_qkv_int8(const void* x, const void* scale, const void* bias, const void* w,
                            const void* wscale, const void* bqkv, void* out, int B, int D, int N,
-                           int kind, float eps, void* stream) {
+                           int kind, float eps, void* stream, int device) {
   if (B <= 0 || N <= 0) return 0;
+  const DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
   return launch_norm_qkv<__nv_bfloat16, int8_t>(x, scale, bias, w, wscale, bqkv, out, B, D, N,
                                                 kind, eps, static_cast<cudaStream_t>(stream));
 }
+
+// Bytes of the workspace the bf16 and fp16 norm_qkv (proj 0) or proj_norm
+// (proj 1) take for a [K, N] weight on CUDA device `device`.
+long long ds_gemv16_workspace(int K, int N, int proj, int device) {
+  return static_cast<long long>(g16_workspace_bytes(K, N, g16_cap(proj != 0, device)));
+}
+
+// The uint32 tickets a (device, stream) gives the kernels that merge across
+// blocks: one a column tile (kQ8MaxTiles), then proj_norm's grid barrier.
+int ds_ticket_count() { return kQ8MaxTiles + 1; }
 
 // q [B, H, Dh]; kpool/vpool the layer's [P, Hkv, page, Dh] slice; pos [B]
 // and table [B, maxp] int64; slopes [H] fp32 or null; out [B, H, Dh].
@@ -1406,29 +2173,37 @@ int ds_flash_decode_contig(const void* q, const void* kcache, const void* vcache
 }
 
 // ctx [B, M], resid [B, D], wo [M, D], bo [D] or null, scale [D], bias [D]
-// or null; outputs r, h [B, D]; r32 [B, D] fp32 scratch; ticket one
-// zeroed uint32 that the kernel leaves at 0.
+// or null; outputs r, h [B, D]; `work` fp32 scratch: for float32 r32
+// [B, D], for bf16 and fp16 ds_gemv16_workspace(M, D, 1, device) bytes (256-byte
+// aligned; also M a multiple of 8, ctx 16-byte aligned); `ticket`
+// ds_ticket_count() zeroed uint32 whose counts the kernels leave at 0.  On `stream` of
+// CUDA device `device` (made current for the call if it is not).
 int ds_fused_proj_norm(const void* ctx, const void* resid, const void* wo, const void* bo,
-                       const void* scale, const void* bias, void* r, void* h, void* r32,
+                       const void* scale, const void* bias, void* r, void* h, void* work,
                        void* ticket, int B, int M, int D, int kind, float eps, int parallel,
-                       int dtype, void* stream) {
+                       int dtype, void* stream, int device) {
   if (B <= 0 || D <= 0) return 0;
+  const DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch_proj_norm<float, float>(ctx, resid, wo, nullptr, bo, scale, bias, r, h, r32, ticket, B, M, D, kind, eps, parallel, s);
-    case 1: return launch_proj_norm<__nv_bfloat16, __nv_bfloat16>(ctx, resid, wo, nullptr, bo, scale, bias, r, h, r32, ticket, B, M, D, kind, eps, parallel, s);
-    case 2: return launch_proj_norm<__half, __half>(ctx, resid, wo, nullptr, bo, scale, bias, r, h, r32, ticket, B, M, D, kind, eps, parallel, s);
+    case 0: return launch_proj_norm<float, float>(ctx, resid, wo, nullptr, bo, scale, bias, r, h, work, ticket, B, M, D, kind, eps, parallel, s);
+    case 1: return g16_proj_norm<__nv_bfloat16>(ctx, resid, wo, bo, scale, bias, r, h, work, ticket, B, M, D, kind, eps, parallel, device, s);
+    case 2: return g16_proj_norm<__half>(ctx, resid, wo, bo, scale, bias, r, h, work, ticket, B, M, D, kind, eps, parallel, device, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // The int8-weight body: bf16 activations, wo [M, D] int8 codes, wscale [D]
-// fp32.
+// fp32; r32 [B, D] fp32 scratch and the ticket as float32's.
 int ds_fused_proj_norm_int8(const void* ctx, const void* resid, const void* wo,
                             const void* wscale, const void* bo, const void* scale,
                             const void* bias, void* r, void* h, void* r32, void* ticket, int B,
-                            int M, int D, int kind, float eps, int parallel, void* stream) {
+                            int M, int D, int kind, float eps, int parallel, void* stream,
+                            int device) {
   if (B <= 0 || D <= 0) return 0;
+  const DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
   return launch_proj_norm<__nv_bfloat16, int8_t>(ctx, resid, wo, wscale, bo, scale, bias, r, h,
                                                  r32, ticket, B, M, D, kind, eps, parallel,
                                                  static_cast<cudaStream_t>(stream));
@@ -1454,7 +2229,7 @@ int ds_fused_mlp(const void* h, const void* r, const void* wu, const void* wg, c
 // [B, D]; wu, wg [D, F] and wd [F, D] int8 codes (8-byte aligned; D, F
 // multiples of 8; h 16-byte aligned) with their fp32 scales su, sg [F] (wg
 // and sg null without a gate), sd [D]; `work` ds_fused_mlp_int8_workspace
-// bytes (256-byte aligned); `ticket` kQ8MaxTiles zeroed uint32 that the
+// bytes (256-byte aligned); `ticket` ds_ticket_count() zeroed uint32 that the
 // kernels leave at 0.  Two launches a pass of 8 rows, on `stream` of CUDA
 // device `device` (made current for the call if it is not).
 int ds_fused_mlp_int8(const void* h, const void* r, const void* wu, const void* wg,

@@ -20,15 +20,23 @@ honours its three biases independently, as ``_mlp_ref`` does (the Pallas
 kernel gates them all on ``b_up``).  The wrappers check device, dtype, shape,
 contiguity and alignment and raise: they never copy or cast an input.
 
+In bf16 and fp16 ``fused_norm_qkv`` and ``fused_proj_norm`` run on the
+tensor cores (``norm_qkv_mma_kernel``, ``proj_norm_mma_kernel``:
+``mma.sync`` over the weight tiles the TMA streams into a ring, one launch
+a pass of 8 rows; proj_norm launches cooperatively, its norm after a grid
+barrier); fp32 keeps the FFMA kernels, in full fp32.  Both
+wrappers keep their scratch and tickets a device and stream.
+
 int8 weights (``wscale`` / ``wscales``: an int8 payload with per-output-
 column fp32 scales, the layout of ``models/quant.py``) run the int8 bodies
 of the three GEMV kernels, which dequantize in the kernel as ``_deq`` does;
 they take bf16 activations only (the int8 engine serves in bf16).  The
 int8 MLP has kernels of its own on the tensor cores
 (``mlp_act_int8_mma_kernel`` + ``mlp_down_int8_mma_kernel``: ``mma.sync``
-over the dequantized codes, streamed by a ``cp.async`` ring), and its
-wrapper takes the lean host path of :mod:`.common` (the raw stream handle,
-the device index to the C entry, prototypes bound once).  Each variant has
+over the dequantized codes, streamed by a ``cp.async`` ring).  The
+norm_qkv and proj_norm wrappers (every dtype, int8 too) and the int8 MLP's
+take the lean host path of :mod:`.common` (the raw stream handle, the
+device index to the C entry, prototypes bound once).  Each variant has
 a launch function and a launch counter of its own:
 ``flash_decode_contig_cuda`` and the three ``*_int8_cuda``.
 """
@@ -192,23 +200,28 @@ def _mlp_ref(h, r, w_up, w_gate, w_down, b_up, b_gate, b_down, *, act,
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
-    "ds_fused_norm_qkv": [_P] * 6 + [_I] * 4 + [_F, _I, _P],
-    "ds_fused_norm_qkv_int8": [_P] * 7 + [_I] * 4 + [_F, _P],
     "ds_flash_decode_paged": [_P] * 7 + [_I] * 6 + [_F, _I, _P],
     "ds_flash_decode_contig": [_P] * 4 + [_L, _I] + [_P] * 2 + [_I] * 5
                               + [_F, _I, _P],
-    "ds_fused_proj_norm": [_P] * 10 + [_I] * 4 + [_F, _I, _I, _P],
-    "ds_fused_proj_norm_int8": [_P] * 11 + [_I] * 4 + [_F, _I, _P],
     "ds_fused_mlp": [_P] * 10 + [_I] * 5 + [_P],
 }
-_TICKETS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
-# the int8 MLP (tensor cores): the workspace bytes a (D, F, gate, device)
-# needs; its tickets, one a column tile (kQ8MaxTiles in csrc/decode.cu),
-# zeroed once a device and stream
+# the GEMVs of the lean host path (bound once through build.bind; each takes
+# the raw stream and the device index)
+_NORM_QKV_ARGS = [_P] * 8 + [_I] * 4 + [_F, _I, _P, _I]
+_NORM_QKV_INT8_ARGS = [_P] * 7 + [_I] * 4 + [_F, _P, _I]
+_PROJ_NORM_ARGS = [_P] * 10 + [_I] * 4 + [_F, _I, _I, _P, _I]
+_PROJ_NORM_INT8_ARGS = [_P] * 11 + [_I] * 4 + [_F, _I, _P, _I]
 _Q8_ARGS = [_P] * 14 + [_I] * 4 + [_P, _I]
+# tickets of the kernels that merge across blocks (``ds_ticket_count`` of
+# them: one a column tile, then proj_norm's grid barrier), zeroed once a
+# device and stream, their counts left at zero by every kernel; scratch of
+# the GEMVs (r32, the tiles' statistics and partials), kept a device and
+# stream and grown to the largest call's; the bytes each (K, N, kernel,
+# device) needs
+_TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
+_WORK: Dict[Tuple[int, int], torch.Tensor] = {}
+_G16_WORKSPACE: Dict[Tuple[int, int, int, int], int] = {}
 _Q8_WORKSPACE: Dict[Tuple[int, int, bool, int], int] = {}
-_Q8_TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
-_Q8_MAX_TILES = 4096
 
 
 def _library():
@@ -289,18 +302,68 @@ def _kind_code(kind: str) -> int:
     return NORM_KINDS[kind]
 
 
-def _ticket(dev: torch.device) -> torch.Tensor:
-    """The zeroed counter fused_proj_norm's last block takes; one per
-    device and stream, so launches on one stream reuse it in order."""
-    key = (dev, _stream(dev))
-    t = _TICKETS.get(key)
+def _tickets(dev: int, stream: int) -> int:
+    """The zeroed tickets of CUDA device ``dev``'s ``stream`` (launches on
+    one stream reuse them in order)."""
+    t = _TICKETS.get((dev, stream))
     if t is None:
-        t = _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=dev)
-    return t
+        t = _TICKETS[(dev, stream)] = torch.zeros(
+            bind("decode", "ds_ticket_count", [])(), dtype=torch.int32,
+            device=f"cuda:{dev}")
+    return t.data_ptr()
 
 
-def fused_norm_qkv_cuda(x, scale, bias, wqkv, bqkv=None, *, kind, eps):
-    """Launch ``norm_qkv_kernel``: x [B, D] → [B, N] in x's dtype."""
+def _workspace(dev: int, stream: int, nbytes: int) -> int:
+    """Scratch of at least ``nbytes`` on device ``dev`` for ``stream``."""
+    t = _WORK.get((dev, stream))
+    if t is None or t.numel() < nbytes:
+        t = _WORK[(dev, stream)] = torch.empty(max(nbytes, 256),
+                                               dtype=torch.uint8,
+                                               device=f"cuda:{dev}")
+    return t.data_ptr()
+
+
+def _gemv_workspace(dev: int, stream: int, code: int, B: int, K: int,
+                    N: int, proj: int) -> int:
+    """The GEMVs' scratch: the tensor-core kernels' (bf16, fp16) layout of
+    ``ds_gemv16_workspace``; for fp32 proj_norm's r32 [B, N]."""
+    if code == 0:
+        return _workspace(dev, stream, B * N * 4)
+    nbytes = _G16_WORKSPACE.get((K, N, proj, dev))
+    if nbytes is None:
+        nbytes = _G16_WORKSPACE[(K, N, proj, dev)] = bind(
+            "decode", "ds_gemv16_workspace", [_I] * 4, _L)(K, N, proj, dev)
+    return _workspace(dev, stream, nbytes)
+
+
+def _ok(t: Optional[torch.Tensor], dev: int, dt: torch.dtype, shape) -> bool:
+    """``t`` is absent, or a contiguous tensor of ``dt`` and ``shape`` on
+    CUDA device ``dev``: the lean test, one attribute pass."""
+    return t is None or (t.get_device() == dev and t.dtype is dt
+                         and t.shape == shape and t.is_contiguous())
+
+
+def _aligned(*ts) -> bool:
+    return all(t is None or t.data_ptr() % 16 == 0 for t in ts)
+
+
+def _check_mma(op: str, k: int, x: torch.Tensor, *ts) -> None:
+    """What the bf16 and fp16 GEMVs add: 16-byte copies of the activations
+    (and of norm_qkv's scale and bias), so a contraction of whole 16-byte
+    vectors and 16-byte aligned tensors."""
+    if x.element_size() != 2:
+        return
+    if k % 8:
+        raise ValueError(f"{op}: a contraction of {k} is not a multiple of "
+                         f"8 (the kernel's 16-byte copies of {x.dtype})")
+    if not _aligned(x, *ts):
+        raise ValueError(f"{op}: the kernel's 16-byte copies need 16-byte "
+                         f"aligned activations")
+
+
+def _refuse_norm_qkv(x, scale, bias, wqkv, bqkv, kind) -> None:
+    """Raise what the kernel refuses: the full checks, run only once the
+    lean test has failed."""
     check_kernel_input("fused_norm_qkv x", x, x.device)
     if x.dim() != 2 or wqkv.dim() != 2:
         raise ValueError(f"fused_norm_qkv: x [B, D] and wqkv [D, N], got "
@@ -312,16 +375,65 @@ def fused_norm_qkv_cuda(x, scale, bias, wqkv, bqkv=None, *, kind, eps):
     _check("fused_norm_qkv wqkv", wqkv, x, (D, N), vector=True)
     _check("fused_norm_qkv bqkv", bqkv, x, (N,))
     _check_columns("fused_norm_qkv", N, x)
-    _check_staged("fused_norm_qkv", B, D, x)
-    code_kind = _kind_code(kind)
-    out = torch.empty((B, N), device=x.device, dtype=x.dtype)
-    built = _library()
-    with torch.cuda.device(x.device):
-        code = built.lib.ds_fused_norm_qkv(
-            x.data_ptr(), scale.data_ptr(), _ptr(bias), wqkv.data_ptr(),
-            _ptr(bqkv), out.data_ptr(), B, D, N, code_kind, float(eps),
-            KERNEL_DTYPES[x.dtype], _stream(x.device))
-    check_launch(built, "fused_norm_qkv", code)
+    if x.element_size() == 4:
+        _check_staged("fused_norm_qkv", B, D, x)
+    _check_mma("fused_norm_qkv", D, x, scale, bias)
+    _kind_code(kind)
+    raise ValueError("fused_norm_qkv: inputs the kernel does not take")
+
+
+def _refuse_proj_norm(ctx, resid, wo, bo, scale, bias, kind) -> None:
+    """Raise what the kernel refuses: the full checks, run only once the
+    lean test has failed."""
+    check_kernel_input("fused_proj_norm ctx", ctx, ctx.device)
+    if ctx.dim() != 2 or wo.dim() != 2:
+        raise ValueError(f"fused_proj_norm: ctx [B, M] and wo [M, D], got "
+                         f"{tuple(ctx.shape)} and {tuple(wo.shape)}")
+    B, M = ctx.shape
+    D = wo.shape[1]
+    _check("fused_proj_norm resid", resid, ctx, (B, D))
+    _check("fused_proj_norm wo", wo, ctx, (M, D), vector=True)
+    _check("fused_proj_norm bo", bo, ctx, (D,))
+    _check("fused_proj_norm scale", scale, ctx, (D,))
+    _check("fused_proj_norm bias", bias, ctx, (D,))
+    _check_columns("fused_proj_norm", D, ctx)
+    if ctx.element_size() == 4:
+        _check_staged("fused_proj_norm", B, M, ctx)
+    _check_mma("fused_proj_norm", M, ctx)
+    _kind_code(kind)
+    raise ValueError("fused_proj_norm: inputs the kernel does not take")
+
+
+def fused_norm_qkv_cuda(x, scale, bias, wqkv, bqkv=None, *, kind, eps):
+    """Launch ``norm_qkv_mma_kernel`` (bf16, fp16: the tensor cores, one
+    launch a pass of 8 rows) or ``norm_qkv_kernel`` (fp32): x [B, D] → [B, N]
+    in x's dtype, on the lean host path of :func:`.layer_norm.rms_norm_cuda`
+    (the raw stream, the device index to the C entry, the prototype bound
+    once, no ``torch.cuda.device`` and no ``torch.cuda.Stream``)."""
+    dev, dt = x.get_device(), x.dtype
+    code = KERNEL_DTYPES.get(dt)
+    shp = x.shape
+    wsh = wqkv.shape
+    if (code is None or dev < 0 or len(shp) != 2 or len(wsh) != 2
+            or not x.is_contiguous() or kind not in NORM_KINDS):
+        _refuse_norm_qkv(x, scale, bias, wqkv, bqkv, kind)
+    B, D = shp
+    N = wsh[1]
+    if not (scale is not None and _ok(scale, dev, dt, (D,)) and _ok(bias, dev, dt, (D,))
+            and _ok(wqkv, dev, dt, (D, N)) and _ok(bqkv, dev, dt, (N,))
+            and N % (16 // x.element_size()) == 0 and wqkv.data_ptr() % 16 == 0
+            and (min(B, _BATCH_PASS) * D * 4 <= _SMEM_LIMIT if code == 0 else
+                 D % 8 == 0 and _aligned(x, scale, bias))):
+        _refuse_norm_qkv(x, scale, bias, wqkv, bqkv, kind)
+    out = x.new_empty((B, N))
+    stream = raw_stream(dev)
+    err = bind("decode", "ds_fused_norm_qkv", _NORM_QKV_ARGS)(
+        x.data_ptr(), scale.data_ptr(), _ptr(bias), wqkv.data_ptr(),
+        _ptr(bqkv), out.data_ptr(),
+        _gemv_workspace(dev, stream, code, B, D, N, 0), _tickets(dev, stream),
+        B, D, N, NORM_KINDS[kind], eps, code, stream, dev)
+    if err:
+        check_launch(load_library("decode"), "fused_norm_qkv", err)
     fused_norm_qkv.launches += 1
     return out
 
@@ -446,33 +558,35 @@ def flash_decode_contig_cuda(q, kcache, vcache, pos, *, scale, layer=None,
 
 def fused_proj_norm_cuda(ctx, resid, wo, bo, scale, bias, *, kind, eps,
                          parallel):
-    """Launch ``proj_norm_kernel``: returns (r, h), both [B, D]."""
-    check_kernel_input("fused_proj_norm ctx", ctx, ctx.device)
-    if ctx.dim() != 2 or wo.dim() != 2:
-        raise ValueError(f"fused_proj_norm: ctx [B, M] and wo [M, D], got "
-                         f"{tuple(ctx.shape)} and {tuple(wo.shape)}")
-    B, M = ctx.shape
-    D = wo.shape[1]
-    _check("fused_proj_norm resid", resid, ctx, (B, D))
-    _check("fused_proj_norm wo", wo, ctx, (M, D), vector=True)
-    _check("fused_proj_norm bo", bo, ctx, (D,))
-    _check("fused_proj_norm scale", scale, ctx, (D,))
-    _check("fused_proj_norm bias", bias, ctx, (D,))
-    _check_columns("fused_proj_norm", D, ctx)
-    _check_staged("fused_proj_norm", B, M, ctx)
-    code_kind = _kind_code(kind)
-    r = torch.empty((B, D), device=ctx.device, dtype=ctx.dtype)
-    h = torch.empty_like(r)
-    r32 = torch.empty((B, D), device=ctx.device, dtype=torch.float32)
-    built = _library()
-    with torch.cuda.device(ctx.device):
-        code = built.lib.ds_fused_proj_norm(
-            ctx.data_ptr(), resid.data_ptr(), wo.data_ptr(), _ptr(bo),
-            scale.data_ptr(), _ptr(bias), r.data_ptr(), h.data_ptr(),
-            r32.data_ptr(), _ticket(ctx.device).data_ptr(), B, M, D,
-            code_kind, float(eps), int(bool(parallel)),
-            KERNEL_DTYPES[ctx.dtype], _stream(ctx.device))
-    check_launch(built, "fused_proj_norm", code)
+    """Launch ``proj_norm_mma_kernel`` (bf16, fp16: the tensor cores, one
+    launch a pass of 8 rows) or ``proj_norm_kernel`` (fp32): returns (r, h),
+    both [B, D], on the lean host path of :func:`fused_norm_qkv_cuda`."""
+    dev, dt = ctx.get_device(), ctx.dtype
+    code = KERNEL_DTYPES.get(dt)
+    shp = ctx.shape
+    wsh = wo.shape
+    if (code is None or dev < 0 or len(shp) != 2 or len(wsh) != 2
+            or not ctx.is_contiguous() or kind not in NORM_KINDS):
+        _refuse_proj_norm(ctx, resid, wo, bo, scale, bias, kind)
+    B, M = shp
+    D = wsh[1]
+    if not (_ok(resid, dev, dt, (B, D)) and _ok(wo, dev, dt, (M, D))
+            and _ok(bo, dev, dt, (D,)) and scale is not None
+            and _ok(scale, dev, dt, (D,)) and _ok(bias, dev, dt, (D,))
+            and D % (16 // ctx.element_size()) == 0 and wo.data_ptr() % 16 == 0
+            and (min(B, _BATCH_PASS) * M * 4 <= _SMEM_LIMIT if code == 0 else
+                 M % 8 == 0 and ctx.data_ptr() % 16 == 0)):
+        _refuse_proj_norm(ctx, resid, wo, bo, scale, bias, kind)
+    r = ctx.new_empty((B, D))
+    h = ctx.new_empty((B, D))
+    stream = raw_stream(dev)
+    err = bind("decode", "ds_fused_proj_norm", _PROJ_NORM_ARGS)(
+        ctx.data_ptr(), resid.data_ptr(), wo.data_ptr(), _ptr(bo),
+        scale.data_ptr(), _ptr(bias), r.data_ptr(), h.data_ptr(),
+        _gemv_workspace(dev, stream, code, B, M, D, 1), _tickets(dev, stream),
+        B, M, D, NORM_KINDS[kind], eps, int(bool(parallel)), code, stream, dev)
+    if err:
+        check_launch(load_library("decode"), "fused_proj_norm", err)
     fused_proj_norm.launches += 1
     return r, h
 
@@ -528,14 +642,14 @@ def fused_norm_qkv_int8_cuda(x, scale, bias, wqkv, wscale, bqkv=None, *,
     _check("fused_norm_qkv bqkv", bqkv, x, (N,))
     _check_staged("fused_norm_qkv", B, D, x)
     code_kind = _kind_code(kind)
-    out = torch.empty((B, N), device=x.device, dtype=x.dtype)
-    built = _library()
-    with torch.cuda.device(x.device):
-        code = built.lib.ds_fused_norm_qkv_int8(
-            x.data_ptr(), scale.data_ptr(), _ptr(bias), wqkv.data_ptr(),
-            wscale.data_ptr(), _ptr(bqkv), out.data_ptr(), B, D, N,
-            code_kind, float(eps), _stream(x.device))
-    check_launch(built, "fused_norm_qkv (int8)", code)
+    out = x.new_empty((B, N))
+    dev = x.get_device()
+    err = bind("decode", "ds_fused_norm_qkv_int8", _NORM_QKV_INT8_ARGS)(
+        x.data_ptr(), scale.data_ptr(), _ptr(bias), wqkv.data_ptr(),
+        wscale.data_ptr(), _ptr(bqkv), out.data_ptr(), B, D, N, code_kind,
+        float(eps), raw_stream(dev), dev)
+    if err:
+        check_launch(load_library("decode"), "fused_norm_qkv (int8)", err)
     fused_norm_qkv_int8_cuda.launches += 1
     return out
 
@@ -556,17 +670,17 @@ def fused_proj_norm_int8_cuda(ctx, resid, wo, wscale, bo, scale, bias, *,
     _check("fused_proj_norm bias", bias, ctx, (D,))
     _check_staged("fused_proj_norm", B, M, ctx)
     code_kind = _kind_code(kind)
-    r = torch.empty((B, D), device=ctx.device, dtype=ctx.dtype)
-    h = torch.empty_like(r)
-    r32 = torch.empty((B, D), device=ctx.device, dtype=torch.float32)
-    built = _library()
-    with torch.cuda.device(ctx.device):
-        code = built.lib.ds_fused_proj_norm_int8(
-            ctx.data_ptr(), resid.data_ptr(), wo.data_ptr(), wscale.data_ptr(),
-            _ptr(bo), scale.data_ptr(), _ptr(bias), r.data_ptr(), h.data_ptr(),
-            r32.data_ptr(), _ticket(ctx.device).data_ptr(), B, M, D,
-            code_kind, float(eps), int(bool(parallel)), _stream(ctx.device))
-    check_launch(built, "fused_proj_norm (int8)", code)
+    r = ctx.new_empty((B, D))
+    h = ctx.new_empty((B, D))
+    dev = ctx.get_device()
+    stream = raw_stream(dev)
+    err = bind("decode", "ds_fused_proj_norm_int8", _PROJ_NORM_INT8_ARGS)(
+        ctx.data_ptr(), resid.data_ptr(), wo.data_ptr(), wscale.data_ptr(),
+        _ptr(bo), scale.data_ptr(), _ptr(bias), r.data_ptr(), h.data_ptr(),
+        _workspace(dev, stream, B * D * 4), _tickets(dev, stream), B, M, D,
+        code_kind, float(eps), int(bool(parallel)), stream, dev)
+    if err:
+        check_launch(load_library("decode"), "fused_proj_norm (int8)", err)
     fused_proj_norm_int8_cuda.launches += 1
     return r, h
 
@@ -606,17 +720,13 @@ def fused_mlp_int8_cuda(h, r, w_up, w_down, w_gate, wscales, b_up=None,
             "decode", "ds_fused_mlp_int8_workspace", [_I] * 4, _L)(D, F, glu,
                                                                   dev)
     stream = raw_stream(dev)
-    ticket = _Q8_TICKETS.get((dev, stream))
-    if ticket is None:
-        ticket = _Q8_TICKETS[(dev, stream)] = torch.zeros(
-            _Q8_MAX_TILES, dtype=torch.int32, device=h.device)
     work = torch.empty(nbytes, dtype=torch.uint8, device=h.device)
     out = torch.empty_like(h)
     code = bind("decode", "ds_fused_mlp_int8", _Q8_ARGS)(
         h.data_ptr(), r.data_ptr(), w_up.data_ptr(), _ptr(w_gate),
         w_down.data_ptr(), su.data_ptr(), sg.data_ptr() if glu else None,
         sd.data_ptr(), _ptr(b_up), _ptr(b_gate), _ptr(b_down),
-        work.data_ptr(), ticket.data_ptr(), out.data_ptr(), B, D, F,
+        work.data_ptr(), _tickets(dev, stream), out.data_ptr(), B, D, F,
         ACTIVATIONS[act], stream, dev)
     if code:
         check_launch(load_library("decode"), "fused_mlp (int8)", code)

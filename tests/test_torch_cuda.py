@@ -45,7 +45,12 @@ from deepspeed_tpu_torch.ops.kernels import rope as trope
 from deepspeed_tpu_torch.ops.kernels import softmax as tsm
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 2.5e-3}
-GEMV_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# fp16 GEMVs: the bf16 bound over 8, as the other fp16 bounds.  fp16 rounds
+# at 2^-11 relative, so an output differs from the plain version by about
+# one fp16 ulp (at most 2^-10 relative) where the two fp32 sums straddle a
+# rounding boundary, and the normalised rows rounded to fp16 before the
+# product move a sum by less; rtol 2.5e-3 is about 2.5 ulps.
+GEMV_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2.5e-3}
 ATTN_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2, torch.float16: 2.5e-3}
 # the flash output's relative Frobenius error, and the gradients'
 O_REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 1.25e-3}
@@ -208,11 +213,16 @@ def _counted(fn, *args, **kw):
     return out
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("B,D,N,kind,bias", [
     (8, 4096, 6144, "rmsnorm", False),      # llama3-8b decode
+    (8, 1600, 4800, "layernorm", True),     # gpt2-xl decode
     (3, 256, 768, "layernorm", True),
+    (8, 4096, 1024, "rmsnorm", False),      # the path's D over a split contraction
     (11, 128, 64, "rmsnorm", True),         # two batch passes, one tile
+    (12, 1024, 512, "layernorm", True),     # two passes meet the split merge
+    (2, 64, 25600, "rmsnorm", True),        # more column tiles than resident
+                                            # blocks: the even grid
     (1, 96, 40, "layernorm", False)])       # a ragged last tile
 def test_fused_norm_qkv_kernel_matches_plain(cuda_device, dtype, B, D, N,
                                              kind, bias):
@@ -226,13 +236,21 @@ def test_fused_norm_qkv_kernel_matches_plain(cuda_device, dtype, B, D, N,
     want = tdec._norm_qkv_ref(x, scale, nb, w, bq, kind=kind, eps=1e-5)
     assert got.dtype == dtype and got.shape == (B, N)
     _close(got, want, GEMV_TOL[dtype])
+    # the split contraction's partials are merged in a fixed order: the
+    # same inputs give the same bits
+    assert torch.equal(got, tdec.fused_norm_qkv(x, scale, nb, w, bq,
+                                                kind=kind, eps=1e-5))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("B,M,D,kind,parallel,bias", [
     (8, 4096, 4096, "rmsnorm", False, False),   # llama3-8b decode
+    (8, 1600, 1600, "layernorm", False, True),  # gpt2-xl decode
     (3, 192, 256, "layernorm", False, True),
     (10, 128, 96, "layernorm", True, True),
+    (12, 512, 256, "rmsnorm", False, True),     # two passes meet the split merge
+    (9, 96, 8704, "layernorm", False, True),    # more column tiles than SMs:
+                                                # the even grid, cooperative
     (2, 64, 32, "rmsnorm", True, False)])
 def test_fused_proj_norm_kernel_matches_plain(cuda_device, dtype, B, M, D,
                                               kind, parallel, bias):
@@ -252,6 +270,71 @@ def test_fused_proj_norm_kernel_matches_plain(cuda_device, dtype, B, M, D,
     r2, h2 = tdec.fused_proj_norm(ctx, resid, wo, bo, scale, nb, kind=kind,
                                   eps=1e-5, parallel=parallel)
     assert torch.equal(r, r2) and torch.equal(h, h2)
+
+
+def test_gemvs_launch_on_the_current_stream(cuda_device):
+    """The lean host path of fused_norm_qkv and fused_proj_norm (bf16, the
+    tensor cores): under torch.cuda.stream(s), behind a long sleep on s, the
+    inputs are written on s and both kernels read them there, with their
+    scratch and tickets kept for s."""
+    dt = torch.bfloat16
+    src = _randn((8, 1600), 0, dt, cuda_device, 2.0)
+    scale = _randn((1600,), 1, dt, cuda_device) * 0.1 + 1
+    w = _randn((1600, 4800), 2, dt, cuda_device, 1600 ** -0.5)
+    wo = _randn((1600, 1600), 3, dt, cuda_device, 1600 ** -0.5)
+    x = torch.zeros_like(src)
+    torch.cuda.synchronize()
+    s = torch.cuda.Stream()
+    with torch.cuda.stream(s):
+        torch.cuda._sleep(50_000_000)
+        x.copy_(src)
+        y = _counted(tdec.fused_norm_qkv, x, scale, None, w, kind="rmsnorm",
+                     eps=1e-5)
+        r, h = _counted(tdec.fused_proj_norm, x, x, wo, None, scale,
+                        kind="rmsnorm", eps=1e-5)
+        done = s.record_event()
+    done.synchronize()
+    want = tdec._norm_qkv_ref(src, scale, torch.zeros_like(scale), w, None,
+                              kind="rmsnorm", eps=1e-5)
+    wr, wh = tdec._proj_norm_ref(src, src, wo, None, scale,
+                                 torch.zeros_like(scale), kind="rmsnorm",
+                                 eps=1e-5, parallel=False)
+    for got, ref in ((y, want), (r, wr), (h, wh)):
+        _close(got, ref, GEMV_TOL[dt])
+
+
+def test_gemvs_lean_path_keeps_every_refusal(cuda_device):
+    """The lean test falls back on the full checks, so each refusal raises
+    its own error and launches nothing; bf16 and fp16 add a contraction of
+    whole 16-byte vectors and 16-byte aligned activations."""
+    dev, dt = cuda_device, torch.bfloat16
+    x = torch.ones(2, 64, device=dev, dtype=dt)
+    s = torch.ones(64, device=dev, dtype=dt)
+    w = torch.ones(64, 64, device=dev, dtype=dt)
+    before = (tdec.fused_norm_qkv.launches, tdec.fused_proj_norm.launches)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tdec.fused_norm_qkv(torch.ones(2, 60, device=dev, dtype=dt),
+                            torch.ones(60, device=dev, dtype=dt), None,
+                            torch.ones(60, 64, device=dev, dtype=dt),
+                            kind="rmsnorm")
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tdec.fused_proj_norm(torch.ones(2, 60, device=dev, dtype=dt), x,
+                             torch.ones(60, 64, device=dev, dtype=dt), None, s,
+                             kind="rmsnorm")
+    with pytest.raises(ValueError, match="aligned"):
+        tdec.fused_norm_qkv(torch.ones(2 * 64 + 1, device=dev, dtype=dt)[1:]
+                            .view(2, 64), s, None, w, kind="rmsnorm")
+    with pytest.raises(ValueError, match="aligned"):
+        tdec.fused_norm_qkv(x, s, torch.ones(65, device=dev, dtype=dt)[1:],
+                            w, kind="layernorm")
+    with pytest.raises(TypeError, match="expected dtype"):
+        tdec.fused_proj_norm(x, x.half(), w, None, s, kind="rmsnorm")
+    with pytest.raises(ValueError, match="expected a tensor on"):
+        tdec.fused_norm_qkv(x, s.cpu(), None, w, kind="rmsnorm")
+    with pytest.raises(ValueError, match="norm kind"):
+        tdec.fused_proj_norm(x, x, w, None, s, kind="batchnorm")
+    assert (tdec.fused_norm_qkv.launches,
+            tdec.fused_proj_norm.launches) == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

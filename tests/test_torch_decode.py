@@ -7,9 +7,14 @@ runs its plain version; the JAX side runs its jnp reference
 
 Tolerances: fp32 2e-5 for the projections (fp32 sums of up to 512
 products in another order, the bound tests/unit/test_fused_decode.py holds
-the Pallas kernels to) and 2e-4 for attention (an online softmax against a
-dense one, as there); bf16 2e-2 (one bf16 rounding of each output, and of
-the normalised rows or the activation before a product).
+the Pallas kernels to; 1e-4 at gpt2-xl's width, sums of 1600 products, as
+the card tests hold the kernels) and 2e-4 for attention (an online softmax
+against a dense one, as there); bf16 2e-2 (one bf16 rounding of each
+output, and of the normalised rows or the activation before a product);
+fp16 2.5e-3, the bf16 bound over 8 (fp16 keeps three more mantissa bits:
+one rounding of each output is at most 2^-11 relative, and a normalised
+row rounded to fp16 before the product moves a sum by about one fp16 ulp
+of it).
 """
 
 import jax
@@ -26,10 +31,12 @@ from deepspeed_tpu_torch.models import fused_decode as tfd
 from deepspeed_tpu_torch.models import jax_params_to_torch
 from deepspeed_tpu_torch.ops.kernels import decode as tdec
 
-TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+TOL = {"float32": 2e-5, "bfloat16": 2e-2, "float16": 2.5e-3}
+WIDE_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 ATTN_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
-JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
-TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16, "float16": jnp.float16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+       "float16": torch.float16}
 
 
 def _pair(a, dtype):
@@ -50,7 +57,7 @@ def _close(j, t, tol):
 
 
 @pytest.mark.parametrize("impl", ["xla", "interpret"])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("kind", ["rmsnorm", "layernorm"])
 @pytest.mark.parametrize("with_bias", [True, False])
 def test_fused_norm_qkv_matches_jax(impl, dtype, kind, with_bias):
@@ -72,7 +79,7 @@ def test_fused_norm_qkv_matches_jax(impl, dtype, kind, with_bias):
 
 
 @pytest.mark.parametrize("impl", ["xla", "interpret"])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("kind,parallel", [("rmsnorm", False),
                                            ("layernorm", False),
                                            ("rmsnorm", True),
@@ -95,6 +102,46 @@ def test_fused_proj_norm_matches_jax(impl, dtype, kind, parallel, with_bias):
     assert tr.dtype == th.dtype == TDT[dtype]
     _close(jr, tr, TOL[dtype])
     _close(jh, th, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_norm_qkv_matches_jax_at_gpt2_xl_width(dtype):
+    """gpt2-xl's decode step: 8 rows of 1600, LayerNorm with a bias, the QKV
+    bias."""
+    rng = np.random.default_rng(2)
+    B, D, N = 8, 1600, 4800
+    x = _rand(rng, B, D, scale=2.0)
+    scale = 1.0 + _rand(rng, D, scale=0.1)
+    bias = _rand(rng, D)
+    w = _rand(rng, D, N, scale=D ** -0.5)
+    bq = _rand(rng, N)
+    args = [_pair(a, dtype) for a in (x, scale, bias, w, bq)]
+    want = jdec.fused_norm_qkv(*[a[0] for a in args], kind="layernorm",
+                               eps=1e-5, impl="xla")
+    got = tdec.fused_norm_qkv(*[a[1] for a in args], kind="layernorm",
+                              eps=1e-5)
+    _close(want, got, WIDE_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_proj_norm_matches_jax_at_gpt2_xl_width(dtype):
+    """gpt2-xl's out-projection and MLP norm: ctx [8, 1600] @ [1600, 1600],
+    the projection's bias, LayerNorm with a bias."""
+    rng = np.random.default_rng(3)
+    B, M, D = 8, 1600, 1600
+    ctx = _rand(rng, B, M)
+    resid = _rand(rng, B, D, scale=2.0)
+    wo = _rand(rng, M, D, scale=M ** -0.5)
+    bo = _rand(rng, D)
+    scale = 1.0 + _rand(rng, D, scale=0.1)
+    bias = _rand(rng, D)
+    args = [_pair(a, dtype) for a in (ctx, resid, wo, bo, scale, bias)]
+    jr, jh = jdec.fused_proj_norm(*[a[0] for a in args], kind="layernorm",
+                                  eps=1e-5, parallel=False, impl="xla")
+    tr, th = tdec.fused_proj_norm(*[a[1] for a in args], kind="layernorm",
+                                  eps=1e-5, parallel=False)
+    _close(jr, tr, WIDE_TOL[dtype])
+    _close(jh, th, WIDE_TOL[dtype])
 
 
 def _mlp_inputs(rng, B, D, F, glu, with_bias):
