@@ -22,8 +22,10 @@ Needs one CUDA card, nvcc and triton; imports nothing of JAX.  Phases
              path's shapes, fp32 and bf16 (and fp16 for the kernels of the
              fp16 training path and for the tensor-core norm_qkv and
              proj_norm, bit-equal on a repeat), with the tolerances of TOL below
-             (the flash-decode kernel at depths 1..1024 across page
-             boundaries, a shuffled page table, 256- and 16-token pages),
+             (the flash-decode kernel in fp32, bf16 and fp16 at depths
+             1..1024 across page boundaries and on its chunk edges, 2047 keys
+             of a 2048-token window, a shuffled page table, 256- and 16-token
+             pages, bit-equal on a repeat),
              then CUDA-event timings (median of 50 samples of 20 calls;
              the GEMV kernels cycle through enough weight copies to miss
              the 50 MB L2, as 32 layers do; RoPE also at the training
@@ -33,7 +35,11 @@ Needs one CUDA card, nvcc and triton; imports nothing of JAX.  Phases
              GEMV kernels, and the bound (norm_qkv and proj_norm also at
              gpt2-xl's shapes, each with its share of the bound, its host
              time a call, and ptxas's registers, shared memory and spills
-             of their tensor-core kernels); then the four training kernels
+             of their tensor-core kernels; the paged flash-decode at the serve
+             profile's depths, at 300 and 2048 keys and at gpt2-xl's heads,
+             each beside its own bound, its device time a launch after a
+             128 MB read (L2 cold) and its host time a call, and ptxas's
+             registers and spills of its instances); then the four training kernels
              at llama-1b4's training shapes (flash attention fwd and bwd
              on [4, 16, 2048, 128], RMSNorm bwd on [8192, 2048], Adam over
              a [24, 2048, 5632] leaf, three steps), fp32 and bf16, plus a
@@ -80,13 +86,15 @@ Needs one CUDA card, nvcc and triton; imports nothing of JAX.  Phases
              and their timings beside the plain versions and the bound
              (PyTorch has no call for these functions); then generate()'s
              kernels: flash_decode over the contiguous [2, 8, Hkv, Smax,
-             Dh] cache at layer 1 (Smax 512, 1025 and 64, depths 1..Smax-1
-             as one scalar and one a row, fp32 and bf16, ALiBi, gpt2-xl's
-             25 heads of 64) and the int8 bodies of the three GEMVs (bf16,
+             Dh] cache at layer 1 (Smax 512, 1025, 64 and 2048, depths
+             1..Smax as one scalar and one a row and on the chunk edges,
+             fp32, bf16 and fp16, ALiBi, gpt2-xl's 25 heads of 64,
+             bit-equal on a repeat) and the int8 bodies of the three GEMVs (bf16,
              at llama3-8b's shapes, gpt2-xl's branches and a ragged N; the
              tensor-core int8 MLP also at 1 and 12 rows and bit-equal on a
-             repeat), timed beside the plain version, SDPA (contiguous
-             flash_decode, 264 deep in a 512 cache) or ``torch.matmul`` of a
+             repeat), timed beside the plain version, SDPA on the same cold
+             work (contiguous flash_decode, 264 deep in a 512 cache and 2048
+             in a 2048 cache, K/V cycled through > 100 MB) or ``torch.matmul`` of a
              bf16 weight (the int8 GEMVs' yardstick) and the bound; the int8
              MLP's device time split between its two launches, at llama3-8b's
              and gpt2-xl's shapes, with ptxas's registers for its kernels;
@@ -202,6 +210,10 @@ GEMV_TOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 2.5e-3}
 ATTN_TOL = {"float32": 2e-4, "bfloat16": 2e-2, "float16": 2.5e-3}
 # llama3-8b decode shapes: 8 slots
 B, D, H, HKV, DH, F = 8, 4096, 32, 8, 128, 14336
+# the serve phases' prompt lengths; the profiled wave: each prompt cut to
+# PROFILE_PROMPT tokens, PROFILE_NEW new
+SERVE_LENS = (17, 45, 64, 100, 128, 180, 256, 300)
+PROFILE_PROMPT, PROFILE_NEW = 40, 24
 NQKV = (H + 2 * HKV) * DH
 
 
@@ -484,16 +496,19 @@ def decode_inputs(torch, dev, gen, dt, copies=1, model="llama3-8b"):
     }
 
 
-def paged_inputs(torch, dev, gen, dt, page, pos, layers=2, model="llama3-8b"):
+def paged_inputs(torch, dev, gen, dt, page, pos, layers=2, model="llama3-8b",
+                 window=1024):
     """A stacked [layers, P, Hkv, page, Dh] pool behind a shuffled page table
-    with a 1024-token window per slot, q [B, H, Dh], and pos [B]."""
+    with a ``window``-token window per slot (the serve pool's 1024), q
+    [B, H, Dh], and pos [B]; with ``layers`` None an unstacked pool."""
     import numpy as np
 
     m = DECODE_MODELS[model]
-    maxp = 1024 // page
+    maxp = window // page
     P = B * maxp + 1
-    k = _randn(torch, (layers, P, m["HKV"], page, m["DH"]), gen, dev).to(dt)
-    v = _randn(torch, (layers, P, m["HKV"], page, m["DH"]), gen, dev).to(dt)
+    lead = () if layers is None else (layers,)
+    k = _randn(torch, lead + (P, m["HKV"], page, m["DH"]), gen, dev).to(dt)
+    v = _randn(torch, lead + (P, m["HKV"], page, m["DH"]), gen, dev).to(dt)
     perm = np.random.default_rng(page).permutation(B * maxp) + 1
     table = torch.from_numpy(perm.reshape(B, maxp)).to(dev)
     q = _randn(torch, (B, m["H"], m["DH"]), gen, dev).to(dt)
@@ -505,7 +520,9 @@ def check_decode_kernels(torch, dev, gen, model):
     ``model``'s path shapes and branches (norm kind, activation, gate or
     none, heads per KV head), fp32 and bf16, and fp16 for the two GEMVs on
     the tensor cores (norm_qkv and proj_norm, two calls bit-equal in bf16
-    and fp16); returns the bf16 max abs errors."""
+    and fp16) and for flash_decode (every dtype: depths across pages and on
+    its chunk edges, 2047 keys of a 2048 window, two calls bit-equal);
+    returns the bf16 max abs errors."""
     from deepspeed_tpu_torch.ops.kernels import decode as dk
 
     m = DECODE_MODELS[model]
@@ -549,47 +566,68 @@ def check_decode_kernels(torch, dev, gen, model):
             if not (torch.equal(y, y2) and torch.equal(r, r2) and torch.equal(h, h2)):
                 raise AssertionError(f"norm_qkv / proj_norm {model} {dtype_name}: "
                                      "two calls differ")
-        if dtype_name == "float16":
-            print(f"decode GEMVs vs plain at {model}'s shapes, float16 (tensor "
-                  f"cores) within 2.5e-3, bit-equal on a repeat: max abs err "
-                  f"norm_qkv {out['fused_norm_qkv']:.3g}, proj_norm "
-                  f"{out['fused_proj_norm']:.3g}")
-            del t, wqkv, wo, wu, wg, wd
-            continue
-        y = dk.fused_mlp_cuda(t["h"], t["resid"], wu, wd, wg, act=act)
-        torch.cuda.synchronize()
-        out["fused_mlp"] = _assert_close(
-            torch, y, dk._mlp_ref(t["h"], t["resid"], wu, wg, wd, None, None,
-                                  None, act=act),
-            GEMV_TOL[dtype_name], f"fused_mlp {model} {dtype_name}")
+        if dtype_name != "float16":     # the FFMA MLP: fp32 and bf16
+            y = dk.fused_mlp_cuda(t["h"], t["resid"], wu, wd, wg, act=act)
+            torch.cuda.synchronize()
+            out["fused_mlp"] = _assert_close(
+                torch, y, dk._mlp_ref(t["h"], t["resid"], wu, wg, wd, None,
+                                      None, None, act=act),
+                GEMV_TOL[dtype_name], f"fused_mlp {model} {dtype_name}")
         del t, wqkv, wo, wu, wg, wd
-        # depths 1..1024 (pos 0..1023) across page boundaries
+        # depths 1..1024 (pos 0..1023) across page boundaries and on the
+        # chunk edges (C - 1, C, C + 1 keys); the ordered merge: same bits
+        C = dk.fd_chunk(dh, torch.empty(0, dtype=dt).element_size())
         fd = 0.0
         for page in (256, 16):
             for alibi in (False, True):
                 q, k, v, pos, table = paged_inputs(
                     torch, dev, gen, dt, page,
-                    [0, 254, 255, 256, 299, 300, 1022, 1023], model=model)
+                    [0, 254, 255, 256, 299, 300, 1022, 1023] if alibi else
+                    [C - 2, C - 1, C, 2 * C, 3 * C + 1, 511, 1022, 1023],
+                    model=model)
                 for layer in (0, 1):
                     y = dk.flash_decode_paged_cuda(
                         q, k, v, pos, table, scale=dh ** -0.5, layer=layer,
                         alibi=alibi)
                     torch.cuda.synchronize()
+                    what = (f"flash_decode {model} {dtype_name} page {page} "
+                            f"alibi {alibi} layer {layer}")
                     fd = max(fd, _assert_close(
                         torch, y, dk._flash_decode_paged_ref(
                             q, k, v, pos, table, scale=dh ** -0.5,
                             layer=layer, alibi=alibi),
-                        ATTN_TOL[dtype_name],
-                        f"flash_decode {model} {dtype_name} page {page} "
-                        f"alibi {alibi} layer {layer}"))
+                        ATTN_TOL[dtype_name], what))
+                    check(torch.equal(y, dk.flash_decode_paged_cuda(
+                        q, k, v, pos, table, scale=dh ** -0.5, layer=layer,
+                        alibi=alibi)), f"{what}: two calls differ")
+                del q, k, v
+        # 2047 keys in a 2048-slot window of 256-token pages
+        q, k, v, pos, table = paged_inputs(torch, dev, gen, dt, 256,
+                                           [2046] * B, layers=None, model=model,
+                                           window=2048)
+        y = dk.flash_decode_paged_cuda(q, k, v, pos, table, scale=dh ** -0.5)
+        torch.cuda.synchronize()
+        fd = max(fd, _assert_close(
+            torch, y, dk._flash_decode_paged_ref(
+                q, k, v, pos, table, scale=dh ** -0.5, layer=None,
+                alibi=False),
+            ATTN_TOL[dtype_name], f"flash_decode {model} {dtype_name} 2047 "
+            f"keys"))
+        del q, k, v
         out["flash_decode"] = fd
+        if dtype_name == "float16":
+            print(f"decode kernels vs plain at {model}'s shapes, float16 within "
+                  f"2.5e-3 (norm_qkv, proj_norm on the tensor cores and "
+                  f"flash_decode bit-equal on a repeat): max abs err norm_qkv "
+                  f"{out['fused_norm_qkv']:.3g}, proj_norm "
+                  f"{out['fused_proj_norm']:.3g}, flash_decode {fd:.3g}")
         if bf:
             errs = out
     print(f"decode kernels vs plain at {model}'s shapes (D {m['D']}, "
           f"{m['H']}/{m['HKV']} heads of {dh}, F {m['F']}, {kind}, {act}"
           f"{' gated' if m['glu'] else ', no gate'}): fp32 GEMV within 1e-4, "
-          "attention 2e-4, bf16 within 2e-2 (norm_qkv and proj_norm bit-equal "
-          "on a repeat); bf16 max abs err " + ", ".join(
+          "attention 2e-4, bf16 within 2e-2 (norm_qkv, proj_norm and "
+          "flash_decode bit-equal on a repeat); bf16 max abs err " + ", ".join(
               f"{k} {v:.3g}" for k, v in errs.items()))
     return errs
 
@@ -749,9 +787,10 @@ def time_old_kernels(torch, dev, gen, errs):
 
 def time_decode_kernels(torch, dev, gen, errs):
     """bf16 at the llama3-8b decode shapes (norm_qkv and proj_norm also at
-    gpt2-xl's, with their host time a call: gemv16_times).  The GEMV
-    kernels cycle through weight copies totalling > 100 MB, so each call
-    streams its weights from HBM as the 32-layer path does."""
+    gpt2-xl's, with their host time a call: gemv16_times; the paged
+    flash_decode: flash_decode_paged_times).  The GEMV kernels cycle
+    through weight copies totalling > 100 MB, so each call streams its
+    weights from HBM as the 32-layer path does."""
     from deepspeed_tpu_torch.ops.kernels import decode as dk
 
     bf = torch.bfloat16
@@ -820,24 +859,14 @@ def time_decode_kernels(torch, dev, gen, errs):
         "max_abs_err": errs["fused_mlp"]}
     del t, wu, wg, wd
 
-    # flash_decode: 8 slots 300 deep, 256-token pages (the serve cell's
-    # pool), layer 1 of a stacked pool; the bound counts the K/V rows this
-    # data needs (keys 0..pos of each slot)
-    q, k, v, pos, table = paged_inputs(torch, dev, gen, bf, 256, [299] * B)
-    keys = int((pos + 1).sum())
-    nbytes = (2 * q.numel() + 2 * keys * HKV * DH) * 2 + 8 * (
-        pos.numel() + B * ((int(pos.max()) // 256) + 1))
-    b_ms, b_by = bound_ms(nbytes, 4 * keys * H * DH, BF16_FLOPS_PER_S)
-    out["flash_decode"] = {
-        "shape": "q[8,32,128], 8 slots x 300 keys, 256-token pages, bf16",
-        "ms": time_ms(torch, lambda: dk.flash_decode_paged_cuda(
-            q, k, v, pos, table, scale=DH ** -0.5, layer=1)),
-        "plain_ms": time_ms(torch, lambda: dk._flash_decode_paged_ref(
-            q, k, v, pos, table, scale=DH ** -0.5, layer=1, alibi=False)),
-        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-        "max_abs_err": errs["flash_decode"]}
     for name, b2 in gpt2_decode_bounds().items():
         out[name]["gpt2_bound_ms"] = b2
+    # flash_decode: its gpt2-xl bound at the serve profile's depths
+    out["flash_decode"] = flash_decode_paged_times(torch, dev, gen)
+    out["flash_decode"]["max_abs_err"] = errs["flash_decode"]
+    out["flash_decode"]["ptxas"] = flash_decode_ptxas()
+    for ln in out["flash_decode"]["ptxas"]:
+        print(f"  ptxas {ln}")
     for k in ("fused_norm_qkv", "fused_proj_norm"):
         r = out[k]
         r["bound_share"] = r["bound_ms"] / r["ms"]
@@ -848,6 +877,190 @@ def time_decode_kernels(torch, dev, gen, errs):
               f"bound {r['gpt2_bound_ms']:.6f} ms ({100 * r['gpt2_bound_share']:.1f} "
               f"% of it), host {r['gpt2_host_us']:.3f} us")
     return out
+
+
+def fd_bound(keys, m, pages=0, esz=2):
+    """The bound of one flash_decode call over rows attending ``keys`` keys
+    each at ``model``'s heads: q read and out written once, each K/V row up
+    to each depth read once, the depths and the page-table entries read
+    (8 bytes each); 4 flops a key and head dim (QK^T, PV)."""
+    n = sum(keys)
+    nbytes = (2 * len(keys) * m["H"] * m["DH"] + 2 * n * m["HKV"] * m["DH"]) * esz \
+        + 8 * (len(keys) + pages)
+    return bound_ms(nbytes, 4 * n * m["H"] * m["DH"], BF16_FLOPS_PER_S)
+
+
+def serve_profile_keys():
+    """Keys each slot attends halfway through the serve profile's decode
+    (``phase_profile``: the prompts cut to PROFILE_PROMPT tokens, then
+    PROFILE_NEW new): the depth its flash_decode device time is read at."""
+    return [min(n, PROFILE_PROMPT) + PROFILE_NEW // 2 for n in SERVE_LENS]
+
+
+def cold_device_us(torch, call, what, flush, kernel="flash_decode_kernel"):
+    """Device us of one flash_decode launch under the profiler (mean of 50),
+    a 128 MB read (``flush``) before each, so that the launch finds its K/V
+    out of the L2 as on the path, and the L2 full of clean lines (a write
+    would leave dirty lines, whose write-back the launch would pay)."""
+    def flushed():
+        flush.sum()
+        return call()
+    return kernel_split(torch, flushed, (kernel,), what, calls=50)[kernel]
+
+
+def flash_decode_paged_times(torch, dev, gen, kernel="flash_decode_kernel"):
+    """The paged flash_decode, bf16, 256-token pages, at llama3-8b's heads:
+    at the serve profile's depths (``serve_profile_keys``: the row's main
+    shape, in a 1024-token window, the serve pool's) and at 300 keys, each
+    beside its own bound; at gpt2-xl's heads at the same depths; 2048 keys
+    in a 2048-token window; and at the profile's depths in a one-page
+    window, whose grid holds no block that returns at once (against the
+    1024 window's, the cost of those blocks).  "ms": a call under CUDA
+    events, each on the next of 8 stacked layers (K/V > 100 MB); "device_us":
+    a launch under the profiler after a 128 MB read (``cold_device_us``);
+    "bound_share": the bound over that device time; "host_us": the host's
+    time a call; ``kernel``: the kernel's name in the profile."""
+    from deepspeed_tpu_torch.ops.kernels import decode as dk
+
+    bf = torch.bfloat16
+    flush = torch.ones(32 << 20, dtype=torch.float32, device=dev)
+    keys = serve_profile_keys()
+    out = {"shape": f"q[8,32,128], 8 slots {keys[0]}/{keys[1]} keys deep "
+                    f"(the serve profile's), 256-token pages, 1024 window, bf16",
+           "library_ms": None}
+
+    def case(model, pos, window=1024, layers=8):
+        m = DECODE_MODELS[model]
+        q, k, v, p, table = paged_inputs(torch, dev, gen, bf, 256, pos,
+                                         layers=layers, model=model,
+                                         window=window)
+        nl = cycler(list(range(layers)))
+        sc = m["DH"] ** -0.5
+
+        def call():
+            return dk.flash_decode_paged_cuda(q, k, v, p, table, scale=sc,
+                                              layer=nl())
+        pages = sum(x // 256 + 1 for x in pos)
+        b_ms, b_by = fd_bound([x + 1 for x in pos], m, pages)
+        r = {"ms": time_ms(torch, call), "bound_ms": b_ms, "bound_by": b_by,
+             "device_us": cold_device_us(torch, call,
+                                         f"flash_decode paged {model} "
+                                         f"{max(pos) + 1} keys, window {window}",
+                                         flush, kernel)}
+        r["bound_share"] = r["bound_ms"] * 1e3 / r["device_us"]
+        return r, call, (q, k, v, p, table)
+
+    pos = [n - 1 for n in keys]
+    r, call, (q, k, v, p, table) = case("llama3-8b", pos)
+    out.update(r)
+    out["host_us"] = host_us(torch, call)
+    out["plain_ms"] = time_ms(torch, lambda: dk._flash_decode_paged_ref(
+        q, k, v, p, table, scale=DH ** -0.5, layer=1, alibi=False), samples=10)
+    del q, k, v
+    r, _, _ = case("llama3-8b", [299] * B)
+    out.update({f"{f}_300": x for f, x in r.items()})
+    r, call, _ = case("gpt2-xl", pos)
+    out.update({f"gpt2_{f}": x for f, x in r.items()})
+    out["gpt2_host_us"] = host_us(torch, call)
+    r, _, _ = case("llama3-8b", [2047] * B, window=2048, layers=2)
+    out.update({f"{f}_2048": x for f, x in r.items()})
+    r, _, _ = case("llama3-8b", pos, window=256)
+    out["one_page_device_us"] = r["device_us"]
+    print(f"time flash_decode paged bf16 (llama3-8b heads, device us a launch "
+          f"after a 128 MB read): serve depths {keys[0]}/{keys[1]} keys "
+          f"{out['device_us']:.2f} (bound {out['bound_ms'] * 1e3:.3f}, "
+          f"{100 * out['bound_share']:.1f} %; {out['one_page_device_us']:.2f} in "
+          f"a one-page window: no block returning at once), call "
+          f"{out['ms']:.5f} ms, host {out['host_us']:.3f} us; 300 keys "
+          f"{out['device_us_300']:.2f} (bound {out['bound_ms_300'] * 1e3:.3f}, "
+          f"{100 * out['bound_share_300']:.1f} %); 2048 keys "
+          f"{out['device_us_2048']:.2f} (bound {out['bound_ms_2048'] * 1e3:.3f}, "
+          f"{100 * out['bound_share_2048']:.1f} %); gpt2-xl heads "
+          f"{out['gpt2_device_us']:.2f} (bound {out['gpt2_bound_ms'] * 1e3:.3f}, "
+          f"{100 * out['gpt2_bound_share']:.1f} %), host "
+          f"{out['gpt2_host_us']:.3f} us")
+    return out
+
+
+def flash_decode_contig_times(torch, dev, gen, kernel="flash_decode_kernel"):
+    """The contiguous flash_decode, bf16, llama3-8b's heads: 8 rows 264 deep
+    in a 512-token cache (generate()'s cell: 200-token prompts, 64 new; the
+    row's main shape) and 2048 deep in a 2048-token cache, each call on the
+    next of 8 (2) stacked layers (K/V > 100 MB), beside the plain version
+    and SDPA on the same cold work (GQA; a boolean mask by position where
+    the depth is short of the cache), and the bound; "device_us", "host_us"
+    and "bound_share" as ``flash_decode_paged_times``."""
+    import torch.nn.functional as F_
+
+    from deepspeed_tpu_torch.ops.kernels import decode as dk
+
+    bf = torch.bfloat16
+    flush = torch.ones(32 << 20, dtype=torch.float32, device=dev)
+    m = DECODE_MODELS["llama3-8b"]
+    out = {}
+    for depth, Smax, layers, sfx in ((264, 512, 8, ""), (2048, 2048, 2, "_2048")):
+        k = _randn(torch, (layers, B, HKV, Smax, DH), gen, dev).to(bf)
+        v = _randn(torch, (layers, B, HKV, Smax, DH), gen, dev).to(bf)
+        q = _randn(torch, (B, H, DH), gen, dev).to(bf)
+        pos = depth - 1
+        nl = cycler(list(range(layers)))
+        mask = None if depth == Smax else (
+            torch.arange(Smax, device=dev) <= pos)[None, None, None, :] \
+            .expand(B, 1, 1, Smax)
+        q4 = q[:, :, None, :]
+
+        def call():
+            return dk.flash_decode_contig_cuda(q, k, v, pos, scale=DH ** -0.5,
+                                               layer=nl())
+
+        def library():
+            i = nl()
+            return F_.scaled_dot_product_attention(q4, k[i], v[i],
+                                                   attn_mask=mask,
+                                                   enable_gqa=True)
+        b_ms, b_by = fd_bound([depth] * B, m)
+        out.update({
+            "ms" + sfx: time_ms(torch, call),
+            "library_ms" + sfx: time_ms(torch, library),
+            "plain_ms" + sfx: time_ms(torch, lambda: dk._flash_decode_ref(
+                q, k[0], v[0], pos, scale=DH ** -0.5), samples=10),
+            "bound_ms" + sfx: b_ms, "bound_by" + sfx: b_by,
+            "device_us" + sfx: cold_device_us(
+                torch, call, f"flash_decode contiguous {depth} keys", flush,
+                kernel)})
+        out["bound_share" + sfx] = b_ms * 1e3 / out["device_us" + sfx]
+        if not sfx:
+            out["host_us"] = host_us(torch, call)
+        del k, v
+    out["shape"] = ("q[8,32,128], cache [8,8,8,512,128] cycled by layer, 264 "
+                    "deep, bf16")
+    print(f"time flash_decode contiguous bf16 (llama3-8b heads, device us a "
+          f"launch after a 128 MB read): 264 keys {out['device_us']:.2f} "
+          f"(bound {out['bound_ms'] * 1e3:.3f}, {100 * out['bound_share']:.1f} "
+          f"%), call {out['ms']:.5f} ms, SDPA {out['library_ms']:.5f} ms, host "
+          f"{out['host_us']:.3f} us; 2048 keys {out['device_us_2048']:.2f} "
+          f"(bound {out['bound_ms_2048'] * 1e3:.3f}, "
+          f"{100 * out['bound_share_2048']:.1f} %), call {out['ms_2048']:.5f} "
+          f"ms, SDPA {out['library_ms_2048']:.5f} ms")
+    return out
+
+
+def flash_decode_ptxas():
+    """ptxas's registers and spills of flash_decode_kernel, one line an
+    instantiation (dtype, query heads a block's registers hold)."""
+    from deepspeed_tpu_torch.ops.kernels import build
+
+    lines, entry = [], ""
+    for ln in build.load_library("decode").ptxas_info:
+        if "Compiling entry" in ln:
+            entry = ln
+        elif "flash_decode_kernel" in entry and ("Used" in ln or "spill" in ln):
+            m = re.search(r"flash_decode_kernelI(\w+?)Li(\d+)EE", entry)
+            ty = {"f": "fp32", "13__nv_bfloat16": "bf16", "6__half": "fp16"}.get(
+                m.group(1), m.group(1)) if m else ""
+            name = f"flash_decode_kernel<{ty}, {m.group(2)}>" if m else entry[:90]
+            lines.append(f"{name}: {ln.split(':')[-1].strip()}")
+    return lines
 
 
 def gemv16_times(torch, dev, gen, profile=False):
@@ -915,12 +1128,12 @@ def gemv16_ptxas():
     return lines
 
 
-def gpt2_decode_bounds(keys=64):
-    """The bounds of the four decode kernels at gpt2-xl's decode shapes, bf16,
+def gpt2_decode_bounds():
+    """The bounds of the three decode GEMVs at gpt2-xl's decode shapes, bf16,
     8 slots (LayerNorm with a bias, biases on every projection, a plain
-    tanh-GeLU MLP, 25 heads of 64 attending ``keys`` keys each: the served
-    wave's depth), counted as the llama3-8b rows count them: each input read
-    once, each output written once."""
+    tanh-GeLU MLP), counted as the llama3-8b rows count them: each input
+    read once, each output written once (flash_decode's:
+    ``flash_decode_paged_times``)."""
     m = DECODE_MODELS["gpt2-xl"]
     d, f, n = m["D"], m["F"], (m["H"] + 2 * m["HKV"]) * m["DH"]
     bf = 2
@@ -928,55 +1141,65 @@ def gpt2_decode_bounds(keys=64):
         "fused_norm_qkv": ((B * d + 2 * d + d * n + n + B * n) * bf, 2 * B * d * n),
         "fused_proj_norm": ((2 * B * d + d * d + 3 * d + 2 * B * d) * bf, 2 * B * d * d),
         "fused_mlp": ((2 * B * d + 2 * d * f + f + d + B * d) * bf, 4 * B * d * f),
-        "flash_decode": ((2 * B * m["H"] * m["DH"] + 2 * B * keys * m["HKV"] * m["DH"]) * bf,
-                         4 * B * keys * m["H"] * m["DH"]),
     }
     out = {name: bound_ms(nb, fl, BF16_FLOPS_PER_S)[0] for name, (nb, fl) in rows.items()}
-    print("gpt2-xl decode bounds (bf16, 8 slots, attention over "
-          f"{keys} keys): " + ", ".join(f"{k} {v:.6f} ms" for k, v in out.items()))
+    print("gpt2-xl decode bounds (bf16, 8 slots): " + ", ".join(
+        f"{k} {v:.6f} ms" for k, v in out.items()))
     return out
+
 
 def check_contig_decode(torch, dev, gen):
     """flash_decode over generate()'s contiguous cache against
     ``_flash_decode_ref``: llama3-8b's decode shape (8 rows, 32/8 heads of
     128) over a stacked [2, 8, 8, Smax, 128] cache read at layer 1, Smax
-    512, 1025 (generate()'s default bucket) and 64, depths 1..Smax - 1 as one
-    scalar and one a row, fp32 and bf16, once with ALiBi; then gpt2-xl's 25
-    heads of 64 (one query head a KV head).  Returns the bf16 max abs err."""
+    512, 1025 (generate()'s default bucket), 64 and 2048, depths 1..Smax as
+    one scalar and one a row, on the chunk edges (C - 1, C, C + 1 keys) and
+    2047 keys of the 2048 cache, fp32, bf16 and fp16, once with ALiBi; then
+    gpt2-xl's 25 heads of 64 (one query head a KV head).  Two calls give the
+    same bits.  Returns the bf16 max abs err."""
     from deepspeed_tpu_torch.ops.kernels import decode as dk
 
     err = 0.0
     cases = [("llama3-8b", 512, False), ("llama3-8b", 1025, False),
              ("llama3-8b", 64, False), ("llama3-8b", 1025, True),
-             ("gpt2-xl", 512, False)]
-    for dtype_name in ("float32", "bfloat16"):
+             ("llama3-8b", 2048, False), ("gpt2-xl", 512, False)]
+    for dtype_name in ("float32", "bfloat16", "float16"):
         dt = getattr(torch, dtype_name)
         for model, Smax, alibi in cases:
             m = DECODE_MODELS[model]
+            C = dk.fd_chunk(m["DH"], torch.empty(0, dtype=dt).element_size())
             k = _randn(torch, (2, B, m["HKV"], Smax, m["DH"]), gen, dev).to(dt)
             v = _randn(torch, (2, B, m["HKV"], Smax, m["DH"]), gen, dev).to(dt)
             q = _randn(torch, (B, m["H"], m["DH"]), gen, dev).to(dt)
             rows = torch.linspace(0, Smax - 2, B, device=dev).long()
-            for pos in (Smax - 2, Smax // 2, 0, rows):
+            edges = torch.tensor([C - 2, C - 1, C, 0, 2 * C, 3 * C - 1,
+                                  Smax - 2, Smax - 1], device=dev).clamp(
+                                      0, Smax - 1)
+            for pos in (Smax - 2, Smax // 2, 0, rows, C - 2, C - 1,
+                        min(C, Smax - 1), edges):
                 y = dk.flash_decode_contig_cuda(q, k, v, pos,
                                                 scale=m["DH"] ** -0.5,
                                                 layer=1, alibi=alibi)
                 torch.cuda.synchronize()
+                what = (f"flash_decode contiguous {model} {dtype_name} Smax "
+                        f"{Smax} alibi {alibi} pos "
+                        f"{pos if isinstance(pos, int) else 'per row'}")
                 e = _assert_close(
                     torch, y, dk._flash_decode_ref(q, k[1], v[1], pos,
                                                    scale=m["DH"] ** -0.5,
                                                    alibi=alibi),
-                    ATTN_TOL[dtype_name],
-                    f"flash_decode contiguous {model} {dtype_name} Smax "
-                    f"{Smax} alibi {alibi} pos "
-                    f"{pos if isinstance(pos, int) else 'per row'}")
+                    ATTN_TOL[dtype_name], what)
+                check(torch.equal(y, dk.flash_decode_contig_cuda(
+                    q, k, v, pos, scale=m["DH"] ** -0.5, layer=1,
+                    alibi=alibi)), f"{what}: two calls differ")
                 if dtype_name == "bfloat16":
                     err = max(err, e)
             del k, v
     print(f"flash_decode contiguous vs plain: [2, 8, Hkv, Smax, Dh] at layer "
-          f"1, Smax 512 / 1025 / 64, depths 1..Smax-1 scalar and per row, "
-          f"ALiBi, llama3-8b and gpt2-xl heads: fp32 within 2e-4, bf16 within "
-          f"2e-2; bf16 max abs err {err:.3g}")
+          f"1, Smax 512 / 1025 / 64 / 2048, depths 1..Smax scalar and per "
+          f"row, on the chunk edges and 2047 keys, ALiBi, llama3-8b and gpt2-xl "
+          f"heads: fp32 within 2e-4, bf16 within 2e-2, fp16 within 2.5e-3, "
+          f"bit-equal on a repeat; bf16 max abs err {err:.3g}")
     return err
 
 
@@ -1068,41 +1291,16 @@ def check_int8_gemvs(torch, dev, gen):
 
 
 def time_generate_kernels(torch, dev, gen, errs):
-    """The contiguous flash_decode at 8 rows 264 deep in a 512-token cache
-    (generate()'s llama3-8b cell: 200-token prompts, 64 new), beside the
-    plain version and SDPA on the same work (GQA, a boolean mask by
-    position); the int8 GEMVs at llama3-8b's decode shapes, cycling through
-    weight copies past the 50 MB L2, beside the plain version and
-    ``torch.matmul`` of the bf16 weight as a yardstick (no PyTorch call
-    reads int8 weights)."""
-    import torch.nn.functional as F_
-
+    """The contiguous flash_decode (``flash_decode_contig_times``); the
+    int8 GEMVs at llama3-8b's decode shapes, cycling through weight copies
+    past the 50 MB L2, beside the plain version and ``torch.matmul`` of the
+    bf16 weight as a yardstick (no PyTorch call reads int8 weights)."""
     from deepspeed_tpu_torch.ops.kernels import decode as dk
 
     bf = torch.bfloat16
-    out = {}
-    depth, Smax = 264, 512
-    k = _randn(torch, (2, B, HKV, Smax, DH), gen, dev).to(bf)
-    v = _randn(torch, (2, B, HKV, Smax, DH), gen, dev).to(bf)
-    q = _randn(torch, (B, H, DH), gen, dev).to(bf)
-    pos = depth - 1
-    keys = B * depth
-    nbytes = (2 * q.numel() + 2 * keys * HKV * DH) * 2
-    b_ms, b_by = bound_ms(nbytes, 4 * keys * H * DH, BF16_FLOPS_PER_S)
-    mask = (torch.arange(Smax, device=dev) <= pos)[None, None, None, :] \
-        .expand(B, 1, 1, Smax)
-    k1, v1, q4 = k[1], v[1], q[:, :, None, :]
-    out["flash_decode_contig"] = {
-        "shape": "q[8,32,128], cache [2,8,8,512,128] at layer 1, 264 deep, bf16",
-        "ms": time_ms(torch, lambda: dk.flash_decode_contig_cuda(
-            q, k, v, pos, scale=DH ** -0.5, layer=1)),
-        "plain_ms": time_ms(torch, lambda: dk._flash_decode_ref(
-            q, k1, v1, pos, scale=DH ** -0.5)),
-        "library_ms": time_ms(torch, lambda: F_.scaled_dot_product_attention(
-            q4, k1, v1, attn_mask=mask, enable_gqa=True)),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "max_abs_err": errs["flash_decode_contig"]}
-    del k, v
+    out = {"flash_decode_contig": flash_decode_contig_times(torch, dev, gen)}
+    out["flash_decode_contig"]["max_abs_err"] = errs["flash_decode_contig"]
+    out["flash_decode_contig"]["ptxas"] = flash_decode_ptxas()
 
     zeros = torch.zeros(D, device=dev, dtype=bf)
     x = _randn(torch, (B, D), gen, dev, 2).to(bf)
@@ -2634,9 +2832,8 @@ def phase_serve(torch, dev, preset):
     serve._block = timed(torch, spent, "decode", serve._block)
 
     rng = np.random.default_rng(0)
-    lens = (17, 45, 64, 100, 128, 180, 256, 300)
     news = (32, 40, 48, 56, 64, 36, 44, 52)
-    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in SERVE_LENS]
     zero_counts()
     t0 = time.perf_counter()
     wave1 = [serve.submit(p, max_new_tokens=n) for p, n in zip(prompts, news)]
@@ -2695,13 +2892,13 @@ def phase_profile(torch, serve, prompts):
     its two launches)."""
     from torch.profiler import ProfilerActivity, profile
 
-    reqs = [p[:40] for p in prompts]
+    reqs = [p[:PROFILE_PROMPT] for p in prompts]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for p in reqs:
-            serve.submit(p, max_new_tokens=24)
+            serve.submit(p, max_new_tokens=PROFILE_NEW)
         serve.run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
@@ -2726,7 +2923,7 @@ def phase_profile(torch, serve, prompts):
     tags = {"rms_norm": ("rms_norm_fwd_kernel",), "rope": ("_rope_fwd_kernel",),
             "layer_norm": ("layer_norm_fwd_",),
             "fused_norm_qkv": ("norm_qkv_mma_kernel",),
-            "flash_decode": ("flash_decode_paged_kernel",),
+            "flash_decode": ("flash_decode_kernel",),
             "fused_proj_norm": ("proj_norm_mma_kernel",),
             "fused_mlp": ("mlp_act_kernel", "mlp_down_kernel")}
     for name, keys in tags.items():
@@ -2875,7 +3072,7 @@ def phase_generate_profile(torch, eng, prompts, int8):
     mma = "" if int8 else "_mma"
     tags = {"rms_norm": ("rms_norm_fwd_kernel",), "rope": ("_rope_fwd_kernel",),
             "fused_norm_qkv" + sfx: (f"norm_qkv{mma}_kernel",),
-            "flash_decode_contig": ("flash_decode_paged_kernel",),
+            "flash_decode_contig": ("flash_decode_kernel",),
             "fused_proj_norm" + sfx: (f"proj_norm{mma}_kernel",),
             "fused_mlp": ("mlp_act_kernel", "mlp_down_kernel"),
             "fused_mlp_int8": ("mlp_act_int8_mma_kernel", "mlp_down_int8_mma_kernel")}
@@ -3772,7 +3969,12 @@ def main() -> int:
                       "ptxas", "library_fwd_bwd_ms", "fwd_bwd_ms",
                       "max_abs_err_h12", "max_abs_err_f16",
                       "max_abs_err_train_shape_f16", "overflow_inf_dv",
-                      "bound_share", "gpt2_bound_share", "gpt2_host_us"):
+                      "bound_share", "gpt2_bound_share", "gpt2_host_us",
+                      "device_us", "gpt2_device_us", "one_page_device_us",
+                      "ms_300", "bound_ms_300", "device_us_300",
+                      "bound_share_300", "ms_2048", "bound_ms_2048",
+                      "device_us_2048", "bound_share_2048", "library_ms_2048",
+                      "plain_ms_2048"):
             if extra in t:
                 k[extra] = t[extra]
         check(all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms",

@@ -5,12 +5,12 @@
 //
 //   fused_norm_qkv      (decode.py:123, pallas_call :147) -> norm_qkv_mma_kernel
 //                          (bf16, fp16), norm_qkv_kernel (fp32)
-//   _flash_decode_paged (decode.py:252, pallas_call :311) -> flash_decode_paged_kernel
+//   _flash_decode_paged (decode.py:252, pallas_call :311) -> flash_decode_kernel
 //   fused_proj_norm     (decode.py:433, pallas_call :460) -> proj_norm_mma_kernel
 //                          (bf16, fp16), proj_norm_kernel (fp32)
 //   fused_mlp           (decode.py:546, pallas_call :591) -> mlp_act_kernel
 //                                                            + mlp_down_kernel
-//   flash_decode        (decode.py:319, pallas_call :390) -> flash_decode_paged_kernel
+//   flash_decode        (decode.py:319, pallas_call :390) -> flash_decode_kernel
 //     over a contiguous [L, B, Hkv, Smax, Dh] cache (generate()), through
 //     its own entry, ds_flash_decode_contig
 //
@@ -81,25 +81,45 @@
 //     FFMA body's instructions, so the 16-byte cp.async ring that streams
 //     the codes sets its time.  Its design note is above mlp_act_int8_mma_kernel.
 //
-// Design of flash_decode_paged_kernel: one block per (slot, KV head); the
-// rep query heads of a GQA group share each K/V row.  The block reads its
-// slot's depth and page-table row itself (the Pallas kernel's scalar
-// prefetch) and visits only the pages up to pos // page: pages past a slot's
-// depth are neither read nor computed.  Each warp takes kFdTokens keys at a
-// time (lanes split the head dim), keeps an fp32 online softmax per query
-// head, and the warps' (m, l, acc) are merged in a fixed order at the end.
-// The layer's pool is addressed in place (the wrapper offsets the stacked
-// [L, P, Hkv, page, Dh] pointer): no copy, no gather.
-//
-// The contiguous cache of generate() ([L, B, Hkv, Smax, Dh], the Pallas
-// `_flash_decode_kernel` over its BlockSpec grid) runs the same kernel: the
-// layer's [B, Hkv, Smax, Dh] slice is a pool whose page is Smax and whose
-// page of row b is b (no table: the block computes its row's base address
-// itself).  Any Smax >= 1 (the Pallas path sends Smax % 256 != 0 to the
-// dense reference), and the shared memory does not grow with Smax.  The
-// position is a per-row [B] vector, or one scalar for the whole batch
-// (generate()'s loop: no position tensor is built per token).
-//
+// Design of flash_decode_kernel (both caches).  Bound by bytes: each K/V
+// row up to a slot's depth is read once; at llama3-8b's GQA group of 4 that
+// is ~4 flops a byte, so CUDA cores in fp32 serve (q, k, v widened, as the
+// reference's fp32 dot_general).  What the kernel does about the bytes:
+//   - Each (slot, KV head) row's keys are cut into chunks of 16 to 128 keys
+//     (16 KB of K rows: 64 keys at Dh 128 in bf16) and the chunks split over
+//     `splits` blocks of 256 threads (grid (B * Hkv, splits)), as many as
+//     fill one wave of the blocks the card holds (the runtime's occupancy
+//     times the SMs); the host sizes the grid from a bound on the depth (the
+//     scalar depth itself, or Smax, or maxp * page), reading nothing back,
+//     so the launch stays capturable.  A block reads its row's depth, takes
+//     whole chunks, ceil(chunks / splits) of them, and returns at once where
+//     its share starts past the depth: keys past a row's depth are neither
+//     read nor computed.
+//   - Its chunks come into shared memory by bulk copies (the TMA, one a run
+//     of rows within a page: a contiguous chunk is one copy), K and V each
+//     completing on an mbarrier: the chunk's scores run while its V is in
+//     flight, its P.V while the next chunk's K is.  The paged pool's
+//     page-table entries for a chunk come by 8-byte cp.async into one of two
+//     slots of `chunk` entries, so shared memory grows with neither Smax nor
+//     maxp; the contiguous cache is a pool whose page is Smax and whose page
+//     of row b is b.  (A second stage of K/V, a chunk ahead, and 16-byte
+//     cp.async by every thread measured no faster: PERF.md, section 6.)
+//   - Scores: threads own keys (256 / chunk threads a key split Dh and meet
+//     in 1-4 shuffles), each 16-byte K vector widened once for every query
+//     head of the GQA group.  The chunk's online softmax: a warp a head.
+//     P.V: a thread owns two head-dim columns of every head over every n-th
+//     key, the key groups summed in group order.
+//   - The splits' fp32 (acc, m, l) go to scratch; the last of a row's live
+//     splits to take its ticket (the GEMVs' tickets, left at 0) merges them
+//     in split order, in one pass with every split's loads in flight.  No
+//     float atomics: a repeat gives the same bits.  A row with no key (pos
+//     < 0) gives zeros, as l == 0 does in the Pallas kernel.  Rows beyond
+//     the tickets (4096 a launch) run in passes.
+// The layer's slice is addressed in place (the wrapper offsets the stacked
+// pointer): no copy, no gather.  The position is a per-row [B] vector, or
+// one scalar for the whole batch (generate()'s loop: no position tensor is
+// built per token).  Any Smax >= 1 and page >= 1.
+
 // Nothing is allocated here: the wrappers pass outputs, scratch, the
 // tickets and the stream.  Every entry point returns the cudaError_t of its
 // launches (0 on success).
@@ -128,8 +148,9 @@ constexpr float kNegInf = -1e30f;       // decode.py NEG_INF
 static_assert(kThreadsNarrow / 32 >= kBT, "one warp per batch row for the row statistics");
 static_assert(kBT % 8 == 0, "a pass's activations fill whole 16-byte vectors");
 
-constexpr int kFdWarps = 8;             // flash decode: warps per block
-constexpr int kFdTokens = 4;            // keys a warp holds in flight
+constexpr int kFdThreads = 256;         // flash decode: threads a block
+constexpr int kFdChunkBytes = 16384;    // a chunk's K rows, at most
+constexpr int kFdMaxSplits = 256;       // blocks a row
 
 enum NormKind { kRms = 0, kLayer = 1 };
 enum Act { kSilu = 0, kGelu = 1, kGeluExact = 2, kRelu = 3 };
@@ -1524,159 +1545,380 @@ __global__ void __launch_bounds__(kGThreads, ProjCfg::kBps)
 }
 
 // ---------------------------------------------------------------------------
-// paged flash decode: out[B, H, Dh] = softmax(q . K^T * scale (+ alibi)) V
-// over keys 0..pos[b] of each slot, K/V in the paged pool
+// flash decode: out[B, H, Dh] = softmax(q . K^T * scale (+ alibi)) V over
+// keys 0..pos[b] of each row, K/V in the paged pool or a contiguous cache
 // ---------------------------------------------------------------------------
+
+constexpr int kFdMaxRows = kQ8MaxTiles;  // (slot, KV head) rows a launch: a ticket each
 
 struct FdArgs {
   const void* q;            // [B, H, Dh]
   const void* kpool;        // [P, Hkv, page, Dh]: the layer's slice of the pool
-  const void* vpool;
+  const void* vpool;        //   (contiguous: the [B, Hkv, Smax, Dh] slice, page Smax)
   const long long* pos;     // row b's depth at pos[b * pos_stride], or null: pos0
   const long long* table;   // [B, maxp], or null: page b of a contiguous cache
   const float* slopes;      // [H] ALiBi slopes, or null
   void* out;                // [B, H, Dh]
-  int H, Hkv, Dh, page, maxp;
+  float* part;              // [B * Hkv, splits, rep, Dh + 2]: each split's (acc, m, l)
+  unsigned int* ticket;     // [B * Hkv], zeroed; left at 0
+  int H, Hkv, Dh, page, maxp, chunk, splits;
   float scale;
   long long pos0;
   int pos_stride;
 };
 
-__host__ __device__ inline size_t fd_smem_bytes(int rep, int Dh, int maxp) {
-  return static_cast<size_t>(maxp) * sizeof(long long) +
-         static_cast<size_t>(rep) * Dh * sizeof(float) * (1 + kFdWarps) +
-         static_cast<size_t>(kFdWarps) * rep * 2 * sizeof(float);
+// Bytes of shared memory a block takes: the K and V chunks, q, the scores
+// and probabilities, the P.V key groups' partials, the running (m, l,
+// alpha) and two slots of page-table entries.
+__host__ __device__ inline size_t fd_smem_bytes(int Dh, int R, int chunk, int elem) {
+  const size_t rowb = static_cast<size_t>(Dh) * elem;
+  const int groups = kFdThreads / (Dh / 2);
+  return 2 * chunk * rowb +
+         sizeof(float) * (static_cast<size_t>(R) * Dh + 2 * R * chunk +
+                          static_cast<size_t>(groups) * R * Dh + 4 * R) +
+         2 * chunk * sizeof(long long);
 }
 
-// DI = head-dim elements per lane (Dh <= 32 * DI); R >= rep query heads per
-// KV head.  Both are compile-time so the per-lane state lives in registers.
-template <typename T, int DI, int R>
-__global__ void __launch_bounds__(kFdWarps * 32) flash_decode_paged_kernel(FdArgs a) {
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+// 16 bytes of T at `src` (shared memory) as 16 / sizeof(T) floats (the
+// 16-bit halves widened by bit moves and __half2float: exact, in registers).
+template <typename T>
+__device__ __forceinline__ void fd_unpack16(const unsigned char* src, float* f) {
+  const uint4 u = *reinterpret_cast<const uint4*>(src);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (std::is_same<T, float>::value) {
+      f[i] = __uint_as_float(w[i]);
+    } else if constexpr (std::is_same<T, __half>::value) {
+      f[2 * i] = __half2float(__ushort_as_half(static_cast<unsigned short>(w[i] & 0xffffu)));
+      f[2 * i + 1] = __half2float(__ushort_as_half(static_cast<unsigned short>(w[i] >> 16)));
+    } else {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+}
+
+// Two neighbouring elements of T at `src` (shared memory) as floats.
+template <typename T>
+__device__ __forceinline__ float2 fd_pair(const unsigned char* src) {
+  if constexpr (std::is_same<T, float>::value)
+    return *reinterpret_cast<const float2*>(src);
+  else if constexpr (std::is_same<T, __half>::value)
+    return __half22float2(*reinterpret_cast<const __half2*>(src));
+  else
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(src));
+}
+
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst), "l"(src));
+}
+
+// Waits for the phase `parity` of the mbarrier at shared address `mb`.
+__device__ __forceinline__ void mbar_wait(uint32_t mb, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(mb), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// Keys [t0, t1) of one (slot, KV head) row into `buf` ([t1 - t0, Dh] of T)
+// by bulk copies (the TMA), one a run of keys within a page, completing on
+// the mbarrier at `mb`; called by one warp, whose lane 0 first sets the
+// bytes to expect.  The paged pool's pages come from `slot` (the table
+// entries from key t0's page on, `trow` non-null); a contiguous cache is
+// one run at `row_base` (page >= t1).
+template <typename T>
+__device__ __forceinline__ void fd_load_rows(const T* pool, unsigned char* buf, int t0, int t1,
+                                             int page, int Dh, size_t head_stride,
+                                             size_t row_base, int Hkv, int g,
+                                             const long long* trow, const long long* slot,
+                                             uint32_t mb, int lane) {
+  const int rowb = Dh * static_cast<int>(sizeof(T));
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  if (lane == 0)
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 ::"r"(mb), "r"((t1 - t0) * rowb) : "memory");
+  __syncwarp();
+  const int p0 = t0 / page, p1 = (t1 - 1) / page + 1;
+  for (int pi = p0 + lane; pi < p1; pi += 32) {
+    const int ta = max(t0, pi * page), tb = min(t1, (pi + 1) * page);
+    const T* src = trow != nullptr
+                       ? pool + (static_cast<size_t>(slot[pi - p0]) * Hkv + g) * head_stride +
+                             static_cast<size_t>(ta - pi * page) * Dh
+                       : pool + row_base + static_cast<size_t>(ta) * Dh;
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+        ::"r"(smem_u32(buf + (ta - t0) * rowb)), "l"(src), "r"((tb - ta) * rowb), "r"(mb)
+        : "memory");
+  }
+}
+
+// One block: a (slot, KV head) row (blockIdx.x) and one split of its keys
+// (blockIdx.y); R >= rep query heads a KV head, compile-time so that the
+// per-thread state lives in registers.  A chunk's V is in flight during its
+// scores, the next chunk's K during its P.V.
+template <typename T, int R>
+__global__ void __launch_bounds__(kFdThreads) flash_decode_kernel(FdArgs a) {
+  constexpr int kVE = 16 / sizeof(T);       // elements a 16-byte vector
   const T* __restrict__ q = static_cast<const T*>(a.q);
   const T* __restrict__ kpool = static_cast<const T*>(a.kpool);
   const T* __restrict__ vpool = static_cast<const T*>(a.vpool);
   T* __restrict__ out = static_cast<T*>(a.out);
-  const int Hkv = a.Hkv, Dh = a.Dh, page = a.page;
-  const int b = blockIdx.x / Hkv, g = blockIdx.x % Hkv;
+  const int Hkv = a.Hkv, Dh = a.Dh, C = a.chunk, page = a.page;
+  const int row = blockIdx.x, split = blockIdx.y;
+  const int b = row / Hkv, g = row % Hkv;
   const int rep = a.H / Hkv;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  // the row's keys, its chunks and this split's share of them: whole chunks,
+  // `per` a split, so the live splits are the first ceil(chunks / per)
+  const long long p = a.pos != nullptr ? a.pos[static_cast<size_t>(b) * a.pos_stride] : a.pos0;
+  const int n_tok = static_cast<int>(
+      max(0LL, min(p + 1, static_cast<long long>(a.maxp) * page)));
+  const int n_chunks = (n_tok + C - 1) / C;
+  const int per = (n_chunks + a.splits - 1) / a.splits;
+  const int live = per > 0 ? (n_chunks + per - 1) / per : 0;
+  T* og = out + (static_cast<size_t>(b) * a.H + static_cast<size_t>(g) * rep) * Dh;
+  if (live == 0) {                          // no key (pos < 0): zeros, as l == 0 gives
+    if (split == 0)
+      for (int o = tid; o < rep * Dh; o += kFdThreads) og[o] = from_f32<T>(0.f);
+    return;
+  }
+  if (split >= live) return;
+  const int c0 = split * per, c1 = min(n_chunks, c0 + per);
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  long long* pt_s = reinterpret_cast<long long*>(smem_raw);    // [maxp]
-  float* q_s = reinterpret_cast<float*>(pt_s + a.maxp);         // [rep, Dh]
-  float* acc_s = q_s + rep * Dh;                                // [kFdWarps, rep, Dh]
-  float* ml_s = acc_s + kFdWarps * rep * Dh;                    // [kFdWarps, rep, 2]
+  const int rowb = Dh * static_cast<int>(sizeof(T));
+  const int nvec = Dh / kVE;
+  const int pairs = Dh / 2, groups = kFdThreads / pairs;
+  unsigned char* k_s = smem_raw;                                      // [C, rowb]
+  unsigned char* v_s = k_s + C * rowb;                                // [C, rowb]
+  float* q_s = reinterpret_cast<float*>(v_s + C * rowb);              // [R, Dh]
+  float* s_s = q_s + R * Dh;                                          // [R, C] scores
+  float* p_s = s_s + R * C;                                           // [C, R] probabilities
+  float* red_s = p_s + C * R;                                         // [groups, R, Dh]
+  float* ml_s = red_s + groups * R * Dh;                              // m, l, alpha [R] each
+  long long* pt_s = reinterpret_cast<long long*>(ml_s + 4 * R);       // [2, C] pages
+  __shared__ alignas(8) uint64_t bars[2];                             // K, V
 
-  const long long p = a.pos != nullptr ? a.pos[static_cast<size_t>(b) * a.pos_stride] : a.pos0;
-  const int n_pages = static_cast<int>(min(p / page + 1, static_cast<long long>(a.maxp)));
-  const int n_tok = static_cast<int>(min(p + 1, static_cast<long long>(n_pages) * page));
-  for (int i = threadIdx.x; i < n_pages; i += blockDim.x)
-    pt_s[i] = a.table != nullptr ? a.table[static_cast<size_t>(b) * a.maxp + i] : b;
-  const T* qg = q + (static_cast<size_t>(b) * a.H + static_cast<size_t>(g) * rep) * Dh;
-  for (int i = threadIdx.x; i < rep * Dh; i += blockDim.x) q_s[i] = to_f32(qg[i]);
-  __syncthreads();
-
+  if (tid < R) {
+    ml_s[tid] = kNegInf;
+    ml_s[R + tid] = 0.f;
+    ml_s[2 * R + tid] = 1.f;
+  }
+  if (tid == 0) {
+    for (int i = 0; i < 2; ++i)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bars + i)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   float slope[R];
 #pragma unroll
   for (int r = 0; r < R; ++r)
     slope[r] = (a.slopes != nullptr && r < rep) ? a.slopes[g * rep + r] : 0.f;
-  float m[R], l[R], acc[R][DI];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
-#pragma unroll
-    for (int i = 0; i < DI; ++i) acc[r][i] = 0.f;
-  }
 
-  const size_t head_stride = static_cast<size_t>(page) * Dh;  // one head of one page
-  for (int t0 = warp * kFdTokens; t0 < n_tok; t0 += kFdWarps * kFdTokens) {
-    float kf[kFdTokens][DI], vf[kFdTokens][DI];
+  // chunk c's page-table entries into slot c & 1 (8-byte cp.async; a chunk
+  // spans at most C pages), and its K or V rows up to the row's depth into
+  // `buf` (warp 0 asks the TMA; rows past the depth keep what they held:
+  // their scores are masked and P.V stops at the depth)
+  const long long* trow = a.table != nullptr ? a.table + static_cast<size_t>(b) * a.maxp : nullptr;
+  auto stage_table = [=](int c) {
+    if (trow == nullptr) return;
+    const int p0 = c * C / page, p1 = min(a.maxp, (c * C + C - 1) / page + 1);
+    long long* dst = pt_s + (c & 1) * C;
+    for (int i = tid; i < p1 - p0; i += kFdThreads) cp_async8(smem_u32(dst + i), trow + p0 + i);
+  };
+  const size_t head_stride = static_cast<size_t>(page) * Dh;
+  const size_t row_base = (static_cast<size_t>(b) * Hkv + g) * head_stride;
+  const uint32_t bar_k = smem_u32(bars), bar_v = smem_u32(bars + 1);
+#define FD_LOAD(pool, buf, c, mb)                                                              \
+  do {                                                                                       \
+    if (warp == 0)                                                                           \
+      fd_load_rows<T>(pool, buf, (c) * C, min((c) * C + C, n_tok), page, Dh, head_stride,    \
+                      row_base, Hkv, g, trow, pt_s + ((c) & 1) * C, mb, lane);               \
+  } while (0)
+
+  // K(c + 1) is asked once chunk c's scores are in, V(c + 1) once its P.V
+  // is; the page-table slots fill by cp.async groups, each waited before the
+  // copies that read it.
+  stage_table(c0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();                          // the table slot and the mbarriers
+  FD_LOAD(kpool, k_s, c0, bar_k);
+  FD_LOAD(vpool, v_s, c0, bar_v);
+  if (c0 + 1 < c1) stage_table(c0 + 1);
+  cp_async_commit();
+  // q (fp32) while the first chunk is in flight
+  const T* qg = q + (static_cast<size_t>(b) * a.H + static_cast<size_t>(g) * rep) * Dh;
+  for (int i = tid; i < R * Dh; i += kFdThreads) q_s[i] = i < rep * Dh ? to_f32(qg[i]) : 0.f;
+
+  const int tpk = kFdThreads / C;           // threads a key for the scores
+  const int key = tid / tpk, sub = tid - key * tpk;
+  const int cp = tid % pairs, kg = tid / pairs;
+  float acc[R][2];
 #pragma unroll
-    for (int u = 0; u < kFdTokens; ++u) {
-      const int t = t0 + u;
-      if (t < n_tok) {
-        const size_t base = (static_cast<size_t>(pt_s[t / page]) * Hkv + g) * head_stride +
-                            static_cast<size_t>(t % page) * Dh;
+  for (int r = 0; r < R; ++r) acc[r][0] = acc[r][1] = 0.f;
+
+  for (int c = c0; c < c1; ++c) {
+    const uint32_t parity = (c - c0) & 1;   // the mbarriers' phase
+    cp_async_wait<0>();                     // the table of c + 1
+    mbar_wait(bar_k, parity);               // K(c)
+    __syncthreads();
+    // scores: each key's dot with every query head, fp32, Dh split over tpk lanes
+    float s[R];
 #pragma unroll
-        for (int i = 0; i < DI; ++i) {
-          const int d = lane + 32 * i;
-          kf[u][i] = d < Dh ? to_f32(kpool[base + d]) : 0.f;
-          vf[u][i] = d < Dh ? to_f32(vpool[base + d]) : 0.f;
+    for (int r = 0; r < R; ++r) s[r] = 0.f;
+    const unsigned char* krow = k_s + key * rowb;
+    for (int v = sub; v < nvec; v += tpk) {
+      float kf[kVE];
+      fd_unpack16<T>(krow + v * 16, kf);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (r < rep) {
+          const float* qr = q_s + r * Dh + v * kVE;
+#pragma unroll
+          for (int e = 0; e < kVE; ++e) s[r] = fmaf(qr[e], kf[e], s[r]);
         }
-      } else {
-#pragma unroll
-        for (int i = 0; i < DI; ++i) kf[u][i] = vf[u][i] = 0.f;
       }
     }
+    for (int off = tpk / 2; off > 0; off >>= 1) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) s[r] += __shfl_xor_sync(0xffffffffu, s[r], off);
+    }
+    if (sub == 0) {
+      const int t = c * C + key;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float v = s[r] * a.scale;
+        if (a.slopes != nullptr) v += slope[r] * static_cast<float>(t - p);
+        s_s[r * C + key] = t < n_tok ? v : kNegInf;   // past the depth: weight 0
+      }
+    }
+    __syncthreads();                        // the K buffer is free, the scores are in
+    if (c + 1 < c1) {
+      FD_LOAD(kpool, k_s, c + 1, bar_k);
+      if (c + 2 < c1) stage_table(c + 2);
+      cp_async_commit();
+    }
+    // the online softmax: a warp a query head, lanes over the chunk's keys
+    for (int r = warp; r < rep; r += kFdThreads / 32) {
+      float mx = kNegInf;
+      for (int j = lane; j < C; j += 32) mx = fmaxf(mx, s_s[r * C + j]);
+      mx = warp_max(mx);
+      const float m_old = ml_s[r], m_new = fmaxf(m_old, mx);
+      float sum = 0.f;
+      for (int j = lane; j < C; j += 32) {
+        const float e = expf(s_s[r * C + j] - m_new);
+        p_s[j * R + r] = e;
+        sum += e;
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) {
+        const float alpha = expf(m_old - m_new);
+        ml_s[2 * R + r] = alpha;
+        ml_s[R + r] = alpha * ml_s[R + r] + sum;
+        ml_s[r] = m_new;
+      }
+    }
+    mbar_wait(bar_v, parity);               // V(c)
+    __syncthreads();
+    // P.V: a thread two head-dim columns of every query head, over every
+    // groups-th key of the chunk
+    if (kg < groups) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float alpha = ml_s[2 * R + r];
+        acc[r][0] *= alpha;
+        acc[r][1] *= alpha;
+      }
+      const int jn = min(C, n_tok - c * C);
+      for (int j = kg; j < jn; j += groups) {
+        const float2 v2 = fd_pair<T>(v_s + j * rowb + cp * 2 * static_cast<int>(sizeof(T)));
+        const float* pj = p_s + j * R;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          if (r < rep) {
+            acc[r][0] = fmaf(pj[r], v2.x, acc[r][0]);
+            acc[r][1] = fmaf(pj[r], v2.y, acc[r][1]);
+          }
+        }
+      }
+    }
+    __syncthreads();                        // the V buffer and p are free
+    if (c + 1 < c1) FD_LOAD(vpool, v_s, c + 1, bar_v);
+  }
+#undef FD_LOAD
+
+  // the key groups' sums in group order: this split's acc [rep, Dh]
+  if (kg < groups) {
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      if (r >= rep) break;
-      float s[kFdTokens];
-#pragma unroll
-      for (int u = 0; u < kFdTokens; ++u) {
-        float part = 0.f;
-#pragma unroll
-        for (int i = 0; i < DI; ++i) {
-          const int d = lane + 32 * i;
-          if (d < Dh) part = fmaf(q_s[r * Dh + d], kf[u][i], part);
-        }
-        const int t = t0 + u;
-        s[u] = warp_sum(part) * a.scale;
-        if (a.slopes != nullptr) s[u] += slope[r] * static_cast<float>(t - p);
-        if (t >= n_tok) s[u] = kNegInf;  // past this slot's depth: weight exactly 0
+      if (r < rep) {
+        red_s[(kg * R + r) * Dh + 2 * cp] = acc[r][0];
+        red_s[(kg * R + r) * Dh + 2 * cp + 1] = acc[r][1];
       }
-      float mx = m[r];
-#pragma unroll
-      for (int u = 0; u < kFdTokens; ++u) mx = fmaxf(mx, s[u]);
-      const float alpha = expf(m[r] - mx);
-      float pu[kFdTokens];
-      float psum = 0.f;
-#pragma unroll
-      for (int u = 0; u < kFdTokens; ++u) {
-        pu[u] = expf(s[u] - mx);
-        psum += pu[u];
-      }
-      l[r] = alpha * l[r] + psum;
-#pragma unroll
-      for (int i = 0; i < DI; ++i) {
-        float v = acc[r][i] * alpha;
-#pragma unroll
-        for (int u = 0; u < kFdTokens; ++u) v = fmaf(pu[u], vf[u][i], v);
-        acc[r][i] = v;
-      }
-      m[r] = mx;
-    }
-  }
-
-  // merge the warps' partial softmaxes in a fixed order
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    if (r >= rep) break;
-#pragma unroll
-    for (int i = 0; i < DI; ++i) {
-      const int d = lane + 32 * i;
-      if (d < Dh) acc_s[(warp * rep + r) * Dh + d] = acc[r][i];
-    }
-    if (lane == 0) {
-      ml_s[(warp * rep + r) * 2] = m[r];
-      ml_s[(warp * rep + r) * 2 + 1] = l[r];
     }
   }
   __syncthreads();
-  T* og = out + (static_cast<size_t>(b) * a.H + static_cast<size_t>(g) * rep) * Dh;
-  for (int o = threadIdx.x; o < rep * Dh; o += blockDim.x) {
-    const int r = o / Dh, d = o % Dh;
-    float mx = kNegInf;
-    for (int w = 0; w < kFdWarps; ++w) mx = fmaxf(mx, ml_s[(w * rep + r) * 2]);
-    float lsum = 0.f, osum = 0.f;
-    for (int w = 0; w < kFdWarps; ++w) {
-      const float c = expf(ml_s[(w * rep + r) * 2] - mx);
-      lsum += c * ml_s[(w * rep + r) * 2 + 1];
-      osum += c * acc_s[(w * rep + r) * Dh + d];
+  auto block_acc = [=](int o) {
+    const int r = o / Dh, d = o - r * Dh;
+    float v = 0.f;
+    for (int k = 0; k < groups; ++k) v += red_s[(k * R + r) * Dh + d];
+    return v;
+  };
+  if (live == 1) {                          // the whole row in this block
+    for (int o = tid; o < rep * Dh; o += kFdThreads) {
+      const float l = ml_s[R + o / Dh];
+      og[o] = from_f32<T>(block_acc(o) / (l == 0.f ? 1.f : l));
     }
-    og[o] = from_f32<T>(osum / (lsum == 0.f ? 1.f : lsum));
+    return;
   }
+  // write this split's (acc, m, l) to the scratch; the last of the row's
+  // live splits to take its ticket merges them and resets the ticket
+  const int stride = rep * (Dh + 2);
+  float* rowp = a.part + static_cast<size_t>(row) * a.splits * stride;
+  float* mine = rowp + static_cast<size_t>(split) * stride;
+  for (int o = tid; o < rep * Dh; o += kFdThreads) mine[o] = block_acc(o);
+  if (tid < rep) {
+    mine[rep * Dh + tid] = ml_s[tid];
+    mine[rep * Dh + rep + tid] = ml_s[R + tid];
+  }
+  __shared__ bool last;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(a.ticket + row, 1u) == static_cast<unsigned>(live - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // each output's partials in split order, one pass (the running max
+  // rescales the sums), every split's loads in flight together
+  for (int o = tid; o < rep * Dh; o += kFdThreads) {
+    const int r = o / Dh;
+    float mx = kNegInf, l = 0.f, v = 0.f;
+#pragma unroll 4
+    for (int sp = 0; sp < live; ++sp) {
+      const float* ps = rowp + sp * stride;
+      const float ms = __ldcg(ps + rep * Dh + r), ls = __ldcg(ps + rep * Dh + rep + r);
+      const float as = __ldcg(ps + o);
+      const float m_new = fmaxf(mx, ms);
+      const float a_old = expf(mx - m_new), a_new = expf(ms - m_new);
+      l = fmaf(l, a_old, ls * a_new);
+      v = fmaf(v, a_old, as * a_new);
+      mx = m_new;
+    }
+    og[o] = from_f32<T>(v / (l == 0.f ? 1.f : l));
+  }
+  if (tid == 0) a.ticket[row] = 0u;         // ready for the next launch on this stream
 }
 
 // ---------------------------------------------------------------------------
@@ -2043,53 +2285,79 @@ cudaError_t g16_proj_norm(const void* ctx, const void* resid, const void* wo, co
   return launch_g16_passes<T, true>(a, B, work, dev, s);
 }
 
-template <typename T, int DI, int R>
-cudaError_t launch_fd(const FdArgs& a, int B, cudaStream_t s) {
-  const size_t smem = fd_smem_bytes(a.H / a.Hkv, a.Dh, a.maxp);
-  cudaError_t e = allow_smem(flash_decode_paged_kernel<T, DI, R>, smem);
+template <typename T, int R>
+cudaError_t launch_fd(FdArgs a, int B, cudaStream_t s) {
+  if (static_cast<size_t>(a.chunk) * a.Dh * sizeof(T) > kFdChunkBytes) return cudaErrorInvalidValue;
+  const size_t smem = fd_smem_bytes(a.Dh, R, a.chunk, sizeof(T));
+  const cudaError_t e = allow_smem(flash_decode_kernel<T, R>, smem);
   if (e != cudaSuccess) return e;
-  flash_decode_paged_kernel<T, DI, R><<<B * a.Hkv, kFdWarps * 32, smem, s>>>(a);
-  return cudaGetLastError();
+  // passes of at most kFdMaxRows (slot, KV head) rows: one ticket a row
+  const int bp = kFdMaxRows / a.Hkv;
+  const size_t qrow = static_cast<size_t>(a.H) * a.Dh;
+  const size_t crow = static_cast<size_t>(a.Hkv) * a.page * a.Dh;  // contiguous: a row's cache
+  FdArgs p = a;
+  for (int b0 = 0; b0 < B; b0 += bp) {
+    const int nb = min(bp, B - b0);
+    p.q = static_cast<const T*>(a.q) + b0 * qrow;
+    p.out = static_cast<T*>(a.out) + b0 * qrow;
+    if (a.pos != nullptr) p.pos = a.pos + static_cast<size_t>(b0) * a.pos_stride;
+    if (a.table != nullptr) {
+      p.table = a.table + static_cast<size_t>(b0) * a.maxp;
+    } else {
+      p.kpool = static_cast<const T*>(a.kpool) + b0 * crow;
+      p.vpool = static_cast<const T*>(a.vpool) + b0 * crow;
+    }
+    flash_decode_kernel<T, R><<<dim3(nb * a.Hkv, a.splits), kFdThreads, smem, s>>>(p);
+    const cudaError_t le = cudaGetLastError();
+    if (le != cudaSuccess) return le;
+  }
+  return cudaSuccess;
 }
 
-template <typename T, int DI>
-cudaError_t launch_fd_r(const FdArgs& a, int B, int R, cudaStream_t s) {
-  switch (R) {
-    case 1: return launch_fd<T, DI, 1>(a, B, s);
-    case 2: return launch_fd<T, DI, 2>(a, B, s);
-    case 4: return launch_fd<T, DI, 4>(a, B, s);
-    case 8: return launch_fd<T, DI, 8>(a, B, s);
-    default: return cudaErrorInvalidValue;
-  }
+// Blocks of flash_decode_kernel<T, R> an SM holds at once (-1 on an error).
+template <typename T, int R>
+int fd_resident(int Dh, int chunk) {
+  const size_t smem = fd_smem_bytes(Dh, R, chunk, sizeof(T));
+  int n = -1;
+  if (allow_smem(flash_decode_kernel<T, R>, smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, flash_decode_kernel<T, R>, kFdThreads,
+                                                    smem) != cudaSuccess)
+    return -1;
+  return n;
+}
+
+// R: the power of two at or above rep.
+template <typename T>
+int fd_resident_r(int Dh, int rep, int chunk) {
+  if (rep == 1) return fd_resident<T, 1>(Dh, chunk);
+  if (rep == 2) return fd_resident<T, 2>(Dh, chunk);
+  if (rep <= 4) return fd_resident<T, 4>(Dh, chunk);
+  return fd_resident<T, 8>(Dh, chunk);
 }
 
 template <typename T>
-cudaError_t launch_fd_di(const FdArgs& a, int B, int DI, int R, cudaStream_t s) {
-  switch (DI) {
-    case 1: return launch_fd_r<T, 1>(a, B, R, s);
-    case 2: return launch_fd_r<T, 2>(a, B, R, s);
-    case 4: return launch_fd_r<T, 4>(a, B, R, s);
-    case 8: return launch_fd_r<T, 8>(a, B, R, s);
-    default: return cudaErrorInvalidValue;
-  }
+cudaError_t launch_fd_r(const FdArgs& a, int B, int rep, cudaStream_t s) {
+  if (rep == 1) return launch_fd<T, 1>(a, B, s);
+  if (rep == 2) return launch_fd<T, 2>(a, B, s);
+  if (rep <= 4) return launch_fd<T, 4>(a, B, s);
+  return launch_fd<T, 8>(a, B, s);
 }
 
-int pow2_at_least(int n) {
-  int p = 1;
-  while (p < n) p *= 2;
-  return p;
-}
-
-int launch_flash_decode(const FdArgs& a, int B, int dtype, cudaStream_t s) {
-  const int rep = a.H / a.Hkv;
-  const int DI = pow2_at_least((a.Dh + 31) / 32);
-  const int R = pow2_at_least(rep);
-  if (DI > 8 || R > 8 || a.page <= 0 || a.maxp <= 0)
+// The checks the wrappers make, again: a chunk of 16 to 128 keys (a power
+// of two: threads a key for the scores), up to kFdMaxSplits splits.
+int launch_flash_decode(const FdArgs& a, int B, int dtype, int device, cudaStream_t s) {
+  const int rep = a.Hkv > 0 ? a.H / a.Hkv : 0;
+  const int C = a.chunk;
+  if (rep < 1 || rep > 8 || a.H % a.Hkv || a.Dh <= 0 || a.Dh % 8 || a.Dh > 256 ||
+      a.page <= 0 || a.maxp <= 0 || a.Hkv > kFdMaxRows || C < 16 || C > 128 || (C & (C - 1)) ||
+      a.splits < 1 || a.splits > kFdMaxSplits)
     return static_cast<int>(cudaErrorInvalidValue);
+  const DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
   switch (dtype) {
-    case 0: return launch_fd_di<float>(a, B, DI, R, s);
-    case 1: return launch_fd_di<__nv_bfloat16>(a, B, DI, R, s);
-    case 2: return launch_fd_di<__half>(a, B, DI, R, s);
+    case 0: return launch_fd_r<float>(a, B, rep, s);
+    case 1: return launch_fd_r<__nv_bfloat16>(a, B, rep, s);
+    case 2: return launch_fd_r<__half>(a, B, rep, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -2146,16 +2414,23 @@ int ds_ticket_count() { return kQ8MaxTiles + 1; }
 
 // q [B, H, Dh]; kpool/vpool the layer's [P, Hkv, page, Dh] slice; pos [B]
 // and table [B, maxp] int64; slopes [H] fp32 or null; out [B, H, Dh].
-// Dh <= 256 and H / Hkv <= 8 (the wrapper checks).
+// Dh a multiple of 8 up to 256 and H / Hkv <= 8 (the wrapper checks).  The
+// grid: (B * Hkv, splits) blocks over chunks of `chunk` keys; `work` fp32
+// scratch of min(B, kFdMaxRows / Hkv) * Hkv * splits * rep * (Dh + 2) floats
+// (used where splits > 1), `ticket` ds_ticket_count() zeroed uint32 whose
+// counts the kernel leaves at 0.  On `stream` of CUDA device `device` (made
+// current for the call if it is not).
 int ds_flash_decode_paged(const void* q, const void* kpool, const void* vpool, const void* pos,
-                          const void* table, const void* slopes, void* out, int B, int H,
-                          int Hkv, int Dh, int page, int maxp, float scale, int dtype,
-                          void* stream) {
+                          const void* table, const void* slopes, void* out, void* work,
+                          void* ticket, int B, int H, int Hkv, int Dh, int page, int maxp,
+                          int chunk, int splits, float scale, int dtype, void* stream,
+                          int device) {
   if (B <= 0) return 0;
   FdArgs a{q, kpool, vpool, static_cast<const long long*>(pos),
            static_cast<const long long*>(table), static_cast<const float*>(slopes), out,
-           H, Hkv, Dh, page, maxp, scale, 0, 1};
-  return launch_flash_decode(a, B, dtype, static_cast<cudaStream_t>(stream));
+           static_cast<float*>(work), static_cast<unsigned int*>(ticket),
+           H, Hkv, Dh, page, maxp, chunk, splits, scale, 0, 1};
+  return launch_flash_decode(a, B, dtype, device, static_cast<cudaStream_t>(stream));
 }
 
 // The contiguous cache: kcache/vcache the layer's [B, Hkv, Smax, Dh] slice;
@@ -2163,13 +2438,37 @@ int ds_flash_decode_paged(const void* q, const void* kpool, const void* vpool, c
 // depth) or, with pos null, pos0.  Other arguments as ds_flash_decode_paged.
 int ds_flash_decode_contig(const void* q, const void* kcache, const void* vcache,
                            const void* pos, long long pos0, int pos_stride, const void* slopes,
-                           void* out, int B, int H, int Hkv, int Dh, int Smax, float scale,
-                           int dtype, void* stream) {
+                           void* out, void* work, void* ticket, int B, int H, int Hkv, int Dh,
+                           int Smax, int chunk, int splits, float scale, int dtype,
+                           void* stream, int device) {
   if (B <= 0) return 0;
   FdArgs a{q, kcache, vcache, static_cast<const long long*>(pos), nullptr,
-           static_cast<const float*>(slopes), out, H, Hkv, Dh, Smax, 1, scale, pos0,
-           pos_stride};
-  return launch_flash_decode(a, B, dtype, static_cast<cudaStream_t>(stream));
+           static_cast<const float*>(slopes), out, static_cast<float*>(work),
+           static_cast<unsigned int*>(ticket), H, Hkv, Dh, Smax, 1, chunk, splits, scale,
+           pos0, pos_stride};
+  return launch_flash_decode(a, B, dtype, device, static_cast<cudaStream_t>(stream));
+}
+
+// Blocks of flash_decode_kernel an SM of CUDA device `device` holds at once
+// at head dim Dh, `rep` query heads a KV head, `chunk` keys and dtype (0
+// float32, 1 bfloat16, 2 float16); -1 on an error.
+int ds_flash_decode_resident(int Dh, int rep, int chunk, int dtype, int device) {
+  if (rep < 1 || rep > 8 || Dh <= 0 || Dh % 8 || Dh > 256) return -1;
+  const DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return -1;
+  switch (dtype) {
+    case 0: return fd_resident_r<float>(Dh, rep, chunk);
+    case 1: return fd_resident_r<__nv_bfloat16>(Dh, rep, chunk);
+    case 2: return fd_resident_r<__half>(Dh, rep, chunk);
+    default: return -1;
+  }
+}
+
+// Bytes of shared memory a flash_decode block takes at head dim Dh, `rep`
+// query heads a KV head, `chunk` keys and `elem`-byte elements.
+long long ds_flash_decode_smem(int Dh, int rep, int chunk, int elem) {
+  const int R = rep <= 1 ? 1 : rep <= 2 ? 2 : rep <= 4 ? 4 : 8;
+  return static_cast<long long>(fd_smem_bytes(Dh, R, chunk, elem));
 }
 
 // ctx [B, M], resid [B, D], wo [M, D], bo [D] or null, scale [D], bias [D]

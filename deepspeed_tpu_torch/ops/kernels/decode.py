@@ -36,9 +36,18 @@ int8 MLP has kernels of its own on the tensor cores
 over the dequantized codes, streamed by a ``cp.async`` ring).  The
 norm_qkv and proj_norm wrappers (every dtype, int8 too) and the int8 MLP's
 take the lean host path of :mod:`.common` (the raw stream handle, the
-device index to the C entry, prototypes bound once).  Each variant has
-a launch function and a launch counter of its own:
-``flash_decode_contig_cuda`` and the three ``*_int8_cuda``.
+device index to the C entry, prototypes bound once), and so do both
+caches' flash_decode.  Each variant has a launch function and a launch
+counter of its own: ``flash_decode_contig_cuda`` and the three
+``*_int8_cuda``.
+
+``flash_decode`` (both caches) is one kernel, ``flash_decode_kernel``: each
+(slot, KV head) row's keys are cut into chunks of 16 to 128 keys and split
+over several blocks (``fd_plan``: one wave of the blocks the card holds,
+the grid sized from a bound on the depth, never read back), each block
+bringing its chunks into shared memory by bulk copies (the TMA); the last
+block of a row merges the splits' fp32 (m, l, acc) in split order, so a
+repeat gives the same bits.
 """
 
 from __future__ import annotations
@@ -62,9 +71,17 @@ ACTIVATIONS = {"silu": 0, "gelu": 1, "gelu_exact": 2, "relu": 3}
 # a block may use, head dim and GQA group of the attention kernel
 _BATCH_PASS = 8
 _SMEM_LIMIT = 200 * 1024
-_FD_WARPS = 8
 _MAX_HEAD_DIM = 256
 _MAX_REP = 8
+# flash_decode's grid (csrc/decode.cu flash_decode_kernel): threads a
+# block, bytes of K rows a chunk, waves of resident blocks to aim for,
+# blocks a row, (slot, KV head) rows a launch (one ticket each:
+# ds_ticket_count() - 1)
+_FD_THREADS = 256
+_FD_CHUNK_BYTES = 16384
+_FD_FILL = 1.0
+_FD_MAX_SPLITS = 256
+_FD_MAX_ROWS = 4096
 
 
 # ---------------------------------------------------------------------------
@@ -200,9 +217,6 @@ def _mlp_ref(h, r, w_up, w_gate, w_down, b_up, b_gate, b_down, *, act,
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
-    "ds_flash_decode_paged": [_P] * 7 + [_I] * 6 + [_F, _I, _P],
-    "ds_flash_decode_contig": [_P] * 4 + [_L, _I] + [_P] * 2 + [_I] * 5
-                              + [_F, _I, _P],
     "ds_fused_mlp": [_P] * 10 + [_I] * 5 + [_P],
 }
 # the GEMVs of the lean host path (bound once through build.bind; each takes
@@ -212,6 +226,8 @@ _NORM_QKV_INT8_ARGS = [_P] * 7 + [_I] * 4 + [_F, _P, _I]
 _PROJ_NORM_ARGS = [_P] * 10 + [_I] * 4 + [_F, _I, _I, _P, _I]
 _PROJ_NORM_INT8_ARGS = [_P] * 11 + [_I] * 4 + [_F, _I, _P, _I]
 _Q8_ARGS = [_P] * 14 + [_I] * 4 + [_P, _I]
+_FD_PAGED_ARGS = [_P] * 9 + [_I] * 8 + [_F, _I, _P, _I]
+_FD_CONTIG_ARGS = [_P] * 4 + [_L, _I] + [_P] * 4 + [_I] * 7 + [_F, _I, _P, _I]
 # tickets of the kernels that merge across blocks (``ds_ticket_count`` of
 # them: one a column tile, then proj_norm's grid barrier), zeroed once a
 # device and stream, their counts left at zero by every kernel; scratch of
@@ -222,6 +238,7 @@ _TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
 _WORK: Dict[Tuple[int, int], torch.Tensor] = {}
 _G16_WORKSPACE: Dict[Tuple[int, int, int, int], int] = {}
 _Q8_WORKSPACE: Dict[Tuple[int, int, bool, int], int] = {}
+_FD_SLOTS: Dict[Tuple[int, int, int, int, int], int] = {}
 
 
 def _library():
@@ -438,27 +455,117 @@ def fused_norm_qkv_cuda(x, scale, bias, wqkv, bqkv=None, *, kind, eps):
     return out
 
 
-def flash_decode_paged_cuda(q, kcache, vcache, pos, page_table, *, scale,
-                            layer=None, alibi=False):
-    """Launch ``flash_decode_paged_kernel``: q [B, H, Dh] over the pool
-    [P, Hkv, page, Dh] (or the stacked [L, P, Hkv, page, Dh] at ``layer``,
-    read in place); ``pos`` [B] and ``page_table`` [B, maxp] int64."""
+def fd_chunk(Dh: int, itemsize: int) -> int:
+    """Keys a flash_decode chunk holds: the largest power of two from 16 to
+    128 whose K rows fit in ``_FD_CHUNK_BYTES`` (64 keys at Dh 128 in bf16,
+    128 at Dh 64, 32 at Dh 128 in fp32)."""
+    c = 128
+    while c > 16 and c * Dh * itemsize > _FD_CHUNK_BYTES:
+        c //= 2
+    return c
+
+
+def fd_plan(B: int, Hkv: int, rep: int, Dh: int, itemsize: int, keys: int,
+            slots: int) -> Tuple[int, int, int]:
+    """The grid of one flash_decode launch: (chunk, splits, scratch bytes).
+    ``keys`` bounds every row's depth (the exact depth for one scalar
+    position, else Smax or maxp * page: nothing is read back from the
+    device); ``slots`` is the blocks the card holds at once (its SMs times
+    the kernel's blocks an SM).  Each (slot, KV head) row gets ``splits``
+    blocks: as many as fill ``_FD_FILL`` waves of the slots, no more than
+    the chunks of ``keys`` nor ``_FD_MAX_SPLITS``.  The scratch holds each
+    split's fp32 (acc, m, l) for the rows of one pass (``_FD_MAX_ROWS``
+    rows, a ticket each)."""
+    chunk = fd_chunk(Dh, itemsize)
+    rows = min(B, max(1, _FD_MAX_ROWS // Hkv)) * Hkv
+    chunks = max(1, -(-keys // chunk))
+    splits = max(1, min(chunks, int(slots * _FD_FILL) // rows, _FD_MAX_SPLITS))
+    nbytes = rows * splits * rep * (Dh + 2) * 4 if splits > 1 else 0
+    return chunk, splits, nbytes
+
+
+def fd_split_keys(n_tok: int, chunk: int, splits: int):
+    """The [start, end) keys each live split of one row takes, as the
+    kernel cuts them: whole chunks, ceil(chunks / splits) a split, so the
+    splits past ceil(chunks / per) hold none and return at once."""
+    n_chunks = -(-max(n_tok, 0) // chunk)
+    per = -(-n_chunks // splits)
+    live = -(-n_chunks // per) if per else 0
+    return [(s * per * chunk, min(n_tok, (s + 1) * per * chunk))
+            for s in range(live)]
+
+
+def fd_chunk_pages(c: int, chunk: int, page: int, maxp: int) -> Tuple[int, int]:
+    """The [first, last) page-table entries chunk ``c`` reads (the slot the
+    kernel stages in shared memory: at most ``chunk`` entries)."""
+    return c * chunk // page, min(maxp, (c * chunk + chunk - 1) // page + 1)
+
+
+def fd_smem_bytes(Dh: int, rep: int, chunk: int, itemsize: int) -> int:
+    """Shared memory of one flash_decode block (``fd_smem_bytes`` of
+    csrc/decode.cu): the K and V chunks, q, scores, probabilities, the P.V
+    key groups' partials, (m, l, alpha) and two slots of page-table
+    entries.  Independent of Smax and of maxp."""
+    R = 1 if rep <= 1 else 2 if rep <= 2 else 4 if rep <= 4 else 8
+    groups = _FD_THREADS // (Dh // 2)
+    return (2 * chunk * Dh * itemsize
+            + 4 * (R * Dh + 2 * R * chunk + groups * R * Dh + 4 * R)
+            + 2 * chunk * 8)
+
+
+def _fd_slots(dev: int, code: int, Dh: int, rep: int, chunk: int) -> int:
+    """Blocks of flash_decode_kernel CUDA device ``dev`` holds at once (its
+    SMs times the occupancy the CUDA runtime reports), read once a shape."""
+    key = (dev, code, Dh, rep, chunk)
+    n = _FD_SLOTS.get(key)
+    if n is None:
+        per_sm = bind("decode", "ds_flash_decode_resident", [_I] * 5)(
+            Dh, rep, chunk, code, dev)
+        if per_sm <= 0:
+            raise RuntimeError(f"flash_decode: no block of Dh {Dh}, {rep} "
+                               f"heads a KV head fits an SM")
+        n = _FD_SLOTS[key] = per_sm * torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return n
+
+
+def _fd_common_ok(q, kcache, vcache, dev, dt, ks, layer) -> bool:
+    """The lean test of what both caches share: q [B, H, Dh] and the two
+    caches of one shape, dtype and device, 16-byte aligned (the kernel's
+    bulk copies); Dh a multiple of 8 up to 256; a GQA group of up to 8; the
+    layer in range."""
+    B, H, Dh = q.shape
+    Hkv = ks[-3]
+    return (_ok(kcache, dev, dt, ks) and _ok(vcache, dev, dt, ks)
+            and _aligned(kcache, vcache)
+            and ks[-1] == Dh and Dh % 8 == 0 and 0 < Dh <= _MAX_HEAD_DIM
+            and Hkv > 0 and H % Hkv == 0 and H // Hkv <= _MAX_REP
+            and (layer is None or 0 <= layer < ks[0]))
+
+
+def _refuse_fd_common(q, kcache, vcache, layer, paged: bool) -> None:
+    """Raise what both caches' kernels refuse: the full checks, run only
+    once the lean test has failed."""
     check_kernel_input("flash_decode q", q, q.device)
     if q.dim() != 3:
         raise ValueError(f"flash_decode: q must be [B, H, Dh], got "
                          f"{tuple(q.shape)}")
     B, H, Dh = q.shape
     want = 4 if layer is None else 5
-    if kcache.dim() != want:
+    if paged and kcache.dim() != want:
         raise ValueError(f"flash_decode: pool must be {want}-d "
                          f"({'[P, Hkv, page, Dh]' if layer is None else '[L, P, Hkv, page, Dh]'}), "
                          f"got {tuple(kcache.shape)}")
+    if not paged and (kcache.dim() != want or kcache.shape[-4] != B):
+        raise ValueError(f"flash_decode: cache must be "
+                         f"{'[B, Hkv, Smax, Dh]' if layer is None else '[L, B, Hkv, Smax, Dh]'}"
+                         f" with B = {B}, got {tuple(kcache.shape)}")
     _check("flash_decode kcache", kcache, q, tuple(kcache.shape))
     _check("flash_decode vcache", vcache, q, tuple(kcache.shape))
-    Hkv, page = kcache.shape[-3], kcache.shape[-2]
+    Hkv = kcache.shape[-3]
     if kcache.shape[-1] != Dh:
-        raise ValueError(f"flash_decode: pool head dim {kcache.shape[-1]} "
-                         f"!= q head dim {Dh}")
+        raise ValueError(f"flash_decode: {'pool' if paged else 'cache'} head "
+                         f"dim {kcache.shape[-1]} != q head dim {Dh}")
     if Dh % 8 or Dh > _MAX_HEAD_DIM:
         raise ValueError(f"flash_decode: head dim {Dh} must be a multiple "
                          f"of 8 up to {_MAX_HEAD_DIM}")
@@ -468,6 +575,15 @@ def flash_decode_paged_cuda(q, kcache, vcache, pos, page_table, *, scale,
     if layer is not None and not 0 <= layer < kcache.shape[0]:
         raise ValueError(f"flash_decode: layer {layer} out of range "
                          f"[0, {kcache.shape[0]})")
+    if not _aligned(kcache, vcache):
+        raise ValueError("flash_decode: the kernel's bulk copies need 16-byte "
+                         "aligned caches")
+
+
+def _refuse_flash_decode_paged(q, kcache, vcache, pos, page_table,
+                               layer) -> None:
+    _refuse_fd_common(q, kcache, vcache, layer, paged=True)
+    B = q.shape[0]
     for name, t, shape in (("pos", pos, (B,)),
                            ("page_table", page_table,
                             (B, page_table.shape[-1]))):
@@ -477,81 +593,107 @@ def flash_decode_paged_cuda(q, kcache, vcache, pos, page_table, *, scale,
         if tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"flash_decode {name}: expected a contiguous "
                              f"{shape} tensor, got {tuple(t.shape)}")
+    raise ValueError("flash_decode: inputs the kernel does not take")
+
+
+def _refuse_flash_decode_contig(q, kcache, vcache, pos, layer) -> None:
+    _refuse_fd_common(q, kcache, vcache, layer, paged=False)
+    if isinstance(pos, torch.Tensor):
+        if pos.device != q.device or pos.dtype != torch.int64:
+            raise TypeError(f"flash_decode pos: expected int64 on {q.device}, "
+                            f"got {pos.dtype} on {pos.device}")
+        if pos.numel() not in (1, q.shape[0]) or not pos.is_contiguous():
+            raise ValueError(f"flash_decode pos: expected a contiguous tensor "
+                             f"of 1 or {q.shape[0]} depths, got "
+                             f"{tuple(pos.shape)}")
+    raise ValueError("flash_decode: inputs the kernel does not take")
+
+
+def flash_decode_paged_cuda(q, kcache, vcache, pos, page_table, *, scale,
+                            layer=None, alibi=False):
+    """Launch ``flash_decode_kernel``: q [B, H, Dh] over the pool
+    [P, Hkv, page, Dh] (or the stacked [L, P, Hkv, page, Dh] at ``layer``,
+    read in place); ``pos`` [B] and ``page_table`` [B, maxp] int64.  Each
+    row's keys split over ``fd_plan``'s blocks (the grid sized from maxp *
+    page: no depth is read back), merged in split order by the last block
+    of the row.  On the lean host path of :func:`fused_norm_qkv_cuda`."""
+    dev, dt = q.get_device(), q.dtype
+    code = KERNEL_DTYPES.get(dt)
+    ks = kcache.shape
+    if not (code is not None and dev >= 0 and q.dim() == 3
+            and len(ks) == (4 if layer is None else 5) and page_table.dim() == 2
+            and q.is_contiguous()):
+        _refuse_flash_decode_paged(q, kcache, vcache, pos, page_table, layer)
+    B, H, Dh = q.shape
     maxp = page_table.shape[1]
-    rep = H // Hkv
-    smem = maxp * 8 + rep * Dh * 4 * (1 + _FD_WARPS) + _FD_WARPS * rep * 8
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"flash_decode: {smem} bytes of shared memory "
-                         f"(page table of {maxp} pages, {rep} x {Dh} heads) "
-                         f"exceed {_SMEM_LIMIT}")
-    off = 0 if layer is None else layer * kcache.stride(0) * q.element_size()
+    if not (_fd_common_ok(q, kcache, vcache, dev, dt, ks, layer)
+            and _ok(pos, dev, torch.int64, (B,))
+            and _ok(page_table, dev, torch.int64, (B, maxp))):
+        _refuse_flash_decode_paged(q, kcache, vcache, pos, page_table, layer)
+    Hkv, page = ks[-3], ks[-2]
+    esz, rep = q.element_size(), H // Hkv
+    chunk, splits, nbytes = fd_plan(
+        B, Hkv, rep, Dh, esz, maxp * page,
+        _fd_slots(dev, code, Dh, rep, fd_chunk(Dh, esz)))
+    off = 0 if layer is None else layer * kcache.stride(0) * esz
     slopes = alibi_slopes_on(H, q.device) if alibi else None
     out = torch.empty_like(q)
-    built = _library()
-    with torch.cuda.device(q.device):
-        code = built.lib.ds_flash_decode_paged(
-            q.data_ptr(), kcache.data_ptr() + off, vcache.data_ptr() + off,
-            pos.data_ptr(), page_table.data_ptr(), _ptr(slopes),
-            out.data_ptr(), B, H, Hkv, Dh, page, maxp, float(scale),
-            KERNEL_DTYPES[q.dtype], _stream(q.device))
-    check_launch(built, "flash_decode", code)
+    stream = raw_stream(dev)
+    err = bind("decode", "ds_flash_decode_paged", _FD_PAGED_ARGS)(
+        q.data_ptr(), kcache.data_ptr() + off, vcache.data_ptr() + off,
+        pos.data_ptr(), page_table.data_ptr(), _ptr(slopes), out.data_ptr(),
+        _workspace(dev, stream, nbytes), _tickets(dev, stream), B, H, Hkv, Dh,
+        page, maxp, chunk, splits, float(scale), code, stream, dev)
+    if err:
+        check_launch(load_library("decode"), "flash_decode", err)
     flash_decode.launches += 1
     return out
 
 
 def flash_decode_contig_cuda(q, kcache, vcache, pos, *, scale, layer=None,
                              alibi=False):
-    """Launch ``flash_decode_paged_kernel`` over a contiguous cache: q
-    [B, H, Dh] against [B, Hkv, Smax, Dh] (or the stacked [L, B, Hkv, Smax,
-    Dh] at ``layer``, read in place), the layer's slice addressed as a pool
-    whose page is Smax and whose page of row b is b.  ``pos`` is an int (one
-    depth for the batch, passed by value) or an int64 tensor of 1 or B
-    depths."""
-    check_kernel_input("flash_decode q", q, q.device)
-    if q.dim() != 3:
-        raise ValueError(f"flash_decode: q must be [B, H, Dh], got "
-                         f"{tuple(q.shape)}")
+    """Launch ``flash_decode_kernel`` over a contiguous cache: q [B, H, Dh]
+    against [B, Hkv, Smax, Dh] (or the stacked [L, B, Hkv, Smax, Dh] at
+    ``layer``, read in place), the layer's slice addressed as a pool whose
+    page is Smax and whose page of row b is b.  ``pos`` is an int (one
+    depth for the batch, passed by value: the grid fits that depth) or an
+    int64 tensor of 1 or B depths (the grid fits Smax).  On the lean host
+    path of :func:`fused_norm_qkv_cuda`."""
+    dev, dt = q.get_device(), q.dtype
+    code = KERNEL_DTYPES.get(dt)
+    ks = kcache.shape
+    if not (code is not None and dev >= 0 and q.dim() == 3
+            and len(ks) == (4 if layer is None else 5) and q.is_contiguous()
+            and ks[-4] == q.shape[0]):
+        _refuse_flash_decode_contig(q, kcache, vcache, pos, layer)
     B, H, Dh = q.shape
-    want = 4 if layer is None else 5
-    if kcache.dim() != want or kcache.shape[-4] != B:
-        raise ValueError(f"flash_decode: cache must be "
-                         f"{'[B, Hkv, Smax, Dh]' if layer is None else '[L, B, Hkv, Smax, Dh]'}"
-                         f" with B = {B}, got {tuple(kcache.shape)}")
-    _check("flash_decode kcache", kcache, q, tuple(kcache.shape))
-    _check("flash_decode vcache", vcache, q, tuple(kcache.shape))
-    Hkv, Smax = kcache.shape[-3], kcache.shape[-2]
-    if kcache.shape[-1] != Dh:
-        raise ValueError(f"flash_decode: cache head dim {kcache.shape[-1]} "
-                         f"!= q head dim {Dh}")
-    if Dh % 8 or Dh > _MAX_HEAD_DIM:
-        raise ValueError(f"flash_decode: head dim {Dh} must be a multiple "
-                         f"of 8 up to {_MAX_HEAD_DIM}")
-    if H % Hkv or H // Hkv > _MAX_REP:
-        raise ValueError(f"flash_decode: {H} query heads over {Hkv} KV heads "
-                         f"(the kernel takes GQA groups of up to {_MAX_REP})")
-    if layer is not None and not 0 <= layer < kcache.shape[0]:
-        raise ValueError(f"flash_decode: layer {layer} out of range "
-                         f"[0, {kcache.shape[0]})")
+    if not _fd_common_ok(q, kcache, vcache, dev, dt, ks, layer):
+        _refuse_flash_decode_contig(q, kcache, vcache, pos, layer)
+    Hkv, Smax = ks[-3], ks[-2]
     if isinstance(pos, torch.Tensor):
-        if pos.device != q.device or pos.dtype != torch.int64:
-            raise TypeError(f"flash_decode pos: expected int64 on {q.device}, "
-                            f"got {pos.dtype} on {pos.device}")
-        if pos.numel() not in (1, B) or not pos.is_contiguous():
-            raise ValueError(f"flash_decode pos: expected a contiguous tensor "
-                             f"of 1 or {B} depths, got {tuple(pos.shape)}")
-        pos_ptr, pos0, stride = pos.data_ptr(), 0, int(pos.numel() == B)
+        n = pos.numel()
+        if not (pos.get_device() == dev and pos.dtype is torch.int64
+                and n in (1, B) and pos.is_contiguous()):
+            _refuse_flash_decode_contig(q, kcache, vcache, pos, layer)
+        pos_ptr, pos0, stride, keys = pos.data_ptr(), 0, int(n == B), Smax
     else:
-        pos_ptr, pos0, stride = None, int(pos), 0
-    off = 0 if layer is None else layer * kcache.stride(0) * q.element_size()
+        pos0 = int(pos)
+        pos_ptr, stride, keys = None, 0, min(max(pos0 + 1, 1), Smax)
+    esz, rep = q.element_size(), H // Hkv
+    chunk, splits, nbytes = fd_plan(
+        B, Hkv, rep, Dh, esz, keys,
+        _fd_slots(dev, code, Dh, rep, fd_chunk(Dh, esz)))
+    off = 0 if layer is None else layer * kcache.stride(0) * esz
     slopes = alibi_slopes_on(H, q.device) if alibi else None
     out = torch.empty_like(q)
-    built = _library()
-    with torch.cuda.device(q.device):
-        code = built.lib.ds_flash_decode_contig(
-            q.data_ptr(), kcache.data_ptr() + off, vcache.data_ptr() + off,
-            pos_ptr, pos0, stride, _ptr(slopes), out.data_ptr(), B, H, Hkv,
-            Dh, Smax, float(scale), KERNEL_DTYPES[q.dtype], _stream(q.device))
-    check_launch(built, "flash_decode (contiguous)", code)
+    stream = raw_stream(dev)
+    err = bind("decode", "ds_flash_decode_contig", _FD_CONTIG_ARGS)(
+        q.data_ptr(), kcache.data_ptr() + off, vcache.data_ptr() + off,
+        pos_ptr, pos0, stride, _ptr(slopes), out.data_ptr(),
+        _workspace(dev, stream, nbytes), _tickets(dev, stream), B, H, Hkv, Dh,
+        Smax, chunk, splits, float(scale), code, stream, dev)
+    if err:
+        check_launch(load_library("decode"), "flash_decode (contiguous)", err)
     flash_decode_contig_cuda.launches += 1
     return out
 

@@ -369,7 +369,7 @@ def _paged(B, Hkv, page, maxp, Dh, L, dtype, dev, seed):
     return k, v, table
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("page,pos", [
     (256, [0, 254, 255, 256, 299, 300, 511, 1023]),   # llama3-8b pool
     (16, [0, 15, 16, 17, 255, 256, 300, 1023])])
@@ -451,6 +451,171 @@ def test_decode_kernels_refuse_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="layer"):
         tdec.flash_decode(q, pool[None], pool[None], pos, layer=1,
                           page_table=table)
+
+
+# flash_decode's split: each row's keys over several blocks, merged in order
+
+def _fd_chunk(dtype):
+    """Keys a chunk holds at Dh 128 (the plan's arithmetic)."""
+    return tdec.fd_chunk(128, torch.tensor([], dtype=dtype).element_size())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("cache", ["paged", "contig"])
+@pytest.mark.parametrize("alibi", [False, True])
+def test_flash_decode_split_depths_match_plain(cuda_device, dtype, cache,
+                                               alibi):
+    """llama3-8b's heads (32/8 of 128) at depths on the chunk edges (C - 1,
+    C and C + 1 keys), depth 1, 2048 keys of a 2048-slot window, and rows
+    whose depths end in different chunks, beside the plain version; two
+    calls give the same bits."""
+    B, H, Hkv, Dh, L = 8, 32, 8, 128, 2
+    C = _fd_chunk(dtype)
+    pos = torch.tensor([C - 2, C - 1, C, 0, 2047, 3 * C + 5, 2 * C - 1,
+                        5 * C], device=cuda_device)
+    q = _randn((B, H, Dh), 9, dtype, cuda_device)
+    if cache == "paged":
+        page = 16
+        k, v, table = _paged(B, Hkv, page, 2048 // page, Dh, L, dtype,
+                             cuda_device, 5)
+        call = lambda p: tdec.flash_decode(q, k, v, p, layer=1, alibi=alibi,
+                                           page_table=table)
+        want = lambda p: tdec._flash_decode_paged_ref(
+            q, k, v, p, table, scale=Dh ** -0.5, layer=1, alibi=alibi)
+    else:
+        k, v = _contig(B, Hkv, 2048, Dh, L, dtype, cuda_device, 5)
+        call = lambda p: tdec.flash_decode(q, k, v, p, layer=1, alibi=alibi)
+        want = lambda p: tdec._flash_decode_ref(q, k[1], v[1], p,
+                                                scale=Dh ** -0.5, alibi=alibi)
+    cases = [pos]
+    if cache == "contig":       # one depth for the batch: the exact grid
+        cases += [C - 2, C - 1, C, 0, 2047]
+    for p in cases:
+        got = call(p)
+        torch.cuda.synchronize()
+        _close(got, want(p), ATTN_TOL[dtype])
+        assert torch.equal(got, call(p))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_decode_many_splits_match_plain(cuda_device, dtype):
+    """One row and one KV head (every chunk of 8192 keys its own block),
+    GQA groups of 8 and of 1, and a pool of 1-token pages (a chunk's pages
+    all different)."""
+    q = _randn((1, 8, 64), 1, dtype, cuda_device)
+    k, v = _contig(1, 1, 8193, 64, 1, dtype, cuda_device, 2)
+    for p in (8192, 4000, 127):
+        got = _counted(tdec.flash_decode_contig_cuda, q, k[0], v[0], p,
+                       scale=0.125)
+        _close(got, tdec._flash_decode_ref(q, k[0], v[0], p, scale=0.125),
+               ATTN_TOL[dtype])
+    q = _randn((2, 4, 64), 3, dtype, cuda_device)
+    k, v, table = _paged(2, 4, 1, 600, 64, 1, dtype, cuda_device, 4)
+    pos = torch.tensor([599, 130], device=cuda_device)
+    got = _counted(tdec.flash_decode, q, k[0], v[0], pos, page_table=table)
+    _close(got, tdec._flash_decode_paged_ref(q, k[0], v[0], pos, table,
+                                             scale=0.125, layer=None,
+                                             alibi=False), ATTN_TOL[dtype])
+
+
+def test_flash_decode_no_key_gives_zeros(cuda_device):
+    """A row with no key (pos -1: l == 0) comes out as zeros, as the Pallas
+    kernel's l == 0 guard gives, beside rows that attend."""
+    q = _randn((3, 8, 64), 1, torch.float32, cuda_device)
+    k, v = _contig(3, 2, 300, 64, 1, torch.float32, cuda_device, 2)
+    pos = torch.tensor([-1, 0, 299], device=cuda_device)
+    got = _counted(tdec.flash_decode_contig_cuda, q, k[0], v[0], pos,
+                   scale=0.125)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    _close(got[1:], tdec._flash_decode_ref(q, k[0], v[0], pos, scale=0.125)[1:],
+           ATTN_TOL[torch.float32])
+
+
+def test_flash_decode_launches_on_the_current_stream(cuda_device):
+    """The lean host path of both caches: under torch.cuda.stream(s),
+    behind a long sleep on s, q is written on s and both kernels read it
+    there, with their scratch and tickets kept for s (deep rows: several
+    splits a row, so the merge runs)."""
+    dt = torch.bfloat16
+    src = _randn((8, 32, 128), 0, dt, cuda_device)
+    k, v = _contig(8, 8, 1024, 128, 1, dt, cuda_device, 1)
+    kp, vp, table = _paged(8, 8, 64, 16, 128, 1, dt, cuda_device, 2)
+    pos = torch.full((8,), 1000, device=cuda_device)
+    q = torch.zeros_like(src)
+    torch.cuda.synchronize()
+    s = torch.cuda.Stream()
+    with torch.cuda.stream(s):
+        torch.cuda._sleep(50_000_000)
+        q.copy_(src)
+        y = _counted(tdec.flash_decode_contig_cuda, q, k[0], v[0], 1000,
+                     scale=128 ** -0.5)
+        yp = _counted(tdec.flash_decode, q, kp[0], vp[0], pos,
+                      page_table=table)
+        done = s.record_event()
+    done.synchronize()
+    _close(y, tdec._flash_decode_ref(src, k[0], v[0], 1000,
+                                     scale=128 ** -0.5), ATTN_TOL[dt])
+    _close(yp, tdec._flash_decode_paged_ref(src, kp[0], vp[0], pos, table,
+                                            scale=128 ** -0.5, layer=None,
+                                            alibi=False), ATTN_TOL[dt])
+
+
+def test_flash_decode_lean_path_keeps_every_refusal(cuda_device):
+    """The contiguous cache's refusals on the lean path (the paged pool's
+    are test_decode_kernels_refuse_bad_inputs'), and the 16-byte alignment
+    the bulk copies need on both: each raises its own error and launches
+    nothing."""
+    dev = cuda_device
+    q = torch.ones(2, 4, 64, device=dev)
+    kc = torch.ones(2, 2, 16, 64, device=dev)
+    before = (tdec.flash_decode.launches, tdec.flash_decode_contig_cuda.launches)
+    with pytest.raises(TypeError, match="int64"):
+        tdec.flash_decode(q, kc, kc, torch.tensor([1, 2], device=dev).int())
+    with pytest.raises(ValueError, match="1 or 2 depths"):
+        tdec.flash_decode(q, kc, kc, torch.tensor([1, 2, 3], device=dev))
+    with pytest.raises(ValueError, match="with B = 2"):
+        tdec.flash_decode(q, kc[:1], kc[:1], 3)
+    with pytest.raises(TypeError, match="expected dtype"):
+        tdec.flash_decode(q, kc, kc.half(), 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        tdec.flash_decode(q, kc, kc.transpose(2, 3).contiguous()
+                          .transpose(2, 3), 3)
+    with pytest.raises(ValueError, match="head dim"):
+        tdec.flash_decode(q[..., :60].contiguous(), kc[..., :60].contiguous(),
+                          kc[..., :60].contiguous(), 3)
+    with pytest.raises(ValueError, match="GQA"):
+        tdec.flash_decode(torch.ones(2, 32, 64, device=dev), kc[:, :2][:, :1]
+                          .contiguous(), kc[:, :1].contiguous(), 3)
+    with pytest.raises(ValueError, match="layer"):
+        tdec.flash_decode(q, kc[None], kc[None], 3, layer=1)
+    with pytest.raises(ValueError, match="expected a tensor on"):
+        tdec.flash_decode(q, kc.cpu(), kc, 3)
+    odd = torch.ones(kc.numel() + 1, device=dev)[1:].view(kc.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        tdec.flash_decode(q, odd, kc, 3)
+    with pytest.raises(ValueError, match="aligned"):        # a paged pool
+        tdec.flash_decode(q, kc, odd, torch.tensor([1, 2], device=dev),
+                          page_table=torch.zeros(2, 1, dtype=torch.long,
+                                                 device=dev))
+    assert (tdec.flash_decode.launches,
+            tdec.flash_decode_contig_cuda.launches) == before
+
+
+def test_flash_decode_shared_memory_matches_the_plan(cuda_device):
+    """The kernel's own shared-memory count equals fd_smem_bytes, the one
+    the CPU tests bound, at every head dim, group and dtype."""
+    import ctypes
+
+    from deepspeed_tpu_torch.ops.kernels.build import bind
+
+    smem = bind("decode", "ds_flash_decode_smem", [ctypes.c_int] * 4,
+                ctypes.c_longlong)
+    for itemsize in (2, 4):
+        for Dh in range(8, 257, 8):
+            chunk = tdec.fd_chunk(Dh, itemsize)
+            for rep in range(1, 9):
+                assert smem(Dh, rep, chunk, itemsize) == tdec.fd_smem_bytes(
+                    Dh, rep, chunk, itemsize)
 
 
 def test_serving_on_card_matches_cpu(cuda_device):
@@ -1440,7 +1605,7 @@ def _contig(B, Hkv, Smax, Dh, L, dtype, dev, seed):
     return k, v
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("Smax", [512, 1025, 64, 8193])
 @pytest.mark.parametrize("per_row", [False, True])
 @pytest.mark.parametrize("alibi", [False, True])

@@ -299,6 +299,161 @@ def test_flash_decode_contig_any_length_matches_jax(Smax, pos):
     _close(want, tdec.flash_decode(tq, tk, tv, tpos), ATTN_TOL["float32"])
 
 
+# ---------------------------------------------------------------------------
+# flash_decode's grid: the chunk and split arithmetic the kernel follows
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("Dh,itemsize,chunk", [
+    (128, 2, 64), (64, 2, 128), (256, 2, 32), (128, 4, 32), (256, 4, 16),
+    (64, 4, 64), (8, 2, 128), (40, 2, 128), (32, 4, 128)])
+def test_fd_chunk_by_head_dim_and_dtype(Dh, itemsize, chunk):
+    """16 to 128 keys (a power of two: threads a key for the scores), the
+    chunk's K rows within 16 KB."""
+    c = tdec.fd_chunk(Dh, itemsize)
+    assert c == chunk and c & (c - 1) == 0 and 16 <= c <= 128
+    assert c * Dh * itemsize <= tdec._FD_CHUNK_BYTES or c == 16
+
+
+# blocks an H100 holds at once at llama3-8b's decode shape: 3 an SM on 132
+SLOTS = 3 * 132
+
+
+@pytest.mark.parametrize("B,Hkv,rep,Dh,itemsize,keys,chunk,splits", [
+    (8, 8, 4, 128, 2, 264, 64, 5),       # llama3-8b generate: 320 blocks
+    (8, 8, 4, 128, 2, 2048, 64, 6),      # 2048 keys: one wave, 384 blocks
+    (8, 8, 4, 128, 2, 1024, 64, 6),      # the serve pool's bound (4 x 256)
+    (8, 25, 1, 64, 2, 1024, 128, 1),     # gpt2-xl serve: 200 rows fill it
+    (8, 8, 4, 128, 2, 1, 64, 1),         # depth 1: one block a row
+    (1, 8, 4, 128, 4, 2048, 32, 49),     # one row, fp32
+    (1, 1, 8, 64, 2, 65536, 128, 256),   # the cap on blocks a row
+    (600, 8, 4, 128, 2, 512, 64, 1)])    # more rows than the card holds
+def test_fd_plan_fills_one_wave(B, Hkv, rep, Dh, itemsize, keys, chunk,
+                                splits):
+    """As many splits as fit one wave of resident blocks, never more than
+    the chunks."""
+    c, s, nbytes = tdec.fd_plan(B, Hkv, rep, Dh, itemsize, keys, SLOTS)
+    assert (c, s) == (chunk, splits)
+    chunks = -(-keys // c)
+    assert s <= chunks and s <= tdec._FD_MAX_SPLITS
+    rows = min(B, tdec._FD_MAX_ROWS // Hkv) * Hkv
+    assert rows * s <= max(SLOTS, rows)                  # one wave
+    assert s == min(chunks, tdec._FD_MAX_SPLITS) or rows * (s + 1) > SLOTS
+    assert nbytes == (rows * s * rep * (Dh + 2) * 4 if s > 1 else 0)
+
+
+def test_fd_plan_passes_keep_a_ticket_a_row():
+    """More (slot, KV head) rows than tickets: the scratch and the tickets
+    cover one pass of _FD_MAX_ROWS rows."""
+    c, s, nbytes = tdec.fd_plan(1024, 8, 4, 128, 2, 8192, SLOTS)
+    assert s == 1 and nbytes == 0
+    c, s, nbytes = tdec.fd_plan(600, 8, 1, 64, 2, 8192, 3 * 4096)
+    assert s == 3 and nbytes == 512 * 8 * s * 1 * 66 * 4
+
+
+@pytest.mark.parametrize("page", [8, 16, 256])
+@pytest.mark.parametrize("Smax", [64, 512, 1025])
+@pytest.mark.parametrize("itemsize,Dh", [(2, 128), (4, 128), (2, 64)])
+def test_fd_every_key_in_exactly_one_chunk(page, Smax, itemsize, Dh):
+    """Per-row depths 1..Smax (pos 0..Smax-1, and a pos past the window)
+    over a paged pool of Smax // page + 1 pages a slot: every key 0..pos of
+    every row falls in exactly one split's chunks, no split reads past the
+    row's depth, and each chunk's page-table entries fit the kernel's slot
+    of ``chunk`` entries within the table row."""
+    maxp = Smax // page + 1
+    bound = maxp * page
+    rng = np.random.default_rng(Smax + page)
+    depths = sorted({0, 1, 15, 16, 17, Smax - 1, bound - 1, bound + 7,
+                     *rng.integers(0, Smax, 8).tolist()})
+    for slots in (1, SLOTS):
+        chunk, splits, _ = tdec.fd_plan(len(depths), 8, 4, Dh, itemsize,
+                                        bound, slots)
+        for pos in depths:
+            n_tok = min(pos + 1, bound)
+            seen = np.zeros(n_tok, np.int64)
+            ranges = tdec.fd_split_keys(n_tok, chunk, splits)
+            assert 1 <= len(ranges) <= splits
+            for start, end in ranges:
+                assert start % chunk == 0 and start < end <= n_tok
+                seen[start:end] += 1
+                for c in range(start // chunk, -(-end // chunk)):
+                    p0, p1 = tdec.fd_chunk_pages(c, chunk, page, maxp)
+                    assert 0 <= p0 < p1 <= maxp and p1 - p0 <= chunk
+                    assert p0 <= c * chunk // page
+                    assert (min(end, (c + 1) * chunk) - 1) // page < p1
+            assert (seen == 1).all()
+        assert tdec.fd_split_keys(0, chunk, splits) == []
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_fd_shared_memory_bounded(itemsize):
+    """Every head dim (a multiple of 8 up to 256) and GQA group (1 to 8)
+    fits a block's shared memory, which holds no term in Smax or maxp."""
+    for Dh in range(8, 257, 8):
+        chunk = tdec.fd_chunk(Dh, itemsize)
+        for rep in range(1, 9):
+            assert tdec.fd_smem_bytes(Dh, rep, chunk, itemsize) <= \
+                tdec._SMEM_LIMIT
+
+
+def _split_merge(q, k, v, pos, scale, chunk, splits, alibi):
+    """The kernel's algorithm in fp32 torch over a contiguous [B, Hkv, S,
+    Dh] cache: each live split's online softmax over its chunks, then the
+    ordered merge of the splits' (acc, m, l)."""
+    from deepspeed_tpu_torch.models.layers import alibi_slopes
+
+    B, H, Dh = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    rep = H // Hkv
+    out = torch.zeros(B, H, Dh)
+    slopes = alibi_slopes(H).reshape(Hkv, rep)
+    for b in range(B):
+        n_tok = min(int(pos[b]) + 1, S)
+        for g in range(Hkv):
+            qg = q[b, g * rep:(g + 1) * rep].float()
+            parts = []
+            for start, end in tdec.fd_split_keys(n_tok, chunk, splits):
+                m = torch.full((rep,), tdec.NEG_INF)
+                l, acc = torch.zeros(rep), torch.zeros(rep, Dh)
+                for c0 in range(start, end, chunk):
+                    t = torch.arange(c0, c0 + chunk)
+                    kk = k[b, g, c0:c0 + chunk].float()
+                    vv = v[b, g, c0:c0 + chunk].float()
+                    s = (qg @ kk.T) * scale
+                    if alibi:
+                        s = s + slopes[g][:, None] * (t[:len(kk)] - int(pos[b]))
+                    s = torch.where(t[None, :len(kk)] < n_tok, s, tdec.NEG_INF)
+                    mn = torch.maximum(m, s.max(-1).values)
+                    p = torch.exp(s - mn[:, None])
+                    al = torch.exp(m - mn)
+                    l, acc, m = al * l + p.sum(-1), acc * al[:, None] + p @ vv, mn
+                parts.append((acc, m, l))
+            M = torch.stack([m for _, m, _ in parts]).max(0).values
+            L = sum(torch.exp(m - M) * l for _, m, l in parts)
+            O = sum(torch.exp(m - M)[:, None] * a for a, m, _ in parts)
+            out[b, g * rep:(g + 1) * rep] = O / L[:, None]
+    return out
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 7])
+@pytest.mark.parametrize("alibi", [False, True])
+def test_fd_split_and_ordered_merge_match_jax(splits, alibi):
+    """The kernel's split of each row's keys over blocks and its ordered
+    merge, in fp32 torch, against the JAX package's flash_decode: depths at
+    chunk edges (C - 1, C, C + 1 keys), one key, and a full cache."""
+    rng = np.random.default_rng(10)
+    B, Hkv, rep, Dh, S, chunk = 6, 2, 4, 32, 80, 16
+    q = _rand(rng, B, Hkv * rep, Dh)
+    k = _rand(rng, B, Hkv, S, Dh)
+    v = _rand(rng, B, Hkv, S, Dh)
+    pos = [14, 15, 16, 0, 47, S - 1]
+    want = jdec.flash_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             jnp.asarray(pos, jnp.int32), alibi=alibi)
+    got = _split_merge(torch.from_numpy(q), torch.from_numpy(k),
+                       torch.from_numpy(v), pos, Dh ** -0.5, chunk, splits,
+                       alibi)
+    _close(want, got, ATTN_TOL["float32"])
+
+
 def _int8(rng, d_in, d_out):
     """int8 codes and per-column fp32 scales, as quantize_weight makes
     them (the same arrays go to both packages)."""
