@@ -247,6 +247,33 @@ def time_ms(torch, fn, samples=50, inner=20, warmup=10):
     return statistics.median(times)
 
 
+def graph_us(torch, fn, n=20, reps=10):
+    """Device us a call of ``fn`` replayed from a CUDA graph of ``n`` calls
+    (CUDA events over ``reps`` replays): the device's time a call with the
+    host's launches taken out, programmatic dependences kept."""
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        for _ in range(3):
+            fn()                        # the wrappers' scratch for s, eagerly
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=s):
+        for _ in range(n):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        g.replay()
+    b.record()
+    b.synchronize()
+    del g
+    return a.elapsed_time(b) * 1e3 / (reps * n)
+
+
 def host_us(torch, fn, calls=2000, batch=100, warmup=50):
     """Host microseconds a call of ``fn`` (perf_counter_ns over ``calls``
     calls, the device drained every ``batch`` so that its queue never
@@ -518,10 +545,11 @@ def paged_inputs(torch, dev, gen, dt, page, pos, layers=2, model="llama3-8b",
 def check_decode_kernels(torch, dev, gen, model):
     """The four fused decode kernels against their plain versions at
     ``model``'s path shapes and branches (norm kind, activation, gate or
-    none, heads per KV head), fp32 and bf16, and fp16 for the two GEMVs on
-    the tensor cores (norm_qkv and proj_norm, two calls bit-equal in bf16
-    and fp16) and for flash_decode (every dtype: depths across pages and on
-    its chunk edges, 2047 keys of a 2048 window, two calls bit-equal);
+    none, heads per KV head), fp32 and bf16, and fp16 for the three GEMVs
+    on the tensor cores (norm_qkv, proj_norm and the MLP, two calls
+    bit-equal in bf16 and fp16) and for flash_decode (every dtype: depths
+    across pages and on its chunk edges, 2047 keys of a 2048 window, two
+    calls bit-equal);
     returns the bf16 max abs errors."""
     from deepspeed_tpu_torch.ops.kernels import decode as dk
 
@@ -566,13 +594,16 @@ def check_decode_kernels(torch, dev, gen, model):
             if not (torch.equal(y, y2) and torch.equal(r, r2) and torch.equal(h, h2)):
                 raise AssertionError(f"norm_qkv / proj_norm {model} {dtype_name}: "
                                      "two calls differ")
-        if dtype_name != "float16":     # the FFMA MLP: fp32 and bf16
-            y = dk.fused_mlp_cuda(t["h"], t["resid"], wu, wd, wg, act=act)
-            torch.cuda.synchronize()
-            out["fused_mlp"] = _assert_close(
-                torch, y, dk._mlp_ref(t["h"], t["resid"], wu, wg, wd, None,
-                                      None, None, act=act),
-                GEMV_TOL[dtype_name], f"fused_mlp {model} {dtype_name}")
+        y = dk.fused_mlp_cuda(t["h"], t["resid"], wu, wd, wg, act=act)
+        torch.cuda.synchronize()
+        out["fused_mlp"] = _assert_close(
+            torch, y, dk._mlp_ref(t["h"], t["resid"], wu, wg, wd, None,
+                                  None, None, act=act),
+            GEMV_TOL[dtype_name], f"fused_mlp {model} {dtype_name}")
+        if dtype_name != "float32":     # the down launch's split merge is ordered
+            check(torch.equal(y, dk.fused_mlp_cuda(t["h"], t["resid"], wu, wd, wg,
+                                                   act=act)),
+                  f"fused_mlp {model} {dtype_name}: two calls differ")
         del t, wqkv, wo, wu, wg, wd
         # depths 1..1024 (pos 0..1023) across page boundaries and on the
         # chunk edges (C - 1, C, C + 1 keys); the ordered merge: same bits
@@ -617,16 +648,17 @@ def check_decode_kernels(torch, dev, gen, model):
         out["flash_decode"] = fd
         if dtype_name == "float16":
             print(f"decode kernels vs plain at {model}'s shapes, float16 within "
-                  f"2.5e-3 (norm_qkv, proj_norm on the tensor cores and "
+                  f"2.5e-3 (norm_qkv, proj_norm, the MLP on the tensor cores and "
                   f"flash_decode bit-equal on a repeat): max abs err norm_qkv "
                   f"{out['fused_norm_qkv']:.3g}, proj_norm "
-                  f"{out['fused_proj_norm']:.3g}, flash_decode {fd:.3g}")
+                  f"{out['fused_proj_norm']:.3g}, mlp {out['fused_mlp']:.3g}, "
+                  f"flash_decode {fd:.3g}")
         if bf:
             errs = out
     print(f"decode kernels vs plain at {model}'s shapes (D {m['D']}, "
           f"{m['H']}/{m['HKV']} heads of {dh}, F {m['F']}, {kind}, {act}"
           f"{' gated' if m['glu'] else ', no gate'}): fp32 GEMV within 1e-4, "
-          "attention 2e-4, bf16 within 2e-2 (norm_qkv, proj_norm and "
+          "attention 2e-4, bf16 within 2e-2 (norm_qkv, proj_norm, the MLP and "
           "flash_decode bit-equal on a repeat); bf16 max abs err " + ", ".join(
               f"{k} {v:.3g}" for k, v in errs.items()))
     return errs
@@ -786,17 +818,19 @@ def time_old_kernels(torch, dev, gen, errs):
 
 
 def time_decode_kernels(torch, dev, gen, errs):
-    """bf16 at the llama3-8b decode shapes (norm_qkv and proj_norm also at
-    gpt2-xl's, with their host time a call: gemv16_times; the paged
-    flash_decode: flash_decode_paged_times).  The GEMV kernels cycle
-    through weight copies totalling > 100 MB, so each call streams its
-    weights from HBM as the 32-layer path does."""
+    """bf16 at the llama3-8b decode shapes (norm_qkv, proj_norm and the MLP
+    also at gpt2-xl's, with their device time alone and host time a call:
+    gemv16_times; the paged flash_decode: flash_decode_paged_times).  The
+    GEMV kernels cycle through weight copies totalling > 100 MB, so each
+    call streams its weights from HBM as the 32-layer path does; cuBLAS's
+    products of the same shapes are timed beside them (``matmul_ms``, never
+    called by the port)."""
     from deepspeed_tpu_torch.ops.kernels import decode as dk
 
     bf = torch.bfloat16
     out = {}
     zeros = torch.zeros(D, device=dev, dtype=bf)
-    g16 = gemv16_times(torch, dev, gen)
+    g16 = gemv16_times(torch, dev, gen, profile=True, int8=False)
 
     # fused_norm_qkv: x [8,4096] . wqkv [4096,6144]
     t = decode_inputs(torch, dev, gen, bf, copies=3)
@@ -829,16 +863,6 @@ def time_decode_kernels(torch, dev, gen, errs):
         "max_abs_err": errs["fused_proj_norm"]}
     del t, nw
 
-    # the two tensor-core GEMVs at both models' shapes, and ptxas's lines
-    ptx = gemv16_ptxas()
-    for k in ("fused_norm_qkv", "fused_proj_norm"):
-        for model, pre in (("llama3-8b", ""), ("gpt2-xl", "gpt2_")):
-            for f, v in g16[f"{model} {k[len('fused_'):]}"].items():
-                out[k][pre + f] = v
-        out[k]["ptxas"] = [ln for ln in ptx if k[len("fused_"):] in ln]
-        for ln in out[k]["ptxas"]:
-            print(f"  ptxas {ln}")
-
     # fused_mlp: h [8,4096] . (wg, wu [4096,14336]) -> a . wd [14336,4096]
     t = decode_inputs(torch, dev, gen, bf)
     h, r = t["h"], t["resid"]
@@ -848,8 +872,6 @@ def time_decode_kernels(torch, dev, gen, errs):
     b_ms, b_by = bound_ms(nbytes, 6 * B * D * F, BF16_FLOPS_PER_S)
     out["fused_mlp"] = {
         "shape": "h[8,4096] . wg,wu[4096,14336], a . wd[14336,4096] bf16",
-        "ms": time_ms(torch, lambda: dk.fused_mlp_cuda(h, r, wu, wd, wg,
-                                                       act="silu")),
         "plain_ms": time_ms(torch, lambda: dk._mlp_ref(
             h, r, wu, wg, wd, None, None, None, act="silu"), samples=10),
         "matmul_ms": time_ms(torch, lambda: (torch.matmul(h, wg),
@@ -858,6 +880,31 @@ def time_decode_kernels(torch, dev, gen, errs):
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
         "max_abs_err": errs["fused_mlp"]}
     del t, wu, wg, wd
+    # cuBLAS's two products at gpt2-xl's MLP shape, weights cycled past the L2
+    m2 = DECODE_MODELS["gpt2-xl"]
+    h2 = _randn(torch, (B, m2["D"]), gen, dev).to(bf)
+    a2 = _randn(torch, (B, m2["F"]), gen, dev).to(bf)
+    gw = cycler([(_randn(torch, (m2["D"], m2["F"]), gen, dev).to(bf),
+                  _randn(torch, (m2["F"], m2["D"]), gen, dev).to(bf)) for _ in range(3)])
+
+    def gpt2_matmuls():
+        w1, w2 = gw()
+        return torch.matmul(h2, w1), torch.matmul(a2, w2)
+    out["fused_mlp"]["gpt2_matmul_ms"] = time_ms(torch, gpt2_matmuls)
+    del gw
+
+    # the tensor-core GEMVs at both models' shapes, and ptxas's lines
+    ptx = gemv16_ptxas()
+    for k in ("fused_norm_qkv", "fused_proj_norm", "fused_mlp"):
+        for model, pre in (("llama3-8b", ""), ("gpt2-xl", "gpt2_")):
+            for what, r in g16.items():
+                if what.startswith(f"{model} {k[len('fused_'):]}"):
+                    sfx = what[len(f"{model} {k[len('fused_'):]}"):].replace(" ", "_")
+                    for f, v in r.items():
+                        out[k][pre + f + sfx] = v
+        out[k]["ptxas"] = [ln for ln in ptx if k[len("fused_"):] in ln]
+        for ln in out[k]["ptxas"]:
+            print(f"  ptxas {ln}")
 
     for name, b2 in gpt2_decode_bounds().items():
         out[name]["gpt2_bound_ms"] = b2
@@ -867,15 +914,22 @@ def time_decode_kernels(torch, dev, gen, errs):
     out["flash_decode"]["ptxas"] = flash_decode_ptxas()
     for ln in out["flash_decode"]["ptxas"]:
         print(f"  ptxas {ln}")
-    for k in ("fused_norm_qkv", "fused_proj_norm"):
+    for k in ("fused_norm_qkv", "fused_proj_norm", "fused_mlp"):
         r = out[k]
-        r["bound_share"] = r["bound_ms"] / r["ms"]
-        r["gpt2_bound_share"] = r["gpt2_bound_ms"] / r["gpt2_ms"]
-        print(f"time {k} bf16 (tensor cores): llama3-8b {r['ms']:.5f} ms, bound "
-              f"{r['bound_ms']:.6f} ms ({100 * r['bound_share']:.1f} % of it), "
-              f"host {r['host_us']:.3f} us a call; gpt2-xl {r['gpt2_ms']:.5f} ms, "
-              f"bound {r['gpt2_bound_ms']:.6f} ms ({100 * r['gpt2_bound_share']:.1f} "
-              f"% of it), host {r['gpt2_host_us']:.3f} us")
+        # the bound over the device time alone (weights cycled past the L2)
+        r["bound_share"] = r["bound_ms"] * 1e3 / r["device_us"]
+        r["gpt2_bound_share"] = r["gpt2_bound_ms"] * 1e3 / r["gpt2_device_us"]
+        print(f"time {k} bf16 (tensor cores): llama3-8b device {r['device_us']:.2f} us "
+              f"alone, bound {r['bound_ms'] * 1e3:.3f} us ({100 * r['bound_share']:.1f} % "
+              f"of it), call {r['ms']:.5f} ms, host {r['host_us']:.3f} us a call; gpt2-xl "
+              f"device {r['gpt2_device_us']:.2f} us, bound {r['gpt2_bound_ms'] * 1e3:.3f} "
+              f"us ({100 * r['gpt2_bound_share']:.1f} %), call {r['gpt2_ms']:.5f} ms, host "
+              f"{r['gpt2_host_us']:.3f} us")
+    r = out["fused_mlp"]
+    print(f"time fused_mlp bf16: replayed from a CUDA graph (PDL's overlap counted once) "
+          f"llama3-8b {r['graph_us']:.2f} us, gpt2-xl {r['gpt2_graph_us']:.2f} us; cuBLAS's "
+          f"products (matmul_ms, timed only) llama3-8b {r['matmul_ms']:.5f} ms, gpt2-xl "
+          f"{r['gpt2_matmul_ms']:.5f} ms")
     return out
 
 
@@ -1063,30 +1117,45 @@ def flash_decode_ptxas():
     return lines
 
 
-def gemv16_times(torch, dev, gen, profile=False):
-    """The bf16 fused_norm_qkv and fused_proj_norm at llama3-8b's and
-    gpt2-xl's decode shapes (8 rows; gpt2-xl with LayerNorm's bias and the
-    projections' biases), each call on the next of weight copies totalling
-    > 100 MB, so that it streams its weights from HBM as the 32-layer path
-    does.  Returns {"<model> <kernel>": {"ms": a call under CUDA events,
-    "host_us": the host's time a call, and with ``profile`` "device_us": a
-    launch under the profiler (mean of 200)}}.  This script reads the
-    kernels' device time on the paths instead: one profiler session fewer
-    for each shape ahead of the flash kernels' profiles."""
+def gemv16_times(torch, dev, gen, profile=False, int8=True):
+    """The tensor-core GEMVs at the decode paths' shapes, 8 rows: the bf16
+    fused_norm_qkv and fused_proj_norm at llama3-8b's and gpt2-xl's (gpt2-xl
+    with LayerNorm's bias and the projections' biases), the bf16 fused_mlp
+    at both (gpt2-xl with its biases), and the int8 fused_norm_qkv at
+    llama3-8b's; each call on the next of weight copies totalling > 100 MB,
+    so that it streams its weights from HBM as the path does.  Returns
+    {"<model> <kernel>": {"ms": a call under CUDA events, "host_us": the
+    host's time a call, and with ``profile`` "device_us": the kernels'
+    device time a call under the profiler (mean of 200; the MLP's two
+    launches summed, each in "split")}}."""
     from deepspeed_tpu_torch.ops.kernels import decode as dk
 
     bf = torch.bfloat16
     out = {}
+
+    def measure(what, call, names):
+        out[what] = {"ms": time_ms(torch, call), "host_us": host_us(torch, call)}
+        try:        # an older checkout's wrappers (gemv16_probe.py --tree) may not capture
+            out[what]["graph_us"] = graph_us(torch, call)
+        except RuntimeError as e:
+            print(f"{what}: no CUDA graph replay: {e}")
+        if profile:
+            split = kernel_split(torch, call, names, what, calls=200)
+            out[what]["device_us"] = sum(split.values())
+            if len(names) > 1:
+                out[what]["split"] = split
+
     for model in ("llama3-8b", "gpt2-xl"):
         m = DECODE_MODELS[model]
-        d, hd, kind = m["D"], m["H"] * m["DH"], m["kind"]
+        d, hd, f, kind = m["D"], m["H"] * m["DH"], m["F"], m["kind"]
         nqkv = (m["H"] + 2 * m["HKV"]) * m["DH"]
         x = _randn(torch, (B, d), gen, dev, 2).to(bf)
         ctx = _randn(torch, (B, hd), gen, dev).to(bf)
         resid = _randn(torch, (B, d), gen, dev, 2).to(bf)
         s = (1 + 0.1 * torch.randn(d, device=dev, generator=gen)).to(bf)
-        nb, bq, bo = ((0.1 * torch.randn(n, device=dev, generator=gen)).to(bf)
-                      if kind == "layernorm" else None for n in (d, nqkv, d))
+        nb, bq, bo, bu, bd = ((0.1 * torch.randn(n, device=dev, generator=gen)).to(bf)
+                              if kind == "layernorm" else None
+                              for n in (d, nqkv, d, f, d))
         for name, k, n in (("norm_qkv", d, nqkv), ("proj_norm", hd, d)):
             nw = cycler([_randn(torch, (k, n), gen, dev, k ** -0.5).to(bf)
                          for _ in range(-(-(100 << 20) // (2 * k * n)))])
@@ -1099,32 +1168,46 @@ def gemv16_times(torch, dev, gen, profile=False):
                     return dk.fused_proj_norm_cuda(ctx, resid, nw(), bo, s, nb,
                                                    kind=kind, eps=1e-5,
                                                    parallel=False)
-            what = f"{model} {name}"
-            out[what] = {"ms": time_ms(torch, call), "host_us": host_us(torch, call)}
-            if profile:
-                out[what]["device_us"] = kernel_split(torch, call, (name,), what,
-                                                      calls=200)[name]
+            measure(f"{model} {name}", call, (name,))
             del nw
+        per = (3 if m["glu"] else 2) * d * f * 2
+        mw = cycler([(_randn(torch, (d, f), gen, dev, d ** -0.5).to(bf),
+                      _randn(torch, (d, f), gen, dev, d ** -0.5).to(bf) if m["glu"] else None,
+                      _randn(torch, (f, d), gen, dev, f ** -0.5).to(bf))
+                     for _ in range(-(-(100 << 20) // per))])
+
+        def mlp():
+            wu, wg, wd = mw()
+            return dk.fused_mlp_cuda(x, resid, wu, wd, wg, bu, None, bd, act=m["act"])
+        measure(f"{model} mlp", mlp, ("mlp_act", "mlp_down"))
+        del mw
+    if not int8:
+        return out
+    x = _randn(torch, (B, D), gen, dev, 2).to(bf)
+    s = (1 + 0.1 * torch.randn(D, device=dev, generator=gen)).to(bf)
+    nw = cycler([_int8_weight(torch, (D, NQKV), gen, dev) for _ in range(5)])
+
+    def qkv8():
+        w, ws = nw()
+        return dk.fused_norm_qkv_int8_cuda(x, s, None, w, ws, kind="rmsnorm", eps=1e-5)
+    measure("llama3-8b norm_qkv_int8", qkv8, ("norm_qkv",))
     return out
 
 
 def gemv16_ptxas():
     """ptxas's registers, shared memory and spills of the tensor-core
-    norm_qkv and proj_norm kernels (bf16 and fp16), one line an
-    instantiation."""
+    core's kernels (norm_qkv, proj_norm, the MLP's two launches: bf16 and
+    fp16; the int8 norm_qkv: TMA or cp.async), one line an instantiation."""
     from deepspeed_tpu_torch.ops.kernels import build
 
     lines, entry = [], ""
     for ln in build.load_library("decode").ptxas_info:
         if "Compiling entry" in ln:
-            entry = ln
-        elif "_mma_kernel" in entry and ("norm_qkv" in entry or "proj_norm" in entry) \
-                and ("Used" in ln or "spill" in ln):
-            m = re.search(r"((?:norm_qkv|proj_norm)_mma_kernel)I(\w+?)EEvNS_", entry)
-            ty = {"13__nv_bfloat16": "bf16", "6__half": "fp16"}.get(m.group(2), m.group(2)) \
-                if m else ""
-            name = f"{m.group(1)}<{ty}>" if m else entry.split("'")[-2][:90]
-            lines.append(f"{name}: {ln.split(':')[-1].strip()}")
+            entry = ln.split("'")[1] if "'" in ln else ln
+        elif "_mma_kernel" in entry and "mlp_act_int8" not in entry \
+                and "mlp_down_int8" not in entry and ("Used" in ln or "spill" in ln):
+            ty = " bf16" if "13__nv_bfloat16" in entry else " fp16" if "6__half" in entry else ""
+            lines.append(f"{kernel_label(entry)}{ty}: {ln.split(':')[-1].strip()}")
     return lines
 
 
@@ -1315,14 +1398,24 @@ def time_generate_kernels(torch, dev, gen, errs):
         w, ws = nw()
         return dk._norm_qkv_ref(x, s, zeros, w, None, kind="rmsnorm",
                                 eps=1e-5, wscale=ws)
+    def qkv8():
+        return dk.fused_norm_qkv_int8_cuda(x, s, None, *nw(), kind="rmsnorm", eps=1e-5)
     out["fused_norm_qkv_int8"] = {
         "shape": "x[8,4096] . wqkv[4096,6144] int8 + fp32 scales, bf16",
-        "ms": time_ms(torch, lambda: dk.fused_norm_qkv_int8_cuda(
-            x, s, None, *nw(), kind="rmsnorm", eps=1e-5)),
+        "ms": time_ms(torch, qkv8),
         "plain_ms": time_ms(torch, qkv_plain, samples=10),
         "matmul_ms": time_ms(torch, lambda: torch.matmul(x, dense)),
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-        "max_abs_err": errs["fused_norm_qkv_int8"]}
+        "max_abs_err": errs["fused_norm_qkv_int8"],
+        "host_us": host_us(torch, qkv8),
+        "device_us": kernel_split(torch, qkv8, ("norm_qkv",),
+                                  "fused_norm_qkv int8 x[8,4096]", calls=200)["norm_qkv"],
+        "ptxas": [ln for ln in gemv16_ptxas() if "int8" in ln]}
+    r = out["fused_norm_qkv_int8"]
+    r["bound_share"] = r["bound_ms"] * 1e3 / r["device_us"]
+    print(f"time fused_norm_qkv int8 (tensor cores): device {r['device_us']:.2f} us alone, "
+          f"bound {r['bound_ms'] * 1e3:.3f} us ({100 * r['bound_share']:.1f} % of it), call "
+          f"{r['ms']:.5f} ms, host {r['host_us']:.3f} us a call; " + "; ".join(r["ptxas"]))
     del wq, nw, dense
 
     ctx = _randn(torch, (B, H * DH), gen, dev).to(bf)
@@ -1704,6 +1797,23 @@ FLASH_KERNELS = {"fwd": ("flash_fwd_wgmma_kernel",),
                  "bwd_f16_alibi": ("flash_bwd_dq_wgmma_f16_alibi_kernel",
                                    "flash_bwd_delta_f16_kernel",
                                    "flash_bwd_dkv_wgmma_f16_alibi_kernel")}
+
+
+def span_ms(prof, tags):
+    """The device time, in ms, of the union of the intervals of every kernel
+    in ``prof`` whose name holds one of ``tags``: launches that overlap (a
+    programmatic dependent beside the tail of its primary) count once."""
+    iv = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                if str(getattr(e, "device_type", "")).endswith("CUDA")
+                and any(t in e.name for t in tags))
+    total, lo, hi = 0.0, None, None
+    for a, b in iv:
+        if hi is None or a > hi:
+            total += 0.0 if hi is None else hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    return (total + (0.0 if hi is None else hi - lo)) / 1e3
 
 
 def kernel_split(torch, call, names, what, calls=10, sessions=3):
@@ -2925,7 +3035,7 @@ def phase_profile(torch, serve, prompts):
             "fused_norm_qkv": ("norm_qkv_mma_kernel",),
             "flash_decode": ("flash_decode_kernel",),
             "fused_proj_norm": ("proj_norm_mma_kernel",),
-            "fused_mlp": ("mlp_act_kernel", "mlp_down_kernel")}
+            "fused_mlp": ("mlp_act_mma_kernel", "mlp_down_mma_kernel")}
     for name, keys in tags.items():
         parts = [[e for e in kernels if tag in e.key] for tag in keys]
         n = sum(e.count for e in parts[0])
@@ -2939,8 +3049,13 @@ def phase_profile(torch, serve, prompts):
             split = " (" + " + ".join(
                 f"{tag} {sum(e.self_device_time_total for e in p) / n / 1e3:.5f}"
                 for tag, p in zip(keys, parts)) + ")"
+        if len(parts) > 1:      # the launches' union: PDL's overlap counted once
+            out[name + "_span"] = span_ms(prof, keys) / n
+            split += f"; {out[name + '_span']:.5f} ms their union a call"
         print(f"profile: {name} device time per launch {out[name]:.5f} ms over "
               f"{n} launches{split}")
+    check(out["fused_mlp"] is not None and out["fused_norm_qkv"] is not None,
+          f"serve profile: no launch of {tags['fused_mlp']} or {tags['fused_norm_qkv']}")
     return out
 
 
@@ -3063,18 +3178,18 @@ def phase_generate_profile(torch, eng, prompts, int8):
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:6]:
         print(f"  {e.self_cpu_time_total / 1e3:9.2f} ms {e.count:7d}x "
               f"{e.key[:60]}")
-    # the GEMVs' int8 bodies of norm_qkv and proj_norm are the FFMA kernels
-    # over int8 codes (norm_qkv_kernel, proj_norm_kernel), bf16 runs the
-    # tensor-core ones (*_mma_kernel: the names do not hold each other, so
-    # the two kinds are never counted together); the int8 MLP has kernels
-    # of its own
+    # each body has kernels of its own, whose names do not hold each other
+    # (so two kinds are never counted together): the int8 norm_qkv runs
+    # norm_qkv_int8_mma_kernel, the int8 proj_norm the FFMA proj_norm_kernel
+    # over int8 codes, bf16 the tensor-core *_mma_kernel ones; the int8 MLP
+    # has kernels of its own
     sfx = "_int8" if int8 else ""
-    mma = "" if int8 else "_mma"
     tags = {"rms_norm": ("rms_norm_fwd_kernel",), "rope": ("_rope_fwd_kernel",),
-            "fused_norm_qkv" + sfx: (f"norm_qkv{mma}_kernel",),
+            "fused_norm_qkv" + sfx: ("norm_qkv_int8_mma_kernel" if int8
+                                     else "norm_qkv_mma_kernel",),
             "flash_decode_contig": ("flash_decode_kernel",),
-            "fused_proj_norm" + sfx: (f"proj_norm{mma}_kernel",),
-            "fused_mlp": ("mlp_act_kernel", "mlp_down_kernel"),
+            "fused_proj_norm" + sfx: ("proj_norm_kernel" if int8 else "proj_norm_mma_kernel",),
+            "fused_mlp": ("mlp_act_mma_kernel", "mlp_down_mma_kernel"),
             "fused_mlp_int8": ("mlp_act_int8_mma_kernel", "mlp_down_int8_mma_kernel")}
     out = {}
     for name, keys in tags.items():
@@ -3090,8 +3205,13 @@ def phase_generate_profile(torch, eng, prompts, int8):
                                     for tag, p in zip(keys, parts)}
             split = " (" + " + ".join(f"{tag} {v:.5f}" for tag, v
                                       in out[name + "_split"].items()) + ")"
+            out[name + "_span"] = span_ms(prof, keys) / n
+            split += f"; {out[name + '_span']:.5f} ms their union a call"
         print(f"profile: {name} device time per launch {out[name]:.5f} ms "
               f"over {n} launches{split}")
+    for name in (("fused_norm_qkv_int8", "fused_mlp_int8") if int8
+                 else ("fused_norm_qkv", "fused_mlp")):
+        check(name in out, f"generate profile: no launch of {tags[name]}")
     return out
 
 
@@ -3959,6 +4079,10 @@ def main() -> int:
         k["device_ms_on_path"] = k["device_ms_by_path"].get(path)
         if runs[path][1].get(name + "_split"):
             k["device_ms_split_on_path"] = runs[path][1][name + "_split"]
+        spans = {p: r[1][name + "_span"] for p, r in runs.items()
+                 if r[1].get(name + "_span") is not None}
+        if spans:       # a two-launch kernel's union a call, PDL's overlap once
+            k["device_ms_span_by_path"] = spans
         for extra in ("matmul_ms", "max_abs_err_train_shape",
                       "max_abs_err_gpt2_shape", "decode_rows_ms",
                       "masked_ms", "masked_plain_ms", "masked_bound_ms",
@@ -3974,7 +4098,8 @@ def main() -> int:
                       "ms_300", "bound_ms_300", "device_us_300",
                       "bound_share_300", "ms_2048", "bound_ms_2048",
                       "device_us_2048", "bound_share_2048", "library_ms_2048",
-                      "plain_ms_2048"):
+                      "plain_ms_2048", "split", "gpt2_split", "gpt2_matmul_ms",
+                      "graph_us", "gpt2_graph_us"):
             if extra in t:
                 k[extra] = t[extra]
         check(all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms",

@@ -8,17 +8,18 @@
 //   _flash_decode_paged (decode.py:252, pallas_call :311) -> flash_decode_kernel
 //   fused_proj_norm     (decode.py:433, pallas_call :460) -> proj_norm_mma_kernel
 //                          (bf16, fp16), proj_norm_kernel (fp32)
-//   fused_mlp           (decode.py:546, pallas_call :591) -> mlp_act_kernel
-//                                                            + mlp_down_kernel
+//   fused_mlp           (decode.py:546, pallas_call :591) -> mlp_act_mma_kernel
+//                          + mlp_down_mma_kernel (bf16, fp16), mlp_act_kernel
+//                          + mlp_down_kernel (fp32)
 //   flash_decode        (decode.py:319, pallas_call :390) -> flash_decode_kernel
 //     over a contiguous [L, B, Hkv, Smax, Dh] cache (generate()), through
 //     its own entry, ds_flash_decode_contig
 //
 // and the int8-weight bodies of the three GEMV kernels (their `quant=True`
 // branch, `_deq` decode.py:88), each through its own entry (the `_int8`
-// functions below): norm_qkv_kernel and proj_norm_kernel over int8 codes,
-// and for fused_mlp two kernels of their own on the tensor cores,
-// mlp_act_int8_mma_kernel + mlp_down_int8_mma_kernel.
+// functions below): norm_qkv_int8_mma_kernel on the tensor-core core,
+// proj_norm_kernel over int8 codes, and for fused_mlp two kernels of their
+// own on the tensor cores, mlp_act_int8_mma_kernel + mlp_down_int8_mma_kernel.
 //
 // What bounds them on the H100: memory bytes.  A decode step multiplies
 // num_slots (8) activation rows by each weight matrix: about 8 flops per
@@ -30,10 +31,10 @@
 // int8 weights the GEMVs read half the bytes: 25.2, 16.8 and 176.2 MB, bounds
 // of 7.5, 5.0 and 52.6 us.
 //
-// Design of the FFMA GEMV kernels (fp32 norm_qkv and proj_norm, the int8
-// bodies of both, the fp32 / bf16 / fp16 MLP; one shared core, gemv_partial +
-// reduce_tile): the grid splits the output columns into tiles of kCV
-// 16-byte vectors; each block streams its [K, tile] slice of the weight once
+// Design of the FFMA GEMV kernels (fp32 norm_qkv, proj_norm and MLP, the
+// int8 body of proj_norm; one shared core, gemv_partial + reduce_tile): the
+// grid splits the output columns into tiles of kCV 16-byte vectors; each
+// block streams its [K, tile] slice of the weight once
 // with 16-byte loads, its threads splitting the contraction K into
 // interleaved row groups, each thread loading kUnroll weight rows before it
 // multiplies any and keeping kBT x 8 fp32 accumulators (FFMA: no tensor
@@ -59,27 +60,28 @@
 //     (so the down projection reads a row's B values as 16-byte vectors),
 //     and mlp_down computes r + a @ Wd over output-column tiles.
 //
-// bf16 and fp16 norm_qkv and proj_norm take the products to the tensor
-// cores (mma.sync over 64-column weight tiles streamed by a cp.async ring):
-// their design note is above norm_qkv_mma_kernel.
+// bf16 and fp16 norm_qkv, proj_norm and the MLP, and the int8 norm_qkv, take
+// the products to the tensor cores (mma.sync over weight tiles the TMA
+// streams into a ring): their design note is above G16Cfg.
 //
 // int8 weights (bf16 activations only, as the JAX int8 engine serves).
 // Each element is dequantized as the reference's `_deq` does it: code x
 // scale in fp32, rounded to bf16, then the product with the bf16 activation
 // summed in fp32.
-//   - norm_qkv and proj_norm run the same kernels over a weight type
-//     W = int8_t: a thread still owns V = 8 columns, now one 8-byte vector of
-//     codes a row, and keeps twice the rows in flight; its 8 columns' fp32
-//     scales are loaded once into registers.  On the FFMA core the int8
-//     bodies ran no faster than the bf16 ones did there (PERF.md §6): each element
-//     costs an I2F, the scale, a round to bf16 and back, and kBT FFMAs, so
-//     the core is bound by issue, not by the halved bytes.
-//   - fused_mlp (176 MB of codes a call at llama3-8b, a 52.6 us bound) takes
-//     the products to the tensor cores instead (mma.sync m16n8k16 over the
-//     dequantized bf16 codes and the pass's 8 rows), and dequantizes with a
-//     byte permute and two fp32 operations an element: about a third of the
-//     FFMA body's instructions, so the 16-byte cp.async ring that streams
-//     the codes sets its time.  Its design note is above mlp_act_int8_mma_kernel.
+//   - proj_norm runs its FFMA kernel over a weight type W = int8_t: a thread
+//     still owns V = 8 columns, now one 8-byte vector of codes a row, and
+//     keeps twice the rows in flight; its 8 columns' fp32 scales are loaded
+//     once into registers.  On the FFMA core an int8 body runs no faster
+//     than the bf16 one did there (PERF.md §6): each element costs an I2F,
+//     the scale, a round to bf16 and back, and kBT FFMAs, so the core is
+//     bound by issue, not by the halved bytes.
+//   - norm_qkv and fused_mlp take the products to the tensor cores instead
+//     (mma.sync m16n8k16 over the dequantized bf16 codes and the pass's 8
+//     rows), and dequantize with a byte permute and two fp32 operations an
+//     element: about a third of the FFMA body's instructions, so the stream
+//     of codes sets their time.  norm_qkv is the tensor-core core's (the
+//     note above G16Cfg); the MLP's design note is above
+//     mlp_act_int8_mma_kernel.
 //
 // Design of flash_decode_kernel (both caches).  Bound by bytes: each K/V
 // row up to a slot's depth is read once; at llama3-8b's GQA group of 4 that
@@ -129,6 +131,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
 #include <type_traits>
 
 #include <cuda.h>  // CUtensorMap (the encoder is reached through the runtime)
@@ -364,12 +367,12 @@ __device__ __forceinline__ void reduce_tile(float (&acc)[kBT][Pack<T>::N], float
 // fused_norm_qkv: out[B, N] = (norm(x)[B, D] rounded to T) @ W[D, N] (+ bqkv)
 // ---------------------------------------------------------------------------
 
-template <typename T, typename W, int NT>
+template <typename T, int NT>
 __global__ void __launch_bounds__(NT, 512 / NT)
 norm_qkv_kernel(const T* __restrict__ x, const T* __restrict__ scale,
-                const T* __restrict__ bias, const W* __restrict__ w,
-                const float* __restrict__ wscale, const T* __restrict__ bqkv,
-                T* __restrict__ out, int B, int D, int N, int kind, float eps) {
+                const T* __restrict__ bias, const T* __restrict__ w,
+                const T* __restrict__ bqkv, T* __restrict__ out, int B, int D, int N,
+                int kind, float eps) {
   constexpr int V = Pack<T>::N;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* h = reinterpret_cast<T*>(smem_raw);  // [kBT, D]
@@ -378,8 +381,7 @@ norm_qkv_kernel(const T* __restrict__ x, const T* __restrict__ scale,
   const int tile0 = blockIdx.x * kCV * V;
   const int col = tile0 + (threadIdx.x % kCV) * V;
   const int rs = threadIdx.x / kCV;
-  Deq<T, W> deq;
-  deq.load(wscale, col, col < N);
+  const Deq<T, T> deq{};
   for (int b0 = 0; b0 < B; b0 += kBT) {
     const int bc = min(kBT, B - b0);
     stage_rows<T, NT>(h, x + static_cast<size_t>(b0) * D, bc * D);
@@ -394,7 +396,7 @@ norm_qkv_kernel(const T* __restrict__ x, const T* __restrict__ scale,
     }
     __syncthreads();
     float acc[kBT][V];
-    gemv_partial<T, W, NT>(w, D, N, col, col < N, rs, StagedRows<T>{h, D, bc}, deq, acc);
+    gemv_partial<T, T, NT>(w, D, N, col, col < N, rs, StagedRows<T>{h, D, bc}, deq, acc);
     reduce_tile<T, NT>(acc, red, bc, [&](int b, int c, float y) {
       const int n = tile0 + c;
       if (n < N) {
@@ -947,61 +949,71 @@ mlp_down_int8_mma_kernel(Q8Grid gr, const __nv_bfloat16* __restrict__ a,
 }
 
 // ---------------------------------------------------------------------------
-// fused_norm_qkv and fused_proj_norm in bf16 and fp16, on the tensor cores
-// (mma.sync m16n8k16, fp32 sums)
+// The tensor-core GEMV core (mma.sync m16n8k16, fp32 sums): fused_norm_qkv
+// and fused_proj_norm in bf16 and fp16, fused_norm_qkv over int8 codes, and
+// fused_mlp in bf16 and fp16
 // ---------------------------------------------------------------------------
 //
-// One launch a pass of kBT rows, as the Pallas kernels are one pallas_call:
-// norm_qkv_mma_kernel writes (norm(x) rounded to T) @ W (+ bqkv);
-// proj_norm_mma_kernel writes r = resid + ctx @ wo (+ bo) and h = norm(r in
-// fp32 | resid).  Both are the same body over a [K, N] weight of T, bound by
-// its bytes: 8 rows make about 8 flops a weight byte.
+// One body, g16_body, four kinds of launch, each a pass of kBT rows:
+//   kQkv   norm_qkv_mma_kernel<T> (T = bf16, fp16) and, over int8 codes,
+//          norm_qkv_int8_mma_kernel: (norm(x) rounded to T) @ W (+ bqkv);
+//   kProj  proj_norm_mma_kernel<T>: r = resid + ctx @ wo (+ bo) and h =
+//          norm(r in fp32 | resid);
+//   kAct   mlp_act_mma_kernel<T>: a = act(h @ Wg (+ bg)) * (h @ Wu (+ bu)), or
+//          act(h @ Wu (+ bu)) without a gate, rounded to T as [kBT, F] rows;
+//   kDown  mlp_down_mma_kernel<T>: out = r + (a @ Wd (+ bd)).
+// Every kind is bound by its weight's bytes: 8 rows make about 8 flops a
+// weight byte, against the ~295 at which the tensor cores would bind.
 //
-//   - The bytes: a block owns tiles of 64 output columns (128 bytes of each
-//     weight row, where the FFMA core read 64) and streams them through a
-//     ring of stages of kGTK rows.  The TMA copies a stage's [kGTK, 64]
-//     weight tile (cp.async.bulk.tensor, one thread asks, the stage's
-//     mbarrier completes on its bytes) with the 128-byte swizzle: chunk c of
-//     row r lands at c ^ (r & 7), q8_swizzle's layout, so ldmatrix.trans
-//     reads without bank conflicts.  Rows past K and columns past N land as
-//     zeros; rows past the block's share meet zero activations.  The pass's
-//     activations for the same rows (and norm_qkv's scale and bias) ride in
-//     the stage beside them through 16-byte cp.async, zero filled past the
-//     share.  A draft that also copied the weights by 16-byte cp.async ran
-//     slower at both QKV shapes and alike at the out-projections.
-//   - The products: A = the weight tile (16 output columns x 16 contraction
-//     rows, one ldmatrix.x4.trans: no dequant, no conversion), B = the pass's
-//     8 rows (n = 8 exactly), fp32 accumulators.  A warp owns one 16-column
-//     group and every kGWarpsAGroup-th k16 step of a stage; the warps' sums
-//     meet in shared memory in warp order.  No float atomics: two calls give
-//     the same bits.
+//   - The bytes: a block owns tiles of kNB 128-byte boxes of each weight row
+//     (64 columns of a 16-bit weight, 128 of int8 codes, a box) and streams
+//     them through a ring of stages of kTK rows.  The TMA copies each
+//     [kTK rows, 128 bytes] box (cp.async.bulk.tensor, one thread asks, the
+//     stage's mbarrier completes on its bytes) with the 128-byte swizzle:
+//     chunk c of row r lands at c ^ (r & 7), q8_swizzle's layout, so
+//     ldmatrix.trans reads without bank conflicts.  The MLP's act launch
+//     stages its up and gate tiles of the same rows in one stage (kNM = 2).
+//     Rows past K and columns past N land as zeros; rows past the block's
+//     share meet zero activations.  The pass's activations for the same
+//     rows (and norm_qkv's scale and bias) ride in the stage beside them
+//     through 16-byte cp.async, zero filled past the share.  (int8 codes
+//     whose row is not a multiple of 16 bytes, which the TMA cannot
+//     address, come by 8-byte cp.async into the same layout instead.)
+//   - The products: A = 16 output columns x 16 contraction rows of the
+//     weight tile by one ldmatrix.x4.trans, B = the pass's 8 rows (n = 8
+//     exactly), fp32 accumulators.  A 32-byte group of a row is 16 columns
+//     of a 16-bit weight (one mma) or 32 int8 columns: read as 16-bit
+//     column pairs, the even column feeds one m16 tile and the odd column
+//     the next, each code dequantized as `_deq` does it, bit for bit (q8_deq,
+//     the int8 MLP's: a byte permute into 2^23, __fmul_rn by the column's
+//     scale, a round to bf16).  A warp owns kGpW groups and every kWpG-th k16 step
+//     of a stage; the warps' sums meet in shared memory in warp order.  No
+//     float atomics: two calls give the same bits.
 //   - norm_qkv's norm, overlapped: the block asks for all but one stage of
-//     its ring before anything else, then computes each row's
-//     statistics from x (L2-resident, 16-byte loads, one warp a row, the
-//     centred variance for LayerNorm as decode.py `_normalize`) while they
-//     fly; each stage's rows of x are normalised in place once they land,
-//     from the staged scale and bias, rounded to T as `_norm_qkv_ref`
-//     rounds them (a draft that built each B fragment from raw x, so that
-//     four warps normalised each element, ran slower).
-//   - The grid (g16_grid): the units are (column tile, k16 step), tile-major.
-//     Split mode, q8_grid's rule over the kernel's resident blocks: block b
-//     takes tile b % tiles over one split of the contraction, split only as
-//     far as it takes to fill them, so the blocks that run together read the
-//     same weight rows.  norm_qkv keeps 3 blocks an SM (3-stage rings),
-//     proj_norm 1 (a 6-stage ring: its grid barrier needs the grid resident,
-//     and more blocks meant more merges).  Even mode (each block an equal
-//     run of units, which may end a tile and start the next) serves only a
-//     weight with more column tiles than resident blocks.  A tile shared by
-//     blocks is summed from its fp32 partials by the last of them to take
-//     the tile's ticket, in the order of the blocks' shares (q8_merge's
-//     scheme).  The path's grids (their times, and those of q8_grid's 1
-//     block an SM and of the even grid, are in PERF.md §6):
-//       llama3-8b QKV [4096, 6144]  96 tiles x 4 splits of 1024 rows = 384 blocks
-//       llama3-8b O   [4096, 4096]  64 tiles x 2 splits of 2048 rows = 128 blocks
-//       gpt2-xl QKV   [1600, 4800]  75 tiles x 5 splits of 320 rows = 375 blocks
-//       gpt2-xl O     [1600, 1600]  25 tiles x 5 splits of 320 rows = 125 blocks
-//     With 16-byte copies, deeper rings (8, 10 stages) and 128-column tiles
-//     ran no faster in the drafts.
+//     its ring before anything else, then computes each row's statistics
+//     from x (L2-resident, 16-byte loads, one warp a row, the centred
+//     variance for LayerNorm as decode.py `_normalize`) while they fly;
+//     each stage's rows of x are normalised in place once they land, from
+//     the staged scale and bias, rounded to T as `_norm_qkv_ref` rounds them.
+//   - The grid (g16_grid): the units are (column tile, k16 step),
+//     tile-major.  Split mode: block b takes tile b % tiles over one split
+//     of the contraction, split only as far as it takes to fill the
+//     kernel's resident blocks, so the blocks that run together read the
+//     same weight rows.  Even mode (each block an equal run of units, which
+//     may end a tile and start the next) serves only a weight with more
+//     column tiles than resident blocks.  A tile shared by blocks is summed
+//     from its fp32 partials by the last of them to take the tile's ticket,
+//     in the order of the blocks' shares (q8_merge's scheme).  The MLP's
+//     down launch splits its contraction at both path shapes (25 and 64
+//     column tiles against 396 resident blocks).
+//   - The MLP's two launches meet through `a` in the workspace.  The down
+//     launch is a programmatic dependent of the act launch (PDL, 1.3-1.7 us
+//     a call less: PERF.md section 6): the act kernel lets it launch once
+//     every block has issued its last stage, and the down kernel issues the
+//     TMA of its first stages' weight tiles, which the act launch does not
+//     touch, before it waits for the act grid (griddepcontrol.wait); `a`,
+//     the partials and the tickets are touched only after that wait.
+//     Launched without PDL both instructions do nothing.
 //   - proj_norm's norm: r's rows span every tile, so the block that
 //     finishes a tile writes its columns of r32 and publishes its rows'
 //     statistics over the tile's columns (sum of r^2 for RMSNorm; the count,
@@ -1009,44 +1021,70 @@ mlp_down_int8_mma_kernel(Q8Grid gr, const __nv_bfloat16* __restrict__ a,
 //     blocks meet at a grid barrier (a cooperative launch, so the grid is
 //     resident), and every block merges the statistics in the same fixed
 //     order (Chan's parallel variance for LayerNorm: the centred form stays
-//     centred) and normalises its own slice of r32 into h.  A draft in
-//     which one last block did all of that alone left every other SM idle
-//     for the length of the norm.
+//     centred) and normalises its own slice of r32 into h.
+//   - The configurations (the G16Cfg aliases below) and the measurements
+//     behind them are in PERF.md (sections 6 and 7).  Every kernel reads one
+//     128-byte box of a row at a time: the weights' bare stream ran no
+//     faster with two or four side by side, and the full kernels ran
+//     slower.  norm_qkv keeps 3 blocks an SM with 3-stage rings, proj_norm 1
+//     with a 6-stage ring (its grid barrier needs the grid resident); the
+//     MLP's act launch stages 64 rows of up and gate, its down launch 128
+//     rows, both 3 blocks an SM.
 
 constexpr int kGThreads = 256;                           // 8 warps
 constexpr int kGWarps = kGThreads / 32;
-constexpr int kGTN = 64;                                 // output columns of a tile: one
-                                                         // 128-byte swizzle line a row
-constexpr int kGTK = 128;                                // contraction rows of a stage
-constexpr int kGGroups = kGTN / 16;                      // 16-column groups of a tile
-constexpr int kGWarpsAGroup = kGWarps / kGGroups;
-constexpr int kGSteps = kGTK / 16;                       // k16 steps a stage
-constexpr int kGStepsAWarp = kGSteps / kGWarpsAGroup;
-constexpr int kGRowBytes = kGTN * 2;                     // one weight row of a tile
-constexpr int kGWBytes = kGTK * kGRowBytes;              // the weights of a stage
-constexpr int kGXStride = kGTK + 8;                      // elements a staged activation row
-constexpr int kGXRows = kBT + 2;                         // the pass's rows, scale, bias
+constexpr int kGBox = 128;                               // bytes of a weight row a box
 constexpr int kGAlign = 1024;                            // the 128-byte swizzle's period
-constexpr int kGStageBytes = (kGWBytes + kGXRows * kGXStride * 2 + kGAlign - 1) / kGAlign * kGAlign;
-constexpr int kGRedFloats = kGWarps * kBT * 16;          // the warps' sums
 constexpr int kGMaxTiles = kQ8MaxTiles;                  // tile tickets; the barrier's after them
 static_assert(kGWarps == kBT, "one warp a row for the row statistics");
-static_assert(kGWarps % kGGroups == 0 && kGSteps % kGWarpsAGroup == 0 && kGTK <= 256,
-              "every (group, k16 step) of a stage has one warp; a TMA box of kGTK rows");
 
-// A kernel's ring depth and the blocks it keeps resident on an SM (its
-// __launch_bounds__ and its grid's capacity).
-template <int kStages_, int kBps_>
+enum G16Kind { kQkv = 0, kProj = 1, kAct = 2, kDown = 3 };
+
+// A kernel's tile and ring: weight element W, kNM weights a stage, kNB
+// adjacent 128-byte boxes of each, kTK contraction rows a stage, kStages
+// stages, kBps blocks resident on an SM (its __launch_bounds__ and its
+// grid's capacity).
+template <typename W_, int kNM_, int kNB_, int kTK_, int kStages_, int kBps_>
 struct G16Cfg {
+  using W = W_;
+  static constexpr int kNM = kNM_;
+  static constexpr int kNB = kNB_;
+  static constexpr int kTK = kTK_;
   static constexpr int kStages = kStages_;
   static constexpr int kBps = kBps_;
-  static constexpr int kSmem =
-      kStages * kGStageBytes + (kGRedFloats + kBT * kGTN) * 4 + kGAlign;
+  static constexpr int kTN = kNB * kGBox / static_cast<int>(sizeof(W));  // columns a tile
+  static constexpr int kGroups = 4 * kNB;                 // 32-byte groups of a tile row
+  static constexpr int kColsG = 32 / static_cast<int>(sizeof(W));
+  static constexpr int kE = sizeof(W) == 1 ? 2 : 1;       // m16 tiles a group
+  static constexpr int kWpG = kGroups >= kGWarps ? 1 : kGWarps / kGroups;  // warps a group
+  static constexpr int kGpW = kGroups >= kGWarps ? kGroups / kGWarps : 1;  // groups a warp
+  static constexpr int kSteps = kTK / 16;                 // k16 steps a stage
+  static constexpr int kStepsAWarp = kSteps / kWpG;
+  static constexpr int kBoxBytes = kTK * kGBox;
+  static constexpr int kWBytes = kNM * kNB * kBoxBytes;   // the weights of a stage
+  static constexpr int kXStride = kTK + 8;                // elements a staged activation row
+  static constexpr int kXRows = kBT + 2;                  // the pass's rows, scale, bias
+  static constexpr int kStageBytes =
+      (kWBytes + kXRows * kXStride * 2 + kGAlign - 1) / kGAlign * kGAlign;
+  static constexpr int kTileFloats = kNM * kBT * kTN;     // a tile's sums
+  static constexpr int kRedFloats = kNM * kGWarps * kGpW * kE * kBT * 16;  // the warps' sums
+  static constexpr int kSmem = kStages * kStageBytes + (kRedFloats + kTileFloats) * 4 + kGAlign;
+  static_assert(sizeof(W) == 1 || sizeof(W) == 2, "16-bit weights or int8 codes");
+  static_assert(kGWarps % kGroups == 0 || kGroups % kGWarps == 0, "warps tile the groups");
+  static_assert(kTK % 16 == 0 && kTK <= 256 && kSteps % kWpG == 0,
+                "every (group, k16 step) of a stage has one warp; a TMA box of kTK rows");
   static_assert(kStages >= 2 && kSmem * kBps <= 227 * 1024,
                 "the rings fit in an SM's shared memory");
 };
-using QkvCfg = G16Cfg<3, 3>;
-using ProjCfg = G16Cfg<6, 1>;
+
+using QkvCfg = G16Cfg<uint16_t, 1, 1, 128, 3, 3>;
+using ProjCfg = G16Cfg<uint16_t, 1, 1, 128, 6, 1>;
+using Qkv8Cfg = G16Cfg<int8_t, 1, 1, 128, 3, 3>;
+using MlpActCfg = G16Cfg<uint16_t, 2, 1, 64, 3, 3>;      // with a gate
+using MlpAct1Cfg = G16Cfg<uint16_t, 1, 1, 128, 3, 3>;    // without
+using MlpDownCfg = G16Cfg<uint16_t, 1, 1, 128, 3, 3>;
+// The L2 promotion of the weights' TMA copies.
+constexpr int kG16L2Promo = 128;
 
 // The units of a [K, N] product are (column tile, k16 step), tile-major.
 // Block b takes units [lo, hi) (g16_range); `slots` bounds the blocks that
@@ -1074,22 +1112,25 @@ __device__ __forceinline__ int g16_owner(const G16Grid& g, int u) {
 }
 
 struct G16Args {
-  CUtensorMap wmap;     // w as [K rows, N columns] tiles of kGTK x 64, 128-byte swizzle
+  CUtensorMap wmap[2];  // the weights as [K rows, N columns] boxes of kTK rows x
+                        // 128 bytes, 128-byte swizzle (the MLP's up, gate)
   G16Grid g;
-  const void* x;        // the pass's rows [bc, K]: x (norm_qkv) or ctx (proj_norm)
-  const void* w;        // [K, N]
-  const void* wb;       // bqkv or bo [N], or null
+  const void* x;        // the pass's rows [bc, K]: x, ctx, h or a
+  const void* w[2];     // [K, N]; read by 8-byte cp.async where the TMA cannot
+  const float* ws;      // int8 codes: the columns' fp32 scales [N], else null
+  const void* wb[2];    // the output columns' biases [N], or null: bqkv, bo,
+                        // (bu, bg), bd
   const void* scale;    // the norm's scale: [K] (norm_qkv) or [N] (proj_norm)
   const void* bias;     // the norm's bias, or null (RMSNorm)
-  const void* resid;    // proj_norm: [bc, N]
-  void* out;            // norm_qkv: [bc, N]; proj_norm: r [bc, N]
+  const void* resid;    // proj_norm: resid; the MLP's down launch: r [bc, N]
+  void* out;            // [bc, N]: norm_qkv's out, proj_norm's r, `a`, the MLP's out
   void* h;              // proj_norm: [bc, N]
-  float* part;          // [tiles][slots][kBT][kGTN]: partials of shared tiles
+  float* part;          // [tiles][slots][kTileFloats]: partials of shared tiles
   float* r32;           // proj_norm: [kBT, N], r in fp32
   float2* stats;        // proj_norm: [tiles][kBT], each tile's row statistics
   unsigned int* ticket; // [kGMaxTiles + 1] zeroed: the tiles', then proj_norm's
                         // grid barrier (generation, count); counts left at 0
-  int bc, K, N, kind, parallel;
+  int bc, K, N, kind, parallel, act;
   float eps;
 };
 
@@ -1131,55 +1172,117 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool i
                "r"(in ? 16 : 0));
 }
 
-// Rows [k0, k1) of the tile's weight columns [n0, n0 + kGTN) into the stage
-// at `st`, swizzled, and the same rows of the pass's activations (with
-// kNorm, of the norm's scale and bias too) beside them; rows past k1 and
-// columns past N zero filled.
-template <typename T, bool kNorm>
-__device__ __forceinline__ void g16_load(uint32_t st, const G16Args& a, int n0, int k0, int k1,
-                                         uint32_t full) {
-  // one thread asks the TMA for the whole [kGTK, 64] tile; rows past K and
-  // columns past N land as zeros, rows past k1 meet zero activations
-  if (threadIdx.x == 0) {
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                 ::"r"(full), "r"(kGWBytes) : "memory");
-    asm volatile(
-        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-        " [%0], [%1, {%2, %3}], [%4];\n"
-        ::"r"(st), "l"(reinterpret_cast<uint64_t>(&a.wmap)), "r"(n0), "r"(k0), "r"(full)
-        : "memory");
+// Programmatic dependent launch (both do nothing in a grid launched without it).
+__device__ __forceinline__ void pdl_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void pdl_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// The weight tiles of a stage, rows [k0, k0 + kTK) of columns [n0, n0 +
+// kTN) of each of the kNM weights, swizzled.  kTma: one thread asks the TMA
+// for each box (rows past K and columns past N land as zeros) and arms the
+// stage's mbarrier `full` with their bytes; else every thread copies 8-byte
+// chunks by cp.async (zero filled past K and N) into the same layout.
+template <class C, bool kTma>
+__device__ __forceinline__ void g16_load_w(uint32_t st, const G16Args& a, int n0, int k0,
+                                           uint32_t full) {
+  if constexpr (kTma) {
+    if (threadIdx.x == 0) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                   ::"r"(full), "r"(C::kWBytes) : "memory");
+#pragma unroll
+      for (int m = 0; m < C::kNM; ++m)
+#pragma unroll
+        for (int bx = 0; bx < C::kNB; ++bx)
+          asm volatile(
+              "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+              " [%0], [%1, {%2, %3}], [%4];\n"
+              ::"r"(st + (m * C::kNB + bx) * C::kBoxBytes),
+                "l"(reinterpret_cast<uint64_t>(&a.wmap[m])),
+                "r"(n0 + bx * (kGBox / static_cast<int>(sizeof(typename C::W)))), "r"(k0),
+                "r"(full)
+              : "memory");
+    }
+  } else {
+    constexpr int kPerRow = kGBox / 8;
+    constexpr int kPerBox = C::kTK * kPerRow;
+    constexpr int kEl = sizeof(typename C::W);
+    for (int i = threadIdx.x; i < C::kNM * C::kNB * kPerBox; i += kGThreads) {
+      const int box = i / kPerBox, r = (i % kPerBox) / kPerRow, byte = (i % kPerRow) * 8;
+      const int m = box / C::kNB;
+      const int col = n0 + ((box % C::kNB) * kGBox + byte) / kEl;
+      const bool in = k0 + r < a.K && col < a.N;
+      const char* src = static_cast<const char*>(a.w[m]);
+      if (in) src += (static_cast<size_t>(k0 + r) * a.N + col) * kEl;
+      const uint32_t d = st + box * C::kBoxBytes + r * kGBox + (q8_swizzle(r, byte >> 4) << 4) +
+                         (byte & 15);
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src),
+                   "r"(in ? 8 : 0));
+    }
   }
-  constexpr int kXPerRow = kGTK / 8;
-  constexpr int kRows = kNorm ? kGXRows : kBT;
+}
+
+// Rows [k0, k1) of the pass's activations (with kNorm, of the norm's scale
+// and bias too) into the stage at `st`, beside its weights; rows past k1
+// zero filled.
+template <typename T, class C, bool kNorm>
+__device__ __forceinline__ void g16_load_x(uint32_t st, const G16Args& a, int k0, int k1) {
+  constexpr int kXPerRow = C::kTK / 8;
+  constexpr int kRows = kNorm ? C::kXRows : kBT;
   const T* x = static_cast<const T*>(a.x);
   for (int i = threadIdx.x; i < kRows * kXPerRow; i += kGThreads) {
     const int row = i / kXPerRow, k = k0 + (i % kXPerRow) * 8;
     const T* src = row < kBT ? (row < a.bc ? x + static_cast<size_t>(row) * a.K : nullptr)
                              : static_cast<const T*>(row == kBT ? a.scale : a.bias);
     const bool in = src != nullptr && k < k1;
-    cp_async16(st + kGWBytes + (row * kGXStride + (i % kXPerRow) * 8) * 2, in ? src + k : x, in);
+    cp_async16(st + C::kWBytes + (row * C::kXStride + (i % kXPerRow) * 8) * 2,
+               in ? src + k : x, in);
   }
 }
 
+// The warp's j-th group of the tile and the k16 steps it takes (every
+// kWpG-th from ksub).
+template <class C>
+__device__ __forceinline__ int g16_group(int warp, int j) {
+  return C::kGroups >= kGWarps ? warp + kGWarps * j : warp % C::kGroups;
+}
+
 // The warps' accumulators of a finished share summed in warp order into
-// sums [kBT][kGTN] (shared); ends with a barrier.
-__device__ __forceinline__ void g16_reduce(const float (&acc)[4], float* red, float* sums) {
+// sums [kNM][kBT][kTN] (shared); ends with a barrier.  C fragment q of m16
+// tile e: row g + 8 (q >> 1) of the tile, batch row 2t + (q & 1); a 16-bit
+// group's tile row is its column, an int8 group's even (e = 0) and odd
+// tiles' row m is its column 2 (m % 8) + 16 (m / 8) + e.
+template <class C>
+__device__ __forceinline__ void g16_reduce(const float (&acc)[C::kNM][C::kGpW][C::kE][4],
+                                           float* red, float* sums) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  // C fragment: columns g, g + 8 of the warp's group x rows 2t, 2t + 1
-  float* rw = red + warp * kBT * 16;
-  rw[(2 * t) * 16 + g] = acc[0];
-  rw[(2 * t + 1) * 16 + g] = acc[1];
-  rw[(2 * t) * 16 + g + 8] = acc[2];
-  rw[(2 * t + 1) * 16 + g + 8] = acc[3];
+#pragma unroll
+  for (int m = 0; m < C::kNM; ++m)
+#pragma unroll
+    for (int j = 0; j < C::kGpW; ++j)
+#pragma unroll
+      for (int e = 0; e < C::kE; ++e) {
+        float* rw = red + (((m * kGWarps + warp) * C::kGpW + j) * C::kE + e) * kBT * 16;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) rw[(2 * t + (q & 1)) * 16 + g + 8 * (q >> 1)] = acc[m][j][e][q];
+      }
   __syncthreads();
-  for (int o = threadIdx.x; o < kBT * kGTN; o += kGThreads) {
-    const int b = o / kGTN, c = o % kGTN;
+  for (int o = threadIdx.x; o < C::kTileFloats; o += kGThreads) {
+    const int m = o / (kBT * C::kTN), b = (o / C::kTN) % kBT, c = o % C::kTN;
+    const int gi = c / C::kColsG, cg = c % C::kColsG;
+    const int e = C::kE == 2 ? (cg & 1) : 0;
+    const int row = C::kE == 2 ? ((cg & 15) >> 1) + ((cg >> 4) << 3) : cg;
     float v = 0.f;
 #pragma unroll
-    for (int s = 0; s < kGWarpsAGroup; ++s)
-      v += red[((c / 16 + s * kGGroups) * kBT + b) * 16 + c % 16];
+    for (int s = 0; s < C::kWpG; ++s) {
+      const int w = C::kGroups >= kGWarps ? gi % kGWarps : gi + s * C::kGroups;
+      const int j = C::kGroups >= kGWarps ? gi / kGWarps : 0;
+      v += red[((((m * kGWarps + w) * C::kGpW + j) * C::kE + e) * kBT + b) * 16 + row];
+    }
     sums[o] = v;
   }
   __syncthreads();
@@ -1189,22 +1292,31 @@ __device__ __forceinline__ void g16_reduce(const float (&acc)[4], float* red, fl
 // slot; the last of the tile's n blocks to take its ticket reads every
 // slot's partial back into `sums`, summed in slot order, resets the ticket
 // and returns true.  Other blocks return false.
+template <class C>
 __device__ __forceinline__ bool g16_merge(const G16Args& a, int tile, int slot, int n,
                                           float* sums) {
   __shared__ bool last;
-  constexpr int kTile = kBT * kGTN;
-  const int rows = a.bc * kGTN;
+  constexpr int kTile = C::kTileFloats;
   float* tp = a.part + static_cast<size_t>(tile) * a.g.slots * kTile;
-  for (int o = threadIdx.x; o < rows; o += kGThreads) tp[slot * kTile + o] = sums[o];
+  for (int o = threadIdx.x; o < kTile; o += kGThreads) tp[slot * kTile + o] = sums[o];
   __threadfence();
   __syncthreads();
   if (threadIdx.x == 0) last = atomicAdd(a.ticket + tile, 1u) == static_cast<unsigned>(n - 1);
   __syncthreads();
   if (!last) return false;
   __threadfence();
-  for (int o = threadIdx.x; o < rows; o += kGThreads) {
+  for (int o = threadIdx.x; o < kTile; o += kGThreads) {
+    // the partials' loads 8 at a time in flight, their sums in slot order
     float v = 0.f;
-    for (int j = 0; j < n; ++j) v += __ldcg(tp + j * kTile + o);
+    int j = 0;
+    for (; j + 8 <= n; j += 8) {
+      float p[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) p[u] = __ldcg(tp + (j + u) * kTile + o);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) v += p[u];
+    }
+    for (; j < n; ++j) v += __ldcg(tp + j * kTile + o);
     sums[o] = v;
   }
   if (threadIdx.x == 0) a.ticket[tile] = 0u;  // ready for the next launch on this stream
@@ -1253,7 +1365,7 @@ __device__ __forceinline__ void grid_barrier(unsigned int* bar) {
 // order, then the lanes pairwise), then normalise this block's slice of
 // r32 (or resid, parallel) into h: r32 read once over the grid.  The
 // slice's scale and bias are read before the barrier.
-template <typename T>
+template <typename T, class C>
 __device__ __forceinline__ void g16_norm(const G16Args& a) {
   __shared__ float2 row[kBT];   // (mean, rstd)
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -1291,7 +1403,7 @@ __device__ __forceinline__ void g16_norm(const G16Args& a) {
       for (int u = 0; u < 4; ++u) {
         const int tt = t0 + lane + 32 * u;
         if (tt < a.g.tiles)
-          chan_merge(n, m, q, static_cast<float>(min(kGTN, N - tt * kGTN)), sv[u].x, sv[u].y);
+          chan_merge(n, m, q, static_cast<float>(min(C::kTN, N - tt * C::kTN)), sv[u].x, sv[u].y);
       }
     }
 #pragma unroll
@@ -1327,24 +1439,39 @@ __device__ __forceinline__ void g16_norm(const G16Args& a) {
 }
 
 // The epilogue of a finished tile, its whole sums in `sums`.
-template <typename T, bool kProj>
+template <typename T, int kKind, class C>
 __device__ __forceinline__ void g16_epilogue(const G16Args& a, int tile, float* sums) {
-  const int n0 = tile * kGTN;
-  const T* wb = static_cast<const T*>(a.wb);
+  constexpr int kTN = C::kTN;
+  const int n0 = tile * kTN;
+  const T* wb = static_cast<const T*>(a.wb[0]);
   T* out = static_cast<T*>(a.out);
-  if constexpr (!kProj) {
-    for (int o = threadIdx.x; o < a.bc * kGTN; o += kGThreads) {
-      const int b = o / kGTN, n = n0 + o % kGTN;
+  if constexpr (kKind != kProj) {
+    const T* wg = static_cast<const T*>(a.wb[1]);
+    const T* resid = static_cast<const T*>(a.resid);
+    for (int o = threadIdx.x; o < a.bc * kTN; o += kGThreads) {
+      const int b = o / kTN, n = n0 + o % kTN;
       if (n < a.N) {
+        const size_t i = static_cast<size_t>(b) * a.N + n;
         float y = sums[o];
         if (wb) y += to_f32(wb[n]);
-        out[static_cast<size_t>(b) * a.N + n] = from_f32<T>(y);
+        if constexpr (kKind == kAct) {
+          if constexpr (C::kNM == 2) {
+            float gv = sums[kBT * kTN + o];
+            if (wg) gv += to_f32(wg[n]);
+            y = act_fn(a.act, gv) * y;
+          } else {
+            y = act_fn(a.act, y);
+          }
+        } else if constexpr (kKind == kDown) {
+          y = to_f32(resid[i]) + y;
+        }
+        out[i] = from_f32<T>(y);
       }
     }
   } else {
     const T* resid = static_cast<const T*>(a.resid);
-    for (int o = threadIdx.x; o < kBT * kGTN; o += kGThreads) {
-      const int b = o / kGTN, n = n0 + o % kGTN;
+    for (int o = threadIdx.x; o < kBT * kTN; o += kGThreads) {
+      const int b = o / kTN, n = n0 + o % kTN;
       float src = 0.f;
       if (b < a.bc && n < a.N) {
         float y = sums[o];
@@ -1361,16 +1488,16 @@ __device__ __forceinline__ void g16_epilogue(const G16Args& a, int tile, float* 
     // this tile's statistics of each row, one warp a row
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     if (warp < a.bc) {
-      const float nv = static_cast<float>(min(kGTN, a.N - n0));
-      const float* s = sums + warp * kGTN;
+      const float nv = static_cast<float>(min(kTN, a.N - n0));
+      const float* s = sums + warp * kTN;
       float m = 0.f;
       if (a.kind == kLayer) {
         float t = 0.f;
-        for (int c = lane; c < kGTN; c += 32) t += s[c];
+        for (int c = lane; c < kTN; c += 32) t += s[c];
         m = warp_sum(t) / nv;
       }
       float q = 0.f;
-      for (int c = lane; c < kGTN && n0 + c < a.N; c += 32) q += (s[c] - m) * (s[c] - m);
+      for (int c = lane; c < kTN && n0 + c < a.N; c += 32) q += (s[c] - m) * (s[c] - m);
       q = warp_sum(q);
       if (lane == 0) a.stats[tile * kBT + warp] = make_float2(m, q);
     }
@@ -1378,140 +1505,234 @@ __device__ __forceinline__ void g16_epilogue(const G16Args& a, int tile, float* 
   __syncthreads();  // sums is reused by the next share
 }
 
-template <typename T, bool kProj, class Cfg>
+// Each row's statistics of x (norm_qkv), one warp a row, into xstat.
+template <typename T>
+__device__ __forceinline__ void g16_row_stats(const G16Args& a, float2* xstat) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (warp < a.bc) {
+    using P = Pack<T>;
+    const P* xr = reinterpret_cast<const P*>(static_cast<const T*>(a.x) +
+                                             static_cast<size_t>(warp) * a.K);
+    const int nv = a.K / P::N;
+    float m = 0.f;
+    if (a.kind == kLayer) {
+      float s = 0.f;
+#pragma unroll 8
+      for (int i = lane; i < nv; i += 32) {
+        const P p = xr[i];
+#pragma unroll
+        for (int j = 0; j < P::N; ++j) s += to_f32(p.v[j]);
+      }
+      m = warp_sum(s) / static_cast<float>(a.K);
+    }
+    float ss = 0.f;
+#pragma unroll 8
+    for (int i = lane; i < nv; i += 32) {
+      const P p = xr[i];
+#pragma unroll
+      for (int j = 0; j < P::N; ++j) ss += (to_f32(p.v[j]) - m) * (to_f32(p.v[j]) - m);
+    }
+    ss = warp_sum(ss);   // every lane: the shuffles take the whole warp
+    if (lane == 0) xstat[warp] = make_float2(m, rsqrtf(ss / static_cast<float>(a.K) + a.eps));
+  } else if (lane == 0) {
+    xstat[warp] = make_float2(0.f, 0.f);
+  }
+}
+
+template <class C>
+__device__ __forceinline__ void g16_zero(float (&acc)[C::kNM][C::kGpW][C::kE][4]) {
+#pragma unroll
+  for (int m = 0; m < C::kNM; ++m)
+#pragma unroll
+    for (int j = 0; j < C::kGpW; ++j)
+#pragma unroll
+      for (int e = 0; e < C::kE; ++e)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[m][j][e][q] = 0.f;
+}
+
+// int8: the fp32 scales of the thread's columns of `tile`: the even and odd
+// column of each half of each of its groups (q8_tile's four).
+template <class C>
+__device__ __forceinline__ void g16_scales(float (&sc)[C::kGpW][4], const G16Args& a, int tile) {
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
+#pragma unroll
+  for (int j = 0; j < C::kGpW; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int col = tile * C::kTN + g16_group<C>(warp, j) * 32 + (q >> 1) * 16 + 2 * g + (q & 1);
+      sc[j][q] = col < a.N ? a.ws[col] : 0.f;
+    }
+}
+
+// Waits for the phase `parity` of the mbarrier at shared address `bar`.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+template <typename T, int kKind, class C, bool kTma = true>
 __device__ __forceinline__ void g16_body(const G16Args& a) {
-  constexpr int kGStages = Cfg::kStages;
+  using W = typename C::W;
+  constexpr bool kNorm = kKind == kQkv;
+  constexpr bool kInt8 = sizeof(W) == 1;
+  constexpr int kStages = C::kStages;
+  static_assert(!kInt8 || std::is_same<T, __nv_bfloat16>::value, "int8 codes take bf16 rows");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ float2 xstat[kBT];  // norm_qkv: each row's (mean, rstd)
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int grp = warp % kGGroups, ksub = warp / kGGroups;
+  const int ksub = C::kGroups >= kGWarps ? 0 : warp / C::kGroups;
   const G16Grid& gr = a.g;
   unsigned char* smem = smem_raw + ((kGAlign - smem_u32(smem_raw) % kGAlign) % kGAlign);
-  __shared__ alignas(8) uint64_t full_bar[kGStages];
-  if (threadIdx.x == 0) {
-    for (int q = 0; q < kGStages; ++q)
+  __shared__ alignas(8) uint64_t full_bar[kStages];
+  if (kTma && threadIdx.x == 0) {
+    for (int q = 0; q < kStages; ++q)
       asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(full_bar + q))
                    : "memory");
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
   const uint32_t fb = smem_u32(full_bar);
-  float* red = reinterpret_cast<float*>(smem + kGStages * kGStageBytes);
-  float* sums = red + kGRedFloats;
+  float* red = reinterpret_cast<float*>(smem + kStages * C::kStageBytes);
+  float* sums = red + C::kRedFloats;
   const uint32_t ring = smem_u32(smem);
   int lo, hi;
   g16_range(gr, blockIdx.x, lo, hi);
 
-  // the producer: the next unit to load; a stage never crosses a tile
-  int pu = lo;
-  auto issue = [&](int slot) {
-    if (pu < hi) {
-      const int tile = pu / gr.k16, base = tile * gr.k16;
-      const int e = min(min(hi, base + gr.k16), pu + kGSteps);
-      g16_load<T, !kProj>(ring + slot * kGStageBytes, a, tile * kGTN, (pu - base) * 16,
-                          min(a.K, (e - base) * 16), fb + slot * 8);
-      pu = e;
+  // the producers: the next unit whose weights (pw) and activations (px) to
+  // load; a stage never crosses a tile
+  int pw = lo, px = lo;
+  auto stage_of = [&](int u, int& n0, int& k0, int& k1) {
+    const int tile = u / gr.k16, base = tile * gr.k16;
+    const int e = min(min(hi, base + gr.k16), u + C::kSteps);
+    n0 = tile * C::kTN;
+    k0 = (u - base) * 16;
+    k1 = min(a.K, (e - base) * 16);
+    return e;
+  };
+  auto issue_w = [&](int slot) {
+    if (pw < hi) {
+      int n0, k0, k1;
+      const int e = stage_of(pw, n0, k0, k1);
+      g16_load_w<C, kTma>(ring + slot * C::kStageBytes, a, n0, k0, fb + slot * 8);
+      pw = e;
+    }
+  };
+  auto issue_x = [&](int slot) {
+    if (px < hi) {
+      int n0, k0, k1;
+      const int e = stage_of(px, n0, k0, k1);
+      g16_load_x<T, C, kNorm>(ring + slot * C::kStageBytes, a, k0, k1);
+      px = e;
     }
     cp_async_commit();
   };
+  if constexpr (kKind == kDown) {
+    // the weights, which the act launch does not touch, before its end
 #pragma unroll
-  for (int p = 0; p < kGStages - 1; ++p) issue(p);
-
-  if constexpr (!kProj) {
-    // each row's statistics while the first stages fly
-    if (warp < a.bc) {
-      using P = Pack<T>;
-      const P* xr = reinterpret_cast<const P*>(static_cast<const T*>(a.x) +
-                                               static_cast<size_t>(warp) * a.K);
-      const int nv = a.K / P::N;
-      float m = 0.f;
-      if (a.kind == kLayer) {
-        float s = 0.f;
-#pragma unroll 8
-        for (int i = lane; i < nv; i += 32) {
-          const P p = xr[i];
+    for (int p = 0; p < kStages - 1; ++p) issue_w(p);
+    pdl_wait();
 #pragma unroll
-          for (int j = 0; j < P::N; ++j) s += to_f32(p.v[j]);
-        }
-        m = warp_sum(s) / static_cast<float>(a.K);
-      }
-      float ss = 0.f;
-#pragma unroll 8
-      for (int i = lane; i < nv; i += 32) {
-        const P p = xr[i];
+    for (int p = 0; p < kStages - 1; ++p) issue_x(p);
+  } else {
 #pragma unroll
-        for (int j = 0; j < P::N; ++j) ss += (to_f32(p.v[j]) - m) * (to_f32(p.v[j]) - m);
-      }
-      ss = warp_sum(ss);   // every lane: the shuffles take the whole warp
-      if (lane == 0) xstat[warp] = make_float2(m, rsqrtf(ss / static_cast<float>(a.K) + a.eps));
-    } else if (lane == 0) {
-      xstat[warp] = make_float2(0.f, 0.f);
+    for (int p = 0; p < kStages - 1; ++p) {
+      issue_w(p);
+      issue_x(p);
     }
+  }
+
+  if constexpr (kNorm) {
+    g16_row_stats<T>(a, xstat);   // while the first stages fly
     __syncthreads();
   }
 
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  float acc[C::kNM][C::kGpW][C::kE][4];
+  float sc[C::kGpW][4];          // int8: the thread's columns' scales
+  g16_zero<C>(acc);
+  bool triggered = false;
   int cu = lo, seg = lo;  // the consumer: the next unit, the start of its share
+  if (kInt8 && cu < hi) g16_scales<C>(sc, a, cu / gr.k16);
   for (int i = 0; cu < hi; ++i) {
-    cp_async_wait<kGStages - 2>();
-    {  // the stage's weights: its mbarrier's phase i / kGStages
-      const uint32_t bar = fb + (i % kGStages) * 8;
-      const uint32_t parity = (i / kGStages) & 1;
-      uint32_t done;
-      do {
-        asm volatile(
-            "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-            "selp.u32 %0, 1, 0, p;\n}\n"
-            : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-      } while (!done);
-    }
+    cp_async_wait<kStages - 2>();
+    if constexpr (kTma) mbar_wait(fb + (i % kStages) * 8, (i / kStages) & 1);
     __syncthreads();
-    issue((i + kGStages - 1) % kGStages);
-    const int slot = i % kGStages;
-    const uint32_t st = ring + slot * kGStageBytes;
-    unsigned char* xs = smem + slot * kGStageBytes + kGWBytes;
-    if constexpr (!kProj) {
+    issue_w((i + kStages - 1) % kStages);
+    issue_x((i + kStages - 1) % kStages);
+    if constexpr (kKind == kAct) {
+      if (!triggered && pw >= hi) {   // this block's last stage is asked for
+        pdl_launch_dependents();
+        triggered = true;
+      }
+    }
+    const int slot = i % kStages;
+    const uint32_t st = ring + slot * C::kStageBytes;
+    unsigned char* xs = smem + slot * C::kStageBytes + C::kWBytes;
+    if constexpr (kNorm) {
       // normalise the stage's rows of x in place, once, rounded to T (rows
       // past the share come zero filled with their scale and bias: 0)
-      for (int e = threadIdx.x; e < kBT * kGTK / 2; e += kGThreads) {
-        const int b = e / (kGTK / 2), o = (e % (kGTK / 2)) * 4;
-        uint32_t* px = reinterpret_cast<uint32_t*>(xs + b * kGXStride * 2 + o);
-        const float2 xf = Two<T>::unpack(*px);
+      for (int e = threadIdx.x; e < kBT * C::kTK / 2; e += kGThreads) {
+        const int b = e / (C::kTK / 2), o = (e % (C::kTK / 2)) * 4;
+        uint32_t* p = reinterpret_cast<uint32_t*>(xs + b * C::kXStride * 2 + o);
+        const float2 xf = Two<T>::unpack(*p);
         const float2 sf = Two<T>::unpack(
-            *reinterpret_cast<const uint32_t*>(xs + kBT * kGXStride * 2 + o));
+            *reinterpret_cast<const uint32_t*>(xs + kBT * C::kXStride * 2 + o));
         const float2 bf = Two<T>::unpack(
-            *reinterpret_cast<const uint32_t*>(xs + (kBT + 1) * kGXStride * 2 + o));
+            *reinterpret_cast<const uint32_t*>(xs + (kBT + 1) * C::kXStride * 2 + o));
         const float2 st2 = xstat[b];
-        *px = Two<T>::pack(normalize(xf.x, st2.x, st2.y, sf.x, bf.x, a.kind),
-                           normalize(xf.y, st2.x, st2.y, sf.y, bf.y, a.kind));
+        *p = Two<T>::pack(normalize(xf.x, st2.x, st2.y, sf.x, bf.x, a.kind),
+                          normalize(xf.y, st2.x, st2.y, sf.y, bf.y, a.kind));
       }
       __syncthreads();
     }
 #pragma unroll
-    for (int j = 0; j < kGStepsAWarp; ++j) {
-      const int ks = ksub + kGWarpsAGroup * j;
+    for (int s = 0; s < C::kStepsAWarp; ++s) {
+      const int ks = ksub + C::kWpG * s;
       // B: rows g of the pass at k = 2t, 2t + 1 and 2t + 8, 2t + 9 of the step
       const int xo = (ks * 16 + 2 * t) * 2;
-      const uint32_t b0 = *reinterpret_cast<const uint32_t*>(xs + g * kGXStride * 2 + xo);
-      const uint32_t b1 = *reinterpret_cast<const uint32_t*>(xs + g * kGXStride * 2 + xo + 16);
-      // A: the weight tile's 16 columns of this group x the step's 16 rows
+      const uint32_t b0 = *reinterpret_cast<const uint32_t*>(xs + g * C::kXStride * 2 + xo);
+      const uint32_t b1 = *reinterpret_cast<const uint32_t*>(xs + g * C::kXStride * 2 + xo + 16);
+      // A: the group's 32 bytes of the step's 16 rows
       const int krow = ks * 16 + ((lane >> 4) & 1) * 8 + (lane & 7);
-      const int chunk = grp * 2 + ((lane >> 3) & 1);
-      uint32_t af[4];
-      asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                   : "=r"(af[0]), "=r"(af[1]), "=r"(af[2]), "=r"(af[3])
-                   : "r"(st + krow * kGRowBytes + (q8_swizzle(krow, chunk) << 4)));
-      mma16<T>(acc, af, b0, b1);
+#pragma unroll
+      for (int j = 0; j < C::kGpW; ++j) {
+        const int grp = g16_group<C>(warp, j);
+        const int chunk = (grp & 3) * 2 + ((lane >> 3) & 1);
+        const uint32_t off = (grp >> 2) * C::kBoxBytes + krow * kGBox +
+                             (q8_swizzle(krow, chunk) << 4);
+#pragma unroll
+        for (int m = 0; m < C::kNM; ++m) {
+          uint32_t r[4];
+          asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                       : "r"(st + m * C::kNB * C::kBoxBytes + off));
+          if constexpr (kInt8) {
+            // r[0], r[1]: rows 2t, 2t+1 of the group's halves; r[2], r[3]: rows +8
+            uint32_t ae[4], ao[4];
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              q8_deq(r[q], sc[j][(q & 1) * 2], sc[j][(q & 1) * 2 + 1], ae[q], ao[q]);
+            mma_16816(acc[m][j][0], ae, b0, b1);
+            mma_16816(acc[m][j][C::kE - 1], ao, b0, b1);
+          } else {
+            mma16<T>(acc[m][j][0], r, b0, b1);
+          }
+        }
+      }
     }
     const int tile = cu / gr.k16, base = tile * gr.k16;
     const int end = min(hi, base + gr.k16);
-    cu = min(end, cu + kGSteps);
+    cu = min(end, cu + C::kSteps);
     if (cu < end) continue;
     // this block's share of the tile is done
-    g16_reduce(acc, red, sums);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[q] = 0.f;
+    g16_reduce<C>(acc, red, sums);
+    g16_zero<C>(acc);
     bool finish = true;
     if (seg != base || end != base + gr.k16) {
       int slotn, n;
@@ -1523,25 +1744,49 @@ __device__ __forceinline__ void g16_body(const G16Args& a) {
         slotn = (seg - base) / gr.sps;
         n = (gr.k16 + gr.sps - 1) / gr.sps;
       }
-      finish = g16_merge(a, tile, slotn, n, sums);
+      finish = g16_merge<C>(a, tile, slotn, n, sums);
     }
-    if (finish) g16_epilogue<T, kProj>(a, tile, sums);
+    if (finish) g16_epilogue<T, kKind, C>(a, tile, sums);
     seg = cu;
+    if (kInt8 && cu < hi) g16_scales<C>(sc, a, cu / gr.k16);
   }
   cp_async_wait<0>();
-  if constexpr (kProj) g16_norm<T>(a);
+  if constexpr (kKind == kAct) {
+    if (!triggered) pdl_launch_dependents();   // a block with no unit
+  }
+  if constexpr (kKind == kProj) g16_norm<T, C>(a);
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kGThreads, QkvCfg::kBps)
     norm_qkv_mma_kernel(const __grid_constant__ G16Args a) {
-  g16_body<T, false, QkvCfg>(a);
+  g16_body<T, kQkv, QkvCfg>(a);
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kGThreads, ProjCfg::kBps)
     proj_norm_mma_kernel(const __grid_constant__ G16Args a) {
-  g16_body<T, true, ProjCfg>(a);
+  g16_body<T, kProj, ProjCfg>(a);
+}
+
+// int8 codes (bf16 rows): kTma false where a code row is not a multiple of
+// 16 bytes (the TMA's stride).
+template <bool kTma>
+__global__ void __launch_bounds__(kGThreads, Qkv8Cfg::kBps)
+    norm_qkv_int8_mma_kernel(const __grid_constant__ G16Args a) {
+  g16_body<__nv_bfloat16, kQkv, Qkv8Cfg, kTma>(a);
+}
+
+template <typename T, class C>
+__global__ void __launch_bounds__(kGThreads, C::kBps)
+    mlp_act_mma_kernel(const __grid_constant__ G16Args a) {
+  g16_body<T, kAct, C>(a);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kGThreads, MlpDownCfg::kBps)
+    mlp_down_mma_kernel(const __grid_constant__ G16Args a) {
+  g16_body<T, kDown, MlpDownCfg>(a);
 }
 
 // ---------------------------------------------------------------------------
@@ -1618,17 +1863,6 @@ __device__ __forceinline__ float2 fd_pair(const unsigned char* src) {
 
 __device__ __forceinline__ void cp_async8(uint32_t dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst), "l"(src));
-}
-
-// Waits for the phase `parity` of the mbarrier at shared address `mb`.
-__device__ __forceinline__ void mbar_wait(uint32_t mb, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(mb), "r"(parity) : "memory");
-  } while (!done);
 }
 
 // Keys [t0, t1) of one (slot, KV head) row into `buf` ([t1 - t0, Dh] of T)
@@ -1944,21 +2178,20 @@ bool narrow_blocks(int grid) {
   return grid > sms;
 }
 
-template <typename T, typename W>
+template <typename T>
 cudaError_t launch_norm_qkv(const void* x, const void* scale, const void* bias, const void* w,
-                            const void* wscale, const void* bqkv, void* out, int B, int D,
-                            int N, int kind, float eps, cudaStream_t s) {
+                            const void* bqkv, void* out, int B, int D, int N, int kind,
+                            float eps, cudaStream_t s) {
   const int grid = grid_for(N, Pack<T>::N);
   const bool narrow = narrow_blocks(grid);
-  auto kernel = narrow ? norm_qkv_kernel<T, W, kThreadsNarrow>
-                       : norm_qkv_kernel<T, W, kThreadsWide>;
+  auto kernel = narrow ? norm_qkv_kernel<T, kThreadsNarrow> : norm_qkv_kernel<T, kThreadsWide>;
   const size_t smem = static_cast<size_t>(min(B, kBT)) * D * sizeof(T);
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   kernel<<<grid, narrow ? kThreadsNarrow : kThreadsWide, smem, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(scale), static_cast<const T*>(bias),
-      static_cast<const W*>(w), static_cast<const float*>(wscale),
-      static_cast<const T*>(bqkv), static_cast<T*>(out), B, D, N, kind, eps);
+      static_cast<const T*>(w), static_cast<const T*>(bqkv), static_cast<T*>(out), B, D, N,
+      kind, eps);
   return cudaGetLastError();
 }
 
@@ -2146,14 +2379,14 @@ cudaError_t launch_mlp_int8(const void* h, const void* r, const void* wu, const 
   return cudaSuccess;
 }
 
-// The 16-bit GEMVs' grid (the kernels' note above g16_range) over `cap`
-// resident blocks (SMs x the kernel's blocks an SM): split mode as
-// q8_grid; even mode (more column tiles than resident blocks, so that
-// proj_norm's cooperative grid stays resident) one block a slot, each an
-// equal run of units.
-G16Grid g16_grid(int K, int N, int cap) {
+// The tensor-core GEMVs' grid (the kernels' note above g16_range) over
+// `cap` resident blocks (SMs x the kernel's blocks an SM) and tiles of `tn`
+// columns: split mode as q8_grid; even mode (more column tiles than resident
+// blocks, so that proj_norm's cooperative grid stays resident) one block a
+// slot, each an equal run of units.
+G16Grid g16_grid(int K, int N, int tn, int cap) {
   G16Grid g;
-  g.tiles = (N + kGTN - 1) / kGTN;
+  g.tiles = (N + tn - 1) / tn;
   g.k16 = (K + 15) / 16;
   g.even = g.tiles > cap;
   if (g.even) {
@@ -2171,48 +2404,127 @@ G16Grid g16_grid(int K, int N, int cap) {
   return g;
 }
 
+template <class C>
+G16Grid g16_grid_of(int K, int N, int dev) {
+  return g16_grid(K, N, C::kTN, sm_count(dev) * C::kBps);
+}
+
 size_t align256(size_t n) { return (n + 255) / 256 * 256; }
 
-int g16_cap(bool proj, int dev) {
-  return sm_count(dev) * (proj ? ProjCfg::kBps : QkvCfg::kBps);
+// The fp32 partials of a grid's shared tiles.
+template <class C>
+size_t g16_part_bytes(const G16Grid& g) {
+  return g.slots > 1 ? static_cast<size_t>(g.tiles) * g.slots * C::kTileFloats * 4 : 0;
 }
 
-// The workspace of a pass: r32 [kBT, N], the tiles' row statistics, then
-// the partials of shared tiles.
-size_t g16_workspace_bytes(int K, int N, int cap) {
-  const G16Grid g = g16_grid(K, N, cap);
-  const size_t part = g.slots > 1 ? static_cast<size_t>(g.tiles) * g.slots * kBT * kGTN * 4 : 0;
+// The workspace of a norm_qkv or proj_norm pass: r32 [kBT, N], the tiles'
+// row statistics, then the partials of shared tiles.
+template <class C>
+size_t g16_workspace_bytes(int K, int N, int dev) {
+  const G16Grid g = g16_grid_of<C>(K, N, dev);
   return align256(static_cast<size_t>(kBT) * N * 4) +
-         align256(static_cast<size_t>(g.tiles) * kBT * sizeof(float2)) + part;
+         align256(static_cast<size_t>(g.tiles) * kBT * sizeof(float2)) + g16_part_bytes<C>(g);
 }
 
-// proj_norm's blocks meet at a grid barrier, so it launches cooperatively:
-// the launch fails, and never hangs, unless the whole grid is resident.
-template <typename T, bool kProj>
-cudaError_t launch_g16(const G16Args& a, int dev, cudaStream_t s) {
-  static unsigned long long ready = 0;
-  auto kernel = kProj ? proj_norm_mma_kernel<T> : norm_qkv_mma_kernel<T>;
-  constexpr int smem = kProj ? ProjCfg::kSmem : QkvCfg::kSmem;
-  const cudaError_t e = q8_allow_smem(kernel, smem, dev, ready);
+// The 16-bit MLP's workspace: `a` [kBT, F], then the partials of whichever
+// launch has more (the down launch writes its own only once the act launch
+// has ended).
+size_t mlp16_workspace_bytes(int D, int F, bool glu, int dev) {
+  const size_t pa = glu ? g16_part_bytes<MlpActCfg>(g16_grid_of<MlpActCfg>(D, F, dev))
+                        : g16_part_bytes<MlpAct1Cfg>(g16_grid_of<MlpAct1Cfg>(D, F, dev));
+  const size_t pd = g16_part_bytes<MlpDownCfg>(g16_grid_of<MlpDownCfg>(F, D, dev));
+  return align256(static_cast<size_t>(kBT) * F * 2) + max(pa, pd);
+}
+
+// A ring beyond the default 48 KB: opt each kernel in once a device.
+cudaError_t g16_allow_smem(const void* kernel, int bytes, int dev) {
+  static const void* keys[32];
+  static unsigned long long done[32];
+  static int n = 0;
+  int i = 0;
+  while (i < n && keys[i] != kernel) ++i;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (i < n && (done[i] & bit)) return cudaSuccess;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess && (i < n || n < 32)) {
+    if (i == n) {
+      keys[n++] = kernel;
+      done[i] = 0;
+    }
+    done[i] |= bit;
+  }
+  return e;
+}
+
+// How a g16 grid launches: plainly; cooperatively (proj_norm's blocks meet
+// at a grid barrier: the launch fails, and never hangs, unless the whole
+// grid is resident); or as a programmatic dependent of the launch before
+// it on the stream (the MLP's down launch).
+enum G16Launch { kLaunchPlain = 0, kLaunchCooperative = 1, kLaunchPdl = 2 };
+
+cudaError_t g16_launch(void (*kernel)(G16Args), int smem, const G16Args& a, int dev,
+                       cudaStream_t s, int mode) {
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  const cudaError_t e = g16_allow_smem(fn, smem, dev);
   if (e != cudaSuccess) return e;
-  if (kProj) {
-    void* args[] = {const_cast<G16Args*>(&a)};
-    return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
-                                       dim3(a.g.blocks), dim3(kGThreads), args, smem, s);
+  void* args[] = {const_cast<G16Args*>(&a)};
+  if (mode == kLaunchCooperative)
+    return cudaLaunchCooperativeKernel(fn, dim3(a.g.blocks), dim3(kGThreads), args, smem, s);
+  if (mode == kLaunchPdl) {
+    cudaLaunchAttribute at[1];
+    at[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    at[0].val.programmaticStreamSerializationAllowed = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(a.g.blocks);
+    cfg.blockDim = dim3(kGThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = s;
+    cfg.attrs = at;
+    cfg.numAttrs = 1;
+    return cudaLaunchKernelExC(&cfg, fn, args);
   }
   kernel<<<a.g.blocks, kGThreads, smem, s>>>(a);
   return cudaGetLastError();
 }
 
-// One launch a pass of kBT rows: the pass's rows of x / ctx, resid, out / r
-// and h; the workspace split as g16_workspace_bytes lays it out.
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// w [K, N] of 2-byte elements as TMA tiles of kGTK rows x 64 columns.
-cudaError_t g16_wmap(CUtensorMap* map, const void* w, int K, int N, bool half) {
+// Weight element types of the TMA maps.
+enum G16Type { kTypeBf16 = 0, kTypeF16 = 1, kTypeU8 = 2 };
+
+template <typename T, class C>
+constexpr int g16_type() {
+  return sizeof(typename C::W) == 1 ? kTypeU8 : std::is_same<T, __half>::value ? kTypeF16 : kTypeBf16;
+}
+
+// w [K, N] as TMA boxes of `rows` rows x 128 bytes, 128-byte swizzle, the
+// copies' L2 promotion 128 or 256 bytes.  A map depends on nothing but
+// these arguments, so the last one made for each (address, shape, type,
+// box, promotion) is kept and reused: a decode step asks for the same
+// weights' maps every layer and token.
+cudaError_t g16_wmap(CUtensorMap* map, const void* w, int K, int N, int type, int rows,
+                     int promo) {
+  struct Entry {
+    const void* w;
+    int K, N, type, rows, promo;
+    CUtensorMap map;
+  };
+  static Entry cache[512];
+  static std::mutex lock;
+  Entry& slot = cache[((reinterpret_cast<uintptr_t>(w) >> 8) ^ static_cast<uintptr_t>(N) * 7 ^
+                       static_cast<uintptr_t>(rows)) % 512];
+  {
+    const std::lock_guard<std::mutex> hold(lock);
+    if (slot.w == w && slot.K == K && slot.N == N && slot.type == type && slot.rows == rows &&
+        slot.promo == promo) {
+      *map = slot.map;
+      return cudaSuccess;
+    }
+  }
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
     cudaDriverEntryPointQueryResult q;
@@ -2221,28 +2533,45 @@ cudaError_t g16_wmap(CUtensorMap* map, const void* w, int K, int N, bool half) {
         q != cudaDriverEntryPointSuccess)
       return cudaErrorNotSupported;
   }
+  const int esz = type == kTypeU8 ? 1 : 2;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(K)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(N) * 2};
-  const cuuint32_t box[2] = {64, kGTK};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(N) * esz};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kGBox / esz), static_cast<cuuint32_t>(rows)};
   const cuuint32_t estr[2] = {1, 1};
-  const CUresult r = encode(map, half ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                            2, const_cast<void*>(w), dims, strides, box, estr,
+  const CUtensorMapDataType dt = type == kTypeU8   ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                 : type == kTypeF16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                                    : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUresult r = encode(map, dt, 2, const_cast<void*>(w), dims, strides, box, estr,
                             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+                            promo == 256 ? CU_TENSOR_MAP_L2_PROMOTION_L2_256B
+                                         : CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
+  const std::lock_guard<std::mutex> hold(lock);
+  slot = Entry{w, K, N, type, rows, promo, *map};
+  return cudaSuccess;
 }
 
-template <typename T, bool kProj>
-cudaError_t launch_g16_passes(G16Args a, int B, void* work, int dev, cudaStream_t s) {
-  a.g = g16_grid(a.K, a.N, g16_cap(kProj, dev));
+// norm_qkv and proj_norm: one launch a pass of kBT rows: the pass's rows of
+// x / ctx, resid, out / r and h; the workspace split as
+// g16_workspace_bytes lays it out.  `tma`: the weight's rows are whole
+// 16-byte multiples (else int8 codes come by cp.async).
+template <typename T, int kKind, class C>
+cudaError_t g16_passes(G16Args a, int B, void* work, void (*kernel)(G16Args), bool tma,
+                       int dev, cudaStream_t s) {
+  a.g = g16_grid_of<C>(a.K, a.N, dev);
   if (a.g.tiles > kGMaxTiles) return cudaErrorInvalidValue;
-  const cudaError_t me = g16_wmap(&a.wmap, a.w, a.K, a.N, std::is_same<T, __half>::value);
-  if (me != cudaSuccess) return me;
+  if (tma) {
+    const cudaError_t me =
+        g16_wmap(&a.wmap[0], a.w[0], a.K, a.N, g16_type<T, C>(), C::kTK, kG16L2Promo);
+    if (me != cudaSuccess) return me;
+  }
   char* wp = static_cast<char*>(work);
+  const size_t r32 = align256(static_cast<size_t>(kBT) * a.N * 4);
   a.r32 = reinterpret_cast<float*>(wp);
-  a.stats = reinterpret_cast<float2*>(wp + align256(static_cast<size_t>(kBT) * a.N * 4));
-  a.part = reinterpret_cast<float*>(wp + align256(static_cast<size_t>(kBT) * a.N * 4) +
-                                    align256(static_cast<size_t>(a.g.tiles) * kBT * sizeof(float2)));
+  a.stats = reinterpret_cast<float2*>(wp + r32);
+  a.part = reinterpret_cast<float*>(
+      wp + r32 + align256(static_cast<size_t>(a.g.tiles) * kBT * sizeof(float2)));
   const T* x = static_cast<const T*>(a.x);
   const T* resid = static_cast<const T*>(a.resid);
   T* out = static_cast<T*>(a.out);
@@ -2251,11 +2580,12 @@ cudaError_t launch_g16_passes(G16Args a, int B, void* work, int dev, cudaStream_
     a.bc = min(kBT, B - b0);
     a.x = x + static_cast<size_t>(b0) * a.K;
     a.out = out + static_cast<size_t>(b0) * a.N;
-    if (kProj) {
+    if (kKind == kProj) {
       a.resid = resid + static_cast<size_t>(b0) * a.N;
       a.h = h + static_cast<size_t>(b0) * a.N;
     }
-    const cudaError_t e = launch_g16<T, kProj>(a, dev, s);
+    const cudaError_t e = g16_launch(kernel, C::kSmem, a, dev, s,
+                                     kKind == kProj ? kLaunchCooperative : kLaunchPlain);
     if (e != cudaSuccess) return e;
   }
   return cudaSuccess;
@@ -2266,10 +2596,10 @@ cudaError_t g16_norm_qkv(const void* x, const void* scale, const void* bias, con
                          const void* bqkv, void* out, void* work, void* ticket, int B, int D,
                          int N, int kind, float eps, int dev, cudaStream_t s) {
   G16Args a{};
-  a.x = x; a.w = w; a.wb = bqkv; a.scale = scale; a.bias = bias; a.out = out;
+  a.x = x; a.w[0] = w; a.wb[0] = bqkv; a.scale = scale; a.bias = bias; a.out = out;
   a.ticket = static_cast<unsigned int*>(ticket);
   a.K = D; a.N = N; a.kind = kind; a.eps = eps;
-  return launch_g16_passes<T, false>(a, B, work, dev, s);
+  return g16_passes<T, kQkv, QkvCfg>(a, B, work, norm_qkv_mma_kernel<T>, true, dev, s);
 }
 
 template <typename T>
@@ -2278,11 +2608,71 @@ cudaError_t g16_proj_norm(const void* ctx, const void* resid, const void* wo, co
                           void* ticket, int B, int M, int D, int kind, float eps, int parallel,
                           int dev, cudaStream_t s) {
   G16Args a{};
-  a.x = ctx; a.w = wo; a.wb = bo; a.scale = scale; a.bias = bias; a.resid = resid;
+  a.x = ctx; a.w[0] = wo; a.wb[0] = bo; a.scale = scale; a.bias = bias; a.resid = resid;
   a.out = r; a.h = h;
   a.ticket = static_cast<unsigned int*>(ticket);
   a.K = M; a.N = D; a.kind = kind; a.eps = eps; a.parallel = parallel;
-  return launch_g16_passes<T, true>(a, B, work, dev, s);
+  return g16_passes<T, kProj, ProjCfg>(a, B, work, proj_norm_mma_kernel<T>, true, dev, s);
+}
+
+cudaError_t q8_norm_qkv(const void* x, const void* scale, const void* bias, const void* w,
+                        const void* wscale, const void* bqkv, void* out, void* work,
+                        void* ticket, int B, int D, int N, int kind, float eps, int dev,
+                        cudaStream_t s) {
+  if (N % 8 || D % 8) return cudaErrorInvalidValue;
+  G16Args a{};
+  a.x = x; a.w[0] = w; a.ws = static_cast<const float*>(wscale); a.wb[0] = bqkv;
+  a.scale = scale; a.bias = bias; a.out = out;
+  a.ticket = static_cast<unsigned int*>(ticket);
+  a.K = D; a.N = N; a.kind = kind; a.eps = eps;
+  const bool tma = N % 16 == 0 && aligned16(w);
+  return g16_passes<__nv_bfloat16, kQkv, Qkv8Cfg>(
+      a, B, work, tma ? norm_qkv_int8_mma_kernel<true> : norm_qkv_int8_mma_kernel<false>, tma,
+      dev, s);
+}
+
+// The 16-bit MLP: two launches a pass of kBT rows, the act launch's `a` and
+// both launches' partials in the workspace (mlp16_workspace_bytes), the
+// down kernel a programmatic dependent of the act kernel.
+template <typename T>
+cudaError_t launch_mlp16(const void* h, const void* r, const void* wu, const void* wg,
+                         const void* wd, const void* bu, const void* bg, const void* bd,
+                         void* work, void* ticket, void* out, int B, int D, int F, int act,
+                         int dev, cudaStream_t s) {
+  if (D % 8 || F % 8) return cudaErrorInvalidValue;
+  constexpr int type = std::is_same<T, __half>::value ? kTypeF16 : kTypeBf16;
+  const bool glu = wg != nullptr;
+  G16Args pa{}, pd{};
+  pa.g = glu ? g16_grid_of<MlpActCfg>(D, F, dev) : g16_grid_of<MlpAct1Cfg>(D, F, dev);
+  pd.g = g16_grid_of<MlpDownCfg>(F, D, dev);
+  if (pa.g.tiles > kGMaxTiles || pd.g.tiles > kGMaxTiles) return cudaErrorInvalidValue;
+  const int rows = glu ? MlpActCfg::kTK : MlpAct1Cfg::kTK;
+  cudaError_t e = g16_wmap(&pa.wmap[0], wu, D, F, type, rows, kG16L2Promo);
+  if (e == cudaSuccess && glu) e = g16_wmap(&pa.wmap[1], wg, D, F, type, rows, kG16L2Promo);
+  if (e == cudaSuccess) e = g16_wmap(&pd.wmap[0], wd, F, D, type, MlpDownCfg::kTK, kG16L2Promo);
+  if (e != cudaSuccess) return e;
+  T* a_buf = static_cast<T*>(work);
+  float* part = reinterpret_cast<float*>(static_cast<char*>(work) +
+                                         align256(static_cast<size_t>(kBT) * F * 2));
+  unsigned int* tk = static_cast<unsigned int*>(ticket);
+  pa.w[0] = wu; pa.w[1] = wg; pa.wb[0] = bu; pa.wb[1] = bg; pa.out = a_buf;
+  pa.part = part; pa.ticket = tk; pa.K = D; pa.N = F; pa.act = act;
+  pd.x = a_buf; pd.w[0] = wd; pd.wb[0] = bd; pd.part = part; pd.ticket = tk;
+  pd.K = F; pd.N = D;
+  void (*act_kernel)(G16Args) =
+      glu ? mlp_act_mma_kernel<T, MlpActCfg> : mlp_act_mma_kernel<T, MlpAct1Cfg>;
+  const int act_smem = glu ? MlpActCfg::kSmem : MlpAct1Cfg::kSmem;
+  for (int b0 = 0; b0 < B; b0 += kBT) {
+    pa.bc = pd.bc = min(kBT, B - b0);
+    pa.x = static_cast<const T*>(h) + static_cast<size_t>(b0) * D;
+    pd.resid = static_cast<const T*>(r) + static_cast<size_t>(b0) * D;
+    pd.out = static_cast<T*>(out) + static_cast<size_t>(b0) * D;
+    e = g16_launch(act_kernel, act_smem, pa, dev, s, kLaunchPlain);
+    if (e == cudaSuccess)
+      e = g16_launch(mlp_down_mma_kernel<T>, MlpDownCfg::kSmem, pd, dev, s, kLaunchPdl);
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 
 template <typename T, int R>
@@ -2383,29 +2773,37 @@ int ds_fused_norm_qkv(const void* x, const void* scale, const void* bias, const 
   if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch_norm_qkv<float, float>(x, scale, bias, w, nullptr, bqkv, out, B, D, N, kind, eps, s);
+    case 0: return launch_norm_qkv<float>(x, scale, bias, w, bqkv, out, B, D, N, kind, eps, s);
     case 1: return g16_norm_qkv<__nv_bfloat16>(x, scale, bias, w, bqkv, out, work, ticket, B, D, N, kind, eps, device, s);
     case 2: return g16_norm_qkv<__half>(x, scale, bias, w, bqkv, out, work, ticket, B, D, N, kind, eps, device, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// The int8-weight body: bf16 x, scale, bias, bqkv and out; w [D, N] int8
-// codes (8-byte aligned, N a multiple of 8), wscale [N] fp32.
+// The int8-weight body on the tensor cores: bf16 x, scale, bias, bqkv and
+// out (x, scale, bias 16-byte aligned, D a multiple of 8); w [D, N] int8
+// codes (8-byte aligned, N a multiple of 8; rows of whole 16 bytes go by
+// the TMA), wscale [N] fp32; `work` ds_gemv16_workspace(D, N, 2, device)
+// bytes and `ticket` as ds_fused_norm_qkv's.
 int ds_fused_norm_qkv_int8(const void* x, const void* scale, const void* bias, const void* w,
-                           const void* wscale, const void* bqkv, void* out, int B, int D, int N,
-                           int kind, float eps, void* stream, int device) {
+                           const void* wscale, const void* bqkv, void* out, void* work,
+                           void* ticket, int B, int D, int N, int kind, float eps, void* stream,
+                           int device) {
   if (B <= 0 || N <= 0) return 0;
   const DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
-  return launch_norm_qkv<__nv_bfloat16, int8_t>(x, scale, bias, w, wscale, bqkv, out, B, D, N,
-                                                kind, eps, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(q8_norm_qkv(x, scale, bias, w, wscale, bqkv, out, work, ticket, B, D,
+                                      N, kind, eps, device, static_cast<cudaStream_t>(stream)));
 }
 
-// Bytes of the workspace the bf16 and fp16 norm_qkv (proj 0) or proj_norm
-// (proj 1) take for a [K, N] weight on CUDA device `device`.
-long long ds_gemv16_workspace(int K, int N, int proj, int device) {
-  return static_cast<long long>(g16_workspace_bytes(K, N, g16_cap(proj != 0, device)));
+// Bytes of the workspace the tensor-core norm_qkv (kind 0), proj_norm
+// (kind 1) or int8 norm_qkv (kind 2) take for a [K, N] weight on CUDA
+// device `device`.
+long long ds_gemv16_workspace(int K, int N, int kind, int device) {
+  const size_t n = kind == 1   ? g16_workspace_bytes<ProjCfg>(K, N, device)
+                   : kind == 2 ? g16_workspace_bytes<Qkv8Cfg>(K, N, device)
+                               : g16_workspace_bytes<QkvCfg>(K, N, device);
+  return static_cast<long long>(n);
 }
 
 // The uint32 tickets a (device, stream) gives the kernels that merge across
@@ -2509,19 +2907,37 @@ int ds_fused_proj_norm_int8(const void* ctx, const void* resid, const void* wo,
 }
 
 // h, r [B, D]; wu, wg [D, F] (wg null: no gate); wd [F, D]; biases or null;
-// a_t [F, B] scratch; out [B, D]; act 0 silu, 1 gelu (tanh), 2 gelu_exact,
-// 3 relu.  Two launches on the stream.
+// out [B, D]; act 0 silu, 1 gelu (tanh), 2 gelu_exact, 3 relu; D and F
+// multiples of 16 / itemsize, every tensor 16-byte aligned (the wrapper
+// checks).  bf16 and fp16 run on the tensor cores (mlp_act_mma_kernel, then
+// mlp_down_mma_kernel as its programmatic dependent, a pass of 8 rows),
+// fp32 on the FFMA kernels;
+// `work` ds_fused_mlp_workspace bytes (256-byte aligned) and `ticket`
+// ds_ticket_count() zeroed uint32 that the kernels leave at 0.  Two
+// launches a pass on `stream` of CUDA device `device` (made current for the
+// call if it is not).
 int ds_fused_mlp(const void* h, const void* r, const void* wu, const void* wg, const void* wd,
-                 const void* bu, const void* bg, const void* bd, void* a_t, void* out, int B,
-                 int D, int F, int act, int dtype, void* stream) {
+                 const void* bu, const void* bg, const void* bd, void* work, void* ticket,
+                 void* out, int B, int D, int F, int act, int dtype, void* stream,
+                 int device) {
   if (B <= 0 || D <= 0) return 0;
+  const DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch_mlp<float>(h, r, wu, wg, wd, bu, bg, bd, a_t, out, B, D, F, act, s);
-    case 1: return launch_mlp<__nv_bfloat16>(h, r, wu, wg, wd, bu, bg, bd, a_t, out, B, D, F, act, s);
-    case 2: return launch_mlp<__half>(h, r, wu, wg, wd, bu, bg, bd, a_t, out, B, D, F, act, s);
+    case 0: return launch_mlp<float>(h, r, wu, wg, wd, bu, bg, bd, work, out, B, D, F, act, s);
+    case 1: return launch_mlp16<__nv_bfloat16>(h, r, wu, wg, wd, bu, bg, bd, work, ticket, out, B, D, F, act, device, s);
+    case 2: return launch_mlp16<__half>(h, r, wu, wg, wd, bu, bg, bd, work, ticket, out, B, D, F, act, device, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// Bytes of the workspace ds_fused_mlp needs for B rows of D and an F-wide
+// MLP (a gate when glu) in `dtype` on CUDA device `device`: fp32's [F, B]
+// activations, or the tensor-core launches' `a` and partials.
+long long ds_fused_mlp_workspace(int B, int D, int F, int glu, int dtype, int device) {
+  if (dtype == 0) return static_cast<long long>(align256(static_cast<size_t>(F) * B * 4));
+  return static_cast<long long>(mlp16_workspace_bytes(D, F, glu != 0, device));
 }
 
 // The int8-weight MLP on the tensor cores: bf16 h, r, biases and out

@@ -20,25 +20,27 @@ honours its three biases independently, as ``_mlp_ref`` does (the Pallas
 kernel gates them all on ``b_up``).  The wrappers check device, dtype, shape,
 contiguity and alignment and raise: they never copy or cast an input.
 
-In bf16 and fp16 ``fused_norm_qkv`` and ``fused_proj_norm`` run on the
-tensor cores (``norm_qkv_mma_kernel``, ``proj_norm_mma_kernel``:
-``mma.sync`` over the weight tiles the TMA streams into a ring, one launch
-a pass of 8 rows; proj_norm launches cooperatively, its norm after a grid
-barrier); fp32 keeps the FFMA kernels, in full fp32.  Both
-wrappers keep their scratch and tickets a device and stream.
+In bf16 and fp16 ``fused_norm_qkv``, ``fused_proj_norm`` and ``fused_mlp``
+run on the tensor cores (``norm_qkv_mma_kernel``, ``proj_norm_mma_kernel``,
+``mlp_act_mma_kernel`` + ``mlp_down_mma_kernel``: ``mma.sync`` over the
+weight tiles the TMA streams into a ring, one launch a pass of 8 rows, two
+for the MLP; proj_norm launches cooperatively, its norm after a grid
+barrier; the MLP's down launch as a programmatic dependent of its act
+launch); fp32 keeps the FFMA kernels, in full fp32.
+The wrappers keep their scratch and tickets a device and stream.
 
 int8 weights (``wscale`` / ``wscales``: an int8 payload with per-output-
 column fp32 scales, the layout of ``models/quant.py``) run the int8 bodies
 of the three GEMV kernels, which dequantize in the kernel as ``_deq`` does;
-they take bf16 activations only (the int8 engine serves in bf16).  The
+they take bf16 activations only (the int8 engine serves in bf16).
+norm_qkv's is the tensor-core core's (``norm_qkv_int8_mma_kernel``); the
 int8 MLP has kernels of its own on the tensor cores
 (``mlp_act_int8_mma_kernel`` + ``mlp_down_int8_mma_kernel``: ``mma.sync``
-over the dequantized codes, streamed by a ``cp.async`` ring).  The
-norm_qkv and proj_norm wrappers (every dtype, int8 too) and the int8 MLP's
-take the lean host path of :mod:`.common` (the raw stream handle, the
-device index to the C entry, prototypes bound once), and so do both
-caches' flash_decode.  Each variant has a launch function and a launch
-counter of its own: ``flash_decode_contig_cuda`` and the three
+over the dequantized codes, streamed by a ``cp.async`` ring); proj_norm's
+is the FFMA ``proj_norm_kernel`` over int8 codes.  Every wrapper takes the
+lean host path of :mod:`.common` (the raw stream handle, the device index
+to the C entry, prototypes bound once).  Each variant has a launch function
+and a launch counter of its own: ``flash_decode_contig_cuda`` and the three
 ``*_int8_cuda``.
 
 ``flash_decode`` (both caches) is one kernel, ``flash_decode_kernel``: each
@@ -216,13 +218,11 @@ def _mlp_ref(h, r, w_up, w_gate, w_down, b_up, b_gate, b_down, *, act,
 # ---------------------------------------------------------------------------
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-_SIGNATURES = {
-    "ds_fused_mlp": [_P] * 10 + [_I] * 5 + [_P],
-}
-# the GEMVs of the lean host path (bound once through build.bind; each takes
-# the raw stream and the device index)
+# the C entries (bound once through build.bind; each takes the raw stream
+# and the device index)
 _NORM_QKV_ARGS = [_P] * 8 + [_I] * 4 + [_F, _I, _P, _I]
-_NORM_QKV_INT8_ARGS = [_P] * 7 + [_I] * 4 + [_F, _P, _I]
+_NORM_QKV_INT8_ARGS = [_P] * 9 + [_I] * 4 + [_F, _P, _I]
+_MLP_ARGS = [_P] * 11 + [_I] * 5 + [_P, _I]
 _PROJ_NORM_ARGS = [_P] * 10 + [_I] * 4 + [_F, _I, _I, _P, _I]
 _PROJ_NORM_INT8_ARGS = [_P] * 11 + [_I] * 4 + [_F, _I, _P, _I]
 _Q8_ARGS = [_P] * 14 + [_I] * 4 + [_P, _I]
@@ -237,26 +237,13 @@ _FD_CONTIG_ARGS = [_P] * 4 + [_L, _I] + [_P] * 4 + [_I] * 7 + [_F, _I, _P, _I]
 _TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
 _WORK: Dict[Tuple[int, int], torch.Tensor] = {}
 _G16_WORKSPACE: Dict[Tuple[int, int, int, int], int] = {}
+_MLP_WORKSPACE: Dict[Tuple[int, int, int, bool, int, int], int] = {}
 _Q8_WORKSPACE: Dict[Tuple[int, int, bool, int], int] = {}
 _FD_SLOTS: Dict[Tuple[int, int, int, int, int], int] = {}
 
 
-def _library():
-    built = load_library("decode")
-    for name, args in _SIGNATURES.items():
-        fn = getattr(built.lib, name)
-        if fn.argtypes is None:
-            fn.argtypes = args
-            fn.restype = ctypes.c_int
-    return built
-
-
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
-
-
-def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def _check(name: str, t: Optional[torch.Tensor], like: torch.Tensor,
@@ -341,15 +328,29 @@ def _workspace(dev: int, stream: int, nbytes: int) -> int:
 
 
 def _gemv_workspace(dev: int, stream: int, code: int, B: int, K: int,
-                    N: int, proj: int) -> int:
-    """The GEMVs' scratch: the tensor-core kernels' (bf16, fp16) layout of
-    ``ds_gemv16_workspace``; for fp32 proj_norm's r32 [B, N]."""
+                    N: int, kind: int) -> int:
+    """The GEMVs' scratch: the tensor-core kernels' layout of
+    ``ds_gemv16_workspace`` (kind 0 norm_qkv, 1 proj_norm in bf16 and fp16,
+    2 the int8 norm_qkv); for fp32 proj_norm's r32 [B, N]."""
     if code == 0:
         return _workspace(dev, stream, B * N * 4)
-    nbytes = _G16_WORKSPACE.get((K, N, proj, dev))
+    nbytes = _G16_WORKSPACE.get((K, N, kind, dev))
     if nbytes is None:
-        nbytes = _G16_WORKSPACE[(K, N, proj, dev)] = bind(
-            "decode", "ds_gemv16_workspace", [_I] * 4, _L)(K, N, proj, dev)
+        nbytes = _G16_WORKSPACE[(K, N, kind, dev)] = bind(
+            "decode", "ds_gemv16_workspace", [_I] * 4, _L)(K, N, kind, dev)
+    return _workspace(dev, stream, nbytes)
+
+
+def _mlp_workspace(dev: int, stream: int, code: int, B: int, D: int, F: int,
+                   glu: bool) -> int:
+    """fused_mlp's scratch (``ds_fused_mlp_workspace``): fp32's [F, B]
+    activations, or the tensor-core launches' ``a`` and partials."""
+    key = (B if code == 0 else 0, D, F, glu, code, dev)
+    nbytes = _MLP_WORKSPACE.get(key)
+    if nbytes is None:
+        nbytes = _MLP_WORKSPACE[key] = bind(
+            "decode", "ds_fused_mlp_workspace", [_I] * 6, _L)(
+                B, D, F, int(glu), code, dev)
     return _workspace(dev, stream, nbytes)
 
 
@@ -733,9 +734,10 @@ def fused_proj_norm_cuda(ctx, resid, wo, bo, scale, bias, *, kind, eps,
     return r, h
 
 
-def fused_mlp_cuda(h, r, w_up, w_down, w_gate=None, b_up=None, b_gate=None,
-                   b_down=None, *, act):
-    """Launch ``mlp_act_kernel`` then ``mlp_down_kernel``: r + mlp(h)."""
+def _refuse_mlp(h, r, w_up, w_down, w_gate, b_up, b_gate, b_down,
+                act) -> None:
+    """Raise what the kernels refuse: the full checks, run only once the
+    lean test has failed."""
     check_kernel_input("fused_mlp h", h, h.device)
     if h.dim() != 2 or w_up.dim() != 2:
         raise ValueError(f"fused_mlp: h [B, D] and w_up [D, F], got "
@@ -751,27 +753,64 @@ def fused_mlp_cuda(h, r, w_up, w_down, w_gate=None, b_up=None, b_gate=None,
     _check("fused_mlp b_down", b_down, h, (D,))
     _check_columns("fused_mlp", F, h)
     _check_columns("fused_mlp", D, h)
-    _check_staged("fused_mlp", B, D, h)
+    if h.element_size() == 4:
+        _check_staged("fused_mlp", B, D, h)
+    elif h.data_ptr() % 16:
+        raise ValueError("fused_mlp h: the kernel's 16-byte copies need a "
+                         "16-byte aligned tensor")
     if act not in ACTIVATIONS:
         raise ValueError(f"unsupported activation {act}")
-    a_t = torch.empty((F, B), device=h.device, dtype=h.dtype)
+    raise ValueError("fused_mlp: inputs the kernel does not take")
+
+
+def fused_mlp_cuda(h, r, w_up, w_down, w_gate=None, b_up=None, b_gate=None,
+                   b_down=None, *, act):
+    """Launch ``mlp_act_mma_kernel`` then ``mlp_down_mma_kernel`` (bf16,
+    fp16: the tensor cores, a pair a pass of 8 rows, the down launch a
+    programmatic dependent of the act launch) or
+    ``mlp_act_kernel`` then ``mlp_down_kernel`` (fp32): r + mlp(h), on the
+    lean host path of :func:`fused_norm_qkv_cuda` (no ``torch.cuda.device``,
+    no ``torch.cuda.Stream``, the activations between the launches in the
+    scratch kept a device and stream)."""
+    dev, dt = h.get_device(), h.dtype
+    code = KERNEL_DTYPES.get(dt)
+    shp = h.shape
+    wsh = w_up.shape
+    if (code is None or dev < 0 or len(shp) != 2 or len(wsh) != 2
+            or not h.is_contiguous() or act not in ACTIVATIONS):
+        _refuse_mlp(h, r, w_up, w_down, w_gate, b_up, b_gate, b_down, act)
+    B, D = shp
+    F = wsh[1]
+    vec = 16 // h.element_size()
+    if not (r is not None and _ok(r, dev, dt, (B, D))
+            and _ok(w_up, dev, dt, (D, F)) and _ok(w_gate, dev, dt, (D, F))
+            and w_down is not None and _ok(w_down, dev, dt, (F, D))
+            and _ok(b_up, dev, dt, (F,)) and _ok(b_gate, dev, dt, (F,))
+            and _ok(b_down, dev, dt, (D,)) and D % vec == 0 and F % vec == 0
+            and _aligned(w_up, w_gate, w_down)
+            and (min(B, _BATCH_PASS) * D * 4 <= _SMEM_LIMIT if code == 0 else
+                 h.data_ptr() % 16 == 0)):
+        _refuse_mlp(h, r, w_up, w_down, w_gate, b_up, b_gate, b_down, act)
     out = torch.empty_like(h)
-    built = _library()
-    with torch.cuda.device(h.device):
-        code = built.lib.ds_fused_mlp(
-            h.data_ptr(), r.data_ptr(), w_up.data_ptr(), _ptr(w_gate),
-            w_down.data_ptr(), _ptr(b_up), _ptr(b_gate), _ptr(b_down),
-            a_t.data_ptr(), out.data_ptr(), B, D, F, ACTIVATIONS[act],
-            KERNEL_DTYPES[h.dtype], _stream(h.device))
-    check_launch(built, "fused_mlp", code)
+    stream = raw_stream(dev)
+    err = bind("decode", "ds_fused_mlp", _MLP_ARGS)(
+        h.data_ptr(), r.data_ptr(), w_up.data_ptr(), _ptr(w_gate),
+        w_down.data_ptr(), _ptr(b_up), _ptr(b_gate), _ptr(b_down),
+        _mlp_workspace(dev, stream, code, B, D, F, w_gate is not None),
+        _tickets(dev, stream), out.data_ptr(), B, D, F, ACTIVATIONS[act],
+        code, stream, dev)
+    if err:
+        check_launch(load_library("decode"), "fused_mlp", err)
     fused_mlp.launches += 1
     return out
 
 
 def fused_norm_qkv_int8_cuda(x, scale, bias, wqkv, wscale, bqkv=None, *,
                              kind, eps):
-    """Launch the int8 body of ``norm_qkv_kernel``: bf16 x [B, D], int8
-    wqkv [D, N] with its fp32 scale (N values) -> [B, N] bf16."""
+    """Launch ``norm_qkv_int8_mma_kernel`` (the tensor cores, one launch a
+    pass of 8 rows): bf16 x [B, D], int8 wqkv [D, N] with its fp32 scale (N
+    values) -> [B, N] bf16, on the lean host path of
+    :func:`fused_norm_qkv_cuda`."""
     check_kernel_input("fused_norm_qkv x", x, x.device)
     if x.dim() != 2 or wqkv.dim() != 2:
         raise ValueError(f"fused_norm_qkv: x [B, D] and wqkv [D, N], got "
@@ -782,14 +821,16 @@ def fused_norm_qkv_int8_cuda(x, scale, bias, wqkv, wscale, bqkv=None, *,
     _check("fused_norm_qkv scale", scale, x, (D,))
     _check("fused_norm_qkv bias", bias, x, (D,))
     _check("fused_norm_qkv bqkv", bqkv, x, (N,))
-    _check_staged("fused_norm_qkv", B, D, x)
+    _check_mma("fused_norm_qkv", D, x, scale, bias)
     code_kind = _kind_code(kind)
     out = x.new_empty((B, N))
     dev = x.get_device()
+    stream = raw_stream(dev)
     err = bind("decode", "ds_fused_norm_qkv_int8", _NORM_QKV_INT8_ARGS)(
         x.data_ptr(), scale.data_ptr(), _ptr(bias), wqkv.data_ptr(),
-        wscale.data_ptr(), _ptr(bqkv), out.data_ptr(), B, D, N, code_kind,
-        float(eps), raw_stream(dev), dev)
+        wscale.data_ptr(), _ptr(bqkv), out.data_ptr(),
+        _gemv_workspace(dev, stream, 1, B, D, N, 2), _tickets(dev, stream),
+        B, D, N, code_kind, float(eps), stream, dev)
     if err:
         check_launch(load_library("decode"), "fused_norm_qkv (int8)", err)
     fused_norm_qkv_int8_cuda.launches += 1

@@ -337,14 +337,24 @@ def test_gemvs_lean_path_keeps_every_refusal(cuda_device):
             tdec.fused_proj_norm.launches) == before
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("B,D,F,glu,bias,act", [
     (8, 4096, 14336, True, False, "silu"),      # llama3-8b decode
     (3, 256, 1024, False, True, "gelu"),
     (9, 128, 512, True, True, "gelu_exact"),
-    (2, 64, 160, False, False, "relu")])
+    (2, 64, 160, False, False, "relu"),
+    (8, 1600, 6400, False, True, "gelu"),       # gpt2-xl decode
+    (1, 4096, 14336, True, True, "silu"),       # one row
+    (7, 200, 328, True, True, "silu"),          # F off the 64-column tile,
+                                                # D off the 64-row stage
+    (16, 1600, 6400, False, True, "gelu"),      # two passes of 8
+    (12, 136, 200, False, True, "relu")])       # two passes, ragged
 def test_fused_mlp_kernel_matches_plain(cuda_device, dtype, B, D, F, glu,
                                         bias, act):
+    """fp32 on the FFMA kernels, bf16 and fp16 on the tensor cores (the
+    down launch's contraction split and merged in order: the same bits on a
+    second call)."""
     h = _randn((B, D), 0, dtype, cuda_device)
     r = _randn((B, D), 1, dtype, cuda_device)
     wu = _randn((D, F), 2, dtype, cuda_device, D ** -0.5)
@@ -1665,7 +1675,14 @@ def _int8_weight(shape, seed, dev):
 @pytest.mark.parametrize("B,D,N,kind,bias", [
     (8, 4096, 6144, "rmsnorm", False),      # llama3-8b decode
     (8, 1600, 4800, "layernorm", True),     # gpt2-xl decode
-    (3, 256, 200, "rmsnorm", True)])        # a ragged last tile
+    (3, 256, 200, "rmsnorm", True),         # a ragged last tile
+    (1, 4096, 6144, "rmsnorm", True),       # one row
+    (12, 1600, 4800, "layernorm", False),   # two passes of 8
+    (5, 136, 264, "layernorm", True),       # D off the 128-row stage, rows
+                                            # of 8 bytes: cp.async
+    (16, 512, 1000, "rmsnorm", True),       # two passes, cp.async
+    (2, 64, 25600, "rmsnorm", False)])      # more column tiles than resident
+                                            # blocks: the even grid
 def test_fused_norm_qkv_int8_kernel_matches_plain(cuda_device, B, D, N, kind,
                                                   bias):
     dt = torch.bfloat16
@@ -1746,9 +1763,10 @@ def _profiled_kernels(fn):
 
 
 def test_fused_mlp_bodies_launch_their_own_kernels(cuda_device):
-    """bf16 weights run the FFMA kernels and count on fused_mlp; int8
-    weights run the tensor-core kernels and count on fused_mlp_int8_cuda;
-    neither launches the other's kernels."""
+    """bf16 and fp16 weights run the 16-bit tensor-core kernels and fp32
+    the FFMA ones, counting on fused_mlp; int8 weights run the int8
+    tensor-core kernels and count on fused_mlp_int8_cuda; none launches
+    another's kernels."""
     dev, dt = cuda_device, torch.bfloat16
     h = _randn((8, 256), 0, dt, dev)
     r = _randn((8, 256), 1, dt, dev)
@@ -1758,14 +1776,136 @@ def test_fused_mlp_bodies_launch_their_own_kernels(cuda_device):
     n16, n8 = tdec.fused_mlp.launches, tdec.fused_mlp_int8_cuda.launches
     names = _profiled_kernels(lambda: tdec.fused_mlp(h, r, *dense, act="relu"))
     assert (tdec.fused_mlp.launches, tdec.fused_mlp_int8_cuda.launches) == (n16 + 1, n8)
+    assert any("mlp_act_mma_kernel" in k for k in names)
+    assert any("mlp_down_mma_kernel" in k for k in names)
+    assert not any("int8_mma" in k or "mlp_act_kernel" in k for k in names), names
+    names = _profiled_kernels(lambda: tdec.fused_mlp(
+        h.half(), r.half(), *[w.half() for w in dense], act="relu"))
+    assert any("mlp_act_mma_kernel" in k and "half" in k for k in names), names
+    names = _profiled_kernels(lambda: tdec.fused_mlp(
+        h.float(), r.float(), *[w.float() for w in dense], act="relu"))
     assert any("mlp_act_kernel" in k for k in names)
-    assert not any("int8_mma" in k for k in names), names
+    assert not any("mma" in k for k in names), names
+    n16 += 2
     names = _profiled_kernels(lambda: tdec.fused_mlp(
         h, r, wu, wd, act="relu", wscales=(su, None, sd)))
     assert (tdec.fused_mlp.launches, tdec.fused_mlp_int8_cuda.launches) == (n16 + 1, n8 + 1)
     assert any("mlp_act_int8_mma_kernel" in k for k in names)
     assert any("mlp_down_int8_mma_kernel" in k for k in names)
     assert not any("mlp_act_kernel" in k or "mlp_down_kernel" in k for k in names), names
+
+
+def _mlp_qkv8_inputs(dev):
+    """gpt2-xl's decode MLP in bf16 (the down launch split 15 ways) and
+    llama3-8b's int8 QKV."""
+    dt = torch.bfloat16
+    mlp = dict(h=_randn((8, 1600), 0, dt, dev), r=_randn((8, 1600), 1, dt, dev),
+               w_up=_randn((1600, 6400), 2, dt, dev, 1600 ** -0.5),
+               w_down=_randn((6400, 1600), 3, dt, dev, 6400 ** -0.5),
+               b_up=_randn((6400,), 4, dt, dev), b_down=_randn((1600,), 5, dt, dev))
+    w, ws = _int8_weight((4096, 6144), 6, dev)
+    qkv = (_randn((8, 4096), 7, dt, dev, 2.0), _randn((4096,), 8, dt, dev) * 0.1 + 1,
+           None, w, ws)
+    return mlp, qkv
+
+
+def test_mlp_and_int8_qkv_launch_on_the_current_stream(cuda_device):
+    """The lean host path of fused_mlp (bf16: the tensor cores, the down
+    launch a programmatic dependent of the act launch) and of the int8
+    fused_norm_qkv: under torch.cuda.stream(s), behind a long sleep on s,
+    the inputs are written on s and the kernels read them there, with their
+    scratch and tickets kept for s."""
+    mlp, qkv = _mlp_qkv8_inputs(cuda_device)
+    h, x = torch.zeros_like(mlp["h"]), torch.zeros_like(qkv[0])
+    torch.cuda.synchronize()
+    s = torch.cuda.Stream()
+    with torch.cuda.stream(s):
+        torch.cuda._sleep(50_000_000)
+        h.copy_(mlp["h"])
+        x.copy_(qkv[0])
+        y = _counted(tdec.fused_mlp, h, mlp["r"], mlp["w_up"], mlp["w_down"],
+                     b_up=mlp["b_up"], b_down=mlp["b_down"], act="gelu")
+        q = _counted(tdec.fused_norm_qkv_int8_cuda, x, *qkv[1:], kind="rmsnorm",
+                     eps=1e-5)
+        done = s.record_event()
+    done.synchronize()
+    _close(y, tdec._mlp_ref(mlp["h"], mlp["r"], mlp["w_up"], None, mlp["w_down"],
+                            mlp["b_up"], None, mlp["b_down"], act="gelu"),
+           GEMV_TOL[torch.bfloat16])
+    _close(q, tdec._norm_qkv_ref(qkv[0], qkv[1], torch.zeros_like(qkv[1]), qkv[3],
+                                 None, kind="rmsnorm", eps=1e-5, wscale=qkv[4]),
+           GEMV_TOL[torch.bfloat16])
+
+
+def test_mlp_and_int8_qkv_replay_in_a_cuda_graph(cuda_device):
+    """The launches read nothing back and leave their tickets at 0, so a
+    CUDA graph captures them (the MLP's down launch with its programmatic
+    dependence): a replay on new inputs equals the eager calls bit for
+    bit."""
+    mlp, qkv = _mlp_qkv8_inputs(cuda_device)
+    h, x = mlp["h"].clone(), qkv[0].clone()
+
+    def step():
+        return (tdec.fused_mlp(h, mlp["r"], mlp["w_up"], mlp["w_down"],
+                               b_up=mlp["b_up"], b_down=mlp["b_down"], act="gelu"),
+                tdec.fused_norm_qkv(x, *qkv[1:4], kind="rmsnorm", eps=1e-5,
+                                    wscale=qkv[4]))
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        step()                          # scratch and tickets for s, eagerly
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=s):
+        outs = step()
+    h.copy_(_randn(h.shape, 9, h.dtype, cuda_device))
+    x.copy_(_randn(x.shape, 10, x.dtype, cuda_device, 2.0))
+    g.replay()
+    torch.cuda.synchronize()
+    want = step()
+    torch.cuda.synchronize()
+    for got, ref in zip(outs, want):
+        assert torch.equal(got, ref)
+
+
+def test_mlp_lean_path_keeps_every_refusal(cuda_device):
+    """The lean test of fused_mlp falls back on the full checks, so each
+    refusal raises its own error and launches nothing: the tensor cores'
+    16-byte copies need 16-byte aligned activations and weights and whole
+    16-byte rows; the int8 norm_qkv's copies too."""
+    dev, dt = cuda_device, torch.bfloat16
+    h = torch.ones(2, 64, device=dev, dtype=dt)
+    w = torch.ones(64, 64, device=dev, dtype=dt)
+    before = (tdec.fused_mlp.launches, tdec.fused_norm_qkv_int8_cuda.launches)
+    with pytest.raises(TypeError, match="expected dtype"):
+        tdec.fused_mlp(h, h.half(), w, w, act="relu")
+    with pytest.raises(ValueError, match="aligned"):
+        tdec.fused_mlp(torch.ones(2 * 64 + 1, device=dev, dtype=dt)[1:].view(2, 64), h,
+                       w, w, act="relu")
+    with pytest.raises(ValueError, match="aligned"):
+        tdec.fused_mlp(h, h, torch.ones(64 * 64 + 1, device=dev, dtype=dt)[1:]
+                       .view(64, 64), w, act="relu")
+    with pytest.raises(ValueError, match="multiple"):
+        tdec.fused_mlp(h, h, torch.ones(64, 60, device=dev, dtype=dt),
+                       torch.ones(60, 64, device=dev, dtype=dt), act="relu")
+    with pytest.raises(ValueError, match="shape"):
+        tdec.fused_mlp(h, h, w, torch.ones(32, 64, device=dev, dtype=dt), act="relu")
+    with pytest.raises(ValueError, match="expected a tensor on"):
+        tdec.fused_mlp(h, h.cpu(), w, w, act="relu")
+    with pytest.raises(ValueError, match="activation"):
+        tdec.fused_mlp(h, h, w, w, act="swish")
+    s = torch.ones(64, device=dev, dtype=dt)
+    q = torch.ones(64, 64, device=dev, dtype=torch.int8)
+    ws = torch.ones(64, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        tdec.fused_norm_qkv(torch.ones(2 * 64 + 1, device=dev, dtype=dt)[1:].view(2, 64),
+                            s, None, q, wscale=ws, kind="rmsnorm")
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tdec.fused_norm_qkv(torch.ones(2, 60, device=dev, dtype=dt),
+                            torch.ones(60, device=dev, dtype=dt), None,
+                            torch.ones(60, 64, device=dev, dtype=torch.int8),
+                            wscale=ws, kind="rmsnorm")
+    assert (tdec.fused_mlp.launches, tdec.fused_norm_qkv_int8_cuda.launches) == before
 
 
 def test_int8_decode_kernels_refuse_bad_inputs(cuda_device):

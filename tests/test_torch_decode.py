@@ -199,6 +199,37 @@ def test_fused_mlp_biases_are_independent():
     assert (got - no_bias).abs().max() > 1e-2
 
 
+@pytest.mark.parametrize("impl", ["xla", "interpret"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("B,D,F,glu,act,with_bias", [
+    (8, 1600, 6400, False, "gelu", True),    # gpt2-xl's decode MLP
+    (8, 256, 200, True, "silu", False),      # gated, F a multiple of 8 only
+    (12, 136, 328, True, "silu", True)])     # two passes, D off the stage
+def test_fused_mlp_matches_jax_at_path_widths(impl, dtype, B, D, F, glu, act,
+                                              with_bias):
+    """The plain version the card tests hold the tensor-core MLP to, in the
+    two 16-bit dtypes, at gpt2-xl's widths and at ragged ones (F not a
+    multiple of the kernels' 64-column tiles, D not one of their stages),
+    weights scaled as the models' init.  bf16 2e-2 and fp16 2.5e-3 (the
+    module's bounds: one rounding of the output and of ``a``; sums of up to
+    6400 products in another order move fp32 by far less)."""
+    rng = np.random.default_rng(7)
+    h = _rand(rng, B, D)
+    r = _rand(rng, B, D)
+    w_up = _rand(rng, D, F, scale=D ** -0.5)
+    w_gate = _rand(rng, D, F, scale=D ** -0.5) if glu else None
+    w_down = _rand(rng, F, D, scale=F ** -0.5)
+    b_up = _rand(rng, F) if with_bias else None
+    b_gate = _rand(rng, F) if (glu and with_bias) else None
+    b_down = _rand(rng, D) if with_bias else None
+    args = [_pair(a, dtype)
+            for a in (h, r, w_up, w_down, w_gate, b_up, b_gate, b_down)]
+    want = jdec.fused_mlp(*[a[0] for a in args], act=act, impl=impl)
+    got = tdec.fused_mlp(*[a[1] for a in args], act=act)
+    assert got.dtype == TDT[dtype] and got.shape == (B, D)
+    _close(want, got, TOL[dtype])
+
+
 def _paged_pool(rng, L, B, Hkv, page, maxp, Dh):
     """A stacked [L, P, Hkv, page, Dh] pool behind a shuffled page table
     (page 0 is the junk page and is never assigned)."""
@@ -454,6 +485,85 @@ def test_fd_split_and_ordered_merge_match_jax(splits, alibi):
     _close(want, got, ATTN_TOL["float32"])
 
 
+def _g16_grid(K, N, tn, cap):
+    """csrc/decode.cu ``g16_grid``: (tiles, k16 steps, blocks, k16 steps a
+    split, even, slots) of a [K, N] product over ``tn``-column tiles and
+    ``cap`` resident blocks."""
+    tiles, k16 = -(-N // tn), -(-K // 16)
+    if tiles > cap:
+        units = tiles * k16
+        blocks = min(cap, units)
+        fewest = units // blocks
+        return tiles, k16, blocks, 0, True, -(-k16 // fewest) + 1
+    want = max(1, min(k16, cap // tiles))
+    sps = -(-k16 // want)
+    slots = -(-k16 // sps)
+    return tiles, k16, tiles * slots, sps, False, slots
+
+
+@pytest.mark.parametrize("K,N,tn,cap,tiles,slots,blocks", [
+    (14336, 4096, 64, 396, 64, 6, 384),     # llama3-8b's down launch
+    (6400, 1600, 64, 396, 25, 15, 375),     # gpt2-xl's
+    (4096, 14336, 64, 396, 224, 1, 224),    # llama3-8b's act launch
+    (1600, 6400, 64, 396, 100, 3, 300),     # gpt2-xl's
+    (4096, 6144, 128, 396, 48, 8, 384)])    # the int8 norm_qkv's
+def test_g16_grid_splits_the_contraction(K, N, tn, cap, tiles, slots,
+                                         blocks):
+    """The split grid at the paths' shapes (132 SMs x 3 blocks): a split
+    only where the column tiles are fewer than the resident blocks, every
+    k16 step of a tile in exactly one split."""
+    t, k16, b, sps, even, sl = _g16_grid(K, N, tn, cap)
+    assert (t, sl, b, even) == (tiles, slots, blocks, False)
+    assert b <= cap
+    steps = [u for s in range(sl) for u in range(s * sps, min(k16, (s + 1) * sps))]
+    assert steps == list(range(k16))
+
+
+def _split_down(a, w_down, b_down, r, sps, tn):
+    """The down launch's algorithm in torch, as the kernel orders it: each
+    tile's split of the contraction (``sps`` k16 steps of rows of ``a``)
+    summed into an fp32 partial, the partials summed in split order, then
+    the bias and the residual, rounded to r's dtype."""
+    F, D = w_down.shape
+    out = torch.empty(r.shape, dtype=r.dtype)
+    for n0 in range(0, D, tn):
+        cols = slice(n0, min(D, n0 + tn))
+        total = torch.zeros(r.shape[0], cols.stop - n0)
+        for k0 in range(0, F, sps * 16):
+            rows = slice(k0, min(F, k0 + sps * 16))
+            total = total + a[:, rows].float() @ w_down[rows, cols].float()
+        if b_down is not None:
+            total = total + b_down[cols].float()
+        out[:, cols] = (r[:, cols].float() + total).to(r.dtype)
+    return out
+
+
+@pytest.mark.parametrize("impl", ["xla", "interpret"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("D,F,cap", [(1600, 6400, 396),   # gpt2-xl: 15 splits
+                                     (256, 200, 12)])     # a ragged last split
+def test_mlp_down_split_and_ordered_merge_match_jax(impl, dtype, D, F, cap):
+    """The MLP's two launches as the kernels cut them: ``a`` rounded to the
+    activation dtype between them, then the down launch's contraction split
+    over blocks (``g16_grid``) and merged in split order, against the JAX
+    package's fused_mlp (tanh-GeLU, biases).  The module's 16-bit bounds."""
+    rng = np.random.default_rng(14)
+    B = 8
+    h, r = _rand(rng, B, D), _rand(rng, B, D)
+    w_up = _rand(rng, D, F, scale=D ** -0.5)
+    w_down = _rand(rng, F, D, scale=F ** -0.5)
+    b_up, b_down = _rand(rng, F), _rand(rng, D)
+    args = [_pair(x, dtype) for x in (h, r, w_up, w_down, None, b_up, None,
+                                      b_down)]
+    want = jdec.fused_mlp(*[x[0] for x in args], act="gelu", impl=impl)
+    th, tr, twu, twd, _, tbu, _, tbd = [x[1] for x in args]
+    a = torch.nn.functional.gelu(th.float() @ twu.float() + tbu.float(),
+                                 approximate="tanh").to(TDT[dtype])
+    sps = _g16_grid(F, D, 64, cap)[3]
+    got = _split_down(a, twd, tbd, tr, sps, 64)
+    _close(want, got, TOL[dtype])
+
+
 def _int8(rng, d_in, d_out):
     """int8 codes and per-column fp32 scales, as quantize_weight makes
     them (the same arrays go to both packages)."""
@@ -484,6 +594,33 @@ def test_fused_norm_qkv_int8_matches_jax(impl, kind, with_bias):
                                     _pair(scale, "bfloat16"),
                                     _pair(bias, "bfloat16"))
     jq, tq = _pair(bq, "bfloat16")
+    want = jdec.fused_norm_qkv(jx, js, jb, jw, jq, kind=kind, eps=1e-5,
+                               wscale=jws, impl=impl)
+    got = tdec.fused_norm_qkv(tx, ts, tb, tw, tq, kind=kind, eps=1e-5,
+                              wscale=tws)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, N)
+    _close(want, got, TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("impl", ["xla", "interpret"])
+@pytest.mark.parametrize("kind", ["rmsnorm", "layernorm"])
+@pytest.mark.parametrize("B,D,N", [(3, 256, 200),    # 8-byte rows: cp.async
+                                   (5, 136, 264),    # D off the 128-row stage
+                                   (8, 1600, 4800),  # gpt2-xl: a half last tile
+                                   (12, 256, 392)])  # two passes of 8
+def test_fused_norm_qkv_int8_ragged_matches_jax(impl, kind, B, D, N):
+    """The int8 norm_qkv's plain version at column counts that are no
+    multiple of the tensor-core kernel's 128-column tiles (and, where N is
+    no multiple of 16, rows the TMA cannot address), against JAX: bf16
+    tolerance."""
+    rng = np.random.default_rng(13)
+    x = _rand(rng, B, D, scale=2.0)
+    scale = 1.0 + _rand(rng, D, scale=0.1)
+    bias = _rand(rng, D)
+    bq = _rand(rng, N)
+    (jw, jws), (tw, tws) = _q8_pair(*_int8(rng, D, N))
+    (jx, tx), (js, ts), (jb, tb), (jq, tq) = (
+        _pair(a, "bfloat16") for a in (x, scale, bias, bq))
     want = jdec.fused_norm_qkv(jx, js, jb, jw, jq, kind=kind, eps=1e-5,
                                wscale=jws, impl=impl)
     got = tdec.fused_norm_qkv(tx, ts, tb, tw, tq, kind=kind, eps=1e-5,
