@@ -71,8 +71,10 @@ Needs one CUDA card, nvcc and triton; imports nothing of JAX.  Phases
              a gate, 25 heads of 64 with one query head per KV head) and
              Adam on its [1600] and [48, 1600] leaves;
              then the gpt2-xl kernels: LayerNorm fwd and bwd at
-             [8192, 1600], [8, 1600] and ragged shapes (bwd bit-equal on a
-             second call), scaled masked softmax with and without a causal
+             [8192, 1600], bloom-1b7's [8192, 2048], [8, 1600] and ragged
+             shapes (bwd bit-equal on a second call; its timing at both
+             training shapes, with its device and host time a call),
+             scaled masked softmax with and without a causal
              mask at [4, 25, 1024, 1024] and at a row length that is no
              power of two, bias_act for each activation at [8192, 6400],
              flash attention fwd and bwd at [8, 25, 1024, 64], fp32 and
@@ -91,7 +93,7 @@ Needs one CUDA card, nvcc and triton; imports nothing of JAX.  Phases
              fp32, bf16 and fp16, ALiBi, gpt2-xl's 25 heads of 64,
              bit-equal on a repeat) and the int8 bodies of the three GEMVs (bf16,
              at llama3-8b's shapes, gpt2-xl's branches and a ragged N; the
-             tensor-core int8 MLP also at 1 and 12 rows and bit-equal on a
+             int8 proj_norm and MLP also at 1 and 12 rows and bit-equal on a
              repeat), timed beside the plain version, SDPA on the same cold
              work (contiguous flash_decode, 264 deep in a 512 cache and 2048
              in a 2048 cache, K/V cycled through > 100 MB) or ``torch.matmul`` of a
@@ -1121,8 +1123,9 @@ def gemv16_times(torch, dev, gen, profile=False, int8=True):
     """The tensor-core GEMVs at the decode paths' shapes, 8 rows: the bf16
     fused_norm_qkv and fused_proj_norm at llama3-8b's and gpt2-xl's (gpt2-xl
     with LayerNorm's bias and the projections' biases), the bf16 fused_mlp
-    at both (gpt2-xl with its biases), and the int8 fused_norm_qkv at
-    llama3-8b's; each call on the next of weight copies totalling > 100 MB,
+    at both (gpt2-xl with its biases), and the int8 fused_norm_qkv and
+    fused_proj_norm at llama3-8b's; each call on the next of weight copies
+    totalling > 100 MB,
     so that it streams its weights from HBM as the path does.  Returns
     {"<model> <kernel>": {"ms": a call under CUDA events, "host_us": the
     host's time a call, and with ``profile`` "device_us": the kernels'
@@ -1191,6 +1194,16 @@ def gemv16_times(torch, dev, gen, profile=False, int8=True):
         w, ws = nw()
         return dk.fused_norm_qkv_int8_cuda(x, s, None, w, ws, kind="rmsnorm", eps=1e-5)
     measure("llama3-8b norm_qkv_int8", qkv8, ("norm_qkv",))
+    del nw
+    ctx = _randn(torch, (B, H * DH), gen, dev).to(bf)
+    resid = _randn(torch, (B, D), gen, dev, 2).to(bf)
+    pw = cycler([_int8_weight(torch, (H * DH, D), gen, dev) for _ in range(6)])
+
+    def proj8():
+        w, ws = pw()
+        return dk.fused_proj_norm_int8_cuda(ctx, resid, w, ws, None, s, None,
+                                            kind="rmsnorm", eps=1e-5, parallel=False)
+    measure("llama3-8b proj_norm_int8", proj8, ("proj_norm",))
     return out
 
 
@@ -1339,6 +1352,20 @@ def check_int8_gemvs(torch, dev, gen):
                                f"fused_proj_norm int8 r {name}"),
                  _assert_close(torch, h, wh, GEMV_TOL["bfloat16"],
                                f"fused_proj_norm int8 h {name}"))
+        again = dk.fused_proj_norm_int8_cuda(ctx, resid, wo, wos, bo, sc, nb,
+                                             kind=kind, eps=1e-5, parallel=False)
+        check(torch.equal(r, again[0]) and torch.equal(h, again[1]),
+              f"fused_proj_norm int8 {name}: two calls differ")
+        for rows in (1, 12):        # one row; two passes of 8
+            c1 = _randn(torch, (rows, m), gen, dev).to(bf)
+            r1 = _randn(torch, (rows, d), gen, dev, 2).to(bf)
+            got = dk.fused_proj_norm_int8_cuda(c1, r1, wo, wos, bo, sc, nb, kind=kind,
+                                               eps=1e-5, parallel=False)
+            want = dk._proj_norm_ref(c1, r1, wo, bo, sc, ref_b, kind=kind, eps=1e-5,
+                                     parallel=False, wscale=wos)
+            for i in range(2):
+                _assert_close(torch, got[i], want[i], GEMV_TOL["bfloat16"],
+                              f"fused_proj_norm int8 {'rh'[i]} {name} at {rows} rows")
         hh = _randn(torch, (B, d), gen, dev).to(bf)
         wu, su = _int8_weight(torch, (d, f), gen, dev)
         wd, sd = _int8_weight(torch, (f, d), gen, dev)
@@ -1368,7 +1395,8 @@ def check_int8_gemvs(torch, dev, gen):
         print(f"int8 GEMVs vs plain at {name} (D {d}, N {n}, F {f}, {kind}, "
               f"{act}{' gated' if glu else ', no gate'}): bf16 within 2e-2; "
               f"max abs err norm_qkv {e1:.3g}, proj_norm {e2:.3g}, mlp "
-              f"{e3:.3g} (also at 1 and 12 rows; bit-equal on a repeat)")
+              f"{e3:.3g} (proj_norm and mlp also at 1 and 12 rows and "
+              f"bit-equal on a repeat)")
         del w, wo, wu, wd, wg
     return errs
 
@@ -1410,7 +1438,7 @@ def time_generate_kernels(torch, dev, gen, errs):
         "host_us": host_us(torch, qkv8),
         "device_us": kernel_split(torch, qkv8, ("norm_qkv",),
                                   "fused_norm_qkv int8 x[8,4096]", calls=200)["norm_qkv"],
-        "ptxas": [ln for ln in gemv16_ptxas() if "int8" in ln]}
+        "ptxas": [ln for ln in gemv16_ptxas() if "norm_qkv_int8" in ln]}
     r = out["fused_norm_qkv_int8"]
     r["bound_share"] = r["bound_ms"] * 1e3 / r["device_us"]
     print(f"time fused_norm_qkv int8 (tensor cores): device {r['device_us']:.2f} us alone, "
@@ -1444,7 +1472,20 @@ def time_generate_kernels(torch, dev, gen, errs):
         "plain_ms": time_ms(torch, proj_plain, samples=10),
         "matmul_ms": time_ms(torch, lambda: torch.matmul(ctx, dense)),
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-        "max_abs_err": errs["fused_proj_norm_int8"]}
+        "max_abs_err": errs["fused_proj_norm_int8"],
+        "host_us": host_us(torch, proj),
+        "graph_us": graph_us(torch, proj),
+        "device_us": kernel_split(torch, proj, ("proj_norm_int8_mma_kernel",),
+                                  "fused_proj_norm int8 ctx[8,4096]",
+                                  calls=200)["proj_norm_int8_mma_kernel"],
+        "ptxas": [ln for ln in gemv16_ptxas() if "proj_norm_int8" in ln]}
+    r = out["fused_proj_norm_int8"]
+    r["bound_share"] = r["bound_ms"] * 1e3 / r["device_us"]
+    print(f"time fused_proj_norm int8 (tensor cores, cooperative): device "
+          f"{r['device_us']:.2f} us alone, {r['graph_us']:.2f} us replayed from a CUDA "
+          f"graph, bound {r['bound_ms'] * 1e3:.3f} us ({100 * r['bound_share']:.1f} % of "
+          f"it), call {r['ms']:.5f} ms, host {r['host_us']:.3f} us a call; "
+          + "; ".join(r["ptxas"]))
     del wo, nw, dense
 
     h = _randn(torch, (B, D), gen, dev).to(bf)
@@ -2317,9 +2358,11 @@ def check_gpt2_kernels(torch, dev, gen):
         bf = dtype_name == "bfloat16"
         f16 = dtype_name == "float16"
         # one warp per row at D 1600 (training rows, decode rows, a ragged
-        # row count), then the block-per-row path (n no multiple of the
-        # 16-byte vector; n past a warp's registers)
-        for shape in ((GB * GS, GD), (GB, GD), (37, GD), (5, 100), (3, 4096)):
+        # row count) and at bloom-1b7's training rows (D 2048), then the
+        # block-per-row path (n no multiple of the 16-byte vector; n past a
+        # warp's registers)
+        for shape in ((GB * GS, GD), (GB, GD), (37, GD), (GB * GS, 2048), (5, 100),
+                      (3, 4096)):
             x, g, b, dy = _ln_inputs(torch, dev, gen, dt, shape)
             y = ln.layer_norm_cuda(x, g, b, 1e-5)
             torch.cuda.synchronize()
@@ -2341,6 +2384,8 @@ def check_gpt2_kernels(torch, dev, gen):
                   f"{rel:.3g}, second call bit-equal")
             if bf and shape == (GB * GS, GD):
                 errs["layer_norm"], errs["layer_norm_bwd"] = e, e_dx
+            if bf and shape == (GB * GS, 2048):
+                errs["layer_norm_bwd_bloom"] = e_dx
             if f16 and shape == (GB * GS, GD):
                 errs["layer_norm_f16"], errs["layer_norm_bwd_f16"] = e, e_dx
             del x, dy, y, got, again, want
@@ -2434,19 +2479,42 @@ def time_gpt2_kernels(torch, dev, gen, errs):
     xs = x[:GB].contiguous()
     out["layer_norm"]["decode_rows_ms"] = time_ms(
         torch, lambda: ln.layer_norm_cuda(xs, g, b, 1e-5))
-    lib = [t.detach().clone().requires_grad_() for t in (x, g, b)]
-    lib_y = F_.layer_norm(lib[0], (GD,), lib[1], lib[2], 1e-5)
-    b_ms, b_by = bound_ms((3 * x.numel() + 3 * GD) * 2, 14 * x.numel())
-    out["layer_norm_bwd"] = {
-        "shape": "x, dy [8192,1600] bf16 (two launches)",
-        "ms": time_ms(torch, lambda: ln.layer_norm_bwd_cuda(x, g, dy, 1e-5)),
-        "plain_ms": time_ms(torch, lambda: ln.layer_norm_bwd_plain(x, g, dy, 1e-5),
-                            samples=10),
-        "library_ms": time_ms(torch, lambda: torch.autograd.grad(
-            lib_y, lib, dy, retain_graph=True)),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "max_abs_err": errs["layer_norm_bwd"]}
-    del x, dy, xs, lib, lib_y
+    del xs
+    # the backward at gpt2-xl's and bloom-1b7's training rows: the call under
+    # CUDA events, its two launches' device time under the profiler, the
+    # host's time a call, beside the plain version, F.layer_norm's autograd
+    # backward and the bound
+    for pre, n in (("", GD), ("bloom_", 2048)):
+        if n != GD:
+            x, g, b, dy = _ln_inputs(torch, dev, gen, bf, (GB * GS, n))
+        lib = [t.detach().clone().requires_grad_() for t in (x, g, b)]
+        lib_y = F_.layer_norm(lib[0], (n,), lib[1], lib[2], 1e-5)
+        b_ms, b_by = bound_ms((3 * x.numel() + 3 * n) * 2, 14 * x.numel())
+
+        def call():
+            return ln.layer_norm_bwd_cuda(x, g, dy, 1e-5)
+        split = kernel_split(torch, call, ("layer_norm_bwd_", "layer_norm_dgb_sum_kernel"),
+                             f"layer_norm_bwd x [{GB * GS},{n}]", calls=50)
+        row = {"shape": f"x, dy [{GB * GS},{n}] bf16 (two launches)",
+               "ms": time_ms(torch, call),
+               "plain_ms": time_ms(torch, lambda: ln.layer_norm_bwd_plain(x, g, dy, 1e-5),
+                                   samples=10),
+               "library_ms": time_ms(torch, lambda: torch.autograd.grad(
+                   lib_y, lib, dy, retain_graph=True)),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "max_abs_err": errs["layer_norm_bwd" + ("_bloom" if pre else "")],
+               "device_us": sum(split.values()), "device_us_split": split,
+               "host_us": host_us(torch, call, calls=1000)}
+        if pre:
+            out["layer_norm_bwd"].update({pre + k: v for k, v in row.items()})
+        else:
+            out["layer_norm_bwd"] = row
+        print(f"time layer_norm_bwd bf16 [{GB * GS}, {n}]: device {row['device_us']:.2f} "
+              f"us a call ({', '.join(f'{k} {v:.2f}' for k, v in split.items())}), bound "
+              f"{b_ms * 1e3:.3f} us ({100 * b_ms * 1e3 / row['device_us']:.1f} % of it), "
+              f"call {row['ms']:.5f} ms, host {row['host_us']:.3f} us a call, plain "
+              f"{row['plain_ms']:.5f} ms, F.layer_norm backward {row['library_ms']:.5f} ms")
+        del x, dy, lib, lib_y
 
     # softmax: scale 1 so that torch.softmax computes the same function
     x = _randn(torch, (GSB, GH, GS, GS), gen, dev, 0.5).to(bf)
@@ -3179,16 +3247,17 @@ def phase_generate_profile(torch, eng, prompts, int8):
         print(f"  {e.self_cpu_time_total / 1e3:9.2f} ms {e.count:7d}x "
               f"{e.key[:60]}")
     # each body has kernels of its own, whose names do not hold each other
-    # (so two kinds are never counted together): the int8 norm_qkv runs
-    # norm_qkv_int8_mma_kernel, the int8 proj_norm the FFMA proj_norm_kernel
-    # over int8 codes, bf16 the tensor-core *_mma_kernel ones; the int8 MLP
-    # has kernels of its own
+    # (so two kinds are never counted together): the int8 norm_qkv and
+    # proj_norm run norm_qkv_int8_mma_kernel and proj_norm_int8_mma_kernel,
+    # bf16 the tensor-core *_mma_kernel ones; the int8 MLP has kernels of its
+    # own
     sfx = "_int8" if int8 else ""
     tags = {"rms_norm": ("rms_norm_fwd_kernel",), "rope": ("_rope_fwd_kernel",),
             "fused_norm_qkv" + sfx: ("norm_qkv_int8_mma_kernel" if int8
                                      else "norm_qkv_mma_kernel",),
             "flash_decode_contig": ("flash_decode_kernel",),
-            "fused_proj_norm" + sfx: ("proj_norm_kernel" if int8 else "proj_norm_mma_kernel",),
+            "fused_proj_norm" + sfx: ("proj_norm_int8_mma_kernel" if int8
+                                      else "proj_norm_mma_kernel",),
             "fused_mlp": ("mlp_act_mma_kernel", "mlp_down_mma_kernel"),
             "fused_mlp_int8": ("mlp_act_int8_mma_kernel", "mlp_down_int8_mma_kernel")}
     out = {}
@@ -3874,7 +3943,7 @@ def phase_train_profile(torch, engine, tokens):
     tags = {"rms_norm": ("rms_norm_fwd_kernel",), "rope": ("_rope_fwd_kernel",),
             "rms_norm_bwd": ("rms_norm_bwd_kernel", "rms_dg_reduce_kernel"),
             "layer_norm": ("layer_norm_fwd_",),
-            "layer_norm_bwd": ("layer_norm_bwd_kernel", "rms_dg_reduce_kernel"),
+            "layer_norm_bwd": ("layer_norm_bwd_", "layer_norm_dgb_sum_kernel"),
             "flash_attention_fwd": FLASH_KERNELS["fwd"],
             "flash_attention_bwd": FLASH_KERNELS["bwd"],
             "flash_attention_fwd_alibi": FLASH_KERNELS["fwd_alibi"],
@@ -4099,7 +4168,10 @@ def main() -> int:
                       "bound_share_300", "ms_2048", "bound_ms_2048",
                       "device_us_2048", "bound_share_2048", "library_ms_2048",
                       "plain_ms_2048", "split", "gpt2_split", "gpt2_matmul_ms",
-                      "graph_us", "gpt2_graph_us"):
+                      "graph_us", "gpt2_graph_us", "bloom_shape", "bloom_ms",
+                      "bloom_plain_ms", "bloom_library_ms", "bloom_bound_ms",
+                      "bloom_max_abs_err", "bloom_device_us", "bloom_device_us_split",
+                      "bloom_host_us"):
             if extra in t:
                 k[extra] = t[extra]
         check(all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms",

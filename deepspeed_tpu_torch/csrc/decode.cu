@@ -17,9 +17,9 @@
 //
 // and the int8-weight bodies of the three GEMV kernels (their `quant=True`
 // branch, `_deq` decode.py:88), each through its own entry (the `_int8`
-// functions below): norm_qkv_int8_mma_kernel on the tensor-core core,
-// proj_norm_kernel over int8 codes, and for fused_mlp two kernels of their
-// own on the tensor cores, mlp_act_int8_mma_kernel + mlp_down_int8_mma_kernel.
+// functions below): norm_qkv_int8_mma_kernel and proj_norm_int8_mma_kernel
+// on the tensor-core core, and for fused_mlp two kernels of their own on the
+// tensor cores, mlp_act_int8_mma_kernel + mlp_down_int8_mma_kernel.
 //
 // What bounds them on the H100: memory bytes.  A decode step multiplies
 // num_slots (8) activation rows by each weight matrix: about 8 flops per
@@ -31,8 +31,8 @@
 // int8 weights the GEMVs read half the bytes: 25.2, 16.8 and 176.2 MB, bounds
 // of 7.5, 5.0 and 52.6 us.
 //
-// Design of the FFMA GEMV kernels (fp32 norm_qkv, proj_norm and MLP, the
-// int8 body of proj_norm; one shared core, gemv_partial + reduce_tile): the
+// Design of the FFMA GEMV kernels (fp32 norm_qkv, proj_norm and MLP; one
+// shared core, gemv_partial + reduce_tile): the
 // grid splits the output columns into tiles of kCV 16-byte vectors; each
 // block streams its [K, tile] slice of the weight once
 // with 16-byte loads, its threads splitting the contraction K into
@@ -60,28 +60,21 @@
 //     (so the down projection reads a row's B values as 16-byte vectors),
 //     and mlp_down computes r + a @ Wd over output-column tiles.
 //
-// bf16 and fp16 norm_qkv, proj_norm and the MLP, and the int8 norm_qkv, take
-// the products to the tensor cores (mma.sync over weight tiles the TMA
-// streams into a ring): their design note is above G16Cfg.
+// bf16 and fp16 norm_qkv, proj_norm and the MLP, and the int8 norm_qkv and
+// proj_norm, take the products to the tensor cores (mma.sync over weight
+// tiles the TMA streams into a ring): their design note is above G16Cfg.
 //
 // int8 weights (bf16 activations only, as the JAX int8 engine serves).
 // Each element is dequantized as the reference's `_deq` does it: code x
 // scale in fp32, rounded to bf16, then the product with the bf16 activation
-// summed in fp32.
-//   - proj_norm runs its FFMA kernel over a weight type W = int8_t: a thread
-//     still owns V = 8 columns, now one 8-byte vector of codes a row, and
-//     keeps twice the rows in flight; its 8 columns' fp32 scales are loaded
-//     once into registers.  On the FFMA core an int8 body runs no faster
-//     than the bf16 one did there (PERF.md §6): each element costs an I2F,
-//     the scale, a round to bf16 and back, and kBT FFMAs, so the core is
-//     bound by issue, not by the halved bytes.
-//   - norm_qkv and fused_mlp take the products to the tensor cores instead
-//     (mma.sync m16n8k16 over the dequantized bf16 codes and the pass's 8
-//     rows), and dequantize with a byte permute and two fp32 operations an
-//     element: about a third of the FFMA body's instructions, so the stream
-//     of codes sets their time.  norm_qkv is the tensor-core core's (the
-//     note above G16Cfg); the MLP's design note is above
-//     mlp_act_int8_mma_kernel.
+// summed in fp32.  Every int8 body takes the products to the tensor cores
+// (mma.sync m16n8k16 over the dequantized bf16 codes and the pass's 8 rows)
+// and dequantizes with a byte permute and two fp32 operations an element,
+// so the stream of codes sets their time.  (An FFMA body, which spent an
+// I2F, the scale, a round to bf16 and back and kBT FFMAs on each element,
+// was bound by issue at 7.7x its bound: PERF.md section 6.)  norm_qkv and
+// proj_norm are the tensor-core core's (the note above G16Cfg); the MLP's
+// design note is above mlp_act_int8_mma_kernel.
 //
 // Design of flash_decode_kernel (both caches).  Bound by bytes: each K/V
 // row up to a slot's depth is read once; at llama3-8b's GQA group of 4 that
@@ -178,35 +171,6 @@ struct alignas(16) Pack {
   T v[N];
 };
 
-// V columns of one weight row, loaded as one vector: 16 bytes of a dense
-// weight of the activation dtype, or V int8 codes (8 bytes at bf16).
-template <typename W, int V>
-struct alignas(sizeof(W) * V) WVec {
-  W v[V];
-};
-
-// How a weight element becomes the fp32 factor of a product, for a thread
-// whose V columns are fixed for the whole launch.  Dense: the element.
-template <typename T, typename W>
-struct Deq {
-  __device__ __forceinline__ void load(const float*, int, bool) {}
-  __device__ __forceinline__ float operator()(W w, int) const { return to_f32(w); }
-};
-
-// int8 (decode.py `_deq`): code x its column's fp32 scale, rounded to the
-// activation dtype T, widened again; the V scales held in registers.
-template <typename T>
-struct Deq<T, int8_t> {
-  float s[Pack<T>::N];
-  __device__ __forceinline__ void load(const float* __restrict__ scale, int col, bool ok) {
-#pragma unroll
-    for (int j = 0; j < Pack<T>::N; ++j) s[j] = ok ? scale[col + j] : 0.f;
-  }
-  __device__ __forceinline__ float operator()(int8_t w, int j) const {
-    return to_f32(from_f32<T>(static_cast<float>(w) * s[j]));
-  }
-};
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
@@ -268,45 +232,39 @@ __device__ __forceinline__ void stage_rows(T* dst, const T* __restrict__ src, in
 }
 
 // One thread's share of its block's column tile: rows d = rs, rs + kRS, ...
-// of Wm [K, N] at the V-column vector starting at `col`, each element made a
-// factor by `deq`, times the pass's activations of each row (act_row(d, a)
-// fills a[0..kBT), zero past the pass's rows), summed in fp32.  The main
-// loop loads kU weight rows, unconditionally, before it multiplies any: as
-// many bytes in flight as kUnroll rows of 16-byte vectors.
-template <typename T, typename W, int NT, class ActRow>
-__device__ __forceinline__ void gemv_partial(const W* __restrict__ Wm, int K, int N, int col,
+// of Wm [K, N] at the 16-byte vector of V columns starting at `col`, times
+// the pass's activations of each row (act_row(d, a) fills a[0..kBT), zero
+// past the pass's rows), summed in fp32.  The main loop loads kUnroll weight
+// rows, unconditionally, before it multiplies any.
+template <typename T, int NT, class ActRow>
+__device__ __forceinline__ void gemv_partial(const T* __restrict__ Wm, int K, int N, int col,
                                              bool col_ok, int rs, ActRow act_row,
-                                             const Deq<T, W>& deq,
                                              float (&acc)[kBT][Pack<T>::N]) {
   constexpr int V = Pack<T>::N;
-  using P = WVec<W, V>;
-  constexpr int kU = kUnroll * 16 / static_cast<int>(sizeof(P));
+  using P = Pack<T>;
 #pragma unroll
   for (int b = 0; b < kBT; ++b)
 #pragma unroll
     for (int j = 0; j < V; ++j) acc[b][j] = 0.f;
   if (!col_ok) return;
   constexpr int kRS = NT / kCV;
-  const W* wp = Wm + col;
+  const T* wp = Wm + col;
   auto fma_row = [&](const P& w, int d) {
     float a[kBT];
     act_row(d, a);
-    float wf[V];
-#pragma unroll
-    for (int j = 0; j < V; ++j) wf[j] = deq(w.v[j], j);
 #pragma unroll
     for (int b = 0; b < kBT; ++b)
 #pragma unroll
-      for (int j = 0; j < V; ++j) acc[b][j] = fmaf(a[b], wf[j], acc[b][j]);
+      for (int j = 0; j < V; ++j) acc[b][j] = fmaf(a[b], to_f32(w.v[j]), acc[b][j]);
   };
   int d = rs;
-  for (; d + (kU - 1) * kRS < K; d += kU * kRS) {
-    P w[kU];
+  for (; d + (kUnroll - 1) * kRS < K; d += kUnroll * kRS) {
+    P w[kUnroll];
 #pragma unroll
-    for (int u = 0; u < kU; ++u)
+    for (int u = 0; u < kUnroll; ++u)
       w[u] = *reinterpret_cast<const P*>(wp + static_cast<size_t>(d + u * kRS) * N);
 #pragma unroll
-    for (int u = 0; u < kU; ++u) fma_row(w[u], d + u * kRS);
+    for (int u = 0; u < kUnroll; ++u) fma_row(w[u], d + u * kRS);
   }
   for (; d < K; d += kRS)
     fma_row(*reinterpret_cast<const P*>(wp + static_cast<size_t>(d) * N), d);
@@ -381,7 +339,6 @@ norm_qkv_kernel(const T* __restrict__ x, const T* __restrict__ scale,
   const int tile0 = blockIdx.x * kCV * V;
   const int col = tile0 + (threadIdx.x % kCV) * V;
   const int rs = threadIdx.x / kCV;
-  const Deq<T, T> deq{};
   for (int b0 = 0; b0 < B; b0 += kBT) {
     const int bc = min(kBT, B - b0);
     stage_rows<T, NT>(h, x + static_cast<size_t>(b0) * D, bc * D);
@@ -396,7 +353,7 @@ norm_qkv_kernel(const T* __restrict__ x, const T* __restrict__ scale,
     }
     __syncthreads();
     float acc[kBT][V];
-    gemv_partial<T, T, NT>(w, D, N, col, col < N, rs, StagedRows<T>{h, D, bc}, deq, acc);
+    gemv_partial<T, NT>(w, D, N, col, col < N, rs, StagedRows<T>{h, D, bc}, acc);
     reduce_tile<T, NT>(acc, red, bc, [&](int b, int c, float y) {
       const int n = tile0 + c;
       if (n < N) {
@@ -411,11 +368,10 @@ norm_qkv_kernel(const T* __restrict__ x, const T* __restrict__ scale,
 // fused_proj_norm: r = resid + ctx @ wo (+ bo); h = norm(r in fp32 | resid)
 // ---------------------------------------------------------------------------
 
-template <typename T, typename W, int NT>
+template <typename T, int NT>
 __global__ void __launch_bounds__(NT, 512 / NT)
 proj_norm_kernel(const T* __restrict__ ctx, const T* __restrict__ resid,
-                 const W* __restrict__ wo, const float* __restrict__ wscale,
-                 const T* __restrict__ bo,
+                 const T* __restrict__ wo, const T* __restrict__ bo,
                  const T* __restrict__ scale, const T* __restrict__ bias,
                  T* __restrict__ r_out, T* __restrict__ h_out, float* __restrict__ r32,
                  unsigned int* __restrict__ ticket, int B, int M, int D, int kind, float eps,
@@ -429,14 +385,12 @@ proj_norm_kernel(const T* __restrict__ ctx, const T* __restrict__ resid,
   const int tile0 = blockIdx.x * kCV * V;
   const int col = tile0 + (threadIdx.x % kCV) * V;
   const int rs = threadIdx.x / kCV;
-  Deq<T, W> deq;
-  deq.load(wscale, col, col < D);
   for (int b0 = 0; b0 < B; b0 += kBT) {
     const int bc = min(kBT, B - b0);
     stage_rows<T, NT>(c_s, ctx + static_cast<size_t>(b0) * M, bc * M);
     __syncthreads();
     float acc[kBT][V];
-    gemv_partial<T, W, NT>(wo, M, D, col, col < D, rs, StagedRows<T>{c_s, M, bc}, deq, acc);
+    gemv_partial<T, NT>(wo, M, D, col, col < D, rs, StagedRows<T>{c_s, M, bc}, acc);
     reduce_tile<T, NT>(acc, red, bc, [&](int b, int c, float y) {
       const int n = tile0 + c;
       if (n < D) {
@@ -520,9 +474,8 @@ mlp_act_kernel(const T* __restrict__ h, const T* __restrict__ wu, const T* __res
     stage_rows<T, NT>(h_s, h + static_cast<size_t>(b0) * D, bc * D);
     __syncthreads();
     const StagedRows<T> hval{h_s, D, bc};
-    const Deq<T, T> deq{};
     float acc[kBT][V];
-    gemv_partial<T, T, NT>(wu, D, F, col, col < F, rs, hval, deq, acc);
+    gemv_partial<T, NT>(wu, D, F, col, col < F, rs, hval, acc);
     reduce_tile<T, NT>(acc, red, bc, [&](int b, int c, float y) {
       const int n = tile0 + c;
       if (n < F) {
@@ -534,7 +487,7 @@ mlp_act_kernel(const T* __restrict__ h, const T* __restrict__ wu, const T* __res
       }
     });
     if (wg) {
-      gemv_partial<T, T, NT>(wg, D, F, col, col < F, rs, hval, deq, acc);
+      gemv_partial<T, NT>(wg, D, F, col, col < F, rs, hval, acc);
       reduce_tile<T, NT>(acc, red, bc, [&](int b, int c, float g) {
         const int n = tile0 + c;
         if (n < F) {
@@ -560,7 +513,6 @@ mlp_down_kernel(const T* __restrict__ a_t, const T* __restrict__ wd, const T* __
   const int tile0 = blockIdx.x * kCV * V;
   const int col = tile0 + (threadIdx.x % kCV) * V;
   const int rs = threadIdx.x / kCV;
-  const Deq<T, T> deq{};
   for (int b0 = 0; b0 < B; b0 += kBT) {
     const int bc = min(kBT, B - b0);
     // a_t row d holds the B activations of contraction row d: with B ==
@@ -580,7 +532,7 @@ mlp_down_kernel(const T* __restrict__ a_t, const T* __restrict__ wd, const T* __
       }
     };
     float acc[kBT][V];
-    gemv_partial<T, T, NT>(wd, F, D, col, col < D, rs, act_row, deq, acc);
+    gemv_partial<T, NT>(wd, F, D, col, col < D, rs, act_row, acc);
     reduce_tile<T, NT>(acc, red, bc, [&](int b, int c, float y) {
       const int n = tile0 + c;
       if (n < D) {
@@ -950,14 +902,15 @@ mlp_down_int8_mma_kernel(Q8Grid gr, const __nv_bfloat16* __restrict__ a,
 
 // ---------------------------------------------------------------------------
 // The tensor-core GEMV core (mma.sync m16n8k16, fp32 sums): fused_norm_qkv
-// and fused_proj_norm in bf16 and fp16, fused_norm_qkv over int8 codes, and
-// fused_mlp in bf16 and fp16
+// and fused_proj_norm in bf16, fp16 and over int8 codes, and fused_mlp in
+// bf16 and fp16
 // ---------------------------------------------------------------------------
 //
 // One body, g16_body, four kinds of launch, each a pass of kBT rows:
 //   kQkv   norm_qkv_mma_kernel<T> (T = bf16, fp16) and, over int8 codes,
 //          norm_qkv_int8_mma_kernel: (norm(x) rounded to T) @ W (+ bqkv);
-//   kProj  proj_norm_mma_kernel<T>: r = resid + ctx @ wo (+ bo) and h =
+//   kProj  proj_norm_mma_kernel<T> and, over int8 codes,
+//          proj_norm_int8_mma_kernel: r = resid + ctx @ wo (+ bo) and h =
 //          norm(r in fp32 | resid);
 //   kAct   mlp_act_mma_kernel<T>: a = act(h @ Wg (+ bg)) * (h @ Wu (+ bu)), or
 //          act(h @ Wu (+ bu)) without a gate, rounded to T as [kBT, F] rows;
@@ -1027,7 +980,9 @@ mlp_down_int8_mma_kernel(Q8Grid gr, const __nv_bfloat16* __restrict__ a,
 //     128-byte box of a row at a time: the weights' bare stream ran no
 //     faster with two or four side by side, and the full kernels ran
 //     slower.  norm_qkv keeps 3 blocks an SM with 3-stage rings, proj_norm 1
-//     with a 6-stage ring (its grid barrier needs the grid resident); the
+//     with a 6-stage ring, 4 over int8 codes (its grid barrier needs the
+//     grid resident; a 128-column int8 tile's statistics merge as a
+//     64-column one's do, by their count); the
 //     MLP's act launch stages 64 rows of up and gate, its down launch 128
 //     rows, both 3 blocks an SM.
 
@@ -1080,6 +1035,7 @@ struct G16Cfg {
 using QkvCfg = G16Cfg<uint16_t, 1, 1, 128, 3, 3>;
 using ProjCfg = G16Cfg<uint16_t, 1, 1, 128, 6, 1>;
 using Qkv8Cfg = G16Cfg<int8_t, 1, 1, 128, 3, 3>;
+using Proj8Cfg = G16Cfg<int8_t, 1, 1, 128, 4, 1>;
 using MlpActCfg = G16Cfg<uint16_t, 2, 1, 64, 3, 3>;      // with a gate
 using MlpAct1Cfg = G16Cfg<uint16_t, 1, 1, 128, 3, 3>;    // without
 using MlpDownCfg = G16Cfg<uint16_t, 1, 1, 128, 3, 3>;
@@ -1777,6 +1733,12 @@ __global__ void __launch_bounds__(kGThreads, Qkv8Cfg::kBps)
   g16_body<__nv_bfloat16, kQkv, Qkv8Cfg, kTma>(a);
 }
 
+template <bool kTma>
+__global__ void __launch_bounds__(kGThreads, Proj8Cfg::kBps)
+    proj_norm_int8_mma_kernel(const __grid_constant__ G16Args a) {
+  g16_body<__nv_bfloat16, kProj, Proj8Cfg, kTma>(a);
+}
+
 template <typename T, class C>
 __global__ void __launch_bounds__(kGThreads, C::kBps)
     mlp_act_mma_kernel(const __grid_constant__ G16Args a) {
@@ -2195,24 +2157,22 @@ cudaError_t launch_norm_qkv(const void* x, const void* scale, const void* bias, 
   return cudaGetLastError();
 }
 
-template <typename T, typename W>
-cudaError_t launch_proj_norm(const void* ctx, const void* resid, const void* wo,
-                             const void* wscale, const void* bo, const void* scale,
-                             const void* bias, void* r, void* h, void* r32, void* ticket, int B,
-                             int M, int D, int kind, float eps, int parallel, cudaStream_t s) {
+template <typename T>
+cudaError_t launch_proj_norm(const void* ctx, const void* resid, const void* wo, const void* bo,
+                             const void* scale, const void* bias, void* r, void* h, void* r32,
+                             void* ticket, int B, int M, int D, int kind, float eps, int parallel,
+                             cudaStream_t s) {
   const int grid = grid_for(D, Pack<T>::N);
   const bool narrow = narrow_blocks(grid);
-  auto kernel = narrow ? proj_norm_kernel<T, W, kThreadsNarrow>
-                       : proj_norm_kernel<T, W, kThreadsWide>;
+  auto kernel = narrow ? proj_norm_kernel<T, kThreadsNarrow> : proj_norm_kernel<T, kThreadsWide>;
   const size_t smem = static_cast<size_t>(min(B, kBT)) * M * sizeof(T);
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   kernel<<<grid, narrow ? kThreadsNarrow : kThreadsWide, smem, s>>>(
-      static_cast<const T*>(ctx), static_cast<const T*>(resid), static_cast<const W*>(wo),
-      static_cast<const float*>(wscale), static_cast<const T*>(bo),
-      static_cast<const T*>(scale), static_cast<const T*>(bias), static_cast<T*>(r),
-      static_cast<T*>(h), static_cast<float*>(r32), static_cast<unsigned int*>(ticket), B, M,
-      D, kind, eps, parallel);
+      static_cast<const T*>(ctx), static_cast<const T*>(resid), static_cast<const T*>(wo),
+      static_cast<const T*>(bo), static_cast<const T*>(scale), static_cast<const T*>(bias),
+      static_cast<T*>(r), static_cast<T*>(h), static_cast<float*>(r32),
+      static_cast<unsigned int*>(ticket), B, M, D, kind, eps, parallel);
   return cudaGetLastError();
 }
 
@@ -2631,6 +2591,22 @@ cudaError_t q8_norm_qkv(const void* x, const void* scale, const void* bias, cons
       dev, s);
 }
 
+cudaError_t q8_proj_norm(const void* ctx, const void* resid, const void* wo, const void* wscale,
+                         const void* bo, const void* scale, const void* bias, void* r, void* h,
+                         void* work, void* ticket, int B, int M, int D, int kind, float eps,
+                         int parallel, int dev, cudaStream_t s) {
+  if (M % 8 || D % 8) return cudaErrorInvalidValue;
+  G16Args a{};
+  a.x = ctx; a.w[0] = wo; a.ws = static_cast<const float*>(wscale); a.wb[0] = bo;
+  a.scale = scale; a.bias = bias; a.resid = resid; a.out = r; a.h = h;
+  a.ticket = static_cast<unsigned int*>(ticket);
+  a.K = M; a.N = D; a.kind = kind; a.eps = eps; a.parallel = parallel;
+  const bool tma = D % 16 == 0 && aligned16(wo);
+  return g16_passes<__nv_bfloat16, kProj, Proj8Cfg>(
+      a, B, work, tma ? proj_norm_int8_mma_kernel<true> : proj_norm_int8_mma_kernel<false>, tma,
+      dev, s);
+}
+
 // The 16-bit MLP: two launches a pass of kBT rows, the act launch's `a` and
 // both launches' partials in the workspace (mlp16_workspace_bytes), the
 // down kernel a programmatic dependent of the act kernel.
@@ -2797,11 +2773,12 @@ int ds_fused_norm_qkv_int8(const void* x, const void* scale, const void* bias, c
 }
 
 // Bytes of the workspace the tensor-core norm_qkv (kind 0), proj_norm
-// (kind 1) or int8 norm_qkv (kind 2) take for a [K, N] weight on CUDA
-// device `device`.
+// (kind 1), int8 norm_qkv (kind 2) or int8 proj_norm (kind 3) take for a
+// [K, N] weight on CUDA device `device`.
 long long ds_gemv16_workspace(int K, int N, int kind, int device) {
   const size_t n = kind == 1   ? g16_workspace_bytes<ProjCfg>(K, N, device)
                    : kind == 2 ? g16_workspace_bytes<Qkv8Cfg>(K, N, device)
+                   : kind == 3 ? g16_workspace_bytes<Proj8Cfg>(K, N, device)
                                : g16_workspace_bytes<QkvCfg>(K, N, device);
   return static_cast<long long>(n);
 }
@@ -2884,26 +2861,30 @@ int ds_fused_proj_norm(const void* ctx, const void* resid, const void* wo, const
   if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch_proj_norm<float, float>(ctx, resid, wo, nullptr, bo, scale, bias, r, h, work, ticket, B, M, D, kind, eps, parallel, s);
+    case 0: return launch_proj_norm<float>(ctx, resid, wo, bo, scale, bias, r, h, work, ticket, B, M, D, kind, eps, parallel, s);
     case 1: return g16_proj_norm<__nv_bfloat16>(ctx, resid, wo, bo, scale, bias, r, h, work, ticket, B, M, D, kind, eps, parallel, device, s);
     case 2: return g16_proj_norm<__half>(ctx, resid, wo, bo, scale, bias, r, h, work, ticket, B, M, D, kind, eps, parallel, device, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// The int8-weight body: bf16 activations, wo [M, D] int8 codes, wscale [D]
-// fp32; r32 [B, D] fp32 scratch and the ticket as float32's.
+// The int8-weight body on the tensor cores: bf16 ctx, resid, bo, scale,
+// bias, r and h (ctx 16-byte aligned, M a multiple of 8); wo [M, D] int8
+// codes (8-byte aligned, D a multiple of 8; rows of whole 16 bytes go by the
+// TMA), wscale [D] fp32; `work` ds_gemv16_workspace(M, D, 3, device) bytes
+// and `ticket` as ds_fused_proj_norm's.  A cooperative launch a pass of 8
+// rows.
 int ds_fused_proj_norm_int8(const void* ctx, const void* resid, const void* wo,
                             const void* wscale, const void* bo, const void* scale,
-                            const void* bias, void* r, void* h, void* r32, void* ticket, int B,
+                            const void* bias, void* r, void* h, void* work, void* ticket, int B,
                             int M, int D, int kind, float eps, int parallel, void* stream,
                             int device) {
   if (B <= 0 || D <= 0) return 0;
   const DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
-  return launch_proj_norm<__nv_bfloat16, int8_t>(ctx, resid, wo, wscale, bo, scale, bias, r, h,
-                                                 r32, ticket, B, M, D, kind, eps, parallel,
-                                                 static_cast<cudaStream_t>(stream));
+  return static_cast<int>(q8_proj_norm(ctx, resid, wo, wscale, bo, scale, bias, r, h, work,
+                                       ticket, B, M, D, kind, eps, parallel, device,
+                                       static_cast<cudaStream_t>(stream)));
 }
 
 // h, r [B, D]; wu, wg [D, F] (wg null: no gate); wd [F, D]; biases or null;

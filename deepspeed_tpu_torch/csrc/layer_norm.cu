@@ -20,8 +20,8 @@
 // Design: one thread block per row (the Pallas kernel's row block becomes
 // the CUDA block; the TPU's lane-axis reduction becomes a warp-shuffle
 // reduction followed by one pass over per-warp partials in shared memory);
-// the LayerNorm forward gives a row of up to 2048 elements to one warp,
-// which keeps it in registers.  Rows are read with 16-byte vector loads when
+// the LayerNorm forward, and its backward in 16 bits, give a row of up to
+// 2048 elements to one warp, which keeps it in registers.  Rows are read with 16-byte vector loads when
 // the row length and the pointers allow it, else element by element.
 // Nothing is allocated here: the wrapper passes the output buffer and the
 // stream.
@@ -30,6 +30,9 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
+#include <type_traits>
 
 namespace {
 
@@ -220,26 +223,37 @@ rms_norm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, const T* _
     part[static_cast<size_t>(blockIdx.x) * n + i] = sdg[i];
 }
 
-// dg[c] = sum over blocks b (in order b = w, w + 8, ... per warp w, then the
-// 8 warp sums in order) of part[b][c], cast to T.  32 columns per block.
+// out[c] = sum over blocks b (in order b = w, w + 8, ... per warp w, then
+// the 8 warp sums in order) of part[b][c], cast to T: the partials' fixed-
+// order sum.  32 columns a block at a time, striding over the grid.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-rms_dg_reduce_kernel(const float* __restrict__ part, T* __restrict__ dg, int nblk, int n) {
+__device__ __forceinline__ void ordered_col_sum(const float* __restrict__ part,
+                                                T* __restrict__ out, int nblk, int n) {
   __shared__ float red[kWarps][32];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int c = blockIdx.x * 32 + lane;
-  float acc = 0.f;
-  if (c < n)
-    for (int b = warp; b < nblk; b += kWarps) acc += part[static_cast<size_t>(b) * n + c];
-  red[warp][lane] = acc;
-  __syncthreads();
-  if (warp == 0 && c < n) {
-    float tot = 0.f;
+  for (int c0 = blockIdx.x * 32; c0 < n; c0 += gridDim.x * 32) {
+    const int c = c0 + lane;
+    float acc = 0.f;
+    if (c < n)
+      for (int b = warp; b < nblk; b += kWarps) acc += part[static_cast<size_t>(b) * n + c];
+    red[warp][lane] = acc;
+    __syncthreads();
+    if (warp == 0 && c < n) {
+      float tot = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) tot += red[w][lane];
-    dg[c] = from_f32<T>(tot);
+      for (int w = 0; w < kWarps; ++w) tot += red[w][lane];
+      out[c] = from_f32<T>(tot);
+    }
+    __syncthreads();
   }
+}
+
+// RMSNorm's dg from its [nblk, n] partials.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+rms_dg_reduce_kernel(const float* __restrict__ part, T* __restrict__ dg, int nblk, int n) {
+  ordered_col_sum(part, dg, nblk, n);
 }
 
 // ---------------------------------------------------------------------------
@@ -345,10 +359,12 @@ layer_norm_fwd_block_kernel(const T* __restrict__ x, const T* __restrict__ g,
 // `rows_per_block` consecutive rows and keeps fp32 partials of dg and db for
 // every column in shared memory (2n floats; a thread always owns the same
 // columns), writes them to `part[blockIdx.x]` as [dg | db], and
-// rms_dg_reduce_kernel sums the partials of all 2n columns in a fixed order.
-// No float atomics: the same bits on every call.  Bound by bytes: x and dy
-// are read (three times: the mean and sum(wdy), the centred sums, the
-// outputs; the repeats mostly from L1/L2), dx written.
+// layer_norm_dgb_sum_kernel sums the partials of all 2n columns in a fixed
+// order.  No float atomics: the same bits on every call.  Bound by bytes: x
+// and dy are read (three times: the mean and sum(wdy), the centred sums, the
+// outputs; the repeats mostly from L1/L2), dx written.  It serves fp32, rows
+// longer than 2048 and rows that are not 16-byte vectors; 16-bit rows of up
+// to 2048 elements take layer_norm_bwd_warp_kernel.
 template <typename T, bool kVec>
 __global__ void __launch_bounds__(kThreads)
 layer_norm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
@@ -447,6 +463,174 @@ layer_norm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
     part[static_cast<size_t>(blockIdx.x) * 2 * n + i] = sdg[i];
 }
 
+// LayerNorm backward, one warp a row, for 16-bit rows of n <= 2048 elements
+// in 16-byte vectors (gpt2-xl's [8192, 1600] and bloom-1b7's [8192, 2048]
+// on their train paths), the formula of layer_norm_bwd_kernel.  What bounds
+// it: bytes (x and dy read once, dx written once: 78.6 and 100.7 MB, 23.5
+// and 30.1 us at 3.35 TB/s).  The block-per-row kernel paid latency instead:
+// three passes over each row with two block-wide barriers between them.
+// Here:
+//   - a lane keeps its vectors of the row's x and dy (c = lane + 32 i, at
+//     most 8 each) in registers in their 16-bit form, so each is read from
+//     HBM once; the four sums (x, wdy, then xc^2 and wdy * xc) are warp
+//     shuffles, with no block barrier per row;
+//   - a warp streams rows r, r + W, ... (W the grid's warps: one wave of the
+//     blocks the card holds), and asks for the next row's x and dy before it
+//     reduces the current one (registers as a double buffer: one block of 8
+//     warps an SM);
+//   - gamma is staged in shared memory once a block: read from global
+//     memory in each of a row's three passes, one vector at a time behind
+//     the guard of a ragged row, it cost ~8 us a call (the rows streaming
+//     through L1 likely evict it, so each read waits on L2);
+//   - dg and db partials: each warp keeps its own slice of shared memory,
+//     [dg | db][vector i][half][lane] as float4 (a warp's accesses are 16
+//     consecutive bytes a lane: no bank conflicts), which only that warp
+//     touches, so the rows need no barrier; at the end the block sums its
+//     warps' slices in warp order into part[blockIdx.x] = [dg | db], and
+//     layer_norm_dgb_sum_kernel sums the blocks' partials in a fixed order.
+//     No float atomics: a second call gives the same bits.
+// Staging gamma took the rows from ~1.9 to ~2.4 TB/s (torch.add over the
+// same bytes: ~3); rows asked into L2 further ahead, x and dy loaded past
+// L1, and 4 warps a block measured no faster, a third block of 4 warps an
+// SM (168 registers) slower (ln_bwd_probe.py; PERF.md section 6).
+constexpr int kBwdWarps = 8;          // rows in flight a block, one a warp
+
+// Dynamic shared memory of a warp-path block for rows of n elements: the
+// warps' dg and db slices, then gamma.
+template <typename T>
+size_t ln_bwd_warp_smem(int n) {
+  const int kvl = (n / Pack<T>::N + 31) / 32;      // vectors a lane, at most
+  return (static_cast<size_t>(kBwdWarps) * 2 * kvl * 64 + kvl * 32) * sizeof(float4);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kBwdWarps * 32)
+layer_norm_bwd_warp_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                           const T* __restrict__ dy, T* __restrict__ dx,
+                           float* __restrict__ part, long long rows, int n, float eps) {
+  using P = Pack<T>;
+  constexpr int kV = kWarpRowMax / 32 / P::N;   // vectors a lane at most
+  extern __shared__ float4 slices[];            // [kBwdWarps][2][kvl][2][32], gamma
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nv = n / P::N;
+  const int kvl = (nv + 31) / 32;
+  const int per = 2 * kvl * 64;                 // float4s of a warp's slice
+  float4* mine = slices + warp * per;
+  for (int q = lane; q < per; q += 32) mine[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+  const float inv_n = 1.f / static_cast<float>(n);
+  const P* gv = reinterpret_cast<const P*>(g);
+  P* gs = reinterpret_cast<P*>(slices + kBwdWarps * per);   // gamma, staged once
+  for (int c = threadIdx.x; c < nv; c += kBwdWarps * 32) gs[c] = gv[c];
+  __syncthreads();
+  const long long stride = static_cast<long long>(gridDim.x) * kBwdWarps;
+  long long r = static_cast<long long>(blockIdx.x) * kBwdWarps + warp;
+  auto load = [&](long long row, P (&px)[kV], P (&pd)[kV]) {
+    const P* xv = reinterpret_cast<const P*>(x + row * n);
+    const P* dv = reinterpret_cast<const P*>(dy + row * n);
+#pragma unroll
+    for (int i = 0; i < kV; ++i) {
+      const int c = lane + 32 * i;
+      if (c < nv) {
+        px[i] = xv[c];
+        pd[i] = dv[c];
+      }
+    }
+  };
+  P cx[kV], cd[kV];
+  if (r < rows) load(r, cx, cd);
+  for (; r < rows; r += stride) {
+    P nx[kV], nd[kV];
+    if (r + stride < rows) load(r + stride, nx, nd);
+    float sx = 0.f, sw = 0.f;                   // sum x, sum wdy
+#pragma unroll
+    for (int i = 0; i < kV; ++i) {
+      const int c = lane + 32 * i;
+      if (c < nv) {
+        const P pg = gs[c];
+#pragma unroll
+        for (int j = 0; j < P::N; ++j) {
+          sx += to_f32(cx[i].v[j]);
+          sw += to_f32(cd[i].v[j]) * to_f32(pg.v[j]);
+        }
+      }
+    }
+    const float mean = warp_sum(sx) * inv_n;
+    const float c1 = warp_sum(sw) * inv_n;
+    float sq = 0.f, swx = 0.f;                  // sum xc^2, sum wdy * xc
+#pragma unroll
+    for (int i = 0; i < kV; ++i) {
+      const int c = lane + 32 * i;
+      if (c < nv) {
+        const P pg = gs[c];
+#pragma unroll
+        for (int j = 0; j < P::N; ++j) {
+          const float xc = to_f32(cx[i].v[j]) - mean;
+          sq += xc * xc;
+          swx += to_f32(cd[i].v[j]) * to_f32(pg.v[j]) * xc;
+        }
+      }
+    }
+    const float rstd = rsqrtf(warp_sum(sq) * inv_n + eps);
+    const float c2 = warp_sum(swx) * rstd * inv_n;
+    P* ov = reinterpret_cast<P*>(dx + r * n);
+#pragma unroll
+    for (int i = 0; i < kV; ++i) {
+      const int c = lane + 32 * i;
+      if (c < nv) {
+        const P pg = gs[c];
+        float pdg[P::N], pdb[P::N];
+        P out;
+#pragma unroll
+        for (int j = 0; j < P::N; ++j) {
+          const float xhat = (to_f32(cx[i].v[j]) - mean) * rstd;
+          const float d = to_f32(cd[i].v[j]);
+          out.v[j] = from_f32<T>((d * to_f32(pg.v[j]) - c1 - xhat * c2) * rstd);
+          pdg[j] = d * xhat;
+          pdb[j] = d;
+        }
+        ov[c] = out;
+#pragma unroll
+        for (int h = 0; h < P::N / 4; ++h) {
+          float4* sg = mine + (i * 2 + h) * 32 + lane;
+          float4* sb = sg + kvl * 64;
+          float4 a = *sg, b = *sb;
+          a.x += pdg[4 * h]; a.y += pdg[4 * h + 1]; a.z += pdg[4 * h + 2]; a.w += pdg[4 * h + 3];
+          b.x += pdb[4 * h]; b.y += pdb[4 * h + 1]; b.z += pdb[4 * h + 2]; b.w += pdb[4 * h + 3];
+          *sg = a;
+          *sb = b;
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kV; ++i) {
+      cx[i] = nx[i];
+      cd[i] = nd[i];
+    }
+  }
+  __syncthreads();
+  // the block's partial: its warps' slices summed in warp order
+  float* pb = part + static_cast<size_t>(blockIdx.x) * 2 * n;
+  for (int q = threadIdx.x; q < per; q += kBwdWarps * 32) {
+    float4 t = slices[q];
+#pragma unroll
+    for (int w = 1; w < kBwdWarps; ++w) {
+      const float4 u = slices[w * per + q];
+      t.x += u.x; t.y += u.y; t.z += u.z; t.w += u.w;
+    }
+    const int half = q / (kvl * 64), rem = q % (kvl * 64);   // [dg | db]
+    const int c = (rem % 32) + 32 * (rem / 64);
+    if (c < nv)
+      *reinterpret_cast<float4*>(pb + half * n + c * P::N + ((rem / 32) % 2) * 4) = t;
+  }
+}
+
+// LayerNorm's dg and db from its [nblk, 2n] partials (either kernel's).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+layer_norm_dgb_sum_kernel(const float* __restrict__ part, T* __restrict__ dgb, int nblk, int n) {
+  ordered_col_sum(part, dgb, nblk, n);
+}
+
 // A block's default limit is 48 KB of static plus dynamic shared memory; a
 // kernel that asks for more dynamic shared memory opts in first (the static
 // reduction scratch comes on top of the dynamic partials).
@@ -482,30 +666,70 @@ cudaError_t launch_ln_fwd(const void* x, const void* g, const void* b, void* y, 
   return cudaGetLastError();
 }
 
+// Blocks of layer_norm_bwd_warp_kernel<T> an SM holds at rows of n
+// elements (0 on an error), asked once for each vector count a lane.  The
+// kernel is opted in to the slices of the longest row, so that a row of
+// another width never lowers the limit a cached count relies on.
+template <typename T>
+int ln_bwd_warp_resident(int n) {
+  static int cache[kWarpRowMax / 32 / Pack<T>::N + 1];
+  const int kvl = (n / Pack<T>::N + 31) / 32;
+  if (cache[kvl] == 0) {
+    int nb = 0;
+    if (allow_smem(layer_norm_bwd_warp_kernel<T>, ln_bwd_warp_smem<T>(kWarpRowMax)) ==
+            cudaSuccess &&
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, layer_norm_bwd_warp_kernel<T>,
+                                                      kBwdWarps * 32,
+                                                      ln_bwd_warp_smem<T>(n)) == cudaSuccess)
+      cache[kvl] = nb;
+  }
+  return cache[kvl];
+}
+
 template <typename T>
 cudaError_t launch_ln_bwd(const void* x, const void* g, const void* dy, void* dx, void* dgb,
                           float* part, long long rows, int n, int nblk, float eps,
                           cudaStream_t stream) {
-  const int rpb = static_cast<int>((rows + nblk - 1) / nblk);
-  const size_t smem = static_cast<size_t>(2 * n) * sizeof(float);
   cudaError_t e;
-  if (aligned16<T>(x, g, dy, dx, n)) {
-    e = allow_smem(layer_norm_bwd_kernel<T, true>, smem);
-    if (e != cudaSuccess) return e;
-    layer_norm_bwd_kernel<T, true><<<nblk, kThreads, smem, stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(g), static_cast<const T*>(dy),
-        static_cast<T*>(dx), part, rows, n, rpb, eps);
-  } else {
-    e = allow_smem(layer_norm_bwd_kernel<T, false>, smem);
-    if (e != cudaSuccess) return e;
-    layer_norm_bwd_kernel<T, false><<<nblk, kThreads, smem, stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(g), static_cast<const T*>(dy),
-        static_cast<T*>(dx), part, rows, n, rpb, eps);
+  bool warp_path = false;
+  if constexpr (!std::is_same<T, float>::value) {
+    if (n <= kWarpRowMax && aligned16<T>(x, g, dy, dx, n)) {
+      // one wave of warp-path blocks, each streaming rows, at most nblk partials
+      const int per_sm = ln_bwd_warp_resident<T>(n);
+      if (per_sm <= 0) return cudaErrorInvalidConfiguration;
+      int dev = 0, sms = 0;
+      e = cudaGetDevice(&dev);
+      if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      if (e != cudaSuccess) return e;
+      const long long want = (rows + kBwdWarps - 1) / kBwdWarps;
+      nblk = static_cast<int>(std::min<long long>(std::min(nblk, sms * per_sm), want));
+      layer_norm_bwd_warp_kernel<T><<<nblk, kBwdWarps * 32, ln_bwd_warp_smem<T>(n), stream>>>(
+          static_cast<const T*>(x), static_cast<const T*>(g), static_cast<const T*>(dy),
+          static_cast<T*>(dx), part, rows, n, eps);
+      warp_path = true;
+    }
+  }
+  if (!warp_path) {
+    const int rpb = static_cast<int>((rows + nblk - 1) / nblk);
+    const size_t smem = static_cast<size_t>(2 * n) * sizeof(float);
+    if (aligned16<T>(x, g, dy, dx, n)) {
+      e = allow_smem(layer_norm_bwd_kernel<T, true>, smem);
+      if (e != cudaSuccess) return e;
+      layer_norm_bwd_kernel<T, true><<<nblk, kThreads, smem, stream>>>(
+          static_cast<const T*>(x), static_cast<const T*>(g), static_cast<const T*>(dy),
+          static_cast<T*>(dx), part, rows, n, rpb, eps);
+    } else {
+      e = allow_smem(layer_norm_bwd_kernel<T, false>, smem);
+      if (e != cudaSuccess) return e;
+      layer_norm_bwd_kernel<T, false><<<nblk, kThreads, smem, stream>>>(
+          static_cast<const T*>(x), static_cast<const T*>(g), static_cast<const T*>(dy),
+          static_cast<T*>(dx), part, rows, n, rpb, eps);
+    }
   }
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   // dg and db are the two halves of one [2, n] buffer: one ordered sum
-  rms_dg_reduce_kernel<T><<<(2 * n + 31) / 32, kThreads, 0, stream>>>(
+  layer_norm_dgb_sum_kernel<T><<<(2 * n + 31) / 32, kThreads, 0, stream>>>(
       part, static_cast<T*>(dgb), nblk, 2 * n);
   return cudaGetLastError();
 }
@@ -611,8 +835,10 @@ int ds_layer_norm_fwd(const void* x, const void* g, const void* b, void* y, long
 
 // LayerNorm backward: x, dy, dx [rows, n]; g [n]; dgb [2, n] receives dg then
 // db; one dtype; part is float32 scratch [nblk, 2n] for the per-block
-// partials (nblk <= rows; 8n bytes of shared memory per block, so
-// n <= 6144).  Two launches (partials, then their fixed-order sum).
+// partials (nblk <= rows; the block-per-row kernel keeps 8n bytes of shared
+// memory per block, so n <= 6144; 16-bit rows of up to 2048 elements in
+// 16-byte vectors take the warp-per-row kernel, one wave of at most nblk
+// blocks).  Two launches (partials, then their fixed-order sum).
 int ds_layer_norm_bwd(const void* x, const void* g, const void* dy, void* dx, void* dgb,
                       void* part, long long rows, int n, int nblk, float eps, int dtype,
                       void* stream) {

@@ -33,11 +33,12 @@ int8 weights (``wscale`` / ``wscales``: an int8 payload with per-output-
 column fp32 scales, the layout of ``models/quant.py``) run the int8 bodies
 of the three GEMV kernels, which dequantize in the kernel as ``_deq`` does;
 they take bf16 activations only (the int8 engine serves in bf16).
-norm_qkv's is the tensor-core core's (``norm_qkv_int8_mma_kernel``); the
-int8 MLP has kernels of its own on the tensor cores
-(``mlp_act_int8_mma_kernel`` + ``mlp_down_int8_mma_kernel``: ``mma.sync``
-over the dequantized codes, streamed by a ``cp.async`` ring); proj_norm's
-is the FFMA ``proj_norm_kernel`` over int8 codes.  Every wrapper takes the
+norm_qkv's and proj_norm's are the tensor-core core's
+(``norm_qkv_int8_mma_kernel``, ``proj_norm_int8_mma_kernel``: a cooperative
+launch, as the 16-bit proj_norm's); the int8 MLP has kernels of its own on
+the tensor cores (``mlp_act_int8_mma_kernel`` + ``mlp_down_int8_mma_kernel``:
+``mma.sync`` over the dequantized codes, streamed by a ``cp.async`` ring).
+Every wrapper takes the
 lean host path of :mod:`.common` (the raw stream handle, the device index
 to the C entry, prototypes bound once).  Each variant has a launch function
 and a launch counter of its own: ``flash_decode_contig_cuda`` and the three
@@ -331,7 +332,8 @@ def _gemv_workspace(dev: int, stream: int, code: int, B: int, K: int,
                     N: int, kind: int) -> int:
     """The GEMVs' scratch: the tensor-core kernels' layout of
     ``ds_gemv16_workspace`` (kind 0 norm_qkv, 1 proj_norm in bf16 and fp16,
-    2 the int8 norm_qkv); for fp32 proj_norm's r32 [B, N]."""
+    2 the int8 norm_qkv, 3 the int8 proj_norm); for fp32 proj_norm's r32
+    [B, N]."""
     if code == 0:
         return _workspace(dev, stream, B * N * 4)
     nbytes = _G16_WORKSPACE.get((K, N, kind, dev))
@@ -839,7 +841,10 @@ def fused_norm_qkv_int8_cuda(x, scale, bias, wqkv, wscale, bqkv=None, *,
 
 def fused_proj_norm_int8_cuda(ctx, resid, wo, wscale, bo, scale, bias, *,
                               kind, eps, parallel):
-    """Launch the int8 body of ``proj_norm_kernel``: returns (r, h)."""
+    """Launch ``proj_norm_int8_mma_kernel`` (the tensor cores, one
+    cooperative launch a pass of 8 rows, the norm after a grid barrier):
+    bf16 ctx [B, M], int8 wo [M, D] with its fp32 scale (D values); returns
+    (r, h), on the lean host path of :func:`fused_norm_qkv_cuda`."""
     check_kernel_input("fused_proj_norm ctx", ctx, ctx.device)
     if ctx.dim() != 2 or wo.dim() != 2:
         raise ValueError(f"fused_proj_norm: ctx [B, M] and wo [M, D], got "
@@ -851,7 +856,7 @@ def fused_proj_norm_int8_cuda(ctx, resid, wo, wscale, bo, scale, bias, *,
     _check("fused_proj_norm bo", bo, ctx, (D,))
     _check("fused_proj_norm scale", scale, ctx, (D,))
     _check("fused_proj_norm bias", bias, ctx, (D,))
-    _check_staged("fused_proj_norm", B, M, ctx)
+    _check_mma("fused_proj_norm", M, ctx)
     code_kind = _kind_code(kind)
     r = ctx.new_empty((B, D))
     h = ctx.new_empty((B, D))
@@ -860,8 +865,8 @@ def fused_proj_norm_int8_cuda(ctx, resid, wo, wscale, bo, scale, bias, *,
     err = bind("decode", "ds_fused_proj_norm_int8", _PROJ_NORM_INT8_ARGS)(
         ctx.data_ptr(), resid.data_ptr(), wo.data_ptr(), wscale.data_ptr(),
         _ptr(bo), scale.data_ptr(), _ptr(bias), r.data_ptr(), h.data_ptr(),
-        _workspace(dev, stream, B * D * 4), _tickets(dev, stream), B, M, D,
-        code_kind, float(eps), int(bool(parallel)), stream, dev)
+        _gemv_workspace(dev, stream, 1, B, M, D, 3), _tickets(dev, stream),
+        B, M, D, code_kind, float(eps), int(bool(parallel)), stream, dev)
     if err:
         check_launch(load_library("decode"), "fused_proj_norm (int8)", err)
     fused_proj_norm_int8_cuda.launches += 1

@@ -7,7 +7,9 @@ Counterpart of ``deepspeed_tpu/ops/pallas/layer_norm.py``: ``layer_norm``,
 for LayerNorm one warp per row of up to 2048 elements held in registers;
 16-byte vector loads, fp32 warp-shuffle reductions, the LayerNorm variance
 taken of the centred values; backward: per-block fp32 partials of dγ (and
-dβ) summed by a second launch in a fixed order), built by nvcc at first use
+dβ) summed by a second launch in a fixed order, the LayerNorm's for 16-bit
+rows of up to 2048 elements from one warp a row, x and dy held in
+registers, one wave of blocks streaming the rows), built by nvcc at first use
 and called through ctypes.  The ``*_plain`` functions keep the JAX
 ``impl="xla"`` semantics — fp32 statistics (recomputed from x in the
 backward), outputs in x's dtype, dγ and dβ fp32 sums cast to γ's dtype —
@@ -113,7 +115,7 @@ def rms_norm_cuda(x: torch.Tensor, gamma: torch.Tensor,
     return y
 
 
-# dγ partials: one per block of rows, at most this many blocks
+# dγ (and dβ) partials: one per block of rows, at most this many blocks
 _BWD_BLOCKS = 512
 
 
@@ -258,7 +260,10 @@ def layer_norm_cuda(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 def layer_norm_bwd_cuda(x: torch.Tensor, gamma: torch.Tensor,
                         dy: torch.Tensor, eps: float = 1e-5):
     """Launch the backward kernels (per-block dγ and dβ partials, then their
-    sum); raises on what they do not take and on a launch error."""
+    sum: ``layer_norm_bwd_warp_kernel`` for bf16 and fp16 rows of up to 2048
+    elements in 16-byte vectors, else ``layer_norm_bwd_kernel``, then
+    ``layer_norm_dgb_sum_kernel``); raises on what they do not take and on a
+    launch error."""
     n = x.shape[-1]
     check_kernel_input("layer_norm_bwd x", x, x.device)
     check_kernel_input("layer_norm_bwd gamma", gamma, x.device, dtype=x.dtype)

@@ -9,8 +9,8 @@ Every build is timed by ``chip_smoke.gemv16_times`` at the decode paths'
 shapes (8 rows): the bf16 fused_norm_qkv and fused_proj_norm at llama3-8b
 ([4096, 6144], [4096, 4096], RMSNorm) and gpt2-xl ([1600, 4800],
 [1600, 1600], LayerNorm and biases), fused_mlp at both (3 x 58.7M weights,
-gated SiLU; 2 x 10.2M, tanh-GeLU and biases) and the int8 fused_norm_qkv at
-llama3-8b: the call under CUDA events, the kernels' device time a call under
+gated SiLU; 2 x 10.2M, tanh-GeLU and biases) and the int8 fused_norm_qkv and
+fused_proj_norm at llama3-8b: the call under CUDA events, the kernels' device time a call under
 the profiler and replayed from a CUDA graph (weights cycled past the L2; the
 graph's keeps the MLP's PDL overlap, the profiler's per-kernel sum counts
 the down kernel's wait) and the host's time a call.  Before it is timed, each
@@ -60,6 +60,21 @@ VARIANTS = {
     "down_128": ("the MLP's down launch on 128-column tiles (2 boxes)",
                  [("using MlpDownCfg = G16Cfg<uint16_t, 1, 1, 128, 3, 3>;",
                    "using MlpDownCfg = G16Cfg<uint16_t, 1, 2, 64, 3, 3>;")]),
+    "proj8_6": ("the int8 proj_norm with a 6-stage ring",
+                [("using Proj8Cfg = G16Cfg<int8_t, 1, 1, 128, 4, 1>;",
+                  "using Proj8Cfg = G16Cfg<int8_t, 1, 1, 128, 6, 1>;")]),
+    "proj8_3": ("the int8 proj_norm with a 3-stage ring",
+                [("using Proj8Cfg = G16Cfg<int8_t, 1, 1, 128, 4, 1>;",
+                  "using Proj8Cfg = G16Cfg<int8_t, 1, 1, 128, 3, 1>;")]),
+    "proj8_2bps": ("the int8 proj_norm with 2 blocks an SM, 4-stage rings",
+                   [("using Proj8Cfg = G16Cfg<int8_t, 1, 1, 128, 4, 1>;",
+                     "using Proj8Cfg = G16Cfg<int8_t, 1, 1, 128, 4, 2>;")]),
+    "proj8_9": ("the int8 proj_norm with a 9-stage ring",
+                [("using Proj8Cfg = G16Cfg<int8_t, 1, 1, 128, 4, 1>;",
+                  "using Proj8Cfg = G16Cfg<int8_t, 1, 1, 128, 9, 1>;")]),
+    "proj8_64": ("the int8 proj_norm on 64-row stages, 12 a ring",
+                 [("using Proj8Cfg = G16Cfg<int8_t, 1, 1, 128, 4, 1>;",
+                   "using Proj8Cfg = G16Cfg<int8_t, 1, 1, 64, 12, 1>;")]),
     "qkv8_2bps": ("the int8 norm_qkv with 2 blocks an SM and 5-stage rings",
                   [("using Qkv8Cfg = G16Cfg<int8_t, 1, 1, 128, 3, 3>;",
                     "using Qkv8Cfg = G16Cfg<int8_t, 1, 1, 128, 5, 2>;")]),
@@ -132,6 +147,15 @@ def check(torch, cs, dev, gen):
                                                         eps=1e-5),
                      dk._norm_qkv_ref(x, s, torch.zeros_like(s), w, None, kind="rmsnorm",
                                       eps=1e-5, wscale=ws), 2e-2, "norm_qkv int8 llama3-8b")
+    ctx = cs._randn(torch, (cs.B, cs.H * cs.DH), gen, dev).to(bf)
+    resid = cs._randn(torch, (cs.B, cs.D), gen, dev, 2).to(bf)
+    wo, wos = cs._int8_weight(torch, (cs.H * cs.DH, cs.D), gen, dev)
+    got = dk.fused_proj_norm_int8_cuda(ctx, resid, wo, wos, None, s, None, kind="rmsnorm",
+                                       eps=1e-5, parallel=False)
+    want = dk._proj_norm_ref(ctx, resid, wo, None, s, torch.zeros_like(s), kind="rmsnorm",
+                             eps=1e-5, parallel=False, wscale=wos)
+    for i in range(2):
+        cs._assert_close(torch, got[i], want[i], 2e-2, f"proj_norm int8 llama3-8b {'rh'[i]}")
 
 
 def nvcc(src: Path, lib: Path, extra=()):

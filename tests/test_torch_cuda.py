@@ -1179,12 +1179,16 @@ def test_layer_norm_kernel_matches_plain(cuda_device, dtype, shape):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("shape", [(8192, 1600), (3, 5, 768), (7, 100),
+@pytest.mark.parametrize("shape", [(8192, 1600), (8192, 2048), (4099, 1600),
+                                   (5, 2048), (5, 2056), (3, 5, 768), (7, 100),
                                    (1, 64), (600, 6144)])
 def test_layer_norm_bwd_kernel_matches_plain(cuda_device, dtype, shape):
-    """gpt2-xl's [micro * S, D] rows, a 3-D input, an odd row length (the
-    element-by-element path), a single row, and the longest row the kernel
-    takes (48 KB of partials: more than a block's default shared memory)."""
+    """gpt2-xl's and bloom-1b7's [micro * S, D] rows, a row count that does
+    not divide into the warps of a block, the longest row of the 16-bit warp
+    kernel and one just past it, a 3-D input, an odd row length (the
+    element-by-element path), a single row, and the longest row the
+    block-per-row kernel takes (48 KB of partials: more than a block's
+    default shared memory)."""
     x = _randn(shape, 0, dtype, cuda_device, 3.0) + 1.5
     g = _randn(shape[-1:], 1, dtype, cuda_device) * 0.1 + 1
     dy = _randn(shape, 2, dtype, cuda_device)
@@ -1197,6 +1201,42 @@ def test_layer_norm_bwd_kernel_matches_plain(cuda_device, dtype, shape):
     assert _rel_err(dg, want_dg) < tol and _rel_err(db, want_db) < tol
     again = tln.layer_norm_bwd(x, g, dy, eps=1e-5)
     assert all(torch.equal(a, b) for a, b in zip((dx, dg, db), again))
+
+
+def test_layer_norm_bwd_takes_row_widths_in_any_order(cuda_device):
+    """The warp-per-row kernel's shared memory grows with the row: a narrow
+    row after a wide one, and a wide one again, each launch and match the
+    plain version (the kernel's opt-in to more shared memory is never
+    lowered by a narrower row)."""
+    dev = cuda_device
+    for n in (2048, 768, 1600, 64, 2048):
+        x = _randn((257, n), 0, torch.bfloat16, dev, 3.0) + 1.5
+        g = _randn((n,), 1, torch.bfloat16, dev) * 0.1 + 1
+        dy = _randn((257, n), 2, torch.bfloat16, dev)
+        dx, dg, db = tln.layer_norm_bwd(x, g, dy, eps=1e-5)
+        want_dx, want_dg, want_db = tln.layer_norm_bwd_plain(x, g, dy, eps=1e-5)
+        _close(dx, want_dx, TOL[torch.bfloat16])
+        assert _rel_err(dg, want_dg) < GRAD_REL_TOL[torch.bfloat16]
+        assert _rel_err(db, want_db) < GRAD_REL_TOL[torch.bfloat16]
+
+
+def test_layer_norm_bwd_launches_the_warp_kernel_for_16_bit_rows(cuda_device):
+    """bf16 and fp16 rows of up to 2048 elements in 16-byte vectors run the
+    warp-per-row kernel; fp32, longer rows and odd row lengths the
+    block-per-row one; each sums its partials with LayerNorm's own kernel,
+    never RMSNorm's."""
+    dev = cuda_device
+    for dtype, n, warp in ((torch.bfloat16, 1600, True), (torch.float16, 2048, True),
+                           (torch.bfloat16, 2056, False), (torch.float32, 1600, False),
+                           (torch.bfloat16, 104, True), (torch.bfloat16, 1604, False)):
+        x = _randn((64, n), 0, dtype, dev)
+        g = torch.ones(n, device=dev, dtype=dtype)
+        names, _ = _profiled_kernels(lambda: tln.layer_norm_bwd(x, g, x, eps=1e-5),
+                                     ("layer_norm_bwd_", "layer_norm_dgb_sum_kernel"))
+        assert any("layer_norm_bwd_warp_kernel" in k for k in names) == warp, names
+        assert any("layer_norm_bwd_kernel" in k for k in names) != warp, names
+        assert any("layer_norm_dgb_sum_kernel" in k for k in names), names
+        assert not any("rms_dg_reduce" in k for k in names), names
 
 
 def test_layer_norm_autograd_and_refusals(cuda_device):
@@ -1706,9 +1746,19 @@ def test_fused_norm_qkv_int8_kernel_matches_plain(cuda_device, B, D, N, kind,
 @pytest.mark.parametrize("B,M,D,kind,parallel,bias", [
     (8, 4096, 4096, "rmsnorm", False, False),   # llama3-8b decode
     (8, 1600, 1600, "layernorm", False, True),  # gpt2-xl decode
-    (3, 192, 200, "layernorm", True, True)])    # a ragged last tile
+    (3, 192, 200, "layernorm", True, True),     # a ragged last tile, rows of
+                                                # 8 bytes: cp.async
+    (1, 4096, 4096, "rmsnorm", False, True),    # one row
+    (12, 1600, 1600, "layernorm", True, False), # two passes of 8
+    (5, 136, 264, "layernorm", False, True),    # M off the 128-row stage
+    (16, 512, 1000, "rmsnorm", False, True),    # two passes, cp.async
+    (2, 64, 25600, "rmsnorm", False, False)])   # more column tiles than
+                                                # resident blocks: the even grid
 def test_fused_proj_norm_int8_kernel_matches_plain(cuda_device, B, M, D, kind,
                                                    parallel, bias):
+    """The tensor-core kernel (a cooperative launch, its norm after a grid
+    barrier) against the plain version, bit-equal on a second call (split
+    tiles and the tiles' row statistics merged in a fixed order)."""
     dt = torch.bfloat16
     ctx = _randn((B, M), 0, dt, cuda_device)
     resid = _randn((B, D), 1, dt, cuda_device, 2.0)
@@ -1722,6 +1772,9 @@ def test_fused_proj_norm_int8_kernel_matches_plain(cuda_device, B, M, D, kind,
                                  eps=1e-5, parallel=parallel, wscale=ws)
     _close(r, wr, GEMV_TOL[dt])
     _close(h, wh, GEMV_TOL[dt])
+    again = tdec.fused_proj_norm(ctx, resid, wo, bo, scale, nb, kind=kind,
+                                 eps=1e-5, parallel=parallel, wscale=ws)
+    assert torch.equal(r, again[0]) and torch.equal(h, again[1])
 
 
 @pytest.mark.parametrize("B", [1, 3, 8, 12])           # 12: two passes of 8
@@ -1753,13 +1806,23 @@ def test_fused_mlp_int8_kernel_matches_plain(cuda_device, B, D, F, glu, bias,
                                            act=act, wscales=(su, sg, sd)))
 
 
-def _profiled_kernels(fn):
+def _profiled_kernels(fn, want=(), sessions=4):
+    """The names of the kernels a call of ``fn`` ran on the card, under
+    torch.profiler, and the calls made.  On the H100 a session now and then
+    comes back without some or all of its kernels' records (chip_smoke.py's
+    ``kernel_split`` takes such a session again too), so a session whose
+    names miss one of ``want`` is taken again, with a new call, up to
+    ``sessions`` calls in all."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.key for e in prof.key_averages() if e.self_device_time_total > 0]
+    for calls in range(1, sessions + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages() if e.self_device_time_total > 0]
+        if all(any(w in k for k in names) for w in want):
+            break
+    return names, calls
 
 
 def test_fused_mlp_bodies_launch_their_own_kernels(cuda_device):
@@ -1774,22 +1837,25 @@ def test_fused_mlp_bodies_launch_their_own_kernels(cuda_device):
     wd, sd = _int8_weight((512, 256), 3, dev)
     dense = [_randn(t.shape, 4, dt, dev, 0.05) for t in (wu, wd)]
     n16, n8 = tdec.fused_mlp.launches, tdec.fused_mlp_int8_cuda.launches
-    names = _profiled_kernels(lambda: tdec.fused_mlp(h, r, *dense, act="relu"))
-    assert (tdec.fused_mlp.launches, tdec.fused_mlp_int8_cuda.launches) == (n16 + 1, n8)
+    mlp = ("mlp_act", "mlp_down")
+    names, calls = _profiled_kernels(lambda: tdec.fused_mlp(h, r, *dense, act="relu"), mlp)
+    assert (tdec.fused_mlp.launches, tdec.fused_mlp_int8_cuda.launches) == (n16 + calls, n8)
     assert any("mlp_act_mma_kernel" in k for k in names)
     assert any("mlp_down_mma_kernel" in k for k in names)
     assert not any("int8_mma" in k or "mlp_act_kernel" in k for k in names), names
-    names = _profiled_kernels(lambda: tdec.fused_mlp(
-        h.half(), r.half(), *[w.half() for w in dense], act="relu"))
+    n16 += calls
+    names, calls = _profiled_kernels(lambda: tdec.fused_mlp(
+        h.half(), r.half(), *[w.half() for w in dense], act="relu"), mlp)
     assert any("mlp_act_mma_kernel" in k and "half" in k for k in names), names
-    names = _profiled_kernels(lambda: tdec.fused_mlp(
-        h.float(), r.float(), *[w.float() for w in dense], act="relu"))
+    n16 += calls
+    names, calls = _profiled_kernels(lambda: tdec.fused_mlp(
+        h.float(), r.float(), *[w.float() for w in dense], act="relu"), mlp)
     assert any("mlp_act_kernel" in k for k in names)
     assert not any("mma" in k for k in names), names
-    n16 += 2
-    names = _profiled_kernels(lambda: tdec.fused_mlp(
-        h, r, wu, wd, act="relu", wscales=(su, None, sd)))
-    assert (tdec.fused_mlp.launches, tdec.fused_mlp_int8_cuda.launches) == (n16 + 1, n8 + 1)
+    n16 += calls
+    names, calls = _profiled_kernels(lambda: tdec.fused_mlp(
+        h, r, wu, wd, act="relu", wscales=(su, None, sd)), mlp)
+    assert (tdec.fused_mlp.launches, tdec.fused_mlp_int8_cuda.launches) == (n16, n8 + calls)
     assert any("mlp_act_int8_mma_kernel" in k for k in names)
     assert any("mlp_down_int8_mma_kernel" in k for k in names)
     assert not any("mlp_act_kernel" in k or "mlp_down_kernel" in k for k in names), names
@@ -1868,6 +1934,44 @@ def test_mlp_and_int8_qkv_replay_in_a_cuda_graph(cuda_device):
         assert torch.equal(got, ref)
 
 
+def test_int8_proj_norm_replays_in_a_cuda_graph(cuda_device):
+    """The int8 fused_proj_norm at llama3-8b's decode shape, captured in a
+    CUDA graph: its launch stays cooperative (the grid barrier before the
+    norm), reads nothing back and leaves its tickets at 0, so a replay on
+    new inputs equals the eager call bit for bit, and a second replay the
+    first."""
+    dev, dt = cuda_device, torch.bfloat16
+    ctx = _randn((8, 4096), 0, dt, dev)
+    resid = _randn((8, 4096), 1, dt, dev, 2.0)
+    wo, ws = _int8_weight((4096, 4096), 2, dev)
+    scale = _randn((4096,), 3, dt, dev) * 0.1 + 1
+
+    def step():
+        return tdec.fused_proj_norm(ctx, resid, wo, None, scale, kind="rmsnorm",
+                                    eps=1e-5, wscale=ws)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        step()                          # scratch and tickets for s, eagerly
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    launches = tdec.fused_proj_norm_int8_cuda.launches
+    with torch.cuda.graph(g, stream=s):
+        outs = step()
+    assert tdec.fused_proj_norm_int8_cuda.launches == launches + 1
+    ctx.copy_(_randn(ctx.shape, 4, dt, dev))
+    resid.copy_(_randn(resid.shape, 5, dt, dev, 2.0))
+    g.replay()
+    torch.cuda.synchronize()
+    first = [t.clone() for t in outs]
+    want = step()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, want))
+    g.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(outs, first))
+
+
 def test_mlp_lean_path_keeps_every_refusal(cuda_device):
     """The lean test of fused_mlp falls back on the full checks, so each
     refusal raises its own error and launches nothing: the tensor cores'
@@ -1920,6 +2024,21 @@ def test_int8_decode_kernels_refuse_bad_inputs(cuda_device):
         tdec.fused_norm_qkv(x, s, None, w.float(), wscale=ws)
     with pytest.raises(ValueError, match="scale"):
         tdec.fused_proj_norm(x, x, w, None, s, wscale=ws[:32])
+    # the tensor-core proj_norm's 16-byte copies of ctx: a contraction of
+    # whole 16-byte vectors, a 16-byte aligned ctx; its codes' 8-byte rows
+    before = tdec.fused_proj_norm_int8_cuda.launches
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tdec.fused_proj_norm(torch.ones(2, 60, device=dev, dtype=torch.bfloat16), x,
+                             torch.ones(60, 64, device=dev, dtype=torch.int8), None, s,
+                             wscale=ws)
+    with pytest.raises(ValueError, match="aligned"):
+        tdec.fused_proj_norm(torch.ones(2 * 64 + 1, device=dev, dtype=torch.bfloat16)[1:]
+                             .view(2, 64), x, w, None, s, wscale=ws)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tdec.fused_proj_norm(x, torch.ones(2, 60, device=dev, dtype=torch.bfloat16),
+                             torch.ones(64, 60, device=dev, dtype=torch.int8), None,
+                             s[:60], wscale=ws[:60])
+    assert tdec.fused_proj_norm_int8_cuda.launches == before
     with pytest.raises(ValueError, match="multiple of 8"):
         tdec.fused_mlp(x, x, torch.ones(64, 60, device=dev, dtype=torch.int8),
                        torch.ones(60, 64, device=dev, dtype=torch.int8),

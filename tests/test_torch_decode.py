@@ -655,6 +655,35 @@ def test_fused_proj_norm_int8_matches_jax(impl, kind, parallel, with_bias):
 
 
 @pytest.mark.parametrize("impl", ["xla", "interpret"])
+@pytest.mark.parametrize("kind", ["rmsnorm", "layernorm"])
+@pytest.mark.parametrize("B,M,D", [(12, 256, 392),    # two passes of 8
+                                   (3, 256, 200),     # 8-byte rows: cp.async
+                                   (5, 136, 264),     # M off the 128-row stage
+                                   (8, 1600, 1600)])  # gpt2-xl: a half last tile
+def test_fused_proj_norm_int8_ragged_matches_jax(impl, kind, B, M, D):
+    """The int8 proj_norm's plain version at the shapes its tensor-core
+    kernel treats apart (a second pass of 8 rows, code rows the TMA cannot
+    address, a contraction off the ring's stage, a 128-column tile half
+    full), against JAX: bf16 tolerance."""
+    rng = np.random.default_rng(15)
+    ctx = _rand(rng, B, M)
+    resid = _rand(rng, B, D, scale=2.0)
+    bo = _rand(rng, D)
+    scale = 1.0 + _rand(rng, D, scale=0.1)
+    bias = _rand(rng, D)
+    (jw, jws), (tw, tws) = _q8_pair(*_int8(rng, M, D))
+    (jc, tc), (jr, tr), (jo, to), (js, ts), (jb, tb) = (
+        _pair(a, "bfloat16") for a in (ctx, resid, bo, scale, bias))
+    wr, wh = jdec.fused_proj_norm(jc, jr, jw, jo, js, jb, kind=kind, eps=1e-5,
+                                  parallel=False, wscale=jws, impl=impl)
+    r, h = tdec.fused_proj_norm(tc, tr, tw, to, ts, tb, kind=kind, eps=1e-5,
+                                parallel=False, wscale=tws)
+    assert r.dtype == h.dtype == torch.bfloat16 and r.shape == h.shape == (B, D)
+    _close(wr, r, TOL["bfloat16"])
+    _close(wh, h, TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("impl", ["xla", "interpret"])
 @pytest.mark.parametrize("glu,act", [(True, "silu"), (False, "gelu")])
 @pytest.mark.parametrize("with_bias", [True, False])
 @pytest.mark.parametrize("B,F", [(3, 256), (1, 256), (8, 256), (12, 256),

@@ -68,11 +68,13 @@ def test_layer_norm_matches_jax(impl, dtype, shape):
 
 
 @pytest.mark.parametrize("impl", ["xla", "interpret"])
-@pytest.mark.parametrize("shape", [(16, 64), (2, 8, 96), (5, 1600)])
+@pytest.mark.parametrize("shape", [(16, 64), (2, 8, 96), (5, 1600),
+                                   (9, 2048), (3, 2056)])
 def test_layer_norm_vjp_matches_jax(impl, shape):
     """(dx, dγ, dβ) of the JAX custom VJP against ``layer_norm_bwd_plain``
     and against autograd through the port's ``_LayerNorm`` (fp32, 1e-5;
-    dγ and dβ are sums over at most 16 rows)."""
+    dγ and dβ are sums over at most 16 rows), at gpt2-xl's and bloom-1b7's
+    widths and at a row just past the card's warp-per-row backward."""
     x, g, b, dy = _ln_inputs(shape, seed=1)
     _, vjp = jax.vjp(lambda x_, g_, b_: j_layer_norm(x_, g_, b_, 1e-5, impl),
                      jnp.asarray(x), jnp.asarray(g), jnp.asarray(b))
