@@ -72,8 +72,9 @@ Needs one CUDA card, nvcc and triton; imports nothing of JAX.  Phases
              Adam on its [1600] and [48, 1600] leaves;
              then the gpt2-xl kernels: LayerNorm fwd and bwd at
              [8192, 1600], bloom-1b7's [8192, 2048], [8, 1600] and ragged
-             shapes (bwd bit-equal on a second call; its timing at both
-             training shapes, with its device and host time a call),
+             shapes (fwd and bwd bit-equal on a second call; the bwd's
+             timing at both training shapes, with its device and host time
+             a call),
              scaled masked softmax with and without a causal
              mask at [4, 25, 1024, 1024] and at a row length that is no
              power of two, bias_act for each activation at [8192, 6400],
@@ -103,7 +104,15 @@ Needs one CUDA card, nvcc and triton; imports nothing of JAX.  Phases
              RMSNorm's call at the serving and the training shape beside
              ``F.rms_norm``, its public ``rms_norm()`` call, and the host
              microseconds of each stage of its call path (perf_counter_ns
-             over 20000 calls a stage);
+             over 20000 calls a stage), and the same stages of LayerNorm's
+             call at [8, 1600], beside ``F.layer_norm`` at [8, 1600] and
+             [64, 1600]; both forwards at their serve, prefill and train
+             shapes (LayerNorm [8, 1600], [64, 1600], [8192, 1600],
+             [8192, 2048]; RMSNorm [8, 4096], [64, 4096], [1600, 4096],
+             [8192, 2048]): device us a launch alone (x cycled past the
+             L2) and from a CUDA graph, call ms and host us, beside the
+             bound, ``F.layer_norm`` / ``F.rms_norm`` timed alike, and the
+             device time of ``copy_`` over the same bytes;
 3. reference — a small fp32 model served on the card (kernels) and on the
              CPU (plain versions) must give the same greedy tokens, on the
              default fused decode path and on ``use_fused_decode: False``;
@@ -473,6 +482,8 @@ def check_old_kernels(torch, dev, gen):
             torch.cuda.synchronize()
             e = _assert_close(torch, y, layer_norm.rms_norm_plain(x, g, 1e-5),
                               TOL[dtype_name], f"rms_norm {dtype_name}")
+            check(torch.equal(y, layer_norm.rms_norm_cuda(x, g, 1e-5)),
+                  f"rms_norm {dtype_name} [{rows}, {D}]: two calls differ")
             if dtype_name != "float32":
                 key = "rms_norm" + ("_f16" if dtype_name == "float16" else "")
                 errs[key] = max(errs[key], e)
@@ -666,16 +677,18 @@ def check_decode_kernels(torch, dev, gen, model):
     return errs
 
 
-def rms_norm_host_path(torch, x, g, calls=20000):
-    """Host microseconds a call of each stage of the RMSNorm forward's call
-    path at x [8, 4096] bf16, each stage timed alone with perf_counter_ns
-    over ``calls`` calls (the device drained every 1000): the stages of the
-    shared-check path the other wrappers take (dispatch, the two
-    check_kernel_input calls and the shape test, empty_like, entering
-    torch.cuda.device, current_stream().cuda_stream, the ctypes call that
-    launches, check_launch), the lean path's replacements, and whole calls:
-    rms_norm_cuda, the public rms_norm(), the shared-check path rebuilt
-    from its stages, and F.rms_norm."""
+def norm_host_path(torch, kind, x, *scale, calls=20000):
+    """Host microseconds a call of each stage of a norm forward's call path
+    (``kind`` "rms_norm" at x [8, 4096] with g, or "layer_norm" at x
+    [8, 1600] with g and b; bf16), each stage timed alone with
+    perf_counter_ns over ``calls`` calls (the device drained every 1000):
+    the stages of the shared-check path the wrappers took before their lean
+    path (dispatch, a check_kernel_input call a tensor and the shape test,
+    empty_like, entering torch.cuda.device, current_stream().cuda_stream,
+    the ctypes call that launches, check_launch), the lean path's
+    replacements, and whole calls: the kernel's wrapper, the public
+    function, the shared-check path rebuilt from its stages, and the
+    library call (F.rms_norm, F.layer_norm)."""
     import torch.nn.functional as F_
 
     from deepspeed_tpu_torch.ops.kernels import layer_norm as ln
@@ -684,75 +697,181 @@ def rms_norm_host_path(torch, x, g, calls=20000):
                                                         check_kernel_input,
                                                         raw_stream, use_kernel)
 
+    layer = kind == "layer_norm"
     n = x.shape[-1]
+    rows = x.numel() // n
     idx = x.get_device()
     code = KERNEL_DTYPES[x.dtype]
     built = load_library("layer_norm")
-    fwd = bind("layer_norm", "ds_rms_norm_fwd", ln._RMS_FWD_ARGS)
+    fwd = bind("layer_norm", "ds_layer_norm_fwd" if layer else "ds_rms_norm_fwd",
+               ln._LN_FWD_ARGS if layer else ln._RMS_FWD_ARGS)
+    names = ("gamma", "beta")[:len(scale)]
+    wrapper, public = getattr(ln, kind + "_cuda"), getattr(ln, kind)
     y = torch.empty_like(x)
 
-    def shared_check_path():
-        if not (torch.is_grad_enabled() and (x.requires_grad or g.requires_grad)):
-            use_kernel(x)
-        check_kernel_input("rms_norm x", x, x.device)
-        check_kernel_input("rms_norm gamma", g, x.device, dtype=x.dtype)
-        if g.shape != (n,):
-            raise ValueError("shape")
-        out = torch.empty_like(x)
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = fwd(x.data_ptr(), g.data_ptr(), out.data_ptr(), x.numel() // n,
-                      n, 1e-5, code, stream, idx)
-        check_launch(built, "rms_norm", err)
-        return out
+    def launch(out, stream):
+        return fwd(x.data_ptr(), *(t.data_ptr() for t in scale), out.data_ptr(), rows, n,
+                   1e-5, code, stream, idx)
+
+    def grad():
+        return torch.is_grad_enabled() and (x.requires_grad
+                                            or any(t.requires_grad for t in scale))
 
     def dispatch():
-        if not (torch.is_grad_enabled() and (x.requires_grad or g.requires_grad)):
+        if not grad():
             use_kernel(x)
 
     def checks():
-        check_kernel_input("rms_norm x", x, x.device)
-        check_kernel_input("rms_norm gamma", g, x.device, dtype=x.dtype)
-        return g.shape != (n,)
+        check_kernel_input(f"{kind} x", x, x.device)
+        for name, t in zip(names, scale):
+            check_kernel_input(f"{kind} {name}", t, x.device, dtype=x.dtype)
+        return any(t.shape != (n,) for t in scale)
+
+    def shared_check_path():
+        dispatch()
+        if checks():
+            raise ValueError("shape")
+        out = torch.empty_like(x)
+        with torch.cuda.device(x.device):
+            err = launch(out, torch.cuda.current_stream(x.device).cuda_stream)
+        check_launch(built, kind, err)
+        return out
 
     def device_context():
         with torch.cuda.device(x.device):
             pass
 
-    def lean_dispatch():
-        return torch.is_grad_enabled() and (x.requires_grad or g.requires_grad) \
-            or x.is_cuda
-
     def lean_checks():
-        return (KERNEL_DTYPES.get(x.dtype) is None or g.dtype is not x.dtype
-                or g.get_device() != idx or g.shape != (n,)
-                or not x.is_contiguous() or not g.is_contiguous())
+        return (KERNEL_DTYPES.get(x.dtype) is None or not x.is_contiguous()
+                or any(t.dtype is not x.dtype or t.get_device() != idx
+                       or t.shape != (n,) or not t.is_contiguous() for t in scale))
 
     stream = raw_stream(idx)
     stages = {
-        "dispatch (rms_norm, use_kernel)": dispatch,
-        "checks (2 check_kernel_input + shape)": checks,
+        f"dispatch ({kind}, use_kernel)": dispatch,
+        f"checks ({1 + len(scale)} check_kernel_input + shape)": checks,
         "empty_like": lambda: torch.empty_like(x),
         "device context (torch.cuda.device)": device_context,
         "stream lookup (current_stream().cuda_stream)":
             lambda: torch.cuda.current_stream(x.device).cuda_stream,
-        "ctypes call + launch": lambda: fwd(x.data_ptr(), g.data_ptr(), y.data_ptr(),
-                                            x.numel() // n, n, 1e-5, code, stream, idx),
-        "check_launch": lambda: check_launch(built, "rms_norm", 0),
-        "lean dispatch (is_cuda)": lean_dispatch,
+        "ctypes call + launch": lambda: launch(y, stream),
+        "check_launch": lambda: check_launch(built, kind, 0),
+        "lean dispatch (is_cuda)": lambda: grad() or x.is_cuda,
         "lean checks (one attribute pass)": lean_checks,
         "lean stream (raw_stream)": lambda: raw_stream(idx),
         "whole: shared-check path": shared_check_path,
-        "whole: rms_norm_cuda": lambda: ln.rms_norm_cuda(x, g, 1e-5),
-        "whole: rms_norm()": lambda: ln.rms_norm(x, g, 1e-5),
+        f"whole: {kind}_cuda": lambda: wrapper(x, *scale, 1e-5),
+        f"whole: {kind}()": lambda: public(x, *scale, 1e-5),
     }
-    if hasattr(F_, "rms_norm"):
-        stages["whole: F.rms_norm"] = lambda: F_.rms_norm(x, (n,), g, 1e-5)
+    if layer:
+        stages["whole: F.layer_norm"] = lambda: F_.layer_norm(x, (n,), *scale, 1e-5)
+    elif hasattr(F_, "rms_norm"):
+        stages["whole: F.rms_norm"] = lambda: F_.rms_norm(x, (n,), *scale, 1e-5)
     out = {name: host_us(torch, fn, calls, batch=1000, warmup=200)
            for name, fn in stages.items()}
-    print(f"rms_norm host path at x[8,4096] bf16, us a call ({calls} calls "
+    print(f"{kind} host path at x{list(x.shape)} bf16, us a call ({calls} calls "
           f"each, perf_counter_ns): " + "; ".join(f"{k} {v:.3f}"
                                                   for k, v in out.items()))
+    return out
+
+
+def device_us_a_call(torch, call, what, calls=200, sessions=4):
+    """Device us a call of ``call`` under torch.profiler (every kernel it
+    launches, the mean over ``calls`` calls), and the kernels' names.  Each
+    kernel must be launched once a call: a session that comes back with
+    fewer records than calls (on the H100 a session now and then lacks some
+    or all) is taken again."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        call()
+    torch.cuda.synchronize()
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                call()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        if ev and all(e.count == calls for e in ev):
+            return (sum(e.self_device_time_total for e in ev) / calls,
+                    sorted({e.key[:60] for e in ev}))
+    raise RuntimeError(f"chip_smoke: {what}: no profile session in {sessions} held a "
+                       f"record of every launch")
+
+
+# the forwards' path shapes: serve (decode rows), prefill, train
+NORM_FWD_SHAPES = {"layer_norm": ((8, 1600), (64, 1600), (8192, 1600), (8192, 2048)),
+                   "rms_norm": ((8, 4096), (64, 4096), (1600, 4096), (8192, 2048))}
+
+
+def norm_fwd_times(torch, dev, kind, checked=True):
+    """The ``kind`` forward ("layer_norm" or "rms_norm") and its library
+    call (F.layer_norm, F.rms_norm) at each NORM_FWD_SHAPES shape, bf16:
+    {"RxN": {"bound_us", "kernel": {...}, "library": {...}}}, each side's
+    device us a launch under the profiler with x cycled through copies past
+    the 50 MB L2 ("alone") and the kernels' names, device us a call replayed
+    from a CUDA graph of 20 calls on 20 copies (``graph_us``), the call
+    under CUDA events (``ms``) and the host's us a call; and, as a yardstick
+    of the rate a stream of the same bytes reaches, the device us of
+    ``y.copy_(x)`` (x read once, y written once) on the same copies
+    (``copy_us``).  Each kernel is held to the plain version first (2e-2, a
+    second call bit-equal) when ``checked``."""
+    import torch.nn.functional as F_
+
+    from deepspeed_tpu_torch.ops.kernels import layer_norm as ln
+
+    layer = kind == "layer_norm"
+    cuda, plain = getattr(ln, kind + "_cuda"), getattr(ln, kind + "_plain")
+    out = {}
+    for rows, n in NORM_FWD_SHAPES[kind]:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        copies = max(2, min(4096, -(-128 * 2 ** 20 // (rows * n * 2))))
+        xs = (_randn(torch, (copies, rows, n), gen, dev, 3) + (1.5 if layer else 0)
+              ).to(torch.bfloat16)
+        g = (1 + 0.1 * torch.randn(n, device=dev, generator=gen)).to(torch.bfloat16)
+        b = (0.1 * torch.randn(n, device=dev, generator=gen)).to(torch.bfloat16)
+        scale = (g, b) if layer else (g,)
+        what = f"{kind} [{rows},{n}]"
+        if checked:
+            got, again = cuda(xs[0], *scale, 1e-5), cuda(xs[0], *scale, 1e-5)
+            torch.cuda.synchronize()
+            check(torch.equal(got, again), f"{what}: two calls differ")
+            _assert_close(torch, got, plain(xs[0], *scale, 1e-5), TOL["bfloat16"], what)
+        nxt = cycler(list(xs))
+        lib = None
+        if layer:
+            def lib(x):
+                return F_.layer_norm(x, (n,), g, b, 1e-5)
+        elif hasattr(F_, "rms_norm"):
+            def lib(x):
+                return F_.rms_norm(x, (n,), g, 1e-5)
+        y = torch.empty_like(xs[0])
+        r = out[f"{rows}x{n}"] = {
+            "bound_us": bound_ms((2 * rows * n + len(scale) * n) * 2,
+                                 (8 if layer else 4) * rows * n)[0] * 1e3,
+            "copy_us": device_us_a_call(torch, lambda: y.copy_(nxt()), f"{what} copy_",
+                                        calls=200 if rows < 1024 else 50)[0]}
+        for who, fn in (("kernel", lambda x: cuda(x, *scale, 1e-5)), ("library", lib)):
+            if fn is None:
+                continue
+            alone, names = device_us_a_call(torch, lambda: fn(nxt()), f"{what} {who}",
+                                            calls=200 if rows < 1024 else 50)
+            r[who] = {"device_us": alone, "kernels": names,
+                      "graph_us": graph_us(torch, lambda: fn(nxt())),
+                      "ms": time_ms(torch, lambda: fn(xs[0])),
+                      "host_us": host_us(torch, lambda: fn(xs[0]), calls=2000)}
+        k, lib_r = r["kernel"], r.get("library")
+        check(any(f"{kind}_fwd_" in name for name in k["kernels"]),
+              f"{what}: the profile holds {k['kernels']}")
+        print(f"time {what} bf16: device {k['device_us']:.3f} us alone, "
+              f"{k['graph_us']:.3f} from a graph, call {k['ms']:.5f} ms, host "
+              f"{k['host_us']:.3f} us; bound {r['bound_us']:.3f} us "
+              f"({100 * r['bound_us'] / k['device_us']:.1f} % of alone), copy_ of the same "
+              f"bytes {r['copy_us']:.3f} us; {k['kernels']}"
+              + (f"; library device {lib_r['device_us']:.3f} us alone, "
+                 f"{lib_r['graph_us']:.3f} from a graph, call {lib_r['ms']:.5f} ms, host "
+                 f"{lib_r['host_us']:.3f} us ({lib_r['kernels']})" if lib_r else ""))
+        del xs, y
     return out
 
 
@@ -776,7 +895,8 @@ def time_old_kernels(torch, dev, gen, errs):
         "plain_ms": time_ms(torch, lambda: layer_norm.rms_norm_plain(x, g, 1e-5)),
         "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
         "max_abs_err": errs["rms_norm"],
-        "host_us": rms_norm_host_path(torch, x, g)}
+        "host_us": norm_host_path(torch, "rms_norm", x, g),
+        "fwd_shapes": norm_fwd_times(torch, dev, "rms_norm")}
     r = out["rms_norm"]
     print(f"time rms_norm x[8,4096] bf16: rms_norm_cuda {r['ms']:.5f} ms, the "
           f"public rms_norm() {r['public_ms']:.5f} ms, F.rms_norm "
@@ -2357,17 +2477,19 @@ def check_gpt2_kernels(torch, dev, gen):
         dt = getattr(torch, dtype_name)
         bf = dtype_name == "bfloat16"
         f16 = dtype_name == "float16"
-        # one warp per row at D 1600 (training rows, decode rows, a ragged
-        # row count) and at bloom-1b7's training rows (D 2048), then the
-        # block-per-row path (n no multiple of the 16-byte vector; n past a
-        # warp's registers)
-        for shape in ((GB * GS, GD), (GB, GD), (37, GD), (GB * GS, 2048), (5, 100),
-                      (3, 4096)):
+        # the streaming warps at gpt2-xl's and bloom-1b7's training rows
+        # (D 1600, 2048), the row kernel at the decode and prefill rows and a
+        # ragged row count, then the block-per-row path (n no multiple of the
+        # 16-byte vector; n past 2048)
+        for shape in ((GB * GS, GD), (GB, GD), (64, GD), (37, GD), (GB * GS, 2048),
+                      (5, 100), (3, 4096)):
             x, g, b, dy = _ln_inputs(torch, dev, gen, dt, shape)
             y = ln.layer_norm_cuda(x, g, b, 1e-5)
             torch.cuda.synchronize()
             e = _assert_close(torch, y, ln.layer_norm_plain(x, g, b, 1e-5),
                               TOL[dtype_name], f"layer_norm {dtype_name} {shape}")
+            check(torch.equal(y, ln.layer_norm_cuda(x, g, b, 1e-5)),
+                  f"layer_norm {dtype_name} {shape}: two calls differ")
             got = ln.layer_norm_bwd_cuda(x, g, dy, 1e-5)
             again = ln.layer_norm_bwd_cuda(x, g, dy, 1e-5)
             torch.cuda.synchronize()
@@ -2476,10 +2598,21 @@ def time_gpt2_kernels(torch, dev, gen, errs):
                             samples=10),
         "library_ms": time_ms(torch, lambda: F_.layer_norm(x, (GD,), g, b, 1e-5)),
         "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": errs["layer_norm"]}
-    xs = x[:GB].contiguous()
-    out["layer_norm"]["decode_rows_ms"] = time_ms(
-        torch, lambda: ln.layer_norm_cuda(xs, g, b, 1e-5))
+    # the call at the serving path's rows (decode 8, a prefill chunk 64)
+    # beside F.layer_norm there, the host's stages of the call at 8 rows,
+    # and each path shape's device time alone and from a graph
+    r = out["layer_norm"]
+    for pre, rows in (("decode_rows_", GB), ("prefill_rows_", 64)):
+        xs = x[:rows].contiguous()
+        r[pre + "ms"] = time_ms(torch, lambda: ln.layer_norm_cuda(xs, g, b, 1e-5))
+        r["library_" + pre + "ms"] = time_ms(
+            torch, lambda: F_.layer_norm(xs, (GD,), g, b, 1e-5))
+        print(f"time layer_norm x[{rows},{GD}] bf16: layer_norm_cuda {r[pre + 'ms']:.5f} "
+              f"ms, F.layer_norm {r['library_' + pre + 'ms']:.5f} ms")
+        if rows == GB:
+            r["host_us"] = norm_host_path(torch, "layer_norm", xs, g, b)
     del xs
+    r["fwd_shapes"] = norm_fwd_times(torch, dev, "layer_norm")
     # the backward at gpt2-xl's and bloom-1b7's training rows: the call under
     # CUDA events, its two launches' device time under the profiler, the
     # host's time a call, beside the plain version, F.layer_norm's autograd
@@ -3098,7 +3231,7 @@ def phase_profile(torch, serve, prompts):
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:8]:
         print(f"  {e.self_cpu_time_total / 1e3:9.2f} ms {e.count:7d}x {e.key[:60]}")
     out = {}
-    tags = {"rms_norm": ("rms_norm_fwd_kernel",), "rope": ("_rope_fwd_kernel",),
+    tags = {"rms_norm": ("rms_norm_fwd_",), "rope": ("_rope_fwd_kernel",),
             "layer_norm": ("layer_norm_fwd_",),
             "fused_norm_qkv": ("norm_qkv_mma_kernel",),
             "flash_decode": ("flash_decode_kernel",),
@@ -3252,7 +3385,7 @@ def phase_generate_profile(torch, eng, prompts, int8):
     # bf16 the tensor-core *_mma_kernel ones; the int8 MLP has kernels of its
     # own
     sfx = "_int8" if int8 else ""
-    tags = {"rms_norm": ("rms_norm_fwd_kernel",), "rope": ("_rope_fwd_kernel",),
+    tags = {"rms_norm": ("rms_norm_fwd_",), "rope": ("_rope_fwd_kernel",),
             "fused_norm_qkv" + sfx: ("norm_qkv_int8_mma_kernel" if int8
                                      else "norm_qkv_mma_kernel",),
             "flash_decode_contig": ("flash_decode_kernel",),
@@ -3940,7 +4073,7 @@ def phase_train_profile(torch, engine, tokens):
     print("profile: device time by kind: " + ", ".join(
         f"{g} {t / 1e3:.1f} ms ({100 * t / busy:.1f}%)"
         for g, t in groups.items() if t))
-    tags = {"rms_norm": ("rms_norm_fwd_kernel",), "rope": ("_rope_fwd_kernel",),
+    tags = {"rms_norm": ("rms_norm_fwd_",), "rope": ("_rope_fwd_kernel",),
             "rms_norm_bwd": ("rms_norm_bwd_kernel", "rms_dg_reduce_kernel"),
             "layer_norm": ("layer_norm_fwd_",),
             "layer_norm_bwd": ("layer_norm_bwd_", "layer_norm_dgb_sum_kernel"),
@@ -4171,7 +4304,8 @@ def main() -> int:
                       "graph_us", "gpt2_graph_us", "bloom_shape", "bloom_ms",
                       "bloom_plain_ms", "bloom_library_ms", "bloom_bound_ms",
                       "bloom_max_abs_err", "bloom_device_us", "bloom_device_us_split",
-                      "bloom_host_us"):
+                      "bloom_host_us", "fwd_shapes", "prefill_rows_ms",
+                      "library_decode_rows_ms", "library_prefill_rows_ms"):
             if extra in t:
                 k[extra] = t[extra]
         check(all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms",

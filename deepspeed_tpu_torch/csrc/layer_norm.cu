@@ -9,22 +9,36 @@
 //   LayerNorm: y = (x - mean) * rsqrt(mean((x - mean)^2, -1) + eps) * g + b
 //   (statistics in fp32, y in x's dtype)
 //
-// What bounds them on the H100: memory bytes.  Each row is read once for the
-// statistics and once more for the scale (the second read hits L1/L2, or the
-// row stays in registers), the output is written once; a few fp32
-// operations per byte moved, far below the ~20 operations per byte at which
-// the fp32 vector units would become the limit.  On the serving path a call
-// is one [rows, D] tensor with rows <= 64 (prefill chunk) or num_slots
-// (decode): under 1 MB, so a launch costs more than the bytes do.
+// What bounds them on the H100: memory bytes.  Each row is read once and
+// written once; a few fp32 operations per byte moved, far below the ~20
+// operations per byte at which the fp32 vector units would become the
+// limit.  On the serving path a call is one [rows, D] tensor with rows <= 64
+// (prefill chunk) or num_slots (decode): under 1 MB, so a launch and the
+// trips to memory it waits on cost more than the bytes do.  At the training
+// rows ([8192, 1600], [8192, 2048]) the bytes are 52-67 MB: the rate of the
+// stream is what counts.
 //
-// Design: one thread block per row (the Pallas kernel's row block becomes
-// the CUDA block; the TPU's lane-axis reduction becomes a warp-shuffle
-// reduction followed by one pass over per-warp partials in shared memory);
-// the LayerNorm forward, and its backward in 16 bits, give a row of up to
-// 2048 elements to one warp, which keeps it in registers.  Rows are read with 16-byte vector loads when
-// the row length and the pointers allow it, else element by element.
-// Nothing is allocated here: the wrapper passes the output buffer and the
-// stream.
+// Design.  The Pallas kernel's row block becomes a warp (or a few warps) of
+// the CUDA block; the TPU's lane-axis reduction becomes warp shuffles.  The
+// forwards keep rows in 16-byte vectors in registers:
+//   - the row kernels (layer_norm_fwd_row_kernel, rms_norm_fwd_row_kernel;
+//     decode and prefill rows, RMSNorm's training rows, rows wider than a
+//     warp): a block of warps a row, 2 vectors a thread.  x, g (and b) are
+//     asked for together before any reduction, so a row waits on one trip
+//     to memory, not two;
+//   - layer_norm_fwd_stream_kernel (LayerNorm over more rows of up to 2048
+//     16-bit elements than 8 an SM: training):
+//     one wave of blocks of 8 warps, g and b staged once a block in shared
+//     memory, each warp streaming rows r, r + W, ... with the next row's x
+//     in flight, y stored with the streaming hint;
+//   - the rest (rows that are no 16-byte vectors; LayerNorm rows past 2048,
+//     RMSNorm rows past 16 warps' registers): one block of 256 threads a
+//     row, reading the row again from L1/L2 for each pass.
+// The backwards: one block per row group with dγ (and dβ) partials in shared
+// memory, summed by a second launch in a fixed order; LayerNorm's 16-bit
+// rows of up to 2048 elements a warp a row, streamed as the forward's.
+// Nothing is allocated here: the wrapper passes the output buffers, the
+// stream and the device index (made current only where it is not).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -77,6 +91,9 @@ __device__ __forceinline__ float block_sum(float v) {
   return warp_sum(v);  // every warp reduces the same partials
 }
 
+// RMSNorm forward, one block of 256 threads a row, two passes over the row
+// (the second from L1/L2): rows that are no 16-byte vectors (kVec false), or
+// longer than the register kernels below hold.
 template <typename T, bool kVec>
 __global__ void __launch_bounds__(kThreads)
 rms_norm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
@@ -260,70 +277,196 @@ rms_dg_reduce_kernel(const float* __restrict__ part, T* __restrict__ dg, int nbl
 // LayerNorm
 // ---------------------------------------------------------------------------
 
-constexpr int kRowWarps = 4;          // rows (one per warp) per block
-constexpr int kWarpRowMax = 2048;     // longest row one warp keeps in registers
+constexpr int kWarpRowMax = 2048;     // longest 16-bit row one warp holds
 
-// LayerNorm forward, one warp per row of n <= 2048 elements (n a multiple of
-// the 16-byte vector, pointers 16-byte aligned).  The row is loaded once
-// into registers as fp32 (64 values per lane; lanes past the row's end hold
-// nothing: n = 1600 is 200 vectors of 8 bf16, 6.25 per lane) and the two
-// statistics are two passes over those registers, the mean first and then
-// the variance of the centred values, as `_ln_fwd_kernel` computes them
-// (not E[x^2] - mean^2, which cancels in fp32 for rows with a large mean).
-template <typename T>
-__global__ void __launch_bounds__(kRowWarps * 32)
-layer_norm_fwd_warp_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                           const T* __restrict__ b, T* __restrict__ y, long long rows, int n,
-                           float eps) {
-  using P = Pack<T>;
-  constexpr int kV = kWarpRowMax / 32 / P::N;   // vectors per lane
-  const int lane = threadIdx.x & 31;
-  const long long row = static_cast<long long>(blockIdx.x) * kRowWarps + (threadIdx.x >> 5);
-  if (row >= rows) return;                      // the whole warp leaves together
-  const int nv = n / P::N;
-  const P* xv = reinterpret_cast<const P*>(x + row * n);
-  float v[kV][P::N];
-  float sum = 0.f;
+// ---------------------------------------------------------------------------
+// The forwards of rows in 16-byte vectors, held in registers
+// ---------------------------------------------------------------------------
+
+constexpr int kLaneVecs = 8;          // 16-byte vectors of a row a streaming lane holds
+constexpr int kFwdWarps = 8;          // warps (rows in flight) a streaming block
+constexpr int kRowVecs = 2;           // 16-byte vectors of a row a row-kernel thread holds
+constexpr int kRowWarpsMax = 16;      // warps a row at most in the row kernels
+
+// Sum of v over the block's warps, every thread gets it; the warps' sums are
+// added in warp order, so a second call gives the same bits.  `k` picks one
+// of two shared arrays: the two sums of a LayerNorm row need a barrier each.
+__device__ __forceinline__ float group_sum(float v, int k) {
+  __shared__ float part[2][kRowWarpsMax];
+  v = warp_sum(v);
+  const int nw = blockDim.x >> 5;
+  if (nw == 1) return v;
+  if ((threadIdx.x & 31) == 0) part[k][threadIdx.x >> 5] = v;
+  __syncthreads();
+  float s = 0.f;
+  for (int w = 0; w < nw; ++w) s += part[k][w];
+  return s;
+}
+
+// A row's statistics {mean, rstd} from the vectors a thread holds (slots i
+// with c = t + span * i < nv): LayerNorm's mean and then the variance of the
+// centred values, as `_ln_fwd_kernel` computes them (never E[x^2] - mean^2,
+// which cancels in fp32 for rows with a large mean); RMSNorm's mean of
+// squares (mean 0), as `_rms_fwd_kernel`.  `sum(v, k)` adds v over the
+// threads that hold the row.
+template <bool kLayer, typename P, int kV, typename Sum>
+__device__ __forceinline__ float2 norm_stats(const P (&v)[kV], int t, int span, int nv, int n,
+                                             float eps, Sum sum) {
+  float mean = 0.f;
+  if constexpr (kLayer) {
+    float s = 0.f;
 #pragma unroll
-  for (int i = 0; i < kV; ++i) {
-    const int c = lane + 32 * i;
-    if (c < nv) {
-      const P p = xv[c];
+    for (int i = 0; i < kV; ++i)
+      if (t + span * i < nv)
 #pragma unroll
-      for (int j = 0; j < P::N; ++j) {
-        v[i][j] = to_f32(p.v[j]);
-        sum += v[i][j];
-      }
-    }
+        for (int j = 0; j < P::N; ++j) s += to_f32(v[i].v[j]);
+    mean = sum(s, 0) / static_cast<float>(n);
   }
-  const float mean = warp_sum(sum) / static_cast<float>(n);
   float sq = 0.f;
 #pragma unroll
-  for (int i = 0; i < kV; ++i) {
-    if (lane + 32 * i < nv) {
+  for (int i = 0; i < kV; ++i)
+    if (t + span * i < nv)
 #pragma unroll
       for (int j = 0; j < P::N; ++j) {
-        v[i][j] -= mean;
-        sq += v[i][j] * v[i][j];
+        const float d = kLayer ? to_f32(v[i].v[j]) - mean : to_f32(v[i].v[j]);
+        sq += d * d;
       }
-    }
+  return make_float2(mean, rsqrtf(sum(sq, 1) / static_cast<float>(n) + eps));
+}
+
+// One output vector: (x - mean) * rstd * g + b, or x * rstd * g, in fp32.
+template <bool kLayer, typename T>
+__device__ __forceinline__ Pack<T> norm_out(const Pack<T>& x, const Pack<T>& g, const Pack<T>& b,
+                                            float2 st) {
+  Pack<T> o;
+#pragma unroll
+  for (int j = 0; j < Pack<T>::N; ++j) {
+    if constexpr (kLayer)
+      o.v[j] = from_f32<T>((to_f32(x.v[j]) - st.x) * st.y * to_f32(g.v[j]) + to_f32(b.v[j]));
+    else
+      o.v[j] = from_f32<T>(to_f32(x.v[j]) * st.y * to_f32(g.v[j]));
   }
-  const float rstd = rsqrtf(warp_sum(sq) / static_cast<float>(n) + eps);
+  return o;
+}
+
+// Stores a vector with the streaming hint (st.global.cs, evict first): y is
+// not read again here, and the rows of x still to come should keep L2.
+template <typename P>
+__device__ __forceinline__ void store_streaming(P* dst, const P& v) {
+  float4 w;
+  __builtin_memcpy(&w, &v, sizeof(w));
+  __stcs(reinterpret_cast<float4*>(dst), w);
+}
+
+// A few rows (decode, prefill) and rows wider than a warp: a block of
+// G = blockDim.x / 32 warps a row of at most G * 32 * kRowVecs vectors.  Each
+// thread asks for its vectors of x, g and b at once, so the row waits on one
+// trip to memory; the statistics are warp shuffles and, for G > 1, one pass
+// over the G warps' sums.  Few vectors a thread and many threads a row (256
+// for a 4096-wide 16-bit row): a row's requests leave from many warps at
+// once, and few registers let many rows be resident (generate's 1600-row
+// prefill).  A warp a row with 8 vectors a lane, a block keeping its rows'
+// g and b, and a block taking a second row were slower (ln_bwd_probe.py,
+// PERF.md section 6).
+template <typename T, bool kLayer>
+__device__ __forceinline__ void norm_fwd_row(const T* __restrict__ x, const T* __restrict__ g,
+                                             const T* __restrict__ b, T* __restrict__ y, int n,
+                                             float eps) {
+  using P = Pack<T>;
+  const int t = threadIdx.x, span = blockDim.x, nv = n / P::N;
+  const size_t off = static_cast<size_t>(blockIdx.x) * n;
+  const P* xv = reinterpret_cast<const P*>(x + off);
   const P* gv = reinterpret_cast<const P*>(g);
   const P* bv = reinterpret_cast<const P*>(b);
-  P* yv = reinterpret_cast<P*>(y + row * n);
+  P px[kRowVecs], pg[kRowVecs], pb[kRowVecs];
 #pragma unroll
-  for (int i = 0; i < kV; ++i) {
-    const int c = lane + 32 * i;
+  for (int i = 0; i < kRowVecs; ++i) {
+    const int c = t + span * i;
     if (c < nv) {
-      const P pg = gv[c], pb = bv[c];
-      P out;
-#pragma unroll
-      for (int j = 0; j < P::N; ++j)
-        out.v[j] = from_f32<T>(v[i][j] * rstd * to_f32(pg.v[j]) + to_f32(pb.v[j]));
-      yv[c] = out;
+      px[i] = xv[c];
+      pg[i] = gv[c];
+      if constexpr (kLayer) pb[i] = bv[c];
     }
   }
+  const float2 st = norm_stats<kLayer>(px, t, span, nv, n, eps,
+                                       [](float v, int k) { return group_sum(v, k); });
+  P* yv = reinterpret_cast<P*>(y + off);
+#pragma unroll
+  for (int i = 0; i < kRowVecs; ++i) {
+    const int c = t + span * i;
+    if (c < nv) yv[c] = norm_out<kLayer, T>(px[i], pg[i], pb[i], st);
+  }
+}
+
+// LayerNorm over many rows of at most a warp's width (training): one wave
+// of blocks of kFwdWarps warps.  g and b are staged once a block in shared
+// memory; each warp takes rows r, r + W, ... (W the grid's warps) and asks
+// for the next row's x before it reduces the current one (registers as a
+// double buffer); y goes out with the streaming hint.  At most 128
+// registers, so that 2 blocks share an SM: at 148 (g copied to registers
+// too) one block ran, 21.5 us at [8192, 1600] instead of 18.7.  Against the
+// row
+// kernel, which reads g and b again for every row (twice the row's bytes
+// from L2), it gains ~4.8 us at [8192, 1600]; read from global memory in
+// every row, g and b cost 1.3-3.1 us, and without the double buffer
+// 3.9-6.7 us more.  RMSNorm, with its one scale row, streams faster
+// through the row kernel (ln_bwd_probe.py, PERF.md section 6).
+template <typename T>
+__global__ void __launch_bounds__(kFwdWarps * 32, 2)
+layer_norm_fwd_stream_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                             const T* __restrict__ b, T* __restrict__ y, long long rows, int n,
+                             float eps) {
+  using P = Pack<T>;
+  __shared__ P sg[32 * kLaneVecs], sb[32 * kLaneVecs];
+  const int lane = threadIdx.x & 31, nv = n / P::N;
+  const long long stride = static_cast<long long>(gridDim.x) * kFwdWarps;
+  long long r = static_cast<long long>(blockIdx.x) * kFwdWarps + (threadIdx.x >> 5);
+  auto load = [&](long long row, P (&px)[kLaneVecs]) {
+    const P* xv = reinterpret_cast<const P*>(x + row * n);
+#pragma unroll
+    for (int i = 0; i < kLaneVecs; ++i)
+      if (lane + 32 * i < nv) px[i] = xv[lane + 32 * i];
+  };
+  P cx[kLaneVecs];
+  if (r < rows) load(r, cx);                    // in flight while g and b are staged
+  const P* gv = reinterpret_cast<const P*>(g);
+  const P* bv = reinterpret_cast<const P*>(b);
+  for (int c = threadIdx.x; c < nv; c += kFwdWarps * 32) {
+    sg[c] = gv[c];
+    sb[c] = bv[c];
+  }
+  __syncthreads();
+  for (; r < rows; r += stride) {
+    P nx[kLaneVecs];
+    if (r + stride < rows) load(r + stride, nx);
+    const float2 st = norm_stats<true>(cx, lane, 32, nv, n, eps,
+                                       [](float v, int) { return warp_sum(v); });
+    P* yv = reinterpret_cast<P*>(y + r * n);
+#pragma unroll
+    for (int i = 0; i < kLaneVecs; ++i) {
+      const int c = lane + 32 * i;
+      if (c < nv) {
+        const P pb = sb[c];     // g read in place: a copy of both, 148 registers
+        store_streaming(yv + c, norm_out<true, T>(cx[i], sg[c], pb, st));
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kLaneVecs; ++i) cx[i] = nx[i];
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kRowWarpsMax * 32)
+layer_norm_fwd_row_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                          const T* __restrict__ b, T* __restrict__ y, int n, float eps) {
+  norm_fwd_row<T, true>(x, g, b, y, n, eps);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kRowWarpsMax * 32)
+rms_norm_fwd_row_kernel(const T* __restrict__ x, const T* __restrict__ g, T* __restrict__ y,
+                        int n, float eps) {
+  norm_fwd_row<T, false>(x, g, g, y, n, eps);
 }
 
 // LayerNorm forward, one block per row: any row length, any alignment.  Three
@@ -650,19 +793,79 @@ bool aligned16(const void* a, const void* b, const void* c, const void* d, int n
            reinterpret_cast<uintptr_t>(c) | reinterpret_cast<uintptr_t>(d)) % 16) == 0;
 }
 
+// The SMs of CUDA device `dev`, asked once a device.
+cudaError_t sm_count(int dev, int* sms) {
+  static int cache[64];
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (cache[dev] == 0) {
+    const cudaError_t e = cudaDeviceGetAttribute(&cache[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+  }
+  *sms = cache[dev];
+  return cudaSuccess;
+}
+
+// Warps a row of the row kernels: 32 * kRowVecs vectors each.
+template <typename T>
+unsigned row_threads(int n) {
+  return 32 * ((n / Pack<T>::N + 32 * kRowVecs - 1) / (32 * kRowVecs));
+}
+
+// LayerNorm forward: rows of up to 2048 elements in 16-byte vectors in
+// registers (more rows of at most a warp's width than one block of
+// kFwdWarps an SM has warps: the streaming kernel, one wave of the blocks
+// an SM holds, asked once; fewer: the row kernel), the rest one block of
+// 256 threads a row.
 template <typename T>
 cudaError_t launch_ln_fwd(const void* x, const void* g, const void* b, void* y, long long rows,
-                          int n, float eps, cudaStream_t stream) {
-  if (n <= kWarpRowMax && aligned16<T>(x, g, b, y, n)) {
-    const unsigned grid = static_cast<unsigned>((rows + kRowWarps - 1) / kRowWarps);
-    layer_norm_fwd_warp_kernel<T><<<grid, kRowWarps * 32, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(g), static_cast<const T*>(b),
-        static_cast<T*>(y), rows, n, eps);
-  } else {
-    layer_norm_fwd_block_kernel<T><<<static_cast<unsigned>(rows), kThreads, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(g), static_cast<const T*>(b),
-        static_cast<T*>(y), n, eps);
+                          int n, float eps, cudaStream_t stream, int dev) {
+  const T* xt = static_cast<const T*>(x);
+  const T* gt = static_cast<const T*>(g);
+  const T* bt = static_cast<const T*>(b);
+  const unsigned grid = static_cast<unsigned>(rows);
+  if (n > kWarpRowMax || !aligned16<T>(x, g, b, y, n)) {
+    layer_norm_fwd_block_kernel<T><<<grid, kThreads, 0, stream>>>(xt, gt, bt, static_cast<T*>(y),
+                                                                  n, eps);
+    return cudaGetLastError();
   }
+  int sms = 0;
+  cudaError_t e = sm_count(dev, &sms);
+  if (e != cudaSuccess) return e;
+  if (n / Pack<T>::N <= 32 * kLaneVecs && rows > static_cast<long long>(sms) * kFwdWarps) {
+    static int per_sm = 0;
+    if (per_sm == 0) {
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, layer_norm_fwd_stream_kernel<T>,
+                                                        kFwdWarps * 32, 0);
+      if (e != cudaSuccess) return e;
+      if (per_sm <= 0) return cudaErrorInvalidConfiguration;
+    }
+    const long long want = (rows + kFwdWarps - 1) / kFwdWarps;
+    layer_norm_fwd_stream_kernel<T>
+        <<<static_cast<unsigned>(std::min<long long>(want, sms * per_sm)), kFwdWarps * 32, 0,
+           stream>>>(xt, gt, bt, static_cast<T*>(y), rows, n, eps);
+  } else {
+    layer_norm_fwd_row_kernel<T><<<grid, row_threads<T>(n), 0, stream>>>(
+        xt, gt, bt, static_cast<T*>(y), n, eps);
+  }
+  return cudaGetLastError();
+}
+
+// RMSNorm forward: rows in 16-byte vectors that a block of kRowWarpsMax
+// warps holds in registers (8192 16-bit or 4096 fp32 elements) take the row
+// kernel, the rest one block of 256 threads a row.
+template <typename T>
+cudaError_t launch_rms_fwd(const void* x, const void* g, void* y, long long rows, int n,
+                           float eps, cudaStream_t stream) {
+  const dim3 grid(static_cast<unsigned>(rows));
+  const T* xt = static_cast<const T*>(x);
+  const T* gt = static_cast<const T*>(g);
+  if (!aligned16<T>(x, g, y, y, n))
+    rms_norm_fwd_kernel<T, false><<<grid, kThreads, 0, stream>>>(xt, gt, static_cast<T*>(y), n, eps);
+  else if (n / Pack<T>::N <= kRowWarpsMax * 32 * kRowVecs)
+    rms_norm_fwd_row_kernel<T><<<grid, row_threads<T>(n), 0, stream>>>(xt, gt, static_cast<T*>(y),
+                                                                       n, eps);
+  else
+    rms_norm_fwd_kernel<T, true><<<grid, kThreads, 0, stream>>>(xt, gt, static_cast<T*>(y), n, eps);
   return cudaGetLastError();
 }
 
@@ -689,7 +892,7 @@ int ln_bwd_warp_resident(int n) {
 template <typename T>
 cudaError_t launch_ln_bwd(const void* x, const void* g, const void* dy, void* dx, void* dgb,
                           float* part, long long rows, int n, int nblk, float eps,
-                          cudaStream_t stream) {
+                          cudaStream_t stream, int dev) {
   cudaError_t e;
   bool warp_path = false;
   if constexpr (!std::is_same<T, float>::value) {
@@ -697,9 +900,8 @@ cudaError_t launch_ln_bwd(const void* x, const void* g, const void* dy, void* dx
       // one wave of warp-path blocks, each streaming rows, at most nblk partials
       const int per_sm = ln_bwd_warp_resident<T>(n);
       if (per_sm <= 0) return cudaErrorInvalidConfiguration;
-      int dev = 0, sms = 0;
-      e = cudaGetDevice(&dev);
-      if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      int sms = 0;
+      e = sm_count(dev, &sms);
       if (e != cudaSuccess) return e;
       const long long want = (rows + kBwdWarps - 1) / kBwdWarps;
       nblk = static_cast<int>(std::min<long long>(std::min(nblk, sms * per_sm), want));
@@ -758,56 +960,60 @@ cudaError_t launch_bwd(const void* x, const void* g, const void* dy, void* dx, v
   return cudaGetLastError();
 }
 
-template <typename T>
-void launch(const void* x, const void* g, void* y, long long rows, int n,
-            float eps, cudaStream_t stream) {
-  const bool vec = aligned16<T>(x, g, y, y, n);
-  const dim3 grid(static_cast<unsigned>(rows));
-  if (vec)
-    rms_norm_fwd_kernel<T, true><<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(g), static_cast<T*>(y), n, eps);
-  else
-    rms_norm_fwd_kernel<T, false><<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(g), static_cast<T*>(y), n, eps);
-}
+// Makes CUDA device `device` current for a launch if it is not, and the
+// previous one current again after it: the wrappers pass the index instead
+// of entering a device context.
+class OnDevice {
+ public:
+  explicit OnDevice(int device) : want_(device) {
+    err_ = cudaGetDevice(&prev_);
+    if (err_ == cudaSuccess && prev_ != want_) err_ = cudaSetDevice(want_);
+  }
+  ~OnDevice() {
+    if (err_ == cudaSuccess && prev_ != want_) cudaSetDevice(prev_);
+  }
+  cudaError_t error() const { return err_; }
+
+ private:
+  int want_, prev_ = -1;
+  cudaError_t err_;
+};
 
 }  // namespace
 
 extern "C" {
 
-// x, y: [rows, n] contiguous; g: [n]; all of one dtype
-// (0 = float32, 1 = bfloat16, 2 = float16), on CUDA device `device`, which
-// is made current for the launch only if it is not already (the wrapper
-// passes the index instead of entering a device context).  Returns the
-// cudaError_t of the launch (0 on success).
+// Every entry takes the CUDA device of its tensors, `device`, made current for
+// the launch only if it is not already, and returns the cudaError_t of its
+// launches (0 on success).  dtype: 0 = float32, 1 = bfloat16, 2 = float16.
+
+// RMSNorm forward: x, y [rows, n] contiguous; g [n]; all of one dtype.
 int ds_rms_norm_fwd(const void* x, const void* g, void* y, long long rows, int n,
                     float eps, int dtype, void* stream, int device) {
   if (rows <= 0 || n <= 0) return 0;
   if (rows > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  int cur = 0;
-  cudaError_t e = cudaGetDevice(&cur);
-  if (e == cudaSuccess && cur != device) e = cudaSetDevice(device);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  const OnDevice on(device);
+  if (on.error() != cudaSuccess) return static_cast<int>(on.error());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: launch<float>(x, g, y, rows, n, eps, s); break;
-    case 1: launch<__nv_bfloat16>(x, g, y, rows, n, eps, s); break;
-    case 2: launch<__half>(x, g, y, rows, n, eps, s); break;
-    default: e = cudaErrorInvalidValue;
+    case 0: return static_cast<int>(launch_rms_fwd<float>(x, g, y, rows, n, eps, s));
+    case 1: return static_cast<int>(launch_rms_fwd<__nv_bfloat16>(x, g, y, rows, n, eps, s));
+    case 2: return static_cast<int>(launch_rms_fwd<__half>(x, g, y, rows, n, eps, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (e == cudaSuccess) e = cudaGetLastError();
-  if (cur != device) cudaSetDevice(cur);
-  return static_cast<int>(e);
 }
 
 // RMSNorm backward: x, dy, dx [rows, n], g and dg [n], one dtype; part is
 // float32 scratch [nblk, n] for the per-block dg partials (nblk <= rows;
 // n * 4 bytes of shared memory per block, so n <= 12288).  Two launches
-// (partials, then their fixed-order sum).  Returns the cudaError_t.
+// (partials, then their fixed-order sum).
 int ds_rms_norm_bwd(const void* x, const void* g, const void* dy, void* dx, void* dg, void* part,
-                    long long rows, int n, int nblk, float eps, int dtype, void* stream) {
+                    long long rows, int n, int nblk, float eps, int dtype, void* stream,
+                    int device) {
   if (rows <= 0 || n <= 0) return 0;
   if (nblk <= 0 || nblk > rows || n > 12288) return static_cast<int>(cudaErrorInvalidValue);
+  const OnDevice on(device);
+  if (on.error() != cudaSuccess) return static_cast<int>(on.error());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* p = static_cast<float*>(part);
   switch (dtype) {
@@ -821,14 +1027,17 @@ int ds_rms_norm_bwd(const void* x, const void* g, const void* dy, void* dx, void
 
 // LayerNorm forward: x, y [rows, n] contiguous; g, b [n]; one dtype.
 int ds_layer_norm_fwd(const void* x, const void* g, const void* b, void* y, long long rows,
-                      int n, float eps, int dtype, void* stream) {
+                      int n, float eps, int dtype, void* stream, int device) {
   if (rows <= 0 || n <= 0) return 0;
   if (rows > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const OnDevice on(device);
+  if (on.error() != cudaSuccess) return static_cast<int>(on.error());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return static_cast<int>(launch_ln_fwd<float>(x, g, b, y, rows, n, eps, s));
-    case 1: return static_cast<int>(launch_ln_fwd<__nv_bfloat16>(x, g, b, y, rows, n, eps, s));
-    case 2: return static_cast<int>(launch_ln_fwd<__half>(x, g, b, y, rows, n, eps, s));
+    case 0: return static_cast<int>(launch_ln_fwd<float>(x, g, b, y, rows, n, eps, s, device));
+    case 1:
+      return static_cast<int>(launch_ln_fwd<__nv_bfloat16>(x, g, b, y, rows, n, eps, s, device));
+    case 2: return static_cast<int>(launch_ln_fwd<__half>(x, g, b, y, rows, n, eps, s, device));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -841,17 +1050,23 @@ int ds_layer_norm_fwd(const void* x, const void* g, const void* b, void* y, long
 // blocks).  Two launches (partials, then their fixed-order sum).
 int ds_layer_norm_bwd(const void* x, const void* g, const void* dy, void* dx, void* dgb,
                       void* part, long long rows, int n, int nblk, float eps, int dtype,
-                      void* stream) {
+                      void* stream, int device) {
   if (rows <= 0 || n <= 0) return 0;
   if (nblk <= 0 || nblk > rows || n > 6144) return static_cast<int>(cudaErrorInvalidValue);
+  const OnDevice on(device);
+  if (on.error() != cudaSuccess) return static_cast<int>(on.error());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* p = static_cast<float*>(part);
   switch (dtype) {
-    case 0: return static_cast<int>(launch_ln_bwd<float>(x, g, dy, dx, dgb, p, rows, n, nblk, eps, s));
+    case 0:
+      return static_cast<int>(
+          launch_ln_bwd<float>(x, g, dy, dx, dgb, p, rows, n, nblk, eps, s, device));
     case 1:
       return static_cast<int>(
-          launch_ln_bwd<__nv_bfloat16>(x, g, dy, dx, dgb, p, rows, n, nblk, eps, s));
-    case 2: return static_cast<int>(launch_ln_bwd<__half>(x, g, dy, dx, dgb, p, rows, n, nblk, eps, s));
+          launch_ln_bwd<__nv_bfloat16>(x, g, dy, dx, dgb, p, rows, n, nblk, eps, s, device));
+    case 2:
+      return static_cast<int>(
+          launch_ln_bwd<__half>(x, g, dy, dx, dgb, p, rows, n, nblk, eps, s, device));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

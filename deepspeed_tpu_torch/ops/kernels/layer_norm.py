@@ -3,25 +3,35 @@ and their plain versions.
 
 Counterpart of ``deepspeed_tpu/ops/pallas/layer_norm.py``: ``layer_norm``,
 ``rms_norm`` and their custom VJPs.  The kernels are in
-``deepspeed_tpu_torch/csrc/layer_norm.cu`` (forward: one block per row, or
-for LayerNorm one warp per row of up to 2048 elements held in registers;
-16-byte vector loads, fp32 warp-shuffle reductions, the LayerNorm variance
-taken of the centred values; backward: per-block fp32 partials of dγ (and
-dβ) summed by a second launch in a fixed order, the LayerNorm's for 16-bit
-rows of up to 2048 elements from one warp a row, x and dy held in
-registers, one wave of blocks streaming the rows), built by nvcc at first use
-and called through ctypes.  The ``*_plain`` functions keep the JAX
-``impl="xla"`` semantics — fp32 statistics (recomputed from x in the
-backward), outputs in x's dtype, dγ and dβ fp32 sums cast to γ's dtype —
-and are what a CPU tensor runs.  :func:`layer_norm` and :func:`rms_norm`
-are differentiable (a :class:`torch.autograd.Function`) when autograd needs
-it, and a plain call otherwise (serving).
+``deepspeed_tpu_torch/csrc/layer_norm.cu``, built by nvcc at first use and
+called through ctypes:
 
-The RMSNorm forward lies on every decode step, and its call, not its
-kernel, is what a step pays (a few µs of device time at [8, 4096]): its
-host path is the lean one of :mod:`.common` — one pass over the tensors'
-attributes, the raw stream handle, the device index to the C entry, a
-ctypes prototype bound once.  The other wrappers keep the plain path.
+- the forwards keep rows in 16-byte vectors in registers: a block of warps
+  a row, 2 vectors a thread, x and the scale asked for together so that a
+  row waits on one trip to memory (decode and prefill rows, RMSNorm's
+  training rows); LayerNorm over many rows of up to 2048 16-bit elements
+  (training) one wave of warps, each streaming rows with the next row's x
+  in flight and g and b staged in shared memory; other rows one block a
+  row.  fp32 warp-shuffle reductions; the LayerNorm variance taken of the
+  centred values;
+- the backwards: per-block fp32 partials of dγ (and dβ) summed by a second
+  launch in a fixed order; the LayerNorm's 16-bit rows of up to 2048
+  elements one warp a row, x and dy held in registers, one wave of blocks
+  streaming the rows.
+
+The ``*_plain`` functions keep the JAX ``impl="xla"`` semantics — fp32
+statistics (recomputed from x in the backward), outputs in x's dtype, dγ
+and dβ fp32 sums cast to γ's dtype — and are what a CPU tensor runs.
+:func:`layer_norm` and :func:`rms_norm` are differentiable (a
+:class:`torch.autograd.Function`) when autograd needs it, and a plain call
+otherwise (serving).
+
+The forwards lie on every decode step and prefill chunk, and there their
+call, not their kernel, is what a step pays (a few µs of device time at
+[8, D]).  Every wrapper here takes the lean host path of :mod:`.common`:
+one pass over the tensors' attributes (the checks that name what is wrong
+run only when it fails), the raw stream handle, the device index to the C
+entry, a ctypes prototype bound once.
 """
 
 from __future__ import annotations
@@ -61,25 +71,20 @@ def rms_norm_bwd_plain(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
     return dx.reshape(x.shape), dg.to(gamma.dtype)
 
 
-def _library():
-    built = load_library("layer_norm")
-    lib = built.lib
-    if lib.ds_rms_norm_bwd.argtypes is None:
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.ds_rms_norm_bwd.argtypes = [vp] * 6 + [ctypes.c_longlong, ci, ci,
-                                                   ctypes.c_float, ci, vp]
-        lib.ds_rms_norm_bwd.restype = ci
-        lib.ds_layer_norm_fwd.argtypes = [vp] * 4 + [ctypes.c_longlong, ci,
-                                                     ctypes.c_float, ci, vp]
-        lib.ds_layer_norm_fwd.restype = ci
-        lib.ds_layer_norm_bwd.argtypes = lib.ds_rms_norm_bwd.argtypes
-        lib.ds_layer_norm_bwd.restype = ci
-    return built
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+_RMS_FWD_ARGS = [_VP] * 3 + [ctypes.c_longlong, _CI, ctypes.c_float, _CI, _VP, _CI]
+_LN_FWD_ARGS = [_VP] * 4 + [ctypes.c_longlong, _CI, ctypes.c_float, _CI, _VP, _CI]
+# both backwards: x, g, dy, dx, dg (or dgb), part, rows, n, nblk, eps,
+# dtype, stream, device
+_BWD_ARGS = [_VP] * 6 + [ctypes.c_longlong, _CI, _CI, ctypes.c_float, _CI, _VP, _CI]
 
 
-_RMS_FWD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
-                                          ctypes.c_float, ctypes.c_int,
-                                          ctypes.c_void_p, ctypes.c_int]
+def _launch(fn: str, argtypes: list, what: str, *args) -> None:
+    """Call ``csrc/layer_norm.cu``'s C entry ``fn`` (a backward's); raise on
+    a CUDA error."""
+    err = bind("layer_norm", fn, argtypes)(*args)
+    if err:
+        check_launch(load_library("layer_norm"), what, err)
 
 
 def _refuse_rms_norm(x: torch.Tensor, gamma: torch.Tensor) -> None:
@@ -119,33 +124,57 @@ def rms_norm_cuda(x: torch.Tensor, gamma: torch.Tensor,
 _BWD_BLOCKS = 512
 
 
+def _refuse_bwd(name: str, x: torch.Tensor, gamma: torch.Tensor,
+                dy: torch.Tensor, too_wide: str) -> None:
+    """Raise what a backward refuses in its inputs: the checks of every
+    wrapper, run only once the lean test has failed."""
+    n = x.shape[-1]
+    if not x.is_cuda:
+        raise ValueError(f"{name} kernel: expected a CUDA tensor, got {x.device}")
+    check_kernel_input(f"{name} x", x, x.device)
+    check_kernel_input(f"{name} gamma", gamma, x.device, dtype=x.dtype)
+    check_kernel_input(f"{name} dy", dy, x.device, dtype=x.dtype)
+    if gamma.shape != (n,) or dy.shape != x.shape:
+        raise ValueError(f"{name}: x {tuple(x.shape)}, dy {tuple(dy.shape)}, "
+                         f"gamma {tuple(gamma.shape)}")
+    raise ValueError(too_wide)
+
+
+def _bwd_refused(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
+                 dev: int, max_n: int) -> bool:
+    """The lean test of a backward's inputs: one pass over their
+    attributes."""
+    n = x.shape[-1]
+    return (KERNEL_DTYPES.get(x.dtype) is None or gamma.dtype is not x.dtype
+            or dy.dtype is not x.dtype or gamma.get_device() != dev
+            or dy.get_device() != dev or gamma.shape != (n,)
+            or dy.shape != x.shape or n > max_n or not x.is_contiguous()
+            or not gamma.is_contiguous() or not dy.is_contiguous() or dev < 0)
+
+
+# the RMSNorm backward keeps a row of dγ partials in shared memory
+RMS_NORM_BWD_MAX_N = 12288
+
+
 def rms_norm_bwd_cuda(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
                       eps: float = 1e-6):
     """Launch the backward kernels (per-block dγ partials, then their sum);
     raises on what they do not take and on a launch error."""
     n = x.shape[-1]
-    check_kernel_input("rms_norm_bwd x", x, x.device)
-    check_kernel_input("rms_norm_bwd gamma", gamma, x.device, dtype=x.dtype)
-    check_kernel_input("rms_norm_bwd dy", dy, x.device, dtype=x.dtype)
-    if gamma.shape != (n,) or dy.shape != x.shape:
-        raise ValueError(f"rms_norm_bwd: x {tuple(x.shape)}, dy "
-                         f"{tuple(dy.shape)}, gamma {tuple(gamma.shape)}")
-    if n > 12288:
-        raise ValueError(f"rms_norm_bwd kernel keeps a row of dγ partials in "
-                         f"shared memory: n <= 12288, got {n}")
+    dev = x.get_device()
+    if _bwd_refused(x, gamma, dy, dev, RMS_NORM_BWD_MAX_N):
+        _refuse_bwd("rms_norm_bwd", x, gamma, dy,
+                    f"rms_norm_bwd kernel keeps a row of dγ partials in shared "
+                    f"memory: n <= {RMS_NORM_BWD_MAX_N}, got {n}")
     rows = x.numel() // n if n else 0
     dx = torch.empty_like(x)
     dg = torch.empty_like(gamma)
     nblk = max(1, min(rows, _BWD_BLOCKS))
     part = torch.empty(nblk, n, device=x.device, dtype=torch.float32)
-    built = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = built.lib.ds_rms_norm_bwd(
-            x.data_ptr(), gamma.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-            dg.data_ptr(), part.data_ptr(), rows, n, nblk, float(eps),
-            KERNEL_DTYPES[x.dtype], stream)
-    check_launch(built, "rms_norm_bwd", code)
+    _launch("ds_rms_norm_bwd", _BWD_ARGS, "rms_norm_bwd", x.data_ptr(),
+            gamma.data_ptr(), dy.data_ptr(), dx.data_ptr(), dg.data_ptr(),
+            part.data_ptr(), rows, n, nblk, eps, KERNEL_DTYPES[x.dtype],
+            raw_stream(dev), dev)
     rms_norm_bwd.launches += 1
     return dx, dg
 
@@ -233,26 +262,40 @@ def layer_norm_bwd_plain(x: torch.Tensor, gamma: torch.Tensor,
     return dx.reshape(x.shape), dg.to(gamma.dtype), db.to(gamma.dtype)
 
 
+def _refuse_layer_norm(x: torch.Tensor, gamma: torch.Tensor,
+                       beta: torch.Tensor) -> None:
+    """Raise what the kernel refuses in ``x``, ``gamma`` and ``beta``: the
+    checks of every wrapper, run only once the lean test has failed."""
+    n = x.shape[-1]
+    if not x.is_cuda:
+        raise ValueError(f"layer_norm kernel: expected a CUDA tensor, got "
+                         f"{x.device}")
+    check_kernel_input("layer_norm x", x, x.device)
+    check_kernel_input("layer_norm gamma", gamma, x.device, dtype=x.dtype)
+    check_kernel_input("layer_norm beta", beta, x.device, dtype=x.dtype)
+    raise ValueError(f"layer_norm: gamma {tuple(gamma.shape)} and beta "
+                     f"{tuple(beta.shape)} must be ({n},)")
+
+
 def layer_norm_cuda(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                     eps: float = 1e-5) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream; raises on what it does
     not take (device, dtype, shape, contiguity) and on a launch error."""
     n = x.shape[-1]
-    check_kernel_input("layer_norm x", x, x.device)
-    check_kernel_input("layer_norm gamma", gamma, x.device, dtype=x.dtype)
-    check_kernel_input("layer_norm beta", beta, x.device, dtype=x.dtype)
-    if gamma.shape != (n,) or beta.shape != (n,):
-        raise ValueError(f"layer_norm: gamma {tuple(gamma.shape)} and beta "
-                         f"{tuple(beta.shape)} must be ({n},)")
-    built = _library()
+    dev = x.get_device()
+    code = KERNEL_DTYPES.get(x.dtype)
+    if (code is None or gamma.dtype is not x.dtype or beta.dtype is not x.dtype
+            or gamma.get_device() != dev or beta.get_device() != dev
+            or gamma.shape != (n,) or beta.shape != (n,)
+            or not x.is_contiguous() or not gamma.is_contiguous()
+            or not beta.is_contiguous() or dev < 0):
+        _refuse_layer_norm(x, gamma, beta)
     y = torch.empty_like(x)
-    rows = x.numel() // n if n else 0
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = built.lib.ds_layer_norm_fwd(
-            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
-            rows, n, float(eps), KERNEL_DTYPES[x.dtype], stream)
-    check_launch(built, "layer_norm", code)
+    err = bind("layer_norm", "ds_layer_norm_fwd", _LN_FWD_ARGS)(
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
+        x.numel() // n if n else 0, n, eps, code, raw_stream(dev), dev)
+    if err:
+        check_launch(load_library("layer_norm"), "layer_norm", err)
     layer_norm.launches += 1
     return y
 
@@ -265,29 +308,21 @@ def layer_norm_bwd_cuda(x: torch.Tensor, gamma: torch.Tensor,
     ``layer_norm_dgb_sum_kernel``); raises on what they do not take and on a
     launch error."""
     n = x.shape[-1]
-    check_kernel_input("layer_norm_bwd x", x, x.device)
-    check_kernel_input("layer_norm_bwd gamma", gamma, x.device, dtype=x.dtype)
-    check_kernel_input("layer_norm_bwd dy", dy, x.device, dtype=x.dtype)
-    if gamma.shape != (n,) or dy.shape != x.shape:
-        raise ValueError(f"layer_norm_bwd: x {tuple(x.shape)}, dy "
-                         f"{tuple(dy.shape)}, gamma {tuple(gamma.shape)}")
-    if n > LAYER_NORM_BWD_MAX_N:
-        raise ValueError(f"layer_norm_bwd kernel keeps a row of dγ and a row "
-                         f"of dβ partials in shared memory: n <= "
-                         f"{LAYER_NORM_BWD_MAX_N}, got {n}")
+    dev = x.get_device()
+    if _bwd_refused(x, gamma, dy, dev, LAYER_NORM_BWD_MAX_N):
+        _refuse_bwd("layer_norm_bwd", x, gamma, dy,
+                    f"layer_norm_bwd kernel keeps a row of dγ and a row of dβ "
+                    f"partials in shared memory: n <= {LAYER_NORM_BWD_MAX_N}, "
+                    f"got {n}")
     rows = x.numel() // n if n else 0
     dx = torch.empty_like(x)
     dgb = torch.empty(2, n, device=x.device, dtype=gamma.dtype)
     nblk = max(1, min(rows, _BWD_BLOCKS))
     part = torch.empty(nblk, 2 * n, device=x.device, dtype=torch.float32)
-    built = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = built.lib.ds_layer_norm_bwd(
-            x.data_ptr(), gamma.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-            dgb.data_ptr(), part.data_ptr(), rows, n, nblk, float(eps),
-            KERNEL_DTYPES[x.dtype], stream)
-    check_launch(built, "layer_norm_bwd", code)
+    _launch("ds_layer_norm_bwd", _BWD_ARGS, "layer_norm_bwd", x.data_ptr(),
+            gamma.data_ptr(), dy.data_ptr(), dx.data_ptr(), dgb.data_ptr(),
+            part.data_ptr(), rows, n, nblk, eps, KERNEL_DTYPES[x.dtype],
+            raw_stream(dev), dev)
     layer_norm_bwd.launches += 1
     return dx, dgb[0], dgb[1]
 
@@ -305,7 +340,7 @@ layer_norm_bwd.launches = 0   # backward calls (two kernel launches each)
 
 
 def _layer_norm_fwd(x, gamma, beta, eps):
-    if use_kernel(x):
+    if x.is_cuda or use_kernel(x):
         return layer_norm_cuda(x, gamma, beta, eps)
     return layer_norm_plain(x, gamma, beta, eps)
 

@@ -1,19 +1,36 @@
 #!/usr/bin/env python3
-"""Time the LayerNorm backward of one checkout, and copies of
+"""Time the LayerNorm and RMSNorm kernels of one checkout, and copies of
 ``csrc/layer_norm.cu`` changed on purpose, on one CUDA card.
 
     python3 ln_bwd_probe.py [--tree DIR] [--variants [A,B]] [--label NAME]
+                            [--kernels fwd,bwd] [--check-only]
 
-Every build is timed at the training paths' shapes, bf16: gpt2-xl's
-[8192, 1600] and bloom-1b7's [8192, 2048] rows (x, dy; gamma of the row's
-width): the device time a call under the profiler, by kernel (the partials'
-launch and their ordered sum), the call under CUDA events, and the host's
-time a call, beside the bound (x and dy read once, dx written once) and
-the device time of ``torch.add(x, dy, out=...)``, PyTorch's elementwise
-kernel over the same bytes, as a yardstick of the rate such a stream
-reaches.
-Before it is timed, each build is held against the plain version (dx within
-2e-2, dγ and dβ within 2e-2 relative, a second call bit-equal).
+Every build is timed at the paths' shapes, bf16.
+
+- The forwards (``fwd``), through ``chip_smoke.norm_fwd_times``: LayerNorm
+  at gpt2-xl's decode and prefill rows [8, 1600] and [64, 1600] and the
+  training rows [8192, 1600] and bloom-1b7's [8192, 2048]; RMSNorm at
+  llama3-8b's [8, 4096] and [64, 4096], generate()'s prefill [1600, 4096]
+  and llama-1b4's training rows [8192, 2048].  For each: the device time a
+  launch under the profiler with x cycled through copies past the 50 MB L2
+  ("alone"), the device time a call replayed from a CUDA graph of 20 calls
+  on 20 copies (``graph_us``: the host's launches taken out, as a
+  host-bound decode loop cannot), the call under CUDA events, the host's
+  time a call, and the same four for ``F.layer_norm`` / ``F.rms_norm``,
+  beside the bound (x read once, y written once, the scale once).
+- The backwards (``bwd``): the LayerNorm backward at gpt2-xl's [8192, 1600]
+  and bloom-1b7's [8192, 2048] rows (x, dy; gamma of the row's width), and
+  the RMSNorm backward at llama-1b4's [8192, 2048]: the device time a call
+  under the profiler, by kernel (the partials' launch and their ordered
+  sum), the call under CUDA events, and the host's time a call, beside the
+  bound (x and dy read once, dx written once) and, for LayerNorm, the
+  device time of ``torch.add(x, dy, out=...)``, PyTorch's elementwise
+  kernel over the same bytes, as a yardstick of the rate such a stream
+  reaches.
+
+Before it is timed, each build is held against the plain version (y and dx
+within 2e-2, dγ and dβ within 2e-2 relative, a second call bit-equal);
+``--check-only`` prints ptxas's registers and spills, checks, and stops.
 
 ``--tree DIR`` imports ``deepspeed_tpu_torch`` from another checkout (an
 unpacked parent commit, built in DIR/build), so that two versions are
@@ -124,6 +141,43 @@ VARIANTS = {
 }
 VARIANTS["l2_ahead_hints"] = ("l2_ahead and stream_hints together",
                               VARIANTS["l2_ahead"][1] + VARIANTS["stream_hints"][1])
+_ROW_LOADS = ("      px[i] = xv[c];\n      pg[i] = gv[c];\n"
+              "      if constexpr (kLayer) pb[i] = bv[c];\n")
+_ROW_OUT = "    if (c < nv) yv[c] = norm_out<kLayer, T>(px[i], pg[i], pb[i], st);\n"
+_STREAM_OUT = ("        const P pb = sb[c];     // g read in place: a copy of both, 148 registers\n"
+               "        store_streaming(yv + c, norm_out<true, T>(cx[i], sg[c], pb, st));\n")
+# the forwards' variants (names start with fwd_)
+VARIANTS.update({
+    "fwd_two_trips": ("the row kernel asks for g and b after the statistics (the parent's "
+                      "order: two trips to memory a row)",
+                      [(_ROW_LOADS, "      px[i] = xv[c];\n"),
+                       (_ROW_OUT, "    if (c < nv) {\n      pg[i] = gv[c];\n"
+                        "      if constexpr (kLayer) pb[i] = bv[c];\n"
+                        "      yv[c] = norm_out<kLayer, T>(px[i], pg[i], pb[i], st);\n    }\n")]),
+    "fwd_row_vecs4": ("the row kernel's thread holds 4 vectors of a row, not 2",
+                      [("constexpr int kRowVecs = 2;", "constexpr int kRowVecs = 4;")]),
+    "fwd_row_vecs1": ("the row kernel's thread holds 1 vector of a row, not 2",
+                      [("constexpr int kRowVecs = 2;", "constexpr int kRowVecs = 1;")]),
+    "fwd_no_stream": ("LayerNorm's streaming kernel never taken: the row kernel at every "
+                      "row count",
+                      [("  if (n / Pack<T>::N <= 32 * kLaneVecs && rows > "
+                        "static_cast<long long>(sms) * kFwdWarps) {", "  if (false) {")]),
+    "fwd_no_prefetch": ("the streaming kernel loads each row's x when it reduces it, not a "
+                        "row ahead",
+                        [("    P nx[kLaneVecs];\n    if (r + stride < rows) load(r + stride, "
+                          "nx);\n", ""),
+                         ("#pragma unroll\n    for (int i = 0; i < kLaneVecs; ++i) cx[i] = "
+                          "nx[i];\n", "    if (r + stride < rows) load(r + stride, cx);\n")]),
+    "fwd_g_global": ("the streaming kernel reads g and b from global memory in every row, "
+                     "not staged in shared memory",
+                     [(_STREAM_OUT, "        const P pg = gv[c], pb = bv[c];\n"
+                       "        store_streaming(yv + c, norm_out<true, T>(cx[i], pg, pb, st));\n")]),
+    "fwd_stream_plain_store": ("the streaming kernel stores y without the streaming hint",
+                               [(_STREAM_OUT, "        const P pb = sb[c];\n"
+                                 "        yv[c] = norm_out<true, T>(cx[i], sg[c], pb, st);\n")]),
+    "fwd_warps4": ("streaming blocks of 4 warps",
+                   [("constexpr int kFwdWarps = 8;", "constexpr int kFwdWarps = 4;")]),
+})
 
 
 def chip_smoke():
@@ -172,15 +226,16 @@ def finish(procs):
 
 
 def ptxas_lines(lines):
-    """ptxas's registers and spills of the LayerNorm backward's kernels."""
+    """ptxas's registers and spills of the LayerNorm backward's kernels and
+    of both forwards'."""
     got, entry = [], ""
     for ln in lines:
         if "Compiling entry" in ln:
             entry = ln.split("'")[1] if "'" in ln else ln
-        elif ("layer_norm_bwd" in entry or "layer_norm_dgb" in entry) and \
+        elif any(k in entry for k in ("layer_norm_bwd", "layer_norm_dgb", "norm_fwd")) and \
                 ("Used" in ln or "spill" in ln):
             ty = " bf16" if "13__nv_bfloat16" in entry else " fp16" if "6__half" in entry else ""
-            name = re.search(r"\d(layer_norm_[a-z_]*?kernel)", entry)
+            name = re.search(r"\d((?:layer|rms)_norm_[a-z_]*?kernel)", entry)
             got.append(f"{name.group(1) if name else entry[:60]}{ty}: "
                        f"{ln.split(':')[-1].strip()}")
     return got
@@ -197,10 +252,37 @@ def use_library(path):
     build._BOUND.clear()
 
 
+def rms_bwd_measure(torch, cs, dev, checked):
+    """The RMSNorm backward at llama-1b4's [8192, 2048] rows, bf16: device us
+    a call by kernel, call ms, host us a call, the bound."""
+    from deepspeed_tpu_torch.ops.kernels import layer_norm as ln
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x, g, _, dy = cs._ln_inputs(torch, dev, gen, torch.bfloat16, (8192, 2048))
+    if checked:
+        got, again = ln.rms_norm_bwd_cuda(x, g, dy, 1e-5), ln.rms_norm_bwd_cuda(x, g, dy, 1e-5)
+        want = ln.rms_norm_bwd_plain(x, g, dy, 1e-5)
+        torch.cuda.synchronize()
+        cs.check(all(torch.equal(a, c) for a, c in zip(got, again)),
+                 "rms_norm_bwd: two calls differ")
+        cs._assert_close(torch, got[0], want[0], 2e-2, "rms_norm_bwd dx")
+        cs.check(cs._rel_err(got[1], want[1]) < 2e-2, "rms_norm_bwd dγ")
+
+    def call():
+        return ln.rms_norm_bwd_cuda(x, g, dy, 1e-5)
+    split = cs.kernel_split(torch, call, ("rms_norm_bwd_kernel", "rms_dg_reduce_kernel"),
+                            "rms_norm_bwd [8192,2048]", calls=50)
+    return {"8192x2048": {
+        "device_us": sum(split.values()), "split": split, "ms": cs.time_ms(torch, call),
+        "host_us": cs.host_us(torch, call, calls=1000),
+        "bound_us": cs.bound_ms((3 * x.numel() + 3 * 2048) * 2, 10 * x.numel())[0] * 1e3}}
+
+
 def measure(torch, cs, dev, checked, names):
-    """{shape: {"device_us", "split", "ms", "host_us", "bound_us"}} at each
-    SHAPES shape, bf16, the device time split over the kernels ``names``;
-    each held to the plain version first when ``checked``."""
+    """{shape: {"device_us", "split", "ms", "host_us", "bound_us"}} of the
+    LayerNorm backward at each SHAPES shape, bf16, the device time split
+    over the kernels ``names``; each held to the plain version first when
+    ``checked``."""
     from deepspeed_tpu_torch.ops.kernels import layer_norm as ln
 
     out = {}
@@ -242,6 +324,11 @@ def main():
     ap.add_argument("--variants", nargs="?", const=",".join(VARIANTS), default="",
                     help="also build and time these variants of csrc/layer_norm.cu "
                          "(comma separated; all without a list)")
+    ap.add_argument("--kernels", default="fwd,bwd",
+                    help="fwd (both forwards), bwd (both backwards), or both")
+    ap.add_argument("--check-only", action="store_true",
+                    help="print ptxas's lines, hold each build to the plain "
+                         "versions at the path shapes, and stop")
     ap.add_argument("--label", default=None)
     args = ap.parse_args()
     tree = Path(args.tree).resolve() if args.tree else ROOT
@@ -265,6 +352,7 @@ def main():
     libs = finish(procs)
     print(f"built in {time.perf_counter() - t0:.1f} s", flush=True)
     res = {"card": card, "tree": str(tree)}
+    kinds = args.kernels.split(",")
     # the partials' sum: its own kernel since the warp kernel came, RMSNorm's before
     sums = ("layer_norm_dgb_sum_kernel"
             if "layer_norm_dgb_sum_kernel" in (tree / "deepspeed_tpu_torch" / "csrc" /
@@ -278,18 +366,66 @@ def main():
         for ln in ptx:
             print(f"  ptxas {ln}", flush=True)
         checked = path is None or VARIANTS[name][2:] != (True,)
-        names = ("layer_norm_bwd_",) if name == "no_sum" else ("layer_norm_bwd_", sums)
-        res[name] = {"ptxas": ptx, **measure(torch, cs, dev, checked, names)}
-        for shape, r in res[name].items():
-            if shape == "ptxas":
-                continue
-            print(f"  {shape}: device {r['device_us']:.3f} us a call ("
-                  + ", ".join(f"{k} {v:.3f}" for k, v in r["split"].items())
-                  + f"), bound {r['bound_us']:.3f} us ({100 * r['bound_us'] / r['device_us']:.1f}"
-                  f" %), torch.add of the same bytes {r['add_us']:.3f} us, call "
-                  f"{r['ms']:.5f} ms, host {r['host_us']:.3f} us a call", flush=True)
+        row = res[name] = {"ptxas": ptx}
+        if args.check_only:
+            check_all(torch, cs, dev)
+            continue
+        if "fwd" in kinds and (path is None or name.startswith("fwd_") or name == "repeat"):
+            for kind in ("layer_norm", "rms_norm"):
+                row[kind] = cs.norm_fwd_times(torch, dev, kind, checked)
+        if "bwd" in kinds and not name.startswith("fwd_"):
+            names = ("layer_norm_bwd_",) if name == "no_sum" else ("layer_norm_bwd_", sums)
+            row["layer_norm_bwd"] = measure(torch, cs, dev, checked, names)
+            for shape, r in row["layer_norm_bwd"].items():
+                print(f"  layer_norm_bwd {shape}: device {r['device_us']:.3f} us a call ("
+                      + ", ".join(f"{k} {v:.3f}" for k, v in r["split"].items())
+                      + f"), bound {r['bound_us']:.3f} us ("
+                      f"{100 * r['bound_us'] / r['device_us']:.1f} %), torch.add of the same "
+                      f"bytes {r['add_us']:.3f} us, call {r['ms']:.5f} ms, host "
+                      f"{r['host_us']:.3f} us a call", flush=True)
+            if path is None:
+                row["rms_norm_bwd"] = rms_bwd_measure(torch, cs, dev, checked)
+                r = row["rms_norm_bwd"]["8192x2048"]
+                print(f"  rms_norm_bwd 8192x2048: device {r['device_us']:.3f} us a call, bound "
+                      f"{r['bound_us']:.3f} us, call {r['ms']:.5f} ms, host "
+                      f"{r['host_us']:.3f} us a call", flush=True)
     (outdir / f"{label}.json").write_text(json.dumps(res, indent=1))
     print(f"ln_bwd_probe {label}: ok", flush=True)
+
+
+def check_all(torch, cs, dev):
+    """Both forwards at their path shapes, fp32, bf16 and fp16, and both
+    backwards at the training shapes, against their plain versions; a second
+    call bit-equal."""
+    from deepspeed_tpu_torch.ops.kernels import layer_norm as ln
+
+    tol = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 2.5e-3}
+    for dt in tol:
+        for kind, shapes in cs.NORM_FWD_SHAPES.items():
+            layer = kind == "layer_norm"
+            cuda, plain = ((ln.layer_norm_cuda, ln.layer_norm_plain) if layer
+                           else (ln.rms_norm_cuda, ln.rms_norm_plain))
+            n = shapes[0][1]
+            for shape in (*shapes, (133, n), (1, n), (7, 100)):
+                gen = torch.Generator(device=dev).manual_seed(1)
+                x, g, b, _ = cs._ln_inputs(torch, dev, gen, dt, shape)
+                args = (g, b) if layer else (g,)
+                got, again = cuda(x, *args, 1e-5), cuda(x, *args, 1e-5)
+                torch.cuda.synchronize()
+                cs.check(torch.equal(got, again), f"{kind} {dt} {shape}: two calls differ")
+                e = cs._assert_close(torch, got, plain(x, *args, 1e-5), tol[dt],
+                                     f"{kind} {dt} {shape}")
+                print(f"  check {kind} {dt} {list(shape)}: max abs err {e:.3g}, "
+                      "second call bit-equal", flush=True)
+        for shape in SHAPES:
+            gen = torch.Generator(device=dev).manual_seed(2)
+            x, g, _, dy = cs._ln_inputs(torch, dev, gen, dt, shape)
+            got, want = ln.layer_norm_bwd_cuda(x, g, dy, 1e-5), ln.layer_norm_bwd_plain(x, g, dy, 1e-5)
+            e = cs._assert_close(torch, got[0], want[0], tol[dt], f"layer_norm_bwd {dt} {shape}")
+            got, want = ln.rms_norm_bwd_cuda(x, g, dy, 1e-5), ln.rms_norm_bwd_plain(x, g, dy, 1e-5)
+            e2 = cs._assert_close(torch, got[0], want[0], tol[dt], f"rms_norm_bwd {dt} {shape}")
+            print(f"  check layer_norm_bwd / rms_norm_bwd {dt} {list(shape)}: dx max abs err "
+                  f"{e:.3g} / {e2:.3g}", flush=True)
 
 
 if __name__ == "__main__":

@@ -74,13 +74,28 @@ def _randn(shape, seed, dtype, dev, scale=1.0):
     return (torch.from_numpy(a) * scale).to(device=dev, dtype=dtype)
 
 
+# the forwards' row counts: one row, decode (8 slots), a prefill chunk (64),
+# one past a wave of 132 SMs, generate()'s prefill (8 x 200), a count that
+# does not divide into the streaming blocks' warps, the training rows; and
+# widths: gpt2-xl's, llama-1b4's and bloom-1b7's, llama3-8b's
+_NORM_ROWS = (1, 8, 64, 133, 1600, 4099, 8192)
+_NORM_WIDTHS = (1600, 2048, 4096)
+_NORM_SHAPES = [(r, n) for r in _NORM_ROWS for n in _NORM_WIDTHS]
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(8, 4096), (64, 4096), (8192, 2048),
-                                   (3, 5, 4096), (7, 100)])
+                                   (3, 5, 4096), (7, 100)]
+                         + [s for s in _NORM_SHAPES
+                            if s not in ((8, 4096), (64, 4096), (8192, 2048))]
+                         + [(3, 20000), (5, 4100), (1, 8)])
 def test_rms_norm_kernel_matches_plain(cuda_device, dtype, shape):
     """Path shapes (decode rows = num_slots, prefill rows = chunk, llama-1b4
-    training rows = micro * S) plus an odd row length that takes the
-    element-by-element path."""
+    training rows = micro * S), every row count of _NORM_ROWS at every width
+    of _NORM_WIDTHS (a block of warps a row), an odd row length (the
+    element-by-element path), rows past 16 warps' registers (20000) and
+    4100, which is 16-byte vectors in fp32 only; a second call gives the
+    same bits."""
     x = _randn(shape, 0, dtype, cuda_device, 3.0)
     g = _randn(shape[-1:], 1, dtype, cuda_device) * 0.1 + 1
     before = tln.rms_norm.launches
@@ -91,6 +106,7 @@ def test_rms_norm_kernel_matches_plain(cuda_device, dtype, shape):
     assert got.dtype == dtype and got.shape == x.shape
     torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
                                atol=TOL[dtype])
+    assert torch.equal(got, tln.rms_norm(x, g, eps=1e-5))
 
 
 def test_rms_norm_kernel_refuses_bad_inputs(cuda_device):
@@ -1163,12 +1179,17 @@ def test_fp16_overflow_skip_on_card(cuda_device):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(8192, 1600), (8, 1600), (64, 768),
                                    (7, 40), (13, 2048), (5, 100),
-                                   (3, 5, 4096)])
+                                   (3, 5, 4096)]
+                         + [s for s in _NORM_SHAPES if s not in ((8192, 1600), (8, 1600))]
+                         + [(4099, 2056), (1, 8)])
 def test_layer_norm_kernel_matches_plain(cuda_device, dtype, shape):
     """gpt2-xl's training rows and decode rows, gpt2-small's width, a row
-    shorter than a warp's vectors and a ragged row count (one warp per
-    row), then the block-per-row path: a row length that is no multiple of
-    the vector, and one longer than a warp holds."""
+    shorter than a warp's vectors and a ragged row count, every row count
+    of _NORM_ROWS at every width of _NORM_WIDTHS (rows of up to 2048
+    elements in registers: a block of warps a row, or the streaming warps
+    past one block an SM), then the block-per-row path: a row length that
+    is no multiple of the vector (also at many rows), and rows longer than
+    2048; a second call gives the same bits."""
     x = _randn(shape, 0, dtype, cuda_device, 3.0) + 1.5
     g = _randn(shape[-1:], 1, dtype, cuda_device) * 0.1 + 1
     b = _randn(shape[-1:], 2, dtype, cuda_device) * 0.1
@@ -1176,6 +1197,149 @@ def test_layer_norm_kernel_matches_plain(cuda_device, dtype, shape):
     want = tln.layer_norm_plain(x, g, b, eps=1e-5)
     assert got.dtype == dtype and got.shape == x.shape
     _close(got, want, TOL[dtype])
+    assert torch.equal(got, tln.layer_norm(x, g, b, eps=1e-5))
+
+
+def test_layer_norm_lean_path_keeps_every_refusal(cuda_device):
+    """The one-pass attribute test of the LayerNorm call's lean host path
+    falls back on the shared checks, so each refusal raises what it raised
+    before, and no kernel is launched: a non-contiguous x, gamma or beta, a
+    gamma or beta of another dtype or shape, a gamma or beta on the CPU
+    beside a CUDA x, an x of no kernel dtype, an x on the CPU."""
+    bf = torch.bfloat16
+    x = torch.ones(4, 64, device=cuda_device, dtype=bf)
+    g = torch.ones(64, device=cuda_device, dtype=bf)
+    strided = torch.ones(64, 2, device=cuda_device, dtype=bf)[:, 0]
+    before = tln.layer_norm.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        tln.layer_norm(torch.ones(64, 4, device=cuda_device, dtype=bf).t(), g, g)
+    with pytest.raises(ValueError, match="contiguous"):
+        tln.layer_norm(x, strided, g)
+    with pytest.raises(ValueError, match="contiguous"):
+        tln.layer_norm(x, g, strided)
+    with pytest.raises(TypeError, match="expected dtype"):
+        tln.layer_norm(x, g.float(), g)
+    with pytest.raises(TypeError, match="expected dtype"):
+        tln.layer_norm(x, g, g.float())
+    for bad in (torch.ones(65, device=cuda_device, dtype=bf),
+                torch.ones(1, 64, device=cuda_device, dtype=bf)):
+        with pytest.raises(ValueError, match="must be"):
+            tln.layer_norm(x, bad, g)
+        with pytest.raises(ValueError, match="must be"):
+            tln.layer_norm(x, g, bad)
+    with pytest.raises(ValueError, match="expected a tensor on"):
+        tln.layer_norm(x, g.cpu(), g)
+    with pytest.raises(ValueError, match="expected a tensor on"):
+        tln.layer_norm(x, g, g.cpu())
+    with pytest.raises(TypeError, match="not supported"):
+        tln.layer_norm(x.to(torch.int32), g.to(torch.int32), g.to(torch.int32))
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        tln.layer_norm_cuda(x.cpu(), g, g)
+    assert tln.layer_norm.launches == before
+
+
+def test_layer_norm_launches_on_the_current_stream(cuda_device):
+    """Under torch.cuda.stream(s) the kernel goes to s: behind a long sleep
+    on s, x is written on s and normalised on s, so the output recorded on
+    s holds x's norm (on another stream the kernel would have read the
+    zeros that x held before); at decode rows and at training rows."""
+    for shape in ((8, 1600), (8192, 1600)):
+        src = _randn(shape, 0, torch.bfloat16, cuda_device, 3.0) + 1.5
+        g = _randn(shape[-1:], 1, torch.bfloat16, cuda_device) * 0.1 + 1
+        b = _randn(shape[-1:], 2, torch.bfloat16, cuda_device) * 0.1
+        x = torch.zeros_like(src)
+        torch.cuda.synchronize()
+        s = torch.cuda.Stream()
+        with torch.cuda.stream(s):
+            torch.cuda._sleep(50_000_000)
+            x.copy_(src)
+            y = _counted(tln.layer_norm, x, g, b, eps=1e-5)
+            done = s.record_event()
+        done.synchronize()
+        _close(y, tln.layer_norm_plain(src, g, b, 1e-5), TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("kind", ["layer_norm", "rms_norm"])
+def test_norm_forwards_launch_their_kernels(cuda_device, kind):
+    """Rows in 16-byte vectors that fit in registers take the row kernel, or
+    for LayerNorm over more rows of up to a warp's width than 8 an SM the
+    streaming kernel; the other rows the block-per-row kernels, never the
+    register ones."""
+    dev = cuda_device
+    layer = kind == "layer_norm"
+    fn = getattr(tln, kind)
+    row = f"{kind}_fwd_row_kernel"
+    stream = "layer_norm_fwd_stream_kernel" if layer else row
+    block = "layer_norm_fwd_block_kernel" if layer else "rms_norm_fwd_kernel"
+    cases = [((8, 1600), torch.bfloat16, row), ((64, 2048), torch.bfloat16, row),
+             ((8192, 1600), torch.bfloat16, stream), ((8192, 2048), torch.float16, stream),
+             ((8192, 1600), torch.float32, row), ((7, 100), torch.bfloat16, block),
+             ((8, 4096), torch.bfloat16, block if layer else row),
+             ((1600, 4096), torch.bfloat16, block if layer else row),
+             ((3, 20000), torch.bfloat16, block)]
+    for shape, dtype, want in cases:
+        x = _randn(shape, 0, dtype, dev)
+        g = torch.ones(shape[-1], device=dev, dtype=dtype)
+        args = (g, g) if layer else (g,)
+        names, _ = _profiled_kernels(lambda: fn(x, *args, eps=1e-5), (f"{kind}_fwd_",))
+        names = [k for k in names if f"{kind}_fwd_" in k]
+        assert len(names) == 1 and want in names[0], (shape, dtype, names)
+
+
+@pytest.mark.parametrize("kind", ["layer_norm_bwd", "rms_norm_bwd"])
+def test_norm_backward_lean_paths_keep_every_refusal(cuda_device, kind):
+    """The backwards' one-pass attribute test falls back on the shared
+    checks: each refusal raises what it raised before, with no launch."""
+    bf = torch.bfloat16
+    fn = getattr(tln, kind)
+    cuda = getattr(tln, kind + "_cuda")
+    x = torch.ones(4, 64, device=cuda_device, dtype=bf)
+    g = torch.ones(64, device=cuda_device, dtype=bf)
+    before = fn.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        fn(torch.ones(64, 4, device=cuda_device, dtype=bf).t(), g, x)
+    with pytest.raises(ValueError, match="contiguous"):
+        fn(x, g, torch.ones(64, 4, device=cuda_device, dtype=bf).t())
+    with pytest.raises(TypeError, match="expected dtype"):
+        fn(x, g.float(), x)
+    with pytest.raises(TypeError, match="expected dtype"):
+        fn(x, g, x.float())
+    with pytest.raises(ValueError, match="gamma"):
+        fn(x, torch.ones(65, device=cuda_device, dtype=bf), x)
+    with pytest.raises(ValueError, match="dy"):
+        fn(x, g, torch.ones(5, 64, device=cuda_device, dtype=bf))
+    with pytest.raises(ValueError, match="expected a tensor on"):
+        fn(x, g.cpu(), x)
+    with pytest.raises(ValueError, match="expected a tensor on"):
+        fn(x, g, x.cpu())
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        cuda(x.cpu(), g, x)
+    wide = 6152 if kind == "layer_norm_bwd" else 12296
+    xw = torch.ones(2, wide, device=cuda_device, dtype=bf)
+    with pytest.raises(ValueError, match=str(wide - 8)):
+        fn(xw, torch.ones(wide, device=cuda_device, dtype=bf), xw)
+    assert fn.launches == before
+
+
+@pytest.mark.parametrize("kind", ["layer_norm_bwd", "rms_norm_bwd"])
+def test_norm_backwards_launch_on_the_current_stream(cuda_device, kind):
+    """The backwards' launches go to the current stream: behind a long
+    sleep on s, dy is written on s and the backward reads it there."""
+    x = _randn((8192, 2048), 0, torch.bfloat16, cuda_device, 3.0) + 1.5
+    g = _randn((2048,), 1, torch.bfloat16, cuda_device) * 0.1 + 1
+    src = _randn((8192, 2048), 2, torch.bfloat16, cuda_device)
+    dy = torch.zeros_like(src)
+    torch.cuda.synchronize()
+    s = torch.cuda.Stream()
+    with torch.cuda.stream(s):
+        torch.cuda._sleep(50_000_000)
+        dy.copy_(src)
+        got = _counted(getattr(tln, kind), x, g, dy, eps=1e-5)
+        done = s.record_event()
+    done.synchronize()
+    want = getattr(tln, kind + "_plain")(x, g, src, 1e-5)
+    _close(got[0], want[0], TOL[torch.bfloat16])
+    assert _rel_err(got[1], want[1]) < GRAD_REL_TOL[torch.bfloat16]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -1489,6 +1653,10 @@ def test_gpt2_xl_training_kernels_follow_plain_versions(cuda_device, monkeypatch
         if plain:
             for mod in (tln, trope, tfa, tadam):
                 monkeypatch.setattr(mod, "use_kernel", lambda t: False)
+            # the norms' forwards test x.is_cuda before use_kernel (their
+            # lean host path): their dispatch goes to the plain versions too
+            monkeypatch.setattr(tln, "_layer_norm_fwd", tln.layer_norm_plain)
+            monkeypatch.setattr(tln, "_rms_norm_fwd", tln.rms_norm_plain)
         model = deepspeed_tpu_torch.causal_lm("gpt2-xl", seed=0)
         engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=cfg)
         gen = torch.Generator(device=cuda_device).manual_seed(0)
@@ -1810,13 +1978,18 @@ def _profiled_kernels(fn, want=(), sessions=4):
     """The names of the kernels a call of ``fn`` ran on the card, under
     torch.profiler, and the calls made.  On the H100 a session now and then
     comes back without some or all of its kernels' records (chip_smoke.py's
-    ``kernel_split`` takes such a session again too), so a session whose
-    names miss one of ``want`` is taken again, with a new call, up to
-    ``sessions`` calls in all."""
+    ``kernel_split`` takes such a session again too; in the failures seen,
+    the call's first kernel was among the records lost), so each session
+    launches a small fill first, and a session whose names miss one of
+    ``want`` is taken again, with a new call, up to ``sessions`` calls in
+    all."""
     from torch.profiler import ProfilerActivity, profile
 
+    marker = torch.empty(1, device="cuda")
     for calls in range(1, sessions + 1):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            marker.fill_(0.0)
+            torch.cuda.synchronize()
             fn()
             torch.cuda.synchronize()
         names = [e.key for e in prof.key_averages() if e.self_device_time_total > 0]
