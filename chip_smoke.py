@@ -6,12 +6,12 @@
 Needs one CUDA card, nvcc and triton; imports nothing of JAX.  Phases
 (each one raises, and the script exits non-zero, on any failure):
 
-1. build   — compile the seven CUDA libraries (LayerNorm and RMSNorm
-             fwd/bwd; the fused decode kernels with their contiguous-cache
-             and int8-weight variants, the largest build; flash attention
-             fwd/bwd; fused Adam; the block quantizer; fused Adam8bit; the
-             LAMB phases), one nvcc each, started together, while
-             Triton compiles the RoPE, softmax and bias_act kernels; print
+1. build   — compile the eight CUDA libraries (LayerNorm and RMSNorm
+             fwd/bwd; RoPE; the fused decode kernels with their
+             contiguous-cache and int8-weight variants, the largest build;
+             flash attention fwd/bwd; fused Adam; the block quantizer; fused
+             Adam8bit; the LAMB phases), one nvcc each, started together,
+             while Triton compiles the softmax and bias_act kernels; print
              build seconds and the ptxas register / shared-memory / spill
              lines (and any wgmma serialization warning; each kernel by
              its name and template arguments, the flash kernels' ALiBi
@@ -26,10 +26,20 @@ Needs one CUDA card, nvcc and triton; imports nothing of JAX.  Phases
              1..1024 across page boundaries and on its chunk edges, 2047 keys
              of a 2048-token window, a shuffled page table, 256- and 16-token
              pages, bit-equal on a repeat),
+             every RoPE form (x [..., S, D], q and k in the projections'
+             layout with one table or per-row tables, the backward, the
+             fused decode's QKV rows) bit-equal to its plain version in
+             fp32, bf16 and fp16, with fp32 tables and tables in x's dtype,
+             both signs, partial rd and strided views, and on a repeat;
              then CUDA-event timings (median of 50 samples of 20 calls;
              the GEMV kernels cycle through enough weight copies to miss
-             the 50 MB L2, as 32 layers do; RoPE also at the training
-             shape [4, 16, 2048, 128]) beside the plain version, the
+             the 50 MB L2, as 32 layers do; RoPE at its four path shapes,
+             the serve prefill's q + k [1, 64, 32 + 8, 128], generate()'s
+             prefill [8, 256, 32 + 8, 128], a decode step's QKV rows
+             [8, 32 + 8, 128] and llama-1b4's q + k [4, 2048, 16 + 16, 128]
+             forward and backward: device us alone and from a CUDA graph,
+             call ms, host us a call, ``copy_`` of the same bytes, the
+             bound) beside the plain version, the
              PyTorch library call where one exists, ``torch.matmul`` of
              the same activations and weights as a yardstick for the three
              GEMV kernels, and the bound (norm_qkv and proj_norm also at
@@ -45,8 +55,8 @@ Needs one CUDA card, nvcc and triton; imports nothing of JAX.  Phases
              a [24, 2048, 5632] leaf, three steps), fp32 and bf16, plus a
              ragged S, with bit-equal repeats of each backward, and the
              serving kernels at the training shapes (RMSNorm fwd on
-             [8192, 2048], RoPE on [4, 16, 2048, 128] with sin and with
-             the backward's -sin); then the flash kernels' ALiBi
+             [8192, 2048], RoPE on q and k [4, 2048, 16 + 16, 128] forward
+             and backward, bit-equal); then the flash kernels' ALiBi
              instances against the plain version with the JAX ALiBi bias:
              bloom-1b7's training shape [4, 16, 2048, 128] bf16, and 12
              heads (interpolated slopes) at head dims 64 and 32 and a
@@ -341,7 +351,7 @@ def kernel_label(entry):
 
 def phase_build(torch, dev):
     from deepspeed_tpu_torch.ops.kernels import build
-    from deepspeed_tpu_torch.ops.kernels import rope, softmax
+    from deepspeed_tpu_torch.ops.kernels import softmax
 
     results = {}
 
@@ -353,17 +363,12 @@ def phase_build(torch, dev):
             results[name] = e
         results[name + "_s"] = time.perf_counter() - t0
 
-    libs = ("layer_norm", "decode", "flash_attention", "fused_adam",
+    libs = ("layer_norm", "rope", "decode", "flash_attention", "fused_adam",
             "quantizer", "fused_adam8bit", "fused_lamb")
     threads = [threading.Thread(target=cuda_build, args=(n,)) for n in libs]
     for th in threads:
         th.start()
-    t0 = time.perf_counter()
-    x = torch.ones(1, 1, 8, 128, device=dev, dtype=torch.bfloat16)
     c = torch.ones(8, 64, device=dev, dtype=torch.bfloat16)
-    rope.rope_triton(x, c, c)
-    torch.cuda.synchronize()
-    triton_s = time.perf_counter() - t0
     t1 = time.perf_counter()
     softmax.scaled_masked_softmax_triton(c, c, 1.0)
     softmax.scaled_masked_softmax_triton(c)
@@ -405,10 +410,9 @@ def phase_build(torch, dev):
             print("  dynamic shared memory a block of the wgmma kernels: " + "; ".join(
                 f"D {d}: forward {fwd(d)} B, dQ {bwd(d, 0)} B, dK/dV {bwd(d, 1)} B"
                 for d in (32, 64, 128)))
-    print(f"build: triton rope compile+first launch {triton_s:.2f}s; softmax "
-          f"(with and without a mask) and bias_act {ops_s:.2f}s")
+    print(f"build: triton softmax (with and without a mask) and bias_act "
+          f"compile+first launch {ops_s:.2f}s")
     out = {name: results[name + "_s"] for name in libs}
-    out["rope"] = triton_s
     out["softmax"] = ops_s
     out["flash_ptxas"] = flash_ptxas
     return out
@@ -470,9 +474,9 @@ def _check_moved(torch, p, p0, what):
 def check_old_kernels(torch, dev, gen):
     """RMSNorm and RoPE against their plain versions, fp32, bf16 and fp16;
     bf16 and fp16 max abs errors."""
-    from deepspeed_tpu_torch.ops.kernels import layer_norm, rope
+    from deepspeed_tpu_torch.ops.kernels import layer_norm
 
-    errs = {"rms_norm": 0.0, "rope": 0.0, "rms_norm_f16": 0.0, "rope_f16": 0.0}
+    errs = {"rms_norm": 0.0, "rms_norm_f16": 0.0}
     for dtype_name in ("float32", "bfloat16", "float16"):
         dt = getattr(torch, dtype_name)
         for rows in (8, 64):
@@ -487,19 +491,105 @@ def check_old_kernels(torch, dev, gen):
             if dtype_name != "float32":
                 key = "rms_norm" + ("_f16" if dtype_name == "float16" else "")
                 errs[key] = max(errs[key], e)
-        for heads in (H, HKV):
-            x = _randn(torch, (1, heads, 64, DH), gen, dev).to(dt)
-            cos, sin = rope.rope_angles(torch.arange(64, device=dev), DH,
-                                        theta=500000.0)
-            cos, sin = cos.to(dt), sin.to(dt)
-            y = rope.rope_triton(x, cos, sin)
-            torch.cuda.synchronize()
-            e = _assert_close(torch, y, rope.rope_plain(x, cos, sin),
-                              TOL[dtype_name], f"rope {dtype_name}")
-            if dtype_name != "float32":
-                key = "rope" + ("_f16" if dtype_name == "float16" else "")
-                errs[key] = max(errs[key], e)
+    errs.update(check_rope(torch, dev, gen))
     return errs
+
+
+def _rope_equal(torch, got, want, what):
+    """The RoPE kernel's outputs ``got`` equal to the plain version's
+    ``want`` bit for bit (each operation rounded as the plain one rounds
+    it), contiguous; their max abs difference (0)."""
+    for g, w in zip(got, want):
+        check(g.shape == w.shape and g.is_contiguous(),
+              f"{what}: {tuple(g.shape)} against {tuple(w.shape)}")
+        check(torch.equal(g, w), f"{what}: not bit-equal to the plain version, "
+              f"max abs diff {float((g.float() - w.float()).abs().max()):.3g}")
+    return 0.0
+
+
+def check_rope(torch, dev, gen):
+    """Every RoPE form against its plain version with ``torch.equal``, fp32,
+    bf16 and fp16, tables in fp32 and in x's dtype, at the paths' heads
+    (llama3-8b's 32 + 8 of 128; llama-tiny's 8 + 4 of 32; 64-wide heads) and
+    a ragged one (48 wide, rd 24: the element-by-element instance), the
+    whole head and a quarter of it rotated (gpt-neox rotary_pct 0.25):
+    ``partial_rope`` on [B, H, S, D] tensors and strided views, both signs;
+    ``rope_qk`` from the projections' [B, S, Hx, D] views with one table
+    and with per-row tables, and its backward; ``rope_qkv_rows`` on a
+    decode step's QKV rows at a scalar and at per-row positions; each
+    call's outputs equal to a second call's.  The decode rows also through
+    a CUDA graph.  Returns the max abs errors (0 when all hold)."""
+    from deepspeed_tpu_torch.ops.kernels import rope
+
+    n = 0
+    for dtype_name in ("float32", "bfloat16", "float16"):
+        dt = getattr(torch, dtype_name)
+        for (b, s, h, hk, d, rd) in ((1, 64, H, HKV, DH, DH), (8, 1, H, HKV, DH, DH),
+                                     (2, 33, 8, 4, 32, 32), (2, 17, 4, 4, 64, 16),
+                                     (2, 9, 3, 1, 128, 32), (3, 5, 2, 1, 48, 24)):
+            for tdt in (dt,) if dt is torch.float32 else (dt, torch.float32):
+                what = (f"rope {dtype_name} [{b}, {s}, {h}+{hk}, {d}] rd {rd}, "
+                        f"{str(tdt)[6:]} table")
+                cos, sin = rope.rope_angles(torch.arange(7, 7 + s, device=dev), rd,
+                                            theta=500000.0)
+                cos, sin = cos.to(tdt), sin.to(tdt)
+                q = _randn(torch, (b, s, h * d), gen, dev).to(dt).view(b, s, h, d)
+                k = _randn(torch, (b, s, hk * d), gen, dev).to(dt).view(b, s, hk, d)
+                for neg in (False, True):
+                    sn = -sin if neg else sin
+                    for x in (q.transpose(1, 2), q.transpose(1, 2).contiguous()):
+                        got = rope.partial_rope_cuda(x, cos, sin, neg)
+                        _rope_equal(torch, (got, rope.partial_rope_cuda(x, cos, sin, neg)),
+                                    (rope.partial_rope_plain(x, cos, sn),) * 2,
+                                    f"{what} partial_rope neg={neg}")
+                        n += 1
+                got = rope.rope_qk_cuda(q, k, cos, sin)
+                _rope_equal(torch, got + rope.rope_qk_cuda(q, k, cos, sin),
+                            rope.rope_qk_plain(q, k, cos, sin) * 2, f"{what} rope_qk")
+                dq = _randn(torch, (b, h, s, d), gen, dev).to(dt)
+                dk = _randn(torch, (b, s, hk, d), gen, dev).to(dt).transpose(1, 2)
+                got = rope.rope_qk_cuda(dq, dk, cos, sin, backward=True)
+                want = tuple(rope.partial_rope_plain(g, cos, -sin).transpose(1, 2)
+                             .contiguous() for g in (dq, dk))
+                again = rope.rope_qk_cuda(dq, dk, cos, sin, backward=True)
+                _rope_equal(torch, got + again, want * 2, f"{what} rope_qk backward")
+                pos = torch.randint(0, 4000, (b, s), device=dev, generator=gen)
+                pc, ps = rope.rope_angles(pos.reshape(-1), rd, theta=500000.0)
+                pc, ps = (t.reshape(b, s, -1).to(tdt) for t in (pc, ps))
+                _rope_equal(torch, rope.rope_qk_cuda(q, k, pc, ps),
+                            rope.rope_qk_plain(q, k, pc, ps), f"{what} rope_qk per-row")
+                got = rope.rope_qk_cuda(dq, dk, pc, ps, backward=True)
+                want = tuple(rope.rope_rows_plain(g, pc, -ps).transpose(1, 2).contiguous()
+                             for g in (dq, dk))
+                _rope_equal(torch, got, want, f"{what} rope_qk per-row backward")
+                qkv = _randn(torch, (b, (h + 2 * hk) * d), gen, dev).to(dt)
+                for rows in (1, b) if b > 1 else (1,):
+                    c1, s1 = (t.to(tdt) for t in rope.rope_angles(
+                        pos[:rows, 0], rd, theta=500000.0))
+                    got = rope.rope_qkv_rows_cuda(qkv, c1, s1, h, hk, d)
+                    wq, wk = rope.rope_qkv_rows_plain(qkv, c1, s1, h, hk, d)
+                    _rope_equal(torch, got + rope.rope_qkv_rows_cuda(qkv, c1, s1, h, hk, d),
+                                (wq, wk.contiguous()) * 2,
+                                f"{what} rope_qkv_rows, {rows} table rows")
+                n += 6
+    # the decode rows replayed from a CUDA graph: the same bits as eagerly
+    qkv = _randn(torch, (B, NQKV), gen, dev).to(torch.bfloat16)
+    c1, s1 = rope.rope_angles(torch.arange(B, device=dev) * 97, DH, theta=500000.0)
+    want = rope.rope_qkv_rows_cuda(qkv, c1, s1, H, HKV, DH)
+    st = torch.cuda.Stream()
+    st.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(st):
+        rope.rope_qkv_rows_cuda(qkv, c1, s1, H, HKV, DH)
+    torch.cuda.current_stream().wait_stream(st)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=st):
+        got = rope.rope_qkv_rows_cuda(qkv, c1, s1, H, HKV, DH)
+    g.replay()
+    torch.cuda.synchronize()
+    _rope_equal(torch, got, want, "rope_qkv_rows replayed from a CUDA graph")
+    print(f"kernels: rope, {n} form x shape x dtype x table cases and a CUDA-graph "
+          f"replay, each bit-equal to its plain version and to a second call")
+    return {"rope": 0.0, "rope_f16": 0.0}
 
 
 # the decode shapes of the two served models (8 slots each): widths, heads,
@@ -875,10 +965,107 @@ def norm_fwd_times(torch, dev, kind, checked=True):
     return out
 
 
+# RoPE's path shapes, bf16: (name, B, S, H, Hkv, form): the serve phase's
+# prefill chunk and generate()'s padded prefill (8 prompts of 200 in the 256
+# bucket) at llama3-8b's heads, a decode step's QKV rows (8 slots, per-row
+# positions, fp32 tables), llama-1b4's training q and k, forward and backward
+ROPE_SHAPES = (("serve_prefill", 1, 64, 32, 8, "qk"),
+               ("generate_prefill", 8, 256, 32, 8, "qk"),
+               ("decode_rows", 8, 1, 32, 8, "rows"),
+               ("train", 4, 2048, 16, 16, "qk"),
+               ("train_bwd", 4, 2048, 16, 16, "bwd"))
+
+
+def rope_times(torch, dev):
+    """The RoPE kernel at each ROPE_SHAPES shape (head dim 128), bf16:
+    {name: {...}} with the device us a launch under the profiler with the
+    inputs cycled through copies past the 50 MB L2 ("alone"), the device us
+    a call replayed from a CUDA graph of 20 calls on 20 copies
+    (``graph_us``), the call under CUDA events (``ms``), the host's us a
+    call, the plain version's call (``plain_ms``; not at the training
+    shape), the bound (q and k read once and written once, the cos and sin
+    rows read once) and, as a yardstick of the rate a stream of those bytes
+    reaches, the device us of ``copy_`` of q's and k's bytes.  Each form is
+    held to its plain version first (bit-equal, a second call too)."""
+    from deepspeed_tpu_torch.ops.kernels import rope
+
+    bf = torch.bfloat16
+    out = {}
+    for name, b, s, h, hk, form in ROPE_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        d = DH
+        elems = b * s * (h + hk) * d            # q's and k's elements
+        copies = max(2, min(2048, -(-128 * 2 ** 20 // (elems * 2))))
+        if form == "rows":
+            pos = torch.arange(b, device=dev) * 37 + 100
+            cos, sin = rope.rope_angles(pos, d, theta=500000.0)       # fp32
+            xs = [(x,) for x in _randn(torch, (copies, b, (h + 2 * hk) * d), gen,
+                                        dev).to(bf)]
+
+            def fn(x):
+                return rope.rope_qkv_rows(x, cos, sin, h, hk, d)
+
+            def plain(x):
+                return rope.rope_qkv_rows_plain(x, cos, sin, h, hk, d)
+        else:
+            cos, sin = (t.to(bf) for t in rope.rope_angles(
+                torch.arange(s, device=dev), d, theta=500000.0))
+            if form == "qk":
+                xs = [(qq.view(b, s, h, d), kk.view(b, s, hk, d)) for qq, kk in zip(
+                    _randn(torch, (copies, b, s, h * d), gen, dev).to(bf),
+                    _randn(torch, (copies, b, s, hk * d), gen, dev).to(bf))]
+
+                def fn(q, k):
+                    return rope.rope_qk(q, k, cos, sin)
+
+                def plain(q, k):
+                    return rope.rope_qk_plain(q, k, cos, sin)
+            else:
+                xs = list(zip(_randn(torch, (copies, b, h, s, d), gen, dev).to(bf),
+                              _randn(torch, (copies, b, hk, s, d), gen, dev).to(bf)))
+
+                def fn(dq, dk):
+                    return rope.rope_qk_cuda(dq, dk, cos, sin, backward=True)
+
+                def plain(dq, dk):
+                    return tuple(rope.partial_rope_plain(g, cos, -sin).transpose(1, 2)
+                                 .contiguous() for g in (dq, dk))
+        what = f"rope {name} {form} [{b}, {s}, {h}+{hk}, {d}]"
+        _rope_equal(torch, fn(*xs[0]) + fn(*xs[0]), plain(*xs[0]) * 2, what)
+        nxt = cycler(xs)
+        src = torch.empty(copies, elems, device=dev, dtype=bf)
+        dst = torch.empty_like(src[0])
+        nsrc = cycler(list(src))
+        nbytes = 2 * elems * 2 + 2 * cos.numel() * cos.element_size()
+        b_ms, b_by = bound_ms(nbytes, 3 * elems)
+        calls = 200 if elems < 2 ** 22 else 50
+        alone, names = device_us_a_call(torch, lambda: fn(*nxt()), what, calls=calls)
+        r = out[name] = {
+            "shape": f"{form} [{b}, {s}, {h}+{hk}, {d}] bf16", "bound_us": b_ms * 1e3,
+            "bound_by": b_by, "device_us": alone, "kernels": names,
+            "graph_us": graph_us(torch, lambda: fn(*nxt())),
+            "ms": time_ms(torch, lambda: fn(*xs[0])),
+            "host_us": host_us(torch, lambda: fn(*xs[0]), calls=2000),
+            "copy_us": device_us_a_call(torch, lambda: dst.copy_(nsrc()),
+                                        f"{what} copy_", calls=calls)[0],
+            "plain_ms": (time_ms(torch, lambda: plain(*xs[0]), samples=20)
+                         if elems < 2 ** 22 else None)}
+        check(any("rope_kernel" in k for k in names), f"{what}: the profile holds {names}")
+        print(f"time {what} bf16: device {r['device_us']:.3f} us alone, "
+              f"{r['graph_us']:.3f} from a graph, call {r['ms']:.5f} ms, host "
+              f"{r['host_us']:.3f} us; bound {r['bound_us']:.3f} us ({b_by}, "
+              f"{100 * r['bound_us'] / r['device_us']:.1f} % of alone), copy_ of q's "
+              f"and k's bytes {r['copy_us']:.3f} us; plain "
+              + ("n/a" if r["plain_ms"] is None else f"{r['plain_ms']:.5f} ms")
+              + f"; {names}")
+        del xs, src, dst
+    return out
+
+
 def time_old_kernels(torch, dev, gen, errs):
     import torch.nn.functional as F_
 
-    from deepspeed_tpu_torch.ops.kernels import layer_norm, rope
+    from deepspeed_tpu_torch.ops.kernels import layer_norm
 
     out = {}
     bf = torch.bfloat16
@@ -912,30 +1099,20 @@ def time_old_kernels(torch, dev, gen, errs):
           f"{r['train_ms']:.5f} ms, F.rms_norm {r['train_library_ms']} ms, bound "
           f"{r['train_bound_ms']:.6f} ms")
     del xt
-    q = _randn(torch, (1, H, 64, DH), gen, dev).to(bf)
-    cos, sin = rope.rope_angles(torch.arange(64, device=dev), DH,
-                                theta=500000.0)
-    cos, sin = cos.to(bf), sin.to(bf)
-    b_ms, b_by = bound_ms(2 * q.numel() * 2 + 2 * cos.numel() * 2,
-                          3 * q.numel())
+    # RoPE: the kernel line's numbers at the serve prefill's q + k, one
+    # launch; every path shape under path_shapes
+    shapes = rope_times(torch, dev)
+    r = shapes["serve_prefill"]
     out["rope"] = {
-        "shape": "q[1,32,64,128] bf16",
-        "ms": time_ms(torch, lambda: rope.rope_triton(q, cos, sin)),
-        "plain_ms": time_ms(torch, lambda: rope.rope_plain(q, cos, sin)),
-        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-        "max_abs_err": errs["rope"]}
-    # the same kernel at llama-1b4's training shape (q or k [4, 16, 2048,
-    # 128] with the path's cos and sin [2048, 64]): its time and bound
-    from deepspeed_tpu_torch.models.layers import rope_cache
-
-    x = _randn(torch, (TB, TH, TS, TDH),
-               torch.Generator(device=dev).manual_seed(1), dev).to(bf)
-    cos, sin = (c.to(bf) for c in rope_cache(TS, TDH, 10000.0, device=dev))
-    out["rope"]["train_ms"] = time_ms(torch, lambda: rope.rope_triton(x, cos, sin))
-    b_ms, b_by = bound_ms(2 * x.numel() * 2 + 2 * cos.numel() * 2, 3 * x.numel())
-    out["rope"]["train_bound_ms"] = b_ms
-    print(f"time rope q[4,16,2048,128] bf16 (training shape): kernel "
-          f"{out['rope']['train_ms']:.5f} ms, bound {b_ms:.6f} ms ({b_by})")
+        "shape": "q + k [1, 64, 32 + 8, 128] bf16 (serve prefill), one launch",
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "library_ms": None,
+        "bound_ms": r["bound_us"] / 1e3, "bound_by": r["bound_by"],
+        "max_abs_err": errs["rope"], "device_us": r["device_us"],
+        "graph_us": r["graph_us"], "host_us": r["host_us"],
+        "decode_rows_ms": shapes["decode_rows"]["ms"],
+        "train_ms": shapes["train"]["ms"],
+        "train_bound_ms": shapes["train"]["bound_us"] / 1e3,
+        "path_shapes": shapes}
     return out
 
 
@@ -1756,9 +1933,9 @@ def check_flash(torch, dev, gen, dtype_name, shape, alibi=False):
 def check_train_kernels(torch, dev, gen):
     """The training path's kernels against their plain versions at the
     training shapes (and a ragged S, and llama-tiny's head dim 32), fp32,
-    bf16 and fp16: the four new ones, and RMSNorm fwd and RoPE (fwd, and
-    bwd through -sin) that serving also runs; bf16 and fp16 max abs errors
-    (fp16's keys end in ``_f16``)."""
+    bf16 and fp16: the four new ones, and RMSNorm fwd and RoPE (q and k in
+    one launch forward and backward, bit-equal) that serving also runs; bf16
+    and fp16 max abs errors (fp16's keys end in ``_f16``)."""
     from deepspeed_tpu_torch.models.layers import rope_cache
     from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
     from deepspeed_tpu_torch.ops.kernels import fused_adam as adam
@@ -1777,19 +1954,25 @@ def check_train_kernels(torch, dev, gen):
             if dtype_name != "float32" and shape[2] == TS:
                 errs["flash_attention_fwd" + f16] = e_o
                 errs["flash_attention_bwd" + f16] = e_g
-        # RoPE on q [4, 16, 2048, 128] with the path's cos/sin (rope_cache,
-        # cast to the compute dtype): the forward, and the backward's -sin
-        x = _randn(torch, (TB, TH, TS, TDH), gen, dev).to(dt)
-        cos, sin = rope_cache(TS, TDH, 10000.0, device=dev)
-        cos, sin = cos.to(dt), sin.to(dt)
-        for sign, s in (("sin", sin), ("-sin", -sin)):
-            e = _assert_close(torch, rope.rope_triton(x, cos, s),
-                              rope.rope_plain(x, cos, s), TOL[dtype_name],
-                              f"rope ({sign}) {dtype_name} train shape")
-            print(f"train kernels: rope {dtype_name} {list(x.shape)} ({sign}): "
-                  f"max abs err {e:.3g}")
-            if dtype_name != "float32":
-                errs["rope_train" + f16] = max(errs.get("rope_train" + f16, 0.0), e)
+        # RoPE on q and k [4, 2048, 16 + 16, 128] in the projections' layout
+        # with the path's cos/sin (rope_cache, cast to the compute dtype):
+        # the forward, one launch, and the backward, one launch
+        q = _randn(torch, (TB, TS, TH * TDH), gen, dev).to(dt).view(TB, TS, TH, TDH)
+        k = _randn(torch, (TB, TS, TH * TDH), gen, dev).to(dt).view(TB, TS, TH, TDH)
+        cos, sin = (c.to(dt) for c in rope_cache(TS, TDH, 10000.0, device=dev))
+        _rope_equal(torch, rope.rope_qk_cuda(q, k, cos, sin),
+                    rope.rope_qk_plain(q, k, cos, sin),
+                    f"rope_qk {dtype_name} train shape")
+        dq, dk = (t.transpose(1, 2).contiguous() for t in (q, k))
+        _rope_equal(torch, rope.rope_qk_cuda(dq, dk, cos, sin, backward=True),
+                    tuple(rope.partial_rope_plain(g, cos, -sin).transpose(1, 2)
+                          .contiguous() for g in (dq, dk)),
+                    f"rope_qk backward {dtype_name} train shape")
+        print(f"train kernels: rope q + k {dtype_name} [4, 2048, 16+16, 128], forward "
+              f"and backward: bit-equal to the plain version")
+        del q, k, dq, dk
+        if dtype_name != "float32":
+            errs["rope_train" + f16] = 0.0
         x = _randn(torch, (TB * TS, TD), gen, dev, 3).to(dt)
         g = (1 + 0.1 * torch.randn(TD, device=dev, generator=gen)).to(dt)
         e = _assert_close(torch, ln.rms_norm_cuda(x, g, 1e-5),
@@ -2957,13 +3140,14 @@ def norm_kernel(cfg):
 
 def launch_plan(cfg, chunks, steps, fused):
     """Launches a run must make: per prefill chunk 2L+1 norms (RMSNorm or
-    LayerNorm, as the model has it) and, for a RoPE model, 2L RoPEs; per
-    decode step either 4 fused calls per layer and the final norm (fused)
-    or 2L+1 norms (unfused)."""
+    LayerNorm, as the model has it) and, for a RoPE model, L RoPEs (q and k
+    in one launch); per decode step either 4 fused calls per layer and the
+    final norm (fused) or 2L+1 norms (unfused), and for a RoPE model L
+    RoPEs."""
     L = cfg.num_layers
     plan = {k: 0 for k in KERNELS}
     if cfg.position == "rope":
-        plan["rope"] = 2 * L * chunks
+        plan["rope"] = L * (chunks + steps)
     if fused:
         plan[norm_kernel(cfg)] = (2 * L + 1) * chunks + steps
         for k in KERNELS[2:6]:
@@ -3231,7 +3415,7 @@ def phase_profile(torch, serve, prompts):
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:8]:
         print(f"  {e.self_cpu_time_total / 1e3:9.2f} ms {e.count:7d}x {e.key[:60]}")
     out = {}
-    tags = {"rms_norm": ("rms_norm_fwd_",), "rope": ("_rope_fwd_kernel",),
+    tags = {"rms_norm": ("rms_norm_fwd_",), "rope": ("rope_kernel",),
             "layer_norm": ("layer_norm_fwd_",),
             "fused_norm_qkv": ("norm_qkv_mma_kernel",),
             "flash_decode": ("flash_decode_kernel",),
@@ -3266,15 +3450,16 @@ GEN_ROWS, GEN_PROMPT, GEN_NEW = 8, 200, 64
 
 def generate_plan(cfg, forwards, int8=False):
     """Launches one generate() call must make: its prefill (one forward over
-    the padded prompt bucket: 2L+1 norms and, for a RoPE model, 2L RoPEs)
-    and ``forwards`` decode steps, each L calls of the four fused kernels
-    (the contiguous flash_decode; the int8 bodies of the three GEMVs with
-    int8 weights) and the final norm."""
+    the padded prompt bucket: 2L+1 norms and, for a RoPE model, L RoPEs, q
+    and k in one launch) and ``forwards`` decode steps, each L calls of the
+    four fused kernels (the contiguous flash_decode; the int8 bodies of the
+    three GEMVs with int8 weights), for a RoPE model L RoPEs, and the final
+    norm."""
     L = cfg.num_layers
     plan = {k: 0 for k in KERNELS}
     plan[norm_kernel(cfg)] = 2 * L + 1 + forwards
     if cfg.position == "rope":
-        plan["rope"] = 2 * L
+        plan["rope"] = L * (1 + forwards)
     sfx = "_int8" if int8 else ""
     for k in ("fused_norm_qkv", "fused_proj_norm", "fused_mlp"):
         plan[k + sfx] = L * forwards
@@ -3385,7 +3570,7 @@ def phase_generate_profile(torch, eng, prompts, int8):
     # bf16 the tensor-core *_mma_kernel ones; the int8 MLP has kernels of its
     # own
     sfx = "_int8" if int8 else ""
-    tags = {"rms_norm": ("rms_norm_fwd_",), "rope": ("_rope_fwd_kernel",),
+    tags = {"rms_norm": ("rms_norm_fwd_",), "rope": ("rope_kernel",),
             "fused_norm_qkv" + sfx: ("norm_qkv_int8_mma_kernel" if int8
                                      else "norm_qkv_mma_kernel",),
             "flash_decode_contig": ("flash_decode_kernel",),
@@ -3683,11 +3868,11 @@ def train_plan(cfg, micros, steps, optimizer, f16=False):
     forwards (RMSNorm or LayerNorm) and as many backwards, one more of each
     (a LayerNorm) for BLOOM's embedding norm, L flash forward and L flash
     backward calls (the ALiBi instances for an ALiBi model, the fp16 ones
-    under ``f16``) and, for a RoPE model, 2L RoPE forwards and 2L backwards
-    (the same kernel).  Remat adds forwards in the backward: the MLP
-    policies recompute the MLP's norm (+L norm forwards), the whole-layer
-    policies run the layer's forward again up to its last saved tensor (+2L
-    norm forwards, +L flash forwards, +2L RoPEs).  The optimizer's launches
+    under ``f16``) and, for a RoPE model, L RoPE forwards and L backwards
+    (the same kernel; q and k in one launch).  Remat adds forwards in the
+    backward: the MLP policies recompute the MLP's norm (+L norm forwards),
+    the whole-layer policies run the layer's forward again up to its last
+    saved tensor (+2L norm forwards, +L flash forwards, +L RoPEs).  The optimizer's launches
     as ``optimizer_plan`` counts them over the ``steps`` applied steps (an
     fp16 step skipped for an overflow launches none); no decode kernel."""
     L = cfg.num_layers
@@ -3702,7 +3887,7 @@ def train_plan(cfg, micros, steps, optimizer, f16=False):
     if cfg.embed_norm:
         plan["layer_norm"] += micros
         plan["layer_norm_bwd"] += micros
-    plan.update({"rope": (4 * L + 2 * L * full) * micros * rope,
+    plan.update({"rope": (2 * L + L * full) * micros * rope,
                  flash.format("fwd"): (L + L * full) * micros,
                  flash.format("bwd"): L * micros})
     plan.update(optimizer_plan(optimizer, steps))
@@ -4057,7 +4242,7 @@ def phase_train_profile(torch, engine, tokens):
             g = "flash attention"
         elif "norm_" in key or "rms_dg_reduce" in key:
             g = "norm fwd+bwd"
-        elif "_rope_fwd_kernel" in key:
+        elif "rope_kernel" in key:
             g = "rope"
         elif "adam_kernel" in key:
             g = "adam"
@@ -4073,7 +4258,7 @@ def phase_train_profile(torch, engine, tokens):
     print("profile: device time by kind: " + ", ".join(
         f"{g} {t / 1e3:.1f} ms ({100 * t / busy:.1f}%)"
         for g, t in groups.items() if t))
-    tags = {"rms_norm": ("rms_norm_fwd_",), "rope": ("_rope_fwd_kernel",),
+    tags = {"rms_norm": ("rms_norm_fwd_",), "rope": ("rope_kernel",),
             "rms_norm_bwd": ("rms_norm_bwd_kernel", "rms_dg_reduce_kernel"),
             "layer_norm": ("layer_norm_fwd_",),
             "layer_norm_bwd": ("layer_norm_bwd_", "layer_norm_dgb_sum_kernel"),
@@ -4202,7 +4387,7 @@ def main() -> int:
     # path whose run gives ``launches``
     table = [
         ("rms_norm", "cuda", ln_src, "layer_norm.py:200", "rms_norm", "serve"),
-        ("rope", "triton", "deepspeed_tpu_torch/ops/kernels/rope.py",
+        ("rope", "cuda", "deepspeed_tpu_torch/csrc/rope.cu",
          "rope.py:62", "_rope_fwd (and _rope_bwd_vjp, rope.py:89, through the "
          "same kernel)", "serve"),
         ("fused_norm_qkv", "cuda", src, "decode.py:123", "fused_norm_qkv", "serve"),
@@ -4305,7 +4490,8 @@ def main() -> int:
                       "bloom_plain_ms", "bloom_library_ms", "bloom_bound_ms",
                       "bloom_max_abs_err", "bloom_device_us", "bloom_device_us_split",
                       "bloom_host_us", "fwd_shapes", "prefill_rows_ms",
-                      "library_decode_rows_ms", "library_prefill_rows_ms"):
+                      "library_decode_rows_ms", "library_prefill_rows_ms",
+                      "path_shapes"):
             if extra in t:
                 k[extra] = t[extra]
         check(all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms",

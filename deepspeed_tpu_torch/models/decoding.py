@@ -29,9 +29,9 @@ import torch
 
 from deepspeed_tpu_torch.accelerator.real_accelerator import DeviceLike, resolve_device
 from deepspeed_tpu_torch.models.layers import (_repeat_kv, activation_fn,
-                                               alibi_slopes, apply_partial_rope,
-                                               norm, rope_dim)
+                                               alibi_slopes, norm, rope_dim)
 from deepspeed_tpu_torch.ops.kernels import rope_angles
+from deepspeed_tpu_torch.ops.kernels.rope import rope_qk
 
 logger = logging.getLogger(__name__)
 
@@ -145,20 +145,6 @@ def _cached_attention(q, kcache, vcache, q_pos, scale, slopes=None,
                        "length-aware flash-decode is disabled", Smax,
                        DECODE_BLOCK)
     return _cached_attention_dense(q, kcache, vcache, q_pos, scale, slopes)
-
-
-def _rope_rows(t, cos, sin):
-    """Per-row partial RoPE: t [B, Hx, s, Dh]; cos/sin [B, s, half] carry
-    each row's own absolute positions (continuous-batching decode).  Plain
-    torch, as the JAX package leaves it plain jnp."""
-    rot = 2 * cos.shape[-1]
-    half = cos.shape[-1]
-    c = cos[:, None].float()
-    sn = sin[:, None].float()
-    x1 = t[..., :half].float()
-    x2 = t[..., half:rot].float()
-    r = torch.cat([x1 * c - x2 * sn, x2 * c + x1 * sn], dim=-1).to(t.dtype)
-    return torch.cat([r, t[..., rot:]], dim=-1) if rot < t.shape[-1] else r
 
 
 def paged_logical_view(buf, page_table):
@@ -275,16 +261,16 @@ def forward_with_cache(model, params, tokens, cache, start_pos,
             q = q + a["bq"]
             k = k + a["bk"]
             v = v + a["bv"]
-        q = q.reshape(B, s, H, Dh).transpose(1, 2)
-        k = k.reshape(B, s, Hkv, Dh).transpose(1, 2)
+        q = q.reshape(B, s, H, Dh)
+        k = k.reshape(B, s, Hkv, Dh)
         v = v.reshape(B, s, Hkv, Dh).transpose(1, 2)
         if cfg.position == "rope":
-            if per_row:
-                q = _rope_rows(q, cos, sin)
-                k = _rope_rows(k, cos, sin)
-            else:
-                q = apply_partial_rope(q.contiguous(), cos, sin)
-                k = apply_partial_rope(k.contiguous(), cos, sin)
+            # one launch for q and k, per-row tables [B, s, half] or one
+            # table [s, half]; contiguous [B, Hx, s, Dh] out
+            q, k = rope_qk(q, k, cos, sin)
+        else:
+            q = q.transpose(1, 2)
+            k = k.transpose(1, 2)
         if paged:
             _scatter_paged_rows(kc, k, start_pos, page_table)
             _scatter_paged_rows(vc, v, start_pos, page_table)

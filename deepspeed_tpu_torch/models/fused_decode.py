@@ -30,6 +30,7 @@ from deepspeed_tpu_torch.ops.kernels import rope_angles
 from deepspeed_tpu_torch.ops.kernels.decode import (flash_decode, fused_mlp,
                                                     fused_norm_qkv,
                                                     fused_proj_norm)
+from deepspeed_tpu_torch.ops.kernels.rope import rope_qkv_rows
 
 
 def supports_fused_decode(cfg, *, quantized_kv: bool = False,
@@ -118,8 +119,9 @@ def decode_step(cfg, dparams, tokens, cache, pos, *, page_table=None):
     (scalar), at row pos[b] of row b (per-row), or through the page table
     at row pos[b] % page of physical page page_table[b, pos[b] // page]
     (paged; parked rows' tables point at the junk page 0, where no live slot
-    reads).  RoPE stays plain torch, as the JAX package leaves it plain jnp,
-    with fp32 angles at each row's own position."""
+    reads).  RoPE is one launch of the RoPE kernel a layer, reading q and k
+    out of the QKV rows (where the JAX package leaves it to XLA to fuse its
+    jnp), with fp32 angles at each row's own position."""
     per_row = isinstance(pos, torch.Tensor) and pos.dim() == 1
     if page_table is not None and not per_row:
         raise ValueError("paged KV decode requires per-row positions")
@@ -147,25 +149,12 @@ def decode_step(cfg, dparams, tokens, cache, pos, *, page_table=None):
     dtype = kc_all.dtype
     x = x.to(dtype)
 
-    if cfg.position == "rope":
-        rd = rope_dim(cfg)
-        half = rd // 2
+    rope = cfg.position == "rope"
+    if rope:
         # per-row [B, rd/2], or a scalar position's [1, rd/2] (its index
-        # made on the device: no host-to-device copy, no sync)
+        # made on the device: no host-to-device copy, no sync); fp32
         ang_pos = pos if per_row else torch.arange(pos, pos + 1, device=dev)
-        cos, sin = rope_angles(ang_pos, rd, theta=cfg.rope_theta)
-        cos, sin = cos[:, None], sin[:, None]                   # fp32
-
-    def rope_rows(t):
-        """[B, Hx, Dh] -> rotate the first rd dims of each head."""
-        if cfg.position != "rope":
-            return t
-        x1 = t[..., :half].float()
-        x2 = t[..., half:rd].float()
-        rot = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-        if rd < t.shape[-1]:
-            return torch.cat([rot.to(t.dtype), t[..., rd:]], dim=-1)
-        return rot.to(t.dtype)
+        cos, sin = rope_angles(ang_pos, rope_dim(cfg), theta=cfg.rope_theta)
 
     scale = 1.0 / (Dh ** 0.5)
     # where each row's new K/V lands, once per step (the same every layer)
@@ -183,9 +172,13 @@ def decode_step(cfg, dparams, tokens, cache, pos, *, page_table=None):
         qkv = fused_norm_qkv(x, lp["n1_scale"], lp.get("n1_bias"), wqkv,
                              lp.get("bqkv"), kind=kind, eps=eps,
                              wscale=s_qkv)
-        # q and k heads side by side: one rotation for both
-        qk = rope_rows(qkv[:, :M + Mkv].reshape(B, H + Hkv, Dh))
-        q, k = qk[:, :H], qk[:, H:]
+        # q and k read out of the QKV rows: one rotation for both, q
+        # written contiguous for flash_decode
+        if rope:
+            q, k = rope_qkv_rows(qkv, cos, sin, H, Hkv, Dh)
+        else:
+            q = qkv[:, :M].reshape(B, H, Dh)
+            k = qkv[:, M:M + Mkv].reshape(B, Hkv, Dh)
         v = qkv[:, M + Mkv:].reshape(B, Hkv, Dh)
         kc_all[l][at] = k.to(dtype)
         vc_all[l][at] = v.to(dtype)

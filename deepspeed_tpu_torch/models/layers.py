@@ -16,10 +16,10 @@ import math
 import torch
 import torch.nn.functional as F
 
-from deepspeed_tpu_torch.ops.kernels import (apply_rotary_pos_emb, rms_norm,
-                                             rope_angles)
+from deepspeed_tpu_torch.ops.kernels import rms_norm, rope_angles
 from deepspeed_tpu_torch.ops.kernels.flash_attention import flash_attention
 from deepspeed_tpu_torch.ops.kernels.layer_norm import layer_norm
+from deepspeed_tpu_torch.ops.kernels.rope import partial_rope
 
 
 def norm(x: torch.Tensor, params, kind: str, eps: float) -> torch.Tensor:
@@ -72,12 +72,9 @@ def alibi_bias(num_heads: int, q_pos: torch.Tensor,
 def apply_partial_rope(x: torch.Tensor, cos: torch.Tensor,
                        sin: torch.Tensor) -> torch.Tensor:
     """Rotate the first ``2*cos.shape[-1]`` head dims, pass the rest through
-    (gpt-neox ``rotary_pct``)."""
-    rot = 2 * cos.shape[-1]
-    if rot == x.shape[-1]:
-        return apply_rotary_pos_emb(x, cos, sin)
-    rotated = apply_rotary_pos_emb(x[..., :rot].contiguous(), cos, sin)
-    return torch.cat([rotated, x[..., rot:]], dim=-1)
+    (gpt-neox ``rotary_pct``): one launch of the RoPE kernel, which copies
+    the rest through itself."""
+    return partial_rope(x, cos, sin)
 
 
 def rope_dim(cfg) -> int:

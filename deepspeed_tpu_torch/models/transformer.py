@@ -43,8 +43,9 @@ from deepspeed_tpu_torch.accelerator.real_accelerator import (DeviceLike,
                                                               resolve_device)
 from deepspeed_tpu_torch.models.config import ModelConfig, get_model_config
 from deepspeed_tpu_torch.models.layers import (_repeat_kv, activation_fn,
-                                               apply_partial_rope, attention_core,
-                                               norm, rope_cache, rope_dim)
+                                               attention_core, norm, rope_cache,
+                                               rope_dim)
+from deepspeed_tpu_torch.ops.kernels.rope import rope_qk
 
 
 class _Replay(torch.autograd.Function):
@@ -240,13 +241,16 @@ class CausalLM(_ParamTree):
         q, k, v = h @ a["wq"], h @ a["wk"], h @ a["wv"]
         if cfg.use_bias or cfg.qkv_bias:
             q, k, v = q + a["bq"], k + a["bk"], v + a["bv"]
-        # [B, H, S, Dh] is the kernels' layout; they take contiguous tensors
-        q = q.reshape(B, S, H, Dh).transpose(1, 2).contiguous()
-        k = k.reshape(B, S, Hkv, Dh).transpose(1, 2).contiguous()
-        v = v.reshape(B, S, Hkv, Dh).transpose(1, 2).contiguous()
+        # [B, H, S, Dh] is the kernels' layout; they take contiguous tensors.
+        # RoPE reads q and k in the projections' layout and writes that one
+        q = q.reshape(B, S, H, Dh)
+        k = k.reshape(B, S, Hkv, Dh)
         if cfg.position == "rope":
-            q = apply_partial_rope(q, cos, sin)
-            k = apply_partial_rope(k, cos, sin)
+            q, k = rope_qk(q, k, cos, sin)
+        else:
+            q = q.transpose(1, 2).contiguous()
+            k = k.transpose(1, 2).contiguous()
+        v = v.reshape(B, S, Hkv, Dh).transpose(1, 2).contiguous()
         k = _repeat_kv(k, H // Hkv)
         v = _repeat_kv(v, H // Hkv)
         o = attention_core(q, k, v, causal=True, alibi=cfg.position == "alibi")

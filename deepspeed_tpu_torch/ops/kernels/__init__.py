@@ -1,11 +1,11 @@
 """Hand-written Hopper kernels of the port, each beside its plain version.
 
 Counterpart of ``deepspeed_tpu/ops/pallas``.  The serving path runs six:
-the norm forward (RMSNorm or LayerNorm, CUDA C++) and RoPE forward (Triton)
-in prefill, and the four fused decode kernels of :mod:`.decode` (CUDA C++)
-in every decode step.  The training path runs the norm forward and
-backward, RoPE forward and backward (the same Triton kernel), flash
-attention forward and backward (:mod:`.flash_attention`, CUDA C++) and the
+the norm forward (RMSNorm or LayerNorm) and RoPE (q and k in one launch,
+:mod:`.rope`) in prefill, and RoPE and the four fused decode kernels of
+:mod:`.decode` in every decode step, all CUDA C++.  The training path runs
+the norm forward and backward, RoPE forward and backward (the same kernel),
+flash attention forward and backward (:mod:`.flash_attention`) and the
 optimizer's update, all CUDA C++: fused Adam (:mod:`.fused_adam`), fused
 Adam8bit over int8 moments with stochastic rounding
 (:mod:`.fused_adam8bit`) or the two LAMB phases (:mod:`.fused_lamb`).

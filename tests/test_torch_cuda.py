@@ -165,47 +165,217 @@ def test_rms_norm_launches_on_the_current_stream(cuda_device):
                                rtol=TOL[torch.bfloat16], atol=TOL[torch.bfloat16])
 
 
+def _rope_tables(pos, rd, dtype, dev, theta=500000.0):
+    cos, sin = trope.rope_angles(pos.reshape(-1).to(dev), rd, theta=theta)
+    shape = tuple(pos.shape) + (rd // 2,)
+    return cos.reshape(shape).to(dtype), sin.reshape(shape).to(dtype)
+
+
+def _equal(got, want):
+    """The RoPE kernel rounds each product, difference and sum as the plain
+    version's separate operations do: the same bits."""
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.is_contiguous()
+        assert torch.equal(g, w), float((g.float() - w.float()).abs().max())
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(1, 32, 64, 128), (1, 8, 64, 128),
                                    (4, 16, 2048, 128), (1, 32, 17, 128),
                                    (2, 3, 5, 48)])
-def test_rope_kernel_matches_plain(cuda_device, dtype, shape):
-    S, D = shape[-2], shape[-1]
-    x = _randn(shape, 2, dtype, cuda_device)
-    pos = torch.arange(100, 100 + S, device=cuda_device)
-    cos, sin = trope.rope_angles(pos, D, theta=500000.0)
-    cos, sin = cos.to(dtype), sin.to(dtype)
-    before = trope.apply_rotary_pos_emb.launches
-    got = trope.apply_rotary_pos_emb(x, cos, sin)
-    torch.cuda.synchronize()
-    assert trope.apply_rotary_pos_emb.launches == before + 1
-    want = trope.rope_plain(x, cos, sin)
-    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
-                               atol=TOL[dtype])
+@pytest.mark.parametrize("view", [False, True])
+def test_rope_kernel_matches_plain(cuda_device, dtype, shape, view):
+    """``apply_rotary_pos_emb`` on x [B, H, S, D], contiguous or as the
+    [B, H, S, D] view of a [B, S, H, D] tensor (read in place): one launch,
+    bit-equal to ``rope_plain``, and to a second call."""
+    B, H, S, D = shape
+    x = _randn((B, S, H, D) if view else shape, 2, dtype, cuda_device)
+    if view:
+        x = x.transpose(1, 2)
+    cos, sin = _rope_tables(torch.arange(100, 100 + S), D, dtype, cuda_device)
+    got = _counted(trope.apply_rotary_pos_emb, x, cos, sin)
+    _equal((got, trope.apply_rotary_pos_emb(x, cos, sin)),
+           (trope.rope_plain(x, cos, sin),) * 2)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_rope_backward_is_the_kernel_with_negated_sin(cuda_device, dtype):
-    """llama-1b4's training q: the backward launches the same kernel with
-    -sin, against the plain version with -sin."""
+    """llama-1b4's training q: the backward is one launch of the same
+    kernel with its sign flag, bit-equal to the plain version with -sin."""
     x = _randn((4, 16, 2048, 128), 3, dtype, cuda_device).requires_grad_()
     dy = _randn((4, 16, 2048, 128), 4, dtype, cuda_device)
-    cos, sin = trope.rope_angles(torch.arange(2048, device=cuda_device), 128)
-    cos, sin = cos.to(dtype), sin.to(dtype)
+    cos, sin = _rope_tables(torch.arange(2048), 128, dtype, cuda_device, 10000.0)
     before = trope.apply_rotary_pos_emb.launches
     trope.apply_rotary_pos_emb(x, cos, sin).backward(dy)
     torch.cuda.synchronize()
     assert trope.apply_rotary_pos_emb.launches == before + 2
-    _close(x.grad, trope.rope_plain(dy, cos, -sin), TOL[dtype])
+    _equal((x.grad,), (trope.rope_plain(dy, cos, -sin),))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("table", ["x", "float32"])
+@pytest.mark.parametrize("B,S,H,Hkv,D,rd", [
+    (1, 64, 32, 8, 128, 128),       # llama3-8b's serve prefill chunk
+    (4, 2048, 16, 16, 128, 128),    # llama-1b4's training q and k
+    (2, 33, 8, 4, 32, 32),          # llama-tiny's heads
+    (2, 9, 4, 4, 128, 32),          # gpt-neox rotary_pct 0.25
+    (3, 5, 3, 1, 48, 24),           # element by element
+])
+def test_rope_qk_forward_and_backward_match_plain(cuda_device, dtype, table, B, S,
+                                                  H, Hkv, D, rd):
+    """``rope_qk`` from the projections' [B, S, Hx, D] views: one launch
+    forward (contiguous [B, Hx, S, D] out) and one backward (dq and dk in
+    the projections' layout), each bit-equal to its plain version; tables
+    in x's dtype or fp32, one table or per-row tables."""
+    tdt = dtype if table == "x" else torch.float32
+    q = _randn((B, S, H * D), 5, dtype, cuda_device).view(B, S, H, D).requires_grad_()
+    k = _randn((B, S, Hkv * D), 6, dtype, cuda_device).view(B, S, Hkv, D).requires_grad_()
+    dq = _randn((B, H, S, D), 7, dtype, cuda_device)
+    dk = _randn((B, Hkv, S, D), 8, dtype, cuda_device)
+    for per_row in (False, True):
+        pos = (torch.randint(0, 8000, (B, S), generator=torch.Generator().manual_seed(0))
+               if per_row else torch.arange(3, 3 + S))
+        cos, sin = _rope_tables(pos, rd, tdt, cuda_device)
+        q.grad = k.grad = None
+        before = trope.apply_rotary_pos_emb.launches
+        gq, gk = trope.rope_qk(q, k, cos, sin)
+        torch.autograd.backward((gq, gk), (dq, dk))
+        torch.cuda.synchronize()
+        assert trope.apply_rotary_pos_emb.launches == before + 2
+        _equal((gq, gk), trope.rope_qk_plain(q.detach(), k.detach(), cos, sin))
+        plain = trope.rope_rows_plain if per_row else trope.partial_rope_plain
+        _equal((q.grad, k.grad), tuple(plain(g, cos, -sin).transpose(1, 2).contiguous()
+                                       for g in (dq, dk)))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("per_row", [False, True])
+@pytest.mark.parametrize("B,H,Hkv,D,rd", [(8, 32, 8, 128, 128), (1, 32, 8, 128, 128),
+                                          (3, 4, 2, 64, 16), (2, 3, 1, 48, 24)])
+def test_rope_qkv_rows_matches_plain(cuda_device, dtype, per_row, B, H, Hkv, D, rd):
+    """The fused decode's form on [B, (H + 2 Hkv) D] QKV rows with fp32
+    tables at one scalar position or at each row's own: one launch, q
+    contiguous, both bit-equal to the plain version and to a second
+    call."""
+    qkv = _randn((B, (H + 2 * Hkv) * D), 9, dtype, cuda_device)
+    pos = torch.arange(B) * 211 + 5 if per_row else torch.tensor([77])
+    cos, sin = _rope_tables(pos, rd, torch.float32, cuda_device)
+    before = trope.apply_rotary_pos_emb.launches
+    got = trope.rope_qkv_rows(qkv, cos, sin, H, Hkv, D)
+    torch.cuda.synchronize()
+    assert trope.apply_rotary_pos_emb.launches == before + 1
+    wq, wk = trope.rope_qkv_rows_plain(qkv, cos, sin, H, Hkv, D)
+    _equal(got + trope.rope_qkv_rows(qkv, cos, sin, H, Hkv, D), (wq, wk.contiguous()) * 2)
 
 
 def test_rope_kernel_refuses_bad_inputs(cuda_device):
-    x = torch.ones(1, 2, 4, 8, device=cuda_device)
-    cos = torch.ones(4, 4, device=cuda_device)
-    with pytest.raises(ValueError):
-        trope.apply_rotary_pos_emb(x.transpose(1, 2), cos, cos)
-    with pytest.raises(ValueError):
-        trope.apply_rotary_pos_emb(x, cos[:3], cos[:3])
+    """A strided view is taken (the kernel reads strides); a last dim that
+    is not contiguous, an odd rotated width, tables wider than the head,
+    another dtype or device, and cos and sin laid out apart are refused,
+    each before any launch."""
+    dev = cuda_device
+    x = torch.ones(1, 4, 2, 8, device=dev).transpose(1, 2)      # [1, 2, 4, 8] view
+    cos, sin = torch.ones(4, 4, device=dev), torch.zeros(4, 4, device=dev)
+    _equal((_counted(trope.apply_rotary_pos_emb, x, cos, sin),),
+           (trope.rope_plain(x, cos, sin),))
+    before = trope.apply_rotary_pos_emb.launches
+    x = torch.ones(1, 2, 4, 8, device=dev)       # [B, H, S, D]
+    q = torch.ones(1, 4, 2, 8, device=dev)       # [B, S, H, D]
+    refused = [
+        (ValueError, lambda: trope.apply_rotary_pos_emb(
+            torch.ones(1, 2, 8, 4, device=dev).transpose(2, 3), cos, sin)),
+        (ValueError, lambda: trope.apply_rotary_pos_emb(
+            torch.ones(1, 2, 4, 7, device=dev), cos[:, :3], sin[:, :3])),
+        (ValueError, lambda: trope.partial_rope(x, torch.ones(4, 5, device=dev),
+                                                torch.ones(4, 5, device=dev))),
+        (ValueError, lambda: trope.partial_rope(x, cos[:3], sin[:3])),
+        (TypeError, lambda: trope.partial_rope(x.double(), cos, sin)),
+        (TypeError, lambda: trope.partial_rope(x.half(), cos.bfloat16(), sin.bfloat16())),
+        (TypeError, lambda: trope.partial_rope(x, cos, sin.half())),
+        (ValueError, lambda: trope.partial_rope(x, cos.cpu(), sin.cpu())),
+        (ValueError, lambda: trope.partial_rope(x, cos, torch.zeros(4, 8, device=dev)[:, ::2])),
+        (ValueError, lambda: trope.rope_qk(q, q[..., :4], cos, sin)),
+        (ValueError, lambda: trope.rope_qk(
+            q, torch.ones(1, 4, 8, 2, device=dev).transpose(2, 3), cos, sin)),
+        (ValueError, lambda: trope.rope_qk(q, q, cos[None].expand(2, 4, 4),
+                                           sin[None].expand(2, 4, 4))),
+        (ValueError, lambda: trope.rope_qkv_rows(torch.ones(2, 40, device=dev), cos[:1],
+                                                 sin[:1], 4, 2, 8)),
+        (ValueError, lambda: trope.rope_qkv_rows(torch.ones(2, 64, device=dev), cos[:3],
+                                                 sin[:3], 4, 2, 8)),
+        (ValueError, lambda: trope.rope_qkv_rows(torch.ones(2, 64, device=dev)[:, ::2],
+                                                 cos[:1], sin[:1], 2, 1, 8)),
+    ]
+    for err, call in refused:
+        with pytest.raises(err):
+            call()
+    assert trope.apply_rotary_pos_emb.launches == before
+
+
+def test_rope_launches_on_the_current_stream(cuda_device):
+    """The decode rows are rotated on the caller's stream: the QKV rows are
+    written on s behind a sleep and rotated on s, so the output recorded on
+    s holds the rotation of those rows."""
+    src = _randn((8, 48 * 128), 0, torch.bfloat16, cuda_device)
+    cos, sin = _rope_tables(torch.arange(8) * 9, 128, torch.float32, cuda_device)
+    qkv = torch.zeros_like(src)
+    torch.cuda.synchronize()
+    s = torch.cuda.Stream()
+    with torch.cuda.stream(s):
+        torch.cuda._sleep(50_000_000)
+        qkv.copy_(src)
+        q, k = trope.rope_qkv_rows(qkv, cos, sin, 32, 8, 128)
+        done = s.record_event()
+    done.synchronize()
+    wq, wk = trope.rope_qkv_rows_plain(src, cos, sin, 32, 8, 128)
+    _equal((q, k), (wq, wk.contiguous()))
+
+
+@pytest.mark.parametrize("path", ["generate", "serve"])
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("rotary_pct", [1.0, 0.25])
+def test_decode_paths_launch_one_rope_a_layer(cuda_device, path, fused, rotary_pct):
+    """A small fp32 llama-shaped model (and a quarter of each head rotated,
+    gpt-neox's rotary_pct) through ``generate()`` (a scalar position) and
+    ``init_serving`` (paged, per-row positions), fused and unfused decode:
+    one RoPE launch a layer on each prefill forward and each decode step,
+    and the same greedy tokens as the CPU run."""
+    import deepspeed_tpu_torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = deepspeed_tpu_torch.causal_lm(
+        "llama-tiny", device="cpu", num_layers=2, hidden_size=256,
+        intermediate_size=512, num_kv_heads=2, vocab_size=1024, rotary_pct=rotary_pct)
+    with torch.no_grad():
+        model.embed.tok.mul_(40.0)
+    L = model.config.num_layers
+    cfg = {"dtype": "float32", "max_out_tokens": 300}
+    if not fused:
+        cfg["use_fused_decode"] = False
+    prompts = np.random.default_rng(0).integers(0, 1024, (3, 70))
+    outs = []
+    for dev in ("cpu", cuda_device):
+        before = trope.apply_rotary_pos_emb.launches
+        if path == "generate":
+            eng = deepspeed_tpu_torch.init_inference(model, cfg, device=dev)
+            outs.append(eng.generate(prompts, max_new_tokens=12).cpu())
+            want = L * 12           # the prefill and 11 decode forwards
+        else:
+            serve = deepspeed_tpu_torch.init_serving(
+                model, dict(cfg, kv_page_tokens=16), device=dev, num_slots=2,
+                prefill_chunk=16)
+            reqs = [serve.submit(p, max_new_tokens=10) for p in prompts]
+            serve.run()
+            outs.append([r.output_tokens for r in reqs])
+            st = serve.stats
+            want = L * (st["prefill_chunks"] + st["decode_blocks"] * serve._K)
+        torch.cuda.synchronize()
+        got = trope.apply_rotary_pos_emb.launches - before
+        assert got == (want if dev != "cpu" else 0)
+    if path == "generate":
+        assert torch.equal(outs[0], outs[1])
+    else:
+        assert outs[0] == outs[1]
 
 
 def _close(got, want, tol):

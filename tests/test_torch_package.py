@@ -13,7 +13,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "deepspeed_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "gemv16_probe.py",
-    ROOT / "flash_decode_probe.py"]
+    ROOT / "flash_decode_probe.py", ROOT / "rope_probe.py"]
 
 
 def _imports(path):
