@@ -201,6 +201,20 @@ Needs one CUDA card, nvcc and triton; imports nothing of JAX.  Phases
              5 steps: every attention call through the ALiBi flash
              kernels, launches equal to the plan; each train phase reports
              the mean of steps 2-5 and the median of steps 3-5;
+   checkpoint — after the ``train`` phase, its cell again (llama-1b4,
+             TRAIN_CONFIG, 5 steps), then ``save_checkpoint`` into a
+             temporary directory (the free space printed first and
+             checked against the tag's bytes with a 20 % margin), step 6,
+             a fresh engine with other random weights, ``load_checkpoint``
+             (the manifest's sha256 verified) and step 6 again: loss and
+             grad norm bit-equal; ``init_inference(causal_lm("llama-1b4"),
+             {"dtype": "bfloat16"}, checkpoint=dir)`` gives logits
+             bit-equal to ``init_inference(params=)`` over the saved
+             masters; then the same save, load and step 6 for
+             ADAM8BIT_CONFIG; bytes written, save and load seconds and
+             GB/s beside the card's name and power limit; each tag deleted
+             in a finally; launches counted over the phase, each kernel of
+             its path at least once;
 6. report  — the card's name and power limit, the kernels JSON line, and
              last the result line ``{"ok": true, "device": {...}}``.
 """
@@ -4198,6 +4212,144 @@ def phase_train(torch, dev, preset, name="train", section=None, peaks=None,
     return launches, device_ms
 
 
+# the checkpoint phase's path: the train path's kernels, then Adam8bit's
+CHECKPOINT_KERNELS = ("rms_norm", "rms_norm_bwd", "rope", "flash_attention_fwd",
+                      "flash_attention_bwd", "fused_adam", "fused_adam8bit")
+
+
+def tag_bytes(engine):
+    """The bytes a save of ``engine`` writes: every master and every leaf
+    of its optim_states payload (counted from the live tensors)."""
+    from deepspeed_tpu_torch.runtime.checkpoint_engine.sharded import \
+        tree_flatten_with_path
+
+    leaves = [p for p in engine.master] + [
+        x for _, x in tree_flatten_with_path(engine._optim_payload())]
+    return sum(x.numel() * x.element_size() for x in leaves)
+
+
+def manifest_bytes(ckpt_dir):
+    with open(f"{ckpt_dir}/MANIFEST.json") as fh:
+        return sum(f["nbytes"] for f in json.load(fh)["files"].values())
+
+
+def checkpoint_round(torch, dev, name, section, ident, infer=False):
+    """llama-1b4 at full width and depth under TRAIN_CONFIG (``section``
+    merged over it), 5 steps as the train phase takes them; save to a
+    temporary directory; step 6; a fresh engine (other random weights)
+    loads the tag and takes step 6 again: loss and grad norm bit-equal.
+    With ``infer``, ``init_inference(checkpoint=)`` gives logits bit-equal
+    to ``init_inference(params=)`` over the saved engine's masters.  The
+    tag is deleted in a finally."""
+    import gc
+    import shutil
+    import tempfile
+
+    import deepspeed_tpu_torch
+
+    micro, S = TRAIN_CELLS["llama-1b4"]
+    cfg = dict(TRAIN_CONFIG, **(section or {}),
+               train_micro_batch_size_per_gpu=micro)
+
+    def build(seed):
+        gc.collect()
+        torch.cuda.empty_cache()
+        return deepspeed_tpu_torch.initialize(
+            model=train_model("llama-1b4", seed=seed), config=cfg)[0]
+
+    def step(engine):
+        loss = float(engine.train_step((tokens, tokens)))
+        torch.cuda.synchronize()
+        return loss, engine.get_global_grad_norm()
+
+    engine = build(0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tokens = torch.randint(0, engine.module.config.vocab_size, (2 * micro, S),
+                           device=dev, generator=gen)
+    prompt = tokens[:1, :128]
+    losses = [step(engine) for _ in range(5)]
+    check(all(math.isfinite(x) for pair in losses for x in pair),
+          f"{name}: non-finite loss or grad norm {losses}")
+    root = tempfile.mkdtemp(prefix="ds_ckpt_")
+    try:
+        need = tag_bytes(engine)
+        free = shutil.disk_usage(root).free
+        print(f"{name}: tag {need / 1e9:.3f} GB ({len(engine.master)} masters "
+              f"{engine.master[0].dtype}, {type(engine.optimizer).__name__}); "
+              f"{free / 1e9:.3f} GB free in {root}")
+        check(free >= 1.2 * need, f"{name}: {free / 1e9:.1f} GB free cannot "
+              f"hold the {need / 1e9:.1f} GB tag with a 20 % margin")
+        t = time.perf_counter()
+        ckpt_dir = engine.save_checkpoint(root)
+        save_s = time.perf_counter() - t
+        written = manifest_bytes(ckpt_dir)
+        check(written >= need, f"{name}: wrote {written} bytes < {need}")
+        want_logits = None
+        if infer:
+            eng = deepspeed_tpu_torch.init_inference(
+                engine.module, {"dtype": "bfloat16"}, params=engine.params())
+            want_logits = eng(prompt)
+            del eng
+        want = step(engine)
+        del engine
+        engine = build(1)
+        t = time.perf_counter()
+        loaded, _ = engine.load_checkpoint(root)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        check(loaded == ckpt_dir, f"{name}: loaded {loaded}, saved {ckpt_dir}")
+        got = step(engine)
+        print(f"{name}: {ident}: wrote {written} bytes in {save_s:.3f} s "
+              f"({written / save_s / 1e9:.3f} GB/s, the sha256 of each leaf "
+              f"and the manifest's pass included); loaded in {load_s:.3f} s "
+              f"({written / load_s / 1e9:.3f} GB/s, the manifest's sha256 "
+              f"pass included)")
+        print(f"{name}: steps 1-5 {losses}; step 6 (loss, grad norm) before "
+              f"the save's engine {want}, after the load {got}")
+        check(got == want, f"{name}: step 6 after the load {got} != {want}")
+        del engine
+        if infer:
+            gc.collect()
+            torch.cuda.empty_cache()
+            eng = deepspeed_tpu_torch.init_inference(
+                deepspeed_tpu_torch.causal_lm("llama-1b4"), {"dtype": "bfloat16"},
+                checkpoint=root)
+            got_logits = eng(prompt)
+            check(got_logits.shape == want_logits.shape
+                  and bool(torch.isfinite(got_logits).all())
+                  and torch.equal(got_logits, want_logits),
+                  f"{name}: init_inference(checkpoint=) logits differ from "
+                  f"init_inference(params=) by "
+                  f"{(got_logits.float() - want_logits.float()).abs().max()}")
+            print(f"{name}: init_inference(checkpoint=) logits "
+                  f"{tuple(got_logits.shape)} bit-equal to init_inference("
+                  f"params=) over the saved masters")
+            del eng
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"bytes": written, "save_s": save_s, "load_s": load_s}
+
+
+def phase_checkpoint(torch, dev):
+    """Save, load into a fresh engine and resume the llama-1b4 train cell
+    bit-equal, under FusedAdam over fp32 masters (with the inference
+    engine's load) and under master-free Adam8bit; launches counted over
+    the whole phase, each of the path's kernels at least once."""
+    ident = gpu_identity()
+    zero_counts()
+    stats = {"checkpoint": checkpoint_round(torch, dev, "checkpoint", None,
+                                            ident, infer=True),
+             "checkpoint_adam8bit": checkpoint_round(
+                 torch, dev, "checkpoint_adam8bit", ADAM8BIT_CONFIG, ident)}
+    launches = read_counts()
+    for k in CHECKPOINT_KERNELS:
+        check(launches[k] > 0, f"checkpoint: {k} never launched on its path")
+    print(f"checkpoint: {json.dumps(stats)}; launches {launches}")
+    return launches, {}
+
+
 def phase_train_profile(torch, engine, tokens):
     """One more train step under torch.profiler: device busy share, the top
     kernels, and each training kernel's device time per launch."""
@@ -4365,6 +4517,7 @@ def main() -> int:
             **phase_generate(torch, dev),
             "train": phase_train(torch, dev, "llama-1b4", "train", peaks=peaks,
                                  medians=medians),
+            "checkpoint": phase_checkpoint(torch, dev),
             "fp16_train": phase_train(torch, dev, "llama-1b4", "fp16_train",
                                       FP16_CONFIG, peaks, medians),
             "gpt2_train": phase_train(torch, dev, "gpt2-xl", "gpt2_train",

@@ -24,8 +24,13 @@ master-free bf16 with Adam8bit's stochastic rounding), with RMSNorm and
 RoPE forward and backward, flash attention forward and backward (with
 ALiBi for BLOOM) and the
 fused Adam, Adam8bit and LAMB updates as hand-written kernels; the op
-library adds softmax, bias_act and the block quantizer.  ROADMAP.md lists
-what comes next.
+library adds softmax, bias_act and the block quantizer.  Training
+checkpoints (``engine.save_checkpoint`` / ``load_checkpoint``, with the
+dataloader's position) are the JAX package's sharded layout, so either
+package resumes the other's tags; ``zero_to_fp32``
+(:mod:`deepspeed_tpu_torch.utils.zero_to_fp32`), the universal layout
+(:mod:`deepspeed_tpu_torch.checkpoint`) and ``init_inference(...,
+checkpoint=dir)`` read them.  ROADMAP.md lists what comes next.
 """
 
 from __future__ import annotations
@@ -39,11 +44,15 @@ __all__ = ["initialize", "init_inference", "init_serving", "causal_lm"]
 
 
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,
-               config=None, config_params=None, *, device: DeviceLike = None,
+               training_data=None, collate_fn=None, config=None,
+               config_params=None, *, device: DeviceLike = None,
                seed: Any = None):
     """Create a training engine (counterpart of ``deepspeed_tpu.initialize``).
 
-    Returns ``(engine, optimizer, None, lr_scheduler)``.  ``model`` is a
+    Returns ``(engine, optimizer, training_dataloader, lr_scheduler)``;
+    the dataloader (a :class:`~deepspeed_tpu_torch.runtime.dataloader.
+    DeepSpeedDataLoader` over ``training_data`` with ``collate_fn``, CPU
+    tensors at the micro batch) is None without ``training_data``.  ``model`` is a
     :class:`~deepspeed_tpu_torch.models.transformer.CausalLM` whose
     parameters become the masters (fp32, or bf16 under
     ``bf16.master_weights: false``); ``model_parameters`` (a nested
@@ -66,8 +75,10 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     cfg = cfg if isinstance(cfg, DeepSpeedConfig) else DeepSpeedConfig(cfg)
     torch.manual_seed(int(cfg.seed if seed is None else seed))
     engine = DeepSpeedEngine(model, cfg, model_parameters=model_parameters,
-                             device=device)
-    return engine, engine.optimizer, None, engine.lr_scheduler
+                             device=device, training_data=training_data,
+                             collate_fn=collate_fn)
+    return (engine, engine.optimizer, engine.training_dataloader,
+            engine.lr_scheduler)
 
 
 def _merge_inference_config(config, kwargs):

@@ -25,15 +25,21 @@ config)`` -> :class:`InferenceEngine` with ``generate()``.
   the end.  Each step is the fused ``decode_step`` when ``_dparams`` is set,
   else ``forward_with_cache``.
 
+- weights from ``config.checkpoint`` when no ``params`` are given
+  (:meth:`InferenceEngine.load_checkpoint`): a training save dir or tag in
+  the sharded layout either package writes, or a HuggingFace checkpoint
+  directory through ``module_inject``.
+
 Not ported yet (ROADMAP.md): tensor-parallel meshes, the int8 KV cache
-(``quantize_kv_cache``) and checkpoint loading; a config asking for them is
-refused here instead of being served another way than the JAX engine
-would.
+(``quantize_kv_cache``) and the legacy msgpack checkpoint layout; a config
+asking for them is refused here instead of being served another way than
+the JAX engine would.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import threading
 from typing import Any, Optional
 
@@ -103,10 +109,6 @@ class InferenceEngine:
         if getattr(model, "config", None) is None:
             raise TypeError("model must carry a ModelConfig as .config "
                             "(use deepspeed_tpu_torch.models.causal_lm)")
-        if params is None and config.checkpoint:
-            raise NotImplementedError(
-                "checkpoint loading is not ported yet (ROADMAP.md queue 1: "
-                "checkpoints); pass params=")
         # int8 = quantized WEIGHTS; activations and the KV cache stay bf16
         self._int8_weights = config.dtype in _INT8
         self.dtype = (torch.bfloat16 if self._int8_weights
@@ -121,10 +123,10 @@ class InferenceEngine:
         # loop; test-and-set under a lock so a second caller raises
         self._generating = False
         self._gen_lock = threading.Lock()
-        if params is None and hasattr(model, "params"):
-            params = model.params()
-        if params is not None:
-            self.set_params(params)
+        if params is None and config.checkpoint:
+            self.load_checkpoint(config.checkpoint)
+        elif params is not None or hasattr(model, "params"):
+            self.set_params(params if params is not None else model.params())
 
     # ------------------------------------------------------------------
     def set_params(self, params: Any) -> None:
@@ -156,6 +158,37 @@ class InferenceEngine:
                     self.dtype, self.device,
                     ", kernel-injected decode" if self._dparams is not None
                     else "")
+
+    def load_checkpoint(self, path: str) -> None:
+        """Serve the weights of ``path``: a HuggingFace checkpoint
+        directory (through ``module_inject``), a training save dir (the tag
+        its ``latest`` names) or one tag, in the sharded layout either
+        package writes.  Any other path is the JAX package's legacy msgpack
+        layout, which is refused."""
+        from deepspeed_tpu_torch.module_inject.containers import (
+            hf_to_params, is_hf_checkpoint, load_hf_state_dict)
+        from deepspeed_tpu_torch.runtime.checkpoint_engine import (
+            ShardedCheckpointEngine, is_sharded_checkpoint, nest_keystrs)
+
+        if is_hf_checkpoint(path):
+            self.set_params(hf_to_params(load_hf_state_dict(path),
+                                         self.module.config))
+            return
+        f = path
+        if os.path.isdir(path):
+            latest = os.path.join(path, "latest")
+            if os.path.exists(latest):
+                with open(latest) as fh:
+                    f = os.path.join(path, fh.read().strip(), "model_states")
+            else:
+                f = os.path.join(path, "model_states")
+            if is_sharded_checkpoint(f):
+                self.set_params(nest_keystrs(ShardedCheckpointEngine().load(f)))
+                return
+        raise NotImplementedError(
+            f"checkpoint {path!r} is neither a HuggingFace directory nor in "
+            "the sharded layout: the legacy msgpack layout is not ported "
+            "(ROADMAP.md queue 1: the legacy msgpack layout)")
 
     def _build_injected_view(self) -> None:
         """Kernel injection (reference ``replace_with_kernel_inject``): lay

@@ -24,11 +24,16 @@ Leaf ``i`` (in the engine's sorted-path order) at 1-based count ``t`` takes
 the noise seed ``t * 1000003 + i * 7919`` (int32, wrapping), as the JAX
 optimizer seeds its kernel.  ``updates_are_new_params`` is kept for API
 parity with the JAX transformation (whose engine branches on it).
+
+:meth:`Adam8bit.jax_state` gives the state as the JAX ``Adam8bitState``
+(``.count``, ``.m_q``, ``.m_scale``, ``.v_q``, ``.v_scale``): a small
+leaf's scales there are 0-d fp32 placeholders, which the port does not
+keep; it writes zeros and ignores them on load.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, Optional, Sequence, Union
+from typing import Any, Callable, Iterable, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -36,6 +41,15 @@ import torch
 from deepspeed_tpu_torch.ops.kernels.fused_adam8bit import (
     check_block, fused_adam8bit_update, sr_seed, state_rows,
     stochastic_round_bf16)
+from deepspeed_tpu_torch.ops.optax_states import count_leaf
+
+
+class Adam8bitState(NamedTuple):
+    count: Any
+    m_q: Any
+    m_scale: Any
+    v_q: Any
+    v_scale: Any
 
 
 class Adam8bit(torch.optim.Optimizer):
@@ -77,6 +91,28 @@ class Adam8bit(torch.optim.Optimizer):
         return {"m_q": codes(), "m_scale": ones(), "v_q": codes(),
                 "v_scale": ones()}
 
+    def _state_of(self, p: torch.Tensor) -> dict:
+        st = self.state[p]
+        if not st:
+            st.update(self._init_state(p))
+        return st
+
+    def jax_state(self, nest: Callable) -> Any:
+        """The state in the JAX ``Adam8bitState`` layout, over the live
+        codes, scales and small moments; ``nest`` maps the per-parameter
+        list onto the params' tree."""
+        params = [p for g in self.param_groups for p in g["params"]]
+        sts = [self._state_of(p) for p in params]
+
+        def scale(st, key):
+            # a small leaf's scale: the JAX placeholder, a 0-d fp32 zero
+            return st[key] if key in st else torch.zeros((), dtype=torch.float32)
+        return Adam8bitState(count_leaf(self.count),
+                             nest([st["m_q"] for st in sts]),
+                             nest([scale(st, "m_scale") for st in sts]),
+                             nest([st["v_q"] for st in sts]),
+                             nest([scale(st, "v_scale") for st in sts]))
+
     def state_bytes(self) -> int:
         """Bytes of optimizer state held on the device (codes, scales and
         the small leaves' fp32 moments)."""
@@ -105,9 +141,7 @@ class Adam8bit(torch.optim.Optimizer):
                 continue
             b1, b2 = group["betas"]
             eps, wd = group["eps"], group["weight_decay"]
-            st = self.state[p]
-            if not st:
-                st.update(self._init_state(p))
+            st = self._state_of(p)
             sr = p.dtype == torch.bfloat16
             seed = sr_seed(t, leaf)
             if self.quantized(p):

@@ -11,16 +11,31 @@ on the card, as the JAX package issues one ``pallas_call`` per leaf.
 ``fused=False`` runs the plain fp32 version of the same update instead —
 what the JAX package's ``optax.adamw`` computes for ``Adam``/``AdamW`` and
 ``"torch_adam": true``.
+
+:meth:`FusedAdam.jax_state` gives the state as the JAX package's
+optimizer for the same config holds it in a checkpoint
+(``ops/optax_states.py``): ``FusedAdamState`` when fused, else
+``optax.adamw``'s chain, or under ``adam_w_mode=False`` the chain the JAX
+package's ``build_optimizer`` makes, ``optax.chain(add_decayed_weights or
+identity, optax.adam)``.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, Optional, Sequence, Union
+from typing import Any, Callable, Iterable, NamedTuple, Optional, Sequence, Union
 
 import torch
 
 from deepspeed_tpu_torch.ops.kernels.fused_adam import (fused_adam_update,
                                                         fused_adam_update_plain)
+from deepspeed_tpu_torch.ops.optax_states import (EMPTY, ScaleByAdamState,
+                                                  count_leaf, lr_state)
+
+
+class FusedAdamState(NamedTuple):
+    count: Any
+    m: Any
+    v: Any
 
 
 class FusedAdam(torch.optim.Optimizer):
@@ -49,6 +64,29 @@ class FusedAdam(torch.optim.Optimizer):
         """The learning rate the next :meth:`step` applies."""
         return float(self.schedule(self.count)) if self.schedule else group["lr"]
 
+    def _state_of(self, p: torch.Tensor) -> dict:
+        st = self.state[p]
+        if not st:
+            st["exp_avg"] = torch.zeros_like(p, dtype=torch.float32)
+            st["exp_avg_sq"] = torch.zeros_like(p, dtype=torch.float32)
+        return st
+
+    def jax_state(self, nest: Callable) -> Any:
+        """The state in the JAX optimizer's layout, over the live moment
+        tensors; ``nest`` maps the per-parameter list onto the params'
+        tree."""
+        params = [p for g in self.param_groups for p in g["params"]]
+        sts = [self._state_of(p) for p in params]
+        m = nest([st["exp_avg"] for st in sts])
+        v = nest([st["exp_avg_sq"] for st in sts])
+        if self.fused:
+            return FusedAdamState(count_leaf(self.count), m, v)
+        adam = ScaleByAdamState(count_leaf(self.count), m, v)
+        lr = lr_state(self.schedule, self.count)
+        if self.param_groups[0]["adam_w_mode"]:
+            return (adam, EMPTY, lr)     # scale_by_adam, decay, lr
+        return (EMPTY, (adam, lr))       # decay or identity, optax.adam
+
     @torch.no_grad()
     def step(self, closure=None, grads: Optional[Sequence[torch.Tensor]] = None):
         """One update of every parameter.  ``grads`` (one tensor per
@@ -72,10 +110,7 @@ class FusedAdam(torch.optim.Optimizer):
                 g = next(it)
                 if g is None:
                     continue
-                st = self.state[p]
-                if not st:
-                    st["exp_avg"] = torch.zeros_like(p, dtype=torch.float32)
-                    st["exp_avg_sq"] = torch.zeros_like(p, dtype=torch.float32)
+                st = self._state_of(p)
                 update(p, g, st["exp_avg"], st["exp_avg_sq"], self.count, lr=lr,
                        beta1=b1, beta2=b2, eps=group["eps"],
                        weight_decay=group["weight_decay"],

@@ -16,16 +16,29 @@ mask, as in JAX.
 the JAX package builds for ``Lamb`` and ``"torch_lamb": true``:
 ``scale_by_adam`` (moments divided by ``1 - b^t``), decayed weights, the
 trust ratio, and the learning rate at the 0-based count.
+
+:meth:`FusedLamb.jax_state` gives the state as the JAX package's
+optimizer for the same config holds it in a checkpoint: ``FusedLambState``
+(``.count``, ``.mu``, ``.nu``) when fused, else ``optax.lamb``'s chain
+(``scale_by_adam``, decay, trust ratio, learning rate).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, Optional, Sequence, Union
+from typing import Any, Callable, Iterable, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from deepspeed_tpu_torch.ops.kernels.fused_lamb import fused_lamb_update
+from deepspeed_tpu_torch.ops.optax_states import (EMPTY, ScaleByAdamState,
+                                                  count_leaf, lr_state)
+
+
+class FusedLambState(NamedTuple):
+    count: Any
+    mu: Any
+    nu: Any
 
 
 class FusedLamb(torch.optim.Optimizer):
@@ -50,6 +63,26 @@ class FusedLamb(torch.optim.Optimizer):
             return group["lr"]
         return float(self.schedule(self.count + 1 if self.fused else self.count))
 
+    def _state_of(self, p: torch.Tensor) -> dict:
+        st = self.state[p]
+        if not st:
+            st["exp_avg"] = torch.zeros_like(p, dtype=torch.float32)
+            st["exp_avg_sq"] = torch.zeros_like(p, dtype=torch.float32)
+        return st
+
+    def jax_state(self, nest: Callable) -> Any:
+        """The state in the JAX optimizer's layout, over the live moment
+        tensors; ``nest`` maps the per-parameter list onto the params'
+        tree."""
+        params = [p for g in self.param_groups for p in g["params"]]
+        sts = [self._state_of(p) for p in params]
+        mu = nest([st["exp_avg"] for st in sts])
+        nu = nest([st["exp_avg_sq"] for st in sts])
+        if self.fused:
+            return FusedLambState(count_leaf(self.count), mu, nu)
+        return (ScaleByAdamState(count_leaf(self.count), mu, nu), EMPTY, EMPTY,
+                lr_state(self.schedule, self.count))
+
     @torch.no_grad()
     def step(self, closure=None, grads: Optional[Sequence[torch.Tensor]] = None):
         """One update of every parameter.  ``grads`` (one tensor per
@@ -71,10 +104,7 @@ class FusedLamb(torch.optim.Optimizer):
                 g = next(it)
                 if g is None:
                     continue
-                st = self.state[p]
-                if not st:
-                    st["exp_avg"] = torch.zeros_like(p, dtype=torch.float32)
-                    st["exp_avg_sq"] = torch.zeros_like(p, dtype=torch.float32)
+                st = self._state_of(p)
                 update(p, g, st["exp_avg"], st["exp_avg_sq"], self.count, lr=lr,
                        beta1=b1, beta2=b2, eps=group["eps"],
                        weight_decay=group["weight_decay"])

@@ -6,8 +6,9 @@ training path reads: the batch triad and its checks, ``bf16`` (with
 ``master_weights: false``, master-free bf16 training), ``fp16`` (float16
 compute over fp32 masters with a static or dynamic loss scale),
 ``optimizer``, ``scheduler``, ``gradient_clipping``,
-``data_types.grad_accum_dtype``, ``activation_checkpointing``, ``seed``
-and ``steps_per_print``.  The sections the port does not carry yet raise
+``data_types.grad_accum_dtype``, ``activation_checkpointing``, ``seed``,
+``steps_per_print`` and ``checkpoint`` (verified loads, elastic resume,
+retention; ``preemption_save`` is refused).  The sections the port does not carry yet raise
 ``NotImplementedError`` naming ROADMAP.md when they ask for something:
 ZeRO stages 1-3 and offload, quantized communication,
 pipeline, tensor, sequence and expert parallelism.  Observability sections
@@ -74,6 +75,31 @@ class ActivationCheckpointingConfig(DeepSpeedConfigModel):
     number_checkpoints: Optional[int] = None
     synchronize_checkpoint_boundary: bool = False
     profile: bool = False
+
+
+class CheckpointConfig(DeepSpeedConfigModel):
+    # accepted and without effect, as in the JAX engine (it never reads
+    # them): tag_validation, load_universal, use_node_local_storage,
+    # parallel_write, async_save
+    tag_validation: str = "Warn"
+    load_universal: bool = False
+    use_node_local_storage: bool = False
+    parallel_write: Dict[str, Any] = Field(default_factory=dict)
+    async_save: bool = False
+    # verify MANIFEST.json (existence + size + sha256) before a load trusts
+    # a tag's bytes; on failure the loader walks back to the newest valid tag
+    verify_on_load: bool = True
+    # also verify each chunk's sha256 in the shard indexes (names the leaf)
+    deep_verify_on_load: bool = False
+    # on a resume at another data-parallel size, rescale
+    # gradient_accumulation_steps so the recorded global batch is kept
+    elastic_resume: bool = True
+    # after a committed save, delete the oldest valid tags beyond this
+    # count (never the one `latest` names); 0 keeps everything
+    keep_last_n: int = 0
+    # SIGTERM -> emergency save (runtime/preemption.py): refused
+    preemption_save: bool = False
+    save_dir: Optional[str] = None
 
 
 _DTYPES = {"fp32": torch.float32, "float32": torch.float32, "float": torch.float32,
@@ -184,6 +210,7 @@ class DeepSpeedConfig:
         self.scheduler = SchedulerConfig(**d["scheduler"]) if "scheduler" in d else None
         self.activation_checkpointing = ActivationCheckpointingConfig(
             **d.get("activation_checkpointing", {}))
+        self.checkpoint_config = CheckpointConfig(**d.get("checkpoint", {}))
         self._validate()
 
     @staticmethod
@@ -216,6 +243,9 @@ class DeepSpeedConfig:
             sec = d.get(key)
             if isinstance(sec, dict) and sec.get("enabled"):
                 raise _not_ported(f"{key}.enabled", "the observability hooks")
+        if (d.get("checkpoint") or {}).get("preemption_save"):
+            raise _not_ported("checkpoint.preemption_save", "the rest of the "
+                              "package (runtime/preemption.py)")
         ac = d.get("activation_checkpointing") or {}
         if ac.get("cpu_checkpointing"):
             raise _not_ported("activation_checkpointing.cpu_checkpointing "

@@ -47,6 +47,23 @@ def make_state(config) -> LossScaleState:
     return _state(1.0, 1)
 
 
+def to_leaves(state: LossScaleState):
+    """The state as a checkpoint holds it, ``['scaler'][0..3]``: the scale
+    fp32, the two trackers and the skip count int32 (the JAX
+    ``LossScaleState``'s fields in order)."""
+    return (state.scale.clone(),
+            *(torch.tensor(int(x), dtype=torch.int32)
+              for x in (state.growth_tracker, state.hysteresis_tracker,
+                        state.skipped_steps)))
+
+
+def from_leaves(leaves) -> LossScaleState:
+    """Inverse of :func:`to_leaves`, from the four loaded scalars."""
+    scale, growth, hyst, skipped = leaves
+    return LossScaleState(torch.as_tensor(scale, dtype=torch.float32).reshape(()).clone(),
+                          int(growth), int(hyst), int(skipped))
+
+
 def update(state: LossScaleState, overflow: bool, *, dynamic: bool,
            loss_scale_window: int, min_loss_scale: float, hysteresis: int,
            consecutive_hysteresis: bool = False) -> LossScaleState:

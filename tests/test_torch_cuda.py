@@ -2519,3 +2519,131 @@ def test_hf_families_train_on_card_like_cpu(cuda_device, tmp_path, arch):
     assert lg[-1] < lg[0]
     for a, b in zip(pc, pg):
         torch.testing.assert_close(b, a, rtol=0, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# checkpoints: tags cross between the card and the CPU, and resume bit-equal
+# ---------------------------------------------------------------------------
+
+CKPT_CONFIGS = {
+    "FusedAdam": {"optimizer": {"type": "FusedAdam", "params": {
+        "lr": 3e-3, "betas": [0.9, 0.95], "weight_decay": 0.1}}},
+    "Adam8bit": {"optimizer": {"type": "Adam8bit", "params": {
+        "lr": 3e-3, "betas": [0.9, 0.95], "weight_decay": 0.1}}},
+    "master_free_adam8bit": {
+        "optimizer": {"type": "Adam8bit", "params": {
+            "lr": 3e-3, "betas": [0.9, 0.95], "weight_decay": 0.1}},
+        "bf16": {"enabled": True, "master_weights": False},
+        "data_types": {"grad_accum_dtype": "bf16"}},
+}
+
+
+def _ckpt_engine(name, dev):
+    """A 2-layer llama (head dim 32, the flash kernels' smallest) under one
+    of CKPT_CONFIGS, random weights from seed 0, on ``dev``."""
+    import deepspeed_tpu_torch
+
+    cfg = {"train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 2,
+           "scheduler": {"type": "WarmupLR", "params": {
+               "warmup_max_lr": 3e-3, "warmup_num_steps": 2}},
+           "gradient_clipping": 1.0, **CKPT_CONFIGS[name]}
+    model = deepspeed_tpu_torch.causal_lm(
+        "llama-tiny", device="cpu", num_layers=2, hidden_size=64,
+        intermediate_size=128, num_heads=2, num_kv_heads=1, vocab_size=256,
+        seed=0)
+    return deepspeed_tpu_torch.initialize(model=model, config=cfg, device=dev)[0]
+
+
+def _ckpt_tokens(seed):
+    return np.random.default_rng(seed).integers(0, 256, (4, 64))
+
+
+def _engine_state(eng):
+    """Every leaf a save writes, by key, on the CPU."""
+    from deepspeed_tpu_torch.runtime.checkpoint_engine.sharded import (
+        keystr, tree_flatten_with_path)
+
+    tree = {"model": eng._nest(eng.master), "optim": eng._optim_payload()}
+    return {keystr(k): v.detach().cpu().clone()
+            for k, v in tree_flatten_with_path(tree)}
+
+
+def _assert_states_bit_equal(got, want):
+    assert set(got) == set(want)
+    for key in want:
+        assert got[key].dtype == want[key].dtype, key
+        assert torch.equal(got[key], want[key]), key
+
+
+@pytest.mark.parametrize("name", list(CKPT_CONFIGS))
+@pytest.mark.parametrize("saver", ["card", "cpu"])
+def test_checkpoint_crosses_between_card_and_cpu(cuda_device, tmp_path, name,
+                                                 saver):
+    """A tag saved by a card engine loads into a CPU engine with every
+    master, moment, code, scale and counter bit-equal, and the reverse."""
+    devs = {"card": cuda_device, "cpu": "cpu"}
+    loader = "cpu" if saver == "card" else "card"
+    a = _ckpt_engine(name, devs[saver])
+    for i in range(2):
+        tok = _ckpt_tokens(i)
+        a.train_step((tok, tok))
+    a.save_checkpoint(str(tmp_path))
+    b = _ckpt_engine(name, devs[loader])
+    assert b.load_checkpoint(str(tmp_path))[0] == str(tmp_path / "global_step2")
+    assert all(p.device.type == torch.device(devs[loader]).type for p in b.master)
+    _assert_states_bit_equal(_engine_state(b), _engine_state(a))
+    assert b.optimizer.count == a.optimizer.count == 2
+
+
+@pytest.mark.parametrize("name", list(CKPT_CONFIGS))
+def test_checkpoint_resume_on_card_is_bit_equal(cuda_device, tmp_path, name):
+    """A card engine resumed from its own tag takes the next steps
+    bit-equal to the uninterrupted engine, through the fused Adam or
+    Adam8bit kernel (its count and stochastic-rounding seed restored)."""
+    from deepspeed_tpu_torch.ops.kernels import fused_adam8bit_update, fused_adam_update
+
+    kernel = fused_adam_update if name == "FusedAdam" else fused_adam8bit_update
+    a = _ckpt_engine(name, cuda_device)
+    for i in range(2):
+        tok = _ckpt_tokens(i)
+        a.train_step((tok, tok))
+    a.save_checkpoint(str(tmp_path))
+    b = _ckpt_engine(name, cuda_device)
+    b.load_checkpoint(str(tmp_path))
+    runs = []
+    for eng in (a, b):
+        before = kernel.launches
+        steps = []
+        for i in range(2, 4):
+            tok = _ckpt_tokens(i)
+            steps.append((float(eng.train_step((tok, tok))),
+                          eng.get_global_grad_norm()))
+        assert kernel.launches > before
+        runs.append((steps, _engine_state(eng)))
+    assert runs[1][0] == runs[0][0]
+    _assert_states_bit_equal(runs[1][1], runs[0][1])
+
+
+def test_checkpoint_bf16_leaves_read_back_bit_equal(cuda_device, tmp_path):
+    """bf16 tensors on the card (normals, subnormals, infinities, a NaN,
+    signed zeros) go through the shard file as raw 2-byte words."""
+    import json
+
+    from deepspeed_tpu_torch.runtime.checkpoint_engine import ShardedCheckpointEngine
+
+    words = torch.from_numpy(np.random.default_rng(0).integers(
+        -2**15, 2**15, (3, 1000), dtype=np.int16))
+    special = torch.tensor([0.0, -0.0, float("inf"), -float("inf"),
+                            float("nan"), 1e-40, -3.0], dtype=torch.bfloat16)
+    tree = {"a": words.view(torch.bfloat16).to(cuda_device),
+            "b": special.to(cuda_device),
+            "c": torch.tensor(1.5, dtype=torch.bfloat16, device=cuda_device)}
+    eng = ShardedCheckpointEngine()
+    eng.save(tree, str(tmp_path))
+    with open(tmp_path / "index_p0.json") as fh:
+        assert {m["dtype"] for m in json.load(fh).values()} == {"bfloat16"}
+    back = eng.load(str(tmp_path))
+    for key, want in (("['a']", tree["a"]), ("['b']", tree["b"]), ("['c']", tree["c"])):
+        got = back[key]
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        assert torch.equal(got.view(torch.int16), want.cpu().view(torch.int16)), key

@@ -34,6 +34,19 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+@pytest.mark.parametrize("part", ["runtime/checkpoint_engine/atomic.py",
+                                  "runtime/checkpoint_engine/sharded.py",
+                                  "runtime/checkpoint_engine/checkpoint_engine.py",
+                                  "checkpoint/universal.py",
+                                  "utils/zero_to_fp32.py",
+                                  "utils/tensor_fragment.py",
+                                  "runtime/dataloader.py"])
+def test_import_rule_covers_the_checkpoint_modules(part):
+    """The checkpoint stack is copied in and trimmed, never imported from
+    the JAX package: the import rule above walks each of its files."""
+    assert ROOT / "deepspeed_tpu_torch" / part in PORT_FILES
+
+
 def test_import_leaves_jax_unloaded():
     code = ("import sys\n"
             "def jaxish():\n"
@@ -44,6 +57,10 @@ def test_import_leaves_jax_unloaded():
             "import deepspeed_tpu_torch.models.convert\n"
             "import deepspeed_tpu_torch.runtime.engine\n"
             "import deepspeed_tpu_torch.module_inject\n"
+            "import deepspeed_tpu_torch.checkpoint\n"
+            "import deepspeed_tpu_torch.runtime.checkpoint_engine\n"
+            "import deepspeed_tpu_torch.runtime.dataloader\n"
+            "import deepspeed_tpu_torch.utils.zero_to_fp32\n"
             "print(sorted(jaxish() - before))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env={**os.environ, "PYTHONPATH": str(ROOT)},
