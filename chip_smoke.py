@@ -125,7 +125,10 @@ Needs one CUDA card, nvcc and triton; imports nothing of JAX.  Phases
              device time of ``copy_`` over the same bytes;
 3. reference — a small fp32 model served on the card (kernels) and on the
              CPU (plain versions) must give the same greedy tokens, on the
-             default fused decode path and on ``use_fused_decode: False``;
+             default fused decode path and on ``use_fused_decode: False``,
+             over the paged and the fixed-slot layout; the int8 KV cache
+             (paged serving with a prefix hit, fixed-slot, ``generate()``)
+             and mixtral-tiny (serving and ``generate()``) the same way;
              and the same small model trained 3 steps on the card (TF32
              off) and on the CPU: losses and final weights agree; each for a
              llama-shaped and a gpt2-shaped model (learned positions,
@@ -170,7 +173,18 @@ Needs one CUDA card, nvcc and triton; imports nothing of JAX.  Phases
              same with ``{"dtype": "int8"}`` (resident weight bytes equal
              to the count from the leaf shapes; the share of greedy tokens
              equal to the bf16 run's) and a short int8 wave through
-             ``init_serving``;
+             ``init_serving``, the int8 engine built from the module moved
+             to the host (its peak below bf16's);
+   fixed_slot_serve, kv_int8 — llama3-8b again: the serve waves on
+             ``paged_kv_cache: false`` (fused, the contiguous flash_decode
+             at per-row positions), then ``quantize_kv_cache: true`` (one
+             serve wave and one ``generate()``, the unfused loop): launches
+             equal to their plans, cache bytes, tok/s, peak memory, the
+             share of greedy tokens equal to the bf16 paged / bf16 runs;
+   mixtral_serve — mixtral-8x7b at full width with 16 layers (23.48B
+             parameters, bf16, seed 0) on the one card: the serve waves and
+             ``generate()`` of 8 x 200 + 64, rms_norm and rope launches
+             equal to the plan, tok/s, peak memory, the busy share;
 5. train   — the training path, after the serve phase has released its
              memory: ``deepspeed_tpu_torch.initialize(causal_lm(
              "llama-1b4"), config)`` at full width and depth, random fp32
@@ -3019,50 +3033,97 @@ SMALL = {
                        num_heads=8, num_kv_heads=2, vocab_size=1024),
     # learned positions, LayerNorm, GeLU, a plain MLP, heads of 64
     "gpt2-small": dict(num_layers=2, hidden_size=256, intermediate_size=1024,
-                       num_heads=4, vocab_size=1024, max_seq_len=512)}
+                       num_heads=4, vocab_size=1024, max_seq_len=512),
+    # 8 experts, top-2, as the preset
+    "mixtral-tiny": dict(num_layers=2, hidden_size=256, intermediate_size=512,
+                         num_heads=8, num_kv_heads=2, vocab_size=1024)}
 
 
-def phase_reference(torch, dev, preset):
-    """The port on the card against the port on the CPU, small fp32 model,
-    on the default fused decode path and on the unfused one."""
-    import numpy as np
-
+def small_model(torch, preset):
+    """The small fp32 reference model of ``preset`` on the CPU, its
+    embedding widened so greedy picks sit far from ties (through gpt2's
+    tied head a wide token table alone makes each step repeat its input,
+    so the position table is widened further)."""
     import deepspeed_tpu_torch
 
-    torch.backends.cuda.matmul.allow_tf32 = False   # full fp32 matmuls
     model = deepspeed_tpu_torch.causal_lm(preset, device="cpu", **SMALL[preset])
     with torch.no_grad():
-        # spread logits away from ties; through gpt2's tied head a wide token
-        # embedding alone makes each step repeat its input, so the position
-        # table is widened further
         if model.config.position == "learned":
             model.embed.tok.mul_(16.0)
             model.embed.pos.mul_(80.0)
         else:
             model.embed.tok.mul_(40.0)
+    return model
+
+
+def serve_card_and_cpu(torch, dev, model, cfg, waves, what, **kw):
+    """The same waves of (prompt, new tokens) through ``init_serving`` on
+    the CPU and on the card: each request's tokens and prefix hits, equal
+    on both, returned from the card's run, with the card engine's decode
+    path (fused) and layout (paged)."""
+    import deepspeed_tpu_torch
+
+    outs = []
+    for d in ("cpu", dev):
+        serve = deepspeed_tpu_torch.init_serving(model, cfg, device=d, **kw)
+        path = (serve.engine._dparams is not None, serve.paged)
+        got = []
+        for wave in waves:
+            reqs = [serve.submit(p, max_new_tokens=n) for p, n in wave]
+            serve.run()
+            got += [(r.output_tokens, r.prefix_hit_tokens) for r in reqs]
+        if serve.pool is not None:
+            serve.pool.check_no_leak()
+        outs.append(got)
+        serve.close()
+    check(outs[0] == outs[1], f"{what}: card vs CPU tokens differ: {outs}")
+    check(all(r[0] for r in outs[1]), f"{what}: a request gave no tokens")
+    return outs[1], path
+
+
+def generate_card_and_cpu(torch, dev, model, cfg, batch, what, new=16):
+    """``init_inference(model, cfg).generate(batch)`` on the CPU and on
+    the card, token-identical; returns the card's output and its engine's
+    ``_dparams is not None`` (the fused path)."""
+    import deepspeed_tpu_torch
+
+    outs, fused = [], []
+    for d in ("cpu", dev):
+        eng = deepspeed_tpu_torch.init_inference(model, cfg, device=d)
+        fused.append(eng._dparams is not None)
+        outs.append(eng.generate(batch, max_new_tokens=new).cpu())
+        del eng
+    check(torch.equal(outs[0], outs[1]), f"{what}: card vs CPU tokens "
+          f"differ: {outs}")
+    return outs[1], fused[1]
+
+
+def phase_reference(torch, dev, preset):
+    """The port on the card against the port on the CPU, small fp32 model,
+    on the default fused decode path and on the unfused one, over the paged
+    and the fixed-slot layout."""
+    import numpy as np
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # full fp32 matmuls
+    model = small_model(torch, preset)
     prompts = [np.random.default_rng(i).integers(0, 1024, n)
                for i, n in enumerate((70, 9, 130))]
-    for fused in (True, False):
+    for paged, fused in ((True, True), (True, False), (False, True),
+                         (False, False)):
         cfg = {"dtype": "float32", "max_out_tokens": 512,
-               "kv_page_tokens": 64}
+               "kv_page_tokens": 64, "paged_kv_cache": paged}
         if not fused:
             cfg["use_fused_decode"] = False
-        outs = []
-        for d in ("cpu", dev):
-            serve = deepspeed_tpu_torch.init_serving(
-                model, cfg, device=d, num_slots=2, prefill_chunk=32)
-            check((serve.engine._dparams is not None) is fused,
-                  f"fused={fused}: wrong decode path")
-            reqs = [serve.submit(p, max_new_tokens=16) for p in prompts]
-            serve.run()
-            serve.pool.check_no_leak()
-            outs.append([r.output_tokens for r in reqs])
-        check(outs[0] == outs[1], f"fused={fused}: card vs CPU tokens "
-              f"differ: {outs}")
-        print(f"reference: small fp32 {preset} model, "
+        layout = "paged" if paged else "fixed-slot"
+        got, path = serve_card_and_cpu(torch, dev, model, cfg,
+                                       [[(p, 16) for p in prompts]],
+                                       f"{layout} fused={fused}", num_slots=2,
+                                       prefill_chunk=32)
+        check(path == (fused, paged), f"{layout} fused={fused}: wrong path")
+        print(f"reference: small fp32 {preset} model, {layout} layout, "
               f"{'fused' if fused else 'unfused'} decode, card == CPU on "
               f"{len(prompts)} requests x 16 tokens "
-              f"({len({t for o in outs[0] for t in o})} distinct)")
+              f"({len({t for o, _ in got for t in o})} distinct)")
     # generate(): the contiguous cache; fp32 fused and unfused, and int8
     # weights (bf16 activations) on the fused path
     batch = np.stack([np.random.default_rng(10 + i).integers(0, 1024, 70)
@@ -3072,20 +3133,78 @@ def phase_reference(torch, dev, preset):
         cfg = {"dtype": dtype, "max_out_tokens": 512}
         if not fused:
             cfg["use_fused_decode"] = False
-        outs = []
-        for d in ("cpu", dev):
-            eng = deepspeed_tpu_torch.init_inference(model, cfg, device=d)
-            check((eng._dparams is not None) is fused,
-                  f"generate {dtype} fused={fused}: wrong decode path")
-            outs.append(eng.generate(batch, max_new_tokens=16).cpu())
-            del eng
-        check(torch.equal(outs[0], outs[1]), f"generate {dtype} fused={fused}:"
-              f" card vs CPU tokens differ: {outs}")
+        out, path = generate_card_and_cpu(torch, dev, model, cfg, batch,
+                                          f"generate {dtype} fused={fused}")
+        check(path is fused, f"generate {dtype} fused={fused}: wrong decode "
+              f"path")
         print(f"reference: small {preset} model, generate() {dtype}"
               f"{' weights' if dtype == 'int8' else ''}, "
               f"{'fused' if fused else 'unfused'} decode, card == CPU on "
               f"{len(batch)} rows x 16 tokens "
-              f"({len(set(outs[0][:, 70:].reshape(-1).tolist()))} distinct)")
+              f"({len(set(out[:, 70:].reshape(-1).tolist()))} distinct)")
+
+
+def phase_reference_kv_int8(torch, dev):
+    """The int8 KV cache, card against CPU on the small fp32 llama: paged
+    serving where a second wave repeats a prompt (a prefix-cache hit: the
+    scale planes gathered, scattered and copied with the codes),
+    fixed-slot serving, and ``generate()``; all on the unfused loop."""
+    import numpy as np
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = small_model(torch, "llama-tiny")
+    prompts = [np.random.default_rng(20 + i).integers(0, 1024, n)
+               for i, n in enumerate((70, 9, 130))]
+    waves = [[(p, 16) for p in prompts], [(prompts[2], 16)]]
+    for paged in (True, False):
+        cfg = {"dtype": "float32", "max_out_tokens": 512, "kv_page_tokens": 64,
+               "paged_kv_cache": paged, "quantize_kv_cache": True}
+        got, path = serve_card_and_cpu(torch, dev, model, cfg, waves,
+                                       f"int8 KV paged={paged}", num_slots=2,
+                                       prefill_chunk=32)
+        check(path == (False, paged), f"int8 KV paged={paged}: wrong path")
+        hit = got[-1][1]
+        check((hit > 0) is paged, f"int8 KV paged={paged}: prefix hit {hit}")
+        layout = f"paged (repeat: prefix hit {hit})" if paged else "fixed-slot"
+        print(f"reference: small fp32 llama-tiny, int8 KV cache, {layout}, "
+              f"card == CPU on {len(got)} requests x 16 tokens")
+    batch = np.stack([np.random.default_rng(30 + i).integers(0, 1024, 70)
+                      for i in range(3)])
+    out, fused = generate_card_and_cpu(
+        torch, dev, model, {"dtype": "float32", "max_out_tokens": 512,
+                            "quantize_kv_cache": True}, batch,
+        "generate int8 KV")
+    check(not fused, "generate int8 KV: took the fused path")
+    print(f"reference: small fp32 llama-tiny, int8 KV cache, generate() "
+          f"unfused, card == CPU on {len(batch)} rows x 16 tokens "
+          f"({len(set(out[:, 70:].reshape(-1).tolist()))} distinct)")
+
+
+def phase_reference_moe(torch, dev):
+    """mixtral-tiny (2 layers, D 256, 8 experts, top-2), fp32, card against
+    CPU: paged serving (chunked prefill, a repeat hitting the prefix
+    cache) and ``generate()`` token-identical, on the unfused loop (the
+    router in fp32, TF32 off)."""
+    import numpy as np
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = small_model(torch, "mixtral-tiny")
+    prompts = [np.random.default_rng(40 + i).integers(0, 1024, n)
+               for i, n in enumerate((70, 9, 130))]
+    cfg = {"dtype": "float32", "max_out_tokens": 512, "kv_page_tokens": 64}
+    got, path = serve_card_and_cpu(
+        torch, dev, model, cfg, [[(p, 16) for p in prompts], [(prompts[0], 16)]],
+        "mixtral-tiny serving", num_slots=2, prefill_chunk=32)
+    check(path == (False, True), "mixtral-tiny serving: wrong path")
+    batch = np.stack([np.random.default_rng(50 + i).integers(0, 1024, 70)
+                      for i in range(3)])
+    out, fused = generate_card_and_cpu(torch, dev, model, cfg, batch,
+                                       "mixtral-tiny generate")
+    check(not fused, "mixtral-tiny: took the fused path")
+    print(f"reference: small fp32 mixtral-tiny (8 experts, top-2), serving "
+          f"{len(got)} requests x 16 tokens (repeat: prefix hit {got[-1][1]}) "
+          f"and generate() {len(batch)} rows x 16 tokens, card == CPU "
+          f"({len(set(out[:, 70:].reshape(-1).tolist()))} distinct)")
 
 
 KERNELS = ("rms_norm", "rope", "fused_norm_qkv", "flash_decode",
@@ -3152,12 +3271,14 @@ def norm_kernel(cfg):
     return "layer_norm" if cfg.norm == "layernorm" else "rms_norm"
 
 
-def launch_plan(cfg, chunks, steps, fused):
+def launch_plan(cfg, chunks, steps, fused, contig=False):
     """Launches a run must make: per prefill chunk 2L+1 norms (RMSNorm or
     LayerNorm, as the model has it) and, for a RoPE model, L RoPEs (q and k
     in one launch); per decode step either 4 fused calls per layer and the
-    final norm (fused) or 2L+1 norms (unfused), and for a RoPE model L
-    RoPEs."""
+    final norm (fused) or 2L+1 norms (unfused: the int8 KV cache and the
+    MoE MLP decode there), and for a RoPE model L RoPEs.  ``contig``: the
+    fixed-slot layout, whose fused attention is the contiguous-cache
+    flash_decode."""
     L = cfg.num_layers
     plan = {k: 0 for k in KERNELS}
     if cfg.position == "rope":
@@ -3166,9 +3287,16 @@ def launch_plan(cfg, chunks, steps, fused):
         plan[norm_kernel(cfg)] = (2 * L + 1) * chunks + steps
         for k in KERNELS[2:6]:
             plan[k] = L * steps
+        if contig:
+            plan["flash_decode_contig"], plan["flash_decode"] = \
+                plan["flash_decode"], 0
     else:
         plan[norm_kernel(cfg)] = (2 * L + 1) * (chunks + steps)
     return plan
+
+
+def add_plans(*plans):
+    return {k: sum(p[k] for p in plans) for k in KERNELS}
 
 
 def phase_ops(torch, dev):
@@ -3304,10 +3432,54 @@ def timed(torch, spent, name, fn):
     return wrapper
 
 
-def phase_serve(torch, dev, preset):
-    import gc
+SERVE_NEWS = (32, 40, 48, 56, 64, 36, 44, 52)
 
+
+def serve_waves(torch, serve, vocab, repeat_equal=True):
+    """The serve phases' traffic: wave 1, 8 greedy requests of SERVE_LENS
+    prompt tokens and SERVE_NEWS new; wave 2, an exact repeat of the last
+    request and a request sharing 128 tokens with the sixth's prompt.
+    Every request must end by length with its count; ``repeat_equal``: the
+    repeat must give its cold run's tokens (an MoE model's capacity couples
+    a row to the rows beside it, so there it is reported, not required).
+    Returns (prompts, wave 1, wave 2, wall seconds)."""
     import numpy as np
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, vocab, n) for n in SERVE_LENS]
+    t0 = time.perf_counter()
+    wave1 = [serve.submit(p, max_new_tokens=n)
+             for p, n in zip(prompts, SERVE_NEWS)]
+    serve.run()
+    shared = np.concatenate([prompts[5][:128], rng.integers(0, vocab, 60)])
+    wave2 = [serve.submit(prompts[7], max_new_tokens=SERVE_NEWS[7]),
+             serve.submit(shared, max_new_tokens=48)]
+    serve.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for req, n in zip(wave1 + wave2, SERVE_NEWS + (SERVE_NEWS[7], 48)):
+        check(req.finish_reason == "length" and len(req.output_tokens) == n,
+              f"request {req.request_id}: {req.finish_reason} with "
+              f"{len(req.output_tokens)} tokens, want length/{n}")
+        check(all(0 <= t < vocab for t in req.output_tokens),
+              "token id out of range")
+    if repeat_equal:
+        check(wave2[0].output_tokens == wave1[7].output_tokens,
+              "the exact repeat diverged from its cold run")
+    return prompts, wave1, wave2, wall
+
+
+def token_share(a, b):
+    """The share of tokens equal position for position over request pairs."""
+    pairs = [(x, y) for ra, rb in zip(a, b) for x, y in zip(ra, rb)]
+    return sum(x == y for x, y in pairs) / max(1, len(pairs))
+
+
+def phase_serve(torch, dev, preset, keep=None):
+    """The serving cell of ``preset``: the serve waves on the fused paged
+    path, launches equal to the plan, then a profiled wave and the unfused
+    path.  ``keep`` (a dict) receives the waves' tokens."""
+    import gc
 
     import deepspeed_tpu_torch
 
@@ -3340,32 +3512,13 @@ def phase_serve(torch, dev, preset):
     serve._prefill = timed(torch, spent, "prefill", serve._prefill)
     serve._block = timed(torch, spent, "decode", serve._block)
 
-    rng = np.random.default_rng(0)
-    news = (32, 40, 48, 56, 64, 36, 44, 52)
-    prompts = [rng.integers(0, cfg.vocab_size, n) for n in SERVE_LENS]
     zero_counts()
-    t0 = time.perf_counter()
-    wave1 = [serve.submit(p, max_new_tokens=n) for p, n in zip(prompts, news)]
-    serve.run()
-    shared = np.concatenate([prompts[5][:128],
-                             rng.integers(0, cfg.vocab_size, 60)])
-    wave2 = [serve.submit(prompts[7], max_new_tokens=news[7]),
-             serve.submit(shared, max_new_tokens=48)]
-    serve.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    prompts, wave1, wave2, wall = serve_waves(torch, serve, cfg.vocab_size)
     launches = read_counts()
-
-    for req, n in zip(wave1 + wave2, news + (news[7], 48)):
-        check(req.finish_reason == "length" and len(req.output_tokens) == n,
-              f"request {req.request_id}: {req.finish_reason} with "
-              f"{len(req.output_tokens)} tokens, want length/{n}")
-        check(all(0 <= t < cfg.vocab_size for t in req.output_tokens),
-              "token id out of range")
+    if keep is not None:
+        keep["tokens"] = [r.output_tokens for r in wave1 + wave2]
     hits = [r.prefix_hit_tokens for r in wave2]
     check(sum(hits) > 0, f"wave 2 missed the prefix cache: {hits}")
-    check(wave2[0].output_tokens == wave1[7].output_tokens,
-          "the exact repeat diverged from its cold run")
     serve.pool.check_no_leak()
     serve.prefix_cache.check_no_leak()
     st = serve.stats
@@ -3462,14 +3615,17 @@ def phase_profile(torch, serve, prompts):
 GEN_ROWS, GEN_PROMPT, GEN_NEW = 8, 200, 64
 
 
-def generate_plan(cfg, forwards, int8=False):
+def generate_plan(cfg, forwards, int8=False, fused=True):
     """Launches one generate() call must make: its prefill (one forward over
     the padded prompt bucket: 2L+1 norms and, for a RoPE model, L RoPEs, q
     and k in one launch) and ``forwards`` decode steps, each L calls of the
     four fused kernels (the contiguous flash_decode; the int8 bodies of the
     three GEMVs with int8 weights), for a RoPE model L RoPEs, and the final
-    norm."""
+    norm; unfused (the int8 KV cache, the MoE MLP), each step 2L+1 norms
+    and L RoPEs."""
     L = cfg.num_layers
+    if not fused:
+        return launch_plan(cfg, 1, forwards, fused=False)
     plan = {k: 0 for k in KERNELS}
     plan[norm_kernel(cfg)] = 2 * L + 1 + forwards
     if cfg.position == "rope":
@@ -3616,7 +3772,19 @@ def phase_generate_profile(torch, eng, prompts, int8):
     return out
 
 
-def phase_generate(torch, dev):
+def host_available_gib():
+    """MemAvailable of /proc/meminfo in GiB (None where there is none)."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) / 2**20
+    except OSError:
+        pass
+    return None
+
+
+def phase_generate(torch, dev, keep=None):
     """The main path of this slice: ``init_inference(causal_lm("llama3-8b"),
     {"dtype": ..., "max_out_tokens": 1024}).generate()`` at full width and
     depth, random bf16 weights from seed 0, in bf16 (``generate``) and with
@@ -3627,8 +3795,12 @@ def phase_generate(torch, dev):
     read just after, equal to its plan; then a profiled call.  int8: the
     resident weight bytes equal the count from the leaf shapes, the share of
     greedy tokens equal to the bf16 run's, and a short int8 wave through
-    ``init_serving``.  Returns {path: (launches of the first call, device
-    ms a launch)}."""
+    ``init_serving``.  The int8 engine is built from the module moved to
+    the host first (bf16, 16 GB of host memory): each layer slice goes to
+    the card and is quantized there, so no bf16 copy stays beside the
+    codes; its peak device memory must be below the bf16 engine's.
+    ``keep`` (a dict) receives the bf16 greedy tokens.  Returns {path:
+    (launches of the first call, device ms a launch)}."""
     import gc
 
     import numpy as np
@@ -3646,9 +3818,17 @@ def phase_generate(torch, dev):
           f"random weights (seed 0), built in {time.perf_counter() - t0:.1f}s")
     prompts = np.random.default_rng(0).integers(0, cfg.vocab_size,
                                                 (GEN_ROWS, GEN_PROMPT))
-    runs, greedy = {}, {}
+    runs, greedy, peaks = {}, {}, {}
     for name, dtype in (("generate", "bfloat16"), ("generate_int8", "int8")):
         int8 = dtype == "int8"
+        if int8:
+            avail = host_available_gib()
+            t = time.perf_counter()
+            model.to("cpu")
+            print(f"{name}: the bf16 module moved to the host in "
+                  f"{time.perf_counter() - t:.1f}s (host memory available "
+                  f"before: {avail if avail is None else round(avail, 1)} "
+                  f"GiB)")
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -3726,10 +3906,17 @@ def phase_generate(torch, dev):
               f"distinct tokens)")
         del eng._prefill
         device_ms = phase_generate_profile(torch, eng, prompts, int8)
-        print(f"{name}: peak device memory "
-              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+        peaks[name] = torch.cuda.max_memory_allocated(dev) / 2**30
+        print(f"{name}: peak device memory {peaks[name]:.2f} GiB")
         runs[name] = (launches, device_ms)
         del eng
+    check(peaks["generate_int8"] < peaks["generate"],
+          f"generate_int8 peaks at {peaks['generate_int8']:.2f} GiB, not below "
+          f"bf16 generate's {peaks['generate']:.2f} GiB")
+    print(f"generate_int8: peak device memory {peaks['generate_int8']:.2f} GiB "
+          f"beside bf16 generate's {peaks['generate']:.2f} GiB")
+    if keep is not None:
+        keep["greedy"] = greedy["generate"]
     share = float((greedy["generate_int8"][:, GEN_PROMPT:]
                    == greedy["generate"][:, GEN_PROMPT:]).float().mean())
     print(f"generate_int8: {100 * share:.1f}% of the greedy tokens equal the "
@@ -3781,6 +3968,291 @@ def phase_int8_serve(torch, model, prompts):
           f"{launches['fused_norm_qkv_int8']} / "
           f"{launches['fused_proj_norm_int8']} / {launches['fused_mlp_int8']})")
     serve.close()
+
+
+def cache_bytes(cache):
+    """Device bytes of a KV cache's planes (the x_dtype anchor aside)."""
+    return sum(v.numel() * v.element_size() for v in cache.values()
+               if v.dim() > 0)
+
+
+def serve_rates(st, spent, K):
+    """(prefill tok/s, decode tok/s, decode steps) of a serving run timed
+    by :func:`timed`."""
+    steps = st["decode_blocks"] * K
+    return (st["prefill_tokens"] / spent["prefill"],
+            st["decode_tokens"] / spent["decode"], steps)
+
+
+def phase_fixed_and_kv_int8(torch, dev, serve_keep, gen_keep):
+    """The two KV variants of the llama3-8b serving cell, on a fresh model
+    from seed 0 (the weights ``serve`` and ``generate`` used):
+
+    - ``fixed_slot_serve``: ``paged_kv_cache: false``, the serve waves of
+      ``phase_serve`` on the default fused decode (the contiguous-cache
+      flash_decode at per-row positions); launches equal to the plan,
+      prefill and decode tok/s, peak memory, and the share of greedy tokens
+      equal to the paged run's;
+    - ``kv_int8``: ``quantize_kv_cache: true`` (the unfused loop), wave 1
+      of the serve waves through ``init_serving`` and one ``generate()``
+      (8 x 200 prompt tokens + 64 new); the cache's bytes against the bf16
+      cache of the same shape (expected (128 + 4) / 256 = 0.516 a
+      head-row), the share of greedy tokens equal to the bf16 cache's runs
+      (serve wave 1, and bf16 ``generate``), tok/s, peak memory; launches
+      of the wave and the call together equal to their plans.
+    Returns {"fixed_slot_serve": (launches, {}), "kv_int8": (launches, {})}."""
+    import gc
+
+    import numpy as np
+
+    import deepspeed_tpu_torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = deepspeed_tpu_torch.causal_lm("llama3-8b", dtype=torch.bfloat16,
+                                          seed=0)
+    cfg = model.config
+    serve = deepspeed_tpu_torch.init_serving(
+        model, config={"dtype": "bfloat16", "paged_kv_cache": False,
+                       "max_out_tokens": 1024}, num_slots=8, prefill_chunk=64)
+    torch.cuda.synchronize()
+    check(serve.engine._dparams is not None and not serve.paged,
+          "fixed_slot_serve: not the fused fixed-slot path")
+    print(f"fixed_slot_serve: llama3-8b bf16 (seed 0), {serve.num_slots} "
+          f"slots x {serve.cache_len} tokens, contiguous cache "
+          f"{cache_bytes(serve._cache) / 1e9:.3f} GB, fused decode, built in "
+          f"{time.perf_counter() - t0:.1f}s")
+    spent = {"prefill": 0.0, "decode": 0.0}
+    serve._prefill = timed(torch, spent, "prefill", serve._prefill)
+    serve._block = timed(torch, spent, "decode", serve._block)
+    zero_counts()
+    _, wave1, wave2, wall = serve_waves(torch, serve, cfg.vocab_size)
+    fixed_launches = read_counts()
+    st = serve.stats
+    pre, dec, steps = serve_rates(st, spent, serve._K)
+    plan = launch_plan(cfg, st["prefill_chunks"], steps, fused=True,
+                       contig=True)
+    check(fixed_launches == plan, f"fixed_slot_serve launches "
+          f"{fixed_launches} != plan {plan}")
+    check(st["prefix_hit_tokens"] == 0 and st["preempted"] == 0,
+          f"fixed_slot_serve: a prefix hit or a preemption: {st}")
+    share = token_share([r.output_tokens for r in wave1 + wave2],
+                        serve_keep["tokens"])
+    print(f"fixed_slot_serve: 10 requests in {wall:.2f}s; prefill "
+          f"{st['prefill_tokens']} tokens in {st['prefill_chunks']} chunks, "
+          f"{pre:.1f} tok/s; decode {st['decode_tokens']} tokens in {steps} "
+          f"steps, {dec:.1f} tok/s; launches = plan (flash_decode_contig "
+          f"{fixed_launches['flash_decode_contig']}); {100 * share:.1f}% of "
+          f"the greedy tokens equal the paged run's; peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    serve.close()
+    del serve
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    kv_cfg = {"dtype": "bfloat16", "quantize_kv_cache": True,
+              "max_out_tokens": 1024}
+    serve = deepspeed_tpu_torch.init_serving(model, config=kv_cfg,
+                                             num_slots=8, prefill_chunk=64)
+    check(serve.engine._dparams is None and serve.paged,
+          "kv_int8: not the unfused paged path")
+    planes = serve._cache
+    check(planes["k"].dtype == torch.int8 and planes["k_scale"].dtype ==
+          torch.float32, "kv_int8: the cache is not int8 with fp32 scales")
+    got = cache_bytes(planes)
+    bf16 = 2 * planes["k"].numel() * 2
+    ratio = got / bf16
+    check(ratio <= 0.52, f"kv_int8: cache bytes {got} are {ratio:.4f} of the "
+          f"bf16 cache's {bf16}")
+    spent = {"prefill": 0.0, "decode": 0.0}
+    serve._prefill = timed(torch, spent, "prefill", serve._prefill)
+    serve._block = timed(torch, spent, "decode", serve._block)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in SERVE_LENS]
+    zero_counts()
+    t = time.perf_counter()
+    reqs = [serve.submit(p, max_new_tokens=n)
+            for p, n in zip(prompts, SERVE_NEWS)]
+    serve.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    for r, n in zip(reqs, SERVE_NEWS):
+        check(r.finish_reason == "length" and len(r.output_tokens) == n,
+              f"kv_int8 serve: {r.finish_reason} / {len(r.output_tokens)}")
+    serve.pool.check_no_leak()
+    st = serve.stats
+    pre, dec, steps = serve_rates(st, spent, serve._K)
+    serve_plan = launch_plan(cfg, st["prefill_chunks"], steps, fused=False)
+    s_share = token_share([r.output_tokens for r in reqs],
+                          serve_keep["tokens"][:len(reqs)])
+    print(f"kv_int8: int8 KV cache {got / 1e9:.4f} GB = {ratio:.4f} of the "
+          f"bf16 cache's {bf16 / 1e9:.4f} GB (expected (128 + 4) / 256 = "
+          f"0.5156); serve wave 1, {len(reqs)} requests in {wall:.2f}s: "
+          f"prefill {pre:.1f} tok/s, decode {st['decode_tokens']} tokens in "
+          f"{steps} steps {dec:.1f} tok/s; {100 * s_share:.1f}% of the greedy "
+          f"tokens equal the bf16 paged run's")
+    serve.close()
+    del serve
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = deepspeed_tpu_torch.init_inference(model, kv_cfg)
+    check(eng._dparams is None, "kv_int8 generate: took the fused path")
+    spent = {"prefill": 0.0}
+    eng._prefill = timed(torch, spent, "prefill", eng._prefill)
+    rows = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                             (GEN_ROWS, GEN_PROMPT))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = eng.generate(rows, max_new_tokens=GEN_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = read_counts()
+    out = out.cpu()
+    check(out.shape == (GEN_ROWS, GEN_PROMPT + GEN_NEW) and bool(
+        ((out >= 0) & (out < cfg.vocab_size)).all()),
+        f"kv_int8 generate: {tuple(out.shape)} or an id out of range")
+    check(eng._cache["k"].dtype == torch.int8, "kv_int8 generate: bf16 cache")
+    plan = add_plans(serve_plan, generate_plan(cfg, GEN_NEW - 1, fused=False))
+    check(launches == plan, f"kv_int8 launches {launches} != plan {plan}")
+    g_share = float((out[:, GEN_PROMPT:] == gen_keep["greedy"][:, GEN_PROMPT:]
+                     ).float().mean())
+    dec = (GEN_NEW - 1) * GEN_ROWS / (wall - spent["prefill"])
+    print(f"kv_int8 generate: {tuple(out.shape)} in {wall:.3f}s; prefill "
+          f"{rows.size / spent['prefill']:.1f} tok/s; decode {dec:.1f} tok/s; "
+          f"{100 * g_share:.1f}% of the greedy tokens equal bf16 generate's; "
+          f"launches (wave + call) = plan; peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"fixed_slot_serve": (fixed_launches, {}),
+            "kv_int8": (launches, {})}
+
+
+# the mixtral cell: mixtral-8x7b at full width, 16 of its 32 layers (the
+# 32-layer preset is 93 GB in bf16 and does not fit one card)
+MIXTRAL_LAYERS = 16
+
+
+def phase_mixtral(torch, dev):
+    """``mixtral_serve``: mixtral-8x7b at full width (D 4096, 32/8 heads, F
+    14336, 8 experts top-2, vocab 32000, rope theta 1e6) with 16 layers,
+    bf16 random weights from seed 0, on one card: the serve waves through
+    ``init_serving`` (paged, prefix cache; the repeat's share of equal
+    tokens reported: capacity couples rows), then
+    ``init_inference(...).generate()`` of 8 x 200 prompt tokens + 64 new,
+    both on the unfused loop (every expert's weights read each step, as
+    the JAX dense [E, C, D] contraction reads them); launches of the waves
+    and the call (rms_norm, rope) equal to their plans; parameters, build
+    time, peak memory, prefill and decode tok/s; then a 16-token
+    ``generate()`` under torch.profiler for the device's busy share."""
+    import gc
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    import deepspeed_tpu_torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = deepspeed_tpu_torch.causal_lm("mixtral-8x7b", dtype=torch.bfloat16,
+                                          seed=0, num_layers=MIXTRAL_LAYERS)
+    cfg = model.config
+    n_params = sum(p.numel() for p in model.parameters())
+    serve = deepspeed_tpu_torch.init_serving(
+        model, config={"dtype": "bfloat16", "prefix_caching": True,
+                       "max_out_tokens": 1024}, num_slots=8, prefill_chunk=64)
+    torch.cuda.synchronize()
+    build = time.perf_counter() - t0
+    check(serve.engine._dparams is None, "mixtral: took the fused path")
+    print(f"mixtral_serve: mixtral-8x7b D={cfg.hidden_size} L={cfg.num_layers} "
+          f"H={cfg.num_heads}/{cfg.num_kv_heads} F={cfg.intermediate_size} "
+          f"E={cfg.num_experts} top-{cfg.num_experts_per_tok} "
+          f"V={cfg.vocab_size}, bf16 random weights (seed 0), "
+          f"{n_params / 1e9:.3f}B params ({2 * n_params / 1e9:.2f} GB), paged "
+          f"KV {cache_bytes(serve._cache) / 1e9:.3f} GB, built in {build:.1f}s")
+    spent = {"prefill": 0.0, "decode": 0.0}
+    serve._prefill = timed(torch, spent, "prefill", serve._prefill)
+    serve._block = timed(torch, spent, "decode", serve._block)
+    zero_counts()
+    _, wave1, wave2, wall = serve_waves(torch, serve, cfg.vocab_size,
+                                        repeat_equal=False)
+    st = serve.stats
+    pre, dec, steps = serve_rates(st, spent, serve._K)
+    serve_plan = launch_plan(cfg, st["prefill_chunks"], steps, fused=False)
+    hits = [r.prefix_hit_tokens for r in wave2]
+    check(sum(hits) > 0, f"mixtral wave 2 missed the prefix cache: {hits}")
+    serve.pool.check_no_leak()
+    rep = token_share([wave2[0].output_tokens], [wave1[7].output_tokens])
+    print(f"mixtral_serve: 10 requests in {wall:.2f}s; prefill "
+          f"{st['prefill_tokens']} tokens in {st['prefill_chunks']} chunks, "
+          f"{pre:.1f} tok/s; decode {st['decode_tokens']} tokens in {steps} "
+          f"steps of {serve.num_slots} slots, {dec:.1f} tok/s; prefix hits "
+          f"wave 2 {hits}; the repeat equals its cold run at "
+          f"{100 * rep:.1f}% of its tokens")
+    serve.close()
+    del serve
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = deepspeed_tpu_torch.init_inference(
+        model, {"dtype": "bfloat16", "max_out_tokens": 1024})
+    check(eng._dparams is None, "mixtral generate: took the fused path")
+    spent = {"prefill": 0.0}
+    eng._prefill = timed(torch, spent, "prefill", eng._prefill)
+    rows = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                             (GEN_ROWS, GEN_PROMPT))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = eng.generate(rows, max_new_tokens=GEN_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = read_counts()
+    out = out.cpu()
+    check(out.shape == (GEN_ROWS, GEN_PROMPT + GEN_NEW) and bool(
+        ((out >= 0) & (out < cfg.vocab_size)).all()),
+        f"mixtral generate: {tuple(out.shape)} or an id out of range")
+    plan = add_plans(serve_plan, generate_plan(cfg, GEN_NEW - 1, fused=False))
+    check(launches == plan, f"mixtral launches {launches} != plan {plan}")
+    check(launches["rms_norm"] > 0 and launches["rope"] > 0,
+          "mixtral: rms_norm or rope never ran")
+    dec_g = (GEN_NEW - 1) * GEN_ROWS / (wall - spent["prefill"])
+    print(f"mixtral generate: {tuple(out.shape)} in {wall:.3f}s; prefill "
+          f"{rows.size} tokens {rows.size / spent['prefill']:.1f} tok/s; "
+          f"decode {GEN_NEW - 1} steps x {GEN_ROWS} rows {dec_g:.1f} tok/s "
+          f"({1e3 * (wall - spent['prefill']) / (GEN_NEW - 1):.2f} ms a "
+          f"step); {len(set(out[:, GEN_PROMPT:].reshape(-1).tolist()))} "
+          f"distinct new tokens; launches (waves + call) = plan (rms_norm "
+          f"{launches['rms_norm']}, rope {launches['rope']})")
+    del eng._prefill
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        eng.generate(rows, max_new_tokens=16)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) is not None
+               and str(e.device_type).endswith("CUDA")
+               and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in kernels)
+    print(f"mixtral profile: generate 8 x (200 + 16), wall "
+          f"{wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms "
+          f"({100 * busy / wall_us:.1f}%, idle {100 - 100 * busy / wall_us:.1f}%)")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d}x "
+              f"{e.key[:90]}")
+    print(f"mixtral_serve: peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, {}
 
 
 # the train cells: preset -> (micro batch, sequence length); 16384 tokens a
@@ -4506,15 +4978,20 @@ def main() -> int:
     for preset, policy in (("llama-tiny", "mlp_dots"), ("gpt2-small", "full")):
         phase_reference(torch, dev, preset)
         phase_train_reference(torch, dev, preset, policy)
+    phase_reference_kv_int8(torch, dev)
+    phase_reference_moe(torch, dev)
     phase_preset_train_reference(torch, dev)
     phase_hf_train_reference(torch, dev)
     phase_optimizer_reference(torch, dev)
     # each path: (launch counts of its run, device ms per call in its profile)
     peaks, medians = {}, {}
+    serve_keep, gen_keep = {}, {}
     runs = {"ops": (phase_ops(torch, dev), {}),
-            "serve": phase_serve(torch, dev, "llama3-8b"),
+            "serve": phase_serve(torch, dev, "llama3-8b", keep=serve_keep),
             "gpt2_serve": phase_serve(torch, dev, "gpt2-xl"),
-            **phase_generate(torch, dev),
+            **phase_generate(torch, dev, keep=gen_keep),
+            **phase_fixed_and_kv_int8(torch, dev, serve_keep, gen_keep),
+            "mixtral_serve": phase_mixtral(torch, dev),
             "train": phase_train(torch, dev, "llama-1b4", "train", peaks=peaks,
                                  medians=medians),
             "checkpoint": phase_checkpoint(torch, dev),

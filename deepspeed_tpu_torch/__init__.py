@@ -5,16 +5,19 @@ imports torch and never jax, and nothing of ``deepspeed_tpu``.  Entry
 points run on the CUDA card unless the caller passes ``device="cpu"``; with
 no card and no device given they raise.
 
-It serves the Llama and GPT-2 families through the paged
-continuous-batching engine (:func:`init_serving`) and generates through
-:func:`init_inference` (``InferenceEngine.generate()`` over a contiguous KV
-cache), in bf16, fp32 or with int8 weights.
+It serves the Llama, GPT-2 and Mixtral families through the
+continuous-batching engine (:func:`init_serving`: a paged KV pool, or the
+fixed-slot layout) and generates through :func:`init_inference`
+(``InferenceEngine.generate()`` over a contiguous KV cache), in bf16, fp32
+or with int8 weights, the KV cache in the activations' dtype or int8
+(``quantize_kv_cache``); a Mixtral model's MLP is the top-k MoE of
+:mod:`deepspeed_tpu_torch.moe`.
 Decode runs the kernel-injected (fused) path by default: four CUDA C++
 kernels per layer (fused norm+QKV, flash-decode attention over the paged
 pool or the contiguous cache, out-projection+residual+norm, fused MLP; int8
 weights dequantized inside the three GEMV kernels); ``use_fused_decode: False``
-keeps the unfused path.  Prefill runs RMSNorm (CUDA C++) and RoPE
-(Triton).  It trains on one card through :func:`initialize` (the Llama
+keeps the unfused path, which the int8 KV cache and MoE models always
+take.  Prefill runs RMSNorm and RoPE (CUDA C++).  It trains on one card through :func:`initialize` (the Llama
 and GPT-2 presets, and BLOOM, GPT-NeoX or GPT-J imported from a
 HuggingFace checkpoint by :mod:`deepspeed_tpu_torch.module_inject`; the
 standard path: bf16 compute, or fp16 compute with a static or dynamic
@@ -114,7 +117,8 @@ def init_serving(model=None, config=None, *, params: Any = None,
                  do_sample: bool = False, temperature: float = 1.0,
                  top_k: int = 0, top_p: float = 1.0, **config_kwargs):
     """Create a continuous-batching :class:`~deepspeed_tpu_torch.serving.
-    engine.ServingEngine` over a paged KV cache (counterpart of
+    engine.ServingEngine` over a paged (or, with ``paged_kv_cache: false``,
+    a fixed-slot) KV cache (counterpart of
     ``deepspeed_tpu.init_serving``).  ``config`` is a dict or a
     :class:`~deepspeed_tpu_torch.inference.config.DeepSpeedInferenceConfig`;
     extra keyword arguments are config keys laid over it.  ``params`` is

@@ -3,9 +3,8 @@
 A copy of ``deepspeed_tpu/inference/config.py``: the same field names and
 defaults, so one config dict means the same thing to both engines.  Fields
 whose feature is not ported yet are accepted here and refused by the engine
-that would act on them (ROADMAP.md), never silently ignored:
-``quantize_kv_cache``, a ``checkpoint`` in the legacy msgpack layout,
-``paged_kv_cache=False``, ``kv_host_tier_pages > 0`` and
+that would act on them (ROADMAP.md), never silently ignored: a
+``checkpoint`` in the legacy msgpack layout, ``kv_host_tier_pages > 0`` and
 ``tensor_parallel.tp_size > 1``.
 """
 

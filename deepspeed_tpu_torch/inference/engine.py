@@ -4,16 +4,20 @@ Counterpart of ``deepspeed_tpu/inference/engine.py``: ``init_inference(model,
 config)`` -> :class:`InferenceEngine` with ``generate()``.
 
 - weights: the parameter tree cast to the serving dtype on the engine's
-  device; ``dtype: "int8"`` casts to bf16 first, then quantizes the layer
-  matmul weights and the head to int8 with per-column scales
-  (``models/quant.py``); activations stay bf16.  The kernel-injected view
+  device; ``dtype: "int8"`` quantizes the layer matmul weights and the head
+  to int8 with per-column scales (``models/quant.py``) from their bf16
+  values, one layer slice at a time, each slice moved to the device, cast
+  and quantized before the next (the device never holds a bf16 copy of a
+  quantized leaf); activations stay bf16.  The kernel-injected view
   (``_dparams``, QKV concatenated per layer) is built when the model
   supports the fused decode path, as in the JAX engine.
 - the KV cache: one contiguous ``[L, B, Hkv, Smax, Dh]`` allocation whose
   batch and length are power-of-two buckets that never shrink, so mixed
   request sizes reuse it; a growth reallocation counts a rebind
   (``cache_rebinds``).  One spare row past the request's ``max_len`` keeps
-  the JAX engine's cache sizing.
+  the JAX engine's cache sizing.  ``quantize_kv_cache`` makes it the int8
+  cache (``models/decoding.py``): int8 K/V with an fp32 scale a position
+  and head, decoded on the unfused loop as in the JAX engine.
 - prefill on the plain tree over the prompt right-padded to its bucket,
   the head computed at the last true position only;
 - the generation loop: a Python loop of decode steps on the device, with
@@ -30,10 +34,9 @@ config)`` -> :class:`InferenceEngine` with ``generate()``.
   the sharded layout either package writes, or a HuggingFace checkpoint
   directory through ``module_inject``.
 
-Not ported yet (ROADMAP.md): tensor-parallel meshes, the int8 KV cache
-(``quantize_kv_cache``) and the legacy msgpack checkpoint layout; a config
-asking for them is refused here instead of being served another way than
-the JAX engine would.
+Not ported yet (ROADMAP.md): tensor-parallel meshes and the legacy msgpack
+checkpoint layout; a config asking for them is refused here instead of
+being served another way than the JAX engine would.
 """
 
 from __future__ import annotations
@@ -102,14 +105,11 @@ class InferenceEngine:
             raise NotImplementedError(
                 "tensor-parallel inference is not ported yet (ROADMAP.md "
                 "queue 1)")
-        if config.quantize_kv_cache:
-            raise NotImplementedError(
-                "the int8 KV cache is not ported yet (ROADMAP.md queue 1: "
-                "serving features deferred from the first slice)")
         if getattr(model, "config", None) is None:
             raise TypeError("model must carry a ModelConfig as .config "
                             "(use deepspeed_tpu_torch.models.causal_lm)")
-        # int8 = quantized WEIGHTS; activations and the KV cache stay bf16
+        # int8 = quantized WEIGHTS; activations stay bf16 (the KV cache too,
+        # unless quantize_kv_cache)
         self._int8_weights = config.dtype in _INT8
         self.dtype = (torch.bfloat16 if self._int8_weights
                       else _DTYPES.get(config.dtype, torch.float32))
@@ -131,10 +131,13 @@ class InferenceEngine:
     # ------------------------------------------------------------------
     def set_params(self, params: Any) -> None:
         """Move the parameter tree to the engine's device and cast floating
-        leaves to the serving dtype (a leaf already there is used as is);
-        with int8 weights, then quantize the layer matmul weights and the
-        head (leaves given as QTensors keep their codes and scales).
-        Rebuilds the kernel-injected view."""
+        leaves to the serving dtype (a leaf already there is used as is).
+        With int8 weights the layer matmul weights and the head are
+        quantized from their serving-dtype values one layer slice at a
+        time, so the device holds one bf16 slice and its fp32 temporaries
+        beside the codes, never a bf16 copy of a whole leaf (leaves given as
+        QTensors keep their codes and scales).  Rebuilds the
+        kernel-injected view."""
         def cast(t):
             if is_qtensor(t):
                 return QTensor(t.q.to(self.device),
@@ -147,10 +150,13 @@ class InferenceEngine:
         with torch.no_grad():
             self._params = None
             self._dparams = None
-            tree = _tree_map(cast, params)
+            tree = params
             if self._int8_weights:
-                tree = quantize_layer_params(tree, self.module.config)
-            self._params = tree
+                tree = quantize_layer_params(
+                    _tree_map(lambda t: t if is_qtensor(t)
+                              else torch.as_tensor(t), tree),
+                    self.module.config, place=cast)
+            self._params = _tree_map(cast, tree)
             self._build_injected_view()
         n = sum(t.numel() for t in _leaves(self._params))
         logger.info("inference engine ready: %.2fM params, dtype %s%s, on %s%s",
@@ -243,8 +249,9 @@ class InferenceEngine:
                 need_len = max(need_len, cur["k"].shape[3])
                 self.cache_rebinds += 1
                 self._cache = cur = None     # free before reallocating
-            self._cache = init_kv_cache(cfg, need_b, need_len,
-                                        dtype=self.dtype, device=self.device)
+            self._cache = init_kv_cache(
+                cfg, need_b, need_len, dtype=self.dtype, device=self.device,
+                quantized=self._config.quantize_kv_cache)
         return self._cache["k"].shape[1]
 
     def _prefill(self, params, cache, tokens, pos, last_idx):

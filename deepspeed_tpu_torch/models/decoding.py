@@ -16,8 +16,18 @@ packages take the same numerical path for the same call.
 
 Matmul weights may be int8 :class:`~deepspeed_tpu_torch.models.quant.
 QTensor` leaves: each product dequantizes its weight to the activation
-dtype (``QTensor.__rmatmul__``), as the JAX ``QTensor`` does.  The int8 KV
-cache and the MoE MLP are not in this slice (ROADMAP.md).
+dtype (``QTensor.__rmatmul__``), as the JAX ``QTensor`` does.
+
+The int8 KV cache (``init_kv_cache(quantized=True)``, and the paged pool's
+``init_paged_kv_cache(quantized=True)``) stores K and V as int8 codes with
+an fp32 scale per (position, head) over the head dim, ``k_scale`` /
+``v_scale`` of shape ``[..., 1]``, and an ``x_dtype`` zero-dim tensor
+naming the activations' dtype.  Each write quantizes its rows
+(:func:`_quantize_kv_rows`); each read dequantizes as ``code * scale`` in
+fp32 inside the attention, as the JAX readers do.  An MoE model's MLP is
+:func:`~deepspeed_tpu_torch.moe.sharded_moe.moe_mlp` on the layer's
+weights, over every row of the call (parked slots and pad rows included,
+as the JAX programs feed them: capacity couples rows).
 """
 
 from __future__ import annotations
@@ -30,6 +40,8 @@ import torch
 from deepspeed_tpu_torch.accelerator.real_accelerator import DeviceLike, resolve_device
 from deepspeed_tpu_torch.models.layers import (_repeat_kv, activation_fn,
                                                alibi_slopes, norm, rope_dim)
+from deepspeed_tpu_torch.models.quant import _INV_QMAX
+from deepspeed_tpu_torch.moe.sharded_moe import moe_mlp
 from deepspeed_tpu_torch.ops.kernels import rope_angles
 from deepspeed_tpu_torch.ops.kernels.rope import rope_qk
 
@@ -44,11 +56,9 @@ def init_kv_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
                   quantized: bool = False) -> Dict[str, Any]:
     """Contiguous per-row cache.  Caches longer than one decode block are
     rounded UP to a block multiple so the flash-decode path applies (read
-    the length back from ``cache['k'].shape[-2]``)."""
-    if quantized:
-        raise NotImplementedError(
-            "the int8 KV cache is not ported yet (ROADMAP.md queue 1: "
-            "serving features deferred from the first slice)")
+    the length back from ``cache['k'].shape[-2]``).  ``quantized`` makes
+    the int8 cache: int8 ``k``/``v``, fp32 ``k_scale``/``v_scale``
+    ``[L, batch, Hkv, max_len, 1]`` and the ``x_dtype`` anchor."""
     L, Hkv, Dh = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
     if max_len > DECODE_BLOCK and max_len % DECODE_BLOCK:
         rounded = -(-max_len // DECODE_BLOCK) * DECODE_BLOCK
@@ -57,8 +67,47 @@ def init_kv_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
         max_len = rounded
     dev = resolve_device(device)
     shape = (L, batch, Hkv, max_len, Dh)
+    if quantized:
+        return quantized_planes(shape, dtype, dev)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def quantized_planes(shape, dtype, device) -> Dict[str, Any]:
+    """The int8 cache's planes for K/V of ``shape`` (contiguous or paged)."""
+    return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros(shape[:-1] + (1,), dtype=torch.float32,
+                                   device=device),
+            "v_scale": torch.zeros(shape[:-1] + (1,), dtype=torch.float32,
+                                   device=device),
+            "x_dtype": torch.zeros((), dtype=dtype, device=device)}
+
+
+def cache_planes(cache: Dict[str, Any]) -> Dict[str, Any]:
+    """The cache's per-token planes (K, V and, int8, their scales): every
+    entry but the zero-dim ``x_dtype`` anchor."""
+    return {k: v for k, v in cache.items() if v.dim() > 0}
+
+
+def activation_dtype(cache: Dict[str, Any]) -> torch.dtype:
+    """The dtype decode activations run in: the cache's, or the int8
+    cache's ``x_dtype`` anchor."""
+    return cache["x_dtype"].dtype if "x_dtype" in cache else cache["k"].dtype
+
+
+def _quantize_kv_rows(x: torch.Tensor):
+    """[B, Hkv, s, Dh] -> (int8 codes, fp32 [B, Hkv, s, 1] scales): absmax
+    over the head dim, scale 1 for an all-zero row, codes rounded half to
+    even and clipped to ±127.  The scale is the product with the fp32
+    reciprocal of 127, as XLA computes the JAX function's ``absmax / 127.0``
+    under jit (a Python float multiplies an fp32 tensor in fp32)."""
+    x32 = x.float()
+    absmax = x32.abs().amax(dim=-1, keepdim=True)
+    scale = torch.where(absmax == 0, torch.ones_like(absmax),
+                        absmax * _INV_QMAX)
+    q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
+    return q, scale
 
 
 def _as_row_pos(q_pos: torch.Tensor) -> torch.Tensor:
@@ -66,14 +115,22 @@ def _as_row_pos(q_pos: torch.Tensor) -> torch.Tensor:
     return q_pos[None] if q_pos.dim() == 1 else q_pos
 
 
-def _cached_attention_dense(q, kcache, vcache, q_pos, scale, slopes=None):
+def _dequant(block, block_scale):
+    """A cache block in fp32: ``code * scale`` for an int8 cache."""
+    out = block.float()
+    return out if block_scale is None else out * block_scale
+
+
+def _cached_attention_dense(q, kcache, vcache, q_pos, scale, slopes=None,
+                            k_scale=None, v_scale=None):
     """Masked attention over the whole cache (prefill path, s > 1).
-    ``q_pos`` is [s] (batch-shared) or [B, s]; ``slopes`` [H] adds ALiBi."""
+    ``q_pos`` is [s] (batch-shared) or [B, s]; ``slopes`` [H] adds ALiBi;
+    ``k_scale``/``v_scale`` dequantize an int8 cache."""
     B, H, s, Dh = q.shape
     Hkv = kcache.shape[1]
     q_pos = _as_row_pos(q_pos)
-    k = _repeat_kv(kcache.float(), H // Hkv)
-    v = _repeat_kv(vcache.float(), H // Hkv)
+    k = _repeat_kv(_dequant(kcache, k_scale), H // Hkv)
+    v = _repeat_kv(_dequant(vcache, v_scale), H // Hkv)
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k) * scale
     key_pos = torch.arange(k.shape[-2], device=q.device)
     if slopes is not None:
@@ -88,13 +145,15 @@ def _cached_attention_dense(q, kcache, vcache, q_pos, scale, slopes=None):
 
 def _cached_attention_flash_decode(q, kcache, vcache, q_pos, scale,
                                    slopes=None, block: int = DECODE_BLOCK,
-                                   n_blocks: Optional[int] = None):
+                                   n_blocks: Optional[int] = None,
+                                   k_scale=None, v_scale=None):
     """Length-aware decode attention: online softmax over cache blocks
     [0, n_blocks), n_blocks = max(q_pos) // block + 1.  Shallower rows'
     extra blocks are fully masked and add exactly 0 (exp(NEG_INF - m) is 0
     and their correction factor exactly 1), so a caller may pass a larger
     ``n_blocks`` — an upper bound it knows on the host — and get the same
-    bits without a device sync."""
+    bits without a device sync.  ``k_scale``/``v_scale`` dequantize an int8
+    cache block by block."""
     B, H, s, Dh = q.shape
     Hkv, Smax = kcache.shape[1], kcache.shape[2]
     rep = H // Hkv
@@ -108,8 +167,11 @@ def _cached_attention_flash_decode(q, kcache, vcache, q_pos, scale,
     acc = torch.zeros((B, H, s, Dh), dtype=torch.float32, device=q.device)
     for i in range(n_blocks):
         start = i * block
-        kb = _repeat_kv(kcache[:, :, start:start + block].float(), rep)
-        vb = _repeat_kv(vcache[:, :, start:start + block].float(), rep)
+        sl = slice(start, start + block)
+        kb = _repeat_kv(_dequant(kcache[:, :, sl], None if k_scale is None
+                                 else k_scale[:, :, sl]), rep)
+        vb = _repeat_kv(_dequant(vcache[:, :, sl], None if v_scale is None
+                                 else v_scale[:, :, sl]), rep)
         logits = torch.einsum("bhqd,bhkd->bhqk", qf, kb) * scale
         key_pos = start + torch.arange(block, device=q.device)
         if slopes is not None:
@@ -129,7 +191,8 @@ def _cached_attention_flash_decode(q, kcache, vcache, q_pos, scale,
 
 
 def _cached_attention(q, kcache, vcache, q_pos, scale, slopes=None,
-                      n_blocks: Optional[int] = None):
+                      n_blocks: Optional[int] = None, k_scale=None,
+                      v_scale=None):
     """q: [B, H, s, Dh]; caches: [B, Hkv, Smax, Dh].  Decode (s == 1,
     cache longer than one block and a block multiple) takes the length-aware
     flash-decode; everything else the dense masked path — the JAX package's
@@ -140,11 +203,14 @@ def _cached_attention(q, kcache, vcache, q_pos, scale, slopes=None,
         if Smax % DECODE_BLOCK == 0:
             return _cached_attention_flash_decode(q, kcache, vcache, q_pos,
                                                   scale, slopes,
-                                                  n_blocks=n_blocks)
+                                                  n_blocks=n_blocks,
+                                                  k_scale=k_scale,
+                                                  v_scale=v_scale)
         logger.warning("decode: cache length %d is not a multiple of %d; the "
                        "length-aware flash-decode is disabled", Smax,
                        DECODE_BLOCK)
-    return _cached_attention_dense(q, kcache, vcache, q_pos, scale, slopes)
+    return _cached_attention_dense(q, kcache, vcache, q_pos, scale, slopes,
+                                   k_scale, v_scale)
 
 
 def paged_logical_view(buf, page_table):
@@ -175,6 +241,23 @@ def _scatter_rows(buf, rows, start_pos):
     bidx = torch.arange(B, device=buf.device)[:, None]
     pidx = start_pos[:, None] + torch.arange(s, device=buf.device)[None, :]
     buf[bidx, :, pidx, :] = rows.transpose(1, 2).to(buf.dtype)
+
+
+def _dense_mlp(mp, h, cfg, act):
+    up = h @ mp["w_up"]
+    if cfg.has_mlp_bias:
+        up = up + mp["b_up"]
+    if cfg.glu:
+        gate = h @ mp["w_gate"]
+        if cfg.has_mlp_bias:
+            gate = gate + mp["b_gate"]
+        gated = act(gate) * up
+    else:
+        gated = act(up)
+    out = gated @ mp["w_down"]
+    if cfg.has_mlp_bias:
+        out = out + mp["b_down"]
+    return out
 
 
 @torch.no_grad()
@@ -208,9 +291,7 @@ def forward_with_cache(model, params, tokens, cache, start_pos,
     if paged and (not per_row or s != 1):
         raise ValueError("paged KV decode requires per-row positions and "
                          "s == 1 (prefill runs on a gathered slot view)")
-    if cfg.is_moe:
-        raise NotImplementedError("the MoE MLP is not ported yet (ROADMAP.md "
-                                  "queue 1)")
+    quant_kv = "k_scale" in cache
     x = params["embed"]["tok"][tokens]
     if per_row:
         q_pos = start_pos[:, None] + torch.arange(s, device=dev)    # [B, s]
@@ -225,7 +306,7 @@ def forward_with_cache(model, params, tokens, cache, start_pos,
         x = x + (pos_emb if per_row else pos_emb[None])
     if cfg.embed_norm:
         x = norm(x, params["embed"]["norm"], "layernorm", cfg.norm_eps)
-    x = x.to(cache["k"].dtype)
+    x = x.to(activation_dtype(cache))
     slopes = alibi_slopes(H, device=dev) if cfg.position == "alibi" else None
 
     s_max = cache["k"].shape[-2] * (page_table.shape[1] if paged else 1)
@@ -251,6 +332,8 @@ def forward_with_cache(model, params, tokens, cache, start_pos,
         a = {k: w[li] for k, w in lyr["attn"].items()}
         mp = {k: w[li] for k, w in lyr["mlp"].items()}
         kc, vc = cache["k"][li], cache["v"][li]
+        ksc = cache["k_scale"][li] if quant_kv else None
+        vsc = cache["v_scale"][li] if quant_kv else None
         x0 = x
         h = norm(x, {k: w[li] for k, w in lyr["attn_norm"].items()}, cfg.norm,
                  cfg.norm_eps)
@@ -271,21 +354,30 @@ def forward_with_cache(model, params, tokens, cache, start_pos,
         else:
             q = q.transpose(1, 2)
             k = k.transpose(1, 2)
-        if paged:
-            _scatter_paged_rows(kc, k, start_pos, page_table)
-            _scatter_paged_rows(vc, v, start_pos, page_table)
-            o = _cached_attention(q, paged_logical_view(kc, page_table),
-                                  paged_logical_view(vc, page_table), q_pos,
-                                  scale, slopes, n_blocks=n_blocks)
+        if quant_kv:
+            kq, ks = _quantize_kv_rows(k)
+            vq, vs = _quantize_kv_rows(v)
+            writes = ((kc, kq), (vc, vq), (ksc, ks), (vsc, vs))
         else:
-            if per_row:
-                _scatter_rows(kc, k, start_pos)
-                _scatter_rows(vc, v, start_pos)
+            writes = ((kc, k), (vc, v))
+        for buf, rows in writes:
+            if paged:
+                _scatter_paged_rows(buf, rows, start_pos, page_table)
+            elif per_row:
+                _scatter_rows(buf, rows, start_pos)
             else:
-                kc[:, :, start_pos:start_pos + s] = k.to(kc.dtype)
-                vc[:, :, start_pos:start_pos + s] = v.to(vc.dtype)
+                buf[:, :, start_pos:start_pos + s] = rows.to(buf.dtype)
+        if paged:
+            def view(buf):
+                return (None if buf is None
+                        else paged_logical_view(buf, page_table))
+            o = _cached_attention(q, view(kc), view(vc), q_pos, scale, slopes,
+                                  n_blocks=n_blocks, k_scale=view(ksc),
+                                  v_scale=view(vsc))
+        else:
             o = _cached_attention(q, kc, vc, q_pos, scale, slopes,
-                                  n_blocks=n_blocks)
+                                  n_blocks=n_blocks, k_scale=ksc,
+                                  v_scale=vsc)
         o = o.transpose(1, 2).reshape(B, s, H * Dh) @ a["wo"]
         if cfg.use_bias:
             o = o + a["bo"]
@@ -296,19 +388,13 @@ def forward_with_cache(model, params, tokens, cache, start_pos,
             mlp_src = x
         h = norm(mlp_src, {k: w[li] for k, w in lyr["mlp_norm"].items()},
                  cfg.norm, cfg.norm_eps)
-        up = h @ mp["w_up"]
-        if cfg.has_mlp_bias:
-            up = up + mp["b_up"]
-        if cfg.glu:
-            gate = h @ mp["w_gate"]
-            if cfg.has_mlp_bias:
-                gate = gate + mp["b_gate"]
-            gated = act(gate) * up
+        if cfg.is_moe:
+            # the JAX step casts the layer's MoE weights to the activations'
+            # dtype first (the router's too, before its fp32 logits)
+            mlp_out, _ = moe_mlp({k: w.to(h.dtype) for k, w in mp.items()},
+                                 h, cfg)
         else:
-            gated = act(up)
-        mlp_out = gated @ mp["w_down"]
-        if cfg.has_mlp_bias:
-            mlp_out = mlp_out + mp["b_down"]
+            mlp_out = _dense_mlp(mp, h, cfg, act)
         x = (x0 + o + mlp_out) if cfg.parallel_residual else (x + mlp_out)
     if logits_at is not None:
         x = x[:, logits_at:logits_at + 1].contiguous()

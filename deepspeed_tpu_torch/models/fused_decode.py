@@ -127,8 +127,10 @@ def decode_step(cfg, dparams, tokens, cache, pos, *, page_table=None):
         raise ValueError("paged KV decode requires per-row positions")
     if "k_scale" in cache:
         raise NotImplementedError(
-            "decode_step over the int8 KV cache is not ported yet (ROADMAP.md "
-            "queue 1: the int8 KV cache)")
+            "decode_step does not take the int8 KV cache: the JAX fused path "
+            "does not either, and supports_fused_decode routes it to the "
+            "unfused loop, forward_with_cache (ROADMAP.md queue 1: the int8 "
+            "KV cache decodes on the unfused loop)")
     if not per_row:
         pos = int(pos)
     B = tokens.shape[0]

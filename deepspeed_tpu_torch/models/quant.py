@@ -12,7 +12,7 @@ bytes, so int8 is a throughput lever as well as a memory one.
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -71,16 +71,29 @@ def is_qtensor(x: Any) -> bool:
     return isinstance(x, QTensor)
 
 
-def quantize_weight(w: torch.Tensor, axis: int = -2) -> QTensor:
+def quantize_weight(w: torch.Tensor, axis: int = -2,
+                    place: Optional[Callable] = None) -> QTensor:
     """Symmetric per-output-column int8: absmax over the contraction axis
     (default -2, the d_in of a [..., d_in, d_out] matmul weight), scale 1
     where a column is all zero, codes rounded half to even and clipped to
-    ±127.  A stacked leaf is quantized one leading index at a time, so the
-    fp32 temporaries stay one layer's size."""
+    ±127.  ``place`` maps each slice to the tensor that is quantized (the
+    serving engine's move to its device and dtype), so the codes land
+    where it puts them.  A stacked leaf is quantized one leading index at a
+    time into codes and scales allocated once: the placed copy and the fp32
+    temporaries stay one layer's size."""
     if w.dim() >= 3 and axis in (-2, w.dim() - 2):
-        parts = [quantize_weight(w[i], axis=-2) for i in range(w.shape[0])]
-        return QTensor(torch.stack([p.q for p in parts]),
-                       torch.stack([p.scale for p in parts]))
+        q = scale = None
+        for i in range(w.shape[0]):
+            part = quantize_weight(w[i], axis=-2, place=place)
+            if q is None:
+                q = part.q.new_empty((w.shape[0],) + tuple(part.q.shape))
+                scale = part.scale.new_empty((w.shape[0],)
+                                             + tuple(part.scale.shape))
+            q[i], scale[i] = part.q, part.scale
+            del part
+        return QTensor(q, scale)
+    if place is not None:
+        w = place(w)
     w32 = w.float()
     absmax = torch.amax(w32.abs(), dim=axis, keepdim=True)
     inv = torch.tensor(_INV_QMAX, dtype=torch.float32, device=w.device)
@@ -89,12 +102,15 @@ def quantize_weight(w: torch.Tensor, axis: int = -2) -> QTensor:
     return QTensor(q, scale)
 
 
-def quantize_layer_params(params: Any, cfg=None) -> Any:
+def quantize_layer_params(params: Any, cfg=None,
+                          place: Optional[Callable] = None) -> Any:
     """Quantize the transformer-layer matmul weights of a parameter tree:
     leaves of 3 or more dims under ``layers`` (stacked [L, d_in, d_out]
     weights; the 2-d leaves there are stacked vectors) and ``lm_head``.
     Embeddings, norms and biases stay dense, and so does an MoE model's
-    MLP.  A leaf that is already a :class:`QTensor` is kept as it is."""
+    MLP.  A leaf that is already a :class:`QTensor` is kept as it is.
+    ``place`` is :func:`quantize_weight`'s, applied slice by slice to the
+    quantized leaves only; the others are returned untouched."""
     out = dict(params)
     skip_mlp = bool(getattr(cfg, "is_moe", False))
 
@@ -103,13 +119,13 @@ def quantize_layer_params(params: Any, cfg=None) -> Any:
             return {k: walk(v, in_mlp or k == "mlp") for k, v in tree.items()}
         if is_qtensor(tree) or (skip_mlp and in_mlp) or tree.dim() < 3:
             return tree
-        return quantize_weight(tree)
+        return quantize_weight(tree, place=place)
 
     if "layers" in out:
         out["layers"] = walk(out["layers"], False)
     head = out.get("lm_head")
     if head is not None and not is_qtensor(head) and head.dim() >= 2:
-        out["lm_head"] = quantize_weight(head)
+        out["lm_head"] = quantize_weight(head, place=place)
     return out
 
 

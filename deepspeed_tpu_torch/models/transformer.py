@@ -27,7 +27,10 @@ over the nested JAX-layout param dict, so the engine can hand it a
 grad-carrying compute copy of the weights.  The parameters registered on
 the module keep ``requires_grad=False`` for serving, which runs the model
 through :func:`~deepspeed_tpu_torch.models.decoding.forward_with_cache`.
-MoE, dropout and the ``offload_dots`` remat policy raise naming ROADMAP.md.
+An MoE model (the Mixtral family: top-k routed experts in place of the
+MLP, :mod:`deepspeed_tpu_torch.moe`) gives logits and serves; its training
+(the aux loss and the backward), dropout and the ``offload_dots`` remat
+policy raise naming ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -115,10 +118,6 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     """The parameter tree's shapes, leaf for leaf as the JAX init builds it,
     with each leaf's init as ``(shape, kind, scale)``: kind is ``uniform``
     (±scale), ``normal`` (std scale), ``ones`` or ``zeros``."""
-    if cfg.is_moe:
-        raise NotImplementedError(
-            "MoE models are not ported yet (ROADMAP.md queue 1: serving "
-            "features deferred from the first slice)")
     D, F, V, L = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size, cfg.num_layers
     H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     s_in, s_ff = D ** -0.5, F ** -0.5
@@ -139,11 +138,19 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
                     bv=((L, Hkv * Dh), "zeros", 0.0))
     if cfg.use_bias:
         attn["bo"] = ((L, D), "zeros", 0.0)
-    mlp = {"w_up": ((L, D, F), "uniform", s_in),
-           "w_down": ((L, F, D), "uniform", s_ff)}
-    if cfg.glu:
-        mlp["w_gate"] = ((L, D, F), "uniform", s_in)
-    if cfg.has_mlp_bias:
+    if cfg.is_moe:
+        E = cfg.num_experts
+        mlp = {"gate_w": ((L, D, E), "uniform", s_in),
+               "w_up": ((L, E, D, F), "uniform", s_in),
+               "w_down": ((L, E, F, D), "uniform", s_ff)}
+        if cfg.glu:
+            mlp["w_gate"] = ((L, E, D, F), "uniform", s_in)
+    else:
+        mlp = {"w_up": ((L, D, F), "uniform", s_in),
+               "w_down": ((L, F, D), "uniform", s_ff)}
+        if cfg.glu:
+            mlp["w_gate"] = ((L, D, F), "uniform", s_in)
+    if cfg.has_mlp_bias and not cfg.is_moe:
         mlp.update(b_up=((L, F), "zeros", 0.0), b_down=((L, D), "zeros", 0.0))
         if cfg.glu:
             mlp["b_gate"] = ((L, F), "zeros", 0.0)
@@ -219,10 +226,10 @@ class CausalLM(_ParamTree):
     # ------------------------------------------------------------------
     # training forward (JAX ``CausalLM.apply``)
     # ------------------------------------------------------------------
-    def check_trainable(self) -> None:
-        """Raise for what the training forward does not carry yet."""
+    def _check_forward(self) -> None:
+        """Raise for what the forward does not carry yet."""
         cfg = self.config
-        refused = {"dropout > 0": cfg.dropout > 0, "MoE": cfg.is_moe,
+        refused = {"dropout > 0": cfg.dropout > 0,
                    "remat_policy 'offload_dots'": (bool(cfg.remat) and
                                                    cfg.remat_policy == "offload_dots")}
         bad = [k for k, v in refused.items() if v]
@@ -230,6 +237,15 @@ class CausalLM(_ParamTree):
             raise NotImplementedError(
                 f"training {', '.join(bad)} is not ported yet (ROADMAP.md queue "
                 f"1: the remaining training options and model families)")
+
+    def check_trainable(self) -> None:
+        """Raise for what the training forward does not carry yet."""
+        self._check_forward()
+        if self.config.is_moe:
+            raise NotImplementedError(
+                "training an MoE model is not ported yet (ROADMAP.md queue 1 "
+                "item 6e: MoE training, the aux loss, the backward, "
+                "mixtral-tiny through initialize); the port serves it")
 
     def _attn_out(self, lp, x, cos, sin):
         """Attention sub-block output (residual not added)."""
@@ -260,11 +276,17 @@ class CausalLM(_ParamTree):
         return o.to(x.dtype)
 
     def _mlp_block(self, lp, x, dot=torch.matmul):
-        """``x + mlp(norm(x))``, its matmuls through ``dot``."""
+        """``x + mlp(norm(x))``, its matmuls through ``dot`` (an MoE MLP's
+        batched expert matmuls are not: that model is not trained)."""
         cfg = self.config
         h = norm(x, lp["mlp_norm"], cfg.norm, cfg.norm_eps)
-        act = activation_fn(cfg.activation)
         m = lp["mlp"]
+        if cfg.is_moe:
+            from deepspeed_tpu_torch.moe.sharded_moe import moe_mlp
+
+            out, _ = moe_mlp(m, h, cfg)
+            return x + out.to(x.dtype)
+        act = activation_fn(cfg.activation)
         up = dot(h, m["w_up"])
         if cfg.has_mlp_bias:
             up = up + m["b_up"]
@@ -324,9 +346,12 @@ class CausalLM(_ParamTree):
         """Logits [B, S, V] (no labels) or the mean next-token loss.
         ``params`` is the nested JAX-layout dict; a layer leaf may be the
         stacked ``[L, ...]`` tensor or a sequence of L per-layer tensors
-        (the engine's compute copy)."""
-        self.check_trainable()
+        (the engine's compute copy).  An MoE model gives logits only: its
+        loss carries the aux loss of training, which is not ported yet."""
+        self._check_forward()
         cfg = self.config
+        if cfg.is_moe and labels is not None:
+            self.check_trainable()
         x = params["embed"]["tok"][tokens]
         S = tokens.shape[1]
         if cfg.position == "learned":

@@ -21,8 +21,8 @@ Conventions handled:
   ln_1 is copied into both norm slots of the parallel-residual block.
 - BLOOM: fused per-head-interleaved QKV (like NeoX), ALiBi positions, and
   the word_embeddings_layernorm (``embed_norm``).
-- Mixtral experts w1/w3/w2 -> w_gate/w_up/w_down stacked on a leading [E]
-  (mapped; the port's CausalLM does not build MoE models yet).
+- Mixtral experts w1/w3/w2 -> w_gate/w_up/w_down stacked on a leading [E],
+  the router as ``gate_w`` (the MoE MLP of :mod:`deepspeed_tpu_torch.moe`).
 """
 
 from __future__ import annotations

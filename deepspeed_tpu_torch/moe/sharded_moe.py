@@ -1,0 +1,199 @@
+"""Top-k gating and the MoE feed-forward block, PyTorch port.
+
+Counterpart of ``deepspeed_tpu/moe/sharded_moe.py`` at one expert-parallel
+rank (ep = 1): GShard top-k gating with a fixed expert capacity
+``C = max(min_capacity, ceil(k*N/E * capacity_factor))`` (overflow tokens
+get a zero combine weight and pass through the residual), the
+load-balancing aux loss ``E * sum_e mean_prob_e * frac_tokens_e`` over the
+top-1 choice, and the expert contractions as dense ``[E, C, *]`` batched
+matmuls.  Capacity slots are granted in token order; the k-th choice of
+every token is placed after all (k-1)-th choices of the expert, and k > 1
+renormalises the kept gates per token.
+
+The router's logits are computed in fp32 with TF32 off for that product:
+a flipped argmax reroutes a token.  ``torch.argmax`` takes the first
+maximum, as ``jnp.argmax`` does.  Random Token Selection (``use_rts``)
+grants the slots in the order of a permutation drawn from a
+``torch.Generator``; it does not reproduce the JAX package's random
+stream.  The dispatch quantization of the JAX package (``moe_q_dispatch``)
+acts only across an ``ep`` axis, so it is a no-op here, as it is there at
+ep = 1.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from deepspeed_tpu_torch.models.layers import activation_fn
+
+
+def compute_capacity(num_tokens: int, num_experts: int, k: int,
+                     capacity_factor: float, min_capacity: int = 4) -> int:
+    return max(min_capacity,
+               int(math.ceil(k * num_tokens / num_experts * capacity_factor)))
+
+
+@contextlib.contextmanager
+def _full_fp32():
+    """fp32 matmuls without TF32 on the card (a no-op on the CPU)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def router_gates(xt: torch.Tensor, gate_w: torch.Tensor) -> torch.Tensor:
+    """Softmax router probabilities [N, E] in fp32 from tokens [N, D]."""
+    with _full_fp32():
+        logits = xt.float() @ gate_w.float()
+    return torch.softmax(logits, dim=-1)
+
+
+def _permutation(n: int, generator: Optional[torch.Generator], device):
+    return torch.randperm(n, generator=generator,
+                          device=generator.device if generator is not None
+                          else device).to(device)
+
+
+def _topk_slots(gates: torch.Tensor, k: int, capacity: int):
+    """Per slot j < k: (expert [N], position in its buffer [N], kept gate
+    [N] fp32), the kept-gate sum [N] and the aux loss."""
+    N, E = gates.shape
+    remaining = gates
+    base = torch.zeros(E, dtype=torch.long, device=gates.device)
+    kept_sum = torch.zeros(N, dtype=torch.float32, device=gates.device)
+    aux = torch.zeros((), dtype=torch.float32, device=gates.device)
+    slots = []
+    for slot in range(k):
+        idx = torch.argmax(remaining, dim=-1)                       # [N]
+        onehot = torch.nn.functional.one_hot(idx, E)                # [N, E]
+        if slot == 0:
+            me = gates.mean(dim=0)
+            ce = onehot.float().mean(dim=0)
+            aux = E * (me * ce).sum()
+        ahead = torch.cumsum(onehot, dim=0) - onehot + base[None]
+        pos = (ahead * onehot).sum(dim=-1)                          # [N]
+        keep = (pos < capacity).float()
+        gate_val = gates.gather(1, idx[:, None])[:, 0]
+        w = gate_val * keep
+        slots.append((idx, pos, w))
+        kept_sum = kept_sum + w
+        base = base + onehot.sum(dim=0)
+        remaining = torch.where(onehot > 0, -torch.inf, remaining)
+    return slots, kept_sum, aux
+
+
+def topk_assignments(gates: torch.Tensor, k: int, capacity: int,
+                     generator: Optional[torch.Generator] = None,
+                     use_rts: bool = False):
+    """Compact top-k assignment: (expert_idx [N, k], pos [N, k], weight
+    [N, k] fp32, aux scalar) for the scatter/gather dispatch.  ``use_rts``
+    grants capacity in the order of a random permutation of the tokens
+    (drawn from ``generator``); a no-op when nothing overflows."""
+    if use_rts:
+        perm = _permutation(gates.shape[0], generator, gates.device)
+        inv = torch.argsort(perm)
+        e_idx, pos, w, aux = topk_assignments(gates[perm], k, capacity)
+        return e_idx[inv], pos[inv], w[inv], aux
+    slots, kept_sum, aux = _topk_slots(gates, k, capacity)
+    weight = torch.stack([w for _, _, w in slots], dim=1)
+    if k > 1:
+        weight = weight / torch.clamp_min(kept_sum, 1e-9)[:, None]
+    return (torch.stack([i for i, _, _ in slots], dim=1),
+            torch.stack([p for _, p, _ in slots], dim=1), weight, aux)
+
+
+def topk_gating(gates: torch.Tensor, k: int, capacity: int,
+                generator: Optional[torch.Generator] = None,
+                use_rts: bool = False):
+    """GShard top-k gating with fixed capacity: (combine [N, E, C] fp32,
+    dispatch [N, E, C] bool, aux scalar) from router probabilities
+    ``gates`` [N, E]."""
+    if use_rts:
+        perm = _permutation(gates.shape[0], generator, gates.device)
+        inv = torch.argsort(perm)
+        combine, dispatch, aux = topk_gating(gates[perm], k, capacity)
+        return combine[inv], dispatch[inv], aux
+    N, E = gates.shape
+    C = capacity
+    slots, kept_sum, aux = _topk_slots(gates, k, C)
+    combine = torch.zeros((N, E, C), dtype=torch.float32, device=gates.device)
+    for idx, pos, w in slots:
+        onehot = torch.nn.functional.one_hot(idx, E).float()
+        pos_oh = torch.nn.functional.one_hot(pos.clamp(0, C - 1), C).float()
+        combine = combine + (w[:, None, None] * onehot[:, :, None]
+                             * pos_oh[:, None, :])
+    if k > 1:
+        combine = combine / torch.clamp_min(kept_sum, 1e-9)[:, None, None]
+    return combine, combine > 0, aux
+
+
+def _rts_generator(xt: torch.Tensor) -> torch.Generator:
+    """A generator seeded from the batch's content (the JAX package folds
+    the bits of the fp32 sum into a fixed key), so RTS still varies from
+    batch to batch when the caller passes none.  Reads one scalar back."""
+    s = xt.float().sum().reshape(1).cpu()
+    seed = int(s.view(torch.int32)[0]) & 0x7FFFFFFF
+    return torch.Generator(device=xt.device).manual_seed(17 * 2 ** 31 + seed)
+
+
+def moe_mlp(params, x: torch.Tensor, cfg,
+            generator: Optional[torch.Generator] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One MoE feed-forward block on [B, S, D] hidden states: (output
+    [B, S, D] in x's dtype, aux loss fp32 scalar).
+
+    ``params``: {"gate_w" [D, E], "w_up" [E, D, F], ("w_gate" [E, D, F]),
+    "w_down" [E, F, D]}.  ``cfg.moe_drop_tokens=False`` sizes the capacity
+    for the worst case (C = N): no token is dropped.  ``cfg.moe_dispatch``
+    is "scatter" (an index-add into the [E, C, D] buffers and a gather back,
+    O(N*k*D)) or "einsum" (the one-hot [N, E, C] contractions); both give
+    the same buffers.  ``generator`` feeds Random Token Selection
+    (``cfg.moe_use_rts``)."""
+    B, S, D = x.shape
+    E, k = cfg.num_experts, cfg.num_experts_per_tok
+    N = B * S
+    xt = x.reshape(N, D)
+    gates = router_gates(xt, params["gate_w"])
+    use_rts = bool(getattr(cfg, "moe_use_rts", False))
+    if use_rts and generator is None:
+        generator = _rts_generator(xt)
+    if getattr(cfg, "moe_drop_tokens", True):
+        C = compute_capacity(N, E, k, cfg.moe_capacity_factor,
+                             getattr(cfg, "moe_min_capacity", 4))
+    else:
+        C = N
+    use_scatter = getattr(cfg, "moe_dispatch", "scatter") == "scatter"
+    if use_scatter:
+        e_idx, pos, weight, aux = topk_assignments(gates, k, C, generator,
+                                                   use_rts)
+        keep = pos < C
+        safe_pos = pos.clamp(0, C - 1)
+        contrib = torch.where(keep.reshape(-1)[:, None],
+                              xt.repeat_interleave(k, dim=0),
+                              torch.zeros((), dtype=x.dtype, device=x.device))
+        expert_in = torch.zeros((E, C, D), dtype=x.dtype, device=x.device)
+        expert_in.index_put_((e_idx.reshape(-1), safe_pos.reshape(-1)),
+                             contrib, accumulate=True)
+    else:
+        combine, dispatch, aux = topk_gating(gates, k, C, generator, use_rts)
+        expert_in = torch.einsum("nec,nd->ecd", dispatch.to(x.dtype), xt)
+    act = activation_fn(cfg.activation)
+    up = torch.bmm(expert_in, params["w_up"].to(x.dtype))
+    if cfg.glu:
+        hidden = act(torch.bmm(expert_in, params["w_gate"].to(x.dtype))) * up
+    else:
+        hidden = act(up)
+    out = torch.bmm(hidden, params["w_down"].to(x.dtype))          # [E, C, D]
+    if use_scatter:
+        gathered = out[e_idx, safe_pos]                             # [N, k, D]
+        y = (gathered * (weight * keep).to(x.dtype)[..., None]).sum(dim=1)
+    else:
+        y = torch.einsum("ecd,nec->nd", out, combine.to(x.dtype))
+    return y.reshape(B, S, D), aux

@@ -1,10 +1,18 @@
-"""Continuous-batching serving engine over the paged KV cache, PyTorch port.
+"""Continuous-batching serving engine, PyTorch port.
 
 Counterpart of ``deepspeed_tpu/serving/engine.py`` ``ServingEngine``:
 
-- a paged KV pool shared by ``num_slots`` slots (``serving/paged_kv.py``),
-  alloc-on-append, free-on-finish, LIFO preempt-and-requeue under pool
-  pressure, and copy-on-write prefix caching (``serving/prefix_cache.py``);
+- the KV layout (``paged_kv_cache``): by default a paged KV pool shared by
+  ``num_slots`` slots (``serving/paged_kv.py``), alloc-on-append,
+  free-on-finish, LIFO preempt-and-requeue under pool pressure, and
+  copy-on-write prefix caching (``serving/prefix_cache.py``); or the
+  fixed-slot layout, one contiguous ``[L, num_slots, Hkv, cache_len, Dh]``
+  cache (``cache_len`` the budget rounded up to a flash-decode block
+  multiple), a slot's row reserved whole from admission to finish, with no
+  pool, no preemption and no prefix cache (the JAX knob is paged-only);
+- the KV cache in bf16/fp32 or, with ``quantize_kv_cache``, int8 with an
+  fp32 scale per position and head, on either layout (decoded on the
+  unfused loop, as in the JAX engine);
 - per-row decode positions: every slot sits at its own depth;
 - iteration-level scheduling: each :meth:`step` admits queued requests into
   freed slots, advances at most ``max_prefill_chunks`` prompt chunks, then
@@ -14,7 +22,9 @@ Counterpart of ``deepspeed_tpu/serving/engine.py`` ``ServingEngine``:
   decode_step` over the engine's ``_dparams`` (four fused kernel calls per
   layer); ``use_fused_decode=False``, or a model the fused path does not
   support, decodes with ``forward_with_cache`` on the plain tree.  Prefill
-  always runs ``forward_with_cache`` on the plain tree;
+  always runs ``forward_with_cache`` on the plain tree: over a gathered
+  view of the slot's pages (paged) or straight on the slot's row of the
+  contiguous cache (fixed-slot);
 - sync-free decode: the per-slot last token, position and active mask live
   on the device and are carried from block to block, with EOS folded into
   the step (a row stops the step its EOS is sampled).  The host keeps an
@@ -26,9 +36,9 @@ The JAX engine runs a compiled program per prefill bucket and one per
 decode block; the port runs the same steps eagerly, on PyTorch's current
 stream, and mutates the cache in place where the JAX programs donate it.
 
-Not ported yet (ROADMAP.md queue 1): the fixed-slot layout, the int8 KV
-cache, the KV host tier, HTTP, metrics, drain, the background serve loop,
-disaggregated handoff, profiling and goodput.
+Not ported yet (ROADMAP.md queue 1): the KV host tier, HTTP, metrics,
+drain, the background serve loop, disaggregated handoff, profiling and
+goodput.
 """
 
 from __future__ import annotations
@@ -44,7 +54,9 @@ import torch
 from deepspeed_tpu_torch.accelerator.real_accelerator import DeviceLike
 from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
 from deepspeed_tpu_torch.inference.engine import InferenceEngine, pow2_bucket
-from deepspeed_tpu_torch.models.decoding import forward_with_cache, sample_token
+from deepspeed_tpu_torch.models.decoding import (cache_planes,
+                                                 forward_with_cache,
+                                                 init_kv_cache, sample_token)
 from deepspeed_tpu_torch.models.fused_decode import decode_step
 from deepspeed_tpu_torch.serving.paged_kv import PagedKVPool, init_paged_kv_cache
 from deepspeed_tpu_torch.serving.prefix_cache import PrefixCache
@@ -84,11 +96,6 @@ class ServingEngine:
         self._sample = dict(do_sample=bool(do_sample),
                             temperature=float(temperature), top_k=int(top_k),
                             top_p=float(top_p))
-        if not self._config.paged_kv_cache:
-            raise NotImplementedError(
-                "the fixed-slot KV layout (paged_kv_cache=False) is not "
-                "ported yet (ROADMAP.md queue 1: serving features deferred "
-                "from the first slice)")
         if int(self._config.kv_host_tier_pages) > 0:
             raise NotImplementedError(
                 "the KV host tier (kv_host_tier_pages > 0) is not ported yet "
@@ -97,16 +104,30 @@ class ServingEngine:
         self.scheduler = IterationScheduler(
             self.num_slots, max_queue_depth=int(self._config.max_queue_depth),
             shed_retry_after_s=float(self._config.shed_retry_after_s))
-        self.pool = PagedKVPool(self.num_slots, self._config.max_out_tokens,
-                                page_tokens=self._config.kv_page_tokens,
-                                pool_tokens=self._config.kv_pool_tokens)
-        self._cache = init_paged_kv_cache(self.module.config,
-                                          self.pool.num_pages, self.pool.page,
-                                          dtype=engine.dtype,
-                                          device=self.device)
-        self.cache_len = self.pool.cache_len
+        self.paged = bool(self._config.paged_kv_cache)
+        quant_kv = bool(self._config.quantize_kv_cache)
+        if self.paged:
+            self.pool = PagedKVPool(self.num_slots,
+                                    self._config.max_out_tokens,
+                                    page_tokens=self._config.kv_page_tokens,
+                                    pool_tokens=self._config.kv_pool_tokens)
+            self._cache = init_paged_kv_cache(
+                self.module.config, self.pool.num_pages, self.pool.page,
+                dtype=engine.dtype, device=self.device, quantized=quant_kv)
+            # the per-slot LOGICAL window (page-table depth x page)
+            self.cache_len = self.pool.cache_len
+        else:
+            self.pool = None
+            self._cache = init_kv_cache(
+                self.module.config, self.num_slots,
+                self._config.max_out_tokens, dtype=engine.dtype,
+                device=self.device, quantized=quant_kv)
+            # the PHYSICAL depth (rounded up to a flash-decode block multiple)
+            self.cache_len = int(self._cache["k"].shape[-2])
+        # copy-on-write prefix caching shares pages: paged only
         self.prefix_cache = (PrefixCache(self.pool)
-                             if self._config.prefix_caching else None)
+                             if self.paged and self._config.prefix_caching
+                             else None)
         # generation bounds use the LOGICAL budget, not the page-rounded one
         self.max_out = int(self._config.max_out_tokens)
         mcfg = self.module.config
@@ -148,10 +169,13 @@ class ServingEngine:
                       "decode_blocks": 0, "decode_tokens": 0,
                       "prefix_hit_tokens": 0, "prefix_miss_tokens": 0,
                       "preempted": 0, "cow_copies": 0}
-        logger.info("serving engine: paged pool: %d x %d-token pages, %d slots "
-                    "x %d window, prefill_chunk=%d, decode_block=%d, %s decode",
-                    self.pool.num_pages - 1, self.pool.page, self.num_slots,
-                    self.cache_len, self.prefill_chunk, self._K,
+        layout = (f"paged pool: {self.pool.num_pages - 1} x {self.pool.page}"
+                  f"-token pages, {self.num_slots} slots x {self.cache_len} "
+                  f"window" if self.paged
+                  else f"{self.num_slots} slots x {self.cache_len} tokens")
+        logger.info("serving engine: %s%s, prefill_chunk=%d, decode_block=%d, "
+                    "%s decode", layout, ", int8 KV" if quant_kv else "",
+                    self.prefill_chunk, self._K,
                     "fused" if engine._dparams is not None else "unfused")
 
     # ------------------------------------------------------------------
@@ -271,10 +295,10 @@ class ServingEngine:
 
     def _cow_copy(self, dst: int, src: int) -> None:
         """Device-side page copy: physical page ``src`` over ``dst`` in
-        every layer of K and V."""
+        every layer of every plane (K, V and an int8 cache's scales)."""
         self.stats["cow_copies"] += 1
         if dst != src:
-            for v in self._cache.values():
+            for v in cache_planes(self._cache).values():
                 v[:, dst] = v[:, src]
 
     # ------------------------------------------------------------------
@@ -340,12 +364,12 @@ class ServingEngine:
         prefix = req.prefix              # prompt (+ outputs after a resume)
         n_prefix = req.prefix_len
         c = min(self.prefill_chunk, n_prefix - off)
-        if not self._ensure_pages(req, off + c):
+        if self.paged and not self._ensure_pages(req, off + c):
             return                       # self-preempted: resumes later
         cb = pow2_bucket(c, lo=8, cap=self.cache_len - off)
         chunk = np.zeros((1, cb), np.int64)
         chunk[0, :c] = prefix[off:off + c]
-        tok_dev = self._prefill(self.pool.page_table[slot], chunk, off, c - 1)
+        tok_dev = self._prefill(slot, chunk, off, c - 1)
         req.prefill_pos += c
         self.stats["prefill_chunks"] += 1
         self.stats["prefill_tokens"] += c
@@ -389,24 +413,34 @@ class ServingEngine:
         self._eos[slot] = req.eos_token_id
         self._active[slot] = True
 
-    def _prefill(self, pt_row: np.ndarray, chunk: np.ndarray, start: int,
+    def _prefill(self, slot: int, chunk: np.ndarray, start: int,
                  last_idx: int) -> torch.Tensor:
-        """Per-slot chunked prefill: the slot's pages are GATHERED into a
-        contiguous logical view, the batch-1 forward runs at the chunk's
-        absolute offset, and the pages are scattered back.  Pad rows
-        [start+c, start+cb) hold junk K/V that is overwritten before any
-        query attends it; junk past the allocated pages lands on the junk
+        """Per-slot chunked prefill: the batch-1 forward at the chunk's
+        absolute offset over the slot's cache.  Paged: the slot's pages are
+        GATHERED into a contiguous logical view and scattered back after;
+        fixed-slot: the forward writes straight into the slot's row of the
+        contiguous cache (a view of it, no copy).  Pad rows [start+c,
+        start+cb) hold junk K/V that is overwritten before any query
+        attends it; paged junk past the allocated pages lands on the junk
         page.  Returns the next token as a device scalar."""
-        pt = self._to_device(pt_row)
+        planes = cache_planes(self._cache)
+        if not self.paged:
+            sub = dict(self._cache, **{k: v[:, slot:slot + 1]
+                                       for k, v in planes.items()})
+            logits, _ = forward_with_cache(self.module, self.engine._params,
+                                           self._to_device(chunk), sub, start)
+            return sample_token(logits[:, last_idx], self._gen,
+                                **self._sample)[0]
+        pt = self._to_device(self.pool.page_table[slot])
         maxp, page = self.pool.slot_pages, self.pool.page
-        sub = {}
-        for k, v in self._cache.items():
+        sub = dict(self._cache)
+        for k, v in planes.items():
             g = v[:, pt]                               # [L, maxp, Hkv, page, D]
             L, mp, Hkv, pg, D = g.shape
             sub[k] = g.permute(0, 2, 1, 3, 4).reshape(L, 1, Hkv, mp * pg, D)
         logits, sub = forward_with_cache(self.module, self.engine._params,
                                          self._to_device(chunk), sub, start)
-        for k, v in self._cache.items():
+        for k, v in planes.items():
             L, _, Hkv, _, D = sub[k].shape
             v[:, pt] = sub[k].reshape(L, Hkv, maxp, page, D).permute(
                 0, 2, 1, 3, 4)
@@ -420,18 +454,19 @@ class ServingEngine:
         arithmetic (tokens fetched at finish); EOS rows are drain
         participants of this block, fetched one block later."""
         running = self.scheduler.running()
-        for req in running:
-            if req.state != RUNNING:     # preempted by an earlier ensure
-                continue
-            b = req.slot
-            n = int(min(self._K, self._limit[b] - self._pos[b]))
-            if n > 0:
-                # rows [pos, pos+n); a False return means req itself was
-                # the youngest and self-preempted (filtered below)
-                self._ensure_pages(req, int(self._pos[b]) + n)
-        running = [r for r in running if r.state == RUNNING]
-        if not self._active.any():
-            return
+        if self.paged:
+            for req in running:
+                if req.state != RUNNING:     # preempted by an earlier ensure
+                    continue
+                b = req.slot
+                n = int(min(self._K, self._limit[b] - self._pos[b]))
+                if n > 0:
+                    # rows [pos, pos+n); a False return means req itself
+                    # was the youngest and self-preempted (filtered below)
+                    self._ensure_pages(req, int(self._pos[b]) + n)
+            running = [r for r in running if r.state == RUNNING]
+            if not self._active.any():
+                return
         toks, valid = self._block()
         idx = self._next_block
         self._next_block += 1
@@ -487,7 +522,8 @@ class ServingEngine:
         [K, num_slots]."""
         limit = self._to_device(self._limit)
         eos = self._to_device(self._eos)
-        page_table = self._to_device(self.pool.page_table)
+        page_table = (self._to_device(self.pool.page_table) if self.paged
+                      else None)
         # host upper bound on every query position in this block: sizes the
         # flash-decode loop without reading positions back from the device
         max_pos = min(self.cache_len - 1, int(self._pos.max()) + self._K)
@@ -554,8 +590,8 @@ class ServingEngine:
             self._drain_one()
 
     def _release(self, req: Request, reason: str) -> None:
-        """Finish the request, park its slot at depth 0, cache its full
-        prompt pages and return its pages to the pool."""
+        """Finish the request, park its slot at depth 0 and, paged, cache its
+        full prompt pages and return its pages to the pool."""
         b = req.slot
         self._park(b)
         if self.prefix_cache is not None:
@@ -565,7 +601,8 @@ class ServingEngine:
             if full:
                 self.prefix_cache.insert(req.prompt,
                                          self.pool.owned(b)[:full])
-        self.pool.release(b)
+        if self.paged:
+            self.pool.release(b)
         req.finish_reason = reason
         self.scheduler.finish(req)
 

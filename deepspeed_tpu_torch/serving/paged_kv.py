@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.inference.engine import pow2_bucket
-from deepspeed_tpu_torch.models.decoding import DECODE_BLOCK
+from deepspeed_tpu_torch.models.decoding import DECODE_BLOCK, quantized_planes
 
 
 def default_page_tokens(max_out_tokens: int) -> int:
@@ -35,13 +35,13 @@ def default_page_tokens(max_out_tokens: int) -> int:
 def init_paged_kv_cache(cfg, num_pages: int, page_tokens: int,
                         dtype=torch.bfloat16, *, device: torch.device,
                         quantized: bool = False) -> Dict[str, Any]:
-    """Zeroed K/V page pools on ``device``."""
-    if quantized:
-        raise NotImplementedError(
-            "the int8 KV cache is not ported yet (ROADMAP.md queue 1: "
-            "serving features deferred from the first slice)")
+    """Zeroed K/V page pools on ``device``; ``quantized`` makes the int8
+    pools with their fp32 scale planes ``[L, num_pages, Hkv, page, 1]`` and
+    the ``x_dtype`` anchor."""
     L, Hkv, Dh = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
     shape = (L, num_pages, Hkv, page_tokens, Dh)
+    if quantized:
+        return quantized_planes(shape, dtype, device)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 

@@ -2429,6 +2429,121 @@ def test_generate_on_card_matches_cpu(cuda_device, preset, dtype, fused):
     assert torch.equal(got_cpu, got_card)
 
 
+SMALL_SERVE = {
+    "llama-tiny": dict(num_layers=2, hidden_size=256, intermediate_size=512,
+                       num_kv_heads=2, vocab_size=1024),
+    "gpt2-small": dict(num_layers=2, hidden_size=256, intermediate_size=1024,
+                       num_heads=4, vocab_size=1024, max_seq_len=512),
+    "mixtral-tiny": dict(num_layers=2, hidden_size=256, intermediate_size=512,
+                         num_kv_heads=2, vocab_size=1024)}
+
+
+def _small_serving_model(preset):
+    import deepspeed_tpu_torch
+
+    model = deepspeed_tpu_torch.causal_lm(preset, device="cpu",
+                                          **SMALL_SERVE[preset])
+    with torch.no_grad():
+        if model.config.position == "learned":
+            model.embed.tok.mul_(16.0)
+            model.embed.pos.mul_(80.0)
+        else:
+            model.embed.tok.mul_(40.0)
+    return model
+
+
+def _serve_both(model, cfg, waves, dev):
+    import deepspeed_tpu_torch
+
+    outs = []
+    for d in ("cpu", dev):
+        serve = deepspeed_tpu_torch.init_serving(model, cfg, device=d,
+                                                 num_slots=2, prefill_chunk=32)
+        got = []
+        for wave in waves:
+            reqs = [serve.submit(p, max_new_tokens=16) for p in wave]
+            serve.run()
+            got += [(r.output_tokens, r.prefix_hit_tokens) for r in reqs]
+        outs.append(got)
+    return outs
+
+
+SERVE_VARIANTS = [("llama-tiny", {"paged_kv_cache": False}),
+                  ("llama-tiny", {"paged_kv_cache": False,
+                                  "use_fused_decode": False}),
+                  ("gpt2-small", {"paged_kv_cache": False}),
+                  ("llama-tiny", {"quantize_kv_cache": True}),
+                  ("llama-tiny", {"quantize_kv_cache": True,
+                                  "paged_kv_cache": False}),
+                  ("mixtral-tiny", {}), ("mixtral-tiny", {"paged_kv_cache": False})]
+
+
+@pytest.mark.parametrize("preset,over", SERVE_VARIANTS)
+def test_serving_variants_on_card_match_cpu(cuda_device, preset, over):
+    """The fixed-slot layout (fused: the contiguous flash_decode at per-row
+    positions), the int8 KV cache and the MoE MLP, serving a small fp32
+    model on the card and on the CPU: the same greedy tokens and prefix
+    hits (a second wave repeats a prompt)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = _small_serving_model(preset)
+    cfg = {"dtype": "float32", "max_out_tokens": 300, "kv_page_tokens": 64,
+           **over}
+    prompts = [np.random.default_rng(i).integers(0, 1024, n)
+               for i, n in enumerate((70, 9, 130))]
+    contig = tdec.flash_decode_contig_cuda.launches
+    cpu, card = _serve_both(model, cfg, [prompts, prompts[2:]], cuda_device)
+    assert cpu == card
+    fused = (preset != "mixtral-tiny" and not over.get("quantize_kv_cache")
+             and over.get("use_fused_decode", True))
+    fixed = over.get("paged_kv_cache") is False
+    assert (tdec.flash_decode_contig_cuda.launches > contig) == (fused and fixed)
+
+
+@pytest.mark.parametrize("preset,over", [("llama-tiny", {"quantize_kv_cache": True}),
+                                         ("mixtral-tiny", {})])
+def test_int8_kv_and_moe_generate_on_card_match_cpu(cuda_device, preset, over):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = _small_serving_model(preset)
+    cfg = {"dtype": "float32", "max_out_tokens": 300, **over}
+    prompts = np.random.default_rng(0).integers(0, 1024, (3, 70))
+    got_cpu, got_card = _generate_both(model, cfg, prompts, cuda_device)
+    assert torch.equal(got_cpu, got_card)
+
+
+def test_moe_mlp_on_card_matches_cpu(cuda_device):
+    """moe_mlp at mixtral-8x7b's width, 8 rows (a decode step): bf16 on the
+    card against the CPU, the routing (fp32 router, TF32 off) equal, the
+    output within 2e-2."""
+    from types import SimpleNamespace
+
+    from deepspeed_tpu_torch.moe import sharded_moe as tmoe
+
+    D, F, E = 4096, 1024, 8
+    cfg = SimpleNamespace(num_experts=E, num_experts_per_tok=2,
+                          moe_capacity_factor=1.25, moe_dispatch="scatter",
+                          activation="silu", glu=True)
+    gen = torch.Generator().manual_seed(0)
+    p = {"gate_w": torch.rand(D, E, generator=gen) * 0.03,
+         "w_up": torch.randn(E, D, F, generator=gen) * 0.02,
+         "w_gate": torch.randn(E, D, F, generator=gen) * 0.02,
+         "w_down": torch.randn(E, F, D, generator=gen) * 0.03}
+    x = torch.randn(8, 1, D, generator=gen)
+    p = {k: v.bfloat16() for k, v in p.items()}
+    x = x.bfloat16()
+    want, aux_cpu = tmoe.moe_mlp(p, x, cfg)
+    got, aux = tmoe.moe_mlp({k: v.to(cuda_device) for k, v in p.items()},
+                            x.to(cuda_device), cfg)
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    g_cpu = tmoe.router_gates(x.reshape(8, D), p["gate_w"])
+    g_card = tmoe.router_gates(x.reshape(8, D).to(cuda_device),
+                               p["gate_w"].to(cuda_device))
+    for a, b in zip(tmoe.topk_assignments(g_cpu, 2, 4)[:2],
+                    tmoe.topk_assignments(g_card, 2, 4)[:2]):
+        assert torch.equal(a, b.cpu())
+    assert abs(float(aux) - float(aux_cpu)) <= 1e-5
+
+
 def test_unmodified_llama_tiny_trains_on_card(cuda_device):
     """The llama-tiny preset as it is (D 256, 8 heads of 32, 4 layers,
     vocab 32000) trained 3 steps on the card (flash at Dh 32) and on the

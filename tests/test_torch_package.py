@@ -7,6 +7,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -47,6 +48,14 @@ def test_import_rule_covers_the_checkpoint_modules(part):
     assert ROOT / "deepspeed_tpu_torch" / part in PORT_FILES
 
 
+@pytest.mark.parametrize("part", ["moe/__init__.py", "moe/sharded_moe.py",
+                                  "moe/layer.py"])
+def test_import_rule_covers_the_moe_modules(part):
+    """The MoE package is the port's own copy: the import rule above walks
+    each of its files."""
+    assert ROOT / "deepspeed_tpu_torch" / part in PORT_FILES
+
+
 def test_import_leaves_jax_unloaded():
     code = ("import sys\n"
             "def jaxish():\n"
@@ -61,6 +70,7 @@ def test_import_leaves_jax_unloaded():
             "import deepspeed_tpu_torch.runtime.checkpoint_engine\n"
             "import deepspeed_tpu_torch.runtime.dataloader\n"
             "import deepspeed_tpu_torch.utils.zero_to_fp32\n"
+            "import deepspeed_tpu_torch.moe\n"
             "print(sorted(jaxish() - before))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env={**os.environ, "PYTHONPATH": str(ROOT)},
@@ -92,7 +102,6 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("over", [
-    {"paged_kv_cache": False}, {"quantize_kv_cache": True},
     {"kv_host_tier_pages": 4}, {"checkpoint": "ckpt_dir"},
     {"tensor_parallel": {"tp_size": 2}}])
 def test_unported_options_are_refused(over):
@@ -103,6 +112,28 @@ def test_unported_options_are_refused(over):
     cfg = {"dtype": "float32", "use_fused_decode": False, **over}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         deepspeed_tpu_torch.init_serving(model, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("over,paged,quant", [
+    ({"paged_kv_cache": False}, False, False),
+    ({"quantize_kv_cache": True}, True, True),
+    ({"paged_kv_cache": False, "quantize_kv_cache": True}, False, True)])
+def test_fixed_slot_and_int8_kv_options_are_served(over, paged, quant):
+    """The fixed-slot layout and the int8 KV cache, once refused, are
+    served: the layout and the cache's dtype follow the config, and an
+    int8 cache decodes on the unfused loop."""
+    import deepspeed_tpu_torch
+
+    model = deepspeed_tpu_torch.causal_lm("llama-tiny", num_layers=1,
+                                          device="cpu")
+    serve = deepspeed_tpu_torch.init_serving(model, {"dtype": "float32",
+                                                     **over}, device="cpu")
+    assert serve.paged is paged and (serve.pool is not None) is paged
+    assert (serve._cache["k"].dtype == torch.int8) is quant
+    assert (serve.engine._dparams is None) is quant
+    req = serve.submit(np.arange(5), max_new_tokens=3)
+    serve.run()
+    assert req.finish_reason == "length" and len(req.output_tokens) == 3
 
 
 @pytest.mark.parametrize("over,fused", [

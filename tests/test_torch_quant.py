@@ -112,29 +112,67 @@ def test_quantize_layer_params_takes_the_same_leaves(preset, over):
 
 
 def test_moe_mlp_stays_dense():
-    """An MoE model's MLP leaves stay dense on both sides (the port builds
-    no MoE model yet, so the tree is made by hand in the mixtral layout);
-    its attention leaves are quantized."""
-    from types import SimpleNamespace
-
-    rng = np.random.default_rng(4)
-    tree = {"layers": {
-        "attn": {"wq": rng.standard_normal((2, 16, 16)).astype(np.float32)},
-        "mlp": {"w_up": rng.standard_normal((2, 4, 16, 32)).astype(np.float32),
-                "router": rng.standard_normal((2, 16, 4)).astype(np.float32)},
-        "attn_norm": {"scale": np.ones((2, 16), np.float32)}},
-        "lm_head": rng.standard_normal((16, 32)).astype(np.float32)}
-    cfg = SimpleNamespace(is_moe=True)
-    jq = jquant.quantize_layer_params(jax.tree.map(jnp.asarray, tree), cfg)
-    tq = tquant.quantize_layer_params(
-        jax.tree.map(torch.from_numpy, tree), cfg)
+    """A mixtral-tiny tree (the JAX init carried across): its MLP leaves
+    (the router and the experts) stay dense on both sides, its attention
+    leaves and head are quantized to the same codes."""
+    jm = j_causal_lm("mixtral-tiny", remat=False, **TINY)
+    params = jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))
+    tm = t_causal_lm("mixtral-tiny", device="cpu", **TINY)
+    tp = jax_params_to_torch(jax.tree.map(np.asarray, params), tm.config,
+                             device="cpu")
+    jq = jquant.quantize_layer_params(params, jm.config)
+    tq = tquant.quantize_layer_params(tp, tm.config)
     for got, want in ((tq["layers"]["attn"]["wq"], jq["layers"]["attn"]["wq"]),
                       (tq["lm_head"], jq["lm_head"])):
         assert tquant.is_qtensor(got) and jquant.is_qtensor(want)
-    for name in ("w_up", "router"):
-        assert not tquant.is_qtensor(tq["layers"]["mlp"][name])
-        assert not jquant.is_qtensor(jq["layers"]["mlp"][name])
+    assert set(tq["layers"]["mlp"]) == {"gate_w", "w_up", "w_gate", "w_down"}
+    for name, leaf in tq["layers"]["mlp"].items():
+        assert not tquant.is_qtensor(leaf), name
+        assert not jquant.is_qtensor(jq["layers"]["mlp"][name]), name
+        assert leaf is tp["layers"]["mlp"][name]
     assert not tquant.is_qtensor(tq["layers"]["attn_norm"]["scale"])
+    eng = deepspeed_tpu_torch.init_inference(tm, INT8, params=tp, device="cpu")
+    assert not tquant.is_qtensor(eng._params["layers"]["mlp"]["w_up"])
+    assert eng._params["layers"]["mlp"]["w_up"].dtype == torch.bfloat16
+
+
+def test_set_params_quantizes_one_layer_slice_at_a_time():
+    """The int8 engine moves and quantizes a stacked leaf one [D, F] layer
+    slice at a time: no floating tensor it makes is larger than one slice
+    (a bf16 copy of a whole [L, D, F] leaf was the peak before), and the
+    codes and scales are those of quantizing the bf16 tree whole."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    over = dict(TINY, num_layers=3, hidden_size=64, intermediate_size=160,
+                vocab_size=128)
+    tm = t_causal_lm("llama-tiny", device="cpu", **over)
+    D, F = 64, 160
+    sizes = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in jax.tree.leaves(out):
+                if isinstance(t, torch.Tensor) and t.is_floating_point():
+                    sizes.append((t.numel(), str(func)))
+            return out
+
+    with Record():
+        eng = deepspeed_tpu_torch.init_inference(tm, INT8, params=tm.params(),
+                                                 device="cpu")
+    assert sizes and max(sizes)[0] <= D * F, max(sizes)
+    whole = tquant.quantize_layer_params(
+        jax.tree.map(lambda t: t.to(torch.bfloat16), tm.params()), tm.config)
+    got, want = eng._params, whole
+    for (path, w), g in zip(jax.tree_util.tree_flatten_with_path(
+            want, is_leaf=tquant.is_qtensor)[0],
+            jax.tree.leaves(got, is_leaf=tquant.is_qtensor)):
+        if tquant.is_qtensor(w):
+            assert tquant.is_qtensor(g), path
+            assert torch.equal(g.q, w.q) and torch.equal(g.scale, w.scale), path
+        else:
+            assert torch.equal(g, w), path
+    assert tquant.is_qtensor(got["layers"]["mlp"]["w_up"])
 
 
 def test_carried_int8_leaves_keep_codes_and_refuse_misfits():

@@ -294,3 +294,113 @@ def test_inference_config_fields_and_defaults_match_jax():
     assert T().model_dump() == J().model_dump()
     over = {"max_out_tokens": "auto", "mp_size": 2, "num_slots": 3}
     assert T(**over).model_dump() == J(**over).model_dump()
+
+
+# ---------------------------------------------------------------------------
+# the fixed-slot layout (paged_kv_cache=False)
+# ---------------------------------------------------------------------------
+
+GPT2 = dict(num_layers=2, hidden_size=64, intermediate_size=256, num_heads=4,
+            vocab_size=256, max_seq_len=128)
+
+
+@pytest.fixture(scope="module")
+def gpt2_weights(devices):
+    from deepspeed_tpu.comm import mesh as mesh_mod
+
+    prev_mesh = mesh_mod._GLOBAL_MESH
+    mesh = build_mesh(fsdp=8, devices=devices)
+    try:
+        set_global_mesh(mesh)
+        jm = j_causal_lm("gpt2-small", mesh=mesh, remat=False, **GPT2)
+        params = jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))
+    finally:
+        mesh_mod._GLOBAL_MESH = prev_mesh
+    # through gpt2's tied head a wide token table alone repeats its input:
+    # the position table is widened further
+    params["embed"]["tok"] = params["embed"]["tok"] * 16.0
+    params["embed"]["pos"] = params["embed"]["pos"] * 80.0
+    tm = t_causal_lm("gpt2-small", device="cpu", **GPT2)
+    tp = jax_params_to_torch(jax.tree.map(np.asarray, params), tm.config,
+                             device="cpu")
+    return mesh, jm, params, tm, tp
+
+
+def _fixed_waves(eos):
+    """Wave 1: a 37-token prompt in three chunks beside an 18-token one;
+    wave 2: an exact repeat and an EOS request, in the slots the first wave
+    left (their rows reused from depth 0)."""
+    rng = np.random.default_rng(2)
+    first = rng.integers(0, 256, 37)
+    return [[(rng.integers(0, 256, 18), 30, None), (first, 12, None)],
+            [(first.copy(), 12, None), (rng.integers(0, 256, 21), 12, eos)]]
+
+
+def _serve_fixed(engine, waves):
+    out = []
+    for wave in waves:
+        reqs = [engine.submit(p, max_new_tokens=n, eos_token_id=e)
+                for p, n, e in wave]
+        engine.run()
+        out += [(list(map(int, r.output_tokens)), r.finish_reason,
+                 r.preemptions, r.prefix_hit_tokens) for r in reqs]
+    return out
+
+
+FIXED_CASES = [(m, f) for m in ("llama", "gpt2") for f in (True, False)]
+
+
+@pytest.mark.parametrize("model,fused", FIXED_CASES)
+def test_fixed_slot_serving_token_identical_to_jax(weights, gpt2_weights,
+                                                   model, fused):
+    """``paged_kv_cache: false``: one contiguous cache row a slot, the
+    prefill written straight into the slot's row, decode at per-row
+    positions through ``decode_step``'s contiguous branch (fused) or
+    ``forward_with_cache`` (unfused); token for token, with the same finish
+    reasons, as the JAX engine's fixed-slot layout."""
+    import deepspeed_tpu_torch.serving.engine as tse
+
+    mesh, jm, params, tm, tp = weights if model == "llama" else gpt2_weights
+    cfg = {"dtype": "float32", "max_out_tokens": 64, "paged_kv_cache": False}
+    if not fused:
+        cfg["use_fused_decode"] = False
+
+    def port_engine():
+        return deepspeed_tpu_torch.init_serving(tm, cfg, params=tp,
+                                                device="cpu", num_slots=2,
+                                                prefill_chunk=16)
+
+    probe = _serve_fixed(port_engine(), _fixed_waves(None))
+    eos = probe[3][0][3]
+    port = port_engine()
+    assert port.pool is None and port.prefix_cache is None
+    assert port._cache["k"].shape[1] == 2 and port.cache_len == 64
+    assert (port.engine._dparams is not None) is fused
+    calls = []
+    real = tse.decode_step
+    tse.decode_step = lambda *a, **k: calls.append(k) or real(*a, **k)
+    try:
+        got = _serve_fixed(port, _fixed_waves(eos))
+    finally:
+        tse.decode_step = real
+    if fused:
+        assert len(calls) == port.stats["decode_blocks"] * port._K > 0
+        assert all(k["page_table"] is None for k in calls)
+    else:
+        assert not calls
+    set_global_mesh(mesh)
+    ref = deepspeed_tpu.init_serving(jm, config=cfg, num_slots=2,
+                                     prefill_chunk=16)
+    ref.set_params(params)
+    try:
+        assert not ref.paged
+        want = _serve_fixed(ref, _fixed_waves(eos))
+    finally:
+        ref.close()
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g == w, f"request {i}: port {g} != jax {w}"
+    assert got[2][0] == got[1][0], "the exact repeat diverged"
+    assert got[3][1] == "eos" and len(got[3][0]) < 12
+    assert [r[1] for r in got[:3]] == ["length"] * 3
+    assert port.stats["prefill_chunks"] > len(got), "prefill must be chunked"
+    assert len(set(got[0][0])) > 3, "outputs should not be degenerate"
