@@ -51,7 +51,9 @@ Needs one CUDA card, nvcc and triton; imports nothing of JAX.  Phases
              128 MB read (L2 cold) and its host time a call, and ptxas's
              registers and spills of its instances); then the four training kernels
              at llama-1b4's training shapes (flash attention fwd and bwd
-             on [4, 16, 2048, 128], RMSNorm bwd on [8192, 2048], Adam over
+             on [4, 16, 2048, 128], RMSNorm bwd on [8192, 2048] and
+             mixtral-8x7b's [8192, 4096], each with its device time by
+             kernel, Adam over
              a [24, 2048, 5632] leaf, three steps), fp32 and bf16, plus a
              ragged S, with bit-equal repeats of each backward, and the
              serving kernels at the training shapes (RMSNorm fwd on
@@ -136,7 +138,9 @@ Needs one CUDA card, nvcc and triton; imports nothing of JAX.  Phases
              ``init_inference(...).generate()`` (fp32 fused and unfused,
              int8 weights fused): the same tokens on both; the llama-tiny
              preset as it is (8 heads of 32: flash at head dim 32) trained
-             3 steps, card against CPU; a small BLOOM (ALiBi, 12 heads)
+             3 steps, card against CPU, and the mixtral-tiny preset as it
+             is (4 layers, 8 experts top-2) the same way, its loss with the
+             MoE aux term; a small BLOOM (ALiBi, 12 heads)
              and a small GPT-NeoX (the parallel residual, rotary_pct 0.25),
              each through ``config_from_hf``, trained 3 fp32 steps, card
              against CPU; then the llama-shaped model on the new optimizer
@@ -213,7 +217,12 @@ Needs one CUDA card, nvcc and triton; imports nothing of JAX.  Phases
              ``CausalLM(cfg, seed=0)``, at full width and depth, remat
              ``mlp_dots``, with TRAIN_CONFIG at micro 4 x gas 2 x S 2048,
              5 steps: every attention call through the ALiBi flash
-             kernels, launches equal to the plan; each train phase reports
+             kernels, launches equal to the plan; then ``mixtral_train``:
+             mixtral-8x7b at full width (D 4096, F 14336, 8 experts
+             top-2, 32/8 heads of 128) cut to 2 of its 32 layers (3.165B
+             parameters), TRAIN_CONFIG at micro 4 x gas 2 x S 2048, MFU
+             over the active parameters (the attention, the router, 2 of
+             8 experts and the head); each train phase reports
              the mean of steps 2-5 and the median of steps 3-5;
    checkpoint — after the ``train`` phase, its cell again (llama-1b4,
              TRAIN_CONFIG, 5 steps), then ``save_checkpoint`` into a
@@ -893,26 +902,42 @@ def norm_host_path(torch, kind, x, *scale, calls=20000):
     return out
 
 
+# the host's sleep at each end of a profiled window, inside the session.
+# On the H100 machine the profiler places the device's records up to ~4.3 ms
+# off the host's clock, either way, and drops a record it places outside its
+# window: unpadded, 5 of 600 sessions of 200 copies lost some records, padded
+# by 5 or 50 ms none of 1200 (profiler_probe.py)
+PROFILE_PAD_S = 0.02
+
+
+def profile_pad():
+    time.sleep(PROFILE_PAD_S)
+
+
 def device_us_a_call(torch, call, what, calls=200, sessions=4):
     """Device us a call of ``call`` under torch.profiler (every kernel it
     launches, the mean over ``calls`` calls), and the kernels' names.  Each
     kernel must be launched once a call: a session that comes back with
-    fewer records than calls (on the H100 a session now and then lacks some
-    or all) is taken again."""
+    fewer records than calls is taken again."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         call()
     torch.cuda.synchronize()
-    for _ in range(sessions):
+    for session in range(1, sessions + 1):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            profile_pad()
             for _ in range(calls):
                 call()
             torch.cuda.synchronize()
+            profile_pad()
         ev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
         if ev and all(e.count == calls for e in ev):
             return (sum(e.self_device_time_total for e in ev) / calls,
                     sorted({e.key[:60] for e in ev}))
+        print(f"{what}: profile session {session} holds "
+              f"{[(e.key[:40], e.count) for e in ev]} of {calls} calls; "
+              f"profiling again")
     raise RuntimeError(f"chip_smoke: {what}: no profile session in {sessions} held a "
                        f"record of every launch")
 
@@ -1890,6 +1915,10 @@ def mlp_int8_ptxas():
 # llama-1b4 training shapes: micro 4 x S 2048, D 2048, 16 heads of 128,
 # the [24, 2048, 5632] MLP leaf for Adam
 TB, TS, TD, TH, TDH, TL, TF = 4, 2048, 2048, 16, 128, 24, 5632
+MD = 4096           # mixtral-8x7b's width: its train rows are [TB * TS, MD]
+# the RMSNorm backward's partials kernels (rms_norm_bwd_row_kernel,
+# rms_norm_bwd_kernel) and their ordered sum
+RMS_BWD_KERNELS = ("rms_norm_bwd_", "rms_dg_reduce_kernel")
 # flash gradients: relative Frobenius error, fp32 1e-4 (sums of up to S
 # recomputed products in another order), bf16 2e-2 (p and ds rounded to
 # bf16 before each product, as the reference kernel does); RMSNorm dγ (a
@@ -2026,6 +2055,26 @@ def check_train_kernels(torch, dev, gen):
               f"abs err {e:.3g}, dγ relative {rel:.3g}")
         if dtype_name != "float32":
             errs["rms_norm_bwd" + f16] = e
+        del x, dy, dx, dx2, want_dx
+        # mixtral-8x7b's and llama3-8b's rows, [8192, 4096]: the row kernel
+        x = _randn(torch, (TB * TS, MD), gen, dev, 3).to(dt)
+        g = (1 + 0.1 * torch.randn(MD, device=dev, generator=gen)).to(dt)
+        dy = _randn(torch, (TB * TS, MD), gen, dev).to(dt)
+        dx, dg = ln.rms_norm_bwd_cuda(x, g, dy, 1e-5)
+        dx2, dg2 = ln.rms_norm_bwd_cuda(x, g, dy, 1e-5)
+        torch.cuda.synchronize()
+        check(torch.equal(dx, dx2) and torch.equal(dg, dg2),
+              f"rms_norm_bwd {dtype_name} [8192, 4096]: two calls differ")
+        want_dx, want_dg = ln.rms_norm_bwd_plain(x, g, dy, 1e-5)
+        e = _assert_close(torch, dx, want_dx, TOL[dtype_name],
+                          f"rms_norm_bwd dx {dtype_name} [8192, 4096]")
+        rel = _rel_err(dg, want_dg)
+        check(rel < GRAD_TOL[dtype_name], f"rms_norm_bwd dγ {dtype_name} [8192, "
+              f"4096]: relative error {rel}")
+        print(f"train kernels: rms_norm_bwd {dtype_name} [8192, 4096]: dx max "
+              f"abs err {e:.3g}, dγ relative {rel:.3g}")
+        if dtype_name != "float32":
+            errs["rms_norm_bwd_wide" + f16] = e
         del x, dy, dx, dx2, want_dx
     # Adam: the path's case (fp32 masters and accumulator) and bf16 grads
     n = TL * TD * TF
@@ -2201,9 +2250,11 @@ def kernel_split(torch, call, names, what, calls=10, sessions=3):
     torch.cuda.synchronize()
     for session in range(1, sessions + 1):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            profile_pad()
             for _ in range(calls):
                 call()
             torch.cuda.synchronize()
+            profile_pad()
         events = prof.key_averages()
         split = {}
         for e in events:
@@ -2314,7 +2365,29 @@ def time_train_kernels(torch, dev, gen, errs):
         "library_ms": time_ms(torch, lambda: torch.autograd.grad(
             ly, (lx, lg), dy, retain_graph=True)),
         "bound_ms": b_ms, "bound_by": b_by,
-        "max_abs_err": errs["rms_norm_bwd"]}
+        "max_abs_err": errs["rms_norm_bwd"],
+        "device_us_split": kernel_split(
+            torch, lambda: ln.rms_norm_bwd_cuda(x, g, dy, 1e-5), RMS_BWD_KERNELS,
+            "rms_norm_bwd [8192,2048]", calls=20)}
+    del x, dy, lx, lg, ly
+    # mixtral-8x7b's train rows, [8192, 4096]: the row kernel
+    x = _randn(torch, (TB * TS, MD), gen, dev).to(bf)
+    dy = _randn(torch, (TB * TS, MD), gen, dev).to(bf)
+    g = torch.ones(MD, device=dev, dtype=bf)
+    lx, lg = x.clone().requires_grad_(), g.clone().requires_grad_()
+    ly = F_.rms_norm(lx, (MD,), lg, eps=1e-5)
+    b_ms, _ = bound_ms((3 * x.numel() + 2 * MD) * 2, 10 * x.numel())
+    out["rms_norm_bwd"].update({
+        "wide_shape": "x, dy [8192,4096] bf16 (mixtral-8x7b's train rows)",
+        "wide_ms": time_ms(torch, lambda: ln.rms_norm_bwd_cuda(x, g, dy, 1e-5)),
+        "wide_plain_ms": time_ms(torch, lambda: ln.rms_norm_bwd_plain(
+            x, g, dy, 1e-5), samples=10),
+        "wide_library_ms": time_ms(torch, lambda: torch.autograd.grad(
+            ly, (lx, lg), dy, retain_graph=True)),
+        "wide_bound_ms": b_ms, "wide_max_abs_err": errs["rms_norm_bwd_wide"],
+        "wide_device_us_split": kernel_split(
+            torch, lambda: ln.rms_norm_bwd_cuda(x, g, dy, 1e-5), RMS_BWD_KERNELS,
+            "rms_norm_bwd [8192,4096]", calls=20)})
     del x, dy, lx, lg, ly
 
     for dt in (bf, torch.float16):
@@ -3004,6 +3077,7 @@ def phase_kernels(torch, dev):
         out[name]["max_abs_err_train_shape_f16"] = errs[name + "_train_f16"]
     for name in ("rms_norm_bwd", "layer_norm", "layer_norm_bwd"):
         out[name]["max_abs_err_f16"] = errs[name + "_f16"]
+    out["rms_norm_bwd"]["wide_max_abs_err_f16"] = errs["rms_norm_bwd_wide_f16"]
     out["flash_attention_bwd_f16"]["overflow_inf_dv"] = overflow_inf[False]
     out["flash_attention_bwd_f16_alibi"]["overflow_inf_dv"] = overflow_inf[True]
     for name, e in gpt2_decode.items():
@@ -3558,12 +3632,14 @@ def phase_profile(torch, serve, prompts):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        profile_pad()
         t0 = time.perf_counter()
         for p in reqs:
             serve.submit(p, max_new_tokens=PROFILE_NEW)
         serve.run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+        profile_pad()
     kernels = [e for e in prof.key_averages()
                if getattr(e, "device_type", None) is not None
                and str(e.device_type).endswith("CUDA")
@@ -3711,10 +3787,12 @@ def phase_generate_profile(torch, eng, prompts, int8):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        profile_pad()
         t0 = time.perf_counter()
         eng.generate(prompts, max_new_tokens=24)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+        profile_pad()
     kernels = [e for e in prof.key_averages()
                if getattr(e, "device_type", None) is not None
                and str(e.device_type).endswith("CUDA")
@@ -4232,10 +4310,12 @@ def phase_mixtral(torch, dev):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        profile_pad()
         t = time.perf_counter()
         eng.generate(rows, max_new_tokens=16)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
+        profile_pad()
     kernels = [e for e in prof.key_averages()
                if getattr(e, "device_type", None) is not None
                and str(e.device_type).endswith("CUDA")
@@ -4258,7 +4338,11 @@ def phase_mixtral(torch, dev):
 # the train cells: preset -> (micro batch, sequence length); 16384 tokens a
 # step each with gas 2
 TRAIN_CELLS = {"llama-1b4": (4, 2048), "gpt2-xl": (8, 1024),
-               "bloom-1b7": (4, 2048)}
+               "bloom-1b7": (4, 2048), "mixtral-8x7b": (4, 2048)}
+# mixtral_train: mixtral-8x7b's full width cut to 2 of its 32 layers
+# (3.165B parameters; FusedAdam over fp32 masters keeps ~20 bytes a
+# parameter, ~63 GB, on the 80 GB card)
+MIXTRAL_TRAIN_LAYERS = 2
 # bloom-1b7's published config.json (bigscience/bloom-1b7 on the HF hub;
 # BigScience BLOOM, arXiv 2211.05100 Table 3): D 2048, 24 layers, 16 heads
 # of 128, the padded vocabulary; config_from_hf maps it to ALiBi, the
@@ -4285,10 +4369,14 @@ def config_through_hf(hf):
 def train_model(preset, seed=0):
     """A train cell's model on the card, random weights from ``seed``:
     bloom-1b7 through config_from_hf (remat ``mlp_dots``, as llama-1b4),
-    the others from their preset."""
+    mixtral-8x7b cut to MIXTRAL_TRAIN_LAYERS layers, the others from their
+    preset."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models.transformer import CausalLM
 
+    if preset == "mixtral-8x7b":
+        return deepspeed_tpu_torch.causal_lm(preset, seed=seed,
+                                             num_layers=MIXTRAL_TRAIN_LAYERS)
     if preset != "bloom-1b7":
         return deepspeed_tpu_torch.causal_lm(preset, seed=seed)
     cfg = config_through_hf(BLOOM_1B7)
@@ -4455,6 +4543,54 @@ def phase_preset_train_reference(torch, dev):
           f"{diff:.3g}")
 
 
+def phase_mixtral_train_reference(torch, dev):
+    """The mixtral-tiny preset as it is (D 256, 8 heads of 32, 4 layers, 8
+    experts top-2, vocab 32000) trained 3 fp32 steps on the card and on the
+    CPU from the same weights and tokens: the bounds of
+    phase_train_reference (the router in fp32 with TF32 off on both); the
+    card run launches the flash kernels and the RMSNorm backward."""
+    import numpy as np
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.ops.kernels import layer_norm as ln
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dict(TRAIN_CONFIG, bf16={"enabled": False},
+               train_micro_batch_size_per_gpu=2)
+    tok = np.random.default_rng(0).integers(0, 32000, (4, 200))
+    runs = {}
+    for d in ("cpu", dev):
+        model = deepspeed_tpu_torch.causal_lm("mixtral-tiny", device="cpu",
+                                              seed=0)
+        engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=cfg,
+                                                    device=d)
+        before = (fa.flash_attention.launches, fa.flash_attention_bwd.launches,
+                  ln.rms_norm_bwd.launches)
+        losses = [float(engine.train_step((tok, tok))) for _ in range(3)]
+        after = (fa.flash_attention.launches, fa.flash_attention_bwd.launches,
+                 ln.rms_norm_bwd.launches)
+        check(all((a > b) == (d != "cpu") for a, b in zip(after, before)),
+              f"mixtral-tiny {d}: flash fwd, flash bwd, rms_norm_bwd launches "
+              f"{before} -> {after}")
+        runs[str(d)] = (losses, [p.cpu() for p in engine.master])
+    (lc, pc), (lg, pg) = runs["cpu"], runs[str(dev)]
+    cfg_m = model.config
+    check(all(math.isfinite(x) for x in lg) and lg[-1] < lg[0],
+          f"mixtral-tiny card losses {lg}")
+    for a, b in zip(lc, lg):
+        check(abs(a - b) <= 1e-4 * abs(a), f"mixtral-tiny card vs CPU losses "
+              f"{lg} vs {lc}")
+    diff = max(float((a - b).abs().max()) for a, b in zip(pc, pg))
+    check(diff <= 1e-4, f"mixtral-tiny card vs CPU weights differ by {diff}")
+    print(f"reference: the mixtral-tiny preset unmodified (L {cfg_m.num_layers}, "
+          f"D {cfg_m.hidden_size}, {cfg_m.num_heads} heads of {cfg_m.head_dim}, "
+          f"{cfg_m.num_experts} experts top-{cfg_m.num_experts_per_tok}, V "
+          f"{cfg_m.vocab_size}, S 200) trained 3 fp32 steps, card == CPU: losses "
+          f"{lg} vs {lc} (each with its aux term), weights max abs diff "
+          f"{diff:.3g}")
+
+
 # small fp32 models of the families the HF import brings to training: a
 # BLOOM (ALiBi with 12 heads, whose slopes interpolate; the embedding
 # LayerNorm; biases) and a GPT-NeoX (the parallel residual, rotary_pct 0.25)
@@ -4576,6 +4712,22 @@ def phase_optimizer_reference(torch, dev):
               f"diff {float(diffs.max()):.3g}")
 
 
+def active_params(engine, cfg):
+    """The parameters a token's forward multiplies by: every parameter of a
+    dense model (its tied token table as the head); for an MoE model the
+    attention, the router, top-k of the E experts and the head, without the
+    token table, which a token only looks up."""
+    n = sum(p.numel() for p in engine.master)
+    if not cfg.is_moe:
+        return n
+    experts = sum(p.numel() for path, p in zip(engine._paths, engine.master)
+                  if path in ("layers.mlp.w_up", "layers.mlp.w_gate",
+                              "layers.mlp.w_down"))
+    E, k = cfg.num_experts, cfg.num_experts_per_tok
+    tok = cfg.vocab_size * cfg.hidden_size if not cfg.tie_embeddings else 0
+    return n - tok - experts * (E - k) // E
+
+
 def phase_train(torch, dev, preset, name="train", section=None, peaks=None,
                 medians=None):
     """The training path at the preset's full width and depth, with
@@ -4609,8 +4761,11 @@ def phase_train(torch, dev, preset, name="train", section=None, peaks=None,
     master = str(engine.master_dtype).replace("torch.", "")
     compute = str(engine.compute_dtype).replace("torch.", "")
     fp16 = engine.fp16_enabled
-    print(f"{name}: {preset} D={cfg.hidden_size} L={L} H={cfg.num_heads} "
-          f"F={cfg.intermediate_size} V={cfg.vocab_size} tied, {cfg.norm}, "
+    moe = (f" E={cfg.num_experts} top-{cfg.num_experts_per_tok} (capacity "
+           f"factor {cfg.moe_capacity_factor})" if cfg.is_moe else "")
+    print(f"{name}: {preset} D={cfg.hidden_size} L={L} H={cfg.num_heads}/"
+          f"{cfg.num_kv_heads} F={cfg.intermediate_size}{moe} V={cfg.vocab_size} "
+          f"{'tied' if cfg.tie_embeddings else 'untied'}, {cfg.norm}, "
           f"{cfg.position} positions, embed_norm {cfg.embed_norm}, bias "
           f"{cfg.use_bias}, {cfg.activation}, remat {cfg.remat_policy}; "
           f"{n_params / 1e9:.4f}B {master} params in "
@@ -4661,7 +4816,8 @@ def phase_train(torch, dev, preset, name="train", section=None, peaks=None,
     if medians is not None:
         medians[name] = median
     attn_flops = 6 * L * gas * micro * cfg.num_heads * S * S * cfg.head_dim
-    flops = 6 * n_params * tokens_per_step + attn_flops
+    active = active_params(engine, cfg)
+    flops = 6 * active * tokens_per_step + attn_flops
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     if peaks is not None:
         peaks[name] = peak
@@ -4674,8 +4830,9 @@ def phase_train(torch, dev, preset, name="train", section=None, peaks=None,
           f"{100 * flops / steady / BF16_FLOPS_PER_S:.2f}%; median of applied "
           f"steps 3-5 {median:.4f}s, {tokens_per_step / median:.1f} tokens/s, MFU "
           f"{100 * flops / median / BF16_FLOPS_PER_S:.2f}% (6N + attention "
-          f"{flops / 1e12:.1f} TFLOP per step over 989 TFLOP/s; recomputed "
-          f"forwards not counted), peak device "
+          f"{flops / 1e12:.1f} TFLOP per step over 989 TFLOP/s"
+          f"{f', N = {active / 1e9:.4f}B active' if cfg.is_moe else ''}; "
+          f"recomputed forwards not counted), peak device "
           f"memory {peak:.2f} GiB{beside}; launches {launches}")
     device_ms = phase_train_profile(torch, engine, tokens)
     del engine, model, tokens
@@ -4830,10 +4987,12 @@ def phase_train_profile(torch, engine, tokens):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        profile_pad()
         t0 = time.perf_counter()
         engine.train_step((tokens, tokens))
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+        profile_pad()
     # the optimizer's record_function range also shows device time: it is a
     # span over the Adam kernels, not a kernel, so it is left out
     kernels = [e for e in prof.key_averages()
@@ -4883,7 +5042,7 @@ def phase_train_profile(torch, engine, tokens):
         f"{g} {t / 1e3:.1f} ms ({100 * t / busy:.1f}%)"
         for g, t in groups.items() if t))
     tags = {"rms_norm": ("rms_norm_fwd_",), "rope": ("rope_kernel",),
-            "rms_norm_bwd": ("rms_norm_bwd_kernel", "rms_dg_reduce_kernel"),
+            "rms_norm_bwd": RMS_BWD_KERNELS,
             "layer_norm": ("layer_norm_fwd_",),
             "layer_norm_bwd": ("layer_norm_bwd_", "layer_norm_dgb_sum_kernel"),
             "flash_attention_fwd": FLASH_KERNELS["fwd"],
@@ -4981,6 +5140,7 @@ def main() -> int:
     phase_reference_kv_int8(torch, dev)
     phase_reference_moe(torch, dev)
     phase_preset_train_reference(torch, dev)
+    phase_mixtral_train_reference(torch, dev)
     phase_hf_train_reference(torch, dev)
     phase_optimizer_reference(torch, dev)
     # each path: (launch counts of its run, device ms per call in its profile)
@@ -5005,7 +5165,9 @@ def main() -> int:
             "lamb_train": phase_train(torch, dev, "llama-1b4", "lamb_train",
                                       LAMB_CONFIG, peaks),
             "bloom_train": phase_train(torch, dev, "bloom-1b7", "bloom_train",
-                                       peaks=peaks)}
+                                       peaks=peaks),
+            "mixtral_train": phase_train(torch, dev, "mixtral-8x7b",
+                                         "mixtral_train", peaks=peaks)}
     ident = gpu_identity()
     src = "deepspeed_tpu_torch/csrc/decode.cu"
     fa_src = "deepspeed_tpu_torch/csrc/flash_attention.cu"
@@ -5121,7 +5283,9 @@ def main() -> int:
                       "bloom_max_abs_err", "bloom_device_us", "bloom_device_us_split",
                       "bloom_host_us", "fwd_shapes", "prefill_rows_ms",
                       "library_decode_rows_ms", "library_prefill_rows_ms",
-                      "path_shapes"):
+                      "path_shapes", "wide_shape", "wide_ms", "wide_plain_ms",
+                      "wide_library_ms", "wide_bound_ms", "wide_max_abs_err",
+                      "wide_device_us_split", "wide_max_abs_err_f16"):
             if extra in t:
                 k[extra] = t[extra]
         check(all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms",

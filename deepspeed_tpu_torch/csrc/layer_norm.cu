@@ -34,9 +34,11 @@
 //   - the rest (rows that are no 16-byte vectors; LayerNorm rows past 2048,
 //     RMSNorm rows past 16 warps' registers): one block of 256 threads a
 //     row, reading the row again from L1/L2 for each pass.
-// The backwards: one block per row group with dγ (and dβ) partials in shared
-// memory, summed by a second launch in a fixed order; LayerNorm's 16-bit
-// rows of up to 2048 elements a warp a row, streamed as the forward's.
+// The backwards: dγ (and dβ) partials a block, summed by a second launch in
+// a fixed order.  16-bit rows in 16-byte vectors stream through registers,
+// one wave of blocks, the next row's x and dy in flight: LayerNorm's rows of
+// up to 2048 elements a warp a row, RMSNorm's of up to 8192 a block of warps
+// a row; the rest one block per row group, the partials in shared memory.
 // Nothing is allocated here: the wrapper passes the output buffers, the
 // stream and the device index (made current only where it is not).
 
@@ -169,6 +171,8 @@ __device__ __forceinline__ float2 block_sum2(float a, float b) {
 // rms_dg_reduce_kernel then sums the partials in a fixed order.  No float
 // atomics: the result does not depend on block scheduling.  Bound by bytes:
 // x and dy are read (twice, the second time mostly from L2), dx written.
+// It serves fp32, rows that are not 16-byte vectors and rows longer than
+// 8192; other 16-bit rows take rms_norm_bwd_row_kernel (below).
 template <typename T, bool kVec>
 __global__ void __launch_bounds__(kThreads)
 rms_norm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, const T* __restrict__ dy,
@@ -774,6 +778,124 @@ layer_norm_dgb_sum_kernel(const float* __restrict__ part, T* __restrict__ dgb, i
   ordered_col_sum(part, dgb, nblk, n);
 }
 
+// ---------------------------------------------------------------------------
+// RMSNorm backward, 16-bit rows in 16-byte vectors held in registers
+// ---------------------------------------------------------------------------
+//
+// The formula of rms_norm_bwd_kernel: one pair of row sums (x^2 and
+// wdy * x), then dx and the row's dg terms.  What bounds it: bytes (x and dy
+// read once, dx written once: 100.7 MB at [8192, 2048], 201.3 MB at
+// [8192, 4096]; 30.1 and 60.1 us at 3.35 TB/s).  The block kernel paid
+// latency instead: each block walked its rows one after another, each row a
+// block-wide reduction with its barriers, x, dy and g read twice and a
+// shared-memory read-modify-write of dg for every element, with nothing of
+// the next row in flight.  rms_norm_bwd_row_kernel takes every such row of
+// up to 8192 elements (llama-1b4's 2048, mixtral-8x7b's and llama3-8b's
+// 4096, mixtral-tiny's 256): one wave of the blocks the card holds, a block
+// of warps a row (2 vectors a thread, as the forward's row kernel), rows
+// r, r + grid, ..., the next row's x and dy in flight; the two sums one
+// reduction over the block's warps in warp order, one barrier a row (the
+// warps' sums alternate between two shared arrays by the row's parity); a
+// thread always owns the same columns, so it keeps gamma and its dg partial
+// in registers and writes the partial once, to part[blockIdx.x].
+// rms_dg_reduce_kernel sums the blocks' partials in a fixed order.  No float atomics: a second call gives the
+// same bits.
+
+template <typename T>
+__global__ void __launch_bounds__(kRowWarpsMax * 32)
+rms_norm_bwd_row_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                        const T* __restrict__ dy, T* __restrict__ dx,
+                        float* __restrict__ part, long long rows, int n, float eps) {
+  using P = Pack<T>;
+  __shared__ float2 wsum[2][kRowWarpsMax];      // the warps' two sums, by row parity
+  const int t = threadIdx.x, span = blockDim.x, nv = n / P::N;
+  const int lane = t & 31, warp = t >> 5, nw = span >> 5;
+  const float inv_n = 1.f / static_cast<float>(n);
+  const P* gsrc = reinterpret_cast<const P*>(g);
+  P pg[kRowVecs];
+  float acc[kRowVecs][P::N];                    // this thread's columns of dg
+#pragma unroll
+  for (int i = 0; i < kRowVecs; ++i) {
+    if (t + span * i < nv) pg[i] = gsrc[t + span * i];
+#pragma unroll
+    for (int j = 0; j < P::N; ++j) acc[i][j] = 0.f;
+  }
+  auto fetch = [&](long long rr, P (&xa)[kRowVecs], P (&da)[kRowVecs]) {
+    const P* xs = reinterpret_cast<const P*>(x + rr * n);
+    const P* ds = reinterpret_cast<const P*>(dy + rr * n);
+#pragma unroll
+    for (int i = 0; i < kRowVecs; ++i)
+      if (t + span * i < nv) {
+        xa[i] = xs[t + span * i];
+        da[i] = ds[t + span * i];
+      }
+  };
+  long long row = blockIdx.x;
+  P x0[kRowVecs], d0[kRowVecs];
+  if (row < rows) fetch(row, x0, d0);
+  for (int parity = 0; row < rows; row += gridDim.x, parity ^= 1) {
+    P x1[kRowVecs], d1[kRowVecs];
+    if (row + gridDim.x < rows) fetch(row + gridDim.x, x1, d1);
+    float ss = 0.f, sw = 0.f;                   // sum x^2, sum wdy * x
+#pragma unroll
+    for (int i = 0; i < kRowVecs; ++i)
+      if (t + span * i < nv)
+#pragma unroll
+        for (int j = 0; j < P::N; ++j) {
+          const float f = to_f32(x0[i].v[j]);
+          ss += f * f;
+          sw += to_f32(d0[i].v[j]) * to_f32(pg[i].v[j]) * f;
+        }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, off);
+      sw += __shfl_xor_sync(0xffffffffu, sw, off);
+    }
+    if (lane == 0) wsum[parity][warp] = make_float2(ss, sw);
+    __syncthreads();
+    ss = 0.f;
+    sw = 0.f;
+    for (int w = 0; w < nw; ++w) {
+      const float2 s = wsum[parity][w];
+      ss += s.x;
+      sw += s.y;
+    }
+    const float rstd = rsqrtf(ss * inv_n + eps);
+    const float c2 = sw * rstd * inv_n;
+    P* dst = reinterpret_cast<P*>(dx + row * n);
+#pragma unroll
+    for (int i = 0; i < kRowVecs; ++i) {
+      const int c = t + span * i;
+      if (c < nv) {
+        P o;
+#pragma unroll
+        for (int j = 0; j < P::N; ++j) {
+          const float xh = to_f32(x0[i].v[j]) * rstd;
+          const float d = to_f32(d0[i].v[j]);
+          o.v[j] = from_f32<T>((d * to_f32(pg[i].v[j]) - xh * c2) * rstd);
+          acc[i][j] += d * xh;
+        }
+        dst[c] = o;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kRowVecs; ++i) {
+      x0[i] = x1[i];
+      d0[i] = d1[i];
+    }
+  }
+  float* pb = part + static_cast<size_t>(blockIdx.x) * n;
+#pragma unroll
+  for (int i = 0; i < kRowVecs; ++i) {
+    const int c = t + span * i;
+    if (c < nv)
+#pragma unroll
+      for (int h = 0; h < P::N / 4; ++h)
+        *reinterpret_cast<float4*>(pb + c * P::N + 4 * h) =
+            make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
+  }
+}
+
 // A block's default limit is 48 KB of static plus dynamic shared memory; a
 // kernel that asks for more dynamic shared memory opts in first (the static
 // reduction scratch comes on top of the dynamic partials).
@@ -936,25 +1058,65 @@ cudaError_t launch_ln_bwd(const void* x, const void* g, const void* dy, void* dx
   return cudaGetLastError();
 }
 
+// Blocks of rms_norm_bwd_row_kernel<T> of `threads` threads an SM holds (0 on
+// an error), asked once for each block size.
+template <typename T>
+int rms_bwd_row_resident(unsigned threads) {
+  static int cache[kRowWarpsMax + 1];
+  const int nw = static_cast<int>(threads / 32);
+  if (cache[nw] == 0) {
+    int nb = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, rms_norm_bwd_row_kernel<T>,
+                                                      static_cast<int>(threads), 0) ==
+        cudaSuccess)
+      cache[nw] = nb;
+  }
+  return cache[nw];
+}
+
+// RMSNorm backward: 16-bit rows in 16-byte vectors of up to 8192 elements
+// take the row kernel, one wave of at most nblk blocks; the
+// rest (fp32, rows that are no 16-byte vectors, rows past 8192) the block
+// kernel over nblk blocks.  Then the partials' ordered sum.
 template <typename T>
 cudaError_t launch_bwd(const void* x, const void* g, const void* dy, void* dx, void* dg,
                        float* part, long long rows, int n, int nblk, float eps,
-                       cudaStream_t stream) {
-  const int rpb = static_cast<int>((rows + nblk - 1) / nblk);
+                       cudaStream_t stream, int dev) {
   const bool vec = aligned16<T>(x, g, dy, dx, n);
-  const size_t smem = static_cast<size_t>(n) * sizeof(float);
-  cudaError_t ok = vec ? allow_smem(rms_norm_bwd_kernel<T, true>, smem)
-                       : allow_smem(rms_norm_bwd_kernel<T, false>, smem);
-  if (ok != cudaSuccess) return ok;
-  if (vec)
-    rms_norm_bwd_kernel<T, true><<<nblk, kThreads, smem, stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(g), static_cast<const T*>(dy),
-        static_cast<T*>(dx), part, rows, n, rpb, eps);
-  else
-    rms_norm_bwd_kernel<T, false><<<nblk, kThreads, smem, stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(g), static_cast<const T*>(dy),
-        static_cast<T*>(dx), part, rows, n, rpb, eps);
-  const cudaError_t e = cudaGetLastError();
+  const T* xt = static_cast<const T*>(x);
+  const T* gt = static_cast<const T*>(g);
+  const T* dyt = static_cast<const T*>(dy);
+  T* dxt = static_cast<T*>(dx);
+  cudaError_t e;
+  bool streamed = false;
+  if constexpr (!std::is_same<T, float>::value) {
+    if (vec && n / Pack<T>::N <= kRowWarpsMax * 32 * kRowVecs) {
+      int sms = 0;
+      e = sm_count(dev, &sms);
+      if (e != cudaSuccess) return e;
+      const unsigned threads = row_threads<T>(n);
+      const int per_sm = rms_bwd_row_resident<T>(threads);
+      if (per_sm <= 0) return cudaErrorInvalidConfiguration;
+      nblk = static_cast<int>(std::min<long long>(std::min(nblk, sms * per_sm), rows));
+      rms_norm_bwd_row_kernel<T><<<nblk, threads, 0, stream>>>(xt, gt, dyt, dxt, part, rows, n,
+                                                                eps);
+      streamed = true;
+    }
+  }
+  if (!streamed) {
+    const int rpb = static_cast<int>((rows + nblk - 1) / nblk);
+    const size_t smem = static_cast<size_t>(n) * sizeof(float);
+    e = vec ? allow_smem(rms_norm_bwd_kernel<T, true>, smem)
+            : allow_smem(rms_norm_bwd_kernel<T, false>, smem);
+    if (e != cudaSuccess) return e;
+    if (vec)
+      rms_norm_bwd_kernel<T, true><<<nblk, kThreads, smem, stream>>>(xt, gt, dyt, dxt, part,
+                                                                     rows, n, rpb, eps);
+    else
+      rms_norm_bwd_kernel<T, false><<<nblk, kThreads, smem, stream>>>(xt, gt, dyt, dxt, part,
+                                                                      rows, n, rpb, eps);
+  }
+  e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   rms_dg_reduce_kernel<T><<<(n + 31) / 32, kThreads, 0, stream>>>(part, static_cast<T*>(dg), nblk, n);
   return cudaGetLastError();
@@ -1004,9 +1166,12 @@ int ds_rms_norm_fwd(const void* x, const void* g, void* y, long long rows, int n
 }
 
 // RMSNorm backward: x, dy, dx [rows, n], g and dg [n], one dtype; part is
-// float32 scratch [nblk, n] for the per-block dg partials (nblk <= rows;
-// n * 4 bytes of shared memory per block, so n <= 12288).  Two launches
-// (partials, then their fixed-order sum).
+// float32 scratch [nblk, n] for the per-block dg partials (nblk <= rows).
+// 16-bit rows of up to 8192 elements in 16-byte vectors take the row
+// kernel, one wave of at most nblk blocks; the rest the block kernel,
+// which keeps n * 4 bytes of shared memory per block, so n <= 12288.  Two
+// launches (partials, then their fixed-order sum); none for no row (the
+// wrapper passes a zeroed dg).
 int ds_rms_norm_bwd(const void* x, const void* g, const void* dy, void* dx, void* dg, void* part,
                     long long rows, int n, int nblk, float eps, int dtype, void* stream,
                     int device) {
@@ -1017,10 +1182,15 @@ int ds_rms_norm_bwd(const void* x, const void* g, const void* dy, void* dx, void
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* p = static_cast<float*>(part);
   switch (dtype) {
-    case 0: return static_cast<int>(launch_bwd<float>(x, g, dy, dx, dg, p, rows, n, nblk, eps, s));
+    case 0:
+      return static_cast<int>(
+          launch_bwd<float>(x, g, dy, dx, dg, p, rows, n, nblk, eps, s, device));
     case 1:
-      return static_cast<int>(launch_bwd<__nv_bfloat16>(x, g, dy, dx, dg, p, rows, n, nblk, eps, s));
-    case 2: return static_cast<int>(launch_bwd<__half>(x, g, dy, dx, dg, p, rows, n, nblk, eps, s));
+      return static_cast<int>(
+          launch_bwd<__nv_bfloat16>(x, g, dy, dx, dg, p, rows, n, nblk, eps, s, device));
+    case 2:
+      return static_cast<int>(
+          launch_bwd<__half>(x, g, dy, dx, dg, p, rows, n, nblk, eps, s, device));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1047,7 +1217,8 @@ int ds_layer_norm_fwd(const void* x, const void* g, const void* b, void* y, long
 // partials (nblk <= rows; the block-per-row kernel keeps 8n bytes of shared
 // memory per block, so n <= 6144; 16-bit rows of up to 2048 elements in
 // 16-byte vectors take the warp-per-row kernel, one wave of at most nblk
-// blocks).  Two launches (partials, then their fixed-order sum).
+// blocks).  Two launches (partials, then their fixed-order sum); none for no
+// row (the wrapper passes a zeroed dgb).
 int ds_layer_norm_bwd(const void* x, const void* g, const void* dy, void* dx, void* dgb,
                       void* part, long long rows, int n, int nblk, float eps, int dtype,
                       void* stream, int device) {

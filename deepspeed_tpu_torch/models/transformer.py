@@ -28,9 +28,12 @@ grad-carrying compute copy of the weights.  The parameters registered on
 the module keep ``requires_grad=False`` for serving, which runs the model
 through :func:`~deepspeed_tpu_torch.models.decoding.forward_with_cache`.
 An MoE model (the Mixtral family: top-k routed experts in place of the
-MLP, :mod:`deepspeed_tpu_torch.moe`) gives logits and serves; its training
-(the aux loss and the backward), dropout and the ``offload_dots`` remat
-policy raise naming ROADMAP.md.
+MLP, :mod:`deepspeed_tpu_torch.moe`) trains as the JAX one does: each
+layer's MoE MLP gives a load-balancing aux loss, summed over the layers in
+order, and the loss with labels is ``loss + moe_aux_loss_coef * aux``; its
+backward is autograd through the router, the dispatch and the expert
+matmuls.  Dropout and the ``offload_dots`` remat policy raise naming
+ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -241,11 +244,6 @@ class CausalLM(_ParamTree):
     def check_trainable(self) -> None:
         """Raise for what the training forward does not carry yet."""
         self._check_forward()
-        if self.config.is_moe:
-            raise NotImplementedError(
-                "training an MoE model is not ported yet (ROADMAP.md queue 1 "
-                "item 6e: MoE training, the aux loss, the backward, "
-                "mixtral-tiny through initialize); the port serves it")
 
     def _attn_out(self, lp, x, cos, sin):
         """Attention sub-block output (residual not added)."""
@@ -275,17 +273,24 @@ class CausalLM(_ParamTree):
             o = o + a["bo"]
         return o.to(x.dtype)
 
-    def _mlp_block(self, lp, x, dot=torch.matmul):
-        """``x + mlp(norm(x))``, its matmuls through ``dot`` (an MoE MLP's
-        batched expert matmuls are not: that model is not trained)."""
+    def _mlp_block(self, lp, x):
+        """``(x + mlp(norm(x)), aux)``: an MoE MLP's load-balancing aux loss
+        (fp32 scalar), None for a dense MLP."""
         cfg = self.config
-        h = norm(x, lp["mlp_norm"], cfg.norm, cfg.norm_eps)
-        m = lp["mlp"]
         if cfg.is_moe:
             from deepspeed_tpu_torch.moe.sharded_moe import moe_mlp
 
-            out, _ = moe_mlp(m, h, cfg)
-            return x + out.to(x.dtype)
+            h = norm(x, lp["mlp_norm"], cfg.norm, cfg.norm_eps)
+            out, aux = moe_mlp(lp["mlp"], h, cfg)
+            return x + out.to(x.dtype), aux
+        return self._dense_mlp(lp, x), None
+
+    def _dense_mlp(self, lp, x, dot=torch.matmul):
+        """``x + mlp(norm(x))`` of a dense MLP, its matmuls through
+        ``dot``."""
+        cfg = self.config
+        h = norm(x, lp["mlp_norm"], cfg.norm, cfg.norm_eps)
+        m = lp["mlp"]
         act = activation_fn(cfg.activation)
         up = dot(h, m["w_up"])
         if cfg.has_mlp_bias:
@@ -303,20 +308,22 @@ class CausalLM(_ParamTree):
         return x + out.to(x.dtype)
 
     def _layer(self, lp, x, cos, sin, mlp=None):
-        """One layer; ``mlp(lp, y)`` is ``y + mlp(norm(y))`` (default
-        :meth:`_mlp_block`).  Sequential: the MLP reads ``x + attn``;
-        parallel residual (gpt-neox, gpt-j): both sub-blocks read the layer
-        input and the attention output is added to ``x + mlp``."""
+        """One layer: ``(output, aux)``; ``mlp(lp, y)`` is ``(y +
+        mlp(norm(y)), aux)`` (default :meth:`_mlp_block`).  Sequential: the
+        MLP reads ``x + attn``; parallel residual (gpt-neox, gpt-j): both
+        sub-blocks read the layer input and the attention output is added
+        to ``x + mlp``."""
         mlp = mlp or self._mlp_block
         attn = self._attn_out(lp, x, cos, sin)
         if self.config.parallel_residual:
-            return mlp(lp, x) + attn
+            y, aux = mlp(lp, x)
+            return y + attn, aux
         return mlp(lp, x + attn)
 
     def _mlp_dots(self, lp, x):
         keys = tuple((g, n) for g in ("mlp_norm", "mlp") for n in lp[g])
-        return _MLPDots.apply(self._mlp_block, keys, x,
-                              *(lp[g][n] for g, n in keys))
+        return _MLPDots.apply(self._dense_mlp, keys, x,
+                              *(lp[g][n] for g, n in keys)), None
 
     def _layer_fn(self):
         """The per-layer body under the model's remat policy.  ``mlp_only``
@@ -329,11 +336,18 @@ class CausalLM(_ParamTree):
         and ``dots`` checkpoint the whole layer.  Recomputation repeats the
         same operations on the same inputs, so the numbers are identical to
         no remat; only memory and time differ.  (The JAX ``dots`` policy also
-        saves the matmul outputs; here it recomputes them.)"""
+        saves the matmul outputs; here it recomputes them.)  An MoE MLP under
+        ``mlp_dots`` is recomputed whole, as under ``mlp_only``: JAX's policy
+        (``dots_with_no_batch_dims_saveable``) saves its router product
+        (and the einsum dispatch's two products) but not the expert
+        contractions, whose batch dim is E, so the port recomputes beyond
+        JAX only those small products; the numbers are the same.  Each body returns ``(output, aux)``, the
+        aux a differentiable fp32 scalar or None."""
         cfg = self.config
         if not cfg.remat:
             return self._layer
-        if cfg.remat_policy == "mlp_only":
+        if cfg.remat_policy == "mlp_only" or (cfg.remat_policy == "mlp_dots"
+                                              and cfg.is_moe):
             return functools.partial(self._layer, mlp=functools.partial(
                 checkpoint, self._mlp_block, use_reentrant=False))
         if cfg.remat_policy == "mlp_dots":
@@ -346,12 +360,11 @@ class CausalLM(_ParamTree):
         """Logits [B, S, V] (no labels) or the mean next-token loss.
         ``params`` is the nested JAX-layout dict; a layer leaf may be the
         stacked ``[L, ...]`` tensor or a sequence of L per-layer tensors
-        (the engine's compute copy).  An MoE model gives logits only: its
-        loss carries the aux loss of training, which is not ported yet."""
+        (the engine's compute copy).  An MoE model's loss adds
+        ``moe_aux_loss_coef`` times the sum of its layers' aux losses, in
+        layer order, as the JAX ``apply``."""
         self._check_forward()
         cfg = self.config
-        if cfg.is_moe and labels is not None:
-            self.check_trainable()
         x = params["embed"]["tok"][tokens]
         S = tokens.shape[1]
         if cfg.position == "learned":
@@ -365,10 +378,13 @@ class CausalLM(_ParamTree):
             cos, sin = cos.to(x.dtype), sin.to(x.dtype)
         body = self._layer_fn()
         layers = params["layers"]
+        aux_loss = None
         for i in range(cfg.num_layers):
             lp = {name: {k: v[i] for k, v in sub.items()}
                   for name, sub in layers.items()}
-            x = body(lp, x, cos, sin)
+            x, aux = body(lp, x, cos, sin)
+            if aux is not None:
+                aux_loss = aux if aux_loss is None else aux_loss + aux
         head = (params["embed"]["tok"].t() if cfg.tie_embeddings
                 else params["lm_head"])
         if labels is None:
@@ -377,8 +393,9 @@ class CausalLM(_ParamTree):
             if cfg.lm_head_bias:
                 logits = logits + params["lm_head_bias"].to(logits.dtype)
             return logits
-        return self._loss_tail(params["final_norm"], head, x, labels, loss_mask,
+        loss = self._loss_tail(params["final_norm"], head, x, labels, loss_mask,
                                head_bias=params.get("lm_head_bias"))
+        return loss + cfg.moe_aux_loss_coef * aux_loss if cfg.is_moe else loss
 
     def _loss_tail(self, fnorm, head, x, labels, loss_mask, head_bias=None):
         """Final norm + next-token cross-entropy: logits[t] predicts

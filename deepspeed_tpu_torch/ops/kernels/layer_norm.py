@@ -15,9 +15,11 @@ called through ctypes:
   row.  fp32 warp-shuffle reductions; the LayerNorm variance taken of the
   centred values;
 - the backwards: per-block fp32 partials of dγ (and dβ) summed by a second
-  launch in a fixed order; the LayerNorm's 16-bit rows of up to 2048
-  elements one warp a row, x and dy held in registers, one wave of blocks
-  streaming the rows.
+  launch in a fixed order; 16-bit rows in 16-byte vectors held in
+  registers, one wave of blocks streaming the rows with the next row's x
+  and dy in flight: LayerNorm's rows up to 2048 elements a warp a row,
+  RMSNorm's up to 8192 a block of warps a row; other rows one block per
+  group of rows.
 
 The ``*_plain`` functions keep the JAX ``impl="xla"`` semantics — fp32
 statistics (recomputed from x in the backward), outputs in x's dtype, dγ
@@ -152,23 +154,32 @@ def _bwd_refused(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
             or not gamma.is_contiguous() or not dy.is_contiguous() or dev < 0)
 
 
-# the RMSNorm backward keeps a row of dγ partials in shared memory
+# the longest row of the RMSNorm backward's block kernel, which takes fp32,
+# rows that are no 16-byte vectors and rows past 8192, and keeps a row of dγ
+# partials in shared memory (16-bit rows of up to 8192 in 16-byte vectors
+# take the row kernel, dγ in registers)
 RMS_NORM_BWD_MAX_N = 12288
 
 
 def rms_norm_bwd_cuda(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
                       eps: float = 1e-6):
-    """Launch the backward kernels (per-block dγ partials, then their sum);
-    raises on what they do not take and on a launch error."""
+    """Launch the backward kernels (per-block dγ partials:
+    ``rms_norm_bwd_row_kernel`` for bf16 and fp16 rows of up to 8192
+    elements in 16-byte vectors, else ``rms_norm_bwd_kernel``; then
+    ``rms_dg_reduce_kernel``, their sum); raises on what they do not take
+    and on a launch error."""
     n = x.shape[-1]
     dev = x.get_device()
     if _bwd_refused(x, gamma, dy, dev, RMS_NORM_BWD_MAX_N):
         _refuse_bwd("rms_norm_bwd", x, gamma, dy,
-                    f"rms_norm_bwd kernel keeps a row of dγ partials in shared "
-                    f"memory: n <= {RMS_NORM_BWD_MAX_N}, got {n}")
+                    f"rms_norm_bwd's block kernel (fp32, rows that are no "
+                    f"16-byte vectors, rows past 8192) keeps a row of dγ "
+                    f"partials in shared memory: n <= {RMS_NORM_BWD_MAX_N}, "
+                    f"got {n}")
     rows = x.numel() // n if n else 0
     dx = torch.empty_like(x)
-    dg = torch.empty_like(gamma)
+    # no row launches nothing: dγ is then the empty sum
+    dg = torch.empty_like(gamma) if rows else torch.zeros_like(gamma)
     nblk = max(1, min(rows, _BWD_BLOCKS))
     part = torch.empty(nblk, n, device=x.device, dtype=torch.float32)
     _launch("ds_rms_norm_bwd", _BWD_ARGS, "rms_norm_bwd", x.data_ptr(),
@@ -316,7 +327,8 @@ def layer_norm_bwd_cuda(x: torch.Tensor, gamma: torch.Tensor,
                     f"got {n}")
     rows = x.numel() // n if n else 0
     dx = torch.empty_like(x)
-    dgb = torch.empty(2, n, device=x.device, dtype=gamma.dtype)
+    dgb = (torch.empty if rows else torch.zeros)(2, n, device=x.device,
+                                                  dtype=gamma.dtype)
     nblk = max(1, min(rows, _BWD_BLOCKS))
     part = torch.empty(nblk, 2 * n, device=x.device, dtype=torch.float32)
     _launch("ds_layer_norm_bwd", _BWD_ARGS, "layer_norm_bwd", x.data_ptr(),

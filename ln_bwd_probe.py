@@ -20,13 +20,15 @@ Every build is timed at the paths' shapes, bf16.
   beside the bound (x read once, y written once, the scale once).
 - The backwards (``bwd``): the LayerNorm backward at gpt2-xl's [8192, 1600]
   and bloom-1b7's [8192, 2048] rows (x, dy; gamma of the row's width), and
-  the RMSNorm backward at llama-1b4's [8192, 2048]: the device time a call
-  under the profiler, by kernel (the partials' launch and their ordered
-  sum), the call under CUDA events, and the host's time a call, beside the
-  bound (x and dy read once, dx written once) and, for LayerNorm, the
-  device time of ``torch.add(x, dy, out=...)``, PyTorch's elementwise
-  kernel over the same bytes, as a yardstick of the rate such a stream
-  reaches.
+  the RMSNorm backward at llama-1b4's [8192, 2048], mixtral-8x7b's (and
+  llama3-8b's) [8192, 4096] and mixtral-tiny's [2048, 256] train rows:
+  the device time a call under the profiler, by kernel (the partials'
+  launch and their ordered sum), the call under CUDA events, and the
+  host's time a call, beside the bound (x and dy read once, dx written
+  once) and the device time of
+  ``torch.add(x, dy, out=...)``, PyTorch's elementwise kernel over the same
+  bytes, as a yardstick of the rate such a stream reaches; for RMSNorm also
+  ``F.rms_norm``'s autograd backward on the same inputs.
 
 Before it is timed, each build is held against the plain version (y and dx
 within 2e-2, dγ and dβ within 2e-2 relative, a second call bit-equal);
@@ -141,6 +143,9 @@ VARIANTS = {
 }
 VARIANTS["l2_ahead_hints"] = ("l2_ahead and stream_hints together",
                               VARIANTS["l2_ahead"][1] + VARIANTS["stream_hints"][1])
+# RMSNorm's backward shapes: llama-1b4's and mixtral-8x7b's train rows, and
+# mixtral-tiny's (one-warp blocks of the row kernel)
+RMS_SHAPES = ((8192, 2048), (8192, 4096), (2048, 256))
 _ROW_LOADS = ("      px[i] = xv[c];\n      pg[i] = gv[c];\n"
               "      if constexpr (kLayer) pb[i] = bv[c];\n")
 _ROW_OUT = "    if (c < nv) yv[c] = norm_out<kLayer, T>(px[i], pg[i], pb[i], st);\n"
@@ -226,13 +231,14 @@ def finish(procs):
 
 
 def ptxas_lines(lines):
-    """ptxas's registers and spills of the LayerNorm backward's kernels and
-    of both forwards'."""
+    """ptxas's registers and spills of both backwards' kernels and of both
+    forwards'."""
     got, entry = [], ""
     for ln in lines:
         if "Compiling entry" in ln:
             entry = ln.split("'")[1] if "'" in ln else ln
-        elif any(k in entry for k in ("layer_norm_bwd", "layer_norm_dgb", "norm_fwd")) and \
+        elif any(k in entry for k in ("layer_norm_bwd", "layer_norm_dgb", "norm_fwd",
+                                      "rms_norm_bwd", "rms_dg_reduce")) and \
                 ("Used" in ln or "spill" in ln):
             ty = " bf16" if "13__nv_bfloat16" in entry else " fp16" if "6__half" in entry else ""
             name = re.search(r"\d((?:layer|rms)_norm_[a-z_]*?kernel)", entry)
@@ -253,29 +259,47 @@ def use_library(path):
 
 
 def rms_bwd_measure(torch, cs, dev, checked):
-    """The RMSNorm backward at llama-1b4's [8192, 2048] rows, bf16: device us
-    a call by kernel, call ms, host us a call, the bound."""
+    """The RMSNorm backward at each RMS_SHAPES shape, bf16: device us a call
+    by kernel, call ms, host us a call, the bound, ``torch.add`` over the
+    same bytes and ``F.rms_norm``'s autograd backward; each held to the
+    plain version first when ``checked``."""
+    import torch.nn.functional as F_
+
     from deepspeed_tpu_torch.ops.kernels import layer_norm as ln
 
-    gen = torch.Generator(device=dev).manual_seed(0)
-    x, g, _, dy = cs._ln_inputs(torch, dev, gen, torch.bfloat16, (8192, 2048))
-    if checked:
-        got, again = ln.rms_norm_bwd_cuda(x, g, dy, 1e-5), ln.rms_norm_bwd_cuda(x, g, dy, 1e-5)
-        want = ln.rms_norm_bwd_plain(x, g, dy, 1e-5)
-        torch.cuda.synchronize()
-        cs.check(all(torch.equal(a, c) for a, c in zip(got, again)),
-                 "rms_norm_bwd: two calls differ")
-        cs._assert_close(torch, got[0], want[0], 2e-2, "rms_norm_bwd dx")
-        cs.check(cs._rel_err(got[1], want[1]) < 2e-2, "rms_norm_bwd dγ")
+    out = {}
+    for shape in RMS_SHAPES:
+        n = shape[-1]
+        gen = torch.Generator(device=dev).manual_seed(0)
+        x, g, _, dy = cs._ln_inputs(torch, dev, gen, torch.bfloat16, shape)
+        if checked:
+            got, again = (ln.rms_norm_bwd_cuda(x, g, dy, 1e-5),
+                          ln.rms_norm_bwd_cuda(x, g, dy, 1e-5))
+            want = ln.rms_norm_bwd_plain(x, g, dy, 1e-5)
+            torch.cuda.synchronize()
+            cs.check(all(torch.equal(a, c) for a, c in zip(got, again)),
+                     f"rms_norm_bwd {shape}: two calls differ")
+            cs._assert_close(torch, got[0], want[0], 2e-2, f"rms_norm_bwd dx {shape}")
+            cs.check(cs._rel_err(got[1], want[1]) < 2e-2, f"rms_norm_bwd dγ {shape}")
 
-    def call():
-        return ln.rms_norm_bwd_cuda(x, g, dy, 1e-5)
-    split = cs.kernel_split(torch, call, ("rms_norm_bwd_kernel", "rms_dg_reduce_kernel"),
-                            "rms_norm_bwd [8192,2048]", calls=50)
-    return {"8192x2048": {
-        "device_us": sum(split.values()), "split": split, "ms": cs.time_ms(torch, call),
-        "host_us": cs.host_us(torch, call, calls=1000),
-        "bound_us": cs.bound_ms((3 * x.numel() + 3 * 2048) * 2, 10 * x.numel())[0] * 1e3}}
+        def call():
+            return ln.rms_norm_bwd_cuda(x, g, dy, 1e-5)
+        split = cs.kernel_split(torch, call, cs.RMS_BWD_KERNELS,
+                                f"rms_norm_bwd {list(shape)}", calls=50)
+        buf = torch.empty_like(x)
+        add = cs.kernel_split(torch, lambda: torch.add(x, dy, out=buf), ("elementwise",),
+                              f"torch.add x + dy {list(shape)}", calls=50)
+        lx, lg = x.clone().requires_grad_(), g.clone().requires_grad_()
+        ly = F_.rms_norm(lx, (n,), lg, eps=1e-5)
+        out[f"{shape[0]}x{n}"] = {
+            "device_us": sum(split.values()), "split": split,
+            "add_us": add["elementwise"], "ms": cs.time_ms(torch, call),
+            "library_ms": cs.time_ms(torch, lambda: torch.autograd.grad(
+                ly, (lx, lg), dy, retain_graph=True)),
+            "host_us": cs.host_us(torch, call, calls=1000),
+            "bound_us": cs.bound_ms((3 * x.numel() + 3 * n) * 2, 10 * x.numel())[0] * 1e3}
+        del x, g, dy, buf, lx, lg, ly
+    return out
 
 
 def measure(torch, cs, dev, checked, names):
@@ -383,12 +407,16 @@ def main():
                       f"{100 * r['bound_us'] / r['device_us']:.1f} %), torch.add of the same "
                       f"bytes {r['add_us']:.3f} us, call {r['ms']:.5f} ms, host "
                       f"{r['host_us']:.3f} us a call", flush=True)
-            if path is None:
-                row["rms_norm_bwd"] = rms_bwd_measure(torch, cs, dev, checked)
-                r = row["rms_norm_bwd"]["8192x2048"]
-                print(f"  rms_norm_bwd 8192x2048: device {r['device_us']:.3f} us a call, bound "
-                      f"{r['bound_us']:.3f} us, call {r['ms']:.5f} ms, host "
-                      f"{r['host_us']:.3f} us a call", flush=True)
+        if "bwd" in kinds and (path is None or name == "repeat"):
+            row["rms_norm_bwd"] = rms_bwd_measure(torch, cs, dev, checked)
+            for shape, r in row["rms_norm_bwd"].items():
+                print(f"  rms_norm_bwd {shape}: device {r['device_us']:.3f} us a call ("
+                      + ", ".join(f"{k} {v:.3f}" for k, v in r["split"].items())
+                      + f"), bound {r['bound_us']:.3f} us ("
+                      f"{100 * r['bound_us'] / r['device_us']:.1f} %), torch.add of the same "
+                      f"bytes {r['add_us']:.3f} us, call {r['ms']:.5f} ms, F.rms_norm "
+                      f"backward {r['library_ms']:.5f} ms, host {r['host_us']:.3f} us a "
+                      f"call", flush=True)
     (outdir / f"{label}.json").write_text(json.dumps(res, indent=1))
     print(f"ln_bwd_probe {label}: ok", flush=True)
 
@@ -426,6 +454,20 @@ def check_all(torch, cs, dev):
             e2 = cs._assert_close(torch, got[0], want[0], tol[dt], f"rms_norm_bwd {dt} {shape}")
             print(f"  check layer_norm_bwd / rms_norm_bwd {dt} {list(shape)}: dx max abs err "
                   f"{e:.3g} / {e2:.3g}", flush=True)
+        for shape in (*RMS_SHAPES[1:], (8191, 2048), (777, 4096)):
+            gen = torch.Generator(device=dev).manual_seed(3)
+            x, g, _, dy = cs._ln_inputs(torch, dev, gen, dt, shape)
+            got, again = (ln.rms_norm_bwd_cuda(x, g, dy, 1e-5),
+                          ln.rms_norm_bwd_cuda(x, g, dy, 1e-5))
+            want = ln.rms_norm_bwd_plain(x, g, dy, 1e-5)
+            torch.cuda.synchronize()
+            cs.check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                     f"rms_norm_bwd {dt} {shape}: two calls differ")
+            e = cs._assert_close(torch, got[0], want[0], tol[dt], f"rms_norm_bwd {dt} {shape}")
+            rel = cs._rel_err(got[1], want[1])
+            cs.check(rel < max(tol[dt], 1e-4), f"rms_norm_bwd dγ {dt} {shape}: {rel}")
+            print(f"  check rms_norm_bwd {dt} {list(shape)}: dx max abs err {e:.3g}, dγ "
+                  f"relative {rel:.3g}, second call bit-equal", flush=True)
 
 
 if __name__ == "__main__":

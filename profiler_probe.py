@@ -1,0 +1,118 @@
+#!/usr/bin/env python3
+"""How often a short torch.profiler session on one CUDA card comes back
+without some or all of its kernels' records, with and without host sleeps
+around the profiled calls, and with the host's cores idle or kept busy.
+
+    python3 profiler_probe.py [--sessions N] [--pads 0,0.005,0.05] [--load 0,8]
+
+Each session profiles 200 calls of ``y.copy_(x)`` at [8, 1600] bf16 (the
+shortest session ``chip_smoke.device_us_a_call`` takes) and, as a longer
+one, 10 calls of a [4096, 4096] bf16 matmul.  A session is whole when every
+kernel or copy it holds has a record for each call.  For every session the
+probe also reads the gaps between the first call's runtime launch (host
+clock) and the first record on the device, and between the last record on
+the device and the end of the synchronize that waits for it: a negative
+gap means the device's records were placed outside the host's window.
+``--load K`` keeps K processes spinning on the host while the sessions run
+(stopped at the end).  Prints the card's name and power limit and one JSON
+line of counts and gaps; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+
+def gaps(prof):
+    """(first device start - first host launch, last host sync end - last
+    device end) in us, from the session's events."""
+    dev, launch, sync = [], [], []
+    for e in prof.events():
+        r = e.time_range
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            dev.append((r.start, r.end))
+        elif e.name.startswith(("cudaLaunchKernel", "cudaMemcpyAsync", "cuLaunchKernel")):
+            launch.append(r.start)
+        elif e.name.startswith(("cudaDeviceSynchronize", "cudaStreamSynchronize")):
+            sync.append(r.end)
+    if not dev or not launch or not sync:
+        return None, None
+    return (min(a for a, _ in dev) - min(launch), max(sync) - max(b for _, b in dev))
+
+
+def session(torch, call, calls, pad):
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(pad)
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+        time.sleep(pad)
+    ev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    whole = bool(ev) and all(e.count == calls for e in ev)
+    return whole, bool(ev), gaps(prof)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--sessions", type=int, default=300)
+    ap.add_argument("--pads", default="0,0.005,0.05")
+    ap.add_argument("--load", default="0,8")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profiler_probe: no CUDA card", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    dev = torch.device("cuda")
+    x = torch.randn(8, 1600, device=dev).to(torch.bfloat16)
+    y = torch.empty_like(x)
+    a = torch.randn(4096, 4096, device=dev).to(torch.bfloat16)
+    cases = {"copy_[8,1600]x200": (lambda: y.copy_(x), 200),
+             "matmul[4096]x10": (lambda: a @ a, 10)}
+    for call, _ in cases.values():
+        for _ in range(3):
+            call()
+    torch.cuda.synchronize()
+    result = []
+    for load in (int(v) for v in args.load.split(",")):
+        spin = [subprocess.Popen([sys.executable, "-c", "while True: pass"])
+                for _ in range(load)]
+        try:
+            for pad in (float(v) for v in args.pads.split(",")):
+                for name, (call, calls) in cases.items():
+                    n = args.sessions if calls > 10 else max(1, args.sessions // 5)
+                    t0, runs = time.perf_counter(), [session(torch, call, calls, pad)
+                                                     for _ in range(n)]
+                    first = [g[0] for _, _, g in runs if g[0] is not None]
+                    last = [g[1] for _, _, g in runs if g[1] is not None]
+                    row = {"load": load, "pad_s": pad, "case": name, "sessions": n,
+                           "not_whole": sum(not w for w, _, _ in runs),
+                           "empty": sum(not e for _, e, _ in runs),
+                           "first_gap_us": [min(first), statistics.median(first)]
+                           if first else None,
+                           "last_gap_us": [min(last), statistics.median(last)]
+                           if last else None,
+                           "s": time.perf_counter() - t0}
+                    print(json.dumps(row), flush=True)
+                    result.append(row)
+        finally:
+            for p in spin:
+                p.kill()
+                p.wait()
+    print(json.dumps({"profiler_probe": result}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

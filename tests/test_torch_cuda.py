@@ -33,6 +33,8 @@ training): each bf16 bound over 8, as fp16 keeps three more mantissa bits
 gradients, 1.25e-3 for the flash output's relative error.
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -884,10 +886,16 @@ def _rel_err(got, want):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(8192, 2048), (3, 5, 2048), (7, 100),
-                                   (1, 64)])
+                                   (1, 64), (8192, 4096), (2048, 256),
+                                   (8191, 2048), (777, 4096), (5, 8192),
+                                   (0, 2048)])
 def test_rms_norm_bwd_kernel_matches_plain(cuda_device, dtype, shape):
     """llama-1b4's [micro * S, D] rows, a 3-D input, an odd row length (the
-    element-by-element path) and a single row."""
+    element-by-element path) and a single row; mixtral-8x7b's [8192, 4096]
+    train rows, mixtral-tiny's [2048, 256] (one-warp blocks), row counts
+    that are no multiple of the warps a wave holds ([8191, 2048]) or that
+    do not fill the row kernel's wave evenly ([777, 4096]), the row
+    kernel's widest row, 16 warps a row, and no row at all (dγ zero)."""
     x = _randn(shape, 0, dtype, cuda_device, 3.0)
     g = _randn(shape[-1:], 1, dtype, cuda_device) * 0.1 + 1
     dy = _randn(shape, 2, dtype, cuda_device)
@@ -899,6 +907,58 @@ def test_rms_norm_bwd_kernel_matches_plain(cuda_device, dtype, shape):
     assert _rel_err(dg, want_dg) < dg_tol
     dx2, dg2 = tln.rms_norm_bwd(x, g, dy, eps=1e-5)
     assert torch.equal(dx, dx2) and torch.equal(dg, dg2)   # no atomics
+
+
+def test_rms_norm_bwd_launches_its_kernels(cuda_device):
+    """bf16 and fp16 rows of up to 8192 elements in 16-byte vectors take the
+    row kernel; fp32, odd widths and rows past 8192 the block kernel; each
+    sums its partials with rms_dg_reduce_kernel, never LayerNorm's."""
+    dev = cuda_device
+    for dtype, n, row in ((torch.bfloat16, 2048, True), (torch.float16, 256, True),
+                          (torch.bfloat16, 4096, True), (torch.float16, 8192, True),
+                          (torch.bfloat16, 2056, True), (torch.float32, 2048, False),
+                          (torch.bfloat16, 8200, False), (torch.bfloat16, 100, False)):
+        x = _randn((64, n), 0, dtype, dev)
+        g = torch.ones(n, device=dev, dtype=dtype)
+        names, _ = _profiled_kernels(lambda: tln.rms_norm_bwd(x, g, x, eps=1e-5),
+                                     ("rms_norm_bwd_", "rms_dg_reduce_kernel"))
+        assert any("rms_norm_bwd_row_kernel" in e for e in names) == row, (dtype, n, names)
+        assert any("rms_norm_bwd_kernel" in e for e in names) == (not row), names
+        assert any("rms_dg_reduce_kernel" in e for e in names), names
+        assert not any("layer_norm_dgb_sum" in e for e in names), names
+
+
+def test_rms_norm_bwd_replays_in_a_cuda_graph(cuda_device):
+    """llama-1b4's and mixtral-8x7b's train rows through the row kernel,
+    captured in one CUDA graph: nothing is read back, so a replay on new
+    inputs equals the eager calls bit for bit."""
+    dev, dt = cuda_device, torch.bfloat16
+    ins = [(_randn((8192, n), 0, dt, dev, 3.0), _randn((n,), 1, dt, dev) * 0.1 + 1,
+            _randn((8192, n), 2, dt, dev)) for n in (2048, 4096)]
+
+    def step():
+        return [tln.rms_norm_bwd_cuda(x, g, dy, 1e-5) for x, g, dy in ins]
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        step()                          # occupancy and bindings, eagerly
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    before = tln.rms_norm_bwd.launches
+    with torch.cuda.graph(g, stream=s):
+        outs = step()
+    assert tln.rms_norm_bwd.launches == before + 2
+    for i, (x, _, dy) in enumerate(ins):
+        x.copy_(_randn(x.shape, 10 + i, dt, dev, 2.0))
+        dy.copy_(_randn(dy.shape, 20 + i, dt, dev))
+    g.replay()
+    torch.cuda.synchronize()
+    want = step()
+    torch.cuda.synchronize()
+    for got, ref in zip(outs, want):
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    x, gam, dy = ins[1]
+    _close(outs[1][0], tln.rms_norm_bwd_plain(x, gam, dy, 1e-5)[0], 2e-2)
 
 
 def test_rms_norm_autograd_launches_both_kernels(cuda_device):
@@ -1515,14 +1575,14 @@ def test_norm_backwards_launch_on_the_current_stream(cuda_device, kind):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(8192, 1600), (8192, 2048), (4099, 1600),
                                    (5, 2048), (5, 2056), (3, 5, 768), (7, 100),
-                                   (1, 64), (600, 6144)])
+                                   (1, 64), (600, 6144), (0, 1600)])
 def test_layer_norm_bwd_kernel_matches_plain(cuda_device, dtype, shape):
     """gpt2-xl's and bloom-1b7's [micro * S, D] rows, a row count that does
     not divide into the warps of a block, the longest row of the 16-bit warp
     kernel and one just past it, a 3-D input, an odd row length (the
-    element-by-element path), a single row, and the longest row the
+    element-by-element path), a single row, the longest row the
     block-per-row kernel takes (48 KB of partials: more than a block's
-    default shared memory)."""
+    default shared memory), and no row at all (dγ and dβ zero)."""
     x = _randn(shape, 0, dtype, cuda_device, 3.0) + 1.5
     g = _randn(shape[-1:], 1, dtype, cuda_device) * 0.1 + 1
     dy = _randn(shape, 2, dtype, cuda_device)
@@ -2146,22 +2206,20 @@ def test_fused_mlp_int8_kernel_matches_plain(cuda_device, B, D, F, glu, bias,
 
 def _profiled_kernels(fn, want=(), sessions=4):
     """The names of the kernels a call of ``fn`` ran on the card, under
-    torch.profiler, and the calls made.  On the H100 a session now and then
-    comes back without some or all of its kernels' records (chip_smoke.py's
-    ``kernel_split`` takes such a session again too; in the failures seen,
-    the call's first kernel was among the records lost), so each session
-    launches a small fill first, and a session whose names miss one of
-    ``want`` is taken again, with a new call, up to ``sessions`` calls in
-    all."""
+    torch.profiler, and the calls made.  On the H100 machine the profiler
+    places the device's records up to a few ms off the host's clock and drops
+    those it places outside its window (profiler_probe.py), so the host sleeps
+    20 ms at each end of the session, as chip_smoke.py does; a session whose
+    names still miss one of ``want`` is taken again, with a new call, up to
+    ``sessions`` calls in all."""
     from torch.profiler import ProfilerActivity, profile
 
-    marker = torch.empty(1, device="cuda")
     for calls in range(1, sessions + 1):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            marker.fill_(0.0)
-            torch.cuda.synchronize()
+            time.sleep(0.02)
             fn()
             torch.cuda.synchronize()
+            time.sleep(0.02)
         names = [e.key for e in prof.key_averages() if e.self_device_time_total > 0]
         if all(any(w in k for k in names) for w in want):
             break
@@ -2568,6 +2626,40 @@ def test_unmodified_llama_tiny_trains_on_card(cuda_device):
         before = tfa.flash_attention.launches
         losses = [float(engine.train_step((tok, tok))) for _ in range(3)]
         assert (tfa.flash_attention.launches > before) == (dev != "cpu")
+        runs.append((losses, [p.cpu() for p in engine.master]))
+    (lc, pc), (lg, pg) = runs
+    np.testing.assert_allclose(lg, lc, rtol=1e-4)
+    assert lg[-1] < lg[0]
+    for a, b in zip(pc, pg):
+        torch.testing.assert_close(b, a, rtol=0, atol=1e-4)
+
+
+def test_mixtral_tiny_trains_on_card(cuda_device):
+    """The mixtral-tiny preset as it is (D 256, 8 heads of 32, 4 layers, 8
+    experts top-2, vocab 32000) trained 3 steps on the card and on the CPU:
+    the loss with its aux term within rtol 1e-4 and weights within atol
+    1e-4, the bounds of test_unmodified_llama_tiny_trains_on_card; the card
+    run launches the flash kernels and the RMSNorm backward."""
+    import deepspeed_tpu_torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = {"train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 2,
+           "optimizer": {"type": "FusedAdam", "params": {
+               "lr": 3e-4, "betas": [0.9, 0.95], "weight_decay": 0.1}},
+           "scheduler": {"type": "WarmupLR", "params": {
+               "warmup_max_lr": 3e-4, "warmup_num_steps": 2}},
+           "gradient_clipping": 1.0}
+    tok = np.random.default_rng(0).integers(0, 32000, (4, 96))
+    runs = []
+    for dev in ("cpu", cuda_device):
+        model = deepspeed_tpu_torch.causal_lm("mixtral-tiny", device="cpu")
+        assert model.config.is_moe and model.config.head_dim == 32
+        engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=cfg,
+                                                    device=dev)
+        before = (tfa.flash_attention.launches, tln.rms_norm_bwd.launches)
+        losses = [float(engine.train_step((tok, tok))) for _ in range(3)]
+        after = (tfa.flash_attention.launches, tln.rms_norm_bwd.launches)
+        assert all((a > b) == (dev != "cpu") for a, b in zip(after, before))
         runs.append((losses, [p.cpu() for p in engine.master]))
     (lc, pc), (lg, pg) = runs
     np.testing.assert_allclose(lg, lc, rtol=1e-4)

@@ -282,7 +282,9 @@ def test_mixtral_param_tree_matches_jax(mixtral):
 
 def test_mixtral_apply_logits_match_jax(mixtral):
     """CausalLM.apply (the InferenceEngine's plain forward) on [2, 12]
-    tokens: fp32 within 1e-4; MoE training stays refused."""
+    tokens: fp32 within 1e-4; with labels the loss and its aux term within
+    1e-4 of the JAX loss, and ``initialize`` trains the model (a fresh
+    module, so the fixture's weights stay as they are)."""
     mesh, jm, params, tm, tp = mixtral
     toks = np.random.default_rng(0).integers(0, 256, (2, 12))
     set_global_mesh(mesh)
@@ -292,10 +294,18 @@ def test_mixtral_apply_logits_match_jax(mixtral):
     eng = deepspeed_tpu_torch.init_inference(tm, {"dtype": "float32"},
                                              params=tp, device="cpu")
     np.testing.assert_allclose(eng(toks).numpy(), want, rtol=1e-4, atol=1e-4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*MoE training"):
-        tm.apply(tp, torch.from_numpy(toks), labels=torch.from_numpy(toks))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*MoE training"):
-        deepspeed_tpu_torch.initialize(model=tm, config={}, device="cpu")
+    want = float(jm.apply(params, jnp.asarray(toks, jnp.int32),
+                          jnp.asarray(toks, jnp.int32)))
+    got = float(tm.apply(tp, torch.from_numpy(toks), labels=torch.from_numpy(toks)))
+    assert got == pytest.approx(want, rel=1e-4)
+    fresh = t_causal_lm("mixtral-tiny", device="cpu", **TINY)
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=fresh, model_parameters=tp, config={
+            "train_micro_batch_size_per_gpu": 2,
+            "optimizer": {"type": "FusedAdam", "params": {"lr": 1e-3}}},
+        device="cpu")
+    losses = [float(engine.train_step((toks, toks))) for _ in range(2)]
+    assert losses[0] == pytest.approx(want, rel=1e-4) and losses[1] < losses[0]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -240,9 +240,11 @@ def test_unported_training_config_sections_are_refused(section):
 
 
 @pytest.mark.parametrize("over", [
-    {"dropout": 0.1}, {"num_experts": 4},
+    {"dropout": 0.1}, {"num_experts": 4, "dropout": 0.1},
     {"remat": True, "remat_policy": "offload_dots"}])
 def test_unported_training_model_options_are_refused(over):
+    """Dropout (also in an MoE model, which trains without it) and the
+    ``offload_dots`` remat policy raise naming ROADMAP.md."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models.config import get_model_config
     from deepspeed_tpu_torch.models.transformer import CausalLM
