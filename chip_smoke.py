@@ -256,6 +256,10 @@ import time
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32, outside the tensor cores
 BF16_FLOPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
+# H100 SXM 32-bit integer operations: 132 SMs x 64 INT32 lanes x 1.98 GHz,
+# from the fp32 rate above (128 lanes an SM, two flops an FMA): a quarter of
+# it, one operation a lane a cycle
+INT32_OPS_PER_S = FP32_FLOPS_PER_S / 4
 # kernel vs plain version: fp32 elementwise 1e-5 (same formula, another
 # reduction order); fp32 GEMV 1e-4 (sums of up to 14336 products in another
 # order: ~sqrt(K) * 2^-24 of the partial sums); fp32 attention 2e-4 (online
@@ -401,7 +405,7 @@ def phase_build(torch, dev):
         results[name + "_s"] = time.perf_counter() - t0
 
     libs = ("layer_norm", "rope", "decode", "flash_attention", "fused_adam",
-            "quantizer", "fused_adam8bit", "fused_lamb")
+            "quantizer", "fused_adam8bit", "fused_lamb", "dropout")
     threads = [threading.Thread(target=cuda_build, args=(n,)) for n in libs]
     for th in threads:
         th.start()
@@ -3062,6 +3066,7 @@ def phase_kernels(torch, dev):
     errs.update(check_optimizer_kernels(torch, dev, gen))
     errs["flash_decode_contig"] = check_contig_decode(torch, dev, gen)
     errs.update(check_int8_gemvs(torch, dev, gen))
+    errs.update(check_dropout(torch, dev))
     out = time_old_kernels(torch, dev, gen, errs)
     out.update(time_decode_kernels(torch, dev, gen, errs))
     out.update(time_train_kernels(torch, dev, gen, errs))
@@ -3069,6 +3074,7 @@ def phase_kernels(torch, dev):
     out.update(time_gpt2_kernels(torch, dev, gen, errs))
     out.update(time_optimizer_kernels(torch, dev, gen, errs))
     out.update(time_generate_kernels(torch, dev, gen, errs))
+    out.update(time_dropout(torch, dev, errs))
     out["rms_norm"]["max_abs_err_train_shape"] = errs["rms_norm_train"]
     out["rope"]["max_abs_err_train_shape"] = errs["rope_train"]
     # fp16 max abs errors of the kernels the fp16 path shares with bf16
@@ -3099,6 +3105,224 @@ def phase_kernels(torch, dev):
           "{bwd_bound_ms:.6f} ms".format(**gpt2_flash))
     time_head_gemms(torch, dev, gen)
     return out
+
+
+
+# dropout at llama-1b4's training activations [micro, S, D], the rate the
+# dropout_train cell runs
+DROPOUT_SHAPE = (4, 2048, 2048)
+DROPOUT_RATE = 0.1
+# no TPU kernel: the JAX package's dropout is plain jnp, fused by XLA
+DROPOUT_SITE = "deepspeed_tpu/models/transformer.py:704"
+# SASS opcodes of 32-bit integer work, counted for the dropout kernel's
+# bound: IMAD issues to the FMA pipe, the rest to the integer (ALU) pipe;
+# the two run side by side, each at 64 lanes an SM a cycle on Hopper
+INT_OPCODES = {"IADD3", "IMAD", "LOP3", "SHF", "ISETP", "LEA", "SEL", "PRMT",
+               "IMNMX", "IADD", "LOP", "SHL", "SHR", "IABS", "VIMNMX", "ISCADD"}
+
+
+def dropout_int_ops():
+    """32-bit integer operations an element of the bf16 dropout kernel, from
+    its SASS: the integer instructions of ``dropout_kernel<__nv_bfloat16,
+    8>`` (its rolled loop's body of 8 unrolled hashes, the one-element tail
+    and the prologue) over the 9 elements those hashes serve.  Returns
+    (ALU-pipe ops an element, IMAD ops an element, {opcode: count})."""
+    import os
+
+    from deepspeed_tpu_torch.ops.kernels import build
+
+    lib = build.load_library("dropout")
+    tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(lib.path)], capture_output=True,
+                         text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump -sass failed: {out.stderr[-400:]}")
+    for body in re.split(r"\n\s*Function : ", out.stdout)[1:]:
+        fname = body.split("\n", 1)[0]
+        if "dropout_kernel" not in fname or "bfloat16" not in fname or "Li8E" not in fname:
+            continue
+        hist = {}
+        for op in re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9]*)",
+                             body):
+            hist[op] = hist.get(op, 0) + 1
+        n_int = sum(c for op, c in hist.items() if op in INT_OPCODES)
+        check(n_int > 20 * 3 * 9, f"dropout SASS: {n_int} integer instructions "
+              f"for 9 hashes: {hist}")
+        imad = hist.get("IMAD", 0)
+        return (n_int - imad) / 9, imad / 9, hist
+    raise RuntimeError("chip_smoke: dropout_kernel<bf16, 8> not in the SASS")
+
+
+def check_dropout(torch, dev):
+    """The dropout kernel against its plain version, bit for bit, forward
+    and backward, in fp32, bf16 and fp16, at llama-1b4's training shape and
+    at shapes with a tail past the last 16-byte vector, at rates 0.1 and
+    0.5; the kept share at the training shape within 6 binomial standard
+    deviations of 1 - rate."""
+    from deepspeed_tpu_torch.ops.kernels import dropout as kd
+    from deepspeed_tpu_torch.utils import prng
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    shares = {}
+    for name in ("float32", "bfloat16", "float16"):
+        dt = getattr(torch, name)
+        for shape in (DROPOUT_SHAPE, (1000003,), (3, 5, 7, 9)):
+            x = _randn(torch, shape, gen, dev, 3.0).to(dt)
+            for rate in (DROPOUT_RATE, 0.5):
+                key = prng.prng_key(len(shape) * 1000 + int(rate * 10))
+                y = kd.dropout_cuda(x, key, rate)
+                dx = kd.dropout_bwd_cuda(x, key, rate)
+                want = kd.dropout_plain(x, key, rate)
+                check(torch.equal(y, want) and torch.equal(dx, want),
+                      f"dropout {name} {shape} rate {rate}: kernel != plain")
+                if shape == DROPOUT_SHAPE:
+                    n, p = x.numel(), 1.0 - rate
+                    kept = float((want != 0).sum()) / n
+                    check(abs(kept - p) <= 6 * (p * (1 - p) / n) ** 0.5,
+                          f"dropout keeps {kept} of {shape} at rate {rate}")
+                    shares[(name, rate)] = kept
+            del x
+    torch.cuda.empty_cache()
+    print("kernels vs plain: dropout forward and backward bit-equal in fp32, "
+          f"bf16 and fp16 at {list(DROPOUT_SHAPE)}, [1000003], [3, 5, 7, 9], "
+          f"rates {DROPOUT_RATE} and 0.5; kept share at the training shape "
+          + ", ".join(f"{k[0]} {k[1]}: {v:.6f}" for k, v in shares.items()))
+    return {"dropout": 0.0, "dropout_bwd": 0.0}
+
+
+def time_dropout(torch, dev, errs):
+    """The dropout kernel at DROPOUT_SHAPE bf16, forward and backward (the
+    same kernel on dy): call ms under CUDA events, device us a launch under
+    the profiler, the plain version, ``F.dropout`` as a yardstick (Philox
+    bits: another function, so no library_ms), and the bound: the largest
+    of x read and y written once over the HBM rate, the SASS's integer
+    operations an element on the ALU pipe over the INT32 rate, and its
+    IMADs, which issue to the FMA pipe beside them, over the same rate."""
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops.kernels import dropout as kd
+    from deepspeed_tpu_torch.utils import prng
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    x = _randn(torch, DROPOUT_SHAPE, gen, dev).to(torch.bfloat16)
+    key = prng.prng_key(2024)
+    n = x.numel()
+    alu_el, imad_el, hist = dropout_int_ops()
+    ops_el = alu_el + imad_el
+    b_ms, b_by = bound_ms(2 * 2 * n, max(alu_el, imad_el) * n,
+                          peak=INT32_OPS_PER_S)
+    out = {}
+    for name, fn in (("dropout", kd.dropout_cuda), ("dropout_bwd", kd.dropout_bwd_cuda)):
+        dev_us, kernels = device_us_a_call(
+            torch, lambda: fn(x, key, DROPOUT_RATE), name, calls=50)
+        out[name] = {
+            "shape": f"bf16 {list(DROPOUT_SHAPE)}, rate {DROPOUT_RATE}",
+            "ms": time_ms(torch, lambda: fn(x, key, DROPOUT_RATE),
+                          samples=20, inner=10),
+            "plain_ms": time_ms(torch, lambda: kd.dropout_plain(x, key, DROPOUT_RATE),
+                                samples=3, inner=1, warmup=1),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+            "max_abs_err": errs[name], "device_us": dev_us,
+            "int_ops_an_element": {"alu": alu_el, "imad": imad_el},
+            "f_dropout_ms": time_ms(torch, lambda: F.dropout(x, DROPOUT_RATE),
+                                    samples=20, inner=10)}
+    r = out["dropout"]
+    print(f"time dropout bf16 {list(DROPOUT_SHAPE)}: forward {r['device_us']:.2f} "
+          f"us a launch on the device ({r['ms']:.5f} ms a call), backward "
+          f"{out['dropout_bwd']['device_us']:.2f} us; bound {1e3 * b_ms:.2f} us "
+          f"({b_by}: {4 * n / 1e6:.1f} MB at 3.35 TB/s is "
+          f"{4 * n / HBM_BYTES_PER_S * 1e6:.2f} us; of the SASS's {ops_el:.2f} "
+          f"integer operations an element, {alu_el:.2f} on the ALU pipe at "
+          f"{INT32_OPS_PER_S / 1e12:.2f} TOP/s is "
+          f"{alu_el * n / INT32_OPS_PER_S * 1e6:.2f} us, {imad_el:.2f} IMADs on "
+          f"the FMA pipe {imad_el * n / INT32_OPS_PER_S * 1e6:.2f} us), "
+          f"{100 * 1e3 * b_ms / r['device_us']:.1f} % of it; plain "
+          f"{r['plain_ms']:.3f} ms; F.dropout (Philox bits, another function) "
+          f"{r['f_dropout_ms']:.5f} ms; SASS {sorted(hist.items())}")
+    del x
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_offload_grads(torch, dev, layers=4):
+    """``offload_dots`` (the matmul outputs through pinned host memory) at
+    llama-1b4's full width and its training batch, cut to ``layers`` so
+    that the run without remat fits beside it: loss and every gradient
+    bit-equal to no remat, in bf16, with dropout on."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.utils import prng
+
+    model = deepspeed_tpu_torch.causal_lm("llama-1b4", seed=0, num_layers=layers,
+                                          dtype=torch.bfloat16, dropout=DROPOUT_RATE)
+    micro, S = TRAIN_CELLS["llama-1b4"]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    tok = torch.randint(0, model.config.vocab_size, (micro, S), device=dev,
+                        generator=gen)
+    out = {}
+    for remat, policy in ((False, "full"), (True, "offload_dots")):
+        model.config.remat, model.config.remat_policy = remat, policy
+        leaves = []
+
+        def copy(t):
+            if isinstance(t, dict):
+                return {k: copy(v) for k, v in t.items()}
+            leaves.append(t.detach().clone().requires_grad_())
+            return leaves[-1]
+        params = copy(model.params())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = time.perf_counter()
+        loss = model.apply(params, tok, tok, rngs=prng.prng_key(5))
+        loss.backward()
+        torch.cuda.synchronize()
+        out[policy if remat else "none"] = (
+            loss.detach(), [p.grad for p in leaves], time.perf_counter() - t,
+            torch.cuda.max_memory_allocated(dev) / 2**30)
+        del params, loss
+    (l0, g0, t0, m0), (l1, g1, t1, m1) = out["none"], out["offload_dots"]
+    check(torch.equal(l0, l1) and all(torch.equal(a, b) for a, b in zip(g0, g1)),
+          "offload_dots: loss or gradients differ from no remat")
+    print(f"offload_dots check: llama-1b4 D 2048 cut to {layers} layers, bf16, "
+          f"dropout {DROPOUT_RATE}, [{micro}, {S}] tokens: loss and all "
+          f"{len(g0)} gradients bit-equal to no remat; forward+backward "
+          f"{t1:.3f}s against {t0:.3f}s, peak {m1:.2f} against {m0:.2f} GiB")
+    del model, out
+    torch.cuda.empty_cache()
+
+
+# this slice's optimizers at llama-1b4's full width, depth cut to fit the
+# smoke's time: (config type, params)
+NEW_OPTIMIZERS = {"Lion": {"lr": 1e-4, "betas": [0.9, 0.99], "weight_decay": 0.1},
+                  "Adagrad": {"lr": 1e-2},
+                  "SGD": {"lr": 1e-1, "momentum": 0.9, "nesterov": True},
+                  "Muon": {"lr": 2e-2, "weight_decay": 0.1}}
+OPTIMIZER_LEG_LAYERS = 6
+
+
+def optimizer_section(opt):
+    """The config section of one of NEW_OPTIMIZERS: the optimizer, and
+    TRAIN_CONFIG's WarmupLR up to its own learning rate."""
+    params = NEW_OPTIMIZERS[opt]
+    return {"optimizer": {"type": opt, "params": params},
+            "scheduler": {"type": "WarmupLR", "params": {
+                "warmup_max_lr": params["lr"], "warmup_num_steps": 2}}}
+
+
+def phase_optimizer_legs(torch, dev, peaks, medians):
+    """Each of this slice's optimizers (plain foreach torch, no kernel)
+    trains llama-1b4 at full width, cut to OPTIMIZER_LEG_LAYERS layers, 3
+    steps: step time and optimizer state bytes, beside FusedAdam at the
+    same depth."""
+    legs = {"adam_l6_train": phase_train(
+        torch, dev, "llama-1b4", "adam_l6_train", None, peaks, medians,
+        model_over={"num_layers": OPTIMIZER_LEG_LAYERS}, steps_wanted=3,
+        profile=False)}
+    for opt in NEW_OPTIMIZERS:
+        legs[opt] = phase_train(
+            torch, dev, "llama-1b4", f"{opt.lower()}_train",
+            optimizer_section(opt), peaks, medians,
+            model_over={"num_layers": OPTIMIZER_LEG_LAYERS}, steps_wanted=3,
+            profile=False)
+    return legs
 
 
 # small fp32 models of the two families for the card-against-CPU phases
@@ -3290,7 +3514,8 @@ KERNELS = ("rms_norm", "rope", "fused_norm_qkv", "flash_decode",
            "fused_mlp_int8", "flash_attention_fwd_alibi",
            "flash_attention_bwd_alibi", "flash_attention_fwd_f16",
            "flash_attention_bwd_f16", "flash_attention_fwd_f16_alibi",
-           "flash_attention_bwd_f16_alibi", "fused_adam_f16")
+           "flash_attention_bwd_f16_alibi", "fused_adam_f16", "dropout",
+           "dropout_bwd")
 
 
 def launch_counters():
@@ -3302,6 +3527,7 @@ def launch_counters():
                                                  rms_norm_bwd,
                                                  scaled_masked_softmax)
     from deepspeed_tpu_torch.ops.kernels import decode as dk
+    from deepspeed_tpu_torch.ops.kernels import dropout as drop
     from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
     from deepspeed_tpu_torch.ops.kernels import fused_adam as adam
     from deepspeed_tpu_torch.ops.kernels.layer_norm import layer_norm
@@ -3329,7 +3555,8 @@ def launch_counters():
             "flash_attention_bwd_f16": fa.flash_attention_bwd_f16,
             "flash_attention_fwd_f16_alibi": fa.flash_fwd_f16_alibi_cuda,
             "flash_attention_bwd_f16_alibi": fa.flash_attention_bwd_f16_alibi,
-            "fused_adam_f16": adam.fused_adam_update_f16_cuda}
+            "fused_adam_f16": adam.fused_adam_update_f16_cuda,
+            "dropout": drop.dropout, "dropout_bwd": drop.dropout_bwd}
 
 
 def zero_counts():
@@ -4366,11 +4593,11 @@ def config_through_hf(hf):
         return config_from_hf(d)
 
 
-def train_model(preset, seed=0):
+def train_model(preset, seed=0, **over):
     """A train cell's model on the card, random weights from ``seed``:
     bloom-1b7 through config_from_hf (remat ``mlp_dots``, as llama-1b4),
     mixtral-8x7b cut to MIXTRAL_TRAIN_LAYERS layers, the others from their
-    preset."""
+    preset with ``over`` laid over it."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models.transformer import CausalLM
 
@@ -4378,7 +4605,7 @@ def train_model(preset, seed=0):
         return deepspeed_tpu_torch.causal_lm(preset, seed=seed,
                                              num_layers=MIXTRAL_TRAIN_LAYERS)
     if preset != "bloom-1b7":
-        return deepspeed_tpu_torch.causal_lm(preset, seed=seed)
+        return deepspeed_tpu_torch.causal_lm(preset, seed=seed, **over)
     cfg = config_through_hf(BLOOM_1B7)
     cfg.remat, cfg.remat_policy = True, "mlp_dots"
     return CausalLM(cfg, seed=seed)
@@ -4407,7 +4634,7 @@ def optimizer_plan(optimizer, steps):
     one a leaf, Adam8bit one a leaf of at least ``min_quant_size`` (the
     smaller keep fp32 moments and plain torch), FusedLamb one phase-1 call
     (phase 1 and the reduce) and one scale launch a leaf."""
-    from deepspeed_tpu_torch.ops.adam import Adam8bit
+    from deepspeed_tpu_torch.ops.adam import Adam8bit, FusedAdam
     from deepspeed_tpu_torch.ops.lamb import FusedLamb
 
     leaves = [p for g in optimizer.param_groups for p in g["params"]]
@@ -4416,7 +4643,9 @@ def optimizer_plan(optimizer, steps):
     if isinstance(optimizer, FusedLamb):
         return {"fused_lamb_phase1": steps * len(leaves),
                 "fused_lamb_scale": steps * len(leaves)}
-    return {"fused_adam": steps * len(leaves)}
+    if isinstance(optimizer, FusedAdam) and optimizer.fused:
+        return {"fused_adam": steps * len(leaves)}
+    return {}           # Lion, Adagrad, SGD, Muon: plain foreach torch
 
 
 def adam8bit_state_bytes(optimizer):
@@ -4448,7 +4677,15 @@ def train_plan(cfg, micros, steps, optimizer, f16=False):
     the whole-layer policies run the layer's forward again up to its last
     saved tensor (+2L norm forwards, +L flash forwards, +L RoPEs).  The optimizer's launches
     as ``optimizer_plan`` counts them over the ``steps`` applied steps (an
-    fp16 step skipped for an overflow launches none); no decode kernel."""
+    fp16 step skipped for an overflow launches none); no decode kernel.
+    Dropout (``cfg.dropout > 0``) launches its forward twice a layer (the
+    attention's and the MLP's output) and its backward twice a layer.  A
+    recompute under ``torch.utils.checkpoint`` stops at the last saved
+    tensor, and the MLP's dropout is its body's last operation: so
+    ``mlp_only`` (and an MoE MLP under ``mlp_dots``) redoes none, the
+    whole-layer checkpoint (``full``, ``dots``) the attention's alone (+L);
+    the replay of the saved-dots bodies reruns them whole: ``mlp_dots``
+    +L, ``offload_dots`` +2L."""
     L = cfg.num_layers
     mlp = bool(cfg.remat) and cfg.remat_policy in ("mlp_only", "mlp_dots")
     full = bool(cfg.remat) and not mlp
@@ -4464,22 +4701,31 @@ def train_plan(cfg, micros, steps, optimizer, f16=False):
     plan.update({"rope": (2 * L + L * full) * micros * rope,
                  flash.format("fwd"): (L + L * full) * micros,
                  flash.format("bwd"): L * micros})
+    if cfg.dropout > 0:
+        offload = full and cfg.remat_policy == "offload_dots"
+        dots_mlp = mlp and cfg.remat_policy == "mlp_dots" and not cfg.is_moe
+        plan["dropout"] = (2 * L + L * dots_mlp + L * (full and not offload)
+                           + 2 * L * offload) * micros
+        plan["dropout_bwd"] = 2 * L * micros
     plan.update(optimizer_plan(optimizer, steps))
     return plan
 
 
-def phase_train_reference(torch, dev, preset, remat_policy):
+def phase_train_reference(torch, dev, preset, remat_policy, dropout=0.0):
     """A small fp32 model trained 3 steps on the card (kernels, TF32 off)
     and on the CPU (plain versions) from the same weights and tokens:
     per-step losses within rtol 1e-4 and final weights within atol 1e-4
     (fp32 sums in another order; Adam's normalised step keeps the weight
-    difference near lr * 1e-4)."""
+    difference near lr * 1e-4).  With ``dropout`` both devices draw the
+    same masks (JAX's threefry bits), so the bounds hold as they are."""
     import numpy as np
 
     import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.ops.kernels import dropout as kd
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    over = dict(SMALL[preset], remat=True, remat_policy=remat_policy)
+    over = dict(SMALL[preset], remat=True, remat_policy=remat_policy,
+                dropout=dropout)
     cfg = dict(TRAIN_CONFIG, bf16={"enabled": False},
                train_micro_batch_size_per_gpu=2)
     tok = np.random.default_rng(0).integers(0, 1024, (4, 200))   # ragged S
@@ -4489,7 +4735,10 @@ def phase_train_reference(torch, dev, preset, remat_policy):
                                               **over)
         engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=cfg,
                                                     device=d)
+        before = kd.dropout.launches + kd.dropout_bwd.launches
         losses = [float(engine.train_step((tok, tok))) for _ in range(3)]
+        check((kd.dropout.launches + kd.dropout_bwd.launches > before)
+              == (d != "cpu" and dropout > 0), f"{preset} {d}: dropout launches")
         runs[str(d)] = (losses, [p.cpu() for p in engine.master])
     (lc, pc), (lg, pg) = runs["cpu"], runs[str(dev)]
     check(all(math.isfinite(x) for x in lg), f"card losses {lg}")
@@ -4498,9 +4747,9 @@ def phase_train_reference(torch, dev, preset, remat_policy):
     diff = max(float((a - b).abs().max()) for a, b in zip(pc, pg))
     check(diff <= 1e-4, f"card vs CPU weights differ by {diff}")
     print(f"reference: small fp32 {preset} model (L 2, D 256, Dh "
-          f"{256 // SMALL[preset]['num_heads']}, S 200, remat {remat_policy}) "
-          f"trained 3 steps, card == CPU: losses {lg} vs {lc}, weights max abs "
-          f"diff {diff:.3g}")
+          f"{256 // SMALL[preset]['num_heads']}, S 200, remat {remat_policy}, "
+          f"dropout {dropout}) trained 3 steps, card == CPU: losses {lg} vs "
+          f"{lc}, weights max abs diff {diff:.3g}")
 
 
 def phase_preset_train_reference(torch, dev):
@@ -4543,9 +4792,11 @@ def phase_preset_train_reference(torch, dev):
           f"{diff:.3g}")
 
 
-def phase_mixtral_train_reference(torch, dev):
+def phase_mixtral_train_reference(torch, dev, **over):
     """The mixtral-tiny preset as it is (D 256, 8 heads of 32, 4 layers, 8
-    experts top-2, vocab 32000) trained 3 fp32 steps on the card and on the
+    experts top-2, vocab 32000; ``over`` laid over it, such as dropout with
+    Random Token Selection, whose permutations then come from the dropout
+    key chain on both devices) trained 3 fp32 steps on the card and on the
     CPU from the same weights and tokens: the bounds of
     phase_train_reference (the router in fp32 with TF32 off on both); the
     card run launches the flash kernels and the RMSNorm backward."""
@@ -4562,7 +4813,7 @@ def phase_mixtral_train_reference(torch, dev):
     runs = {}
     for d in ("cpu", dev):
         model = deepspeed_tpu_torch.causal_lm("mixtral-tiny", device="cpu",
-                                              seed=0)
+                                              seed=0, **over)
         engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=cfg,
                                                     device=d)
         before = (fa.flash_attention.launches, fa.flash_attention_bwd.launches,
@@ -4586,9 +4837,9 @@ def phase_mixtral_train_reference(torch, dev):
     print(f"reference: the mixtral-tiny preset unmodified (L {cfg_m.num_layers}, "
           f"D {cfg_m.hidden_size}, {cfg_m.num_heads} heads of {cfg_m.head_dim}, "
           f"{cfg_m.num_experts} experts top-{cfg_m.num_experts_per_tok}, V "
-          f"{cfg_m.vocab_size}, S 200) trained 3 fp32 steps, card == CPU: losses "
-          f"{lg} vs {lc} (each with its aux term), weights max abs diff "
-          f"{diff:.3g}")
+          f"{cfg_m.vocab_size}, S 200{''.join(f', {k} {v}' for k, v in over.items())}"
+          f") trained 3 fp32 steps, card == CPU: losses {lg} vs {lc} (each with "
+          f"its aux term), weights max abs diff {diff:.3g}")
 
 
 # small fp32 models of the families the HF import brings to training: a
@@ -4660,7 +4911,12 @@ def phase_optimizer_reference(torch, dev):
       moves by one code of m (1/127 of its row's absmax) over sqrt(v);
     - Adam8bit master-free bf16 (bf16 accumulator, stochastic rounding with
       the same noise on both): losses within 2e-2 relative and every
-      floating leaf bf16 on both."""
+      floating leaf bf16 on both;
+    - Lion, Adagrad, SGD (Nesterov) and Muon over fp32 masters: losses
+      within rtol 1e-4 and weights within atol 1e-4, except Lion's: its
+      update is the sign of a sum, which flips where the sum is within
+      rounding of zero, so at most 0.1 % of its weights may differ, by at
+      most 2 lr."""
     import numpy as np
 
     import deepspeed_tpu_torch
@@ -4675,7 +4931,9 @@ def phase_optimizer_reference(torch, dev):
         "Adam8bit fp32": dict(optimizer=dict(TRAIN_CONFIG["optimizer"],
                                              type="Adam8bit"),
                               bf16={"enabled": False}),
-        "Adam8bit master-free bf16": ADAM8BIT_CONFIG}
+        "Adam8bit master-free bf16": ADAM8BIT_CONFIG,
+        **{f"{opt} fp32": dict(optimizer_section(opt), bf16={"enabled": False})
+           for opt in NEW_OPTIMIZERS}}
     tok = np.random.default_rng(0).integers(0, 1024, (4, 200))
     for name, section in cases.items():
         cfg = dict(TRAIN_CONFIG, train_micro_batch_size_per_gpu=2, **section)
@@ -4702,11 +4960,15 @@ def phase_optimizer_reference(torch, dev):
             for a, b in zip(lc, lg):
                 check(abs(a - b) <= 1e-4 * abs(a), f"{name}: losses {lg} vs {lc}")
             close = float((diffs <= 1e-4).float().mean())
-            limit = 1e-4 if name.startswith("FusedLamb") else 1e-4 + lr / 16
-            check(float(diffs.max()) <= limit and (
-                name.startswith("FusedLamb") or close >= 0.99),
-                f"{name}: weights differ by up to {float(diffs.max())} "
-                f"({100 * close:.2f} % within 1e-4)")
+            if name.startswith("Lion"):
+                lion_lr = NEW_OPTIMIZERS["Lion"]["lr"]
+                ok = float(diffs.max()) <= 2.02 * lion_lr and close >= 0.999
+            elif name.startswith("Adam8bit"):
+                ok = float(diffs.max()) <= 1e-4 + lr / 16 and close >= 0.99
+            else:
+                ok = float(diffs.max()) <= 1e-4
+            check(ok, f"{name}: weights differ by up to {float(diffs.max())} "
+                  f"({100 * close:.2f} % within 1e-4)")
         print(f"reference: small {name} (llama-tiny L 2, D 256, S 200) trained "
               f"3 steps, card vs CPU: losses {lg} vs {lc}, weights max abs "
               f"diff {float(diffs.max()):.3g}")
@@ -4729,13 +4991,14 @@ def active_params(engine, cfg):
 
 
 def phase_train(torch, dev, preset, name="train", section=None, peaks=None,
-                medians=None):
+                medians=None, model_over=None, steps_wanted=5, profile=True):
     """The training path at the preset's full width and depth, with
     TRAIN_CONFIG (FusedAdam over fp32 masters) or ``section`` merged over
-    it; records its peak device memory in ``peaks[name]`` and its median
-    step in ``medians[name]``.  Five applied steps: under fp16 as many more
-    as overflows skip, each step printed with its loss scale and skip
-    flag."""
+    it and ``model_over`` over the preset; records its peak device memory
+    in ``peaks[name]`` and its median step in ``medians[name]``.  Five
+    applied steps (``steps_wanted``): under fp16 as many more as overflows
+    skip, each step printed with its loss scale and skip flag; then one
+    profiled step (``profile``)."""
     import gc
 
     import deepspeed_tpu_torch
@@ -4745,7 +5008,7 @@ def phase_train(torch, dev, preset, name="train", section=None, peaks=None,
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    model = train_model(preset)
+    model = train_model(preset, **(model_over or {}))
     cfg = model.config
     micro, S = TRAIN_CELLS[preset]
     L, gas = cfg.num_layers, 2
@@ -4767,7 +5030,8 @@ def phase_train(torch, dev, preset, name="train", section=None, peaks=None,
           f"{cfg.num_kv_heads} F={cfg.intermediate_size}{moe} V={cfg.vocab_size} "
           f"{'tied' if cfg.tie_embeddings else 'untied'}, {cfg.norm}, "
           f"{cfg.position} positions, embed_norm {cfg.embed_norm}, bias "
-          f"{cfg.use_bias}, {cfg.activation}, remat {cfg.remat_policy}; "
+          f"{cfg.use_bias}, {cfg.activation}, dropout {cfg.dropout}, remat "
+          f"{cfg.remat_policy}; "
           f"{n_params / 1e9:.4f}B {master} params in "
           f"{len(engine.master)} leaves, {type(opt).__name__}, {compute} compute"
           f"{f' (loss scale {engine.loss_scale:g}, dynamic)' if fp16 else ''}, "
@@ -4779,7 +5043,7 @@ def phase_train(torch, dev, preset, name="train", section=None, peaks=None,
               f"{name}: a master is not {master}")
     zero_counts()
     steps = []      # (loss, grad norm, next lr, wall s, skipped)
-    while sum(not x[4] for x in steps) < 5:
+    while sum(not x[4] for x in steps) < steps_wanted:
         check(len(steps) < 12, f"{name}: {len(steps)} steps, most skipped: {steps}")
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -4810,6 +5074,9 @@ def phase_train(torch, dev, preset, name="train", section=None, peaks=None,
               f"parameter: int8 codes, fp32 scales, the small leaves' fp32 "
               f"moments) = the count from the leaf shapes; every master "
               f"{master}")
+    if hasattr(opt, "state_bytes") and not isinstance(opt, Adam8bit):
+        print(f"{name}: {type(opt).__name__} state {opt.state_bytes()} bytes "
+              f"({opt.state_bytes() / n_params:.4f} a parameter)")
     tokens_per_step = gas * micro * S
     steady = statistics.mean(x[3] for x in applied[1:])
     median = statistics.median(x[3] for x in applied[2:])
@@ -4825,16 +5092,18 @@ def phase_train(torch, dev, preset, name="train", section=None, peaks=None,
               if peaks and name != "train" and "train" in peaks else "")
     if medians and name != "train" and "train" in medians:
         beside += f"; the bf16 FusedAdam phase's median step {medians['train']:.4f}s"
-    print(f"{name}: steady step (mean of applied steps 2-5) {steady:.4f}s, "
+    print(f"{name}: steady step (mean of applied steps 2-{len(applied)}) "
+          f"{steady:.4f}s, "
           f"{tokens_per_step / steady:.1f} tokens/s, MFU "
           f"{100 * flops / steady / BF16_FLOPS_PER_S:.2f}%; median of applied "
-          f"steps 3-5 {median:.4f}s, {tokens_per_step / median:.1f} tokens/s, MFU "
+          f"steps 3-{len(applied)} {median:.4f}s, {tokens_per_step / median:.1f} "
+          f"tokens/s, MFU "
           f"{100 * flops / median / BF16_FLOPS_PER_S:.2f}% (6N + attention "
           f"{flops / 1e12:.1f} TFLOP per step over 989 TFLOP/s"
           f"{f', N = {active / 1e9:.4f}B active' if cfg.is_moe else ''}; "
           f"recomputed forwards not counted), peak device "
           f"memory {peak:.2f} GiB{beside}; launches {launches}")
-    device_ms = phase_train_profile(torch, engine, tokens)
+    device_ms = phase_train_profile(torch, engine, tokens) if profile else {}
     del engine, model, tokens
     gc.collect()
     torch.cuda.empty_cache()
@@ -4994,17 +5263,24 @@ def phase_train_profile(torch, engine, tokens):
         wall_us = (time.perf_counter() - t0) * 1e6
         profile_pad()
     # the optimizer's record_function range also shows device time: it is a
-    # span over the Adam kernels, not a kernel, so it is left out
-    kernels = [e for e in prof.key_averages()
-               if getattr(e, "device_type", None) is not None
-               and str(e.device_type).endswith("CUDA")
-               and e.self_device_time_total > 0
-               and not e.key.startswith("Optimizer.")]
+    # span over the Adam kernels, not a kernel, so it is left out; copies
+    # between the host and the card (offload_dots' side stream, beside the
+    # kernels) are counted apart from the busy time
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) is not None
+              and str(e.device_type).endswith("CUDA")
+              and e.self_device_time_total > 0
+              and not e.key.startswith("Optimizer.")]
+    host_copy = [e for e in events if "HtoD" in e.key or "DtoH" in e.key]
+    kernels = [e for e in events if e not in host_copy]
     busy = sum(e.self_device_time_total for e in kernels)
     micro, S = tokens.shape[0] // 2, tokens.shape[1]
+    copies = "".join(f", {e.key} {e.self_device_time_total / 1e3:.1f} ms over "
+                     f"{e.count} copies" for e in host_copy)
     print(f"profile: one train step (gas 2 x micro {micro} x {S}), wall "
           f"{wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms "
-          f"({100 * busy / wall_us:.1f}%, idle {100 - 100 * busy / wall_us:.1f}%)")
+          f"({100 * busy / wall_us:.1f}%, idle {100 - 100 * busy / wall_us:.1f}%)"
+          f"{copies}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d}x "
               f"{e.key[:90]}")
@@ -5013,7 +5289,7 @@ def phase_train_profile(torch, engine, tokens):
     # elementwise, reduction and copy kernels, whatever is left
     groups = {"GEMM (cuBLAS)": 0.0, "GEMM, unaligned (cutlass align1)": 0.0,
               "flash attention": 0.0, "norm fwd+bwd": 0.0, "rope": 0.0,
-              "adam": 0.0, "adam8bit": 0.0, "lamb": 0.0,
+              "adam": 0.0, "adam8bit": 0.0, "lamb": 0.0, "dropout": 0.0,
               "PyTorch elementwise/reduce/copy": 0.0, "other": 0.0}
     for e in kernels:
         key = e.key
@@ -5033,6 +5309,8 @@ def phase_train_profile(torch, engine, tokens):
             g = "adam8bit"
         elif "lamb_" in key:
             g = "lamb"
+        elif "dropout_kernel" in key:
+            g = "dropout"
         elif "at::native" in key or "Memcpy" in key or "Memset" in key:
             g = "PyTorch elementwise/reduce/copy"
         else:
@@ -5054,7 +5332,9 @@ def phase_train_profile(torch, engine, tokens):
             "fused_adam": ("adam_kernel",),
             "fused_adam8bit": ("adam8bit_kernel",),
             "fused_lamb_phase1": ("lamb_phase1_kernel", "lamb_reduce_kernel"),
-            "fused_lamb_scale": ("lamb_scale_kernel",)}
+            "fused_lamb_scale": ("lamb_scale_kernel",),
+            # the forward and the backward launch one kernel: both together
+            "dropout": ("dropout_kernel",)}
     out = {}
     for name, keys in tags.items():
         parts = [[e for e in kernels if tag in e.key] for tag in keys]
@@ -5137,10 +5417,13 @@ def main() -> int:
     for preset, policy in (("llama-tiny", "mlp_dots"), ("gpt2-small", "full")):
         phase_reference(torch, dev, preset)
         phase_train_reference(torch, dev, preset, policy)
+    phase_train_reference(torch, dev, "llama-tiny", "mlp_dots", DROPOUT_RATE)
     phase_reference_kv_int8(torch, dev)
     phase_reference_moe(torch, dev)
     phase_preset_train_reference(torch, dev)
     phase_mixtral_train_reference(torch, dev)
+    phase_mixtral_train_reference(torch, dev, dropout=DROPOUT_RATE,
+                                  moe_use_rts=True)
     phase_hf_train_reference(torch, dev)
     phase_optimizer_reference(torch, dev)
     # each path: (launch counts of its run, device ms per call in its profile)
@@ -5167,7 +5450,16 @@ def main() -> int:
             "bloom_train": phase_train(torch, dev, "bloom-1b7", "bloom_train",
                                        peaks=peaks),
             "mixtral_train": phase_train(torch, dev, "mixtral-8x7b",
-                                         "mixtral_train", peaks=peaks)}
+                                         "mixtral_train", peaks=peaks),
+            "dropout_train": phase_train(torch, dev, "llama-1b4", "dropout_train",
+                                         peaks=peaks, medians=medians,
+                                         model_over={"dropout": DROPOUT_RATE}),
+            "offload_train": phase_train(
+                torch, dev, "llama-1b4", "offload_train",
+                {"activation_checkpointing": {"cpu_checkpointing": True}},
+                peaks, medians),
+            **phase_optimizer_legs(torch, dev, peaks, medians)}
+    check_offload_grads(torch, dev)
     ident = gpu_identity()
     src = "deepspeed_tpu_torch/csrc/decode.cu"
     fa_src = "deepspeed_tpu_torch/csrc/flash_attention.cu"
@@ -5238,15 +5530,21 @@ def main() -> int:
         ("fused_adam_f16", "cuda", "deepspeed_tpu_torch/csrc/fused_adam.cu",
          "fused_adam.py:53", "fused_adam_update (float16 params, pallas_call "
          ":103)", "ops"),
+        ("dropout", "cuda", "deepspeed_tpu_torch/csrc/dropout.cu",
+         DROPOUT_SITE, "_dropout (plain jnp: no pallas_call)", "dropout_train"),
+        ("dropout_bwd", "cuda", "deepspeed_tpu_torch/csrc/dropout.cu",
+         DROPOUT_SITE, "_dropout's transpose under jax.grad (plain jnp: no "
+         "pallas_call)", "dropout_train"),
     ]
     check([row[0] for row in table] == list(KERNELS), "kernel table out of step")
     kernels = []
     for name, route, source, where, fn_name, path in table:
         t = timings[name]
         launches, device_ms = runs[path]
+        site = where if where.startswith("deepspeed_tpu/") else pallas + where
         k = {"name": name, "route": route, "source": source,
-             "replaces": pallas + where,
-             "tpu_kernel": f"{pallas}{where.split(':')[0]}:{fn_name}",
+             "replaces": site,
+             "tpu_kernel": f"{site.split(':')[0]}:{fn_name}",
              "launches": launches[name], "launches_on": path,
              "launches_by_path": {p: r[0][name] for p, r in runs.items()},
              "max_abs_err": t["max_abs_err"], "ms": t["ms"], "kernel_ms": t["ms"],
@@ -5285,7 +5583,8 @@ def main() -> int:
                       "library_decode_rows_ms", "library_prefill_rows_ms",
                       "path_shapes", "wide_shape", "wide_ms", "wide_plain_ms",
                       "wide_library_ms", "wide_bound_ms", "wide_max_abs_err",
-                      "wide_device_us_split", "wide_max_abs_err_f16"):
+                      "wide_device_us_split", "wide_max_abs_err_f16",
+                      "int_ops_an_element", "f_dropout_ms"):
             if extra in t:
                 k[extra] = t[extra]
         check(all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms",

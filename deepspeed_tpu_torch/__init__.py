@@ -22,11 +22,15 @@ and GPT-2 presets, and BLOOM, GPT-NeoX or GPT-J imported from a
 HuggingFace checkpoint by :mod:`deepspeed_tpu_torch.module_inject`; the
 standard path: bf16 compute, or fp16 compute with a static or dynamic
 loss scale that skips a step whose gradients overflow, over fp32 masters,
-gradient accumulation, clipping, FusedAdam, Adam8bit or FusedLamb; or
-master-free bf16 with Adam8bit's stochastic rounding), with RMSNorm and
+gradient accumulation, clipping, FusedAdam, Adam8bit, FusedLamb, Lion,
+Adagrad, SGD, Muon or a client optimizer; or master-free bf16 with
+Adam8bit's stochastic rounding; dropout drawn from JAX's own threefry
+stream; every remat policy, ``cpu_checkpointing`` keeping the saved matmul
+outputs in pinned host memory), with RMSNorm and
 RoPE forward and backward, flash attention forward and backward (with
 ALiBi for BLOOM) and the
-fused Adam, Adam8bit and LAMB updates as hand-written kernels; the op
+fused Adam, Adam8bit and LAMB updates and dropout as hand-written
+kernels; the op
 library adds softmax, bias_act and the block quantizer.  Training
 checkpoints (``engine.save_checkpoint`` / ``load_checkpoint``, with the
 dataloader's position) are the JAX package's sharded layout, so either
@@ -61,17 +65,17 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     ``bf16.master_weights: false``); ``model_parameters`` (a nested
     dict of tensors or numpy arrays in the JAX layout) replaces their
     values.  ``device=None`` is the CUDA card.  ``seed`` seeds torch's
-    generators (default: the config's ``seed``).  A client ``optimizer``
-    is not ported (ROADMAP.md queue 1)."""
+    generators (default: the config's ``seed``); dropout draws from the
+    threefry key of the config's ``seed``, as the JAX engine's.  A client
+    ``optimizer`` (a ``torch.optim.Optimizer`` over the model's parameters,
+    or a callable that builds one from the engine's masters) takes
+    precedence over the config's optimizer section, as in the JAX
+    engine."""
     import torch
 
     from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
     from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
 
-    if optimizer is not None:
-        raise NotImplementedError("a client optimizer is not ported yet "
-                                  "(ROADMAP.md queue 1: other optimizers and "
-                                  "schedules); configure the optimizer section")
     cfg = config if config is not None else config_params
     if cfg is None and args is not None and hasattr(args, "deepspeed_config"):
         cfg = args.deepspeed_config
@@ -79,7 +83,7 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     torch.manual_seed(int(cfg.seed if seed is None else seed))
     engine = DeepSpeedEngine(model, cfg, model_parameters=model_parameters,
                              device=device, training_data=training_data,
-                             collate_fn=collate_fn)
+                             collate_fn=collate_fn, optimizer=optimizer)
     return (engine, engine.optimizer, engine.training_dataloader,
             engine.lr_scheduler)
 

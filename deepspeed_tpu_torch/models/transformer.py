@@ -32,13 +32,24 @@ MLP, :mod:`deepspeed_tpu_torch.moe`) trains as the JAX one does: each
 layer's MoE MLP gives a load-balancing aux loss, summed over the layers in
 order, and the loss with labels is ``loss + moe_aux_loss_coef * aux``; its
 backward is autograd through the router, the dispatch and the expert
-matmuls.  Dropout and the ``offload_dots`` remat policy raise naming
-ROADMAP.md.
+matmuls.  Dropout (``ModelConfig.dropout > 0``) follows the JAX key chain:
+``apply(..., rngs={"dropout": key})`` splits the key into one a layer, each
+layer's into an attention and an MLP key (an MoE layer splits its MLP key
+again for Random Token Selection), and :func:`~deepspeed_tpu_torch.ops.
+kernels.dropout.dropout` draws JAX's own masks from them, so the masks are
+``jax.random.bernoulli``'s bit for bit.  The keys are plain arguments of
+every remat body, so a recompute draws the same masks with no RNG state to
+track; without a key (serving, ``generate()``) nothing is dropped, as in
+JAX.  The ``offload_dots`` remat policy (``cpu_checkpointing``) keeps each
+layer's matmul outputs in pinned host memory between the forward and the
+backward on the card (:class:`_OffloadDots`); on the CPU it saves them in
+place, as the JAX package does there.
 """
 
 from __future__ import annotations
 
 import functools
+import logging
 from typing import Any, Dict, Optional
 
 import torch
@@ -51,7 +62,11 @@ from deepspeed_tpu_torch.models.config import ModelConfig, get_model_config
 from deepspeed_tpu_torch.models.layers import (_repeat_kv, activation_fn,
                                                attention_core, norm, rope_cache,
                                                rope_dim)
+from deepspeed_tpu_torch.ops.kernels.dropout import dropout
 from deepspeed_tpu_torch.ops.kernels.rope import rope_qk
+from deepspeed_tpu_torch.utils import prng
+
+logger = logging.getLogger(__name__)
 
 
 class _Replay(torch.autograd.Function):
@@ -73,41 +88,100 @@ class _Replay(torch.autograd.Function):
         return da, dw, None
 
 
-class _MLPDots(torch.autograd.Function):
-    """A block under the JAX ``mlp_dots`` remat (``jax.checkpoint`` with
-    ``dots_with_no_batch_dims_saveable``): the forward keeps the input and
-    the matmul outputs; the backward runs ``block`` again under autograd
-    with each matmul replayed from what was kept (:class:`_Replay`), so
-    only the norm and the activation are recomputed.  ``block(lp, x,
-    dot)`` computes with ``dot`` for its matmuls; ``keys`` names the
-    ``(group, name)`` of each tensor in ``leaves``."""
+class _Dots(torch.autograd.Function):
+    """A block whose matmul outputs are kept from the forward and replayed
+    in the backward (JAX's ``dots_with_no_batch_dims_saveable`` remat
+    policies): the forward runs ``fn(ins, dot)`` keeping each ``dot``
+    output; the backward runs ``fn`` again under autograd with each matmul
+    replayed from what was kept (:class:`_Replay`), so only the rest
+    (norms, RoPE, attention, activations, dropout) is recomputed.  ``fn``
+    returns a tensor or a tuple of tensors.  With ``offload`` the kept
+    outputs wait in pinned host memory between the forward and the
+    backward (the ``offload_dots`` policy): each is copied out on a side
+    stream as soon as it is made, and the layer's outputs are copied back
+    together when its backward starts, both ordered by events."""
 
     @staticmethod
-    def forward(ctx, block, keys, x, *leaves):
+    def forward(ctx, fn, offload, *ins):
         kept = []
 
         def dot(a, w):
             kept.append(a @ w)
             return kept[-1]
-        y = block(_nest(keys, leaves), x, dot)
-        ctx.block, ctx.keys = block, keys
-        ctx.save_for_backward(x, *leaves, *kept)
-        return y
+        out = fn(ins, dot)
+        ctx.fn, ctx.n, ctx.multi = fn, len(ins), isinstance(out, tuple)
+        ctx.host = [_to_host(t) for t in kept] if offload else None
+        ctx.save_for_backward(*ins, *([] if offload else kept))
+        return out
 
     @staticmethod
-    def backward(ctx, dy):
+    def backward(ctx, *douts):
         saved = ctx.saved_tensors
-        n = 1 + len(ctx.keys)
-        kept = iter(saved[n:])
+        ins_saved = saved[:ctx.n]
+        if ctx.host is None:
+            kept = iter(saved[ctx.n:])
+        else:
+            dev = next(t.device for t in ins_saved if t is not None)
+            kept = iter(_from_host(ctx.host, dev))
+            ctx.host = None
         with torch.enable_grad():
-            ins = [t.detach().requires_grad_(need)
-                   for t, need in zip(saved[:n], ctx.needs_input_grad[2:])]
-            y = ctx.block(_nest(ctx.keys, ins[1:]), ins[0],
-                          lambda a, w: _Replay.apply(a, w, next(kept)))
-            grads = iter(torch.autograd.grad(
-                y, [t for t in ins if t.requires_grad], dy, allow_unused=True))
-        return (None, None) + tuple(next(grads) if t.requires_grad else None
-                                    for t in ins)
+            ins = [None if t is None else t.detach().requires_grad_(need)
+                   for t, need in zip(ins_saved, ctx.needs_input_grad[2:])]
+            out = ctx.fn(ins, lambda a, w: _Replay.apply(a, w, next(kept)))
+            outs = out if ctx.multi else (out,)
+            pairs = [(o, g) for o, g in zip(outs, douts)
+                     if g is not None and o.requires_grad]
+            wanted = [t for t in ins if t is not None and t.requires_grad]
+            grads = iter(torch.autograd.grad([o for o, _ in pairs], wanted,
+                                             [g for _, g in pairs],
+                                             allow_unused=True))
+        return (None, None) + tuple(
+            next(grads) if t is not None and t.requires_grad else None
+            for t in ins)
+
+
+_SIDE_STREAMS: Dict[torch.device, Any] = {}
+
+
+def _side_stream(dev: torch.device):
+    s = _SIDE_STREAMS.get(dev)
+    if s is None:
+        s = _SIDE_STREAMS[dev] = torch.cuda.Stream(device=dev)
+    return s
+
+
+def _to_host(t: torch.Tensor):
+    """Start copying ``t`` into pinned host memory on the side stream,
+    after the work that made it: ``(host, event)``.  ``t``'s memory is not
+    reused before the copy ends (``record_stream``)."""
+    side = _side_stream(t.device)
+    side.wait_stream(torch.cuda.current_stream(t.device))
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    with torch.cuda.stream(side):
+        host.copy_(t, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(side)
+    t.record_stream(side)
+    return host, done
+
+
+def _from_host(host, dev: torch.device):
+    """Copy a layer's kept outputs back to ``dev`` on the side stream; the
+    current stream waits for them before the replay reads them."""
+    side = _side_stream(dev)
+    cur = torch.cuda.current_stream(dev)
+    side.wait_stream(cur)
+    outs = [torch.empty(h.shape, dtype=h.dtype, device=dev) for h, _ in host]
+    with torch.cuda.stream(side):
+        for (h, ev), out in zip(host, outs):
+            side.wait_event(ev)
+            out.copy_(h, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(side)
+    cur.wait_event(done)
+    for out in outs:
+        out.record_stream(side)
+    return outs
 
 
 def _nest(keys, leaves):
@@ -229,30 +303,28 @@ class CausalLM(_ParamTree):
     # ------------------------------------------------------------------
     # training forward (JAX ``CausalLM.apply``)
     # ------------------------------------------------------------------
-    def _check_forward(self) -> None:
-        """Raise for what the forward does not carry yet."""
-        cfg = self.config
-        refused = {"dropout > 0": cfg.dropout > 0,
-                   "remat_policy 'offload_dots'": (bool(cfg.remat) and
-                                                   cfg.remat_policy == "offload_dots")}
-        bad = [k for k, v in refused.items() if v]
-        if bad:
-            raise NotImplementedError(
-                f"training {', '.join(bad)} is not ported yet (ROADMAP.md queue "
-                f"1: the remaining training options and model families)")
-
     def check_trainable(self) -> None:
-        """Raise for what the training forward does not carry yet."""
-        self._check_forward()
+        """Raise for what the training forward does not carry yet: the JAX
+        package's streamed layer weights (``param_offload``, set by its
+        engine under ``offload_param``)."""
+        if self.config.param_offload:
+            raise NotImplementedError(
+                "training with param_offload is not ported yet (ROADMAP.md "
+                "queue 1 item 2e: offload)")
 
-    def _attn_out(self, lp, x, cos, sin):
-        """Attention sub-block output (residual not added)."""
+    def _drop(self, x, key):
+        """JAX ``_dropout`` at the model's rate; nothing without a key."""
+        return x if key is None else dropout(x, key, self.config.dropout)
+
+    def _attn_out(self, lp, x, cos, sin, key=None, dot=torch.matmul):
+        """Attention sub-block output (residual not added), dropped with
+        ``key``; its projections through ``dot``."""
         cfg = self.config
         B, S, _ = x.shape
         H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         h = norm(x, lp["attn_norm"], cfg.norm, cfg.norm_eps)
         a = lp["attn"]
-        q, k, v = h @ a["wq"], h @ a["wk"], h @ a["wv"]
+        q, k, v = dot(h, a["wq"]), dot(h, a["wk"]), dot(h, a["wv"])
         if cfg.use_bias or cfg.qkv_bias:
             q, k, v = q + a["bq"], k + a["bk"], v + a["bv"]
         # [B, H, S, Dh] is the kernels' layout; they take contiguous tensors.
@@ -268,26 +340,31 @@ class CausalLM(_ParamTree):
         k = _repeat_kv(k, H // Hkv)
         v = _repeat_kv(v, H // Hkv)
         o = attention_core(q, k, v, causal=True, alibi=cfg.position == "alibi")
-        o = o.transpose(1, 2).reshape(B, S, H * Dh) @ a["wo"]
+        o = dot(o.transpose(1, 2).reshape(B, S, H * Dh), a["wo"])
         if cfg.use_bias:
             o = o + a["bo"]
-        return o.to(x.dtype)
+        return self._drop(o.to(x.dtype), key)
 
-    def _mlp_block(self, lp, x):
-        """``(x + mlp(norm(x)), aux)``: an MoE MLP's load-balancing aux loss
-        (fp32 scalar), None for a dense MLP."""
+    def _mlp_block(self, lp, x, key=None, dot=torch.matmul):
+        """``(x + dropout(mlp(norm(x))), aux)``: an MoE MLP's load-balancing
+        aux loss (fp32 scalar), None for a dense MLP.  An MoE MLP splits
+        ``key`` into the RTS permutation's key and the dropout key, as the
+        JAX ``_mlp_block``."""
         cfg = self.config
         if cfg.is_moe:
             from deepspeed_tpu_torch.moe.sharded_moe import moe_mlp
 
             h = norm(x, lp["mlp_norm"], cfg.norm, cfg.norm_eps)
-            out, aux = moe_mlp(lp["mlp"], h, cfg)
-            return x + out.to(x.dtype), aux
-        return self._dense_mlp(lp, x), None
+            k_rts = None
+            if key is not None:
+                k_rts, key = prng.split(key)
+            out, aux = moe_mlp(lp["mlp"], h, cfg, key=k_rts)
+            return x + self._drop(out.to(x.dtype), key), aux
+        return self._dense_mlp(lp, x, dot, key), None
 
-    def _dense_mlp(self, lp, x, dot=torch.matmul):
-        """``x + mlp(norm(x))`` of a dense MLP, its matmuls through
-        ``dot``."""
+    def _dense_mlp(self, lp, x, dot=torch.matmul, key=None):
+        """``x + dropout(mlp(norm(x)))`` of a dense MLP, its matmuls
+        through ``dot``."""
         cfg = self.config
         h = norm(x, lp["mlp_norm"], cfg.norm, cfg.norm_eps)
         m = lp["mlp"]
@@ -305,47 +382,77 @@ class CausalLM(_ParamTree):
         out = dot(gated, m["w_down"])
         if cfg.has_mlp_bias:
             out = out + m["b_down"]
-        return x + out.to(x.dtype)
+        return x + self._drop(out.to(x.dtype), key)
 
-    def _layer(self, lp, x, cos, sin, mlp=None):
-        """One layer: ``(output, aux)``; ``mlp(lp, y)`` is ``(y +
-        mlp(norm(y)), aux)`` (default :meth:`_mlp_block`).  Sequential: the
-        MLP reads ``x + attn``; parallel residual (gpt-neox, gpt-j): both
-        sub-blocks read the layer input and the attention output is added
-        to ``x + mlp``."""
-        mlp = mlp or self._mlp_block
-        attn = self._attn_out(lp, x, cos, sin)
+    def _layer(self, lp, x, cos, sin, key=None, mlp=None, dot=torch.matmul):
+        """One layer: ``(output, aux)``; ``key`` splits into the attention's
+        and the MLP's dropout keys (JAX ``_layer``); ``mlp(lp, y, key)`` is
+        ``(y + mlp(norm(y)), aux)`` (default :meth:`_mlp_block`).
+        Sequential: the MLP reads ``x + attn``; parallel residual (gpt-neox,
+        gpt-j): both sub-blocks read the layer input and the attention
+        output is added to ``x + mlp``."""
+        k_attn, k_mlp = prng.split(key) if key is not None else (None, None)
+        mlp = mlp or functools.partial(self._mlp_block, dot=dot)
+        attn = self._attn_out(lp, x, cos, sin, k_attn, dot)
         if self.config.parallel_residual:
-            y, aux = mlp(lp, x)
+            y, aux = mlp(lp, x, k_mlp)
             return y + attn, aux
-        return mlp(lp, x + attn)
+        return mlp(lp, x + attn, k_mlp)
 
-    def _mlp_dots(self, lp, x):
-        keys = tuple((g, n) for g in ("mlp_norm", "mlp") for n in lp[g])
-        return _MLPDots.apply(self._dense_mlp, keys, x,
-                              *(lp[g][n] for g, n in keys)), None
+    def _mlp_dots(self, lp, x, key=None):
+        names = tuple((g, n) for g in ("mlp_norm", "mlp") for n in lp[g])
 
-    def _layer_fn(self):
+        def fn(ins, dot):
+            return self._dense_mlp(_nest(names, ins[1:]), ins[0], dot, key)
+        return _Dots.apply(fn, False, x, *(lp[g][n] for g, n in names)), None
+
+    def _layer_dots(self, lp, x, cos, sin, key=None, offload=False):
+        """The whole layer keeping its matmul outputs: on the device, or
+        (``offload``) in pinned host memory."""
+        names = tuple((g, n) for g in lp for n in lp[g])
+
+        def fn(ins, dot):
+            y, aux = self._layer(_nest(names, ins[3:]), ins[0], ins[1], ins[2],
+                                 key, dot=dot)
+            return y if aux is None else (y, aux)
+        out = _Dots.apply(fn, offload, x, cos, sin,
+                          *(lp[g][n] for g, n in names))
+        return out if isinstance(out, tuple) else (out, None)
+
+    def _layer_fn(self, device: torch.device):
         """The per-layer body under the model's remat policy.  ``mlp_only``
         and ``mlp_dots`` remat the MLP sub-block only (the attention
         residuals persist and the flash kernel never re-runs): ``mlp_only``
         under ``torch.utils.checkpoint`` (non-reentrant), which recomputes
         what the backward needs (the norm, the up and gate matmuls, the
-        activation); ``mlp_dots`` through :class:`_MLPDots`, which keeps the
+        activation); ``mlp_dots`` through :class:`_Dots`, which keeps the
         matmul outputs and recomputes the norm and the activation.  ``full``
-        and ``dots`` checkpoint the whole layer.  Recomputation repeats the
-        same operations on the same inputs, so the numbers are identical to
-        no remat; only memory and time differ.  (The JAX ``dots`` policy also
-        saves the matmul outputs; here it recomputes them.)  An MoE MLP under
-        ``mlp_dots`` is recomputed whole, as under ``mlp_only``: JAX's policy
-        (``dots_with_no_batch_dims_saveable``) saves its router product
-        (and the einsum dispatch's two products) but not the expert
+        and ``dots`` checkpoint the whole layer.  ``offload_dots`` keeps the
+        whole layer's matmul outputs in pinned host memory on the card; on
+        the CPU it keeps them in place, with the JAX package's warning (its
+        CPU backend cannot place them on the host either).  Recomputation
+        repeats the same operations on the same inputs, dropout included
+        (its keys are arguments of every body), so the numbers are identical
+        to no remat; only memory and time differ.  (The JAX ``dots`` policy
+        also saves the matmul outputs; here it recomputes them.)  An MoE MLP
+        under ``mlp_dots`` is recomputed whole, as under ``mlp_only``: JAX's
+        policy (``dots_with_no_batch_dims_saveable``) saves its router
+        product (and the einsum dispatch's two products) but not the expert
         contractions, whose batch dim is E, so the port recomputes beyond
-        JAX only those small products; the numbers are the same.  Each body returns ``(output, aux)``, the
+        JAX only those small products; the numbers are the same.  Each body
+        takes ``(lp, x, cos, sin, key)`` and returns ``(output, aux)``, the
         aux a differentiable fp32 scalar or None."""
         cfg = self.config
         if not cfg.remat:
             return self._layer
+        if cfg.remat_policy == "offload_dots":
+            on_card = device.type == "cuda"
+            if not on_card and not getattr(self, "_warned_offload", False):
+                self._warned_offload = True
+                logger.warning("cpu_checkpointing: offloaded residuals "
+                               "unsupported on the CPU backend; saving dots "
+                               "without the host memory-space move")
+            return functools.partial(self._layer_dots, offload=on_card)
         if cfg.remat_policy == "mlp_only" or (cfg.remat_policy == "mlp_dots"
                                               and cfg.is_moe):
             return functools.partial(self._layer, mlp=functools.partial(
@@ -356,14 +463,16 @@ class CausalLM(_ParamTree):
 
     def apply(self, params: Dict[str, Any], tokens: torch.Tensor,
               labels: Optional[torch.Tensor] = None,
-              loss_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+              loss_mask: Optional[torch.Tensor] = None,
+              rngs: Any = None) -> torch.Tensor:
         """Logits [B, S, V] (no labels) or the mean next-token loss.
         ``params`` is the nested JAX-layout dict; a layer leaf may be the
         stacked ``[L, ...]`` tensor or a sequence of L per-layer tensors
-        (the engine's compute copy).  An MoE model's loss adds
-        ``moe_aux_loss_coef`` times the sum of its layers' aux losses, in
-        layer order, as the JAX ``apply``."""
-        self._check_forward()
+        (the engine's compute copy).  ``rngs`` is a threefry key (or
+        ``{"dropout": key}``) for dropout, as the JAX ``apply``: with
+        ``dropout > 0`` it splits into one key a layer.  An MoE model's loss
+        adds ``moe_aux_loss_coef`` times the sum of its layers' aux losses,
+        in layer order, as the JAX ``apply``."""
         cfg = self.config
         x = params["embed"]["tok"][tokens]
         S = tokens.shape[1]
@@ -376,13 +485,17 @@ class CausalLM(_ParamTree):
             cos, sin = rope_cache(S, rope_dim(cfg), cfg.rope_theta,
                                   device=x.device)
             cos, sin = cos.to(x.dtype), sin.to(x.dtype)
-        body = self._layer_fn()
+        drop_rng = rngs.get("dropout") if isinstance(rngs, dict) else rngs
+        keys = (prng.split(drop_rng, cfg.num_layers)
+                if cfg.dropout > 0 and drop_rng is not None
+                else [None] * cfg.num_layers)
+        body = self._layer_fn(x.device)
         layers = params["layers"]
         aux_loss = None
         for i in range(cfg.num_layers):
             lp = {name: {k: v[i] for k, v in sub.items()}
                   for name, sub in layers.items()}
-            x, aux = body(lp, x, cos, sin)
+            x, aux = body(lp, x, cos, sin, keys[i])
             if aux is not None:
                 aux_loss = aux if aux_loss is None else aux_loss + aux
         head = (params["embed"]["tok"].t() if cfg.tie_embeddings

@@ -13,22 +13,28 @@ renormalises the kept gates per token.
 The router's logits are computed in fp32 with TF32 off for that product:
 a flipped argmax reroutes a token.  ``torch.argmax`` takes the first
 maximum, as ``jnp.argmax`` does.  Random Token Selection (``use_rts``)
-grants the slots in the order of a permutation drawn from a
-``torch.Generator``; it does not reproduce the JAX package's random
-stream.  The dispatch quantization of the JAX package (``moe_q_dispatch``)
+grants the slots in the order of a permutation of the tokens.  Given a
+threefry key (the model's dropout chain, ``moe_mlp(..., key=)``), the
+permutation is ``jax.random.permutation``'s bit for bit
+(:func:`deepspeed_tpu_torch.utils.prng.permutation`).  Without one the JAX
+package seeds from the bits of the tokens' fp32 sum, whose summation order
+the port cannot match bit for bit; the port then draws from a
+``torch.Generator`` seeded from that sum, which still varies from batch to
+batch and repeats under remat, but is not JAX's stream.  The dispatch quantization of the JAX package (``moe_q_dispatch``)
 acts only across an ``ep`` axis, so it is a no-op here, as it is there at
 ep = 1.
 """
 
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import Optional, Tuple
 
 import torch
 
 from deepspeed_tpu_torch.models.layers import activation_fn
+from deepspeed_tpu_torch.ops.kernels.common import full_fp32
+from deepspeed_tpu_torch.utils import prng
 
 
 def compute_capacity(num_tokens: int, num_experts: int, k: int,
@@ -37,25 +43,18 @@ def compute_capacity(num_tokens: int, num_experts: int, k: int,
                int(math.ceil(k * num_tokens / num_experts * capacity_factor)))
 
 
-@contextlib.contextmanager
-def _full_fp32():
-    """fp32 matmuls without TF32 on the card (a no-op on the CPU)."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
-
-
 def router_gates(xt: torch.Tensor, gate_w: torch.Tensor) -> torch.Tensor:
     """Softmax router probabilities [N, E] in fp32 from tokens [N, D]."""
-    with _full_fp32():
+    with full_fp32():
         logits = xt.float() @ gate_w.float()
     return torch.softmax(logits, dim=-1)
 
 
-def _permutation(n: int, generator: Optional[torch.Generator], device):
+def _permutation(n: int, generator, device):
+    """A permutation of ``n`` tokens from ``generator``: a threefry key
+    pair (``jax.random.permutation``'s) or a ``torch.Generator``."""
+    if isinstance(generator, tuple):
+        return prng.permutation(generator, n, device)
     return torch.randperm(n, generator=generator,
                           device=generator.device if generator is not None
                           else device).to(device)
@@ -95,7 +94,8 @@ def topk_assignments(gates: torch.Tensor, k: int, capacity: int,
     """Compact top-k assignment: (expert_idx [N, k], pos [N, k], weight
     [N, k] fp32, aux scalar) for the scatter/gather dispatch.  ``use_rts``
     grants capacity in the order of a random permutation of the tokens
-    (drawn from ``generator``); a no-op when nothing overflows."""
+    (drawn from ``generator``, a ``torch.Generator`` or a threefry key
+    pair); a no-op when nothing overflows."""
     if use_rts:
         perm = _permutation(gates.shape[0], generator, gates.device)
         inv = torch.argsort(perm)
@@ -144,7 +144,7 @@ def _rts_generator(xt: torch.Tensor) -> torch.Generator:
 
 
 def moe_mlp(params, x: torch.Tensor, cfg,
-            generator: Optional[torch.Generator] = None
+            generator: Optional[torch.Generator] = None, key=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One MoE feed-forward block on [B, S, D] hidden states: (output
     [B, S, D] in x's dtype, aux loss fp32 scalar).
@@ -154,15 +154,19 @@ def moe_mlp(params, x: torch.Tensor, cfg,
     for the worst case (C = N): no token is dropped.  ``cfg.moe_dispatch``
     is "scatter" (an index-add into the [E, C, D] buffers and a gather back,
     O(N*k*D)) or "einsum" (the one-hot [N, E, C] contractions); both give
-    the same buffers.  ``generator`` feeds Random Token Selection
-    (``cfg.moe_use_rts``)."""
+    the same buffers.  Random Token Selection (``cfg.moe_use_rts``) draws
+    its permutation from ``key`` (a threefry key pair: JAX's permutation
+    for the JAX ``rng``), else from ``generator``, else from a generator
+    seeded from the content."""
     B, S, D = x.shape
     E, k = cfg.num_experts, cfg.num_experts_per_tok
     N = B * S
     xt = x.reshape(N, D)
     gates = router_gates(xt, params["gate_w"])
     use_rts = bool(getattr(cfg, "moe_use_rts", False))
-    if use_rts and generator is None:
+    if use_rts and key is not None:
+        generator = key
+    elif use_rts and generator is None:
         generator = _rts_generator(xt)
     if getattr(cfg, "moe_drop_tokens", True):
         C = compute_capacity(N, E, k, cfg.moe_capacity_factor,

@@ -2,5 +2,6 @@
 
 from deepspeed_tpu_torch.ops.adam.adam8bit import Adam8bit
 from deepspeed_tpu_torch.ops.adam.fused_adam import FusedAdam
+from deepspeed_tpu_torch.ops.adam.muon import Muon
 
-__all__ = ["Adam8bit", "FusedAdam"]
+__all__ = ["Adam8bit", "FusedAdam", "Muon"]

@@ -40,7 +40,9 @@ class FusedAdamState(NamedTuple):
 
 class FusedAdam(torch.optim.Optimizer):
     """Adam / AdamW (``adam_w_mode``) with fp32 moments, updating the
-    parameters in place.  ``lr`` is a float or a schedule ``count -> lr``."""
+    parameters in place.  ``lr`` is a float or a schedule ``count -> lr``.
+    ``bias_correction=False`` is accepted and changes nothing, as in the
+    JAX class: the update always corrects."""
 
     def __init__(self, params: Iterable[torch.Tensor],
                  lr: Union[float, Callable] = 1e-3, bias_correction: bool = True,
@@ -49,10 +51,8 @@ class FusedAdam(torch.optim.Optimizer):
                  set_grad_none: bool = True, *, fused: bool = True):
         if amsgrad:
             raise ValueError("FusedAdam does not support amsgrad (reference parity)")
-        if not bias_correction:
-            raise NotImplementedError(
-                "FusedAdam(bias_correction=False) is not ported: the JAX "
-                "kernel always corrects (ROADMAP.md queue 1: other optimizers)")
+        # bias_correction is accepted and ignored: the JAX class always
+        # corrects (deepspeed_tpu/ops/adam/fused_adam.py)
         self.schedule = lr if callable(lr) else None
         defaults = dict(lr=0.0 if callable(lr) else float(lr), betas=tuple(betas),
                         eps=eps, weight_decay=weight_decay, adam_w_mode=adam_w_mode)

@@ -5,7 +5,8 @@ the norm forward (RMSNorm or LayerNorm) and RoPE (q and k in one launch,
 :mod:`.rope`) in prefill, and RoPE and the four fused decode kernels of
 :mod:`.decode` in every decode step, all CUDA C++.  The training path runs
 the norm forward and backward, RoPE forward and backward (the same kernel),
-flash attention forward and backward (:mod:`.flash_attention`) and the
+flash attention forward and backward (:mod:`.flash_attention`), dropout
+(:mod:`.dropout`, JAX's threefry masks, no TPU kernel behind it) and the
 optimizer's update, all CUDA C++: fused Adam (:mod:`.fused_adam`), fused
 Adam8bit over int8 moments with stochastic rounding
 (:mod:`.fused_adam8bit`) or the two LAMB phases (:mod:`.fused_lamb`).

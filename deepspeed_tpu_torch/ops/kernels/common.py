@@ -19,6 +19,7 @@ wrappers moved to it read the current stream's handle without building a
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Tuple
 
 import torch
@@ -52,6 +53,19 @@ def check_kernel_input(name: str, t: torch.Tensor, device: torch.device,
         raise TypeError(f"{name}: expected dtype {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+@contextlib.contextmanager
+def full_fp32():
+    """fp32 matmuls without TF32 on the card (a no-op on the CPU): the
+    products the JAX package computes in fp32 outside its kernels (the MoE
+    router, Muon's Newton-Schulz steps)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def raw_stream(index: int) -> int:

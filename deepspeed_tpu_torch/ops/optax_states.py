@@ -13,7 +13,11 @@ checkpoints and the JAX package's load in either package:
   for ``scale_by_adam``, ``ScaleByScheduleState`` for a schedule's
   learning rate and ``()`` (optax's ``EmptyState``, no leaf) for a link
   that keeps nothing, so ``optax.adamw`` under a schedule reads
-  ``[0].count``, ``[0].mu``, ``[0].nu``, ``[2].count``.
+  ``[0].count``, ``[0].mu``, ``[0].nu``, ``[2].count``;
+- the chains of ``optax.lion`` (``ScaleByLionState``, decay, lr),
+  ``optax.adagrad`` (``ScaleByRssState``, lr) and ``optax.sgd``
+  (``TraceState``, lr), and the JAX package's ``MuonState(count,
+  momentum)``.
 
 Every ``count`` is the optimizer's one count, as an int32 scalar.
 """
@@ -33,6 +37,25 @@ class ScaleByAdamState(NamedTuple):
 
 class ScaleByScheduleState(NamedTuple):
     count: Any
+
+
+class ScaleByLionState(NamedTuple):
+    count: Any
+    mu: Any
+
+
+class ScaleByRssState(NamedTuple):
+    sum_of_squares: Any
+
+
+class TraceState(NamedTuple):
+    trace: Any
+
+
+class MuonState(NamedTuple):
+    """The JAX package's ``muon`` (``deepspeed_tpu/ops/adam/muon.py``)."""
+    count: Any
+    momentum: Any
 
 
 EMPTY = ()

@@ -10,7 +10,8 @@ compute over fp32 masters with a static or dynamic loss scale),
 ``steps_per_print`` and ``checkpoint`` (verified loads, elastic resume,
 retention; ``preemption_save`` is refused).  The sections the port does not carry yet raise
 ``NotImplementedError`` naming ROADMAP.md when they ask for something:
-ZeRO stages 1-3 and offload, quantized communication,
+ZeRO stages 1-3, offload of the optimizer state and of the parameters,
+quantized communication,
 pipeline, tensor, sequence and expert parallelism.  Observability sections
 (profilers, monitors, flight recorder, goodput, watchdog, anomaly
 detection) are accepted only while disabled.  ``world_size`` is 1: the
@@ -222,8 +223,8 @@ class DeepSpeedConfig:
         for key in ("offload_optimizer", "offload_param"):
             dev = (zero.get(key) or {}).get("device", "none")
             if dev not in (None, "none"):
-                raise _not_ported(f"zero_optimization.{key}", "ZeRO 1-3 over "
-                                  "torch.distributed, then offload")
+                raise _not_ported(f"zero_optimization.{key}", "item 2e, "
+                                  "offload")
         cq = d.get("comm_quantization") or {}
         if any(v is True for v in cq.values()):
             raise _not_ported("comm_quantization", "ZeRO 1-3 over torch.distributed")
@@ -246,11 +247,6 @@ class DeepSpeedConfig:
         if (d.get("checkpoint") or {}).get("preemption_save"):
             raise _not_ported("checkpoint.preemption_save", "the rest of the "
                               "package (runtime/preemption.py)")
-        ac = d.get("activation_checkpointing") or {}
-        if ac.get("cpu_checkpointing"):
-            raise _not_ported("activation_checkpointing.cpu_checkpointing "
-                              "(remat_policy 'offload_dots')", "ZeRO 1-3 over "
-                              "torch.distributed, then offload")
 
     @property
     def fp16_enabled(self) -> bool:

@@ -23,6 +23,19 @@ ports the semantics of the compiled step functions there
 - ``fused`` (:meth:`train_step`): gas micro-batches, then apply; returns
   the mean loss.
 
+Dropout follows the JAX engine's key chain (``utils/prng.py``): the engine
+holds ``PRNGKey(config.seed)`` and splits it once for each training
+forward, each evaluation and each :meth:`DeepSpeedEngine.train_step`, whose
+key splits again into one key a micro-batch; each micro-batch's key
+reaches the model as ``apply(..., rngs={"dropout": key})``.  Evaluation
+draws dropout too, as the JAX engine's does.  Neither engine saves the key
+in a checkpoint, so a resumed run starts the chain again from the seed.
+The optimizer is the config's (``runtime/optimizer.py``) or a client
+``torch.optim.Optimizer`` (or a callable that builds one from the
+masters), which takes precedence over the config's section as in the JAX
+engine; the engine hands a client optimizer the accumulated gradients as
+``p.grad``.
+
 The masters are the model's own parameters (moved to the engine's device):
 fp32, or bf16 under ``bf16.master_weights: false`` (master-free: the
 persistent state is bf16, and an optimizer that rounds stochastically,
@@ -42,9 +55,10 @@ the newest valid tag, and the masters, accumulator, counters, optimizer
 state (in the JAX optimizer's layout), loss scaler, LR schedule and
 dataloader position, so a tag either package writes resumes in the other.
 
-Not ported yet (ROADMAP.md queue 1): ZeRO, offload (and a tag's
-``offload_states``), the legacy msgpack checkpoint layout, telemetry,
-goodput, watchdog, anomaly handling, overlap and the 1-bit optimizers.
+Not ported yet (ROADMAP.md queue 1): ZeRO, offload of the optimizer state
+and of the parameters (and a tag's ``offload_states``), the legacy msgpack
+checkpoint layout, telemetry, goodput, watchdog, anomaly handling, overlap
+and the 1-bit optimizers.
 """
 
 from __future__ import annotations
@@ -63,7 +77,8 @@ from deepspeed_tpu_torch.runtime import optimizer as opt_builder
 from deepspeed_tpu_torch.runtime.checkpoint_engine import (ShardedCheckpointEngine,
                                                            atomic,
                                                            is_sharded_checkpoint)
-from deepspeed_tpu_torch.runtime.checkpoint_engine.sharded import (GetAttrKey, keystr,
+from deepspeed_tpu_torch.runtime.checkpoint_engine.sharded import (DictKey, GetAttrKey,
+                                                                   keystr,
                                                                    tree_flatten_with_path)
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
@@ -71,6 +86,7 @@ from deepspeed_tpu_torch.runtime.fp16 import loss_scaler as scaler_lib
 from deepspeed_tpu_torch.runtime.lr_schedules import LRSchedulerShim, get_lr_schedule
 from deepspeed_tpu_torch.runtime.utils import (clip_grad_norm_, global_norm,
                                                has_overflow)
+from deepspeed_tpu_torch.utils import prng
 
 logger = logging.getLogger(__name__)
 
@@ -102,11 +118,18 @@ class DeepSpeedEngine:
 
     def __init__(self, model, config=None, model_parameters=None,
                  device: DeviceLike = None, training_data=None,
-                 collate_fn=None):
+                 collate_fn=None, optimizer=None):
         self.config = (config if isinstance(config, DeepSpeedConfig)
                        else DeepSpeedConfig(config))
         self.device = resolve_device(device)
         self.module = model
+        self._rng = prng.prng_key(self.config.seed)
+        if model_parameters is None:
+            # the JAX engine without model_parameters initialises from the
+            # first batch (lazy_init_from_batch), splitting its key once
+            # before the first step's split; the port's weights are the
+            # model's own, and its chain takes the same split
+            self._rng, _ = prng.split(self._rng)
         self._apply_activation_checkpointing_config(model)
         if hasattr(model, "check_trainable"):
             model.check_trainable()
@@ -150,15 +173,25 @@ class DeepSpeedEngine:
         if self.config.scheduler is not None:
             self._lr_schedule = get_lr_schedule(self.config.scheduler.type,
                                                 self.config.scheduler.params)
-        self.optimizer = opt_builder.build_from_config(self.config, self.master,
-                                                       self._lr_schedule)
+        self.client_optimizer = optimizer
+        if optimizer is None:
+            names = [keystr(tuple(DictKey(k) for k in path.split(".")))
+                     for path in self._paths]
+            self.optimizer = opt_builder.build_from_config(
+                self.config, self.master, self._lr_schedule, names=names)
+        elif isinstance(optimizer, torch.optim.Optimizer):
+            self.optimizer = optimizer
+        else:
+            self.optimizer = optimizer(self.master)
         if (self.master_dtype != torch.float32
                 and not getattr(self.optimizer, "updates_are_new_params", False)):
             logger.warning(
                 "bf16.master_weights=false with optimizer %s: plain "
                 "round-to-nearest bf16 updates lose sub-ulp steps; use "
                 "Adam8bit (stochastic rounding) for master-free training",
-                self.config.optimizer.type if self.config.optimizer else "AdamW")
+                type(self.optimizer).__name__ if optimizer is not None
+                else self.config.optimizer.type if self.config.optimizer
+                else "AdamW")
         self.lr_scheduler = (LRSchedulerShim(self._lr_schedule)
                              if self._lr_schedule is not None else None)
         self.global_steps = 0
@@ -175,18 +208,28 @@ class DeepSpeedEngine:
     def _apply_activation_checkpointing_config(self, model) -> None:
         """The ds_config ``activation_checkpointing`` section sets the
         model's remat switch and policy (the JAX engine's rule: the policy
-        is taken over only when the section is in play)."""
+        is taken over only when the section is in play);
+        ``cpu_checkpointing`` overrides the policy with ``offload_dots``,
+        with the JAX engine's warning when it replaces another."""
         ac = self.config.activation_checkpointing
         mcfg = getattr(model, "config", None)
         if mcfg is None or not hasattr(mcfg, "remat"):
             return
-        active = ac.enabled is not None or ac.partition_activations
+        active = (ac.enabled is not None or ac.partition_activations
+                  or ac.cpu_checkpointing)
         if ac.enabled is not None:
             mcfg.remat = ac.enabled
         elif active:
             mcfg.remat = True
         if active:
-            mcfg.remat_policy = ac.policy
+            if ac.cpu_checkpointing and ac.policy not in ("full", "offload_dots"):
+                logger.warning(
+                    "activation_checkpointing: cpu_checkpointing overrides "
+                    "policy=%r with 'offload_dots' (host-paged residuals); "
+                    "drop cpu_checkpointing to keep the device-resident "
+                    "policy", ac.policy)
+            mcfg.remat_policy = ("offload_dots" if ac.cpu_checkpointing
+                                 else ac.policy)
 
     def _compute_params(self) -> Dict[str, Any]:
         """The grad-carrying compute copy as the model's nested dict; a
@@ -211,12 +254,15 @@ class DeepSpeedEngine:
             for buf, p in zip(self._compute_bufs, self.master):
                 buf.copy_(p)
 
-    def _loss(self, params, batch) -> torch.Tensor:
+    def _loss(self, params, batch, rng) -> torch.Tensor:
+        """The model's loss with the dropout key ``rng`` (the JAX engine's
+        ``loss_fn``: ``apply(params, *batch, rngs={"dropout": rng})``)."""
+        kwargs = {"rngs": {"dropout": rng}}
         if isinstance(batch, (tuple, list)):
-            return self.module.apply(params, *batch)
+            return self.module.apply(params, *batch, **kwargs)
         if isinstance(batch, dict):
-            return self.module.apply(params, **batch)
-        return self.module.apply(params, batch)
+            return self.module.apply(params, **batch, **kwargs)
+        return self.module.apply(params, batch, **kwargs)
 
     def _to_device(self, batch):
         def conv(x):
@@ -233,10 +279,10 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------------
     # the step functions
     # ------------------------------------------------------------------
-    def _accum(self, batch) -> torch.Tensor:
+    def _accum(self, batch, rng) -> torch.Tensor:
         gas = self.config.gradient_accumulation_steps
         params = self._compute_params()
-        loss = self._loss(params, batch)
+        loss = self._loss(params, batch, rng)
         if self.fp16_enabled:
             (loss.float() * float(self._scaler.scale) / gas).backward()
         else:
@@ -284,12 +330,28 @@ class DeepSpeedEngine:
                 loss_scale_window=fp16.loss_scale_window,
                 min_loss_scale=fp16.min_loss_scale, hysteresis=fp16.hysteresis)
         if not skip:
-            self.optimizer.step(grads=self.grad_acc)
+            if self.client_optimizer is None:
+                self.optimizer.step(grads=self.grad_acc)
+            else:
+                self._step_client()
             self._refresh_compute()
             self.global_steps += 1
         for acc in self.grad_acc:
             acc.zero_()
         return gnorm
+
+    def _step_client(self) -> None:
+        """Step a client optimizer: each of its parameters that shares a
+        master's storage takes that master's accumulated gradient as
+        ``.grad`` for the call."""
+        acc = {m.data_ptr(): a for m, a in zip(self.master, self.grad_acc)}
+        params = [p for g in self.optimizer.param_groups for p in g["params"]]
+        for p in params:
+            a = acc.get(p.data_ptr())
+            p.grad = None if a is None else a.to(p.dtype)
+        self.optimizer.step()
+        for p in params:
+            p.grad = None
 
     # ------------------------------------------------------------------
     # reference-parity imperative API
@@ -311,14 +373,19 @@ class DeepSpeedEngine:
         batch = self._to_device(batch)
         if not self._training:
             return self.evaluate(batch)
-        loss = self._accum(batch)
+        self._rng, rng = prng.split(self._rng)
+        loss = self._accum(batch, rng)
         self._micro_count += 1
         self._last_loss = loss
         return loss
 
     @torch.no_grad()
     def evaluate(self, batch) -> torch.Tensor:
-        return self._loss(self._compute_params(), self._to_device(batch)).detach()
+        """The loss of one batch, no gradients: the JAX engine's eval
+        program, which splits the key and draws dropout too."""
+        self._rng, rng = prng.split(self._rng)
+        return self._loss(self._compute_params(), self._to_device(batch),
+                          rng).detach()
 
     def backward(self, loss, retain_graph: bool = False):
         """Reference-parity no-op: :meth:`forward` already accumulated the
@@ -369,7 +436,9 @@ class DeepSpeedEngine:
         else:
             stacked = stack(batch)
             micro = [stacked[i] for i in range(gas)]
-        losses = [self._accum(self._to_device(b)) for b in micro]
+        self._rng, rng = prng.split(self._rng)
+        keys = prng.split(rng, gas)
+        losses = [self._accum(self._to_device(b), k) for b, k in zip(micro, keys)]
         self._last_grad_norm = self._apply()
         loss = torch.stack([x.float() for x in losses]).mean()
         self._last_loss = loss
@@ -433,6 +502,12 @@ class DeepSpeedEngine:
         """``optim_states`` as the JAX engine writes it: the optimizer's
         state in the JAX optimizer's layout, the accumulator, the step
         count and the loss scaler's four scalars."""
+        if not hasattr(self.optimizer, "jax_state"):
+            raise NotImplementedError(
+                f"the client optimizer {type(self.optimizer).__name__} has "
+                "no jax_state(nest): its state has no layout in the JAX "
+                "engine's checkpoint; give it one or configure the "
+                "optimizer section")
         return {"opt_state": self.optimizer.jax_state(self._nest),
                 "grad_acc": self._nest(self.grad_acc),
                 "global_steps": torch.tensor(self.global_steps, dtype=torch.int32),
@@ -649,7 +724,8 @@ class DeepSpeedEngine:
             counts = [leaf for kp, leaf in
                       tree_flatten_with_path(payload["opt_state"])
                       if isinstance(kp[-1], GetAttrKey) and kp[-1].name == "count"]
-            self.optimizer.count = int(counts[0])
+            if counts:         # optax.adagrad / sgd at a constant lr keep none
+                self.optimizer.count = int(counts[0])
             self.global_steps = int(payload["global_steps"])
             self._scaler = scaler_lib.from_leaves(payload["scaler"])
             self._scale_dev = None         # refilled from the loaded scale

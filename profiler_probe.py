@@ -4,6 +4,7 @@ without some or all of its kernels' records, with and without host sleeps
 around the profiled calls, and with the host's cores idle or kept busy.
 
     python3 profiler_probe.py [--sessions N] [--pads 0,0.005,0.05] [--load 0,8]
+    python3 profiler_probe.py --card-tests EXPR
 
 Each session profiles 200 calls of ``y.copy_(x)`` at [8, 1600] bf16 (the
 shortest session ``chip_smoke.device_us_a_call`` takes) and, as a longer
@@ -16,6 +17,13 @@ gap means the device's records were placed outside the host's window.
 ``--load K`` keeps K processes spinning on the host while the sessions run
 (stopped at the end).  Prints the card's name and power limit and one JSON
 line of counts and gaps; imports nothing of JAX.
+
+``--card-tests EXPR`` runs the card tests ``-k EXPR`` of
+``tests/test_torch_cuda.py`` in this process with every profiler session
+of their ``_profiled_kernels`` counted: sessions alternate between CUDA
+activities alone and CPU and CUDA together, and a session is lost when it
+misses a kernel the test asks for (it is taken again, up to 8 times).
+Prints each session and one JSON line of the counts by activities.
 """
 
 from __future__ import annotations
@@ -59,11 +67,50 @@ def session(torch, call, calls, pad):
     return whole, bool(ev), gaps(prof)
 
 
+def card_tests(expr) -> int:
+    """The card tests ``-k expr`` with their profiler sessions counted by
+    activities (see the module docstring)."""
+    import pytest
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import tests.test_torch_cuda as cuda_tests
+
+    counts = {}
+
+    def profiled(fn, want=(), sessions=8):
+        for calls in range(1, sessions + 1):
+            acts = ([ProfilerActivity.CUDA] if calls % 2 else
+                    [ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            torch.cuda.synchronize()
+            with profile(activities=acts) as prof:
+                time.sleep(0.02)
+                fn()
+                torch.cuda.synchronize()
+                time.sleep(0.02)
+            names = [e.key for e in prof.key_averages()
+                     if e.self_device_time_total > 0]
+            whole = all(any(w in k for k in names) for w in want)
+            key = f"{'+'.join(a.name for a in acts)} {'whole' if whole else 'lost'}"
+            counts[key] = counts.get(key, 0) + 1
+            print(f"session {calls} {key}: {len(names)} kernels", flush=True)
+            if whole:
+                break
+        return names, calls
+
+    cuda_tests._profiled_kernels = profiled
+    rc = pytest.main(["--noconftest", "-m", "cuda", "tests/test_torch_cuda.py",
+                      "-q", "-p", "no:cacheprovider", "-s", "-k", expr])
+    print(json.dumps({"profiler_probe_card_tests": counts, "pytest_rc": int(rc)}))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--sessions", type=int, default=300)
     ap.add_argument("--pads", default="0,0.005,0.05")
     ap.add_argument("--load", default="0,8")
+    ap.add_argument("--card-tests", default=None)
     args = ap.parse_args()
     import torch
 
@@ -74,6 +121,8 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    if args.card_tests is not None:
+        return card_tests(args.card_tests)
     dev = torch.device("cuda")
     x = torch.randn(8, 1600, device=dev).to(torch.bfloat16)
     y = torch.empty_like(x)

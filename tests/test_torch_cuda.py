@@ -2854,3 +2854,204 @@ def test_checkpoint_bf16_leaves_read_back_bit_equal(cuda_device, tmp_path):
         got = back[key]
         assert got.dtype == torch.bfloat16 and got.shape == want.shape
         assert torch.equal(got.view(torch.int16), want.cpu().view(torch.int16)), key
+
+
+# ---------------------------------------------------------------------------
+# dropout (csrc/dropout.cu), the offloaded-dots remat, the new optimizers
+# ---------------------------------------------------------------------------
+
+DROPOUT_SHAPES = [(4, 2048, 2048), (3, 5, 7, 9), (1000003,), (0, 8), (33, 17)]
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+@pytest.mark.parametrize("shape", DROPOUT_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_dropout_kernel_matches_plain_bit_for_bit(cuda_device, dtype, shape, rate):
+    """The kernel's forward and backward equal the plain version on the
+    card bit for bit (the same threefry bits, the same product rounded
+    once): [4, 2048, 2048] is llama-1b4's training shape, (1000003,) and
+    (33, 17) leave a tail past the last 16-byte vector, (0, 8) is empty."""
+    from deepspeed_tpu_torch.ops.kernels import dropout as tdrop
+    from deepspeed_tpu_torch.utils import prng
+
+    key = prng.prng_key(17)
+    x = _randn(shape, 0, dtype, cuda_device, 3.0)
+    n = (tdrop.dropout.launches, tdrop.dropout_bwd.launches)
+    y = tdrop.dropout_cuda(x, key, rate)
+    dx = tdrop.dropout_bwd_cuda(x, key, rate)
+    torch.cuda.synchronize()
+    plain = tdrop.dropout_plain(x, key, rate)
+    assert y.dtype == dtype and y.shape == x.shape
+    assert torch.equal(y, plain) and torch.equal(dx, plain)
+    empty = x.numel() == 0
+    assert (tdrop.dropout.launches, tdrop.dropout_bwd.launches) == (
+        n[0] + (not empty), n[1] + (not empty))
+
+
+def test_dropout_kernel_reads_a_non_contiguous_view_by_its_logical_index(cuda_device):
+    from deepspeed_tpu_torch.ops.kernels import dropout as tdrop
+    from deepspeed_tpu_torch.utils import prng
+
+    x = _randn((64, 130), 1, torch.bfloat16, cuda_device)
+    for view in (x.t(), x[:, 1:]):                 # transposed, unaligned
+        key = prng.prng_key(3)
+        assert torch.equal(tdrop.dropout_cuda(view, key, 0.1),
+                           tdrop.dropout_plain(view.contiguous(), key, 0.1))
+
+
+def test_dropout_autograd_launches_the_forward_and_the_backward(cuda_device):
+    from deepspeed_tpu_torch.ops.kernels import dropout as tdrop
+    from deepspeed_tpu_torch.utils import prng
+
+    x = _randn((8, 1024), 2, torch.bfloat16, cuda_device).requires_grad_()
+    n = (tdrop.dropout.launches, tdrop.dropout_bwd.launches)
+    y = tdrop.dropout(x, prng.prng_key(5), 0.1)
+    y.float().sum().backward()
+    assert (tdrop.dropout.launches, tdrop.dropout_bwd.launches) == (n[0] + 1, n[1] + 1)
+    assert torch.equal(x.grad, tdrop.dropout_plain(torch.ones_like(x), prng.prng_key(5), 0.1))
+
+
+def test_dropout_replays_in_a_cuda_graph(cuda_device):
+    """No read-back and no host sync: a captured launch replays to the
+    eager call's bits, on new inputs copied into the captured buffer."""
+    from deepspeed_tpu_torch.ops.kernels import dropout as tdrop
+    from deepspeed_tpu_torch.utils import prng
+
+    key = prng.prng_key(9)
+    x = _randn((4, 512, 1024), 3, torch.bfloat16, cuda_device)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        tdrop.dropout_cuda(x, key, 0.1)            # warm up off the capture
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        y = tdrop.dropout_cuda(x, key, 0.1)
+    for seed in (4, 5):
+        x.copy_(_randn(x.shape, seed, x.dtype, cuda_device))
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y, tdrop.dropout_plain(x, key, 0.1))
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_dropout_kernel_keeps_within_binomial_bounds(cuda_device, rate):
+    """At [4, 2048, 2048] the kept share is within 6 standard deviations of
+    1 - rate (n = 16.8M: sd 7.3e-5 at 0.1), and each kept value is x times
+    the scale."""
+    from deepspeed_tpu_torch.ops.kernels import dropout as tdrop
+    from deepspeed_tpu_torch.utils import prng
+
+    x = torch.ones((4, 2048, 2048), device=cuda_device, dtype=torch.bfloat16)
+    y = tdrop.dropout_cuda(x, prng.prng_key(2024), rate)
+    n = x.numel()
+    kept = float((y != 0).sum()) / n
+    p = 1.0 - rate
+    assert abs(kept - p) <= 6 * (p * (1 - p) / n) ** 0.5
+    scale = torch.tensor(tdrop.dropout_scale(torch.bfloat16, rate)).to(torch.bfloat16)
+    assert set(torch.unique(y).tolist()) == {0.0, float(scale)}
+
+
+def _tiny_train_cfg(opt="FusedAdam", params=None, **over):
+    """The card tests' train config: WarmupLR up to the optimizer's lr."""
+    params = params or {"lr": 3e-4, "betas": [0.9, 0.95], "weight_decay": 0.1}
+    return {"train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 2,
+            "optimizer": {"type": opt, "params": params},
+            "scheduler": {"type": "WarmupLR", "params": {
+                "warmup_max_lr": params["lr"], "warmup_num_steps": 2}},
+            "gradient_clipping": 1.0, **over}
+
+
+@pytest.mark.parametrize("policy", ["mlp_dots", "offload_dots"])
+def test_dropout_llama_tiny_trains_on_card(cuda_device, policy):
+    """llama-tiny as it is with dropout 0.1, 3 steps on the card and on the
+    CPU: the masks are the same on both devices, so the bounds of
+    test_unmodified_llama_tiny_trains_on_card hold (losses rtol 1e-4,
+    weights atol 1e-4); the card run launches both dropout kernels."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.ops.kernels import dropout as tdrop
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tok = np.random.default_rng(0).integers(0, 32000, (4, 96))
+    runs = []
+    for dev in ("cpu", cuda_device):
+        model = deepspeed_tpu_torch.causal_lm("llama-tiny", device="cpu",
+                                              dropout=0.1, remat=True,
+                                              remat_policy=policy)
+        engine, *_ = deepspeed_tpu_torch.initialize(model=model,
+                                                    config=_tiny_train_cfg(),
+                                                    device=dev)
+        before = (tdrop.dropout.launches, tdrop.dropout_bwd.launches)
+        losses = [float(engine.train_step((tok, tok))) for _ in range(3)]
+        after = (tdrop.dropout.launches, tdrop.dropout_bwd.launches)
+        assert all((a > b) == (dev != "cpu") for a, b in zip(after, before))
+        runs.append((losses, [p.cpu() for p in engine.master]))
+    (lc, pc), (lg, pg) = runs
+    np.testing.assert_allclose(lg, lc, rtol=1e-4)
+    for a, b in zip(pc, pg):
+        torch.testing.assert_close(b, a, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("over", [{}, {"dropout": 0.1},
+                                  {"parallel_residual": True}])
+def test_offload_dots_grads_equal_no_remat_on_card(cuda_device, over):
+    """``offload_dots`` keeps each layer's matmul outputs in pinned host
+    memory and replays them: loss and gradients bit-equal to no remat on
+    the card, in bf16."""
+    from deepspeed_tpu_torch.models import causal_lm
+    from deepspeed_tpu_torch.utils import prng
+
+    model = causal_lm("llama-tiny", device=cuda_device, dtype=torch.bfloat16,
+                      num_layers=3, **over)
+    params = model.params()
+    tok = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 32000, (2, 128))).to(cuda_device)
+    out = []
+    for remat, policy in ((False, "full"), (True, "offload_dots")):
+        model.config.remat, model.config.remat_policy = remat, policy
+        leaves = {}
+
+        def copy(t, path=""):
+            if isinstance(t, dict):
+                return {k: copy(v, f"{path}.{k}") for k, v in t.items()}
+            leaves[path] = t.detach().clone().requires_grad_()
+            return leaves[path]
+        tp = copy(params)
+        loss = model.apply(tp, tok, tok, rngs=prng.prng_key(7))
+        loss.backward()
+        out.append((loss.detach(), {k: v.grad for k, v in leaves.items()}))
+    (l0, g0), (l1, g1) = out
+    assert torch.equal(l0, l1)
+    for k in g0:
+        assert torch.equal(g0[k], g1[k]), k
+
+
+@pytest.mark.parametrize("opt,params", [
+    ("Lion", {"lr": 1e-4, "betas": [0.9, 0.99], "weight_decay": 0.1}),
+    ("Adagrad", {"lr": 1e-2}),
+    ("SGD", {"lr": 1e-2, "momentum": 0.9, "nesterov": True}),
+    ("Muon", {"lr": 2e-3, "weight_decay": 0.1})])
+def test_new_optimizers_train_on_card_like_cpu(cuda_device, opt, params):
+    """llama-tiny 3 steps under each optimizer on the card and on the CPU:
+    losses rtol 1e-4, weights atol 1e-4 (Lion's sign may flip where its sum
+    is within rounding of zero: at most 0.1 % of the weights, by 2 lr)."""
+    import deepspeed_tpu_torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tok = np.random.default_rng(0).integers(0, 32000, (4, 96))
+    runs = []
+    for dev in ("cpu", cuda_device):
+        model = deepspeed_tpu_torch.causal_lm("llama-tiny", device="cpu")
+        engine, *_ = deepspeed_tpu_torch.initialize(
+            model=model, config=_tiny_train_cfg(opt, params), device=dev)
+        losses = [float(engine.train_step((tok, tok))) for _ in range(3)]
+        runs.append((losses, [p.cpu() for p in engine.master]))
+    (lc, pc), (lg, pg) = runs
+    np.testing.assert_allclose(lg, lc, rtol=1e-4)
+    for a, b in zip(pc, pg):
+        d = (b - a).abs()
+        if opt == "Lion":
+            assert float(d.max()) <= 2.02 * params["lr"]
+            assert float((d > 1e-4).float().mean()) <= 1e-3
+        else:
+            torch.testing.assert_close(b, a, rtol=0, atol=1e-4)

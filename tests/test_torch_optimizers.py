@@ -294,8 +294,9 @@ def test_build_optimizer_maps_the_new_types(type_name, params, cls, fused, eps):
         assert opt.updates_are_new_params
 
 
-@pytest.mark.parametrize("type_name", ["Lion", "Adagrad", "SGD", "Muon",
-                                       "OneBitLamb"])
+@pytest.mark.parametrize("type_name", ["OneBitAdam", "ZeroOneAdam",
+                                       "OneBitLamb", "onebit_adam",
+                                       "Zero-One-Adam"])
 def test_build_optimizer_still_refuses_the_rest(type_name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_optimizer(type_name, {}, [torch.zeros(8)])

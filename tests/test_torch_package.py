@@ -56,6 +56,18 @@ def test_import_rule_covers_the_moe_modules(part):
     assert ROOT / "deepspeed_tpu_torch" / part in PORT_FILES
 
 
+@pytest.mark.parametrize("part", [
+    "utils/prng.py", "ops/kernels/dropout.py", "ops/plain_optimizer.py",
+    "ops/lion/__init__.py", "ops/adagrad/__init__.py", "ops/sgd/__init__.py",
+    "ops/adam/muon.py", "runtime/activation_checkpointing/__init__.py",
+    "runtime/activation_checkpointing/checkpointing.py"])
+def test_import_rule_covers_the_dropout_and_optimizer_modules(part):
+    """The threefry chain, the dropout wrapper, the plain optimizers and the
+    activation checkpointing API are written for the port (no jax.random,
+    no optax): the import rule above walks each of their files."""
+    assert ROOT / "deepspeed_tpu_torch" / part in PORT_FILES
+
+
 def test_import_leaves_jax_unloaded():
     code = ("import sys\n"
             "def jaxish():\n"
@@ -71,6 +83,11 @@ def test_import_leaves_jax_unloaded():
             "import deepspeed_tpu_torch.runtime.dataloader\n"
             "import deepspeed_tpu_torch.utils.zero_to_fp32\n"
             "import deepspeed_tpu_torch.moe\n"
+            "import deepspeed_tpu_torch.utils.prng\n"
+            "import deepspeed_tpu_torch.ops.kernels.dropout\n"
+            "import deepspeed_tpu_torch.ops.lion, deepspeed_tpu_torch.ops.sgd\n"
+            "import deepspeed_tpu_torch.ops.adagrad, deepspeed_tpu_torch.ops.adam\n"
+            "import deepspeed_tpu_torch.runtime.activation_checkpointing\n"
             "print(sorted(jaxish() - before))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env={**os.environ, "PYTHONPATH": str(ROOT)},
@@ -225,9 +242,9 @@ def test_initialize_without_a_card_raises(monkeypatch):
     {"pipeline": {"stages": 2}}, {"mesh": {"tp": 2}},
     {"tensor_parallel": {"tp_size": 2}}, {"tensorboard": {"enabled": True}},
     {"flops_profiler": {"enabled": True}}, {"watchdog": {"enabled": True}},
-    {"activation_checkpointing": {"cpu_checkpointing": True}},
-    {"optimizer": {"type": "Lion", "params": {}}},
-    {"optimizer": {"type": "Muon", "params": {}}},
+    {"zero_optimization": {"offload_param": {"device": "cpu"}}},
+    {"optimizer": {"type": "ZeroOneAdam", "params": {}}},
+    {"optimizer": {"type": "OneBitLamb", "params": {}}},
     {"optimizer": {"type": "OneBitAdam", "params": {}}}])
 def test_unported_training_config_sections_are_refused(section):
     import deepspeed_tpu_torch
@@ -240,11 +257,13 @@ def test_unported_training_config_sections_are_refused(section):
 
 
 @pytest.mark.parametrize("over", [
-    {"dropout": 0.1}, {"num_experts": 4, "dropout": 0.1},
-    {"remat": True, "remat_policy": "offload_dots"}])
+    {"param_offload": True}, {"num_experts": 4, "param_offload": True},
+    {"dropout": 0.1, "remat": True, "remat_policy": "offload_dots",
+     "param_offload": True}])
 def test_unported_training_model_options_are_refused(over):
-    """Dropout (also in an MoE model, which trains without it) and the
-    ``offload_dots`` remat policy raise naming ROADMAP.md."""
+    """The JAX package's streamed layer weights (``param_offload``, which
+    its engine sets under ``offload_param``) raise naming ROADMAP.md, also
+    beside dropout and ``offload_dots``, which train."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models.config import get_model_config
     from deepspeed_tpu_torch.models.transformer import CausalLM
