@@ -185,7 +185,7 @@ Needs one CUDA card, nvcc and triton; imports nothing of JAX.  Phases
              serve wave and one ``generate()``, the unfused loop): launches
              equal to their plans, cache bytes, tok/s, peak memory, the
              share of greedy tokens equal to the bf16 paged / bf16 runs;
-   mixtral_serve — mixtral-8x7b at full width with 16 layers (23.48B
+   mixtral_serve — mixtral-8x7b at full width with 8 layers (11.87B
              parameters, bf16, seed 0) on the one card: the serve waves and
              ``generate()`` of 8 x 200 + 64, rms_norm and rope launches
              equal to the plan, tok/s, peak memory, the busy share;
@@ -224,8 +224,24 @@ Needs one CUDA card, nvcc and triton; imports nothing of JAX.  Phases
              over the active parameters (the attention, the router, 2 of
              8 experts and the head); each train phase reports
              the mean of steps 2-5 and the median of steps 3-5;
-   checkpoint — after the ``train`` phase, its cell again (llama-1b4,
-             TRAIN_CONFIG, 5 steps), then ``save_checkpoint`` into a
+   zero_offload_* — ZeRO-Offload of the optimizer state (fp32 masters and
+             moments on the host, the host C++ Adam built by g++):
+             ``zero_offload_reference`` (the llama-tiny preset, 3 fp32
+             steps, card == CPU, and the nvme backend bit-equal to cpu);
+             ``zero_offload_train`` (llama2-7b at full width, bf16 over
+             host AdamW, micro 2 x gas 2 x S 2048, remat full, 4 steps, as
+             deep as 80 % of MemAvailable holds: the host's cores and
+             memory, each step's split into fwd/bwd, D2H, host step and
+             H2D, the host step's GB/s, tokens/s, MFU, peak, host state
+             bytes, what FusedAdam would hold; no optimizer state on the
+             card); ``zero_offload_nvme`` (llama-1b4 at 4 layers with the
+             state in NVMe files: bit-equal to the cpu backend, aio read
+             and write GB/s, save, a fresh engine's load and a bit-equal
+             step 4); ``bloom_fp16_offload_train`` (bloom-1b7 in fp16 with
+             host Adam, beside device FusedAdam: the same skips, losses
+             within 1e-3, the fp16 ALiBi flash kernels on a train path);
+   checkpoint — after the ``train`` phase, its cell again (llama-1b4 cut
+             to CHECKPOINT_LAYERS, TRAIN_CONFIG, 5 steps), then ``save_checkpoint`` into a
              temporary directory (the free space printed first and
              checked against the tag's bytes with a 20 % margin), step 6,
              a fresh engine with other random weights, ``load_checkpoint``
@@ -244,8 +260,10 @@ Needs one CUDA card, nvcc and triton; imports nothing of JAX.  Phases
 
 from __future__ import annotations
 
+import functools
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -3295,7 +3313,7 @@ NEW_OPTIMIZERS = {"Lion": {"lr": 1e-4, "betas": [0.9, 0.99], "weight_decay": 0.1
                   "Adagrad": {"lr": 1e-2},
                   "SGD": {"lr": 1e-1, "momentum": 0.9, "nesterov": True},
                   "Muon": {"lr": 2e-2, "weight_decay": 0.1}}
-OPTIMIZER_LEG_LAYERS = 6
+OPTIMIZER_LEG_LAYERS = 4
 
 
 def optimizer_section(opt):
@@ -3312,8 +3330,8 @@ def phase_optimizer_legs(torch, dev, peaks, medians):
     trains llama-1b4 at full width, cut to OPTIMIZER_LEG_LAYERS layers, 3
     steps: step time and optimizer state bytes, beside FusedAdam at the
     same depth."""
-    legs = {"adam_l6_train": phase_train(
-        torch, dev, "llama-1b4", "adam_l6_train", None, peaks, medians,
+    legs = {"adam_l4_train": phase_train(
+        torch, dev, "llama-1b4", "adam_l4_train", None, peaks, medians,
         model_over={"num_layers": OPTIMIZER_LEG_LAYERS}, steps_wanted=3,
         profile=False)}
     for opt in NEW_OPTIMIZERS:
@@ -4437,14 +4455,16 @@ def phase_fixed_and_kv_int8(torch, dev, serve_keep, gen_keep):
             "kv_int8": (launches, {})}
 
 
-# the mixtral cell: mixtral-8x7b at full width, 16 of its 32 layers (the
-# 32-layer preset is 93 GB in bf16 and does not fit one card)
-MIXTRAL_LAYERS = 16
+# the mixtral cell: mixtral-8x7b at full width, 8 of its 32 layers (the
+# 32-layer preset is 93 GB in bf16 and does not fit one card; 16 fit, and
+# 8 keep the smoke in its time)
+MIXTRAL_LAYERS = 8
 
 
 def phase_mixtral(torch, dev):
     """``mixtral_serve``: mixtral-8x7b at full width (D 4096, 32/8 heads, F
-    14336, 8 experts top-2, vocab 32000, rope theta 1e6) with 16 layers,
+    14336, 8 experts top-2, vocab 32000, rope theta 1e6) with
+    MIXTRAL_LAYERS layers,
     bf16 random weights from seed 0, on one card: the serve waves through
     ``init_serving`` (paged, prefix cache; the repeat's share of equal
     tokens reported: capacity couples rows), then
@@ -4565,7 +4585,8 @@ def phase_mixtral(torch, dev):
 # the train cells: preset -> (micro batch, sequence length); 16384 tokens a
 # step each with gas 2
 TRAIN_CELLS = {"llama-1b4": (4, 2048), "gpt2-xl": (8, 1024),
-               "bloom-1b7": (4, 2048), "mixtral-8x7b": (4, 2048)}
+               "bloom-1b7": (4, 2048), "mixtral-8x7b": (4, 2048),
+               "llama2-7b": (2, 2048)}
 # mixtral_train: mixtral-8x7b's full width cut to 2 of its 32 layers
 # (3.165B parameters; FusedAdam over fp32 masters keeps ~20 bytes a
 # parameter, ~63 GB, on the 80 GB card)
@@ -4633,10 +4654,13 @@ def optimizer_plan(optimizer, steps):
     """Launches of the optimizer's kernels over ``steps`` steps: FusedAdam
     one a leaf, Adam8bit one a leaf of at least ``min_quant_size`` (the
     smaller keep fp32 moments and plain torch), FusedLamb one phase-1 call
-    (phase 1 and the reduce) and one scale launch a leaf."""
+    (phase 1 and the reduce) and one scale launch a leaf; the offload
+    path's host optimizer none (C++ on the host)."""
     from deepspeed_tpu_torch.ops.adam import Adam8bit, FusedAdam
     from deepspeed_tpu_torch.ops.lamb import FusedLamb
 
+    if not hasattr(optimizer, "param_groups"):
+        return {}
     leaves = [p for g in optimizer.param_groups for p in g["params"]]
     if isinstance(optimizer, Adam8bit):
         return {"fused_adam8bit": steps * sum(map(optimizer.quantized, leaves))}
@@ -4991,14 +5015,17 @@ def active_params(engine, cfg):
 
 
 def phase_train(torch, dev, preset, name="train", section=None, peaks=None,
-                medians=None, model_over=None, steps_wanted=5, profile=True):
+                medians=None, model_over=None, steps_wanted=5, profile=True,
+                on_step=None, report=None):
     """The training path at the preset's full width and depth, with
     TRAIN_CONFIG (FusedAdam over fp32 masters) or ``section`` merged over
     it and ``model_over`` over the preset; records its peak device memory
     in ``peaks[name]`` and its median step in ``medians[name]``.  Five
     applied steps (``steps_wanted``): under fp16 as many more as overflows
     skip, each step printed with its loss scale and skip flag; then one
-    profiled step (``profile``)."""
+    profiled step (``profile``).  ``on_step(engine)`` runs after each step
+    and ``report(engine, info)`` (the steps, the mean and median step, the
+    peak, the parameter and token counts) before the engine is let go."""
     import gc
 
     import deepspeed_tpu_torch
@@ -5024,6 +5051,8 @@ def phase_train(torch, dev, preset, name="train", section=None, peaks=None,
     master = str(engine.master_dtype).replace("torch.", "")
     compute = str(engine.compute_dtype).replace("torch.", "")
     fp16 = engine.fp16_enabled
+    host = (f" ({opt.opt_type} on the {opt.backend} host, fp32 host masters)"
+            if engine._offload else "")
     moe = (f" E={cfg.num_experts} top-{cfg.num_experts_per_tok} (capacity "
            f"factor {cfg.moe_capacity_factor})" if cfg.is_moe else "")
     print(f"{name}: {preset} D={cfg.hidden_size} L={L} H={cfg.num_heads}/"
@@ -5033,7 +5062,7 @@ def phase_train(torch, dev, preset, name="train", section=None, peaks=None,
           f"{cfg.use_bias}, {cfg.activation}, dropout {cfg.dropout}, remat "
           f"{cfg.remat_policy}; "
           f"{n_params / 1e9:.4f}B {master} params in "
-          f"{len(engine.master)} leaves, {type(opt).__name__}, {compute} compute"
+          f"{len(engine.master)} leaves, {type(opt).__name__}{host}, {compute} compute"
           f"{f' (loss scale {engine.loss_scale:g}, dynamic)' if fp16 else ''}, "
           f"{str(engine.grad_accum_dtype).replace('torch.', '')} accumulator, "
           f"micro {micro} x gas {gas} x S {S}; built in "
@@ -5052,6 +5081,8 @@ def phase_train(torch, dev, preset, name="train", section=None, peaks=None,
         torch.cuda.synchronize()
         steps.append((loss, engine.get_global_grad_norm(), engine.get_lr()[0],
                       time.perf_counter() - t, engine._last_overflow))
+        if on_step is not None:
+            on_step(engine)
         print(f"{name}: step {len(steps)} loss {steps[-1][0]:.5f} grad norm "
               f"{steps[-1][1]:.4f} next lr {steps[-1][2]:.3e} wall "
               f"{steps[-1][3]:.3f}s" + (f" loss scale {scale:g} skipped "
@@ -5104,6 +5135,11 @@ def phase_train(torch, dev, preset, name="train", section=None, peaks=None,
           f"recomputed forwards not counted), peak device "
           f"memory {peak:.2f} GiB{beside}; launches {launches}")
     device_ms = phase_train_profile(torch, engine, tokens) if profile else {}
+    if report is not None:
+        report(engine, {"steps": steps, "steady": steady, "median": median,
+                        "peak_gib": peak, "n_params": n_params,
+                        "tokens_per_step": tokens_per_step, "flops": flops,
+                        "launches": launches})
     del engine, model, tokens
     gc.collect()
     torch.cuda.empty_cache()
@@ -5131,8 +5167,14 @@ def manifest_bytes(ckpt_dir):
         return sum(f["nbytes"] for f in json.load(fh)["files"].values())
 
 
+# the checkpoint phase's depth: llama-1b4 cut from 24 to 4 layers to keep
+# the smoke in its time (the save and the verified load hash every byte on
+# one core: 158 s for the full-depth tags)
+CHECKPOINT_LAYERS = 4
+
+
 def checkpoint_round(torch, dev, name, section, ident, infer=False):
-    """llama-1b4 at full width and depth under TRAIN_CONFIG (``section``
+    """llama-1b4 at full width, CHECKPOINT_LAYERS deep, under TRAIN_CONFIG (``section``
     merged over it), 5 steps as the train phase takes them; save to a
     temporary directory; step 6; a fresh engine (other random weights)
     loads the tag and takes step 6 again: loss and grad norm bit-equal.
@@ -5153,7 +5195,8 @@ def checkpoint_round(torch, dev, name, section, ident, infer=False):
         gc.collect()
         torch.cuda.empty_cache()
         return deepspeed_tpu_torch.initialize(
-            model=train_model("llama-1b4", seed=seed), config=cfg)[0]
+            model=train_model("llama-1b4", seed=seed, num_layers=CHECKPOINT_LAYERS),
+            config=cfg)[0]
 
     def step(engine):
         loss = float(engine.train_step((tokens, tokens)))
@@ -5210,7 +5253,8 @@ def checkpoint_round(torch, dev, name, section, ident, infer=False):
             gc.collect()
             torch.cuda.empty_cache()
             eng = deepspeed_tpu_torch.init_inference(
-                deepspeed_tpu_torch.causal_lm("llama-1b4"), {"dtype": "bfloat16"},
+                deepspeed_tpu_torch.causal_lm("llama-1b4", num_layers=CHECKPOINT_LAYERS),
+                {"dtype": "bfloat16"},
                 checkpoint=root)
             got_logits = eng(prompt)
             check(got_logits.shape == want_logits.shape
@@ -5354,6 +5398,360 @@ def phase_train_profile(torch, engine, tokens):
     return out
 
 
+# ZeRO-Offload of the optimizer state (zero_optimization.offload_optimizer):
+# the fp32 masters and moments on the host, stepped by the host C++ Adam
+ZERO_OFFLOAD = {"zero_optimization": {"stage": 0, "offload_optimizer": {
+    "device": "cpu"}}}
+ADAMW_SECTION = {"optimizer": dict(TRAIN_CONFIG["optimizer"], type="AdamW")}
+# host bytes a parameter: the fp32 master and two fp32 moments; the relay's
+# bf16 grad staging; and what the bf16-grad Adam step moves (reads p, m, v
+# and a bf16 grad, writes p, m, v and a bf16 param)
+HOST_STATE_BYTES, GRAD_STAGE_BYTES, BF16G_STEP_BYTES = 12, 2, 28
+NVME_LAYERS = 4
+NVME_AIO_THREADS = 4     # of the host's 8 cores; the aio section's default is 1
+
+
+def host_memory():
+    """(MemTotal, MemAvailable) of /proc/meminfo in bytes, and the cores."""
+    vals = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, val = line.split(":", 1)
+            if key in ("MemTotal", "MemAvailable"):
+                vals[key] = int(val.split()[0]) * 1024
+    return vals["MemTotal"], vals["MemAvailable"], os.cpu_count()
+
+
+def offload_host_bytes(preset, layers):
+    """Host bytes a bf16 offload run of ``preset`` at ``layers`` holds:
+    the host states, the relay's grad staging, and its two H2D buffers of
+    the largest leaf in bf16; with the parameter count."""
+    from deepspeed_tpu_torch.models.config import get_model_config
+    from deepspeed_tpu_torch.models.transformer import param_shapes
+
+    def sizes(tree):
+        for v in tree.values():
+            if isinstance(v, dict):
+                yield from sizes(v)
+            else:
+                yield math.prod(v[0])
+
+    leaves = list(sizes(param_shapes(get_model_config(preset, num_layers=layers))))
+    n = sum(leaves)
+    return (HOST_STATE_BYTES + GRAD_STAGE_BYTES) * n + 2 * 2 * max(leaves), n
+
+
+def phase_zero_offload_reference(torch, dev):
+    """The llama-tiny preset (D 256, 8 heads of 32, 4 layers, vocab 32000)
+    with ``offload_optimizer: cpu``, 3 fp32 steps on the card and on the
+    CPU from the same weights and tokens: losses within rtol 1e-4 and the
+    host masters within atol 1e-4, the bounds of phase_train_reference;
+    then the card with ``nvme`` (a temporary directory): its host masters
+    and losses bit-equal to the card's cpu backend."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    import deepspeed_tpu_torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dict(TRAIN_CONFIG, **ZERO_OFFLOAD, **ADAMW_SECTION,
+               bf16={"enabled": False}, train_micro_batch_size_per_gpu=2)
+    tok = np.random.default_rng(0).integers(0, 32000, (4, 200))
+    root = tempfile.mkdtemp(prefix="ds_swap_")
+    nvme = dict(cfg, zero_optimization={"stage": 0, "offload_optimizer": {
+        "device": "nvme", "nvme_path": root}})
+    runs = {}
+    try:
+        for name, d, c in (("cpu", "cpu", cfg), ("card", dev, cfg),
+                           ("card nvme", dev, nvme)):
+            model = deepspeed_tpu_torch.causal_lm("llama-tiny", device="cpu", seed=0)
+            engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=c,
+                                                        device=d)
+            check(engine._offload_opt.backend == c["zero_optimization"][
+                "offload_optimizer"]["device"], f"{name}: backend")
+            losses = [float(engine.train_step((tok, tok))) for _ in range(3)]
+            runs[name] = (losses, [m.clone() for m in engine._offload_opt.masters()])
+            del engine, model
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    (lc, pc), (lg, pg), (ln, pn) = runs["cpu"], runs["card"], runs["card nvme"]
+    check(all(math.isfinite(x) for x in lg) and lg[-1] < lg[0],
+          f"zero_offload_reference: card losses {lg}")
+    for a, b in zip(lc, lg):
+        check(abs(a - b) <= 1e-4 * abs(a), f"zero_offload_reference: card vs CPU "
+              f"losses {lg} vs {lc}")
+    diff = max(float((a - b).abs().max()) for a, b in zip(pc, pg))
+    check(diff <= 1e-4, f"zero_offload_reference: card vs CPU host masters "
+          f"differ by {diff}")
+    check(ln == lg and all(torch.equal(a, b) for a, b in zip(pn, pg)),
+          f"zero_offload_reference: nvme {ln} against cpu backend {lg}")
+    print(f"reference: zero_offload_reference, the llama-tiny preset (L 4, D 256, "
+          f"V 32000, S 200) with offload_optimizer cpu (host C++ AdamW), 3 fp32 "
+          f"steps, card == CPU: losses {lg} vs {lc}, host masters max abs diff "
+          f"{diff:.3g}; nvme backend on the card bit-equal to the cpu backend "
+          f"(losses {ln}, every host master)")
+
+
+def phase_zero_offload_train(torch, dev, peaks, medians):
+    """llama2-7b at full width (D 4096, 32/32 heads, F 11008, vocab 32000),
+    bf16 compute over fp32 host masters (host C++ AdamW), WarmupLR,
+    clipping 1.0, micro 2 x gas 2 x S 2048, remat full, 4 steps.  All 32
+    layers when the host states (12 B a parameter) and the relay's staging
+    fit in 80 % of MemAvailable, else the deepest depth that does (printed
+    with the reason).  Prints each step's split (fwd/bwd, D2H, host step,
+    H2D), the host step's rate at 28 B a parameter, tokens/s, MFU, peak
+    device memory and host state bytes, and what FusedAdam would hold on
+    the card at the same depth (computed, not run); checks that the card
+    holds no optimizer state and that no relay buffer was reused before its
+    copy landed."""
+    import gc
+
+    gc.collect()
+    if hasattr(torch._C, "_host_emptyCache"):
+        torch._C._host_emptyCache()     # pinned blocks cached by earlier phases
+    ident = gpu_identity()
+    total, avail, cores = host_memory()
+    full = 32
+    budget = 0.8 * avail
+    need_full, n_full = offload_host_bytes("llama2-7b", full)
+    layers = full
+    while layers > 1 and offload_host_bytes("llama2-7b", layers)[0] > budget:
+        layers -= 1
+    need, n = offload_host_bytes("llama2-7b", layers)
+    check(need <= budget, f"zero_offload_train: even 1 layer needs {need} B of "
+          f"host memory against {budget:.0f}")
+    print(f"zero_offload_train: {ident}; host MemTotal {total} B "
+          f"({total / 2**30:.2f} GiB), MemAvailable {avail} B "
+          f"({avail / 2**30:.2f} GiB), {cores} cores")
+    if layers < full:
+        print(f"zero_offload_train: depth cut {full} -> {layers} layers: at "
+              f"{full} layers the host states ({HOST_STATE_BYTES} B x "
+              f"{n_full / 1e9:.4f}B params) and the relay's staging need "
+              f"{need_full / 1e9:.2f} GB, more than 80 % of MemAvailable "
+              f"({budget / 1e9:.2f} GB); {layers} layers need {need / 1e9:.2f} GB")
+    else:
+        print(f"zero_offload_train: all {full} layers: {need / 1e9:.2f} GB of host "
+              f"states and staging within 80 % of MemAvailable ({budget / 1e9:.2f} GB)")
+    splits = []
+    out = {}
+
+    def on_step(engine):
+        splits.append(engine.offload_split())
+
+    def report(engine, info):
+        opt = engine._offload_opt
+        dev_bytes = sum(p.numel() * p.element_size()
+                        for p in engine.master + engine.grad_acc)
+        allocated = torch.cuda.memory_allocated(dev)
+        check(allocated <= dev_bytes + 2**28,
+              f"zero_offload_train: {allocated} B on the card, params and "
+              f"accumulator are {dev_bytes} B: something else stayed there")
+        check(all(not t.is_cuda for t in opt.masters()) and not engine.master[0].dtype
+              == torch.float32, "zero_offload_train: a master on the card")
+        log = engine._relay.reuse_log
+        check(log and all(after for *_, after in log),
+              f"zero_offload_train: a relay buffer reused before its copy "
+              f"landed: {log[:4]}")
+        waited = sum(not fired for _, _, fired, _ in log)
+        for k, sp in enumerate(splits, 1):
+            wall = info["steps"][k - 1][3] * 1e3
+            print(f"zero_offload_train: step {k} split ms: fwd/bwd "
+                  f"{wall - sp['step']:.1f}, apply {sp['step']:.1f} = prep "
+                  f"{sp['prep']:.1f} + D2H wait {sp.get('d2h_wait', 0):.1f} "
+                  f"(device span {sp.get('d2h_ms', float('nan')):.1f}) + host step "
+                  f"{sp['host_step']:.1f} + H2D issue {sp.get('h2d_issue', 0):.1f} "
+                  f"+ H2D wait {sp.get('h2d_wait', 0):.1f} (device span "
+                  f"{sp.get('h2d_ms', float('nan')):.1f}); wall {wall:.1f}")
+        host_s = statistics.mean(sp["host_step"] for sp in splits[1:]) / 1e3
+        n_p = info["n_params"]
+        rate = BF16G_STEP_BYTES * n_p / host_s / 1e9
+        act = info["peak_gib"] * 2**30 - dev_bytes
+        fused = 16 * n_p + 2 * n_p + act
+        out.update(host_step_s=host_s, host_gbs=rate, state_bytes=opt.state_bytes(),
+                   fused_bytes=fused, layers=layers, pinned=engine._relay.pinned_bytes())
+        print(f"zero_offload_train: {ident}, {cores} cores, MemTotal "
+              f"{total / 2**30:.2f} GiB: host step (mean of steps 2-{len(splits)}) "
+              f"{host_s * 1e3:.1f} ms over {n_p / 1e9:.4f}B params = "
+              f"{rate:.2f} GB/s at {BF16G_STEP_BYTES} B a parameter "
+              f"(ds_adam_step_bf16g over {opt._stepper._pool._max_workers} "
+              f"threads); host state {opt.state_bytes()} B "
+              f"({opt.state_bytes() / n_p:.1f} a parameter), relay staging "
+              f"{engine._relay.pinned_bytes()} B pinned; card: {dev_bytes} B of "
+              f"bf16 params and fp32 accumulator, peak {info['peak_gib']:.2f} GiB; "
+              f"FusedAdam at this depth would hold {fused / 2**30:.2f} GiB on the "
+              f"card (16 B a parameter of fp32 masters, moments and accumulator, "
+              f"2 B of bf16 compute copy, {act / 2**30:.2f} GiB of activations "
+              f"as measured here); relay buffers reused {len(log)} times, each "
+              f"after its copy landed ({waited} waited for it)")
+
+    section = dict(ZERO_OFFLOAD, **ADAMW_SECTION)
+    launches, device_ms = phase_train(
+        torch, dev, "llama2-7b", "zero_offload_train", section, peaks, medians,
+        model_over={"num_layers": layers}, steps_wanted=4, profile=False,
+        on_step=on_step, report=report)
+    if hasattr(torch._C, "_host_emptyCache"):
+        torch._C._host_emptyCache()     # give the pinned staging back
+    return launches, device_ms
+
+
+def phase_zero_offload_nvme(torch, dev):
+    """llama-1b4 at full width cut to NVME_LAYERS layers, bf16 over fp32
+    host masters: 3 steps on the cpu backend, then 3 on ``nvme`` (state
+    files in a temporary directory): losses and host masters bit-equal.
+    The aio read and write rates over the state files (a read of each file
+    just written: the page cache is warm).  Then save, load into a fresh
+    engine (other random weights, another swap directory) and take step 4:
+    loss, grad norm and host masters bit-equal to step 4 without the
+    reload."""
+    import gc
+    import shutil
+    import tempfile
+
+    import deepspeed_tpu_torch
+
+    ident = gpu_identity()
+    micro, S = TRAIN_CELLS["llama-1b4"]
+    root = tempfile.mkdtemp(prefix="ds_nvme_")
+    tokens = None
+
+    def build(seed, device, swap=None):
+        gc.collect()
+        torch.cuda.empty_cache()
+        off = {"device": device, **({"nvme_path": swap} if swap else {})}
+        cfg = dict(TRAIN_CONFIG, **ADAMW_SECTION, train_micro_batch_size_per_gpu=micro,
+                   zero_optimization={"stage": 0, "offload_optimizer": off},
+                   aio={"thread_count": NVME_AIO_THREADS})
+        return deepspeed_tpu_torch.initialize(
+            model=train_model("llama-1b4", seed=seed, num_layers=NVME_LAYERS),
+            config=cfg)[0]
+
+    def step(engine):
+        loss = float(engine.train_step((tokens, tokens)))
+        torch.cuda.synchronize()
+        return loss, engine.get_global_grad_norm()
+
+    zero_counts()
+    try:
+        t = time.perf_counter()
+        eng = build(0, "cpu")
+        print(f"zero_offload_nvme: cpu-backend engine built in "
+              f"{time.perf_counter() - t:.3f} s")
+        gen = torch.Generator(device=dev).manual_seed(0)
+        tokens = torch.randint(0, eng.module.config.vocab_size, (2 * micro, S),
+                               device=dev, generator=gen)
+        want = [step(eng) for _ in range(3)]
+        masters = [m.clone() for m in eng._offload_opt.masters()]
+        del eng
+        t = time.perf_counter()
+        eng = build(0, "nvme", os.path.join(root, "swap_a"))
+        print(f"zero_offload_nvme: nvme engine built (state files written) in "
+              f"{time.perf_counter() - t:.3f} s")
+        t = time.perf_counter()
+        got = [step(eng) for _ in range(3)]
+        wall = time.perf_counter() - t
+        opt = eng._offload_opt
+        check(got == want and all(torch.equal(a, b) for a, b in
+                                  zip(opt.masters(), masters)),
+              f"zero_offload_nvme: nvme {got} against the cpu backend {want}")
+        sw = opt._swapper
+        t = time.perf_counter()
+        bufs = [sw.read_sync(i) for i in range(len(opt._sizes))]
+        read_s = time.perf_counter() - t
+        nbytes = sum(b.numel() * 4 for b in bufs)
+        t = time.perf_counter()
+        for i, b in enumerate(bufs):
+            sw.write_sync(i, b)
+        write_s = time.perf_counter() - t
+        del bufs
+        free = shutil.disk_usage(root).free
+        print(f"zero_offload_nvme: {ident}; llama-1b4 D 2048 cut to {NVME_LAYERS} "
+              f"layers, {sum(opt._sizes) / 1e9:.4f}B params in {len(opt._sizes)} "
+              f"state files ({nbytes} B, [master, exp_avg, exp_avg_sq] fp32); 3 "
+              f"steps {wall:.3f}s, losses and grad norms {got} and every host "
+              f"master bit-equal to the cpu backend; aio ({NVME_AIO_THREADS} threads, "
+              f"1 MiB blocks): read {nbytes / read_s / 1e9:.3f} GB/s (warm page "
+              f"cache), write {nbytes / write_s / 1e9:.3f} GB/s; {free / 1e9:.1f} "
+              f"GB free in {root}")
+        t = time.perf_counter()
+        tag = eng.save_checkpoint(os.path.join(root, "ckpt"))
+        save_s = time.perf_counter() - t
+        want4 = step(eng)
+        masters4 = [m.clone() for m in eng._offload_opt.masters()]
+        del eng
+        eng = build(1, "nvme", os.path.join(root, "swap_b"))
+        t = time.perf_counter()
+        loaded, _ = eng.load_checkpoint(os.path.join(root, "ckpt"))
+        load_s = time.perf_counter() - t
+        check(loaded == tag, f"zero_offload_nvme: loaded {loaded}, saved {tag}")
+        got4 = step(eng)
+        check(got4 == want4 and all(torch.equal(a, b) for a, b in
+                                    zip(eng._offload_opt.masters(), masters4)),
+              f"zero_offload_nvme: step 4 after the reload {got4} != {want4}")
+        print(f"zero_offload_nvme: saved {manifest_bytes(tag)} B (offload_states "
+              f"in the manifest) in {save_s:.3f} s, fresh engine loaded it in "
+              f"{load_s:.3f} s (verify included); step 4 (loss, grad "
+              f"norm) {got4} and every host master bit-equal to step 4 without "
+              f"the reload {want4}")
+        del eng
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = read_counts()
+    for k in ("rms_norm", "rms_norm_bwd", "rope", "flash_attention_fwd",
+              "flash_attention_bwd"):
+        check(launches[k] > 0, f"zero_offload_nvme: {k} never launched")
+    check(launches["fused_adam"] == 0, "zero_offload_nvme: a device Adam launch")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, {}
+
+
+def phase_bloom_fp16_offload(torch, dev, peaks, medians):
+    """bloom-1b7 (nothing cut) in fp16 (dynamic scale from 2^16) with
+    ``offload_optimizer: cpu``, 5 applied steps, each printed with its loss
+    scale and skip: the fp16 ALiBi flash instances on a train path, and the
+    overflow skip of the host-stepped step.  Beside it the same cell with
+    device FusedAdam: the same skips, and losses within the fp16 train
+    gate's rtol 1e-3 (``tests/test_torch_fp16.py``)."""
+    runs = {}
+
+    def keep(name):
+        return lambda engine, info: runs.__setitem__(name, info["steps"])
+
+    phase_train(torch, dev, "bloom-1b7", "bloom_fp16_train", FP16_CONFIG, peaks,
+                medians, profile=False, report=keep("device"))
+    result = phase_train(torch, dev, "bloom-1b7", "bloom_fp16_offload_train",
+                         dict(FP16_CONFIG, **ZERO_OFFLOAD), peaks, medians,
+                         profile=False, report=keep("offload"))
+    dev_steps, off_steps = runs["device"], runs["offload"]
+    check([x[4] for x in off_steps] == [x[4] for x in dev_steps],
+          f"bloom_fp16_offload_train: skips {[x[4] for x in off_steps]} against "
+          f"FusedAdam's {[x[4] for x in dev_steps]}")
+    for a, b in zip(off_steps, dev_steps):
+        check(abs(a[0] - b[0]) <= 1e-3 * abs(b[0]),
+              f"bloom_fp16_offload_train: losses {[x[0] for x in off_steps]} "
+              f"against FusedAdam's {[x[0] for x in dev_steps]}")
+    launches = result[0]
+    for k in ("flash_attention_fwd_f16_alibi", "flash_attention_bwd_f16_alibi"):
+        check(launches[k] > 0, f"bloom_fp16_offload_train: {k} never launched")
+    print(f"bloom_fp16_offload_train: losses {[x[0] for x in off_steps]} and "
+          f"skips {[x[4] for x in off_steps]} against device FusedAdam's "
+          f"{[x[0] for x in dev_steps]} / {[x[4] for x in dev_steps]} (rtol 1e-3)")
+    return result
+
+
+def clocked(spent, name, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its wall seconds kept in ``spent[name]`` and
+    printed with the host's MemAvailable after it."""
+    t = time.perf_counter()
+    out = fn(*args, **kwargs)
+    spent[name] = time.perf_counter() - t
+    print(f"chip_smoke: phase {name} {spent[name]:.1f}s, host MemAvailable "
+          f"{host_available_gib():.2f} GiB")
+    return out
+
+
 def phase_unfused(torch, model, prompts, first):
     """The unfused decode path on the same weights (no copy: the model's
     own tensors), a shorter wave with its own launch plan; each request's
@@ -5406,8 +5804,10 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    flash_ptxas = phase_build(torch, dev)["flash_ptxas"]
-    timings = phase_kernels(torch, dev)
+    spent = {}      # each phase's wall seconds, for the smoke's budget
+    c = functools.partial(clocked, spent)
+    flash_ptxas = c("build", phase_build, torch, dev)["flash_ptxas"]
+    timings = c("kernels", phase_kernels, torch, dev)
     for name in KERNELS:
         if name.startswith("flash_attention_"):   # its wgmma kernels' ptxas
             timings[name]["ptxas"] = {
@@ -5415,51 +5815,67 @@ def main() -> int:
                 if ("alibi" in k) == ("alibi" in name) and ("f16" in k) == (
                     "f16" in name) and ("bwd" in k) == ("bwd" in name)}
     for preset, policy in (("llama-tiny", "mlp_dots"), ("gpt2-small", "full")):
-        phase_reference(torch, dev, preset)
-        phase_train_reference(torch, dev, preset, policy)
-    phase_train_reference(torch, dev, "llama-tiny", "mlp_dots", DROPOUT_RATE)
-    phase_reference_kv_int8(torch, dev)
-    phase_reference_moe(torch, dev)
-    phase_preset_train_reference(torch, dev)
-    phase_mixtral_train_reference(torch, dev)
-    phase_mixtral_train_reference(torch, dev, dropout=DROPOUT_RATE,
-                                  moe_use_rts=True)
-    phase_hf_train_reference(torch, dev)
-    phase_optimizer_reference(torch, dev)
+        c(f"reference_{preset}", phase_reference, torch, dev, preset)
+        c(f"train_reference_{preset}", phase_train_reference, torch, dev, preset,
+          policy)
+    c("train_reference_dropout", phase_train_reference, torch, dev, "llama-tiny",
+      "mlp_dots", DROPOUT_RATE)
+    c("reference_kv_int8", phase_reference_kv_int8, torch, dev)
+    c("reference_moe", phase_reference_moe, torch, dev)
+    c("preset_train_reference", phase_preset_train_reference, torch, dev)
+    c("mixtral_train_reference", phase_mixtral_train_reference, torch, dev)
+    c("mixtral_train_reference_rts", phase_mixtral_train_reference, torch, dev,
+      dropout=DROPOUT_RATE, moe_use_rts=True)
+    c("hf_train_reference", phase_hf_train_reference, torch, dev)
+    c("optimizer_reference", phase_optimizer_reference, torch, dev)
+    c("zero_offload_reference", phase_zero_offload_reference, torch, dev)
     # each path: (launch counts of its run, device ms per call in its profile)
     peaks, medians = {}, {}
     serve_keep, gen_keep = {}, {}
-    runs = {"ops": (phase_ops(torch, dev), {}),
-            "serve": phase_serve(torch, dev, "llama3-8b", keep=serve_keep),
-            "gpt2_serve": phase_serve(torch, dev, "gpt2-xl"),
-            **phase_generate(torch, dev, keep=gen_keep),
-            **phase_fixed_and_kv_int8(torch, dev, serve_keep, gen_keep),
-            "mixtral_serve": phase_mixtral(torch, dev),
-            "train": phase_train(torch, dev, "llama-1b4", "train", peaks=peaks,
-                                 medians=medians),
-            "checkpoint": phase_checkpoint(torch, dev),
-            "fp16_train": phase_train(torch, dev, "llama-1b4", "fp16_train",
-                                      FP16_CONFIG, peaks, medians),
-            "gpt2_train": phase_train(torch, dev, "gpt2-xl", "gpt2_train",
-                                      peaks=peaks),
-            "adam8bit_train": phase_train(torch, dev, "llama-1b4",
-                                          "adam8bit_train", ADAM8BIT_CONFIG,
-                                          peaks),
-            "lamb_train": phase_train(torch, dev, "llama-1b4", "lamb_train",
-                                      LAMB_CONFIG, peaks),
-            "bloom_train": phase_train(torch, dev, "bloom-1b7", "bloom_train",
-                                       peaks=peaks),
-            "mixtral_train": phase_train(torch, dev, "mixtral-8x7b",
-                                         "mixtral_train", peaks=peaks),
-            "dropout_train": phase_train(torch, dev, "llama-1b4", "dropout_train",
-                                         peaks=peaks, medians=medians,
-                                         model_over={"dropout": DROPOUT_RATE}),
-            "offload_train": phase_train(
-                torch, dev, "llama-1b4", "offload_train",
+    runs = {"ops": (c("ops", phase_ops, torch, dev), {}),
+            "serve": c("serve", phase_serve, torch, dev, "llama3-8b", keep=serve_keep),
+            "gpt2_serve": c("gpt2_serve", phase_serve, torch, dev, "gpt2-xl"),
+            **c("generate", phase_generate, torch, dev, keep=gen_keep),
+            **c("fixed_and_kv_int8", phase_fixed_and_kv_int8, torch, dev,
+                serve_keep, gen_keep),
+            "mixtral_serve": c("mixtral_serve", phase_mixtral, torch, dev),
+            "train": c("train", phase_train, torch, dev, "llama-1b4", "train",
+                       peaks=peaks, medians=medians),
+            "checkpoint": c("checkpoint", phase_checkpoint, torch, dev),
+            "fp16_train": c("fp16_train", phase_train, torch, dev, "llama-1b4",
+                            "fp16_train", FP16_CONFIG, peaks, medians),
+            "gpt2_train": c("gpt2_train", phase_train, torch, dev, "gpt2-xl",
+                            "gpt2_train", peaks=peaks),
+            "adam8bit_train": c("adam8bit_train", phase_train, torch, dev,
+                                "llama-1b4", "adam8bit_train", ADAM8BIT_CONFIG,
+                                peaks),
+            "lamb_train": c("lamb_train", phase_train, torch, dev, "llama-1b4",
+                            "lamb_train", LAMB_CONFIG, peaks),
+            "bloom_train": c("bloom_train", phase_train, torch, dev, "bloom-1b7",
+                             "bloom_train", peaks=peaks),
+            "mixtral_train": c("mixtral_train", phase_train, torch, dev,
+                               "mixtral-8x7b", "mixtral_train", peaks=peaks),
+            "dropout_train": c("dropout_train", phase_train, torch, dev,
+                               "llama-1b4", "dropout_train", peaks=peaks,
+                               medians=medians,
+                               model_over={"dropout": DROPOUT_RATE}),
+            # before the phases that pin host memory: the host memory that
+            # a pinned buffer held comes back to MemAvailable only slowly
+            "zero_offload_train": c("zero_offload_train", phase_zero_offload_train,
+                                    torch, dev, peaks, medians),
+            "offload_train": c(
+                "offload_train", phase_train, torch, dev, "llama-1b4",
+                "offload_train",
                 {"activation_checkpointing": {"cpu_checkpointing": True}},
                 peaks, medians),
-            **phase_optimizer_legs(torch, dev, peaks, medians)}
-    check_offload_grads(torch, dev)
+            **c("optimizer_legs", phase_optimizer_legs, torch, dev, peaks, medians),
+            "zero_offload_nvme": c("zero_offload_nvme", phase_zero_offload_nvme,
+                                   torch, dev),
+            "bloom_fp16_offload_train": c("bloom_fp16_offload",
+                                          phase_bloom_fp16_offload, torch, dev,
+                                          peaks, medians)}
+    c("offload_grads", check_offload_grads, torch, dev)
+    print(f"chip_smoke: phase seconds {json.dumps({k: round(v, 1) for k, v in spent.items()})}")
     ident = gpu_identity()
     src = "deepspeed_tpu_torch/csrc/decode.cu"
     fa_src = "deepspeed_tpu_torch/csrc/flash_attention.cu"
@@ -5524,9 +5940,9 @@ def main() -> int:
         ("flash_attention_bwd_f16", "cuda", fa_src, "flash_attention.py:283",
          "_flash_bwd (float16, pallas_call :301 and :319)", "fp16_train"),
         ("flash_attention_fwd_f16_alibi", "cuda", fa_src, "flash_attention.py:149",
-         "_flash_fwd (float16, alibi=True)", "ops"),
+         "_flash_fwd (float16, alibi=True)", "bloom_fp16_offload_train"),
         ("flash_attention_bwd_f16_alibi", "cuda", fa_src, "flash_attention.py:283",
-         "_flash_bwd (float16, alibi=True)", "ops"),
+         "_flash_bwd (float16, alibi=True)", "bloom_fp16_offload_train"),
         ("fused_adam_f16", "cuda", "deepspeed_tpu_torch/csrc/fused_adam.cu",
          "fused_adam.py:53", "fused_adam_update (float16 params, pallas_call "
          ":103)", "ops"),

@@ -26,7 +26,9 @@ gradient accumulation, clipping, FusedAdam, Adam8bit, FusedLamb, Lion,
 Adagrad, SGD, Muon or a client optimizer; or master-free bf16 with
 Adam8bit's stochastic rounding; dropout drawn from JAX's own threefry
 stream; every remat policy, ``cpu_checkpointing`` keeping the saved matmul
-outputs in pinned host memory), with RMSNorm and
+outputs in pinned host memory; ``zero_optimization.offload_optimizer``
+keeping the fp32 masters and moments in host memory or on NVMe, stepped by
+the host C++ Adam, Adagrad or Lion), with RMSNorm and
 RoPE forward and backward, flash attention forward and backward (with
 ALiBi for BLOOM) and the
 fused Adam, Adam8bit and LAMB updates and dropout as hand-written
@@ -62,7 +64,9 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     tensors at the micro batch) is None without ``training_data``.  ``model`` is a
     :class:`~deepspeed_tpu_torch.models.transformer.CausalLM` whose
     parameters become the masters (fp32, or bf16 under
-    ``bf16.master_weights: false``); ``model_parameters`` (a nested
+    ``bf16.master_weights: false``; under ``offload_optimizer`` the fp32
+    masters go to the host and the card keeps the compute dtype);
+    ``model_parameters`` (a nested
     dict of tensors or numpy arrays in the JAX layout) replaces their
     values.  ``device=None`` is the CUDA card.  ``seed`` seeds torch's
     generators (default: the config's ``seed``); dropout draws from the

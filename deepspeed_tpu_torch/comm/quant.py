@@ -1,0 +1,49 @@
+"""Blockwise int8 codec on the host (the numpy twins of
+``deepspeed_tpu/comm/quant.py``, copied unchanged in their math).
+
+``offload_optimizer.int8_masters`` keeps the host masters and moments as
+(q int8 [nb, block], scale fp32 [nb, 1]): one absmax scale a block, codes
+``rint(x / scale)``.  A second moment is coded in sqrt space (``sqrt_space``):
+the sqrt halves the dynamic range a 127-level code must span.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+
+DEFAULT_BLOCK = 256
+
+
+def quantize_blockwise_np(arr: np.ndarray, block: int = DEFAULT_BLOCK,
+                          sqrt_space: bool = False
+                          ) -> Tuple[np.ndarray, np.ndarray]:
+    """Flat fp array -> (q int8 [nb, block], scale fp32 [nb, 1])."""
+    flat = np.asarray(arr, np.float32).reshape(-1)
+    if sqrt_space:
+        flat = np.sqrt(flat)
+    n = flat.size
+    nb = -(-n // block)
+    pad = nb * block - n
+    if pad:
+        flat = np.concatenate([flat, np.zeros(pad, np.float32)])
+    blocks = flat.reshape(nb, block)
+    absmax = np.abs(blocks).max(axis=1, keepdims=True)
+    scale = (absmax / 127.0).astype(np.float32)
+    inv = np.where(scale > 0, 1.0 / np.where(scale > 0, scale, 1.0), 0.0)
+    q = np.rint(blocks * inv).astype(np.int8)
+    return q, scale
+
+
+def dequantize_blockwise_np(q: np.ndarray, scale: np.ndarray, n: int,
+                            sqrt_space: bool = False,
+                            out: np.ndarray = None) -> np.ndarray:
+    """(q, scale) -> flat fp32 [n] (into ``out`` when given)."""
+    flat = (q.astype(np.float32) * scale).reshape(-1)[:n]
+    if sqrt_space:
+        flat = flat * flat
+    if out is not None:
+        out[:] = flat
+        return out
+    return flat

@@ -310,7 +310,7 @@ class CausalLM(_ParamTree):
         if self.config.param_offload:
             raise NotImplementedError(
                 "training with param_offload is not ported yet (ROADMAP.md "
-                "queue 1 item 2e: offload)")
+                "queue 1 item 2e: offload_param streaming)")
 
     def _drop(self, x, key):
         """JAX ``_dropout`` at the model's rate; nothing without a key."""

@@ -7,11 +7,14 @@ training path reads: the batch triad and its checks, ``bf16`` (with
 compute over fp32 masters with a static or dynamic loss scale),
 ``optimizer``, ``scheduler``, ``gradient_clipping``,
 ``data_types.grad_accum_dtype``, ``activation_checkpointing``, ``seed``,
-``steps_per_print`` and ``checkpoint`` (verified loads, elastic resume,
-retention; ``preemption_save`` is refused).  The sections the port does not carry yet raise
-``NotImplementedError`` naming ROADMAP.md when they ask for something:
-ZeRO stages 1-3, offload of the optimizer state and of the parameters,
-quantized communication,
+``steps_per_print``, ``checkpoint`` (verified loads, elastic resume,
+retention; ``preemption_save`` is refused), ``zero_optimization.
+offload_optimizer`` (ZeRO-Offload of the optimizer state to host memory or
+NVMe, at stage 0; the deprecated ``cpu_offload: true`` spelling too) and
+``aio`` (the NVMe swapper's I/O handle).  The sections the port does not
+carry yet raise ``NotImplementedError`` naming ROADMAP.md when they ask for
+something: ZeRO stages 1-3, ``offload_param`` streaming, quantized
+communication,
 pipeline, tensor, sequence and expert parallelism.  Observability sections
 (profilers, monitors, flight recorder, goodput, watchdog, anomaly
 detection) are accepted only while disabled.  ``world_size`` is 1: the
@@ -59,6 +62,53 @@ class OptimizerConfig(DeepSpeedConfigModel):
 class SchedulerConfig(DeepSpeedConfigModel):
     type: Optional[str] = None
     params: Dict[str, Any] = Field(default_factory=dict)
+
+
+class OffloadOptimizerConfig(DeepSpeedConfigModel):
+    """``zero_optimization.offload_optimizer`` (the JAX package's
+    ``DeepSpeedZeroOffloadOptimizerConfig``).  ``buffer_count``,
+    ``pin_memory``, ``fast_init`` and ``ratio`` are accepted and without
+    effect there as here."""
+
+    device: str = "none"            # none | cpu | nvme
+    nvme_path: Optional[str] = None
+    buffer_count: int = 4
+    pin_memory: bool = False
+    # the NVMe swapper reads one leaf ahead and writes back asynchronously
+    # unless these are turned off
+    pipeline_read: bool = True
+    pipeline_write: bool = True
+    fast_init: bool = False
+    ratio: float = 1.0
+    # host masters and moments as blockwise int8 (cpu backend), shipped
+    # H2D as codes and scales and dequantized on the card
+    int8_masters: bool = False
+    quant_block: int = 256
+
+
+class ZeroConfig(DeepSpeedConfigModel):
+    """The ``zero_optimization`` keys the port reads: the stage (0 only)
+    and the offload of the optimizer state; the others are accepted."""
+
+    stage: int = 0
+    offload_optimizer: Optional[OffloadOptimizerConfig] = None
+    cpu_offload: Optional[bool] = None  # deprecated spelling
+
+    def model_post_init(self, __context: Any) -> None:
+        super().model_post_init(__context)
+        if self.cpu_offload and self.offload_optimizer is None:
+            object.__setattr__(self, "offload_optimizer",
+                               OffloadOptimizerConfig(device="cpu"))
+
+
+class AIOConfig(DeepSpeedConfigModel):
+    """``aio``: the NVMe swapper's I/O handle."""
+
+    block_size: int = 1_048_576
+    queue_depth: int = 8
+    thread_count: int = 1
+    single_submit: bool = False
+    overlap_events: bool = True
 
 
 class DataTypesConfig(DeepSpeedConfigModel):
@@ -212,6 +262,11 @@ class DeepSpeedConfig:
         self.activation_checkpointing = ActivationCheckpointingConfig(
             **d.get("activation_checkpointing", {}))
         self.checkpoint_config = CheckpointConfig(**d.get("checkpoint", {}))
+        self.zero_config = ZeroConfig(**{k: v for k, v in
+                                         (d.get("zero_optimization") or {}).items()
+                                         if k in ("stage", "offload_optimizer",
+                                                  "cpu_offload")})
+        self.aio = AIOConfig(**d.get("aio", {}))
         self._validate()
 
     @staticmethod
@@ -220,11 +275,10 @@ class DeepSpeedConfig:
         if int(zero.get("stage", 0) or 0) >= 1:
             raise _not_ported(f"zero_optimization.stage {zero['stage']}",
                               "ZeRO 1-3 over torch.distributed")
-        for key in ("offload_optimizer", "offload_param"):
-            dev = (zero.get(key) or {}).get("device", "none")
-            if dev not in (None, "none"):
-                raise _not_ported(f"zero_optimization.{key}", "item 2e, "
-                                  "offload")
+        dev = (zero.get("offload_param") or {}).get("device", "none")
+        if dev not in (None, "none") or zero.get("cpu_offload_params"):
+            raise _not_ported("zero_optimization.offload_param", "item 2e, "
+                              "offload_param streaming")
         cq = d.get("comm_quantization") or {}
         if any(v is True for v in cq.values()):
             raise _not_ported("comm_quantization", "ZeRO 1-3 over torch.distributed")
@@ -277,7 +331,19 @@ class DeepSpeedConfig:
         name = self.data_types.grad_accum_dtype
         return torch.float32 if name is None else _DTYPES[name.lower()]
 
+    @property
+    def offload_device(self) -> str:
+        """Where the optimizer state lives: "none", "cpu" or "nvme"."""
+        off = self.zero_config.offload_optimizer
+        return off.device if off is not None else "none"
+
     def _validate(self) -> None:
+        if self.offload_device not in ("none", "cpu", "nvme"):
+            raise ValueError(f"zero_optimization.offload_optimizer.device "
+                             f"{self.offload_device!r}: none, cpu or nvme")
+        if self.offload_device == "nvme" and not self.zero_config.offload_optimizer.nvme_path:
+            raise ValueError("zero_optimization.offload_optimizer.device nvme "
+                             "needs nvme_path")
         if self.fp16.enabled and self.bf16.enabled:
             raise ValueError("fp16 and bf16 cannot both be enabled")
         ga = self.data_types.grad_accum_dtype

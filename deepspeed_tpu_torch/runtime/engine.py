@@ -55,10 +55,27 @@ the newest valid tag, and the masters, accumulator, counters, optimizer
 state (in the JAX optimizer's layout), loss scaler, LR schedule and
 dataloader position, so a tag either package writes resumes in the other.
 
-Not ported yet (ROADMAP.md queue 1): ZeRO, offload of the optimizer state
-and of the parameters (and a tag's ``offload_states``), the legacy msgpack
-checkpoint layout, telemetry, goodput, watchdog, anomaly handling, overlap
-and the 1-bit optimizers.
+ZeRO-Offload (``zero_optimization.offload_optimizer``, device ``cpu`` or
+``nvme``; the JAX engine's ``_step_offload``): the card keeps the params
+in the compute dtype (``self.master``, one copy; no fp32 master, no
+moment) and the accumulator; the fp32 masters and moments live in host
+memory or NVMe in :class:`~deepspeed_tpu_torch.runtime.zero.offload.
+OffloadedOptimizer` (``self.optimizer``), stepped by the host C++ Adam,
+Adagrad or Lion.  ``apply`` then: the overflow flag under fp16, unscale,
+clip, the cast of the grads to bf16 when the compute dtype is bf16, every
+leaf's D2H in flight at once (:mod:`~deepspeed_tpu_torch.runtime.zero.
+relay`), the host step leaf by leaf while the next leaf's copy lands
+(``ds_adam_step_bf16g`` for bf16 Adam, the fp32 step and a cast to the
+compute dtype otherwise), each leaf's new params H2D without blocking;
+then the scaler, the zeroed accumulator and ``global_steps``.
+:meth:`DeepSpeedEngine.train_step` runs ``forward`` gas times and ``step``
+there, as the JAX engine does (the dropout keys split a micro-batch at a
+time).  A tag saved under offload holds ``offload_states/`` (the JAX
+layout) and compute-dtype params in ``model_states``.
+
+Not ported yet (ROADMAP.md queue 1): ZeRO 1-3, ``offload_param``
+streaming, the legacy msgpack checkpoint layout, telemetry, goodput,
+watchdog, anomaly handling, overlap and the 1-bit optimizers.
 """
 
 from __future__ import annotations
@@ -67,12 +84,14 @@ import json
 import logging
 import os
 import shutil
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from deepspeed_tpu_torch.accelerator.real_accelerator import DeviceLike, resolve_device
+from deepspeed_tpu_torch.ops.optax_states import EMPTY
 from deepspeed_tpu_torch.runtime import optimizer as opt_builder
 from deepspeed_tpu_torch.runtime.checkpoint_engine import (ShardedCheckpointEngine,
                                                            atomic,
@@ -86,6 +105,8 @@ from deepspeed_tpu_torch.runtime.fp16 import loss_scaler as scaler_lib
 from deepspeed_tpu_torch.runtime.lr_schedules import LRSchedulerShim, get_lr_schedule
 from deepspeed_tpu_torch.runtime.utils import (clip_grad_norm_, global_norm,
                                                has_overflow)
+from deepspeed_tpu_torch.runtime.zero.offload import OffloadedOptimizer
+from deepspeed_tpu_torch.runtime.zero.relay import OffloadRelay
 from deepspeed_tpu_torch.utils import prng
 
 logger = logging.getLogger(__name__)
@@ -141,12 +162,25 @@ class DeepSpeedEngine:
         self._last_overflow = False
         self._scale_dev: Optional[torch.Tensor] = None   # the scale on device
         self._scale_host = 0.0                            # and its value
+        self._offload_device = self.config.offload_device
+        self._offload = self._offload_device in ("cpu", "nvme")
+        self._offload_opt: Optional[OffloadedOptimizer] = None
+        self._relay: Optional[OffloadRelay] = None
+        self._offload_split: Dict[str, float] = {}
+        if self._offload:
+            # the card keeps ONE compute-dtype copy; the fp32 masters go to
+            # the host optimizer
+            self.master_dtype = self.compute_dtype
 
         # masters: the model's own parameters, on the engine's device
+        # (under offload: their values go to the host optimizer first, and
+        # the card keeps them in the compute dtype)
         self._paths: List[str] = []
         self.master: List[torch.Tensor] = []
+        values: List[torch.Tensor] = []
         given = dict(_flatten(model_parameters)) if model_parameters is not None else {}
         for path, p in _flatten(model.params()):
+            val = p.data
             if given:
                 if path not in given:
                     raise ValueError(f"model_parameters has no leaf {path}")
@@ -155,13 +189,22 @@ class DeepSpeedEngine:
                 if tuple(src.shape) != tuple(p.shape):
                     raise ValueError(f"model_parameters {path}: shape "
                                      f"{tuple(src.shape)} != {tuple(p.shape)}")
-                p.data = src.to(self.device, self.master_dtype).clone()
-            elif p.device != self.device or p.dtype != self.master_dtype:
+                val = src
+                if not self._offload:
+                    p.data = src.to(self.device, self.master_dtype).clone()
+            elif not self._offload and (p.device != self.device
+                                        or p.dtype != self.master_dtype):
                 p.data = p.data.to(self.device, self.master_dtype)
             self._paths.append(path)
-            self.master.append(p.data)
+            values.append(val)
         if given:
             raise ValueError(f"model_parameters has extra leaves {sorted(given)}")
+        if self._offload:
+            self._build_offload_optimizer(values)
+            for (path, p), val in zip(_flatten(model.params()), values):
+                p.data = val.to(self.device, self.compute_dtype, copy=True)
+        del values
+        self.master = [p.data for _, p in _flatten(model.params())]
         self.grad_acc = [torch.zeros_like(p, dtype=self.grad_accum_dtype)
                          for p in self.master]
         self._stacked = [p.dim() > 0 and path.startswith("layers.")
@@ -174,7 +217,14 @@ class DeepSpeedEngine:
             self._lr_schedule = get_lr_schedule(self.config.scheduler.type,
                                                 self.config.scheduler.params)
         self.client_optimizer = optimizer
-        if optimizer is None:
+        if self._offload:
+            if optimizer is not None:
+                logger.warning(
+                    "offload_optimizer is enabled: the supplied client "
+                    "optimizer (%s) is ignored; states will be stepped by "
+                    "DeepSpeedCPUAdam on the host", type(optimizer).__name__)
+            self.optimizer = self._offload_opt
+        elif optimizer is None:
             names = [keystr(tuple(DictKey(k) for k in path.split(".")))
                      for path in self._paths]
             self.optimizer = opt_builder.build_from_config(
@@ -183,7 +233,7 @@ class DeepSpeedEngine:
             self.optimizer = optimizer
         else:
             self.optimizer = optimizer(self.master)
-        if (self.master_dtype != torch.float32
+        if (self.master_dtype != torch.float32 and not self._offload
                 and not getattr(self.optimizer, "updates_are_new_params", False)):
             logger.warning(
                 "bf16.master_weights=false with optimizer %s: plain "
@@ -230,6 +280,44 @@ class DeepSpeedEngine:
                     "policy", ac.policy)
             mcfg.remat_policy = ("offload_dots" if ac.cpu_checkpointing
                                  else ac.policy)
+
+    def _build_offload_optimizer(self, values: List[torch.Tensor]) -> None:
+        """The host optimizer over the masters' values (the JAX engine's
+        ``_build_offload_optimizer`` and its choice of family: Adagrad and
+        Lion types step on their host steppers, every other type on
+        DeepSpeedCPUAdam, with a warning unless it is an Adam)."""
+        opt = self.config.optimizer
+        name = (opt.type if opt else "AdamW").lower().replace("_", "").replace("-", "")
+        if "adagrad" in name:
+            opt_type = "adagrad"
+        elif "lion" in name:
+            opt_type = "lion"
+        else:
+            opt_type = "adam"
+            if "adam" not in name:
+                logger.warning(
+                    "offload_optimizer supports the Adam/Adagrad/Lion "
+                    "families; %s config will be stepped by "
+                    "DeepSpeedCPUAdam", name)
+        p = dict(opt.params) if opt else {}
+        off = self.config.zero_config.offload_optimizer
+        self._offload_opt = OffloadedOptimizer(
+            self._nest(values), backend=self._offload_device,
+            lr=p.get("lr", 1e-3), betas=tuple(p.get("betas", (0.9, 0.999))),
+            eps=p.get("eps", 1e-8), weight_decay=p.get("weight_decay", 0.0),
+            adamw_mode=p.get("adam_w_mode", p.get("adamw_mode", True)),
+            swap_dir=off.nvme_path, aio_config=self.config.aio,
+            pipeline=off.pipeline_read, pipeline_write=off.pipeline_write,
+            opt_type=opt_type,
+            int8_masters=bool(off.int8_masters and self._offload_device == "cpu"),
+            quant_block=int(off.quant_block))
+        # the engine's list index of each host leaf: the host optimizer
+        # numbers leaves in the JAX tree's order of the nested params, as
+        # the checkpoint code reads them
+        self._offload_order = [j for _, j in tree_flatten_with_path(
+            self._nest(list(range(len(values)))))]
+        self._offload_bf16g = (opt_type == "adam" and not off.int8_masters
+                               and self.compute_dtype == torch.bfloat16)
 
     def _compute_params(self) -> Dict[str, Any]:
         """The grad-carrying compute copy as the model's nested dict; a
@@ -312,6 +400,8 @@ class DeepSpeedEngine:
         return self._scale_dev
 
     def _apply(self) -> torch.Tensor:
+        if self._offload:
+            return self._step_offload()
         clip = self.config.gradient_clipping
         if self.fp16_enabled:
             overflow = has_overflow(self.grad_acc)
@@ -339,6 +429,94 @@ class DeepSpeedEngine:
         for acc in self.grad_acc:
             acc.zero_()
         return gnorm
+
+    @torch.no_grad()
+    def _step_offload(self) -> torch.Tensor:
+        """One optimizer step with host-resident states (the JAX engine's
+        ``offload_prep``, ``_step_offload`` and ``offload_commit``): unscale
+        under fp16, the overflow flag, clip, the grads cast to bf16 when
+        the compute dtype is bf16 (so the host sees bf16-rounded grads);
+        unless the step is skipped, every D2H in flight, the host step leaf
+        by leaf, each leaf's params H2D; then the scaler, the zeroed
+        accumulator and ``global_steps`` (only for an applied step)."""
+        t0 = time.perf_counter()
+        clip = self.config.gradient_clipping
+        grads = self.grad_acc
+        if self.fp16_enabled:
+            overflow = has_overflow(grads)
+            torch._foreach_div_(grads, self._device_scale())
+        gnorm = clip_grad_norm_(grads, clip) if clip > 0 else global_norm(grads)
+        skip = self.fp16_enabled and bool(overflow)   # the host reads it anyway
+        self._last_overflow = skip
+        split = {"prep_s": time.perf_counter() - t0}
+        if not skip:
+            opt = self._offload_opt
+            order = self._offload_order
+            send = [grads[j] for j in order]
+            if self.compute_dtype == torch.bfloat16:
+                send = [g if g.dtype == torch.bfloat16 else g.to(torch.bfloat16)
+                        for g in send]
+            if self._relay is None:
+                self._relay = OffloadRelay([g.numel() for g in send], send[0].dtype,
+                                           self.compute_dtype, self.device)
+            relay = self._relay
+            relay.grads_to_host(send)
+            del send
+            opt.begin_step(lr=self.get_lr()[0])
+            t1 = time.perf_counter()
+            for i, j in enumerate(order):
+                g = relay.grad(i)
+                if opt.int8_masters:
+                    # the int8 relay: the codes and scales cross H2D and are
+                    # dequantized on the card
+                    opt.step_leaf(i, g.float(), return_master=False)
+                    q, sc = opt.relay_leaf(i)
+                    qd = torch.from_numpy(q).to(self.device)
+                    sd = torch.from_numpy(sc).to(self.device)
+                    deq = (qd.to(torch.float32) * sd).reshape(-1)[:g.numel()]
+                    self.master[j].view(-1).copy_(deq)
+                    continue
+                out = relay.out_buffer(i)
+                if self._offload_bf16g:
+                    opt.step_leaf_bf16(i, g, out)
+                else:
+                    out.copy_(opt.step_leaf(i, g.float()))
+                relay.params_to_device(i, out, self.master[j])
+            opt.end_step()
+            relay.finish()
+            split.update(relay.last)
+            split["host_loop_s"] = time.perf_counter() - t1
+            self.global_steps += 1
+        if self.fp16_enabled:
+            fp16 = self.config.fp16
+            self._scaler = scaler_lib.update(
+                self._scaler, skip, dynamic=fp16.dynamic_loss_scale,
+                loss_scale_window=fp16.loss_scale_window,
+                min_loss_scale=fp16.min_loss_scale, hysteresis=fp16.hysteresis)
+        for acc in self.grad_acc:
+            acc.zero_()
+        split["step_s"] = time.perf_counter() - t0
+        self._offload_split = split
+        return gnorm
+
+    def offload_split(self) -> Dict[str, float]:
+        """The last offload step's parts, in ms: ``prep`` (unscale, clip,
+        cast, on the host's clock), ``d2h_wait`` (the host blocked on the
+        grads' copies), ``h2d_issue`` and ``h2d_wait`` (issuing the params'
+        copies, waiting for a staging buffer), ``host_step`` (the host loop
+        less those), ``step`` (the whole apply) and, on the card, the
+        device spans ``d2h`` and ``h2d`` (first copy to last).  Synchronizes
+        the card."""
+        s = self._offload_split
+        out = {k[:-2]: 1e3 * v for k, v in s.items()}
+        if "host_loop_s" in s:
+            out["host_step"] = 1e3 * (s["host_loop_s"] - s.get("d2h_wait_s", 0.0)
+                                      - s.get("h2d_issue_s", 0.0)
+                                      - s.get("h2d_wait_s", 0.0))
+            del out["host_loop"]
+        if self._relay is not None:
+            out.update(self._relay.device_ms())
+        return out
 
     def _step_client(self) -> None:
         """Step a client optimizer: each of its parameters that shares a
@@ -436,6 +614,14 @@ class DeepSpeedEngine:
         else:
             stacked = stack(batch)
             micro = [stacked[i] for i in range(gas)]
+        if self._offload:
+            # the JAX engine's offload path: the host step cannot live in
+            # its fused program, so it runs forward gas times, then step
+            losses = [self.forward(b) for b in micro]
+            self.step()
+            loss = torch.stack([x.float() for x in losses]).mean()
+            self._last_loss = loss
+            return loss
         self._rng, rng = prng.split(self._rng)
         keys = prng.split(rng, gas)
         losses = [self._accum(self._to_device(b), k) for b, k in zip(micro, keys)]
@@ -501,7 +687,13 @@ class DeepSpeedEngine:
     def _optim_payload(self) -> Dict[str, Any]:
         """``optim_states`` as the JAX engine writes it: the optimizer's
         state in the JAX optimizer's layout, the accumulator, the step
-        count and the loss scaler's four scalars."""
+        count and the loss scaler's four scalars.  Under offload the
+        optimizer state is in ``offload_states/`` and ``opt_state`` is
+        optax.identity's empty state, as the JAX engine saves it."""
+        if self._offload:
+            return {"opt_state": EMPTY, "grad_acc": self._nest(self.grad_acc),
+                    "global_steps": torch.tensor(self.global_steps, dtype=torch.int32),
+                    "scaler": scaler_lib.to_leaves(self._scaler)}
         if not hasattr(self.optimizer, "jax_state"):
             raise NotImplementedError(
                 f"the client optimizer {type(self.optimizer).__name__} has "
@@ -555,6 +747,10 @@ class DeepSpeedEngine:
                                     os.path.join(stage_dir, "model_states"))
         self.checkpoint_engine.save(self._optim_payload(),
                                     os.path.join(stage_dir, "optim_states"))
+        if self._offload:
+            # the host fp32 masters and moments, one leaf at a time, inside
+            # the stage so that the manifest covers them
+            self._offload_opt.write_state(os.path.join(stage_dir, "offload_states"))
         # the batch triad rides along so a resume at another data-parallel
         # size can keep the recorded global batch (_maybe_elastic_rescale)
         meta = {"client_state": client_state,
@@ -713,11 +909,25 @@ class DeepSpeedEngine:
             with open(meta_path) as fh:
                 meta = json.load(fh)
         load_optim = not load_module_only and load_optimizer_states
-        if load_optim and os.path.isdir(os.path.join(ckpt_dir, "offload_states")):
-            raise NotImplementedError(
-                f"{ckpt_dir} keeps its optimizer state in offload_states: "
-                "offload is not ported yet (ROADMAP.md queue 1 item 2e)")
+        offload_dir = os.path.join(ckpt_dir, "offload_states")
+        tag_offload = os.path.isdir(offload_dir)
+        if load_optim and tag_offload != self._offload:
+            where = ("is host offload state (offload_states/, saved with "
+                     "zero_optimization.offload_optimizer), and this engine "
+                     "keeps its optimizer state on the device"
+                     if tag_offload else
+                     "is device optimizer state (no offload_states/), and "
+                     "this engine offloads its optimizer state")
+            raise ValueError(f"{ckpt_dir}: the tag's optimizer state {where}; "
+                             "load it with the offload setting it was saved "
+                             "with, or with load_optimizer_states=False")
         self._load_into(model_dir, self._nest(self.master))
+        if self._offload and not load_optim:
+            # the loaded params become the host masters too (the moments
+            # stay), so the next step does not write stale masters back
+            self._offload_masters_from(model_dir)
+        if load_optim and self._offload:
+            self._offload_opt.read_state(offload_dir)
         if load_optim:
             payload = self._optim_payload()
             self._load_into(os.path.join(ckpt_dir, "optim_states"), payload)
@@ -737,6 +947,16 @@ class DeepSpeedEngine:
         self._restore_client_runtime(meta)
         logger.info("loaded checkpoint %s", ckpt_dir)
         return ckpt_dir, meta.get("client_state", {})
+
+    def _offload_masters_from(self, model_dir: str) -> None:
+        """Set the host masters from a tag's params (read at their saved
+        precision), leaf by leaf in the host optimizer's order."""
+        index = self.checkpoint_engine.read_index(model_dir)
+        keys = [keystr(kp) for kp, _ in tree_flatten_with_path(self._nest(self.master))]
+        # tree order is the host optimizer's leaf order
+        for i in range(len(keys)):
+            saved = self.checkpoint_engine.read_leaf(model_dir, index[keys[i]])
+            self._offload_opt.set_master(i, saved)
 
     def _load_legacy_checkpoint(self, ckpt_dir: str):
         """The JAX engine also reads its pre-sharded layout

@@ -1,0 +1,3 @@
+"""ZeRO of the port (counterpart of ``deepspeed_tpu/runtime/zero``): so far
+the offload of the optimizer state (:mod:`.offload`) and its relay
+(:mod:`.relay`); stages 1-3 over torch.distributed come later."""

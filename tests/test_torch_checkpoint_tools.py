@@ -344,7 +344,7 @@ def test_offload_and_legacy_tags_are_refused(factory, tags, tmp_path):
     shutil.copytree(tags["port"], d)
     tag = atomic.read_latest(d)
     os.makedirs(os.path.join(d, tag, "offload_states"))
-    with pytest.raises(NotImplementedError, match="2e"):
+    with pytest.raises(ValueError, match="host offload state"):
         factory["port"](dict(CFG, checkpoint={"verify_on_load": False})
                         ).load_checkpoint(d)
     legacy = str(tmp_path / "legacy")

@@ -3055,3 +3055,104 @@ def test_new_optimizers_train_on_card_like_cpu(cuda_device, opt, params):
             assert float((d > 1e-4).float().mean()) <= 1e-3
         else:
             torch.testing.assert_close(b, a, rtol=0, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-Offload of the optimizer state: the relay and the offloading engine
+# ---------------------------------------------------------------------------
+
+def test_offload_relay_reuses_pinned_staging_only_after_its_copy_landed(cuda_device):
+    """Eight 64 MiB leaves through a pool of two pinned H2D buffers: each
+    buffer is handed out again only once the copy that last read it has
+    landed (its event has fired), and every leaf arrives on the card with
+    the bytes written for it, though the host fills the next buffer at
+    once.  The D2H staging is pinned too, and each grad arrives whole."""
+    from deepspeed_tpu_torch.runtime.zero.relay import OffloadRelay
+
+    n, leaves = 1 << 24, 8
+    relay = OffloadRelay([n] * leaves, torch.float32, torch.float32, cuda_device)
+    grads = [torch.full((n,), float(i), device=cuda_device) for i in range(leaves)]
+    dst = [torch.empty(n, device=cuda_device) for _ in range(leaves)]
+    relay.grads_to_host(grads)
+    for i in range(leaves):
+        g = relay.grad(i)
+        assert g.is_pinned() and bool((g == i).all())
+        out = relay.out_buffer(i)
+        assert out.is_pinned()
+        out.fill_(float(100 + i))
+        relay.params_to_device(i, out, dst[i])
+    relay.finish()
+    torch.cuda.synchronize()
+    assert len(relay.reuse_log) == leaves - 2
+    assert [(slot, last) for slot, last, _, _ in relay.reuse_log] == [
+        (i % 2, i - 2) for i in range(2, leaves)]
+    assert all(after for *_, after in relay.reuse_log)
+    for i in range(leaves):
+        assert bool((dst[i] == 100 + i).all()), i
+    ms = relay.device_ms()
+    assert ms["d2h_ms"] > 0 and ms["h2d_ms"] > 0
+
+
+@pytest.mark.parametrize("section", [
+    {"bf16": {"enabled": False}},
+    {"bf16": {"enabled": True}},
+    {"bf16": {"enabled": False}, "backend": "nvme"}])
+def test_offload_step_on_card_equals_the_cpu_port(cuda_device, section, tmp_path):
+    """llama-tiny with ``offload_optimizer`` on the card and on the CPU:
+    fp32 three steps within the train gates' bounds (losses rtol 1e-4, host
+    masters atol 1e-4), bf16 two steps (WarmupLR's first lr is 0) within
+    the bf16 bounds (loss 1e-3, host masters 1e-2), the nvme backend as the
+    cpu one; the engine adds to the card only the compute-dtype params and
+    the accumulator."""
+    import gc
+
+    import deepspeed_tpu_torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    section = dict(section)
+    backend = section.pop("backend", "cpu")
+    off = {"device": backend}
+    if backend == "nvme":
+        off["nvme_path"] = str(tmp_path / "swap")
+    cfg = {"train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 2,
+           "optimizer": {"type": "AdamW", "params": {
+               "lr": 3e-4, "betas": [0.9, 0.95], "weight_decay": 0.1}},
+           "scheduler": {"type": "WarmupLR", "params": {
+               "warmup_max_lr": 3e-4, "warmup_num_steps": 2}},
+           "gradient_clipping": 1.0,
+           "zero_optimization": {"stage": 0, "offload_optimizer": off}, **section}
+    bf16 = cfg["bf16"]["enabled"]
+    steps = 2 if bf16 else 3
+    tok = np.random.default_rng(0).integers(0, 32000, (4, 96))
+    runs = []
+    # cuBLAS's workspaces and the kernels' cached scratch are made at their
+    # first use and kept: one step of an engine without offload makes them
+    # before the count, so that the count sees the offloading engine alone
+    plain = {k: v for k, v in cfg.items() if k != "zero_optimization"}
+    warm, *_ = deepspeed_tpu_torch.initialize(
+        model=deepspeed_tpu_torch.causal_lm("llama-tiny", device="cpu"),
+        config=plain, device=cuda_device)
+    warm.train_step((tok, tok))
+    del warm
+    for dev in ("cpu", cuda_device):
+        gc.collect()
+        before = torch.cuda.memory_allocated(cuda_device)
+        model = deepspeed_tpu_torch.causal_lm("llama-tiny", device="cpu")
+        engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=cfg,
+                                                    device=dev)
+        losses = [float(engine.train_step((tok, tok))) for _ in range(steps)]
+        runs.append((losses, [m.clone() for m in engine._offload_opt.masters()]))
+        if dev != "cpu":
+            held = sum(t.numel() * t.element_size()
+                       for t in engine.master + engine.grad_acc)
+            # the fp32 masters alone would be 2 (bf16) or 1 (fp32) times
+            # the params' bytes more; a few MiB of small tensors (the loss,
+            # the scale, the norm) may stay
+            assert torch.cuda.memory_allocated(cuda_device) - before <= held + (8 << 20)
+            assert all(p.is_cuda and p.dtype == engine.compute_dtype
+                       for p in engine.master)
+            assert all(not m.is_cuda for m in runs[-1][1])
+    (lc, pc), (lg, pg) = runs
+    np.testing.assert_allclose(lg, lc, rtol=1e-3 if bf16 else 1e-4)
+    for a, b in zip(pc, pg):
+        torch.testing.assert_close(b, a, rtol=0, atol=1e-2 if bf16 else 1e-4)

@@ -68,6 +68,17 @@ def test_import_rule_covers_the_dropout_and_optimizer_modules(part):
     assert ROOT / "deepspeed_tpu_torch" / part in PORT_FILES
 
 
+@pytest.mark.parametrize("part", [
+    "ops/op_builder/native.py", "ops/adam/cpu_adam.py", "ops/aio/__init__.py",
+    "comm/quant.py", "runtime/swap_tensor/optimizer_swapper.py",
+    "runtime/zero/offload.py", "runtime/zero/relay.py"])
+def test_import_rule_covers_the_offload_modules(part):
+    """The host optimizer, its builder, the aio handle, the swapper, the
+    int8 host codec and the relay are the port's own copies: the import
+    rule above walks each of their files."""
+    assert ROOT / "deepspeed_tpu_torch" / part in PORT_FILES
+
+
 def test_import_leaves_jax_unloaded():
     code = ("import sys\n"
             "def jaxish():\n"
@@ -237,7 +248,7 @@ def test_initialize_without_a_card_raises(monkeypatch):
 
 @pytest.mark.parametrize("section", [
     {"zero_optimization": {"stage": 1}}, {"zero_optimization": {"stage": 3}},
-    {"zero_optimization": {"offload_optimizer": {"device": "cpu"}}},
+    {"zero_optimization": {"stage": 1, "offload_optimizer": {"device": "cpu"}}},
     {"comm_quantization": {"all_gather": True}},
     {"pipeline": {"stages": 2}}, {"mesh": {"tp": 2}},
     {"tensor_parallel": {"tp_size": 2}}, {"tensorboard": {"enabled": True}},
