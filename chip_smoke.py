@@ -240,6 +240,25 @@ Needs one CUDA card, nvcc and triton; imports nothing of JAX.  Phases
              step 4); ``bloom_fp16_offload_train`` (bloom-1b7 in fp16 with
              host Adam, beside device FusedAdam: the same skips, losses
              within 1e-3, the fp16 ALiBi flash kernels on a train path);
+             zero_offload_train cut to ZERO_OFFLOAD_TRAIN_LAYERS for the
+             smoke's time;
+   param_offload_* — ZeRO-Infinity (``offload_param`` + ``offload_optimizer``
+             cpu: params, grads and accumulators on the host too, one layer
+             at a time on the card): ``param_offload_reference`` (the
+             llama-tiny preset, 3 fp32 steps: card == CPU, prefetch off
+             bit-equal to on, ``int8_masters`` + ``int8_stream`` card ==
+             CPU with at least 1.3x fewer h2d bytes than a bf16 relay,
+             every slot reused after its readers' event, launches equal to
+             the streamed plan, the peak flat from 4 layers to
+             PARAM_OFFLOAD_DEEP_LAYERS);
+             ``param_offload_train`` (llama2-7b at full width as deep as
+             80 % of MemAvailable holds at 18 B a parameter, bf16 over host
+             AdamW, micro 2 x gas 2 x S 2048, 3 steps, run before the
+             phases that pin host memory: each step's split, h2d / d2h
+             bytes and their device copy time, prefetch hits, tokens/s,
+             MFU, the peak against the bf16 params and its parts; checks
+             the peak below the bf16 params, only the slots between steps,
+             launches equal to the streamed plan, losses falling);
    checkpoint — after the ``train`` phase, its cell again (llama-1b4 cut
              to CHECKPOINT_LAYERS, TRAIN_CONFIG, 5 steps), then ``save_checkpoint`` into a
              temporary directory (the free space printed first and
@@ -5167,10 +5186,10 @@ def manifest_bytes(ckpt_dir):
         return sum(f["nbytes"] for f in json.load(fh)["files"].values())
 
 
-# the checkpoint phase's depth: llama-1b4 cut from 24 to 4 layers to keep
-# the smoke in its time (the save and the verified load hash every byte on
-# one core: 158 s for the full-depth tags)
-CHECKPOINT_LAYERS = 4
+# the checkpoint phase's depth: llama-1b4 cut from 24 to 2 layers to keep
+# the smoke in its time (the save and the verified load hash
+# every byte on one core: 158 s for the full-depth tags)
+CHECKPOINT_LAYERS = 2
 
 
 def checkpoint_round(torch, dev, name, section, ident, infer=False):
@@ -5216,8 +5235,9 @@ def checkpoint_round(torch, dev, name, section, ident, infer=False):
         need = tag_bytes(engine)
         free = shutil.disk_usage(root).free
         print(f"{name}: tag {need / 1e9:.3f} GB ({len(engine.master)} masters "
-              f"{engine.master[0].dtype}, {type(engine.optimizer).__name__}); "
-              f"{free / 1e9:.3f} GB free in {root}")
+              f"{engine.master[0].dtype}, {type(engine.optimizer).__name__}; "
+              f"llama-1b4 cut to {CHECKPOINT_LAYERS} of its 24 layers for the "
+              f"smoke's 600 s aim); {free / 1e9:.3f} GB free in {root}")
         check(free >= 1.2 * need, f"{name}: {free / 1e9:.1f} GB free cannot "
               f"hold the {need / 1e9:.1f} GB tag with a 20 % margin")
         t = time.perf_counter()
@@ -5407,7 +5427,16 @@ ADAMW_SECTION = {"optimizer": dict(TRAIN_CONFIG["optimizer"], type="AdamW")}
 # bf16 grad staging; and what the bf16-grad Adam step moves (reads p, m, v
 # and a bf16 grad, writes p, m, v and a bf16 param)
 HOST_STATE_BYTES, GRAD_STAGE_BYTES, BF16G_STEP_BYTES = 12, 2, 28
-NVME_LAYERS = 4
+# zero_offload_nvme's depth: llama-1b4 cut to 1 layer for the smoke's
+# 600 s aim; its save and verified load hash every byte on one core
+NVME_LAYERS = 1
+# zero_offload_train's depth for the smoke's 600 s aim (host memory alone
+# allows ~25 of 32): param_offload_train carries llama2-7b and the host
+# AdamW at scale
+ZERO_OFFLOAD_TRAIN_LAYERS = 2
+# the bloom fp16 legs' applied steps, for the smoke's 600 s aim (the host
+# step of bloom-1b7 takes ~3.5 s)
+BLOOM_FP16_STEPS = 3
 NVME_AIO_THREADS = 4     # of the host's 8 cores; the aio section's default is 1
 
 
@@ -5420,6 +5449,15 @@ def host_memory():
             if key in ("MemTotal", "MemAvailable"):
                 vals[key] = int(val.split()[0]) * 1024
     return vals["MemTotal"], vals["MemAvailable"], os.cpu_count()
+
+
+def process_rss():
+    """This process's resident host memory in bytes (/proc/self/status)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    return 0
 
 
 def offload_host_bytes(preset, layers):
@@ -5497,10 +5535,10 @@ def phase_zero_offload_reference(torch, dev):
 def phase_zero_offload_train(torch, dev, peaks, medians):
     """llama2-7b at full width (D 4096, 32/32 heads, F 11008, vocab 32000),
     bf16 compute over fp32 host masters (host C++ AdamW), WarmupLR,
-    clipping 1.0, micro 2 x gas 2 x S 2048, remat full, 4 steps.  All 32
-    layers when the host states (12 B a parameter) and the relay's staging
-    fit in 80 % of MemAvailable, else the deepest depth that does (printed
-    with the reason).  Prints each step's split (fwd/bwd, D2H, host step,
+    clipping 1.0, micro 2 x gas 2 x S 2048, remat full, 4 steps.  The
+    deepest depth whose host states (12 B a parameter) and relay staging
+    fit in 80 % of MemAvailable, at most ZERO_OFFLOAD_TRAIN_LAYERS (each
+    cut printed with its reason).  Prints each step's split (fwd/bwd, D2H, host step,
     H2D), the host step's rate at 28 B a parameter, tokens/s, MFU, peak
     device memory and host state bytes, and what FusedAdam would hold on
     the card at the same depth (computed, not run); checks that the card
@@ -5519,13 +5557,20 @@ def phase_zero_offload_train(torch, dev, peaks, medians):
     layers = full
     while layers > 1 and offload_host_bytes("llama2-7b", layers)[0] > budget:
         layers -= 1
+    fits = layers
+    layers = min(layers, ZERO_OFFLOAD_TRAIN_LAYERS)
     need, n = offload_host_bytes("llama2-7b", layers)
     check(need <= budget, f"zero_offload_train: even 1 layer needs {need} B of "
           f"host memory against {budget:.0f}")
     print(f"zero_offload_train: {ident}; host MemTotal {total} B "
           f"({total / 2**30:.2f} GiB), MemAvailable {avail} B "
           f"({avail / 2**30:.2f} GiB), {cores} cores")
-    if layers < full:
+    if layers < fits:
+        print(f"zero_offload_train: depth cut {full} -> {layers} layers for the "
+              f"smoke's 600 s aim (param_offload_train carries llama2-7b and the "
+              f"host AdamW at scale); the host would hold {fits} "
+              f"({layers} layers need {need / 1e9:.2f} GB)")
+    elif layers < full:
         print(f"zero_offload_train: depth cut {full} -> {layers} layers: at "
               f"{full} layers the host states ({HOST_STATE_BYTES} B x "
               f"{n_full / 1e9:.4f}B params) and the relay's staging need "
@@ -5594,6 +5639,367 @@ def phase_zero_offload_train(torch, dev, peaks, medians):
     if hasattr(torch._C, "_host_emptyCache"):
         torch._C._host_emptyCache()     # give the pinned staging back
     return launches, device_ms
+
+
+# ZeRO-Infinity (offload_param): the params and the grads in host memory too
+PARAM_OFFLOAD = {"zero_optimization": {
+    "stage": 0, "offload_optimizer": {"device": "cpu"},
+    "offload_param": {"device": "cpu"}}}
+# host bytes a parameter under offload_param: the fp32 master and two fp32
+# moments, the compute-dtype (bf16) host copy, the fp32 accumulator
+PARAM_OFFLOAD_HOST_BYTES = 12 + 2 + 4
+# the reference's extra depth: the peak must not grow by more than the
+# extra layers' boundary activations
+PARAM_OFFLOAD_DEEP_LAYERS = 8
+PEAK_ROUNDING = 4 << 20
+
+
+def streamed_plan(cfg, micros):
+    """Launches a streamed (``offload_param``) run must make.  Per
+    micro-batch: the forward loop's 2L norm forwards, the head's final norm
+    (forward and backward), each layer's backward recomputing its forward
+    under autograd whatever the remat policy (2L norm forwards more, L flash
+    forwards, L RoPEs) and then its backward (2L norm backwards, L flash
+    backwards, L RoPE backwards); one more LayerNorm each way for an
+    embedding norm; dropout twice a layer in each forward and twice a layer
+    backward.  No optimizer kernel: the host C++ Adam steps."""
+    L = cfg.num_layers
+    rope = cfg.position == "rope"
+    plan = {k: 0 for k in KERNELS}
+    plan[norm_kernel(cfg)] = (4 * L + 1) * micros
+    plan[norm_kernel(cfg) + "_bwd"] = (2 * L + 1) * micros
+    if cfg.embed_norm:
+        plan["layer_norm"] += 2 * micros
+        plan["layer_norm_bwd"] += micros
+    plan["rope"] = 3 * L * micros * rope
+    flash = "flash_attention_{}" + ("_alibi" if cfg.position == "alibi" else "")
+    plan[flash.format("fwd")] = 2 * L * micros
+    plan[flash.format("bwd")] = L * micros
+    if cfg.dropout > 0:
+        plan["dropout"] = 4 * L * micros
+        plan["dropout_bwd"] = 2 * L * micros
+    return plan
+
+
+def phase_param_offload_reference(torch, dev):
+    """The llama-tiny preset (D 256, 8 heads of 32, 4 layers, vocab 32000,
+    S 200) with ``offload_param`` + ``offload_optimizer`` cpu, 3 fp32 steps
+    of gas 2 (AdamW, WarmupLR, clipping 1.0), on the card and on the CPU
+    from the same weights and tokens: losses within rtol 1e-4 and the host
+    masters within atol 1e-4 (phase_train_reference's bounds); on the card
+    prefetch off bit-equal to prefetch on; with ``int8_masters`` +
+    ``int8_stream`` the card against the CPU within rtol 1e-3 and the h2d
+    bytes at least 1.3x below a bf16 relay's for the same transfers (half
+    the dense fp32 run's); every slot reused only after its readers' event
+    (the copy's start event after it); launches equal to the streamed plan.
+    No model-sized buffer on the card: the preset's params are 85 % token
+    table and head, whose segment alone (the head, its grads, the logits)
+    outweighs the params, so the check is that the peak does not grow with
+    depth: the same run at PARAM_OFFLOAD_DEEP_LAYERS layers peaks within
+    the extra layers' boundary activations of the 4-layer run, plus
+    PEAK_ROUNDING for the caching allocator (a large block is not split
+    when the rest would be 1 MiB or less, so a peak moves by up to that
+    much an allocation), where a whole-program step would add their params
+    and grads (11.6 MB of each here)."""
+    import numpy as np
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.config import get_model_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    base = dict(TRAIN_CONFIG, **ADAMW_SECTION, bf16={"enabled": False},
+                train_micro_batch_size_per_gpu=2)
+    tok = np.random.default_rng(0).integers(0, 32000, (4, 200))
+    int8 = {"zero_optimization": {
+        "stage": 0, "offload_optimizer": {"device": "cpu", "int8_masters": True},
+        "offload_param": {"device": "cpu", "int8_stream": True}}}
+    no_prefetch = {"zero_optimization": dict(PARAM_OFFLOAD["zero_optimization"],
+                                             offload_param={"device": "cpu",
+                                                            "prefetch": False})}
+    runs = {}
+    for name, d, over, layers in (("cpu", "cpu", PARAM_OFFLOAD, 4),
+                                  ("card", dev, PARAM_OFFLOAD, 4),
+                                  ("card no prefetch", dev, no_prefetch, 4),
+                                  ("cpu int8", "cpu", int8, 4),
+                                  ("card int8", dev, int8, 4),
+                                  ("card deep", dev, PARAM_OFFLOAD,
+                                   PARAM_OFFLOAD_DEEP_LAYERS)):
+        model = deepspeed_tpu_torch.causal_lm("llama-tiny", device="cpu", seed=0,
+                                              num_layers=layers)
+        engine = deepspeed_tpu_torch.initialize(model=model, config=dict(base, **over),
+                                                device=d)[0]
+        check(engine._streamed is not None, f"{name}: not streamed")
+        on_card = d != "cpu"
+        if on_card:
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            zero_counts()
+        losses = [float(engine.train_step((tok, tok))) for _ in range(3)]
+        st = engine._streamed.streamer
+        run = {"losses": losses, "h2d": st.h2d_bytes,
+               "masters": [m.clone() for m in engine._offload_opt.masters()],
+               "hits": (st.prefetch_hits, st.prefetch_misses)}
+        if on_card:
+            torch.cuda.synchronize(dev)
+            run["peak"] = torch.cuda.max_memory_allocated(dev)
+            run["launches"] = read_counts()
+            gaps = st.reuse_gaps_ms()
+            check(len(gaps) == len(st.reuse_log) and gaps
+                  and min(gaps) >= 0, f"param_offload_reference {name}: a slot "
+                  f"reused before its readers' event: {gaps[:8]}")
+            run["gaps"] = gaps
+            run["param_bytes"] = sum(m.numel() for m in engine.master) * 4
+            run["boundary"] = 2 * 200 * model.config.hidden_size * 4
+        runs[name] = run
+        del engine, model, st
+    lc, lg = runs["cpu"]["losses"], runs["card"]["losses"]
+    check(all(math.isfinite(x) for x in lg) and lg[-1] < lg[0],
+          f"param_offload_reference: card losses {lg}")
+    for a, b in zip(lc, lg):
+        check(abs(a - b) <= 1e-4 * abs(a), f"param_offload_reference: card vs "
+              f"CPU losses {lg} vs {lc}")
+    diff = max(float((a - b).abs().max()) for a, b in
+               zip(runs["cpu"]["masters"], runs["card"]["masters"]))
+    check(diff <= 1e-4, f"param_offload_reference: card vs CPU host masters "
+          f"differ by {diff}")
+    off = runs["card no prefetch"]
+    check(off["losses"] == lg and all(torch.equal(a, b) for a, b in
+                                      zip(off["masters"], runs["card"]["masters"])),
+          f"param_offload_reference: prefetch off {off['losses']} against on {lg}")
+    takes = 6 * (2 * 4 - 1)
+    check(runs["card"]["hits"] == (takes, 0) and off["hits"] == (0, takes),
+          f"param_offload_reference: prefetch hits/misses {runs['card']['hits']} "
+          f"(on), {off['hits']} (off)")
+    li, lci = runs["card int8"]["losses"], runs["cpu int8"]["losses"]
+    for a, b in zip(lci, li):
+        check(abs(a - b) <= 1e-3 * abs(a), f"param_offload_reference: int8 card "
+              f"vs CPU losses {li} vs {lci}")
+    bf16_relay = runs["card"]["h2d"] / 2
+    ratio = bf16_relay / runs["card int8"]["h2d"]
+    check(ratio >= 1.3, f"param_offload_reference: int8 h2d "
+          f"{runs['card int8']['h2d']} B only {ratio:.3f}x below a bf16 relay's")
+    for name, layers in (("card", 4), ("card deep", PARAM_OFFLOAD_DEEP_LAYERS)):
+        plan = streamed_plan(get_model_config("llama-tiny", num_layers=layers), 6)
+        check(runs[name]["launches"] == plan, f"param_offload_reference {name}: "
+              f"launches {runs[name]['launches']} != streamed plan {plan}")
+    shallow, deep = runs["card"], runs["card deep"]
+    grow = deep["peak"] - shallow["peak"]
+    allowed = (PARAM_OFFLOAD_DEEP_LAYERS - 4) * shallow["boundary"] + PEAK_ROUNDING
+    extra_params = deep["param_bytes"] - shallow["param_bytes"]
+    check(grow <= allowed, f"param_offload_reference: peak {shallow['peak']} B at "
+          f"4 layers, {deep['peak']} B at {PARAM_OFFLOAD_DEEP_LAYERS}: grew "
+          f"{grow} B, more than the extra boundary activations and the "
+          f"allocator's rounding ({allowed} B)")
+    print(f"reference: param_offload_reference, the llama-tiny preset (L 4, D "
+          f"256, V 32000, S 200) with offload_param + offload_optimizer cpu, 3 "
+          f"fp32 steps, card == CPU: losses {lg} vs {lc}, host masters max abs "
+          f"diff {diff:.3g}; prefetch off bit-equal (hits/misses on "
+          f"{runs['card']['hits']}, off {off['hits']}); int8_masters + "
+          f"int8_stream card {li} vs CPU {lci}, h2d {runs['card int8']['h2d']} B "
+          f"against {bf16_relay:.0f} B for a bf16 relay ({ratio:.3f}x fewer); "
+          f"{len(shallow['gaps'])} slot reuses, each copy starting "
+          f"{min(shallow['gaps']):.4f}-{max(shallow['gaps']):.4f} ms after its "
+          f"readers' event; peak {shallow['peak']} B at 4 layers "
+          f"({shallow['param_bytes']} B of fp32 params), {deep['peak']} B at "
+          f"{PARAM_OFFLOAD_DEEP_LAYERS} ({deep['param_bytes']} B): +{grow} B "
+          f"against {extra_params} B more params (and as much again of grads) "
+          f"that a whole-program step would hold; launches equal to the "
+          f"streamed plan at both depths")
+
+
+def param_offload_host_bytes(preset, layers):
+    """Host bytes a bf16 ``offload_param`` run of ``preset`` at ``layers``
+    holds (PARAM_OFFLOAD_HOST_BYTES a parameter, and the grads' page-locked
+    ring of two layers in bf16), the parameter count, one layer's
+    parameters."""
+    from deepspeed_tpu_torch.models.config import get_model_config
+    from deepspeed_tpu_torch.models.transformer import param_shapes
+
+    tree = param_shapes(get_model_config(preset, num_layers=layers))
+
+    def sizes(t):
+        for v in t.values():
+            if isinstance(v, dict):
+                yield from sizes(v)
+            else:
+                yield math.prod(v[0])
+
+    n = sum(sizes(tree))
+    per_layer = sum(sizes(tree["layers"])) // layers
+    return PARAM_OFFLOAD_HOST_BYTES * n + 2 * 2 * per_layer, n, per_layer
+
+
+def phase_param_offload_train(torch, dev, peaks, medians):
+    """llama2-7b at full width (D 4096, 32/32 heads of 128, F 11008, vocab
+    32000), bf16 compute over fp32 host masters (host C++ AdamW), WarmupLR,
+    clipping 1.0, micro 2 x gas 2 x S 2048, 3 steps, with ``offload_param``
+    + ``offload_optimizer`` cpu: the params, the grads and the accumulators
+    in host memory, a layer at a time on the card.  As deep as 80 % of
+    MemAvailable holds at PARAM_OFFLOAD_HOST_BYTES a parameter and the
+    staging (printed with the reason).  Prints the host's cores and memory,
+    the page-locking time, each step's split (forward stream, backward
+    stream with the accumulation, host norm and clip, host step, cast into
+    the page-locked copy), the h2d and d2h bytes with their GB/s over the
+    streaming wall time, the compute stream's wait for copies, the prefetch
+    hits and misses, tokens/s, MFU, the peak device memory beside its parts
+    (boundary activations, slots, one layer's grads, the head segment:
+    counted from the shapes) and what zero_offload_train's path holds on
+    the card at this depth (bf16 params and fp32 accumulator, 6 B a
+    parameter, before activations).  Checks: the peak below the model's
+    bf16 parameter bytes; between steps the card holds only the slots
+    (within 256 MiB); launches equal to the streamed plan (the backward's
+    recomputed forward counted); losses finite and falling."""
+    import gc
+
+    import deepspeed_tpu_torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    if hasattr(torch._C, "_host_emptyCache"):
+        torch._C._host_emptyCache()
+    ident = gpu_identity()
+    total, avail, cores = host_memory()
+    full, budget = 32, 0.8 * avail
+    need_full, n_full, _ = param_offload_host_bytes("llama2-7b", full)
+    layers = full
+    while layers > 1 and param_offload_host_bytes("llama2-7b", layers)[0] > budget:
+        layers -= 1
+    need, n, per_layer = param_offload_host_bytes("llama2-7b", layers)
+    check(need <= budget, f"param_offload_train: even 1 layer needs {need} B of "
+          f"host memory against {budget:.0f}")
+    print(f"param_offload_train: {ident}; host MemTotal {total} B "
+          f"({total / 2**30:.2f} GiB), MemAvailable {avail} B "
+          f"({avail / 2**30:.2f} GiB), {cores} cores")
+    if layers < full:
+        print(f"param_offload_train: depth cut {full} -> {layers} layers: at "
+              f"{full} layers the host holds {PARAM_OFFLOAD_HOST_BYTES} B x "
+              f"{n_full / 1e9:.4f}B params (fp32 masters and moments 12, the "
+              f"bf16 host copy 2, the fp32 accumulator 4) and the grads' ring: "
+              f"{need_full / 1e9:.2f} GB, more than 80 % of MemAvailable "
+              f"({budget / 1e9:.2f} GB); {layers} layers need {need / 1e9:.2f} GB")
+    else:
+        print(f"param_offload_train: all {full} layers: {need / 1e9:.2f} GB "
+              f"within 80 % of MemAvailable ({budget / 1e9:.2f} GB)")
+    micro, S = TRAIN_CELLS["llama2-7b"]
+    gas = 2
+    base_alloc = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    model = deepspeed_tpu_torch.causal_lm("llama2-7b", seed=0, num_layers=layers)
+    cfg = model.config
+    engine = deepspeed_tpu_torch.initialize(
+        model=model, config=dict(TRAIN_CONFIG, **PARAM_OFFLOAD, **ADAMW_SECTION,
+                                 train_micro_batch_size_per_gpu=micro))[0]
+    check(engine._streamed is not None and not any(p.is_cuda for p in engine.master)
+          and not any(a.is_cuda for a in engine.grad_acc),
+          "param_offload_train: a param or an accumulator on the card")
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in engine.master)
+    check(n_params == n, f"param_offload_train: {n_params} params, the shapes "
+          f"give {n}")
+    st = engine._streamed.streamer
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (gas * micro, S), device=dev,
+                           generator=gen)
+    torch.cuda.synchronize(dev)
+    after_build = torch.cuda.memory_allocated(dev) - base_alloc
+    print(f"param_offload_train: llama2-7b D={cfg.hidden_size} L={layers} "
+          f"H={cfg.num_heads}/{cfg.num_kv_heads} F={cfg.intermediate_size} "
+          f"V={cfg.vocab_size}, {n_params / 1e9:.4f}B params: bf16 host copy "
+          f"page-locked in {engine._pin_seconds:.2f}s "
+          f"({2 * n_params / engine._pin_seconds / 1e9:.2f} GB/s of "
+          f"cudaHostRegister), built in {build_s:.1f}s (the fp32 model made on "
+          f"the card, then moved to the host); host optimizer state "
+          f"{engine._offload_opt.state_bytes()} B; {st.staging_slots} slots of "
+          f"{st.slot_bytes() // st.staging_slots} B; card after the build "
+          f"{after_build} B")
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    steps, splits, between = [], [], []
+    for k in range(3):
+        st.reset_counters()
+        engine._streamed.d2h_seconds()       # its marks from 0
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        loss = float(engine.train_step((tokens, tokens)))
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t
+        sp = engine.offload_split()
+        stall = st.stall_seconds()
+        h2d_s, d2h_s = st.copy_seconds(), engine._streamed.d2h_seconds()
+        layer_h2d = st.takes * st.layer_payload_bytes()
+        layer_d2h = gas * layers * st.layer_payload_bytes()
+        steps.append((loss, engine.get_global_grad_norm(), wall))
+        splits.append((sp, st.h2d_bytes, st.d2h_bytes, st.prefetch_hits,
+                       st.prefetch_misses, stall))
+        between.append(torch.cuda.memory_allocated(dev) - base_alloc)
+        stream_s = (sp["fwd"] + sp["bwd"]) / 1e3
+        print(f"param_offload_train: step {k + 1} loss {loss:.5f} grad norm "
+              f"{steps[-1][1]:.4f} wall {wall:.3f}s = forward stream "
+              f"{sp['fwd'] / 1e3:.3f}s + backward stream with the accumulation "
+              f"{sp['bwd'] / 1e3:.3f}s (2 micro-batches) + host norm "
+              f"{sp['norm'] / 1e3:.3f}s + clip {sp['clip'] / 1e3:.3f}s + host "
+              f"step {sp['host_step'] / 1e3:.3f}s + cast into the page-locked copy "
+              f"{sp['cast'] / 1e3:.3f}s + zero {sp['zero'] / 1e3:.3f}s; h2d "
+              f"{st.h2d_bytes} B ({st.h2d_bytes / stream_s / 1e9:.2f} GB/s over "
+              f"the streaming wall; the layer copies {layer_h2d} B in "
+              f"{h2d_s:.3f}s of device copy time, {layer_h2d / h2d_s / 1e9:.2f} "
+              f"GB/s), d2h {st.d2h_bytes} B ({st.d2h_bytes / stream_s / 1e9:.2f} "
+              f"GB/s over the streaming wall; the layer grads {layer_d2h} B in "
+              f"{d2h_s:.3f}s, {layer_d2h / d2h_s / 1e9:.2f} GB/s); prefetch hits "
+              f"{st.prefetch_hits}, misses {st.prefetch_misses}; the compute "
+              f"stream waited {stall * 1e3:.1f} ms for copies; card between "
+              f"steps {between[-1]} B")
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [x[0] for x in steps]
+    check(all(math.isfinite(x[0]) and math.isfinite(x[1]) for x in steps)
+          and losses[-1] < losses[0], f"param_offload_train: losses {losses}")
+    plan = streamed_plan(cfg, gas * len(steps))
+    check(launches == plan, f"param_offload_train launches {launches} != "
+          f"streamed plan {plan}")
+    bf16_bytes = 2 * n_params
+    check(peak < bf16_bytes, f"param_offload_train: peak {peak} B not below the "
+          f"model's {bf16_bytes} B of bf16 params")
+    slots = st.slot_bytes()
+    check(all(b <= slots + (256 << 20) for b in between),
+          f"param_offload_train: between steps the card held {between} B, the "
+          f"slots {slots} B")
+    boundary = (layers + 1) * micro * S * cfg.hidden_size * 2
+    layer_grads = 2 * per_layer
+    V, D = cfg.vocab_size, cfg.hidden_size
+    head = 2 * 2 * V * D + micro * (S - 1) * V * (2 + 4 + 4)
+    offload_opt_bytes = 6 * n_params
+    tokens_per_step = gas * micro * S
+    wall = statistics.mean(x[2] for x in steps[1:])
+    attn = 6 * layers * gas * micro * cfg.num_heads * S * S * cfg.head_dim
+    flops = 6 * n_params * tokens_per_step + attn
+    peaks["param_offload_train"] = peak / 2**30
+    medians["param_offload_train"] = statistics.median(x[2] for x in steps)
+    print(f"param_offload_train: {ident}; steady step (mean of steps 2-3) "
+          f"{wall:.4f}s, {tokens_per_step / wall:.1f} tokens/s, MFU "
+          f"{100 * flops / wall / BF16_FLOPS_PER_S:.2f}% (6N + attention "
+          f"{flops / 1e12:.1f} TFLOP a step over 989 TFLOP/s; the backward's "
+          f"recomputed forward not counted); peak device memory {peak} B "
+          f"({peak / 2**30:.2f} GiB) against {bf16_bytes} B of bf16 params; its "
+          f"parts from the shapes: boundary activations {boundary} B, slots "
+          f"{slots} B, one layer's bf16 grads {layer_grads} B, the head segment "
+          f"(bf16 head and its grads, bf16 logits, their fp32 copy and grads) "
+          f"{head} B, the rest (a layer's recomputed activations, the embedding "
+          f"segment) {peak - boundary - slots - layer_grads - head} B; "
+          f"zero_offload_train's path (offload_optimizer alone) at this "
+          f"depth holds {offload_opt_bytes} B ({offload_opt_bytes / 2**30:.2f} "
+          f"GiB) of bf16 params and fp32 accumulator on the card before its "
+          f"activations; launches {launches}")
+    del engine, model, tokens, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    if hasattr(torch._C, "_host_emptyCache"):
+        torch._C._host_emptyCache()
+    print(f"param_offload_train: after the engine is let go, this process "
+          f"holds {process_rss() / 2**30:.2f} GiB of host memory; MemAvailable "
+          f"{host_memory()[1] / 2**30:.2f} GiB (freed memory comes back to it "
+          f"slowly)")
+    return launches, {}
 
 
 def phase_zero_offload_nvme(torch, dev):
@@ -5667,7 +6073,8 @@ def phase_zero_offload_nvme(torch, dev):
         del bufs
         free = shutil.disk_usage(root).free
         print(f"zero_offload_nvme: {ident}; llama-1b4 D 2048 cut to {NVME_LAYERS} "
-              f"layers, {sum(opt._sizes) / 1e9:.4f}B params in {len(opt._sizes)} "
+              f"layer(s) (the smoke's 600 s aim: its save and load hash every "
+              f"byte on one core), {sum(opt._sizes) / 1e9:.4f}B params in {len(opt._sizes)} "
               f"state files ({nbytes} B, [master, exp_avg, exp_avg_sq] fp32); 3 "
               f"steps {wall:.3f}s, losses and grad norms {got} and every host "
               f"master bit-equal to the cpu backend; aio ({NVME_AIO_THREADS} threads, "
@@ -5709,21 +6116,25 @@ def phase_zero_offload_nvme(torch, dev):
 
 def phase_bloom_fp16_offload(torch, dev, peaks, medians):
     """bloom-1b7 (nothing cut) in fp16 (dynamic scale from 2^16) with
-    ``offload_optimizer: cpu``, 5 applied steps, each printed with its loss
-    scale and skip: the fp16 ALiBi flash instances on a train path, and the
-    overflow skip of the host-stepped step.  Beside it the same cell with
-    device FusedAdam: the same skips, and losses within the fp16 train
-    gate's rtol 1e-3 (``tests/test_torch_fp16.py``)."""
+    ``offload_optimizer: cpu``, BLOOM_FP16_STEPS applied steps, each printed
+    with its loss scale and skip: the fp16 ALiBi flash instances on a train
+    path, and the overflow skip of the host-stepped step.  Beside it the
+    same cell with device FusedAdam: the same skips, and losses within the
+    fp16 train gate's rtol 1e-3 (``tests/test_torch_fp16.py``)."""
+    print(f"bloom_fp16_offload_train: {BLOOM_FP16_STEPS} steps each (5 in "
+          f"the other train cells) for the smoke's 600 s aim")
     runs = {}
 
     def keep(name):
         return lambda engine, info: runs.__setitem__(name, info["steps"])
 
     phase_train(torch, dev, "bloom-1b7", "bloom_fp16_train", FP16_CONFIG, peaks,
-                medians, profile=False, report=keep("device"))
+                medians, steps_wanted=BLOOM_FP16_STEPS, profile=False,
+                report=keep("device"))
     result = phase_train(torch, dev, "bloom-1b7", "bloom_fp16_offload_train",
                          dict(FP16_CONFIG, **ZERO_OFFLOAD), peaks, medians,
-                         profile=False, report=keep("offload"))
+                         steps_wanted=BLOOM_FP16_STEPS, profile=False,
+                         report=keep("offload"))
     dev_steps, off_steps = runs["device"], runs["offload"]
     check([x[4] for x in off_steps] == [x[4] for x in dev_steps],
           f"bloom_fp16_offload_train: skips {[x[4] for x in off_steps]} against "
@@ -5829,6 +6240,7 @@ def main() -> int:
     c("hf_train_reference", phase_hf_train_reference, torch, dev)
     c("optimizer_reference", phase_optimizer_reference, torch, dev)
     c("zero_offload_reference", phase_zero_offload_reference, torch, dev)
+    c("param_offload_reference", phase_param_offload_reference, torch, dev)
     # each path: (launch counts of its run, device ms per call in its profile)
     peaks, medians = {}, {}
     serve_keep, gen_keep = {}, {}
@@ -5861,6 +6273,9 @@ def main() -> int:
                                model_over={"dropout": DROPOUT_RATE}),
             # before the phases that pin host memory: the host memory that
             # a pinned buffer held comes back to MemAvailable only slowly
+            "param_offload_train": c("param_offload_train",
+                                     phase_param_offload_train, torch, dev,
+                                     peaks, medians),
             "zero_offload_train": c("zero_offload_train", phase_zero_offload_train,
                                     torch, dev, peaks, medians),
             "offload_train": c(

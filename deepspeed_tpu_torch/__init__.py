@@ -28,7 +28,9 @@ Adam8bit's stochastic rounding; dropout drawn from JAX's own threefry
 stream; every remat policy, ``cpu_checkpointing`` keeping the saved matmul
 outputs in pinned host memory; ``zero_optimization.offload_optimizer``
 keeping the fp32 masters and moments in host memory or on NVMe, stepped by
-the host C++ Adam, Adagrad or Lion), with RMSNorm and
+the host C++ Adam, Adagrad or Lion; ``zero_optimization.offload_param``
+keeping the params and the grads in host memory too, one layer at a time
+streamed to the card), with RMSNorm and
 RoPE forward and backward, flash attention forward and backward (with
 ALiBi for BLOOM) and the
 fused Adam, Adam8bit and LAMB updates and dropout as hand-written
@@ -55,7 +57,7 @@ __all__ = ["initialize", "init_inference", "init_serving", "causal_lm"]
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                training_data=None, collate_fn=None, config=None,
                config_params=None, *, device: DeviceLike = None,
-               seed: Any = None):
+               seed: Any = None, loss_fn=None):
     """Create a training engine (counterpart of ``deepspeed_tpu.initialize``).
 
     Returns ``(engine, optimizer, training_dataloader, lr_scheduler)``;
@@ -74,7 +76,9 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     ``optimizer`` (a ``torch.optim.Optimizer`` over the model's parameters,
     or a callable that builds one from the engine's masters) takes
     precedence over the config's optimizer section, as in the JAX
-    engine."""
+    engine.  Under ``zero_optimization.offload_param`` the params stay in
+    host memory and train a layer at a time on the card (ZeRO-Infinity).
+    A client ``loss_fn`` is refused (not ported)."""
     import torch
 
     from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
@@ -87,7 +91,8 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     torch.manual_seed(int(cfg.seed if seed is None else seed))
     engine = DeepSpeedEngine(model, cfg, model_parameters=model_parameters,
                              device=device, training_data=training_data,
-                             collate_fn=collate_fn, optimizer=optimizer)
+                             collate_fn=collate_fn, optimizer=optimizer,
+                             loss_fn=loss_fn)
     return (engine, engine.optimizer, engine.training_dataloader,
             engine.lr_scheduler)
 

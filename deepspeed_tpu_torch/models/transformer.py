@@ -42,8 +42,11 @@ every remat body, so a recompute draws the same masks with no RNG state to
 track; without a key (serving, ``generate()``) nothing is dropped, as in
 JAX.  The ``offload_dots`` remat policy (``cpu_checkpointing``) keeps each
 layer's matmul outputs in pinned host memory between the forward and the
-backward on the card (:class:`_OffloadDots`); on the CPU it saves them in
-place, as the JAX package does there.
+backward on the card (:class:`_Dots` with ``offload``); on the CPU it
+saves them in place, as the JAX package does there.  Under
+``offload_param`` the engine trains through :meth:`CausalLM.
+stream_segments` (the embedding, one layer, the head's loss, the RoPE
+tables) a layer at a time instead of :meth:`CausalLM.apply`.
 """
 
 from __future__ import annotations
@@ -303,14 +306,18 @@ class CausalLM(_ParamTree):
     # ------------------------------------------------------------------
     # training forward (JAX ``CausalLM.apply``)
     # ------------------------------------------------------------------
-    def check_trainable(self) -> None:
-        """Raise for what the training forward does not carry yet: the JAX
-        package's streamed layer weights (``param_offload``, set by its
-        engine under ``offload_param``)."""
-        if self.config.param_offload:
+    def check_trainable(self, streamed: bool = False) -> None:
+        """Raise for what the training forward does not carry yet:
+        ``param_offload`` (set by the engine under ``offload_param``) on a
+        model trained through :meth:`apply`, the JAX package's whole-program
+        path with its layer weights moved in from host memory inside the
+        program.  ``streamed``: the engine drives :meth:`stream_segments`
+        instead, which carries it."""
+        if self.config.param_offload and not streamed:
             raise NotImplementedError(
-                "training with param_offload is not ported yet (ROADMAP.md "
-                "queue 1 item 2e: offload_param streaming)")
+                "training with param_offload through apply is not ported yet "
+                "(ROADMAP.md queue 1: item 2e, the whole-program offload_param "
+                "path); offload_param trains through stream_segments")
 
     def _drop(self, x, key):
         """JAX ``_dropout`` at the model's rate; nothing without a key."""
@@ -512,7 +519,8 @@ class CausalLM(_ParamTree):
 
     def _loss_tail(self, fnorm, head, x, labels, loss_mask, head_bias=None):
         """Final norm + next-token cross-entropy: logits[t] predicts
-        labels[t+1].  ``head`` is [D, V]."""
+        labels[t+1].  ``head`` is [D, V].  The one implementation behind
+        :meth:`apply` and the streamed head segment."""
         cfg = self.config
         h = norm(x, fnorm, cfg.norm, cfg.norm_eps)
         head = head.to(h.dtype)
@@ -531,6 +539,57 @@ class CausalLM(_ParamTree):
             logits = logits + head_bias.to(logits.dtype)
         return cross_entropy(logits, shifted_labels, z_loss=cfg.z_loss,
                              mask=shifted_mask)
+
+
+    # ------------------------------------------------------------------
+    # streamed per-layer segments (ZeRO-Infinity, ``offload_param``)
+    # ------------------------------------------------------------------
+    def stream_segments(self) -> Dict[str, Any]:
+        """The pure per-segment functions the engine's streamed forward and
+        backward drive (:mod:`~deepspeed_tpu_torch.runtime.zero.stream_grad`;
+        the JAX ``CausalLM.stream_segments``), so that one layer at a time
+        is on the card and no model-sized buffer, params or grads, ever is:
+
+        - ``embed_fwd(embed, tokens)``: the token rows, the learned
+          positions and the embedding norm (BLOOM);
+        - ``layer_fwd(lp, x, key, cos, sin)``: one layer, ``(y, aux)``
+          (aux None for a dense MLP), dropped with ``key`` when it is given;
+        - ``head_loss(head_tree, x, labels, loss_mask)``: the final norm and
+          the cross-entropy; ``head_tree["head"]`` is the ``[V, D]`` token
+          table when the embeddings are tied, else ``[D, V]``;
+        - ``rope(S, dtype, device)``: cos and sin (None without RoPE);
+        - ``num_layers``, ``dropout``, ``moe_coef`` (0 for a dense model)
+          and ``tied``."""
+        cfg = self.config
+
+        def embed_fwd(embed, tokens):
+            x = embed["tok"][tokens]
+            if cfg.position == "learned":
+                x = x + embed["pos"][:tokens.shape[1]][None]
+            if cfg.embed_norm:
+                x = norm(x, embed["norm"], "layernorm", cfg.norm_eps)
+            return x
+
+        def layer_fwd(lp, x, key, cos, sin):
+            return self._layer(lp, x, cos, sin, key)
+
+        def head_loss(head_tree, x, labels, loss_mask):
+            head = head_tree["head"]
+            if cfg.tie_embeddings:          # the [V, D] token table
+                head = head.t()
+            return self._loss_tail(head_tree["final_norm"], head, x, labels,
+                                   loss_mask, head_bias=head_tree.get("head_bias"))
+
+        def rope(S, dtype, device):
+            if cfg.position != "rope":
+                return None, None
+            cos, sin = rope_cache(S, rope_dim(cfg), cfg.rope_theta, device=device)
+            return cos.to(dtype), sin.to(dtype)
+
+        return {"num_layers": cfg.num_layers, "dropout": cfg.dropout,
+                "moe_coef": cfg.moe_aux_loss_coef if cfg.is_moe else 0.0,
+                "tied": cfg.tie_embeddings, "embed_fwd": embed_fwd,
+                "layer_fwd": layer_fwd, "head_loss": head_loss, "rope": rope}
 
 
 def causal_lm(preset: str, *, device: DeviceLike = None,

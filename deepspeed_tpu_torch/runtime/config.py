@@ -86,13 +86,42 @@ class OffloadOptimizerConfig(DeepSpeedConfigModel):
     quant_block: int = 256
 
 
+class OffloadParamConfig(DeepSpeedConfigModel):
+    """``zero_optimization.offload_param`` (the JAX package's
+    ``DeepSpeedZeroOffloadParamConfig``).  ``device`` ``cpu`` or ``nvme``
+    (both keep the params in host memory, as the JAX engine does);
+    ``nvme_path``, ``buffer_count``, ``buffer_size``, ``max_in_cpu`` and
+    ``pin_memory`` are accepted and without effect there as here (the host
+    copy is page-locked on the card whatever ``pin_memory`` says)."""
+
+    device: str = "none"            # none | cpu | nvme
+    nvme_path: Optional[str] = None
+    buffer_count: int = 5
+    buffer_size: int = 100_000_000
+    max_in_cpu: int = 1_000_000_000
+    pin_memory: bool = False
+    # the backward streams a layer at a time, so no model-sized grad buffer
+    # exists on the card; false asks for the whole-program path
+    stream_grads: bool = True
+    # layer i+1's H2D in flight while layer i computes (the same numbers
+    # either way); int8_stream ships each layer as blockwise int8 codes and
+    # scales dequantized on the card; staging_slots persistent layer-sized
+    # device buffers take the copies
+    prefetch: bool = True
+    int8_stream: bool = False
+    staging_slots: int = 2
+
+
 class ZeroConfig(DeepSpeedConfigModel):
-    """The ``zero_optimization`` keys the port reads: the stage (0 only)
-    and the offload of the optimizer state; the others are accepted."""
+    """The ``zero_optimization`` keys the port reads: the stage (0 only),
+    the offload of the optimizer state and of the params; the others are
+    accepted."""
 
     stage: int = 0
     offload_optimizer: Optional[OffloadOptimizerConfig] = None
+    offload_param: Optional[OffloadParamConfig] = None
     cpu_offload: Optional[bool] = None  # deprecated spelling
+    cpu_offload_params: Optional[bool] = None  # accepted, changes nothing
 
     def model_post_init(self, __context: Any) -> None:
         super().model_post_init(__context)
@@ -265,7 +294,8 @@ class DeepSpeedConfig:
         self.zero_config = ZeroConfig(**{k: v for k, v in
                                          (d.get("zero_optimization") or {}).items()
                                          if k in ("stage", "offload_optimizer",
-                                                  "cpu_offload")})
+                                                  "offload_param", "cpu_offload",
+                                                  "cpu_offload_params")})
         self.aio = AIOConfig(**d.get("aio", {}))
         self._validate()
 
@@ -275,10 +305,12 @@ class DeepSpeedConfig:
         if int(zero.get("stage", 0) or 0) >= 1:
             raise _not_ported(f"zero_optimization.stage {zero['stage']}",
                               "ZeRO 1-3 over torch.distributed")
-        dev = (zero.get("offload_param") or {}).get("device", "none")
-        if dev not in (None, "none") or zero.get("cpu_offload_params"):
-            raise _not_ported("zero_optimization.offload_param", "item 2e, "
-                              "offload_param streaming")
+        p_off = zero.get("offload_param") or {}
+        if (p_off.get("device", "none") not in (None, "none")
+                and p_off.get("stream_grads", True) is False):
+            raise _not_ported("zero_optimization.offload_param.stream_grads: "
+                              "false", "item 2e, the whole-program offload_param "
+                              "path")
         cq = d.get("comm_quantization") or {}
         if any(v is True for v in cq.values()):
             raise _not_ported("comm_quantization", "ZeRO 1-3 over torch.distributed")
@@ -332,16 +364,45 @@ class DeepSpeedConfig:
         return torch.float32 if name is None else _DTYPES[name.lower()]
 
     @property
+    def param_offload(self) -> bool:
+        """``offload_param`` on ``cpu`` or ``nvme``: the params live in host
+        memory and stream to the card a layer at a time."""
+        p_off = self.zero_config.offload_param
+        return p_off is not None and p_off.device in ("cpu", "nvme")
+
+    @property
     def offload_device(self) -> str:
-        """Where the optimizer state lives: "none", "cpu" or "nvme"."""
+        """Where the optimizer state lives: "none", "cpu" or "nvme".
+        ``offload_param`` without ``offload_optimizer`` puts it on
+        ``offload_param.device``, as the JAX engine does."""
         off = self.zero_config.offload_optimizer
-        return off.device if off is not None else "none"
+        dev = off.device if off is not None else "none"
+        if dev == "none" and self.param_offload:
+            return self.zero_config.offload_param.device
+        return dev
+
+    def offload_optimizer_config(self) -> OffloadOptimizerConfig:
+        """The host optimizer's settings: the ``offload_optimizer`` section,
+        or under ``offload_param`` alone its defaults on the params' device
+        (with ``offload_param.nvme_path``)."""
+        off = self.zero_config.offload_optimizer
+        if off is not None and off.device != "none":
+            return off
+        p_off = self.zero_config.offload_param
+        return OffloadOptimizerConfig(device=p_off.device, nvme_path=p_off.nvme_path)
 
     def _validate(self) -> None:
+        p_off = self.zero_config.offload_param
+        if p_off is not None and p_off.device not in ("none", "cpu", "nvme"):
+            raise ValueError(f"zero_optimization.offload_param.device "
+                             f"{p_off.device!r}: none, cpu or nvme")
+        if self.param_offload and self.fp16.enabled:
+            raise ValueError("offload_param does not support fp16 loss "
+                             "scaling; use bf16 (TPU-native) instead")
         if self.offload_device not in ("none", "cpu", "nvme"):
             raise ValueError(f"zero_optimization.offload_optimizer.device "
                              f"{self.offload_device!r}: none, cpu or nvme")
-        if self.offload_device == "nvme" and not self.zero_config.offload_optimizer.nvme_path:
+        if self.offload_device == "nvme" and not self.offload_optimizer_config().nvme_path:
             raise ValueError("zero_optimization.offload_optimizer.device nvme "
                              "needs nvme_path")
         if self.fp16.enabled and self.bf16.enabled:

@@ -73,9 +73,28 @@ there, as the JAX engine does (the dropout keys split a micro-batch at a
 time).  A tag saved under offload holds ``offload_states/`` (the JAX
 layout) and compute-dtype params in ``model_states``.
 
-Not ported yet (ROADMAP.md queue 1): ZeRO 1-3, ``offload_param``
-streaming, the legacy msgpack checkpoint layout, telemetry, goodput,
-watchdog, anomaly handling, overlap and the 1-bit optimizers.
+ZeRO-Infinity (``zero_optimization.offload_param``, device ``cpu`` or
+``nvme``, which both keep the params in host memory; the JAX engine's
+streamed path): the card keeps no param, grad or accumulator.  The params
+live in host memory in the compute dtype (``self.master``, the module's
+own parameters; one block a leaf, page-locked on the card), the fp32
+accumulators on the host (``self.grad_acc``), the fp32 masters and moments
+in the host optimizer (the :class:`~deepspeed_tpu_torch.runtime.zero.
+offload.OffloadedOptimizer` of ZeRO-Offload, on ``offload_optimizer.device`` or, without
+that section, on ``offload_param.device``).  ``forward`` runs
+:class:`~deepspeed_tpu_torch.runtime.zero.stream_grad.StreamedFwdBwd` over
+the model's ``stream_segments()``, one layer at a time on the card;
+``step`` is the JAX engine's ``_step_param_offload``: the float64 grad
+norm over the host accumulators, the clip on the host, the host optimizer
+on the fp32 grads, the masters cast into the host copy (once no copy reads
+it), the accumulators zeroed.  The whole-program path the JAX engine falls
+back to (``stream_grads: false``, a client loss function, a model without
+``stream_segments``, a batch that is not ``(tokens, labels)`` or a dict
+with both) is refused.
+
+Not ported yet (ROADMAP.md queue 1): ZeRO 1-3, the legacy msgpack
+checkpoint layout, telemetry, goodput, watchdog, anomaly handling, overlap
+and the 1-bit optimizers.
 """
 
 from __future__ import annotations
@@ -106,7 +125,8 @@ from deepspeed_tpu_torch.runtime.lr_schedules import LRSchedulerShim, get_lr_sch
 from deepspeed_tpu_torch.runtime.utils import (clip_grad_norm_, global_norm,
                                                has_overflow)
 from deepspeed_tpu_torch.runtime.zero.offload import OffloadedOptimizer
-from deepspeed_tpu_torch.runtime.zero.relay import OffloadRelay
+from deepspeed_tpu_torch.runtime.zero.relay import OffloadRelay, PinnedBlock
+from deepspeed_tpu_torch.runtime.zero.stream_grad import StreamedFwdBwd, host_sumsq
 from deepspeed_tpu_torch.utils import prng
 
 logger = logging.getLogger(__name__)
@@ -119,6 +139,12 @@ def _flatten(tree: Dict[str, Any], prefix: str = "") -> List[Tuple[str, Any]]:
         path = f"{prefix}.{k}" if prefix else k
         out.extend(_flatten(v, path) if isinstance(v, dict) else [(path, v)])
     return out
+
+
+def _whole_program(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"offload_param with {what} is not ported yet (ROADMAP.md queue 1: "
+        "item 2e, the whole-program offload_param path)")
 
 
 def _set(tree: Dict[str, Any], path: str, value) -> None:
@@ -139,11 +165,25 @@ class DeepSpeedEngine:
 
     def __init__(self, model, config=None, model_parameters=None,
                  device: DeviceLike = None, training_data=None,
-                 collate_fn=None, optimizer=None):
+                 collate_fn=None, optimizer=None, loss_fn=None):
         self.config = (config if isinstance(config, DeepSpeedConfig)
                        else DeepSpeedConfig(config))
         self.device = resolve_device(device)
         self.module = model
+        self._param_offload = self.config.param_offload
+        if loss_fn is not None:
+            if self._param_offload:
+                raise _whole_program("a client loss function")
+            raise NotImplementedError(
+                "a client loss_fn is not ported yet (ROADMAP.md queue 1: the "
+                "rest of the package)")
+        if self._param_offload:
+            if not hasattr(model, "stream_segments"):
+                raise _whole_program(f"a model without stream_segments "
+                                     f"({type(model).__name__})")
+            mcfg = getattr(model, "config", None)
+            if mcfg is not None and hasattr(mcfg, "param_offload"):
+                mcfg.param_offload = True
         self._rng = prng.prng_key(self.config.seed)
         if model_parameters is None:
             # the JAX engine without model_parameters initialises from the
@@ -153,7 +193,10 @@ class DeepSpeedEngine:
             self._rng, _ = prng.split(self._rng)
         self._apply_activation_checkpointing_config(model)
         if hasattr(model, "check_trainable"):
-            model.check_trainable()
+            if self._param_offload:
+                model.check_trainable(streamed=True)
+            else:
+                model.check_trainable()
         self.compute_dtype = self.config.dtype()
         self.grad_accum_dtype = self.config.grad_accum_dtype()
         self.master_dtype = self.config.master_dtype()
@@ -167,6 +210,9 @@ class DeepSpeedEngine:
         self._offload_opt: Optional[OffloadedOptimizer] = None
         self._relay: Optional[OffloadRelay] = None
         self._offload_split: Dict[str, float] = {}
+        self._streamed: Optional[StreamedFwdBwd] = None
+        self._host_blocks: List[PinnedBlock] = []   # the page-locked host copy
+        self._pin_seconds = 0.0
         if self._offload:
             # the card keeps ONE compute-dtype copy; the fp32 masters go to
             # the host optimizer
@@ -202,15 +248,20 @@ class DeepSpeedEngine:
         if self._offload:
             self._build_offload_optimizer(values)
             for (path, p), val in zip(_flatten(model.params()), values):
-                p.data = val.to(self.device, self.compute_dtype, copy=True)
+                p.data = (self._host_leaf(val) if self._param_offload
+                          else val.to(self.device, self.compute_dtype, copy=True))
         del values
         self.master = [p.data for _, p in _flatten(model.params())]
-        self.grad_acc = [torch.zeros_like(p, dtype=self.grad_accum_dtype)
-                         for p in self.master]
+        # under offload_param the fp32 accumulators live on the host, as the
+        # JAX engine's numpy ones
+        acc_dtype = torch.float32 if self._param_offload else self.grad_accum_dtype
+        self.grad_acc = [torch.zeros_like(p, dtype=acc_dtype) for p in self.master]
         self._stacked = [p.dim() > 0 and path.startswith("layers.")
                          for path, p in zip(self._paths, self.master)]
         self._compute: Optional[List[Any]] = None
         self._compute_bufs: Optional[List[torch.Tensor]] = None
+        if self._param_offload:
+            self._build_streamed(model)
 
         self._lr_schedule = None
         if self.config.scheduler is not None:
@@ -281,6 +332,46 @@ class DeepSpeedEngine:
             mcfg.remat_policy = ("offload_dots" if ac.cpu_checkpointing
                                  else ac.policy)
 
+    def _host_leaf(self, val: torch.Tensor) -> torch.Tensor:
+        """A leaf's host copy in the compute dtype: on the card one exact
+        block page-locked once (the JAX package's ``pinned_host``
+        placement), released with the engine; on the CPU a plain tensor."""
+        if self.device.type != "cuda":
+            return val.to("cpu", self.compute_dtype, copy=True)
+        t = time.perf_counter()
+        block = PinnedBlock(val.numel() * self.compute_dtype.itemsize)
+        self._pin_seconds += time.perf_counter() - t
+        self._host_blocks.append(block)
+        out = block.view(0, val.numel(), self.compute_dtype).view(val.shape)
+        # cast on the card, then one DMA into the page-locked block (a
+        # copy_ across both device and dtype would stage the wide values in
+        # pageable host memory first)
+        out.copy_(val.to(self.compute_dtype) if val.is_cuda else val)
+        return out
+
+    def _build_streamed(self, model) -> None:
+        """The streamed forward and backward over the model's segments (the
+        JAX engine's ``_build_streamed_fwdbwd``), bound to the host copy."""
+        p_off = self.config.zero_config.offload_param
+        off = self.config.offload_optimizer_config()
+        self._streamed = StreamedFwdBwd(
+            model.stream_segments(), gas=self.config.gradient_accumulation_steps,
+            device=self.device, use_dropout=True, prefetch=p_off.prefetch,
+            int8=p_off.int8_stream, staging_slots=p_off.staging_slots,
+            quant_block=off.quant_block)
+        self._param_gen = 0
+        self._streamed.bind(self._nest(self.master), self._param_gen)
+        logger.info("offload_param: streamed per-layer fwd/bwd active (device "
+                    "grads bounded to one layer%s%s)",
+                    ", int8 relay" if p_off.int8_stream else "",
+                    ", prefetch off" if not p_off.prefetch else "")
+
+    def _rebind(self) -> None:
+        """The host copy changed (a step or a load): a new generation, and
+        the int8 codes made again."""
+        self._param_gen += 1
+        self._streamed.bind(self._nest(self.master), self._param_gen)
+
     def _build_offload_optimizer(self, values: List[torch.Tensor]) -> None:
         """The host optimizer over the masters' values (the JAX engine's
         ``_build_offload_optimizer`` and its choice of family: Adagrad and
@@ -300,7 +391,7 @@ class DeepSpeedEngine:
                     "families; %s config will be stepped by "
                     "DeepSpeedCPUAdam", name)
         p = dict(opt.params) if opt else {}
-        off = self.config.zero_config.offload_optimizer
+        off = self.config.offload_optimizer_config()
         self._offload_opt = OffloadedOptimizer(
             self._nest(values), backend=self._offload_device,
             lr=p.get("lr", 1e-3), betas=tuple(p.get("betas", (0.9, 0.999))),
@@ -400,6 +491,8 @@ class DeepSpeedEngine:
         return self._scale_dev
 
     def _apply(self) -> torch.Tensor:
+        if self._param_offload:
+            return self._step_param_offload()
         if self._offload:
             return self._step_offload()
         clip = self.config.gradient_clipping
@@ -499,14 +592,76 @@ class DeepSpeedEngine:
         self._offload_split = split
         return gnorm
 
+    @torch.no_grad()
+    def _step_param_offload(self) -> float:
+        """The ZeRO-Infinity step (the JAX engine's ``_step_param_offload``):
+        the grads are in the host accumulators already.  The float64 norm
+        over them, the clip on the host (``clip / (gnorm + 1e-6)`` when the
+        norm is above it), the host optimizer on the flat fp32 grads at the
+        step's lr, the masters cast to the compute dtype into the host copy
+        once no copy reads it, the accumulators zeroed, ``global_steps``."""
+        t0 = time.perf_counter()
+        leaves = [self.grad_acc[j] for j in self._offload_order]
+        gnorm = float(np.sqrt(sum(host_sumsq(g) for g in leaves)))
+        t1 = time.perf_counter()
+        clip = self.config.gradient_clipping
+        if clip and clip > 0 and gnorm > clip:
+            scale = clip / (gnorm + 1e-6)
+            for g in leaves:
+                g.mul_(scale)          # fp32 *= the scale rounded to fp32
+        t2 = time.perf_counter()
+        masters = self._offload_opt.step([g.reshape(-1) for g in leaves],
+                                         lr=self.get_lr()[0])
+        t3 = time.perf_counter()
+        self._streamed.streamer.quiesce()
+        for j, m in zip(self._offload_order, masters):
+            self.master[j].view(-1).copy_(m)
+        self._rebind()
+        t4 = time.perf_counter()
+        for g in leaves:
+            g.zero_()
+        self.global_steps += 1
+        t5 = time.perf_counter()
+        self._offload_split.update(norm_s=t1 - t0, clip_s=t2 - t1,
+                                   host_step_s=t3 - t2, cast_s=t4 - t3,
+                                   zero_s=t5 - t4, step_s=t5 - t0)
+        return gnorm
+
+    def _streamed_micro(self, batch, rng) -> torch.Tensor:
+        """One micro-batch through the streamed forward and backward."""
+        toks, labels, mask = self._unpack_lm_batch(batch)
+        self._streamed.gas = self.config.gradient_accumulation_steps
+        if self._micro_count == 0:
+            self._offload_split = {"fwd_s": 0.0, "bwd_s": 0.0}
+        loss = self._streamed.run(self._nest(self.master), toks, labels, mask,
+                                  rng, self._nest(self.grad_acc))
+        for k, v in self._streamed.last.items():
+            self._offload_split[k] = self._offload_split.get(k, 0.0) + v
+        return loss
+
+    @staticmethod
+    def _unpack_lm_batch(batch):
+        """``(tokens, labels, loss_mask)`` of the batch forms the streamed
+        path takes (the JAX engine's): ``(tokens, labels)`` or a dict with
+        ``tokens`` and ``labels`` (and ``loss_mask``).  Any other form is
+        the whole-program path's."""
+        if isinstance(batch, (tuple, list)) and len(batch) == 2:
+            return batch[0], batch[1], None
+        if isinstance(batch, dict) and "tokens" in batch and "labels" in batch:
+            return batch["tokens"], batch["labels"], batch.get("loss_mask")
+        raise _whole_program(f"a batch of another form ({type(batch).__name__})")
+
     def offload_split(self) -> Dict[str, float]:
         """The last offload step's parts, in ms: ``prep`` (unscale, clip,
         cast, on the host's clock), ``d2h_wait`` (the host blocked on the
         grads' copies), ``h2d_issue`` and ``h2d_wait`` (issuing the params'
         copies, waiting for a staging buffer), ``host_step`` (the host loop
         less those), ``step`` (the whole apply) and, on the card, the
-        device spans ``d2h`` and ``h2d`` (first copy to last).  Synchronizes
-        the card."""
+        device spans ``d2h`` and ``h2d`` (first copy to last).  Under
+        ``offload_param``: ``fwd`` and ``bwd`` (the streamed micro-batches'
+        forward and backward with the host accumulation, summed over the
+        step), ``norm``, ``clip``, ``host_step``, ``cast`` (into the host
+        copy), ``zero`` and ``step``.  Synchronizes the card."""
         s = self._offload_split
         out = {k[:-2]: 1e3 * v for k, v in s.items()}
         if "host_loop_s" in s:
@@ -552,7 +707,8 @@ class DeepSpeedEngine:
         if not self._training:
             return self.evaluate(batch)
         self._rng, rng = prng.split(self._rng)
-        loss = self._accum(batch, rng)
+        loss = (self._streamed_micro(batch, rng) if self._param_offload
+                else self._accum(batch, rng))
         self._micro_count += 1
         self._last_loss = loss
         return loss
@@ -562,6 +718,10 @@ class DeepSpeedEngine:
         """The loss of one batch, no gradients: the JAX engine's eval
         program, which splits the key and draws dropout too."""
         self._rng, rng = prng.split(self._rng)
+        if self._param_offload:
+            toks, labels, mask = self._unpack_lm_batch(self._to_device(batch))
+            return self._streamed.forward(self._nest(self.master), toks, labels,
+                                          mask, rng)
         return self._loss(self._compute_params(), self._to_device(batch),
                           rng).detach()
 
@@ -659,7 +819,9 @@ class DeepSpeedEngine:
 
     def params(self) -> Dict[str, Any]:
         """The masters (fp32, or bf16 when master-free) as the model's
-        nested dict (the tensors themselves)."""
+        nested dict (the tensors themselves); under offload the
+        compute-dtype params (under ``offload_param`` the host copy, current
+        after every step and load)."""
         return self.module.params()
 
     # ------------------------------------------------------------------
@@ -921,6 +1083,8 @@ class DeepSpeedEngine:
             raise ValueError(f"{ckpt_dir}: the tag's optimizer state {where}; "
                              "load it with the offload setting it was saved "
                              "with, or with load_optimizer_states=False")
+        if self._param_offload:
+            self._streamed.streamer.quiesce()    # no copy reads the host copy
         self._load_into(model_dir, self._nest(self.master))
         if self._offload and not load_optim:
             # the loaded params become the host masters too (the moments
@@ -944,6 +1108,8 @@ class DeepSpeedEngine:
                 and meta.get("lr_scheduler")):
             self.lr_scheduler.load_state_dict(meta["lr_scheduler"])
         self._refresh_compute()            # the next step reads the masters
+        if self._param_offload:
+            self._rebind()
         self._restore_client_runtime(meta)
         logger.info("loaded checkpoint %s", ckpt_dir)
         return ckpt_dir, meta.get("client_state", {})

@@ -45,7 +45,9 @@ def _host_copy(leaf) -> torch.Tensor:
     """A fresh flat fp32 CPU tensor holding ``leaf`` (a tensor on any
     device, or an array)."""
     t = leaf if torch.is_tensor(leaf) else torch.from_numpy(np.asarray(leaf))
-    out = torch.empty(t.numel(), dtype=torch.float32)
+    # zeroed first when the copy comes from the card: the pages are touched
+    # by all of torch's threads, not one at a time inside the copy
+    out = (torch.zeros if t.is_cuda else torch.empty)(t.numel(), dtype=torch.float32)
     out.copy_(t.detach().reshape(-1))
     return out
 

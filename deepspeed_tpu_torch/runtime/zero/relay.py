@@ -56,7 +56,9 @@ class PinnedBlock:
     block goes away."""
 
     def __init__(self, nbytes: int):
-        self.buf = torch.empty(max(nbytes, 1), dtype=torch.uint8)
+        # zeroed first: the pages are touched by all of torch's threads, so
+        # that registering them does not fault each one in alone
+        self.buf = torch.zeros(max(nbytes, 1), dtype=torch.uint8)
         self._cudart = torch.cuda.cudart()
         torch.cuda.check_error(self._cudart.cudaHostRegister(
             self.buf.data_ptr(), self.buf.numel(), 0))

@@ -3156,3 +3156,108 @@ def test_offload_step_on_card_equals_the_cpu_port(cuda_device, section, tmp_path
     np.testing.assert_allclose(lg, lc, rtol=1e-3 if bf16 else 1e-4)
     for a, b in zip(pc, pg):
         torch.testing.assert_close(b, a, rtol=0, atol=1e-2 if bf16 else 1e-4)
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-Infinity (offload_param): the parameter streamer and the streamed step
+# ---------------------------------------------------------------------------
+
+def _stacked_host(layers, n, dtype):
+    """A stacked ``[L, n]`` host leaf page-locked as the engine's host copy
+    is, each layer filled with its index."""
+    from deepspeed_tpu_torch.runtime.zero.relay import PinnedBlock
+
+    block = PinnedBlock(layers * n * dtype.itemsize)
+    t = block.view(0, layers * n, dtype).view(layers, n)
+    for i in range(layers):
+        t[i].fill_(float(i + 1))
+    return block, t
+
+
+@pytest.mark.parametrize("prefetch", [True, False])
+def test_param_streamer_reuses_a_slot_only_after_its_readers_event(cuda_device, prefetch):
+    """Eight 32 MiB layers through two slots, each read by a long chain of
+    kernels on the compute stream: every copy that reuses a slot starts
+    after the event its last reader recorded (device timestamps), each
+    payload holds its own layer's bytes when its reader runs, and with
+    prefetch every take finds its layer in flight (without, every take
+    misses)."""
+    from deepspeed_tpu_torch.runtime.zero.streaming import ParamStreamer
+
+    L, n = 8, 1 << 24
+    block, host = _stacked_host(L, n, torch.bfloat16)
+    st = ParamStreamer(cuda_device, prefetch=prefetch, staging_slots=2)
+    st.refresh({"w": host})
+    sums = []
+    st.prefetch(0)
+    for i in range(L):
+        if i + 1 < L:
+            st.prefetch(i + 1)
+        lp = st.take(i)
+        w = st.materialize(lp)["w"]
+        acc = w.float()
+        for _ in range(8):             # a reader that takes a while
+            acc = acc * 1.0 + 0.0
+        sums.append(acc.sum())
+        st.release(lp)
+    torch.cuda.synchronize()
+    assert [float(s) for s in sums] == [float((i + 1) * n) for i in range(L)]
+    gaps = st.reuse_gaps_ms()
+    assert len(gaps) == len(st.reuse_log) == L - 2 and min(gaps) >= 0
+    assert [(slot, old) for slot, old, *_ in st.reuse_log] == [
+        (i % 2, i - 2) for i in range(2, L)]
+    if prefetch:
+        assert (st.prefetch_hits, st.prefetch_misses) == (L, 0)
+    else:
+        assert (st.prefetch_hits, st.prefetch_misses) == (0, L)
+    assert st.h2d_bytes == L * n * 2 and st.stall_seconds() >= 0
+    del block
+
+
+def test_streamed_step_leaves_no_param_or_grad_on_the_card(cuda_device):
+    """llama-tiny with ``offload_param`` on the card and on the CPU, fp32,
+    three steps: losses within rtol 1e-4 and host masters within atol 1e-4
+    (the train gates' bounds); the card holds no param, grad or
+    accumulator: the params and the accumulators are host tensors, and
+    after each step the card holds only the streamer's slots (a few MiB of
+    small tensors allowed, after a warm-up step of an engine without
+    offload made cuBLAS's workspaces and the kernels' scratch)."""
+    import gc
+
+    import deepspeed_tpu_torch
+
+    cfg = {"train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 2,
+           "optimizer": {"type": "AdamW", "params": {
+               "lr": 3e-4, "betas": [0.9, 0.95], "weight_decay": 0.1}},
+           "scheduler": {"type": "WarmupLR", "params": {
+               "warmup_max_lr": 3e-4, "warmup_num_steps": 2}},
+           "gradient_clipping": 1.0}
+    tok = np.random.default_rng(0).integers(0, 32000, (4, 96))
+    warm, *_ = deepspeed_tpu_torch.initialize(
+        model=deepspeed_tpu_torch.causal_lm("llama-tiny", device="cpu"),
+        config=cfg, device=cuda_device)
+    warm.train_step((tok, tok))
+    del warm
+    cfg["zero_optimization"] = {"stage": 0, "offload_param": {"device": "cpu"}}
+    runs = []
+    for dev in ("cpu", cuda_device):
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(cuda_device)
+        model = deepspeed_tpu_torch.causal_lm("llama-tiny", device="cpu")
+        engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=cfg,
+                                                    device=dev)
+        losses = []
+        for _ in range(3):
+            losses.append(float(engine.train_step((tok, tok))))
+            if dev != "cpu":
+                torch.cuda.synchronize()
+                held = torch.cuda.memory_allocated(cuda_device) - before
+                assert held <= engine._streamed.streamer.slot_bytes() + (8 << 20)
+        assert not any(t.is_cuda for t in engine.master + engine.grad_acc)
+        assert all(float(a.abs().max()) == 0 for a in engine.grad_acc)
+        runs.append((losses, [m.clone() for m in engine._offload_opt.masters()]))
+    (lc, pc), (lg, pg) = runs
+    np.testing.assert_allclose(lg, lc, rtol=1e-4)
+    for a, b in zip(pc, pg):
+        torch.testing.assert_close(b, a, rtol=0, atol=1e-4)

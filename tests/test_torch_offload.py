@@ -485,7 +485,8 @@ def test_int8_masters_engine_relays_codes_and_refuses_nvme(jax_init, tmp_path):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("zero,item", [
-    ({"stage": 0, "offload_param": {"device": "cpu"}}, "offload_param streaming"),
+    ({"stage": 0, "offload_param": {"device": "cpu", "stream_grads": False}},
+     "the whole-program offload_param path"),
     ({"stage": 1, "offload_optimizer": {"device": "cpu"}}, "ZeRO 1-3 over torch.distributed"),
     ({"stage": 3, "offload_optimizer": {"device": "nvme", "nvme_path": "/x"}},
      "ZeRO 1-3 over torch.distributed")])

@@ -79,6 +79,14 @@ def test_import_rule_covers_the_offload_modules(part):
     assert ROOT / "deepspeed_tpu_torch" / part in PORT_FILES
 
 
+@pytest.mark.parametrize("part", ["runtime/zero/streaming.py",
+                                  "runtime/zero/stream_grad.py"])
+def test_import_rule_covers_the_streaming_modules(part):
+    """ZeRO-Infinity's streamer and streamed forward and backward are the
+    port's own: the import rule above walks each of their files."""
+    assert ROOT / "deepspeed_tpu_torch" / part in PORT_FILES
+
+
 def test_import_leaves_jax_unloaded():
     code = ("import sys\n"
             "def jaxish():\n"
@@ -99,6 +107,7 @@ def test_import_leaves_jax_unloaded():
             "import deepspeed_tpu_torch.ops.lion, deepspeed_tpu_torch.ops.sgd\n"
             "import deepspeed_tpu_torch.ops.adagrad, deepspeed_tpu_torch.ops.adam\n"
             "import deepspeed_tpu_torch.runtime.activation_checkpointing\n"
+            "import deepspeed_tpu_torch.runtime.zero.stream_grad\n"
             "print(sorted(jaxish() - before))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env={**os.environ, "PYTHONPATH": str(ROOT)},
@@ -253,7 +262,7 @@ def test_initialize_without_a_card_raises(monkeypatch):
     {"pipeline": {"stages": 2}}, {"mesh": {"tp": 2}},
     {"tensor_parallel": {"tp_size": 2}}, {"tensorboard": {"enabled": True}},
     {"flops_profiler": {"enabled": True}}, {"watchdog": {"enabled": True}},
-    {"zero_optimization": {"offload_param": {"device": "cpu"}}},
+    {"zero_optimization": {"offload_param": {"device": "cpu", "stream_grads": False}}},
     {"optimizer": {"type": "ZeroOneAdam", "params": {}}},
     {"optimizer": {"type": "OneBitLamb", "params": {}}},
     {"optimizer": {"type": "OneBitAdam", "params": {}}}])
@@ -272,8 +281,10 @@ def test_unported_training_config_sections_are_refused(section):
     {"dropout": 0.1, "remat": True, "remat_policy": "offload_dots",
      "param_offload": True}])
 def test_unported_training_model_options_are_refused(over):
-    """The JAX package's streamed layer weights (``param_offload``, which
-    its engine sets under ``offload_param``) raise naming ROADMAP.md, also
+    """``param_offload`` on a model trained through ``apply`` (the JAX
+    package's whole-program path, its layer weights moved in from host
+    memory inside the program; the port trains ``offload_param`` through
+    the model's stream segments instead) raises naming ROADMAP.md, also
     beside dropout and ``offload_dots``, which train."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models.config import get_model_config
@@ -283,7 +294,8 @@ def test_unported_training_model_options_are_refused(over):
     model = CausalLM(cfg, device="cpu")      # a dense llama's parameters
     for k, v in over.items():
         setattr(model.config, k, v)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.*the whole-program offload_param path"):
         deepspeed_tpu_torch.initialize(model=model, config={}, device="cpu")
 
 
