@@ -259,6 +259,18 @@ Needs one CUDA card, nvcc and triton; imports nothing of JAX.  Phases
              MFU, the peak against the bf16 params and its parts; checks
              the peak below the bf16 params, only the slots between steps,
              launches equal to the streamed plan, losses falling);
+   zero_*  — ZeRO stages 1-3 over torch.distributed (NCCL, a world of
+             one over a ``FileStore`` under ``build/``, no socket):
+             ``zero_reference`` (llama-1b4 at full width cut to
+             ZERO_REFERENCE_LAYERS layers, TRAIN_CONFIG, 3 steps from seed
+             0 at stage 0 on the plain path, then stages 1, 2 and 3 over
+             the group: losses, grad norms and masters bit-equal to stage
+             0's, every stage's collectives counted, the CE weight exactly
+             1.0); ``zero_train`` (llama-1b4 at full width and depth at
+             stage 3, threshold 0, bf16 over fp32 masters, micro 4 x gas 2
+             x S 2048, 5 steps and a profiled one: step time, tokens/s,
+             MFU, peak, the collectives' calls and bytes a step, the
+             device's busy share; launches equal to the train plan);
    checkpoint — after the ``train`` phase, its cell again (llama-1b4 cut
              to CHECKPOINT_LAYERS, TRAIN_CONFIG, 5 steps), then ``save_checkpoint`` into a
              temporary directory (the free space printed first and
@@ -951,6 +963,11 @@ def norm_host_path(torch, kind, x, *scale, calls=20000):
 PROFILE_PAD_S = 0.02
 
 
+# the kernel of torch.cuda._sleep, launched at the start of a profile
+# session of device_us_a_call and left out of its counts
+MARKER_KERNEL = "spin_kernel"
+
+
 def profile_pad():
     time.sleep(PROFILE_PAD_S)
 
@@ -959,7 +976,9 @@ def device_us_a_call(torch, call, what, calls=200, sessions=4):
     """Device us a call of ``call`` under torch.profiler (every kernel it
     launches, the mean over ``calls`` calls), and the kernels' names.  Each
     kernel must be launched once a call: a session that comes back with
-    fewer records than calls is taken again."""
+    fewer records than calls is taken again.  A marker kernel opens each
+    session (some card processes lose a session's first record, PERF.md
+    §7); its record is left out."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -968,11 +987,18 @@ def device_us_a_call(torch, call, what, calls=200, sessions=4):
     for session in range(1, sessions + 1):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             profile_pad()
+            # a marker launch ahead of the calls: in a process whose
+            # sessions each lose their first record, the marker's is lost
+            torch.cuda._sleep(1)
             for _ in range(calls):
                 call()
             torch.cuda.synchronize()
             profile_pad()
         ev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        marker = [e for e in ev if MARKER_KERNEL in e.key]
+        ev = [e for e in ev if MARKER_KERNEL not in e.key]
+        if not marker:
+            print(f"{what}: profile session {session} lost the marker's record")
         if ev and all(e.count == calls for e in ev):
             return (sum(e.self_device_time_total for e in ev) / calls,
                     sorted({e.key[:60] for e in ev}))
@@ -5418,6 +5444,158 @@ def phase_train_profile(torch, engine, tokens):
     return out
 
 
+# ZeRO over torch.distributed: llama-1b4 at stage 3 (threshold 0: every
+# leaf a dim divides is sharded) at a world of one, and the stages' check
+# at 4 layers of its full width
+ZERO3_SECTION = {"zero_optimization": {"stage": 3,
+                                       "stage3_param_persistence_threshold": 0}}
+ZERO_REFERENCE_LAYERS = 4
+
+
+def zero_group(torch):
+    """Join a world-one NCCL group over a ``FileStore`` under ``build/``."""
+    import torch.distributed as dist
+
+    from deepspeed_tpu_torch.comm import comm
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    path = os.path.join(root, f"zero_store_{os.getpid()}")
+    if os.path.exists(path):
+        os.remove(path)
+    comm.init_distributed(device="cuda", store=dist.FileStore(path, 1), rank=0,
+                          world_size=1, verbose=False)
+    check(comm.get_world_size() == 1 and
+          dist.get_backend() == "nccl", "zero: not a world-one NCCL group")
+    return path
+
+
+def phase_zero_reference(torch, dev):
+    """Stages 0-3 at llama-1b4's full width cut to ZERO_REFERENCE_LAYERS
+    layers, TRAIN_CONFIG, 3 steps each from seed 0 on the same tokens:
+    stage 0 on the plain path (no process group), then stages 1, 2 and 3
+    over a world-one NCCL group, where every collective returns its input
+    and the CE weight is 1.0.  Losses, grad norms and masters bit-equal to
+    stage 0's; each stage's collectives ran (all_reduce and all_gather from
+    stage 1, reduce_scatter and all_to_all from 2: llama's optimizer state
+    shards on another dim than most of its grads)."""
+    import gc
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.comm import comm
+
+    micro, S = TRAIN_CELLS["llama-1b4"]
+    gas = TRAIN_CONFIG["gradient_accumulation_steps"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ref = None
+    store = None
+    try:
+        for stage in (0, 1, 2, 3):
+            if stage == 1:
+                store = zero_group(torch)
+            model = train_model("llama-1b4", num_layers=ZERO_REFERENCE_LAYERS)
+            cfg = model.config
+            if ref is None:
+                tokens = torch.randint(0, cfg.vocab_size, (gas * micro, S),
+                                       device=dev, generator=gen)
+            engine, *_ = deepspeed_tpu_torch.initialize(
+                model=model, config=dict(TRAIN_CONFIG, zero_optimization={
+                    "stage": stage, "stage3_param_persistence_threshold": 0}))
+            comm.reset_counters()
+            steps = []
+            for _ in range(3):
+                loss = float(engine.train_step((tokens, tokens)))
+                steps.append((loss, engine.get_global_grad_norm()))
+            torch.cuda.synchronize()
+            counts = comm.counters()
+            masters = [t.detach().clone() for _, t in
+                       sorted(_flat_tree(engine.params()).items())]
+            plan = engine._plan or []
+            print(f"zero_reference: stage {stage} ({'plain path' if stage == 0 else 'NCCL world 1'}) "
+                  f"losses {[x[0] for x in steps]} grad norms "
+                  f"{[x[1] for x in steps]}; leaves sharded: param "
+                  f"{sum(p.param for p in plan)}, optimizer state "
+                  f"{sum(p.opt for p in plan)}, accumulator {sum(p.acc for p in plan)} "
+                  f"of {len(engine.master)}; optimizer slices of their own "
+                  f"{sum(engine._own_opt(p) for p in plan)}; collectives "
+                  f"{json.dumps(counts)}")
+            if stage == 0:
+                check(not engine._dist and not counts,
+                      "zero_reference: stage 0 without a group ran a collective")
+                ref = (steps, masters)
+            else:
+                check(engine._dist, f"zero_reference: stage {stage} not distributed")
+                want = {"all_reduce", "all_gather"} | (
+                    {"reduce_scatter", "all_to_all"} if stage >= 2 else set())
+                ran = {op for op, c in counts.items() if c["calls"] > 0}
+                check(want <= ran, f"zero_reference: stage {stage} ran {ran}, "
+                      f"not {want}")
+                weight = engine._ce_weight((tokens[:micro], tokens[:micro]))
+                check(float(weight) == 1.0, f"zero_reference: CE weight {weight}")
+                check(steps == ref[0], f"zero_reference: stage {stage} steps "
+                      f"{steps} != stage 0's {ref[0]}")
+                bad = [i for i, (a, b) in enumerate(zip(masters, ref[1]))
+                       if not torch.equal(a, b)]
+                check(not bad, f"zero_reference: stage {stage} masters differ "
+                      f"from stage 0's at leaves {bad}")
+                print(f"zero_reference: stage {stage} bit-equal to stage 0 "
+                      f"(losses, grad norms, {len(masters)} masters)")
+            del engine, model, masters
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        comm.destroy()
+        if store and os.path.exists(store):
+            os.remove(store)
+
+
+def _flat_tree(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}.{k}" if prefix else k
+        out.update(_flat_tree(v, path) if isinstance(v, dict) else {path: v})
+    return out
+
+
+def phase_zero_train(torch, dev, peaks, medians):
+    """llama-1b4 at full width and depth at stage 3 over a world-one NCCL
+    group (phase_train with ZERO3_SECTION): its steps, tokens/s, MFU,
+    peak, launches against the train plan and profile, and the
+    collectives' calls and bytes a step (the difference of the counters
+    after the last two steps)."""
+    from deepspeed_tpu_torch.comm import comm
+
+    snaps = []
+    store = zero_group(torch)
+    try:
+        comm.reset_counters()
+        out = phase_train(torch, dev, "llama-1b4", "zero_train", ZERO3_SECTION,
+                          peaks, medians,
+                          on_step=lambda engine: snaps.append(comm.counters()),
+                          report=lambda engine, info: print(
+                              f"zero_train: leaves sharded: param "
+                              f"{sum(p.param for p in engine._plan)}, optimizer "
+                              f"state {sum(p.opt for p in engine._plan)}, "
+                              f"accumulator {sum(p.acc for p in engine._plan)} of "
+                              f"{len(engine._plan)}; optimizer slices of their own "
+                              f"{sum(engine._own_opt(p) for p in engine._plan)} "
+                              f"({sum(t.numel() for p, t in zip(engine._plan, engine._opt_params) if engine._own_opt(p)) * 4 / 2**30:.2f} GiB fp32)"))
+    finally:
+        comm.destroy()
+        if os.path.exists(store):
+            os.remove(store)
+    last, prev = snaps[-1], snaps[-2]
+    step = {op: {k: last[op][k] - prev.get(op, {}).get(k, 0) for k in ("calls", "bytes")}
+            for op in last}
+    check(all(step.get(op, {}).get("calls", 0) > 0
+              for op in ("all_reduce", "reduce_scatter", "all_gather", "all_to_all")),
+          f"zero_train: a collective did not run in a step: {step}")
+    print(f"zero_train: collectives a step {json.dumps(step)}, "
+          f"{sum(v['bytes'] for v in step.values()) / 1e9:.3f} GB in all "
+          f"(NCCL at a world of one: each a copy on the card)")
+    return out
+
+
 # ZeRO-Offload of the optimizer state (zero_optimization.offload_optimizer):
 # the fp32 masters and moments on the host, stepped by the host C++ Adam
 ZERO_OFFLOAD = {"zero_optimization": {"stage": 0, "offload_optimizer": {
@@ -5651,6 +5829,9 @@ PARAM_OFFLOAD_HOST_BYTES = 12 + 2 + 4
 # the reference's extra depth: the peak must not grow by more than the
 # extra layers' boundary activations
 PARAM_OFFLOAD_DEEP_LAYERS = 8
+# param_offload_train's depth for the smoke's 600 s aim beside the zero phases (host
+# memory holds ~20 of 32 layers; each took ~0.6 s of a step's 12 s)
+PARAM_OFFLOAD_TRAIN_LAYERS = 12
 PEAK_ROUNDING = 4 << 20
 
 
@@ -5864,14 +6045,20 @@ def phase_param_offload_train(torch, dev, peaks, medians):
     layers = full
     while layers > 1 and param_offload_host_bytes("llama2-7b", layers)[0] > budget:
         layers -= 1
+    by_memory = layers
+    layers = min(layers, PARAM_OFFLOAD_TRAIN_LAYERS)
     need, n, per_layer = param_offload_host_bytes("llama2-7b", layers)
     check(need <= budget, f"param_offload_train: even 1 layer needs {need} B of "
           f"host memory against {budget:.0f}")
     print(f"param_offload_train: {ident}; host MemTotal {total} B "
           f"({total / 2**30:.2f} GiB), MemAvailable {avail} B "
           f"({avail / 2**30:.2f} GiB), {cores} cores")
-    if layers < full:
-        print(f"param_offload_train: depth cut {full} -> {layers} layers: at "
+    if layers < by_memory:
+        print(f"param_offload_train: depth cut {by_memory} -> {layers} layers "
+              f"(PARAM_OFFLOAD_TRAIN_LAYERS) for the smoke's 600 s aim, beside "
+              f"the zero phases; host memory holds {by_memory}")
+    if by_memory < full:
+        print(f"param_offload_train: depth cut {full} -> {by_memory} layers: at "
               f"{full} layers the host holds {PARAM_OFFLOAD_HOST_BYTES} B x "
               f"{n_full / 1e9:.4f}B params (fp32 masters and moments 12, the "
               f"bf16 host copy 2, the fp32 accumulator 4) and the grads' ring: "
@@ -6241,6 +6428,7 @@ def main() -> int:
     c("optimizer_reference", phase_optimizer_reference, torch, dev)
     c("zero_offload_reference", phase_zero_offload_reference, torch, dev)
     c("param_offload_reference", phase_param_offload_reference, torch, dev)
+    c("zero_reference", phase_zero_reference, torch, dev)
     # each path: (launch counts of its run, device ms per call in its profile)
     peaks, medians = {}, {}
     serve_keep, gen_keep = {}, {}
@@ -6253,6 +6441,8 @@ def main() -> int:
             "mixtral_serve": c("mixtral_serve", phase_mixtral, torch, dev),
             "train": c("train", phase_train, torch, dev, "llama-1b4", "train",
                        peaks=peaks, medians=medians),
+            "zero_train": c("zero_train", phase_zero_train, torch, dev, peaks,
+                            medians),
             "checkpoint": c("checkpoint", phase_checkpoint, torch, dev),
             "fp16_train": c("fp16_train", phase_train, torch, dev, "llama-1b4",
                             "fp16_train", FP16_CONFIG, peaks, medians),

@@ -41,17 +41,28 @@ dataloader's position) are the JAX package's sharded layout, so either
 package resumes the other's tags; ``zero_to_fp32``
 (:mod:`deepspeed_tpu_torch.utils.zero_to_fp32`), the universal layout
 (:mod:`deepspeed_tpu_torch.checkpoint`) and ``init_inference(...,
-checkpoint=dir)`` read them.  ROADMAP.md lists what comes next.
+checkpoint=dir)`` read them.  It trains data-parallel over
+``torch.distributed`` (NCCL on the cards, gloo on the CPU) with ZeRO stages
+0-3 (``zero_optimization.stage``: the optimizer state, then the gradients,
+then the fp32 masters sharded over the mesh's ``fsdp`` axis, as the JAX
+engine's partitions; ``mesh: {"dp": ..., "fsdp": ...}``): run a script
+under ``torchrun --nproc_per_node=N``, or in any process with a process
+group; :mod:`deepspeed_tpu_torch.comm` holds the collectives and the mesh,
+``deepspeed_tpu_torch.zero`` ``Init`` and ``GatheredParameters``.
+ROADMAP.md lists what comes next.
 """
 
 from __future__ import annotations
 
 from typing import Any
 
+from deepspeed_tpu_torch import comm  # noqa: F401
 from deepspeed_tpu_torch.accelerator.real_accelerator import DeviceLike
 from deepspeed_tpu_torch.models import causal_lm
+from deepspeed_tpu_torch.runtime import zero  # noqa: F401
 
-__all__ = ["initialize", "init_inference", "init_serving", "causal_lm"]
+__all__ = ["initialize", "init_inference", "init_serving", "causal_lm", "comm",
+           "zero"]
 
 
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,
@@ -78,7 +89,16 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     precedence over the config's optimizer section, as in the JAX
     engine.  Under ``zero_optimization.offload_param`` the params stay in
     host memory and train a layer at a time on the card (ZeRO-Infinity).
-    A client ``loss_fn`` is refused (not ported)."""
+    A client ``loss_fn`` is refused (not ported).
+
+    Under ``torchrun`` (``WORLD_SIZE`` set) it joins the process group
+    (:func:`deepspeed_tpu_torch.comm.init_distributed`: NCCL on
+    ``cuda:LOCAL_RANK``, gloo for ``device="cpu"``), or takes the group that
+    exists; the batch triad is then resolved over the data-parallel world,
+    each rank trains on its rows of the global batch and holds its ZeRO
+    partition (``zero_optimization.stage``)."""
+    import os
+
     import torch
 
     from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
@@ -87,7 +107,13 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     cfg = config if config is not None else config_params
     if cfg is None and args is not None and hasattr(args, "deepspeed_config"):
         cfg = args.deepspeed_config
-    cfg = cfg if isinstance(cfg, DeepSpeedConfig) else DeepSpeedConfig(cfg)
+    if not comm.is_initialized() and "WORLD_SIZE" in os.environ:
+        comm.init_distributed(device=device)
+    world = comm.get_world_size()
+    if isinstance(cfg, DeepSpeedConfig) and cfg.world_size != world:
+        cfg = cfg._param_dict
+    cfg = (cfg if isinstance(cfg, DeepSpeedConfig)
+           else DeepSpeedConfig(cfg, world_size=world))
     torch.manual_seed(int(cfg.seed if seed is None else seed))
     engine = DeepSpeedEngine(model, cfg, model_parameters=model_parameters,
                              device=device, training_data=training_data,

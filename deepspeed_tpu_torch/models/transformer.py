@@ -303,6 +303,53 @@ class CausalLM(_ParamTree):
         read; the tensors are the module's own parameters, not copies."""
         return self.tree()
 
+    def logical_pspecs(self) -> Dict[str, Any]:
+        """The tensor- and expert-parallel claims on each leaf's dims (the
+        JAX ``CausalLM.logical_pspecs``, the AutoTP column / row map), as
+        tuples of axis names: ZeRO shards a param and its grads past them,
+        as the JAX engine does, also while ``tp`` and ``ep`` are 1."""
+        cfg = self.config
+        col = (None, None, "tp")        # [L, D, H*Dh] / [L, D, F]
+        row = (None, "tp", None)        # [L, F, D] / [L, H*Dh, D]
+        norm_spec = {"scale": (None, None)}
+        if cfg.norm == "layernorm":
+            norm_spec["bias"] = (None, None)
+        attn = {"wq": col, "wk": col, "wv": col, "wo": row}
+        if cfg.use_bias or cfg.qkv_bias:
+            attn.update(bq=(None, "tp"), bk=(None, "tp"), bv=(None, "tp"))
+        if cfg.use_bias:
+            attn.update(bo=(None, None))
+        if cfg.is_moe:
+            mlp = {"gate_w": (None, None, None),
+                   "w_up": (None, "ep", None, "tp"),
+                   "w_down": (None, "ep", "tp", None)}
+            if cfg.glu:
+                mlp["w_gate"] = (None, "ep", None, "tp")
+        else:
+            mlp = {"w_up": col, "w_down": row}
+            if cfg.glu:
+                mlp["w_gate"] = col
+            if cfg.has_mlp_bias:
+                mlp.update(b_up=(None, "tp"), b_down=(None, None))
+                if cfg.glu:
+                    mlp["b_gate"] = (None, "tp")
+        fnorm = {"scale": (None,)}
+        if cfg.norm == "layernorm":
+            fnorm["bias"] = (None,)
+        specs = {"embed": {"tok": ("tp", None)},
+                 "layers": {"attn_norm": norm_spec, "mlp_norm": dict(norm_spec),
+                            "attn": attn, "mlp": mlp},
+                 "final_norm": fnorm}
+        if cfg.position == "learned":
+            specs["embed"]["pos"] = (None, None)
+        if cfg.embed_norm:
+            specs["embed"]["norm"] = {"scale": (None,), "bias": (None,)}
+        if not cfg.tie_embeddings:
+            specs["lm_head"] = (None, "tp")
+        if cfg.lm_head_bias:
+            specs["lm_head_bias"] = ("tp",)
+        return specs
+
     # ------------------------------------------------------------------
     # training forward (JAX ``CausalLM.apply``)
     # ------------------------------------------------------------------
@@ -471,7 +518,7 @@ class CausalLM(_ParamTree):
     def apply(self, params: Dict[str, Any], tokens: torch.Tensor,
               labels: Optional[torch.Tensor] = None,
               loss_mask: Optional[torch.Tensor] = None,
-              rngs: Any = None) -> torch.Tensor:
+              rngs: Any = None, ce_weight: Any = None) -> torch.Tensor:
         """Logits [B, S, V] (no labels) or the mean next-token loss.
         ``params`` is the nested JAX-layout dict; a layer leaf may be the
         stacked ``[L, ...]`` tensor or a sequence of L per-layer tensors
@@ -479,7 +526,9 @@ class CausalLM(_ParamTree):
         ``{"dropout": key}``) for dropout, as the JAX ``apply``: with
         ``dropout > 0`` it splits into one key a layer.  An MoE model's loss
         adds ``moe_aux_loss_coef`` times the sum of its layers' aux losses,
-        in layer order, as the JAX ``apply``."""
+        in layer order, as the JAX ``apply``.  ``ce_weight`` (a scalar)
+        multiplies the cross-entropy alone: the data-parallel engine's
+        weight, which leaves the aux loss a per-rank mean."""
         cfg = self.config
         x = params["embed"]["tok"][tokens]
         S = tokens.shape[1]
@@ -515,6 +564,8 @@ class CausalLM(_ParamTree):
             return logits
         loss = self._loss_tail(params["final_norm"], head, x, labels, loss_mask,
                                head_bias=params.get("lm_head_bias"))
+        if ce_weight is not None:
+            loss = loss * ce_weight
         return loss + cfg.moe_aux_loss_coef * aux_loss if cfg.is_moe else loss
 
     def _loss_tail(self, fnorm, head, x, labels, loss_mask, head_bias=None):

@@ -23,12 +23,20 @@ the port cannot match bit for bit; the port then draws from a
 batch and repeats under remat, but is not JAX's stream.  The dispatch quantization of the JAX package (``moe_q_dispatch``)
 acts only across an ``ep`` axis, so it is a no-op here, as it is there at
 ep = 1.
+
+Under a data-parallel engine (:func:`global_aux_stats`) the aux loss's
+two means, of the router's probabilities and of the top-1 choices, are
+taken over the global batch (summed over the data-parallel group, the
+probabilities' sum differentiated), as the JAX engine's GSPMD program takes
+them over its global array; the capacity and the slots stay each rank's
+own rows'.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -60,6 +68,21 @@ def _permutation(n: int, generator, device):
                           else device).to(device)
 
 
+_AUX_GROUP: Optional[Tuple[Any, int]] = None      # (group, world) or None
+
+
+@contextlib.contextmanager
+def global_aux_stats(group: Any, world: int):
+    """Inside: the aux loss's means are the data-parallel group's (the
+    engine's forward runs in it)."""
+    global _AUX_GROUP
+    prev, _AUX_GROUP = _AUX_GROUP, (group, world)
+    try:
+        yield
+    finally:
+        _AUX_GROUP = prev
+
+
 def _topk_slots(gates: torch.Tensor, k: int, capacity: int):
     """Per slot j < k: (expert [N], position in its buffer [N], kept gate
     [N] fp32), the kept-gate sum [N] and the aux loss."""
@@ -75,6 +98,12 @@ def _topk_slots(gates: torch.Tensor, k: int, capacity: int):
         if slot == 0:
             me = gates.mean(dim=0)
             ce = onehot.float().mean(dim=0)
+            if _AUX_GROUP is not None:
+                from deepspeed_tpu_torch.comm import comm
+
+                group, world = _AUX_GROUP
+                me = comm.all_reduce_grad(me, group) / world
+                ce = comm.all_reduce(ce, group) / world
             aux = E * (me * ce).sum()
         ahead = torch.cumsum(onehot, dim=0) - onehot + base[None]
         pos = (ahead * onehot).sum(dim=-1)                          # [N]

@@ -12,6 +12,11 @@ lamb_phase1`, three launches in all), as the JAX package issues two
 ``pallas_call`` per leaf.  The weight decay applies to every leaf, with no
 mask, as in JAX.
 
+Over ZeRO shards (``sharded``: a parameter's process group, set by the
+engine for each parameter that is a slice of its leaf) the two norms are
+the leaf's: the slices' squares summed over the group before the trust
+ratio.
+
 ``fused=False`` runs the plain fp32 formula of ``optax.lamb`` instead, what
 the JAX package builds for ``Lamb`` and ``"torch_lamb": true``:
 ``scale_by_adam`` (moments divided by ``1 - b^t``), decayed weights, the
@@ -25,12 +30,13 @@ optimizer for the same config holds it in a checkpoint: ``FusedLambState``
 
 from __future__ import annotations
 
-from typing import Any, Callable, Iterable, NamedTuple, Optional, Sequence, Union
+from typing import Any, Callable, Dict, Iterable, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from deepspeed_tpu_torch.ops.kernels.fused_lamb import fused_lamb_update
+from deepspeed_tpu_torch.ops.kernels.fused_lamb import (fused_lamb_update, lamb_phase1,
+                                                        lamb_scale)
 from deepspeed_tpu_torch.ops.optax_states import (EMPTY, ScaleByAdamState,
                                                   count_leaf, lr_state)
 
@@ -55,6 +61,7 @@ class FusedLamb(torch.optim.Optimizer):
         super().__init__(params, defaults)
         self.fused = fused
         self.count = 0
+        self.sharded: Dict[int, Any] = {}    # id(param) -> its shards' group
 
     def current_lr(self, group) -> float:
         """The learning rate the next :meth:`step` applies: the schedule at
@@ -96,7 +103,6 @@ class FusedLamb(torch.optim.Optimizer):
                              f"{len(params)} parameters")
         lrs = [self.current_lr(g) for g in self.param_groups]
         self.count += 1
-        update = fused_lamb_update if self.fused else optax_lamb_update
         it = iter(grads)
         for group, lr in zip(self.param_groups, lrs):
             b1, b2 = group["betas"]
@@ -105,17 +111,45 @@ class FusedLamb(torch.optim.Optimizer):
                 if g is None:
                     continue
                 st = self._state_of(p)
-                update(p, g, st["exp_avg"], st["exp_avg_sq"], self.count, lr=lr,
-                       beta1=b1, beta2=b2, eps=group["eps"],
-                       weight_decay=group["weight_decay"])
+                args = (p, g, st["exp_avg"], st["exp_avg_sq"], self.count)
+                kw = dict(beta1=b1, beta2=b2, eps=group["eps"],
+                          weight_decay=group["weight_decay"])
+                shards = self.sharded.get(id(p))
+                if not self.fused:
+                    optax_lamb_update(*args, lr=lr, norm_group=shards, **kw)
+                elif shards is None:
+                    fused_lamb_update(*args, lr=lr, **kw)
+                else:
+                    stats = _leaf_stats(lamb_phase1(*args, lr=lr, **kw), lr, shards)
+                    lamb_scale(p, st["exp_avg"], st["exp_avg_sq"], stats,
+                               self.count, **kw)
         return loss
+
+
+def _leaf_norm(norm: torch.Tensor, group: Any) -> torch.Tensor:
+    """A slice's norm into its leaf's: the squares summed over ``group``."""
+    from deepspeed_tpu_torch.comm import comm
+
+    return torch.sqrt(comm.all_reduce(norm.square(), group))
+
+
+def _leaf_stats(stats: torch.Tensor, lr: float, group: Any) -> torch.Tensor:
+    """Phase 1's (||p||, ||u||, lr * trust) of a slice made the leaf's."""
+    from deepspeed_tpu_torch.comm import comm
+
+    w, u = torch.sqrt(comm.all_reduce(stats[:2].square(), group)).unbind()
+    trust = torch.where((w > 0) & (u > 0), w / u, torch.ones_like(w))
+    return torch.stack([w, u, lr * trust])
 
 
 def optax_lamb_update(param, grad, m, v, step: int, *, lr: float,
                       beta1: float = 0.9, beta2: float = 0.999,
-                      eps: float = 1e-6, weight_decay: float = 0.0) -> None:
+                      eps: float = 1e-6, weight_decay: float = 0.0,
+                      norm_group: Any = None) -> None:
     """``optax.lamb``'s update of one leaf in fp32, in place; ``step`` is
-    the 1-based count, ``lr`` already the schedule's value."""
+    the 1-based count, ``lr`` already the schedule's value.  With
+    ``norm_group`` the leaf is a slice and its norms are summed over the
+    group."""
     t = np.float32(step)
     bc1 = float(np.float32(1.0) - np.float32(beta1) ** t)
     bc2 = float(np.float32(1.0) - np.float32(beta2) ** t)
@@ -126,6 +160,8 @@ def optax_lamb_update(param, grad, m, v, step: int, *, lr: float,
     u = (m / bc1) / (torch.sqrt(v / bc2) + eps) + weight_decay * p
     w_norm = torch.linalg.vector_norm(p)
     u_norm = torch.linalg.vector_norm(u)
+    if norm_group is not None:
+        w_norm, u_norm = _leaf_norm(w_norm, norm_group), _leaf_norm(u_norm, norm_group)
     trust = torch.where((w_norm == 0) | (u_norm == 0), torch.ones_like(w_norm),
                         w_norm / u_norm)
     param.copy_(p + (u * trust) * -lr)

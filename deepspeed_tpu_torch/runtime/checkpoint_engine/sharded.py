@@ -12,9 +12,11 @@ the other's tags:
   path in the saved tree: ``['k']`` for a dict key, ``[i]`` for a sequence
   index, ``.name`` for a NamedTuple field (:func:`keystr`).
 - **Save streams** one leaf at a time, device -> host -> file: the peak
-  host buffer is the largest leaf, never the tree.  The port runs one
-  process, so every leaf is one chunk ``[[0, d], ...]`` in
-  ``shard_p0.bin``.
+  host buffer is the largest leaf, never the tree.  Process ``N`` writes
+  ``shard_p{N}.bin``: a whole leaf as one chunk ``[[0, d], ...]`` (on one
+  process only, as the JAX engine writes a replicated leaf once), a ZeRO
+  shard as the chunk of its region of the global leaf; a leaf another
+  process writes is in the index with no chunk.
 - **Load assembles** each leaf from every chunk recorded for it, through
   ``np.memmap`` of the byte ranges it needs, so a tag the JAX engine wrote
   from a many-device mesh (many chunks a leaf, across process files) loads
@@ -28,7 +30,7 @@ import json
 import os
 import re
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -160,35 +162,45 @@ class ShardedCheckpointEngine(CheckpointEngine):
     # ------------------------------------------------------------------
     # save
     # ------------------------------------------------------------------
-    def save(self, state_dict: Any, path: str) -> None:
+    def save(self, state_dict: Any, path: str, proc: int = 0,
+             shards: Optional[Dict[int, Tuple[Tuple[int, ...], List[List[int]]]]] = None,
+             write_whole: bool = True, write_shards: bool = True) -> None:
         """Write every leaf of ``state_dict`` (tensors on any device,
         numpy arrays or Python scalars, in dicts, lists, tuples and
-        NamedTuples): one leaf on the host at a time, its sha256 taken on
-        a second thread while it is written."""
+        NamedTuples) into ``shard_p{proc}.bin``: one leaf on the host at a
+        time, its sha256 taken on a second thread while it is written.
+        ``shards`` maps ``id(leaf)`` of a ZeRO shard to the global leaf's
+        shape and the shard's region; shards are written when
+        ``write_shards``, whole leaves when ``write_whole``."""
         os.makedirs(path, exist_ok=True)
+        shards = shards or {}
         index: Dict[str, Any] = {}
-        bin_name = "shard_p0.bin"
+        bin_name = f"shard_p{proc}.bin"
         bin_path = os.path.join(path, bin_name)
         offset = 0
         with open(bin_path + ".tmp", "wb") as fh, \
                 ThreadPoolExecutor(1) as hasher:
             for kp, leaf in tree_flatten_with_path(state_dict):
+                placed = shards.get(id(leaf))
                 arr, dtype = _host_array(leaf)
-                self.max_bytes_in_flight = max(self.max_bytes_in_flight,
-                                               arr.nbytes)
-                buf = memoryview(arr.reshape(-1)).cast("B")
-                digest = hasher.submit(_sha256, buf)
-                fh.write(buf)
-                # per-CHUNK sha256: a deep verification names the leaf
-                index[keystr(kp)] = {
-                    "shape": list(arr.shape), "dtype": dtype,
-                    "chunks": [{"index": [[0, d] for d in arr.shape],
-                                "file": bin_name, "offset": offset,
-                                "nbytes": int(arr.nbytes),
-                                "sha256": digest.result()}]}
-                offset += arr.nbytes
+                shape = list(placed[0]) if placed else list(arr.shape)
+                region = placed[1] if placed else [[0, d] for d in arr.shape]
+                chunks = []
+                if write_shards if placed else write_whole:
+                    self.max_bytes_in_flight = max(self.max_bytes_in_flight,
+                                                   arr.nbytes)
+                    buf = memoryview(arr.reshape(-1)).cast("B")
+                    digest = hasher.submit(_sha256, buf)
+                    fh.write(buf)
+                    # per-CHUNK sha256: a deep verification names the leaf
+                    chunks.append({"index": region, "file": bin_name,
+                                   "offset": offset, "nbytes": int(arr.nbytes),
+                                   "sha256": digest.result()})
+                    offset += arr.nbytes
+                index[keystr(kp)] = {"shape": shape, "dtype": dtype,
+                                     "chunks": chunks}
         os.replace(bin_path + ".tmp", bin_path)
-        idx_path = os.path.join(path, "index_p0.json")
+        idx_path = os.path.join(path, f"index_p{proc}.json")
         with open(idx_path + ".tmp", "w") as fh:
             json.dump(index, fh)
         os.replace(idx_path + ".tmp", idx_path)
@@ -249,9 +261,13 @@ class ShardedCheckpointEngine(CheckpointEngine):
                              f"of {want} elements (missing shard files?)")
         return out
 
-    def read_leaf(self, path: str, meta: Dict[str, Any]) -> torch.Tensor:
-        """One whole leaf as a CPU tensor of its saved dtype."""
-        region = [[0, d] for d in meta["shape"]]
+    def read_leaf(self, path: str, meta: Dict[str, Any],
+                  region: Optional[List[List[int]]] = None) -> torch.Tensor:
+        """One whole leaf, or its ``region`` (``[[start, stop], ...]`` a
+        dim), as a CPU tensor of its saved dtype; only the byte ranges of
+        the chunks that meet it are read."""
+        if region is None:
+            region = [[0, d] for d in meta["shape"]]
         return _to_tensor(self._read_region(path, meta, region), meta["dtype"])
 
     def load(self, path: str, target: Any = None) -> Any:

@@ -11,14 +11,19 @@ compute over fp32 masters with a static or dynamic loss scale),
 retention; ``preemption_save`` is refused), ``zero_optimization.
 offload_optimizer`` (ZeRO-Offload of the optimizer state to host memory or
 NVMe, at stage 0; the deprecated ``cpu_offload: true`` spelling too) and
-``aio`` (the NVMe swapper's I/O handle).  The sections the port does not
-carry yet raise ``NotImplementedError`` naming ROADMAP.md when they ask for
-something: ZeRO stages 1-3, ``offload_param`` streaming, quantized
-communication,
-pipeline, tensor, sequence and expert parallelism.  Observability sections
-(profilers, monitors, flight recorder, goodput, watchdog, anomaly
-detection) are accepted only while disabled.  ``world_size`` is 1: the
-port trains on one card until ZeRO over ``torch.distributed`` lands.
+``aio`` (the NVMe swapper's I/O handle), ``zero_optimization.stage`` 0-3
+with ``stage3_param_persistence_threshold`` (the bucket sizes and
+``contiguous_gradients`` are accepted and recorded, as hints, as in the JAX
+config) and the ``mesh`` section (or ``tpu.mesh``) with its data axes
+``dp`` and ``fsdp``.  ``world_size`` is the data-parallel world (dp ×
+fsdp), which the batch triad is resolved against.  The settings the port
+does not carry yet raise ``NotImplementedError`` naming their ROADMAP.md
+line when they ask for something: ``overlap_comm``, ZeRO++,
+``comm_quantization``, offload at stage 1-3 or across ranks, the
+whole-program ``offload_param`` path, pipeline, tensor, sequence and expert
+parallelism.  Observability sections (profilers, monitors, flight
+recorder, goodput, watchdog, anomaly detection) are accepted only while
+disabled.
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ from __future__ import annotations
 import base64
 import json
 import os
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, List, Optional, Union
 
 import torch
 from pydantic import Field
@@ -113,11 +118,22 @@ class OffloadParamConfig(DeepSpeedConfigModel):
 
 
 class ZeroConfig(DeepSpeedConfigModel):
-    """The ``zero_optimization`` keys the port reads: the stage (0 only),
-    the offload of the optimizer state and of the params; the others are
-    accepted."""
+    """The ``zero_optimization`` keys the port reads: the stage, the
+    stage-3 persistence threshold, the offload of the optimizer state and
+    of the params.  The bucket sizes and ``contiguous_gradients`` are
+    recorded (hints the JAX engine leaves to XLA, and the port's collectives
+    go leaf by leaf); the ZeRO++ and ``overlap_comm`` switches are recorded
+    and refused when on; other keys are accepted."""
 
     stage: int = 0
+    stage3_param_persistence_threshold: int = 100_000
+    reduce_bucket_size: int = 500_000_000
+    allgather_bucket_size: int = 500_000_000
+    contiguous_gradients: bool = True
+    overlap_comm: Optional[bool] = None
+    zero_quantized_weights: bool = False
+    zero_quantized_gradients: bool = False
+    zero_hpz_partition_size: int = 1
     offload_optimizer: Optional[OffloadOptimizerConfig] = None
     offload_param: Optional[OffloadParamConfig] = None
     cpu_offload: Optional[bool] = None  # deprecated spelling
@@ -128,6 +144,35 @@ class ZeroConfig(DeepSpeedConfigModel):
         if self.cpu_offload and self.offload_optimizer is None:
             object.__setattr__(self, "offload_optimizer",
                                OffloadOptimizerConfig(device="cpu"))
+
+
+class MeshConfig(DeepSpeedConfigModel):
+    """The ``mesh`` section (the JAX package's TPU extension, also read
+    from ``tpu.mesh``): axis sizes, 0 inferred (``fsdp`` absorbs the rest
+    of the world), and their order.  Only the data axes may exceed 1."""
+
+    dp: int = 0
+    fsdp: int = 0
+    tp: int = 1
+    pp: int = 1
+    sp: int = 1
+    ep: int = 1
+    axis_order: List[str] = Field(default_factory=lambda: ["pp", "dp", "fsdp",
+                                                           "ep", "sp", "tp"])
+
+
+_ZERO_KEYS = ("stage", "offload_optimizer", "offload_param", "cpu_offload",
+              "cpu_offload_params", "stage3_param_persistence_threshold",
+              "reduce_bucket_size", "allgather_bucket_size",
+              "contiguous_gradients", "overlap_comm", "zero_quantized_weights",
+              "zero_quantized_gradients", "zero_hpz_partition_size")
+
+
+def mesh_section(d: Dict) -> Dict:
+    """The ``mesh`` section, or ``tpu.mesh``, of a config dict."""
+    tpu = d.get("tpu")
+    return d.get("mesh") or ((tpu.get("mesh") if isinstance(tpu, dict) else None)
+                             or {})
 
 
 class AIOConfig(DeepSpeedConfigModel):
@@ -264,12 +309,15 @@ def resolve_batch_triad(train_batch_size: Optional[int],
 
 
 class DeepSpeedConfig:
-    """Parsed, validated view of a ds_config (the training path's sections)."""
+    """Parsed, validated view of a ds_config (the training path's sections).
+    ``world_size`` is the data-parallel world the batch triad divides by
+    (dp × fsdp of the mesh; 1 on one card)."""
 
     def __init__(self, config: Union[str, Dict, None], world_size: int = 1):
         self._param_dict = d = _load_config_dict(config)
-        self._refuse_unported(d)
+        self._refuse_unported(d, int(world_size))
         self.world_size = int(world_size)
+        self.mesh = MeshConfig(**mesh_section(d))
 
         tbs, mbs, gas = (None if d.get(k) == AUTO else d.get(k)
                          for k in ("train_batch_size",
@@ -293,19 +341,34 @@ class DeepSpeedConfig:
         self.checkpoint_config = CheckpointConfig(**d.get("checkpoint", {}))
         self.zero_config = ZeroConfig(**{k: v for k, v in
                                          (d.get("zero_optimization") or {}).items()
-                                         if k in ("stage", "offload_optimizer",
-                                                  "offload_param", "cpu_offload",
-                                                  "cpu_offload_params")})
+                                         if k in _ZERO_KEYS})
         self.aio = AIOConfig(**d.get("aio", {}))
         self._validate()
 
     @staticmethod
-    def _refuse_unported(d: Dict) -> None:
+    def _refuse_unported(d: Dict, world_size: int = 1) -> None:
         zero = d.get("zero_optimization") or {}
-        if int(zero.get("stage", 0) or 0) >= 1:
-            raise _not_ported(f"zero_optimization.stage {zero['stage']}",
-                              "ZeRO 1-3 over torch.distributed")
+        stage = int(zero.get("stage", 0) or 0)
+        if zero.get("overlap_comm") is True:
+            raise _not_ported("zero_optimization.overlap_comm", "item 2e, "
+                              "overlap_comm and ZeRO++")
+        for key in ("zero_quantized_weights", "zero_quantized_gradients"):
+            if zero.get(key) is True:
+                raise _not_ported(f"zero_optimization.{key} (ZeRO++)",
+                                  "item 2e, overlap_comm and ZeRO++")
+        if int(zero.get("zero_hpz_partition_size", 1) or 1) > 1:
+            raise _not_ported("zero_optimization.zero_hpz_partition_size > 1 "
+                              "(ZeRO++)", "item 2e, overlap_comm and ZeRO++")
+        off = zero.get("offload_optimizer") or {}
         p_off = zero.get("offload_param") or {}
+        offload = (zero.get("cpu_offload") is True
+                   or off.get("device", "none") not in (None, "none")
+                   or p_off.get("device", "none") not in (None, "none"))
+        if offload and (stage >= 1 or world_size > 1):
+            raise _not_ported(f"offload at zero_optimization.stage {stage}, "
+                              f"data-parallel world {world_size}",
+                              "item 2e, offload at ZeRO stage 1-3 and across "
+                              "ranks")
         if (p_off.get("device", "none") not in (None, "none")
                 and p_off.get("stream_grads", True) is False):
             raise _not_ported("zero_optimization.offload_param.stream_grads: "
@@ -313,19 +376,18 @@ class DeepSpeedConfig:
                               "path")
         cq = d.get("comm_quantization") or {}
         if any(v is True for v in cq.values()):
-            raise _not_ported("comm_quantization", "ZeRO 1-3 over torch.distributed")
+            raise _not_ported("comm_quantization", "item 2e, comm_quantization")
         if d.get("pipeline"):
-            raise _not_ported("pipeline parallelism", "ZeRO 1-3 over "
-                              "torch.distributed, then the parallel meshes")
-        mesh = d.get("mesh") or ((d.get("tpu") or {}).get("mesh") or {})
-        big = {k: v for k, v in mesh.items() if isinstance(v, int) and v > 1}
+            raise _not_ported("pipeline parallelism", "item 2e, the parallel "
+                              "meshes")
+        mesh = mesh_section(d)
+        big = {k: v for k, v in mesh.items()
+               if k not in ("dp", "fsdp") and isinstance(v, int) and v > 1}
         if big:
-            raise _not_ported(f"mesh axes {big}", "ZeRO 1-3 over torch.distributed, "
-                              "then the parallel meshes")
+            raise _not_ported(f"mesh axes {big}", "item 2e, the parallel meshes")
         tp = d.get("tensor_parallel") or {}
         if int(tp.get("tp_size", tp.get("autotp_size", 1)) or 1) > 1:
-            raise _not_ported("tensor_parallel", "ZeRO 1-3 over torch.distributed, "
-                              "then the parallel meshes")
+            raise _not_ported("tensor_parallel", "item 2e, the parallel meshes")
         for key in _OBSERVABILITY:
             sec = d.get(key)
             if isinstance(sec, dict) and sec.get("enabled"):

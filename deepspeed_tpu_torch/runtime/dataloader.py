@@ -4,6 +4,11 @@
 ``DeepSpeedDataLoader`` yields the JAX loader's sample stream (the same
 permutation of ``np.random.default_rng(seed + epoch)``, ``drop_last``,
 ``collate_fn``) as CPU tensors; the engine moves a batch to its device.
+Its ``batch_size`` is the global micro-batch (the micro batch times the
+data-parallel world); at a data-parallel world of N, rank r yields rows
+``[r * mb, (r + 1) * mb)`` of each global micro-batch, the rows device r
+holds in the JAX loader's sharded batch, so the stream, its shuffle and
+its resume state are the global ones on every rank.
 Its ``state_dict`` (epoch, sample offset, shuffle identity) rides a
 checkpoint's ``client_state`` so a resume replays the exact remaining
 stream.  ``RepeatingLoader`` wraps it endlessly.
@@ -44,15 +49,23 @@ class DeepSpeedDataLoader:
 
     ``dataset`` may be: a tuple/list of equal-length arrays (xs, ys, ...), a
     sequence of per-sample trees, or an object with ``__len__``/``__getitem__``.
-    Yields micro-batches of ``batch_size`` samples as CPU tensors.
+    Yields micro-batches of ``batch_size`` samples as CPU tensors; with
+    ``data_world`` > 1, this rank's ``batch_size // data_world`` rows of
+    each (``data_rank``: its index over the data axes).
     """
 
     def __init__(self, dataset: Any, batch_size: int, shuffle: bool = False,
                  seed: int = 0, drop_last: bool = True,
                  collate_fn: Optional[Callable] = None, local_rank: int = 0,
-                 data_sampler: Any = None):
+                 data_sampler: Any = None, data_rank: int = 0,
+                 data_world: int = 1):
+        if batch_size % data_world:
+            raise ValueError(f"global micro-batch {batch_size} does not split "
+                             f"over a data-parallel world of {data_world}")
         self.dataset = dataset
         self.batch_size = batch_size
+        self.data_rank = int(data_rank)
+        self.data_world = int(data_world)
         self.shuffle = shuffle
         self.seed = seed
         self.drop_last = drop_last
@@ -132,9 +145,12 @@ class DeepSpeedDataLoader:
         avail = self._n - start
         nb = (avail // self.batch_size if self.drop_last
               else (avail + self.batch_size - 1) // self.batch_size)
+        mb = self.batch_size // self.data_world
         for b in range(nb):
             lo = start + b * self.batch_size
             sel = idx[lo:lo + self.batch_size]
+            consumed = lo + len(sel)
+            sel = sel[self.data_rank * mb:(self.data_rank + 1) * mb]
             if self._arrays is not None:
                 batch = tuple(a[sel] for a in self._arrays)
             else:
@@ -142,7 +158,7 @@ class DeepSpeedDataLoader:
                 batch = (self.collate_fn(samples) if self.collate_fn is not None
                          else _stack(samples))
             # mirrored for state_dict (checkpoints taken mid-epoch)
-            self._samples_consumed = lo + len(sel)
+            self._samples_consumed = consumed
             yield _to_torch(batch)
         self._epoch += 1
         self._samples_consumed = 0

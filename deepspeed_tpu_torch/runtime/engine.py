@@ -92,13 +92,38 @@ back to (``stream_grads: false``, a client loss function, a model without
 ``stream_segments``, a batch that is not ``(tokens, labels)`` or a dict
 with both) is refused.
 
-Not ported yet (ROADMAP.md queue 1): ZeRO 1-3, the legacy msgpack
-checkpoint layout, telemetry, goodput, watchdog, anomaly handling, overlap
-and the 1-bit optimizers.
+ZeRO stages 1-3 and data parallelism over ``torch.distributed`` (the JAX
+engine's GSPMD path on a ``dp`` x ``fsdp`` mesh): whenever a process group
+exists, or the stage is 1-3 (a world of one is started then), the engine
+holds the partitions of :func:`~deepspeed_tpu_torch.runtime.zero.partition.
+zero_plan` over the mesh's ``fsdp`` axis: the fp32 masters (the module's
+own parameters) sharded at stage 3 above ``stage3_param_persistence_threshold``
+elements, the optimizer state from stage 1 (the optimizer steps this rank's
+slices: at stage 1-2 a slice of the replicated master kept beside it, all
+gathered into the master after the step), the accumulator from stage 2.
+Each rank runs its rows of the global batch; its cross-entropy is weighted
+by ``local_valid * world / global_valid`` and its backward by ``1 / world``,
+so the grads summed over the ranks are the global batch's masked mean's
+(an MoE aux loss takes the global batch's means of its router statistics).  Stage 0-1 all-reduce the accumulator
+over the data axes at the boundary; stage 2-3 reduce-scatter each sharded
+leaf's grads over ``fsdp`` after each micro-batch and all-reduce the shards
+over ``dp`` at the boundary, the replicated leaves all-reduced there.  The
+norm is the all-reduced sum of each leaf's squares (a replicated leaf counted
+once), the fp16 overflow flag is all-reduced (max).  At stage 3 the compute
+copy of a sharded leaf is all-gathered before each micro-batch's forward and
+let go after its backward.  A checkpoint's ranks each write their slices
+(``shard_p{rank}.bin``), rank 0 the replicated leaves, the client state and
+the manifest, between barriers; a load reads the byte ranges of this rank's
+slices, so a tag crosses world sizes and stages.
+
+Not ported yet (ROADMAP.md queue 1): overlap_comm, ZeRO++, the parallel
+meshes, the legacy msgpack checkpoint layout, telemetry, goodput, watchdog,
+anomaly handling and the 1-bit optimizers.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -110,6 +135,8 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.accelerator.real_accelerator import DeviceLike, resolve_device
+from deepspeed_tpu_torch.comm import comm
+from deepspeed_tpu_torch.comm import mesh as mesh_lib
 from deepspeed_tpu_torch.ops.optax_states import EMPTY
 from deepspeed_tpu_torch.runtime import optimizer as opt_builder
 from deepspeed_tpu_torch.runtime.checkpoint_engine import (ShardedCheckpointEngine,
@@ -125,6 +152,8 @@ from deepspeed_tpu_torch.runtime.lr_schedules import LRSchedulerShim, get_lr_sch
 from deepspeed_tpu_torch.runtime.utils import (clip_grad_norm_, global_norm,
                                                has_overflow)
 from deepspeed_tpu_torch.runtime.zero.offload import OffloadedOptimizer
+from deepspeed_tpu_torch.runtime.zero.partition import (LeafPlan, reshard, shard_of,
+                                                         zero_plan)
 from deepspeed_tpu_torch.runtime.zero.relay import OffloadRelay, PinnedBlock
 from deepspeed_tpu_torch.runtime.zero.stream_grad import StreamedFwdBwd, host_sumsq
 from deepspeed_tpu_torch.utils import prng
@@ -166,9 +195,13 @@ class DeepSpeedEngine:
     def __init__(self, model, config=None, model_parameters=None,
                  device: DeviceLike = None, training_data=None,
                  collate_fn=None, optimizer=None, loss_fn=None):
-        self.config = (config if isinstance(config, DeepSpeedConfig)
-                       else DeepSpeedConfig(config))
+        if not isinstance(config, DeepSpeedConfig):
+            config = DeepSpeedConfig(config, world_size=comm.get_world_size())
+        self.config = config
+        if device is None and comm.get_world_size() > 1:
+            device = f"cuda:{comm.get_local_rank()}"
         self.device = resolve_device(device)
+        self.zero_stage = self.config.zero_config.stage
         self.module = model
         self._param_offload = self.config.param_offload
         if loss_fn is not None:
@@ -217,6 +250,12 @@ class DeepSpeedEngine:
             # the card keeps ONE compute-dtype copy; the fp32 masters go to
             # the host optimizer
             self.master_dtype = self.compute_dtype
+        # ZeRO over torch.distributed: with a process group, or at stage 1-3
+        self._dist = not self._offload and (self.zero_stage >= 1
+                                            or comm.is_initialized())
+        self._plan: Optional[List[LeafPlan]] = None
+        if self._dist:
+            self._init_mesh()
 
         # masters: the model's own parameters, on the engine's device
         # (under offload: their values go to the host optimizer first, and
@@ -251,11 +290,24 @@ class DeepSpeedEngine:
                 p.data = (self._host_leaf(val) if self._param_offload
                           else val.to(self.device, self.compute_dtype, copy=True))
         del values
+        if self._dist:
+            self._shard_masters(model)
         self.master = [p.data for _, p in _flatten(model.params())]
         # under offload_param the fp32 accumulators live on the host, as the
         # JAX engine's numpy ones
         acc_dtype = torch.float32 if self._param_offload else self.grad_accum_dtype
-        self.grad_acc = [torch.zeros_like(p, dtype=acc_dtype) for p in self.master]
+        if self._plan is None:
+            self.grad_acc = [torch.zeros_like(p, dtype=acc_dtype) for p in self.master]
+        else:
+            self.grad_acc = [torch.zeros(pl.shard_shape(pl.pdim) if pl.acc
+                                         else pl.shape, dtype=acc_dtype,
+                                         device=self.device)
+                             for pl in self._plan]
+        # what the optimizer steps: the masters, or a sharded leaf's slice
+        # of its master along the optimizer state's dim
+        self._opt_params = self.master if self._plan is None else [
+            self._opt_slice(i) if self._own_opt(pl) else m
+            for i, (m, pl) in enumerate(zip(self.master, self._plan))]
         self._stacked = [p.dim() > 0 and path.startswith("layers.")
                          for path, p in zip(self._paths, self.master)]
         self._compute: Optional[List[Any]] = None
@@ -268,6 +320,11 @@ class DeepSpeedEngine:
             self._lr_schedule = get_lr_schedule(self.config.scheduler.type,
                                                 self.config.scheduler.params)
         self.client_optimizer = optimizer
+        if optimizer is not None and self.zero_stage >= 1:
+            raise NotImplementedError(
+                "a client optimizer at zero_optimization.stage "
+                f"{self.zero_stage} is not ported yet (ROADMAP.md queue 1: item "
+                "2e, a client optimizer over ZeRO shards)")
         if self._offload:
             if optimizer is not None:
                 logger.warning(
@@ -279,7 +336,9 @@ class DeepSpeedEngine:
             names = [keystr(tuple(DictKey(k) for k in path.split(".")))
                      for path in self._paths]
             self.optimizer = opt_builder.build_from_config(
-                self.config, self.master, self._lr_schedule, names=names)
+                self.config, self._opt_params, self._lr_schedule, names=names)
+            if self.zero_stage >= 1:
+                self._check_sharded_optimizer()
         elif isinstance(optimizer, torch.optim.Optimizer):
             self.optimizer = optimizer
         else:
@@ -331,6 +390,105 @@ class DeepSpeedEngine:
                     "policy", ac.policy)
             mcfg.remat_policy = ("offload_dots" if ac.cpu_checkpointing
                                  else ac.policy)
+
+    def _init_mesh(self) -> None:
+        """The process group (a world of one when none exists: stage 1-3 on
+        one card), the mesh (the global one, or the config's ``mesh``
+        section's), and the groups and places the stages use."""
+        if not comm.is_initialized():
+            comm.init_distributed(device=self.device, verbose=False)
+        world = comm.get_world_size()
+        want = mesh_lib.mesh_from_config(self.config.mesh, world, make_groups=False)
+        mesh = mesh_lib.get_global_mesh(create_default=False)
+        if (mesh is None or mesh.size != world or mesh.rank != comm.get_rank()
+                or mesh.shape != want.shape):
+            mesh = mesh_lib.mesh_from_config(self.config.mesh, world)
+            mesh_lib.set_global_mesh(mesh)
+        self.mesh = mesh
+        data_world = mesh_lib.get_data_parallel_world_size(mesh)
+        if self.config.world_size != data_world:
+            raise ValueError(
+                f"the config's batch triad was resolved for a data-parallel "
+                f"world of {self.config.world_size}, and the mesh "
+                f"{mesh.shape} has {data_world}: parse it with "
+                f"DeepSpeedConfig(config, world_size={data_world})")
+        self._data_world = data_world
+        self._data_group = mesh.group(("dp", "fsdp", "ep"))
+        self._data_rank = mesh.axis_rank(("dp", "fsdp", "ep"))
+        self._fsdp_group = mesh.group("fsdp")
+        self._fsdp_rank = mesh.axis_rank("fsdp")
+        self._fsdp_n = mesh_lib.axis_size(mesh, "fsdp")
+        self._dp_group = mesh.group("dp")
+        self._dp_n = mesh_lib.axis_size(mesh, "dp")
+
+    def _shard_masters(self, model) -> None:
+        """The stages' plan over the masters' shapes; at stage 3 each
+        sharded leaf's module parameter becomes this rank's slice."""
+        zc = self.config.zero_config
+        logical = None
+        if hasattr(model, "logical_pspecs"):
+            logical = [spec for _, spec in _flatten(model.logical_pspecs())]
+        self._plan = zero_plan([tuple(p.shape) for _, p in _flatten(model.params())],
+                               self.zero_stage, self._fsdp_n,
+                               zc.stage3_param_persistence_threshold, logical)
+        for (_, p), pl in zip(_flatten(model.params()), self._plan):
+            if pl.param:
+                p.data = shard_of(p.data, pl, pl.pdim, self._fsdp_rank)
+
+    @staticmethod
+    def _own_opt(pl: LeafPlan) -> bool:
+        """Whether the optimizer steps a slice of its own (the master is
+        whole, or sharded on another dim than the optimizer state)."""
+        return pl.opt and not (pl.param and pl.odim == pl.pdim)
+
+    def _opt_slice(self, i: int) -> torch.Tensor:
+        """This rank's slice of master ``i`` along the optimizer state's
+        dim."""
+        pl = self._plan[i]
+        if pl.param:
+            return reshard(self.master[i], pl.pdim, pl.odim, self._fsdp_group)
+        return shard_of(self.master[i], pl, pl.odim, self._fsdp_rank)
+
+    def _opt_grad(self, i: int) -> torch.Tensor:
+        """The grads the optimizer takes for leaf ``i``: the accumulator, or
+        its slice along the optimizer state's dim."""
+        pl, acc = self._plan[i], self.grad_acc[i]
+        if not pl.opt:
+            return acc
+        if not pl.acc:
+            return shard_of(acc, pl, pl.odim, self._fsdp_rank)
+        if pl.odim == pl.pdim:
+            return acc
+        return reshard(acc, pl.pdim, pl.odim, self._fsdp_group)
+
+    def _write_back(self, i: int) -> None:
+        """The optimizer's updated slice of leaf ``i`` into its master."""
+        pl = self._plan[i]
+        if pl.param:
+            self.master[i].copy_(reshard(self._opt_params[i], pl.odim, pl.pdim,
+                                         self._fsdp_group))
+        else:
+            comm.all_gather(self._opt_params[i], self._fsdp_group,
+                            gather_dim=pl.odim, out=self.master[i])
+
+    def _check_sharded_optimizer(self) -> None:
+        """The optimizers that step each element on its own (the Adam
+        family, Lion, Adagrad, SGD) step a slice as they step the leaf;
+        LAMB sums its two norms' squares over the slices' group.  Adam8bit's
+        blocks run along the whole flattened leaf and Muon's
+        orthogonalization reads the whole leaf: refused."""
+        from deepspeed_tpu_torch.ops.adam import Adam8bit
+        from deepspeed_tpu_torch.ops.adam.muon import Muon
+        from deepspeed_tpu_torch.ops.lamb import FusedLamb
+
+        if isinstance(self.optimizer, (Adam8bit, Muon)):
+            raise NotImplementedError(
+                f"{type(self.optimizer).__name__} at zero_optimization.stage "
+                f"{self.zero_stage} is not ported yet (ROADMAP.md queue 1: item "
+                "2e, Adam8bit and Muon over ZeRO shards)")
+        if isinstance(self.optimizer, FusedLamb):
+            self.optimizer.sharded = {id(p): self._fsdp_group for p, pl in
+                                      zip(self._opt_params, self._plan) if pl.opt}
 
     def _host_leaf(self, val: torch.Tensor) -> torch.Tensor:
         """A leaf's host copy in the compute dtype: on the card one exact
@@ -410,33 +568,89 @@ class DeepSpeedEngine:
         self._offload_bf16g = (opt_type == "adam" and not off.int8_masters
                                and self.compute_dtype == torch.bfloat16)
 
+    @staticmethod
+    def _leaf_views(buf: torch.Tensor, stacked: bool):
+        """Grad-carrying leaves over ``buf``: one a layer for a stacked
+        ``[L, ...]`` leaf, so autograd writes each layer's grad apart."""
+        if stacked:
+            return [buf[i].detach().requires_grad_() for i in range(buf.shape[0])]
+        return buf.detach().requires_grad_()
+
     def _compute_params(self) -> Dict[str, Any]:
         """The grad-carrying compute copy as the model's nested dict; a
-        stacked layer leaf is a list of per-layer leaf tensors."""
+        stacked layer leaf is a list of per-layer leaf tensors.  At stage 3
+        a sharded leaf's copy is all-gathered here (cast to the compute
+        dtype first) and let go by :meth:`_release_gathered`."""
         if self._compute is None:
             alias = self.compute_dtype == self.master_dtype
-            self._compute_bufs = [p if alias else p.to(self.compute_dtype)
-                                  for p in self.master]
-            self._compute = [
-                ([b[i].detach().requires_grad_() for i in range(b.shape[0])]
-                 if stacked else b.detach().requires_grad_())
-                for b, stacked in zip(self._compute_bufs, self._stacked)]
+            self._compute_bufs = [None if self._plan is not None and self._plan[i].param
+                                  else p if alias else p.to(self.compute_dtype)
+                                  for i, p in enumerate(self.master)]
+            self._compute = [None if b is None else self._leaf_views(b, stacked)
+                             for b, stacked in zip(self._compute_bufs, self._stacked)]
+        if self._plan is not None:
+            for i, pl in enumerate(self._plan):
+                if pl.param:
+                    full = comm.all_gather(self.master[i].to(self.compute_dtype),
+                                           self._fsdp_group, gather_dim=pl.pdim)
+                    self._compute[i] = self._leaf_views(full, self._stacked[i])
         tree: Dict[str, Any] = {}
         for path, leaf in zip(self._paths, self._compute):
             _set(tree, path, leaf)
         return tree
+
+    def _release_gathered(self) -> None:
+        if self._plan is not None:
+            for i, pl in enumerate(self._plan):
+                if pl.param:
+                    self._compute[i] = None
 
     @torch.no_grad()
     def _refresh_compute(self) -> None:
         if (self._compute_bufs is not None
                 and self.compute_dtype != self.master_dtype):
             for buf, p in zip(self._compute_bufs, self.master):
-                buf.copy_(p)
+                if buf is not None:
+                    buf.copy_(p)
 
-    def _loss(self, params, batch, rng) -> torch.Tensor:
+    def _ce_weight(self, batch) -> Optional[torch.Tensor]:
+        """This rank's cross-entropy weight, ``local_valid * world /
+        global_valid`` (the JAX package's ``_ce_weight``: the weighted
+        per-rank means average to the global batch's masked mean; exactly 1
+        when the counts are equal), from the batch's labels (and
+        ``loss_mask``), the valid tokens counted as the model's loss counts
+        them; None for a batch without labels."""
+        labels = mask = None
+        if isinstance(batch, (tuple, list)) and len(batch) >= 2:
+            labels = batch[1]
+            mask = batch[2] if len(batch) > 2 else None
+        elif isinstance(batch, dict):
+            labels, mask = batch.get("labels"), batch.get("loss_mask")
+        if labels is None or labels.dim() < 2:
+            return None
+        valid = labels[:, 1:] >= 0
+        if mask is not None:
+            valid = valid & (mask[:, 1:] > 0)
+        cnt = valid.sum().to(torch.float32)
+        total = comm.all_reduce(cnt.clone(), self._data_group)
+        return cnt * self._data_world / torch.clamp(total, min=1.0)
+
+    def _moe_scope(self):
+        """Over ranks, an MoE model's aux loss takes the global batch's
+        means (:func:`~deepspeed_tpu_torch.moe.sharded_moe.global_aux_stats`)."""
+        if not self._dist:
+            return contextlib.nullcontext()
+        from deepspeed_tpu_torch.moe.sharded_moe import global_aux_stats
+
+        return global_aux_stats(self._data_group, self._data_world)
+
+    def _loss(self, params, batch, rng, ce_weight=None) -> torch.Tensor:
         """The model's loss with the dropout key ``rng`` (the JAX engine's
-        ``loss_fn``: ``apply(params, *batch, rngs={"dropout": rng})``)."""
+        ``loss_fn``: ``apply(params, *batch, rngs={"dropout": rng})``), its
+        cross-entropy times ``ce_weight`` when one is given."""
         kwargs = {"rngs": {"dropout": rng}}
+        if ce_weight is not None:
+            kwargs["ce_weight"] = ce_weight
         if isinstance(batch, (tuple, list)):
             return self.module.apply(params, *batch, **kwargs)
         if isinstance(batch, dict):
@@ -459,15 +673,31 @@ class DeepSpeedEngine:
     # the step functions
     # ------------------------------------------------------------------
     def _accum(self, batch, rng) -> torch.Tensor:
+        """One micro-batch's loss and backward, its grads added to the
+        accumulator.  Over ranks: the loss weighted (:meth:`_ce_weight`),
+        the backward divided by the data-parallel world, a sharded
+        accumulator's grads reduce-scattered over ``fsdp`` first."""
         gas = self.config.gradient_accumulation_steps
         params = self._compute_params()
-        loss = self._loss(params, batch, rng)
-        if self.fp16_enabled:
-            (loss.float() * float(self._scaler.scale) / gas).backward()
-        else:
-            (loss.float() / gas).backward()
+        weight = self._ce_weight(batch) if self._dist else None
+        # the backward inside too: a remat body's recompute takes the same
+        # global means
+        with self._moe_scope():
+            loss = self._loss(params, batch, rng, weight)
+            scaled = loss.float()
+            if self._dist:
+                scaled = scaled / self._data_world
+            if self.fp16_enabled:
+                (scaled * float(self._scaler.scale) / gas).backward()
+            else:
+                (scaled / gas).backward()
         with torch.no_grad():
-            for acc, leaf in zip(self.grad_acc, self._compute):
+            for i, (acc, leaf) in enumerate(zip(self.grad_acc, self._compute)):
+                if self._plan is not None and self._plan[i].acc:
+                    pl = self._plan[i]
+                    acc.add_(comm.reduce_scatter(self._full_grad(leaf, acc.dtype),
+                                                 self._fsdp_group, pl.pdim))
+                    continue
                 if isinstance(leaf, list):
                     for i, t in enumerate(leaf):
                         if t.grad is not None:
@@ -476,7 +706,27 @@ class DeepSpeedEngine:
                 elif leaf.grad is not None:
                     acc.add_(leaf.grad)
                     leaf.grad = None
+        self._release_gathered()
         return loss.detach()
+
+    @staticmethod
+    def _full_grad(leaf, dtype: torch.dtype) -> torch.Tensor:
+        """A leaf's grad whole in ``dtype`` (a stacked leaf's layers written
+        into one buffer), the leaves' grads let go."""
+        if not isinstance(leaf, list):
+            g = (leaf.grad if leaf.grad is not None
+                 else torch.zeros_like(leaf)).to(dtype)
+            leaf.grad = None
+            return g
+        out = torch.empty((len(leaf),) + tuple(leaf[0].shape), dtype=dtype,
+                          device=leaf[0].device)
+        for i, t in enumerate(leaf):
+            if t.grad is None:
+                out[i].zero_()
+            else:
+                out[i].copy_(t.grad)
+                t.grad = None
+        return out
 
     def _device_scale(self) -> torch.Tensor:
         """The loss scale as a device tensor, refilled only when it moves:
@@ -495,6 +745,8 @@ class DeepSpeedEngine:
             return self._step_param_offload()
         if self._offload:
             return self._step_offload()
+        if self._dist:
+            return self._apply_dist()
         clip = self.config.gradient_clipping
         if self.fp16_enabled:
             overflow = has_overflow(self.grad_acc)
@@ -522,6 +774,67 @@ class DeepSpeedEngine:
         for acc in self.grad_acc:
             acc.zero_()
         return gnorm
+
+    @torch.no_grad()
+    def _apply_dist(self) -> torch.Tensor:
+        """``apply`` over ranks: the boundary's reductions, the overflow
+        flag all-reduced (max), unscale, the norm over the shards, clip,
+        the optimizer on this rank's slices, the updated slices gathered
+        into the replicated masters (stage 1-2), the compute copy, the
+        zeroed accumulator.  At a world of one every collective returns its
+        input, and the numbers are stage 0's."""
+        clip = self.config.gradient_clipping
+        self._reduce_boundary()
+        if self.fp16_enabled:
+            overflow = comm.all_reduce(has_overflow(self.grad_acc).to(torch.float32),
+                                       self._data_group, op="max")
+            torch._foreach_div_(self.grad_acc, self._device_scale())
+        gnorm = self._dist_norm()
+        if clip > 0:
+            clip_grad_norm_(self.grad_acc, clip, norm=gnorm)
+        skip = False
+        if self.fp16_enabled:
+            skip = self._last_overflow = bool(overflow)   # the one host read
+            fp16 = self.config.fp16
+            self._scaler = scaler_lib.update(
+                self._scaler, skip, dynamic=fp16.dynamic_loss_scale,
+                loss_scale_window=fp16.loss_scale_window,
+                min_loss_scale=fp16.min_loss_scale, hysteresis=fp16.hysteresis)
+        if not skip:
+            if self.client_optimizer is None:
+                self.optimizer.step(grads=[self._opt_grad(i)
+                                           for i in range(len(self._plan))])
+            else:
+                self._step_client()
+            for i, pl in enumerate(self._plan):
+                if self._own_opt(pl):
+                    self._write_back(i)
+            self._refresh_compute()
+            self.global_steps += 1
+        for acc in self.grad_acc:
+            acc.zero_()
+        return gnorm
+
+    def _reduce_boundary(self) -> None:
+        """A replicated accumulator all-reduced over the data axes; a
+        sharded one (reduce-scattered over ``fsdp`` already) over ``dp``."""
+        for acc, pl in zip(self.grad_acc, self._plan):
+            if not pl.acc:
+                comm.all_reduce(acc, self._data_group)
+            elif self._dp_n > 1:
+                comm.all_reduce(acc, self._dp_group)
+
+    def _dist_norm(self) -> torch.Tensor:
+        """The global grad norm: each leaf's sum of squares (a shard's, or
+        a replicated leaf's on ``fsdp`` rank 0 only), summed over ``fsdp``,
+        then over the leaves as :func:`global_norm` sums them."""
+        sq = torch.stack([torch.linalg.vector_norm(t, dtype=torch.float32).square()
+                          for t in self.grad_acc])
+        if self._fsdp_rank != 0:
+            whole = torch.tensor([not pl.acc for pl in self._plan], device=sq.device)
+            sq = torch.where(whole, torch.zeros_like(sq), sq)
+        comm.all_reduce(sq, self._fsdp_group)
+        return torch.sqrt(sq.sum())
 
     @torch.no_grad()
     def _step_offload(self) -> torch.Tensor:
@@ -709,6 +1022,8 @@ class DeepSpeedEngine:
         self._rng, rng = prng.split(self._rng)
         loss = (self._streamed_micro(batch, rng) if self._param_offload
                 else self._accum(batch, rng))
+        if self._dist:
+            loss = self._global_loss(loss)
         self._micro_count += 1
         self._last_loss = loss
         return loss
@@ -722,8 +1037,18 @@ class DeepSpeedEngine:
             toks, labels, mask = self._unpack_lm_batch(self._to_device(batch))
             return self._streamed.forward(self._nest(self.master), toks, labels,
                                           mask, rng)
-        return self._loss(self._compute_params(), self._to_device(batch),
-                          rng).detach()
+        batch = self._to_device(batch)
+        if not self._dist:
+            return self._loss(self._compute_params(), batch, rng).detach()
+        weight = self._ce_weight(batch)
+        with self._moe_scope():
+            loss = self._loss(self._compute_params(), batch, rng, weight).detach()
+        self._release_gathered()
+        return self._global_loss(loss)
+
+    def _global_loss(self, loss: torch.Tensor) -> torch.Tensor:
+        """The mean of the ranks' (weighted) losses: the global batch's."""
+        return comm.all_reduce(loss.float().clone(), self._data_group) / self._data_world
 
     def backward(self, loss, retain_graph: bool = False):
         """Reference-parity no-op: :meth:`forward` already accumulated the
@@ -744,10 +1069,12 @@ class DeepSpeedEngine:
 
     def train_step(self, batch) -> torch.Tensor:
         """One optimizer step from a stacked batch: each leaf is
-        ``[gas, micro, ...]`` or ``[gas * micro, ...]`` (split here).
-        Returns the mean micro-batch loss (a device tensor)."""
+        ``[gas, micro, ...]`` or ``[gas * micro, ...]`` (split here), over
+        ranks this rank's rows (``micro`` is the micro batch a rank).
+        Returns the mean micro-batch loss (a device tensor; over ranks the
+        global batch's)."""
         gas = self.config.gradient_accumulation_steps
-        tbs = self.config.train_batch_size
+        tbs = self.config.train_batch_size // (self._data_world if self._dist else 1)
 
         def stack(x):
             x = x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x))
@@ -787,6 +1114,8 @@ class DeepSpeedEngine:
         losses = [self._accum(self._to_device(b), k) for b, k in zip(micro, keys)]
         self._last_grad_norm = self._apply()
         loss = torch.stack([x.float() for x in losses]).mean()
+        if self._dist:
+            loss = self._global_loss(loss)
         self._last_loss = loss
         self._micro_count = 0
         if self.lr_scheduler is not None:
@@ -821,8 +1150,27 @@ class DeepSpeedEngine:
         """The masters (fp32, or bf16 when master-free) as the model's
         nested dict (the tensors themselves); under offload the
         compute-dtype params (under ``offload_param`` the host copy, current
-        after every step and load)."""
-        return self.module.params()
+        after every step and load).  At stage 3 a sharded leaf is gathered
+        into a new full tensor: every rank calls it."""
+        if self._plan is None or not any(pl.param for pl in self._plan):
+            return self.module.params()
+        return self._nest([comm.all_gather(m, self._fsdp_group, gather_dim=pl.pdim)
+                           if pl.param else m
+                           for m, pl in zip(self.master, self._plan)])
+
+    @torch.no_grad()
+    def set_full_params(self, leaves) -> None:
+        """Full values for every leaf (in the masters' order): this rank's
+        slice of each into the masters and the optimizer's slices, then the
+        compute copy (``zero.GatheredParameters`` on exit)."""
+        for i, full in enumerate(leaves):
+            pl = self._plan[i] if self._plan is not None else None
+            self.master[i].copy_(shard_of(full, pl, pl.pdim, self._fsdp_rank)
+                                 if pl is not None and pl.param else full)
+            if pl is not None and self._own_opt(pl):
+                self._opt_params[i].copy_(shard_of(full, pl, pl.odim,
+                                                   self._fsdp_rank))
+        self._refresh_compute()
 
     # ------------------------------------------------------------------
     # data
@@ -830,9 +1178,13 @@ class DeepSpeedEngine:
     def deepspeed_io(self, dataset, batch_size=None, **kwargs):
         """A :class:`~deepspeed_tpu_torch.runtime.dataloader.
         DeepSpeedDataLoader` over ``dataset`` at the global micro batch
-        (the micro batch times the data-parallel world, 1 on one card)."""
+        (the micro batch times the data-parallel world, 1 on one card),
+        which yields this rank's rows of each."""
         gas_batch = batch_size or (self.config.train_micro_batch_size_per_gpu
                                    * self.config.world_size)
+        if self._dist:
+            kwargs.setdefault("data_rank", self._data_rank)
+            kwargs.setdefault("data_world", self._data_world)
         return DeepSpeedDataLoader(dataset, batch_size=gas_batch,
                                    collate_fn=self.collate_fn, **kwargs)
 
@@ -901,14 +1253,24 @@ class DeepSpeedEngine:
             except Exception as exc:       # the save goes on without it
                 logger.warning("checkpoint: dataloader state_dict failed: "
                                "%s", exc)
+        # every rank makes the dirs; rank 0 alone clears debris, writes the
+        # replicated leaves, the client state and the manifest and
+        # publishes, between the JAX engine's barriers
+        rank0 = comm.get_rank() == 0
         os.makedirs(save_dir, exist_ok=True)
-        atomic.clear_stage(save_dir, tag)  # debris of a crashed save
+        if rank0:
+            atomic.clear_stage(save_dir, tag)  # debris of a crashed save
         os.makedirs(stage_dir, exist_ok=True)
+        comm.barrier()
         self.checkpoint_engine.create(tag)
+        payload = self._optim_payload()
+        where = self._shard_places() if self._plan is not None else {}
+        kw = dict(proc=comm.get_rank(), shards=where, write_whole=rank0,
+                  write_shards=not where or self.mesh.axis_rank("dp") == 0)
         self.checkpoint_engine.save(self._nest(self.master),
-                                    os.path.join(stage_dir, "model_states"))
-        self.checkpoint_engine.save(self._optim_payload(),
-                                    os.path.join(stage_dir, "optim_states"))
+                                    os.path.join(stage_dir, "model_states"), **kw)
+        self.checkpoint_engine.save(payload, os.path.join(stage_dir, "optim_states"),
+                                    **kw)
         if self._offload:
             # the host fp32 masters and moments, one leaf at a time, inside
             # the stage so that the manifest covers them
@@ -919,28 +1281,52 @@ class DeepSpeedEngine:
                 "micro_count": self._micro_count,
                 "lr_scheduler": (self.lr_scheduler.state_dict()
                                  if self.lr_scheduler else None),
-                "zero_stage": 0,
-                "world_size": self.config.world_size,
+                "zero_stage": self.zero_stage,
+                "world_size": comm.get_world_size(),
                 "data_parallel_size": self.config.world_size,
                 "gradient_accumulation_steps":
                     self.config.gradient_accumulation_steps,
                 "train_micro_batch_size_per_gpu":
                     self.config.train_micro_batch_size_per_gpu,
                 "train_batch_size": self.config.train_batch_size}
-        with open(os.path.join(stage_dir, "client_state.json"), "w") as fh:
-            json.dump(meta, fh, default=str)
-        atomic.write_manifest(
-            stage_dir, tag, extra={"world_size": self.config.world_size,
-                                   "zero_stage": 0,
-                                   "global_steps": int(self.global_steps)})
+        if rank0:
+            with open(os.path.join(stage_dir, "client_state.json"), "w") as fh:
+                json.dump(meta, fh, default=str)
+        comm.barrier()                 # every rank's shards are on disk
+        if rank0:
+            atomic.write_manifest(
+                stage_dir, tag, extra={"world_size": comm.get_world_size(),
+                                       "zero_stage": self.zero_stage,
+                                       "global_steps": int(self.global_steps)})
+        comm.barrier()
         # the backend commit point; publication strictly after it
         self.checkpoint_engine.commit(tag)
-        atomic.publish_dir(stage_dir, final_dir)
-        if save_latest:
-            atomic.write_latest(save_dir, tag)
-        self._ckpt_gc(save_dir)
+        if rank0:
+            atomic.publish_dir(stage_dir, final_dir)
+            if save_latest:
+                atomic.write_latest(save_dir, tag)
+            self._ckpt_gc(save_dir)
+        comm.barrier()
         # item 2f: ds_ckpt_saves_total counts here
         return final_dir
+
+    def _shard_places(self) -> Dict[int, Tuple[Tuple[int, ...], List[List[int]]]]:
+        """``id(tensor) -> (global shape, region)`` of every ZeRO shard the
+        engine holds: sharded masters, the optimizer's state of a sharded
+        leaf (its tensors of the slice's shape) and sharded accumulators."""
+        r = self._fsdp_rank
+        out = {}
+        for i, pl in enumerate(self._plan):
+            if pl.param:
+                out[id(self.master[i])] = (pl.shape, pl.region(pl.pdim, r))
+            if pl.acc:
+                out[id(self.grad_acc[i])] = (pl.shape, pl.region(pl.pdim, r))
+            if pl.opt and self.optimizer is not None:
+                p = self._opt_params[i]
+                for v in self.optimizer.state.get(p, {}).values():
+                    if torch.is_tensor(v) and tuple(v.shape) == tuple(p.shape):
+                        out[id(v)] = (pl.shape, pl.region(pl.odim, r))
+        return out
 
     def _ckpt_gc(self, save_dir: str) -> None:
         """Retention GC (``checkpoint.keep_last_n``): after a committed
@@ -1046,13 +1432,21 @@ class DeepSpeedEngine:
     def _load_into(self, path: str, tree: Any) -> None:
         """Copy every leaf of a saved directory into the tensors of
         ``tree`` (same keys and shapes; cast to each tensor's dtype, moved
-        to its device), one leaf on the host at a time."""
+        to its device), one leaf on the host at a time; a ZeRO shard reads
+        its region of the saved leaf alone."""
         index = self.checkpoint_engine.read_index(path)
+        where = self._shard_places() if self._plan is not None else {}
         for kp, live in tree_flatten_with_path(tree):
             key = keystr(kp)
             if key not in index:
                 raise KeyError(f"checkpoint {path} missing leaf {key}")
-            saved = self.checkpoint_engine.read_leaf(path, index[key])
+            place = where.get(id(live))
+            if place is not None and tuple(index[key]["shape"]) != place[0]:
+                raise ValueError(f"checkpoint leaf {key}: shape "
+                                 f"{tuple(index[key]['shape'])} != the engine's "
+                                 f"{place[0]}")
+            saved = self.checkpoint_engine.read_leaf(
+                path, index[key], place[1] if place is not None else None)
             if tuple(saved.shape) != tuple(live.shape):
                 raise ValueError(f"checkpoint leaf {key}: shape "
                                  f"{tuple(saved.shape)} != the engine's "
@@ -1107,6 +1501,12 @@ class DeepSpeedEngine:
         if (load_lr_scheduler_states and self.lr_scheduler is not None
                 and meta.get("lr_scheduler")):
             self.lr_scheduler.load_state_dict(meta["lr_scheduler"])
+        if self._plan is not None:
+            # the optimizer's slices of their own, from the loaded masters
+            with torch.no_grad():
+                for i, pl in enumerate(self._plan):
+                    if self._own_opt(pl):
+                        self._opt_params[i].copy_(self._opt_slice(i))
         self._refresh_compute()            # the next step reads the masters
         if self._param_offload:
             self._rebind()

@@ -5,6 +5,7 @@ around the profiled calls, and with the host's cores idle or kept busy.
 
     python3 profiler_probe.py [--sessions N] [--pads 0,0.005,0.05] [--load 0,8]
     python3 profiler_probe.py --card-tests EXPR
+    python3 profiler_probe.py --smoke-kernels N
 
 Each session profiles 200 calls of ``y.copy_(x)`` at [8, 1600] bf16 (the
 shortest session ``chip_smoke.device_us_a_call`` takes) and, as a longer
@@ -24,6 +25,15 @@ of their ``_profiled_kernels`` counted: sessions alternate between CUDA
 activities alone and CPU and CUDA together, and a session is lost when it
 misses a kernel the test asks for (it is taken again, up to 8 times).
 Prints each session and one JSON line of the counts by activities.
+
+``--smoke-kernels N`` builds the kernels (``chip_smoke.phase_build``), then
+runs ``chip_smoke.phase_build`` and ``phase_kernels`` in N fresh processes,
+one after another, and counts in each the ``device_us_a_call`` sessions
+that lost their opening marker's record, that lost a call's record, and
+whether the phase passed; one JSON line of the counts.  ``--fresh-build``
+empties the kernel cache (``build/torch_kernels``) and gives Triton a new
+cache directory before each process, so that each builds every kernel
+itself, as a first smoke run does.
 """
 
 from __future__ import annotations
@@ -65,6 +75,41 @@ def session(torch, call, calls, pad):
     ev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     whole = bool(ev) and all(e.count == calls for e in ev)
     return whole, bool(ev), gaps(prof)
+
+
+def smoke_kernels(n, fresh=False) -> int:
+    """chip_smoke's kernels phase in ``n`` processes: the marker's and the
+    calls' lost records, and the phase's result, each process."""
+    import os
+    import shutil
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    code = ("import sys, torch; sys.path.insert(0, {root!r}); import chip_smoke as c; "
+            "d = torch.device('cuda'); c.phase_build(torch, d){kernels}")
+    subprocess.run([sys.executable, "-c", code.format(root=root, kernels="")],
+                   cwd=root, capture_output=True, check=True)
+    rows = []
+    env = dict(os.environ)
+    for i in range(n):
+        if fresh:
+            shutil.rmtree(os.path.join(root, "build", "torch_kernels"),
+                          ignore_errors=True)
+            env["TRITON_CACHE_DIR"] = tempfile.mkdtemp(prefix="triton_")
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-c", code.format(
+            root=root, kernels="; c.phase_kernels(torch, d)")], cwd=root,
+            capture_output=True, text=True, env=env)
+        out = run.stdout + run.stderr
+        row = {"process": i, "fresh_build": fresh, "rc": run.returncode,
+               "marker_lost": out.count("lost the marker's record"),
+               "call_record_lost": out.count(" calls; profiling again"),
+               "split_session_empty": out.count("holds none of"),
+               "s": round(time.perf_counter() - t0, 1)}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    print(json.dumps({"smoke_kernels": rows}))
+    return 0
 
 
 def card_tests(expr) -> int:
@@ -111,6 +156,8 @@ def main() -> int:
     ap.add_argument("--pads", default="0,0.005,0.05")
     ap.add_argument("--load", default="0,8")
     ap.add_argument("--card-tests", default=None)
+    ap.add_argument("--smoke-kernels", type=int, default=0)
+    ap.add_argument("--fresh-build", action="store_true")
     args = ap.parse_args()
     import torch
 
@@ -123,6 +170,8 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     if args.card_tests is not None:
         return card_tests(args.card_tests)
+    if args.smoke_kernels:
+        return smoke_kernels(args.smoke_kernels, args.fresh_build)
     dev = torch.device("cuda")
     x = torch.randn(8, 1600, device=dev).to(torch.bfloat16)
     y = torch.empty_like(x)

@@ -3261,3 +3261,60 @@ def test_streamed_step_leaves_no_param_or_grad_on_the_card(cuda_device):
     np.testing.assert_allclose(lg, lc, rtol=1e-4)
     for a, b in zip(pc, pg):
         torch.testing.assert_close(b, a, rtol=0, atol=1e-4)
+
+
+def test_zero_stages_over_nccl_at_world_one_equal_stage_0(cuda_device, tmp_path):
+    """ZeRO stages 1-3 over a world-one NCCL group (a ``FileStore``, no
+    socket) on llama-tiny in fp32: three steps bit-equal to stage 0 on the
+    plain path (losses, grad norms, masters), the collectives run at every
+    stage (nothing short-circuits at world 1), the fused Adam kernel steps
+    every leaf's slice, ``engine.params()`` gathers the full leaves."""
+    import torch.distributed as dist
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.comm import comm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = {"train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 2,
+           "optimizer": {"type": "FusedAdam", "params": {
+               "lr": 3e-4, "betas": [0.9, 0.95], "weight_decay": 0.1}},
+           "gradient_clipping": 1.0}
+    tok = np.random.default_rng(0).integers(0, 32000, (4, 96))
+    runs = {}
+    try:
+        for stage in (0, 1, 2, 3):
+            if stage == 1:
+                comm.init_distributed(device=cuda_device, rank=0, world_size=1,
+                                      store=dist.FileStore(str(tmp_path / "store"), 1))
+            model = deepspeed_tpu_torch.causal_lm("llama-tiny", device=cuda_device)
+            engine, *_ = deepspeed_tpu_torch.initialize(
+                model=model, device=cuda_device, config=dict(
+                    cfg, zero_optimization={"stage": stage,
+                                            "stage3_param_persistence_threshold": 0}))
+            comm.reset_counters()
+            before = tadam.fused_adam_update.launches
+            steps = [(float(engine.train_step((tok, tok))), engine.get_global_grad_norm())
+                     for _ in range(3)]
+            assert tadam.fused_adam_update.launches - before == 3 * len(engine.master)
+            params = {k: v.clone() for k, v in _flat_params(engine.params())}
+            runs[stage] = (steps, params, comm.counters(), engine)
+            if stage:
+                assert engine._dist and runs[stage][2]["all_reduce"]["calls"] > 0
+                assert (stage >= 2) == ("reduce_scatter" in runs[stage][2])
+                assert steps == runs[0][0], stage
+                for k, v in params.items():
+                    assert torch.equal(v, runs[0][1][k]), (stage, k)
+                    assert tuple(v.shape) == tuple(runs[0][1][k].shape)
+        assert any(p.param for p in runs[3][3]._plan)
+        assert not runs[0][3]._dist and not runs[0][2]
+    finally:
+        comm.destroy()
+
+
+def _flat_params(tree, prefix=""):
+    for k in sorted(tree):
+        path = f"{prefix}.{k}" if prefix else k
+        if isinstance(tree[k], dict):
+            yield from _flat_params(tree[k], path)
+        else:
+            yield path, tree[k]

@@ -487,9 +487,13 @@ def test_int8_masters_engine_relays_codes_and_refuses_nvme(jax_init, tmp_path):
 @pytest.mark.parametrize("zero,item", [
     ({"stage": 0, "offload_param": {"device": "cpu", "stream_grads": False}},
      "the whole-program offload_param path"),
-    ({"stage": 1, "offload_optimizer": {"device": "cpu"}}, "ZeRO 1-3 over torch.distributed"),
-    ({"stage": 3, "offload_optimizer": {"device": "nvme", "nvme_path": "/x"}},
-     "ZeRO 1-3 over torch.distributed")])
+    # ids kept from when every stage >= 1 was refused
+    pytest.param({"stage": 1, "offload_optimizer": {"device": "cpu"}},
+                 "offload at ZeRO stage 1-3",
+                 id="zero1-ZeRO 1-3 over torch.distributed"),
+    pytest.param({"stage": 3, "offload_optimizer": {"device": "nvme", "nvme_path": "/x"}},
+                 "offload at ZeRO stage 1-3",
+                 id="zero2-ZeRO 1-3 over torch.distributed")])
 def test_unported_offload_settings_are_refused_naming_their_item(zero, item):
     with pytest.raises(NotImplementedError, match=item):
         deepspeed_tpu_torch.initialize(

@@ -14,7 +14,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "deepspeed_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "gemv16_probe.py",
-    ROOT / "flash_decode_probe.py", ROOT / "rope_probe.py"]
+    ROOT / "flash_decode_probe.py", ROOT / "rope_probe.py",
+    ROOT / "zero_multichip_probe.py"]
 
 
 def _imports(path):
@@ -87,6 +88,16 @@ def test_import_rule_covers_the_streaming_modules(part):
     assert ROOT / "deepspeed_tpu_torch" / part in PORT_FILES
 
 
+@pytest.mark.parametrize("part", ["comm/comm.py", "comm/mesh.py",
+                                  "runtime/zero/partition.py",
+                                  "runtime/zero/partition_parameters.py"])
+def test_import_rule_covers_the_zero_modules(part):
+    """The collectives, the mesh, the stages' partitions and ``zero.Init`` /
+    ``GatheredParameters`` are the port's own copies: the import rule above
+    walks each of their files."""
+    assert ROOT / "deepspeed_tpu_torch" / part in PORT_FILES
+
+
 def test_import_leaves_jax_unloaded():
     code = ("import sys\n"
             "def jaxish():\n"
@@ -108,6 +119,9 @@ def test_import_leaves_jax_unloaded():
             "import deepspeed_tpu_torch.ops.adagrad, deepspeed_tpu_torch.ops.adam\n"
             "import deepspeed_tpu_torch.runtime.activation_checkpointing\n"
             "import deepspeed_tpu_torch.runtime.zero.stream_grad\n"
+            "import deepspeed_tpu_torch.comm.comm, deepspeed_tpu_torch.comm.mesh\n"
+            "import deepspeed_tpu_torch.runtime.zero.partition\n"
+            "import deepspeed_tpu_torch.runtime.zero.partition_parameters\n"
             "print(sorted(jaxish() - before))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env={**os.environ, "PYTHONPATH": str(ROOT)},
@@ -256,7 +270,8 @@ def test_initialize_without_a_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("section", [
-    {"zero_optimization": {"stage": 1}}, {"zero_optimization": {"stage": 3}},
+    {"zero_optimization": {"stage": 1, "overlap_comm": True}},
+    {"zero_optimization": {"stage": 3, "zero_quantized_weights": True}},
     {"zero_optimization": {"stage": 1, "offload_optimizer": {"device": "cpu"}}},
     {"comm_quantization": {"all_gather": True}},
     {"pipeline": {"stages": 2}}, {"mesh": {"tp": 2}},

@@ -1,0 +1,238 @@
+"""Rank processes for the port's data-parallel tests: no jax here.
+
+:class:`RankGroup` spawns ``world`` processes that join one gloo process
+group over a ``FileStore`` in a temporary directory (no socket), run
+``fn(rank, world, *args)`` and send back its result; a rank that raises,
+or a group that does not finish within ``timeout`` seconds, fails the
+test that reads the results (the ranks are killed).  A spawned child
+re-imports this module and the module of ``fn``, so neither may import
+jax; each collective also times out on its own (``collective_timeout``).
+
+The scenarios the ranks run are here too (:func:`train_run` and its
+callers), as the CPU tests hold them against the JAX engine.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+import queue
+import shutil
+import tempfile
+import traceback
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+
+def _entry(rank, world, store_path, fn, args, results, collective_timeout):
+    try:
+        torch.set_num_threads(1)
+        import torch.distributed as dist
+
+        from deepspeed_tpu_torch.comm import comm
+
+        comm.init_distributed(
+            device="cpu", rank=rank, world_size=world, verbose=False,
+            store=dist.FileStore(store_path, world),
+            timeout=datetime.timedelta(seconds=collective_timeout))
+        out = fn(rank, world, *args)
+        results.put((rank, "ok", out))
+        comm.destroy()
+    except BaseException:                  # sent to the test, which fails
+        results.put((rank, "error", traceback.format_exc()))
+
+
+class RankGroup:
+    """``world`` spawned ranks running ``fn``; :meth:`results` waits for
+    them."""
+
+    def __init__(self, world: int, fn: Callable, args: tuple = (),
+                 timeout: float = 240.0, collective_timeout: float = 120.0):
+        ctx = torch.multiprocessing.get_context("spawn")
+        self.world, self.timeout = world, timeout
+        self._dir = tempfile.mkdtemp(prefix="ds_ranks_")
+        self._q = ctx.Queue()
+        self._procs = [ctx.Process(target=_entry, daemon=True,
+                                   args=(r, world, os.path.join(self._dir, "store"),
+                                         fn, args, self._q, collective_timeout))
+                       for r in range(world)]
+        for p in self._procs:
+            p.start()
+        self._out: Optional[List[Any]] = None
+
+    def results(self) -> List[Any]:
+        """Each rank's result, in rank order (raises for a failed rank or a
+        timeout)."""
+        if self._out is not None:
+            return self._out
+        got: Dict[int, Any] = {}
+        errors = []
+        try:
+            for _ in range(self.world):
+                rank, status, out = self._q.get(timeout=self.timeout)
+                if status == "ok":
+                    got[rank] = out
+                else:
+                    errors.append(f"rank {rank}:\n{out}")
+                    break
+        except queue.Empty:
+            errors.append(f"ranks {sorted(set(range(self.world)) - set(got))} "
+                          f"did not finish in {self.timeout:.0f} s")
+        finally:
+            for p in self._procs:
+                p.join(timeout=5 if not errors else 0.1)
+                if p.is_alive():
+                    p.kill()
+            shutil.rmtree(self._dir, ignore_errors=True)
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        self._out = [got[r] for r in range(self.world)]
+        return self._out
+
+    def close(self) -> None:
+        """Kill any rank still running (results never read)."""
+        for p in self._procs:
+            if p.is_alive():
+                p.kill()
+            p.join(timeout=5)
+        shutil.rmtree(self._dir, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# scenarios
+# ---------------------------------------------------------------------------
+
+def flat(tree: Dict[str, Any], prefix: str = ""):
+    for k in sorted(tree):
+        v = tree[k]
+        path = f"{prefix}.{k}" if prefix else k
+        if isinstance(v, dict):
+            yield from flat(v, path)
+        else:
+            yield path, v
+
+
+def rank_rows(batch, rank: int, world: int):
+    """Rank ``rank``'s rows of a stacked global batch ``[gas, micro *
+    world, ...]`` (a leaf, a tuple or a dict of them)."""
+    if isinstance(batch, dict):
+        return {k: rank_rows(v, rank, world) for k, v in batch.items()}
+    if isinstance(batch, (tuple, list)):
+        return type(batch)(rank_rows(x, rank, world) for x in batch)
+    mb = batch.shape[1] // world
+    return np.ascontiguousarray(batch[:, rank * mb:(rank + 1) * mb])
+
+
+def build_engine(preset: str, model_kw: dict, np_params, config: dict):
+    import deepspeed_tpu_torch
+
+    model = deepspeed_tpu_torch.causal_lm(preset, device="cpu", **model_kw)
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=model, model_parameters=np_params, config=config, device="cpu")
+    return engine
+
+
+def full_params(engine) -> Dict[str, np.ndarray]:
+    """The engine's full params as numpy (a collective at stage 3)."""
+    return {k: v.detach().float().numpy().copy() for k, v in flat(engine.params())}
+
+
+def train_run(rank, world, preset, model_kw, np_params, config, batches,
+              save_dir=None, save_after=None):
+    """Train on this rank's rows of each global batch; returns per step
+    (loss, grad norm), the full params and, when ``save_dir`` is given, saves
+    after step ``save_after``."""
+    engine = build_engine(preset, model_kw, np_params, config)
+    steps = []
+    for i, b in enumerate(batches):
+        loss = engine.train_step(rank_rows(b, rank, world))
+        steps.append((float(loss), engine.get_global_grad_norm()))
+        if save_dir is not None and i + 1 == save_after:
+            engine.save_checkpoint(save_dir, tag="resume")
+    return {"steps": steps, "params": full_params(engine)}
+
+
+def state_numels(engine) -> List[Any]:
+    """Per leaf: (path, master numel, [optimizer state numels], accumulator
+    numel, pdim, odim, param, opt, acc)."""
+    out = []
+    for i, (path, m) in enumerate(zip(engine._paths, engine.master)):
+        p = engine._opt_params[i]
+        st = [v.numel() for v in engine.optimizer.state[p].values()
+              if torch.is_tensor(v) and v.dim() > 0]
+        pl = engine._plan[i]
+        out.append((path, m.numel(), st, engine.grad_acc[i].numel(), pl.pdim,
+                    pl.odim, pl.param, pl.opt, pl.acc))
+    return out
+
+
+def zero_scenarios(rank, world, cases):
+    """Every world-``world`` case in one group: ``cases`` maps a name to
+    ``(kind, kwargs)``."""
+    from deepspeed_tpu_torch.comm import comm
+
+    out = {}
+    for name, (kind, kw) in cases.items():
+        comm.reset_counters()
+        if kind == "train":
+            res = train_run(rank, world, **kw)
+        elif kind == "bytes":
+            engine = build_engine(kw["preset"], kw["model_kw"], kw["np_params"],
+                                  kw["config"])
+            engine.train_step(rank_rows(kw["batch"], rank, world))
+            res = {"numels": state_numels(engine)}
+        elif kind == "gathered":
+            res = gathered_run(rank, world, **kw)
+        else:
+            raise ValueError(kind)
+        res["counters"] = comm.counters()
+        out[name] = res
+    return out
+
+
+def gathered_run(rank, world, preset, model_kw, np_params, config, batches):
+    """``GatheredParameters`` over a stage-3 engine: rank 0 halves the
+    token table (rank 1 writes another value, which the broadcast must
+    replace), every rank reads the change back, then one step."""
+    import deepspeed_tpu_torch
+
+    engine = build_engine(preset, model_kw, np_params, config)
+    with deepspeed_tpu_torch.zero.GatheredParameters(engine=engine,
+                                                     modifier_rank=0) as p:
+        tok = p["embed"]["tok"]
+        if rank == 0:
+            tok.mul_(0.5)
+        else:
+            tok.fill_(7.0)
+    seen = full_params(engine)["embed.tok"]
+    loss = float(engine.train_step(rank_rows(batches[0], rank, world)))
+    return {"seen": seen, "steps": [(loss, engine.get_global_grad_norm())],
+            "params": full_params(engine)}
+
+
+def ckpt_scenarios(rank, world, preset, model_kw, np_params, config, batches,
+                   port_dir, jax_dir):
+    """Checkpoints over ranks: train two steps, save a tag into
+    ``port_dir``, take the third (the run not interrupted); a fresh engine
+    loads the tag and takes the third; another loads the JAX engine's tag in
+    ``jax_dir`` and takes the third."""
+    engine = build_engine(preset, model_kw, np_params, config)
+    run = []
+    for i, b in enumerate(batches):
+        if i == 2:
+            engine.save_checkpoint(port_dir, tag="resume")
+            saved = full_params(engine)
+        loss = engine.train_step(rank_rows(b, rank, world))
+        run.append((float(loss), engine.get_global_grad_norm()))
+    out = {"run": run, "run_params": full_params(engine), "saved": saved}
+    for name, where in (("resumed", port_dir), ("from_jax", jax_dir)):
+        fresh = build_engine(preset, model_kw, np_params, config)
+        fresh.load_checkpoint(where)
+        loaded = full_params(fresh)
+        loss = fresh.train_step(rank_rows(batches[2], rank, world))
+        out[name] = {"loaded": loaded, "global_steps": fresh.global_steps,
+                     "step": (float(loss), fresh.get_global_grad_norm()),
+                     "params": full_params(fresh)}
+    return out
