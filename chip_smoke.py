@@ -972,13 +972,25 @@ def profile_pad():
     time.sleep(PROFILE_PAD_S)
 
 
-def device_us_a_call(torch, call, what, calls=200, sessions=4):
+def raw_records(prof, name):
+    """Device records named ``name`` among kineto's raw results, before
+    torch parses them into events: a record missing there was dropped by
+    kineto or CUPTI."""
+    try:
+        return sum(name in e.name() for e in prof.profiler.kineto_results.events()
+                   if str(e.device_type()).endswith("CUDA"))
+    except AttributeError:          # another torch's profiler internals
+        return None
+
+
+def device_us_a_call(torch, call, what, calls=200, sessions=2):
     """Device us a call of ``call`` under torch.profiler (every kernel it
     launches, the mean over ``calls`` calls), and the kernels' names.  Each
     kernel must be launched once a call: a session that comes back with
-    fewer records than calls is taken again.  A marker kernel opens each
-    session (some card processes lose a session's first record, PERF.md
-    §7); its record is left out."""
+    fewer records than calls is taken once more, printed as a repeat, and a
+    second loss fails.  A marker kernel opens each session (some card
+    processes lose a session's first record, PERF.md §7); its record is
+    left out."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -998,13 +1010,15 @@ def device_us_a_call(torch, call, what, calls=200, sessions=4):
         marker = [e for e in ev if MARKER_KERNEL in e.key]
         ev = [e for e in ev if MARKER_KERNEL not in e.key]
         if not marker:
-            print(f"{what}: profile session {session} lost the marker's record")
+            print(f"{what}: profile session {session} lost the marker's record "
+                  f"({raw_records(prof, MARKER_KERNEL)} in kineto's raw results)")
         if ev and all(e.count == calls for e in ev):
             return (sum(e.self_device_time_total for e in ev) / calls,
                     sorted({e.key[:60] for e in ev}))
         print(f"{what}: profile session {session} holds "
-              f"{[(e.key[:40], e.count) for e in ev]} of {calls} calls; "
-              f"profiling again")
+              f"{[(e.key[:40], e.count, raw_records(prof, e.key)) for e in ev]} "
+              f"(name, records, kineto's raw records) of {calls} calls"
+              + ("; a repeat of the window follows" if session < sessions else ""))
     raise RuntimeError(f"chip_smoke: {what}: no profile session in {sessions} held a "
                        f"record of every launch")
 
@@ -2304,12 +2318,12 @@ def span_ms(prof, tags):
     return (total + (0.0 if hi is None else hi - lo)) / 1e3
 
 
-def kernel_split(torch, call, names, what, calls=10, sessions=3):
+def kernel_split(torch, call, names, what, calls=10, sessions=2):
     """Device time of each kernel (``names``) of one call under
     torch.profiler (the mean of ``calls`` calls), in us.  A session that
-    holds none of the kernels is taken again, up to ``sessions`` in all:
+    holds none of the kernels is taken once more, printed as a repeat:
     on the H100 a session now and then comes back without them, in no
-    fixed place.  One that holds some of them fails at once."""
+    fixed place.  One that holds some of them, or a second loss, fails."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -2332,7 +2346,8 @@ def kernel_split(torch, call, names, what, calls=10, sessions=3):
             break
         print(f"{what}: profile session {session} holds none of {names} "
               f"({len(events)} kinds of event: "
-              f"{sorted(e.key[:50] for e in events)[:4]}); profiling again")
+              f"{sorted(e.key[:50] for e in events)[:4]}); a repeat of the "
+              f"window follows")
     check(len(split) == len(names), f"{what}: profile kernels {split}")
     print(f"{what} device us a call: " + ", ".join(
         f"{n} {t:.2f}" for n, t in split.items())
@@ -4735,7 +4750,7 @@ def adam8bit_state_bytes(optimizer):
     return total
 
 
-def train_plan(cfg, micros, steps, optimizer, f16=False):
+def train_plan(cfg, micros, steps, optimizer, f16=False, bucket_remat=False):
     """Launches a training run must make.  Per micro-batch: 2L+1 norm
     forwards (RMSNorm or LayerNorm) and as many backwards, one more of each
     (a LayerNorm) for BLOOM's embedding norm, L flash forward and L flash
@@ -4754,10 +4769,16 @@ def train_plan(cfg, micros, steps, optimizer, f16=False):
     ``mlp_only`` (and an MoE MLP under ``mlp_dots``) redoes none, the
     whole-layer checkpoint (``full``, ``dots``) the attention's alone (+L);
     the replay of the saved-dots bodies reruns them whole: ``mlp_dots``
-    +L, ``offload_dots`` +2L."""
+    +L, ``offload_dots`` +2L.  ``bucket_remat`` (the ``overlap_comm``
+    schedule's layer buckets under ``torch.utils.checkpoint``, around the
+    model's own policy) runs each layer's forward once more in the
+    backward, up to its last saved tensor, the MLP's saved dots: +2L norm
+    forwards, +L flash forwards, +L RoPEs (no dropout here)."""
     L = cfg.num_layers
     mlp = bool(cfg.remat) and cfg.remat_policy in ("mlp_only", "mlp_dots")
-    full = bool(cfg.remat) and not mlp
+    full = (bool(cfg.remat) and not mlp) or bucket_remat
+    check(not (bucket_remat and (cfg.dropout > 0 or (cfg.remat and not mlp))),
+          "train_plan: bucket remat is counted over an MLP policy without dropout")
     rope = cfg.position == "rope"
     flash = ("flash_attention_{}" + ("_f16" if f16 else "")
              + ("_alibi" if cfg.position == "alibi" else ""))
@@ -5140,7 +5161,9 @@ def phase_train(torch, dev, preset, name="train", section=None, peaks=None,
     check(applied[-1][0] < applied[0][0], f"loss did not fall: {steps}")
     check(engine.skipped_steps == len(steps) - len(applied)
           and engine.global_steps == len(applied), f"{name}: skips {steps}")
-    plan = train_plan(cfg, gas * len(steps), len(applied), opt, f16=fp16)
+    sched = getattr(engine, "_overlap_sched", None)
+    plan = train_plan(cfg, gas * len(steps), len(applied), opt, f16=fp16,
+                      bucket_remat=sched is not None and sched.remat)
     check(launches == plan, f"{name} launches {launches} != path plan {plan}")
     if isinstance(opt, Adam8bit):
         held, want = opt.state_bytes(), adam8bit_state_bytes(opt)
@@ -5212,10 +5235,11 @@ def manifest_bytes(ckpt_dir):
         return sum(f["nbytes"] for f in json.load(fh)["files"].values())
 
 
-# the checkpoint phase's depth: llama-1b4 cut from 24 to 2 layers to keep
+# the checkpoint phase's depth: llama-1b4 cut from 24 to 1 layer to keep
 # the smoke in its time (the save and the verified load hash
-# every byte on one core: 158 s for the full-depth tags)
-CHECKPOINT_LAYERS = 2
+# every byte on one core: 158 s for the full-depth tags; 2 layers until
+# the overlap and offload-over-ranks phases joined the smoke)
+CHECKPOINT_LAYERS = 1
 
 
 def checkpoint_round(torch, dev, name, section, ident, infer=False):
@@ -5449,7 +5473,10 @@ def phase_train_profile(torch, engine, tokens):
 # at 4 layers of its full width
 ZERO3_SECTION = {"zero_optimization": {"stage": 3,
                                        "stage3_param_persistence_threshold": 0}}
-ZERO_REFERENCE_LAYERS = 4
+# (4 until the overlap phases joined the smoke; cut for its 600 s aim)
+ZERO_REFERENCE_LAYERS = 2
+# overlap_comm: the layer-bucketed schedule, a bucket a layer
+ZERO_OVERLAP = {"overlap_comm": True, "overlap_bucket_layers": 1}
 
 
 def zero_group(torch):
@@ -5489,6 +5516,8 @@ def phase_zero_reference(torch, dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     ref = None
     store = None
+    print(f"zero_reference: llama-1b4 at full width cut to {ZERO_REFERENCE_LAYERS} of "
+          f"its 24 layers for the smoke's 600 s aim (zero_overlap_reference too)")
     try:
         for stage in (0, 1, 2, 3):
             if stage == 1:
@@ -5547,6 +5576,61 @@ def phase_zero_reference(torch, dev):
         comm.destroy()
         if store and os.path.exists(store):
             os.remove(store)
+    return {"tokens": tokens, "steps": ref[0], "masters": ref[1]}
+
+
+def phase_zero_overlap_reference(torch, dev, ref):
+    """``overlap_comm`` at stages 1, 2 and 3 over a world-one NCCL group at
+    zero_reference's cut (llama-1b4's width, ZERO_REFERENCE_LAYERS layers,
+    its tokens), bucket 1 layer: each bit-equal to stage 0's run there
+    (losses, grad norms, masters), which the same stage without overlap
+    equals (zero_reference); and each micro-batch's per-bucket collectives
+    (comm counters) the schedule's plan, op by op in calls and bytes."""
+    import gc
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.comm import comm
+
+    tokens = ref["tokens"]
+    store = zero_group(torch)
+    try:
+        for stage in (1, 2, 3):
+            model = train_model("llama-1b4", num_layers=ZERO_REFERENCE_LAYERS)
+            engine, *_ = deepspeed_tpu_torch.initialize(
+                model=model, config=dict(TRAIN_CONFIG, zero_optimization=dict(
+                    ZERO_OVERLAP, stage=stage, stage3_param_persistence_threshold=0)))
+            check(engine._overlap, f"zero_overlap_reference: stage {stage} took "
+                  f"the plain schedule ({engine._overlap_reason})")
+            sched = engine._overlap_sched
+            steps = []
+            for _ in range(3):
+                loss = float(engine.train_step((tokens, tokens)))
+                steps.append((loss, engine.get_global_grad_norm()))
+                check(sched.last_counts == sched.plan_counts(),
+                      f"zero_overlap_reference: stage {stage} micro-batch ran "
+                      f"{sched.last_counts}, the plan is {sched.plan_counts()}")
+            torch.cuda.synchronize()
+            masters = [t.detach().clone() for _, t in
+                       sorted(_flat_tree(engine.params()).items())]
+            check(steps == ref["steps"], f"zero_overlap_reference: stage {stage} "
+                  f"steps {steps} != the plain path's {ref['steps']}")
+            bad = [i for i, (a, b) in enumerate(zip(masters, ref["masters"]))
+                   if not torch.equal(a, b)]
+            check(not bad, f"zero_overlap_reference: stage {stage} masters differ "
+                  f"from the plain path's at leaves {bad}")
+            print(f"zero_overlap_reference: stage {stage}, {len(sched.bucket_infos())} "
+                  f"buckets (remat {sched.remat}), bit-equal to the plain path "
+                  f"(losses {[x[0] for x in steps]}, grad norms, {len(masters)} "
+                  f"masters); a micro-batch's collectives = the plan "
+                  f"{json.dumps(sched.plan_counts())}; hideable share "
+                  f"{sched.hideable_comm_fraction():.4f}")
+            del engine, model, masters
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        comm.destroy()
+        if os.path.exists(store):
+            os.remove(store)
 
 
 def _flat_tree(tree, prefix=""):
@@ -5554,6 +5638,48 @@ def _flat_tree(tree, prefix=""):
     for k, v in tree.items():
         path = f"{prefix}.{k}" if prefix else k
         out.update(_flat_tree(v, path) if isinstance(v, dict) else {path: v})
+    return out
+
+
+def phase_zero_overlap_train(torch, dev, peaks, medians):
+    """zero_train's cell with ``overlap_comm`` (bucket 1 layer): llama-1b4
+    at full width and depth at stage 3 over a world-one NCCL group, where
+    each collective is a copy: it proves the bucketed schedule at scale (a
+    micro-batch's collectives the plan, the layer buckets' recompute in the
+    launch plan) and shows its cost; no communication can hide on one
+    card.  Its median step, MFU and peak are printed beside zero_train's."""
+    from deepspeed_tpu_torch.comm import comm
+
+    seen = []
+    store = zero_group(torch)
+    try:
+        def on_step(engine):
+            sched = engine._overlap_sched
+            seen.append(sched.last_counts == sched.plan_counts())
+
+        def report(engine, info):
+            sched = engine._overlap_sched
+            check(engine._overlap and all(seen), "zero_overlap_train: a "
+                  f"micro-batch's collectives left the plan {sched.plan_counts()}")
+            mfu = 100 * info["flops"] / info["median"] / BF16_FLOPS_PER_S
+            zt = medians.get("zero_train", float("nan"))
+            print(f"zero_overlap_train: {len(sched.bucket_infos())} buckets, "
+                  f"median step {info['median']:.4f}s, MFU {mfu:.2f}%, peak "
+                  f"{info['peak_gib']:.2f} GiB, beside zero_train's median "
+                  f"{zt:.4f}s (peak {peaks.get('zero_train', float('nan')):.2f} GiB) "
+                  f"and train's {medians.get('train', float('nan')):.4f}s; a "
+                  f"micro-batch's collectives {json.dumps(sched.plan_counts())}, "
+                  f"hideable share {sched.hideable_comm_fraction():.4f} (a world "
+                  f"of one: every collective a copy)")
+
+        out = phase_train(torch, dev, "llama-1b4", "zero_overlap_train",
+                          {"zero_optimization": dict(ZERO3_SECTION["zero_optimization"],
+                                                     **ZERO_OVERLAP)},
+                          peaks, medians, on_step=on_step, report=report)
+    finally:
+        comm.destroy()
+        if os.path.exists(store):
+            os.remove(store)
     return out
 
 
@@ -5710,7 +5836,7 @@ def phase_zero_offload_reference(torch, dev):
           f"(losses {ln}, every host master)")
 
 
-def phase_zero_offload_train(torch, dev, peaks, medians):
+def phase_zero_offload_train(torch, dev, peaks, medians, keep=None):
     """llama2-7b at full width (D 4096, 32/32 heads, F 11008, vocab 32000),
     bf16 compute over fp32 host masters (host C++ AdamW), WarmupLR,
     clipping 1.0, micro 2 x gas 2 x S 2048, remat full, 4 steps.  The
@@ -5794,6 +5920,11 @@ def phase_zero_offload_train(torch, dev, peaks, medians):
         fused = 16 * n_p + 2 * n_p + act
         out.update(host_step_s=host_s, host_gbs=rate, state_bytes=opt.state_bytes(),
                    fused_bytes=fused, layers=layers, pinned=engine._relay.pinned_bytes())
+        if keep is not None:     # for zero_offload_stage2's bit-equality
+            keep.update(layers=layers, host_step_s=host_s,
+                        steps=[(x[0], x[1]) for x in info["steps"]],
+                        masters=[m.clone() for m in opt.masters()],
+                        params=[m.detach().cpu() for m in engine.master])
         print(f"zero_offload_train: {ident}, {cores} cores, MemTotal "
               f"{total / 2**30:.2f} GiB: host step (mean of steps 2-{len(splits)}) "
               f"{host_s * 1e3:.1f} ms over {n_p / 1e9:.4f}B params = "
@@ -5817,6 +5948,64 @@ def phase_zero_offload_train(torch, dev, peaks, medians):
     if hasattr(torch._C, "_host_emptyCache"):
         torch._C._host_emptyCache()     # give the pinned staging back
     return launches, device_ms
+
+
+def phase_zero_offload_stage2(torch, dev, peaks, medians, ref):
+    """zero_offload_train's llama2-7b leg (``ref``: its depth, steps, host
+    masters and card params) at ZeRO stage 2 over a world-one NCCL group,
+    cpu offload: the host optimizer steps this rank's slices (the whole
+    leaves at a world of one), the accumulator reduce-scattered, the
+    updated slices gathered into the bf16 compute copy.  Bit-equal to the
+    stage-0 run: each step's loss and grad norm, every host master and
+    card param.  Prints the host step's time beside stage 0's."""
+    import gc
+
+    from deepspeed_tpu_torch.comm import comm
+
+    gc.collect()
+    if hasattr(torch._C, "_host_emptyCache"):
+        torch._C._host_emptyCache()
+    splits = []
+
+    def report(engine, info):
+        opt = engine._offload_opt
+        check(engine._dist and engine.zero_stage == 2 and engine._offload,
+              "zero_offload_stage2: not the stage-2 offload path")
+        steps = [(x[0], x[1]) for x in info["steps"]]
+        check(steps == ref["steps"], f"zero_offload_stage2: steps {steps} != "
+              f"stage 0's {ref['steps']}")
+        bad = [i for i, (a, b) in enumerate(zip(opt.masters(), ref["masters"]))
+               if not torch.equal(a, b)]
+        check(not bad, f"zero_offload_stage2: host masters differ from stage 0's "
+              f"at leaves {bad}")
+        bad = [i for i, (a, b) in enumerate(zip(engine.master, ref["params"]))
+               if not torch.equal(a.cpu(), b)]
+        check(not bad, f"zero_offload_stage2: card params differ at leaves {bad}")
+        host_s = statistics.mean(sp["host_step"] for sp in splits[1:]) / 1e3
+        print(f"zero_offload_stage2: llama2-7b L{ref['layers']} at stage 2 over "
+              f"NCCL world 1, bit-equal to zero_offload_train's stage 0 (losses "
+              f"{[x[0] for x in steps]}, grad norms, {len(ref['masters'])} host "
+              f"masters, the card's bf16 params); host step {host_s * 1e3:.1f} ms "
+              f"against stage 0's {ref['host_step_s'] * 1e3:.1f} ms; host state "
+              f"{opt.state_bytes()} B; median step {info['median']:.4f}s")
+
+    store = zero_group(torch)
+    try:
+        section = {"zero_optimization": {"stage": 2, "offload_optimizer": {
+            "device": "cpu"}}, **ADAMW_SECTION}
+        out = phase_train(torch, dev, "llama2-7b", "zero_offload_stage2", section,
+                          peaks, medians, model_over={"num_layers": ref["layers"]},
+                          steps_wanted=4, profile=False,
+                          on_step=lambda engine: splits.append(engine.offload_split()),
+                          report=report)
+    finally:
+        comm.destroy()
+        if os.path.exists(store):
+            os.remove(store)
+        if hasattr(torch._C, "_host_emptyCache"):
+            torch._C._host_emptyCache()
+    ref.clear()
+    return out
 
 
 # ZeRO-Infinity (offload_param): the params and the grads in host memory too
@@ -6345,8 +6534,16 @@ def clocked(spent, name, fn, *args, **kwargs):
     t = time.perf_counter()
     out = fn(*args, **kwargs)
     spent[name] = time.perf_counter() - t
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     print(f"chip_smoke: phase {name} {spent[name]:.1f}s, host MemAvailable "
-          f"{host_available_gib():.2f} GiB")
+          f"{host_available_gib():.2f} GiB, card allocated after it "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
     return out
 
 
@@ -6428,10 +6625,13 @@ def main() -> int:
     c("optimizer_reference", phase_optimizer_reference, torch, dev)
     c("zero_offload_reference", phase_zero_offload_reference, torch, dev)
     c("param_offload_reference", phase_param_offload_reference, torch, dev)
-    c("zero_reference", phase_zero_reference, torch, dev)
+    zref = c("zero_reference", phase_zero_reference, torch, dev)
+    c("zero_overlap_reference", phase_zero_overlap_reference, torch, dev, zref)
+    del zref
     # each path: (launch counts of its run, device ms per call in its profile)
     peaks, medians = {}, {}
     serve_keep, gen_keep = {}, {}
+    offload_ref = {}      # zero_offload_train's run, for zero_offload_stage2
     runs = {"ops": (c("ops", phase_ops, torch, dev), {}),
             "serve": c("serve", phase_serve, torch, dev, "llama3-8b", keep=serve_keep),
             "gpt2_serve": c("gpt2_serve", phase_serve, torch, dev, "gpt2-xl"),
@@ -6443,6 +6643,8 @@ def main() -> int:
                        peaks=peaks, medians=medians),
             "zero_train": c("zero_train", phase_zero_train, torch, dev, peaks,
                             medians),
+            "zero_overlap_train": c("zero_overlap_train", phase_zero_overlap_train,
+                                    torch, dev, peaks, medians),
             "checkpoint": c("checkpoint", phase_checkpoint, torch, dev),
             "fp16_train": c("fp16_train", phase_train, torch, dev, "llama-1b4",
                             "fp16_train", FP16_CONFIG, peaks, medians),
@@ -6467,7 +6669,9 @@ def main() -> int:
                                      phase_param_offload_train, torch, dev,
                                      peaks, medians),
             "zero_offload_train": c("zero_offload_train", phase_zero_offload_train,
-                                    torch, dev, peaks, medians),
+                                    torch, dev, peaks, medians, offload_ref),
+            "zero_offload_stage2": c("zero_offload_stage2", phase_zero_offload_stage2,
+                                     torch, dev, peaks, medians, offload_ref),
             "offload_train": c(
                 "offload_train", phase_train, torch, dev, "llama-1b4",
                 "offload_train",

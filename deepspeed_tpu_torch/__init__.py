@@ -89,7 +89,9 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     precedence over the config's optimizer section, as in the JAX
     engine.  Under ``zero_optimization.offload_param`` the params stay in
     host memory and train a layer at a time on the card (ZeRO-Infinity).
-    A client ``loss_fn`` is refused (not ported).
+    A client ``loss_fn(params, batch, rng)`` (the JAX engine's contract:
+    the params in the compute dtype) replaces the model's ``apply``; under
+    ``offload_param`` it is refused.
 
     Under ``torchrun`` (``WORLD_SIZE`` set) it joins the process group
     (:func:`deepspeed_tpu_torch.comm.init_distributed`: NCCL on

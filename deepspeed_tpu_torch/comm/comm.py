@@ -23,6 +23,16 @@ device, gloo for the CPU.
   j along ``split_dim`` to member j and concatenates what it receives
   along ``concat_dim``; ``all_reduce_grad`` is a sum that autograd
   differentiates.
+- ``all_reduce``, ``all_gather`` and ``reduce_scatter`` take
+  ``async_op=True``: the collective is issued (on NCCL, on its own stream
+  after the work queued so far) and a :class:`Pending` comes back, whose
+  ``wait()`` returns the result (on the card, making the current stream
+  wait for it without blocking the host).  Inside :func:`coalescing` the
+  async collectives of one kind over one group go out together at the
+  block's end, each still its own collective (NCCL runs them as one
+  group launch), and waiting for any of them waits for all.  The overlap
+  schedule (``runtime/zero/overlap.py``) gathers a bucket ahead and
+  reduces a bucket's grads while the backward goes on this way.
 - Every call adds to a per-op counter of calls and bytes
   (:func:`counters`, :func:`reset_counters`, :func:`log_summary`): the bytes
   of the tensor a member sends, for ``all_gather`` the gathered output.
@@ -33,6 +43,7 @@ functions do in one process.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import logging
 import os
@@ -202,20 +213,81 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+class Pending:
+    """An issued collective: :meth:`wait` waits for it and returns its
+    result."""
+
+    def __init__(self, work, finish, keep=()):
+        # ``keep``: the tensors the collective reads, alive until it is done
+        self._work, self._finish, self._keep = work, finish, keep
+
+    def wait(self) -> torch.Tensor:
+        self._work.wait()
+        return self._finish()
+
+
+class _Batch:
+    """The collectives of a :func:`coalescing` block: one wait for all,
+    once the block has issued them."""
+
+    def __init__(self):
+        self._cm = None
+        self._done = False
+
+    def wait(self) -> None:
+        if not self._done:
+            self._cm.wait()
+            self._done = True
+
+
+_BATCH: Optional[_Batch] = None
+
+
+@contextlib.contextmanager
+def coalescing(axis: AxisLike = None):
+    """Issue the async collectives of the block over ``axis`` together:
+    they must be of one kind (all gathers, all reduce-scatters or all
+    sums); each one's :class:`Pending` waits for the whole batch."""
+    global _BATCH
+    if _BATCH is not None:
+        raise RuntimeError("comm.coalescing blocks do not nest")
+    group = _group(axis)
+    batch = _Batch()
+    _BATCH = batch
+    try:
+        with dist.distributed_c10d._coalescing_manager(group=group,
+                                                       async_ops=True) as cm:
+            yield batch
+    finally:
+        _BATCH = None
+    batch._cm = cm
+
+
+def _work(work, async_op: bool):
+    """The handle an async collective's :class:`Pending` waits on: its own,
+    or its :func:`coalescing` block's."""
+    if async_op and _BATCH is not None:
+        return _BATCH
+    return work
+
+
 def all_reduce(x: torch.Tensor, axis: AxisLike = ("dp", "fsdp"),
-               op: str = "sum") -> torch.Tensor:
+               op: str = "sum", async_op: bool = False):
     """Reduce ``x`` in place over ``axis`` (``sum``, ``avg``, ``max``,
     ``min``, ``prod``; ``avg`` is a sum divided by the group's size, which
-    gloo has no op for); returns ``x``."""
+    gloo has no op for); returns ``x`` (a :class:`Pending` of it with
+    ``async_op``)."""
     group = _group(axis)
     _count("all_reduce", _nbytes(x))
-    if op in ("avg", ReduceOp.AVG):
-        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
-        return x.div_(get_world_size(group))
-    if op not in _OPS:
+    avg = op in ("avg", ReduceOp.AVG)
+    if not avg and op not in _OPS:
         raise ValueError(f"unsupported reduce op {op}")
-    dist.all_reduce(x, op=_OPS[op], group=group)
-    return x
+    work = dist.all_reduce(x, op=dist.ReduceOp.SUM if avg else _OPS[op],
+                           group=group, async_op=async_op)
+
+    def finish():
+        return x.div_(get_world_size(group)) if avg else x
+    return Pending(_work(work, async_op), finish) if async_op else finish()
 
 
 def all_reduce_grad(x: torch.Tensor, axis: AxisLike = ("dp", "fsdp")) -> torch.Tensor:
@@ -229,10 +301,11 @@ def all_reduce_grad(x: torch.Tensor, axis: AxisLike = ("dp", "fsdp")) -> torch.T
 
 
 def all_gather(x: torch.Tensor, axis: AxisLike, gather_dim: int = 0,
-               tiled: bool = True, out: Optional[torch.Tensor] = None
-               ) -> torch.Tensor:
+               tiled: bool = True, out: Optional[torch.Tensor] = None,
+               async_op: bool = False):
     """The members' ``x`` in rank order, concatenated along ``gather_dim``
-    (``tiled``) or stacked on a new one; into ``out`` when given."""
+    (``tiled``) or stacked on a new one; into ``out`` when given (a
+    :class:`Pending` of it with ``async_op``)."""
     group = _group(axis)
     n = get_world_size(group)
     x = x.contiguous()
@@ -241,23 +314,28 @@ def all_gather(x: torch.Tensor, axis: AxisLike, gather_dim: int = 0,
     buf = out if direct else torch.empty((n,) + tuple(x.shape), dtype=x.dtype,
                                          device=x.device)
     _count("all_gather", n * _nbytes(x))
-    dist.all_gather_into_tensor(buf.view(-1), x.view(-1), group=group)
-    if direct:
-        return out
-    full = buf.movedim(0, gather_dim)
-    if tiled:
-        shape = list(x.shape)
-        shape[gather_dim] *= n
-        full = full.reshape(shape)
-    if out is None:
-        return full.contiguous()
-    return out.copy_(full)
+    work = dist.all_gather_into_tensor(buf.view(-1), x.view(-1), group=group,
+                                       async_op=async_op)
+
+    def finish():
+        if direct:
+            return out
+        full = buf.movedim(0, gather_dim)
+        if tiled:
+            shape = list(x.shape)
+            shape[gather_dim] *= n
+            full = full.reshape(shape)
+        if out is None:
+            return full.contiguous()
+        return out.copy_(full)
+    return Pending(_work(work, async_op), finish, (x,)) if async_op else finish()
 
 
-def reduce_scatter(x: torch.Tensor, axis: AxisLike, scatter_dim: int = 0
-                   ) -> torch.Tensor:
+def reduce_scatter(x: torch.Tensor, axis: AxisLike, scatter_dim: int = 0,
+                   async_op: bool = False):
     """The sum of the members' ``x``, split along ``scatter_dim`` into as
-    many equal slices as members: this member's slice."""
+    many equal slices as members: this member's slice (a :class:`Pending`
+    of it with ``async_op``)."""
     group = _group(axis)
     n = get_world_size(group)
     if x.shape[scatter_dim] % n:
@@ -269,8 +347,9 @@ def reduce_scatter(x: torch.Tensor, axis: AxisLike, scatter_dim: int = 0
     shape[scatter_dim] //= n
     out = torch.empty(shape, dtype=x.dtype, device=x.device)
     _count("reduce_scatter", _nbytes(x))
-    dist.reduce_scatter_tensor(out.view(-1), send.view(-1), group=group)
-    return out
+    work = dist.reduce_scatter_tensor(out.view(-1), send.view(-1), group=group,
+                                      async_op=async_op)
+    return Pending(_work(work, async_op), lambda: out, (send,)) if async_op else out
 
 
 def all_to_all_single(x: torch.Tensor, axis: AxisLike, split_dim: int = 0,

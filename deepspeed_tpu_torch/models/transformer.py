@@ -609,6 +609,9 @@ class CausalLM(_ParamTree):
           the cross-entropy; ``head_tree["head"]`` is the ``[V, D]`` token
           table when the embeddings are tied, else ``[D, V]``;
         - ``rope(S, dtype, device)``: cos and sin (None without RoPE);
+        - ``layer_body(device)``: the training forward's per-layer body under
+          the model's remat policy (:meth:`_layer_fn`; the ``overlap_comm``
+          schedule runs it, so its numbers are the plain path's);
         - ``num_layers``, ``dropout``, ``moe_coef`` (0 for a dense model)
           and ``tied``."""
         cfg = self.config
@@ -640,7 +643,8 @@ class CausalLM(_ParamTree):
         return {"num_layers": cfg.num_layers, "dropout": cfg.dropout,
                 "moe_coef": cfg.moe_aux_loss_coef if cfg.is_moe else 0.0,
                 "tied": cfg.tie_embeddings, "embed_fwd": embed_fwd,
-                "layer_fwd": layer_fwd, "head_loss": head_loss, "rope": rope}
+                "layer_fwd": layer_fwd, "layer_body": self._layer_fn,
+                "head_loss": head_loss, "rope": rope}
 
 
 def causal_lm(preset: str, *, device: DeviceLike = None,

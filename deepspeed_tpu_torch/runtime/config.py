@@ -10,20 +10,22 @@ compute over fp32 masters with a static or dynamic loss scale),
 ``steps_per_print``, ``checkpoint`` (verified loads, elastic resume,
 retention; ``preemption_save`` is refused), ``zero_optimization.
 offload_optimizer`` (ZeRO-Offload of the optimizer state to host memory or
-NVMe, at stage 0; the deprecated ``cpu_offload: true`` spelling too) and
-``aio`` (the NVMe swapper's I/O handle), ``zero_optimization.stage`` 0-3
-with ``stage3_param_persistence_threshold`` (the bucket sizes and
-``contiguous_gradients`` are accepted and recorded, as hints, as in the JAX
-config) and the ``mesh`` section (or ``tpu.mesh``) with its data axes
-``dp`` and ``fsdp``.  ``world_size`` is the data-parallel world (dp ×
-fsdp), which the batch triad is resolved against.  The settings the port
-does not carry yet raise ``NotImplementedError`` naming their ROADMAP.md
-line when they ask for something: ``overlap_comm``, ZeRO++,
-``comm_quantization``, offload at stage 1-3 or across ranks, the
-whole-program ``offload_param`` path, pipeline, tensor, sequence and expert
-parallelism.  Observability sections (profilers, monitors, flight
-recorder, goodput, watchdog, anomaly detection) are accepted only while
-disabled.
+NVMe, at every stage and across ranks; the deprecated ``cpu_offload: true``
+spelling too) and ``aio`` (the NVMe swapper's I/O handle),
+``zero_optimization.stage`` 0-3 with ``stage3_param_persistence_threshold``
+(the bucket sizes and ``contiguous_gradients`` are accepted and recorded,
+as hints, as in the JAX config), ``overlap_comm`` with
+``overlap_bucket_layers``, the ZeRO++ knobs (inert where the JAX engine
+leaves them inert: :func:`zeropp_gate`) and the ``mesh`` section (or
+``tpu.mesh``) with its data axes ``dp`` and ``fsdp``.  ``world_size`` is the
+data-parallel world (dp × fsdp), which the batch triad is resolved against.
+The settings the port does not carry yet raise ``NotImplementedError``
+naming their ROADMAP.md line when they ask for something: ZeRO++ where the
+JAX engine would run it, ``comm_quantization``, ``offload_param`` beyond
+stage 0 on one rank, the whole-program ``offload_param`` path, pipeline,
+tensor, sequence and expert parallelism.  Observability sections
+(profilers, monitors, flight recorder, goodput, watchdog, anomaly
+detection) are accepted only while disabled.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from __future__ import annotations
 import base64
 import json
 import os
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 from pydantic import Field
@@ -120,10 +122,12 @@ class OffloadParamConfig(DeepSpeedConfigModel):
 class ZeroConfig(DeepSpeedConfigModel):
     """The ``zero_optimization`` keys the port reads: the stage, the
     stage-3 persistence threshold, the offload of the optimizer state and
-    of the params.  The bucket sizes and ``contiguous_gradients`` are
-    recorded (hints the JAX engine leaves to XLA, and the port's collectives
-    go leaf by leaf); the ZeRO++ and ``overlap_comm`` switches are recorded
-    and refused when on; other keys are accepted."""
+    of the params, ``overlap_comm`` (the layer-bucketed schedule of
+    ``runtime/zero/overlap.py``, ``overlap_bucket_layers`` layers a bucket)
+    and the ZeRO++ switches (inert, with the JAX engine's reasons, except
+    where it would run ZeRO++, which is refused: :func:`zeropp_gate`).  The
+    bucket sizes and ``contiguous_gradients`` are recorded (hints the JAX
+    engine leaves to XLA); other keys are accepted."""
 
     stage: int = 0
     stage3_param_persistence_threshold: int = 100_000
@@ -131,6 +135,7 @@ class ZeroConfig(DeepSpeedConfigModel):
     allgather_bucket_size: int = 500_000_000
     contiguous_gradients: bool = True
     overlap_comm: Optional[bool] = None
+    overlap_bucket_layers: int = 1
     zero_quantized_weights: bool = False
     zero_quantized_gradients: bool = False
     zero_hpz_partition_size: int = 1
@@ -164,8 +169,58 @@ class MeshConfig(DeepSpeedConfigModel):
 _ZERO_KEYS = ("stage", "offload_optimizer", "offload_param", "cpu_offload",
               "cpu_offload_params", "stage3_param_persistence_threshold",
               "reduce_bucket_size", "allgather_bucket_size",
-              "contiguous_gradients", "overlap_comm", "zero_quantized_weights",
-              "zero_quantized_gradients", "zero_hpz_partition_size")
+              "contiguous_gradients", "overlap_comm", "overlap_bucket_layers",
+              "zero_quantized_weights", "zero_quantized_gradients",
+              "zero_hpz_partition_size")
+
+_ONEBIT = ("onebitadam", "zerooneadam", "onebitlamb")
+
+
+def _offloads(zero: Dict) -> bool:
+    """Whether a ``zero_optimization`` dict offloads the optimizer state or
+    the params."""
+    off = zero.get("offload_optimizer") or {}
+    p_off = zero.get("offload_param") or {}
+    return (zero.get("cpu_offload") is True
+            or off.get("device", "none") not in (None, "none")
+            or p_off.get("device", "none") not in (None, "none"))
+
+
+def zeropp_gate(d: Dict, world_size: int = 1) -> Tuple[bool, Optional[str]]:
+    """The JAX engine's ZeRO++ gate (``runtime/engine.py`` ``__init__``):
+    ``(wanted, reason)``, wanted when ``zero_quantized_weights``,
+    ``zero_quantized_gradients`` or ``zero_hpz_partition_size > 1`` is set,
+    and the reason it would be inert, None where the JAX engine runs
+    ZeRO++.  The fsdp size is the mesh section's over ``world_size`` ranks."""
+    zero = d.get("zero_optimization") or {}
+    hpz = int(zero.get("zero_hpz_partition_size", 1) or 1)
+    if not (zero.get("zero_quantized_weights") is True
+            or zero.get("zero_quantized_gradients") is True or hpz > 1):
+        return False, None
+    from deepspeed_tpu_torch.comm.mesh import build_mesh
+
+    mesh_cfg = MeshConfig(**mesh_section(d))
+    mesh = build_mesh(dp=mesh_cfg.dp, fsdp=mesh_cfg.fsdp, tp=mesh_cfg.tp,
+                      pp=mesh_cfg.pp, sp=mesh_cfg.sp, ep=mesh_cfg.ep,
+                      world_size=world_size, rank=0, make_groups=False)
+    bad = [a for a in ("tp", "sp", "pp", "ep") if mesh.shape.get(a, 1) > 1]
+    fsdp = mesh.shape.get("fsdp", 1)
+    opt = ((d.get("optimizer") or {}).get("type") or "").lower()
+    onebit = opt.replace("_", "").replace("-", "") in _ONEBIT
+    if int(zero.get("stage", 0) or 0) != 3:
+        return True, "requires ZeRO stage 3 (sharded params)"
+    if _offloads(zero) or onebit:
+        return True, "not combinable with offload or 1-bit optimizers"
+    if (d.get("fp16") or {}).get("enabled"):
+        return True, "requires bf16/fp32 (no fp16 loss scaling)"
+    if bad:
+        return True, (f"model/expert-parallel axes {bad} are not supported "
+                      "on the ZeRO++ path")
+    if fsdp <= 1:
+        return True, "needs an fsdp mesh axis > 1"
+    if hpz > 1 and fsdp % hpz:
+        return True, f"hpz size {hpz} must divide fsdp={fsdp}"
+    return True, None
 
 
 def mesh_section(d: Dict) -> Dict:
@@ -349,26 +404,12 @@ class DeepSpeedConfig:
     def _refuse_unported(d: Dict, world_size: int = 1) -> None:
         zero = d.get("zero_optimization") or {}
         stage = int(zero.get("stage", 0) or 0)
-        if zero.get("overlap_comm") is True:
-            raise _not_ported("zero_optimization.overlap_comm", "item 2e, "
-                              "overlap_comm and ZeRO++")
-        for key in ("zero_quantized_weights", "zero_quantized_gradients"):
-            if zero.get(key) is True:
-                raise _not_ported(f"zero_optimization.{key} (ZeRO++)",
-                                  "item 2e, overlap_comm and ZeRO++")
-        if int(zero.get("zero_hpz_partition_size", 1) or 1) > 1:
-            raise _not_ported("zero_optimization.zero_hpz_partition_size > 1 "
-                              "(ZeRO++)", "item 2e, overlap_comm and ZeRO++")
-        off = zero.get("offload_optimizer") or {}
         p_off = zero.get("offload_param") or {}
-        offload = (zero.get("cpu_offload") is True
-                   or off.get("device", "none") not in (None, "none")
-                   or p_off.get("device", "none") not in (None, "none"))
-        if offload and (stage >= 1 or world_size > 1):
-            raise _not_ported(f"offload at zero_optimization.stage {stage}, "
-                              f"data-parallel world {world_size}",
-                              "item 2e, offload at ZeRO stage 1-3 and across "
-                              "ranks")
+        if (p_off.get("device", "none") not in (None, "none")
+                and (stage >= 1 or world_size > 1)):
+            raise _not_ported(f"offload_param at zero_optimization.stage "
+                              f"{stage}, data-parallel world {world_size}",
+                              "item 2e, offload_param across ranks")
         if (p_off.get("device", "none") not in (None, "none")
                 and p_off.get("stream_grads", True) is False):
             raise _not_ported("zero_optimization.offload_param.stream_grads: "
@@ -388,6 +429,11 @@ class DeepSpeedConfig:
         tp = d.get("tensor_parallel") or {}
         if int(tp.get("tp_size", tp.get("autotp_size", 1)) or 1) > 1:
             raise _not_ported("tensor_parallel", "item 2e, the parallel meshes")
+        wanted, why = zeropp_gate(d, world_size)
+        if wanted and why is None:
+            raise _not_ported("ZeRO++ (zero_quantized_weights, "
+                              "zero_quantized_gradients, zero_hpz_partition_size) "
+                              f"at stage 3 over {world_size} ranks", "item 2e, ZeRO++")
         for key in _OBSERVABILITY:
             sec = d.get(key)
             if isinstance(sec, dict) and sec.get("enabled"):

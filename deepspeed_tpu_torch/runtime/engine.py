@@ -104,7 +104,8 @@ gathered into the master after the step), the accumulator from stage 2.
 Each rank runs its rows of the global batch; its cross-entropy is weighted
 by ``local_valid * world / global_valid`` and its backward by ``1 / world``,
 so the grads summed over the ranks are the global batch's masked mean's
-(an MoE aux loss takes the global batch's means of its router statistics).  Stage 0-1 all-reduce the accumulator
+(an MoE layer gates the global micro-batch, as the JAX engine's program
+does: the capacity, the slots' order and the aux loss's means).  Stage 0-1 all-reduce the accumulator
 over the data axes at the boundary; stage 2-3 reduce-scatter each sharded
 leaf's grads over ``fsdp`` after each micro-batch and all-reduce the shards
 over ``dp`` at the boundary, the replicated leaves all-reduced there.  The
@@ -116,9 +117,31 @@ let go after its backward.  A checkpoint's ranks each write their slices
 the manifest, between barriers; a load reads the byte ranges of this rank's
 slices, so a tag crosses world sizes and stages.
 
-Not ported yet (ROADMAP.md queue 1): overlap_comm, ZeRO++, the parallel
-meshes, the legacy msgpack checkpoint layout, telemetry, goodput, watchdog,
-anomaly handling and the 1-bit optimizers.
+``zero_optimization.overlap_comm`` (the JAX engine's layer-bucketed
+schedule, :mod:`~deepspeed_tpu_torch.runtime.zero.overlap`): the gates are
+the JAX engine's.  Its config half (``__init__``; stage 0, offload, the
+1-bit family, a client loss function) logs the key as inert with the JAX
+reason and lists it in ``_inert_config_keys`` (the JAX ``_audit_config``,
+which does the same for the ZeRO++ knobs where ZeRO++ would not run); its
+model half (``_setup_overlap``: ``stream_segments`` and the stacked embed /
+layers / head layout) logs a warning.  Either way the plain schedule runs.
+Otherwise the masters take the layer-wise layout (a stacked leaf never
+shards its layer dim; at stage 3 the accumulator is the params' layout)
+and each micro-batch runs through the buckets, whose grads are reduced into
+the accumulator as they land; the boundary reduces nothing more.
+
+ZeRO-Offload over ranks (``offload_optimizer`` at stage 1-3, or at any
+stage under a process group): the host optimizer holds this rank's slices
+of the leaves the stage shards the optimizer state of; the step reduces the
+accumulator as ``apply`` does, takes the norm and the fp16 overflow flag
+over the data group, sends this rank's grad slices D2H and its updated
+slices H2D, then gathers them into the compute copy (stage 1-2, or a leaf
+stage 3 keeps whole) or moves them to the params' dim of a stage-3 shard.
+``offload_param`` stays at stage 0 on one rank.
+
+Not ported yet (ROADMAP.md queue 1): ZeRO++, ``comm_quantization``, the
+parallel meshes, the legacy msgpack checkpoint layout, telemetry, goodput,
+watchdog, anomaly handling and the 1-bit optimizers.
 """
 
 from __future__ import annotations
@@ -145,7 +168,7 @@ from deepspeed_tpu_torch.runtime.checkpoint_engine import (ShardedCheckpointEngi
 from deepspeed_tpu_torch.runtime.checkpoint_engine.sharded import (DictKey, GetAttrKey,
                                                                    keystr,
                                                                    tree_flatten_with_path)
-from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig, zeropp_gate
 from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
 from deepspeed_tpu_torch.runtime.fp16 import loss_scaler as scaler_lib
 from deepspeed_tpu_torch.runtime.lr_schedules import LRSchedulerShim, get_lr_schedule
@@ -204,12 +227,11 @@ class DeepSpeedEngine:
         self.zero_stage = self.config.zero_config.stage
         self.module = model
         self._param_offload = self.config.param_offload
-        if loss_fn is not None:
-            if self._param_offload:
-                raise _whole_program("a client loss function")
-            raise NotImplementedError(
-                "a client loss_fn is not ported yet (ROADMAP.md queue 1: the "
-                "rest of the package)")
+        if loss_fn is not None and self._param_offload:
+            raise _whole_program("a client loss function")
+        # a client loss_fn(params, batch, rng) replaces the model's apply (the
+        # JAX engine's contract: params in the compute dtype)
+        self._client_loss = loss_fn
         if self._param_offload:
             if not hasattr(model, "stream_segments"):
                 raise _whole_program(f"a model without stream_segments "
@@ -243,6 +265,7 @@ class DeepSpeedEngine:
         self._offload_opt: Optional[OffloadedOptimizer] = None
         self._relay: Optional[OffloadRelay] = None
         self._offload_split: Dict[str, float] = {}
+        self._offload_slices: Optional[Dict[int, torch.Tensor]] = None
         self._streamed: Optional[StreamedFwdBwd] = None
         self._host_blocks: List[PinnedBlock] = []   # the page-locked host copy
         self._pin_seconds = 0.0
@@ -251,11 +274,20 @@ class DeepSpeedEngine:
             # the host optimizer
             self.master_dtype = self.compute_dtype
         # ZeRO over torch.distributed: with a process group, or at stage 1-3
-        self._dist = not self._offload and (self.zero_stage >= 1
-                                            or comm.is_initialized())
+        # (the host optimizer too then holds this rank's slices)
+        self._dist = not self._param_offload and (self.zero_stage >= 1
+                                                  or comm.is_initialized())
         self._plan: Optional[List[LeafPlan]] = None
+        self._overlap_gate(loss_fn)
         if self._dist:
             self._init_mesh()
+        self._audit_config()
+        self._overlap = False
+        self._overlap_sched = None
+        if self._overlap_want:
+            self._setup_overlap(model)
+        if self._dist:
+            self._make_plan(model)
 
         # masters: the model's own parameters, on the engine's device
         # (under offload: their values go to the host optimizer first, and
@@ -304,8 +336,9 @@ class DeepSpeedEngine:
                                          device=self.device)
                              for pl in self._plan]
         # what the optimizer steps: the masters, or a sharded leaf's slice
-        # of its master along the optimizer state's dim
-        self._opt_params = self.master if self._plan is None else [
+        # of its master along the optimizer state's dim (under offload the
+        # host optimizer holds those slices, and the card none)
+        self._opt_params = self.master if self._plan is None or self._offload else [
             self._opt_slice(i) if self._own_opt(pl) else m
             for i, (m, pl) in enumerate(zip(self.master, self._plan))]
         self._stacked = [p.dim() > 0 and path.startswith("layers.")
@@ -314,6 +347,8 @@ class DeepSpeedEngine:
         self._compute_bufs: Optional[List[torch.Tensor]] = None
         if self._param_offload:
             self._build_streamed(model)
+        if self._overlap:
+            self._build_overlap()
 
         self._lr_schedule = None
         if self.config.scheduler is not None:
@@ -391,6 +426,106 @@ class DeepSpeedEngine:
             mcfg.remat_policy = ("offload_dots" if ac.cpu_checkpointing
                                  else ac.policy)
 
+    def _overlap_gate(self, loss_fn) -> None:
+        """The config half of the JAX engine's ``overlap_comm`` gate
+        (``__init__``): the reason the bucketed schedule would be inert, or
+        ``_overlap_want``.  The 1-bit optimizers, ZeRO++ where it would run
+        and the tp / sp / pp / ep axes are refused by the port on their
+        own, so their reasons never reach here."""
+        zc = self.config.zero_config
+        self._overlap_want = False
+        self._overlap_reason = None
+        if not zc.overlap_comm:
+            return
+        opt = self.config.optimizer
+        onebit = opt is not None and opt.type.lower().replace("_", "").replace(
+            "-", "") in ("onebitadam", "zerooneadam", "onebitlamb")
+        if self.zero_stage not in (1, 2, 3):
+            self._overlap_reason = ("requires ZeRO stage 1-3 (stage 0 has no "
+                                    "sharded state to schedule)")
+        elif self._offload or self._param_offload:
+            self._overlap_reason = ("offload paths already own their own "
+                                    "streaming schedule")
+        elif onebit:
+            self._overlap_reason = ("1-bit optimizers keep local grads (no "
+                                    "collective to chunk)")
+        elif loss_fn is not None:
+            self._overlap_reason = ("a client loss_fn cannot route through the "
+                                    "model's layer segments")
+        else:
+            self._overlap_want = True
+
+    def _audit_config(self) -> None:
+        """The JAX engine's ``_audit_config`` for the keys the port leaves
+        inert: each is logged with its reason, and listed in
+        ``_inert_config_keys``."""
+        zc = self.config.zero_config
+        inert = []
+        if zc.overlap_comm and not self._overlap_want:
+            inert.append(("zero_optimization.overlap_comm",
+                          f"{self._overlap_reason}; the plain collective "
+                          "schedule runs unchanged"))
+        wanted, why = zeropp_gate(self.config._param_dict, comm.get_world_size())
+        if wanted:
+            why = f"{why}; the knob changes nothing"
+            for key, on in (("zero_quantized_weights", zc.zero_quantized_weights),
+                            ("zero_quantized_gradients", zc.zero_quantized_gradients),
+                            ("zero_hpz_partition_size", zc.zero_hpz_partition_size > 1)):
+                if on:
+                    inert.append((f"zero_optimization.{key}", why))
+        for key, why in inert:
+            logger.warning("config key %r is set but INERT: %s", key, why)
+        self._inert_config_keys = [k for k, _ in inert]
+
+    def _setup_overlap(self, model) -> None:
+        """The model half of the ``overlap_comm`` gate (the JAX engine's
+        ``_setup_overlap``): the bucketed schedule drives the model through
+        its ``stream_segments`` over the stacked embed / layers / head
+        layout; otherwise a warning and the plain schedule."""
+        reason = None
+        seg = None
+        if not hasattr(model, "stream_segments"):
+            reason = (f"model {type(model).__name__} exposes no stream_segments "
+                      "(the per-layer contract the bucketed schedule drives)")
+        else:
+            seg = model.stream_segments()
+            if seg is None:
+                reason = ("model declined segmenting (e.g. pipeline parallelism "
+                          "owns the layer loop)")
+        if reason is None:
+            keys = set(model.params())
+            if (not {"embed", "layers", "final_norm"} <= keys
+                    or not keys <= {"embed", "layers", "final_norm", "lm_head",
+                                    "lm_head_bias"}):
+                reason = ("param tree is not the stacked embed/layers/head "
+                          "layout the bucketed schedule slices")
+        if reason is not None:
+            self._overlap_reason = reason
+            logger.warning("zero_optimization.overlap_comm: %s — falling back "
+                           "to the plain collective schedule", reason)
+            return
+        self._overlap = True
+        self._overlap_segments = seg
+        logger.info("overlap_comm active: layer-chunked collective schedule, "
+                    "bucket=%d layer(s), zero stage %d (runtime/zero/overlap.py)",
+                    self.config.zero_config.overlap_bucket_layers, self.zero_stage)
+
+    def _build_overlap(self) -> None:
+        """The schedule over the engine's plan (after the masters are
+        sharded): stage 3 always rematerializes its layer buckets (the
+        backward re-gathers), stages 1-2 as the model remats."""
+        from deepspeed_tpu_torch.runtime.zero.overlap import OverlapSchedule
+
+        mcfg = getattr(self.module, "config", None)
+        self._overlap_sched = OverlapSchedule(
+            segments=self._overlap_segments, paths=self._paths, plan=self._plan,
+            zero_stage=self.zero_stage, compute_dtype=self.compute_dtype,
+            bucket_layers=self.config.zero_config.overlap_bucket_layers,
+            remat=self.zero_stage == 3 or bool(getattr(mcfg, "remat", False)),
+            sizes=dict(self.mesh.shape),
+            groups={"fsdp": self._fsdp_group, "dp": self._dp_group,
+                    "data": self._data_group})
+
     def _init_mesh(self) -> None:
         """The process group (a world of one when none exists: stage 1-3 on
         one card), the mesh (the global one, or the config's ``mesh``
@@ -421,16 +556,25 @@ class DeepSpeedEngine:
         self._dp_group = mesh.group("dp")
         self._dp_n = mesh_lib.axis_size(mesh, "dp")
 
-    def _shard_masters(self, model) -> None:
-        """The stages' plan over the masters' shapes; at stage 3 each
-        sharded leaf's module parameter becomes this rank's slice."""
+    def _make_plan(self, model) -> None:
+        """The stages' plan over the model's leaf shapes (the layer-wise
+        layout under ``overlap_comm``)."""
         zc = self.config.zero_config
         logical = None
         if hasattr(model, "logical_pspecs"):
             logical = [spec for _, spec in _flatten(model.logical_pspecs())]
-        self._plan = zero_plan([tuple(p.shape) for _, p in _flatten(model.params())],
+        flat = _flatten(model.params())
+        # under overlap_comm a stacked layer leaf never shards its layer dim
+        layer_leaves = ([path.startswith("layers.") and p.dim() > 0 for path, p in flat]
+                        if self._overlap else None)
+        self._plan = zero_plan([tuple(p.shape) for _, p in flat],
                                self.zero_stage, self._fsdp_n,
-                               zc.stage3_param_persistence_threshold, logical)
+                               zc.stage3_param_persistence_threshold, logical,
+                               layer_leaves=layer_leaves)
+
+    def _shard_masters(self, model) -> None:
+        """At stage 3 each sharded leaf's module parameter becomes this
+        rank's slice."""
         for (_, p), pl in zip(_flatten(model.params()), self._plan):
             if pl.param:
                 p.data = shard_of(p.data, pl, pl.pdim, self._fsdp_rank)
@@ -550,8 +694,14 @@ class DeepSpeedEngine:
                     "DeepSpeedCPUAdam", name)
         p = dict(opt.params) if opt else {}
         off = self.config.offload_optimizer_config()
+        if self._plan is not None:
+            # this rank's slice of each leaf the stage shards the optimizer
+            # state of, along that state's dim (the device path's slices)
+            values = [shard_of(v, pl, pl.odim, self._fsdp_rank) if pl.opt else v
+                      for v, pl in zip(values, self._plan)]
         self._offload_opt = OffloadedOptimizer(
             self._nest(values), backend=self._offload_device,
+            swap_rank=comm.get_rank() if self._dist else None,
             lr=p.get("lr", 1e-3), betas=tuple(p.get("betas", (0.9, 0.999))),
             eps=p.get("eps", 1e-8), weight_decay=p.get("weight_decay", 0.0),
             adamw_mode=p.get("adam_w_mode", p.get("adamw_mode", True)),
@@ -582,10 +732,7 @@ class DeepSpeedEngine:
         a sharded leaf's copy is all-gathered here (cast to the compute
         dtype first) and let go by :meth:`_release_gathered`."""
         if self._compute is None:
-            alias = self.compute_dtype == self.master_dtype
-            self._compute_bufs = [None if self._plan is not None and self._plan[i].param
-                                  else p if alias else p.to(self.compute_dtype)
-                                  for i, p in enumerate(self.master)]
+            self._ensure_compute_bufs()
             self._compute = [None if b is None else self._leaf_views(b, stacked)
                              for b, stacked in zip(self._compute_bufs, self._stacked)]
         if self._plan is not None:
@@ -598,6 +745,16 @@ class DeepSpeedEngine:
         for path, leaf in zip(self._paths, self._compute):
             _set(tree, path, leaf)
         return tree
+
+    def _ensure_compute_bufs(self) -> None:
+        """The whole compute-dtype copies of the leaves this rank holds whole
+        (the masters themselves when the dtypes agree), None for a stage-3
+        shard."""
+        if self._compute_bufs is None:
+            alias = self.compute_dtype == self.master_dtype
+            self._compute_bufs = [None if self._plan is not None and self._plan[i].param
+                                  else p if alias else p.to(self.compute_dtype)
+                                  for i, p in enumerate(self.master)]
 
     def _release_gathered(self) -> None:
         if self._plan is not None:
@@ -636,18 +793,22 @@ class DeepSpeedEngine:
         return cnt * self._data_world / torch.clamp(total, min=1.0)
 
     def _moe_scope(self):
-        """Over ranks, an MoE model's aux loss takes the global batch's
-        means (:func:`~deepspeed_tpu_torch.moe.sharded_moe.global_aux_stats`)."""
+        """Over ranks, an MoE model gates the global micro-batch: its
+        capacity, slot order and aux loss's means are the global batch's
+        (:func:`~deepspeed_tpu_torch.moe.sharded_moe.global_aux_stats`)."""
         if not self._dist:
             return contextlib.nullcontext()
         from deepspeed_tpu_torch.moe.sharded_moe import global_aux_stats
 
-        return global_aux_stats(self._data_group, self._data_world)
+        return global_aux_stats(self._data_group, self._data_world, self._data_rank)
 
     def _loss(self, params, batch, rng, ce_weight=None) -> torch.Tensor:
         """The model's loss with the dropout key ``rng`` (the JAX engine's
         ``loss_fn``: ``apply(params, *batch, rngs={"dropout": rng})``), its
-        cross-entropy times ``ce_weight`` when one is given."""
+        cross-entropy times ``ce_weight`` when one is given; or the client
+        ``loss_fn(params, batch, rng)``."""
+        if self._client_loss is not None:
+            return self._client_loss(params, batch, rng)
         kwargs = {"rngs": {"dropout": rng}}
         if ce_weight is not None:
             kwargs["ce_weight"] = ce_weight
@@ -677,9 +838,12 @@ class DeepSpeedEngine:
         accumulator.  Over ranks: the loss weighted (:meth:`_ce_weight`),
         the backward divided by the data-parallel world, a sharded
         accumulator's grads reduce-scattered over ``fsdp`` first."""
+        if self._overlap:
+            return self._accum_overlap(batch, rng)
         gas = self.config.gradient_accumulation_steps
         params = self._compute_params()
-        weight = self._ce_weight(batch) if self._dist else None
+        weight = (self._ce_weight(batch) if self._dist and self._client_loss is None
+                  else None)
         # the backward inside too: a remat body's recompute takes the same
         # global means
         with self._moe_scope():
@@ -707,6 +871,41 @@ class DeepSpeedEngine:
                     acc.add_(leaf.grad)
                     leaf.grad = None
         self._release_gathered()
+        return loss.detach()
+
+    def _accum_overlap(self, batch, rng) -> torch.Tensor:
+        """One micro-batch through the bucketed schedule
+        (:class:`~deepspeed_tpu_torch.runtime.zero.overlap.OverlapSchedule`):
+        the same loss, weight and scaling as :meth:`_accum`, each bucket's
+        grads reduced into the accumulator as they land."""
+        from deepspeed_tpu_torch.runtime.zero.overlap import unpack_lm_batch
+
+        unpacked = unpack_lm_batch(batch)
+        if unpacked is None:
+            raise ValueError(
+                "zero_optimization.overlap_comm requires (tokens, labels) tuple "
+                "or {'tokens': ..., 'labels': ...[, 'loss_mask': ...]} dict "
+                f"batches (got {type(batch).__name__}); disable overlap_comm "
+                "for custom batch forms")
+        gas = self.config.gradient_accumulation_steps
+        weight = self._ce_weight(batch)
+        self._ensure_compute_bufs()
+        sched = self._overlap_sched
+        before = comm.counters()
+        with self._moe_scope():
+            loss = sched.loss(self.master, self._compute_bufs, self.grad_acc,
+                              *unpacked, rng, weight)
+            scaled = loss.float() / self._data_world
+            if self.fp16_enabled:
+                (scaled * float(self._scaler.scale) / gas).backward()
+            else:
+                (scaled / gas).backward()
+        sched.finish()
+        after = comm.counters()
+        sched.last_counts = {op: {k: c[k] - before.get(op, {}).get(k, 0)
+                                  for k in ("calls", "bytes")}
+                             for op, c in after.items()
+                             if c["calls"] != before.get(op, {}).get("calls", 0)}
         return loss.detach()
 
     @staticmethod
@@ -817,7 +1016,11 @@ class DeepSpeedEngine:
 
     def _reduce_boundary(self) -> None:
         """A replicated accumulator all-reduced over the data axes; a
-        sharded one (reduce-scattered over ``fsdp`` already) over ``dp``."""
+        sharded one (reduce-scattered over ``fsdp`` already) over ``dp``.
+        Under ``overlap_comm`` every micro-batch's grads were reduced a
+        bucket at a time already."""
+        if self._overlap:
+            return
         for acc, pl in zip(self.grad_acc, self._plan):
             if not pl.acc:
                 comm.all_reduce(acc, self._data_group)
@@ -848,17 +1051,30 @@ class DeepSpeedEngine:
         t0 = time.perf_counter()
         clip = self.config.gradient_clipping
         grads = self.grad_acc
-        if self.fp16_enabled:
-            overflow = has_overflow(grads)
-            torch._foreach_div_(grads, self._device_scale())
-        gnorm = clip_grad_norm_(grads, clip) if clip > 0 else global_norm(grads)
+        if self._dist:
+            # over ranks: the boundary's reductions, the overflow flag and
+            # the norm over the data group; the grads this rank's host
+            # optimizer takes are its slices (:meth:`_opt_grad`)
+            self._reduce_boundary()
+            if self.fp16_enabled:
+                overflow = comm.all_reduce(has_overflow(grads).to(torch.float32),
+                                           self._data_group, op="max")
+                torch._foreach_div_(grads, self._device_scale())
+            gnorm = self._dist_norm()
+            if clip > 0:
+                clip_grad_norm_(grads, clip, norm=gnorm)
+        else:
+            if self.fp16_enabled:
+                overflow = has_overflow(grads)
+                torch._foreach_div_(grads, self._device_scale())
+            gnorm = clip_grad_norm_(grads, clip) if clip > 0 else global_norm(grads)
         skip = self.fp16_enabled and bool(overflow)   # the host reads it anyway
         self._last_overflow = skip
         split = {"prep_s": time.perf_counter() - t0}
         if not skip:
             opt = self._offload_opt
             order = self._offload_order
-            send = [grads[j] for j in order]
+            send = [self._opt_grad(j) if self._dist else grads[j] for j in order]
             if self.compute_dtype == torch.bfloat16:
                 send = [g if g.dtype == torch.bfloat16 else g.to(torch.bfloat16)
                         for g in send]
@@ -880,16 +1096,18 @@ class DeepSpeedEngine:
                     qd = torch.from_numpy(q).to(self.device)
                     sd = torch.from_numpy(sc).to(self.device)
                     deq = (qd.to(torch.float32) * sd).reshape(-1)[:g.numel()]
-                    self.master[j].view(-1).copy_(deq)
+                    self._offload_target(j).view(-1).copy_(deq)
                     continue
                 out = relay.out_buffer(i)
                 if self._offload_bf16g:
                     opt.step_leaf_bf16(i, g, out)
                 else:
                     out.copy_(opt.step_leaf(i, g.float()))
-                relay.params_to_device(i, out, self.master[j])
+                relay.params_to_device(i, out, self._offload_target(j))
             opt.end_step()
             relay.finish()
+            if self._dist:
+                self._offload_gather()
             split.update(relay.last)
             split["host_loop_s"] = time.perf_counter() - t1
             self.global_steps += 1
@@ -904,6 +1122,34 @@ class DeepSpeedEngine:
         split["step_s"] = time.perf_counter() - t0
         self._offload_split = split
         return gnorm
+
+    def _offload_target(self, j: int) -> torch.Tensor:
+        """Where leaf ``j``'s updated params land on the card: its compute
+        copy (a whole leaf, or a stage-3 shard on the optimizer state's
+        dim), else a device buffer of the slice, gathered by
+        :meth:`_offload_gather`."""
+        pl = None if self._plan is None else self._plan[j]
+        if pl is None or not pl.opt or (pl.param and pl.odim == pl.pdim):
+            return self.master[j]
+        if self._offload_slices is None:
+            self._offload_slices = {}
+        buf = self._offload_slices.get(j)
+        if buf is None:
+            buf = self._offload_slices[j] = torch.empty(
+                pl.shard_shape(pl.odim), dtype=self.compute_dtype, device=self.device)
+        return buf
+
+    def _offload_gather(self) -> None:
+        """The updated slices into the compute copy: all-gathered into the
+        whole leaf (stage 1-2, or a leaf stage 3 keeps whole), or moved to
+        the params' dim of a stage-3 shard."""
+        for j, buf in (self._offload_slices or {}).items():
+            pl = self._plan[j]
+            if pl.param:
+                self.master[j].copy_(reshard(buf, pl.odim, pl.pdim, self._fsdp_group))
+            else:
+                comm.all_gather(buf, self._fsdp_group, gather_dim=pl.odim,
+                                out=self.master[j])
 
     @torch.no_grad()
     def _step_param_offload(self) -> float:
@@ -1040,7 +1286,7 @@ class DeepSpeedEngine:
         batch = self._to_device(batch)
         if not self._dist:
             return self._loss(self._compute_params(), batch, rng).detach()
-        weight = self._ce_weight(batch)
+        weight = self._ce_weight(batch) if self._client_loss is None else None
         with self._moe_scope():
             loss = self._loss(self._compute_params(), batch, rng, weight).detach()
         self._release_gathered()
@@ -1273,8 +1519,18 @@ class DeepSpeedEngine:
                                     **kw)
         if self._offload:
             # the host fp32 masters and moments, one leaf at a time, inside
-            # the stage so that the manifest covers them
-            self._offload_opt.write_state(os.path.join(stage_dir, "offload_states"))
+            # the stage so that the manifest covers them; over ranks each
+            # writes its slices' regions into files rank 0 made whole
+            off_dir = os.path.join(stage_dir, "offload_states")
+            places = self._offload_places()
+            if places is None:
+                self._offload_opt.write_state(off_dir)
+            else:
+                if rank0:
+                    self._offload_opt.create_state_files(off_dir, places)
+                comm.barrier()
+                self._offload_opt.write_state(off_dir, places, slices=kw["write_shards"],
+                                              whole=rank0)
         # the batch triad rides along so a resume at another data-parallel
         # size can keep the recorded global batch (_maybe_elastic_rescale)
         meta = {"client_state": client_state,
@@ -1310,6 +1566,15 @@ class DeepSpeedEngine:
         # item 2f: ds_ckpt_saves_total counts here
         return final_dir
 
+    def _offload_places(self):
+        """Per host-optimizer leaf, ``(full shape, region)`` of this rank's
+        slice, or None for a leaf it holds whole; None without a plan."""
+        if self._plan is None:
+            return None
+        r = self._fsdp_rank
+        return [(pl.shape, pl.region(pl.odim, r)) if pl.opt else None
+                for pl in (self._plan[j] for j in self._offload_order)]
+
     def _shard_places(self) -> Dict[int, Tuple[Tuple[int, ...], List[List[int]]]]:
         """``id(tensor) -> (global shape, region)`` of every ZeRO shard the
         engine holds: sharded masters, the optimizer's state of a sharded
@@ -1321,7 +1586,7 @@ class DeepSpeedEngine:
                 out[id(self.master[i])] = (pl.shape, pl.region(pl.pdim, r))
             if pl.acc:
                 out[id(self.grad_acc[i])] = (pl.shape, pl.region(pl.pdim, r))
-            if pl.opt and self.optimizer is not None:
+            if pl.opt and self.optimizer is not None and not self._offload:
                 p = self._opt_params[i]
                 for v in self.optimizer.state.get(p, {}).values():
                     if torch.is_tensor(v) and tuple(v.shape) == tuple(p.shape):
@@ -1485,7 +1750,7 @@ class DeepSpeedEngine:
             # stay), so the next step does not write stale masters back
             self._offload_masters_from(model_dir)
         if load_optim and self._offload:
-            self._offload_opt.read_state(offload_dir)
+            self._offload_opt.read_state(offload_dir, self._offload_places())
         if load_optim:
             payload = self._optim_payload()
             self._load_into(os.path.join(ckpt_dir, "optim_states"), payload)
@@ -1501,7 +1766,7 @@ class DeepSpeedEngine:
         if (load_lr_scheduler_states and self.lr_scheduler is not None
                 and meta.get("lr_scheduler")):
             self.lr_scheduler.load_state_dict(meta["lr_scheduler"])
-        if self._plan is not None:
+        if self._plan is not None and not self._offload:
             # the optimizer's slices of their own, from the loaded masters
             with torch.no_grad():
                 for i, pl in enumerate(self._plan):
@@ -1519,9 +1784,11 @@ class DeepSpeedEngine:
         precision), leaf by leaf in the host optimizer's order."""
         index = self.checkpoint_engine.read_index(model_dir)
         keys = [keystr(kp) for kp, _ in tree_flatten_with_path(self._nest(self.master))]
+        places = self._offload_places()
         # tree order is the host optimizer's leaf order
         for i in range(len(keys)):
-            saved = self.checkpoint_engine.read_leaf(model_dir, index[keys[i]])
+            region = places[i][1] if places is not None and places[i] else None
+            saved = self.checkpoint_engine.read_leaf(model_dir, index[keys[i]], region)
             self._offload_opt.set_master(i, saved)
 
     def _load_legacy_checkpoint(self, ckpt_dir: str):

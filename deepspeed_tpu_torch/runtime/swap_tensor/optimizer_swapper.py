@@ -4,6 +4,8 @@
 - One state file per leaf, ``state_{i}.bin``: [master, *aux] fp32
   concatenated, the JAX package's bytes in its layout, so either package
   reads the other's files.
+- Over data-parallel ranks each rank swaps in a directory of its own,
+  ``rank{r}`` under the path (:func:`rank_swap_dir`).
 - Read-ahead of leaf ``i+1`` while ``i`` is being stepped, and
   asynchronous write-back, over a rotating pool of 3 host buffers: one
   being stepped, one holding the read in flight, one that may still be
@@ -24,9 +26,17 @@ import torch
 from deepspeed_tpu_torch.ops.aio import aio_handle
 
 
+def rank_swap_dir(swap_dir: str, rank: Optional[int]) -> str:
+    """A data-parallel rank's own directory under ``swap_dir`` (``rank{r}``),
+    so that the ranks' ``state_{i}.bin`` never collide; ``swap_dir`` itself
+    for a process without a group."""
+    return swap_dir if rank is None else os.path.join(swap_dir, f"rank{rank}")
+
+
 class OptimizerStateSwapper:
     def __init__(self, swap_dir: str, sizes: List[int], aio_config=None,
-                 n_buffers: int = 3, n_slots: int = 3):
+                 n_buffers: int = 3, n_slots: int = 3, rank: Optional[int] = None):
+        swap_dir = rank_swap_dir(swap_dir, rank)
         os.makedirs(swap_dir, exist_ok=True)
         self.dir = swap_dir
         self.sizes = list(sizes)

@@ -20,6 +20,15 @@ H2D staging) is :mod:`.relay`.
 Leaves are numbered in ``jax.tree_util``'s order of the params tree (a
 dict's keys sorted), as the JAX class numbers them, so ``state_{i}.bin``
 and a checkpoint's ``leaf{i}.*.npy`` name the same leaf in both packages.
+
+Over data-parallel ranks each rank's optimizer holds its slices of the
+leaves its ZeRO stage shards (the engine builds it over them); under
+``nvme`` each rank swaps in a directory of its own under the path
+(``swap_rank``).  A checkpoint's ``leaf{i}.*.npy`` then stay whole: rank 0
+creates each file at the leaf's full size (:meth:`create_state_files`) and
+every rank writes its slice's region into it (:meth:`write_state` with
+``places``), so the files are those of one process, and a load reads the
+region of its own slices (:meth:`read_state`) at any world size or stage.
 """
 
 from __future__ import annotations
@@ -76,7 +85,7 @@ class OffloadedOptimizer:
                  swap_dir: Optional[str] = None, aio_config=None,
                  pipeline: bool = True, pipeline_write: bool = True,
                  opt_type: str = "adam", int8_masters: bool = False,
-                 quant_block: int = 256):
+                 quant_block: int = 256, swap_rank: Optional[int] = None):
         if backend not in ("cpu", "nvme"):
             raise ValueError(f"offload backend {backend!r}: cpu or nvme")
         if opt_type not in self.N_AUX:
@@ -142,7 +151,8 @@ class OffloadedOptimizer:
                 raise ValueError("nvme offload requires offload_optimizer.nvme_path")
             self._swapper = OptimizerStateSwapper(swap_dir, self._sizes,
                                                   aio_config=aio_config,
-                                                  n_slots=1 + self.n_aux)
+                                                  n_slots=1 + self.n_aux,
+                                                  rank=swap_rank)
             for i, leaf in enumerate(leaves):
                 self._swapper.initialize(i, _host_copy(leaf))
         logger.info("offloaded optimizer: %d tensors, %.1fM elements, "
@@ -352,35 +362,88 @@ class OffloadedOptimizer:
         for i in range(len(self._sizes)):
             self._set_leaf_states(i, [sd[name][i] for name in names])
 
-    def write_state(self, dirpath: str) -> None:
-        """Stream the optimizer state to ``dirpath`` one leaf at a time, in
-        the JAX package's layout: ``leaf{i}.{name}.npy`` (fp32, flat) and
-        ``meta.json``."""
-        os.makedirs(dirpath, exist_ok=True)
-        names = ("master",) + self.AUX_NAMES[self.opt_type]
-        for i in range(len(self._sizes)):
-            for name, t in zip(names, self._leaf_states(i)):
-                np.save(os.path.join(dirpath, f"leaf{i}.{name}.npy"), t.numpy())
+    def _full_sizes(self, places) -> List[int]:
+        """Each leaf's whole size: its place's full shape, or its own."""
+        if places is None:
+            return [int(s) for s in self._sizes]
+        return [int(np.prod(p[0])) if p is not None else int(s)
+                for p, s in zip(places, self._sizes)]
+
+    def _write_meta(self, dirpath: str, places=None) -> None:
         meta = {"step_count": int(self.step_count), "n": len(self._sizes),
-                "sizes": [int(s) for s in self._sizes], "backend": self.backend,
+                "sizes": self._full_sizes(places), "backend": self.backend,
                 "opt_type": self.opt_type}
         with open(os.path.join(dirpath, "meta.json"), "w") as fh:
             json.dump(meta, fh)
 
-    def read_state(self, dirpath: str) -> None:
-        """The inverse of :meth:`write_state`; raises on another leaf
+    def create_state_files(self, dirpath: str, places) -> None:
+        """Every ``leaf{i}.{name}.npy`` at the leaf's full size and
+        ``meta.json``, for the ranks' :meth:`write_state` (``places``: a leaf
+        ``(full shape, region)`` of this rank's slice, or None for a leaf
+        held whole)."""
+        os.makedirs(dirpath, exist_ok=True)
+        names = ("master",) + self.AUX_NAMES[self.opt_type]
+        for i, n in enumerate(self._full_sizes(places)):
+            for name in names:
+                np.lib.format.open_memmap(os.path.join(dirpath, f"leaf{i}.{name}.npy"),
+                                          mode="w+", dtype=np.float32, shape=(n,)).flush()
+        self._write_meta(dirpath, places)
+
+    def write_state(self, dirpath: str, places=None, slices: bool = True,
+                    whole: bool = True) -> None:
+        """Stream the optimizer state to ``dirpath`` one leaf at a time, in
+        the JAX package's layout: ``leaf{i}.{name}.npy`` (fp32, flat) and
+        ``meta.json``.  With ``places`` the files exist at full size
+        (:meth:`create_state_files`) and each leaf's slice is written into
+        its region (``slices``), a leaf held whole whole (``whole``)."""
+        os.makedirs(dirpath, exist_ok=True)
+        names = ("master",) + self.AUX_NAMES[self.opt_type]
+        for i in range(len(self._sizes)):
+            place = places[i] if places is not None else None
+            if places is not None and not (slices if place is not None else whole):
+                continue
+            for name, t in zip(names, self._leaf_states(i)):
+                path = os.path.join(dirpath, f"leaf{i}.{name}.npy")
+                if places is None:
+                    np.save(path, t.numpy())
+                    continue
+                mm = np.load(path, mmap_mode="r+")
+                if place is None:
+                    mm[:] = t.numpy()
+                else:
+                    full, region = place
+                    mm.reshape(full)[tuple(slice(a, b) for a, b in region)] = \
+                        t.numpy().reshape([b - a for a, b in region])
+                mm.flush()
+                del mm
+        if places is None:
+            self._write_meta(dirpath)
+
+    def read_state(self, dirpath: str, places=None) -> None:
+        """The inverse of :meth:`write_state`, each leaf's region of its
+        place (``places`` as there) read alone; raises on another leaf
         layout or optimizer type."""
         with open(os.path.join(dirpath, "meta.json")) as fh:
             meta = json.load(fh)
-        if meta["sizes"] != [int(s) for s in self._sizes]:
+        if meta["sizes"] != self._full_sizes(places):
             raise ValueError(f"offload state shape mismatch in {dirpath}: "
-                             f"{meta['sizes']} != {self._sizes}")
+                             f"{meta['sizes']} != {self._full_sizes(places)}")
         if meta.get("opt_type", "adam") != self.opt_type:
             raise ValueError(f"offload optimizer type mismatch in {dirpath}: "
                              f"{meta.get('opt_type', 'adam')} != {self.opt_type}")
         self.step_count = int(meta["step_count"])
         names = ("master",) + self.AUX_NAMES[self.opt_type]
         for i in range(len(self._sizes)):
-            self._set_leaf_states(
-                i, [np.load(os.path.join(dirpath, f"leaf{i}.{name}.npy"))
-                    for name in names])
+            place = places[i] if places is not None else None
+            states = []
+            for name in names:
+                path = os.path.join(dirpath, f"leaf{i}.{name}.npy")
+                if place is None:
+                    states.append(np.load(path))
+                    continue
+                full, region = place
+                mm = np.load(path, mmap_mode="r")
+                states.append(np.ascontiguousarray(
+                    mm.reshape(full)[tuple(slice(a, b) for a, b in region)]))
+                del mm
+            self._set_leaf_states(i, states)

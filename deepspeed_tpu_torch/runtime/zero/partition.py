@@ -171,26 +171,43 @@ class LeafPlan(NamedTuple):
         return out
 
 
+# the claim :func:`zero_plan` puts on a stacked leaf's layer dim under
+# ``overlap_comm`` (the JAX ``layerwise_pspecs`` sentinel)
+LAYER_DIM = "__overlap_layer_dim__"
+
+
 def zero_plan(shapes: Sequence[Tuple[int, ...]], stage: int, n: int,
               persistence_threshold: int = 100_000,
-              logical: Optional[Sequence[Optional[Spec]]] = None) -> List[LeafPlan]:
+              logical: Optional[Sequence[Optional[Spec]]] = None,
+              layer_leaves: Optional[Sequence[bool]] = None) -> List[LeafPlan]:
     """The JAX engine's three partitions (``runtime/engine.py``
     ``_init_state``): params sharded at stage 3 with the threshold as
     ``min_size``, the accumulator from stage 2 with ``min_size`` 0, both
     past the model's claims (``logical``, a spec a leaf); the optimizer
-    state from stage 1 over the bare shape, ``min_size`` 0."""
+    state from stage 1 over the bare shape, ``min_size`` 0.
+
+    ``layer_leaves`` (a flag a leaf: a stacked ``[L, ...]`` layer leaf) is
+    the layout of ``overlap_comm`` (the JAX ``layerwise_pspecs``): the
+    bucketed schedule slices layer ranges along dim 0, so the params and the
+    accumulator never shard a stacked leaf's layer dim, and at stage 3 the
+    accumulator takes exactly the params' layout (the threshold too: a leaf
+    kept whole keeps a whole accumulator)."""
     plans = []
     for i, shape in enumerate(shapes):
         shape = tuple(int(d) for d in shape)
         claims = list(logical[i]) if logical is not None and logical[i] else []
         claims += [None] * (len(shape) - len(claims))
+        if layer_leaves is not None and layer_leaves[i] and shape and claims[0] is None:
+            claims[0] = LAYER_DIM
         pdim = _pick(shape, n, 0, claims) if shape else None
         odim = _pick(shape, n, 0, [None] * len(shape)) if shape else None
         param = (stage >= 3 and pdim is not None
                  and _numel(shape) >= max(persistence_threshold, n))
+        acc = stage >= 2 and pdim is not None
+        if layer_leaves is not None and stage >= 3:
+            acc = param
         plans.append(LeafPlan(shape, pdim, odim, n, param,
-                              stage >= 1 and odim is not None,
-                              stage >= 2 and pdim is not None))
+                              stage >= 1 and odim is not None, acc))
     return plans
 
 

@@ -26,6 +26,16 @@ activities alone and CPU and CUDA together, and a session is lost when it
 misses a kernel the test asks for (it is taken again, up to 8 times).
 Prints each session and one JSON line of the counts by activities.
 
+``--first-record N`` runs N fresh processes, each 24 sessions of 50
+``copy_`` calls at [8, 1600] bf16, alternately with and without a marker
+launch (``torch.cuda._sleep``) ahead of the calls, and counts for each
+session the copies' records three ways: among kineto's raw results
+(``prof.profiler.kineto_results.events()``), among the profiler's events and
+in ``key_averages()``, with the offset of the first device record from
+the trace's start.  A record missing from all three was dropped by kineto
+or CUPTI before torch parsed the trace; one in the raw results alone, by
+torch's parsing.  One JSON line a session, one of the counts at the end.
+
 ``--smoke-kernels N`` builds the kernels (``chip_smoke.phase_build``), then
 runs ``chip_smoke.phase_build`` and ``phase_kernels`` in N fresh processes,
 one after another, and counts in each the ``device_us_a_call`` sessions
@@ -103,12 +113,79 @@ def smoke_kernels(n, fresh=False) -> int:
         out = run.stdout + run.stderr
         row = {"process": i, "fresh_build": fresh, "rc": run.returncode,
                "marker_lost": out.count("lost the marker's record"),
-               "call_record_lost": out.count(" calls; profiling again"),
+               "call_record_lost": out.count(" calls; a repeat")
+               + out.count("no profile session"),
                "split_session_empty": out.count("holds none of"),
                "s": round(time.perf_counter() - t0, 1)}
         print(json.dumps(row), flush=True)
         rows.append(row)
     print(json.dumps({"smoke_kernels": rows}))
+    return 0
+
+
+def first_record_child(sessions: int) -> int:
+    """One process of ``--first-record``: see the module docstring."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda")
+    x = torch.randn(8, 1600, device=dev).to(torch.bfloat16)
+    y = torch.empty_like(x)
+    for _ in range(3):
+        y.copy_(x)
+    torch.cuda.synchronize()
+    calls = 50
+    for k in range(sessions):
+        marker = k % 2 == 1
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.02)
+            if marker:
+                torch.cuda._sleep(1)
+            for _ in range(calls):
+                y.copy_(x)
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+        res = prof.profiler.kineto_results
+        start = res.trace_start_ns()
+        raw = [e for e in res.events() if str(e.device_type()).endswith("CUDA")]
+        copies = [e for e in raw if "Memcpy" in e.name()]
+        events = [e for e in prof.events() if "Memcpy" in e.name
+                  and str(getattr(e, "device_type", "")).endswith("CUDA")]
+        avg = sum(e.count for e in prof.key_averages() if "Memcpy" in e.key
+                  and e.self_device_time_total > 0)
+        first = min((e.start_ns() for e in raw), default=None)
+        print(json.dumps({"session": k, "marker": marker, "calls": calls,
+                          "raw_copies": len(copies), "events": len(events),
+                          "key_averages": avg,
+                          "marker_raw": sum("spin" in e.name() for e in raw),
+                          "first_device_ms": None if first is None
+                          else (first - start) / 1e6}), flush=True)
+    return 0
+
+
+def first_record(n: int) -> int:
+    """``--first-record``: the child in ``n`` fresh processes; the counts."""
+    rows = []
+    for i in range(n):
+        run = subprocess.run([sys.executable, __file__, "--first-record-child", "24"],
+                             capture_output=True, text=True)
+        got = [json.loads(line) for line in run.stdout.splitlines()
+               if line.startswith("{")]
+        for r in got:
+            r["process"] = i
+        lost = [r for r in got if r["key_averages"] < r["calls"]]
+        print(json.dumps({"process": i, "rc": run.returncode, "sessions": len(got),
+                          "lost": len(lost), "lost_rows": lost[:6]}), flush=True)
+        if run.returncode:
+            print(run.stderr[-2000:], flush=True)
+        rows.extend(got)
+    summary = {}
+    for r in rows:
+        key = ("marker" if r["marker"] else "plain") + (
+            " whole" if r["key_averages"] == r["calls"] else
+            " raw_lost" if r["raw_copies"] < r["calls"] else " parse_lost")
+        summary[key] = summary.get(key, 0) + 1
+    print(json.dumps({"first_record": summary, "processes": n}))
     return 0
 
 
@@ -158,7 +235,11 @@ def main() -> int:
     ap.add_argument("--card-tests", default=None)
     ap.add_argument("--smoke-kernels", type=int, default=0)
     ap.add_argument("--fresh-build", action="store_true")
+    ap.add_argument("--first-record", type=int, default=0)
+    ap.add_argument("--first-record-child", type=int, default=0)
     args = ap.parse_args()
+    if args.first_record_child:
+        return first_record_child(args.first_record_child)
     import torch
 
     if not torch.cuda.is_available():
@@ -172,6 +253,8 @@ def main() -> int:
         return card_tests(args.card_tests)
     if args.smoke_kernels:
         return smoke_kernels(args.smoke_kernels, args.fresh_build)
+    if args.first_record:
+        return first_record(args.first_record)
     dev = torch.device("cuda")
     x = torch.randn(8, 1600, device=dev).to(torch.bfloat16)
     y = torch.empty_like(x)

@@ -487,12 +487,14 @@ def test_int8_masters_engine_relays_codes_and_refuses_nvme(jax_init, tmp_path):
 @pytest.mark.parametrize("zero,item", [
     ({"stage": 0, "offload_param": {"device": "cpu", "stream_grads": False}},
      "the whole-program offload_param path"),
-    # ids kept from when every stage >= 1 was refused
-    pytest.param({"stage": 1, "offload_optimizer": {"device": "cpu"}},
-                 "offload at ZeRO stage 1-3",
+    # ids kept from when every stage >= 1 was refused; offload_optimizer
+    # runs at every stage now, offload_param beyond stage 0 is refused
+    pytest.param({"stage": 1, "offload_param": {"device": "cpu"}},
+                 "item 2e, offload_param across ranks",
                  id="zero1-ZeRO 1-3 over torch.distributed"),
-    pytest.param({"stage": 3, "offload_optimizer": {"device": "nvme", "nvme_path": "/x"}},
-                 "offload at ZeRO stage 1-3",
+    pytest.param({"stage": 3, "offload_optimizer": {"device": "cpu"},
+                  "offload_param": {"device": "nvme", "nvme_path": "/x"}},
+                 "item 2e, offload_param across ranks",
                  id="zero2-ZeRO 1-3 over torch.distributed")])
 def test_unported_offload_settings_are_refused_naming_their_item(zero, item):
     with pytest.raises(NotImplementedError, match=item):

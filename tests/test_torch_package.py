@@ -269,21 +269,34 @@ def test_initialize_without_a_card_raises(monkeypatch):
     assert engine.device == torch.device("cpu")
 
 
-@pytest.mark.parametrize("section", [
-    {"zero_optimization": {"stage": 1, "overlap_comm": True}},
-    {"zero_optimization": {"stage": 3, "zero_quantized_weights": True}},
-    {"zero_optimization": {"stage": 1, "offload_optimizer": {"device": "cpu"}}},
-    {"comm_quantization": {"all_gather": True}},
-    {"pipeline": {"stages": 2}}, {"mesh": {"tp": 2}},
-    {"tensor_parallel": {"tp_size": 2}}, {"tensorboard": {"enabled": True}},
-    {"flops_profiler": {"enabled": True}}, {"watchdog": {"enabled": True}},
-    {"zero_optimization": {"offload_param": {"device": "cpu", "stream_grads": False}}},
-    {"optimizer": {"type": "ZeroOneAdam", "params": {}}},
-    {"optimizer": {"type": "OneBitLamb", "params": {}}},
-    {"optimizer": {"type": "OneBitAdam", "params": {}}}])
-def test_unported_training_config_sections_are_refused(section):
-    import deepspeed_tpu_torch
+_REFUSED = [
+    # ZeRO++ where the JAX engine runs it (stage 3 over an fsdp axis > 1 the
+    # hpz size divides), checked through the config at that world
+    ({"zero_optimization": {"stage": 3, "zero_hpz_partition_size": 2}}, 4),
+    ({"zero_optimization": {"stage": 3, "zero_quantized_weights": True}}, 2),
+    ({"zero_optimization": {"stage": 1, "offload_param": {"device": "cpu"}}}, 1),
+    ({"comm_quantization": {"all_gather": True}}, 1),
+    ({"pipeline": {"stages": 2}}, 1), ({"mesh": {"tp": 2}}, 1),
+    ({"tensor_parallel": {"tp_size": 2}}, 1), ({"tensorboard": {"enabled": True}}, 1),
+    ({"flops_profiler": {"enabled": True}}, 1), ({"watchdog": {"enabled": True}}, 1),
+    ({"zero_optimization": {"offload_param": {"device": "cpu", "stream_grads": False}}}, 1),
+    ({"optimizer": {"type": "ZeroOneAdam", "params": {}}}, 1),
+    ({"optimizer": {"type": "OneBitLamb", "params": {}}}, 1),
+    ({"optimizer": {"type": "OneBitAdam", "params": {}}}, 1)]
 
+
+@pytest.mark.parametrize("section,world", [pytest.param(s, w, id=f"section{i}")
+                                           for i, (s, w) in enumerate(_REFUSED)])
+def test_unported_training_config_sections_are_refused(section, world):
+    """At a world of one through ``initialize``; at a larger world through
+    the config the engine parses there."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+
+    if world > 1:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            DeepSpeedConfig(section, world_size=world)
+        return
     model = deepspeed_tpu_torch.causal_lm("llama-tiny", num_layers=1,
                                           device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -22,12 +22,12 @@ Tolerances:
   (``tests/test_torch_offload.py``): the two packages round the forward's
   bf16 activations at other places, so losses rtol 1e-3, grad norms 1e-2,
   masters 95 % within 1e-4 and all within 1e-2;
-- mixtral-tiny at the fp32 bounds with ``moe_drop_tokens: false``: the JAX
-  engine gates the global micro-batch, each port rank its own rows (the
-  reference's per-rank gating), so a capacity that drops tokens keeps other
-  tokens on each side; with no drop the dispatch is the same and only the
-  aux loss differs, the port's a per-rank mean (the JAX package's sharded
-  path, ``runtime/zero/overlap.py``).
+- mixtral-tiny at the fp32 bounds, with ``moe_drop_tokens: false`` and with
+  a capacity that drops tokens (``moe_capacity_factor`` 0.5): each port rank
+  gates its rows as the JAX engine gates the global micro-batch, the
+  capacity from the global token count, each expert's slots numbered in the
+  global order and the aux loss's two means taken over the global batch
+  (``moe/sharded_moe.py``), so both packages keep and drop the same tokens.
 """
 
 import types
@@ -58,6 +58,11 @@ TINY = {"llama-tiny": dict(num_layers=2, hidden_size=64, intermediate_size=128,
         "mixtral-tiny": dict(num_layers=2, hidden_size=64, intermediate_size=128,
                              num_heads=4, num_kv_heads=2, vocab_size=256,
                              num_experts=4, moe_drop_tokens=False)}
+# mixtral-tiny with a capacity that drops tokens: 128 tokens a global
+# micro-batch at world 2, k 2 of 4 experts, C = ceil(2 * 128 / 4 * 0.5) = 32
+# slots an expert against 64 on average (16 if each rank gated its own rows)
+MIXTRAL_DROP = dict(TINY["mixtral-tiny"], moe_drop_tokens=True,
+                    moe_capacity_factor=0.5)
 BASE = {"train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 2,
         "optimizer": {"type": "FusedAdam", "params": {
             "lr": 3e-3, "betas": [0.9, 0.95], "weight_decay": 0.1}},
@@ -105,13 +110,13 @@ def masked_batches(world, steps=3, seed=3):
     return out
 
 
-def jax_train(preset, params, cfg, batches, world, mesh_kw=None):
+def jax_train(preset, params, cfg, batches, world, mesh_kw=None, model_kw=None):
     """The JAX engine on a ``world``-device CPU mesh: per step (loss, grad
     norm), the final params, and the engine (its specs)."""
     prev = jmesh_mod._GLOBAL_MESH
     try:
         mesh = j_build_mesh(devices=jax.devices()[:world], **(mesh_kw or {"fsdp": world}))
-        jm = j_causal_lm(preset, **TINY[preset])
+        jm = j_causal_lm(preset, **(model_kw or TINY[preset]))
         eng, *_ = deepspeed_tpu.initialize(model=jm, model_parameters=params,
                                            config=cfg, mesh=mesh)
         steps = []
@@ -275,9 +280,15 @@ def _cases_w2():
     cases["bf16"] = ("llama-tiny", llama, config(3, bf16={"enabled": True}), tok)
     cases["gpt2"] = ("gpt2-small", gpt2, config(3), tok)
     cases["mixtral"] = ("mixtral-tiny", mix, config(2), tok)
+    cases["mixtral_drop"] = ("mixtral-tiny", mix, config(2), tok, MIXTRAL_DROP)
     lamb = dict(BASE["optimizer"], type="FusedLamb")
     cases["lamb"] = ("llama-tiny", llama, config(2, optimizer=lamb), tok[:2])
     return cases
+
+
+def _model_kw(case):
+    """A case's model overrides: its fifth entry, else the preset's."""
+    return case[4] if len(case) > 4 else TINY[case[0]]
 
 
 def _world4_case():
@@ -292,9 +303,9 @@ def groups():
     ``dp 2 x fsdp 2``), so that their ranks run beside the JAX references;
     the cases of each."""
     cases = _cases_w2()
-    rank_cases = {name: ("train", dict(preset=p, model_kw=TINY[p], np_params=params,
-                                       config=cfg, batches=b))
-                  for name, (p, params, cfg, b) in cases.items()}
+    rank_cases = {name: ("train", dict(preset=c[0], model_kw=_model_kw(c), np_params=c[1],
+                                       config=c[2], batches=c[3]))
+                  for name, c in cases.items()}
     llama = cases["stage3"][1]
     rank_cases["bytes"] = ("bytes", dict(preset="llama-tiny", model_kw=TINY["llama-tiny"],
                                          np_params=llama, config=config(3),
@@ -316,8 +327,8 @@ def groups():
 def world2(groups):
     cases, g2, _ = groups
     # the JAX references while the ranks run
-    refs = {name: jax_train(p, params, cfg, b, 2)
-            for name, (p, params, cfg, b) in cases.items()}
+    refs = {name: jax_train(*c[:4], 2, model_kw=_model_kw(c))
+            for name, c in cases.items()}
     llama = cases["stage3"][1]
     halved = jax.tree.map(lambda x: x, llama)
     halved["embed"] = dict(llama["embed"], tok=llama["embed"]["tok"] * np.float32(0.5))
@@ -367,6 +378,16 @@ def test_world2_mixtral_stage2_matches_the_jax_engine(world2):
     for rank in ranks:
         close_steps(rank["mixtral"]["steps"], refs["mixtral"]["steps"])
         close_params(rank["mixtral"]["params"], refs["mixtral"]["params"])
+
+
+def test_world2_mixtral_dropping_capacity_stage2_matches_the_jax_engine(world2):
+    """A capacity that drops tokens (``moe_drop_tokens: true``, capacity
+    factor 0.5): the global capacity and the global slot order keep the
+    tokens the JAX engine keeps."""
+    refs, ranks = world2
+    for rank in ranks:
+        close_steps(rank["mixtral_drop"]["steps"], refs["mixtral_drop"]["steps"])
+        close_params(rank["mixtral_drop"]["params"], refs["mixtral_drop"]["params"])
 
 
 def test_world2_fused_lamb_stage2_matches_the_jax_engine(world2):

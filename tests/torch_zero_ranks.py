@@ -139,19 +139,84 @@ def full_params(engine) -> Dict[str, np.ndarray]:
     return {k: v.detach().float().numpy().copy() for k, v in flat(engine.params())}
 
 
+def overlap_info(engine) -> Optional[Dict[str, Any]]:
+    """The engine's overlap schedule as plain data (None without one): its
+    comm plan entries, buckets, leaf assignment, the counters of its last
+    micro-batch, and the inert config keys."""
+    sched = engine._overlap_sched
+    if sched is None:
+        return None
+    return {"entries": [tuple(e) for e in sched.comm_plan_entries()],
+            "infos": [tuple(i) for i in sched.bucket_infos()],
+            "assignment": sched.bucket_assignment(), "last": sched.last_counts,
+            "plan_counts": sched.plan_counts(),
+            "hideable": sched.hideable_comm_fraction()}
+
+
+def offload_info(engine) -> Optional[Dict[str, Any]]:
+    """The host optimizer's slices as plain data (None without offload):
+    its fp32 masters in its leaf order, each leaf's place (full shape and
+    this rank's region, None for a whole leaf), its paths, its state bytes
+    and its swap directory's parent's entries (nvme)."""
+    import os
+
+    opt = getattr(engine, "_offload_opt", None)
+    if opt is None:
+        return None
+    swap = None
+    if opt.backend == "nvme":
+        swap = sorted(os.listdir(os.path.dirname(opt._swapper.dir)))
+    return {"masters": [m.numpy().copy() for m in opt.masters()],
+            "places": engine._offload_places(), "paths": list(opt._paths),
+            "bytes": opt.state_bytes(), "swap_dirs": swap,
+            "step_count": opt.step_count}
+
+
 def train_run(rank, world, preset, model_kw, np_params, config, batches,
               save_dir=None, save_after=None):
     """Train on this rank's rows of each global batch; returns per step
-    (loss, grad norm), the full params and, when ``save_dir`` is given, saves
-    after step ``save_after``."""
+    (loss, grad norm), the full params, the overlap schedule's data and,
+    when ``save_dir`` is given, saves after step ``save_after``."""
     engine = build_engine(preset, model_kw, np_params, config)
-    steps = []
+    steps, scaler = [], []
     for i, b in enumerate(batches):
         loss = engine.train_step(rank_rows(b, rank, world))
         steps.append((float(loss), engine.get_global_grad_norm()))
+        scaler.append((engine._last_overflow, engine.loss_scale, engine.global_steps))
         if save_dir is not None and i + 1 == save_after:
             engine.save_checkpoint(save_dir, tag="resume")
-    return {"steps": steps, "params": full_params(engine)}
+    return {"steps": steps, "params": full_params(engine), "scaler": scaler,
+            "overlap": overlap_info(engine), "inert": engine._inert_config_keys,
+            "offload": offload_info(engine)}
+
+
+def overlap_ckpt_scenarios(rank, world, preset, model_kw, np_params, configs,
+                           batches, root):
+    """Tags across ``overlap_comm``: for each of ``configs`` (``"on"`` and
+    ``"off"``) an engine trains two steps, saves a tag ``root/<name>`` and
+    takes the third; a fresh engine of the other setting loads that tag and
+    takes the third."""
+    import os
+
+    out = {}
+    for name, cfg in configs.items():
+        engine = build_engine(preset, model_kw, np_params, cfg)
+        for b in batches[:2]:
+            engine.train_step(rank_rows(b, rank, world))
+        saved = full_params(engine)
+        engine.save_checkpoint(os.path.join(root, name), tag="t")
+        loss = engine.train_step(rank_rows(batches[2], rank, world))
+        run = (float(loss), engine.get_global_grad_norm())
+        other = "off" if name == "on" else "on"
+        fresh = build_engine(preset, model_kw, np_params, configs[other])
+        fresh.load_checkpoint(os.path.join(root, name))
+        loaded = full_params(fresh)
+        loss = fresh.train_step(rank_rows(batches[2], rank, world))
+        out[name] = {"saved": saved, "run": run, "loaded": loaded,
+                     "loaded_overlap": fresh._overlap,
+                     "resumed": (float(loss), fresh.get_global_grad_norm()),
+                     "params": full_params(fresh), "run_params": full_params(engine)}
+    return out
 
 
 def state_numels(engine) -> List[Any]:
@@ -185,6 +250,8 @@ def zero_scenarios(rank, world, cases):
             res = {"numels": state_numels(engine)}
         elif kind == "gathered":
             res = gathered_run(rank, world, **kw)
+        elif kind == "overlap_ckpt":
+            res = overlap_ckpt_scenarios(rank, world, **kw)
         else:
             raise ValueError(kind)
         res["counters"] = comm.counters()
