@@ -6,11 +6,12 @@
 Needs one CUDA card, nvcc and triton; imports nothing of JAX.  Phases
 (each one raises, and the script exits non-zero, on any failure):
 
-1. build   — compile the eight CUDA libraries (LayerNorm and RMSNorm
+1. build   — compile the ten CUDA libraries (LayerNorm and RMSNorm
              fwd/bwd; RoPE; the fused decode kernels with their
              contiguous-cache and int8-weight variants, the largest build;
              flash attention fwd/bwd; fused Adam; the block quantizer; fused
-             Adam8bit; the LAMB phases), one nvcc each, started together,
+             Adam8bit; the LAMB phases; dropout; the quantized collectives'
+             int8 codec), one nvcc each, started together,
              while Triton compiles the softmax and bias_act kernels; print
              build seconds and the ptxas register / shared-memory / spill
              lines (and any wgmma serialization warning; each kernel by
@@ -31,7 +32,7 @@ Needs one CUDA card, nvcc and triton; imports nothing of JAX.  Phases
              fused decode's QKV rows) bit-equal to its plain version in
              fp32, bf16 and fp16, with fp32 tables and tables in x's dtype,
              both signs, partial rd and strided views, and on a repeat;
-             then CUDA-event timings (median of 50 samples of 20 calls;
+             then CUDA-event timings (median of TIME_SAMPLES (25) samples of 20 calls;
              the GEMV kernels cycle through enough weight copies to miss
              the 50 MB L2, as 32 layers do; RoPE at its four path shapes,
              the serve prefill's q + k [1, 64, 32 + 8, 128], generate()'s
@@ -271,6 +272,20 @@ Needs one CUDA card, nvcc and triton; imports nothing of JAX.  Phases
              x S 2048, 5 steps and a profiled one: step time, tokens/s,
              MFU, peak, the collectives' calls and bytes a step, the
              device's busy share; launches equal to the train plan);
+   comm_quant — the blockwise int8 codec of the quantized collectives
+             (``csrc/comm_quant.cu``): both kernels bit-equal to their
+             plain versions at llama-1b4's leaves flat (the stacked MLP
+             leaf [24, 2048, 5632] included), fp32 and bf16, blocks 256
+             and 200, as one row and as 4 destination rows, the dequantizer
+             summing 4 sources and concatenating them; each timed against
+             its bytes bound; ``q_all_gather_flat`` and
+             ``q_reduce_scatter_flat`` over the world-one NCCL group (they
+             quantize at one rank too: their launches are the path's);
+             ``initialize`` with ZeRO++ (qw + qg + hpz 2), stage 2's
+             ``grad_all_reduce`` and ``overlap_comm`` at stage 3 with both
+             sites: at world 1 the JAX engine leaves each inert, so the
+             port's inert keys, their reasons and one step bit-equal to
+             zero_reference's plain path are checked;
    checkpoint — after the ``train`` phase, its cell again (llama-1b4 cut
              to CHECKPOINT_LAYERS, TRAIN_CONFIG, 5 steps), then ``save_checkpoint`` into a
              temporary directory (the free space printed first and
@@ -341,7 +356,12 @@ def gpu_identity() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, samples=50, inner=20, warmup=10):
+# CUDA-event samples a timing takes by default (50 until the comm_quant
+# phase joined the smoke: cut for its 600 s aim, as ROADMAP.md names)
+TIME_SAMPLES = 25
+
+
+def time_ms(torch, fn, samples=TIME_SAMPLES, inner=20, warmup=10):
     """Median CUDA-event time of one call, in ms."""
     for _ in range(warmup):
         fn()
@@ -454,7 +474,7 @@ def phase_build(torch, dev):
         results[name + "_s"] = time.perf_counter() - t0
 
     libs = ("layer_norm", "rope", "decode", "flash_attention", "fused_adam",
-            "quantizer", "fused_adam8bit", "fused_lamb", "dropout")
+            "quantizer", "fused_adam8bit", "fused_lamb", "dropout", "comm_quant")
     threads = [threading.Thread(target=cuda_build, args=(n,)) for n in libs]
     for th in threads:
         th.start()
@@ -3129,6 +3149,8 @@ def time_head_gemms(torch, dev, gen):
 
 
 def phase_kernels(torch, dev):
+    print(f"kernels: timings take the median of {TIME_SAMPLES} samples of 20 calls "
+          "(50 before the comm_quant phase joined: cut for the 600 s aim)")
     gen = torch.Generator(device=dev).manual_seed(0)
     errs = check_old_kernels(torch, dev, gen)
     print(f"kernels vs plain: fp32 within 1e-5, bf16 within 2e-2, fp16 within "
@@ -3593,7 +3615,7 @@ KERNELS = ("rms_norm", "rope", "fused_norm_qkv", "flash_decode",
            "flash_attention_bwd_alibi", "flash_attention_fwd_f16",
            "flash_attention_bwd_f16", "flash_attention_fwd_f16_alibi",
            "flash_attention_bwd_f16_alibi", "fused_adam_f16", "dropout",
-           "dropout_bwd")
+           "dropout_bwd", "quantize_blockwise", "dequantize_blockwise")
 
 
 def launch_counters():
@@ -3604,6 +3626,7 @@ def launch_counters():
                                                  quantize, rms_norm,
                                                  rms_norm_bwd,
                                                  scaled_masked_softmax)
+    from deepspeed_tpu_torch.ops.kernels import comm_quant as cq
     from deepspeed_tpu_torch.ops.kernels import decode as dk
     from deepspeed_tpu_torch.ops.kernels import dropout as drop
     from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
@@ -3634,7 +3657,9 @@ def launch_counters():
             "flash_attention_fwd_f16_alibi": fa.flash_fwd_f16_alibi_cuda,
             "flash_attention_bwd_f16_alibi": fa.flash_attention_bwd_f16_alibi,
             "fused_adam_f16": adam.fused_adam_update_f16_cuda,
-            "dropout": drop.dropout, "dropout_bwd": drop.dropout_bwd}
+            "dropout": drop.dropout, "dropout_bwd": drop.dropout_bwd,
+            "quantize_blockwise": cq.quantize_blockwise,
+            "dequantize_blockwise": cq.dequantize_blockwise}
 
 
 def zero_counts():
@@ -5633,6 +5658,268 @@ def phase_zero_overlap_reference(torch, dev, ref):
             os.remove(store)
 
 
+# comm_quant: the codec of the quantized collectives at llama-1b4's leaves,
+# flat as ZeRO++ holds them; the stacked MLP leaf is the largest (276.8M)
+COMM_QUANT_LEAVES = ((50304, 2048), (24, 2048, 2048), (24, 2048, 5632),
+                     (24, 2048), (2048,))
+COMM_QUANT_BIG = (24, 2048, 5632)
+COMM_QUANT_RANKS = 4        # the probe's fsdp world: a reduce-scatter's rows
+# comm_quantization.block's default, and a block that is no power of two
+COMM_QUANT_BLOCKS = (256, 200)
+# no TPU kernel: the JAX codec is plain jnp that XLA fuses into each
+# collective's program
+COMM_QUANT_SITE = "deepspeed_tpu/comm/quant.py:111"
+COMM_DEQUANT_SITE = "deepspeed_tpu/comm/quant.py:126"
+# the world-one configs of the three quantized paths, over TRAIN_CONFIG, and
+# what the JAX engine says of each there
+COMM_QUANT_ENGINES = {
+    "zeropp": ({"zero_optimization": {
+        "stage": 3, "stage3_param_persistence_threshold": 0,
+        "zero_quantized_weights": True, "zero_quantized_gradients": True,
+        "zero_hpz_partition_size": 2}},
+        ["zero_optimization.zero_quantized_weights",
+         "zero_optimization.zero_quantized_gradients",
+         "zero_optimization.zero_hpz_partition_size"],
+        "needs an fsdp mesh axis > 1"),
+    "grad_all_reduce": ({"zero_optimization": {"stage": 2},
+                         "comm_quantization": {"grad_all_reduce": True,
+                                               "error_feedback": True}},
+                        ["comm_quantization.grad_all_reduce"],
+                        "no data-parallel axis > 1 — there is no all-reduce "
+                        "to quantize"),
+    "overlap_q": ({"zero_optimization": dict(
+        ZERO_OVERLAP, stage=3, stage3_param_persistence_threshold=0),
+        "comm_quantization": {"all_gather": True, "reduce_scatter": True}},
+        [], None)}
+
+
+def check_comm_quant(torch, dev):
+    """Both codec kernels against their plain versions, bit for bit: at
+    each of COMM_QUANT_LEAVES flat, fp32 and bf16, each block of
+    COMM_QUANT_BLOCKS, as one row (a gather's shard: dequantized back) and
+    as COMM_QUANT_RANKS destination rows (a reduce-scatter's: summed over
+    the rows in fp32, and concatenated in the input's dtype with each row's
+    padding stripped), and the error-feedback form (the input less its
+    codes times their scales); the first block of each input zeros (scale
+    0)."""
+    from deepspeed_tpu_torch.ops.kernels import comm_quant as kq
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    P = COMM_QUANT_RANKS
+    checked = 0
+    for shape in COMM_QUANT_LEAVES:
+        x32 = _randn(torch, shape, gen, dev).reshape(-1)
+        x32.mul_(torch.exp(_randn(torch, (x32.numel() // 2048 + 1,), gen, dev)
+                           ).repeat_interleave(2048)[:x32.numel()])
+        x32[:max(COMM_QUANT_BLOCKS)] = 0.0
+        n = x32.numel()
+        for name in ("float32", "bfloat16"):
+            x = x32.to(getattr(torch, name))
+            for block in COMM_QUANT_BLOCKS:
+                for rows in (1, P):
+                    what = f"comm_quant {name} {list(shape)} block {block} rows {rows}"
+                    q, s = kq.quantize_blockwise_cuda(x, block, rows)
+                    qp, sp = kq.quantize_blockwise_plain(x, block, rows)
+                    check(torch.equal(q, qp) and torch.equal(s, sp),
+                          f"{what}: quantize kernel != plain")
+                    del qp, sp
+                    keep = n // rows
+                    outs = ([(True, torch.float32), (False, x.dtype)] if rows > 1
+                            else [(False, torch.float32)])
+                    for add, dt in outs:
+                        got = kq.dequantize_blockwise_cuda(q, s, keep, add, dt)
+                        want = kq.dequantize_blockwise_plain(q, s, keep, add, dt)
+                        check(torch.equal(got, want), f"{what}: dequantize "
+                              f"(sum {add}, {dt}) kernel != plain")
+                        checked += 1
+                    # the error-feedback residual of the input's codes
+                    base = x32 if name == "float32" else x.float()
+                    got = kq.dequantize_error_cuda(base, q, s)
+                    want = kq.dequantize_error_plain(base, q, s)
+                    check(torch.equal(got, want), f"{what}: dequantize_error "
+                          "kernel != plain")
+                    checked += 1
+                    del q, s, got, want, base
+            del x
+        del x32
+        torch.cuda.empty_cache()
+    print(f"kernels vs plain: comm_quant quantize_blockwise and dequantize_blockwise "
+          f"(its sum, concatenation and error forms) bit-equal ({checked} dequantize "
+          f"checks) at llama-1b4's leaves "
+          f"{[list(s) for s in COMM_QUANT_LEAVES]} flat, fp32 and bf16, blocks "
+          f"{list(COMM_QUANT_BLOCKS)}, as 1 row and as {P} destination rows "
+          f"(summed over them, and concatenated)")
+    return {"quantize_blockwise": 0.0, "dequantize_blockwise": 0.0}
+
+
+def time_comm_quant(torch, dev, errs):
+    """The codec at the stacked MLP leaf [24, 2048, 5632], block 256: the
+    quantizer on fp32 grads as COMM_QUANT_RANKS destination rows (qgZ's
+    reduce-scatter) and on the bf16 shard as one row (qwZ's gather); the
+    dequantizer summing the 4 sources' codes into fp32 (the reduce side)
+    and concatenating them in bf16 (the gather side), and its error form
+    on the fp32 grads (q_all_reduce's residual).  Call ms under CUDA
+    events (one launch a call, of 0.2-1 ms: no profiler window, whose
+    records some processes lose), the plain version, and the bytes bound:
+    each input read once, each output written once (4 bytes a block's
+    scale)."""
+    from deepspeed_tpu_torch.ops.kernels import comm_quant as kq
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    P, block = COMM_QUANT_RANKS, COMM_QUANT_BLOCKS[0]
+    g = _randn(torch, COMM_QUANT_BIG, gen, dev).reshape(-1)
+    w = g.to(torch.bfloat16)
+    n = g.numel()
+    nb = n // block                   # every row whole blocks here
+    q, s = kq.quantize_blockwise_cuda(g, block, P)
+    shape = f"fp32 {list(COMM_QUANT_BIG)} as {P} rows, block {block}"
+
+    def timed(call, plain):
+        return (time_ms(torch, call, samples=10, inner=5, warmup=3),
+                time_ms(torch, plain, samples=3, inner=1, warmup=1))
+
+    out = {}
+    ms, plain = timed(lambda: kq.quantize_blockwise_cuda(g, block, P),
+                      lambda: kq.quantize_blockwise_plain(g, block, P))
+    b_ms, b_by = bound_ms(4 * n + n + 4 * nb, 0)
+    bf_ms, bf_plain = timed(lambda: kq.quantize_blockwise_cuda(w, block),
+                            lambda: kq.quantize_blockwise_plain(w, block))
+    bf_b, _ = bound_ms(2 * n + n + 4 * nb, 0)
+    out["quantize_blockwise"] = {
+        "shape": shape, "ms": ms, "plain_ms": plain, "library_ms": None,
+        "bound_ms": b_ms, "bound_by": b_by,
+        "max_abs_err": errs["quantize_blockwise"],
+        "bf16_shape": f"bf16 {list(COMM_QUANT_BIG)} as 1 row", "bf16_ms": bf_ms,
+        "bf16_plain_ms": bf_plain, "bf16_bound_ms": bf_b}
+    keep = n // P
+    ms, plain = timed(lambda: kq.dequantize_blockwise_cuda(q, s, keep, True),
+                      lambda: kq.dequantize_blockwise_plain(q, s, keep, True))
+    b_ms, b_by = bound_ms(n + 4 * nb + 4 * keep, 0)
+    cat_ms, cat_plain = timed(
+        lambda: kq.dequantize_blockwise_cuda(q, s, keep, False, torch.bfloat16),
+        lambda: kq.dequantize_blockwise_plain(q, s, keep, False, torch.bfloat16))
+    cat_b, _ = bound_ms(n + 4 * nb + 2 * n, 0)
+    err_ms, err_plain = timed(lambda: kq.dequantize_error_cuda(g, q, s),
+                              lambda: kq.dequantize_error_plain(g, q, s))
+    err_b, _ = bound_ms(n + 4 * nb + 4 * n + 4 * n, 0)
+    out["dequantize_blockwise"] = {
+        "shape": f"int8 codes of {shape}, summed over the {P} sources into fp32",
+        "ms": ms, "plain_ms": plain, "library_ms": None, "bound_ms": b_ms,
+        "bound_by": b_by, "max_abs_err": errs["dequantize_blockwise"],
+        "concat_shape": f"the same {P} sources concatenated in bf16",
+        "concat_ms": cat_ms, "concat_plain_ms": cat_plain, "concat_bound_ms": cat_b,
+        "error_shape": "the error form on the fp32 grads and their codes",
+        "error_ms": err_ms, "error_plain_ms": err_plain, "error_bound_ms": err_b}
+    for name, r in out.items():
+        extra = ("bf16", r["bf16_ms"], r["bf16_plain_ms"], r["bf16_bound_ms"]) \
+            if name == "quantize_blockwise" else \
+            ("concat bf16", r["concat_ms"], r["concat_plain_ms"], r["concat_bound_ms"])
+        print(f"time {name} {r['shape']}: kernel {r['ms']:.5f} ms, plain "
+              f"{r['plain_ms']:.5f} ms, library none, bound {r['bound_ms']:.6f} ms "
+              f"({r['bound_by']}), {100 * r['bound_ms'] / r['ms']:.1f} % of it; "
+              f"{extra[0]}: kernel {extra[1]:.5f} ms, plain {extra[2]:.5f} ms, "
+              f"bound {extra[3]:.6f} ms"
+              + (f"; error form: kernel {r['error_ms']:.5f} ms, plain "
+                 f"{r['error_plain_ms']:.5f} ms, bound {r['error_bound_ms']:.6f} ms"
+                 if "error_ms" in r else ""))
+    del g, w, q, s
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_comm_quant(torch, dev, ref):
+    """The codec's kernels checked and timed; then, over the world-one NCCL
+    group, ``q_all_gather_flat`` (a bf16 shard of the MLP leaf, as qwZ
+    gathers) and ``q_reduce_scatter_flat`` (its fp32 grads, as qgZ
+    scatters) with the launch counts set to 0 just before and read just
+    after (each quantizes once and dequantizes once), each result equal to
+    the plain codec's round trip of the same input, and their wire bytes
+    beside the dense twin's; then ``initialize`` with each of
+    COMM_QUANT_ENGINES at zero_reference's cut, one step on its tokens:
+    the inert keys and reasons of the JAX engine's gates at world 1, no
+    codec launch, and the step's loss and grad norm bit-equal to the plain
+    path's first.  Returns (the codec's timings, the path's launches)."""
+    import gc
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.comm import collectives_q as cq
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.ops.kernels import comm_quant as kq
+
+    timings = time_comm_quant(torch, dev, check_comm_quant(torch, dev))
+    gen = torch.Generator(device=dev).manual_seed(15)
+    block = COMM_QUANT_BLOCKS[0]
+    g = _randn(torch, COMM_QUANT_BIG, gen, dev).reshape(-1)
+    w = g.to(torch.bfloat16)
+    n = g.numel()
+    store = zero_group(torch)
+    try:
+        comm.reset_counters()
+        zero_counts()
+        gathered = cq.q_all_gather_flat(w, None, block=block)
+        reduced = cq.q_reduce_scatter_flat(g, None, block=block)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        qc = comm.q_counters()
+        check(launches["quantize_blockwise"] == 2 and launches["dequantize_blockwise"] == 2
+              and sum(launches.values()) == 4,
+              f"comm_quant: the collectives launched {launches}")
+        qw, sw = kq.quantize_blockwise_plain(w, block)
+        check(torch.equal(gathered, kq.dequantize_blockwise_plain(qw, sw, n)),
+              "comm_quant: q_all_gather_flat != the plain codec's round trip")
+        qg, sg = kq.quantize_blockwise_plain(g, block)
+        check(torch.equal(reduced, kq.dequantize_blockwise_plain(qg, sg, n, True)),
+              "comm_quant: q_reduce_scatter_flat != the plain codec's round trip")
+        del gathered, reduced, qw, sw, qg, sg
+        print(f"comm_quant: q_all_gather_flat (bf16 {list(COMM_QUANT_BIG)}) and "
+              f"q_reduce_scatter_flat (fp32) over NCCL at world 1 equal the plain "
+              f"codec's round trip; launches {launches['quantize_blockwise']} "
+              f"quantize, {launches['dequantize_blockwise']} dequantize; wire "
+              + "; ".join(f"{op} {r['bytes']} B against the dense twin's "
+                          f"{r['dense_bytes']} B ({r['dense_dtype']})"
+                          for op, r in sorted(qc.items())))
+        tokens = ref["tokens"]
+        for name, (section, inert, reason) in COMM_QUANT_ENGINES.items():
+            model = train_model("llama-1b4", num_layers=ZERO_REFERENCE_LAYERS)
+            engine, *_ = deepspeed_tpu_torch.initialize(
+                model=model, config=dict(TRAIN_CONFIG, **section))
+            check(engine._inert_config_keys == inert,
+                  f"comm_quant {name}: inert keys {engine._inert_config_keys}, "
+                  f"the JAX engine's {inert}")
+            if name == "zeropp":
+                got = (engine._zeropp, engine._zeropp_reason)
+            elif name == "grad_all_reduce":
+                got = (engine._qcomm_grads, engine._qcomm_grads_reason)
+            else:
+                qopts = engine._overlap_sched.qcomm
+                got = (qopts.all_gather or qopts.reduce_scatter, None)
+                check(engine._overlap, f"comm_quant {name}: not on the overlap "
+                      f"schedule ({engine._overlap_reason})")
+            check(got == (False, reason), f"comm_quant {name}: gate {got}, the "
+                  f"JAX engine's (False, {reason!r})")
+            zero_counts()
+            loss = float(engine.train_step((tokens, tokens)))
+            step = (loss, engine.get_global_grad_norm())
+            torch.cuda.synchronize()
+            codec = (kq.quantize_blockwise.launches, kq.dequantize_blockwise.launches)
+            check(codec == (0, 0), f"comm_quant {name}: the codec launched {codec} "
+                  "at world 1")
+            check(step == ref["steps"][0], f"comm_quant {name}: step {step} != the "
+                  f"plain path's {ref['steps'][0]}")
+            print(f"comm_quant: {name} at world 1 inert as in the JAX engine "
+                  f"(keys {inert}, reason {reason!r}); step 1 bit-equal to the "
+                  f"plain path: loss {step[0]}, grad norm {step[1]}")
+            del engine, model
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        comm.destroy()
+        if os.path.exists(store):
+            os.remove(store)
+    del g, w
+    return timings, launches
+
+
 def _flat_tree(tree, prefix=""):
     out = {}
     for k, v in tree.items():
@@ -6627,12 +6914,15 @@ def main() -> int:
     c("param_offload_reference", phase_param_offload_reference, torch, dev)
     zref = c("zero_reference", phase_zero_reference, torch, dev)
     c("zero_overlap_reference", phase_zero_overlap_reference, torch, dev, zref)
+    cq_timings, cq_launches = c("comm_quant", phase_comm_quant, torch, dev, zref)
+    timings.update(cq_timings)
     del zref
     # each path: (launch counts of its run, device ms per call in its profile)
     peaks, medians = {}, {}
     serve_keep, gen_keep = {}, {}
     offload_ref = {}      # zero_offload_train's run, for zero_offload_stage2
     runs = {"ops": (c("ops", phase_ops, torch, dev), {}),
+            "comm_quant": (cq_launches, {}),
             "serve": c("serve", phase_serve, torch, dev, "llama3-8b", keep=serve_keep),
             "gpt2_serve": c("gpt2_serve", phase_serve, torch, dev, "gpt2-xl"),
             **c("generate", phase_generate, torch, dev, keep=gen_keep),
@@ -6760,6 +7050,13 @@ def main() -> int:
         ("dropout_bwd", "cuda", "deepspeed_tpu_torch/csrc/dropout.cu",
          DROPOUT_SITE, "_dropout's transpose under jax.grad (plain jnp: no "
          "pallas_call)", "dropout_train"),
+        ("quantize_blockwise", "cuda", "deepspeed_tpu_torch/csrc/comm_quant.cu",
+         COMM_QUANT_SITE, "quantize_blockwise (plain jnp, fused by XLA into "
+         "each quantized collective: no pallas_call)", "comm_quant"),
+        ("dequantize_blockwise", "cuda", "deepspeed_tpu_torch/csrc/comm_quant.cu",
+         COMM_DEQUANT_SITE, "dequantize_blockwise and the collectives' "
+         "dequantize-and-sum (comm/collectives_q.py; plain jnp: no "
+         "pallas_call)", "comm_quant"),
     ]
     check([row[0] for row in table] == list(KERNELS), "kernel table out of step")
     kernels = []
@@ -6809,7 +7106,10 @@ def main() -> int:
                       "path_shapes", "wide_shape", "wide_ms", "wide_plain_ms",
                       "wide_library_ms", "wide_bound_ms", "wide_max_abs_err",
                       "wide_device_us_split", "wide_max_abs_err_f16",
-                      "int_ops_an_element", "f_dropout_ms"):
+                      "int_ops_an_element", "f_dropout_ms", "bf16_shape", "bf16_ms", "bf16_plain_ms", "bf16_bound_ms",
+                      "concat_shape", "concat_ms", "concat_plain_ms",
+                      "concat_bound_ms", "error_shape", "error_ms",
+                      "error_plain_ms", "error_bound_ms"):
             if extra in t:
                 k[extra] = t[extra]
         check(all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms",

@@ -36,6 +36,12 @@ device, gloo for the CPU.
 - Every call adds to a per-op counter of calls and bytes
   (:func:`counters`, :func:`reset_counters`, :func:`log_summary`): the bytes
   of the tensor a member sends, for ``all_gather`` the gathered output.
+- A quantized collective (:mod:`.collectives_q`) also records itself once
+  (:func:`record_q`, read by :func:`q_counters`; the JAX package's
+  ``CommMetrics.record_q``): the bytes by dtype of the int8 codes and fp32
+  scales it sends, and the dense twin, the bytes the dense collective
+  would have moved (``ds_comm_<op>_dense_bytes_total``).  Its exchanges
+  count in :func:`counters` as the collectives they are.
 
 With no process group the queries answer rank 0 and world 1, as the JAX
 functions do in one process.
@@ -67,6 +73,7 @@ _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
         "min": dist.ReduceOp.MIN, "prod": dist.ReduceOp.PRODUCT}
 
 _COUNTS: Dict[str, List[int]] = {}     # op -> [calls, bytes]
+_QCOUNTS: Dict[str, Dict[str, Any]] = {}   # quantized op -> its record
 _VERBOSE = False
 
 AxisLike = Union[None, str, Sequence[str], Any]
@@ -207,6 +214,41 @@ def counters() -> Dict[str, Dict[str, int]]:
 
 def reset_counters() -> None:
     _COUNTS.clear()
+    _QCOUNTS.clear()
+
+
+def _dtype_name(t: Any) -> str:
+    return str(getattr(t, "dtype", "")).replace("torch.", "")
+
+
+def record_q(op: str, parts: Sequence[Any], dense_like: Any) -> None:
+    """One call of a quantized collective: ``parts`` the tensors it sends
+    (codes and scales; their bytes by dtype), ``dense_like`` the tensor
+    (or anything with ``shape`` and ``dtype``) the dense collective would
+    have sent, whose bytes are the dense twin."""
+    def nb(a) -> int:
+        n = 1
+        for d in getattr(a, "shape", ()):
+            n *= int(d)
+        return n * torch.empty((), dtype=a.dtype).element_size()
+
+    rec = _QCOUNTS.setdefault(op, {"calls": 0, "bytes": {}, "dense_bytes": 0,
+                                   "dense_dtype": _dtype_name(dense_like)})
+    rec["calls"] += 1
+    for p in parts:
+        if p is not None:
+            key = _dtype_name(p)
+            rec["bytes"][key] = rec["bytes"].get(key, 0) + nb(p)
+    rec["dense_bytes"] += nb(dense_like)
+    if _VERBOSE:
+        logger.info("comm %s: %s bytes, dense twin %d", op, rec["bytes"],
+                    rec["dense_bytes"])
+
+
+def q_counters() -> Dict[str, Dict[str, Any]]:
+    """``{op: {"calls", "bytes": {dtype: b}, "dense_bytes", "dense_dtype"}}``
+    of the quantized collectives since the last reset."""
+    return {op: dict(r, bytes=dict(r["bytes"])) for op, r in _QCOUNTS.items()}
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -353,10 +395,18 @@ def reduce_scatter(x: torch.Tensor, axis: AxisLike, scatter_dim: int = 0,
 
 
 def all_to_all_single(x: torch.Tensor, axis: AxisLike, split_dim: int = 0,
-                      concat_dim: int = 0) -> torch.Tensor:
+                      concat_dim: int = 0, quantized: bool = False,
+                      quant_block: int = 256) -> torch.Tensor:
     """``x`` split along ``split_dim`` into as many slices as members,
     slice j sent to member j; the slices received concatenated along
-    ``concat_dim`` in rank order (the JAX ``tiled`` all_to_all)."""
+    ``concat_dim`` in rank order (the JAX ``tiled`` all_to_all).
+    ``quantized`` (the ``comm_quantization.all_to_all`` site) sends each
+    slice as blockwise int8 codes and fp32 scales
+    (:func:`~deepspeed_tpu_torch.comm.collectives_q.q_all_to_all`)."""
+    if quantized:
+        from deepspeed_tpu_torch.comm.collectives_q import q_all_to_all
+
+        return q_all_to_all(x, axis, split_dim, concat_dim, block=quant_block)
     group = _group(axis)
     n = get_world_size(group)
     if x.shape[split_dim] % n:
@@ -403,10 +453,14 @@ def broadcast_object_list(objects: List[Any], src: int = 0,
 
 
 def log_summary() -> str:
-    """The counters as a table (and logged)."""
+    """The counters as a table (and logged); a quantized op's row gives its
+    wire bytes and its dense twin."""
     lines = [f"{'op':<18}{'calls':>10}{'bytes':>18}"]
     for op, c in sorted(_COUNTS.items()):
         lines.append(f"{op:<18}{c[0]:>10}{c[1]:>18}")
+    for op, r in sorted(_QCOUNTS.items()):
+        lines.append(f"{op:<18}{r['calls']:>10}{sum(r['bytes'].values()):>18}"
+                     f"  (dense {r['dense_bytes']})")
     text = "\n".join(lines)
     logger.info("comm summary:\n%s", text)
     return text

@@ -15,17 +15,19 @@ spelling too) and ``aio`` (the NVMe swapper's I/O handle),
 ``zero_optimization.stage`` 0-3 with ``stage3_param_persistence_threshold``
 (the bucket sizes and ``contiguous_gradients`` are accepted and recorded,
 as hints, as in the JAX config), ``overlap_comm`` with
-``overlap_bucket_layers``, the ZeRO++ knobs (inert where the JAX engine
-leaves them inert: :func:`zeropp_gate`) and the ``mesh`` section (or
-``tpu.mesh``) with its data axes ``dp`` and ``fsdp``.  ``world_size`` is the
-data-parallel world (dp × fsdp), which the batch triad is resolved against.
-The settings the port does not carry yet raise ``NotImplementedError``
-naming their ROADMAP.md line when they ask for something: ZeRO++ where the
-JAX engine would run it, ``comm_quantization``, ``offload_param`` beyond
-stage 0 on one rank, the whole-program ``offload_param`` path, pipeline,
-tensor, sequence and expert parallelism.  Observability sections
-(profilers, monitors, flight recorder, goodput, watchdog, anomaly
-detection) are accepted only while disabled.
+``overlap_bucket_layers``, the ZeRO++ knobs (:func:`zeropp_gate`: the JAX
+engine's gate, which runs ZeRO++ at stage 3 over an fsdp axis > 1 and
+leaves it inert elsewhere), ``comm_quantization``
+(:class:`CommQuantizationConfig`, with the JAX config's checks) and the
+``mesh`` section (or ``tpu.mesh``) with its data axes ``dp`` and ``fsdp``.
+``world_size`` is the data-parallel world (dp × fsdp), which the batch
+triad is resolved against.  The settings the port does not carry yet
+raise ``NotImplementedError`` naming their ROADMAP.md line when they ask
+for something: ``offload_param`` beyond stage 0 on one rank, the
+whole-program ``offload_param`` path, pipeline, tensor, sequence and
+expert parallelism (with the ``comm_quantization`` sites that need
+them).  Observability sections (profilers, monitors, flight recorder,
+goodput, watchdog, anomaly detection) are accepted only while disabled.
 """
 
 from __future__ import annotations
@@ -124,8 +126,8 @@ class ZeroConfig(DeepSpeedConfigModel):
     stage-3 persistence threshold, the offload of the optimizer state and
     of the params, ``overlap_comm`` (the layer-bucketed schedule of
     ``runtime/zero/overlap.py``, ``overlap_bucket_layers`` layers a bucket)
-    and the ZeRO++ switches (inert, with the JAX engine's reasons, except
-    where it would run ZeRO++, which is refused: :func:`zeropp_gate`).  The
+    and the ZeRO++ switches (``runtime/zero/zeropp.py`` where the JAX engine
+    runs ZeRO++, else inert with its reasons: :func:`zeropp_gate`).  The
     bucket sizes and ``contiguous_gradients`` are recorded (hints the JAX
     engine leaves to XLA); other keys are accepted."""
 
@@ -149,6 +151,65 @@ class ZeroConfig(DeepSpeedConfigModel):
         if self.cpu_offload and self.offload_optimizer is None:
             object.__setattr__(self, "offload_optimizer",
                                OffloadOptimizerConfig(device="cpu"))
+
+
+class CommQuantizationConfig(DeepSpeedConfigModel):
+    """``comm_quantization``: blockwise int8 transport for the collectives
+    (the JAX package's section; ``comm/collectives_q.py``).  The sites are
+    tri-state: ``null`` follows ``enabled``, an explicit ``true`` or
+    ``false`` wins.
+
+    - ``grad_all_reduce``: the stage 0-2 boundary gradient sync, with an
+      error-feedback residual (``error_feedback``);
+    - ``all_gather`` / ``reduce_scatter``: the overlap schedule's bucket
+      gathers and reduce-scatters, and at stage 3 without ``overlap_comm``
+      the ZeRO++ path's qwZ / qgZ switches (either alone turns ZeRO++ on);
+    - ``all_to_all``: MoE dispatch and ``comm.all_to_all_single(quantized=
+      True)``;
+    - ``sequence_ring`` / ``pipeline``: the sp ring and the pp boundary
+      rings, which need the parallel meshes.
+
+    A legacy ZeRO++ flag (``zero_quantized_weights`` /
+    ``zero_quantized_gradients``) set true while its site is explicitly
+    false raises, as ``block <= 0`` and ``pipeline`` under fp16 do
+    (:meth:`DeepSpeedConfig._check_comm_quantization`)."""
+
+    enabled: bool = False
+    block: int = 256
+    error_feedback: bool = True
+    grad_all_reduce: Optional[bool] = None
+    all_gather: Optional[bool] = None
+    reduce_scatter: Optional[bool] = None
+    all_to_all: Optional[bool] = None
+    sequence_ring: Optional[bool] = None
+    pipeline: Optional[bool] = None
+
+    def _site(self, value: Optional[bool]) -> bool:
+        return bool(self.enabled) if value is None else bool(value)
+
+    @property
+    def q_grad_all_reduce(self) -> bool:
+        return self._site(self.grad_all_reduce)
+
+    @property
+    def q_all_gather(self) -> bool:
+        return self._site(self.all_gather)
+
+    @property
+    def q_reduce_scatter(self) -> bool:
+        return self._site(self.reduce_scatter)
+
+    @property
+    def q_all_to_all(self) -> bool:
+        return self._site(self.all_to_all)
+
+    @property
+    def q_sequence_ring(self) -> bool:
+        return self._site(self.sequence_ring)
+
+    @property
+    def q_pipeline(self) -> bool:
+        return self._site(self.pipeline)
 
 
 class MeshConfig(DeepSpeedConfigModel):
@@ -190,12 +251,18 @@ def zeropp_gate(d: Dict, world_size: int = 1) -> Tuple[bool, Optional[str]]:
     """The JAX engine's ZeRO++ gate (``runtime/engine.py`` ``__init__``):
     ``(wanted, reason)``, wanted when ``zero_quantized_weights``,
     ``zero_quantized_gradients`` or ``zero_hpz_partition_size > 1`` is set,
-    and the reason it would be inert, None where the JAX engine runs
-    ZeRO++.  The fsdp size is the mesh section's over ``world_size`` ranks."""
+    or at stage 3 without ``overlap_comm`` when ``comm_quantization``'s
+    ``all_gather`` or ``reduce_scatter`` site is on; the reason it would be
+    inert, None where the JAX engine runs ZeRO++.  The fsdp size is the
+    mesh section's over ``world_size`` ranks."""
     zero = d.get("zero_optimization") or {}
     hpz = int(zero.get("zero_hpz_partition_size", 1) or 1)
+    cq = CommQuantizationConfig(**(d.get("comm_quantization") or {}))
+    stage = int(zero.get("stage", 0) or 0)
     if not (zero.get("zero_quantized_weights") is True
-            or zero.get("zero_quantized_gradients") is True or hpz > 1):
+            or zero.get("zero_quantized_gradients") is True or hpz > 1
+            or (stage == 3 and not zero.get("overlap_comm")
+                and (cq.q_all_gather or cq.q_reduce_scatter))):
         return False, None
     from deepspeed_tpu_torch.comm.mesh import build_mesh
 
@@ -207,7 +274,7 @@ def zeropp_gate(d: Dict, world_size: int = 1) -> Tuple[bool, Optional[str]]:
     fsdp = mesh.shape.get("fsdp", 1)
     opt = ((d.get("optimizer") or {}).get("type") or "").lower()
     onebit = opt.replace("_", "").replace("-", "") in _ONEBIT
-    if int(zero.get("stage", 0) or 0) != 3:
+    if stage != 3:
         return True, "requires ZeRO stage 3 (sharded params)"
     if _offloads(zero) or onebit:
         return True, "not combinable with offload or 1-bit optimizers"
@@ -370,6 +437,7 @@ class DeepSpeedConfig:
 
     def __init__(self, config: Union[str, Dict, None], world_size: int = 1):
         self._param_dict = d = _load_config_dict(config)
+        self.comm_quantization = self._check_comm_quantization(d)
         self._refuse_unported(d, int(world_size))
         self.world_size = int(world_size)
         self.mesh = MeshConfig(**mesh_section(d))
@@ -401,6 +469,41 @@ class DeepSpeedConfig:
         self._validate()
 
     @staticmethod
+    def _check_comm_quantization(d: Dict) -> CommQuantizationConfig:
+        """The ``comm_quantization`` section and the JAX config's checks of
+        it: a legacy ZeRO++ flag set true while its site is explicitly false
+        (the one contradiction a config can show: a legacy flag left at its
+        default false is silence, not an "off"), ``block <= 0``, and the
+        ``pipeline`` site under fp16 raise ``ValueError``."""
+        cq = CommQuantizationConfig(**(d.get("comm_quantization") or {}))
+        zero = d.get("zero_optimization") or {}
+        for legacy_key, site_key, site_val in (
+                ("zero_quantized_weights", "all_gather", cq.all_gather),
+                ("zero_quantized_gradients", "reduce_scatter", cq.reduce_scatter)):
+            legacy_val = bool(zero.get(legacy_key, False))
+            if legacy_val and site_val is False:
+                raise ValueError(
+                    f"conflicting quantized-comm config: zero_optimization."
+                    f"{legacy_key}={legacy_val} but comm_quantization."
+                    f"{site_key}={site_val}.  The legacy flag is the ZeRO++ "
+                    f"spelling of the comm_quantization site — set them to "
+                    f"agree or drop one (precedence rule: contradictions "
+                    f"raise, they are never silently resolved)")
+        if cq.block <= 0:
+            raise ValueError("comm_quantization.block must be positive")
+        if (d.get("fp16") or {}).get("enabled") and cq.q_pipeline:
+            raise ValueError(
+                "comm_quantization.pipeline cannot arm under fp16: the "
+                "backward boundary ring carries loss-SCALED cotangents, and "
+                "int8 saturation maps inf/nan onto finite codes — the fp16 "
+                "overflow detector (skip-vs-apply) would read clean "
+                "gradients through an overflowed boundary.  Use bf16 (no "
+                "loss scaling, overflow-free boundary codes), or keep the "
+                "pipeline boundary dense (comm_quantization.pipeline: "
+                "false) under fp16")
+        return cq
+
+    @staticmethod
     def _refuse_unported(d: Dict, world_size: int = 1) -> None:
         zero = d.get("zero_optimization") or {}
         stage = int(zero.get("stage", 0) or 0)
@@ -415,13 +518,19 @@ class DeepSpeedConfig:
             raise _not_ported("zero_optimization.offload_param.stream_grads: "
                               "false", "item 2e, the whole-program offload_param "
                               "path")
-        cq = d.get("comm_quantization") or {}
-        if any(v is True for v in cq.values()):
-            raise _not_ported("comm_quantization", "item 2e, comm_quantization")
+        cq = CommQuantizationConfig(**(d.get("comm_quantization") or {}))
+        mesh = mesh_section(d)
+        for site, on, axis in (("all_to_all", cq.q_all_to_all, "ep"),
+                               ("sequence_ring", cq.q_sequence_ring, "sp"),
+                               ("pipeline", cq.q_pipeline, "pp")):
+            size = mesh.get(axis, 1)
+            if on and isinstance(size, int) and size > 1:
+                raise _not_ported(f"comm_quantization.{site} over the {axis} "
+                                  f"axis ({axis}={size})",
+                                  "item 2e, the parallel meshes")
         if d.get("pipeline"):
             raise _not_ported("pipeline parallelism", "item 2e, the parallel "
                               "meshes")
-        mesh = mesh_section(d)
         big = {k: v for k, v in mesh.items()
                if k not in ("dp", "fsdp") and isinstance(v, int) and v > 1}
         if big:
@@ -429,11 +538,6 @@ class DeepSpeedConfig:
         tp = d.get("tensor_parallel") or {}
         if int(tp.get("tp_size", tp.get("autotp_size", 1)) or 1) > 1:
             raise _not_ported("tensor_parallel", "item 2e, the parallel meshes")
-        wanted, why = zeropp_gate(d, world_size)
-        if wanted and why is None:
-            raise _not_ported("ZeRO++ (zero_quantized_weights, "
-                              "zero_quantized_gradients, zero_hpz_partition_size) "
-                              f"at stage 3 over {world_size} ranks", "item 2e, ZeRO++")
         for key in _OBSERVABILITY:
             sec = d.get(key)
             if isinstance(sec, dict) and sec.get("enabled"):

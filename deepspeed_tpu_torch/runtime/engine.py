@@ -139,9 +139,36 @@ slices H2D, then gathers them into the compute copy (stage 1-2, or a leaf
 stage 3 keeps whole) or moves them to the params' dim of a stage-3 shard.
 ``offload_param`` stays at stage 0 on one rank.
 
-Not ported yet (ROADMAP.md queue 1): ZeRO++, ``comm_quantization``, the
-parallel meshes, the legacy msgpack checkpoint layout, telemetry, goodput,
-watchdog, anomaly handling and the 1-bit optimizers.
+``comm_quantization`` (the JAX engine's gates, inert with its reasons
+elsewhere, listed in ``_inert_config_keys``): ``grad_all_reduce`` at stage
+0-2 over a data-parallel world > 1 accumulates each rank's local grads (its
+own mean, no collective a micro-batch) and at the boundary reduces each
+leaf once through :func:`~deepspeed_tpu_torch.comm.collectives_q.
+q_all_reduce` as a mean, with an error-feedback residual (engine state,
+reset by a load, never saved) when ``error_feedback`` is on; the
+accumulator is saved as the JAX engine's ``[W]``-stacked one.
+``all_gather`` / ``reduce_scatter`` quantize the overlap schedule's
+gathers (stage 3) and reduce-scatters (stages 2-3) over an fsdp axis > 1.
+
+ZeRO++ (``zero_quantized_weights``, ``zero_quantized_gradients``,
+``zero_hpz_partition_size``, or a ``comm_quantization`` gather or scatter
+site at stage 3 without ``overlap_comm``; run where the JAX engine runs it,
+stage 3 over an fsdp axis > 1, :mod:`~deepspeed_tpu_torch.runtime.zero.
+zeropp`): the masters are each leaf's flat fp32 primary shards (padded to
+a multiple of ``P * 8``), the optimizer steps them, each micro-batch
+gathers the full compute-dtype tree (int8 under qwZ, from the hpZ
+secondary over its subgroup under hpZ) and reduce-scatters the grads (int8
+under qgZ); each rank's loss is its own mean, as in the JAX engine's
+program.  The boundary clips by ``min(1, clip / (gnorm + 1e-6))`` and
+refreshes the secondary.  Checkpoints hold the JAX engine's ZeRO++ layout
+(``.primary``, the secondary); a tag of another layout or fsdp size is
+refused with a ``ValueError``.  ``save_16bit_model`` writes the
+compute-dtype params in full shapes.
+
+Not ported yet (ROADMAP.md queue 1): the parallel meshes (and the
+``comm_quantization`` sites that need them), the legacy msgpack checkpoint
+layout, telemetry, goodput, watchdog, anomaly handling and the 1-bit
+optimizers.
 """
 
 from __future__ import annotations
@@ -278,7 +305,9 @@ class DeepSpeedEngine:
         self._dist = not self._param_offload and (self.zero_stage >= 1
                                                   or comm.is_initialized())
         self._plan: Optional[List[LeafPlan]] = None
+        self._zeropp_gate()
         self._overlap_gate(loss_fn)
+        self._qcomm_gate()
         if self._dist:
             self._init_mesh()
         self._audit_config()
@@ -286,7 +315,9 @@ class DeepSpeedEngine:
         self._overlap_sched = None
         if self._overlap_want:
             self._setup_overlap(model)
-        if self._dist:
+        if self._zeropp:
+            self._init_zeropp(model)
+        elif self._dist:
             self._make_plan(model)
 
         # masters: the model's own parameters, on the engine's device
@@ -322,13 +353,23 @@ class DeepSpeedEngine:
                 p.data = (self._host_leaf(val) if self._param_offload
                           else val.to(self.device, self.compute_dtype, copy=True))
         del values
-        if self._dist:
+        if self._zeropp:
+            self._zeropp_shard_masters(model)
+        elif self._dist:
             self._shard_masters(model)
         self.master = [p.data for _, p in _flatten(model.params())]
         # under offload_param the fp32 accumulators live on the host, as the
         # JAX engine's numpy ones
         acc_dtype = torch.float32 if self._param_offload else self.grad_accum_dtype
-        if self._plan is None:
+        self._qcomm_acc: Optional[List[torch.Tensor]] = None
+        self._qcomm_residual: Optional[List[torch.Tensor]] = None
+        if self._qcomm_grads:
+            # this rank's local sums, as its row of the JAX engine's
+            # [W]-stacked fp32 accumulator (the checkpoint layout)
+            self._qcomm_acc = [torch.zeros((1,) + tuple(pl.shape), dtype=torch.float32,
+                                           device=self.device) for pl in self._plan]
+            self.grad_acc = [a[0] for a in self._qcomm_acc]
+        elif self._plan is None:
             self.grad_acc = [torch.zeros_like(p, dtype=acc_dtype) for p in self.master]
         else:
             self.grad_acc = [torch.zeros(pl.shard_shape(pl.pdim) if pl.acc
@@ -345,6 +386,8 @@ class DeepSpeedEngine:
                          for path, p in zip(self._paths, self.master)]
         self._compute: Optional[List[Any]] = None
         self._compute_bufs: Optional[List[torch.Tensor]] = None
+        if self._zeropp:
+            self._zeropp_refresh()
         if self._param_offload:
             self._build_streamed(model)
         if self._overlap:
@@ -426,12 +469,85 @@ class DeepSpeedEngine:
             mcfg.remat_policy = ("offload_dots" if ac.cpu_checkpointing
                                  else ac.policy)
 
+    def _zeropp_gate(self) -> None:
+        """The JAX engine's ZeRO++ gate (:func:`~deepspeed_tpu_torch.runtime.
+        config.zeropp_gate`): ``_zeropp``, or the reason it would be inert."""
+        wanted, why = zeropp_gate(self.config._param_dict, comm.get_world_size())
+        self._zeropp = bool(wanted and why is None)
+        self._zeropp_reason = why
+        if self._zeropp:
+            zc, cq = self.config.zero_config, self.config.comm_quantization
+            logger.info("ZeRO++ active: qw=%s qg=%s hpz=%d",
+                        zc.zero_quantized_weights or cq.q_all_gather,
+                        zc.zero_quantized_gradients or cq.q_reduce_scatter,
+                        max(1, zc.zero_hpz_partition_size))
+
+    def _config_mesh(self):
+        """The config's mesh over the world, without process groups (the
+        gates' view of it before the engine's mesh exists)."""
+        return mesh_lib.mesh_from_config(self.config.mesh, comm.get_world_size(),
+                                         make_groups=False)
+
+    def _qcomm_gate(self) -> None:
+        """The JAX engine's ``comm_quantization.grad_all_reduce`` gate: the
+        stage 0-2 boundary sync through :func:`~deepspeed_tpu_torch.comm.
+        collectives_q.q_all_reduce` (``_qcomm_grads``), or the reason the
+        site is inert."""
+        cq = self.config.comm_quantization
+        self._qcomm_grads = False
+        self._qcomm_grads_reason = None
+        if not cq.q_grad_all_reduce:
+            return
+        mesh = self._config_mesh()
+        bad = [a for a in ("tp", "sp", "pp", "ep") if mesh.shape.get(a, 1) > 1]
+        data_world = 1
+        for a in ("dp", "fsdp", "ep"):
+            data_world *= mesh.shape.get(a, 1)
+        opt = self.config.optimizer
+        onebit = opt is not None and opt.type.lower().replace("_", "").replace(
+            "-", "") in ("onebitadam", "zerooneadam", "onebitlamb")
+        if self.zero_stage > 2:
+            self._qcomm_grads_reason = (
+                "stage 3 has no boundary grad all-reduce — its "
+                "gathers/scatters quantize via overlap_comm or the "
+                "ZeRO++ flags")
+        elif self._offload or self._param_offload:
+            self._qcomm_grads_reason = (
+                "offloaded grads cross the host relay, not a "
+                "collective (offload_optimizer.int8_masters / "
+                "offload_param.int8_stream own that transport)")
+        elif onebit:
+            self._qcomm_grads_reason = ("1-bit optimizers already "
+                                        "compress their exchange")
+        elif self._overlap_want:
+            self._qcomm_grads_reason = (
+                "overlap_comm owns the bucketed reduction schedule "
+                "(enable comm_quantization.reduce_scatter there)")
+        elif self.fp16_enabled:
+            self._qcomm_grads_reason = ("requires bf16/fp32 (no fp16 "
+                                        "loss scaling)")
+        elif bad:
+            self._qcomm_grads_reason = (
+                f"model/expert-parallel axes {bad} are not supported "
+                "on the manual quantized-grad path (ep shards expert "
+                "params; tp/sp/pp shard the program)")
+        elif data_world <= 1:
+            self._qcomm_grads_reason = ("no data-parallel axis > 1 — "
+                                        "there is no all-reduce to "
+                                        "quantize")
+        else:
+            self._qcomm_grads = True
+            logger.info("comm_quantization: stage %d gradient all-reduce -> "
+                        "int8 q_all_reduce (block %d, error_feedback=%s)",
+                        self.zero_stage, cq.block,
+                        "on" if cq.error_feedback else "OFF")
+
     def _overlap_gate(self, loss_fn) -> None:
         """The config half of the JAX engine's ``overlap_comm`` gate
         (``__init__``): the reason the bucketed schedule would be inert, or
-        ``_overlap_want``.  The 1-bit optimizers, ZeRO++ where it would run
-        and the tp / sp / pp / ep axes are refused by the port on their
-        own, so their reasons never reach here."""
+        ``_overlap_want``.  The 1-bit optimizers and the tp / sp / pp / ep
+        axes are refused by the port on their own, so their reasons never
+        reach here."""
         zc = self.config.zero_config
         self._overlap_want = False
         self._overlap_reason = None
@@ -449,6 +565,9 @@ class DeepSpeedEngine:
         elif onebit:
             self._overlap_reason = ("1-bit optimizers keep local grads (no "
                                     "collective to chunk)")
+        elif self._zeropp:
+            self._overlap_reason = ("ZeRO++ runs its own quantized collective "
+                                    "schedule")
         elif loss_fn is not None:
             self._overlap_reason = ("a client loss_fn cannot route through the "
                                     "model's layer segments")
@@ -456,23 +575,51 @@ class DeepSpeedEngine:
             self._overlap_want = True
 
     def _audit_config(self) -> None:
-        """The JAX engine's ``_audit_config`` for the keys the port leaves
-        inert: each is logged with its reason, and listed in
+        """The JAX engine's ``_audit_config`` for the keys the port's paths
+        can leave inert: each is logged with the JAX reason, and listed in
         ``_inert_config_keys``."""
+        d = self.config._param_dict
         zc = self.config.zero_config
+        cq = self.config.comm_quantization
         inert = []
+        if d.get("sparse_gradients"):
+            inert.append(("sparse_gradients", "sparse gradient compaction is "
+                          "not implemented (dense grads are always exchanged)"))
+        if d.get("communication_data_type"):
+            inert.append(("communication_data_type", "collective dtype "
+                          "follows the compute dtype under GSPMD"))
         if zc.overlap_comm and not self._overlap_want:
             inert.append(("zero_optimization.overlap_comm",
                           f"{self._overlap_reason}; the plain collective "
                           "schedule runs unchanged"))
-        wanted, why = zeropp_gate(self.config._param_dict, comm.get_world_size())
-        if wanted:
-            why = f"{why}; the knob changes nothing"
+        if not self._zeropp:
+            why = f"{self._zeropp_reason or 'ZeRO++ path not applicable'}; " \
+                  "the knob changes nothing"
             for key, on in (("zero_quantized_weights", zc.zero_quantized_weights),
                             ("zero_quantized_gradients", zc.zero_quantized_gradients),
                             ("zero_hpz_partition_size", zc.zero_hpz_partition_size > 1)):
                 if on:
                     inert.append((f"zero_optimization.{key}", why))
+        if cq.q_grad_all_reduce and not self._qcomm_grads:
+            inert.append(("comm_quantization.grad_all_reduce",
+                          f"{self._qcomm_grads_reason}; the gradient sync "
+                          "runs dense"))
+        if ((cq.q_all_gather or cq.q_reduce_scatter)
+                and not (self._overlap_want or self._zeropp)):
+            inert.append(("comm_quantization.all_gather/reduce_scatter",
+                          "no explicit gather/scatter seam in this "
+                          "configuration (GSPMD places dense collectives) "
+                          "— enable zero_optimization.overlap_comm or the "
+                          "ZeRO++ stage-3 path"))
+        mesh = self._config_mesh()
+        if cq.q_sequence_ring and mesh.shape.get("sp", 1) <= 1:
+            inert.append(("comm_quantization.sequence_ring",
+                          "no sp mesh axis > 1 — there is no ring "
+                          "exchange to quantize"))
+        if cq.q_pipeline and mesh.shape.get("pp", 1) <= 1:
+            inert.append(("comm_quantization.pipeline",
+                          "no pp mesh axis > 1 — there is no stage "
+                          "boundary ring to quantize"))
         for key, why in inert:
             logger.warning("config key %r is set but INERT: %s", key, why)
         self._inert_config_keys = [k for k, _ in inert]
@@ -514,9 +661,21 @@ class DeepSpeedEngine:
         """The schedule over the engine's plan (after the masters are
         sharded): stage 3 always rematerializes its layer buckets (the
         backward re-gathers), stages 1-2 as the model remats."""
-        from deepspeed_tpu_torch.runtime.zero.overlap import OverlapSchedule
+        from deepspeed_tpu_torch.runtime.zero.overlap import OverlapSchedule, QCommOpts
 
         mcfg = getattr(self.module, "config", None)
+        cq = self.config.comm_quantization
+        # the JAX schedule communicates over axes of more than one device
+        # only: where fsdp has one rank it quantizes nothing
+        multi = self._fsdp_n > 1
+        qcomm = QCommOpts(all_gather=cq.q_all_gather and self.zero_stage == 3 and multi,
+                          reduce_scatter=cq.q_reduce_scatter and self.zero_stage >= 2
+                          and multi, block=int(cq.block))
+        if qcomm.all_gather or qcomm.reduce_scatter:
+            logger.info("comm_quantization on the overlap schedule: gathers=%s, "
+                        "reduce-scatters=%s (block %d)",
+                        "int8" if qcomm.all_gather else "dense",
+                        "int8" if qcomm.reduce_scatter else "dense", qcomm.block)
         self._overlap_sched = OverlapSchedule(
             segments=self._overlap_segments, paths=self._paths, plan=self._plan,
             zero_stage=self.zero_stage, compute_dtype=self.compute_dtype,
@@ -524,7 +683,7 @@ class DeepSpeedEngine:
             remat=self.zero_stage == 3 or bool(getattr(mcfg, "remat", False)),
             sizes=dict(self.mesh.shape),
             groups={"fsdp": self._fsdp_group, "dp": self._dp_group,
-                    "data": self._data_group})
+                    "data": self._data_group}, qcomm=qcomm)
 
     def _init_mesh(self) -> None:
         """The process group (a world of one when none exists: stage 1-3 on
@@ -567,10 +726,78 @@ class DeepSpeedEngine:
         # under overlap_comm a stacked layer leaf never shards its layer dim
         layer_leaves = ([path.startswith("layers.") and p.dim() > 0 for path, p in flat]
                         if self._overlap else None)
+        # the quantized gradient sync accumulates whole local grads at stage
+        # 2 too (reduced once at the boundary): a stage-1 layout
+        stage = 1 if self._qcomm_grads and self.zero_stage == 2 else self.zero_stage
         self._plan = zero_plan([tuple(p.shape) for _, p in flat],
-                               self.zero_stage, self._fsdp_n,
+                               stage, self._fsdp_n,
                                zc.stage3_param_persistence_threshold, logical,
                                layer_leaves=layer_leaves)
+
+    def _init_zeropp(self, model) -> None:
+        """The ZeRO++ state's shape (the JAX engine's ``_init_state_zeropp``):
+        each leaf flat and padded to a multiple of ``P * 8``, the hpZ
+        subgroup, and fp32 masters and accumulators whatever
+        ``bf16.master_weights`` and ``grad_accum_dtype`` say (with the JAX
+        engine's warning)."""
+        from deepspeed_tpu_torch.runtime.zero import zeropp as zpp
+
+        zc, cq = self.config.zero_config, self.config.comm_quantization
+        P = self._fsdp_n
+        z = max(1, zc.zero_hpz_partition_size)
+        self._zpp_cfg = zpp.ZeroPPConfig(
+            world=P, hpz=z, q_weights=bool(zc.zero_quantized_weights or cq.q_all_gather),
+            q_grads=bool(zc.zero_quantized_gradients or cq.q_reduce_scatter),
+            compute_dtype=self.compute_dtype)
+        self._zpp_shapes = [tuple(p.shape) for _, p in _flatten(model.params())]
+        self._zpp_lens = zpp.flatten_spec(self._zpp_shapes, P)
+        self._hpz_group = zpp.make_hpz_group(self.mesh, z) if z > 1 else None
+        self._zpp_sec_q: List[Any] = []
+        self._zpp_sec_s: List[Any] = []
+        if ((self.config.bf16.enabled and not self.config.bf16.master_weights)
+                or self.config.data_types.grad_accum_dtype is not None):
+            logger.warning(
+                "ZeRO++ path keeps fp32 primary shards and fp32 grad "
+                "accumulators (ZeRO-3 master semantics); "
+                "bf16.master_weights/data_types.grad_accum_dtype are "
+                "ignored here")
+        self.master_dtype = torch.float32
+        self.grad_accum_dtype = torch.float32
+
+    def _zeropp_shard_masters(self, model) -> None:
+        """Each module parameter becomes this rank's flat fp32 primary
+        shard."""
+        from deepspeed_tpu_torch.runtime.zero.zeropp import primary_shard
+
+        for (_, p), L in zip(_flatten(model.params()), self._zpp_lens):
+            p.data = primary_shard(p.data.to(self.device), L, self._fsdp_n,
+                                   self._fsdp_rank)
+
+    @torch.no_grad()
+    def _zeropp_refresh(self) -> None:
+        """The hpZ secondary from the primary (nothing without hpZ)."""
+        from deepspeed_tpu_torch.runtime.zero.zeropp import refresh_secondary
+
+        self._zpp_sec_q, self._zpp_sec_s = refresh_secondary(
+            self.master, self._zpp_cfg, self._fsdp_group, self._fsdp_rank)
+
+    def _zeropp_full(self) -> List[torch.Tensor]:
+        """The full compute-dtype leaves, gathered as a micro-batch gathers
+        them."""
+        from deepspeed_tpu_torch.runtime.zero.zeropp import gather_param_tree
+
+        return gather_param_tree(self.master, self._zpp_sec_q, self._zpp_sec_s,
+                                 self._zpp_cfg, self._zpp_shapes, self._fsdp_group,
+                                 self._hpz_group)
+
+    def _zeropp_masters(self) -> List[torch.Tensor]:
+        """The full fp32 masters (a dense gather of the primary)."""
+        out = []
+        for m, shape in zip(self.master, self._zpp_shapes):
+            full = comm.all_gather(m, self._fsdp_group)
+            n = int(np.prod(shape)) if len(shape) else 1
+            out.append(full[:n].reshape(shape))
+        return out
 
     def _shard_masters(self, model) -> None:
         """At stage 3 each sharded leaf's module parameter becomes this
@@ -630,7 +857,10 @@ class DeepSpeedEngine:
                 f"{type(self.optimizer).__name__} at zero_optimization.stage "
                 f"{self.zero_stage} is not ported yet (ROADMAP.md queue 1: item "
                 "2e, Adam8bit and Muon over ZeRO shards)")
-        if isinstance(self.optimizer, FusedLamb):
+        if isinstance(self.optimizer, FusedLamb) and self._plan is not None:
+            # (under ZeRO++ the JAX program steps each rank's flat shards
+            # inside its shard_map, norms over the local shard, and so does
+            # the port)
             self.optimizer.sharded = {id(p): self._fsdp_group for p, pl in
                                       zip(self._opt_params, self._plan) if pl.opt}
 
@@ -840,16 +1070,22 @@ class DeepSpeedEngine:
         accumulator's grads reduce-scattered over ``fsdp`` first."""
         if self._overlap:
             return self._accum_overlap(batch, rng)
+        if self._zeropp:
+            return self._accum_zeropp(batch, rng)
         gas = self.config.gradient_accumulation_steps
         params = self._compute_params()
-        weight = (self._ce_weight(batch) if self._dist and self._client_loss is None
+        # the quantized gradient sync keeps each rank's own mean, as the JAX
+        # engine's program does, and averages at the boundary
+        local = self._qcomm_grads
+        weight = (self._ce_weight(batch)
+                  if self._dist and self._client_loss is None and not local
                   else None)
         # the backward inside too: a remat body's recompute takes the same
         # global means
         with self._moe_scope():
             loss = self._loss(params, batch, rng, weight)
             scaled = loss.float()
-            if self._dist:
+            if self._dist and not local:
                 scaled = scaled / self._data_world
             if self.fp16_enabled:
                 (scaled * float(self._scaler.scale) / gas).backward()
@@ -908,6 +1144,60 @@ class DeepSpeedEngine:
                              if c["calls"] != before.get(op, {}).get("calls", 0)}
         return loss.detach()
 
+    def _accum_zeropp(self, batch, rng) -> torch.Tensor:
+        """One micro-batch on the ZeRO++ path (the JAX engine's
+        ``_compile_zeropp_steps`` ``accum_local``): the full compute-dtype
+        tree gathered, this rank's own mean loss over gas and its backward,
+        the grads flat and padded, reduce-scattered over fsdp (int8 under
+        qgZ), times 1 / P, averaged over dp, added to the accumulator."""
+        from deepspeed_tpu_torch.runtime.zero import zeropp as zpp
+
+        gas = self.config.gradient_accumulation_steps
+        cfg = self._zpp_cfg
+        leaves = [self._leaf_views(full, len(shape) > 0 and path.startswith("layers."))
+                  for full, shape, path in zip(self._zeropp_full(), self._zpp_shapes,
+                                               self._paths)]
+        with self._moe_scope():
+            loss = self._loss(self._nest(leaves), batch, rng)
+            (loss.float() / gas).backward()
+        with torch.no_grad():
+            grads = zpp.flat_grads([self._full_grad(leaf, torch.float32)
+                                    for leaf in leaves], self._zpp_lens)
+            inv_p = torch.tensor(1.0, device=self.device) / cfg.world
+            inv_dp = torch.tensor(1.0, device=self.device) / self._dp_n
+            for acc, g in zip(self.grad_acc, grads):
+                shard = zpp.reduce_scatter_flat(g, self._fsdp_group, cfg.q_grads,
+                                                cfg.block) * inv_p
+                if self._dp_n > 1:
+                    shard = comm.all_reduce(shard, self._dp_group) * inv_dp
+                acc.add_(shard)
+        return loss.detach()
+
+    @torch.no_grad()
+    def _apply_zeropp(self) -> torch.Tensor:
+        """The ZeRO++ boundary (``apply_local``): the norm over the shards,
+        this path's clip ``min(1, clip / (gnorm + 1e-6))``, the optimizer on
+        the primary shards, the hpZ secondary refreshed, the accumulator
+        zeroed."""
+        clip = self.config.gradient_clipping
+        sumsq = torch.zeros((), dtype=torch.float32, device=self.device)
+        for g in self.grad_acc:
+            sumsq = sumsq + torch.sum(torch.square(g))
+        gnorm = torch.sqrt(comm.all_reduce(sumsq, self._fsdp_group))
+        grads = self.grad_acc
+        if clip > 0:
+            scale = torch.clamp(torch.full_like(gnorm, clip) / (gnorm + 1e-6), max=1.0)
+            grads = [g * scale for g in grads]
+        if self.client_optimizer is None:
+            self.optimizer.step(grads=grads)
+        else:
+            self._step_client()
+        self._zeropp_refresh()
+        self.global_steps += 1
+        for acc in self.grad_acc:
+            acc.zero_()
+        return gnorm
+
     @staticmethod
     def _full_grad(leaf, dtype: torch.dtype) -> torch.Tensor:
         """A leaf's grad whole in ``dtype`` (a stacked leaf's layers written
@@ -944,6 +1234,8 @@ class DeepSpeedEngine:
             return self._step_param_offload()
         if self._offload:
             return self._step_offload()
+        if self._zeropp:
+            return self._apply_zeropp()
         if self._dist:
             return self._apply_dist()
         clip = self.config.gradient_clipping
@@ -1018,8 +1310,28 @@ class DeepSpeedEngine:
         """A replicated accumulator all-reduced over the data axes; a
         sharded one (reduce-scattered over ``fsdp`` already) over ``dp``.
         Under ``overlap_comm`` every micro-batch's grads were reduced a
-        bucket at a time already."""
+        bucket at a time already.  Under ``comm_quantization.
+        grad_all_reduce`` each leaf's local sums go through one
+        :func:`~deepspeed_tpu_torch.comm.collectives_q.q_all_reduce` over the
+        data axes, as a mean, with the error-feedback residual when
+        ``error_feedback`` is on (allocated at the first boundary, reset by
+        a load, never saved)."""
         if self._overlap:
+            return
+        if self._qcomm_grads:
+            from deepspeed_tpu_torch.comm.collectives_q import q_all_reduce
+
+            cq = self.config.comm_quantization
+            ef = bool(cq.error_feedback)
+            if ef and self._qcomm_residual is None:
+                self._qcomm_residual = [torch.zeros_like(a) for a in self.grad_acc]
+            for i, acc in enumerate(self.grad_acc):
+                out, res = q_all_reduce(
+                    acc, self._data_group, block=int(cq.block), mean=True,
+                    residual=self._qcomm_residual[i] if ef else None)
+                acc.copy_(out)
+                if ef:
+                    self._qcomm_residual[i] = res
             return
         for acc, pl in zip(self.grad_acc, self._plan):
             if not pl.acc:
@@ -1286,6 +1598,10 @@ class DeepSpeedEngine:
         batch = self._to_device(batch)
         if not self._dist:
             return self._loss(self._compute_params(), batch, rng).detach()
+        if self._zeropp:
+            with self._moe_scope():
+                loss = self._loss(self._nest(self._zeropp_full()), batch, rng).detach()
+            return self._global_loss(loss)
         weight = self._ce_weight(batch) if self._client_loss is None else None
         with self._moe_scope():
             loss = self._loss(self._compute_params(), batch, rng, weight).detach()
@@ -1397,7 +1713,10 @@ class DeepSpeedEngine:
         nested dict (the tensors themselves); under offload the
         compute-dtype params (under ``offload_param`` the host copy, current
         after every step and load).  At stage 3 a sharded leaf is gathered
-        into a new full tensor: every rank calls it."""
+        into a new full tensor (under ZeRO++ every leaf, from its flat
+        shards): every rank calls it."""
+        if self._zeropp:
+            return self._nest(self._zeropp_masters())
         if self._plan is None or not any(pl.param for pl in self._plan):
             return self.module.params()
         return self._nest([comm.all_gather(m, self._fsdp_group, gather_dim=pl.pdim)
@@ -1408,7 +1727,16 @@ class DeepSpeedEngine:
     def set_full_params(self, leaves) -> None:
         """Full values for every leaf (in the masters' order): this rank's
         slice of each into the masters and the optimizer's slices, then the
-        compute copy (``zero.GatheredParameters`` on exit)."""
+        compute copy (``zero.GatheredParameters`` on exit); under ZeRO++
+        the primary shards, then the hpZ secondary."""
+        if self._zeropp:
+            from deepspeed_tpu_torch.runtime.zero.zeropp import primary_shard
+
+            for m, full, L in zip(self.master, leaves, self._zpp_lens):
+                m.copy_(primary_shard(full.to(m.device), L, self._fsdp_n,
+                                      self._fsdp_rank))
+            self._zeropp_refresh()
+            return
         for i, full in enumerate(leaves):
             pl = self._plan[i] if self._plan is not None else None
             self.master[i].copy_(shard_of(full, pl, pl.pdim, self._fsdp_rank)
@@ -1461,7 +1789,8 @@ class DeepSpeedEngine:
                 "engine's checkpoint; give it one or configure the "
                 "optimizer section")
         return {"opt_state": self.optimizer.jax_state(self._nest),
-                "grad_acc": self._nest(self.grad_acc),
+                "grad_acc": self._nest(self._qcomm_acc if self._qcomm_grads
+                                       else self.grad_acc),
                 "global_steps": torch.tensor(self.global_steps, dtype=torch.int32),
                 "scaler": scaler_lib.to_leaves(self._scaler)}
 
@@ -1481,6 +1810,27 @@ class DeepSpeedEngine:
                                                 save_latest)
         logger.info("saved checkpoint %s", final_dir)
         return final_dir
+
+    def save_16bit_model(self, save_dir: str,
+                         save_filename: str = "model_states_16bit") -> str:
+        """The params in the compute dtype and in the model's full shapes,
+        in the sharded layout at ``save_dir/save_filename`` (the JAX
+        engine's; under ZeRO++ gathered as a micro-batch gathers them: from
+        the hpZ secondary, int8 under qwZ).  Every rank calls it; rank 0
+        writes the leaves.  Returns the directory."""
+        os.makedirs(save_dir, exist_ok=True)
+        out = os.path.join(save_dir, save_filename)
+        if self._zeropp:
+            with torch.no_grad():
+                full = self._nest(self._zeropp_full())
+        else:
+            def cast(t):
+                return t.detach().to(self.compute_dtype) if t.is_floating_point() else t
+            full = self._nest([cast(t) for _, t in _flatten(self.params())])
+        self.checkpoint_engine.save(full, out, proc=comm.get_rank(),
+                                    write_whole=comm.get_rank() == 0)
+        comm.barrier()
+        return out
 
     def _save_checkpoint_inner(self, save_dir: str, tag: str,
                                client_state: Optional[dict],
@@ -1510,10 +1860,13 @@ class DeepSpeedEngine:
         comm.barrier()
         self.checkpoint_engine.create(tag)
         payload = self._optim_payload()
-        where = self._shard_places() if self._plan is not None else {}
+        where = self._shard_places() if self._plan is not None or self._zeropp else {}
+        # each data rank holds its own row of the quantized sync's stacked
+        # accumulator, so then every rank writes its shards
         kw = dict(proc=comm.get_rank(), shards=where, write_whole=rank0,
-                  write_shards=not where or self.mesh.axis_rank("dp") == 0)
-        self.checkpoint_engine.save(self._nest(self.master),
+                  write_shards=(not where or self.mesh.axis_rank("dp") == 0
+                                or self._qcomm_grads))
+        self.checkpoint_engine.save(self._model_payload(),
                                     os.path.join(stage_dir, "model_states"), **kw)
         self.checkpoint_engine.save(payload, os.path.join(stage_dir, "optim_states"),
                                     **kw)
@@ -1575,12 +1928,94 @@ class DeepSpeedEngine:
         return [(pl.shape, pl.region(pl.odim, r)) if pl.opt else None
                 for pl in (self._plan[j] for j in self._offload_order)]
 
+    def _model_payload(self):
+        """``model_states`` as the JAX engine writes it: the params, or
+        under ZeRO++ its ``ZeroPPParams`` (the flat primary shards and the
+        hpZ secondary)."""
+        if not self._zeropp:
+            return self._nest(self.master)
+        from deepspeed_tpu_torch.runtime.zero.zeropp import ZeroPPParams
+
+        hpz = self._zpp_cfg.hpz > 1
+        return ZeroPPParams(self._nest(self.master),
+                            self._nest(self._zpp_sec_q) if hpz else (),
+                            self._nest(self._zpp_sec_s) if hpz else ())
+
+    def _zeropp_places(self) -> Dict[int, Tuple[Tuple[int, ...], List[List[int]]]]:
+        """:meth:`_shard_places` under ZeRO++: each flat shard (masters,
+        accumulators, optimizer state) is rank r's slice of its [n_pad]
+        leaf; the hpZ secondary stacks one slice a fsdp rank (codes
+        [P * nb, block] and scales [P * nb] under qwZ, else bf16 [P * s2]
+        and a whole scalar placeholder)."""
+        r, P = self._fsdp_rank, self._fsdp_n
+        out = {}
+        for i, m in enumerate(self.master):
+            L = self._zpp_lens[i]
+            per = L // P
+            place = ((L,), [[r * per, (r + 1) * per]])
+            out[id(m)] = place
+            out[id(self.grad_acc[i])] = place
+            if self.optimizer is not None:
+                for v in self.optimizer.state.get(m, {}).values():
+                    if torch.is_tensor(v) and tuple(v.shape) == tuple(m.shape):
+                        out[id(v)] = place
+            if self._zpp_cfg.hpz > 1:
+                q, sc = self._zpp_sec_q[i], self._zpp_sec_s[i]
+                if self._zpp_cfg.q_weights:
+                    nb, blk = q.shape
+                    out[id(q)] = ((P * nb, blk), [[r * nb, (r + 1) * nb], [0, blk]])
+                    out[id(sc)] = ((P * nb,), [[r * nb, (r + 1) * nb]])
+                else:
+                    s2 = q.numel()
+                    out[id(q)] = ((P * s2,), [[r * s2, (r + 1) * s2]])
+        return out
+
+    def _check_zeropp_tag(self, ckpt_dir: str, model_dir: str) -> None:
+        """Refuse, naming the mismatch, a tag the JAX engine could not load
+        into this engine: a ZeRO++ tag into another engine or the reverse,
+        or ZeRO++ state saved over another fsdp size or hpZ setting (its
+        flat lengths ``n_pad`` and secondary depend on both)."""
+        index = self.checkpoint_engine.read_index(model_dir)
+        tag_zpp = any(k.startswith(".primary") for k in index)
+        if tag_zpp != self._zeropp:
+            raise ValueError(
+                f"{ckpt_dir}: the tag holds "
+                + ("ZeRO++ state (flat padded shards under .primary)" if tag_zpp
+                   else "params in the model's shapes")
+                + ", and this engine "
+                + ("runs ZeRO++" if self._zeropp else "does not run ZeRO++")
+                + "; load it with the ZeRO++ settings and fsdp size it was "
+                "saved with")
+        if not self._zeropp:
+            return
+        places = self._zeropp_places()
+        for kp, live in tree_flatten_with_path(self._model_payload()):
+            key = keystr(kp)
+            want = places[id(live)][0] if id(live) in places else tuple(live.shape)
+            got = tuple(index[key]["shape"]) if key in index else None
+            if got != tuple(want):
+                raise ValueError(
+                    f"{ckpt_dir}: ZeRO++ leaf {key} is {got} in the tag and "
+                    f"{tuple(want)} in this engine (fsdp {self._fsdp_n}, hpz "
+                    f"{self._zpp_cfg.hpz}, qw {self._zpp_cfg.q_weights}): the "
+                    "flat layout depends on the fsdp size and the secondary "
+                    "on hpZ; load it with the settings it was saved with")
+
     def _shard_places(self) -> Dict[int, Tuple[Tuple[int, ...], List[List[int]]]]:
         """``id(tensor) -> (global shape, region)`` of every ZeRO shard the
         engine holds: sharded masters, the optimizer's state of a sharded
-        leaf (its tensors of the slice's shape) and sharded accumulators."""
+        leaf (its tensors of the slice's shape) and sharded accumulators;
+        under the quantized gradient sync each rank's row of the stacked
+        accumulator."""
+        if self._zeropp:
+            return self._zeropp_places()
         r = self._fsdp_rank
         out = {}
+        if self._qcomm_grads:
+            dr, W = self._data_rank, self._data_world
+            for a in self._qcomm_acc:
+                out[id(a)] = ((W,) + tuple(a.shape[1:]),
+                              [[dr, dr + 1]] + [[0, d] for d in a.shape[1:]])
         for i, pl in enumerate(self._plan):
             if pl.param:
                 out[id(self.master[i])] = (pl.shape, pl.region(pl.pdim, r))
@@ -1700,7 +2135,7 @@ class DeepSpeedEngine:
         to its device), one leaf on the host at a time; a ZeRO shard reads
         its region of the saved leaf alone."""
         index = self.checkpoint_engine.read_index(path)
-        where = self._shard_places() if self._plan is not None else {}
+        where = self._shard_places() if self._plan is not None or self._zeropp else {}
         for kp, live in tree_flatten_with_path(tree):
             key = keystr(kp)
             if key not in index:
@@ -1744,7 +2179,11 @@ class DeepSpeedEngine:
                              "with, or with load_optimizer_states=False")
         if self._param_offload:
             self._streamed.streamer.quiesce()    # no copy reads the host copy
-        self._load_into(model_dir, self._nest(self.master))
+        self._check_zeropp_tag(ckpt_dir, model_dir)
+        self._load_into(model_dir, self._model_payload())
+        # the error-feedback residual is transient sync state: a resume
+        # restarts it at zero, as the JAX engine's does
+        self._qcomm_residual = None
         if self._offload and not load_optim:
             # the loaded params become the host masters too (the moments
             # stay), so the next step does not write stale masters back

@@ -51,8 +51,20 @@ micro-batch a bucket at a time as the JAX function does.  Where the fsdp
 axis has one rank the port still runs its one-rank gathers and
 reduce-scatters (nothing short-circuits at world 1: ``comm/comm.py``), and
 the entries list them, where the JAX plan, counting only axes of more than
-one device, lists none.  The JAX ``QCommOpts`` branches (int8 transport)
-wait for ``comm_quantization``.
+one device, lists none.
+
+``comm_quantization`` (:class:`QCommOpts`, the JAX schedule's int8
+branches): ``all_gather`` at stage 3 sends each bucket's shards as int8
+codes and fp32 block scales (:func:`~deepspeed_tpu_torch.comm.
+collectives_q.q_all_gather_dim`'s codec, the gathers of a bucket still
+issued together ahead), ``reduce_scatter`` at stages 2-3 reduce-scatters a
+bucket's grads through :func:`~deepspeed_tpu_torch.comm.collectives_q.
+q_reduce_scatter_dim` when the bucket's last grad lands.  The JAX
+schedule communicates only over axes of more than one device, so it
+quantizes nothing where fsdp has one rank; the engine turns both off
+there, and the one-rank collectives stay exact.  The int8 entries of
+:meth:`OverlapSchedule.comm_plan_entries` are the JAX plan's: ``q_<op>``,
+the codes' and scales' bytes, and the dense twin.
 """
 
 from __future__ import annotations
@@ -67,8 +79,8 @@ from deepspeed_tpu_torch.runtime.zero.partition import (LAYER_DIM, LeafPlan,
                                                          choose_pspec,
                                                          params_pspecs)
 
-__all__ = ["BucketInfo", "OverlapSchedule", "layerwise_pspecs", "plan_buckets",
-           "unpack_lm_batch"]
+__all__ = ["BucketInfo", "OverlapSchedule", "QCommOpts", "layerwise_pspecs",
+           "plan_buckets", "unpack_lm_batch"]
 
 DATA_AXES = ("dp", "fsdp", "ep")
 _HEAD_KEYS = ("final_norm", "lm_head", "lm_head_bias")
@@ -125,6 +137,48 @@ def layerwise_pspecs(params: Any, mesh, shard: bool, persistence_threshold: int 
 def _bucket_key(path: str) -> str:
     """``jax.tree_util.keystr`` of a dotted path below its first key."""
     return "".join(f"[{k!r}]" for k in path.split(".")[1:])
+
+
+class QCommOpts(NamedTuple):
+    """The schedule's int8 switches (``comm_quantization`` -> engine ->
+    here): ``all_gather`` quantizes the stage-3 bucket gathers,
+    ``reduce_scatter`` the stage 2-3 reduce-scatters."""
+
+    all_gather: bool = False
+    reduce_scatter: bool = False
+    block: int = 256
+
+
+class _Done:
+    """A result already in hand, waited on like a :class:`~deepspeed_tpu_
+    torch.comm.comm.Pending`."""
+
+    def __init__(self, value):
+        self._value = value
+
+    def wait(self):
+        return self._value
+
+
+class _QGather:
+    """A bucket leaf's int8 gather in flight: its codes' and scales'
+    gathers; :meth:`wait` dequantizes them (each rank's padding stripped),
+    concatenated along the leaf's dim, in the compute dtype."""
+
+    def __init__(self, q_pend, s_pend, shard_shape, dim, dtype):
+        self._q, self._s = q_pend, s_pend
+        self._shape, self._dim, self._dtype = tuple(shard_shape), dim, dtype
+
+    def wait(self) -> torch.Tensor:
+        from deepspeed_tpu_torch.comm.collectives_q import _merge_leading
+        from deepspeed_tpu_torch.ops.kernels.comm_quant import dequantize_blockwise
+
+        qg, sg = self._q.wait(), self._s.wait()
+        n = 1
+        for d in self._shape:
+            n *= d
+        parts = dequantize_blockwise(qg, sg, n, dtype=self._dtype)
+        return _merge_leading(parts.reshape((qg.shape[0],) + self._shape), self._dim)
 
 
 class BucketInfo(NamedTuple):
@@ -196,8 +250,10 @@ class OverlapSchedule:
     def __init__(self, *, segments: Dict[str, Any], paths: Sequence[str],
                  plan: Sequence[LeafPlan], zero_stage: int,
                  compute_dtype: torch.dtype, bucket_layers: int, remat: bool,
-                 sizes: Dict[str, int], groups: Dict[str, Any]):
+                 sizes: Dict[str, int], groups: Dict[str, Any],
+                 qcomm: QCommOpts = QCommOpts()):
         self.seg = segments
+        self.qcomm = qcomm
         self.L = int(segments["num_layers"])
         self.buckets = plan_buckets(self.L, bucket_layers)
         self.tied = bool(segments["tied"])
@@ -301,15 +357,26 @@ class OverlapSchedule:
                 else:
                     ar_rows.append((nbytes, data))
 
-            def add(op, rows, mult=1):
-                if rows:
-                    micro.append((op, mult * len(rows),
-                                  mult * sum(b for b, _ in rows), cname,
-                                  max(w for _, w in rows)))
+            qc = self.qcomm
+
+            def add(op, rows, mult=1, quantized=False):
+                if not rows:
+                    return
+                dense = mult * sum(b for b, _ in rows)
+                world = max(w for _, w in rows)
+                if quantized:
+                    # int8 codes and one fp32 scale a block: the wire bytes,
+                    # the dense twin beside them
+                    micro.append((f"q_{op}", mult * len(rows),
+                                  int(dense / item * (1 + 4.0 / qc.block)),
+                                  "int8", world, (dense, cname)))
+                else:
+                    micro.append((op, mult * len(rows), dense, cname, world))
 
             if self.zero_stage == 3:
-                add("all_gather", g_rows, mult=info.gathers_per_micro)
-            add("reduce_scatter", r_rows)
+                add("all_gather", g_rows, mult=info.gathers_per_micro,
+                    quantized=qc.all_gather)
+            add("reduce_scatter", r_rows, quantized=qc.reduce_scatter)
             add("all_reduce", ar_rows)
         return micro
 
@@ -321,8 +388,8 @@ class OverlapSchedule:
         total = sum(e[2] for e in entries)
         if not total:
             return 0.0
-        gathers = [e for e in entries if e[0] == "all_gather"]
-        reduces = [e for e in entries if e[0] != "all_gather"]
+        gathers = [e for e in entries if e[0].endswith("all_gather")]
+        reduces = [e for e in entries if not e[0].endswith("all_gather")]
         exposed = (gathers[0][2] if gathers else 0) + (reduces[0][2] if reduces else 0)
         return max(0.0, 1.0 - exposed / total)
 
@@ -330,7 +397,7 @@ class OverlapSchedule:
         """:meth:`comm_plan_entries` summed by op: the ``comm.counters()``
         one micro-batch adds."""
         out: Dict[str, Dict[str, int]] = {}
-        for op, calls, nbytes, _, _ in self.comm_plan_entries():
+        for op, calls, nbytes, *_ in self.comm_plan_entries():
             c = out.setdefault(op, {"calls": 0, "bytes": 0})
             c["calls"] += calls
             c["bytes"] += nbytes
@@ -359,11 +426,19 @@ class OverlapSchedule:
             self._complete(self._pending.pop(0))
         scatter = [x for x in staged if x[3] != "sum"]
         sums = [x for x in staged if x[3] == "sum"]
-        if scatter:
+        if scatter and self.qcomm.reduce_scatter:
+            from deepspeed_tpu_torch.comm.collectives_q import q_reduce_scatter_dim
+
+            pends = [_Done(q_reduce_scatter_dim(g, self.groups["fsdp"],
+                                                self.plan[slot[0]].pdim,
+                                                block=self.qcomm.block, record=False))
+                     for g, slot, _, _ in scatter]
+        elif scatter:
             with comm.coalescing(self.groups["fsdp"]):
                 pends = [comm.reduce_scatter(g, self.groups["fsdp"],
                                              self.plan[slot[0]].pdim, async_op=True)
                          for g, slot, _, _ in scatter]
+        if scatter:
             if self.sizes.get("dp", 1) > 1:
                 # the rest of the data axes: the shards summed over dp
                 shards = [p.wait() for p in pends]
@@ -420,13 +495,30 @@ class OverlapSchedule:
         if not leaves:
             return {}
         out = {}
+        srcs = []
+        for leaf in leaves:
+            src = self._master[leaf.index]
+            src = src[b0:b1] if leaf.stacked else src
+            srcs.append(src.detach().to(self.compute_dtype))
+        if self.qcomm.all_gather:
+            from deepspeed_tpu_torch.ops.kernels.comm_quant import quantize_blockwise
+
+            codes = [quantize_blockwise(x.contiguous(), self.qcomm.block) for x in srcs]
+            with comm.coalescing(self.groups["fsdp"]):
+                qp = [comm.all_gather(q[0], self.groups["fsdp"], tiled=False,
+                                      async_op=True) for q, _ in codes]
+            with comm.coalescing(self.groups["fsdp"]):
+                sp = [comm.all_gather(sc[0], self.groups["fsdp"], tiled=False,
+                                      async_op=True) for _, sc in codes]
+            for leaf, x, qpend, spend in zip(leaves, srcs, qp, sp):
+                out[(leaf.index, b0, b1)] = _QGather(
+                    qpend, spend, x.shape, self.plan[leaf.index].pdim, self.compute_dtype)
+            return out
         with comm.coalescing(self.groups["fsdp"]):
-            for leaf in leaves:
-                src = self._master[leaf.index]
-                src = src[b0:b1] if leaf.stacked else src
+            for leaf, x in zip(leaves, srcs):
                 out[(leaf.index, b0, b1)] = comm.all_gather(
-                    src.detach().to(self.compute_dtype), self.groups["fsdp"],
-                    gather_dim=self.plan[leaf.index].pdim, async_op=True)
+                    x, self.groups["fsdp"], gather_dim=self.plan[leaf.index].pdim,
+                    async_op=True)
         return out
 
     def _open(self, bctx: _Ctx, where: str, ins, regions, b0=0, b1=0):

@@ -33,6 +33,7 @@ from deepspeed_tpu_torch.runtime.checkpoint_engine import atomic
 from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader as TLoader
 from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader
 from deepspeed_tpu_torch.utils import zero_to_fp32 as t_z2f
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 1e-5
 TINY = dict(num_layers=2, hidden_size=64, intermediate_size=128, num_heads=4,

@@ -3318,3 +3318,73 @@ def _flat_params(tree, prefix=""):
             yield from _flat_params(tree[k], path)
         else:
             yield path, tree[k]
+
+
+# ---------------------------------------------------------------------------
+# the quantized collectives' codec (csrc/comm_quant.cu)
+# ---------------------------------------------------------------------------
+
+CODEC_CASES = [((24, 2048, 128), 256, 4), ((1000003,), 256, 1), ((33, 17), 200, 1),
+               ((4, 999), 64, 4), ((8, 1000), 7, 2), ((0,), 256, 1)]
+
+
+@pytest.mark.parametrize("shape,block,rows", CODEC_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_comm_quant_kernels_match_plain_bit_for_bit(cuda_device, dtype, shape, block, rows):
+    """The quantizer and the dequantizer (sum, concatenation with each
+    row's padding stripped, and the error form) equal their plain versions
+    on the card bit for bit, on the register path (block 256 over rows of
+    whole 16-byte vectors) and the scalar one (a tail, odd blocks, an
+    unaligned view), with a zero block; one launch a call."""
+    from deepspeed_tpu_torch.ops.kernels import comm_quant as kq
+
+    x = _randn(shape, 7, torch.float32, cuda_device, 2.0).reshape(-1)
+    x[:block] = 0.0
+    x = x.to(dtype)
+    views = [x] + ([x[1:1 + (x.numel() - 1) // rows * rows]] if x.numel() > rows else [])
+    for v in views:
+        n0 = (kq.quantize_blockwise.launches, kq.dequantize_blockwise.launches)
+        q, s = kq.quantize_blockwise_cuda(v, block, rows)
+        qp, sp = kq.quantize_blockwise_plain(v, block, rows)
+        assert torch.equal(q, qp) and torch.equal(s, sp)
+        keep = v.numel() // rows
+        outs = [(True, torch.float32), (False, dtype), (False, torch.float32)]
+        for add, odt in outs:
+            assert torch.equal(kq.dequantize_blockwise_cuda(q, s, keep, add, odt),
+                               kq.dequantize_blockwise_plain(q, s, keep, add, odt))
+        base = v.float().contiguous()
+        assert torch.equal(kq.dequantize_error_cuda(base, q, s),
+                           kq.dequantize_error_plain(base, q, s))
+        launched = v.numel() > 0
+        assert (kq.quantize_blockwise.launches, kq.dequantize_blockwise.launches) == (
+            n0[0] + launched, n0[1] + 4 * launched)
+
+
+def test_comm_quant_collectives_at_world_one_on_card(cuda_device):
+    """``q_all_gather_flat`` and ``q_reduce_scatter_flat`` over a world-one
+    NCCL group quantize (as the JAX functions do at one rank) through the
+    kernels: each the plain codec's round trip of its input."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from deepspeed_tpu_torch.comm import collectives_q as cq
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.ops.kernels import comm_quant as kq
+
+    with tempfile.TemporaryDirectory() as root:
+        comm.init_distributed(device="cuda", store=dist.FileStore(f"{root}/s", 1),
+                              rank=0, world_size=1, verbose=False)
+        try:
+            g = _randn((3, 4096), 9, torch.float32, cuda_device).reshape(-1)
+            w = g.to(torch.bfloat16)
+            n0 = kq.quantize_blockwise.launches
+            got_g = cq.q_all_gather_flat(w, None)
+            got_r = cq.q_reduce_scatter_flat(g, None)
+            assert kq.quantize_blockwise.launches == n0 + 2
+            q, s = kq.quantize_blockwise_plain(w, 256)
+            assert torch.equal(got_g, kq.dequantize_blockwise_plain(q, s, w.numel()))
+            q, s = kq.quantize_blockwise_plain(g, 256)
+            assert torch.equal(got_r, kq.dequantize_blockwise_plain(q, s, g.numel(), True))
+        finally:
+            comm.destroy()

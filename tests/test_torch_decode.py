@@ -30,6 +30,7 @@ from deepspeed_tpu_torch.models import causal_lm as t_causal_lm
 from deepspeed_tpu_torch.models import fused_decode as tfd
 from deepspeed_tpu_torch.models import jax_params_to_torch
 from deepspeed_tpu_torch.ops.kernels import decode as tdec
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2, "float16": 2.5e-3}
 WIDE_TOL = {"float32": 1e-4, "bfloat16": 2e-2}

@@ -40,6 +40,7 @@ from deepspeed_tpu_torch.models.convert import torch_params_to_numpy
 from deepspeed_tpu_torch.ops.kernels.dropout import dropout, dropout_bwd
 from deepspeed_tpu_torch.runtime.activation_checkpointing import checkpointing as tac
 from deepspeed_tpu_torch.utils import prng
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TINY = dict(num_layers=2, hidden_size=64, intermediate_size=128, num_heads=4,
             num_kv_heads=2, vocab_size=256, max_seq_len=128)

@@ -21,6 +21,7 @@ from deepspeed_tpu_torch.utils import prng
 from tests import test_torch_dropout as dense
 from tests.test_torch_dropout import (POLICIES, _np,  # noqa: F401 (fixtures)
                                       partitionable_threefry, restore_mesh)
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.mark.parametrize("policy", POLICIES, ids=lambda p: p or "none")

@@ -27,6 +27,7 @@ from deepspeed_tpu.ops.pallas.flash_attention import flash_attention as j_flash
 from deepspeed_tpu_torch.models.layers import alibi_bias, alibi_slopes
 from deepspeed_tpu_torch.ops.kernels import flash_attention as tfa
 from deepspeed_tpu_torch.ops.kernels.common import alibi_slopes_on
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 1e-5
 NON_CAUSAL_TOL = 1e-4

@@ -60,6 +60,7 @@ from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig as TConfig
 from deepspeed_tpu_torch.runtime.config import FP16Config as TFP16Config
 from deepspeed_tpu_torch.runtime.fp16 import loss_scaler as t_scaler
 from deepspeed_tpu_torch.runtime.utils import has_overflow
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TINY = dict(num_layers=2, hidden_size=64, intermediate_size=128, num_heads=4,
             num_kv_heads=2, vocab_size=256, max_seq_len=128)

@@ -42,6 +42,7 @@ from deepspeed_tpu_torch.models import decoding as tdec
 from deepspeed_tpu_torch.models import fused_decode as tfd
 from deepspeed_tpu_torch.models import jax_params_to_torch
 from deepspeed_tpu_torch.models.convert import torch_params_to_numpy
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 GPT2_TINY = dict(num_layers=2, hidden_size=64, intermediate_size=128,
                  num_heads=4, vocab_size=256, max_seq_len=512)

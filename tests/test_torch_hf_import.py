@@ -29,6 +29,7 @@ from deepspeed_tpu.module_inject import containers as jct
 from deepspeed_tpu_torch.models.convert import torch_params_to_numpy
 from deepspeed_tpu_torch.models.transformer import CausalLM
 from deepspeed_tpu_torch.module_inject import containers as tct
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 transformers = pytest.importorskip("transformers")
 

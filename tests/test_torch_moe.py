@@ -43,6 +43,7 @@ from deepspeed_tpu_torch.models import decoding as tdec
 from deepspeed_tpu_torch.models import jax_params_to_torch
 from deepspeed_tpu_torch.moe import layer as tlayer
 from deepspeed_tpu_torch.moe import sharded_moe as tmoe
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 D, F, E = 32, 48, 8
 

@@ -40,6 +40,7 @@ from deepspeed_tpu_torch.models import causal_lm as t_causal_lm
 from deepspeed_tpu_torch.models import jax_params_to_torch
 from deepspeed_tpu_torch.models.convert import torch_params_to_numpy
 from deepspeed_tpu_torch.moe import sharded_moe as tmoe
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 1e-5
 D, F, E = 64, 96, 4

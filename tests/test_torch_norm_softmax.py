@@ -27,6 +27,7 @@ from deepspeed_tpu.ops.pallas import scaled_masked_softmax as j_softmax
 from deepspeed_tpu_torch.ops import kernels as tk
 from deepspeed_tpu_torch.ops.kernels import layer_norm as tln
 from deepspeed_tpu_torch.ops.kernels import softmax as tsm
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2, "float16": 2.5e-3}
 SOFTMAX_TOL = {"float32": 1e-6, "bfloat16": 2e-2}

@@ -53,6 +53,7 @@ from deepspeed_tpu_torch.ops.aio import aio_handle
 from deepspeed_tpu_torch.ops.lion import DeepSpeedCPULion, lion_step_plain
 from deepspeed_tpu_torch.runtime.swap_tensor import OptimizerStateSwapper
 from deepspeed_tpu_torch.runtime.zero.offload import OffloadedOptimizer
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TINY = dict(num_layers=2, hidden_size=64, intermediate_size=128, num_heads=4,
             num_kv_heads=2, vocab_size=256, max_seq_len=128)

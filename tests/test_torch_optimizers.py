@@ -57,6 +57,7 @@ from deepspeed_tpu_torch.ops.kernels import fused_lamb as tlamb
 from deepspeed_tpu_torch.ops.lamb import FusedLamb
 from deepspeed_tpu_torch.runtime import lr_schedules as tlr
 from deepspeed_tpu_torch.runtime.optimizer import build_optimizer
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TINY = dict(num_layers=2, hidden_size=64, intermediate_size=128, num_heads=4,
             num_kv_heads=2, vocab_size=256, max_seq_len=128)
@@ -120,6 +121,10 @@ def test_fused_adam8bit_matches_jax_from_the_same_state(impl, n, block, pdtype,
         jnp.asarray(ms.numpy()), jnp.asarray(vq.numpy()), jnp.asarray(vs.numpy()),
         c1, c2, lr, 0, b1=KW8["beta1"], b2=KW8["beta2"], eps=KW8["eps"],
         wd=KW8["weight_decay"], sr=False, impl=impl)
+    # the JAX inputs may share the state's memory (a zero-copy transfer on
+    # the CPU) and JAX runs asynchronously: finish it before the port
+    # updates the state in place
+    out = jax.block_until_ready(out)
     t8.fused_adam8bit_update(tp, torch.from_numpy(g), mq, ms, vq, vs, step,
                              lr=lr, **KW8)
     jp = np.asarray(out[0].astype(jnp.float32)).reshape(-1)[:n]

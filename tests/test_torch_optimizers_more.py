@@ -50,6 +50,7 @@ from deepspeed_tpu_torch.runtime.checkpoint_engine import ShardedCheckpointEngin
 from deepspeed_tpu_torch.runtime.checkpoint_engine.sharded import (keystr,
                                                                    tree_flatten_with_path)
 from deepspeed_tpu_torch.runtime.optimizer import build_optimizer
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TINY = dict(num_layers=2, hidden_size=64, intermediate_size=128, num_heads=4,
             num_kv_heads=2, vocab_size=256, max_seq_len=128)

@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "deepspeed_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "gemv16_probe.py",
@@ -270,12 +272,13 @@ def test_initialize_without_a_card_raises(monkeypatch):
 
 
 _REFUSED = [
-    # ZeRO++ where the JAX engine runs it (stage 3 over an fsdp axis > 1 the
-    # hpz size divides), checked through the config at that world
-    ({"zero_optimization": {"stage": 3, "zero_hpz_partition_size": 2}}, 4),
-    ({"zero_optimization": {"stage": 3, "zero_quantized_weights": True}}, 2),
+    # the comm_quantization sites that need the parallel meshes, and ZeRO++
+    # beside offload_param over ranks, checked through the config at that world
+    ({"comm_quantization": {"all_to_all": True}, "mesh": {"ep": 2}}, 2),
+    ({"comm_quantization": {"sequence_ring": True}, "mesh": {"sp": 2}}, 2),
+    ({"zero_optimization": {"stage": 3, "zero_quantized_weights": True,
+                            "offload_param": {"device": "cpu"}}}, 2),
     ({"zero_optimization": {"stage": 1, "offload_param": {"device": "cpu"}}}, 1),
-    ({"comm_quantization": {"all_gather": True}}, 1),
     ({"pipeline": {"stages": 2}}, 1), ({"mesh": {"tp": 2}}, 1),
     ({"tensor_parallel": {"tp_size": 2}}, 1), ({"tensorboard": {"enabled": True}}, 1),
     ({"flops_profiler": {"enabled": True}}, 1), ({"watchdog": {"enabled": True}}, 1),

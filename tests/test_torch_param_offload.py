@@ -47,6 +47,7 @@ from deepspeed_tpu.comm.mesh import build_mesh
 from deepspeed_tpu.comm.quant import quantize_tree_np
 from deepspeed_tpu.models import causal_lm as j_causal_lm
 from deepspeed_tpu_torch.models import causal_lm as t_causal_lm
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TINY = dict(num_layers=2, hidden_size=64, intermediate_size=128, num_heads=4,
             num_kv_heads=2, vocab_size=256, max_seq_len=128)

@@ -30,6 +30,7 @@ from deepspeed_tpu.models import quant as jquant
 from deepspeed_tpu_torch.models import causal_lm as t_causal_lm
 from deepspeed_tpu_torch.models import jax_params_to_torch
 from deepspeed_tpu_torch.models import quant as tquant
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TINY = dict(num_layers=2, hidden_size=64, intermediate_size=128, num_heads=4,
             num_kv_heads=2, vocab_size=256, tie_embeddings=False)

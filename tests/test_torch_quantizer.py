@@ -22,6 +22,7 @@ import torch
 
 from deepspeed_tpu.ops.pallas import quantizer as jq
 from deepspeed_tpu_torch.ops.kernels import quantizer as tq
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _np(shape, seed, scale=1.0):

@@ -26,6 +26,7 @@ from deepspeed_tpu.models import layers as jlayers
 from deepspeed_tpu.ops.pallas import apply_rotary_pos_emb as j_rope
 from deepspeed_tpu.ops.pallas import rope_angles as j_rope_angles
 from deepspeed_tpu_torch.ops.kernels import rope as trope
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2, "float16": 2.5e-3}
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16, "float16": jnp.float16}

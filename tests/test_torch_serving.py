@@ -30,6 +30,7 @@ from deepspeed_tpu_torch.serving import IterationScheduler as TScheduler
 from deepspeed_tpu_torch.serving import PagedKVPool as TPool
 from deepspeed_tpu_torch.serving import PrefixCache as TCache
 from deepspeed_tpu_torch.serving import Request as TRequest
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 # ---------------------------------------------------------------------------

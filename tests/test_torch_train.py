@@ -43,6 +43,7 @@ from deepspeed_tpu_torch.ops.kernels import fused_adam as tadam
 from deepspeed_tpu_torch.ops.kernels import layer_norm as tln
 from deepspeed_tpu_torch.ops.kernels import rope as trope
 from deepspeed_tpu_torch.runtime import lr_schedules as tlr
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 1e-5
 TINY = dict(num_layers=2, hidden_size=64, intermediate_size=128, num_heads=4,

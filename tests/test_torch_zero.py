@@ -47,6 +47,7 @@ from deepspeed_tpu_torch.models.config import get_model_config
 from deepspeed_tpu_torch.models.transformer import CausalLM, param_shapes
 from deepspeed_tpu_torch.runtime.zero import partition as tpart
 from tests.torch_zero_ranks import RankGroup, flat, zero_scenarios
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 LOSS_RTOL, NORM_RTOL, PARAM_ATOL = 2e-5, 1e-4, 1e-4
 S = 32

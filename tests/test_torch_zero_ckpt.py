@@ -32,6 +32,7 @@ from deepspeed_tpu_torch.utils.zero_to_fp32 import get_fp32_state_dict_from_zero
 from tests.test_torch_zero import (TINY, close_params, config, init_params,
                                    token_batches)
 from tests.torch_zero_ranks import RankGroup, ckpt_scenarios, flat
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 STEP_RTOL, NORM_RTOL = 2e-5, 1e-4
 

@@ -24,6 +24,7 @@ import deepspeed_tpu_torch
 from deepspeed_tpu_torch.comm import comm
 from tests.test_torch_zero import TINY, close_steps, config, init_params, jax_train, token_batches
 from tests.torch_zero_ranks import RankGroup, rank_rows, zero_scenarios
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 LOSS_RTOL, NORM_RTOL = 1e-3, 1e-2
 ADAMW = {"type": "AdamW", "params": {"lr": 3e-3, "betas": [0.9, 0.95],

@@ -37,6 +37,7 @@ from tests.test_torch_zero import (TINY, _shapes, _spec_tuples, close_params,
                                    close_steps, config, jax_train, masked_batches,
                                    token_batches)
 from tests.torch_zero_ranks import RankGroup, flat, rank_rows, zero_scenarios
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 GPT2_4L = dict(TINY["gpt2-small"], num_layers=4)
 
@@ -358,7 +359,7 @@ def test_unroutable_batch_fails_loudly():
 
 
 # ---------------------------------------------------------------------------
-# ZeRO++ knobs: inert with the JAX engine's reasons, refused where it runs
+# ZeRO++ knobs: inert with the JAX engine's reasons, run where it runs
 # ---------------------------------------------------------------------------
 
 ZEROPP_CASES = {
@@ -378,9 +379,10 @@ def test_zeropp_knobs_follow_the_jax_engines_gate(case, caplog):
     """``zero_quantized_weights``, ``zero_quantized_gradients`` and
     ``zero_hpz_partition_size``: the port's gate (``runtime/config.py``
     ``zeropp_gate``) gives the JAX engine's reason on the same mesh and the
-    same inert keys; where the JAX engine runs ZeRO++ the port refuses,
-    naming "item 2e, ZeRO++".  At a world of one the port's engine warns
-    and trains."""
+    same inert keys; where the JAX engine runs ZeRO++ the port's config
+    takes it too (``runtime/zero/zeropp.py``; the runs themselves are held
+    to the JAX engine in ``tests/test_torch_zeropp.py``).  At a world of one
+    the port's engine warns and trains."""
     from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig, zeropp_gate
 
     zero, over, world = ZEROPP_CASES[case]
@@ -399,8 +401,7 @@ def test_zeropp_knobs_follow_the_jax_engines_gate(case, caplog):
     assert wanted and why == jeng._zeropp_reason
     if why is None:
         assert jeng._zeropp
-        with pytest.raises(NotImplementedError, match="item 2e, ZeRO"):
-            DeepSpeedConfig(cfg, world_size=world)
+        DeepSpeedConfig(cfg, world_size=world)       # accepted: ZeRO++ runs
         return
     jkeys = [k for k in jeng._inert_config_keys if "zero_" in k]
     assert jkeys and all(k.startswith("zero_optimization.zero_") for k in jkeys)

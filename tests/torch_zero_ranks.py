@@ -233,6 +233,107 @@ def state_numels(engine) -> List[Any]:
     return out
 
 
+def zeropp_run(rank, world, preset, model_kw, np_params, config, batches,
+               root=None, other=None):
+    """The ZeRO++ path: train, and with ``root`` save a tag after step 2
+    and the 16-bit export after step 3; a fresh engine loads the tag and
+    takes step 3; an engine of the ``other`` config refuses the tag."""
+    import os
+
+    engine = build_engine(preset, model_kw, np_params, config)
+    out = {"zeropp": engine._zeropp, "reason": engine._zeropp_reason,
+           "inert": engine._inert_config_keys}
+    steps = []
+    for i, b in enumerate(batches):
+        if root is not None and i == 2:
+            engine.save_checkpoint(root, tag="t")
+            out["saved"] = full_params(engine)
+        loss = engine.train_step(rank_rows(b, rank, world))
+        steps.append((float(loss), engine.get_global_grad_norm()))
+    out.update(steps=steps, params=full_params(engine), qcounts=None)
+    if root is None:
+        return out
+    from deepspeed_tpu_torch.comm import comm
+
+    comm.reset_counters()
+    export = engine.save_16bit_model(os.path.join(root, "export"))
+    fresh = build_engine(preset, model_kw, np_params, config)
+    fresh.load_checkpoint(root, tag="t")
+    out["loaded"] = full_params(fresh)
+    loss = fresh.train_step(rank_rows(batches[2], rank, world))
+    out["resumed"] = (float(loss), fresh.get_global_grad_norm())
+    out["resumed_params"] = full_params(fresh)
+    out["export"] = export
+    if other is not None:
+        wrong = build_engine(preset, model_kw, np_params, other)
+        try:
+            wrong.load_checkpoint(root, tag="t")
+            out["refused"] = None
+        except ValueError as exc:
+            out["refused"] = str(exc)
+    return out
+
+
+def collectives_run(rank, world, inputs, block):
+    """Every quantized collective on this rank's rows of ``inputs`` (name
+    -> [world, ...] arrays), over the world (and hpZ subgroups of 2 at
+    world 4); their outputs as numpy, and the q counters."""
+    from deepspeed_tpu_torch.comm import collectives_q as cq
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.runtime.comm import quantized as rq
+
+    def t(name):
+        return torch.from_numpy(np.ascontiguousarray(inputs[name][rank]))
+
+    def n(x):
+        return x.detach().float().numpy().copy()
+
+    comm.reset_counters()
+    out = {}
+    x1, x2 = t("ar"), t("ar2")
+    o1, r1 = cq.q_all_reduce(x1, None, block=block, residual=torch.zeros_like(x1))
+    o2, r2 = cq.q_all_reduce(x2, None, block=block, residual=r1)
+    out["q_all_reduce_ef"] = [n(o1), n(r1), n(o2), n(r2)]
+    o3, _ = cq.q_all_reduce(t("ar_bf16").to(torch.bfloat16), None, block=block,
+                            mean=False)
+    out["q_all_reduce_sum_bf16"] = [n(o3)]
+    tree, _ = cq.q_all_reduce_tree({"a": x1, "b": [t("ar2")]}, None, block=block)
+    out["q_all_reduce_tree"] = [n(tree["a"]), n(tree["b"][0])]
+    out["q_all_gather"] = [n(cq.q_all_gather(t("ag").to(torch.bfloat16), None,
+                                             block=block))]
+    out["q_all_gather_flat"] = [n(cq.q_all_gather_flat(t("agf"), None, block=block))]
+    out["q_all_gather_dim"] = [n(cq.q_all_gather_dim(t("agd"), None, 1, block=block))]
+    if world == 4:
+        groups = [comm.new_group([0, 1]), comm.new_group([2, 3])]
+        out["q_all_gather_flat_hpz"] = [n(cq.q_all_gather_flat(
+            t("agf"), groups[rank // 2], block=block))]
+    out["q_reduce_scatter_flat"] = [n(cq.q_reduce_scatter_flat(t("rsf"), None,
+                                                               block=block))]
+    out["q_reduce_scatter"] = [n(cq.q_reduce_scatter(t("rs"), None, block=block))]
+    out["q_reduce_scatter_dim"] = [n(cq.q_reduce_scatter_dim(t("rsd"), None, 1,
+                                                             block=block))]
+    out["q_all_to_all"] = [n(cq.q_all_to_all(t("a2a"), None, 1, 0, block=block))]
+    out["quantized_all_gather"] = [n(rq.quantized_all_gather(t("ag"), None, block))]
+    out["quantized_reduce_scatter"] = [n(rq.quantized_reduce_scatter(t("rs"), None,
+                                                                     block))]
+    out["all_to_all_single_quantized"] = [n(comm.all_to_all_single(
+        t("a2a"), None, 1, 2, quantized=True, quant_block=block))]
+    out["q_counters"] = comm.q_counters()
+    return out
+
+
+def engine_gates(rank, world, preset, model_kw, config):
+    """An engine's gates, without a step: the inert keys and the paths."""
+    model_over = dict(model_kw)
+    engine = build_engine(preset, model_over, None, config)
+    sched = engine._overlap_sched
+    return {"inert": engine._inert_config_keys, "zeropp": engine._zeropp,
+            "zeropp_reason": engine._zeropp_reason,
+            "qcomm": engine._qcomm_grads, "qcomm_reason": engine._qcomm_grads_reason,
+            "overlap": engine._overlap,
+            "qopts": tuple(sched.qcomm) if sched is not None else None}
+
+
 def zero_scenarios(rank, world, cases):
     """Every world-``world`` case in one group: ``cases`` maps a name to
     ``(kind, kwargs)``."""
@@ -252,6 +353,12 @@ def zero_scenarios(rank, world, cases):
             res = gathered_run(rank, world, **kw)
         elif kind == "overlap_ckpt":
             res = overlap_ckpt_scenarios(rank, world, **kw)
+        elif kind == "zeropp":
+            res = zeropp_run(rank, world, **kw)
+        elif kind == "collectives":
+            res = collectives_run(rank, world, **kw)
+        elif kind == "gates":
+            res = engine_gates(rank, world, **kw)
         else:
             raise ValueError(kind)
         res["counters"] = comm.counters()
